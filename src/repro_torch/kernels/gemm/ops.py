@@ -1,0 +1,86 @@
+"""Public GEMM wrappers: the hand-written kernel on CUDA, the plain version
+on CPU.
+
+``matmul(a, b)`` computes ``a @ b`` and ``matmul_accumulate(c, a, b)``
+computes ``c + a @ b`` (the Bind tile transaction ``gemm(a, b, c: InOut)``)
+in one launch.  Both take 2-D contiguous float32, bfloat16 or float64
+tensors of one dtype on one device and return a new tensor of that dtype.
+The kernel masks ragged edges itself, so unlike the reference's
+``ops.py`` nothing is padded.
+
+On a CUDA tensor a wrapper launches the kernel or raises; on a CPU tensor,
+and only there, it computes the plain version (:mod:`.ref`).  Each wrapper
+counts its kernel launches in ``launches`` (a plain integer on the
+function), so a run can show that its main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import kernel, ref
+
+DTYPES = tuple(kernel.SYMBOLS)
+
+
+def _check(*tensors: torch.Tensor) -> None:
+    first = tensors[0]
+    for t in tensors:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"expected a torch.Tensor, got {type(t).__name__}")
+        if t.dim() != 2:
+            raise ValueError(f"expected a 2-D tensor, got shape "
+                             f"{tuple(t.shape)}")
+        if t.dtype not in DTYPES:
+            raise TypeError(f"dtype {t.dtype} is not supported; "
+                            f"expected one of {DTYPES}")
+        if t.dtype != first.dtype:
+            raise TypeError(f"mixed dtypes {first.dtype} and {t.dtype}")
+        if t.device != first.device:
+            raise ValueError(f"tensors on {first.device} and {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("expected contiguous (row-major) tensors")
+    if first.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {first.device}")
+
+
+def _shapes(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
+    if a.shape[1] != b.shape[0]:
+        raise ValueError(f"inner dimensions differ: {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    return a.shape[0], b.shape[1]
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with the accumulator of :func:`.ref.acc_dtype`."""
+    _check(a, b)
+    m, n = _shapes(a, b)
+    if a.device.type == "cpu":
+        return ref.matmul(a, b)
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    if out.numel():
+        kernel.launch(a, b, None, out)
+        matmul.launches += 1
+    return out
+
+
+matmul.launches = 0
+
+
+def matmul_accumulate(c: torch.Tensor, a: torch.Tensor,
+                      b: torch.Tensor) -> torch.Tensor:
+    """``c + a @ b``, the sum taken in the accumulator type, in one launch."""
+    _check(c, a, b)
+    m, n = _shapes(a, b)
+    if tuple(c.shape) != (m, n):
+        raise ValueError(f"c has shape {tuple(c.shape)}, expected {(m, n)}")
+    if a.device.type == "cpu":
+        return ref.matmul_accumulate(c, a, b)
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    if out.numel():
+        kernel.launch(a, b, c, out)
+        matmul_accumulate.launches += 1
+    return out
+
+
+matmul_accumulate.launches = 0

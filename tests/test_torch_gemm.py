@@ -1,0 +1,124 @@
+"""The GEMM kernel's plain version against the reference Pallas kernel.
+
+On the CPU the port's ``matmul`` / ``matmul_accumulate`` compute the plain
+PyTorch version (the CUDA kernel itself runs only on the card, where
+``chip_smoke.py`` holds it against this same plain version).  Here the
+plain version is held against ``repro.kernels.gemm.ops.matmul`` run in
+Pallas interpret mode, on the reference's shapes and tolerances
+(``tests/test_kernels.py``), and the wrappers' checks and launch counters
+are pinned.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_kernels import GEMM_SHAPES
+
+from repro.kernels.gemm import ops as ref_ops
+from repro_torch.compat import to_numpy
+from repro_torch.kernels.gemm import kernel, ops, ref
+
+DTYPES = {"float32": (jnp.float32, torch.float32, (1e-4, 1e-3)),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, (2e-2, 2e-1))}
+
+
+def _pair(rng, shape, dname):
+    """The same values as a jax array and a CPU tensor of one dtype."""
+    jdt, tdt, _ = DTYPES[dname]
+    x = rng.normal(size=shape).astype(np.float32)
+    return jnp.asarray(x, dtype=jdt), torch.from_numpy(x).to(tdt)
+
+
+@pytest.fixture(autouse=True)
+def _zero_counters():
+    ops.matmul.launches = 0
+    ops.matmul_accumulate.launches = 0
+    yield
+    # a CPU call computes the plain version and never launches the kernel
+    assert ops.matmul.launches == 0
+    assert ops.matmul_accumulate.launches == 0
+
+
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES)
+@pytest.mark.parametrize("dname", sorted(DTYPES))
+def test_matmul_matches_reference_kernel(m, k, n, dname):
+    rng = np.random.default_rng(m * 1000 + k * 10 + n)
+    ja, ta = _pair(rng, (m, k), dname)
+    jb, tb = _pair(rng, (k, n), dname)
+    exp = ref_ops.matmul(ja, jb, bm=64, bn=64, bk=64, interpret=True)
+    got = ops.matmul(ta, tb)
+    assert got.dtype == ta.dtype and tuple(got.shape) == exp.shape
+    rtol, atol = DTYPES[dname][2]
+    np.testing.assert_allclose(to_numpy(got), np.asarray(exp, np.float32),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dname", sorted(DTYPES))
+@pytest.mark.parametrize("m,k,n", [(64, 48, 32), (130, 70, 260)])
+def test_matmul_accumulate_matches_reference_kernel(m, k, n, dname):
+    rng = np.random.default_rng(7)
+    jc, tc = _pair(rng, (m, n), dname)
+    ja, ta = _pair(rng, (m, k), dname)
+    jb, tb = _pair(rng, (k, n), dname)
+    exp = ref_ops.matmul_accumulate(jc, ja, jb, bm=32, bn=32, bk=32,
+                                    interpret=True)
+    got = ops.matmul_accumulate(tc, ta, tb)
+    assert got.dtype == tc.dtype
+    # float32: the accumulate contract of tests/test_kernels.py
+    rtol, atol = (1e-5, 1e-5) if dname == "float32" else DTYPES[dname][2]
+    np.testing.assert_allclose(to_numpy(got), np.asarray(exp, np.float32),
+                               rtol=rtol, atol=atol)
+
+
+def test_float64_accumulates_in_float64():
+    """A NumPy float64 matrix moved to the port stays float64 end to end
+    (the paper's leaf is DGEMM): the plain version sums in float64."""
+    rng = np.random.default_rng(3)
+    a, b, c = (rng.normal(size=s) for s in ((33, 17), (17, 9), (33, 9)))
+    ta, tb, tc = (torch.from_numpy(x) for x in (a, b, c))
+    got = ops.matmul_accumulate(tc, ta, tb)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), c + a @ b, rtol=1e-12,
+                               atol=1e-12)
+    assert ref.acc_dtype(torch.float64) == torch.float64
+    assert ref.acc_dtype(torch.bfloat16) == torch.float32
+
+
+@pytest.mark.parametrize("bad, err", [
+    (lambda a, b: (a.t(), b), ValueError),                  # not contiguous
+    (lambda a, b: (a, b.double()), TypeError),              # mixed dtypes
+    (lambda a, b: (a.half(), b.half()), TypeError),         # no kernel dtype
+    (lambda a, b: (a[0], b), ValueError),                   # not 2-D
+    (lambda a, b: (a, b[:3]), ValueError),                  # inner mismatch
+    (lambda a, b: (a.numpy(), b), TypeError),               # not a tensor
+    (lambda a, b: (a.to("meta"), b.to("meta")), ValueError),  # no kernel
+])
+def test_wrappers_reject_what_the_kernel_does_not_take(bad, err):
+    a, b = torch.ones(4, 4), torch.ones(4, 4)
+    x, y = bad(a, b)
+    with pytest.raises(err):
+        ops.matmul(x, y)
+
+
+def test_accumulate_rejects_wrong_c_shape():
+    with pytest.raises(ValueError):
+        ops.matmul_accumulate(torch.zeros(3, 3), torch.ones(4, 2),
+                              torch.ones(2, 4))
+
+
+def test_build_raises_without_nvcc(tmp_path, monkeypatch):
+    """No compiler, no kernel: the build raises instead of falling back."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernel.nvcc()
+
+
+def test_library_name_tracks_the_sources():
+    path = kernel.library_path()
+    assert path.parent == kernel.BUILD_DIR
+    assert path.name.startswith("libbind_gemm_") and path.suffix == ".so"
+    assert path == kernel.library_path()        # deterministic
+    assert set(kernel.SYMBOLS) == set(ops.DTYPES)
+    assert "sm_90a" in " ".join(kernel.NVCC_FLAGS)

@@ -1,0 +1,39 @@
+"""The port stands alone: importing every ``repro_torch`` module loads no
+``jax`` and no module of the reference package ``repro``."""
+
+import os
+import subprocess
+import sys
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+# "repro_torch" shares a prefix with "repro": match "repro" and "repro.*"
+# exactly, never a bare startswith("repro")
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(k for k in sys.modules
+             if k in ("jax", "jaxlib", "repro")
+             or k.startswith(("jax.", "jaxlib.", "repro.")))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    import json
+
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    # the walk reached every layer of the package
+    for mod in ("repro_torch.core.scheduler", "repro_torch.core.backends.serial",
+                "repro_torch.kernels.gemm.ops", "repro_torch.linalg.distributed",
+                "repro_torch.launch.mesh", "repro_torch.compat"):
+        assert mod in got["modules"], mod
+    assert got["bad"] == [], f"repro_torch pulled in: {got['bad']}"
