@@ -9,27 +9,50 @@ Phases, each on its own lines; any failure raises and exits non-zero:
 
 1. environment: the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions; TF32 is switched off for float32 products;
-2. build: the hand-written GEMM kernel is compiled from
-   ``src/repro_torch/kernels/gemm/csrc/gemm.cu`` into ``build/``;
+2. build: the hand-written kernels are compiled from the checkout's
+   sources into ``build/``, one ``nvcc`` per library, both started
+   together: the GEMM (``src/repro_torch/kernels/gemm/csrc/gemm.cu``) and
+   the chain kernels (``src/repro_torch/kernels/chain/csrc/chain.cu``);
 3. the GEMM kernel against its plain PyTorch version on the card, at the
    main path's leaf shape 1024^3 in float32, bfloat16 and float64, at the
    ragged shapes (130, 70, 260) and (1, 128, 1), and for
    ``matmul_accumulate``; at 1024^3 the kernel's time beside the plain
    version's, ``torch.matmul``'s (``torch.addmm``'s for the accumulate) as
    a yardstick the port never calls, and the card's bound;
-4. Listing 1 (``run_distributed_gemm``) at n=8192, ib=1024, float32, a
+4. the chain kernels on the card: ``chain_ewise`` (``scan_step``) bit for
+   bit against its plain version (a per-level PyTorch loop of ``a * y +
+   x``) in float32, bfloat16 and float64 over every layout of its two
+   exterior operands at 1024^2 x 64 levels and at the ragged (1000, 37);
+   ``chain_dot`` (``gemm_tile``) at 1024^3 x 8 levels and the ragged
+   (130, 70, 260), with per-level and shared ``a``/``b``, bit for bit
+   against per-level replay of ``gemm_tile`` (what ``serial`` runs: one
+   GEMM-kernel launch per level) and within the GEMM's tolerance of its
+   plain version (a per-level loop of PyTorch's ``c + a @ b``); the
+   kernels' times and errors on the timed inputs beside their plain
+   versions' times, their bounds and, for ``chain_dot``, ``torch.addmm``
+   over the levels concatenated along K;
+5. Listing 1 (``run_distributed_gemm``) at n=8192, ib=1024, float32, a
    2x2 grid of simulated ranks on the one card, cold then warm: 512 kernel
    launches and a relative error <= 1e-4 against a float64 product;
-5. Strassen (``gemm_strassen``) on the same 8x8 grid of 1024 tiles: 343
+6. Strassen (``gemm_strassen``) on the same 8x8 grid of 1024 tiles: 343
    kernel launches and a relative error <= 1e-3;
-   after each run of 4 and of 5, dropping the result must give back the
-   device memory the run allocated (a finished workflow is freed by
-   reference counting, not at the next cyclic garbage collection);
-   after the warm run of 4 and of 5, one more run under ``torch.profiler``
-   prints the device time by kernel and the device's busy share, and
-   checks that the card ran exactly as many GEMM kernels as were counted;
-6. a ``kernels`` JSON line (every ported kernel with its launches on the
-   main path and its times), the card's name and power limit, and, last,
+7. the chain path through the engine, ``LocalExecutor(1, mode="plan",
+   backend=MeshBackend(pallas=True))``, cold then warm: a 64-level
+   ``scan_step`` chain on a 1024^2 float32 carry with ``x`` the same every
+   level, again with a fresh ``x`` per level, and an 8-level ``gemm_tile``
+   chain on one 1024^2 tile: one chain-kernel launch each, bitwise equal
+   to ``backend="serial"`` on the card;
+8. Listing 1 and Strassen under ``backend="fused"`` and
+   ``backend="threads"``, cold then warm: C bitwise equal to the serial
+   run's, the same transfer stream, 512 and 343 GEMM launches;
+   after each run of 5-8, dropping the result must give back the device
+   memory the run allocated (a finished workflow is freed by reference
+   counting, not at the next cyclic garbage collection); after each warm
+   run, one more run under ``torch.profiler`` prints the device time by
+   kernel and the device's busy share, and checks that the card ran
+   exactly the kernels that were counted;
+9. a ``kernels`` JSON line (every ported kernel with its launches on its
+   path and its times), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when the
@@ -42,6 +65,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -49,6 +73,8 @@ SRC = ROOT / "src"
 
 N_LISTING = 8192          # Listing 1 / Strassen matrix size
 IB = 1024                 # tile size: the leaf GEMM is IB^3
+SCAN_LEVELS = 64          # scan_step chain depth (bench_dag_overhead.py)
+DOT_LEVELS = 8            # gemm_tile chain depth: one C tile of Listing 1
 SEED = 0
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
@@ -105,12 +131,13 @@ def bound_ms(nbytes: int, flops: int, dtype: str) -> tuple[float, str]:
 
 
 def device_profile(torch, label: str, run, wall_s: float,
-                   gemm_launches: int) -> None:
+                   expect: dict) -> float:
     """Run ``run`` once more under ``torch.profiler`` and print where the
     device time goes: kernel time by name, and the device's busy share of
-    the unprofiled warm wall time ``wall_s``.  The profiled count of GEMM
-    kernels must equal ``gemm_launches``: the card ran the hand-written
-    kernel, not something in its place."""
+    the unprofiled warm wall time ``wall_s``.  ``expect`` maps a kernel
+    name to the number of its launches the card must show: the card ran
+    the hand-written kernels, not something in their place.  Returns the
+    busy share in percent."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -124,19 +151,32 @@ def device_profile(torch, label: str, run, wall_s: float,
          and e.self_device_time_total > 0),
         reverse=True)
     total = sum(ms for ms, _n, _k in kernels)
-    gemm = [(ms, cnt) for ms, cnt, key in kernels if "gemm_kernel" in key]
-    gemm_ms = sum(ms for ms, _ in gemm)
-    gemm_n = sum(cnt for _, cnt in gemm)
-    check(gemm_n == gemm_launches,
-          f"{label}: profiler saw {gemm_n} GEMM kernels, expected "
-          f"{gemm_launches}")
+    busy = 100 * total / (wall_s * 1e3)
+    parts = []
+    for name, want in expect.items():
+        hits = [(ms, cnt) for ms, cnt, key in kernels if name in key]
+        got_ms = sum(ms for ms, _ in hits)
+        got_n = sum(cnt for _, cnt in hits)
+        check(got_n == want, f"{label}: profiler saw {got_n} {name} "
+              f"launches, expected {want}")
+        if got_n:
+            parts.append(f"{name} {got_n} launches {got_ms:.3f} ms (mean "
+                         f"{got_ms / got_n:.4f} ms, "
+                         f"{100 * got_ms / total:.1f}% of device time)")
+        else:
+            parts.append(f"{name} 0 launches")
     print(f"[profile] {label} warm: device kernel time {total:.3f} ms of "
-          f"{wall_s * 1e3:.3f} ms wall (busy {100 * total / (wall_s * 1e3):.1f}"
-          f"%); gemm_kernel {gemm_n} launches {gemm_ms:.3f} ms (mean "
-          f"{gemm_ms / gemm_n:.4f} ms, {100 * gemm_ms / total:.1f}% of "
-          f"device time)")
+          f"{wall_s * 1e3:.3f} ms wall (busy {busy:.1f}%); "
+          + "; ".join(parts))
     for ms, cnt, key in kernels[:6]:
         print(f"[profile] {label}:   {ms:9.3f} ms {cnt:5d}x {key[:90]}")
+    return busy
+
+
+def bits(torch, t):
+    """``t``'s bit pattern as integers (NaNs and signed zeros compare)."""
+    width = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.contiguous().view(width[t.element_size()])
 
 
 def main() -> int:
@@ -151,7 +191,12 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     from repro_torch import core as bind
+    from repro_torch.kernels.chain import kernel as chain_kernel
+    from repro_torch.kernels.chain import ops as chain_ops
+    from repro_torch.kernels.chain import ref as chain_ref
     from repro_torch.kernels.gemm import kernel, ops, ref
+    from repro_torch.kernels.gemm.ops import gemm_tile
+    from repro_torch.kernels.linear_scan import scan_step
     from repro_torch.linalg import Tiled, gemm_strassen
     from repro_torch.linalg.distributed import run_distributed_gemm
 
@@ -166,22 +211,32 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
 
-    # -- 2. build -----------------------------------------------------------------
+    # -- 2. build: one nvcc per library, started together -------------------
     t0 = time.perf_counter()
-    lib_path, log = kernel.build()
-    kernel.load()
-    print(f"[build] {lib_path.relative_to(ROOT)} in "
+    libraries = (kernel.LIBRARY, chain_kernel.LIBRARY)
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        built = list(pool.map(lambda lib: lib.build(), libraries))
+    for lib in libraries:
+        lib.load()
+    print(f"[build] {len(libraries)} libraries in "
           f"{time.perf_counter() - t0:.3f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            print(f"[build] {line.strip()}")
+    for lib_path, log in built:
+        print(f"[build] {lib_path.relative_to(ROOT)}")
+        for line in log.splitlines():
+            if ("registers" in line or "spill" in line
+                    or "error" in line.lower()):
+                print(f"[build]   {line.strip()}")
 
-    # -- 3. kernel against its plain version --------------------------------
+    # -- 3. GEMM kernel against its plain version ----------------------------
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
 
     def rand(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def uniform(shape, dtype, bound=0.95):
+        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                * bound).to(dtype)
 
     def compare(name, got, exp, dtype_name):
         rtol, atol = TOL[dtype_name]
@@ -240,6 +295,113 @@ def main() -> int:
                     ops.matmul_accumulate(c, a, b),
                     ref.matmul_accumulate(c, a, b), dname)
 
+    # -- 4. chain kernels against their plain versions -----------------------
+    def same_bits(name, got, exp):
+        torch.cuda.synchronize()
+        check(got.dtype == exp.dtype and got.shape == exp.shape,
+              f"{name}: {got.dtype}{tuple(got.shape)} != "
+              f"{exp.dtype}{tuple(exp.shape)}")
+        check(bool(torch.isfinite(exp).all()), f"{name}: non-finite values")
+        differ = int((bits(torch, got) != bits(torch, exp)).sum().item())
+        check(differ == 0, f"{name}: {differ} elements differ")
+
+    kinds = ("single", "xs", "const", "xs_const")
+    n_ewise = 0
+    for dname, dt in dtypes.items():
+        for shape in ((IB, IB), (1000, 37)):
+            L = SCAN_LEVELS
+            exterior = {
+                "single": (uniform(shape, dt), rand(shape, dt)),
+                "xs": (uniform((L,) + shape, dt), rand((L,) + shape, dt)),
+                "const": (0.1, -0.3),   # not exact in binary: rounding
+                "xs_const": (torch.linspace(-0.9, 0.9, L, device=dev).to(dt),
+                             torch.linspace(-1.0, 1.0, L, device=dev).to(dt)),
+            }
+            y = rand(shape, dt)
+            for la in kinds:
+                for lx in kinds:
+                    layout = ("single", la, lx)
+                    args = (y, exterior[la][0], exterior[lx][1])
+                    same_bits(f"chain_ewise {shape} {dname} {layout}",
+                              chain_ops.chain_ewise(layout, 0, L, *args),
+                              chain_ref.chain_ewise(layout, 0, L, *args))
+                    n_ewise += 1
+    print(f"[chain] chain_ewise: {n_ewise} cases (f32/bf16/f64 x (1024,1024) "
+          f"and (1000,37) x 16 layouts, {SCAN_LEVELS} levels) bitwise equal "
+          f"to the plain version: ok")
+    for dname, dt in dtypes.items():
+        for m, k, n, L in ((IB, IB, IB, DOT_LEVELS), (130, 70, 260, 3)):
+            c = rand((m, n), dt)
+            A, B = rand((L, m, k), dt), rand((L, k, n), dt)
+            for layout, args in ((("single", "xs", "xs"), (c, A, B)),
+                                 (("single", "single", "single"),
+                                  (c, A[0], B[0]))):
+                name = f"chain_dot ({m},{k},{n}) x {L} {dname} {layout}"
+                got = chain_ops.chain_dot(layout, 0, L, *args)
+                same_bits(f"{name} vs gemm_tile replay", got,
+                          chain_ref.run_levels(gemm_tile, layout, 0, L, args))
+                rtol, atol = TOL[dname]
+                exp = chain_ref.chain_dot(layout, 0, L, *args)
+                torch.testing.assert_close(got, exp, rtol=rtol, atol=atol * L,
+                                           msg=lambda msg: f"{name}: {msg}")
+                err = (got.double() - exp.double()).abs().max().item()
+                print(f"[chain] {name}: bitwise equal to per-level gemm_tile "
+                      f"replay; max_abs_err {err:.3e} against the plain "
+                      f"version (rtol {rtol}, atol {atol} x {L} levels)")
+
+    # times and errors at the main path's shapes (float32)
+    L = SCAN_LEVELS
+    y, x = rand((IB, IB), torch.float32), rand((IB, IB), torch.float32)
+    xs = rand((L, IB, IB), torch.float32)
+    chain_times = {}
+    for label, lx, xv in (("x single", "single", x), ("x per level", "xs",
+                                                      xs)):
+        layout = ("single", "const", lx)
+        got = chain_ops.chain_ewise(layout, 0, L, y, 0.5, xv)
+        exp = chain_ref.chain_ewise(layout, 0, L, y, 0.5, xv)
+        same_bits(f"chain_ewise {IB}^2 x {L} float32 {label}", got, exp)
+        err = (got.double() - exp.double()).abs().max().item()
+        ms = time_ms(torch, lambda: chain_ops.chain_ewise(layout, 0, L, y,
+                                                          0.5, xv))
+        plain = time_ms(torch, lambda: chain_ref.chain_ewise(layout, 0, L, y,
+                                                             0.5, xv))
+        nbytes = (2 * y.numel() + xv.numel()) * y.element_size()
+        bnd, by = bound_ms(nbytes, 2 * L * y.numel(), "float32")
+        print(f"[chain] chain_ewise {IB}^2 x {L} levels float32, {label}: "
+              f"kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), plain "
+              f"{plain:.4f} ms, max_abs_err {err:.3e}, no single-call "
+              f"library counterpart, bound {bnd:.4f} ms ({by}, "
+              f"{nbytes / 1e6:.1f} MB)")
+        chain_times[("ewise", lx)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+            bound_by=by, library_ms=None)
+    L = DOT_LEVELS
+    c = rand((IB, IB), torch.float32)
+    A, B = rand((L, IB, IB), torch.float32), rand((L, IB, IB), torch.float32)
+    A_cat = torch.cat(list(A), dim=1).contiguous()      # (IB, L*IB)
+    B_cat = torch.cat(list(B), dim=0).contiguous()      # (L*IB, IB)
+    layout = ("single", "xs", "xs")
+    got = chain_ops.chain_dot(layout, 0, L, c, A, B)
+    exp = chain_ref.chain_dot(layout, 0, L, c, A, B)
+    err = (got.double() - exp.double()).abs().max().item()
+    ms = time_ms(torch, lambda: chain_ops.chain_dot(layout, 0, L, c, A, B))
+    plain = time_ms(torch, lambda: chain_ref.chain_dot(layout, 0, L, c, A, B))
+    replay = time_ms(torch, lambda: chain_ref.run_levels(
+        gemm_tile, layout, 0, L, (c, A, B)))
+    lib = time_ms(torch, lambda: torch.addmm(c, A_cat, B_cat))
+    flops = L * (2 * IB ** 3 + IB * IB)
+    nbytes = (2 * IB * IB + A.numel() + B.numel()) * 4
+    bnd, by = bound_ms(nbytes, flops, "float32")
+    print(f"[chain] chain_dot {IB}^3 x {L} levels float32: kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.2f} TFLOP/s), plain (per-level PyTorch) "
+          f"{plain:.4f} ms, max_abs_err {err:.3e}, per-level gemm_tile "
+          f"replay ({L} GEMM-kernel launches) {replay:.4f} ms, torch.addmm "
+          f"over K={L * IB} {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+    chain_times["dot"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                              bound_ms=bnd, bound_by=by, library_ms=lib)
+    del got, exp
+    del y, x, xs, c, A, B, A_cat, B_cat
+
     def device_mallocs():
         # segments the caching allocator has taken with cudaMalloc so far
         return torch.cuda.memory_stats(dev).get("num_device_alloc", 0)
@@ -252,7 +414,46 @@ def main() -> int:
         check(left < IB * IB * 4, f"{label}: {left} bytes still allocated "
               f"after the workflow was dropped")
 
-    # -- 4. Listing 1 ---------------------------------------------------------------
+    def zero_counts():
+        for wrapper in (ops.matmul, ops.matmul_accumulate,
+                        chain_ops.chain_ewise, chain_ops.chain_dot):
+            wrapper.launches = 0
+
+    def counts():
+        return {"gemm.matmul": ops.matmul.launches,
+                "gemm.matmul_accumulate": ops.matmul_accumulate.launches,
+                "chain.ewise": chain_ops.chain_ewise.launches,
+                "chain.dot": chain_ops.chain_dot.launches}
+
+    def measured(label, run, describe, keep=lambda result: None):
+        """Run ``run`` cold then warm with every count zeroed just before
+        it and read just after; checks each run with ``describe`` and that
+        dropping its result gives the device memory back (all but the
+        tensor ``keep`` picks from the warm run's result).  Gives back
+        ``(kept tensor, the warm run's counts, walls)``."""
+        walls = {}
+        kept = None
+        for phase in ("cold", "warm"):
+            zero_counts()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            mallocs = device_mallocs()
+            t0 = time.perf_counter()
+            result = run()
+            torch.cuda.synchronize()
+            walls[phase] = time.perf_counter() - t0
+            got = counts()
+            describe(phase, result, got, walls[phase],
+                     device_mallocs() - mallocs)
+            if phase == "warm":
+                kept = keep(result)
+                if kept is not None:
+                    base += kept.untyped_storage().nbytes()
+            del result
+            freed(label, base)
+        return kept, got, walls
+
+    # -- 5-6. Listing 1 and Strassen, serial -------------------------------------
     n = N_LISTING
     A = torch.randn((n, n), generator=gen, device=dev)
     B = torch.randn((n, n), generator=gen, device=dev)
@@ -264,46 +465,13 @@ def main() -> int:
     def rel_err(C):
         return (torch.linalg.norm(C.double() - exact).item() / exact_norm)
 
-    def listing1():
+    def listing1(backend="serial"):
         C, stats, _ = run_distributed_gemm(A, B, ib=IB, NP=2, NQ=2,
-                                           device=dev, backend="serial")
+                                           device=dev, backend=backend)
         return C, stats
 
-    launches, walls = {}, {}
-    for label in ("cold", "warm"):
-        ops.matmul.launches = 0
-        ops.matmul_accumulate.launches = 0
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated(dev)
-        mallocs = device_mallocs()
-        t0 = time.perf_counter()
-        C, stats = listing1()
-        torch.cuda.synchronize()
-        wall = walls["listing1"] = time.perf_counter() - t0
-        launches["matmul"] = ops.matmul.launches
-        err = rel_err(C)
-        print(f"[listing1] {label}: n={n} ib={IB} float32 2x2 ranks: wall "
-              f"{wall:.4f} s ({flops / wall / 1e12:.3f} TFLOP/s), "
-              f"rel_err {err:.3e}, matmul launches {launches['matmul']}, "
-              f"messages {stats.message_count}, bytes "
-              f"{stats.bytes_transferred}, wavefronts {len(stats.wavefronts)}, "
-              f"cudaMalloc calls {device_mallocs() - mallocs}")
-        check(tuple(C.shape) == (n, n) and C.dtype == torch.float32,
-              f"listing1: result {C.dtype}{tuple(C.shape)}")
-        check(bool(torch.isfinite(C).all()), "listing1: non-finite values")
-        check(err <= 1e-4, f"listing1: relative error {err} > 1e-4")
-        check(launches["matmul"] == nt ** 3,
-              f"listing1: {launches['matmul']} matmul launches, expected "
-              f"{nt ** 3}")
-        check(ops.matmul_accumulate.launches == 0,
-              "listing1: unexpected matmul_accumulate launches")
-        del C
-        freed("listing1", base)
-    device_profile(torch, "listing1", listing1, walls["listing1"], nt ** 3)
-
-    # -- 5. Strassen ----------------------------------------------------------------
-    def strassen():
-        ex = bind.LocalExecutor(1)
+    def strassen(backend="serial"):
+        ex = bind.LocalExecutor(1, backend=backend)
         with bind.Workflow(executor=ex) as wf:
             ta = Tiled.from_array(wf, A, IB, "A")
             tb = Tiled.from_array(wf, B, IB, "B")
@@ -312,46 +480,196 @@ def main() -> int:
             C = tc.to_array()
         return C, ex.stats
 
-    for label in ("cold", "warm"):
-        ops.matmul.launches = 0
-        ops.matmul_accumulate.launches = 0
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated(dev)
-        mallocs = device_mallocs()
-        t0 = time.perf_counter()
-        C, stats = strassen()
-        torch.cuda.synchronize()
-        wall = walls["strassen"] = time.perf_counter() - t0
-        launches["matmul_accumulate"] = ops.matmul_accumulate.launches
-        err = rel_err(C)
-        print(f"[strassen] {label}: n={n} ib={IB} float32: wall {wall:.4f} s "
-              f"({flops / wall / 1e12:.3f} TFLOP/s classical-equivalent), "
-              f"rel_err {err:.3e}, matmul_accumulate launches "
-              f"{launches['matmul_accumulate']}, ops {stats.ops_executed}, "
-              f"wavefronts {len(stats.wavefronts)}, peak live bytes "
-              f"{stats.peak_live_bytes}, cudaMalloc calls "
-              f"{device_mallocs() - mallocs}")
-        check(bool(torch.isfinite(C).all()), "strassen: non-finite values")
-        check(err <= 1e-3, f"strassen: relative error {err} > 1e-3")
-        check(launches["matmul_accumulate"] == 7 ** 3,
-              f"strassen: {launches['matmul_accumulate']} launches, "
-              f"expected {7 ** 3}")
-        check(ops.matmul.launches == 0, "strassen: unexpected matmul launches")
+    # Strassen on an nt x nt grid (nt a power of two) has 7^log2(nt) leaves
+    paths = {"listing1": (listing1, "gemm.matmul", nt ** 3, 1e-4),
+             "strassen": (strassen, "gemm.matmul_accumulate",
+                          7 ** (nt.bit_length() - 1), 1e-3)}
+    serial = {}             # path -> (C, transfers) of the serial warm run
+    path_counts = {}
+    for path, (run, wrapper, want, tol) in paths.items():
+        def describe(phase, result, got, wall, mallocs, path=path,
+                     wrapper=wrapper, want=want, tol=tol):
+            C, stats = result
+            err = rel_err(C)
+            print(f"[{path}] {phase}: n={n} ib={IB} float32 serial: wall "
+                  f"{wall:.4f} s ({flops / wall / 1e12:.3f} TFLOP/s"
+                  f"{' classical-equivalent' if path == 'strassen' else ''})"
+                  f", rel_err {err:.3e}, {wrapper} launches {got[wrapper]}, "
+                  f"ops {stats.ops_executed}, messages {stats.message_count}"
+                  f", bytes {stats.bytes_transferred}, wavefronts "
+                  f"{len(stats.wavefronts)}, peak live bytes "
+                  f"{stats.peak_live_bytes}, cudaMalloc calls {mallocs}")
+            check(tuple(C.shape) == (n, n) and C.dtype == torch.float32,
+                  f"{path}: result {C.dtype}{tuple(C.shape)}")
+            check(bool(torch.isfinite(C).all()), f"{path}: non-finite values")
+            check(err <= tol, f"{path}: relative error {err} > {tol}")
+            check(got[wrapper] == want, f"{path}: {got[wrapper]} {wrapper} "
+                  f"launches, expected {want}")
+            others = {k: v for k, v in got.items() if k != wrapper and v}
+            check(not others, f"{path}: unexpected launches {others}")
+
+        transfers = []
+        C, got, walls = measured(
+            path, run, describe,
+            keep=lambda r, t=transfers: t.extend(r[1].transfers) or r[0])
+        path_counts[path] = got
+        device_profile(torch, path, run, walls["warm"],
+                       {"gemm_kernel": want})
+        serial[path] = (C, transfers)
         del C
-        freed("strassen", base)
-    device_profile(torch, "strassen", strassen, walls["strassen"], 7 ** 3)
+
+    # -- 7. the chain path through the engine -------------------------------
+    L = SCAN_LEVELS
+    Y0 = rand((IB, IB), torch.float32)
+    X0 = rand((IB, IB), torch.float32)
+    XL = [rand((IB, IB), torch.float32) for _ in range(L)]
+    C0 = rand((IB, IB), torch.float32)
+    AL = [rand((IB, IB), torch.float32) for _ in range(DOT_LEVELS)]
+    BL = [rand((IB, IB), torch.float32) for _ in range(DOT_LEVELS)]
+
+    def scan_chain(backend, fresh_x):
+        ex = bind.LocalExecutor(1, mode="plan", backend=backend)
+        with bind.Workflow(executor=ex) as wf:
+            y = wf.array(Y0, "y")
+            x = wf.array(X0, "x")
+            for level in range(L):
+                if fresh_x:
+                    x = wf.array(XL[level], f"x{level}")
+                wf.call(scan_step, (y, 0.5, x), name="scan_step")
+            out = wf.fetch(y)
+        return out, ex.backend
+
+    def gemm_chain(backend):
+        ex = bind.LocalExecutor(1, mode="plan", backend=backend)
+        with bind.Workflow(executor=ex) as wf:
+            c = wf.array(C0, "c")
+            for level in range(DOT_LEVELS):
+                a = wf.array(AL[level], f"a{level}")
+                b = wf.array(BL[level], f"b{level}")
+                wf.call(gemm_tile, (c, a, b), name="gemm_tile")
+            out = wf.fetch(c)
+        return out, ex.backend
+
+    chains = {
+        "scan chain, x single": (lambda b: scan_chain(b, False),
+                                 "chain.ewise", L, "chain_ewise_kernel"),
+        "scan chain, x per level": (lambda b: scan_chain(b, True),
+                                    "chain.ewise", L, "chain_ewise_kernel"),
+        "gemm_tile chain": (gemm_chain, "chain.dot", DOT_LEVELS,
+                            "chain_dot_kernel"),
+    }
+    for label, (run, wrapper, levels, kernel_name) in chains.items():
+        serial_walls = []           # cold (first plan of this shape), warm
+        for _ in range(2):
+            zero_counts()
+            t0 = time.perf_counter()
+            want, _ = run("serial")
+            torch.cuda.synchronize()
+            serial_walls.append(time.perf_counter() - t0)
+        serial_wall = serial_walls[1]
+        serial_counts = counts()
+
+        def describe(phase, result, got, wall, mallocs, label=label,
+                     wrapper=wrapper, levels=levels, want=want):
+            out, mb = result
+            print(f"[chains] {label} {phase}: mesh wall {wall * 1e3:.3f} ms "
+                  f"(serial warm {serial_wall * 1e3:.3f} ms), "
+                  f"pallas_chains_dispatched {mb.pallas_chains_dispatched}, "
+                  f"ops_pallas {mb.ops_pallas}, chains_dispatched "
+                  f"{mb.chains_dispatched}, launches {got}, cudaMalloc calls "
+                  f"{mallocs}")
+            same_bits(f"{label} {phase}: mesh vs serial", out, want)
+            check(mb.pallas_chains_dispatched == 1 and mb.ops_pallas == levels,
+                  f"{label}: {mb.pallas_chains_dispatched} chain dispatches, "
+                  f"{mb.ops_pallas} ops, expected 1 and {levels}")
+            check(got[wrapper] == 1, f"{label}: {got[wrapper]} {wrapper} "
+                  f"launches, expected 1")
+            others = {k: v for k, v in got.items() if k != wrapper and v}
+            check(not others, f"{label}: unexpected launches {others}")
+
+        def mesh_run(run=run):
+            return run(bind.MeshBackend(pallas=True))
+
+        _kept, got, walls = measured(label, mesh_run, describe)
+        del want
+        path_counts[label] = got
+        expect = {kernel_name: 1, "gemm_kernel": 0}
+        busy = device_profile(torch, label, mesh_run, walls["warm"], expect)
+        print(f"[chains] {label}: serial replay launched {serial_counts}, "
+              f"walls cold {serial_walls[0] * 1e3:.3f} ms warm "
+              f"{serial_walls[1] * 1e3:.3f} ms; mesh walls cold "
+              f"{walls['cold'] * 1e3:.3f} ms warm {walls['warm'] * 1e3:.3f} "
+              f"ms, busy {busy:.1f}%")
+    del Y0, X0, XL, C0, AL, BL
+
+    # -- 8. Listing 1 and Strassen under fused and threads ---------------------
+    for backend in ("fused", "threads"):
+        for path, (run, wrapper, want, tol) in paths.items():
+            C_serial, transfers = serial[path]
+            label = f"{path} {backend}"
+            seen = {}
+
+            def traced(run=run, backend=backend, seen=seen):
+                ex_backend = bind.get_backend(backend)
+                seen["backend"] = ex_backend
+                return run(ex_backend)
+
+            def describe(phase, result, got, wall, mallocs, label=label,
+                         wrapper=wrapper, want=want, C_serial=C_serial,
+                         transfers=transfers, seen=seen):
+                C, stats = result
+                bk = seen["backend"]
+                extra = (f"batches_dispatched {bk.batches_dispatched}, "
+                         f"ops_fused {bk.ops_fused}, chains_dispatched "
+                         f"{bk.chains_dispatched}, ops_chained "
+                         f"{bk.ops_chained}" if backend == "fused" else
+                         f"pooled_levels {bk.pooled_levels}, inlined_levels "
+                         f"{bk.inlined_levels}, plans_delegated "
+                         f"{bk.plans_delegated}")
+                print(f"[{label}] {phase}: wall {wall:.4f} s "
+                      f"({flops / wall / 1e12:.3f} TFLOP/s), {wrapper} "
+                      f"launches {got[wrapper]}, {extra}, peak live bytes "
+                      f"{stats.peak_live_bytes}, cudaMalloc calls {mallocs}")
+                same_bits(f"{label} {phase}: C vs serial", C, C_serial)
+                check(list(stats.transfers) == transfers,
+                      f"{label}: transfer stream differs from serial")
+                check(got[wrapper] == want, f"{label}: {got[wrapper]} "
+                      f"{wrapper} launches, expected {want}")
+                others = {k: v for k, v in got.items()
+                          if k != wrapper and v}
+                check(not others, f"{label}: unexpected launches {others}")
+
+            _kept, got, walls = measured(label, traced, describe)
+            busy = device_profile(torch, label, traced, walls["warm"],
+                                  {"gemm_kernel": want})
+            print(f"[{label}] walls cold {walls['cold']:.4f} s warm "
+                  f"{walls['warm']:.4f} s, busy {busy:.1f}%")
     print(f"[memory] peak allocated "
           f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB")
 
-    # -- 6. result lines --------------------------------------------------------------
-    source = "src/repro_torch/kernels/gemm/csrc/gemm.cu"
-    replaces = "src/repro/kernels/gemm/kernel.py:47"
+    # -- 9. result lines --------------------------------------------------------------
+    gemm_source = "src/repro_torch/kernels/gemm/csrc/gemm.cu"
+    chain_source = "src/repro_torch/kernels/chain/csrc/chain.cu"
+    gemm_replaces = "src/repro/kernels/gemm/kernel.py:47"
+    chain_replaces = "src/repro/core/executable_cache.py:242"
+    rows = (
+        ("gemm.matmul", gemm_source, gemm_replaces,
+         path_counts["listing1"]["gemm.matmul"],
+         leaf[("matmul", "float32")]),
+        ("gemm.matmul_accumulate", gemm_source, gemm_replaces,
+         path_counts["strassen"]["gemm.matmul_accumulate"],
+         leaf[("matmul_accumulate", "float32")]),
+        ("chain.ewise", chain_source, chain_replaces,
+         path_counts["scan chain, x single"]["chain.ewise"],
+         chain_times[("ewise", "single")]),
+        ("chain.dot", chain_source, chain_replaces,
+         path_counts["gemm_tile chain"]["chain.dot"], chain_times["dot"]),
+    )
     kernels = []
-    for name in ("matmul", "matmul_accumulate"):
-        check(launches[name] > 0, f"{name}: never launched on the main path")
-        kernels.append(dict(name=f"gemm.{name}", route="cuda", source=source,
-                            replaces=replaces, launches=launches[name],
-                            **leaf[(name, "float32")]))
+    for name, source, replaces, launches, numbers in rows:
+        check(launches > 0, f"{name}: never launched on its path")
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces, launches=launches, **numbers))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

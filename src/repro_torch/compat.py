@@ -6,7 +6,8 @@ reference-package jax array) becomes a tensor of the same dtype and values,
 and back.  NumPy has no bfloat16 of its own: arrays whose dtype is named
 ``bfloat16`` (the ``ml_dtypes`` type jax uses) are carried bit for bit, and
 a bfloat16 tensor comes back as float32, which holds every bfloat16 value
-exactly.
+exactly.  A lazy fused-batch row (``core.backends.base.BatchSlice``) comes
+back as its row's values.
 """
 
 from __future__ import annotations
@@ -77,6 +78,10 @@ def to_torch(payload: Any, device="cpu") -> torch.Tensor:
 
 def to_numpy(tensor: Any) -> np.ndarray:
     """A host NumPy array with ``tensor``'s values (see module doc for bf16)."""
+    from repro_torch.core.backends.base import BatchSlice
+
+    if type(tensor) is BatchSlice:
+        tensor = tensor.materialize()
     if not isinstance(tensor, torch.Tensor):
         return np.asarray(tensor)
     t = tensor.detach().cpu()

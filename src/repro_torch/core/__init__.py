@@ -14,9 +14,10 @@ Public API (the ``bind::`` namespace of the paper)::
             gemm(a, b, c)      # placed on node 3, transfers implicit
         wf.sync()
 
-Mirrors :mod:`repro.core` for the serial main path: recording, planning
-(with the plan and program-trace caches), and replay through
-:class:`LocalExecutor` on the ``serial`` backend or the interpreter.
+Mirrors :mod:`repro.core` for one device: recording, planning (with the
+plan and program-trace caches), and replay through :class:`LocalExecutor`
+on the ``serial``, ``threads``, ``fused`` and ``mesh`` backends or the
+interpreter.
 """
 
 from .trace import BindArray, In, InOut, Out, OpNode, Workflow, current_workflow, op
@@ -52,7 +53,17 @@ from .program import (
     resolve_plan,
 )
 from .executable_cache import EXEC_CACHE, ExecutableCache
-from .backends import BACKENDS, Backend, SerialPlanBackend, get_backend
+from .backends import (
+    BACKENDS,
+    Backend,
+    BatchBucket,
+    BatchSlice,
+    FusedBatchBackend,
+    MeshBackend,
+    SerialPlanBackend,
+    ThreadPoolBackend,
+    get_backend,
+)
 
 __all__ = [
     "BindArray", "In", "InOut", "Out", "OpNode", "Workflow", "current_workflow",
@@ -65,5 +76,6 @@ __all__ = [
     "wavefront_flops", "PROGRAM_CACHE_STATS", "ProgramPlan", "Segment",
     "clear_program_cache", "probe_plan", "resolve_plan",
     "EXEC_CACHE", "ExecutableCache",
-    "BACKENDS", "Backend", "SerialPlanBackend", "get_backend",
+    "BACKENDS", "Backend", "BatchBucket", "BatchSlice", "SerialPlanBackend",
+    "ThreadPoolBackend", "FusedBatchBackend", "MeshBackend", "get_backend",
 ]

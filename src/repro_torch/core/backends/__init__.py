@@ -4,28 +4,46 @@ The :class:`~repro_torch.core.scheduler.LocalExecutor` frontend owns the
 simulated-machine *semantics* — per-rank stores, version locations,
 transfers, live-footprint accounting, stats.  A **backend** owns only the
 *dispatch strategy* for a compiled
-:class:`~repro_torch.core.plan.ExecutionPlan`.
+:class:`~repro_torch.core.plan.ExecutionPlan`:
 
-The port has one so far: ``"serial"`` — :class:`SerialPlanBackend`,
-wavefront-ordered one-op-at-a-time replay, the reference semantics.  The
-reference package's other backends arrive with later slices of the port
-(``ROADMAP.md``, Queue 1); asking for one of them names its slice.
+* ``"serial"``  — :class:`SerialPlanBackend`: wavefront-ordered one-op-at-a-
+  time replay, the reference semantics;
+* ``"threads"`` — :class:`ThreadPoolBackend`: each wavefront level's ops are
+  dispatched concurrently over a worker pool (the plan guarantees they share
+  no version dependencies);
+* ``"fused"``   — :class:`FusedBatchBackend`: same-signature ops of one
+  level run as one ``torch.func.vmap`` call over stacked operands, and whole
+  *signature chains* (:class:`~repro_torch.core.plan.ChainSlice`) as one
+  call each;
+* ``"mesh"``    — :class:`MeshBackend`: ``fused``, with kernel-tagged
+  chains run as one hand-written chain-kernel launch each; lowering ships
+  onto several GPUs arrives with Slice 3.
+
+All backends replay the same plan against the same frontend state, so
+payload values and the transfer event stream are identical across backends;
+only wall-clock (and, for concurrent backends, the moment a level's
+in-flight payloads peak) differs.  The reference's process-pool backend
+arrives with a later slice of the port (``ROADMAP.md``, Queue 1); asking for
+it names its slice.
 """
 
 from __future__ import annotations
 
-from .base import Backend
+from .base import Backend, BatchBucket, BatchSlice, spill_dead_buckets
 from .serial import SerialPlanBackend
+from .threadpool import ThreadPoolBackend
+from .fused import FusedBatchBackend
+from .mesh import MeshBackend
 
 BACKENDS: dict[str, type] = {
     SerialPlanBackend.name: SerialPlanBackend,
+    ThreadPoolBackend.name: ThreadPoolBackend,
+    FusedBatchBackend.name: FusedBatchBackend,
+    MeshBackend.name: MeshBackend,
 }
 
 # reference backends not ported yet -> the ROADMAP slice that brings them
 _LATER_SLICES = {
-    "threads": "Slice 2",
-    "fused": "Slice 2",
-    "mesh": "Slice 3",
     "procs": "Slice 4",
 }
 
@@ -47,4 +65,6 @@ def get_backend(spec) -> Backend:
         f"available: {sorted(BACKENDS)}")
 
 
-__all__ = ["Backend", "SerialPlanBackend", "BACKENDS", "get_backend"]
+__all__ = ["Backend", "BatchBucket", "BatchSlice", "SerialPlanBackend",
+           "ThreadPoolBackend", "FusedBatchBackend", "MeshBackend",
+           "BACKENDS", "get_backend", "spill_dead_buckets"]

@@ -12,6 +12,11 @@ op body itself:
 * :func:`commit`       — place written payloads, sample live peaks, run GC
   (through :func:`drop_versions`, the one shared drop idiom).
 
+The fused backends keep a level's results as one stacked buffer
+(:class:`BatchBucket`) whose rows live in the stores as lazy
+:class:`BatchSlice` payloads; :func:`spill_dead_buckets` concretises the
+survivors of a partly consumed bucket so the buffer can go.
+
 The serial backend inlines the same transitions in its hot loop; the
 primitives are the structured form later backends build on.
 
@@ -50,21 +55,156 @@ class Backend:
         return f"<{type(self).__name__} name={self.name!r}>"
 
 
+class BatchBucket:
+    """Residency bookkeeping for one fused dispatch's stacked result buffer.
+
+    ``live`` holds the row indices whose store payload is still a lazy
+    :class:`BatchSlice` of this buffer; ``rows`` maps each committed row to
+    its version key.  Every path that removes a lazy row from the stores —
+    GC, ship/fetch materialisation, spill — must :meth:`BatchSlice.release`
+    it, so :func:`spill_dead_buckets` can tell a fully-consumed bucket (the
+    chain-of-wavefronts case: drop the registry entry, nothing to do) from a
+    partially-GC'd one whose survivors are pinning the whole buffer.
+    """
+
+    __slots__ = ("buffer", "n", "live", "rows")
+
+    def __init__(self, buffer, n: int):
+        self.buffer = buffer
+        self.n = n
+        self.live = set(range(n))
+        self.rows: dict = {}            # row index -> version key
+
+
+class BatchSlice:
+    """Lazy row ``index`` of a fused bucket's stacked result buffer.
+
+    Stored in the executor's stores like any payload; ``nbytes`` reports the
+    row's size so transfer and live-set accounting stay identical to per-op
+    execution.  ``aval`` is the row's ``(shape, dtype, device)``.
+
+    ``materialize()`` returns the row as a *view* of the buffer — fine for
+    an op body that consumes it at once, but a view keeps the whole stacked
+    buffer alive, so anything that keeps the row in the stores takes
+    ``concrete()``, a copy of the row alone (the reference's
+    ``buffer[index]`` is a new array either way).  ``release()`` tells the
+    owning :class:`BatchBucket` the row no longer pins the buffer (the
+    caller has dropped or concretised its store entries).
+    """
+
+    __slots__ = ("buffer", "index", "_nb", "aval", "bucket")
+
+    def __init__(self, buffer, index: int, nb: int, aval, bucket=None):
+        self.buffer = buffer
+        self.index = index
+        self._nb = nb
+        self.aval = aval        # (shape, dtype, device) of the row
+        self.bucket = bucket
+
+    @property
+    def nbytes(self) -> int:
+        return self._nb
+
+    @property
+    def shape(self):
+        return self.aval[0]
+
+    @property
+    def dtype(self):
+        return self.aval[1]
+
+    @property
+    def device(self):
+        return self.aval[2]
+
+    def materialize(self):
+        """The row as a view of the stacked buffer."""
+        return self.buffer[self.index]
+
+    def concrete(self):
+        """The row as a tensor of its own (no reference to the buffer)."""
+        return self.buffer[self.index].clone()
+
+    def release(self) -> None:
+        if self.bucket is not None:
+            self.bucket.live.discard(self.index)
+
+    def __repr__(self) -> str:
+        shape, dtype, device = self.aval
+        return (f"BatchSlice({dtype}{list(shape)} on {device}, "
+                f"row {self.index})")
+
+
+def materialize(payload):
+    """Resolve a possibly-lazy payload to a tensor (a view for a row)."""
+    if type(payload) is BatchSlice:
+        return payload.materialize()
+    return payload
+
+
 def drop_versions(gc_keys, stores, where, key_bytes, live_b, live_c):
     """Apply an op's GC drop list; returns updated ``(live_bytes, live_c)``.
 
-    Pops the version from every holder rank's store and debits the
-    live-footprint accounting.  Callers mirroring the executor's counters
-    into locals pass and reassign them; others pass ``ex._live_bytes`` /
-    ``ex._live_entries`` directly.
+    Pops the version from every holder rank's store, releases lazy
+    :class:`BatchSlice` rows from their bucket (so
+    :func:`spill_dead_buckets` sees the same row-liveness regardless of
+    which backend executed the drop), and debits the live-footprint
+    accounting.  Callers mirroring the executor's counters into locals pass
+    and reassign them; others pass ``ex._live_bytes`` / ``ex._live_entries``
+    directly.
     """
     for dk in gc_keys:
         ranks = where.pop(dk)
         for r in ranks:
-            del stores[r][dk]
+            dead = stores[r].pop(dk)
+            if type(dead) is BatchSlice:
+                dead.release()
         live_c -= len(ranks)
         live_b -= key_bytes.pop(dk, 0)
     return live_b, live_c
+
+
+def spill_dead_buckets(ex) -> int:
+    """Concretise the surviving rows of partially-dead buckets.
+
+    Once any of a bucket's rows have been GC'd (or fetched/shipped), a
+    surviving lazy row would pin the *whole* stacked buffer — device
+    residency exceeding ``stats.peak_live_bytes`` (which prices rows
+    individually) by up to the batch width.  This pass copies every
+    surviving row of such a bucket out of the buffer
+    (:meth:`BatchSlice.concrete`) and drops the buffer, making actual
+    residency match the accounting; fully-live buckets are left lazy (the
+    chain pass-through case) and fully-dead ones just leave the registry.
+    Called by the fused backend at each level boundary and by the executor
+    frontend at the end of each program flush.  Returns the number of rows
+    spilled.
+    """
+    buckets = ex._lazy_buckets
+    if not buckets:
+        return 0
+    stores, where = ex._stores, ex._where
+    spilled = 0
+    for bucket in list(buckets):
+        live = bucket.live
+        if len(live) == bucket.n:       # untouched: stays one lazy buffer
+            continue
+        for idx in sorted(live):
+            vkey = bucket.rows.get(idx)
+            ranks = where.get(vkey) if vkey is not None else None
+            if not ranks:
+                continue
+            concrete = None
+            for r in ranks:
+                payload = stores[r].get(vkey)
+                if type(payload) is BatchSlice and payload.bucket is bucket:
+                    if concrete is None:
+                        concrete = payload.concrete()
+                    stores[r][vkey] = concrete
+            if concrete is not None:
+                spilled += 1
+        live.clear()
+        buckets.discard(bucket)
+    return spilled
 
 
 def apply_ships(ex, p) -> None:

@@ -22,7 +22,8 @@ The engine is split into three layers:
   ``stitch=False`` restores eager per-segment execution.
 * :mod:`repro_torch.core.backends` — the **dispatch strategy** replaying a
   compiled :class:`~repro_torch.core.plan.ExecutionPlan` against the
-  frontend's state (``backend="serial"``, the reference).
+  frontend's state (``backend="serial"``, the reference; ``"threads"``,
+  ``"fused"``, ``"mesh"``).
 
 ``mode="interpret"`` bypasses planning entirely: the original per-op
 trace-order interpreter, kept as the semantics reference.  It participates
@@ -43,7 +44,7 @@ from itertools import islice
 from typing import Any, Optional, Union
 
 from .backends import get_backend
-from .backends.base import drop_versions
+from .backends.base import BatchSlice, drop_versions, spill_dead_buckets
 from .collectives import broadcast_tree
 from .executable_cache import EXEC_CACHE, ExecutableCache
 from .placement import placement_ranks
@@ -70,9 +71,13 @@ class LocalExecutor:
       * ``"interpret"`` — per-op trace-order interpreter (reference).
 
     ``backend`` selects the plan-replay dispatch strategy: a name from
-    :data:`repro_torch.core.backends.BACKENDS` (``"serial"``) or a ready
+    :data:`repro_torch.core.backends.BACKENDS` or a ready
     :class:`~repro_torch.core.backends.Backend` instance.  Ignored under
     ``mode="interpret"``.
+
+    ``topology`` is an optional cost model
+    (:class:`repro_torch.launch.mesh.Topology`); the thread-pool backend
+    seeds its dispatch threshold from a calibrated one.
 
     ``stitch`` (default True) defers each ``run()`` segment into a pending
     program trace and executes the stitched whole at the next
@@ -132,7 +137,8 @@ class LocalExecutor:
                  backend: Union[str, Any, None] = None,
                  stitch: bool = True,
                  prefix_cache: bool = False,
-                 protect_inputs: bool = False):
+                 protect_inputs: bool = False,
+                 topology: Optional[Any] = None):
         if collective_mode not in ("tree", "naive"):
             raise ValueError(f"unknown collective_mode {collective_mode!r}")
         if mode not in ("plan", "interpret"):
@@ -144,6 +150,7 @@ class LocalExecutor:
         self.prefix_cache = bool(prefix_cache)
         self.protect_inputs = bool(protect_inputs)
         self.backend = get_backend(backend if backend is not None else "serial")
+        self.topology = topology
         # payload stores: rank -> version_key -> payload
         self._stores: dict[int, dict[tuple[int, int], Any]] = {
             r: {} for r in range(n_nodes)
@@ -156,6 +163,9 @@ class LocalExecutor:
         self._live_bytes = 0
         self._live_entries = 0
         self._init_seen = 0            # wf.initial items already materialised
+        # fused-batch residency registry: BatchBuckets with lazy rows still
+        # resident in the stores (see backends.base.spill_dead_buckets)
+        self._lazy_buckets: set = set()
         self._exec_cache = executable_cache if executable_cache is not None else EXEC_CACHE
         self._stats = ExecutionStats()
         self._round_counter = 0
@@ -288,8 +298,12 @@ class LocalExecutor:
         """Fetch a version's payload from whichever rank holds it (O(1)).
 
         A materialization boundary: any pending program segments execute
-        first.  A CUDA payload is returned as it lies on the card (no copy,
-        no synchronisation).
+        first.  A CUDA payload is returned as it lies on the card (no
+        synchronisation).  A lazy fused-batch row
+        (:class:`~repro_torch.core.backends.base.BatchSlice`) is copied out
+        of its stacked buffer here — a copy, not a view, so the buffer does
+        not outlive its other rows — and written back, so repeated fetches
+        copy once; ``stats.fetch_bytes_copied`` counts those bytes.
         """
         with self._lock:
             if self._pending:
@@ -297,7 +311,15 @@ class LocalExecutor:
             ranks = self._where.get(version.key)
             if not ranks:
                 raise KeyError(f"no payload for {version!r}")
-            return self._stores[next(iter(ranks))][version.key]
+            payload = self._stores[next(iter(ranks))][version.key]
+            if type(payload) is BatchSlice:
+                concrete = payload.concrete()
+                payload.release()
+                self._stats.fetch_bytes_copied += _nbytes(concrete)
+                for r in ranks:
+                    self._stores[r][version.key] = concrete
+                payload = concrete
+            return payload
 
     def _holders(self, vkey) -> list[int]:
         return sorted(self._where.get(vkey, ()))
@@ -445,6 +467,7 @@ class LocalExecutor:
         self._live_bytes = 0
         self._live_entries = 0
         self._init_seen = 0
+        self._lazy_buckets.clear()
 
     # -- program flush ---------------------------------------------------------
     def _pinned(self, wf: Workflow) -> set:
@@ -527,6 +550,7 @@ class LocalExecutor:
                 self._live_bytes, self._live_entries = drop_versions(
                     present, self._stores, self._where, self._key_bytes,
                     self._live_bytes, self._live_entries)
+                spill_dead_buckets(self)
         return st
 
     @staticmethod
@@ -583,8 +607,11 @@ class LocalExecutor:
                 if ranks is None:
                     continue
                 for r in ranks:
-                    self._stores[r].pop(vkey, None)
+                    dead = self._stores[r].pop(vkey, None)
+                    if type(dead) is BatchSlice:
+                        dead.release()
                 self._key_bytes.pop(vkey, None)
+        spill_dead_buckets(self)
         self._live_entries = sum(len(s) for s in self._stores.values())
         self._live_bytes = sum(self._key_bytes.get(k, 0)
                                for k in self._where)
@@ -681,6 +708,11 @@ class LocalExecutor:
         # wavefronts accumulate across program flushes
         stats.wavefronts.extend(plan.wavefront_counts)
         stats.wavefront_flops.extend(plan.level_flops)
+        # program-end residency pass: whatever backend ran, partially-dead
+        # fused buckets must not outlive the flush (serial and threads
+        # release rows they GC; the spill copies out the survivors so
+        # device residency matches the live-set accounting)
+        spill_dead_buckets(self)
         return stats
 
     # -- reference interpreter (trace order, per-op) --------------------------

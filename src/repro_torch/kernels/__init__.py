@@ -1,6 +1,23 @@
 """Hand-written Hopper kernels of the port, one package per kernel.
 
 Each package holds the CUDA source (``csrc/``), its build and binding
-(``kernel.py``), the plain PyTorch version (``ref.py``) and the public
-wrappers with their launch counters (``ops.py``).
+(``kernel.py``, through the shared :mod:`._build`), the plain PyTorch
+version (``ref.py``) and the public wrappers with their launch counters
+(``ops.py``).
+
+Launch counters are plain integers on the wrapper functions.  Wrappers
+may be called from the thread-pool backend's workers, so every increment
+goes through :func:`count_launch`, which holds one lock.
 """
+
+from __future__ import annotations
+
+import threading
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (thread-safe)."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1

@@ -1,0 +1,12 @@
+"""Chain kernels: a whole fused chain of one tagged op body in one launch.
+
+``chain_ewise`` runs a chain of ``linear_scan.ops.scan_step`` levels and
+``chain_dot`` a chain of ``gemm.ops.gemm_tile`` levels.  The executable
+cache's ``lookup_chain_pallas`` resolves a chain to them; ``chain_for`` and
+``problem`` say which body has a kernel and whether a chain's operands are
+ones it takes.
+"""
+
+from .ops import chain_dot, chain_ewise, chain_for, problem
+
+__all__ = ["chain_dot", "chain_ewise", "chain_for", "problem"]

@@ -1,0 +1,271 @@
+// Chain kernels for Hopper (sm_90a): a whole fused chain of one tagged op
+// body in one launch, the carry kept in registers from the first level to
+// the last and written once.
+//
+// Replaces the TPU kernel src/repro/core/executable_cache.py:242
+// lookup_chain_pallas (the pallas_call at :313), which traces any body
+// tagged __bind_kernel__ into one Pallas kernel: a fori_loop over the
+// levels, the carry resident, chain-invariant ("single") operands loaded
+// once, per-level "xs" / "xs_const" operands loaded per level, constants
+// static.  A CUDA kernel cannot trace a Python body, so there is one kernel
+// per tagged body the port has:
+//
+//   * chain_ewise, for kernels/linear_scan/ops.py scan_step (y <- a*y + x):
+//     each thread owns one element of the carry and runs every level on it
+//     in registers.  An operand of the body is the carry, a "single"
+//     tensor of the carry's shape (read once), an "xs" stack (read per
+//     level), a "const" scalar, or an "xs_const" per-level scalar array.
+//     Bitwise equality with per-level serial replay is the contract.  Eager
+//     PyTorch runs a*y + x as two launches, each rounded to the carry type
+//     in the operator's math type (float for f32 and bf16, double for f64),
+//     with a Python scalar converted straight to that math type.  So the
+//     kernel multiplies with __fmul_rn / __dmul_rn and adds with __fadd_rn
+//     / __dadd_rn (never contracted into an FMA, whatever --fmad says),
+//     rounds to bf16 after each of the two for bf16, and takes constants
+//     as doubles converted to the math type.
+//     Bound on an H100: bytes.  It does 2 operations per element and
+//     level; at 1024^2 f32 over 64 levels it moves 12.6 MB with a single x
+//     (3.8 us at 3.35 TB/s) and 276.8 MB with a per-level x (82.6 us).
+//
+//   * chain_dot, for kernels/gemm/ops.py gemm_tile (c <- c + a @ b): the
+//     hand-written GEMM with a level loop outside its K loop.  Each block
+//     owns a 64x64 tile of c, held in registers for the whole chain; per
+//     level it sums that level's A and B panels ("single" or "xs") over K
+//     with the tile loop of gemm_tile.cuh (shared with gemm.cu: the same
+//     order, the same __fmaf_rn / __fma_rn), adds the sum into the carry
+//     in the accumulator type and rounds the carry to its own type, as
+//     per-level matmul_accumulate does (bitwise equal to it, bf16 included).
+//     Bound on an H100: operations; 8 levels of 1024^3 f32 are 17.2 GFLOP,
+//     0.256 ms at the 67 TFLOP/s f32 rate outside the tensor cores.
+//
+// C interface (bound with ctypes): device pointers, sizes and a
+// cudaStream_t; each entry point launches on that stream without
+// synchronising and returns cudaGetLastError() (0 on success).
+
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "../../gemm/csrc/gemm_tile.cuh"
+
+namespace {
+
+using namespace bind_gemm;
+
+// ---------------------------------------------------------------- ewise --
+
+// operand kinds; the numbering is the wrapper's (kernels/chain/kernel.py)
+constexpr int CARRY = 0;
+constexpr int SINGLE = 1;
+constexpr int XS = 2;
+constexpr int CONST = 3;
+constexpr int XS_CONST = 4;
+
+constexpr int EWISE_THREADS = 256;
+
+// the math type of one eager operator: float for f32 and bf16, double for
+// f64 (the GEMM's accumulator type)
+template <typename T> using Math = typename AccType<T>::type;
+
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
+// the result of one eager operator: rounded to the element type, back in
+// the math type
+template <typename T> __device__ __forceinline__ Math<T> round_to(Math<T> v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// a Python scalar (passed as a double) in the math type
+__device__ __forceinline__ float scalar_to(double s, float) {
+  return __double2float_rn(s);
+}
+__device__ __forceinline__ double scalar_to(double s, double) { return s; }
+
+struct Operand {
+  const void* ptr;
+  int kind;
+  double scalar;
+};
+
+// the operand's value at ``level``; SINGLE and CONST were loaded once
+template <typename T>
+__device__ __forceinline__ Math<T> load_level(const Operand& o, Math<T> carry,
+                                              Math<T> held, int64_t e,
+                                              int64_t n, int64_t level) {
+  switch (o.kind) {
+    case CARRY: return carry;
+    case XS: return to_acc(static_cast<const T*>(o.ptr)[level * n + e]);
+    case XS_CONST: return to_acc(static_cast<const T*>(o.ptr)[level]);
+    default: return held;
+  }
+}
+
+// the operand's value before the first level (the carry's initial value)
+template <typename T>
+__device__ __forceinline__ Math<T> load_once(const Operand& o, int64_t e) {
+  if (o.kind == SINGLE || o.kind == CARRY)
+    return to_acc(static_cast<const T*>(o.ptr)[e]);
+  if (o.kind == CONST) return scalar_to(o.scalar, Math<T>());
+  return Math<T>(0);
+}
+
+// out = scan_step applied n_levels times: v <- o1 * o0 + o2, where the
+// operand of kind CARRY is v itself
+template <typename T>
+__global__ void __launch_bounds__(EWISE_THREADS)
+chain_ewise_kernel(T* __restrict__ out, Operand o0, Operand o1, Operand o2,
+                   int carry_pos, int64_t n, int64_t n_levels) {
+  using M = Math<T>;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       e < n; e += stride) {
+    const M h0 = load_once<T>(o0, e);
+    const M h1 = load_once<T>(o1, e);
+    const M h2 = load_once<T>(o2, e);
+    M v = carry_pos == 0 ? h0 : (carry_pos == 1 ? h1 : h2);
+    for (int64_t l = 0; l < n_levels; ++l) {
+      const M y = load_level<T>(o0, v, h0, e, n, l);
+      const M a = load_level<T>(o1, v, h1, e, n, l);
+      const M x = load_level<T>(o2, v, h2, e, n, l);
+      v = round_to<T>(add_rn(round_to<T>(mul_rn(a, y)), x));
+    }
+    out[e] = from_acc<T>(v);
+  }
+}
+
+template <typename T>
+int launch_ewise(void* out, const void* p0, int k0, double s0,
+                 const void* p1, int k1, double s1, const void* p2, int k2,
+                 double s2, int carry_pos, int64_t n, int64_t n_levels,
+                 void* stream) {
+  if (n > 0) {
+    const int64_t blocks = (n + EWISE_THREADS - 1) / EWISE_THREADS;
+    const unsigned grid =
+        static_cast<unsigned>(blocks < 1048576 ? blocks : 1048576);
+    chain_ewise_kernel<T><<<grid, EWISE_THREADS, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<T*>(out), Operand{p0, k0, s0}, Operand{p1, k1, s1},
+        Operand{p2, k2, s2}, carry_pos, n, n_levels);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------------ dot --
+
+// out = c + sum_l A_l @ B_l, the carry rounded to T after every level;
+// A_l = A + l * a_stride (a_stride 0: the same A every level), likewise B
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+chain_dot_kernel(const T* __restrict__ C, const T* __restrict__ A,
+                 int64_t a_stride, const T* __restrict__ B, int64_t b_stride,
+                 T* __restrict__ out, int64_t M, int64_t N, int64_t K,
+                 int64_t n_levels) {
+  using Acc = typename AccType<T>::type;
+  __shared__ Panels<Acc> sm;
+
+  const int tid = threadIdx.x;
+  const int tx = tid % LANES_N;
+  const int ty = tid / LANES_N;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.y) * BM;
+  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * BN;
+
+  T carry[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int64_t gm = m0 + ty + i * LANES_M;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int64_t gn = n0 + tx + j * LANES_N;
+      carry[i][j] = (gm < M && gn < N) ? C[gm * N + gn] : from_acc<T>(Acc(0));
+    }
+  }
+
+  for (int64_t l = 0; l < n_levels; ++l) {
+    Acc acc[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = Acc(0);
+    accumulate_tile<T, Acc>(A + l * a_stride, B + l * b_stride, M, N, K, m0,
+                            n0, sm, acc);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        carry[i][j] = from_acc<T>(to_acc(carry[i][j]) + acc[i][j]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int64_t gm = m0 + ty + i * LANES_M;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int64_t gn = n0 + tx + j * LANES_N;
+      if (gn >= N) continue;
+      out[gm * N + gn] = carry[i][j];
+    }
+  }
+}
+
+template <typename T>
+int launch_dot(const void* c, const void* a, int64_t a_stride, const void* b,
+               int64_t b_stride, void* out, int64_t M, int64_t N, int64_t K,
+               int64_t n_levels, void* stream) {
+  if (M > 0 && N > 0) {
+    const dim3 grid(static_cast<unsigned>((N + BN - 1) / BN),
+                    static_cast<unsigned>((M + BM - 1) / BM));
+    chain_dot_kernel<T><<<grid, THREADS, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(c), static_cast<const T*>(a), a_stride,
+        static_cast<const T*>(b), b_stride, static_cast<T*>(out), M, N, K,
+        n_levels);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+#define BIND_CHAIN_ENTRY_POINTS(SUFFIX, T)                                   \
+  int bind_chain_ewise_##SUFFIX(void* out, const void* p0, int k0,          \
+                                double s0, const void* p1, int k1,          \
+                                double s1, const void* p2, int k2,          \
+                                double s2, int carry_pos, int64_t n,        \
+                                int64_t n_levels, void* stream) {           \
+    return launch_ewise<T>(out, p0, k0, s0, p1, k1, s1, p2, k2, s2,         \
+                           carry_pos, n, n_levels, stream);                 \
+  }                                                                         \
+  int bind_chain_dot_##SUFFIX(const void* c, const void* a,                 \
+                              int64_t a_stride, const void* b,              \
+                              int64_t b_stride, void* out, int64_t M,       \
+                              int64_t N, int64_t K, int64_t n_levels,       \
+                              void* stream) {                               \
+    return launch_dot<T>(c, a, a_stride, b, b_stride, out, M, N, K,         \
+                         n_levels, stream);                                 \
+  }
+
+BIND_CHAIN_ENTRY_POINTS(f32, float)
+BIND_CHAIN_ENTRY_POINTS(bf16, __nv_bfloat16)
+BIND_CHAIN_ENTRY_POINTS(f64, double)
+
+#undef BIND_CHAIN_ENTRY_POINTS
+
+}  // extern "C"

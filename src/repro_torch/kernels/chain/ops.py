@@ -1,0 +1,201 @@
+"""Public chain-kernel wrappers: one launch per chain on CUDA, the plain
+per-level loop (:mod:`.ref`) on CPU.
+
+Both wrappers take a chain in the layout vocabulary of the executable
+cache's width-1 chain entries: ``args`` holds the op body's arguments in
+its own positions, the carry at ``carry_pos`` (layout ``"single"``), each
+other position ``"single"`` (the same tensor every level), ``"xs"`` (a
+``(n_levels, ...)`` stack, one slice per level), ``"const"`` (one Python
+scalar) or ``"xs_const"`` (a ``(n_levels,)`` tensor of per-level scalars).
+They return the final carry, a new tensor.
+
+* :func:`chain_ewise` — ``linear_scan.ops.scan_step`` (``y ← a·y + x``):
+  every tensor has the carry's shape (``xs``: one more leading axis), the
+  carry's dtype (float32, bfloat16 or float64) and device; ``y`` and ``a``
+  are not both constants (their product would be a Python number).
+* :func:`chain_dot` — ``gemm.ops.gemm_tile`` (``c ← c + a @ b``): the carry
+  is ``c`` (position 0, ``(m, n)``); ``a`` is ``(m, k)`` and ``b`` ``(k, n)``,
+  each ``"single"`` or ``"xs"``; one dtype and device.
+
+:func:`problem` says, before any launch, why a chain's operands are not
+ones its body's kernel takes (``None`` when they are); a caller that asks
+first never sees a wrapper raise for its operands.  On a CUDA tensor a
+wrapper launches its kernel or raises; on a CPU tensor, and only there, it
+computes the plain version.  Each wrapper counts its launches in
+``launches``.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, Optional
+
+import torch
+from torch._C._functorch import is_batchedtensor
+
+from .. import count_launch
+from . import kernel, ref
+
+DTYPES = tuple(kernel.SUFFIX)
+_MAX_EXACT_INT = 2 ** 53        # a Python int the kernel takes as a double
+
+
+def _tensor_problem(t, carry: torch.Tensor, shape, what: str):
+    if not isinstance(t, torch.Tensor):
+        return f"{what} is a {type(t).__name__}, not a tensor"
+    if is_batchedtensor(t):
+        return f"{what} is batched by torch.func.vmap"
+    if tuple(t.shape) != tuple(shape):
+        return f"{what} has shape {tuple(t.shape)}, expected {tuple(shape)}"
+    if t.dtype != carry.dtype:
+        return f"{what} is {t.dtype}, the carry {carry.dtype}"
+    if t.device != carry.device:
+        return f"{what} lies on {t.device}, the carry on {carry.device}"
+    if not t.is_contiguous():
+        return f"{what} is not contiguous"
+    return None
+
+
+def _carry_problem(layout, carry_pos, n_levels, args, arity):
+    if len(args) != arity or len(layout) != arity:
+        return f"expected {arity} operands, got {len(args)}"
+    if not 0 <= carry_pos < arity or layout[carry_pos] != "single":
+        return f"carry position {carry_pos} with layout {layout}"
+    if int(n_levels) < 1:
+        return f"{n_levels} levels"
+    carry = args[carry_pos]
+    if not isinstance(carry, torch.Tensor):
+        return f"the carry is a {type(carry).__name__}, not a tensor"
+    if carry.dtype not in DTYPES:
+        return f"no chain kernel for dtype {carry.dtype}"
+    if carry.device.type not in ("cpu", "cuda"):
+        return f"no chain kernel on {carry.device}"
+    return _tensor_problem(carry, carry, carry.shape, "the carry")
+
+
+def ewise_problem(layout: tuple, carry_pos: int, n_levels: int,
+                  args) -> Optional[str]:
+    """Why :func:`chain_ewise` cannot take these operands, or ``None``."""
+    bad = _carry_problem(layout, carry_pos, n_levels, args, 3)
+    if bad:
+        return bad
+    carry = args[carry_pos]
+    for pos, (lay, v) in enumerate(zip(layout, args)):
+        if pos == carry_pos:
+            continue
+        what = f"operand {pos} ({lay})"
+        if lay == "const":
+            if isinstance(v, torch.Tensor) or not isinstance(
+                    v, (bool, int, float)):
+                return f"{what} is a {type(v).__name__}, not a real scalar"
+            if isinstance(v, int) and abs(v) > _MAX_EXACT_INT:
+                return f"{what} {v} is not exact as a double"
+            continue
+        if lay == "single":
+            shape = carry.shape
+        elif lay == "xs":
+            shape = (n_levels,) + tuple(carry.shape)
+        elif lay == "xs_const":
+            shape = (n_levels,)
+        else:
+            return f"{what}: no chain kernel for this layout"
+        bad = _tensor_problem(v, carry, shape, what)
+        if bad:
+            return bad
+    if layout[0] == "const" and layout[1] == "const":
+        return "y and a are both constants"
+    return None
+
+
+def dot_problem(layout: tuple, carry_pos: int, n_levels: int,
+                args) -> Optional[str]:
+    """Why :func:`chain_dot` cannot take these operands, or ``None``."""
+    bad = _carry_problem(layout, carry_pos, n_levels, args, 3)
+    if bad:
+        return bad
+    c, a, b = args
+    if carry_pos != 0:
+        return f"the carry is operand {carry_pos}, not c"
+    if c.dim() != 2:
+        return f"c has shape {tuple(c.shape)}, not a matrix"
+    lead = {}
+    for name, lay, t in (("a", layout[1], a), ("b", layout[2], b)):
+        if lay not in ("single", "xs"):
+            return f"{name} has layout {lay}"
+        if not isinstance(t, torch.Tensor):
+            return f"{name} is a {type(t).__name__}, not a tensor"
+        lead[name] = (n_levels,) if lay == "xs" else ()
+        if t.dim() != len(lead[name]) + 2:
+            return f"{name} has shape {tuple(t.shape)}"
+    m, n = c.shape
+    k = a.shape[-1]
+    bad = (_tensor_problem(a, c, lead["a"] + (m, k), "a")
+           or _tensor_problem(b, c, lead["b"] + (k, n), "b"))
+    return bad
+
+
+def chain_ewise(layout: tuple, carry_pos: int, n_levels: int,
+                *args) -> torch.Tensor:
+    """``n_levels`` levels of ``scan_step`` (see the module doc)."""
+    bad = ewise_problem(layout, carry_pos, n_levels, args)
+    if bad:
+        raise ValueError(f"chain_ewise: {bad}")
+    carry = args[carry_pos]
+    if carry.device.type == "cpu":
+        return ref.chain_ewise(layout, carry_pos, n_levels, *args)
+    out = torch.empty_like(carry)
+    if out.numel():
+        kernel.launch_ewise(out, layout, carry_pos, n_levels, args)
+        count_launch(chain_ewise)
+    return out
+
+
+chain_ewise.launches = 0
+
+
+def chain_dot(layout: tuple, carry_pos: int, n_levels: int,
+              *args) -> torch.Tensor:
+    """``n_levels`` levels of ``gemm_tile`` (see the module doc)."""
+    bad = dot_problem(layout, carry_pos, n_levels, args)
+    if bad:
+        raise ValueError(f"chain_dot: {bad}")
+    c, a, b = args
+    if c.device.type == "cpu":
+        return ref.chain_dot(layout, carry_pos, n_levels, c, a, b)
+    out = torch.empty_like(c)
+    if out.numel():
+        m, k = a.shape[-2:]
+        a_stride = m * k if layout[1] == "xs" else 0
+        b_stride = k * c.shape[1] if layout[2] == "xs" else 0
+        kernel.launch_dot(out, c, a, a_stride, b, b_stride, k, n_levels)
+        count_launch(chain_dot)
+    return out
+
+
+chain_dot.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _kernels() -> dict:
+    # the tagged bodies with a chain kernel -> (wrapper, operand check)
+    from ..gemm.ops import gemm_tile
+    from ..linear_scan.ops import scan_step
+    return {scan_step: (chain_ewise, ewise_problem),
+            gemm_tile: (chain_dot, dot_problem)}
+
+
+def chain_for(fn) -> Optional[Callable]:
+    """The chain kernel's wrapper for op body ``fn``, or ``None``."""
+    entry = _kernels().get(fn)
+    return entry[0] if entry else None
+
+
+def problem(fn, layout: tuple, carry_pos: int, n_levels: int,
+            args) -> Optional[str]:
+    """Why a chain of ``fn`` with these operands cannot run as one chain
+    kernel (no kernel for the body, or operands it does not take), or
+    ``None`` when it can."""
+    entry = _kernels().get(fn)
+    if entry is None:
+        return f"no chain kernel for {getattr(fn, '__name__', fn)!r}"
+    return entry[1](tuple(layout), carry_pos, n_levels, args)

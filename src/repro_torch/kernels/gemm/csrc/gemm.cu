@@ -8,12 +8,9 @@
 // of VMEM scratch.
 //
 // Design (simple and correct first):
-//   * one block of 256 threads per 64x64 output tile;
-//   * per K step of 16, the block stages a 64x16 panel of A (transposed,
-//     padded by one column against bank conflicts) and a 16x64 panel of B
-//     in shared memory, converted to the accumulator type;
-//   * each thread owns a 4x4 register micro-tile at rows ty+16i, columns
-//     tx+16j, so shared-memory reads broadcast and output stores coalesce;
+//   * one block of 256 threads per 64x64 output tile; the tile loop (K
+//     steps of 16 staged in shared memory, a 4x4 register micro-tile per
+//     thread) lives in gemm_tile.cuh, shared with the chain kernel;
 //   * the ragged edge is masked in the loads (zero fill) and in the stores,
 //     so no padding copy is made for any (M, N, K);
 //   * an optional C operand is added in the epilogue in the accumulator
@@ -38,39 +35,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "gemm_tile.cuh"
+
 namespace {
 
-constexpr int BM = 64;   // output tile rows
-constexpr int BN = 64;   // output tile columns
-constexpr int BK = 16;   // K step staged in shared memory
-constexpr int TM = 4;    // micro-tile rows per thread
-constexpr int TN = 4;    // micro-tile columns per thread
-constexpr int LANES_M = BM / TM;            // 16
-constexpr int LANES_N = BN / TN;            // 16
-constexpr int THREADS = LANES_M * LANES_N;  // 256
-
-template <typename T> struct AccType { using type = float; };
-template <> struct AccType<double> { using type = double; };
-
-__device__ __forceinline__ float to_acc(float x) { return x; }
-__device__ __forceinline__ float to_acc(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ double to_acc(double x) { return x; }
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-__device__ __forceinline__ void store(double* p, double v) { *p = v; }
-
-// fused multiply-add with one IEEE rounding (round to nearest even)
-__device__ __forceinline__ float mac(float a, float b, float c) {
-  return __fmaf_rn(a, b, c);
-}
-__device__ __forceinline__ double mac(double a, double b, double c) {
-  return __fma_rn(a, b, c);
-}
+using namespace bind_gemm;
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -78,8 +47,7 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B,
             const T* __restrict__ C, T* __restrict__ out,
             int64_t M, int64_t N, int64_t K) {
   using Acc = typename AccType<T>::type;
-  __shared__ Acc As[BK][BM + 1];  // A panel, transposed: As[k][m]
-  __shared__ Acc Bs[BK][BN];      // B panel: Bs[k][n]
+  __shared__ Panels<Acc> sm;
 
   const int tid = threadIdx.x;
   const int tx = tid % LANES_N;
@@ -93,43 +61,7 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = Acc(0);
 
-  for (int64_t k0 = 0; k0 < K; k0 += BK) {
-    // stage A[m0:m0+64, k0:k0+16]: neighbouring threads read along K
-#pragma unroll
-    for (int l = 0; l < (BM * BK) / THREADS; ++l) {
-      const int e = tid + l * THREADS;
-      const int r = e / BK;
-      const int c = e % BK;
-      const int64_t gm = m0 + r;
-      const int64_t gk = k0 + c;
-      As[c][r] = (gm < M && gk < K) ? to_acc(A[gm * K + gk]) : Acc(0);
-    }
-    // stage B[k0:k0+16, n0:n0+64]: neighbouring threads read along N
-#pragma unroll
-    for (int l = 0; l < (BK * BN) / THREADS; ++l) {
-      const int e = tid + l * THREADS;
-      const int r = e / BN;
-      const int c = e % BN;
-      const int64_t gk = k0 + r;
-      const int64_t gn = n0 + c;
-      Bs[r][c] = (gk < K && gn < N) ? to_acc(B[gk * N + gn]) : Acc(0);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      Acc a[TM];
-      Acc b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + i * LANES_M];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx + j * LANES_N];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = mac(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+  accumulate_tile<T, Acc>(A, B, M, N, K, m0, n0, sm, acc);
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -141,7 +73,7 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B,
       if (gn >= N) continue;
       Acc v = acc[i][j];
       if (C != nullptr) v = to_acc(C[gm * N + gn]) + v;
-      store(&out[gm * N + gn], v);
+      out[gm * N + gn] = from_acc<T>(v);
     }
   }
 }

@@ -12,12 +12,24 @@ On a CUDA tensor a wrapper launches the kernel or raises; on a CPU tensor,
 and only there, it computes the plain version (:mod:`.ref`).  Each wrapper
 counts its kernel launches in ``launches`` (a plain integer on the
 function), so a run can show that its main path went through the kernel.
+
+A tensor batched by ``torch.func.vmap`` has no storage a kernel could read,
+so both wrappers raise ``TypeError`` on one, on every device, before any
+launch.  A launch that fails stays a ``RuntimeError`` and propagates.
+
+``gemm_tile(c, a, b)`` is the executor-callable tile transaction ``c ← c +
+a @ b``, tagged ``"dot"`` so a fused chain of it runs as one chain kernel
+(:mod:`repro_torch.kernels.chain`), and marked ``__bind_vmap__ = False``
+so the fused backend runs its buckets per op without stacking them first
+(the reference's rule for bodies vmap cannot batch).
 """
 
 from __future__ import annotations
 
 import torch
+from torch._C._functorch import is_batchedtensor
 
+from .. import count_launch
 from . import kernel, ref
 
 DTYPES = tuple(kernel.SYMBOLS)
@@ -28,6 +40,9 @@ def _check(*tensors: torch.Tensor) -> None:
     for t in tensors:
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"expected a torch.Tensor, got {type(t).__name__}")
+        if is_batchedtensor(t):
+            raise TypeError("the GEMM kernel cannot take a tensor batched "
+                            "by torch.func.vmap")
         if t.dim() != 2:
             raise ValueError(f"expected a 2-D tensor, got shape "
                              f"{tuple(t.shape)}")
@@ -60,7 +75,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if out.numel():
         kernel.launch(a, b, None, out)
-        matmul.launches += 1
+        count_launch(matmul)
     return out
 
 
@@ -79,8 +94,31 @@ def matmul_accumulate(c: torch.Tensor, a: torch.Tensor,
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if out.numel():
         kernel.launch(a, b, c, out)
-        matmul_accumulate.launches += 1
+        count_launch(matmul_accumulate)
     return out
 
 
 matmul_accumulate.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Executor-callable entry point (reference: repro/kernels/gemm/ops.py)
+# --------------------------------------------------------------------------
+
+from repro_torch.core.trace import In, InOut  # noqa: E402
+
+
+def gemm_tile(c, a, b):
+    """One accumulation level of the tile transaction: ``c ← c + a @ b``.
+
+    Tensors go through :func:`matmul_accumulate` (the kernel on the card,
+    the plain version on the CPU); NumPy tiles stay NumPy.
+    """
+    if isinstance(c, torch.Tensor):
+        return matmul_accumulate(c, a, b)
+    return c + a @ b
+
+
+gemm_tile.__bind_intents__ = (InOut, In, In)
+gemm_tile.__bind_kernel__ = "dot"
+gemm_tile.__bind_vmap__ = False

@@ -45,6 +45,7 @@ def _t_gemm_acc(c, a, b):
 
 
 _t_gemm_acc.__bind_intents__ = (bind.InOut, bind.In, bind.In)
+_t_gemm_acc.__bind_vmap__ = False     # launches the GEMM kernel: per op
 
 
 def _t_iadd(c, x):

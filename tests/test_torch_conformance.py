@@ -3,7 +3,10 @@
 The port's ``serial`` backend and ``interpret`` mode replay the seeded
 random workflows of ``tests/test_conformance.py`` (its generator and its 50
 pinned seeds) and are held against the reference ``serial`` backend on the
-same workflow.  Each seed runs in two payload families:
+same workflow; so are the port's ``threads``, ``fused`` and
+``MeshBackend(pallas=True)`` (chains of the tagged kernel bodies through
+the chain kernels' plain route on the CPU), which may only report higher
+live-set peaks.  Each seed runs in two payload families:
 
 * ``numpy`` — every array a NumPy payload (the generator's jax payloads
   become NumPy float32 / int32 arrays).  Both packages run the same NumPy
@@ -22,9 +25,11 @@ totals, and the live-set peaks.  Executable-cache counters are excluded:
 the reference jit-compiles jax payloads, the port runs every body eagerly.
 
 The op pool is built once per package by :func:`make_pool`, so each body
-carries its own package's intents.
+carries its own package's intents; the kernel-tagged bodies ``scan_step``
+and ``gemm_tile`` are each package's own.
 """
 
+import functools
 import types
 
 import jax.numpy as jnp
@@ -34,15 +39,20 @@ import torch
 from test_conformance import N_WORKFLOWS, make_spec
 
 from repro import core as ref_bind
+from repro.kernels.gemm.ops import gemm_tile as ref_gemm_tile
+from repro.kernels.linear_scan.ops import scan_step as ref_scan_step
 from repro_torch import core as port_bind
 from repro_torch.compat import to_numpy
+from repro_torch.kernels.gemm.ops import gemm_tile as port_gemm_tile
+from repro_torch.kernels.linear_scan.ops import scan_step as port_scan_step
 
 SHAPE = (4, 4)
 
 
-def make_pool(bind):
+def make_pool(bind, scan_step, gemm_tile):
     """The conformance op pool with ``bind``'s intents (see
-    ``tests/_conformance_ops.py`` for what each body exercises)."""
+    ``tests/_conformance_ops.py`` for what each body exercises) and the
+    package's own kernel-tagged bodies."""
 
     def _scale(a, s):
         return a * s
@@ -81,22 +91,12 @@ def make_pool(bind):
     def _axpy(y, x, s):
         return y + x * s
 
-    def scan_step(y, a, x):
-        return a * y + x
-
-    def gemm_tile(c, a, b):
-        return c + a @ b
-
     In, InOut = bind.In, bind.InOut
     for fn in (_scale, _shift, _branchy, _add, _mix, _mm, _bsel):
         fn.__bind_intents__ = (InOut, In)
     for fn in (_addr, _mixr):
         fn.__bind_intents__ = (In, InOut)
     _axpy.__bind_intents__ = (InOut, In, In)
-    scan_step.__bind_intents__ = (InOut, In, In)
-    scan_step.__bind_kernel__ = "ewise"
-    gemm_tile.__bind_intents__ = (InOut, In, In)
-    gemm_tile.__bind_kernel__ = "dot"
     return types.SimpleNamespace(
         bind=bind,
         UNARY=(_scale, _shift, _branchy),
@@ -107,8 +107,15 @@ def make_pool(bind):
         gemm_tile=gemm_tile)
 
 
-REF = make_pool(ref_bind)
-PORT = make_pool(port_bind)
+REF = make_pool(ref_bind, ref_scan_step, ref_gemm_tile)
+PORT = make_pool(port_bind, port_scan_step, port_gemm_tile)
+
+# the port's backends beyond serial, each a fresh instance per run
+PORT_BACKENDS = {
+    "threads": lambda: "threads",
+    "fused": lambda: "fused",
+    "mesh": lambda: port_bind.MeshBackend(pallas=True),
+}
 
 
 def _record_op(pool, wf, handles, spec_op) -> None:
@@ -201,9 +208,9 @@ def _payload(pool, family, kind, vals):
     return torch.tensor(vals, dtype=torch.float32)
 
 
-def run_spec(pool, spec, family, mode):
+def run_spec(pool, spec, family, mode, backend="serial"):
     bind = pool.bind
-    ex = bind.LocalExecutor(spec["n_nodes"], mode=mode, backend="serial")
+    ex = bind.LocalExecutor(spec["n_nodes"], mode=mode, backend=backend)
     with bind.Workflow(n_nodes=spec["n_nodes"], executor=ex) as wf:
         handles = []
         for kind, rank, vals in spec["arrays"]:
@@ -281,6 +288,44 @@ def test_port_conformance_pinned_seeds(seed, family):
     check_conformance(seed, family)
 
 
+@functools.lru_cache(maxsize=None)
+def _reference_run(seed: int, family: str):
+    values, stats, _ = run_spec(REF, make_spec(seed), family, "plan")
+    return values, stats
+
+
+def check_backend_conformance(seed: int, family: str, backend: str) -> None:
+    """A port backend against the reference ``serial`` stream: values,
+    transfer stream and stats as for the port's serial backend, live-set
+    peaks at least serial's (a concurrent level may be in flight)."""
+    ref_values, ref_stats = _reference_run(seed, family)
+    ctx = f"seed {seed} {family} port {backend}"
+    values, stats, ex = run_spec(PORT, make_spec(seed), family, "plan",
+                                 PORT_BACKENDS[backend]())
+    _assert_values(ref_values, values, family, ctx)
+    assert _events(stats) == _events(ref_stats), ctx
+    assert stats.peak_live_bytes >= ref_stats.peak_live_bytes, ctx
+    assert stats.peak_live_payloads >= ref_stats.peak_live_payloads, ctx
+    assert stats.message_count == ref_stats.message_count, ctx
+    assert stats.bytes_transferred == ref_stats.bytes_transferred, ctx
+    assert stats.ops_executed == ref_stats.ops_executed, ctx
+    assert stats.copies_elided == ref_stats.copies_elided, ctx
+    assert stats.wavefronts == ref_stats.wavefronts, ctx
+    assert stats.wavefront_flops == ref_stats.wavefront_flops, ctx
+    assert ex._live_bytes <= stats.peak_live_bytes, ctx
+    assert ex._live_entries <= stats.peak_live_payloads, ctx
+    # every lazy row was released or copied out by the end of the flush
+    assert not ex._lazy_buckets or all(
+        len(b.live) == b.n for b in ex._lazy_buckets), ctx
+
+
+@pytest.mark.parametrize("backend", sorted(PORT_BACKENDS))
+@pytest.mark.parametrize("family", ["numpy", "tensor"])
+@pytest.mark.parametrize("seed", range(N_WORKFLOWS))
+def test_port_backends_conformance_pinned_seeds(seed, family, backend):
+    check_backend_conformance(seed, family, backend)
+
+
 def test_interpret_peaks_match_reference_interpreter():
     """The interpreter's live-set peaks (per-op accounting, no plan) match
     the reference interpreter's on a handful of seeds."""
@@ -294,11 +339,12 @@ def test_interpret_peaks_match_reference_interpreter():
 
 
 def test_unported_backends_name_their_slice():
-    for name, slice_ in (("threads", "Slice 2"), ("fused", "Slice 2"),
-                         ("mesh", "Slice 3"), ("procs", "Slice 4")):
-        with pytest.raises(ValueError, match=slice_):
-            port_bind.LocalExecutor(2, backend=name)
+    with pytest.raises(ValueError, match="Slice 4"):
+        port_bind.LocalExecutor(2, backend="procs")
     with pytest.raises(ValueError, match="unknown execution backend"):
         port_bind.get_backend("nope")
-    assert isinstance(port_bind.get_backend("serial"),
-                      port_bind.SerialPlanBackend)
+    for name, cls in (("serial", port_bind.SerialPlanBackend),
+                      ("threads", port_bind.ThreadPoolBackend),
+                      ("fused", port_bind.FusedBatchBackend),
+                      ("mesh", port_bind.MeshBackend)):
+        assert isinstance(port_bind.get_backend(name), cls)

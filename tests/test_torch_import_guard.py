@@ -33,7 +33,17 @@ def test_port_imports_no_jax_and_no_reference():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     # the walk reached every layer of the package
     for mod in ("repro_torch.core.scheduler", "repro_torch.core.backends.serial",
-                "repro_torch.kernels.gemm.ops", "repro_torch.linalg.distributed",
+                "repro_torch.core.backends.fused",
+                "repro_torch.core.backends.mesh",
+                "repro_torch.core.backends.threadpool",
+                "repro_torch.core.executable_cache",
+                "repro_torch.kernels._build",
+                "repro_torch.kernels.gemm.ops",
+                "repro_torch.kernels.chain.kernel",
+                "repro_torch.kernels.chain.ops",
+                "repro_torch.kernels.chain.ref",
+                "repro_torch.kernels.linear_scan.ops",
+                "repro_torch.linalg.distributed",
                 "repro_torch.launch.mesh", "repro_torch.compat"):
         assert mod in got["modules"], mod
     assert got["bad"] == [], f"repro_torch pulled in: {got['bad']}"
