@@ -7,8 +7,9 @@ schedules lower to ``shard_map``/``ppermute`` collectives, and a
 the chain half so far:
 
 * **Chains** — a width-1 chain of a tagged body that has a hand-written
-  chain kernel (``linear_scan.ops.scan_step``, ``gemm.ops.gemm_tile``;
-  :mod:`repro_torch.kernels.chain`) dispatches through
+  chain kernel (``linear_scan.ops.scan_step``, ``gemm.ops.gemm_tile``,
+  ``flash_attention.ops.attn_step``; :mod:`repro_torch.kernels.chain`)
+  dispatches through
   :meth:`~repro_torch.core.executable_cache.ExecutableCache.lookup_chain_pallas`:
   the whole chain is one launch whose kernel runs the levels with the
   carry in registers.  Whether a chain goes there is decided *before* the

@@ -291,8 +291,9 @@ class ExecutableCache:
         trace a Python body, so in the port this resolves to the chain
         kernel written for ``fn``
         (:func:`repro_torch.kernels.chain.chain_for`): ``chain_ewise`` for
-        ``scan_step``, ``chain_dot`` for ``gemm_tile``.  Name and signature
-        are the reference's, so code written for it runs unchanged.
+        ``scan_step``, ``chain_dot`` for ``gemm_tile``, ``chain_attn`` for
+        ``attn_step``.  Name and signature are the reference's, so code
+        written for it runs unchanged.
 
         Layout vocabulary is the width-1 subset of :meth:`lookup_chain`:
         ``"single"``, ``"xs"``, ``"xs_const"`` and ``"const"``.  Constants

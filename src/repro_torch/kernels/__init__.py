@@ -21,3 +21,13 @@ def count_launch(wrapper) -> None:
     """Add one to ``wrapper.launches`` (thread-safe)."""
     with _LAUNCH_LOCK:
         wrapper.launches += 1
+
+
+# the public wrappers, as the reference's package exports them; imported
+# after count_launch, which their modules import from here
+from .gemm import matmul, matmul_accumulate  # noqa: E402
+from .flash_attention import flash_attention  # noqa: E402
+from .linear_scan import linear_scan  # noqa: E402
+
+__all__ = ["count_launch", "flash_attention", "linear_scan", "matmul",
+           "matmul_accumulate"]

@@ -38,6 +38,21 @@
 //     Bound on an H100: operations; 8 levels of 1024^3 f32 are 17.2 GFLOP,
 //     0.256 ms at the 67 TFLOP/s f32 rate outside the tensor cores.
 //
+//   * chain_attn, for kernels/flash_attention/ops.py attn_step (o <- o +
+//     softmax(q k^T / sqrt(d)) v): the flash-attention tile loop
+//     (flash_attention/csrc/attn_tile.cuh, shared with flash_attention.cu)
+//     with a level loop around it.  Each block owns 64 rows of o (32 in
+//     f64), held in registers for the whole chain; per level it sweeps that
+//     level's keys ("single" or "xs") with the online softmax, unmasked and
+//     over that level's keys only, adds acc / l into the carry in the
+//     accumulator type and rounds the carry to its own type.  Per-level
+//     serial replay runs this same kernel with one level (attn_step on a
+//     CUDA tensor), so the two are bitwise equal by construction.
+//     Bound on an H100: operations; a 512-row Qwen3-14B query tile over 16
+//     levels of 512 keys at d = dv = 128 is 2.1 GFLOP, 0.032 ms at 67
+//     TFLOP/s.  Only ceil(m / 64) blocks run (8 at m = 512), so most SMs
+//     idle: splitting the keys across blocks is left for a later change.
+//
 // C interface (bound with ctypes): device pointers, sizes and a
 // cudaStream_t; each entry point launches on that stream without
 // synchronising and returns cudaGetLastError() (0 on success).
@@ -46,6 +61,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "../../flash_attention/csrc/attn_tile.cuh"
 #include "../../gemm/csrc/gemm_tile.cuh"
 
 namespace {
@@ -240,6 +256,114 @@ int launch_dot(const void* c, const void* a, int64_t a_stride, const void* b,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ----------------------------------------------------------------- attn --
+
+// out = o after n_levels of o <- round(o + softmax(q_l k_l^T * scale) v_l);
+// q_l = Q + l * q_stride (q_stride 0: the same q every level), likewise k, v
+template <typename T, int NJ>
+__global__ void __launch_bounds__(bind_attn::THREADS)
+chain_attn_kernel(const T* __restrict__ O0, const T* __restrict__ Q,
+                  int64_t q_stride, const T* __restrict__ K, int64_t k_stride,
+                  const T* __restrict__ V, int64_t v_stride,
+                  T* __restrict__ out, int64_t M, int64_t N, int d, int dv,
+                  int64_t n_levels, typename AccType<T>::type scale) {
+  using namespace bind_attn;
+  using Acc = typename AccType<T>::type;
+  using Sh = Tile<Acc, NJ>;
+  constexpr int TM = Sh::TM, BQ = Sh::BQ, BKV = Sh::BKV;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Acc* Qt = reinterpret_cast<Acc*>(smem);
+  Acc* KV = Qt + static_cast<size_t>(d) * (BQ + 1);
+  Acc* P = KV + Sh::kv_elems(d);
+
+  const int tx = threadIdx.x % LANES;
+  const int ty = threadIdx.x / LANES;
+  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * BQ;
+
+  // the carry, rounded to T, in the accumulator type
+  Acc carry[TM][NJ];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int64_t row = q0 + ty + LANES * i;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int col = tx + LANES * jj;
+      carry[i][jj] = (row < M && col < dv) ? to_acc(O0[row * dv + col])
+                                           : Acc(0);
+    }
+  }
+
+  const Mask all{false, false, 0};
+  const int64_t tiles = (N + BKV - 1) / BKV;
+  Rows<Acc, NJ> st;
+  for (int64_t l = 0; l < n_levels; ++l) {
+    if (l == 0 || q_stride != 0)
+      stage_transposed<BQ>(Q + l * q_stride, M, d, q0, Qt);
+    st.reset();
+    sweep<false, NJ>(K + l * k_stride, V + l * v_stride, N, d, dv, scale,
+                     q0, 0, tiles, all, Qt, KV, P, st);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const Acc safe = st.l[i] == Acc(0) ? Acc(1) : st.l[i];
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj)
+        carry[i][jj] =
+            to_acc(from_acc<T>(carry[i][jj] + st.acc[i][jj] / safe));
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int64_t row = q0 + ty + LANES * i;
+    if (row >= M) continue;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int col = tx + LANES * jj;
+      if (col < dv) out[row * dv + col] = from_acc<T>(carry[i][jj]);
+    }
+  }
+}
+
+template <typename T, int NJ>
+cudaError_t launch_attn_nj(const void* o, const void* q, int64_t q_stride,
+                           const void* k, int64_t k_stride, const void* v,
+                           int64_t v_stride, void* out, int64_t M, int64_t N,
+                           int d, int dv, int64_t n_levels, double scale,
+                           cudaStream_t stream) {
+  using Acc = typename AccType<T>::type;
+  using Sh = bind_attn::Tile<Acc, NJ>;
+  const size_t smem = Sh::smem_bytes(d);
+  auto kern = chain_attn_kernel<T, NJ>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const unsigned grid = static_cast<unsigned>((M + Sh::BQ - 1) / Sh::BQ);
+  kern<<<grid, bind_attn::THREADS, smem, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(q), q_stride,
+      static_cast<const T*>(k), k_stride, static_cast<const T*>(v), v_stride,
+      static_cast<T*>(out), M, N, d, dv, n_levels, static_cast<Acc>(scale));
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_attn(const void* o, const void* q, int64_t q_stride, const void* k,
+                int64_t k_stride, const void* v, int64_t v_stride, void* out,
+                int64_t M, int64_t N, int64_t d, int64_t dv, int64_t n_levels,
+                double scale, void* stream) {
+  if (M <= 0 || dv <= 0) return static_cast<int>(cudaGetLastError());
+  if (d <= 0 || d > bind_attn::MAX_HEAD_DIM)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int di = static_cast<int>(d);
+  const int dvi = static_cast<int>(dv);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(bind_attn::with_value_blocks(dvi, [&](auto nj) {
+    return launch_attn_nj<T, decltype(nj)::value>(
+        o, q, q_stride, k, k_stride, v, v_stride, out, M, N, di, dvi,
+        n_levels, scale, st);
+  }));
+}
+
 }  // namespace
 
 extern "C" {
@@ -260,6 +384,16 @@ extern "C" {
                               void* stream) {                               \
     return launch_dot<T>(c, a, a_stride, b, b_stride, out, M, N, K,         \
                          n_levels, stream);                                 \
+  }                                                                         \
+  int bind_chain_attn_##SUFFIX(const void* o, const void* q,                \
+                               int64_t q_stride, const void* k,             \
+                               int64_t k_stride, const void* v,             \
+                               int64_t v_stride, void* out, int64_t M,      \
+                               int64_t N, int64_t d, int64_t dv,            \
+                               int64_t n_levels, double scale,              \
+                               void* stream) {                              \
+    return launch_attn<T>(o, q, q_stride, k, k_stride, v, v_stride, out, M, \
+                          N, d, dv, n_levels, scale, stream);               \
   }
 
 BIND_CHAIN_ENTRY_POINTS(f32, float)

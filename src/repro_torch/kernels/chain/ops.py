@@ -16,6 +16,11 @@ They return the final carry, a new tensor.
 * :func:`chain_dot` — ``gemm.ops.gemm_tile`` (``c ← c + a @ b``): the carry
   is ``c`` (position 0, ``(m, n)``); ``a`` is ``(m, k)`` and ``b`` ``(k, n)``,
   each ``"single"`` or ``"xs"``; one dtype and device.
+* :func:`chain_attn` — ``flash_attention.ops.attn_step`` (``o ← o +
+  softmax(q kᵀ / √d) v``): the carry is ``o`` (position 0, ``(m, dv)``);
+  ``q`` is ``(m, d)``, ``k`` ``(n, d)`` and ``v`` ``(n, dv)``, each
+  ``"single"`` or ``"xs"``, with ``1 <= d, dv <= 256``; one dtype and
+  device.
 
 :func:`problem` says, before any launch, why a chain's operands are not
 ones its body's kernel takes (``None`` when they are); a caller that asks
@@ -34,6 +39,7 @@ import torch
 from torch._C._functorch import is_batchedtensor
 
 from .. import count_launch
+from ..flash_attention.kernel import MAX_HEAD_DIM
 from . import kernel, ref
 
 DTYPES = tuple(kernel.SUFFIX)
@@ -134,6 +140,37 @@ def dot_problem(layout: tuple, carry_pos: int, n_levels: int,
     return bad
 
 
+def attn_problem(layout: tuple, carry_pos: int, n_levels: int,
+                 args) -> Optional[str]:
+    """Why :func:`chain_attn` cannot take these operands, or ``None``."""
+    bad = _carry_problem(layout, carry_pos, n_levels, args, 4)
+    if bad:
+        return bad
+    if carry_pos != 0:
+        return f"the carry is operand {carry_pos}, not o"
+    o = args[0]
+    if o.dim() != 2:
+        return f"o has shape {tuple(o.shape)}, not a matrix"
+    lead = {}
+    for name, lay, t in zip("qkv", layout[1:], args[1:]):
+        if lay not in ("single", "xs"):
+            return f"{name} has layout {lay}"
+        if not isinstance(t, torch.Tensor):
+            return f"{name} is a {type(t).__name__}, not a tensor"
+        lead[name] = (n_levels,) if lay == "xs" else ()
+        if t.dim() != len(lead[name]) + 2:
+            return f"{name} has shape {tuple(t.shape)}"
+    q, k, v = args[1:]
+    m, dv = o.shape
+    n, d = k.shape[-2:]
+    for name, size in (("d", d), ("dv", dv)):
+        if not 1 <= size <= MAX_HEAD_DIM:
+            return f"{name} = {size} is not in [1, {MAX_HEAD_DIM}]"
+    return (_tensor_problem(q, o, lead["q"] + (m, d), "q")
+            or _tensor_problem(k, o, lead["k"] + (n, d), "k")
+            or _tensor_problem(v, o, lead["v"] + (n, dv), "v"))
+
+
 def chain_ewise(layout: tuple, carry_pos: int, n_levels: int,
                 *args) -> torch.Tensor:
     """``n_levels`` levels of ``scan_step`` (see the module doc)."""
@@ -175,13 +212,37 @@ def chain_dot(layout: tuple, carry_pos: int, n_levels: int,
 chain_dot.launches = 0
 
 
+def chain_attn(layout: tuple, carry_pos: int, n_levels: int,
+               *args) -> torch.Tensor:
+    """``n_levels`` levels of ``attn_step`` (see the module doc)."""
+    bad = attn_problem(layout, carry_pos, n_levels, args)
+    if bad:
+        raise ValueError(f"chain_attn: {bad}")
+    o, q, k, v = args
+    if o.device.type == "cpu":
+        return ref.chain_attn(layout, carry_pos, n_levels, o, q, k, v)
+    out = torch.empty_like(o)
+    if out.numel():
+        strides = [t[0].numel() if lay == "xs" else 0
+                   for lay, t in zip(layout[1:], (q, k, v))]
+        kernel.launch_attn(out, o, q, strides[0], k, strides[1], v,
+                           strides[2], n_levels)
+        count_launch(chain_attn)
+    return out
+
+
+chain_attn.launches = 0
+
+
 @functools.lru_cache(maxsize=None)
 def _kernels() -> dict:
     # the tagged bodies with a chain kernel -> (wrapper, operand check)
+    from ..flash_attention.ops import attn_step
     from ..gemm.ops import gemm_tile
     from ..linear_scan.ops import scan_step
     return {scan_step: (chain_ewise, ewise_problem),
-            gemm_tile: (chain_dot, dot_problem)}
+            gemm_tile: (chain_dot, dot_problem),
+            attn_step: (chain_attn, attn_problem)}
 
 
 def chain_for(fn) -> Optional[Callable]:

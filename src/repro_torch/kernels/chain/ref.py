@@ -14,6 +14,7 @@ the card, and :mod:`.ops` uses it for CPU tensors only.
 
 from __future__ import annotations
 
+from ..flash_attention import ref as attn_ref
 from ..gemm import ref as gemm_ref
 from ..linear_scan.ops import scan_step
 
@@ -41,3 +42,7 @@ def chain_ewise(layout: tuple, carry_pos: int, n_levels: int, *args):
 def chain_dot(layout: tuple, carry_pos: int, n_levels: int, *args):
     return run_levels(gemm_ref.matmul_accumulate, layout, carry_pos,
                       n_levels, args)
+
+
+def chain_attn(layout: tuple, carry_pos: int, n_levels: int, *args):
+    return run_levels(attn_ref.attn_step, layout, carry_pos, n_levels, args)

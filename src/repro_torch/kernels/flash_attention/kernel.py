@@ -1,0 +1,52 @@
+"""Build and bind the flash-attention kernel (``csrc/flash_attention.cu``).
+
+Built at first use through the shared :mod:`repro_torch.kernels._build`
+helper, with the tile loop it shares with the chain kernel
+(``csrc/attn_tile.cuh``) and the conversions of the GEMM's tile header.
+Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from .._build import CudaLibrary
+
+_HERE = Path(__file__).resolve().parent
+SOURCES = (_HERE / "csrc" / "flash_attention.cu",)
+HEADERS = (_HERE / "csrc" / "attn_tile.cuh",
+           _HERE.parent / "gemm" / "csrc" / "gemm_tile.cuh")
+
+SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+MAX_HEAD_DIM = 256          # bind_attn::MAX_HEAD_DIM of attn_tile.cuh
+
+_P, _I, _I64, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                    ctypes.c_double)
+_ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _D, _I, _I,
+         _I64, _P)
+
+LIBRARY = CudaLibrary("bind_flash_attention", SOURCES, HEADERS,
+                      {f"bind_flash_attention_{s}": _ARGS
+                       for s in SUFFIX.values()})
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           out: torch.Tensor, *, causal: bool, window, scale: float) -> None:
+    """Enqueue attention of ``q`` (B, Hq, Sq, D) over ``k``, ``v`` (B, Hkv,
+    Skv, D) into ``out`` on the current stream.
+
+    The caller (:mod:`.ops`) has checked every operand.  Does not
+    synchronise; raises when the launch is refused.
+    """
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        LIBRARY.call(f"bind_flash_attention_{SUFFIX[q.dtype]}", q.data_ptr(),
+                     k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
+                     sq, skv, d, float(scale), int(causal),
+                     int(window is not None),
+                     0 if window is None else int(window), stream)

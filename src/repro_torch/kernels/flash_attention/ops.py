@@ -1,0 +1,131 @@
+"""Public entry points of attention: the hand-written kernel on CUDA, the
+plain version on CPU.
+
+``flash_attention(q, k, v)`` is prefill attention over (B, Hq, Sq, D) queries
+and (B, Hkv, Skv, D) keys and values, GQA by ``h // (Hq / Hkv)``, causal and
+sliding-window masks.  It pads Sq and Skv to multiples of ``bq`` / ``bkv``
+exactly as the reference's wrapper does (``repro/kernels/flash_attention/
+ops.py``), runs the kernel (:mod:`.kernel`) on CUDA tensors or the oracle on
+the padded inputs (:func:`.ref.attention`) on CPU tensors, and only there,
+and slices back to Sq.  The padding keeps a quirk of the reference: padded
+keys are zeros that only the causal mask hides, so non-causal windowed
+attention over a ragged Skv attends to them (ROADMAP Queue 3); non-causal
+unwindowed attention refuses to pad.  ``backend="plain"`` asks for the
+oracle on the unpadded inputs on any device (the reference's
+``backend="xla"``).  It counts its launches in ``flash_attention.launches``.
+
+``attn_step(o, q, k, v)`` is the executor-callable block accumulation ``o ←
+o + softmax(q kᵀ / √d) v``, tagged ``"dot"`` so a fused chain of it runs as
+one chain kernel (:func:`repro_torch.kernels.chain.chain_attn`).  On a
+tensor it runs that chain kernel with one level (the kernel on the card,
+its plain version on the CPU), so per-level replay and a whole chain agree
+bit for bit; NumPy tiles stay NumPy.  ``__bind_vmap__ = False``: a kernel
+cannot read a ``torch.func.vmap``-batched tensor, so the fused backend runs
+it per op without stacking.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.trace import In, InOut
+
+from .. import count_launch
+from . import kernel, ref
+
+DTYPES = tuple(kernel.SUFFIX)
+BACKENDS = ("cuda", "plain")
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    for t in (q, k, v):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"expected a torch.Tensor, got {type(t).__name__}")
+        if t.dtype not in DTYPES:
+            raise TypeError(f"dtype {t.dtype} is not supported; expected one "
+                            f"of {DTYPES}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"mixed dtypes {q.dtype} and {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"tensors on {q.device} and {t.device}")
+        if t.dim() != 4:
+            raise ValueError(f"expected (B, H, S, D) tensors, got shape "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError("expected contiguous tensors")
+    b, hq, _, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not fit together")
+    if k.shape[1] == 0 or hq % k.shape[1]:
+        raise ValueError(f"{hq} query heads over {k.shape[1]} kv heads")
+    if d > kernel.MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} > {kernel.MAX_HEAD_DIM}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+
+
+def pad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+        window, bq: int, bkv: int):
+    """Zero-pad Sq to a multiple of ``min(bq, Sq)`` and Skv to one of
+    ``min(bkv, Skv)``, as the reference's wrapper does."""
+    sq, skv = q.shape[2], k.shape[2]
+    pq = (-sq) % max(1, min(bq, sq))
+    pkv = (-skv) % max(1, min(bkv, skv))
+    if pq:
+        q = F.pad(q, (0, 0, 0, pq))
+    if pkv:
+        if not causal and window is None:
+            raise ValueError("non-causal attention requires Skv % bkv == 0")
+        k = F.pad(k, (0, 0, 0, pkv))
+        v = F.pad(v, (0, 0, 0, pkv))
+    return q, k, v
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None, scale=None,
+                    bq: int = 512, bkv: int = 512,
+                    backend: str = "cuda") -> torch.Tensor:
+    """(B, Hq, Sq, D) × (B, Hkv, Skv, D)² → (B, Hq, Sq, D)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: expected one of {BACKENDS}")
+    _check(q, k, v)
+    if backend == "plain":
+        return ref.attention(q, k, v, causal=causal, window=window,
+                             scale=scale)
+    sq = q.shape[2]
+    scale = q.shape[3] ** -0.5 if scale is None else scale
+    q, k, v = pad(q, k, v, causal=causal, window=window, bq=bq, bkv=bkv)
+    if q.device.type == "cpu":
+        out = ref.attention(q, k, v, causal=causal, window=window,
+                            scale=scale)
+    else:
+        out = torch.empty_like(q)
+        if out.numel():
+            kernel.launch(q, k, v, out, causal=causal, window=window,
+                          scale=scale)
+            count_launch(flash_attention)
+    return out[:, :, :sq, :]
+
+
+flash_attention.launches = 0
+
+
+def attn_step(o, q, k, v):
+    """One block-accumulation level: ``o ← o + softmax(q kᵀ / √d) v``."""
+    if isinstance(o, torch.Tensor):
+        # imported here: the chain package imports this module's plain
+        # version (.ref) while it loads
+        from ..chain.ops import chain_attn
+
+        return chain_attn(("single",) * 4, 0, 1, o, q, k, v)
+    s = (q @ k.T) * (1.0 / float(q.shape[-1]) ** 0.5)
+    e = np.exp(s - s.max(axis=-1, keepdims=True))
+    return o + (e / e.sum(axis=-1, keepdims=True)) @ v
+
+
+attn_step.__bind_intents__ = (InOut, In, In, In)
+attn_step.__bind_kernel__ = "dot"
+attn_step.__bind_vmap__ = False

@@ -1,0 +1,68 @@
+"""Plain PyTorch versions of the attention kernels.
+
+:func:`attention` is the oracle of ``repro/kernels/flash_attention/ref.py``:
+materialised float32 scores, ``-1e30`` masking, zeros for a row that sees
+no key, the result in ``q.dtype``.  It loops over batches and query heads,
+so at most one ``(Sq, Skv)`` score matrix lives at a time (268 MB at S =
+8192).  Applied to the padded inputs the kernel takes, it is the kernel's
+plain version: :func:`.ops.flash_attention` calls it so on CPU tensors, and
+``chip_smoke.py`` holds the kernel against it so on the card.
+
+:func:`attn_step` is one level of the chain body ``o + softmax(q kᵀ / √d)
+v`` in the accumulator type (float32 for float32 and bfloat16, float64 for
+float64), the carry rounded to its dtype: the plain version of one level
+of ``chain_attn``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..gemm.ref import acc_dtype
+
+NEG_INF = -1e30
+
+
+def mask(sq: int, skv: int, *, causal: bool, window, device) -> torch.Tensor:
+    """``(sq, skv)`` booleans: which keys each query row sees (positions
+    from 0 for both, top-left aligned)."""
+    q_pos = torch.arange(sq, device=device)[:, None]
+    k_pos = torch.arange(skv, device=device)[None, :]
+    seen = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        seen &= q_pos >= k_pos
+    if window is not None:
+        seen &= (q_pos - k_pos) < window
+    return seen
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window=None,
+              scale=None) -> torch.Tensor:
+    """(B, Hq, Sq, D) × (B, Hkv, Skv, D)² → (B, Hq, Sq, D)."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    seen = mask(sq, skv, causal=causal, window=window, device=q.device)
+    any_seen = seen.any(dim=-1, keepdim=True)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    for bi in range(b):
+        for h in range(hq):
+            kk = k[bi, h // group].float()
+            s = (q[bi, h].float() @ kk.T) * scale
+            s = torch.where(seen, s, NEG_INF)
+            p = torch.where(any_seen, torch.softmax(s, dim=-1), 0.0)
+            out[bi, h] = (p @ v[bi, h // group].float()).to(q.dtype)
+    return out
+
+
+def attn_step(o: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> torch.Tensor:
+    """``o + softmax(q kᵀ / √d) v`` in the accumulator type, cast to
+    ``o.dtype``."""
+    acc = acc_dtype(o.dtype)
+    d = q.shape[-1]
+    s = torch.softmax((q.to(acc) @ k.to(acc).T) * (1.0 / float(d) ** 0.5),
+                      dim=-1)
+    return (o.to(acc) + s @ v.to(acc)).to(o.dtype)

@@ -1,10 +1,8 @@
-"""Linear recurrence ``y_t = a_t ⊙ y_{t-1} + x_t``.
+"""Linear recurrence ``y_t = a_t ⊙ y_{t-1} + x_t``: the chunked
+``linear_scan`` over (B, S, D) and its executor-callable level
+``scan_step``."""
 
-Only the executor-callable level ``scan_step`` is ported so far; the
-chunked ``linear_scan`` wrapper and its kernel are still to port (ROADMAP
-Queue 2, item 3).
-"""
+from .ops import linear_scan, scan_step
+from . import ref
 
-from .ops import scan_step
-
-__all__ = ["scan_step"]
+__all__ = ["linear_scan", "ref", "scan_step"]

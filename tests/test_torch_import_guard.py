@@ -43,6 +43,11 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.kernels.chain.ops",
                 "repro_torch.kernels.chain.ref",
                 "repro_torch.kernels.linear_scan.ops",
+                "repro_torch.kernels.linear_scan.kernel",
+                "repro_torch.kernels.linear_scan.ref",
+                "repro_torch.kernels.flash_attention.ops",
+                "repro_torch.kernels.flash_attention.kernel",
+                "repro_torch.kernels.flash_attention.ref",
                 "repro_torch.linalg.distributed",
                 "repro_torch.launch.mesh", "repro_torch.compat"):
         assert mod in got["modules"], mod
