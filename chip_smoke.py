@@ -14,11 +14,17 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    together: the GEMM (``src/repro_torch/kernels/gemm/csrc/gemm.cu``), the
    chain kernels (``src/repro_torch/kernels/chain/csrc/chain.cu``), flash
    attention (``.../flash_attention/csrc/flash_attention.cu``) and the
-   linear scan (``.../linear_scan/csrc/linear_scan.cu``);
-3. the GEMM kernel against its plain PyTorch version on the card, at the
-   main path's leaf shape 1024^3 in float32, bfloat16 and float64, at the
-   ragged shapes (130, 70, 260) and (1, 128, 1), and for
-   ``matmul_accumulate``; at 1024^3 the kernel's time beside the plain
+   linear scan (``.../linear_scan/csrc/linear_scan.cu``); the SASS of the
+   tensor-core routes must hold their instructions (HGMMA for ``wgmma``,
+   DMMA for the f64 MMA), read with ``cuobjdump``;
+3. the GEMM kernel against its plain PyTorch version on the card on every
+   route (``kernels/gemm/ops.py`` ``route``, checked against the route the
+   built launcher takes): at the main path's leaf shape 1024^3 in float32
+   (CUDA cores), bfloat16 (``wgmma``) and float64 (DMMA), at the ragged
+   shapes (130, 70, 260), (1, 128, 1) and (130, 72, 264), and on views at
+   an odd element offset (bfloat16 on the CUDA cores), for ``matmul`` and
+   ``matmul_accumulate``, the route printed beside each result and the
+   launches by route after; at 1024^3 the kernel's time beside the plain
    version's, ``torch.matmul``'s (``torch.addmm``'s for the accumulate) as
    a yardstick the port never calls, and the card's bound;
 4. the chain kernels on the card: ``chain_ewise`` (``scan_step``) bit for
@@ -26,13 +32,14 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    x``) in float32, bfloat16 and float64 over every layout of its two
    exterior operands at 1024^2 x 64 levels and at the ragged (1000, 37);
    ``chain_dot`` (``gemm_tile``) at 1024^3 x 8 levels and the ragged
-   (130, 70, 260), with per-level and shared ``a``/``b``, bit for bit
+   (130, 70, 260) and (130, 72, 264), with per-level and shared ``a``/``b``,
+   on the route per-level replay takes at every level, bit for bit
    against per-level replay of ``gemm_tile`` (what ``serial`` runs: one
    GEMM-kernel launch per level) and within the GEMM's tolerance of its
    plain version (a per-level loop of PyTorch's ``c + a @ b``); the
    kernels' times and errors on the timed inputs beside their plain
-   versions' times, their bounds and, for ``chain_dot``, ``torch.addmm``
-   over the levels concatenated along K; ``chain_attn`` (``attn_step``) at
+   versions' times, their bounds and, for ``chain_dot`` in each dtype,
+   ``torch.addmm`` over the levels concatenated along K; ``chain_attn`` (``attn_step``) at
    a Qwen3-14B query tile (o, q 512 x 128, k, v 16 levels of 512 x 128)
    and a ragged (100, 70, d 40, dv 24) x 3, q/k/v shared or per level,
    bit for bit against per-level ``attn_step`` replay and within tolerance
@@ -101,6 +108,8 @@ DOT_LEVELS = 8            # gemm_tile chain depth: one C tile of Listing 1
 ATTN_TILE = (512, 512, 128, 128)   # attn_step chain: m, n, d, dv (Qwen3-14B)
 ATTN_LEVELS = 16
 SEED = 0
+# the GEMM's kernels, one per tile loop (kernels/gemm/csrc/gemm.cu)
+GEMM_KERNELS = ("gemm_simt_kernel", "gemm_wgmma_kernel", "gemm_dmma_kernel")
 
 # flash attention: the reference's cases (tests/test_kernels.py:75-82,
 # padded with bq = bkv = 16) as (B, Hq, Hkv, Sq, Skv, D, causal, window)
@@ -187,7 +196,8 @@ def device_profile(torch, label: str, run, wall_s: float,
     busy share in percent."""
     from torch.profiler import ProfilerActivity, profile
 
-    for attempt in range(2):
+    attempts = 3
+    for attempt in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -199,12 +209,16 @@ def device_profile(torch, label: str, run, wall_s: float,
              if e.device_type == torch.autograd.DeviceType.CUDA
              and e.self_device_time_total > 0),
             reverse=True)
-        if kernels:
+        seen = {name: sum(cnt for _ms, cnt, key in kernels if name in key)
+                for name in expect}
+        if kernels and seen == expect:
             break
-        # a trace with no device activity at all is the tracer's failure,
-        # not the run's: every run profiled here launches kernels
-        print(f"[profile] {label}: the trace holds no device activity "
-              f"(attempt {attempt + 1} of 2)")
+        # the tracer drops activity records now and then (a whole trace,
+        # or the first kernel of a run whose launches were counted and
+        # whose result was right): trace the run again; the checks below
+        # fail if no trace shows exactly the counted launches
+        print(f"[profile] {label}: the trace shows {seen}, expected "
+              f"{expect} (attempt {attempt + 1} of {attempts})")
     for ms, cnt, key in kernels[:6]:
         print(f"[profile] {label}:   {ms:9.3f} ms {cnt:5d}x {key[:90]}")
     total = sum(ms for ms, _n, _k in kernels)
@@ -290,6 +304,24 @@ def main() -> int:
                     or "error" in line.lower()):
                 print(f"[build]   {line.strip()}")
 
+    # the tensor-core routes really issue tensor-core instructions: wgmma
+    # is HGMMA in the SASS, the f64 MMA DMMA
+    cuobjdump = Path(kernel.nvcc()).parent / "cuobjdump"
+    for lib_path, wants in ((built[0][0], {"gemm_wgmma_kernel": "HGMMA",
+                                           "gemm_dmma_kernel": "DMMA"}),
+                            (built[1][0], {"chain_dot_wgmma_kernel": "HGMMA",
+                                           "chain_dot_dmma_kernel": "DMMA"})):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        functions = sass.split("Function : ")[1:]
+        for name, op in wants.items():
+            body = "".join(f for f in functions
+                           if f.split("\n", 1)[0].find(name) >= 0)
+            count = body.count(op)
+            print(f"[build] {name}: {count} {op} instructions in its SASS")
+            check(count > 0, f"{name}: no {op} instruction in its SASS")
+
     # -- 3. GEMM kernel against its plain version ----------------------------
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -321,25 +353,41 @@ def main() -> int:
 
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16,
               "float64": torch.float64}
+
+    def gemm_route(a, b, a_stride=0, b_stride=0, addresses=None):
+        """The route ops.route gives these operands, checked against the
+        one the built library's launcher takes."""
+        m, k = a.shape[-2:]
+        n = b.shape[-1]
+        want = ops.route(a.dtype, m, n, k, addresses if addresses is not None
+                         else (a.data_ptr(), b.data_ptr()))
+        got = ops.ROUTES[kernel.launcher_route(
+            a.dtype, a.data_ptr(), a_stride, b.data_ptr(), b_stride, m, n, k)]
+        check(got == want, f"GEMM route: the launcher takes {got}, "
+              f"ops.route says {want}")
+        return want
+
     leaf = {}
     for dname, dt in dtypes.items():
         a, b = rand((IB, IB), dt), rand((IB, IB), dt)
-        err = compare(f"matmul {IB}^3 {dname}", ops.matmul(a, b),
+        path = gemm_route(a, b)
+        err = compare(f"matmul {IB}^3 {dname} [{path}]", ops.matmul(a, b),
                       ref.matmul(a, b), dname)
         ms = time_ms(torch, lambda: ops.matmul(a, b))
         plain = time_ms(torch, lambda: ref.matmul(a, b))
         lib = time_ms(torch, lambda: torch.matmul(a, b))
         flops = 2 * IB ** 3
         bnd, by = bound_ms(3 * IB * IB * a.element_size(), flops, dname)
-        print(f"[gemm] matmul {IB}^3 {dname}: kernel {ms:.4f} ms "
+        print(f"[gemm] matmul {IB}^3 {dname} [{path}]: kernel {ms:.4f} ms "
               f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms, "
               f"torch.matmul {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
         leaf[("matmul", dname)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                        bound_ms=bnd, bound_by=by,
-                                       library_ms=lib)
+                                       library_ms=lib, gemm_route=path)
     for dname, dt in dtypes.items():
         c, a, b = rand((IB, IB), dt), rand((IB, IB), dt), rand((IB, IB), dt)
-        err = compare(f"matmul_accumulate {IB}^3 {dname}",
+        path = gemm_route(a, b)
+        err = compare(f"matmul_accumulate {IB}^3 {dname} [{path}]",
                       ops.matmul_accumulate(c, a, b),
                       ref.matmul_accumulate(c, a, b), dname)
         ms = time_ms(torch, lambda: ops.matmul_accumulate(c, a, b))
@@ -347,20 +395,63 @@ def main() -> int:
         lib = time_ms(torch, lambda: torch.addmm(c, a, b))
         flops = 2 * IB ** 3 + IB * IB
         bnd, by = bound_ms(4 * IB * IB * a.element_size(), flops, dname)
-        print(f"[gemm] matmul_accumulate {IB}^3 {dname}: kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms, "
-              f"torch.addmm {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+        print(f"[gemm] matmul_accumulate {IB}^3 {dname} [{path}]: kernel "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
+              f"{plain:.4f} ms, torch.addmm {lib:.4f} ms, bound {bnd:.4f} ms "
+              f"({by})")
         leaf[("matmul_accumulate", dname)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-            bound_by=by, library_ms=lib)
-    for m, k, n in ((130, 70, 260), (1, 128, 1)):
+            bound_by=by, library_ms=lib, gemm_route=path)
+    # the ragged edge on every route; (130, 72, 264) is ragged but TMA can
+    # read it in bfloat16 (the tensor-core route), the others are not
+    for m, k, n in ((130, 70, 260), (1, 128, 1), (130, 72, 264)):
         for dname, dt in dtypes.items():
             a, b, c = rand((m, k), dt), rand((k, n), dt), rand((m, n), dt)
-            compare(f"matmul ({m},{k},{n}) {dname}", ops.matmul(a, b),
-                    ref.matmul(a, b), dname)
-            compare(f"matmul_accumulate ({m},{k},{n}) {dname}",
+            path = gemm_route(a, b)
+            compare(f"matmul ({m},{k},{n}) {dname} [{path}]",
+                    ops.matmul(a, b), ref.matmul(a, b), dname)
+            compare(f"matmul_accumulate ({m},{k},{n}) {dname} [{path}]",
                     ops.matmul_accumulate(c, a, b),
                     ref.matmul_accumulate(c, a, b), dname)
+    # contiguous views one element into their storage: TMA cannot read them
+    for dname, dt in dtypes.items():
+        a = rand((IB * IB + 1,), dt)[1:].view(IB, IB)
+        b = rand((IB * IB + 1,), dt)[1:].view(IB, IB)
+        c = rand((IB, IB), dt)
+        path = gemm_route(a, b)
+        compare(f"matmul {IB}^3 {dname}, views at an odd offset [{path}]",
+                ops.matmul(a, b), ref.matmul(a, b), dname)
+        compare(f"matmul_accumulate {IB}^3 {dname}, views at an odd offset "
+                f"[{path}]", ops.matmul_accumulate(c, a, b),
+                ref.matmul_accumulate(c, a, b), dname)
+    del a, b, c
+    gemm_routes_run = {name: dict(fn.routes) for name, fn in
+                       (("matmul", ops.matmul),
+                        ("matmul_accumulate", ops.matmul_accumulate))}
+    print(f"[gemm] launches by route: {gemm_routes_run}")
+    for name, by_route in gemm_routes_run.items():
+        check(set(by_route) == set(ops.ROUTES), f"{name}: routes run "
+              f"{sorted(by_route)}, expected every one of {ops.ROUTES}")
+
+    # the wrappers' host time per call, at a size where the card waits on
+    # the host: what a host-bound workflow pays per GEMM launch
+    def host_us(fn, calls=2000):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        elapsed = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return elapsed / calls * 1e6
+
+    for dname in ("float32", "bfloat16"):
+        a, b = rand((64, 64), dtypes[dname]), rand((64, 64), dtypes[dname])
+        print(f"[gemm] host time per call at 64^3 {dname}: matmul "
+              f"{host_us(lambda: ops.matmul(a, b)):.2f} us, torch.matmul "
+              f"{host_us(lambda: torch.matmul(a, b)):.2f} us")
+    del a, b
 
     # -- 4. chain kernels against their plain versions -----------------------
     def same_bits(name, got, exp):
@@ -397,13 +488,30 @@ def main() -> int:
           f"and (1000,37) x 16 layouts, {SCAN_LEVELS} levels) bitwise equal "
           f"to the plain version: ok")
     for dname, dt in dtypes.items():
-        for m, k, n, L in ((IB, IB, IB, DOT_LEVELS), (130, 70, 260, 3)):
+        for m, k, n, L in ((IB, IB, IB, DOT_LEVELS), (130, 70, 260, 3),
+                           (130, 72, 264, 3)):
             c = rand((m, n), dt)
             A, B = rand((L, m, k), dt), rand((L, k, n), dt)
             for layout, args in ((("single", "xs", "xs"), (c, A, B)),
                                  (("single", "single", "single"),
                                   (c, A[0], B[0]))):
-                name = f"chain_dot ({m},{k},{n}) x {L} {dname} {layout}"
+                # the chain's route is the one replay takes at every level
+                # and the one the chain library's launcher takes
+                path = chain_ops.dot_route(layout, L, *args)
+                per_level = {gemm_route(args[1][lv] if layout[1] == "xs"
+                                        else args[1],
+                                        args[2][lv] if layout[2] == "xs"
+                                        else args[2]) for lv in range(L)}
+                strides = [m * k if layout[1] == "xs" else 0,
+                           k * n if layout[2] == "xs" else 0]
+                launcher = gemm_route(args[1], args[2], *strides,
+                                      addresses=chain_ops.level_addresses(
+                                          layout, L, args[1], args[2]))
+                check(per_level == {path} == {launcher},
+                      f"chain_dot {dname} ({m},{k},{n}) {layout}: chain "
+                      f"route {path}, launcher {launcher}, replay {per_level}")
+                name = (f"chain_dot ({m},{k},{n}) x {L} {dname} {layout} "
+                        f"[{path}]")
                 got = chain_ops.chain_dot(layout, 0, L, *args)
                 same_bits(f"{name} vs gemm_tile replay", got,
                           chain_ref.run_levels(gemm_tile, layout, 0, L, args))
@@ -443,31 +551,41 @@ def main() -> int:
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
             bound_by=by, library_ms=None)
     L = DOT_LEVELS
-    c = rand((IB, IB), torch.float32)
-    A, B = rand((L, IB, IB), torch.float32), rand((L, IB, IB), torch.float32)
-    A_cat = torch.cat(list(A), dim=1).contiguous()      # (IB, L*IB)
-    B_cat = torch.cat(list(B), dim=0).contiguous()      # (L*IB, IB)
     layout = ("single", "xs", "xs")
-    got = chain_ops.chain_dot(layout, 0, L, c, A, B)
-    exp = chain_ref.chain_dot(layout, 0, L, c, A, B)
-    err = (got.double() - exp.double()).abs().max().item()
-    ms = time_ms(torch, lambda: chain_ops.chain_dot(layout, 0, L, c, A, B))
-    plain = time_ms(torch, lambda: chain_ref.chain_dot(layout, 0, L, c, A, B))
-    replay = time_ms(torch, lambda: chain_ref.run_levels(
-        gemm_tile, layout, 0, L, (c, A, B)))
-    lib = time_ms(torch, lambda: torch.addmm(c, A_cat, B_cat))
-    flops = L * (2 * IB ** 3 + IB * IB)
-    nbytes = (2 * IB * IB + A.numel() + B.numel()) * 4
-    bnd, by = bound_ms(nbytes, flops, "float32")
-    print(f"[chain] chain_dot {IB}^3 x {L} levels float32: kernel {ms:.4f} ms "
-          f"({flops / ms / 1e9:.2f} TFLOP/s), plain (per-level PyTorch) "
-          f"{plain:.4f} ms, max_abs_err {err:.3e}, per-level gemm_tile "
-          f"replay ({L} GEMM-kernel launches) {replay:.4f} ms, torch.addmm "
-          f"over K={L * IB} {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
-    chain_times["dot"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                              bound_ms=bnd, bound_by=by, library_ms=lib)
-    del got, exp
-    del y, x, xs, c, A, B, A_cat, B_cat
+    for dname, dt in dtypes.items():
+        c = rand((IB, IB), dt)
+        A, B = rand((L, IB, IB), dt), rand((L, IB, IB), dt)
+        A_cat = torch.cat(list(A), dim=1).contiguous()      # (IB, L*IB)
+        B_cat = torch.cat(list(B), dim=0).contiguous()      # (L*IB, IB)
+        path = chain_ops.dot_route(layout, L, c, A, B)
+        got = chain_ops.chain_dot(layout, 0, L, c, A, B)
+        exp = chain_ref.chain_dot(layout, 0, L, c, A, B)
+        err = (got.double() - exp.double()).abs().max().item()
+        ms = time_ms(torch, lambda: chain_ops.chain_dot(layout, 0, L, c, A,
+                                                        B), iters=10)
+        plain = time_ms(torch, lambda: chain_ref.chain_dot(layout, 0, L, c,
+                                                           A, B), iters=10)
+        replay = time_ms(torch, lambda: chain_ref.run_levels(
+            gemm_tile, layout, 0, L, (c, A, B)), iters=10)
+        lib = time_ms(torch, lambda: torch.addmm(c, A_cat, B_cat), iters=10)
+        flops = L * (2 * IB ** 3 + IB * IB)
+        nbytes = (2 * IB * IB + A.numel() + B.numel()) * c.element_size()
+        bnd, by = bound_ms(nbytes, flops, dname)
+        print(f"[chain] chain_dot {IB}^3 x {L} levels {dname} [{path}]: "
+              f"kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
+              f"(per-level PyTorch) {plain:.4f} ms, max_abs_err {err:.3e}, "
+              f"per-level gemm_tile replay ({L} GEMM-kernel launches) "
+              f"{replay:.4f} ms, torch.addmm over K={L * IB} {lib:.4f} ms, "
+              f"bound {bnd:.4f} ms ({by})")
+        chain_times[("dot", dname)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+            bound_by=by, library_ms=lib, gemm_route=path)
+        del got, exp, c, A, B, A_cat, B_cat
+    print(f"[chain] chain_dot launches by route: {dict(chain_ops.chain_dot.routes)}")
+    check(set(chain_ops.chain_dot.routes) == set(ops.ROUTES),
+          f"chain_dot: routes run {sorted(chain_ops.chain_dot.routes)}, "
+          f"expected every one of {ops.ROUTES}")
+    del y, x, xs
 
     def attn_operands(layout, m, n, d, dv, L, dt):
         shapes = ((m, dv), (m, d), (n, d), (n, dv))
@@ -542,6 +660,8 @@ def main() -> int:
     def zero_counts():
         for wrapper in wrappers.values():
             wrapper.launches = 0
+            if hasattr(wrapper, "routes"):
+                wrapper.routes = {}
 
     def counts():
         return {name: w.launches for name, w in wrappers.items()}
@@ -829,7 +949,7 @@ def main() -> int:
             keep=lambda r, t=transfers: t.extend(r[1].transfers) or r[0])
         path_counts[path] = got
         device_profile(torch, path, run, walls["warm"],
-                       {"gemm_kernel": want})
+                       {"gemm_simt_kernel": want})
         serial[path] = (C, transfers)
         del C
 
@@ -888,7 +1008,7 @@ def main() -> int:
         "scan chain, x per level": (lambda b: scan_chain(b, True),
                                     "chain.ewise", L, "chain_ewise_kernel"),
         "gemm_tile chain": (gemm_chain, "chain.dot", DOT_LEVELS,
-                            "chain_dot_kernel"),
+                            "chain_dot_simt_kernel"),
         "attn_step chain": (attn_chain, "chain.attn", ATTN_LEVELS,
                             "chain_attn_kernel"),
     }
@@ -924,7 +1044,7 @@ def main() -> int:
         _kept, got, walls = measured(label, mesh_run, describe)
         del want
         path_counts[label] = got
-        expect = {kernel_name: 1, "gemm_kernel": 0}
+        expect = {kernel_name: 1, **{name: 0 for name in GEMM_KERNELS}}
         busy = device_profile(torch, label, mesh_run, walls["warm"], expect)
         print(f"[chains] {label}: serial replay launched {serial_counts}, "
               f"walls cold {serial_walls[0] * 1e3:.3f} ms warm "
@@ -968,7 +1088,7 @@ def main() -> int:
 
             _kept, got, walls = measured(label, traced, describe)
             busy = device_profile(torch, label, traced, walls["warm"],
-                                  {"gemm_kernel": want})
+                                  {"gemm_simt_kernel": want})
             print(f"[{label}] walls cold {walls['cold']:.4f} s warm "
                   f"{walls['warm']:.4f} s, busy {busy:.1f}%")
     print(f"[memory] peak allocated "
@@ -992,7 +1112,8 @@ def main() -> int:
          path_counts["scan chain, x single"]["chain.ewise"],
          chain_times[("ewise", "single")]),
         ("chain.dot", chain_source, chain_replaces,
-         path_counts["gemm_tile chain"]["chain.dot"], chain_times["dot"]),
+         path_counts["gemm_tile chain"]["chain.dot"],
+         chain_times[("dot", "float32")]),
         ("chain.attn", chain_source, chain_replaces,
          path_counts["attn_step chain"]["chain.attn"], chain_times["attn"]),
         ("flash_attention",

@@ -17,10 +17,13 @@ import threading
 _LAUNCH_LOCK = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches`` (thread-safe)."""
+def count_launch(wrapper, route: str | None = None) -> None:
+    """Add one to ``wrapper.launches`` and, for a kernel with routes, to
+    ``wrapper.routes[route]`` (thread-safe)."""
     with _LAUNCH_LOCK:
         wrapper.launches += 1
+        if route is not None:
+            wrapper.routes[route] = wrapper.routes.get(route, 0) + 1
 
 
 # the public wrappers, as the reference's package exports them; imported

@@ -1,6 +1,7 @@
 // Chain kernels for Hopper (sm_90a): a whole fused chain of one tagged op
-// body in one launch, the carry kept in registers from the first level to
-// the last and written once.
+// body in one launch, the carry kept in registers (or, on chain_dot's
+// tensor-core routes, in the block's own output tile) from the first level
+// to the last.
 //
 // Replaces the TPU kernel src/repro/core/executable_cache.py:242
 // lookup_chain_pallas (the pallas_call at :313), which traces any body
@@ -28,13 +29,20 @@
 //     (3.8 us at 3.35 TB/s) and 276.8 MB with a per-level x (82.6 us).
 //
 //   * chain_dot, for kernels/gemm/ops.py gemm_tile (c <- c + a @ b): the
-//     hand-written GEMM with a level loop outside its K loop.  Each block
-//     owns a 64x64 tile of c, held in registers for the whole chain; per
-//     level it sums that level's A and B panels ("single" or "xs") over K
-//     with the tile loop of gemm_tile.cuh (shared with gemm.cu: the same
-//     order, the same __fmaf_rn / __fma_rn), adds the sum into the carry
-//     in the accumulator type and rounds the carry to its own type, as
-//     per-level matmul_accumulate does (bitwise equal to it, bf16 included).
+//     hand-written GEMM with a level loop outside its K loop.  It takes the
+//     GEMM's route for the dtype and alignment (gemm_routes.cuh: f32 on the
+//     CUDA cores, bf16 on the tensor cores with wgmma and TMA or, when TMA
+//     cannot read the operands, on the CUDA cores, f64 on the f64 tensor
+//     cores) and runs its tile loop with the levels as one stream of K
+//     panels.  Each block owns an output tile for the whole chain; per
+//     level it sums that level's A and B ("single" or "xs") over K from 0,
+//     adds the carry in the accumulator type and rounds to the carry's
+//     type, as per-level matmul_accumulate does.  The carry stays in
+//     registers on the CUDA-core route; on the tensor-core routes, whose
+//     accumulators fill the registers, it lives in out, which the block
+//     alone owns (the thread that wrote an element at one level reads it
+//     at the next).  Per-level replay launches the same tile
+//     loop with one level, so the two are bitwise equal in every dtype.
 //     Bound on an H100: operations; 8 levels of 1024^3 f32 are 17.2 GFLOP,
 //     0.256 ms at the 67 TFLOP/s f32 rate outside the tensor cores.
 //
@@ -60,9 +68,10 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "../../flash_attention/csrc/attn_tile.cuh"
-#include "../../gemm/csrc/gemm_tile.cuh"
+#include "../../gemm/csrc/gemm_routes.cuh"
 
 namespace {
 
@@ -184,76 +193,46 @@ int launch_ewise(void* out, const void* p0, int k0, double s0,
 
 // ------------------------------------------------------------------ dot --
 
-// out = c + sum_l A_l @ B_l, the carry rounded to T after every level;
-// A_l = A + l * a_stride (a_stride 0: the same A every level), likewise B
+// out = c + sum_l A_l @ B_l, the carry rounded to T after every level: the
+// GEMM's route and tile loop (gemm_routes.cuh) with L levels, in kernels
+// of this library's own names
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-chain_dot_kernel(const T* __restrict__ C, const T* __restrict__ A,
-                 int64_t a_stride, const T* __restrict__ B, int64_t b_stride,
-                 T* __restrict__ out, int64_t M, int64_t N, int64_t K,
-                 int64_t n_levels) {
-  using Acc = typename AccType<T>::type;
-  __shared__ Panels<Acc> sm;
+__global__ void __launch_bounds__(SIMT_THREADS)
+chain_dot_simt_kernel(const Problem<T> p) {
+  extern __shared__ __align__(16) unsigned char simt_smem[];
+  simt_tile<T>(p, simt_smem);
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % LANES_N;
-  const int ty = tid / LANES_N;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.y) * BM;
-  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * BN;
+__global__ void __launch_bounds__(WG_THREADS)
+chain_dot_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                       const __grid_constant__ CUtensorMap tb,
+                       const Problem<__nv_bfloat16> p) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  wgmma_tile(&ta, &tb, p, wg_smem);
+}
 
-  T carry[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t gm = m0 + ty + i * LANES_M;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int64_t gn = n0 + tx + j * LANES_N;
-      carry[i][j] = (gm < M && gn < N) ? C[gm * N + gn] : from_acc<T>(Acc(0));
-    }
-  }
-
-  for (int64_t l = 0; l < n_levels; ++l) {
-    Acc acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = Acc(0);
-    accumulate_tile<T, Acc>(A + l * a_stride, B + l * b_stride, M, N, K, m0,
-                            n0, sm, acc);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        carry[i][j] = from_acc<T>(to_acc(carry[i][j]) + acc[i][j]);
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t gm = m0 + ty + i * LANES_M;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int64_t gn = n0 + tx + j * LANES_N;
-      if (gn >= N) continue;
-      out[gm * N + gn] = carry[i][j];
-    }
-  }
+__global__ void __launch_bounds__(DM_THREADS)
+chain_dot_dmma_kernel(const Problem<double> p) {
+  extern __shared__ __align__(16) unsigned char dm_smem[];
+  dmma_tile(p, dm_smem);
 }
 
 template <typename T>
 int launch_dot(const void* c, const void* a, int64_t a_stride, const void* b,
                int64_t b_stride, void* out, int64_t M, int64_t N, int64_t K,
                int64_t n_levels, void* stream) {
-  if (M > 0 && N > 0) {
-    const dim3 grid(static_cast<unsigned>((N + BN - 1) / BN),
-                    static_cast<unsigned>((M + BM - 1) / BM));
-    chain_dot_kernel<T><<<grid, THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(c), static_cast<const T*>(a), a_stride,
-        static_cast<const T*>(b), b_stride, static_cast<T*>(out), M, N, K,
-        n_levels);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const Problem<T> p{static_cast<const T*>(a), a_stride,
+                     static_cast<const T*>(b), b_stride,
+                     static_cast<const T*>(c), static_cast<T*>(out),
+                     M, N, K, n_levels};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (std::is_same_v<T, double>)   // no CUDA-core route for f64
+    return static_cast<int>(launch(p, st, nullptr, chain_dot_wgmma_kernel,
+                                   chain_dot_dmma_kernel));
+  else
+    return static_cast<int>(launch(p, st, chain_dot_simt_kernel<T>,
+                                   chain_dot_wgmma_kernel,
+                                   chain_dot_dmma_kernel));
 }
 
 // ----------------------------------------------------------------- attn --

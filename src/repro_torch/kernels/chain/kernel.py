@@ -1,10 +1,10 @@
 """Build and bind the chain kernels (``csrc/chain.cu``).
 
 Built at first use through the shared :mod:`repro_torch.kernels._build`
-helper, together with the tile loops it includes: the GEMM's
-(``gemm/csrc/gemm_tile.cuh``) and flash attention's
-(``flash_attention/csrc/attn_tile.cuh``).  Nothing here runs at import
-time.
+helper, together with the tile loops it includes: the GEMM's routes
+(``gemm/csrc/gemm_routes.cuh`` and the tile loop of each) and flash
+attention's (``flash_attention/csrc/attn_tile.cuh``).  Nothing here runs
+at import time.
 """
 
 from __future__ import annotations
@@ -15,11 +15,13 @@ from pathlib import Path
 import torch
 
 from .._build import CudaLibrary
+from ..gemm.kernel import HEADERS as GEMM_HEADERS
+from ..gemm.kernel import on_device
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "csrc" / "chain.cu",)
-HEADERS = (_HERE.parent / "gemm" / "csrc" / "gemm_tile.cuh",
-           _HERE.parent / "flash_attention" / "csrc" / "attn_tile.cuh")
+HEADERS = GEMM_HEADERS + (
+    _HERE.parent / "flash_attention" / "csrc" / "attn_tile.cuh",)
 
 SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
           torch.float64: "f64"}
@@ -59,7 +61,7 @@ def launch_ewise(out: torch.Tensor, layout: tuple, carry_pos: int,
             flat += [None, KINDS["const"], float(v)]
         else:
             flat += [v.data_ptr(), KINDS[lay], 0.0]
-    with torch.cuda.device(out.device):
+    with on_device(out.device):
         LIBRARY.call(f"bind_chain_ewise_{SUFFIX[out.dtype]}",
                      out.data_ptr(), *flat, carry_pos, out.numel(), n_levels,
                      _stream(out))
@@ -71,7 +73,7 @@ def launch_dot(out: torch.Tensor, c: torch.Tensor, a: torch.Tensor,
     """Enqueue ``out = c + Σ_l a_l @ b_l`` (``*_stride`` elements between
     levels, 0 for an operand every level shares)."""
     m, n = c.shape
-    with torch.cuda.device(out.device):
+    with on_device(out.device):
         LIBRARY.call(f"bind_chain_dot_{SUFFIX[out.dtype]}", c.data_ptr(),
                      a.data_ptr(), a_stride, b.data_ptr(), b_stride,
                      out.data_ptr(), m, n, k, n_levels, _stream(out))
@@ -85,7 +87,7 @@ def launch_attn(out: torch.Tensor, o: torch.Tensor, q: torch.Tensor,
     level shares)."""
     m, dv = o.shape
     n, d = k.shape[-2:]
-    with torch.cuda.device(out.device):
+    with on_device(out.device):
         LIBRARY.call(f"bind_chain_attn_{SUFFIX[out.dtype]}", o.data_ptr(),
                      q.data_ptr(), q_stride, k.data_ptr(), k_stride,
                      v.data_ptr(), v_stride, out.data_ptr(), m, n, d, dv,

@@ -27,7 +27,8 @@ ones its body's kernel takes (``None`` when they are); a caller that asks
 first never sees a wrapper raise for its operands.  On a CUDA tensor a
 wrapper launches its kernel or raises; on a CPU tensor, and only there, it
 computes the plain version.  Each wrapper counts its launches in
-``launches``.
+``launches``; :func:`chain_dot` also counts the GEMM route it took
+(:func:`dot_route`) in ``routes``.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from torch._C._functorch import is_batchedtensor
 
 from .. import count_launch
 from ..flash_attention.kernel import MAX_HEAD_DIM
+from ..gemm.ops import route as gemm_route
 from . import kernel, ref
 
 DTYPES = tuple(kernel.SUFFIX)
@@ -204,12 +206,37 @@ def chain_dot(layout: tuple, carry_pos: int, n_levels: int,
         m, k = a.shape[-2:]
         a_stride = m * k if layout[1] == "xs" else 0
         b_stride = k * c.shape[1] if layout[2] == "xs" else 0
+        path = dot_route(layout, n_levels, c, a, b)
         kernel.launch_dot(out, c, a, a_stride, b, b_stride, k, n_levels)
-        count_launch(chain_dot)
+        count_launch(chain_dot, path)
     return out
 
 
 chain_dot.launches = 0
+chain_dot.routes = {}
+
+
+def level_addresses(layout: tuple, n_levels: int, a: torch.Tensor,
+                    b: torch.Tensor) -> list[int]:
+    """Where each level's ``a`` and ``b`` start (bytes): what per-level
+    replay of ``gemm_tile`` hands the GEMM at every level."""
+    out = []
+    for lay, t in ((layout[1], a), (layout[2], b)):
+        if lay == "xs":
+            step = t[0].numel() * t.element_size()
+            out += [t.data_ptr() + level * step for level in range(n_levels)]
+        else:
+            out.append(t.data_ptr())
+    return out
+
+
+def dot_route(layout: tuple, n_levels: int, c: torch.Tensor, a: torch.Tensor,
+              b: torch.Tensor) -> str:
+    """The GEMM route (:func:`..gemm.ops.route`) of a ``gemm_tile`` chain:
+    the one every level's ``matmul_accumulate`` would take."""
+    m, n = c.shape
+    return gemm_route(c.dtype, m, n, a.shape[-1],
+                      level_addresses(layout, n_levels, a, b))
 
 
 def chain_attn(layout: tuple, carry_pos: int, n_levels: int,

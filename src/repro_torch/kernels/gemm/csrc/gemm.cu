@@ -7,88 +7,83 @@
 // over K inside each block, and the accumulator lives in registers instead
 // of VMEM scratch.
 //
-// Design (simple and correct first):
-//   * one block of 256 threads per 64x64 output tile; the tile loop (K
-//     steps of 16 staged in shared memory, a 4x4 register micro-tile per
-//     thread) lives in gemm_tile.cuh, shared with the chain kernel;
-//   * the ragged edge is masked in the loads (zero fill) and in the stores,
-//     so no padding copy is made for any (M, N, K);
-//   * an optional C operand is added in the epilogue in the accumulator
-//     type and cast once: matmul_accumulate (c + a@b) is one launch.
-// Accumulation: f32 inputs take IEEE fp32 FMA (never TF32), bf16 inputs
-// accumulate in fp32, f64 inputs in fp64.
-//
-// What bounds it on an H100: at the main path's leaf (1024^3, ib=1024 in
-// Listing 1 and Strassen) the tile does 2*1024^3 = 2.1 GFLOP against 12 MB
-// of f32 operands moved (A, B, out), about 180 FLOP per byte, far above the
-// card's ridge point, so it is compute-bound.  This kernel runs on the CUDA
-// cores (f32: 67 TFLOP/s peak) and reads shared memory for every FMA pair,
-// so shared-memory bandwidth, not HBM, limits it.  Tensor cores (wgmma with
-// TMA-fed shared-memory rings) are left for a later change.
+// Each dtype has its own route (gemm_routes.cuh), each a tile loop shared
+// with the chain kernel:
+//   * float32 on the CUDA cores (gemm_tile.cuh): IEEE fp32 FMAs, never
+//     TF32, in a pipelined loop (cp.async ring, 8x4 micro-tile, 16-byte
+//     shared loads).  Bound on an H100: operations, 67 TFLOP/s at the
+//     main path's 1024^3 leaf (2.1 GFLOP against 12 MB, about 180 FLOP per
+//     byte); the loop issues 12 shared loads per 128 FMAs, so FMA issue,
+//     not shared memory, is what it runs into;
+//   * bfloat16 on the tensor cores (gemm_wgmma.cuh): wgmma fed by TMA, fp32
+//     accumulators; operands TMA cannot read (misaligned, odd row strides)
+//     take the CUDA-core loop instead.  Bound: 989 TFLOP/s, so at 1024^3
+//     the latency of the K loop and the loads, which the TMA ring hides;
+//   * float64 on the f64 tensor cores (gemm_dmma.cuh): DMMA m16n8k16.
+//     Bound: operations, 67 TFLOP/s; shared-memory reads of the DMMA
+//     operands come close to it first.
+// Every route masks the ragged edge itself (zero fill), so no padding copy
+// is made for any (M, N, K), and adds an optional C once in the
+// accumulator type before one rounding: matmul_accumulate (c + a@b) is one
+// launch.
 //
 // C interface (bound with ctypes): every entry point takes device pointers,
 // the sizes and a cudaStream_t, launches on that stream without
 // synchronising, and returns cudaGetLastError() (0 on success).  c may be
-// NULL.
+// NULL.  bind_gemm_route says which route a problem takes.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
-#include "gemm_tile.cuh"
+#include "gemm_routes.cuh"
 
 namespace {
 
 using namespace bind_gemm;
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-gemm_kernel(const T* __restrict__ A, const T* __restrict__ B,
-            const T* __restrict__ C, T* __restrict__ out,
-            int64_t M, int64_t N, int64_t K) {
-  using Acc = typename AccType<T>::type;
-  __shared__ Panels<Acc> sm;
+__global__ void __launch_bounds__(SIMT_THREADS)
+gemm_simt_kernel(const Problem<T> p) {
+  extern __shared__ __align__(16) unsigned char simt_smem[];
+  simt_tile<T>(p, simt_smem);
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % LANES_N;
-  const int ty = tid / LANES_N;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.y) * BM;
-  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * BN;
+__global__ void __launch_bounds__(WG_THREADS)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                  const __grid_constant__ CUtensorMap tb,
+                  const Problem<__nv_bfloat16> p) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  wgmma_tile(&ta, &tb, p, wg_smem);
+}
 
-  Acc acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = Acc(0);
-
-  accumulate_tile<T, Acc>(A, B, M, N, K, m0, n0, sm, acc);
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t gm = m0 + ty + i * LANES_M;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int64_t gn = n0 + tx + j * LANES_N;
-      if (gn >= N) continue;
-      Acc v = acc[i][j];
-      if (C != nullptr) v = to_acc(C[gm * N + gn]) + v;
-      out[gm * N + gn] = from_acc<T>(v);
-    }
-  }
+__global__ void __launch_bounds__(DM_THREADS)
+gemm_dmma_kernel(const Problem<double> p) {
+  extern __shared__ __align__(16) unsigned char dm_smem[];
+  dmma_tile(p, dm_smem);
 }
 
 template <typename T>
-int launch(const void* a, const void* b, const void* c, void* out,
-           int64_t M, int64_t N, int64_t K, void* stream) {
-  if (M > 0 && N > 0) {
-    const dim3 grid(static_cast<unsigned>((N + BN - 1) / BN),
-                    static_cast<unsigned>((M + BM - 1) / BM));
-    gemm_kernel<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(a), static_cast<const T*>(b),
-        static_cast<const T*>(c), static_cast<T*>(out), M, N, K);
-  }
-  return static_cast<int>(cudaGetLastError());
+Problem<T> problem(const void* a, const void* b, const void* c, void* out,
+                   int64_t M, int64_t N, int64_t K) {
+  return Problem<T>{static_cast<const T*>(a), 0, static_cast<const T*>(b), 0,
+                    static_cast<const T*>(c), static_cast<T*>(out), M, N, K,
+                    1};
+}
+
+// float64 has no CUDA-core route: no simt kernel is instantiated for it
+template <typename T>
+int run(const void* a, const void* b, const void* c, void* out, int64_t M,
+        int64_t N, int64_t K, void* stream) {
+  const Problem<T> p = problem<T>(a, b, c, out, M, N, K);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (std::is_same_v<T, double>)
+    return static_cast<int>(
+        launch(p, st, nullptr, gemm_wgmma_kernel, gemm_dmma_kernel));
+  else
+    return static_cast<int>(launch(p, st, gemm_simt_kernel<T>,
+                                   gemm_wgmma_kernel, gemm_dmma_kernel));
 }
 
 }  // namespace
@@ -97,17 +92,39 @@ extern "C" {
 
 int bind_gemm_f32(const void* a, const void* b, const void* c, void* out,
                   int64_t M, int64_t N, int64_t K, void* stream) {
-  return launch<float>(a, b, c, out, M, N, K, stream);
+  return run<float>(a, b, c, out, M, N, K, stream);
 }
 
 int bind_gemm_bf16(const void* a, const void* b, const void* c, void* out,
                    int64_t M, int64_t N, int64_t K, void* stream) {
-  return launch<__nv_bfloat16>(a, b, c, out, M, N, K, stream);
+  return run<__nv_bfloat16>(a, b, c, out, M, N, K, stream);
 }
 
 int bind_gemm_f64(const void* a, const void* b, const void* c, void* out,
                   int64_t M, int64_t N, int64_t K, void* stream) {
-  return launch<double>(a, b, c, out, M, N, K, stream);
+  return run<double>(a, b, c, out, M, N, K, stream);
+}
+
+// The route (bind_gemm::Route) a problem of element size elem_bytes (4:
+// float32, 2: bfloat16, 8: float64) takes, for a chain with level strides
+// a_stride and b_stride in elements (0 for the GEMM); -1 for another size.
+int bind_gemm_route(int elem_bytes, const void* a, int64_t a_stride,
+                    const void* b, int64_t b_stride, int64_t M, int64_t N,
+                    int64_t K) {
+  switch (elem_bytes) {
+    case 4: return route_of(Problem<float>{
+        static_cast<const float*>(a), a_stride, static_cast<const float*>(b),
+        b_stride, nullptr, nullptr, M, N, K, 1});
+    case 2: return route_of(Problem<__nv_bfloat16>{
+        static_cast<const __nv_bfloat16*>(a), a_stride,
+        static_cast<const __nv_bfloat16*>(b), b_stride, nullptr, nullptr, M,
+        N, K, 1});
+    case 8: return route_of(Problem<double>{
+        static_cast<const double*>(a), a_stride,
+        static_cast<const double*>(b), b_stride, nullptr, nullptr, M, N, K,
+        1});
+    default: return -1;
+  }
 }
 
 }  // extern "C"

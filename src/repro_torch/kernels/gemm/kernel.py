@@ -1,7 +1,8 @@
 """Build and bind the hand-written Hopper GEMM (``csrc/gemm.cu``).
 
-The source and the tile loop it shares with the chain kernel
-(``csrc/gemm_tile.cuh``) are compiled at first use through the shared
+The source and the headers it shares with the chain kernel (the route
+rule and launch, ``csrc/gemm_routes.cuh``, and one tile loop per route:
+``gemm_tile.cuh``, ``gemm_wgmma.cuh``, ``gemm_dmma.cuh``) are compiled at first use through the shared
 :mod:`repro_torch.kernels._build` helper: ``nvcc`` for ``sm_90a`` into a
 hash-named shared library with a plain C interface, loaded with
 :mod:`ctypes`.  A missing ``nvcc`` or a failed build raises: there is no
@@ -13,6 +14,7 @@ hosts without ``nvcc`` or a GPU.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from pathlib import Path
 
@@ -22,7 +24,8 @@ from .._build import BUILD_DIR, NVCC_FLAGS, CudaLibrary, nvcc
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "csrc" / "gemm.cu",)
-HEADERS = (_HERE / "csrc" / "gemm_tile.cuh",)
+HEADERS = tuple(_HERE / "csrc" / name for name in (
+    "gemm_routes.cuh", "gemm_tile.cuh", "gemm_wgmma.cuh", "gemm_dmma.cuh"))
 
 # torch dtype -> C entry point of csrc/gemm.cu
 SYMBOLS = {
@@ -34,16 +37,36 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
              ctypes.c_int64, ctypes.c_void_p)
 
-LIBRARY = CudaLibrary("bind_gemm", SOURCES, HEADERS,
-                      {sym: _ARGTYPES for sym in SYMBOLS.values()})
+# which route (an index of ops.ROUTES) the launcher takes for a problem:
+# (element size, a, a_stride, b, b_stride, M, N, K)
+ROUTE_SYMBOL = "bind_gemm_route"
+_ROUTE_ARGTYPES = (ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int64)
 
-__all__ = ["BUILD_DIR", "LIBRARY", "NVCC_FLAGS", "SYMBOLS", "launch",
-           "library_path", "nvcc"]
+LIBRARY = CudaLibrary("bind_gemm", SOURCES, HEADERS,
+                      {**{sym: _ARGTYPES for sym in SYMBOLS.values()},
+                       ROUTE_SYMBOL: _ROUTE_ARGTYPES})
+
+__all__ = ["BUILD_DIR", "HEADERS", "LIBRARY", "NVCC_FLAGS", "ROUTE_SYMBOL",
+           "SYMBOLS", "launch", "launcher_route", "library_path", "nvcc",
+           "on_device"]
 
 
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     return LIBRARY.path()
+
+
+_CURRENT = contextlib.nullcontext()
+
+
+def on_device(device: torch.device):
+    """A context that makes ``device`` the current card for a launch (the C
+    launchers launch on the current one); free when it already is."""
+    if device.index == torch.cuda.current_device():
+        return _CURRENT
+    return torch.cuda.device(device)
 
 
 def launch(a: torch.Tensor, b: torch.Tensor, c, out: torch.Tensor) -> None:
@@ -55,8 +78,17 @@ def launch(a: torch.Tensor, b: torch.Tensor, c, out: torch.Tensor) -> None:
     """
     m, k = a.shape
     n = b.shape[1]
-    with torch.cuda.device(a.device):
+    with on_device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         LIBRARY.call(SYMBOLS[a.dtype], a.data_ptr(), b.data_ptr(),
                      c.data_ptr() if c is not None else None,
                      out.data_ptr(), m, n, k, stream)
+
+
+def launcher_route(dtype: torch.dtype, a_ptr: int, a_stride: int, b_ptr: int,
+                   b_stride: int, m: int, n: int, k: int) -> int:
+    """The route index the built library's launcher takes for these
+    operands (``chip_smoke.py`` holds it against :func:`.ops.route`)."""
+    fn = getattr(LIBRARY.load(), ROUTE_SYMBOL)
+    return fn(torch.empty((), dtype=dtype).element_size(), a_ptr, a_stride,
+              b_ptr, b_stride, m, n, k)

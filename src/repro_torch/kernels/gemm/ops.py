@@ -11,7 +11,16 @@ The kernel masks ragged edges itself, so unlike the reference's
 On a CUDA tensor a wrapper launches the kernel or raises; on a CPU tensor,
 and only there, it computes the plain version (:mod:`.ref`).  Each wrapper
 counts its kernel launches in ``launches`` (a plain integer on the
-function), so a run can show that its main path went through the kernel.
+function), so a run can show that its main path went through the kernel,
+and each launch's route in ``routes`` (route name -> launches).
+
+:func:`route` says which tile loop a launch takes (``csrc/gemm_routes.cuh``
+is the same rule in C, and :func:`.kernel.launcher_route` asks the built
+library): float32 on the CUDA cores, bfloat16 on the tensor cores
+(``wgmma`` fed by TMA) when TMA can read both operands and on the CUDA
+cores otherwise, float64 on the f64 tensor cores.  The chain kernel's
+``chain_dot`` takes the same route for its chain as per-level replay takes
+at every level.
 
 A tensor batched by ``torch.func.vmap`` has no storage a kernel could read,
 so both wrappers raise ``TypeError`` on one, on every device, before any
@@ -33,6 +42,26 @@ from .. import count_launch
 from . import kernel, ref
 
 DTYPES = tuple(kernel.SYMBOLS)
+# the routes, in the order of bind_gemm::Route (csrc/gemm_routes.cuh)
+ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f64_dmma")
+
+
+def route(dtype: torch.dtype, m: int, n: int, k: int,
+          addresses=()) -> str:
+    """The route of a GEMM problem: ``(m, k) @ (k, n)`` of ``dtype`` whose
+    ``a`` and ``b`` operands start at ``addresses`` (device byte addresses;
+    for a chain, every level's).  bfloat16 goes to the tensor cores when
+    TMA can read its operands: every address 16-byte aligned and row
+    strides (``2k``, ``2n`` bytes) multiples of 16 bytes."""
+    if dtype == torch.float32:
+        return "f32_simt"
+    if dtype == torch.float64:
+        return "f64_dmma"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"no GEMM route for dtype {dtype}")
+    tma = (k > 0 and k % 8 == 0 and n % 8 == 0
+           and all(int(x) % 16 == 0 for x in addresses))
+    return "bf16_wgmma" if tma else "bf16_simt"
 
 
 def _check(*tensors: torch.Tensor) -> None:
@@ -74,12 +103,14 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return ref.matmul(a, b)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if out.numel():
+        path = route(a.dtype, m, n, a.shape[1], (a.data_ptr(), b.data_ptr()))
         kernel.launch(a, b, None, out)
-        count_launch(matmul)
+        count_launch(matmul, path)
     return out
 
 
 matmul.launches = 0
+matmul.routes = {}
 
 
 def matmul_accumulate(c: torch.Tensor, a: torch.Tensor,
@@ -93,12 +124,14 @@ def matmul_accumulate(c: torch.Tensor, a: torch.Tensor,
         return ref.matmul_accumulate(c, a, b)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if out.numel():
+        path = route(a.dtype, m, n, a.shape[1], (a.data_ptr(), b.data_ptr()))
         kernel.launch(a, b, c, out)
-        count_launch(matmul_accumulate)
+        count_launch(matmul_accumulate, path)
     return out
 
 
 matmul_accumulate.launches = 0
+matmul_accumulate.routes = {}
 
 
 # --------------------------------------------------------------------------

@@ -31,8 +31,10 @@ from repro.kernels.linear_scan.ops import scan_step as ref_scan_step
 from repro_torch import core as port_bind
 from repro_torch.kernels.chain import kernel, ops, ref
 from repro_torch.kernels.flash_attention.ops import attn_step
+from repro_torch.kernels.gemm import ops as gemm_ops
 from repro_torch.kernels.gemm.ops import gemm_tile
 from repro_torch.kernels.linear_scan.ops import scan_step
+from test_torch_gemm import _includes, extern_c_symbols
 
 N_LEVELS = 4
 SCAN_LAYOUTS = list(itertools.product(("single", "xs", "const", "xs_const"),
@@ -286,10 +288,55 @@ def test_plain_version_is_the_per_level_body():
 def test_library_name_tracks_sources_and_the_shared_header():
     path = kernel.LIBRARY.path()
     assert path.name.startswith("libbind_chain_") and path.suffix == ".so"
-    assert any(h.name == "gemm_tile.cuh" for h in kernel.LIBRARY.headers)
+    headers = {h.resolve() for h in kernel.LIBRARY.headers}
+    assert _includes(kernel.SOURCES[0]) <= headers
+    assert {"gemm_routes.cuh", "gemm_tile.cuh", "gemm_wgmma.cuh",
+            "gemm_dmma.cuh"} <= {h.name for h in headers}
     assert set(kernel.SUFFIX) == set(ops.DTYPES)
     syms = set(kernel.LIBRARY.symbols)
     assert {f"bind_chain_ewise_{s}" for s in kernel.SUFFIX.values()} <= syms
     assert {f"bind_chain_dot_{s}" for s in kernel.SUFFIX.values()} <= syms
     assert {f"bind_chain_attn_{s}" for s in kernel.SUFFIX.values()} <= syms
     assert any(h.name == "attn_tile.cuh" for h in kernel.LIBRARY.headers)
+
+
+def test_every_bound_symbol_is_an_extern_c_entry_point():
+    """Static: each C symbol the wrapper binds is defined in the source's
+    ``extern "C"`` block (no nvcc needed)."""
+    assert set(kernel.LIBRARY.symbols) == extern_c_symbols(kernel.SOURCES[0])
+
+
+def _levels(store, offset, lead, shape):
+    """A contiguous (lead + shape) view ``offset`` elements into ``store``."""
+    n = int(np.prod(lead + shape))
+    return store[offset:offset + n].view(lead + shape)
+
+
+@pytest.mark.parametrize("dname", ["float32", "bfloat16", "float64"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "odd-offset"])
+@pytest.mark.parametrize("m, k, n", [(64, 64, 64), (130, 72, 264),
+                                     (130, 70, 260), (1, 128, 1)])
+@pytest.mark.parametrize("la, lb", DOT_LAYOUTS,
+                         ids=[f"{a}-{b}" for a, b in DOT_LAYOUTS])
+def test_chain_route_is_the_route_of_every_replayed_level(la, lb, m, k, n,
+                                                          offset, dname):
+    """``chain_dot`` must take, for its whole chain, the GEMM route that
+    per-level replay (``gemm_tile`` -> ``matmul_accumulate``) takes at each
+    level, or the two would not be bitwise equal."""
+    dt = getattr(torch, dname)
+    levels = 3
+    store = torch.zeros(levels * (m * k + k * n) + 16, dtype=dt)
+    a = _levels(store, offset, (levels,) if la == "xs" else (), (m, k))
+    rest = store[a.numel() + offset:]
+    b = _levels(rest, 0, (levels,) if lb == "xs" else (), (k, n))
+    c = torch.zeros((m, n), dtype=dt)
+    layout = ("single", la, lb)
+    assert ops.dot_problem(layout, 0, levels, (c, a, b)) is None
+    chain = ops.dot_route(layout, levels, c, a, b)
+    replay = set()
+    for level in range(levels):
+        a_l = a[level] if la == "xs" else a
+        b_l = b[level] if lb == "xs" else b
+        replay.add(gemm_ops.route(dt, m, n, k,
+                                  (a_l.data_ptr(), b_l.data_ptr())))
+    assert replay == {chain}

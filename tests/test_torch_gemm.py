@@ -9,6 +9,8 @@ Pallas interpret mode, on the reference's shapes and tolerances
 are pinned.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -115,6 +117,32 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
         kernel.nvcc()
 
 
+def _includes(path):
+    """Every header ``path`` includes with quotes, recursively."""
+    found = set()
+    for name in re.findall(r'#include "([^"]+)"', path.read_text()):
+        header = (path.parent / name).resolve()
+        if header not in found:
+            found |= {header} | _includes(header)
+    return found
+
+
+def extern_c_symbols(path) -> set:
+    """The functions defined in the ``extern "C"`` blocks of a CUDA
+    source, entry points that a macro stamps out per suffix expanded."""
+    names = set()
+    for block in re.findall(r'extern "C" \{\n(.*?)\n\}  // extern "C"',
+                            path.read_text(), re.S):
+        stems = {macro: re.findall(r"int (\w+)##SUFFIX\(", body)
+                 for macro, body in re.findall(
+                     r"#define (\w+)\(SUFFIX, \w+\)((?:.*\\\n)+)", block)}
+        for macro, suffix in re.findall(r"^(\w+)\((\w+), [\w ]+\)$", block,
+                                        re.M):
+            names |= {stem + suffix for stem in stems.get(macro, ())}
+        names |= set(re.findall(r"^int (\w+)\(", block, re.M))
+    return names
+
+
 def test_library_name_tracks_the_sources():
     path = kernel.library_path()
     assert path.parent == kernel.BUILD_DIR
@@ -122,3 +150,70 @@ def test_library_name_tracks_the_sources():
     assert path == kernel.library_path()        # deterministic
     assert set(kernel.SYMBOLS) == set(ops.DTYPES)
     assert "sm_90a" in " ".join(kernel.NVCC_FLAGS)
+    # every header the source includes is hashed into the library's name
+    headers = {h.resolve() for h in kernel.LIBRARY.headers}
+    assert _includes(kernel.SOURCES[0]) <= headers
+    assert {h.name for h in headers} == {
+        "gemm_routes.cuh", "gemm_tile.cuh", "gemm_wgmma.cuh",
+        "gemm_dmma.cuh"}
+
+
+def test_every_bound_symbol_is_an_extern_c_entry_point():
+    """Static: each C symbol the wrapper binds is defined in the source's
+    ``extern "C"`` block (no nvcc needed)."""
+    defined = extern_c_symbols(kernel.SOURCES[0])
+    assert set(kernel.LIBRARY.symbols) <= defined
+    assert set(kernel.SYMBOLS.values()) | {kernel.ROUTE_SYMBOL} == defined
+
+
+KB = 1 << 10
+
+
+@pytest.mark.parametrize("dtype, m, n, k, addresses, want", [
+    (torch.float32, 1024, 1024, 1024, (0, 4 * KB), "f32_simt"),
+    (torch.float32, 130, 260, 70, (4, 8), "f32_simt"),     # any alignment
+    (torch.float64, 1024, 1024, 1024, (0, 8 * KB), "f64_dmma"),
+    (torch.float64, 1, 1, 128, (8, 24), "f64_dmma"),
+    (torch.bfloat16, 1024, 1024, 1024, (0, 2 * KB), "bf16_wgmma"),
+    (torch.bfloat16, 130, 264, 72, (16, 32), "bf16_wgmma"),  # ragged M
+    (torch.bfloat16, 1, 8, 8, (0, 16), "bf16_wgmma"),
+    (torch.bfloat16, 130, 260, 70, (0, 16), "bf16_simt"),   # K % 8
+    (torch.bfloat16, 128, 260, 64, (0, 16), "bf16_simt"),   # N % 8
+    (torch.bfloat16, 1, 1, 128, (0, 16), "bf16_simt"),      # (1, 128, 1)
+    (torch.bfloat16, 64, 64, 0, (0, 16), "bf16_simt"),      # K = 0
+    (torch.bfloat16, 1024, 1024, 1024, (2, 2 * KB), "bf16_simt"),  # a odd
+    (torch.bfloat16, 1024, 1024, 1024, (0, 8), "bf16_simt"),  # b at 8 bytes
+    (torch.bfloat16, 1024, 1024, 1024, (0, 16, 34), "bf16_simt"),  # a level
+])
+def test_route_by_dtype_shape_and_alignment(dtype, m, n, k, addresses,
+                                            want):
+    assert ops.route(dtype, m, n, k, addresses) == want
+    assert want in ops.ROUTES
+
+
+@pytest.mark.parametrize("offset, want", [(0, "bf16_wgmma"),
+                                          (1, "bf16_simt"),
+                                          (8, "bf16_wgmma")])
+def test_route_of_a_contiguous_view_at_an_offset(offset, want):
+    """A contiguous view that starts ``offset`` elements into its storage:
+    TMA needs 16 bytes, so one bf16 element in is the CUDA-core route."""
+    m = k = n = 64
+    store = torch.zeros(m * k + 16, dtype=torch.bfloat16)
+    a = store[offset:offset + m * k].view(m, k)
+    b = torch.zeros((k, n), dtype=torch.bfloat16)
+    assert a.is_contiguous() and b.data_ptr() % 16 == 0
+    base_aligned = store.data_ptr() % 16 == 0
+    got = ops.route(a.dtype, m, n, k, (a.data_ptr(), b.data_ptr()))
+    assert got == (want if base_aligned else "bf16_simt")
+
+
+def test_route_rejects_dtypes_without_a_kernel():
+    with pytest.raises(TypeError):
+        ops.route(torch.float16, 8, 8, 8)
+
+
+def test_cpu_calls_count_no_route():
+    a = torch.ones(4, 4)
+    ops.matmul(a, a)
+    ops.matmul_accumulate(a, a, a)
+    assert ops.matmul.routes == {} and ops.matmul_accumulate.routes == {}

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time this checkout's GEMM kernel against another checkout's, in one call.
+"""Hold this checkout's GEMM and ``chain_dot`` kernels against another
+checkout's, in one call.
 
 Usage, from the root of a checkout, on a machine with one CUDA card::
 
@@ -7,14 +8,28 @@ Usage, from the root of a checkout, on a machine with one CUDA card::
 
 ``OTHER_ROOT`` is the root of another checkout of the repository (for
 example the parent commit unpacked with ``git archive`` into ``build/``).
-Both ``src/repro_torch/kernels/gemm/csrc/gemm.cu`` files are built with the
-same ``nvcc`` flags (the two builds started together) and called through
-their C entry points on the same inputs.  For ``matmul`` and
-``matmul_accumulate`` at 1024^3 in float32, bfloat16 and float64 the
-script checks that the two outputs are bit for bit equal, then times the
-kernels with CUDA events (20 calls after 3 warm-up calls) in the order
-other, this, this, other, and prints each time and the means of each
-side.  The card's name and power limit come first.
+Each side's GEMM (``src/repro_torch/kernels/gemm/csrc/gemm.cu``) and chain
+kernels (``.../chain/csrc/chain.cu``) are built with the same ``nvcc``
+flags, all four builds started together, and called through their C entry
+points on the same inputs:
+
+* ``matmul``, ``matmul_accumulate`` and ``chain_dot`` (per-level and
+  shared ``a``/``b``) at 1024^3 (x 8 levels for the chain), (130, 70,
+  260) (x 3) and (1, 128, 1), and in bfloat16 also at (130, 72, 264), a
+  ragged shape the tensor-core route takes, and on a view at an odd
+  element offset, which it does not;
+* float32 outputs must be bit for bit equal on the two sides; bfloat16 and
+  float64 outputs must lie within ``chip_smoke.py``'s tolerance (``TOL``,
+  ``atol`` times the levels for the chain) of the plain PyTorch version and
+  of each other;
+* the route each side's launcher took is printed (a side without
+  ``bind_gemm_route`` has one tile loop for every dtype);
+* at 1024^3 the three kernels are timed in each dtype with CUDA events (20
+  calls after 3 warm-up calls, 5 after 1 for the chain) in the order
+  other, this, this, other.
+
+The card's name and power limit come first.  Exits non-zero on the first
+disagreement.
 """
 
 from __future__ import annotations
@@ -26,13 +41,18 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-GEMM_CSRC = Path("src/repro_torch/kernels/gemm/csrc")
+KERNELS = Path("src/repro_torch/kernels")
 N = 1024
-SYMBOLS = {"float32": "bind_gemm_f32", "bfloat16": "bind_gemm_bf16",
-           "float64": "bind_gemm_f64"}
-ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_void_p)
+LEVELS = 8
+SUFFIX = {"float32": "f32", "bfloat16": "bf16", "float64": "f64"}
+ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f64_dmma")
+# chip_smoke.py's TOL: kernel vs plain version, (rtol, atol) per dtype
+TOL = {"float32": (1e-4, 1e-3), "bfloat16": (2e-2, 2e-1),
+       "float64": (1e-10, 1e-9)}
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+GEMM_ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _P)
+DOT_ARGS = (_P, _P, _I64, _P, _I64, _P, _I64, _I64, _I64, _I64, _P)
+ROUTE_ARGS = (_I, _P, _I64, _P, _I64, _I64, _I64, _I64)
 
 
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -47,6 +67,22 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def libraries(CudaLibrary, side: str, root: Path):
+    """(gemm, chain) libraries of the checkout at ``root``."""
+    gemm_dir = root / KERNELS / "gemm" / "csrc"
+    headers = tuple(sorted(gemm_dir.glob("*.cuh"))) + tuple(sorted(
+        (root / KERNELS / "flash_attention" / "csrc").glob("*.cuh")))
+    gemm_syms = {f"bind_gemm_{s}": GEMM_ARGS for s in SUFFIX.values()}
+    if "bind_gemm_route" in (gemm_dir / "gemm.cu").read_text():
+        gemm_syms["bind_gemm_route"] = ROUTE_ARGS
+    gemm = CudaLibrary(f"ab_gemm_{side}", (gemm_dir / "gemm.cu",), headers,
+                       gemm_syms)
+    chain = CudaLibrary(
+        f"ab_chain_{side}", (root / KERNELS / "chain" / "csrc" / "chain.cu",),
+        headers, {f"bind_chain_dot_{s}": DOT_ARGS for s in SUFFIX.values()})
+    return gemm, chain
 
 
 def main(argv: list[str]) -> int:
@@ -69,50 +105,148 @@ def main(argv: list[str]) -> int:
     print(f"[env] nvidia-smi: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    libs = {}
-    for side, root in (("other", other), ("this", ROOT)):
-        csrc = root / GEMM_CSRC
-        libs[side] = CudaLibrary(
-            f"ab_gemm_{side}", (csrc / "gemm.cu",),
-            tuple(sorted(csrc.glob("*.cuh"))),
-            {sym: ARGTYPES for sym in SYMBOLS.values()})
-    with ThreadPoolExecutor(len(libs)) as pool:
-        list(pool.map(lambda lib: lib.build(), libs.values()))
+    libs = {side: libraries(CudaLibrary, side, root)
+            for side, root in (("other", other), ("this", ROOT))}
+    with ThreadPoolExecutor(4) as pool:
+        built = list(pool.map(lambda lib: lib.build(),
+                              [lib for pair in libs.values() for lib in pair]))
+    for path, log in built:
+        print(f"[build] {path.name}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"[build]   {line.strip()}")
+    for gemm, chain in libs.values():
+        gemm.load()
+        chain.load()
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for dname, sym in SYMBOLS.items():
+
+    def rand(shape, dt):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    def route(side, dt, a, a_stride, b, b_stride, m, n, k):
+        gemm = libs[side][0]
+        if "bind_gemm_route" not in gemm.symbols:
+            return "one loop"
+        r = gemm.load().bind_gemm_route(a.element_size(), a.data_ptr(),
+                                        a_stride, b.data_ptr(), b_stride, m,
+                                        n, k)
+        return ROUTES[r]
+
+    def gemm_call(side, dname, a, b, c, out):
+        m, k = a.shape
+        libs[side][0].call(f"bind_gemm_{SUFFIX[dname]}", a.data_ptr(),
+                           b.data_ptr(), None if c is None else c.data_ptr(),
+                           out.data_ptr(), m, b.shape[1], k, stream)
+
+    def dot_call(side, dname, c, a, a_stride, b, b_stride, L, out):
+        m, n = c.shape
+        libs[side][1].call(f"bind_chain_dot_{SUFFIX[dname]}", c.data_ptr(),
+                           a.data_ptr(), a_stride, b.data_ptr(), b_stride,
+                           out.data_ptr(), m, n, a.shape[-1], L, stream)
+
+    def plain_levels(c, A, B, L, per_level):
+        acc = torch.float64 if c.dtype == torch.float64 else torch.float32
+        v = c
+        for level in range(L):
+            a = A[level] if per_level else A
+            b = B[level] if per_level else B
+            v = (v.to(acc) + a.to(acc) @ b.to(acc)).to(c.dtype)
+        return v
+
+    def agree(name, dname, outs, exp, levels=1):
+        torch.cuda.synchronize()
+        if dname == "float32":
+            ok = torch.equal(outs["other"], outs["this"])
+            what = "bitwise equal"
+        else:
+            rtol, atol = TOL[dname]
+            ok = all(torch.allclose(x.double(), y.double(), rtol=rtol,
+                                    atol=atol * levels)
+                     for x, y in ((outs["this"], exp), (outs["other"], exp),
+                                  (outs["this"], outs["other"])))
+            what = f"within rtol {rtol} atol {atol} x {levels}"
+        err = (outs["this"].double() - exp.double()).abs().max().item()
+        print(f"[check] {name}: this vs other {what}: "
+              f"{'ok' if ok else 'FAILED'}; this vs plain max_abs_err "
+              f"{err:.3e}")
+        return ok
+
+    shapes = {"float32": [(N, N, N), (130, 70, 260), (1, 128, 1)],
+              "bfloat16": [(N, N, N), (130, 70, 260), (1, 128, 1),
+                           (130, 72, 264), "odd"],
+              "float64": [(N, N, N), (130, 70, 260), (1, 128, 1)]}
+    for dname, cases in shapes.items():
         dt = getattr(torch, dname)
-        a, b, c = (torch.randn((N, N), generator=gen, device=dev).to(dt)
-                   for _ in range(3))
-        for op, c_arg in (("matmul", None), ("matmul_accumulate", c)):
-            outs = {}
+        for shape in cases:
+            if shape == "odd":
+                # contiguous views one element into their storage
+                m, k, n = N, N, N
+                a = rand((m * k + 1,), dt)[1:].view(m, k)
+                b = rand((k * n + 1,), dt)[1:].view(k, n)
+            else:
+                m, k, n = shape
+                a, b = rand((m, k), dt), rand((k, n), dt)
+            c = rand((m, n), dt)
+            label = f"{shape} {dname}"
+            routes = {s: route(s, dt, a, 0, b, 0, m, n, k) for s in libs}
+            for op, c_arg in (("matmul", None), ("matmul_accumulate", c)):
+                outs = {s: torch.empty((m, n), dtype=dt, device=dev)
+                        for s in libs}
+                for side in libs:
+                    gemm_call(side, dname, a, b, c_arg, outs[side])
+                exp = plain_levels(torch.zeros_like(c) if c_arg is None
+                                   else c, a, b, 1, False)
+                if not agree(f"{op} {label} (routes: this {routes['this']},"
+                             f" other {routes['other']})", dname, outs, exp):
+                    return 1
+            if shape == "odd":
+                continue
+            L = LEVELS if m == N else 3
+            A, B = rand((L, m, k), dt), rand((L, k, n), dt)
+            for per_level in (True, False):
+                a_arg, b_arg = (A, B) if per_level else (A[0], B[0])
+                a_stride = m * k if per_level else 0
+                b_stride = k * n if per_level else 0
+                r = route("this", dt, a_arg, a_stride, b_arg, b_stride, m, n,
+                          k)
+                outs = {s: torch.empty((m, n), dtype=dt, device=dev)
+                        for s in libs}
+                for side in libs:
+                    dot_call(side, dname, c, a_arg, a_stride, b_arg,
+                             b_stride, L, outs[side])
+                exp = plain_levels(c, a_arg, b_arg, L, per_level)
+                layout = "xs" if per_level else "single"
+                if not agree(f"chain_dot {label} x {L} {layout} (route: "
+                             f"this {r})", dname, outs, exp, L):
+                    return 1
 
-            def call(side, out):
-                libs[side].call(sym, a.data_ptr(), b.data_ptr(),
-                                c_arg.data_ptr() if c_arg is not None
-                                else None, out.data_ptr(), N, N, N, stream)
-
-            for side in libs:
-                outs[side] = torch.empty((N, N), dtype=dt, device=dev)
-                call(side, outs[side])
-            torch.cuda.synchronize()
-            if not torch.equal(outs["other"], outs["this"]):
-                print(f"ab_gemm: {op} {dname}: the two kernels' outputs "
-                      f"differ", file=sys.stderr)
-                return 1
-            times = []
-            for side in ("other", "this", "this", "other"):
-                times.append((side, time_ms(
-                    torch, lambda side=side: call(side, outs[side]))))
+    for dname in SUFFIX:
+        dt = getattr(torch, dname)
+        a, b, c = rand((N, N), dt), rand((N, N), dt), rand((N, N), dt)
+        A, B = rand((LEVELS, N, N), dt), rand((LEVELS, N, N), dt)
+        out = torch.empty((N, N), dtype=dt, device=dev)
+        calls = {
+            "matmul": (lambda side: gemm_call(side, dname, a, b, None, out),
+                       20, 3),
+            "matmul_accumulate": (
+                lambda side: gemm_call(side, dname, a, b, c, out), 20, 3),
+            f"chain_dot x {LEVELS}": (
+                lambda side: dot_call(side, dname, c, A, N * N, B, N * N,
+                                      LEVELS, out), 5, 1),
+        }
+        for op, (fn, iters, warmup) in calls.items():
+            times = [(side, time_ms(torch, lambda side=side: fn(side),
+                                    iters, warmup))
+                     for side in ("other", "this", "this", "other")]
             mean = {s: sum(t for x, t in times if x == s) / 2 for s in libs}
             order = ", ".join(f"{s} {t:.4f}" for s, t in times)
-            print(f"[ab] {op} {N}^3 {dname}: outputs bitwise equal; ms in "
-                  f"order {order}; mean other {mean['other']:.4f} ms, this "
-                  f"{mean['this']:.4f} ms ({mean['this'] / mean['other']:.3f}"
-                  f"x)")
+            print(f"[ab] {op} {N}^3 {dname}: ms in order {order}; mean other "
+                  f"{mean['other']:.4f} ms, this {mean['this']:.4f} ms "
+                  f"({mean['this'] / mean['other']:.3f}x)")
     return 0
 
 
