@@ -16,7 +16,8 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    attention (``.../flash_attention/csrc/flash_attention.cu``) and the
    linear scan (``.../linear_scan/csrc/linear_scan.cu``); the SASS of the
    tensor-core routes must hold their instructions (HGMMA for ``wgmma``,
-   DMMA for the f64 MMA), read with ``cuobjdump``;
+   the GEMM's, ``chain_dot``'s and flash attention's; DMMA for the f64
+   MMA), read with ``cuobjdump``;
 3. the GEMM kernel against its plain PyTorch version on the card on every
    route (``kernels/gemm/ops.py`` ``route``, checked against the route the
    built launcher takes): at the main path's leaf shape 1024^3 in float32
@@ -43,16 +44,29 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    a Qwen3-14B query tile (o, q 512 x 128, k, v 16 levels of 512 x 128)
    and a ragged (100, 70, d 40, dv 24) x 3, q/k/v shared or per level,
    bit for bit against per-level ``attn_step`` replay and within tolerance
-   of its plain version (a per-level PyTorch softmax), f32/bf16/f64;
+   of its plain version (a per-level PyTorch softmax), f32/bf16/f64, and
+   chains longer than one launch's workspace (f32, f64: two and three
+   launches) bit for bit against replay;
 4b. flash attention (``flash_attention``) against its plain version (the
    oracle on the padded inputs) at the reference's cases
-   (``tests/test_kernels.py``), h2o-danube-1.8b's head dim 80 and, through
-   the entry point with every count zeroed just before, at full width:
-   RecurrentGemma-9B local attention (16 heads over 1, S 8192, D 256,
-   window 2048) and Qwen3-14B (40 over 8, S 8192, D 128), causal, f32 and
-   bf16; the kernel's time beside its plain version's,
-   ``scaled_dot_product_attention``'s (a yardstick the port never calls)
-   and its bound;
+   (``tests/test_kernels.py``) in f32, again in bf16 at head dims 64 and
+   128 (the tensor-core route) with a case whose rows past Skv + window
+   see no key (exactly zero), bf16 cases with many key tiles per query
+   tile (``MID_ATTN``: causal, windowed, ragged, non-causal) at d 64,
+   128, 192 and 256, bf16 views at an odd 2-byte offset (the CUDA cores),
+   h2o-danube-1.8b's head dim 80 (bf16 on the
+   CUDA cores) and, through the entry point with every count zeroed just
+   before, at full width: RecurrentGemma-9B local attention (16 heads over
+   1, S 8192, D 256, window 2048) and Qwen3-14B (40 over 8, S 8192, D
+   128), causal, f32 and bf16; every call's counted route (the built
+   launcher's for the operands, which the wrapper holds against
+   ``ops.route``: f32 on the CUDA cores, bf16 with d % 64 == 0, d <= 256
+   and 16-byte-aligned operands on the tensor cores, other bf16 on the
+   CUDA cores) checked against ``ops.route`` of the inputs, every route
+   run; bf16 also against the float32 oracle to limits scaled to each
+   value (``bf16_attention_error``); the kernel's time beside its plain
+   version's, ``scaled_dot_product_attention``'s (a yardstick the port
+   never calls, timed for every model and dtype) and its bound;
 4c. the linear scan (``linear_scan``) against its plain version (a
    sequential f32 loop) at the reference's shapes and, through the entry
    point, at RecurrentGemma-9B's RG-LRU width (1, 8192, 4096), f32 and
@@ -126,6 +140,30 @@ FULL_ATTN = {"RecurrentGemma-9B": (1, 16, 1, 8192, 256, 2048),
 ODD_ATTN = ("h2o-danube-1.8b", (1, 32, 8, 1024, 80, 4096))
 # the reference's tolerances (tests/test_kernels.py): rtol = atol
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# bf16 cases with many key tiles per query tile, at every head dim the
+# tensor-core route takes: its ring refills and barrier phases, O
+# rescales, causal and window tile bounds, and ragged last tiles (Skv 1000
+# and 777 are no multiple of its 128- or 64-key tiles), causal or not;
+# (B, Hq, Hkv, Sq, Skv, causal, window, bq = bkv)
+MID_ATTN = ((1, 4, 2, 1024, 1024, True, None, 512),
+            (1, 4, 1, 1024, 1024, True, 300, 512),
+            (1, 2, 2, 1000, 1000, True, None, 8),
+            (1, 2, 2, 512, 1000, False, None, 8),
+            (1, 2, 1, 777, 777, False, 200, 7))
+MID_HEAD_DIMS = (64, 128, 192, 256)
+# bfloat16 attention against the float32 oracle on the same inputs, to
+# limits scaled to each value (bf16_attention_error).  The output is
+# rounded once to bf16: at most 2^-8 |exp| off.  The tensor-core route
+# also rounds each weight p in [0, 1] to bf16 before P V: at most 2^-8 p
+# off, so an element at most 2^-8 max|v| off (the weights sum to one).
+# The per-element limit is the sum of the two.  Both errors are unbiased,
+# so their root mean square is far below: over exp's, about 2.1e-3 for a
+# (batch, head) slice and at most 3.5e-3 for one row, in a float64 model of
+# the kernel's rounding (S 1024-4096, d 64-256); the limits are 2^-7 and
+# 2^-6, where a fault that moves a row by a few percent shows.
+BF16_ELEMENT = 2.0 ** -8
+BF16_SLICE_NRMS = 2.0 ** -7
+BF16_ROW_NRMS = 2.0 ** -6
 # linear scan: the reference's shapes (tests/test_kernels.py:129) and
 # RecurrentGemma-9B's RG-LRU (B, S, lru_width); f32 at the property test's
 # bound for any block size, bf16 at the reference's
@@ -176,6 +214,32 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bf16_attention_error(got, exp32, v) -> dict:
+    """How far the bfloat16 attention output ``got`` (B, H, S, D) lies from
+    the float32 oracle ``exp32`` on the same inputs, with ``v`` the values:
+    ``element`` (the largest error over its limit, BF16_ELEMENT (|exp| +
+    max|v|)), ``slice`` and ``row`` (the largest root-mean-square error
+    of a (batch, head) slice and of a row over exp's there; rows that see
+    no key are left out).  Within the limits when ``element <= 1``,
+    ``slice <= BF16_SLICE_NRMS`` and ``row <= BF16_ROW_NRMS``."""
+    exp = exp32.double()
+    err = got.double() - exp
+    limit = BF16_ELEMENT * (exp.abs() + v.abs().max().double())
+    element = (err.abs() / limit.clamp_min(1e-300)).max().item()
+    e2, x2 = err.square(), exp.square()
+    slices = (e2.sum((2, 3)) / x2.sum((2, 3)).clamp_min(1e-300)).sqrt()
+    rows = x2.sum(-1)
+    seen = rows > 0
+    row = ((e2.sum(-1)[seen] / rows[seen]).sqrt().max().item()
+           if bool(seen.any()) else 0.0)
+    return {"element": element, "slice": slices.max().item(), "row": row}
+
+
+def bf16_within(stats: dict) -> bool:
+    return (stats["element"] <= 1.0 and stats["slice"] <= BF16_SLICE_NRMS
+            and stats["row"] <= BF16_ROW_NRMS)
 
 
 def bound_ms(nbytes: int, flops: int, dtype: str) -> tuple[float, str]:
@@ -310,7 +374,9 @@ def main() -> int:
     for lib_path, wants in ((built[0][0], {"gemm_wgmma_kernel": "HGMMA",
                                            "gemm_dmma_kernel": "DMMA"}),
                             (built[1][0], {"chain_dot_wgmma_kernel": "HGMMA",
-                                           "chain_dot_dmma_kernel": "DMMA"})):
+                                           "chain_dot_dmma_kernel": "DMMA"}),
+                            (built[2][0], {"flash_attention_wgmma_kernel":
+                                           "HGMMA"})):
         sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
@@ -636,6 +702,28 @@ def main() -> int:
     chain_times["attn"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                bound_ms=bnd, bound_by=by, library_ms=None)
     del got, exp, args
+    # chains whose workspace passes one launch's (WORKSPACE_BYTES): several
+    # launches, the carry handed on in its own type, still bit for bit
+    # per-level replay
+    n = 64
+    for dname, full_runs in (("float32", 1), ("float64", 2)):
+        dt = dtypes[dname]
+        per_launch = chain_kernel.WORKSPACE_BYTES // (
+            m * dv * (8 if dname == "float64" else 4))
+        L = full_runs * per_launch + per_launch // 4 + 1
+        runs = chain_kernel.level_runs(m, dv, dt, L)
+        args = attn_operands(layout, m, n, d, dv, L, dt)
+        before = chain_ops.chain_attn.launches
+        got = chain_ops.chain_attn(layout, 0, L, *args)
+        launched = chain_ops.chain_attn.launches - before
+        check(launched == len(runs) > 1, f"chain_attn x {L} {dname}: "
+              f"{launched} launches, expected {len(runs)} (> 1)")
+        name = (f"chain_attn ({m},{n},{d},{dv}) x {L} {dname} in "
+                f"{launched} launches of at most {runs[0][1]} levels")
+        same_bits(f"{name} vs attn_step replay", got,
+                  chain_ref.run_levels(attn_step, layout, 0, L, args))
+        print(f"[chain] {name}: bitwise equal to per-level attn_step replay")
+        del got, args
 
     def device_mallocs():
         # segments the caching allocator has taken with cudaMalloc so far
@@ -714,28 +802,104 @@ def main() -> int:
         return (rand((b, hq, sq, d), dt), rand((b, hkv, skv, d), dt),
                 rand((b, hkv, skv, d), dt))
 
-    def attn_compare(name, got, exp, dname):
-        tol = ATTN_TOL[dname]
-        return close("attn", name, got, exp, tol, tol)
-
-    def attn_plain(q, k, v, causal, window, blk):
+    def attn_compare(name, got, q, k, v, causal, window, blk, dname):
+        """``got`` against the plain version (the oracle on the padded
+        inputs) at the reference's tolerance and, in bfloat16, against the
+        float32 oracle on the same inputs to the limits scaled to each
+        value (``bf16_attention_error``).  Returns the largest error."""
+        sq = q.shape[2]
         padded = fa_ops.pad(q, k, v, causal=causal, window=window, bq=blk,
                             bkv=blk)
-        return fa_ref.attention(*padded, causal=causal,
-                                window=window)[:, :, :q.shape[2]]
+        exp = fa_ref.attention(*padded, causal=causal,
+                               window=window)[:, :, :sq]
+        tol = ATTN_TOL[dname]
+        err = close("attn", name, got, exp, tol, tol)
+        if dname == "bfloat16":
+            del exp
+            exp32 = fa_ref.attention(*(t.float() for t in padded),
+                                     causal=causal, window=window)[:, :, :sq]
+            stats = bf16_attention_error(got, exp32, padded[2])
+            print(f"[attn]   bf16 limits: element {stats['element']:.3f} of "
+                  f"its limit (<= 1), slice rms {stats['slice']:.3e} (<= "
+                  f"{BF16_SLICE_NRMS:.3e}), row rms {stats['row']:.3e} (<= "
+                  f"{BF16_ROW_NRMS:.3e})")
+            check(bf16_within(stats), f"{name}: outside the bf16 limits: "
+                  f"{stats}")
+        return err
 
+    def attn_run(q, k, v, *, causal, window, bq=512, bkv=512):
+        """``flash_attention`` through its entry point: one launch, counted
+        on the route ``ops.route`` gives q, k and v.  (The wrapper asks the
+        built launcher for the route of the very operands it launches on,
+        holds it against ``ops.route`` and counts it; where it pads, it
+        copies into fresh aligned tensors, as the inputs here are.)
+        Returns (output, route)."""
+        want = fa_ops.route(q.dtype, q.shape[3],
+                            [t.data_ptr() for t in (q, k, v)])
+        before = dict(fa_ops.flash_attention.routes)
+        out = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                     bq=bq, bkv=bkv)
+        counted = {r: n - before.get(r, 0)
+                   for r, n in fa_ops.flash_attention.routes.items()
+                   if n != before.get(r, 0)}
+        check(counted == {want: 1}, f"flash attention: launches counted by "
+              f"route {counted}, expected one on {want}")
+        return out, want
+
+    print(f"[attn] route rule: {fa_ops.ROUTES[0]} for float32; "
+          f"{fa_ops.ROUTES[2]} for bfloat16 with d % 64 == 0, d <= 256 and "
+          f"q, k, v, out 16-byte aligned; {fa_ops.ROUTES[1]} for any other "
+          f"bfloat16")
     small = [("", case, 16, "float32") for case in ATTN_CASES]
     small.append(("", (1, 4, 2, 64, 64, 16, True, None), 32, "bfloat16"))
+    # the reference's cases again in bf16 at head dims the tensor cores
+    # take, and rows past Skv + window that see no key
+    for d in (64, 128):
+        small += [("", case[:5] + (d,) + case[6:], 16, "bfloat16")
+                  for case in ATTN_CASES]
+        small.append(("", (1, 2, 2, 64, 32, d, True, 8), 16, "bfloat16"))
+    # many key tiles per query tile, at every head dim of the tensor cores
+    for d in MID_HEAD_DIMS:
+        small += [(" mid", (b, hq, hkv, sq, skv, d, causal, window), blk,
+                   "bfloat16")
+                  for b, hq, hkv, sq, skv, causal, window, blk in MID_ATTN]
     odd_model, (b, hq, hkv, s, d, window) = ODD_ATTN
     small.append((f" {odd_model}", (b, hq, hkv, s, s, d, True, window), 512,
                   "bfloat16"))
+    fa_ops.flash_attention.routes = {}
     for model, (b, hq, hkv, sq, skv, d, causal, window), blk, dname in small:
         q, k, v = attn_inputs(b, hq, hkv, sq, skv, d, dtypes[dname])
+        got, path = attn_run(q, k, v, causal=causal, window=window, bq=blk,
+                             bkv=blk)
         attn_compare(f"flash_attention{model} {(b, hq, hkv, sq, skv, d)} "
-                     f"causal {causal} window {window} {dname}",
-                     fa_ops.flash_attention(q, k, v, causal=causal,
-                                            window=window, bq=blk, bkv=blk),
-                     attn_plain(q, k, v, causal, window, blk), dname)
+                     f"causal {causal} window {window} {dname} [{path}]",
+                     got, q, k, v, causal, window, blk, dname)
+        seen = fa_ref.mask(sq, skv, causal=causal, window=window, device=dev)
+        blind = ~seen.any(dim=-1)
+        if blind.any():
+            check(not got[:, :, blind].any().item(),
+                  f"flash attention {dname} d {d}: a row that sees no key "
+                  f"is not exactly zero")
+            print(f"[attn]   {int(blind.sum())} rows see no key: exactly "
+                  f"zero")
+    # contiguous bf16 views one element (2 bytes) into their storage, at a
+    # head dim the tensor cores take: TMA cannot read them, so the
+    # launcher must send them to the CUDA-core loop
+    shape = (1, 2, 256, 128)
+    q, k, v = (rand((shape[0] * shape[1] * shape[2] * shape[3] + 1,),
+                    torch.bfloat16)[1:].view(shape) for _ in range(3))
+    got, path = attn_run(q, k, v, causal=True, window=None, bq=256, bkv=256)
+    check(path == "bf16_simt", f"flash attention on views at an odd offset "
+          f"took {path}, expected bf16_simt")
+    attn_compare(f"flash_attention (1, 2, 2, 256, 256, 128) causal True "
+                 f"bfloat16, views at an odd 2-byte offset [{path}]", got, q,
+                 k, v, True, None, 256, "bfloat16")
+    del q, k, v, got
+    print(f"[attn] launches by route: {fa_ops.flash_attention.routes}")
+    check(set(fa_ops.flash_attention.routes) == set(fa_ops.ROUTES),
+          f"flash attention: routes run "
+          f"{sorted(fa_ops.flash_attention.routes)}, expected every one of "
+          f"{fa_ops.ROUTES}")
 
     def visible_pairs(s, window):
         # causal over one sequence of s: row r sees min(r + 1, window) keys
@@ -757,15 +921,19 @@ def main() -> int:
             zero_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            got = run()
+            got, path = attn_run(q, k, v, causal=True, window=window)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             path_counts[label] = counts()
             only(label, path_counts[label], "flash_attention", 1)
-            exp = fa_ref.attention(q, k, v, causal=True, window=window)
+            want = "f32_simt" if dname == "float32" else "bf16_wgmma"
+            check(fa_ops.flash_attention.routes == {want: 1},
+                  f"{label}: routes {fa_ops.flash_attention.routes}, "
+                  f"expected {want}")
             err = attn_compare(f"{label} (1, {hq}, {hkv}, {s}, {s}, {d}) "
-                               f"window {window}", got, exp, dname)
-            del got, exp
+                               f"window {window} [{path}]", got, q, k, v,
+                               True, window, 512, dname)
+            del got
             ms = time_ms(torch, run, iters=5, warmup=1)
             plain = time_ms(torch, lambda q=q, k=k, v=v, window=window:
                             fa_ref.attention(q, k, v, causal=True,
@@ -787,17 +955,22 @@ def main() -> int:
             flops = 4 * b * hq * d * visible_pairs(s, window)
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
             bnd, by = bound_ms(nbytes, flops, dname)
-            print(f"[attn] {label}: first call {wall * 1e3:.3f} ms wall; "
-                  f"kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s), "
+            print(f"[attn] {label} [{path}]: first call {wall * 1e3:.3f} ms "
+                  f"wall; kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s), "
                   f"plain {plain:.3f} ms, scaled_dot_product_attention "
                   f"{lib:.3f} ms, "
                   f"bound {bnd:.4f} ms ({by}, {flops:.3e} FLOP)")
             attn_times[(model, dname)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                bound_by=by, library_ms=lib)
+                bound_by=by, library_ms=lib, attn_route=path)
             if (model, dname) == ("RecurrentGemma-9B", "float32"):
                 device_profile(torch, label, run, warm_wall(run),
-                               {"flash_attention_kernel": 1})
+                               {"flash_attention_kernel": 1,
+                                "flash_attention_wgmma_kernel": 0})
+            if (model, dname) == ("Qwen3-14B", "bfloat16"):
+                device_profile(torch, label, run, warm_wall(run),
+                               {"flash_attention_wgmma_kernel": 1,
+                                "flash_attention_kernel": 0})
             del q, k, v, run
 
     # -- 4c. linear scan against its plain version ---------------------------
@@ -1100,6 +1273,7 @@ def main() -> int:
     gemm_replaces = "src/repro/kernels/gemm/kernel.py:47"
     chain_replaces = "src/repro/core/executable_cache.py:242"
     attn_label = "flash_attention RecurrentGemma-9B float32"
+    attn_bf16_label = "flash_attention Qwen3-14B bfloat16"
     scan_label = f"linear_scan RG-LRU {FULL_SCAN} float32"
     rows = (
         ("gemm.matmul", gemm_source, gemm_replaces,
@@ -1121,6 +1295,11 @@ def main() -> int:
          "src/repro/kernels/flash_attention/kernel.py:100",
          path_counts[attn_label]["flash_attention"],
          attn_times[("RecurrentGemma-9B", "float32")]),
+        ("flash_attention.bf16",
+         "src/repro_torch/kernels/flash_attention/csrc/attn_wgmma.cuh",
+         "src/repro/kernels/flash_attention/kernel.py:100",
+         path_counts[attn_bf16_label]["flash_attention"],
+         attn_times[("Qwen3-14B", "bfloat16")]),
         ("linear_scan",
          "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
          "src/repro/kernels/linear_scan/kernel.py:50",

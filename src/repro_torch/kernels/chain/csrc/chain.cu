@@ -48,18 +48,41 @@
 //
 //   * chain_attn, for kernels/flash_attention/ops.py attn_step (o <- o +
 //     softmax(q k^T / sqrt(d)) v): the flash-attention tile loop
-//     (flash_attention/csrc/attn_tile.cuh, shared with flash_attention.cu)
-//     with a level loop around it.  Each block owns 64 rows of o (32 in
-//     f64), held in registers for the whole chain; per level it sweeps that
-//     level's keys ("single" or "xs") with the online softmax, unmasked and
-//     over that level's keys only, adds acc / l into the carry in the
-//     accumulator type and rounds the carry to its own type.  Per-level
-//     serial replay runs this same kernel with one level (attn_step on a
-//     CUDA tensor), so the two are bitwise equal by construction.
+//     (flash_attention/csrc/attn_tile.cuh, shared with flash_attention.cu),
+//     level-parallel.  A level's acc / l depends only on that level's q, k
+//     and v (the softmax state is reset at every level), never on the
+//     carry; only the carry's update carry = round_T(carry + acc / l) must
+//     run in level order.  So the grid is (row tile, level): block (r, l)
+//     stages level l's q (or the shared one), sweeps level l's keys with
+//     the online softmax, unmasked, and writes acc / l in the accumulator
+//     type to a workspace of n_levels x M x dv; the last block of a row
+//     tile to finish (a __threadfence and an atomic counter per row tile;
+//     that block sets its counter back to 0, so no launch clears them)
+//     adds the workspace into the carry in level order, rounding to the
+//     carry's type after each level, and writes out.  The arithmetic per
+//     element and the order of the carry's sum are those of the loop over
+//     levels in one block that this kernel was, so it is bit for bit that
+//     kernel in every dtype, and per-level serial replay (attn_step on a
+//     CUDA tensor: this kernel with one level) stays bitwise equal.
 //     Bound on an H100: operations; a 512-row Qwen3-14B query tile over 16
 //     levels of 512 keys at d = dv = 128 is 2.1 GFLOP, 0.032 ms at 67
-//     TFLOP/s.  Only ceil(m / 64) blocks run (8 at m = 512), so most SMs
-//     idle: splitting the keys across blocks is left for a later change.
+//     TFLOP/s.  What held the loop back was parallelism, not arithmetic:
+//     ceil(m / 64) = 8 blocks on 132 SMs.  Level-parallel, that tile is 128
+//     blocks (one wave: two of 83 KB fit on an SM), each one level's 16.8
+//     MFLOP; the ordered sum reads 4 MB of workspace once.  The tile loop
+//     stays on the CUDA cores in every dtype (fp32 FMA for f32 and bf16,
+//     fp64 for f64), so replay and the chain keep their bits.
+//     The workspace grows with the chain: M x dv accumulators a level
+//     (256 KB for that f32 tile, 8 MB for an 8192 x 128 f64 carry).  The
+//     wrapper bounds it (kernels/chain/kernel.py WORKSPACE_BYTES, 64 MiB):
+//     a longer chain is several launches of as many levels as fit, each
+//     starting from the carry the last one wrote, which is the carry this
+//     kernel holds anyway (rounded to T at every level), so the bits do
+//     not change.  Levels cannot be folded into partial sums instead: the
+//     carry is rounded after every level.  Every block loads its row
+//     tile's carry (32 KB of f32 from L2 at that tile, against the 1 MB of
+//     k and v it reads), though only the last uses it, so that the sweep
+//     runs under the same register pressure as in the loop over levels.
 //
 // C interface (bound with ctypes): device pointers, sizes and a
 // cudaStream_t; each entry point launches on that stream without
@@ -238,19 +261,24 @@ int launch_dot(const void* c, const void* a, int64_t a_stride, const void* b,
 // ----------------------------------------------------------------- attn --
 
 // out = o after n_levels of o <- round(o + softmax(q_l k_l^T * scale) v_l);
-// q_l = Q + l * q_stride (q_stride 0: the same q every level), likewise k, v
+// q_l = Q + l * q_stride (q_stride 0: the same q every level), likewise k, v.
+// Block (r, y) computes the levels l = y, y + gridDim.y, ... of row tile r
+// into work[l] (M x dv, the accumulator type); done[r] counts the blocks of
+// row tile r that finished, and is 0 before and after the launch.
 template <typename T, int NJ>
 __global__ void __launch_bounds__(bind_attn::THREADS)
 chain_attn_kernel(const T* __restrict__ O0, const T* __restrict__ Q,
                   int64_t q_stride, const T* __restrict__ K, int64_t k_stride,
                   const T* __restrict__ V, int64_t v_stride,
-                  T* __restrict__ out, int64_t M, int64_t N, int d, int dv,
+                  T* __restrict__ out, typename AccType<T>::type* work,
+                  unsigned int* done, int64_t M, int64_t N, int d, int dv,
                   int64_t n_levels, typename AccType<T>::type scale) {
   using namespace bind_attn;
   using Acc = typename AccType<T>::type;
   using Sh = Tile<Acc, NJ>;
   constexpr int TM = Sh::TM, BQ = Sh::BQ, BKV = Sh::BKV;
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ bool last;
   Acc* Qt = reinterpret_cast<Acc*>(smem);
   Acc* KV = Qt + static_cast<size_t>(d) * (BQ + 1);
   Acc* P = KV + Sh::kv_elems(d);
@@ -259,7 +287,11 @@ chain_attn_kernel(const T* __restrict__ O0, const T* __restrict__ Q,
   const int ty = threadIdx.x / LANES;
   const int64_t q0 = static_cast<int64_t>(blockIdx.x) * BQ;
 
-  // the carry, rounded to T, in the accumulator type
+  // the carry, rounded to T, in the accumulator type, held in registers
+  // across the sweeps as the loop over levels held it (ptxas contracts
+  // some of the sweep's multiplies and adds into FMAs by register
+  // pressure, so the same pressure keeps the same bits); only the row
+  // tile's last block adds into it
   Acc carry[TM][NJ];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -275,22 +307,33 @@ chain_attn_kernel(const T* __restrict__ O0, const T* __restrict__ Q,
   const Mask all{false, false, 0};
   const int64_t tiles = (N + BKV - 1) / BKV;
   Rows<Acc, NJ> st;
-  for (int64_t l = 0; l < n_levels; ++l) {
-    if (l == 0 || q_stride != 0)
+  for (int64_t l = blockIdx.y; l < n_levels; l += gridDim.y) {
+    if (l == blockIdx.y || q_stride != 0)
       stage_transposed<BQ>(Q + l * q_stride, M, d, q0, Qt);
     st.reset();
     sweep<false, NJ>(K + l * k_stride, V + l * v_stride, N, d, dv, scale,
                      q0, 0, tiles, all, Qt, KV, P, st);
+    Acc* w = work + l * M * dv;
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
+      const int64_t row = q0 + ty + LANES * i;
       const Acc safe = st.l[i] == Acc(0) ? Acc(1) : st.l[i];
 #pragma unroll
-      for (int jj = 0; jj < NJ; ++jj)
-        carry[i][jj] =
-            to_acc(from_acc<T>(carry[i][jj] + st.acc[i][jj] / safe));
+      for (int jj = 0; jj < NJ; ++jj) {
+        const int col = tx + LANES * jj;
+        if (row < M && col < dv) w[row * dv + col] = st.acc[i][jj] / safe;
+      }
     }
   }
 
+  // the last block of the row tile adds the levels into the carry in order
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(&done[blockIdx.x], 1u) + 1 == gridDim.y;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int64_t row = q0 + ty + LANES * i;
@@ -298,16 +341,23 @@ chain_attn_kernel(const T* __restrict__ O0, const T* __restrict__ Q,
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) {
       const int col = tx + LANES * jj;
-      if (col < dv) out[row * dv + col] = from_acc<T>(carry[i][jj]);
+      if (col >= dv) continue;
+      const Acc* w = work + row * dv + col;
+      for (int64_t l = 0; l < n_levels; ++l)
+        carry[i][jj] =
+            to_acc(from_acc<T>(carry[i][jj] + __ldcg(w + l * M * dv)));
+      out[row * dv + col] = from_acc<T>(carry[i][jj]);
     }
   }
+  if (threadIdx.x == 0) done[blockIdx.x] = 0;
 }
 
 template <typename T, int NJ>
 cudaError_t launch_attn_nj(const void* o, const void* q, int64_t q_stride,
                            const void* k, int64_t k_stride, const void* v,
-                           int64_t v_stride, void* out, int64_t M, int64_t N,
-                           int d, int dv, int64_t n_levels, double scale,
+                           int64_t v_stride, void* out, void* work,
+                           void* done, int64_t M, int64_t N, int d, int dv,
+                           int64_t n_levels, double scale,
                            cudaStream_t stream) {
   using Acc = typename AccType<T>::type;
   using Sh = bind_attn::Tile<Acc, NJ>;
@@ -317,29 +367,32 @@ cudaError_t launch_attn_nj(const void* o, const void* q, int64_t q_stride,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const unsigned grid = static_cast<unsigned>((M + Sh::BQ - 1) / Sh::BQ);
+  const dim3 grid(static_cast<unsigned>((M + Sh::BQ - 1) / Sh::BQ),
+                  static_cast<unsigned>(n_levels < 65535 ? n_levels : 65535));
   kern<<<grid, bind_attn::THREADS, smem, stream>>>(
       static_cast<const T*>(o), static_cast<const T*>(q), q_stride,
       static_cast<const T*>(k), k_stride, static_cast<const T*>(v), v_stride,
-      static_cast<T*>(out), M, N, d, dv, n_levels, static_cast<Acc>(scale));
+      static_cast<T*>(out), static_cast<Acc*>(work),
+      static_cast<unsigned int*>(done), M, N, d, dv, n_levels,
+      static_cast<Acc>(scale));
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch_attn(const void* o, const void* q, int64_t q_stride, const void* k,
                 int64_t k_stride, const void* v, int64_t v_stride, void* out,
-                int64_t M, int64_t N, int64_t d, int64_t dv, int64_t n_levels,
-                double scale, void* stream) {
+                void* work, void* done, int64_t M, int64_t N, int64_t d,
+                int64_t dv, int64_t n_levels, double scale, void* stream) {
   if (M <= 0 || dv <= 0) return static_cast<int>(cudaGetLastError());
-  if (d <= 0 || d > bind_attn::MAX_HEAD_DIM)
+  if (d <= 0 || d > bind_attn::MAX_HEAD_DIM || n_levels <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int di = static_cast<int>(d);
   const int dvi = static_cast<int>(dv);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(bind_attn::with_value_blocks(dvi, [&](auto nj) {
     return launch_attn_nj<T, decltype(nj)::value>(
-        o, q, q_stride, k, k_stride, v, v_stride, out, M, N, di, dvi,
-        n_levels, scale, st);
+        o, q, q_stride, k, k_stride, v, v_stride, out, work, done, M, N, di,
+        dvi, n_levels, scale, st);
   }));
 }
 
@@ -367,12 +420,13 @@ extern "C" {
   int bind_chain_attn_##SUFFIX(const void* o, const void* q,                \
                                int64_t q_stride, const void* k,             \
                                int64_t k_stride, const void* v,             \
-                               int64_t v_stride, void* out, int64_t M,      \
-                               int64_t N, int64_t d, int64_t dv,            \
-                               int64_t n_levels, double scale,              \
+                               int64_t v_stride, void* out, void* work,     \
+                               void* done, int64_t M, int64_t N, int64_t d, \
+                               int64_t dv, int64_t n_levels, double scale,  \
                                void* stream) {                              \
-    return launch_attn<T>(o, q, q_stride, k, k_stride, v, v_stride, out, M, \
-                          N, d, dv, n_levels, scale, stream);               \
+    return launch_attn<T>(o, q, q_stride, k, k_stride, v, v_stride, out,    \
+                          work, done, M, N, d, dv, n_levels, scale,         \
+                          stream);                                          \
   }
 
 BIND_CHAIN_ENTRY_POINTS(f32, float)

@@ -1,4 +1,6 @@
-"""Public chain-kernel wrappers: one launch per chain on CUDA, the plain
+"""Public chain-kernel wrappers: one launch per chain on CUDA (for
+:func:`chain_attn`, one per run of levels whose workspace fits
+``kernel.WORKSPACE_BYTES``: :func:`.kernel.level_runs`), the plain
 per-level loop (:mod:`.ref`) on CPU.
 
 Both wrappers take a chain in the layout vocabulary of the executable
@@ -252,9 +254,10 @@ def chain_attn(layout: tuple, carry_pos: int, n_levels: int,
     if out.numel():
         strides = [t[0].numel() if lay == "xs" else 0
                    for lay, t in zip(layout[1:], (q, k, v))]
-        kernel.launch_attn(out, o, q, strides[0], k, strides[1], v,
-                           strides[2], n_levels)
-        count_launch(chain_attn)
+        launches = kernel.launch_attn(out, o, q, strides[0], k, strides[1],
+                                      v, strides[2], n_levels)
+        for _ in range(launches):
+            count_launch(chain_attn)
     return out
 
 

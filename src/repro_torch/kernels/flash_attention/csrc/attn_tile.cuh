@@ -78,6 +78,21 @@ template <typename Acc> __device__ __forceinline__ Acc neg_big() {
   return Acc(-1e30);
 }
 
+// the scaled score s * scale.  ptxas may fuse a product that two uses share
+// (here the row max and the exp argument s * scale - m) into an FMA where
+// its register allocation favours it, which changes the exp argument's
+// rounding.  double rounds the product on its own (__dmul_rn, never
+// fused), so the f64 loop's bits do not depend on the kernel around it.
+// float keeps the plain product: its bits rest on ptxas making the same
+// choices in every kernel that runs the loop, which tools/ab_attn.py holds
+// against another checkout.
+__device__ __forceinline__ float scale_acc(float s, float scale) {
+  return s * scale;
+}
+__device__ __forceinline__ double scale_acc(double s, double scale) {
+  return __dmul_rn(s, scale);
+}
+
 __device__ __forceinline__ float exp_acc(float v) { return expf(v); }
 __device__ __forceinline__ double exp_acc(double v) { return exp(v); }
 __device__ __forceinline__ float max_acc(float a, float b) {
@@ -211,7 +226,7 @@ __device__ void sweep(const T* __restrict__ K, const T* __restrict__ V,
           if (mask.windowed) vis = vis && row - key < mask.window;
         }
         seen[j] = vis;
-        s[i][j] = s[i][j] * scale;
+        s[i][j] = scale_acc(s[i][j], scale);
         if (vis) top = max_acc(top, s[i][j]);
       }
       const Acc m_new = max_acc(st.m[i], row_max(top));

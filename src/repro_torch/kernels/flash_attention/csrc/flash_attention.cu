@@ -6,7 +6,21 @@
 // kv block) grid with the kv axis innermost and sequential, carrying the
 // online-softmax state (m, l, acc in f32) in VMEM scratch across it.  Here the
 // blocks of a grid run in parallel in no order, so the sequential kv axis
-// becomes a loop inside the block, and the state lives in registers:
+// becomes a loop inside the block, and the state lives in registers.
+//
+// Each call takes one of three routes, a pure function of the dtype, the
+// head dim and the operands' alignment (route_of below; kernels/flash_
+// attention/ops.py route() is the same rule in Python, and
+// bind_flash_attention_route answers it for any operands):
+//
+//   F32_SIMT    float32: the CUDA-core loop (attn_tile.cuh), any d <= 256;
+//   BF16_WGMMA  bfloat16 with d % 64 == 0, d <= 256 and q, k, v, out
+//               16-byte aligned: the tensor cores, wgmma fed by TMA
+//               (attn_wgmma.cuh);
+//   BF16_SIMT   any other bfloat16 (h2o-danube's d = 80, for one): the
+//               CUDA-core loop, fp32 inside.
+//
+// The CUDA-core loop (flash_attention_kernel):
 //   * one block of 256 threads per (query tile of 64 rows, q head, batch);
 //     GQA reads kv head h / (Hq / Hkv), as the reference's index map does;
 //   * the block sweeps the key tiles the mask leaves (attn_tile.cuh): under
@@ -20,31 +34,113 @@
 //     l = corr l + sum p, acc = corr acc + p v, out = acc / (l == 0 ? 1 : l);
 //     f32 inside for f32 and bf16 inputs (IEEE FMA, never TF32), the output
 //     in q's dtype; a row that sees no key gives zeros.
-// Head dims up to 256 of any size: the value columns are padded to the
-// register blocks of the instantiation (16, 32, 64, 128 or 256) and masked.
-// At d = 256 a block takes 146 KB of shared memory, above the 48 KB default,
-// so the launcher raises the limit with cudaFuncSetAttribute.
+//   Head dims up to 256 of any size: the value columns are padded to the
+//   register blocks of the instantiation (16, 32, 64, 128 or 256) and
+//   masked.  At d = 256 a block takes 146 KB of shared memory, above the 48
+//   KB default, so the launcher raises the limit with cudaFuncSetAttribute.
+//   What bounds it on an H100: operations.  Causal prefill at S = 8192 does
+//   4 d Hq visible-pairs FLOP against a few hundred MB of q, k, v and out,
+//   far above the ridge point; the loop runs on the CUDA cores in f32 (67
+//   TFLOP/s peak) and reads shared memory for every pair of operands, as
+//   the GEMM's f32 route does.  TF32 would miss the f32 tolerance (2e-5),
+//   so float32 stays here, bit for bit the kernel it was.
 //
-// What bounds it on an H100: operations.  Causal prefill at S = 8192 does
-// 4 d Hq visible-pairs FLOP against a few hundred MB of q, k, v and out, far
-// above the ridge point.  This kernel runs on the CUDA cores in f32 (67
-// TFLOP/s peak) and reads shared memory for every pair of operands, as the
-// GEMM does; tensor cores (wgmma on bf16 tiles fed by TMA) are left for a
-// later change.
+// The tensor-core loop (flash_attention_wgmma_kernel, attn_wgmma.cuh): two
+// warpgroups of 64 query rows each, sharing K and V tiles that TMA brings
+// into a ring of shared memory, S = Q K^T and O += P V on wgmma, the
+// online softmax on the accumulator registers, P kept in registers as
+// wgmma's A operand.  Bound: the bf16 tensor cores (989 TFLOP/s) and, next
+// to them, the exp2 of every score; the header says how the design splits
+// the two, and why rounding P to bf16 stays within the reference's bf16
+// tolerance of 3e-2.  The same causal and windowed tile bounds, from its
+// own 128-row query tiles and 128-key (64 at d > 128) key tiles.
 //
 // C interface (bound with ctypes): device pointers, sizes and a cudaStream_t;
 // each entry point launches on that stream without synchronising and returns
-// cudaGetLastError() (0 on success).
+// cudaGetLastError() (0 on success).  bind_flash_attention_route says which
+// route a call takes.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "attn_tile.cuh"
+#include "attn_wgmma.cuh"
 
 namespace {
 
 using namespace bind_attn;
+
+enum Route : int { F32_SIMT = 0, BF16_SIMT = 1, BF16_WGMMA = 2 };
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// elem_bytes 4: float32, 2: bfloat16
+inline Route route_of(int elem_bytes, int64_t d, const void* q,
+                      const void* k, const void* v, const void* out) {
+  if (elem_bytes == 4) return F32_SIMT;
+  const bool tma = d % 64 == 0 && d > 0 && d <= 256 && aligned16(q) &&
+                   aligned16(k) && aligned16(v) && aligned16(out);
+  return tma ? BF16_WGMMA : BF16_SIMT;
+}
+
+template <int D>
+__global__ void __launch_bounds__(bind_attn_wg::THREADS, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             __nv_bfloat16* __restrict__ O,
+                             const bind_attn_wg::Shape sh) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  bind_attn_wg::attention_block<D>(&tq, &tk, &tv, O, sh, wg_smem);
+}
+
+template <int D>
+cudaError_t launch_wgmma_d(const void* q, const void* k, const void* v,
+                           void* out, int64_t batch, int64_t hq, int64_t hkv,
+                           int64_t sq, int64_t skv, float scale, Mask mask,
+                           cudaStream_t stream) {
+  using C = bind_attn_wg::Cfg<D>;
+  const int64_t tiles = (sq + bind_attn_wg::BQ - 1) / bind_attn_wg::BQ;
+  // TMA coordinates are 32-bit; the query tiles are the grid's y
+  if (tiles > 65535 || batch * hq > 0x7fffffff || sq > 0x7fffffff ||
+      skv > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = bind_attn_wg::make_maps<D>(&tq, &tk, &tv, q, k, v, batch,
+                                               hq, hkv, sq, skv);
+  if (err != cudaSuccess) return err;
+  auto kern = flash_attention_wgmma_kernel<D>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(C::SMEM));
+  if (err != cudaSuccess) return err;
+  const bind_attn_wg::Shape sh{hq, hkv, sq, skv,
+                               scale * 1.4426950408889634f, mask};
+  const dim3 grid(static_cast<unsigned>(batch * hq),
+                  static_cast<unsigned>(tiles));
+  kern<<<grid, bind_attn_wg::THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), sh);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* out, int64_t batch, int64_t hq, int64_t hkv,
+                         int64_t sq, int64_t skv, int d, float scale,
+                         Mask mask, cudaStream_t stream) {
+  switch (d) {
+    case 64: return launch_wgmma_d<64>(q, k, v, out, batch, hq, hkv, sq, skv,
+                                       scale, mask, stream);
+    case 128: return launch_wgmma_d<128>(q, k, v, out, batch, hq, hkv, sq,
+                                         skv, scale, mask, stream);
+    case 192: return launch_wgmma_d<192>(q, k, v, out, batch, hq, hkv, sq,
+                                         skv, scale, mask, stream);
+    case 256: return launch_wgmma_d<256>(q, k, v, out, batch, hq, hkv, sq,
+                                         skv, scale, mask, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 template <typename T, int NJ>
 __global__ void __launch_bounds__(THREADS)
@@ -136,6 +232,9 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const float s = static_cast<float>(scale);
   const int dd = static_cast<int>(d);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route_of(sizeof(T), d, q, k, v, out) == BF16_WGMMA)
+    return static_cast<int>(launch_wgmma(q, k, v, out, batch, hq, hkv, sq,
+                                         skv, dd, s, mask, st));
   return static_cast<int>(with_value_blocks(dd, [&](auto nj) {
     return launch_nj<T, decltype(nj)::value>(q, k, v, out, batch, hq, hkv,
                                              sq, skv, dd, s, mask, st);
@@ -162,6 +261,15 @@ int bind_flash_attention_bf16(const void* q, const void* k, const void* v,
                               int64_t window, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, out, batch, hq, hkv, sq, skv, d,
                                scale, causal, windowed, window, stream);
+}
+
+// The route (F32_SIMT 0, BF16_SIMT 1, BF16_WGMMA 2) a call of element size
+// elem_bytes (4: float32, 2: bfloat16) with head dim d on these operands
+// takes; -1 for another size.
+int bind_flash_attention_route(int elem_bytes, const void* q, const void* k,
+                               const void* v, const void* out, int64_t d) {
+  if (elem_bytes != 4 && elem_bytes != 2) return -1;
+  return route_of(elem_bytes, d, q, k, v, out);
 }
 
 }  // extern "C"

@@ -1,9 +1,10 @@
 """Build and bind the flash-attention kernel (``csrc/flash_attention.cu``).
 
 Built at first use through the shared :mod:`repro_torch.kernels._build`
-helper, with the tile loop it shares with the chain kernel
-(``csrc/attn_tile.cuh``) and the conversions of the GEMM's tile header.
-Nothing here runs at import time.
+helper, with the CUDA-core tile loop it shares with the chain kernel
+(``csrc/attn_tile.cuh``), the tensor-core loop of the ``bf16_wgmma`` route
+(``csrc/attn_wgmma.cuh``) and the GEMM headers both draw on (conversions,
+the TMA and ``wgmma`` helpers).  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ from .._build import CudaLibrary
 _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "csrc" / "flash_attention.cu",)
 HEADERS = (_HERE / "csrc" / "attn_tile.cuh",
-           _HERE.parent / "gemm" / "csrc" / "gemm_tile.cuh")
+           _HERE / "csrc" / "attn_wgmma.cuh",
+           _HERE.parent / "gemm" / "csrc" / "gemm_tile.cuh",
+           _HERE.parent / "gemm" / "csrc" / "gemm_wgmma.cuh")
 
 SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_HEAD_DIM = 256          # bind_attn::MAX_HEAD_DIM of attn_tile.cuh
@@ -28,9 +31,15 @@ _P, _I, _I64, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 _ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _D, _I, _I,
          _I64, _P)
 
+# which route (an index of ops.ROUTES) a call takes:
+# (element size, q, k, v, out, d)
+ROUTE_SYMBOL = "bind_flash_attention_route"
+_ROUTE_ARGS = (_I, _P, _P, _P, _P, _I64)
+
 LIBRARY = CudaLibrary("bind_flash_attention", SOURCES, HEADERS,
-                      {f"bind_flash_attention_{s}": _ARGS
-                       for s in SUFFIX.values()})
+                      {**{f"bind_flash_attention_{s}": _ARGS
+                          for s in SUFFIX.values()},
+                       ROUTE_SYMBOL: _ROUTE_ARGS})
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -50,3 +59,13 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      sq, skv, d, float(scale), int(causal),
                      int(window is not None),
                      0 if window is None else int(window), stream)
+
+
+def launcher_route(dtype: torch.dtype, q_ptr: int, k_ptr: int, v_ptr: int,
+                   out_ptr: int, d: int) -> int:
+    """The route index the built library's launcher takes for these
+    operands (:func:`.ops.flash_attention` counts it and holds it against
+    :func:`.ops.route`)."""
+    fn = getattr(LIBRARY.load(), ROUTE_SYMBOL)
+    return fn(torch.empty((), dtype=dtype).element_size(), q_ptr, k_ptr,
+              v_ptr, out_ptr, d)

@@ -12,7 +12,18 @@ keys are zeros that only the causal mask hides, so non-causal windowed
 attention over a ragged Skv attends to them (ROADMAP Queue 3); non-causal
 unwindowed attention refuses to pad.  ``backend="plain"`` asks for the
 oracle on the unpadded inputs on any device (the reference's
-``backend="xla"``).  It counts its launches in ``flash_attention.launches``.
+``backend="xla"``).  It counts its launches in ``flash_attention.launches``
+and each launch's route in ``flash_attention.routes`` (route name ->
+launches): the route the built launcher reports for the very operands it
+is handed, which must be the one :func:`route` gives them.
+
+:func:`route` says which loop a launch takes (``csrc/flash_attention.cu``
+is the same rule in C, and :func:`.kernel.launcher_route` asks the built
+library, as the wrapper does before every launch): float32 on the CUDA cores (``f32_simt``); bfloat16 on the tensor
+cores (``bf16_wgmma``: ``wgmma`` fed by TMA) when the head dim is a
+multiple of 64 up to 256 and q, k, v and out are 16-byte aligned, else on
+the CUDA cores (``bf16_simt``).  Qwen3-14B (d 128) and RecurrentGemma-9B
+(d 256) take ``bf16_wgmma``; h2o-danube's d 80 takes ``bf16_simt``.
 
 ``attn_step(o, q, k, v)`` is the executor-callable block accumulation ``o ←
 o + softmax(q kᵀ / √d) v``, tagged ``"dot"`` so a fused chain of it runs as
@@ -37,6 +48,23 @@ from . import kernel, ref
 
 DTYPES = tuple(kernel.SUFFIX)
 BACKENDS = ("cuda", "plain")
+# the routes, in the order of the Route enum of csrc/flash_attention.cu
+ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma")
+
+
+def route(dtype: torch.dtype, d: int, addresses=()) -> str:
+    """The route of a call with head dim ``d`` on operands of ``dtype``
+    whose q, k, v and out start at ``addresses`` (device byte addresses):
+    bfloat16 goes to the tensor cores when the tiles of 64 columns cover d
+    (``d % 64 == 0``, ``d <= 256``) and TMA can read every operand (each
+    address 16-byte aligned)."""
+    if dtype == torch.float32:
+        return "f32_simt"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"no attention route for dtype {dtype}")
+    tma = (d % 64 == 0 and 0 < d <= 256
+           and all(int(x) % 16 == 0 for x in addresses))
+    return "bf16_wgmma" if tma else "bf16_simt"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -84,6 +112,22 @@ def pad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     return q, k, v
 
 
+def _route_taken(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 out: torch.Tensor) -> str:
+    """The route the built launcher takes for these operands, held against
+    :func:`route` on the same addresses: a library and a mirror that
+    disagree raise before anything is launched."""
+    d = q.shape[3]
+    addresses = [t.data_ptr() for t in (q, k, v, out)]
+    taken = ROUTES[kernel.launcher_route(q.dtype, *addresses, d)]
+    want = route(q.dtype, d, addresses)
+    if taken != want:
+        raise RuntimeError(f"flash attention: the launcher takes {taken} "
+                           f"where ops.route says {want} (d {d}, "
+                           f"addresses {addresses})")
+    return taken
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window=None, scale=None,
                     bq: int = 512, bkv: int = 512,
@@ -104,13 +148,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         out = torch.empty_like(q)
         if out.numel():
+            path = _route_taken(q, k, v, out)
             kernel.launch(q, k, v, out, causal=causal, window=window,
                           scale=scale)
-            count_launch(flash_attention)
+            count_launch(flash_attention, path)
     return out[:, :, :sq, :]
 
 
 flash_attention.launches = 0
+flash_attention.routes = {}
 
 
 def attn_step(o, q, k, v):

@@ -251,11 +251,12 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a (levels, rows, cols) row-major bf16 array read in 64x64 boxes with the
-// 128-byte swizzle; level_stride in elements (0: one level)
+// a (levels, rows, cols) row-major bf16 array read in boxes of 64 columns
+// by box_rows rows with the 128-byte swizzle; level_stride in elements (0:
+// the levels lie back to back)
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int64_t rows,
                             int64_t cols, int64_t levels,
-                            int64_t level_stride) {
+                            int64_t level_stride, int box_rows = 64) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t row_bytes = static_cast<cuuint64_t>(cols) * 2;
@@ -266,7 +267,7 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int64_t rows,
       row_bytes, level_stride != 0
                      ? static_cast<cuuint64_t>(level_stride) * 2
                      : row_bytes * static_cast<cuuint64_t>(rows)};
-  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),

@@ -17,7 +17,9 @@ holds them bitwise against the same plain version.  Here the operand
 checks, the body-to-kernel map and the launch counters are pinned.
 """
 
+import contextlib
 import itertools
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -306,6 +308,99 @@ def test_every_bound_symbol_is_an_extern_c_entry_point():
     assert set(kernel.LIBRARY.symbols) == extern_c_symbols(kernel.SOURCES[0])
 
 
+@pytest.mark.parametrize("stem", ["bind_chain_ewise_", "bind_chain_dot_",
+                                  "bind_chain_attn_"])
+def test_bound_arity_is_the_entry_points(stem):
+    """Static: ctypes passes as many arguments as the C entry point takes
+    (``chain_attn``'s carry the workspace and the row-tile counters)."""
+    params = re.search(rf"int {stem}##SUFFIX\((.*?)\)",
+                       kernel.SOURCES[0].read_text(), re.S).group(1)
+    for sym, argtypes in kernel.LIBRARY.symbols.items():
+        if sym.startswith(stem):
+            assert params.count(",") + 1 == len(argtypes), sym
+
+
+def test_row_tile_counters_grow_and_stay_zero_under_threads():
+    """The per-(device, stream) counter buffers: every caller gets zeros
+    covering what it asked for, whatever the other threads ask for at the
+    same time, and a buffer only ever grows."""
+    import random
+    import sys
+    import threading
+
+    device, stream = torch.device("cpu"), 7
+    kernel._COUNTERS.pop((device.index, stream), None)
+    bad, asked = [], []
+
+    def worker(seed):
+        rnd = random.Random(seed)
+        for _ in range(200):
+            tiles = rnd.randrange(1, 5000)
+            asked.append(tiles)
+            buf = kernel.row_tile_counters(device, stream, tiles)
+            if buf.numel() < tiles or bool(buf.any()):
+                bad.append((tiles, buf.numel()))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not bad
+    kept = kernel._COUNTERS.pop((device.index, stream))
+    assert kept.numel() >= max(asked) and not kept.any()
+
+
+def _level_parallel(layout, n_levels, o, q, k, v):
+    """The decomposition the level-parallel ``chain_attn`` kernel runs: each
+    level's ``softmax(q kᵀ / √d) v`` in the accumulator type, computed
+    without reading the carry (all levels at once), then added into the
+    carry in level order, rounded to its dtype after each level."""
+    acc = torch.float64 if o.dtype == torch.float64 else torch.float32
+
+    def level(t, lay, lv):
+        return (t[lv] if lay == "xs" else t).to(acc)
+
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    work = [torch.softmax((level(q, layout[1], lv)
+                           @ level(k, layout[2], lv).T) * scale, dim=-1)
+            @ level(v, layout[3], lv) for lv in range(n_levels)]
+    carry = o
+    for w in work:
+        carry = (carry.to(acc) + w).to(o.dtype)
+    return carry
+
+
+@pytest.mark.parametrize("dname", ["float32", "bfloat16", "float64"])
+@pytest.mark.parametrize("lq, lk, lv", ATTN_LAYOUTS,
+                         ids=["-".join(lay) for lay in ATTN_LAYOUTS])
+def test_levels_are_independent_of_the_carry(lq, lk, lv, dname):
+    """A level's ``acc / l`` reads only that level's q, k and v: computing
+    every level first and summing into the carry in order afterwards is
+    bitwise equal to per-level ``attn_step`` replay, in every dtype."""
+    dt = getattr(torch, dname)
+    rng = np.random.default_rng(5)
+    m, n, d, dv = 7, 11, 6, 5
+    layout = ("single", lq, lk, lv)
+    args = [torch.from_numpy(rng.normal(size=(m, dv))).to(dt)]
+    for lay, shape in zip(layout[1:], ((m, d), (n, d), (n, dv))):
+        lead = (N_LEVELS,) if lay == "xs" else ()
+        args.append(torch.from_numpy(rng.normal(size=lead + shape)).to(dt))
+    replay = ref.run_levels(attn_step, layout, 0, N_LEVELS, args)
+    got = _level_parallel(layout, N_LEVELS, *args)
+    assert got.dtype == dt
+    assert torch.equal(got.view(torch.uint8), replay.view(torch.uint8))
+    # the carry moves: the sum really is over the levels, in order
+    assert not torch.equal(replay, args[0])
+
+
 def _levels(store, offset, lead, shape):
     """A contiguous (lead + shape) view ``offset`` elements into ``store``."""
     n = int(np.prod(lead + shape))
@@ -340,3 +435,101 @@ def test_chain_route_is_the_route_of_every_replayed_level(la, lb, m, k, n,
         replay.add(gemm_ops.route(dt, m, n, k,
                                   (a_l.data_ptr(), b_l.data_ptr())))
     assert replay == {chain}
+
+
+@pytest.mark.parametrize("dname", ["float32", "bfloat16", "float64"])
+@pytest.mark.parametrize("m, dv, n_levels", [(512, 128, 16), (512, 128, 300),
+                                             (8192, 128, 1024), (1, 1, 70000),
+                                             (7, 5, 1)])
+def test_level_runs_bound_the_workspace(m, dv, n_levels, dname):
+    """A chain's launches cover its levels in order, each within
+    ``WORKSPACE_BYTES`` of workspace (or one level) and the grid's y."""
+    dtype = getattr(torch, dname)
+    acc_bytes = 8 if dtype == torch.float64 else 4
+    runs = kernel.level_runs(m, dv, dtype, n_levels)
+    assert [first for first, _ in runs] == list(
+        itertools.accumulate([0] + [n for _, n in runs[:-1]]))
+    assert sum(n for _, n in runs) == n_levels
+    for _, n in runs:
+        assert 1 <= n <= kernel.MAX_LEVELS_PER_LAUNCH
+        assert n == 1 or n * m * dv * acc_bytes <= kernel.WORKSPACE_BYTES
+    # as few launches as the bound allows: every run but the last is full
+    assert len({n for _, n in runs[:-1]}) <= 1
+    assert runs[-1][1] <= runs[0][1]
+    if n_levels * m * dv * acc_bytes <= kernel.WORKSPACE_BYTES and \
+            n_levels <= kernel.MAX_LEVELS_PER_LAUNCH:
+        assert runs == [(0, n_levels)]
+
+
+@pytest.mark.parametrize("per_launch, n_levels", [(16, 16), (6, 16), (5, 15),
+                                                  (1, 3)])
+@pytest.mark.parametrize("lq, lk, lv", [("single", "xs", "xs"),
+                                        ("xs", "xs", "single")])
+def test_launches_hand_the_carry_on(monkeypatch, per_launch, n_levels, lq,
+                                    lk, lv):
+    """Static (no nvcc): a chain longer than one launch's workspace is
+    launches of at most that many levels, each reading the carry the last
+    one wrote and writing the other buffer, the last writing ``out``; each
+    launch's q, k and v start at its first level."""
+    m, n, d, dv = 4, 3, 2, 5
+    monkeypatch.setattr(kernel, "WORKSPACE_BYTES", per_launch * m * dv * 4)
+    monkeypatch.setattr(kernel, "on_device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(kernel, "_stream", lambda t: 0)
+    monkeypatch.setattr(kernel, "row_tile_counters",
+                        lambda device, stream, tiles:
+                        torch.zeros(tiles, dtype=torch.int32))
+    calls = []
+    monkeypatch.setattr(kernel.LIBRARY, "call",
+                        lambda sym, *args: calls.append((sym, args)))
+    o, out = torch.zeros(m, dv), torch.zeros(m, dv)
+    operands = {}
+    for name, lay, shape in (("q", lq, (m, d)), ("k", lk, (n, d)),
+                             ("v", lv, (n, dv))):
+        lead = (n_levels,) if lay == "xs" else ()
+        t = torch.zeros(lead + shape)
+        operands[name] = (t, t[0].numel() if lay == "xs" else 0)
+    (q, qs), (k, ks), (v, vs) = operands.values()
+    launches = kernel.launch_attn(out, o, q, qs, k, ks, v, vs, n_levels)
+    runs = kernel.level_runs(m, dv, torch.float32, n_levels)
+    assert launches == len(calls) == len(runs) == -(-n_levels // per_launch)
+    carry = o.data_ptr()
+    work = None
+    for (sym, args), (first, levels) in zip(calls, runs):
+        (o_ptr, q_ptr, q_stride, k_ptr, k_stride, v_ptr, v_stride, dst,
+         work_ptr, _done, mm, nn, dd, ddv, lv_count, _scale, _st) = args
+        assert sym == "bind_chain_attn_f32"
+        assert o_ptr == carry and dst != o_ptr
+        assert (q_ptr, k_ptr, v_ptr) == (q.data_ptr() + first * qs * 4,
+                                         k.data_ptr() + first * ks * 4,
+                                         v.data_ptr() + first * vs * 4)
+        assert (q_stride, k_stride, v_stride) == (qs, ks, vs)
+        assert (mm, nn, dd, ddv, lv_count) == (m, n, d, dv, levels)
+        assert work in (None, work_ptr)
+        work, carry = work_ptr, dst
+    assert carry == out.data_ptr()
+
+
+@pytest.mark.parametrize("dname", ["float32", "bfloat16", "float64"])
+def test_runs_of_levels_equal_one_chain(dname):
+    """The carry a launch hands on is the carry in its own dtype, which the
+    kernel rounds to after every level anyway: a chain cut into runs of
+    levels, each started from the last one's result, is bitwise the whole
+    chain, and so per-level ``attn_step`` replay."""
+    dt = getattr(torch, dname)
+    rng = np.random.default_rng(9)
+    m, n, d, dv, levels = 7, 11, 6, 5, 10
+    layout = ("single", "single", "xs", "xs")
+    o = torch.from_numpy(rng.normal(size=(m, dv))).to(dt)
+    q = torch.from_numpy(rng.normal(size=(m, d))).to(dt)
+    k = torch.from_numpy(rng.normal(size=(levels, n, d))).to(dt)
+    v = torch.from_numpy(rng.normal(size=(levels, n, dv))).to(dt)
+    whole = _level_parallel(layout, levels, o, q, k, v)
+    carry = o
+    for first in range(0, levels, 3):
+        count = min(3, levels - first)
+        carry = _level_parallel(layout, count, carry, q,
+                                k[first:first + count], v[first:first + count])
+    assert torch.equal(carry.view(torch.uint8), whole.view(torch.uint8))
+    replay = ref.run_levels(attn_step, layout, 0, levels, (o, q, k, v))
+    assert torch.equal(whole.view(torch.uint8), replay.view(torch.uint8))

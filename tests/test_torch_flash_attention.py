@@ -11,11 +11,14 @@ padding quirk, the wrapper's checks, ``attn_step`` and the launch counter
 are pinned.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from test_kernels import ATTN_CASES
+from test_torch_gemm import _includes, extern_c_symbols
 
 from repro.kernels.flash_attention import ops as ref_ops
 from repro.kernels.flash_attention import ref as ref_oracle
@@ -198,8 +201,96 @@ def test_attn_step_matches_the_reference_body(rng):
 def test_library_is_named_by_its_sources_and_headers():
     path = kernel.LIBRARY.path()
     assert path.name.startswith("libbind_flash_attention_")
-    assert {h.name for h in kernel.LIBRARY.headers} == {"attn_tile.cuh",
-                                                        "gemm_tile.cuh"}
+    assert {h.name for h in kernel.LIBRARY.headers} == {
+        "attn_tile.cuh", "attn_wgmma.cuh", "gemm_tile.cuh", "gemm_wgmma.cuh"}
+    # every header the source includes, the new route's too, is hashed
+    # into the library's name
+    headers = {h.resolve() for h in kernel.LIBRARY.headers}
+    assert _includes(kernel.SOURCES[0]) <= headers
     assert set(kernel.SUFFIX) == set(ops.DTYPES)
     assert set(kernel.LIBRARY.symbols) == {
-        f"bind_flash_attention_{s}" for s in kernel.SUFFIX.values()}
+        f"bind_flash_attention_{s}" for s in kernel.SUFFIX.values()} | {
+        kernel.ROUTE_SYMBOL}
+    assert kernel.ROUTE_SYMBOL == "bind_flash_attention_route"
+
+
+def test_every_bound_symbol_is_an_extern_c_entry_point_with_its_arity():
+    """Static: each C symbol the wrapper binds is defined in the source's
+    ``extern "C"`` block, with as many parameters as ctypes passes (no
+    nvcc needed)."""
+    source = kernel.SOURCES[0].read_text()
+    assert set(kernel.LIBRARY.symbols) == extern_c_symbols(kernel.SOURCES[0])
+    for sym, argtypes in kernel.LIBRARY.symbols.items():
+        params = re.search(rf"int {sym}\((.*?)\)", source, re.S).group(1)
+        assert params.count(",") + 1 == len(argtypes), sym
+
+
+KB = 1 << 10
+
+
+@pytest.mark.parametrize("dtype, d, addresses, want", [
+    # float32 stays on the CUDA cores at every head dim and alignment
+    *[(torch.float32, d, (0, 4 * KB, 8 * KB, 12 * KB), "f32_simt")
+      for d in (16, 64, 80, 128, 256, 320)],
+    (torch.float32, 128, (4, 8, 12, 20), "f32_simt"),
+    # bfloat16: tiles of 64 columns must cover d, up to 256
+    (torch.bfloat16, 16, (0, 16, 32, 48), "bf16_simt"),
+    (torch.bfloat16, 64, (0, 16, 32, 48), "bf16_wgmma"),
+    (torch.bfloat16, 80, (0, 16, 32, 48), "bf16_simt"),    # h2o-danube
+    (torch.bfloat16, 128, (0, 16, 32, 48), "bf16_wgmma"),  # Qwen3-14B
+    (torch.bfloat16, 192, (0, 16, 32, 48), "bf16_wgmma"),
+    (torch.bfloat16, 256, (0, 16, 32, 48), "bf16_wgmma"),  # RecurrentGemma
+    (torch.bfloat16, 320, (0, 16, 32, 48), "bf16_simt"),
+    (torch.bfloat16, 0, (0, 16, 32, 48), "bf16_simt"),
+    # and TMA must read every operand: q, k, v, out each 16-byte aligned
+    (torch.bfloat16, 128, (2, 16, 32, 48), "bf16_simt"),
+    (torch.bfloat16, 128, (0, 8, 32, 48), "bf16_simt"),
+    (torch.bfloat16, 128, (0, 16, 34, 48), "bf16_simt"),
+    (torch.bfloat16, 256, (0, 16, 32, 56), "bf16_simt"),
+    (torch.bfloat16, 128, (), "bf16_wgmma"),
+])
+def test_route_by_dtype_head_dim_and_alignment(dtype, d, addresses, want):
+    assert ops.route(dtype, d, addresses) == want
+    assert want in ops.ROUTES
+
+
+def test_route_rejects_dtypes_without_a_kernel():
+    with pytest.raises(TypeError):
+        ops.route(torch.float64, 128)
+
+
+def test_cpu_calls_count_no_route(rng):
+    ops.flash_attention.routes = {}
+    qkv = _qkv(rng, 1, 2, 2, 16, 16, 64)
+    _port(qkv, bq=16, bkv=16)
+    assert ops.flash_attention.routes == {}
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "odd-offset"])
+@pytest.mark.parametrize("agree", [True, False], ids=["agree", "disagree"])
+def test_route_taken_is_the_launchers_held_to_the_rule(monkeypatch, offset,
+                                                       agree):
+    """The wrapper counts the route the built launcher reports for the very
+    operands it launches on (here a stand-in for the library) and raises,
+    before any launch, when that is not what ``ops.route`` gives them."""
+    store = torch.zeros(4 * 2 * 64 * 128 + 1, dtype=torch.bfloat16)
+    q, k, v, out = (store[offset + i * 2 * 64 * 128:][:2 * 64 * 128]
+                    .view(1, 2, 64, 128) for i in range(4))
+    addresses = [t.data_ptr() for t in (q, k, v, out)]
+    want = ops.route(torch.bfloat16, 128, addresses)
+    assert want == ("bf16_wgmma" if addresses[0] % 16 == 0 and offset == 0
+                    else "bf16_simt")
+    other = next(r for r in ops.ROUTES if r != want)
+    asked = []
+
+    def launcher_route(dtype, *args):
+        asked.append((dtype, args))
+        return ops.ROUTES.index(want if agree else other)
+
+    monkeypatch.setattr(kernel, "launcher_route", launcher_route)
+    if agree:
+        assert ops._route_taken(q, k, v, out) == want
+    else:
+        with pytest.raises(RuntimeError, match="the launcher takes"):
+            ops._route_taken(q, k, v, out)
+    assert asked == [(torch.bfloat16, (*addresses, 128))]

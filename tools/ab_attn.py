@@ -1,0 +1,273 @@
+#!/usr/bin/env python3
+"""Hold this checkout's flash-attention and ``chain_attn`` kernels against
+another checkout's, in one call.
+
+Usage, from the root of a checkout, on a machine with one CUDA card::
+
+    python3 tools/ab_attn.py OTHER_ROOT
+
+``OTHER_ROOT`` is the root of another checkout of the repository (for
+example the parent commit unpacked with ``git archive`` into ``build/``).
+Each side's flash attention
+(``src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu``) and
+chain kernels (``.../chain/csrc/chain.cu``) are built with the same
+``nvcc`` flags, all four builds started together, and called through their
+C entry points on the same inputs:
+
+* flash attention in float32 at the reference's cases (``ATTN_CASES`` of
+  ``chip_smoke.py``), h2o-danube-1.8b's head dim 80 and full
+  RecurrentGemma-9B and Qwen3-14B width: bit for bit equal on the two
+  sides;
+* flash attention in bfloat16 at the same cases with the head dim raised
+  to 64 and 128, at ``chip_smoke.py``'s ``MID_ATTN`` cases (many key tiles
+  per query tile) at d 64, 128, 192 and 256, at d 80 and at full width:
+  each side within the reference's bf16 tolerance (3e-2) of the oracle on
+  the padded inputs and within ``chip_smoke.py``'s limits scaled to each
+  value against the float32 oracle (``bf16_attention_error``), and a row
+  that sees no key exactly zero; the route each side takes is printed (a
+  side without ``bind_flash_attention_route`` has one loop);
+* ``chain_attn`` in float32, bfloat16 and float64 at ``chip_smoke.py``'s
+  two shapes (a 512-row Qwen3-14B tile x 16 levels of 512 keys, and a
+  ragged (100, 70, d 40, dv 24) x 3) in its three layouts: bit for bit
+  equal on the two sides (a side whose entry point takes a workspace and
+  row-tile counters gets them);
+* the kernels are timed with CUDA events in the order other, this, this,
+  other: flash attention at both full widths in both dtypes, and
+  ``chain_attn`` at the 512-row tile in float32.
+
+The card's name and power limit come first.  Exits non-zero on the first
+disagreement.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import re
+import sys
+from pathlib import Path
+
+from _ab import KERNELS, ROOT, ab, build_all, start
+from chip_smoke import (ATTN_CASES, ATTN_TOL, FULL_ATTN, MID_ATTN,
+                        MID_HEAD_DIMS, ODD_ATTN, bf16_attention_error,
+                        bf16_within)
+
+ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma")
+TOL = ATTN_TOL["bfloat16"]      # the reference's, rtol = atol
+CHAIN_SHAPES = ((512, 512, 128, 128, 16), (100, 70, 40, 24, 3))
+CHAIN_LAYOUTS = (("single", "single", "xs", "xs"),
+                 ("single", "xs", "xs", "xs"),
+                 ("single", "single", "single", "single"))
+FA_SUFFIX = {"float32": "f32", "bfloat16": "bf16"}
+CHAIN_SUFFIX = {"float32": "f32", "bfloat16": "bf16", "float64": "f64"}
+_P, _I, _I64, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                    ctypes.c_double)
+FA_ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _D, _I, _I,
+           _I64, _P)
+FA_ROUTE_ARGS = (_I, _P, _P, _P, _P, _I64)
+# bind_chain_attn_*: with (work, done) after out, or without
+CHAIN_ARGS = {True: (_P, _P, _I64, _P, _I64, _P, _I64, _P, _P, _P, _I64,
+                     _I64, _I64, _I64, _I64, _D, _P),
+              False: (_P, _P, _I64, _P, _I64, _P, _I64, _P, _I64, _I64,
+                      _I64, _I64, _I64, _D, _P)}
+
+
+def libraries(CudaLibrary, side: str, root: Path):
+    """(flash attention, chain) libraries of the checkout at ``root``, and
+    whether its ``chain_attn`` takes a workspace."""
+    fa_dir = root / KERNELS / "flash_attention" / "csrc"
+    headers = tuple(sorted((root / KERNELS / "gemm" / "csrc").glob("*.cuh"))
+                    + sorted(fa_dir.glob("*.cuh")))
+    source = (fa_dir / "flash_attention.cu").read_text()
+    fa_syms = {f"bind_flash_attention_{s}": FA_ARGS
+               for s in FA_SUFFIX.values()}
+    if "bind_flash_attention_route" in source:
+        fa_syms["bind_flash_attention_route"] = FA_ROUTE_ARGS
+    fa = CudaLibrary(f"ab_fa_{side}", (fa_dir / "flash_attention.cu",),
+                     headers, fa_syms)
+    chain_cu = root / KERNELS / "chain" / "csrc" / "chain.cu"
+    # the level-parallel kernel's entry point names its workspace
+    entry = re.search(r"int bind_chain_attn_##SUFFIX\((.*?)\)",
+                      chain_cu.read_text(), re.S).group(1)
+    with_work = "work" in entry
+    chain = CudaLibrary(
+        f"ab_chain_{side}", (chain_cu,), headers,
+        {f"bind_chain_attn_{s}": CHAIN_ARGS[with_work]
+         for s in CHAIN_SUFFIX.values()})
+    return fa, chain, with_work
+
+
+def main(argv: list[str]) -> int:
+    if len(argv) != 1:
+        print(__doc__, file=sys.stderr)
+        return 2
+    torch = start("ab_attn")
+    if torch is None:
+        return 1
+    from repro_torch.kernels._build import CudaLibrary
+    from repro_torch.kernels.chain import ref as chain_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    other = Path(argv[0]).resolve()
+    libs = {side: libraries(CudaLibrary, side, root)
+            for side, root in (("other", other), ("this", ROOT))}
+    build_all([lib for fa, chain, _ in libs.values() for lib in (fa, chain)],
+              ("registers", "spill", "error", "wgmma"))
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def rand(shape, dt):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    def fa_route(side, q, k, v, out):
+        fa = libs[side][0]
+        if "bind_flash_attention_route" not in fa.symbols:
+            return "one loop"
+        r = fa.load().bind_flash_attention_route(
+            q.element_size(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), q.shape[3])
+        return ROUTES[r]
+
+    def fa_call(side, q, k, v, out, causal, window):
+        b, hq, sq, d = q.shape
+        libs[side][0].call(
+            f"bind_flash_attention_{FA_SUFFIX[str(q.dtype)[6:]]}",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+            k.shape[1], sq, k.shape[2], d, d ** -0.5, int(causal),
+            int(window is not None), 0 if window is None else window, stream)
+
+    def fa_case(label, shape, dname, blk):
+        b, hq, hkv, sq, skv, d, causal, window = shape
+        dt = getattr(torch, dname)
+        q = rand((b, hq, sq, d), dt)
+        k, v = rand((b, hkv, skv, d), dt), rand((b, hkv, skv, d), dt)
+        q, k, v = fa_ops.pad(q, k, v, causal=causal, window=window, bq=blk,
+                             bkv=blk)
+        outs = {s: torch.empty_like(q) for s in libs}
+        routes = {s: fa_route(s, q, k, v, outs[s]) for s in libs}
+        for side in libs:
+            fa_call(side, q, k, v, outs[side], causal, window)
+        torch.cuda.synchronize()
+        exp = fa_ref.attention(q, k, v, causal=causal, window=window)
+        seen = fa_ref.mask(q.shape[2], k.shape[2], causal=causal,
+                           window=window, device=dev)
+        blind = ~seen.any(dim=-1)
+        name = (f"flash_attention {label}{(b, hq, hkv, sq, skv, d)} causal "
+                f"{causal} window {window} {dname} (routes: this "
+                f"{routes['this']}, other {routes['other']})")
+        if dname == "float32":
+            ok = torch.equal(outs["this"], outs["other"])
+            what = "this vs other bitwise equal"
+        else:
+            exp32 = fa_ref.attention(q.float(), k.float(), v.float(),
+                                     causal=causal, window=window)
+            stats = {s: bf16_attention_error(outs[s], exp32, v)
+                     for s in libs}
+            ok = all(torch.allclose(outs[s].float(), exp.float(),
+                                    rtol=TOL, atol=TOL)
+                     and bf16_within(stats[s]) for s in libs)
+            ok = ok and not outs["this"][:, :, blind].any().item()
+            what = (f"both sides within {TOL} of the oracle and within "
+                    f"the bf16 limits (this: element "
+                    f"{stats['this']['element']:.3f}, slice "
+                    f"{stats['this']['slice']:.2e}, row "
+                    f"{stats['this']['row']:.2e}), {int(blind.sum())} blind "
+                    f"rows zero")
+        err = (outs["this"].double() - exp.double()).abs().max().item()
+        print(f"[check] {name}: {what}: {'ok' if ok else 'FAILED'}; this vs "
+              f"oracle max_abs_err {err:.3e}")
+        return ok
+
+    cases = [("", case, "float32", 16) for case in ATTN_CASES]
+    for d in (64, 128):
+        cases += [("", case[:5] + (d,) + case[6:], "bfloat16", 16)
+                  for case in ATTN_CASES]
+        # Sq > Skv under causal + window: rows past Skv + window see no key
+        cases.append(("", (1, 2, 2, 64, 32, d, True, 8), "bfloat16", 16))
+    for d in MID_HEAD_DIMS:
+        cases += [("mid ", (b, hq, hkv, sq, skv, d, causal, window),
+                   "bfloat16", blk)
+                  for b, hq, hkv, sq, skv, causal, window, blk in MID_ATTN]
+    for dname in ("float32", "bfloat16"):
+        for model, (b, hq, hkv, s, d, window) in (ODD_ATTN,
+                                                  *FULL_ATTN.items()):
+            cases.append((f"{model} ", (b, hq, hkv, s, s, d, True, window),
+                          dname, 512))
+    for label, shape, dname, blk in cases:
+        if not fa_case(label, shape, dname, blk):
+            return 1
+
+    def chain_call(side, dname, o, q, qs, k, ks, v, vs, L, out):
+        m, dv = o.shape
+        n, d = k.shape[-2:]
+        args = [o.data_ptr(), q.data_ptr(), qs, k.data_ptr(), ks,
+                v.data_ptr(), vs, out.data_ptr()]
+        if libs[side][2]:
+            acc = torch.float64 if dname == "float64" else torch.float32
+            work = torch.empty((L, m, dv), dtype=acc, device=dev)
+            args += [work.data_ptr(), done[side].data_ptr()]
+        libs[side][1].call(f"bind_chain_attn_{CHAIN_SUFFIX[dname]}", *args,
+                           m, n, d, dv, L, 1.0 / float(d) ** 0.5, stream)
+
+    done = {s: torch.zeros(1024, dtype=torch.int32, device=dev)
+            for s in libs}
+
+    def chain_operands(layout, m, n, d, dv, L, dt):
+        shapes = ((m, dv), (m, d), (n, d), (n, dv))
+        ops = tuple(rand(((L,) if lay == "xs" else ()) + shape, dt)
+                    for lay, shape in zip(layout, shapes))
+        strides = [t[0].numel() if lay == "xs" else 0
+                   for lay, t in zip(layout[1:], ops[1:])]
+        return ops, strides
+
+    for dname in CHAIN_SUFFIX:
+        dt = getattr(torch, dname)
+        for m, n, d, dv, L in CHAIN_SHAPES:
+            for layout in CHAIN_LAYOUTS:
+                (o, q, k, v), (qs, ks, vs) = chain_operands(layout, m, n, d,
+                                                            dv, L, dt)
+                outs = {s: torch.empty_like(o) for s in libs}
+                for side in libs:
+                    chain_call(side, dname, o, q, qs, k, ks, v, vs, L,
+                               outs[side])
+                torch.cuda.synchronize()
+                ok = torch.equal(outs["this"].view(torch.uint8),
+                                 outs["other"].view(torch.uint8))
+                exp = chain_ref.chain_attn(layout, 0, L, o, q, k, v)
+                err = (outs["this"].double() - exp.double()).abs().max().item()
+                print(f"[check] chain_attn ({m},{n},{d},{dv}) x {L} {dname} "
+                      f"{layout[1:]}: this vs other bitwise equal: "
+                      f"{'ok' if ok else 'FAILED'}; this vs plain "
+                      f"max_abs_err {err:.3e}")
+                if not ok:
+                    return 1
+    print(f"[check] row-tile counters left at zero: "
+          f"{all(not t.any().item() for t in done.values())}")
+
+    for model, (b, hq, hkv, s, d, window) in FULL_ATTN.items():
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            q = rand((b, hq, s, d), dt)
+            k, v = rand((b, hkv, s, d), dt), rand((b, hkv, s, d), dt)
+            out = torch.empty_like(q)
+            routes = {side: fa_route(side, q, k, v, out) for side in libs}
+            ab(torch, f"flash_attention {model} {dname} (routes: this "
+               f"{routes['this']}, other {routes['other']})",
+               lambda side: fa_call(side, q, k, v, out, True, window), 5, 1)
+            del q, k, v, out
+    m, n, d, dv, L = CHAIN_SHAPES[0]
+    (o, q, k, v), (qs, ks, vs) = chain_operands(CHAIN_LAYOUTS[0], m, n, d,
+                                                dv, L, torch.float32)
+    out = torch.empty_like(o)
+    ab(torch, f"chain_attn ({m},{n},{d},{dv}) x {L} float32, k and v per "
+       f"level",
+       lambda side: chain_call(side, "float32", o, q, qs, k, ks, v, vs, L,
+                               out), 20, 3)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -35,13 +35,11 @@ disagreement.
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-KERNELS = Path("src/repro_torch/kernels")
+from _ab import KERNELS, ROOT, ab, build_all, start
+
 N = 1024
 LEVELS = 8
 SUFFIX = {"float32": "f32", "bfloat16": "bf16", "float64": "f64"}
@@ -53,20 +51,6 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 GEMM_ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _P)
 DOT_ARGS = (_P, _P, _I64, _P, _I64, _P, _I64, _I64, _I64, _I64, _P)
 ROUTE_ARGS = (_I, _P, _I64, _P, _I64, _I64, _I64, _I64)
-
-
-def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def libraries(CudaLibrary, side: str, root: Path):
@@ -89,35 +73,15 @@ def main(argv: list[str]) -> int:
     if len(argv) != 1:
         print(__doc__, file=sys.stderr)
         return 2
-    import torch
-
-    if not torch.cuda.is_available():
-        print("ab_gemm: torch.cuda.is_available() is false", file=sys.stderr)
+    torch = start("ab_gemm")
+    if torch is None:
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels._build import CudaLibrary
 
     other = Path(argv[0]).resolve()
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(f"[env] nvidia-smi: {card}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-
     libs = {side: libraries(CudaLibrary, side, root)
             for side, root in (("other", other), ("this", ROOT))}
-    with ThreadPoolExecutor(4) as pool:
-        built = list(pool.map(lambda lib: lib.build(),
-                              [lib for pair in libs.values() for lib in pair]))
-    for path, log in built:
-        print(f"[build] {path.name}")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"[build]   {line.strip()}")
-    for gemm, chain in libs.values():
-        gemm.load()
-        chain.load()
+    build_all([lib for pair in libs.values() for lib in pair])
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
@@ -239,14 +203,7 @@ def main(argv: list[str]) -> int:
                                       LEVELS, out), 5, 1),
         }
         for op, (fn, iters, warmup) in calls.items():
-            times = [(side, time_ms(torch, lambda side=side: fn(side),
-                                    iters, warmup))
-                     for side in ("other", "this", "this", "other")]
-            mean = {s: sum(t for x, t in times if x == s) / 2 for s in libs}
-            order = ", ".join(f"{s} {t:.4f}" for s, t in times)
-            print(f"[ab] {op} {N}^3 {dname}: ms in order {order}; mean other "
-                  f"{mean['other']:.4f} ms, this {mean['this']:.4f} ms "
-                  f"({mean['this'] / mean['other']:.3f}x)")
+            ab(torch, f"{op} {N}^3 {dname}", fn, iters, warmup)
     return 0
 
 
