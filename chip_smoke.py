@@ -16,22 +16,26 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    attention (``.../flash_attention/csrc/flash_attention.cu``) and the
    linear scan (``.../linear_scan/csrc/linear_scan.cu``); the SASS of the
    tensor-core routes must hold their instructions (HGMMA for ``wgmma``,
-   the GEMM's, ``chain_dot``'s and flash attention's; DMMA for the f64
-   MMA), read with ``cuobjdump``;
+   the GEMM's, ``chain_dot``'s and flash attention's two, bf16 and
+   3xTF32; DMMA for the f64 MMA), read with ``cuobjdump``;
 3. the GEMM kernel against its plain PyTorch version on the card on every
    route (``kernels/gemm/ops.py`` ``route``, checked against the route the
    built launcher takes): at the main path's leaf shape 1024^3 in float32
    (CUDA cores), bfloat16 (``wgmma``) and float64 (DMMA), at the ragged
-   shapes (130, 70, 260), (1, 128, 1) and (130, 72, 264), and on views at
-   an odd element offset (bfloat16 on the CUDA cores), for ``matmul`` and
-   ``matmul_accumulate``, the route printed beside each result and the
-   launches by route after; at 1024^3 the kernel's time beside the plain
+   shapes (130, 70, 260), (1, 128, 1) and (130, 72, 264), in float16 (the
+   CUDA cores) at the ragged ones, and on views at an odd element offset
+   (bfloat16 on the CUDA cores), for ``matmul`` and ``matmul_accumulate``,
+   the route printed beside each result and the launches by route after; at 1024^3 the kernel's time beside the plain
    version's, ``torch.matmul``'s (``torch.addmm``'s for the accumulate) as
    a yardstick the port never calls, and the card's bound;
 4. the chain kernels on the card: ``chain_ewise`` (``scan_step``) bit for
    bit against its plain version (a per-level PyTorch loop of ``a * y +
-   x``) in float32, bfloat16 and float64 over every layout of its two
-   exterior operands at 1024^2 x 64 levels and at the ragged (1000, 37);
+   x``) in float32, bfloat16 and float64 over every layout (the carry at
+   each of the three positions, the two exterior operands each single,
+   per level, constant or per-level constant) at 1024^2 x 64 levels and at
+   the ragged (1000, 37), and each layout's device time at 1024^2 x 64
+   float32 (a CUDA graph of back-to-back launches: the wrapper's host time
+   per call is above the kernel's);
    ``chain_dot`` (``gemm_tile``) at 1024^3 x 8 levels and the ragged
    (130, 70, 260) and (130, 72, 264), with per-level and shared ``a``/``b``,
    on the route per-level replay takes at every level, bit for bit
@@ -49,28 +53,30 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    launches) bit for bit against replay;
 4b. flash attention (``flash_attention``) against its plain version (the
    oracle on the padded inputs) at the reference's cases
-   (``tests/test_kernels.py``) in f32, again in bf16 at head dims 64 and
-   128 (the tensor-core route) with a case whose rows past Skv + window
-   see no key (exactly zero), bf16 cases with many key tiles per query
-   tile (``MID_ATTN``: causal, windowed, ragged, non-causal) at d 64,
-   128, 192 and 256, bf16 views at an odd 2-byte offset (the CUDA cores),
-   h2o-danube-1.8b's head dim 80 (bf16 on the
-   CUDA cores) and, through the entry point with every count zeroed just
-   before, at full width: RecurrentGemma-9B local attention (16 heads over
-   1, S 8192, D 256, window 2048) and Qwen3-14B (40 over 8, S 8192, D
-   128), causal, f32 and bf16; every call's counted route (the built
-   launcher's for the operands, which the wrapper holds against
-   ``ops.route``: f32 on the CUDA cores, bf16 with d % 64 == 0, d <= 256
-   and 16-byte-aligned operands on the tensor cores, other bf16 on the
-   CUDA cores) checked against ``ops.route`` of the inputs, every route
-   run; bf16 also against the float32 oracle to limits scaled to each
-   value (``bf16_attention_error``); the kernel's time beside its plain
+   (``tests/test_kernels.py``) in f32, again in f32 and bf16 at head dims
+   64 and 128 (the tensor-core routes) with a case whose rows past Skv +
+   window see no key (exactly zero), f32 and bf16 cases with many key
+   tiles per query tile (``MID_ATTN``: causal, windowed, ragged,
+   non-causal; f32 at d 64 and 128, bf16 at 64, 128, 192 and 256), bf16
+   and f32 views at an odd offset (the CUDA cores), float16 (the CUDA
+   cores), h2o-danube-1.8b's head dim 80 (bf16 on the CUDA cores) and,
+   through the entry point with every count zeroed just before, at full
+   width: RecurrentGemma-9B local attention (16 heads over 1, S 8192, D
+   256, window 2048) and Qwen3-14B (40 over 8, S 8192, D 128), causal, f32
+   and bf16; every call's counted route (the built launcher's for the
+   operands, which the wrapper holds against ``ops.route``) checked
+   against ``ops.route`` of the inputs, every route run; bf16 also
+   against the float32 oracle to limits scaled to each value
+   (``bf16_attention_error``); every ``f32_3xtf32`` output also against a
+   float64 computation, per head at full width: its largest error at most
+   ``TF32_VS_SIMT`` times the ``f32_simt`` route's on the same inputs
+   (run on copies at an odd offset); the kernel's time beside its plain
    version's, ``scaled_dot_product_attention``'s (a yardstick the port
    never calls, timed for every model and dtype) and its bound;
 4c. the linear scan (``linear_scan``) against its plain version (a
-   sequential f32 loop) at the reference's shapes and, through the entry
-   point, at RecurrentGemma-9B's RG-LRU width (1, 8192, 4096), f32 and
-   bf16; again in f32 with ``a`` in (0.999, 1], which keeps the carry
+   sequential f32 loop) at the reference's shapes (also in float16) and,
+   through the entry point, at RecurrentGemma-9B's RG-LRU width (1, 8192,
+   4096), f32 and bf16; again in f32 with ``a`` in (0.999, 1], which keeps the carry
    across chunks alive, against a float64 loop (no farther from it than
    the f32 plain loop); ``a = 0`` gives ``x`` exactly; times and bound;
 5. Listing 1 (``run_distributed_gemm``) at n=8192, ib=1024, float32, a
@@ -88,7 +94,13 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    card;
 8. Listing 1 and Strassen under ``backend="fused"`` and
    ``backend="threads"``, cold then warm: C bitwise equal to the serial
-   run's, the same transfer stream, 512 and 343 GEMM launches;
+   run's, the same transfer stream, 512 and 343 GEMM launches; then the
+   reference's bar for ``threads`` (``benchmarks/bench_dag_overhead.py``:
+   threads >= 0.9x serial) on both, as the best of five interleaved warm
+   rounds of each; the tensor bodies on operands their kernels do not
+   take (int32 and mixed-dtype ``gemm_tile`` and ``_t_gemm_acc``, 3-D and
+   float16 ``attn_step``): no kernel launch, the reference's body
+   expression's result;
    after each run of 4b-8, dropping the result must give back the device
    memory the run allocated (a finished workflow is freed by reference
    counting, not at the next cyclic garbage collection); after each warm
@@ -138,8 +150,11 @@ ATTN_CASES = ((1, 2, 2, 32, 32, 8, True, None),
 FULL_ATTN = {"RecurrentGemma-9B": (1, 16, 1, 8192, 256, 2048),
              "Qwen3-14B": (1, 40, 8, 8192, 128, None)}
 ODD_ATTN = ("h2o-danube-1.8b", (1, 32, 8, 1024, 80, 4096))
-# the reference's tolerances (tests/test_kernels.py): rtol = atol
-ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# the reference's tolerances (tests/test_kernels.py): rtol = atol; the
+# reference has none for float16: its output is rounded once to 11 bits
+# (2^-11 relative) from fp32 sums in another order than the plain
+# version's, and 1e-2 is twenty such roundings
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2, "float16": 1e-2}
 # bf16 cases with many key tiles per query tile, at every head dim the
 # tensor-core route takes: its ring refills and barrier phases, O
 # rescales, causal and window tile bounds, and ragged last tiles (Skv 1000
@@ -169,19 +184,27 @@ BF16_ROW_NRMS = 2.0 ** -6
 # bound for any block size, bf16 at the reference's
 SCAN_SHAPES = ((1, 16, 4), (2, 64, 8), (3, 100, 5), (1, 256, 16))
 FULL_SCAN = (1, 8192, 4096)
-SCAN_TOL = {"float32": 2e-5, "bfloat16": 4e-2}
+# float16 as float32 inside, rounded once to 11 bits: as ATTN_TOL's
+SCAN_TOL = {"float32": 2e-5, "bfloat16": 4e-2, "float16": 1e-2}
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
 # HBM 3.35 TB/s; float32 outside the tensor cores 67 TFLOP/s; bfloat16
 # tensor cores 989 TFLOP/s; float64 tensor cores 67 TFLOP/s.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float64": 67e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float64": 67e12,
+              "float16": 989e12, "tf32": 495e12}
+# f32_3xtf32 runs three TF32 products for every float32 one: its bound is
+# 3x the work at the TF32 rate, where f32_simt's is 1x at 67 TFLOP/s
+TF32_PRODUCTS = 3
+# f32_3xtf32's largest error against a float64 computation, at most this
+# many times f32_simt's on the same inputs
+TF32_VS_SIMT = 4.0
 # kernel vs plain version: (rtol, atol) per dtype.  float32 and bfloat16 are
 # the reference's GEMM contract (tests/test_kernels.py); the two versions sum
 # in different orders.  float64 sums of 1024 unit-variance products carry
 # errors near 1e-13.
 TOL = {"float32": (1e-4, 1e-3), "bfloat16": (2e-2, 2e-1),
-       "float64": (1e-10, 1e-9)}
+       "float64": (1e-10, 1e-9), "float16": (1e-2, 1e-2)}
 
 
 def fail(msg: str) -> None:
@@ -214,6 +237,55 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int = 20) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls captured in one CUDA
+    graph and replayed: back to back on the card, with no host time
+    between launches (for kernels that take less time than their
+    wrapper's host work per call)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (2 * iters)
+
+
+def attention64(torch, fa_ref, q, k, v, causal, window, heads=None):
+    """float64 attention of the query heads ``heads`` (all by default) of
+    ``q`` over ``k``, ``v`` (the port's ``flash_attention.ref`` masks):
+    the yardstick of the f32_3xtf32 route's accuracy."""
+    b, hq, sq, d = q.shape
+    group = hq // k.shape[1]
+    seen = fa_ref.mask(sq, k.shape[2], causal=causal, window=window,
+                       device=q.device)
+    any_seen = seen.any(dim=-1, keepdim=True)
+    heads = range(hq) if heads is None else heads
+    out = torch.empty((b, len(heads), sq, d), dtype=torch.float64,
+                      device=q.device)
+    for bi in range(b):
+        for i, h in enumerate(heads):
+            sc = (q[bi, h].double() @ k[bi, h // group].double().T
+                  ) * d ** -0.5
+            sc = torch.where(seen, sc, -1e300)
+            p = torch.where(any_seen, torch.softmax(sc, dim=-1), 0.0)
+            out[bi, i] = p @ v[bi, h // group].double()
+    return out
 
 
 def bf16_attention_error(got, exp32, v) -> dict:
@@ -338,6 +410,7 @@ def main() -> int:
     from repro_torch.kernels.linear_scan import ref as ls_ref
     from repro_torch.kernels.linear_scan import scan_step
     from repro_torch.linalg import Tiled, gemm_strassen
+    from repro_torch.linalg import tiles as tiles_ops
     from repro_torch.linalg.distributed import run_distributed_gemm
 
     # -- 1. environment ---------------------------------------------------------
@@ -363,10 +436,31 @@ def main() -> int:
           f"{time.perf_counter() - t0:.3f} s")
     for lib_path, log in built:
         print(f"[build] {lib_path.relative_to(ROOT)}")
+        # one line per kernel: its registers and spills (chain_ewise's 81
+        # per-layout kernels summed up in one line)
+        ewise = []
+        kernel_name = None
         for line in log.splitlines():
-            if ("registers" in line or "spill" in line
-                    or "error" in line.lower()):
+            if "error" in line.lower():
                 print(f"[build]   {line.strip()}")
+            if "Function properties for" in line:
+                kernel_name = line.split("for")[-1].strip()
+                spill = ""
+            elif "spill stores" in line and kernel_name:
+                spill = line.strip()
+            elif "registers" in line and kernel_name:
+                regs = line.split("Used")[1].split(",")[0].strip()
+                if "chain_ewise_kernel" in kernel_name:
+                    ewise.append((regs, spill))
+                else:
+                    print(f"[build]   {kernel_name[:110]}: {regs}, {spill}")
+                kernel_name = None
+        if ewise:
+            regs = sorted(int(r.split()[0]) for r, _ in ewise)
+            spilled = sum(not sp.startswith("0 bytes stack") for _, sp in ewise)
+            print(f"[build]   chain_ewise_kernel: {len(ewise)} per-layout "
+                  f"kernels, {regs[0]}-{regs[-1]} registers, {spilled} with "
+                  f"a stack frame or spills")
 
     # the tensor-core routes really issue tensor-core instructions: wgmma
     # is HGMMA in the SASS, the f64 MMA DMMA
@@ -376,6 +470,8 @@ def main() -> int:
                             (built[1][0], {"chain_dot_wgmma_kernel": "HGMMA",
                                            "chain_dot_dmma_kernel": "DMMA"}),
                             (built[2][0], {"flash_attention_wgmma_kernel":
+                                           "HGMMA",
+                                           "flash_attention_tf32_kernel":
                                            "HGMMA"})):
         sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                               capture_output=True, text=True, check=True,
@@ -479,6 +575,19 @@ def main() -> int:
             compare(f"matmul_accumulate ({m},{k},{n}) {dname} [{path}]",
                     ops.matmul_accumulate(c, a, b),
                     ref.matmul_accumulate(c, a, b), dname)
+    # float16 on the CUDA-core loop (fp32 inside, one rounding): the plain
+    # version sums in another order, so an output may round one fp16 ulp
+    # (2^-10 relative) apart; TOL["float16"] is ten of those
+    for m, k, n in ((130, 70, 260), (1, 128, 1), (130, 72, 264)):
+        a = rand((m, k), torch.float16)
+        b = rand((k, n), torch.float16)
+        c = rand((m, n), torch.float16)
+        path = gemm_route(a, b)
+        compare(f"matmul ({m},{k},{n}) float16 [{path}]", ops.matmul(a, b),
+                ref.matmul(a, b), "float16")
+        compare(f"matmul_accumulate ({m},{k},{n}) float16 [{path}]",
+                ops.matmul_accumulate(c, a, b),
+                ref.matmul_accumulate(c, a, b), "float16")
     # contiguous views one element into their storage: TMA cannot read them
     for dname, dt in dtypes.items():
         a = rand((IB * IB + 1,), dt)[1:].view(IB, IB)
@@ -530,29 +639,66 @@ def main() -> int:
         check(differ == 0, f"{name}: {differ} elements differ")
 
     kinds = ("single", "xs", "const", "xs_const")
+
+    def ewise_layouts():
+        # every layout chain/ops.py takes: the carry at each position, the
+        # other two in every kind (y and a not both constants)
+        for carry_pos in range(3):
+            for k1 in kinds:
+                for k2 in kinds:
+                    layout = [k1, k2]
+                    layout.insert(carry_pos, "single")
+                    if layout[0] == layout[1] == "const":
+                        continue
+                    yield tuple(layout), carry_pos
+
+    def ewise_args(layout, carry_pos, shape, L, dt):
+        # y and a bounded (|.| < 0.95) so that 64 levels stay finite, x
+        # unit normal; constants not exact in binary (they round)
+        out = []
+        for pos, lay in enumerate(layout):
+            small = pos < 2
+            if pos == carry_pos or lay == "single":
+                out.append(uniform(shape, dt) if small else rand(shape, dt))
+            elif lay == "xs":
+                out.append(uniform((L,) + shape, dt) if small
+                           else rand((L,) + shape, dt))
+            elif lay == "const":
+                out.append((0.1, -0.3, 0.7)[pos])
+            else:
+                out.append(torch.linspace(-0.9, 0.9, L, device=dev).to(dt))
+        return tuple(out)
+
     n_ewise = 0
     for dname, dt in dtypes.items():
         for shape in ((IB, IB), (1000, 37)):
             L = SCAN_LEVELS
-            exterior = {
-                "single": (uniform(shape, dt), rand(shape, dt)),
-                "xs": (uniform((L,) + shape, dt), rand((L,) + shape, dt)),
-                "const": (0.1, -0.3),   # not exact in binary: rounding
-                "xs_const": (torch.linspace(-0.9, 0.9, L, device=dev).to(dt),
-                             torch.linspace(-1.0, 1.0, L, device=dev).to(dt)),
-            }
-            y = rand(shape, dt)
-            for la in kinds:
-                for lx in kinds:
-                    layout = ("single", la, lx)
-                    args = (y, exterior[la][0], exterior[lx][1])
-                    same_bits(f"chain_ewise {shape} {dname} {layout}",
-                              chain_ops.chain_ewise(layout, 0, L, *args),
-                              chain_ref.chain_ewise(layout, 0, L, *args))
-                    n_ewise += 1
+            for layout, carry_pos in ewise_layouts():
+                args = ewise_args(layout, carry_pos, shape, L, dt)
+                same_bits(f"chain_ewise {shape} {dname} {layout} carry "
+                          f"{carry_pos}",
+                          chain_ops.chain_ewise(layout, carry_pos, L, *args),
+                          chain_ref.chain_ewise(layout, carry_pos, L, *args))
+                n_ewise += 1
+    n_layouts = len(list(ewise_layouts()))
     print(f"[chain] chain_ewise: {n_ewise} cases (f32/bf16/f64 x (1024,1024) "
-          f"and (1000,37) x 16 layouts, {SCAN_LEVELS} levels) bitwise equal "
-          f"to the plain version: ok")
+          f"and (1000,37) x {n_layouts} layouts, {SCAN_LEVELS} levels) "
+          f"bitwise equal to the plain version: ok")
+    # each layout's kernel (chain_kernel.ewise_instantiation) and its
+    # device time at the main path's shape
+    for layout, carry_pos in ewise_layouts():
+        args = ewise_args(layout, carry_pos, (IB, IB), SCAN_LEVELS,
+                          torch.float32)
+        ms = graph_ms(torch, lambda: chain_ops.chain_ewise(
+            layout, carry_pos, SCAN_LEVELS, *args))
+        moved = sum(a.numel() for a in args if isinstance(a, torch.Tensor))
+        nbytes = (moved + IB * IB) * 4
+        bnd, by = bound_ms(nbytes, 2 * SCAN_LEVELS * IB * IB, "float32")
+        print(f"[chain] chain_ewise {IB}^2 x {SCAN_LEVELS} float32 {layout} "
+              f"carry {carry_pos} (kernel "
+              f"{chain_kernel.ewise_instantiation(layout, carry_pos)}): "
+              f"{ms:.4f} ms device time, bound {bnd:.4f} ms ({by})")
+        del args
     for dname, dt in dtypes.items():
         for m, k, n, L in ((IB, IB, IB, DOT_LEVELS), (130, 70, 260, 3),
                            (130, 72, 264, 3)):
@@ -602,14 +748,17 @@ def main() -> int:
         exp = chain_ref.chain_ewise(layout, 0, L, y, 0.5, xv)
         same_bits(f"chain_ewise {IB}^2 x {L} float32 {label}", got, exp)
         err = (got.double() - exp.double()).abs().max().item()
-        ms = time_ms(torch, lambda: chain_ops.chain_ewise(layout, 0, L, y,
-                                                          0.5, xv))
+        ms = graph_ms(torch, lambda: chain_ops.chain_ewise(layout, 0, L, y,
+                                                           0.5, xv))
+        host = time_ms(torch, lambda: chain_ops.chain_ewise(layout, 0, L, y,
+                                                            0.5, xv))
         plain = time_ms(torch, lambda: chain_ref.chain_ewise(layout, 0, L, y,
                                                              0.5, xv))
         nbytes = (2 * y.numel() + xv.numel()) * y.element_size()
         bnd, by = bound_ms(nbytes, 2 * L * y.numel(), "float32")
         print(f"[chain] chain_ewise {IB}^2 x {L} levels float32, {label}: "
-              f"kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), plain "
+              f"kernel {ms:.4f} ms device time ({nbytes / ms / 1e6:.1f} "
+              f"GB/s), wrapper calls back to back {host:.4f} ms, plain "
               f"{plain:.4f} ms, max_abs_err {err:.3e}, no single-call "
               f"library counterpart, bound {bnd:.4f} ms ({by}, "
               f"{nbytes / 1e6:.1f} MB)")
@@ -648,9 +797,12 @@ def main() -> int:
             bound_by=by, library_ms=lib, gemm_route=path)
         del got, exp, c, A, B, A_cat, B_cat
     print(f"[chain] chain_dot launches by route: {dict(chain_ops.chain_dot.routes)}")
-    check(set(chain_ops.chain_dot.routes) == set(ops.ROUTES),
+    # every GEMM route but float16's: there is no float16 chain kernel (a
+    # float16 gemm_tile chain replays level by level through the GEMM)
+    dot_routes = set(ops.ROUTES) - {"f16_simt"}
+    check(set(chain_ops.chain_dot.routes) == dot_routes,
           f"chain_dot: routes run {sorted(chain_ops.chain_dot.routes)}, "
-          f"expected every one of {ops.ROUTES}")
+          f"expected every one of {sorted(dot_routes)}")
     del y, x, xs
 
     def attn_operands(layout, m, n, d, dv, L, dt):
@@ -827,6 +979,50 @@ def main() -> int:
                   f"{stats}")
         return err
 
+    def odd_offset(t):
+        """A copy of ``t`` one element into its storage: the same values,
+        an address no 16-byte-aligned route can read."""
+        view = torch.empty(t.numel() + 1, dtype=t.dtype,
+                           device=t.device)[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    tf32_ratios = []
+
+    def tf32_accuracy(name, got, q, k, v, causal, window, blk):
+        """f32_3xtf32's ``got`` against float64, beside f32_simt's error on
+        the same padded values (copies at an odd offset take f32_simt), per
+        slice of at most 8 heads: at most TF32_VS_SIMT times it."""
+        padded = fa_ops.pad(q, k, v, causal=causal, window=window, bq=blk,
+                            bkv=blk)
+        copies = [odd_offset(t) for t in padded]
+        check(fa_ops.route(torch.float32, q.shape[3],
+                           [t.data_ptr() for t in copies]) == "f32_simt",
+              f"{name}: the odd-offset copies do not take f32_simt")
+        sq, hq = q.shape[2], q.shape[1]
+        # padded already: bq, bkv at the padded lengths pad nothing more
+        simt = fa_ops.flash_attention(*copies, causal=causal, window=window,
+                                      bq=copies[0].shape[2],
+                                      bkv=copies[1].shape[2])[:, :, :sq]
+        del copies
+        err, base, ratio = 0.0, 0.0, 0.0
+        for h0 in range(0, hq, 8):
+            heads = range(h0, min(hq, h0 + 8))
+            exp = attention64(torch, fa_ref, *padded, causal, window,
+                              heads)[:, :, :sq]
+            e = (got[:, h0:h0 + 8].double() - exp).abs().max().item()
+            b = (simt[:, h0:h0 + 8].double() - exp).abs().max().item()
+            check(e <= TF32_VS_SIMT * b,
+                  f"{name} heads {h0}-{heads[-1]}: {e:.3e} from float64, "
+                  f"{e / max(b, 1e-30):.2f} x f32_simt's {b:.3e} (limit "
+                  f"{TF32_VS_SIMT})")
+            if e / max(b, 1e-30) >= ratio:
+                err, base, ratio = e, b, e / max(b, 1e-30)
+            del exp
+        tf32_ratios.append(ratio)
+        print(f"[attn]   against float64: {err:.3e}, f32_simt {base:.3e} on "
+              f"the same inputs ({ratio:.2f} x, limit {TF32_VS_SIMT})")
+
     def attn_run(q, k, v, *, causal, window, bq=512, bkv=512):
         """``flash_attention`` through its entry point: one launch, counted
         on the route ``ops.route`` gives q, k and v.  (The wrapper asks the
@@ -846,34 +1042,45 @@ def main() -> int:
               f"route {counted}, expected one on {want}")
         return out, want
 
-    print(f"[attn] route rule: {fa_ops.ROUTES[0]} for float32; "
-          f"{fa_ops.ROUTES[2]} for bfloat16 with d % 64 == 0, d <= 256 and "
-          f"q, k, v, out 16-byte aligned; {fa_ops.ROUTES[1]} for any other "
-          f"bfloat16")
+    print(f"[attn] route rule: f32_3xtf32 for float32 with d % 32 == 0, d "
+          f"<= 128 and q, k, v, out 16-byte aligned, f32_simt for any other "
+          f"float32; bf16_wgmma for bfloat16 with d % 64 == 0, d <= 256 and "
+          f"the operands 16-byte aligned, bf16_simt for any other bfloat16; "
+          f"f16_simt for float16")
     small = [("", case, 16, "float32") for case in ATTN_CASES]
     small.append(("", (1, 4, 2, 64, 64, 16, True, None), 32, "bfloat16"))
-    # the reference's cases again in bf16 at head dims the tensor cores
-    # take, and rows past Skv + window that see no key
+    small.append(("", (1, 4, 2, 64, 64, 16, True, None), 32, "float16"))
+    small.append((" mid", MID_ATTN[1][:5] + (64,) + MID_ATTN[1][5:7],
+                  MID_ATTN[1][7], "float16"))
+    # the reference's cases again at head dims the tensor cores take, and
+    # rows past Skv + window that see no key
     for d in (64, 128):
-        small += [("", case[:5] + (d,) + case[6:], 16, "bfloat16")
-                  for case in ATTN_CASES]
-        small.append(("", (1, 2, 2, 64, 32, d, True, 8), 16, "bfloat16"))
+        for dname in ("float32", "bfloat16"):
+            small += [("", case[:5] + (d,) + case[6:], 16, dname)
+                      for case in ATTN_CASES]
+            small.append(("", (1, 2, 2, 64, 32, d, True, 8), 16, dname))
     # many key tiles per query tile, at every head dim of the tensor cores
     for d in MID_HEAD_DIMS:
-        small += [(" mid", (b, hq, hkv, sq, skv, d, causal, window), blk,
-                   "bfloat16")
-                  for b, hq, hkv, sq, skv, causal, window, blk in MID_ATTN]
+        for dname in ("float32", "bfloat16"):
+            if dname == "float32" and fa_ops.route(
+                    torch.float32, d) != "f32_3xtf32":
+                continue
+            small += [(" mid", (b, hq, hkv, sq, skv, d, causal, window), blk,
+                       dname)
+                      for b, hq, hkv, sq, skv, causal, window, blk in MID_ATTN]
     odd_model, (b, hq, hkv, s, d, window) = ODD_ATTN
     small.append((f" {odd_model}", (b, hq, hkv, s, s, d, True, window), 512,
                   "bfloat16"))
     fa_ops.flash_attention.routes = {}
     for model, (b, hq, hkv, sq, skv, d, causal, window), blk, dname in small:
-        q, k, v = attn_inputs(b, hq, hkv, sq, skv, d, dtypes[dname])
+        q, k, v = attn_inputs(b, hq, hkv, sq, skv, d, getattr(torch, dname))
         got, path = attn_run(q, k, v, causal=causal, window=window, bq=blk,
                              bkv=blk)
-        attn_compare(f"flash_attention{model} {(b, hq, hkv, sq, skv, d)} "
-                     f"causal {causal} window {window} {dname} [{path}]",
-                     got, q, k, v, causal, window, blk, dname)
+        name = (f"flash_attention{model} {(b, hq, hkv, sq, skv, d)} causal "
+                f"{causal} window {window} {dname} [{path}]")
+        attn_compare(name, got, q, k, v, causal, window, blk, dname)
+        if path == "f32_3xtf32":
+            tf32_accuracy(name, got, q, k, v, causal, window, blk)
         seen = fa_ref.mask(sq, skv, causal=causal, window=window, device=dev)
         blind = ~seen.any(dim=-1)
         if blind.any():
@@ -894,7 +1101,19 @@ def main() -> int:
     attn_compare(f"flash_attention (1, 2, 2, 256, 256, 128) causal True "
                  f"bfloat16, views at an odd 2-byte offset [{path}]", got, q,
                  k, v, True, None, 256, "bfloat16")
+    # and float32 views one element (4 bytes) in: the 3xTF32 loop's 16-byte
+    # loads cannot read them, so they take the CUDA cores
+    q, k, v = (odd_offset(rand(shape, torch.float32)) for _ in range(3))
+    got, path = attn_run(q, k, v, causal=True, window=None, bq=256, bkv=256)
+    check(path == "f32_simt", f"flash attention on float32 views at an odd "
+          f"offset took {path}, expected f32_simt")
+    attn_compare(f"flash_attention (1, 2, 2, 256, 256, 128) causal True "
+                 f"float32, views at an odd 4-byte offset [{path}]", got, q,
+                 k, v, True, None, 256, "float32")
     del q, k, v, got
+    print(f"[attn] f32_3xtf32 against float64: at most "
+          f"{max(tf32_ratios):.2f} x f32_simt's error over "
+          f"{len(tf32_ratios)} cases (limit {TF32_VS_SIMT})")
     print(f"[attn] launches by route: {fa_ops.flash_attention.routes}")
     check(set(fa_ops.flash_attention.routes) == set(fa_ops.ROUTES),
           f"flash attention: routes run "
@@ -926,13 +1145,15 @@ def main() -> int:
             wall = time.perf_counter() - t0
             path_counts[label] = counts()
             only(label, path_counts[label], "flash_attention", 1)
-            want = "f32_simt" if dname == "float32" else "bf16_wgmma"
+            want = fa_ops.route(dt, d, [t.data_ptr() for t in (q, k, v)])
             check(fa_ops.flash_attention.routes == {want: 1},
                   f"{label}: routes {fa_ops.flash_attention.routes}, "
                   f"expected {want}")
-            err = attn_compare(f"{label} (1, {hq}, {hkv}, {s}, {s}, {d}) "
-                               f"window {window} [{path}]", got, q, k, v,
-                               True, window, 512, dname)
+            name = (f"{label} (1, {hq}, {hkv}, {s}, {s}, {d}) window "
+                    f"{window} [{path}]")
+            err = attn_compare(name, got, q, k, v, True, window, 512, dname)
+            if path == "f32_3xtf32":
+                tf32_accuracy(name, got, q, k, v, True, window, 512)
             del got
             ms = time_ms(torch, run, iters=5, warmup=1)
             plain = time_ms(torch, lambda q=q, k=k, v=v, window=window:
@@ -954,7 +1175,15 @@ def main() -> int:
                 del seen
             flops = 4 * b * hq * d * visible_pairs(s, window)
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-            bnd, by = bound_ms(nbytes, flops, dname)
+            if path == "f32_3xtf32":
+                bnd, by = bound_ms(nbytes, TF32_PRODUCTS * flops, "tf32")
+                simt_bnd, _ = bound_ms(nbytes, flops, "float32")
+                print(f"[attn] {label}: bound {bnd:.4f} ms at three TF32 "
+                      f"products ({TF32_PRODUCTS} x {flops:.3e} FLOP at "
+                      f"{PEAK_FLOPS['tf32'] / 1e12:.0f} TFLOP/s); on the "
+                      f"CUDA cores it would be {simt_bnd:.4f} ms")
+            else:
+                bnd, by = bound_ms(nbytes, flops, dname)
             print(f"[attn] {label} [{path}]: first call {wall * 1e3:.3f} ms "
                   f"wall; kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s), "
                   f"plain {plain:.3f} ms, scaled_dot_product_attention "
@@ -967,6 +1196,10 @@ def main() -> int:
                 device_profile(torch, label, run, warm_wall(run),
                                {"flash_attention_kernel": 1,
                                 "flash_attention_wgmma_kernel": 0})
+            if (model, dname) == ("Qwen3-14B", "float32"):
+                device_profile(torch, label, run, warm_wall(run),
+                               {"flash_attention_tf32_kernel": 1,
+                                "flash_attention_kernel": 0})
             if (model, dname) == ("Qwen3-14B", "bfloat16"):
                 device_profile(torch, label, run, warm_wall(run),
                                {"flash_attention_wgmma_kernel": 1,
@@ -994,6 +1227,11 @@ def main() -> int:
             torch.cuda.synchronize()
             check(torch.equal(zero, x), f"linear_scan {shape} {dname}: "
                   f"a = 0 does not give x")
+    for shape in SCAN_SHAPES:
+        a, x = decay(shape, torch.float16), rand(shape, torch.float16)
+        scan_compare(f"linear_scan {shape} bs 32 float16",
+                     ls_ops.linear_scan(a, x, bs=32),
+                     ls_ref.linear_scan(a, x), "float16")
     print("[scan] a = 0 gives x exactly at every shape: ok")
     # a in (0.999, 1] keeps a chunk's carry alive (0.999^128 ≈ 0.88); the
     # reference's range forgets it within a chunk (0.6^128 ≈ 1e-28), so
@@ -1264,6 +1502,75 @@ def main() -> int:
                                   {"gemm_simt_kernel": want})
             print(f"[{label}] walls cold {walls['cold']:.4f} s warm "
                   f"{walls['warm']:.4f} s, busy {busy:.1f}%")
+    # the reference's bar (benchmarks/bench_dag_overhead.py): threads at
+    # least 0.9x serial, held on CUDA tiles.  Host walls vary by +-20%
+    # from run to run, so each side's best of five interleaved warm rounds
+    for path, (run, wrapper, want, tol) in paths.items():
+        best = {"serial": float("inf"), "threads": float("inf")}
+        delegated = 0
+        for _ in range(5):
+            for backend in ("serial", "threads"):
+                ex_backend = bind.get_backend(backend)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                result = run(ex_backend)
+                torch.cuda.synchronize()
+                best[backend] = min(best[backend], time.perf_counter() - t0)
+                if backend == "threads":
+                    delegated += ex_backend.plans_delegated
+                del result
+        ratio = best["serial"] / best["threads"]
+        print(f"[threads] {path}: best of 5 interleaved warm walls serial "
+              f"{best['serial']:.4f} s, threads {best['threads']:.4f} s "
+              f"({ratio:.3f} x serial's speed, bar 0.9), plans delegated to "
+              f"serial {delegated} of 5")
+        check(ratio >= 0.9, f"{path}: threads at {ratio:.3f} x serial, "
+              f"below the reference's 0.9")
+
+    # -- 8b. tensor bodies on operands their kernels do not take ------------
+    gi = torch.randint(-9, 9, (64, 64), generator=gen, device=dev,
+                       dtype=torch.int32)
+    gi = (gi, gi.flip(0).contiguous(), gi.flip(1).contiguous())
+    # exact in int64 on the host (the card has no integer matrix product)
+    exact = (gi[0].cpu().long() + gi[1].cpu().long() @ gi[2].cpu().long()
+             ).to(torch.int32).to(dev)
+    mixed = (rand((64, 64), torch.float32), rand((64, 64), torch.float16),
+             rand((64, 64), torch.float16))
+    mixed_exp = mixed[0] + (mixed[1] @ mixed[2])
+    o3, q3 = rand((2, 64, 32), torch.float32), rand((2, 64, 16),
+                                                    torch.float32)
+    k2, v2 = rand((48, 16), torch.float32), rand((48, 32), torch.float32)
+    half = tuple(t.to(torch.float16) for t in (o3[0], q3[0], k2, v2))
+
+    def step_expr(o, q, k, v):
+        # the reference's attn_step body, written out
+        sc = torch.softmax((q @ k.T) * (1.0 / float(q.shape[-1]) ** 0.5), -1)
+        return o + sc @ v
+
+    bodies = (("gemm_tile int32", gemm_tile, gi, exact, 0.0),
+              ("_t_gemm_acc int32", tiles_ops._t_gemm_acc, gi, exact, 0.0),
+              ("gemm_tile f32 c, f16 a b", gemm_tile, mixed, mixed_exp,
+               1e-6),
+              ("attn_step 3-D o, q", attn_step, (o3, q3, k2, v2),
+               step_expr(o3, q3, k2, v2), 1e-6),
+              ("attn_step float16", attn_step, half, step_expr(*half), 1e-3))
+    for label, body, args, exp, tol in bodies:
+        zero_counts()
+        got = body(*args)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in counts().items() if v}
+        check(not launched, f"{label}: kernel launches {launched}")
+        check(got.dtype == exp.dtype and got.shape == exp.shape
+              and got.device == exp.device,
+              f"{label}: {got.dtype}{tuple(got.shape)} on {got.device}, "
+              f"expected {exp.dtype}{tuple(exp.shape)} on {exp.device}")
+        err = (got.double() - exp.double()).abs().max().item()
+        check(err <= tol * max(1.0, exp.double().abs().max().item()),
+              f"{label}: max_abs_err {err:.3e}")
+        print(f"[bodies] {label} on the card: no kernel launch, "
+              f"{got.dtype}{tuple(got.shape)}, max_abs_err {err:.3e} against "
+              f"the reference's body expression: ok")
+    del gi, exact, mixed, mixed_exp, o3, q3, k2, v2, half
     print(f"[memory] peak allocated "
           f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB")
 
@@ -1274,6 +1581,7 @@ def main() -> int:
     chain_replaces = "src/repro/core/executable_cache.py:242"
     attn_label = "flash_attention RecurrentGemma-9B float32"
     attn_bf16_label = "flash_attention Qwen3-14B bfloat16"
+    attn_f32_label = "flash_attention Qwen3-14B float32"
     scan_label = f"linear_scan RG-LRU {FULL_SCAN} float32"
     rows = (
         ("gemm.matmul", gemm_source, gemm_replaces,
@@ -1300,6 +1608,11 @@ def main() -> int:
          "src/repro/kernels/flash_attention/kernel.py:100",
          path_counts[attn_bf16_label]["flash_attention"],
          attn_times[("Qwen3-14B", "bfloat16")]),
+        ("flash_attention.f32",
+         "src/repro_torch/kernels/flash_attention/csrc/attn_tf32.cuh",
+         "src/repro/kernels/flash_attention/kernel.py:100",
+         path_counts[attn_f32_label]["flash_attention"],
+         attn_times[("Qwen3-14B", "float32")]),
         ("linear_scan",
          "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
          "src/repro/kernels/linear_scan/kernel.py:50",

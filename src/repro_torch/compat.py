@@ -8,6 +8,14 @@ and back.  NumPy has no bfloat16 of its own: arrays whose dtype is named
 a bfloat16 tensor comes back as float32, which holds every bfloat16 value
 exactly.  A lazy fused-batch row (``core.backends.base.BatchSlice``) comes
 back as its row's values.
+
+``jax_operands`` and ``jax_matmul`` evaluate a reference op body's own
+expression where the port's kernel does not take the operands: the
+reference hands NumPy operands to jax, which (64-bit types off) makes a
+32-bit array of them, and promotes mixed dtypes in a matrix product.  A
+``jax.Array`` maps to a ``torch.Tensor``: NumPy operands become tensors on
+the device of the body's first tensor operand, or on the CPU when there is
+none (a NumPy workflow stays on the host).
 """
 
 from __future__ import annotations
@@ -76,6 +84,40 @@ def to_torch(payload: Any, device="cpu") -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
+# what jax makes of a NumPy operand with 64-bit types off (the reference's
+# setting): the 32-bit type of the same kind
+_JAX_CANONICAL = {torch.float64: torch.float32, torch.int64: torch.int32,
+                  torch.complex128: torch.complex64}
+
+
+def jax_operands(*operands) -> list:
+    """``operands`` as the reference's jax expression sees them: tensors as
+    they are, NumPy arrays as tensors of jax's canonical dtype on the
+    device of the first tensor among ``operands`` (the CPU when there is
+    none); other values (Python scalars) unchanged."""
+    device = next((x.device for x in operands
+                   if isinstance(x, torch.Tensor)), torch.device("cpu"))
+    out = []
+    for x in operands:
+        if isinstance(x, np.ndarray):
+            t = to_torch(x, device)
+            x = t.to(_JAX_CANONICAL.get(t.dtype, t.dtype))
+        out.append(x)
+    return out
+
+
+def jax_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as jax computes it: both operands promoted to one dtype
+    first.  The card has no integer matrix product, so there an integer
+    one is summed from the broadcast products in the operands' type,
+    wrapping on overflow as jax's does."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    a, b = a.to(dt), b.to(dt)
+    if a.is_cuda and not (dt.is_floating_point or dt.is_complex):
+        return (a.unsqueeze(-1) * b.unsqueeze(-3)).sum(-2, dtype=dt)
+    return a @ b
+
+
 def to_numpy(tensor: Any) -> np.ndarray:
     """A host NumPy array with ``tensor``'s values (see module doc for bf16)."""
     from repro_torch.core.backends.base import BatchSlice
@@ -90,5 +132,6 @@ def to_numpy(tensor: Any) -> np.ndarray:
     return t.numpy()
 
 
-__all__ = ["NP_TO_TORCH", "TORCH_TO_NP", "cuda_available", "numpy_dtype",
-           "to_numpy", "to_torch", "torch_dtype"]
+__all__ = ["NP_TO_TORCH", "TORCH_TO_NP", "cuda_available", "jax_matmul",
+           "jax_operands", "numpy_dtype", "to_numpy", "to_torch",
+           "torch_dtype"]

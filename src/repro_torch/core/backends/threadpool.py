@@ -36,6 +36,15 @@ threshold, the whole plan delegates to the serial backend's tight loop
 still pays ~20% over serial's locals-mirrored hot path, which is exactly
 the width-32 bench regression this closes.
 
+A body whose operands lie on the card is priced by its host cost alone:
+it only enqueues kernels, which the card runs in order on one stream, so
+a future can overlap nothing but the enqueue itself and costs more than
+it.  Such an op counts no work (:func:`_on_card`; an op that writes a
+version from card operands passes that on to the versions' readers), so
+its levels run inline, and a plan whose operands all lie on the card
+delegates to the serial backend.  On NumPy and CPU-tensor payloads the
+pricing, and every counter, is the reference's.
+
 The fault-injection hooks of the reference wait for ROADMAP Queue 1
 Slice 4.
 """
@@ -46,6 +55,8 @@ import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
+
+import torch
 
 from .base import Backend, apply_ships, commit, gather_args, resolve_call
 from .serial import SerialPlanBackend
@@ -97,6 +108,17 @@ def threshold_from_topology(topology) -> Optional[int]:
     if fps <= 0:
         return None
     return int(fps * _FUTURE_COST_S * _BREAK_EVEN_MULTIPLE)
+
+
+def _on_card(payload) -> bool:
+    """True for a payload whose op bodies only enqueue work on the card."""
+    return isinstance(payload, torch.Tensor) and payload.is_cuda
+
+
+def _payload(ex, key):
+    """The payload of a materialised version key, or ``None``."""
+    ranks = ex._where.get(key)
+    return ex._stores[next(iter(ranks))][key] if ranks else None
 
 
 class ThreadPoolBackend(Backend):
@@ -156,24 +178,33 @@ class ThreadPoolBackend(Backend):
         ops = wf.ops
         key_bytes = ex._key_bytes
         est: dict = {}
+        on_card: set = set()    # versions an op on card operands writes
         for lo, hi in plan.levels:
             wide = hi - lo > 1
             for idx in range(lo, hi):
                 p = plan.schedule[idx]
                 work = ops[p.op_id].flops or 0
                 widest = 0
+                card = False
                 for k in p.arg_keys:
                     if k is not None:
                         nb = key_bytes.get(k)
                         if nb is None:
                             nb = est.get(k, 0)
+                            card = card or k in on_card
+                        else:
+                            card = card or _on_card(_payload(ex, k))
                         work += nb
                         if nb > widest:
                             widest = nb
+                if card:
+                    work = 0        # the host only enqueues (module doc)
                 if wide and work >= threshold:
                     return False
                 for wk in p.write_keys:
                     est[wk] = widest
+                    if card:
+                        on_card.add(wk)
         return True
 
     def _below_threshold(self, ex, ops, schedule, lo: int, hi: int) -> bool:
@@ -181,8 +212,9 @@ class ThreadPoolBackend(Backend):
 
         Work estimate per op: ``OpNode.flops`` when the lowering annotated
         it, plus the summed nbytes of version-key arguments (elementwise
-        bodies touch each input byte about once).  The *widest* op decides:
-        one heavy body is enough to make overlap worth the pool.
+        bodies touch each input byte about once); none for an op with an
+        operand on the card (module doc).  The *widest* op decides: one
+        heavy body is enough to make overlap worth the pool.
         """
         threshold = self._threshold
         if threshold <= 0:
@@ -193,6 +225,9 @@ class ThreadPoolBackend(Backend):
             work = ops[p.op_id].flops or 0
             for k in p.arg_keys:
                 if k is not None:
+                    if _on_card(_payload(ex, k)):
+                        work = 0
+                        break
                     work += key_bytes.get(k, 0)
             if work >= threshold:
                 return False

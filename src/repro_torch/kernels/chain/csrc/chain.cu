@@ -27,6 +27,22 @@
 //     Bound on an H100: bytes.  It does 2 operations per element and
 //     level; at 1024^2 f32 over 64 levels it moves 12.6 MB with a single x
 //     (3.8 us at 3.35 TB/s) and 276.8 MB with a per-level x (82.6 us).
+//     What held it back was instruction issue, not bytes: a switch on each
+//     operand's kind for every element and level, about 30 instructions
+//     where the body needs 2 (4 in bf16), and no xs load issued before the
+//     level that uses it.  So there is one kernel per layout: the class of
+//     each position (the carry, a value held from before the loop, a
+//     per-level tensor, a per-level scalar) is a template argument, chosen
+//     on the host (27 layouts a dtype: the carry at one of three positions,
+//     the other two each in one of three classes; "single" and "const"
+//     share a class, both loaded once).  A thread takes 16 / sizeof(T)
+//     neighbouring elements with 16-byte loads when every tensor is
+//     16-byte aligned and n is a multiple of that, one element otherwise;
+//     the levels run in groups of 8 whose xs loads all go out before the
+//     group's dependent chain, and the grid is at most what the card holds
+//     resident (2048 threads on each SM), so a per-level x streams with 8
+//     loads a thread in flight.  The rounding sequence is the one above,
+//     element by element and level by level, whatever the grouping.
 //
 //   * chain_dot, for kernels/gemm/ops.py gemm_tile (c <- c + a @ b): the
 //     hand-written GEMM with a level loop outside its K loop.  It takes the
@@ -109,7 +125,17 @@ constexpr int XS = 2;
 constexpr int CONST = 3;
 constexpr int XS_CONST = 4;
 
+// what the level loop does with an operand, a template argument per
+// position: the carry itself, a value held from before the loop (a SINGLE
+// tensor or a CONST scalar), a per-level tensor (XS) or a per-level scalar
+// (XS_CONST).  kernel.py EWISE_CLASS maps each kind to its class.
+constexpr int C_CARRY = 0;
+constexpr int C_HELD = 1;
+constexpr int C_XS = 2;
+constexpr int C_XS_CONST = 3;
+
 constexpr int EWISE_THREADS = 256;
+constexpr int EWISE_UNROLL = 8;      // levels whose xs loads go out together
 
 // the math type of one eager operator: float for f32 and bf16, double for
 // f64 (the GEMM's accumulator type)
@@ -150,50 +176,220 @@ struct Operand {
   double scalar;
 };
 
-// the operand's value at ``level``; SINGLE and CONST were loaded once
-template <typename T>
-__device__ __forceinline__ Math<T> load_level(const Operand& o, Math<T> carry,
-                                              Math<T> held, int64_t e,
-                                              int64_t n, int64_t level) {
-  switch (o.kind) {
-    case CARRY: return carry;
-    case XS: return to_acc(static_cast<const T*>(o.ptr)[level * n + e]);
-    case XS_CONST: return to_acc(static_cast<const T*>(o.ptr)[level]);
-    default: return held;
+// W elements of a tensor from element e on, in the math type: one 16-byte
+// load when W > 1 (the launcher checked the alignment)
+template <typename T, int W>
+__device__ __forceinline__ void load_w(const T* p, int64_t e,
+                                       Math<T> (&dst)[W]) {
+  if constexpr (W == 1) {
+    dst[0] = to_acc(p[e]);
+  } else {
+    static_assert(W * sizeof(T) == 16, "one 16-byte chunk");
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p + e));
+    const T* t = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int w = 0; w < W; ++w) dst[w] = to_acc(t[w]);
   }
 }
 
-// the operand's value before the first level (the carry's initial value)
-template <typename T>
-__device__ __forceinline__ Math<T> load_once(const Operand& o, int64_t e) {
-  if (o.kind == SINGLE || o.kind == CARRY)
-    return to_acc(static_cast<const T*>(o.ptr)[e]);
-  if (o.kind == CONST) return scalar_to(o.scalar, Math<T>());
-  return Math<T>(0);
+// the values of an operand of class C held before the level loop (the
+// carry's initial value for C_CARRY)
+template <typename T, int C, int W>
+__device__ __forceinline__ void load_held(const Operand& o, int64_t e,
+                                          Math<T> (&dst)[W]) {
+  if constexpr (C == C_CARRY || C == C_HELD) {
+    if (C == C_HELD && o.kind == CONST) {
+#pragma unroll
+      for (int w = 0; w < W; ++w) dst[w] = scalar_to(o.scalar, Math<T>());
+    } else {
+      load_w<T, W>(static_cast<const T*>(o.ptr), e, dst);
+    }
+  }
 }
 
-// out = scan_step applied n_levels times: v <- o1 * o0 + o2, where the
-// operand of kind CARRY is v itself
-template <typename T>
+// the per-level values of an operand of class C for levels l .. l + U - 1
+// (those before n_levels): xs loads issued ahead of the chain they feed
+template <typename T, int C, int W, int U>
+__device__ __forceinline__ void load_levels(const Operand& o, int64_t e,
+                                            int64_t n, int64_t l,
+                                            int64_t n_levels,
+                                            Math<T> (&dst)[U][W]) {
+  if constexpr (C == C_XS) {
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (l + u < n_levels)
+        load_w<T, W>(static_cast<const T*>(o.ptr) + (l + u) * n, e, dst[u]);
+  } else if constexpr (C == C_XS_CONST) {
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (l + u < n_levels) {
+        const Math<T> x = to_acc(static_cast<const T*>(o.ptr)[l + u]);
+#pragma unroll
+        for (int w = 0; w < W; ++w) dst[u][w] = x;
+      }
+  }
+}
+
+// the operand's value at level l + u for element w
+template <int C, typename M, int W, int U>
+__device__ __forceinline__ M value(M carry, const M (&held)[W],
+                                   const M (&lv)[U][W], int u, int w) {
+  if constexpr (C == C_CARRY) return carry;
+  else if constexpr (C == C_HELD) return held[w];
+  else return lv[u][w];
+}
+
+// W elements of the chain from element e on: v <- o1 * o0 + o2 (scan_step
+// y <- a * y + x) n_levels times, where the operand of class C_CARRY is v
+template <typename T, int C0, int C1, int C2, int W>
+__device__ __forceinline__ void ewise_run(T* __restrict__ out,
+                                          const Operand& o0,
+                                          const Operand& o1,
+                                          const Operand& o2, int64_t e,
+                                          int64_t n, int64_t n_levels) {
+  using M = Math<T>;
+  constexpr int U = EWISE_UNROLL;
+  M h0[W], h1[W], h2[W];
+  load_held<T, C0, W>(o0, e, h0);
+  load_held<T, C1, W>(o1, e, h1);
+  load_held<T, C2, W>(o2, e, h2);
+  M v[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w)
+    v[w] = C0 == C_CARRY ? h0[w] : (C1 == C_CARRY ? h1[w] : h2[w]);
+  for (int64_t l = 0; l < n_levels; l += U) {
+    M x0[U][W], x1[U][W], x2[U][W];
+    load_levels<T, C0, W, U>(o0, e, n, l, n_levels, x0);
+    load_levels<T, C1, W, U>(o1, e, n, l, n_levels, x1);
+    load_levels<T, C2, W, U>(o2, e, n, l, n_levels, x2);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (l + u < n_levels) {
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          const M y = value<C0>(v[w], h0, x0, u, w);
+          const M a = value<C1>(v[w], h1, x1, u, w);
+          const M x = value<C2>(v[w], h2, x2, u, w);
+          v[w] = round_to<T>(add_rn(round_to<T>(mul_rn(a, y)), x));
+        }
+      }
+    }
+  }
+  if constexpr (W == 1) {
+    out[e] = from_acc<T>(v[0]);
+  } else {
+    uint4 raw;
+    T* t = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int w = 0; w < W; ++w) t[w] = from_acc<T>(v[w]);
+    *reinterpret_cast<uint4*>(out + e) = raw;
+  }
+}
+
+// out = scan_step applied n_levels times to every element, one kernel per
+// layout: the operand classes C0..C2 (exactly one C_CARRY) are template
+// arguments, so the level loop holds no switch.  vec: every tensor operand
+// and out 16-byte aligned and n a multiple of W (so every level's slice of
+// an xs stack is too); then a thread takes W = 16 / sizeof(T) neighbouring
+// elements with 16-byte loads, else one.
+template <typename T, int C0, int C1, int C2>
 __global__ void __launch_bounds__(EWISE_THREADS)
 chain_ewise_kernel(T* __restrict__ out, Operand o0, Operand o1, Operand o2,
-                   int carry_pos, int64_t n, int64_t n_levels) {
-  using M = Math<T>;
+                   int64_t n, int64_t n_levels, bool vec) {
+  constexpr int W = 16 / sizeof(T);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       e < n; e += stride) {
-    const M h0 = load_once<T>(o0, e);
-    const M h1 = load_once<T>(o1, e);
-    const M h2 = load_once<T>(o2, e);
-    M v = carry_pos == 0 ? h0 : (carry_pos == 1 ? h1 : h2);
-    for (int64_t l = 0; l < n_levels; ++l) {
-      const M y = load_level<T>(o0, v, h0, e, n, l);
-      const M a = load_level<T>(o1, v, h1, e, n, l);
-      const M x = load_level<T>(o2, v, h2, e, n, l);
-      v = round_to<T>(add_rn(round_to<T>(mul_rn(a, y)), x));
-    }
-    out[e] = from_acc<T>(v);
+  const int64_t first =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (vec) {
+    for (int64_t g = first; g * W < n; g += stride)
+      ewise_run<T, C0, C1, C2, W>(out, o0, o1, o2, g * W, n, n_levels);
+  } else {
+    for (int64_t e = first; e < n; e += stride)
+      ewise_run<T, C0, C1, C2, 1>(out, o0, o1, o2, e, n, n_levels);
+  }
+}
+
+// the class of kind k (kernel.py EWISE_CLASS)
+inline int ewise_class(int k) {
+  switch (k) {
+    case CARRY: return C_CARRY;
+    case XS: return C_XS;
+    case XS_CONST: return C_XS_CONST;
+    default: return C_HELD;      // SINGLE, CONST
+  }
+}
+
+// the classes of a layout: the carry at CP, A and B at the other two
+// positions in order
+template <int CP, int A, int B> struct EwiseLayout {
+  static constexpr int c0 = CP == 0 ? C_CARRY : A;
+  static constexpr int c1 = CP == 1 ? C_CARRY : (CP == 0 ? A : B);
+  static constexpr int c2 = CP == 2 ? C_CARRY : B;
+};
+
+inline int sm_count() {
+  static const int count = [] {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return 132;
+    return n;
+  }();
+  return count;
+}
+
+template <typename T, int CP, int A, int B>
+cudaError_t launch_ewise_layout(T* out, const Operand (&o)[3], int64_t n,
+                                int64_t n_levels, bool vec,
+                                cudaStream_t stream) {
+  using L = EwiseLayout<CP, A, B>;
+  // enough blocks for every thread's elements, at most as many as are
+  // resident on the card at once (2048 threads an SM); a grid-stride loop
+  // takes the rest
+  const int64_t per_thread = vec ? 16 / sizeof(T) : 1;
+  const int64_t threads = (n + per_thread - 1) / per_thread;
+  const int64_t want = (threads + EWISE_THREADS - 1) / EWISE_THREADS;
+  const int64_t resident =
+      static_cast<int64_t>(sm_count()) * (2048 / EWISE_THREADS);
+  const unsigned grid = static_cast<unsigned>(want < resident ? want
+                                                              : resident);
+  chain_ewise_kernel<T, L::c0, L::c1, L::c2>
+      <<<grid, EWISE_THREADS, 0, stream>>>(out, o[0], o[1], o[2], n,
+                                           n_levels, vec);
+  return cudaGetLastError();
+}
+
+template <typename T, int CP, int A>
+cudaError_t ewise_pick_b(int b, T* out, const Operand (&o)[3], int64_t n,
+                         int64_t n_levels, bool vec, cudaStream_t st) {
+  switch (b) {
+    case C_HELD:
+      return launch_ewise_layout<T, CP, A, C_HELD>(out, o, n, n_levels, vec,
+                                                   st);
+    case C_XS:
+      return launch_ewise_layout<T, CP, A, C_XS>(out, o, n, n_levels, vec,
+                                                 st);
+    case C_XS_CONST:
+      return launch_ewise_layout<T, CP, A, C_XS_CONST>(out, o, n, n_levels,
+                                                       vec, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, int CP>
+cudaError_t ewise_pick_a(int a, int b, T* out, const Operand (&o)[3],
+                         int64_t n, int64_t n_levels, bool vec,
+                         cudaStream_t st) {
+  switch (a) {
+    case C_HELD:
+      return ewise_pick_b<T, CP, C_HELD>(b, out, o, n, n_levels, vec, st);
+    case C_XS:
+      return ewise_pick_b<T, CP, C_XS>(b, out, o, n, n_levels, vec, st);
+    case C_XS_CONST:
+      return ewise_pick_b<T, CP, C_XS_CONST>(b, out, o, n, n_levels, vec,
+                                             st);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -202,16 +398,35 @@ int launch_ewise(void* out, const void* p0, int k0, double s0,
                  const void* p1, int k1, double s1, const void* p2, int k2,
                  double s2, int carry_pos, int64_t n, int64_t n_levels,
                  void* stream) {
-  if (n > 0) {
-    const int64_t blocks = (n + EWISE_THREADS - 1) / EWISE_THREADS;
-    const unsigned grid =
-        static_cast<unsigned>(blocks < 1048576 ? blocks : 1048576);
-    chain_ewise_kernel<T><<<grid, EWISE_THREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<T*>(out), Operand{p0, k0, s0}, Operand{p1, k1, s1},
-        Operand{p2, k2, s2}, carry_pos, n, n_levels);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const Operand o[3] = {{p0, k0, s0}, {p1, k1, s1}, {p2, k2, s2}};
+  if (carry_pos < 0 || carry_pos > 2 || o[carry_pos].kind != CARRY)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the classes of the two positions besides the carry, in order
+  int cls[2], c = 0;
+  bool vec = aligned16(out) && n % (16 / sizeof(T)) == 0;
+  for (int p = 0; p < 3; ++p) {
+    if (o[p].kind == SINGLE || o[p].kind == XS || o[p].kind == CARRY)
+      vec = vec && aligned16(o[p].ptr);
+    if (p != carry_pos) {
+      if (o[p].kind == CARRY) return static_cast<int>(cudaErrorInvalidValue);
+      cls[c++] = ewise_class(o[p].kind);
+    }
   }
-  return static_cast<int>(cudaGetLastError());
+  T* dst = static_cast<T*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (carry_pos) {
+    case 0:
+      err = ewise_pick_a<T, 0>(cls[0], cls[1], dst, o, n, n_levels, vec, st);
+      break;
+    case 1:
+      err = ewise_pick_a<T, 1>(cls[0], cls[1], dst, o, n, n_levels, vec, st);
+      break;
+    default:
+      err = ewise_pick_a<T, 2>(cls[0], cls[1], dst, o, n, n_levels, vec, st);
+  }
+  return static_cast<int>(err);
 }
 
 // ------------------------------------------------------------------ dot --

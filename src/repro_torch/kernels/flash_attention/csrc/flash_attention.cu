@@ -8,17 +8,21 @@
 // blocks of a grid run in parallel in no order, so the sequential kv axis
 // becomes a loop inside the block, and the state lives in registers.
 //
-// Each call takes one of three routes, a pure function of the dtype, the
+// Each call takes one of five routes, a pure function of the dtype, the
 // head dim and the operands' alignment (route_of below; kernels/flash_
 // attention/ops.py route() is the same rule in Python, and
 // bind_flash_attention_route answers it for any operands):
 //
-//   F32_SIMT    float32: the CUDA-core loop (attn_tile.cuh), any d <= 256;
+//   F32_3XTF32  float32 with d % 32 == 0, d <= 128 and q, k, v, out 16-byte
+//               aligned: the tensor cores in 3xTF32 (attn_tf32.cuh);
+//   F32_SIMT    any other float32 (d > 128, odd d, misaligned views): the
+//               CUDA-core loop (attn_tile.cuh), any d <= 256;
 //   BF16_WGMMA  bfloat16 with d % 64 == 0, d <= 256 and q, k, v, out
 //               16-byte aligned: the tensor cores, wgmma fed by TMA
 //               (attn_wgmma.cuh);
 //   BF16_SIMT   any other bfloat16 (h2o-danube's d = 80, for one): the
-//               CUDA-core loop, fp32 inside.
+//               CUDA-core loop, fp32 inside;
+//   F16_SIMT    float16: the CUDA-core loop, fp32 inside, as bf16_simt.
 //
 // The CUDA-core loop (flash_attention_kernel):
 //   * one block of 256 threads per (query tile of 64 rows, q head, batch);
@@ -42,8 +46,17 @@
 //   4 d Hq visible-pairs FLOP against a few hundred MB of q, k, v and out,
 //   far above the ridge point; the loop runs on the CUDA cores in f32 (67
 //   TFLOP/s peak) and reads shared memory for every pair of operands, as
-//   the GEMM's f32 route does.  TF32 would miss the f32 tolerance (2e-5),
-//   so float32 stays here, bit for bit the kernel it was.
+//   the GEMM's f32 route does.  Plain TF32 would miss the f32 tolerance
+//   (2e-5); the float32 calls it still takes run bit for bit the kernel it
+//   was.
+//
+// The 3xTF32 loop (flash_attention_tf32_kernel, attn_tf32.cuh): two
+// warpgroups of 64 query rows, S = Q K^T and O += P V each as three TF32
+// wgmma products (hi.hi + hi.lo + lo.hi) accumulated in fp32, the operands
+// split into hi and lo (and V transposed) on their way into shared memory,
+// the online softmax in fp32 with the accurate exp2f.  Bound: three TF32
+// products at 495 TFLOP/s; the header says what its design does about
+// shared memory, layouts and registers.
 //
 // The tensor-core loop (flash_attention_wgmma_kernel, attn_wgmma.cuh): two
 // warpgroups of 64 query rows each, sharing K and V tiles that TMA brings
@@ -62,8 +75,10 @@
 
 #include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include "attn_tf32.cuh"
 #include "attn_tile.cuh"
 #include "attn_wgmma.cuh"
 
@@ -71,19 +86,83 @@ namespace {
 
 using namespace bind_attn;
 
-enum Route : int { F32_SIMT = 0, BF16_SIMT = 1, BF16_WGMMA = 2 };
+enum Route : int {
+  F32_SIMT = 0, BF16_SIMT = 1, BF16_WGMMA = 2, F32_3XTF32 = 3, F16_SIMT = 4
+};
+// the element types, numbered as kernel.py DTYPE_CODES numbers them
+enum DType : int { F32 = 0, BF16 = 1, F16 = 2 };
+
+template <typename T> constexpr DType dtype_of();
+template <> constexpr DType dtype_of<float>() { return F32; }
+template <> constexpr DType dtype_of<__nv_bfloat16>() { return BF16; }
+template <> constexpr DType dtype_of<__half>() { return F16; }
 
 inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// elem_bytes 4: float32, 2: bfloat16
-inline Route route_of(int elem_bytes, int64_t d, const void* q,
-                      const void* k, const void* v, const void* out) {
-  if (elem_bytes == 4) return F32_SIMT;
-  const bool tma = d % 64 == 0 && d > 0 && d <= 256 && aligned16(q) &&
-                   aligned16(k) && aligned16(v) && aligned16(out);
-  return tma ? BF16_WGMMA : BF16_SIMT;
+inline Route route_of(DType dtype, int64_t d, const void* q, const void* k,
+                      const void* v, const void* out) {
+  const bool aligned =
+      aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out);
+  switch (dtype) {
+    case F32:
+      return d % 32 == 0 && d > 0 && d <= 128 && aligned ? F32_3XTF32
+                                                         : F32_SIMT;
+    case BF16:
+      return d % 64 == 0 && d > 0 && d <= 256 && aligned ? BF16_WGMMA
+                                                         : BF16_SIMT;
+    default: return F16_SIMT;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(bind_attn_tf::THREADS, 1)
+flash_attention_tf32_kernel(const bind_attn_tf::Shape sh) {
+  extern __shared__ __align__(1024) unsigned char tf_smem[];
+  bind_attn_tf::attention_block<D>(sh, tf_smem);
+}
+
+template <int D>
+cudaError_t launch_tf32_d(const void* q, const void* k, const void* v,
+                          void* out, int64_t batch, int64_t hq, int64_t hkv,
+                          int64_t sq, int64_t skv, float scale, Mask mask,
+                          cudaStream_t stream) {
+  using C = bind_attn_tf::Cfg<D>;
+  const int64_t tiles = (sq + bind_attn_tf::BQ - 1) / bind_attn_tf::BQ;
+  if (tiles > 65535 || batch * hq > 0x7fffffff) return cudaErrorInvalidValue;
+  auto kern = flash_attention_tf32_kernel<D>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::SMEM));
+  if (err != cudaSuccess) return err;
+  const float scale_log2 = scale * 1.4426950408889634f;   // scale log2(e)
+  const bind_attn_tf::Shape sh{static_cast<const float*>(q),
+                               static_cast<const float*>(k),
+                               static_cast<const float*>(v),
+                               static_cast<float*>(out),
+                               hq, hkv, sq, skv, scale_log2, mask};
+  const dim3 grid(static_cast<unsigned>(batch * hq),
+                  static_cast<unsigned>(tiles));
+  kern<<<grid, bind_attn_tf::THREADS, C::SMEM, stream>>>(sh);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tf32(const void* q, const void* k, const void* v,
+                        void* out, int64_t batch, int64_t hq, int64_t hkv,
+                        int64_t sq, int64_t skv, int d, float scale,
+                        Mask mask, cudaStream_t stream) {
+  switch (d) {
+    case 32: return launch_tf32_d<32>(q, k, v, out, batch, hq, hkv, sq, skv,
+                                      scale, mask, stream);
+    case 64: return launch_tf32_d<64>(q, k, v, out, batch, hq, hkv, sq, skv,
+                                      scale, mask, stream);
+    case 96: return launch_tf32_d<96>(q, k, v, out, batch, hq, hkv, sq, skv,
+                                      scale, mask, stream);
+    case 128: return launch_tf32_d<128>(q, k, v, out, batch, hq, hkv, sq,
+                                        skv, scale, mask, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <int D>
@@ -232,9 +311,13 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const float s = static_cast<float>(scale);
   const int dd = static_cast<int>(d);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (route_of(sizeof(T), d, q, k, v, out) == BF16_WGMMA)
+  const Route route = route_of(dtype_of<T>(), d, q, k, v, out);
+  if (route == BF16_WGMMA)
     return static_cast<int>(launch_wgmma(q, k, v, out, batch, hq, hkv, sq,
                                          skv, dd, s, mask, st));
+  if (route == F32_3XTF32)
+    return static_cast<int>(launch_tf32(q, k, v, out, batch, hq, hkv, sq,
+                                        skv, dd, s, mask, st));
   return static_cast<int>(with_value_blocks(dd, [&](auto nj) {
     return launch_nj<T, decltype(nj)::value>(q, k, v, out, batch, hq, hkv,
                                              sq, skv, dd, s, mask, st);
@@ -263,13 +346,21 @@ int bind_flash_attention_bf16(const void* q, const void* k, const void* v,
                                scale, causal, windowed, window, stream);
 }
 
-// The route (F32_SIMT 0, BF16_SIMT 1, BF16_WGMMA 2) a call of element size
-// elem_bytes (4: float32, 2: bfloat16) with head dim d on these operands
-// takes; -1 for another size.
-int bind_flash_attention_route(int elem_bytes, const void* q, const void* k,
+int bind_flash_attention_f16(const void* q, const void* k, const void* v,
+                             void* out, int64_t batch, int64_t hq,
+                             int64_t hkv, int64_t sq, int64_t skv, int64_t d,
+                             double scale, int causal, int windowed,
+                             int64_t window, void* stream) {
+  return launch<__half>(q, k, v, out, batch, hq, hkv, sq, skv, d, scale,
+                        causal, windowed, window, stream);
+}
+
+// The route (enum Route) a call of element type dtype (F32 0, BF16 1, F16
+// 2) with head dim d on these operands takes; -1 for another type.
+int bind_flash_attention_route(int dtype, const void* q, const void* k,
                                const void* v, const void* out, int64_t d) {
-  if (elem_bytes != 4 && elem_bytes != 2) return -1;
-  return route_of(elem_bytes, d, q, k, v, out);
+  if (dtype < F32 || dtype > F16) return -1;
+  return route_of(static_cast<DType>(dtype), d, q, k, v, out);
 }
 
 }  // extern "C"

@@ -2,8 +2,9 @@
 
 Built at first use through the shared :mod:`repro_torch.kernels._build`
 helper, with the CUDA-core tile loop it shares with the chain kernel
-(``csrc/attn_tile.cuh``), the tensor-core loop of the ``bf16_wgmma`` route
-(``csrc/attn_wgmma.cuh``) and the GEMM headers both draw on (conversions,
+(``csrc/attn_tile.cuh``), the tensor-core loops of the ``bf16_wgmma`` route
+(``csrc/attn_wgmma.cuh``) and of the ``f32_3xtf32`` route
+(``csrc/attn_tf32.cuh``), and the GEMM headers they draw on (conversions,
 the TMA and ``wgmma`` helpers).  Nothing here runs at import time.
 """
 
@@ -20,10 +21,14 @@ _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "csrc" / "flash_attention.cu",)
 HEADERS = (_HERE / "csrc" / "attn_tile.cuh",
            _HERE / "csrc" / "attn_wgmma.cuh",
+           _HERE / "csrc" / "attn_tf32.cuh",
            _HERE.parent / "gemm" / "csrc" / "gemm_tile.cuh",
            _HERE.parent / "gemm" / "csrc" / "gemm_wgmma.cuh")
 
-SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
+          torch.float16: "f16"}
+# torch dtype -> the element-type code of bind_flash_attention_route
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_HEAD_DIM = 256          # bind_attn::MAX_HEAD_DIM of attn_tile.cuh
 
 _P, _I, _I64, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
@@ -32,7 +37,7 @@ _ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _D, _I, _I,
          _I64, _P)
 
 # which route (an index of ops.ROUTES) a call takes:
-# (element size, q, k, v, out, d)
+# (element-type code, q, k, v, out, d)
 ROUTE_SYMBOL = "bind_flash_attention_route"
 _ROUTE_ARGS = (_I, _P, _P, _P, _P, _I64)
 
@@ -67,5 +72,4 @@ def launcher_route(dtype: torch.dtype, q_ptr: int, k_ptr: int, v_ptr: int,
     operands (:func:`.ops.flash_attention` counts it and holds it against
     :func:`.ops.route`)."""
     fn = getattr(LIBRARY.load(), ROUTE_SYMBOL)
-    return fn(torch.empty((), dtype=dtype).element_size(), q_ptr, k_ptr,
-              v_ptr, out_ptr, d)
+    return fn(DTYPE_CODES[dtype], q_ptr, k_ptr, v_ptr, out_ptr, d)

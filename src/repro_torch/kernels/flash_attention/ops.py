@@ -19,20 +19,26 @@ is handed, which must be the one :func:`route` gives them.
 
 :func:`route` says which loop a launch takes (``csrc/flash_attention.cu``
 is the same rule in C, and :func:`.kernel.launcher_route` asks the built
-library, as the wrapper does before every launch): float32 on the CUDA cores (``f32_simt``); bfloat16 on the tensor
-cores (``bf16_wgmma``: ``wgmma`` fed by TMA) when the head dim is a
-multiple of 64 up to 256 and q, k, v and out are 16-byte aligned, else on
-the CUDA cores (``bf16_simt``).  Qwen3-14B (d 128) and RecurrentGemma-9B
-(d 256) take ``bf16_wgmma``; h2o-danube's d 80 takes ``bf16_simt``.
+library, as the wrapper does before every launch): float32 on the tensor
+cores in 3xTF32 (``f32_3xtf32``) when the head dim is a multiple of 32 up
+to 128 and q, k, v and out are 16-byte aligned, else on the CUDA cores
+(``f32_simt``); bfloat16 on the tensor cores (``bf16_wgmma``: ``wgmma``
+fed by TMA) when the head dim is a multiple of 64 up to 256 and the
+operands are 16-byte aligned, else on the CUDA cores (``bf16_simt``);
+float16 on the CUDA cores (``f16_simt``).  Qwen3-14B (d 128) takes
+``f32_3xtf32`` and ``bf16_wgmma``; RecurrentGemma-9B (d 256) ``f32_simt``
+and ``bf16_wgmma``; h2o-danube's d 80 ``f32_simt`` and ``bf16_simt``.
 
 ``attn_step(o, q, k, v)`` is the executor-callable block accumulation ``o ←
 o + softmax(q kᵀ / √d) v``, tagged ``"dot"`` so a fused chain of it runs as
-one chain kernel (:func:`repro_torch.kernels.chain.chain_attn`).  On a
-tensor it runs that chain kernel with one level (the kernel on the card,
-its plain version on the CPU), so per-level replay and a whole chain agree
-bit for bit; NumPy tiles stay NumPy.  ``__bind_vmap__ = False``: a kernel
-cannot read a ``torch.func.vmap``-batched tensor, so the fused backend runs
-it per op without stacking.
+one chain kernel (:func:`repro_torch.kernels.chain.chain_attn`).  On
+operands that kernel takes it runs it with one level (the kernel on the
+card, its plain version on the CPU), so per-level replay and a whole chain
+agree bit for bit; on any others (NumPy tiles, batched shapes, float16)
+it computes the reference's expression as jax does (:func:`step_body`):
+NumPy operands give a CPU tensor, as the reference's give a jax array.
+``__bind_vmap__ = False``: a kernel cannot read a ``torch.func.vmap``-batched
+tensor, so the fused backend runs it per op without stacking.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.compat import jax_matmul, jax_operands
 from repro_torch.core.trace import In, InOut
 
 from .. import count_launch
@@ -49,21 +56,26 @@ from . import kernel, ref
 DTYPES = tuple(kernel.SUFFIX)
 BACKENDS = ("cuda", "plain")
 # the routes, in the order of the Route enum of csrc/flash_attention.cu
-ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma")
+ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f32_3xtf32", "f16_simt")
 
 
 def route(dtype: torch.dtype, d: int, addresses=()) -> str:
     """The route of a call with head dim ``d`` on operands of ``dtype``
     whose q, k, v and out start at ``addresses`` (device byte addresses):
-    bfloat16 goes to the tensor cores when the tiles of 64 columns cover d
-    (``d % 64 == 0``, ``d <= 256``) and TMA can read every operand (each
-    address 16-byte aligned)."""
+    float32 goes to the tensor cores in 3xTF32 when the 32-column panels
+    cover d (``d % 32 == 0``, ``d <= 128``) and every address is 16-byte
+    aligned, bfloat16 when the tiles of 64 columns cover d (``d % 64 ==
+    0``, ``d <= 256``) and TMA can read every operand (each address 16-byte
+    aligned); float16 stays on the CUDA cores."""
+    aligned = all(int(x) % 16 == 0 for x in addresses)
     if dtype == torch.float32:
-        return "f32_simt"
+        tf32 = d % 32 == 0 and 0 < d <= 128 and aligned
+        return "f32_3xtf32" if tf32 else "f32_simt"
+    if dtype == torch.float16:
+        return "f16_simt"
     if dtype != torch.bfloat16:
         raise TypeError(f"no attention route for dtype {dtype}")
-    tma = (d % 64 == 0 and 0 < d <= 256
-           and all(int(x) % 16 == 0 for x in addresses))
+    tma = d % 64 == 0 and 0 < d <= 256 and aligned
     return "bf16_wgmma" if tma else "bf16_simt"
 
 
@@ -159,17 +171,42 @@ flash_attention.launches = 0
 flash_attention.routes = {}
 
 
-def attn_step(o, q, k, v):
-    """One block-accumulation level: ``o ← o + softmax(q kᵀ / √d) v``."""
-    if isinstance(o, torch.Tensor):
-        # imported here: the chain package imports this module's plain
-        # version (.ref) while it loads
-        from ..chain.ops import chain_attn
+_ONE_LEVEL = ("single",) * 4
 
-        return chain_attn(("single",) * 4, 0, 1, o, q, k, v)
-    s = (q @ k.T) * (1.0 / float(q.shape[-1]) ** 0.5)
-    e = np.exp(s - s.max(axis=-1, keepdims=True))
-    return o + (e / e.sum(axis=-1, keepdims=True)) @ v
+
+def attn_step(o, q, k, v):
+    """One block-accumulation level: ``o ← o + softmax(q kᵀ / √d) v``.
+
+    Operands the chain kernel takes (its own rule,
+    :func:`repro_torch.kernels.chain.ops.attn_problem`) run it with one
+    level; any others get the reference's own expression, decided before
+    any launch: :func:`step_body`.
+    """
+    # imported here: the chain package imports this module's plain version
+    # (.ref) while it loads
+    from ..chain.ops import attn_problem, chain_attn
+
+    if attn_problem(_ONE_LEVEL, 0, 1, (o, q, k, v)) is None:
+        return chain_attn(_ONE_LEVEL, 0, 1, o, q, k, v)
+    return step_body(o, q, k, v)
+
+
+def step_body(o, q, k, v):
+    """The reference's body (``repro/kernels/flash_attention/ops.py:71``)
+    as jax computes it: the logits ``(q @ k.T) / √d`` (in NumPy when q and
+    k are NumPy), then ``jax.nn.softmax``, which hands back a jax array,
+    32-bit for a 64-bit NumPy input; ``o + p @ v`` follows jax's promotion.
+    A ``jax.Array`` is a ``torch.Tensor`` here
+    (:func:`repro_torch.compat.jax_operands`): on NumPy payloads the result
+    is a CPU tensor, float32 for float64 ones."""
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    if isinstance(q, np.ndarray) and isinstance(k, np.ndarray):
+        logits = (q @ k.T) * scale
+        logits, o, v = jax_operands(logits, o, v)
+    else:
+        o, q, k, v = jax_operands(o, q, k, v)
+        logits = jax_matmul(q, k.permute(*range(k.dim() - 1, -1, -1))) * scale
+    return o + jax_matmul(torch.softmax(logits, dim=-1), v)
 
 
 attn_step.__bind_intents__ = (InOut, In, In, In)

@@ -21,7 +21,9 @@
 //     the latency of the K loop and the loads, which the TMA ring hides;
 //   * float64 on the f64 tensor cores (gemm_dmma.cuh): DMMA m16n8k16.
 //     Bound: operations, 67 TFLOP/s; shared-memory reads of the DMMA
-//     operands come close to it first.
+//     operands come close to it first;
+//   * float16 on the CUDA-core loop, converted to fp32 on the way in and
+//     accumulated in fp32, rounded once to fp16.
 // Every route masks the ragged edge itself (zero fill), so no padding copy
 // is made for any (M, N, K), and adds an optional C once in the
 // accumulator type before one rounding: matmul_accumulate (c + a@b) is one
@@ -34,6 +36,7 @@
 
 #include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <type_traits>
 
@@ -105,21 +108,30 @@ int bind_gemm_f64(const void* a, const void* b, const void* c, void* out,
   return run<double>(a, b, c, out, M, N, K, stream);
 }
 
-// The route (bind_gemm::Route) a problem of element size elem_bytes (4:
-// float32, 2: bfloat16, 8: float64) takes, for a chain with level strides
-// a_stride and b_stride in elements (0 for the GEMM); -1 for another size.
-int bind_gemm_route(int elem_bytes, const void* a, int64_t a_stride,
+int bind_gemm_f16(const void* a, const void* b, const void* c, void* out,
+                  int64_t M, int64_t N, int64_t K, void* stream) {
+  return run<__half>(a, b, c, out, M, N, K, stream);
+}
+
+// The route (bind_gemm::Route) a problem of element type dtype (0:
+// float32, 1: bfloat16, 2: float64, 3: float16; kernel.py DTYPE_CODES)
+// takes, for a chain with level strides a_stride and b_stride in elements
+// (0 for the GEMM); -1 for another type.
+int bind_gemm_route(int dtype, const void* a, int64_t a_stride,
                     const void* b, int64_t b_stride, int64_t M, int64_t N,
                     int64_t K) {
-  switch (elem_bytes) {
-    case 4: return route_of(Problem<float>{
+  switch (dtype) {
+    case 3: return route_of(Problem<__half>{
+        static_cast<const __half*>(a), a_stride, static_cast<const __half*>(b),
+        b_stride, nullptr, nullptr, M, N, K, 1});
+    case 0: return route_of(Problem<float>{
         static_cast<const float*>(a), a_stride, static_cast<const float*>(b),
         b_stride, nullptr, nullptr, M, N, K, 1});
-    case 2: return route_of(Problem<__nv_bfloat16>{
+    case 1: return route_of(Problem<__nv_bfloat16>{
         static_cast<const __nv_bfloat16*>(a), a_stride,
         static_cast<const __nv_bfloat16*>(b), b_stride, nullptr, nullptr, M,
         N, K, 1});
-    case 8: return route_of(Problem<double>{
+    case 2: return route_of(Problem<double>{
         static_cast<const double*>(a), a_stride,
         static_cast<const double*>(b), b_stride, nullptr, nullptr, M, N, K,
         1});

@@ -11,7 +11,9 @@
 //               aligned, K and N multiples of 8 (row strides multiples of
 //               16 bytes), K > 0, level strides multiples of 16 bytes;
 //   BF16_SIMT   any other bfloat16: the CUDA-core loop, fp32 accumulator;
-//   F64_DMMA    float64: the f64 tensor cores (gemm_dmma.cuh), any shape.
+//   F64_DMMA    float64: the f64 tensor cores (gemm_dmma.cuh), any shape;
+//   F16_SIMT    float16: the CUDA-core loop, fp32 accumulator, as
+//               bf16_simt.
 //
 // Each .cu file defines its own __global__ kernels around the shared tile
 // loops (so a profile tells the GEMM's launches from the chain kernel's)
@@ -21,6 +23,7 @@
 
 #include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <type_traits>
 
@@ -30,7 +33,9 @@
 
 namespace bind_gemm {
 
-enum Route : int { F32_SIMT = 0, BF16_SIMT = 1, BF16_WGMMA = 2, F64_DMMA = 3 };
+enum Route : int {
+  F32_SIMT = 0, BF16_SIMT = 1, BF16_WGMMA = 2, F64_DMMA = 3, F16_SIMT = 4
+};
 
 inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
@@ -42,6 +47,8 @@ inline Route route_of(const Problem<T>& p) {
     return F32_SIMT;
   } else if constexpr (std::is_same_v<T, double>) {
     return F64_DMMA;
+  } else if constexpr (std::is_same_v<T, __half>) {
+    return F16_SIMT;
   } else {
     const bool tma = aligned16(p.A) && aligned16(p.B) && p.K > 0 &&
                      p.K % 8 == 0 && p.N % 8 == 0 && p.a_stride % 8 == 0 &&

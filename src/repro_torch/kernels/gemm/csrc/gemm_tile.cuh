@@ -8,8 +8,8 @@
 //
 // This file holds what every route shares (the problem, the epilogue,
 // cp.async, the panel loader) and the route of the CUDA cores, simt_tile:
-// float32 inputs, and bfloat16 operands whose alignment the tensor-core
-// route cannot take (gemm_routes.cuh).  Every output element is one chain
+// float32 and float16 inputs, and bfloat16 operands whose alignment the
+// tensor-core route cannot take (gemm_routes.cuh).  Every output element is one chain
 // of IEEE fp32 fused multiply-adds (__fmaf_rn, never TF32) in ascending k
 // from +0, so the result does not depend on the tiling (a zero-filled
 // product past the ragged edge leaves a sum that is never -0 unchanged):
@@ -27,8 +27,8 @@
 // FMAs of the panel before run, in 16-byte chunks when the operand allows
 // (aligned base, rows of whole chunks) and element by element otherwise,
 // zero-filled past the ragged edge; one __syncthreads() per panel.
-// bfloat16 panels are converted to fp32 through registers on their way
-// in.  Levels run as one stream of panels, so the ring does not drain
+// bfloat16 and float16 panels are converted to fp32 through registers on
+// their way in.  Levels run as one stream of panels, so the ring does not drain
 // between levels, and the carry stays in registers (out is written once,
 // after the last level).
 //
@@ -40,6 +40,7 @@
 
 #include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <type_traits>
 
 namespace bind_gemm {
@@ -64,6 +65,7 @@ __device__ __forceinline__ float to_acc(float x) { return x; }
 __device__ __forceinline__ float to_acc(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_acc(__half x) { return __half2float(x); }
 __device__ __forceinline__ double to_acc(double x) { return x; }
 
 // accumulator value -> element type, rounding to nearest even
@@ -75,6 +77,9 @@ template <> __device__ __forceinline__ float from_acc<float>(float v) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_acc<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <> __device__ __forceinline__ __half from_acc<__half>(float v) {
+  return __float2half_rn(v);
 }
 template <> __device__ __forceinline__ double from_acc<double>(double v) {
   return v;
@@ -145,7 +150,7 @@ struct __align__(16) SimtStage {
 constexpr size_t SIMT_SMEM = SIMT_STAGES * sizeof(SimtStage);
 
 // one element of a panel into shared memory in the accumulator type:
-// float32 and float64 by cp.async, bfloat16 through a register
+// float32 and float64 by cp.async, bfloat16 and float16 through a register
 __device__ __forceinline__ void stage_elem(float* dst, const float* src,
                                            bool in) {
   cp_async<4>(dst, src, in);
@@ -158,6 +163,10 @@ __device__ __forceinline__ void stage_elem(float* dst,
                                            const __nv_bfloat16* src,
                                            bool in) {
   *dst = in ? __bfloat162float(*src) : 0.0f;
+}
+__device__ __forceinline__ void stage_elem(float* dst, const __half* src,
+                                           bool in) {
+  *dst = in ? __half2float(*src) : 0.0f;
 }
 
 // Panel loader of one operand: a ROWS x COLS window of a row-major matrix

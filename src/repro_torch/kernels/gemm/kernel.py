@@ -32,13 +32,17 @@ SYMBOLS = {
     torch.float32: "bind_gemm_f32",
     torch.bfloat16: "bind_gemm_bf16",
     torch.float64: "bind_gemm_f64",
+    torch.float16: "bind_gemm_f16",
 }
+# torch dtype -> the element-type code of bind_gemm_route
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2,
+               torch.float16: 3}
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
              ctypes.c_int64, ctypes.c_void_p)
 
 # which route (an index of ops.ROUTES) the launcher takes for a problem:
-# (element size, a, a_stride, b, b_stride, M, N, K)
+# (element-type code, a, a_stride, b, b_stride, M, N, K)
 ROUTE_SYMBOL = "bind_gemm_route"
 _ROUTE_ARGTYPES = (ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
                    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
@@ -48,7 +52,7 @@ LIBRARY = CudaLibrary("bind_gemm", SOURCES, HEADERS,
                       {**{sym: _ARGTYPES for sym in SYMBOLS.values()},
                        ROUTE_SYMBOL: _ROUTE_ARGTYPES})
 
-__all__ = ["BUILD_DIR", "HEADERS", "LIBRARY", "NVCC_FLAGS", "ROUTE_SYMBOL",
+__all__ = ["BUILD_DIR", "DTYPE_CODES", "HEADERS", "LIBRARY", "NVCC_FLAGS", "ROUTE_SYMBOL",
            "SYMBOLS", "launch", "launcher_route", "library_path", "nvcc",
            "on_device"]
 
@@ -90,5 +94,4 @@ def launcher_route(dtype: torch.dtype, a_ptr: int, a_stride: int, b_ptr: int,
     """The route index the built library's launcher takes for these
     operands (``chip_smoke.py`` holds it against :func:`.ops.route`)."""
     fn = getattr(LIBRARY.load(), ROUTE_SYMBOL)
-    return fn(torch.empty((), dtype=dtype).element_size(), a_ptr, a_stride,
-              b_ptr, b_stride, m, n, k)
+    return fn(DTYPE_CODES[dtype], a_ptr, a_stride, b_ptr, b_stride, m, n, k)

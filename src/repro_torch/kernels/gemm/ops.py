@@ -3,8 +3,9 @@ on CPU.
 
 ``matmul(a, b)`` computes ``a @ b`` and ``matmul_accumulate(c, a, b)``
 computes ``c + a @ b`` (the Bind tile transaction ``gemm(a, b, c: InOut)``)
-in one launch.  Both take 2-D contiguous float32, bfloat16 or float64
-tensors of one dtype on one device and return a new tensor of that dtype.
+in one launch.  Both take 2-D contiguous float32, bfloat16, float16 or
+float64 tensors of one dtype on one device and return a new tensor of that
+dtype.
 The kernel masks ragged edges itself, so unlike the reference's
 ``ops.py`` nothing is padded.
 
@@ -18,7 +19,8 @@ and each launch's route in ``routes`` (route name -> launches).
 is the same rule in C, and :func:`.kernel.launcher_route` asks the built
 library): float32 on the CUDA cores, bfloat16 on the tensor cores
 (``wgmma`` fed by TMA) when TMA can read both operands and on the CUDA
-cores otherwise, float64 on the f64 tensor cores.  The chain kernel's
+cores otherwise, float64 on the f64 tensor cores, float16 on the CUDA
+cores with an fp32 accumulator.  The chain kernel's
 ``chain_dot`` takes the same route for its chain as per-level replay takes
 at every level.
 
@@ -30,20 +32,28 @@ launch.  A launch that fails stays a ``RuntimeError`` and propagates.
 a @ b``, tagged ``"dot"`` so a fused chain of it runs as one chain kernel
 (:mod:`repro_torch.kernels.chain`), and marked ``__bind_vmap__ = False``
 so the fused backend runs its buckets per op without stacking them first
-(the reference's rule for bodies vmap cannot batch).
+(the reference's rule for bodies vmap cannot batch).  It launches the
+kernel exactly when :func:`accumulate_problem` (the wrapper's own checks)
+passes, and otherwise computes the reference's ``c + a @ b``
+(:func:`accumulate_body`): batched, integer or mixed-dtype tiles compute
+as in the reference instead of raising.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 from torch._C._functorch import is_batchedtensor
 
+from ...compat import jax_matmul, jax_operands
 from .. import count_launch
 from . import kernel, ref
 
 DTYPES = tuple(kernel.SYMBOLS)
 # the routes, in the order of bind_gemm::Route (csrc/gemm_routes.cuh)
-ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f64_dmma")
+ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f64_dmma", "f16_simt")
 
 
 def route(dtype: torch.dtype, m: int, n: int, k: int,
@@ -57,6 +67,8 @@ def route(dtype: torch.dtype, m: int, n: int, k: int,
         return "f32_simt"
     if dtype == torch.float64:
         return "f64_dmma"
+    if dtype == torch.float16:
+        return "f16_simt"
     if dtype != torch.bfloat16:
         raise TypeError(f"no GEMM route for dtype {dtype}")
     tma = (k > 0 and k % 8 == 0 and n % 8 == 0
@@ -64,28 +76,36 @@ def route(dtype: torch.dtype, m: int, n: int, k: int,
     return "bf16_wgmma" if tma else "bf16_simt"
 
 
-def _check(*tensors: torch.Tensor) -> None:
+def _problem(*tensors) -> Optional[tuple[type, str]]:
+    """Why the kernel cannot take these operands, as the exception type
+    and message its wrappers raise, or ``None`` when it can."""
     first = tensors[0]
     for t in tensors:
         if not isinstance(t, torch.Tensor):
-            raise TypeError(f"expected a torch.Tensor, got {type(t).__name__}")
+            return TypeError, f"expected a torch.Tensor, got {type(t).__name__}"
         if is_batchedtensor(t):
-            raise TypeError("the GEMM kernel cannot take a tensor batched "
-                            "by torch.func.vmap")
+            return TypeError, ("the GEMM kernel cannot take a tensor batched "
+                               "by torch.func.vmap")
         if t.dim() != 2:
-            raise ValueError(f"expected a 2-D tensor, got shape "
-                             f"{tuple(t.shape)}")
+            return ValueError, f"expected a 2-D tensor, got shape {tuple(t.shape)}"
         if t.dtype not in DTYPES:
-            raise TypeError(f"dtype {t.dtype} is not supported; "
-                            f"expected one of {DTYPES}")
+            return TypeError, (f"dtype {t.dtype} is not supported; expected "
+                               f"one of {DTYPES}")
         if t.dtype != first.dtype:
-            raise TypeError(f"mixed dtypes {first.dtype} and {t.dtype}")
+            return TypeError, f"mixed dtypes {first.dtype} and {t.dtype}"
         if t.device != first.device:
-            raise ValueError(f"tensors on {first.device} and {t.device}")
+            return ValueError, f"tensors on {first.device} and {t.device}"
         if not t.is_contiguous():
-            raise ValueError("expected contiguous (row-major) tensors")
+            return ValueError, "expected contiguous (row-major) tensors"
     if first.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {first.device}")
+        return ValueError, f"unsupported device {first.device}"
+    return None
+
+
+def _check(*tensors: torch.Tensor) -> None:
+    bad = _problem(*tensors)
+    if bad:
+        raise bad[0](bad[1])
 
 
 def _shapes(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
@@ -93,6 +113,26 @@ def _shapes(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
         raise ValueError(f"inner dimensions differ: {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
     return a.shape[0], b.shape[1]
+
+
+def _accumulate_problem(c, a, b) -> Optional[tuple[type, str]]:
+    bad = _problem(c, a, b)
+    if bad:
+        return bad
+    if a.shape[1] != b.shape[0]:
+        return ValueError, (f"inner dimensions differ: {tuple(a.shape)} @ "
+                            f"{tuple(b.shape)}")
+    if tuple(c.shape) != (a.shape[0], b.shape[1]):
+        return ValueError, (f"c has shape {tuple(c.shape)}, expected "
+                            f"{(a.shape[0], b.shape[1])}")
+    return None
+
+
+def accumulate_problem(c, a, b) -> Optional[str]:
+    """Why :func:`matmul_accumulate` cannot take ``c``, ``a``, ``b`` (its
+    own checks, before any launch), or ``None`` when it can."""
+    bad = _accumulate_problem(c, a, b)
+    return bad[1] if bad else None
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -116,10 +156,10 @@ matmul.routes = {}
 def matmul_accumulate(c: torch.Tensor, a: torch.Tensor,
                       b: torch.Tensor) -> torch.Tensor:
     """``c + a @ b``, the sum taken in the accumulator type, in one launch."""
-    _check(c, a, b)
-    m, n = _shapes(a, b)
-    if tuple(c.shape) != (m, n):
-        raise ValueError(f"c has shape {tuple(c.shape)}, expected {(m, n)}")
+    bad = _accumulate_problem(c, a, b)
+    if bad:
+        raise bad[0](bad[1])
+    m, n = c.shape
     if a.device.type == "cpu":
         return ref.matmul_accumulate(c, a, b)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
@@ -144,12 +184,26 @@ from repro_torch.core.trace import In, InOut  # noqa: E402
 def gemm_tile(c, a, b):
     """One accumulation level of the tile transaction: ``c ← c + a @ b``.
 
-    Tensors go through :func:`matmul_accumulate` (the kernel on the card,
-    the plain version on the CPU); NumPy tiles stay NumPy.
+    Operands the GEMM kernel takes (:func:`accumulate_problem`) go through
+    :func:`matmul_accumulate` (the kernel on the card, the plain version on
+    the CPU); any others get the reference's own expression, decided
+    before any launch: :func:`accumulate_body`.
     """
-    if isinstance(c, torch.Tensor):
+    if accumulate_problem(c, a, b) is None:
         return matmul_accumulate(c, a, b)
-    return c + a @ b
+    return accumulate_body(c, a, b)
+
+
+def accumulate_body(c, a, b):
+    """The reference's body ``c + a @ b`` on operands the kernel does not
+    take: NumPy tiles stay NumPy; with a tensor among them, as jax computes
+    it (:func:`repro_torch.compat.jax_operands`, ``jax_matmul``): batched
+    shapes, integer and mixed dtypes, float16 views that are not
+    contiguous."""
+    if all(isinstance(x, np.ndarray) for x in (c, a, b)):
+        return c + a @ b
+    c, a, b = jax_operands(c, a, b)
+    return c + jax_matmul(a, b)
 
 
 gemm_tile.__bind_intents__ = (InOut, In, In)

@@ -1,5 +1,6 @@
 // Chunked linear scan for Hopper (sm_90a): y_t = a_t * y_{t-1} + x_t over
-// (B, S, D), y_{-1} = 0, f32 inside, the output in x's dtype.
+// (B, S, D), y_{-1} = 0, f32 inside, the output in x's dtype (float32,
+// bfloat16 or float16: entry points bind_linear_scan_{f32,bf16,f16}).
 //
 // Replaces the TPU kernel src/repro/kernels/linear_scan/kernel.py:50
 // linear_scan_pallas (body _linear_scan_kernel :32): a (batch, chunk) grid
@@ -34,6 +35,7 @@
 
 #include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -44,6 +46,7 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) {
@@ -52,6 +55,9 @@ template <> __device__ __forceinline__ float from_f32<float>(float v) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 __device__ __forceinline__ float step(float a, float h, float x) {
@@ -182,6 +188,12 @@ int bind_linear_scan_bf16(const void* a, const void* x, void* y,
                           void* scratch, int64_t batch, int64_t s, int64_t d,
                           int64_t chunk, void* stream) {
   return launch<__nv_bfloat16>(a, x, y, scratch, batch, s, d, chunk, stream);
+}
+
+int bind_linear_scan_f16(const void* a, const void* x, void* y,
+                         void* scratch, int64_t batch, int64_t s, int64_t d,
+                         int64_t chunk, void* stream) {
+  return launch<__half>(a, x, y, scratch, batch, s, d, chunk, stream);
 }
 
 }  // extern "C"

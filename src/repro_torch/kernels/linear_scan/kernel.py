@@ -16,7 +16,8 @@ from .._build import CudaLibrary
 _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "csrc" / "linear_scan.cu",)
 
-SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
+          torch.float16: "f16"}
 CHUNK = 128         # steps per chunk: the kernel's unit of parallel work
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64

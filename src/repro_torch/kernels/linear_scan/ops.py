@@ -15,9 +15,11 @@ runs as one chain kernel (:mod:`repro_torch.kernels.chain`).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.compat import jax_operands
 from repro_torch.core.trace import In, InOut
 
 from .. import count_launch
@@ -78,7 +80,14 @@ linear_scan.launches = 0
 
 
 def scan_step(y, a, x):
-    """One linear-recurrence level: ``y ← a ⊙ y + x``."""
+    """One linear-recurrence level: ``y ← a ⊙ y + x``.
+
+    Tensors and NumPy arrays mixed in one call mix as jax mixes the
+    reference's (:func:`repro_torch.compat.jax_operands`): the NumPy
+    operands become tensors of jax's dtype first."""
+    if any(isinstance(t, torch.Tensor) for t in (y, a, x)) and any(
+            isinstance(t, np.ndarray) for t in (y, a, x)):
+        y, a, x = jax_operands(y, a, x)
     return a * y + x
 
 

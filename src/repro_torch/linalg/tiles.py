@@ -39,9 +39,10 @@ def _t_copy(a):
 
 
 def _t_gemm_acc(c, a, b):
-    if isinstance(c, torch.Tensor):
+    # the GEMM kernel where it takes the tiles, else the reference's c + a @ b
+    if gemm_ops.accumulate_problem(c, a, b) is None:
         return gemm_ops.matmul_accumulate(c, a, b)
-    return c + a @ b
+    return gemm_ops.accumulate_body(c, a, b)
 
 
 _t_gemm_acc.__bind_intents__ = (bind.InOut, bind.In, bind.In)

@@ -533,3 +533,89 @@ def test_runs_of_levels_equal_one_chain(dname):
     assert torch.equal(carry.view(torch.uint8), whole.view(torch.uint8))
     replay = ref.run_levels(attn_step, layout, 0, levels, (o, q, k, v))
     assert torch.equal(whole.view(torch.uint8), replay.view(torch.uint8))
+
+
+# ---------------------------------------------------------------------------
+# chain_ewise: one kernel per layout
+# ---------------------------------------------------------------------------
+
+def _ewise_layouts():
+    """Every layout ``ewise_problem`` accepts: the carry at each position,
+    the other two operands in every kind (y and a not both constants)."""
+    for carry_pos in range(3):
+        for k1, k2 in SCAN_LAYOUTS:
+            layout = [k1, k2]
+            layout.insert(carry_pos, "single")
+            if layout[0] == layout[1] == "const":
+                continue
+            yield tuple(layout), carry_pos
+
+
+def _ewise_operands(layout, carry_pos, n_levels=3, shape=(4, 5)):
+    out = []
+    for pos, lay in enumerate(layout):
+        if pos == carry_pos or lay == "single":
+            out.append(torch.ones(shape))
+        elif lay == "xs":
+            out.append(torch.ones((n_levels,) + shape))
+        elif lay == "const":
+            out.append(0.5)
+        else:
+            out.append(torch.ones(n_levels))
+    return tuple(out)
+
+
+def test_ewise_instantiations_cover_every_layout_ops_takes():
+    """``kernel.ewise_instantiation`` maps each layout ``chain/ops.py``
+    takes to a kernel: the carry's class 0 at its position, the others'
+    classes 1 (single, const), 2 (xs), 3 (xs_const); the 47 layouts fall
+    on 27 kernels, the ones csrc/chain.cu dispatches to (the carry at each
+    position, the other two in classes 1-3)."""
+    seen = set()
+    layouts = list(_ewise_layouts())
+    assert len(layouts) == 47
+    for layout, carry_pos in layouts:
+        args = _ewise_operands(layout, carry_pos)
+        assert ops.ewise_problem(layout, carry_pos, 3, args) is None, layout
+        inst = kernel.ewise_instantiation(layout, carry_pos)
+        assert inst[carry_pos] == 0 and inst.count(0) == 1
+        for pos, lay in enumerate(layout):
+            if pos != carry_pos:
+                assert inst[pos] == {"single": 1, "const": 1, "xs": 2,
+                                     "xs_const": 3}[lay]
+        seen.add(inst)
+    want = set()
+    for carry_pos in range(3):
+        for a in (1, 2, 3):
+            for b in (1, 2, 3):
+                inst = [a, b]
+                inst.insert(carry_pos, 0)
+                want.add(tuple(inst))
+    assert seen == want and len(seen) == 27
+
+
+def test_ewise_classes_are_the_kernels_numbering():
+    """kernel.py's kinds and classes are the ones csrc/chain.cu numbers:
+    its operand kinds, its class constants, its kind-to-class map and the
+    three classes its launcher dispatches on for each non-carry
+    position."""
+    src = kernel.SOURCES[0].read_text()
+    kinds = dict(re.findall(r"constexpr int (CARRY|SINGLE|XS|CONST|XS_CONST)"
+                            r" = (\d);", src))
+    assert {k.lower(): int(v) for k, v in kinds.items()} == kernel.KINDS
+    classes = {name: int(v) for name, v in re.findall(
+        r"constexpr int C_(CARRY|HELD|XS|XS_CONST) = (\d);", src)}
+    assert classes == {"CARRY": 0, "HELD": 1, "XS": 2, "XS_CONST": 3}
+    body = re.search(r"inline int ewise_class\(int k\) \{(.*?)\n\}", src,
+                     re.S).group(1)
+    mapped = dict(re.findall(r"case (\w+): return C_(\w+);", body))
+    assert mapped == {"CARRY": "CARRY", "XS": "XS", "XS_CONST": "XS_CONST"}
+    assert "default: return C_HELD" in body      # SINGLE, CONST
+    for kind, cls in kernel.EWISE_CLASS.items():
+        name = kind.upper()
+        assert classes[mapped.get(name, "HELD")] == cls, kind
+    for picker in ("ewise_pick_a", "ewise_pick_b"):
+        body = re.search(rf"cudaError_t {picker}\((.*?)\n\}}", src,
+                         re.S).group(1)
+        assert set(re.findall(r"case (C_\w+):", body)) == {
+            "C_HELD", "C_XS", "C_XS_CONST"}, picker

@@ -190,10 +190,12 @@ def test_attn_step_matches_the_reference_body(rng):
     got = ops.attn_step(*(torch.from_numpy(t) for t in vals))
     assert got.dtype == torch.float32 and tuple(got.shape) == (6, 5)
     np.testing.assert_allclose(got.numpy(), exp, rtol=1e-5, atol=1e-5)
-    # NumPy tiles stay NumPy, with the body's arithmetic
+    # NumPy tiles give what jax gives them: a float32 array (a CPU tensor
+    # here), with the body's arithmetic
     got_np = ops.attn_step(*vals)
-    assert isinstance(got_np, np.ndarray)
-    np.testing.assert_allclose(got_np, exp, rtol=1e-5, atol=1e-5)
+    assert isinstance(got_np, torch.Tensor) and got_np.device.type == "cpu"
+    assert got_np.dtype == torch.float32
+    np.testing.assert_allclose(got_np.numpy(), exp, rtol=1e-5, atol=1e-5)
     assert ops.attn_step.__bind_kernel__ == ref_step.__bind_kernel__ == "dot"
     assert ops.attn_step.__bind_vmap__ is False
 
@@ -202,7 +204,8 @@ def test_library_is_named_by_its_sources_and_headers():
     path = kernel.LIBRARY.path()
     assert path.name.startswith("libbind_flash_attention_")
     assert {h.name for h in kernel.LIBRARY.headers} == {
-        "attn_tile.cuh", "attn_wgmma.cuh", "gemm_tile.cuh", "gemm_wgmma.cuh"}
+        "attn_tile.cuh", "attn_wgmma.cuh", "attn_tf32.cuh", "gemm_tile.cuh",
+        "gemm_wgmma.cuh"}
     # every header the source includes, the new route's too, is hashed
     # into the library's name
     headers = {h.resolve() for h in kernel.LIBRARY.headers}
@@ -229,8 +232,10 @@ KB = 1 << 10
 
 
 @pytest.mark.parametrize("dtype, d, addresses, want", [
-    # float32 stays on the CUDA cores at every head dim and alignment
-    *[(torch.float32, d, (0, 4 * KB, 8 * KB, 12 * KB), "f32_simt")
+    # float32 goes to the tensor cores (3xTF32) where 32-column panels
+    # cover d up to 128, else it stays on the CUDA cores
+    *[(torch.float32, d, (0, 4 * KB, 8 * KB, 12 * KB),
+       "f32_3xtf32" if d in (64, 128) else "f32_simt")
       for d in (16, 64, 80, 128, 256, 320)],
     (torch.float32, 128, (4, 8, 12, 20), "f32_simt"),
     # bfloat16: tiles of 64 columns must cover d, up to 256
@@ -252,6 +257,51 @@ KB = 1 << 10
 def test_route_by_dtype_head_dim_and_alignment(dtype, d, addresses, want):
     assert ops.route(dtype, d, addresses) == want
     assert want in ops.ROUTES
+
+
+@pytest.mark.parametrize("d, addresses, want", [
+    # the 32-column panels of the 3xTF32 loop: d 32, 64, 96, 128
+    *[(d, (0, 16, 32, 48), "f32_3xtf32") for d in (32, 64, 96, 128)],
+    (128, (), "f32_3xtf32"),
+    # head dims the panels do not cover, or above 128 (RecurrentGemma-9B's
+    # 256: no key tile fits beside 128 rows of Q hi and lo)
+    *[(d, (0, 16, 32, 48), "f32_simt") for d in (0, 8, 16, 48, 80, 100,
+                                                 160, 192, 256)],
+    # misaligned operands: any of q, k, v, out off 16 bytes (a view at an
+    # odd element offset)
+    (128, (4, 16, 32, 48), "f32_simt"),
+    (128, (0, 20, 32, 48), "f32_simt"),
+    (128, (0, 16, 40, 48), "f32_simt"),
+    (64, (0, 16, 32, 52), "f32_simt"),
+])
+def test_float32_route_takes_the_tensor_cores_where_panels_fit(d, addresses,
+                                                              want):
+    assert ops.route(torch.float32, d, addresses) == want
+
+
+def test_float16_route_and_route_order():
+    """float16 stays on the CUDA-core loop at any head dim and alignment;
+    the names are in the C enum's order (Route of flash_attention.cu)."""
+    for d in (16, 64, 128, 256):
+        assert ops.route(torch.float16, d, (2, 6, 10, 14)) == "f16_simt"
+        assert ops.route(torch.float16, d, (0, 16, 32, 48)) == "f16_simt"
+    assert ops.ROUTES == ("f32_simt", "bf16_simt", "bf16_wgmma",
+                          "f32_3xtf32", "f16_simt")
+    assert kernel.DTYPE_CODES == {torch.float32: 0, torch.bfloat16: 1,
+                                  torch.float16: 2}
+
+
+def test_odd_offset_float32_views_take_the_cuda_cores():
+    """A contiguous view one element into its storage is 4 bytes off 16:
+    the 3xTF32 loop's 16-byte loads cannot read it."""
+    base = torch.zeros(1 + 2 * 4 * 128)
+    view = base[1:].view(1, 2, 4, 128)
+    whole = torch.zeros(1, 2, 4, 128)
+    addrs = [t.data_ptr() for t in (view, whole, whole, whole)]
+    assert ops.route(torch.float32, 128, addrs) == "f32_simt"
+    addrs = [t.data_ptr() for t in (whole, whole, whole, whole)]
+    assert all(a % 16 == 0 for a in addrs)
+    assert ops.route(torch.float32, 128, addrs) == "f32_3xtf32"
 
 
 def test_route_rejects_dtypes_without_a_kernel():

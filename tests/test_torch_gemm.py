@@ -90,7 +90,7 @@ def test_float64_accumulates_in_float64():
 @pytest.mark.parametrize("bad, err", [
     (lambda a, b: (a.t(), b), ValueError),                  # not contiguous
     (lambda a, b: (a, b.double()), TypeError),              # mixed dtypes
-    (lambda a, b: (a.half(), b.half()), TypeError),         # no kernel dtype
+    (lambda a, b: (a.int(), b.int()), TypeError),           # no kernel dtype
     (lambda a, b: (a[0], b), ValueError),                   # not 2-D
     (lambda a, b: (a, b[:3]), ValueError),                  # inner mismatch
     (lambda a, b: (a.numpy(), b), TypeError),               # not a tensor
@@ -209,7 +209,16 @@ def test_route_of_a_contiguous_view_at_an_offset(offset, want):
 
 def test_route_rejects_dtypes_without_a_kernel():
     with pytest.raises(TypeError):
-        ops.route(torch.float16, 8, 8, 8)
+        ops.route(torch.int32, 8, 8, 8)
+
+
+@pytest.mark.parametrize("m, n, k", [(8, 8, 8), (130, 70, 260), (1, 1, 1)])
+def test_float16_takes_the_cuda_core_route(m, n, k):
+    """float16 runs on the CUDA-core loop, fp32 inside, at any shape and
+    alignment (its index in ROUTES is the C enum's, F16_SIMT = 4)."""
+    assert ops.route(torch.float16, m, n, k, (2, 6)) == "f16_simt"
+    assert ops.ROUTES.index("f16_simt") == 4
+    assert kernel.DTYPE_CODES[torch.float16] == 3
 
 
 def test_cpu_calls_count_no_route():

@@ -16,8 +16,14 @@ C entry points on the same inputs:
 
 * flash attention in float32 at the reference's cases (``ATTN_CASES`` of
   ``chip_smoke.py``), h2o-danube-1.8b's head dim 80 and full
-  RecurrentGemma-9B and Qwen3-14B width: bit for bit equal on the two
-  sides;
+  RecurrentGemma-9B and Qwen3-14B width, and again at head dims 64 and
+  128 and at ``MID_ATTN`` at d 64 and 128: where this side takes
+  ``f32_simt``, bit for bit equal on the two sides; where it takes
+  ``f32_3xtf32`` (a route an older side may not have: its float32 is the
+  CUDA-core loop), each side within the reference's float32 tolerance
+  (2e-5) of the oracle, and this side's largest error against a float64
+  computation at most ``TF32_VS_SIMT`` times the other side's, per slice
+  of 8 heads, when the other side took ``f32_simt``;
 * flash attention in bfloat16 at the same cases with the head dim raised
   to 64 and 128, at ``chip_smoke.py``'s ``MID_ATTN`` cases (many key tiles
   per query tile) at d 64, 128, 192 and 256, at d 80 and at full width:
@@ -48,10 +54,14 @@ from pathlib import Path
 
 from _ab import KERNELS, ROOT, ab, build_all, start
 from chip_smoke import (ATTN_CASES, ATTN_TOL, FULL_ATTN, MID_ATTN,
-                        MID_HEAD_DIMS, ODD_ATTN, bf16_attention_error,
-                        bf16_within)
+                        MID_HEAD_DIMS, ODD_ATTN, TF32_VS_SIMT, attention64,
+                        bf16_attention_error, bf16_within)
 
-ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma")
+# the routes in the order of flash_attention.cu's Route enum; a side whose
+# bind_flash_attention_route takes the element size has the first three
+ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f32_3xtf32", "f16_simt")
+DTYPE_CODES = {"float32": 0, "bfloat16": 1, "float16": 2}
+F32_TOL = ATTN_TOL["float32"]
 TOL = ATTN_TOL["bfloat16"]      # the reference's, rtol = atol
 CHAIN_SHAPES = ((512, 512, 128, 128, 16), (100, 70, 40, 24, 3))
 CHAIN_LAYOUTS = (("single", "single", "xs", "xs"),
@@ -84,6 +94,8 @@ def libraries(CudaLibrary, side: str, root: Path):
         fa_syms["bind_flash_attention_route"] = FA_ROUTE_ARGS
     fa = CudaLibrary(f"ab_fa_{side}", (fa_dir / "flash_attention.cu",),
                      headers, fa_syms)
+    # how its route entry point names the element type
+    fa.route_by_size = "int elem_bytes" in source
     chain_cu = root / KERNELS / "chain" / "csrc" / "chain.cu"
     # the level-parallel kernel's entry point names its workspace
     entry = re.search(r"int bind_chain_attn_##SUFFIX\((.*?)\)",
@@ -126,9 +138,11 @@ def main(argv: list[str]) -> int:
         fa = libs[side][0]
         if "bind_flash_attention_route" not in fa.symbols:
             return "one loop"
+        code = (q.element_size() if fa.route_by_size
+                else DTYPE_CODES[str(q.dtype)[6:]])
         r = fa.load().bind_flash_attention_route(
-            q.element_size(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), q.shape[3])
+            code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.shape[3])
         return ROUTES[r]
 
     def fa_call(side, q, k, v, out, causal, window):
@@ -158,9 +172,29 @@ def main(argv: list[str]) -> int:
         name = (f"flash_attention {label}{(b, hq, hkv, sq, skv, d)} causal "
                 f"{causal} window {window} {dname} (routes: this "
                 f"{routes['this']}, other {routes['other']})")
-        if dname == "float32":
+        if dname == "float32" and routes["this"] != "f32_3xtf32":
             ok = torch.equal(outs["this"], outs["other"])
             what = "this vs other bitwise equal"
+        elif dname == "float32":
+            # no bits to match across routes: both to the oracle, and this
+            # side to float64 beside the other's CUDA-core loop
+            ok = all(torch.allclose(outs[s], exp, rtol=F32_TOL,
+                                    atol=F32_TOL) for s in libs)
+            worst = 0.0
+            if routes["other"] == "f32_simt":
+                for h0 in range(0, hq, 8):
+                    heads = range(h0, min(hq, h0 + 8))
+                    e64 = attention64(torch, fa_ref, q, k, v, causal,
+                                      window, heads)
+                    e = {s: (outs[s][:, h0:h0 + 8].double() - e64).abs()
+                         .max().item() for s in libs}
+                    ratio = e["this"] / max(e["other"], 1e-30)
+                    worst = max(worst, ratio)
+                    ok = ok and ratio <= TF32_VS_SIMT
+                    del e64
+            what = (f"both sides within {F32_TOL} of the oracle; this side's "
+                    f"float64 error at most {worst:.2f} x the other's "
+                    f"(limit {TF32_VS_SIMT})")
         else:
             exp32 = fa_ref.attention(q.float(), k.float(), v.float(),
                                      causal=causal, window=window)
@@ -183,10 +217,15 @@ def main(argv: list[str]) -> int:
 
     cases = [("", case, "float32", 16) for case in ATTN_CASES]
     for d in (64, 128):
-        cases += [("", case[:5] + (d,) + case[6:], "bfloat16", 16)
-                  for case in ATTN_CASES]
-        # Sq > Skv under causal + window: rows past Skv + window see no key
-        cases.append(("", (1, 2, 2, 64, 32, d, True, 8), "bfloat16", 16))
+        for dname in ("float32", "bfloat16"):
+            cases += [("", case[:5] + (d,) + case[6:], dname, 16)
+                      for case in ATTN_CASES]
+            # Sq > Skv under causal + window: rows past Skv + window see no
+            # key
+            cases.append(("", (1, 2, 2, 64, 32, d, True, 8), dname, 16))
+        cases += [("mid ", (b, hq, hkv, sq, skv, d, causal, window),
+                   "float32", blk)
+                  for b, hq, hkv, sq, skv, causal, window, blk in MID_ATTN]
     for d in MID_HEAD_DIMS:
         cases += [("mid ", (b, hq, hkv, sq, skv, d, causal, window),
                    "bfloat16", blk)

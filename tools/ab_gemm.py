@@ -43,7 +43,10 @@ from _ab import KERNELS, ROOT, ab, build_all, start
 N = 1024
 LEVELS = 8
 SUFFIX = {"float32": "f32", "bfloat16": "bf16", "float64": "f64"}
-ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f64_dmma")
+ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f64_dmma", "f16_simt")
+# bind_gemm_route's element-type codes (a side whose entry point takes the
+# element size has the first four routes)
+DTYPE_CODES = {"float32": 0, "bfloat16": 1, "float64": 2, "float16": 3}
 # chip_smoke.py's TOL: kernel vs plain version, (rtol, atol) per dtype
 TOL = {"float32": (1e-4, 1e-3), "bfloat16": (2e-2, 2e-1),
        "float64": (1e-10, 1e-9)}
@@ -59,10 +62,12 @@ def libraries(CudaLibrary, side: str, root: Path):
     headers = tuple(sorted(gemm_dir.glob("*.cuh"))) + tuple(sorted(
         (root / KERNELS / "flash_attention" / "csrc").glob("*.cuh")))
     gemm_syms = {f"bind_gemm_{s}": GEMM_ARGS for s in SUFFIX.values()}
-    if "bind_gemm_route" in (gemm_dir / "gemm.cu").read_text():
+    source = (gemm_dir / "gemm.cu").read_text()
+    if "bind_gemm_route" in source:
         gemm_syms["bind_gemm_route"] = ROUTE_ARGS
     gemm = CudaLibrary(f"ab_gemm_{side}", (gemm_dir / "gemm.cu",), headers,
                        gemm_syms)
+    gemm.route_by_size = "int elem_bytes" in source
     chain = CudaLibrary(
         f"ab_chain_{side}", (root / KERNELS / "chain" / "csrc" / "chain.cu",),
         headers, {f"bind_chain_dot_{s}": DOT_ARGS for s in SUFFIX.values()})
@@ -95,9 +100,10 @@ def main(argv: list[str]) -> int:
         gemm = libs[side][0]
         if "bind_gemm_route" not in gemm.symbols:
             return "one loop"
-        r = gemm.load().bind_gemm_route(a.element_size(), a.data_ptr(),
-                                        a_stride, b.data_ptr(), b_stride, m,
-                                        n, k)
+        code = (a.element_size() if gemm.route_by_size
+                else DTYPE_CODES[str(a.dtype)[6:]])
+        r = gemm.load().bind_gemm_route(code, a.data_ptr(), a_stride,
+                                        b.data_ptr(), b_stride, m, n, k)
         return ROUTES[r]
 
     def gemm_call(side, dname, a, b, c, out):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Plant faults in copies of the bfloat16 tensor-core attention kernel and
-show that ``chip_smoke.py``'s bf16 checks catch them.
+"""Plant faults in copies of the tensor-core attention kernels (bfloat16
+and 3xTF32) and show that ``chip_smoke.py``'s checks catch them.
 
 Usage, from the root of a checkout, on a machine with one CUDA card::
 
@@ -9,16 +9,21 @@ Usage, from the root of a checkout, on a machine with one CUDA card::
 For each fault in ``FAULTS`` the flash-attention sources
 (``src/repro_torch/kernels/flash_attention/csrc`` and the GEMM headers
 they include) are copied under ``build/attn_faults/<fault>/``, one line of
-them is replaced (the line must occur exactly once), and the copy is
-built, all builds started together.  A copy with no fault is built the
-same way as the control.  Each library runs, through its bfloat16 C entry
-point, the cases of ``chip_smoke.py``'s ``MID_ATTN`` at every head dim of
-``MID_HEAD_DIMS`` on the same inputs, and each output is checked as
-``chip_smoke.py`` checks it: within the reference's tolerance (3e-2) of
-the oracle on the padded inputs, within the limits scaled to each value
-against the float32 oracle (``bf16_attention_error``), and zero where a
-row sees no key.  A fault is caught when some case fails a check; how
-many cases the scaled limits and the 3e-2 tolerance each fail is printed.
+them (or each of a few) is replaced (the line must occur exactly once),
+and the copy is built, all builds started together.  A copy with no fault
+is built the same way as the control.  A bfloat16 fault's library runs,
+through its bfloat16 C entry point, the cases of ``chip_smoke.py``'s
+``MID_ATTN`` at every head dim of ``MID_HEAD_DIMS`` on the same inputs,
+each output checked as ``chip_smoke.py`` checks it: within the
+reference's tolerance (3e-2) of the oracle on the padded inputs, within
+the limits scaled to each value against the float32 oracle
+(``bf16_attention_error``), and zero where a row sees no key.  A float32
+fault's library (the ``f32_3xtf32`` route) runs ``MID_ATTN`` at d 64 and
+128 and the reference's cases at d 64 and 128 in float32, each output
+within the reference's float32 tolerance (2e-5) of the oracle.  The
+control runs both sets.  A fault is caught when some case fails a check;
+how many cases the scaled limits and the 3e-2 tolerance each fail is
+printed for bf16.
 
 Prints, per fault, how many cases caught it and the worst statistics over
 the cases.  Exits non-zero when the control fails a check or a fault
@@ -32,37 +37,52 @@ import shutil
 import sys
 
 from _ab import KERNELS, ROOT, build_all, start
-from chip_smoke import (ATTN_TOL, MID_ATTN, MID_HEAD_DIMS,
+from chip_smoke import (ATTN_CASES, ATTN_TOL, MID_ATTN, MID_HEAD_DIMS,
                         bf16_attention_error, bf16_within)
 
-# (name, file, line, replacement, whether the checks must catch it)
+# (name, dtype, file, line, replacement, whether the checks must catch it);
+# line and replacement may be tuples of lines, each replaced in turn
 FAULTS = (
-    ("no O rescale", "attn_wgmma.cuh",
+    ("no O rescale", "bfloat16", "attn_wgmma.cuh",
      "if (!__all_sync(0xffffffffu, corr[0] == 1.0f && corr[1] == 1.0f)) {",
      "if (false) {", True),
-    ("P of the previous tile", "attn_wgmma.cuh",
+    ("P of the previous tile", "bfloat16", "attn_wgmma.cuh",
      "pa[i] = pack_bf16(p0, p1);",
      "if (k0 == 0) pa[i] = pack_bf16(p0, p1);", True),
-    ("scale without log2(e)", "flash_attention.cu",
-     "scale * 1.4426950408889634f", "scale", True),
-    ("ragged keys unmasked", "attn_wgmma.cuh",
+    ("scale without log2(e)", "bfloat16", "flash_attention.cu",
+     "scale * 1.4426950408889634f, mask};", "scale, mask};", True),
+    ("ragged keys unmasked", "bfloat16", "attn_wgmma.cuh",
      "bool vis = key < sh.skv;", "bool vis = true;", True),
-    ("causal diagonal hidden", "attn_wgmma.cuh",
+    ("causal diagonal hidden", "bfloat16", "attn_wgmma.cuh",
      "vis = vis && key <= row;", "vis = vis && key < row;", True),
-    ("window one key wider", "attn_wgmma.cuh",
+    ("window one key wider", "bfloat16", "attn_wgmma.cuh",
      "vis = vis && row - key < mask.window;",
      "vis = vis && row - key <= mask.window;", True),
-    ("l rounded to bf16 every tile", "attn_wgmma.cuh",
+    ("l rounded to bf16 every tile", "bfloat16", "attn_wgmma.cuh",
      "l[h] = corr[h] * l[h] + sum[h];",
      "l[h] = __bfloat162float(__float2bfloat16(corr[h] * l[h] + sum[h]));",
      False),
+    ("lo products dropped (plain TF32)", "float32", "attn_tf32.cuh",
+     ("*reinterpret_cast<float4*>(lo + off) = l;",
+      "*reinterpret_cast<float*>(lo + off) = tf32_rna(x - h);",
+      "pl[i] = tf32_rna(p - hi);"),
+     ("*reinterpret_cast<float4*>(lo + off) = make_float4(0, 0, 0, 0);",
+      "*reinterpret_cast<float*>(lo + off) = 0.0f;",
+      "pl[i] = 0.0f;"), True),
+    ("V's lo half dropped", "float32", "attn_tf32.cuh",
+     "*reinterpret_cast<float*>(lo + off) = tf32_rna(x - h);",
+     "*reinterpret_cast<float*>(lo + off) = 0.0f;", True),
 )
 _P, _I, _I64, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_double)
 FA_ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _D, _I, _I,
            _I64, _P)
 ROUTE_ARGS = (_I, _P, _P, _P, _P, _I64)
-ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma")
+# flash_attention.cu's Route enum and its element-type codes
+ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f32_3xtf32", "f16_simt")
+DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+SUFFIX = {"float32": "f32", "bfloat16": "bf16"}
+WANT = {"float32": "f32_3xtf32", "bfloat16": "bf16_wgmma"}
 TOL = ATTN_TOL["bfloat16"]      # the reference's, rtol = atol
 
 
@@ -76,13 +96,18 @@ def planted(CudaLibrary, index: int, fault):
         shutil.copytree(ROOT / KERNELS / part / "csrc",
                         copy / part / "csrc")
     if fault is not None:
-        _name, file, line, replacement, _must = fault
+        _name, _dtype, file, lines, replacements, _must = fault
+        if isinstance(lines, str):
+            lines, replacements = (lines,), (replacements,)
         path = copy / "flash_attention" / "csrc" / file
         text = path.read_text()
-        if text.count(line) != 1:
-            raise RuntimeError(f"{file}: {line!r} occurs {text.count(line)} "
-                               f"times, expected once")
-        path.write_text(text.replace(line, replacement))
+        for line, replacement in zip(lines, replacements):
+            if text.count(line) != 1:
+                raise RuntimeError(f"{file}: {line!r} occurs "
+                                   f"{text.count(line)} times, expected "
+                                   f"once")
+            text = text.replace(line, replacement)
+        path.write_text(text)
     headers = tuple(sorted((copy / "gemm" / "csrc").glob("*.cuh"))
                     + sorted((copy / "flash_attention" / "csrc")
                              .glob("*.cuh")))
@@ -90,6 +115,7 @@ def planted(CudaLibrary, index: int, fault):
                        (copy / "flash_attention" / "csrc" /
                         "flash_attention.cu",), headers,
                        {"bind_flash_attention_bf16": FA_ARGS,
+                        "bind_flash_attention_f32": FA_ARGS,
                         "bind_flash_attention_route": ROUTE_ARGS})
 
 
@@ -112,7 +138,7 @@ def main(argv: list[str]) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    cases = []
+    cases = {"bfloat16": [], "float32": []}
     for d in MID_HEAD_DIMS:
         for b, hq, hkv, sq, skv, causal, window, blk in MID_ATTN:
             q = torch.randn((b, hq, sq, d), generator=gen, device=dev)
@@ -126,61 +152,110 @@ def main(argv: list[str]) -> int:
                                      causal=causal, window=window)
             seen = fa_ref.mask(q.shape[2], k.shape[2], causal=causal,
                                window=window, device=dev)
-            cases.append((f"({b}, {hq}, {hkv}, {sq}, {skv}, {d}) causal "
-                          f"{causal} window {window}", q, k, v, causal,
-                          window, exp, exp32, ~seen.any(dim=-1)))
+            cases["bfloat16"].append((
+                f"({b}, {hq}, {hkv}, {sq}, {skv}, {d}) causal {causal} "
+                f"window {window}", q, k, v, causal, window, exp, exp32,
+                ~seen.any(dim=-1)))
+    # float32 on the 3xTF32 route: MID_ATTN and the reference's cases at the
+    # head dims it takes
+    f32_shapes = [(b, hq, hkv, sq, skv, d, causal, window, blk)
+                  for d in (64, 128)
+                  for b, hq, hkv, sq, skv, causal, window, blk in MID_ATTN]
+    f32_shapes += [case[:5] + (d,) + case[6:] + (16,)
+                   for d in (64, 128) for case in ATTN_CASES]
+    for b, hq, hkv, sq, skv, d, causal, window, blk in f32_shapes:
+        q = torch.randn((b, hq, sq, d), generator=gen, device=dev)
+        k = torch.randn((b, hkv, skv, d), generator=gen, device=dev)
+        v = torch.randn((b, hkv, skv, d), generator=gen, device=dev)
+        q, k, v = fa_ops.pad(q, k, v, causal=causal, window=window, bq=blk,
+                             bkv=blk)
+        exp = fa_ref.attention(q, k, v, causal=causal, window=window)
+        seen = fa_ref.mask(q.shape[2], k.shape[2], causal=causal,
+                           window=window, device=dev)
+        cases["float32"].append((
+            f"({b}, {hq}, {hkv}, {sq}, {skv}, {d}) causal {causal} window "
+            f"{window}", q, k, v, causal, window, exp, None,
+            ~seen.any(dim=-1)))
+
+    def run_case(lib, dname, label, q, k, v, causal, window):
+        out = torch.empty_like(q)
+        b, hq, sq, d = q.shape
+        route = ROUTES[lib.load().bind_flash_attention_route(
+            DTYPE_CODES[dname], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), d)]
+        if route != WANT[dname]:
+            raise RuntimeError(f"{label}: route {route}, expected "
+                               f"{WANT[dname]}")
+        lib.call(f"bind_flash_attention_{SUFFIX[dname]}", q.data_ptr(),
+                 k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+                 k.shape[1], sq, k.shape[2], d, d ** -0.5, int(causal),
+                 int(window is not None), 0 if window is None else window,
+                 stream)
+        torch.cuda.synchronize()
+        return out
 
     failed = False
     for fault, lib in zip(faults, libs):
-        name = "control (no fault)" if fault is None else fault[0]
-        caught, by_limits, by_tolerance, first = 0, 0, 0, None
-        worst = {"element": 0.0, "slice": 0.0, "row": 0.0, "max_abs": 0.0}
-        for label, q, k, v, causal, window, exp, exp32, blind in cases:
-            out = torch.empty_like(q)
-            b, hq, sq, d = q.shape
-            route = ROUTES[lib.load().bind_flash_attention_route(
-                2, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                d)]
-            if route != "bf16_wgmma":
-                raise RuntimeError(f"{label}: route {route}, expected "
-                                   f"bf16_wgmma")
-            lib.call("bind_flash_attention_bf16", q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), out.data_ptr(), b, hq, k.shape[1], sq,
-                     k.shape[2], d, d ** -0.5, int(causal),
-                     int(window is not None),
-                     0 if window is None else window, stream)
-            torch.cuda.synchronize()
-            stats = bf16_attention_error(out, exp32, v)
-            stats["max_abs"] = (out.double() - exp.double()).abs().max().item()
-            # the reference's tolerance alone, and the limits scaled to
-            # each value
-            tolerance = (bool(torch.isfinite(out).all())
-                         and torch.allclose(out.float(), exp.float(),
-                                            rtol=TOL, atol=TOL)
-                         and not out[:, :, blind].any().item())
-            limits = bf16_within(stats)
-            by_tolerance += not tolerance
-            by_limits += not limits
-            ok = tolerance and limits
-            for key, x in stats.items():
-                # a non-finite statistic is the worst there is, and stays
-                if not x <= worst[key] and worst[key] == worst[key]:
-                    worst[key] = x
-            if not ok:
-                caught += 1
-                first = first or label
-        what = (f"caught by {caught} of {len(cases)} cases (first: {first};"
-                f" by the scaled limits {by_limits}, by the 3e-2 tolerance "
-                f"{by_tolerance})"
-                if caught else f"passes all {len(cases)} cases")
-        print(f"[fault] {name}: {what}; worst element {worst['element']:.3f}"
-              f" of its limit, slice rms {worst['slice']:.3e}, row rms "
-              f"{worst['row']:.3e}, max_abs_err {worst['max_abs']:.3e} "
-              f"against the bf16 oracle")
-        if fault is None:
-            failed |= caught > 0
-        elif fault[4] and not caught:
-            failed = True
+        dnames = ("bfloat16", "float32") if fault is None else (fault[1],)
+        for dname in dnames:
+            name = "control (no fault)" if fault is None else fault[0]
+            name = f"{name} [{dname}]"
+            caught, by_limits, by_tolerance, first = 0, 0, 0, None
+            worst = {"element": 0.0, "slice": 0.0, "row": 0.0,
+                     "max_abs": 0.0}
+            for (label, q, k, v, causal, window, exp, exp32,
+                 blind) in cases[dname]:
+                out = run_case(lib, dname, label, q, k, v, causal, window)
+                max_abs = (out.double() - exp.double()).abs().max().item()
+                if dname == "float32":
+                    tol = ATTN_TOL["float32"]
+                    ok = (bool(torch.isfinite(out).all())
+                          and torch.allclose(out, exp, rtol=tol, atol=tol)
+                          and not out[:, :, blind].any().item())
+                    stats = {"max_abs": max_abs}
+                    by_tolerance += not ok
+                else:
+                    stats = bf16_attention_error(out, exp32, v)
+                    stats["max_abs"] = max_abs
+                    # the reference's tolerance alone, and the limits
+                    # scaled to each value
+                    tolerance = (bool(torch.isfinite(out).all())
+                                 and torch.allclose(out.float(), exp.float(),
+                                                    rtol=TOL, atol=TOL)
+                                 and not out[:, :, blind].any().item())
+                    limits = bf16_within(stats)
+                    by_tolerance += not tolerance
+                    by_limits += not limits
+                    ok = tolerance and limits
+                for key, x in stats.items():
+                    # a non-finite statistic is the worst there is, and
+                    # stays
+                    if not x <= worst[key] and worst[key] == worst[key]:
+                        worst[key] = x
+                if not ok:
+                    caught += 1
+                    first = first or label
+            n = len(cases[dname])
+            if dname == "float32":
+                what = (f"caught by {caught} of {n} cases (first: {first}; "
+                        f"the 2e-5 tolerance)" if caught
+                        else f"passes all {n} cases")
+                print(f"[fault] {name}: {what}; max_abs_err "
+                      f"{worst['max_abs']:.3e} against the oracle")
+            else:
+                what = (f"caught by {caught} of {n} cases (first: {first};"
+                        f" by the scaled limits {by_limits}, by the 3e-2 "
+                        f"tolerance {by_tolerance})"
+                        if caught else f"passes all {n} cases")
+                print(f"[fault] {name}: {what}; worst element "
+                      f"{worst['element']:.3f} of its limit, slice rms "
+                      f"{worst['slice']:.3e}, row rms {worst['row']:.3e}, "
+                      f"max_abs_err {worst['max_abs']:.3e} against the bf16 "
+                      f"oracle")
+            if fault is None:
+                failed |= caught > 0
+            elif fault[5] and not caught:
+                failed = True
     print(f"[fault] {'FAILED' if failed else 'ok'}: the control passes and "
           f"every fault the checks must catch is caught")
     return 1 if failed else 0
