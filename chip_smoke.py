@@ -99,8 +99,10 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    threads >= 0.9x serial) on both, as the best of five interleaved warm
    rounds of each; the tensor bodies on operands their kernels do not
    take (int32 and mixed-dtype ``gemm_tile`` and ``_t_gemm_acc``, 3-D and
-   float16 ``attn_step``): no kernel launch, the reference's body
-   expression's result;
+   float16 ``attn_step``): no kernel launch, one call of the body
+   expression, its result the reference's; every other run of 4b-8
+   counts the body expressions too (``accumulate_body.calls``,
+   ``step_body.calls``), and must make none;
    after each run of 4b-8, dropping the result must give back the device
    memory the run allocated (a finished workflow is freed by reference
    counting, not at the next cyclic garbage collection); after each warm
@@ -684,8 +686,7 @@ def main() -> int:
     print(f"[chain] chain_ewise: {n_ewise} cases (f32/bf16/f64 x (1024,1024) "
           f"and (1000,37) x {n_layouts} layouts, {SCAN_LEVELS} levels) "
           f"bitwise equal to the plain version: ok")
-    # each layout's kernel (chain_kernel.ewise_instantiation) and its
-    # device time at the main path's shape
+    # each layout's device time at the main path's shape
     for layout, carry_pos in ewise_layouts():
         args = ewise_args(layout, carry_pos, (IB, IB), SCAN_LEVELS,
                           torch.float32)
@@ -695,9 +696,8 @@ def main() -> int:
         nbytes = (moved + IB * IB) * 4
         bnd, by = bound_ms(nbytes, 2 * SCAN_LEVELS * IB * IB, "float32")
         print(f"[chain] chain_ewise {IB}^2 x {SCAN_LEVELS} float32 {layout} "
-              f"carry {carry_pos} (kernel "
-              f"{chain_kernel.ewise_instantiation(layout, carry_pos)}): "
-              f"{ms:.4f} ms device time, bound {bnd:.4f} ms ({by})")
+              f"carry {carry_pos}: {ms:.4f} ms device time, bound "
+              f"{bnd:.4f} ms ({by})")
         del args
     for dname, dt in dtypes.items():
         for m, k, n, L in ((IB, IB, IB, DOT_LEVELS), (130, 70, 260, 3),
@@ -897,14 +897,21 @@ def main() -> int:
                 "flash_attention": fa_ops.flash_attention,
                 "linear_scan": ls_ops.linear_scan}
 
+    # the tensor bodies' expressions, taken where a kernel refuses the
+    # operands: no main-path op may take them
+    bodies = {"body.gemm": ops.accumulate_body, "body.attn": fa_ops.step_body}
+
     def zero_counts():
         for wrapper in wrappers.values():
             wrapper.launches = 0
             if hasattr(wrapper, "routes"):
                 wrapper.routes = {}
+        for body in bodies.values():
+            body.calls = 0
 
     def counts():
-        return {name: w.launches for name, w in wrappers.items()}
+        return {**{name: w.launches for name, w in wrappers.items()},
+                **{name: b.calls for name, b in bodies.items()}}
 
     def only(label, got, name, want):
         check(got[name] == want, f"{label}: {got[name]} {name} launches, "
@@ -1433,6 +1440,9 @@ def main() -> int:
             serial_walls.append(time.perf_counter() - t0)
         serial_wall = serial_walls[1]
         serial_counts = counts()
+        check(not any(serial_counts[name] for name in bodies),
+              f"{label}: serial replay took a body expression: "
+              f"{serial_counts}")
 
         def describe(phase, result, got, wall, mallocs, label=label,
                      wrapper=wrapper, levels=levels, want=want):
@@ -1547,19 +1557,23 @@ def main() -> int:
         sc = torch.softmax((q @ k.T) * (1.0 / float(q.shape[-1]) ** 0.5), -1)
         return o + sc @ v
 
-    bodies = (("gemm_tile int32", gemm_tile, gi, exact, 0.0),
-              ("_t_gemm_acc int32", tiles_ops._t_gemm_acc, gi, exact, 0.0),
-              ("gemm_tile f32 c, f16 a b", gemm_tile, mixed, mixed_exp,
-               1e-6),
-              ("attn_step 3-D o, q", attn_step, (o3, q3, k2, v2),
-               step_expr(o3, q3, k2, v2), 1e-6),
-              ("attn_step float16", attn_step, half, step_expr(*half), 1e-3))
-    for label, body, args, exp, tol in bodies:
+    rejected = (
+        ("gemm_tile int32", gemm_tile, gi, exact, 0.0, "body.gemm"),
+        ("_t_gemm_acc int32", tiles_ops._t_gemm_acc, gi, exact, 0.0,
+         "body.gemm"),
+        ("gemm_tile f32 c, f16 a b", gemm_tile, mixed, mixed_exp, 1e-6,
+         "body.gemm"),
+        ("attn_step 3-D o, q", attn_step, (o3, q3, k2, v2),
+         step_expr(o3, q3, k2, v2), 1e-6, "body.attn"),
+        ("attn_step float16", attn_step, half, step_expr(*half), 1e-3,
+         "body.attn"))
+    for label, body, args, exp, tol, expr in rejected:
         zero_counts()
         got = body(*args)
         torch.cuda.synchronize()
         launched = {k: v for k, v in counts().items() if v}
-        check(not launched, f"{label}: kernel launches {launched}")
+        check(launched == {expr: 1}, f"{label}: counted {launched}, "
+              f"expected one {expr} call and no kernel launch")
         check(got.dtype == exp.dtype and got.shape == exp.shape
               and got.device == exp.device,
               f"{label}: {got.dtype}{tuple(got.shape)} on {got.device}, "
@@ -1567,7 +1581,8 @@ def main() -> int:
         err = (got.double() - exp.double()).abs().max().item()
         check(err <= tol * max(1.0, exp.double().abs().max().item()),
               f"{label}: max_abs_err {err:.3e}")
-        print(f"[bodies] {label} on the card: no kernel launch, "
+        print(f"[bodies] {label} on the card: no kernel launch, one "
+              f"{expr} call, "
               f"{got.dtype}{tuple(got.shape)}, max_abs_err {err:.3e} against "
               f"the reference's body expression: ok")
     del gi, exact, mixed, mixed_exp, o3, q3, k2, v2, half

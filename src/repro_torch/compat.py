@@ -20,6 +20,7 @@ none (a NumPy workflow stays on the host).
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import numpy as np
@@ -106,16 +107,52 @@ def jax_operands(*operands) -> list:
     return out
 
 
+# the largest temporary of an integer matrix product on the card (bytes)
+INT_PRODUCT_BYTES = 64 << 20
+
+
 def jax_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` as jax computes it: both operands promoted to one dtype
     first.  The card has no integer matrix product, so there an integer
-    one is summed from the broadcast products in the operands' type,
-    wrapping on overflow as jax's does."""
+    one is :func:`int_matmul`."""
     dt = torch.promote_types(a.dtype, b.dtype)
     a, b = a.to(dt), b.to(dt)
     if a.is_cuda and not (dt.is_floating_point or dt.is_complex):
-        return (a.unsqueeze(-1) * b.unsqueeze(-3)).sum(-2, dtype=dt)
+        return int_matmul(a, b)
     return a @ b
+
+
+def k_step(a: torch.Tensor, b: torch.Tensor,
+           budget: int = INT_PRODUCT_BYTES) -> int:
+    """How many of the ``K`` products of ``a @ b`` (``(..., M, K)`` by
+    ``(..., K, N)``) :func:`int_matmul` forms at once: as many as fit in
+    ``budget`` bytes, at least one."""
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    per_k = (math.prod(batch) * a.shape[-2] * b.shape[-1]
+             * a.element_size())
+    return max(1, budget // max(per_k, 1))
+
+
+def int_matmul(a: torch.Tensor, b: torch.Tensor,
+               budget: int = INT_PRODUCT_BYTES) -> torch.Tensor:
+    """``a @ b`` of two integer tensors of one dtype, at least 2-D, summed
+    from their broadcast products in that dtype, wrapping on overflow as
+    jax's product does.  The products are formed :func:`k_step` columns of
+    ``a`` at a time, so no temporary holds more than ``budget`` bytes (or
+    one column's ``M x N`` products, if those are more) and the sum is the
+    same modulo the type's range."""
+    step = k_step(a, b, budget)
+    k = a.shape[-1]
+    out = None
+    for k0 in range(0, k, step):
+        part = (a[..., k0:k0 + step].unsqueeze(-1)
+                * b[..., k0:k0 + step, :].unsqueeze(-3)).sum(-2,
+                                                            dtype=a.dtype)
+        out = part if out is None else out.add_(part)
+    if out is None:     # K = 0
+        shape = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+        out = a.new_zeros(shape + (a.shape[-2], b.shape[-1]))
+    return out
 
 
 def to_numpy(tensor: Any) -> np.ndarray:
@@ -132,6 +169,6 @@ def to_numpy(tensor: Any) -> np.ndarray:
     return t.numpy()
 
 
-__all__ = ["NP_TO_TORCH", "TORCH_TO_NP", "cuda_available", "jax_matmul",
-           "jax_operands", "numpy_dtype", "to_numpy", "to_torch",
-           "torch_dtype"]
+__all__ = ["INT_PRODUCT_BYTES", "NP_TO_TORCH", "TORCH_TO_NP",
+           "cuda_available", "int_matmul", "jax_matmul", "jax_operands",
+           "k_step", "numpy_dtype", "to_numpy", "to_torch", "torch_dtype"]

@@ -7,12 +7,18 @@ version (``ref.py``) and the public wrappers with their launch counters
 
 Launch counters are plain integers on the wrapper functions.  Wrappers
 may be called from the thread-pool backend's workers, so every increment
-goes through :func:`count_launch`, which holds one lock.
+goes through :func:`count_launch`, which holds one lock.  A tensor op
+body that computes its reference expression instead of launching its
+kernel counts that call in ``calls`` on the body function
+(:func:`count_body`), so a run can show that no op took that path.
 """
 
 from __future__ import annotations
 
 import threading
+
+import torch
+from torch._C._functorch import is_batchedtensor
 
 _LAUNCH_LOCK = threading.Lock()
 
@@ -26,11 +32,28 @@ def count_launch(wrapper, route: str | None = None) -> None:
             wrapper.routes[route] = wrapper.routes.get(route, 0) + 1
 
 
+def count_body(body) -> None:
+    """Add one to ``body.calls`` (thread-safe)."""
+    with _LAUNCH_LOCK:
+        body.calls += 1
+
+
+def row_major(dtypes, *operands) -> tuple:
+    """``operands`` with every 2-D tensor of one of ``dtypes`` that is not
+    contiguous copied into a contiguous one (a kernel reads row-major
+    tiles); every other operand as it is."""
+    return tuple(
+        x.contiguous() if (isinstance(x, torch.Tensor)
+                           and not is_batchedtensor(x) and x.dim() == 2
+                           and x.dtype in dtypes and not x.is_contiguous())
+        else x for x in operands)
+
+
 # the public wrappers, as the reference's package exports them; imported
 # after count_launch, which their modules import from here
 from .gemm import matmul, matmul_accumulate  # noqa: E402
 from .flash_attention import flash_attention  # noqa: E402
 from .linear_scan import linear_scan  # noqa: E402
 
-__all__ = ["count_launch", "flash_attention", "linear_scan", "matmul",
-           "matmul_accumulate"]
+__all__ = ["count_body", "count_launch", "flash_attention", "linear_scan",
+           "matmul", "matmul_accumulate", "row_major"]

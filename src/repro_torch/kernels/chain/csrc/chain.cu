@@ -33,9 +33,10 @@
 //     level that uses it.  So there is one kernel per layout: the class of
 //     each position (the carry, a value held from before the loop, a
 //     per-level tensor, a per-level scalar) is a template argument, chosen
-//     on the host (27 layouts a dtype: the carry at one of three positions,
-//     the other two each in one of three classes; "single" and "const"
-//     share a class, both loaded once).  A thread takes 16 / sizeof(T)
+//     on the host (18 kernels a dtype: the carry at position 0 or 2, the
+//     other two each in one of three classes; "single" and "const" share a
+//     class, both loaded once; a carry at position 1 runs the carry-at-0
+//     kernel with y and a swapped).  A thread takes 16 / sizeof(T)
 //     neighbouring elements with 16-byte loads when every tensor is
 //     16-byte aligned and n is a multiple of that, one element otherwise;
 //     the levels run in groups of 8 whose xs loads all go out before the
@@ -128,7 +129,7 @@ constexpr int XS_CONST = 4;
 // what the level loop does with an operand, a template argument per
 // position: the carry itself, a value held from before the loop (a SINGLE
 // tensor or a CONST scalar), a per-level tensor (XS) or a per-level scalar
-// (XS_CONST).  kernel.py EWISE_CLASS maps each kind to its class.
+// (XS_CONST).  ewise_class maps each kind to its class.
 constexpr int C_CARRY = 0;
 constexpr int C_HELD = 1;
 constexpr int C_XS = 2;
@@ -309,7 +310,7 @@ chain_ewise_kernel(T* __restrict__ out, Operand o0, Operand o1, Operand o2,
   }
 }
 
-// the class of kind k (kernel.py EWISE_CLASS)
+// the class of kind k
 inline int ewise_class(int k) {
   switch (k) {
     case CARRY: return C_CARRY;
@@ -393,15 +394,26 @@ cudaError_t ewise_pick_a(int a, int b, T* out, const Operand (&o)[3],
   }
 }
 
+// One kernel per layout with the carry at position 0 or 2, the other two
+// positions in the classes C_HELD, C_XS, C_XS_CONST: 18 a dtype.  A carry
+// at position 1 (scan_step's a) is launched as the carry at 0 with y and a
+// swapped: the level computes round(a * y) with one IEEE multiply, which is
+// commutative, so the bits are the same.
 template <typename T>
 int launch_ewise(void* out, const void* p0, int k0, double s0,
                  const void* p1, int k1, double s1, const void* p2, int k2,
                  double s2, int carry_pos, int64_t n, int64_t n_levels,
                  void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const Operand o[3] = {{p0, k0, s0}, {p1, k1, s1}, {p2, k2, s2}};
+  Operand o[3] = {{p0, k0, s0}, {p1, k1, s1}, {p2, k2, s2}};
   if (carry_pos < 0 || carry_pos > 2 || o[carry_pos].kind != CARRY)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (carry_pos == 1) {
+    const Operand y = o[0];
+    o[0] = o[1];
+    o[1] = y;
+    carry_pos = 0;
+  }
   // the classes of the two positions besides the carry, in order
   int cls[2], c = 0;
   bool vec = aligned16(out) && n % (16 / sizeof(T)) == 0;
@@ -416,16 +428,10 @@ int launch_ewise(void* out, const void* p0, int k0, double s0,
   T* dst = static_cast<T*>(out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  switch (carry_pos) {
-    case 0:
-      err = ewise_pick_a<T, 0>(cls[0], cls[1], dst, o, n, n_levels, vec, st);
-      break;
-    case 1:
-      err = ewise_pick_a<T, 1>(cls[0], cls[1], dst, o, n, n_levels, vec, st);
-      break;
-    default:
-      err = ewise_pick_a<T, 2>(cls[0], cls[1], dst, o, n, n_levels, vec, st);
-  }
+  if (carry_pos == 0)
+    err = ewise_pick_a<T, 0>(cls[0], cls[1], dst, o, n, n_levels, vec, st);
+  else
+    err = ewise_pick_a<T, 2>(cls[0], cls[1], dst, o, n, n_levels, vec, st);
   return static_cast<int>(err);
 }
 

@@ -41,11 +41,6 @@ SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
           torch.float64: "f64"}
 # operand kinds of chain_ewise (the numbering of csrc/chain.cu)
 KINDS = {"carry": 0, "single": 1, "xs": 2, "const": 3, "xs_const": 4}
-# what chain_ewise's level loop does with an operand of each kind: the
-# class the kernel is instantiated on (csrc/chain.cu ewise_class, C_*):
-# 0 the carry, 1 held from before the loop, 2 a per-level tensor, 3 a
-# per-level scalar
-EWISE_CLASS = {"carry": 0, "single": 1, "const": 1, "xs": 2, "xs_const": 3}
 
 _P, _I, _I64, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_double)
@@ -72,15 +67,6 @@ LIBRARY = CudaLibrary(
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def ewise_instantiation(layout: tuple, carry_pos: int) -> tuple:
-    """The ``chain_ewise_kernel`` a ``scan_step`` chain of this layout
-    launches: the class of each position (:data:`EWISE_CLASS`), the carry's
-    0.  One kernel per distinct tuple is compiled: the carry at each of the
-    three positions, the other two in classes 1-3."""
-    return tuple(EWISE_CLASS["carry" if pos == carry_pos else lay]
-                 for pos, lay in enumerate(layout))
 
 
 def launch_ewise(out: torch.Tensor, layout: tuple, carry_pos: int,

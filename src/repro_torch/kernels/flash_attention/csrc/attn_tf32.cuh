@@ -31,13 +31,14 @@
 // Accumulation.  The tensor cores add into their fp32 accumulator with
 // truncation, not IEEE rounding, so an accumulator that takes every key
 // tile's P V (several thousand wgmma at S = 8192) drifts: the first design
-// did, and its error against float64 was 7.4x the CUDA-core route's at
-// Qwen3-14B width (tools/attn_parts.py).  So each key tile's P V is summed
-// from zero in its own accumulator (12 wgmma) and added into O with one
-// IEEE add, as the CUDA-core loop adds each key's p v.  S starts from zero
-// every tile, but its 3 d / 8 products in one accumulator still gave 3.9x:
-// the two lo products go to an accumulator of their own, added to hi.hi's
-// once they are done (1.5x).  Each product is one wgmma m64n{BKV}k8 (S) or
+// did, and its error against float64 was 7x the CUDA-core route's at
+// S = 8192 (tools/attn_faults.py plants it).  So each key tile's P V is
+// summed from zero in its own accumulator (12 wgmma) and added into O with
+// one IEEE add, as the CUDA-core loop adds each key's p v.  S starts from
+// zero every tile, but its 3 d / 8 products in one accumulator still gave
+// up to 4.6x (also planted there): the two lo products go to an
+// accumulator of their own, added to hi.hi's once they are done (at most
+// 2.2x on the small cases, 1.7x at Qwen3-14B width: chip_smoke.py).  Each product is one wgmma m64n{BKV}k8 (S) or
 // m64n{D}k8 (O) a k8 step: the widest instruction the tile allows (four
 // n32 instructions in place of one n128 were slower).
 //

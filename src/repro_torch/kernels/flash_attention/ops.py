@@ -34,9 +34,12 @@ o + softmax(q kᵀ / √d) v``, tagged ``"dot"`` so a fused chain of it runs as
 one chain kernel (:func:`repro_torch.kernels.chain.chain_attn`).  On
 operands that kernel takes it runs it with one level (the kernel on the
 card, its plain version on the CPU), so per-level replay and a whole chain
-agree bit for bit; on any others (NumPy tiles, batched shapes, float16)
-it computes the reference's expression as jax does (:func:`step_body`):
-NumPy operands give a CPU tensor, as the reference's give a jax array.
+agree bit for bit (a 2-D tile of a chain kernel dtype that is not
+contiguous is copied into a row-major one first); on any others (NumPy
+tiles, batched shapes, float16) it computes the reference's expression as
+jax does (:func:`step_body`, which counts its calls in
+``step_body.calls``): NumPy operands give a CPU tensor, as the
+reference's give a jax array.
 ``__bind_vmap__ = False``: a kernel cannot read a ``torch.func.vmap``-batched
 tensor, so the fused backend runs it per op without stacking.
 """
@@ -50,7 +53,7 @@ import torch.nn.functional as F
 from repro_torch.compat import jax_matmul, jax_operands
 from repro_torch.core.trace import In, InOut
 
-from .. import count_launch
+from .. import count_body, count_launch, row_major
 from . import kernel, ref
 
 DTYPES = tuple(kernel.SUFFIX)
@@ -178,14 +181,17 @@ def attn_step(o, q, k, v):
     """One block-accumulation level: ``o ← o + softmax(q kᵀ / √d) v``.
 
     Operands the chain kernel takes (its own rule,
-    :func:`repro_torch.kernels.chain.ops.attn_problem`) run it with one
-    level; any others get the reference's own expression, decided before
-    any launch: :func:`step_body`.
+    :func:`repro_torch.kernels.chain.ops.attn_problem`, once 2-D tiles of
+    its dtypes are row-major) run it with one level; any others get the
+    reference's own expression, decided before any launch:
+    :func:`step_body`.
     """
     # imported here: the chain package imports this module's plain version
     # (.ref) while it loads
+    from ..chain.ops import DTYPES as CHAIN_DTYPES
     from ..chain.ops import attn_problem, chain_attn
 
+    o, q, k, v = row_major(CHAIN_DTYPES, o, q, k, v)
     if attn_problem(_ONE_LEVEL, 0, 1, (o, q, k, v)) is None:
         return chain_attn(_ONE_LEVEL, 0, 1, o, q, k, v)
     return step_body(o, q, k, v)
@@ -198,7 +204,9 @@ def step_body(o, q, k, v):
     32-bit for a 64-bit NumPy input; ``o + p @ v`` follows jax's promotion.
     A ``jax.Array`` is a ``torch.Tensor`` here
     (:func:`repro_torch.compat.jax_operands`): on NumPy payloads the result
-    is a CPU tensor, float32 for float64 ones."""
+    is a CPU tensor, float32 for float64 ones.  Counts its calls in
+    ``calls``."""
+    count_body(step_body)
     scale = 1.0 / float(q.shape[-1]) ** 0.5
     if isinstance(q, np.ndarray) and isinstance(k, np.ndarray):
         logits = (q @ k.T) * scale
@@ -209,6 +217,7 @@ def step_body(o, q, k, v):
     return o + jax_matmul(torch.softmax(logits, dim=-1), v)
 
 
+step_body.calls = 0
 attn_step.__bind_intents__ = (InOut, In, In, In)
 attn_step.__bind_kernel__ = "dot"
 attn_step.__bind_vmap__ = False

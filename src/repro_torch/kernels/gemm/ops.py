@@ -32,10 +32,12 @@ launch.  A launch that fails stays a ``RuntimeError`` and propagates.
 a @ b``, tagged ``"dot"`` so a fused chain of it runs as one chain kernel
 (:mod:`repro_torch.kernels.chain`), and marked ``__bind_vmap__ = False``
 so the fused backend runs its buckets per op without stacking them first
-(the reference's rule for bodies vmap cannot batch).  It launches the
-kernel exactly when :func:`accumulate_problem` (the wrapper's own checks)
-passes, and otherwise computes the reference's ``c + a @ b``
-(:func:`accumulate_body`): batched, integer or mixed-dtype tiles compute
+(the reference's rule for bodies vmap cannot batch).  A 2-D tile of a
+kernel dtype that is not contiguous is copied into a row-major one first.
+It launches the kernel exactly when :func:`accumulate_problem` (the
+wrapper's own checks) then passes, and otherwise computes the reference's
+``c + a @ b`` (:func:`accumulate_body`, which counts its calls in
+``accumulate_body.calls``): batched, integer or mixed-dtype tiles compute
 as in the reference instead of raising.
 """
 
@@ -48,7 +50,7 @@ import torch
 from torch._C._functorch import is_batchedtensor
 
 from ...compat import jax_matmul, jax_operands
-from .. import count_launch
+from .. import count_body, count_launch, row_major
 from . import kernel, ref
 
 DTYPES = tuple(kernel.SYMBOLS)
@@ -184,11 +186,13 @@ from repro_torch.core.trace import In, InOut  # noqa: E402
 def gemm_tile(c, a, b):
     """One accumulation level of the tile transaction: ``c ← c + a @ b``.
 
-    Operands the GEMM kernel takes (:func:`accumulate_problem`) go through
+    Operands the GEMM kernel takes (:func:`accumulate_problem`, once 2-D
+    tiles of its dtypes are row-major) go through
     :func:`matmul_accumulate` (the kernel on the card, the plain version on
     the CPU); any others get the reference's own expression, decided
     before any launch: :func:`accumulate_body`.
     """
+    c, a, b = row_major(DTYPES, c, a, b)
     if accumulate_problem(c, a, b) is None:
         return matmul_accumulate(c, a, b)
     return accumulate_body(c, a, b)
@@ -198,14 +202,15 @@ def accumulate_body(c, a, b):
     """The reference's body ``c + a @ b`` on operands the kernel does not
     take: NumPy tiles stay NumPy; with a tensor among them, as jax computes
     it (:func:`repro_torch.compat.jax_operands`, ``jax_matmul``): batched
-    shapes, integer and mixed dtypes, float16 views that are not
-    contiguous."""
+    shapes, integer and mixed dtypes.  Counts its calls in ``calls``."""
+    count_body(accumulate_body)
     if all(isinstance(x, np.ndarray) for x in (c, a, b)):
         return c + a @ b
     c, a, b = jax_operands(c, a, b)
     return c + jax_matmul(a, b)
 
 
+accumulate_body.calls = 0
 gemm_tile.__bind_intents__ = (InOut, In, In)
 gemm_tile.__bind_kernel__ = "dot"
 gemm_tile.__bind_vmap__ = False

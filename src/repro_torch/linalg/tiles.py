@@ -40,9 +40,7 @@ def _t_copy(a):
 
 def _t_gemm_acc(c, a, b):
     # the GEMM kernel where it takes the tiles, else the reference's c + a @ b
-    if gemm_ops.accumulate_problem(c, a, b) is None:
-        return gemm_ops.matmul_accumulate(c, a, b)
-    return gemm_ops.accumulate_body(c, a, b)
+    return gemm_ops.gemm_tile(c, a, b)
 
 
 _t_gemm_acc.__bind_intents__ = (bind.InOut, bind.In, bind.In)

@@ -565,57 +565,109 @@ def _ewise_operands(layout, carry_pos, n_levels=3, shape=(4, 5)):
     return tuple(out)
 
 
+def _ewise_table(src: str) -> dict:
+    """csrc/chain.cu's layout-to-kernel table, read from the source: the
+    class of each kind (``ewise_class``), the carry positions
+    ``launch_ewise`` instantiates, whether it swaps a carry at position 1
+    onto 0, and the classes each picker dispatches on."""
+    kinds = {name: int(v) for name, v in re.findall(
+        r"constexpr int (CARRY|SINGLE|XS|CONST|XS_CONST) = (\d);", src)}
+    classes = {name: int(v) for name, v in re.findall(
+        r"constexpr int C_(CARRY|HELD|XS|XS_CONST) = (\d);", src)}
+    body = re.search(r"inline int ewise_class\(int k\) \{(.*?)\n\}", src,
+                     re.S).group(1)
+    mapped = dict(re.findall(r"case (\w+): return C_(\w+);", body))
+    default = re.search(r"default: return C_(\w+);", body).group(1)
+    launch = re.search(r"int launch_ewise\((.*?)\n\}", src, re.S).group(1)
+    pickers = {}
+    for picker in ("ewise_pick_a", "ewise_pick_b"):
+        body = re.search(rf"cudaError_t {picker}\((.*?)\n\}}", src,
+                         re.S).group(1)
+        pickers[picker] = {classes[c] for c in
+                           re.findall(r"case C_(\w+):", body)}
+    return {
+        "kinds": kinds, "classes": classes,
+        "class_of": {kind.lower(): classes[mapped.get(kind, default)]
+                     for kind in kinds},
+        "carry_positions": {int(p) for p in
+                            re.findall(r"ewise_pick_a<T, (\d)>", launch)},
+        "swaps_1_onto_0": bool(re.search(
+            r"if \(carry_pos == 1\) \{\s*const Operand y = o\[0\];\s*"
+            r"o\[0\] = o\[1\];\s*o\[1\] = y;\s*carry_pos = 0;", launch)),
+        "pickers": pickers}
+
+
 def test_ewise_instantiations_cover_every_layout_ops_takes():
-    """``kernel.ewise_instantiation`` maps each layout ``chain/ops.py``
-    takes to a kernel: the carry's class 0 at its position, the others'
-    classes 1 (single, const), 2 (xs), 3 (xs_const); the 47 layouts fall
-    on 27 kernels, the ones csrc/chain.cu dispatches to (the carry at each
-    position, the other two in classes 1-3)."""
+    """Every layout ``chain/ops.py`` takes has a kernel in csrc/chain.cu's
+    table (:func:`_ewise_table`): the carry at position 0 or 2 (a carry at
+    1 swapped onto 0: ``y * a`` and ``a * y`` round alike), the other two
+    positions in classes the pickers dispatch on.  The 47 layouts fall on
+    18 kernels a dtype, all that the launcher instantiates."""
+    table = _ewise_table(kernel.SOURCES[0].read_text())
+    assert table["swaps_1_onto_0"]
+    assert table["carry_positions"] == {0, 2}
     seen = set()
     layouts = list(_ewise_layouts())
     assert len(layouts) == 47
     for layout, carry_pos in layouts:
         args = _ewise_operands(layout, carry_pos)
         assert ops.ewise_problem(layout, carry_pos, 3, args) is None, layout
-        inst = kernel.ewise_instantiation(layout, carry_pos)
-        assert inst[carry_pos] == 0 and inst.count(0) == 1
+        layout = list(layout)
+        if carry_pos == 1:
+            layout[0], layout[1], carry_pos = layout[1], layout[0], 0
+        assert carry_pos in table["carry_positions"], layout
+        others = [table["class_of"][lay] for pos, lay in enumerate(layout)
+                  if pos != carry_pos]
+        assert others[0] in table["pickers"]["ewise_pick_a"], layout
+        assert others[1] in table["pickers"]["ewise_pick_b"], layout
+        seen.add((carry_pos, *others))
+    classes = table["pickers"]["ewise_pick_a"]
+    assert seen == {(cp, a, b) for cp in (0, 2) for a in classes
+                    for b in classes}
+    assert len(seen) == 18
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_ewise_carry_at_1_is_carry_at_0_with_y_and_a_swapped(dtype):
+    """What the launcher's swap rests on, on the plain version: a chain
+    whose carry is ``a`` gives the bits of the chain with ``y`` and ``a``
+    swapped and the carry at 0, in every dtype and layout."""
+    gen = torch.Generator().manual_seed(17)
+    for layout, carry_pos in _ewise_layouts():
+        if carry_pos != 1:
+            continue
+        args = []
         for pos, lay in enumerate(layout):
-            if pos != carry_pos:
-                assert inst[pos] == {"single": 1, "const": 1, "xs": 2,
-                                     "xs_const": 3}[lay]
-        seen.add(inst)
-    want = set()
-    for carry_pos in range(3):
-        for a in (1, 2, 3):
-            for b in (1, 2, 3):
-                inst = [a, b]
-                inst.insert(carry_pos, 0)
-                want.add(tuple(inst))
-    assert seen == want and len(seen) == 27
+            if pos == carry_pos or lay == "single":
+                args.append(torch.rand((6, 7), generator=gen) - 0.5)
+            elif lay == "xs":
+                args.append(torch.rand((5, 6, 7), generator=gen) - 0.5)
+            elif lay == "const":
+                args.append(0.3)
+            else:
+                args.append(torch.rand(5, generator=gen) - 0.5)
+        args = [x.to(dtype) if isinstance(x, torch.Tensor) else x
+                for x in args]
+        got = ref.chain_ewise(layout, 1, 5, *args)
+        swapped = (layout[1], layout[0], layout[2])
+        want = ref.chain_ewise(swapped, 0, 5, args[1], args[0], args[2])
+        assert torch.equal(got, want), layout
 
 
 def test_ewise_classes_are_the_kernels_numbering():
-    """kernel.py's kinds and classes are the ones csrc/chain.cu numbers:
-    its operand kinds, its class constants, its kind-to-class map and the
-    three classes its launcher dispatches on for each non-carry
-    position."""
-    src = kernel.SOURCES[0].read_text()
-    kinds = dict(re.findall(r"constexpr int (CARRY|SINGLE|XS|CONST|XS_CONST)"
-                            r" = (\d);", src))
-    assert {k.lower(): int(v) for k, v in kinds.items()} == kernel.KINDS
-    classes = {name: int(v) for name, v in re.findall(
-        r"constexpr int C_(CARRY|HELD|XS|XS_CONST) = (\d);", src)}
-    assert classes == {"CARRY": 0, "HELD": 1, "XS": 2, "XS_CONST": 3}
-    body = re.search(r"inline int ewise_class\(int k\) \{(.*?)\n\}", src,
-                     re.S).group(1)
-    mapped = dict(re.findall(r"case (\w+): return C_(\w+);", body))
-    assert mapped == {"CARRY": "CARRY", "XS": "XS", "XS_CONST": "XS_CONST"}
-    assert "default: return C_HELD" in body      # SINGLE, CONST
-    for kind, cls in kernel.EWISE_CLASS.items():
-        name = kind.upper()
-        assert classes[mapped.get(name, "HELD")] == cls, kind
+    """kernel.py's kinds are the ones csrc/chain.cu numbers, and its
+    kind-to-class map sends the carry to C_CARRY, a single tensor and a
+    constant to C_HELD (read before the level loop), xs and xs_const to
+    their own classes; both pickers dispatch on the three non-carry
+    classes."""
+    table = _ewise_table(kernel.SOURCES[0].read_text())
+    assert {k.lower(): v for k, v in table["kinds"].items()} == kernel.KINDS
+    c = table["classes"]
+    assert c == {"CARRY": 0, "HELD": 1, "XS": 2, "XS_CONST": 3}
+    assert table["class_of"] == {"carry": c["CARRY"], "single": c["HELD"],
+                                 "const": c["HELD"], "xs": c["XS"],
+                                 "xs_const": c["XS_CONST"]}
     for picker in ("ewise_pick_a", "ewise_pick_b"):
-        body = re.search(rf"cudaError_t {picker}\((.*?)\n\}}", src,
-                         re.S).group(1)
-        assert set(re.findall(r"case (C_\w+):", body)) == {
-            "C_HELD", "C_XS", "C_XS_CONST"}, picker
+        assert table["pickers"][picker] == {c["HELD"], c["XS"],
+                                            c["XS_CONST"]}, picker

@@ -35,7 +35,10 @@ per level.  Both packages replay the extended spec.  On NumPy payloads the
 reference's ``attn_step`` hands back a float32 jax array, which the port
 maps to a CPU tensor: a value that is an array (jax or torch) in the
 reference must be one in the port, and is compared within the ``tensor``
-family's tolerance; a NumPy value must be NumPy, bit for bit.
+family's tolerance; a NumPy value must be NumPy, bit for bit.  The
+``numpy`` family also replays the generator's spec as it is, without the
+``attn_step`` chains: there every handle stays NumPy and must equal the
+reference's bit for bit.
 
 In both families the executors' observable accounting must match: the
 transfer-event stream (byte-identical for plan replay; as a multiset of
@@ -300,9 +303,12 @@ def _fetched(payload):
         if dtype == "bfloat16" else to_numpy(payload)
 
 
-def run_spec(pool, spec, family, mode, backend="serial"):
+def run_spec(pool, spec, family, mode, backend="serial", attn=True):
+    """Replay ``spec`` (with the ``attn_step`` chains of
+    :func:`with_attn_chains` when ``attn``) in ``family``'s payloads."""
     bind = pool.bind
-    spec = with_attn_chains(spec)
+    if attn:
+        spec = with_attn_chains(spec)
     ex = bind.LocalExecutor(spec["n_nodes"], mode=mode, backend=backend)
     with bind.Workflow(n_nodes=spec["n_nodes"], executor=ex) as wf:
         handles = []
@@ -341,11 +347,14 @@ def _float64_values(seed: int):
     return values
 
 
-def _assert_values(ref, got, family, ctx, seed=None):
+def _assert_values(ref, got, family, ctx, seed=None, attn=True):
     assert len(ref) == len(got), ctx
     for i, ((rk, rd, rv), (gk, gd, gv)) in enumerate(zip(ref, got)):
         assert rk == gk, f"{ctx}: handle {i} payload kind {rk} != {gk}"
         assert rd == gd, f"{ctx}: handle {i} dtype {rd} != {gd}"
+        if family == "numpy" and not attn:
+            # only NumPy bodies ran: every handle NumPy, bit for bit
+            assert rk in ("numpy", "<collected>"), f"{ctx}: handle {i} {rk}"
         if rv is None:
             continue
         rv = np.asarray(rv, np.float64) if rd == "bfloat16" else rv
@@ -374,13 +383,24 @@ def _assert_values(ref, got, family, ctx, seed=None):
                                        err_msg=f"{ctx}: handle {i}")
 
 
+def _attn_runs(family: str) -> tuple:
+    """Whether each replay of a seed adds the ``attn_step`` chains: the
+    ``numpy`` family replays the generator's spec as it is too."""
+    return (False, True) if family == "numpy" else (True,)
+
+
 def check_conformance(seed: int, family: str) -> None:
+    for attn in _attn_runs(family):
+        _check_conformance(seed, family, attn)
+
+
+def _check_conformance(seed: int, family: str, attn: bool) -> None:
     spec = make_spec(seed)
-    ref_values, ref_stats, _ = run_spec(REF, spec, family, "plan")
+    ref_values, ref_stats, _ = run_spec(REF, spec, family, "plan", attn=attn)
     for mode in ("plan", "interpret"):
-        ctx = f"seed {seed} {family} port {mode}"
-        values, stats, ex = run_spec(PORT, spec, family, mode)
-        _assert_values(ref_values, values, family, ctx, seed)
+        ctx = f"seed {seed} {family} attn {attn} port {mode}"
+        values, stats, ex = run_spec(PORT, spec, family, mode, attn=attn)
+        _assert_values(ref_values, values, family, ctx, seed, attn)
         if mode == "plan":
             assert _events(stats) == _events(ref_stats), ctx
             assert stats.peak_live_bytes == ref_stats.peak_live_bytes, ctx
@@ -407,8 +427,9 @@ def test_port_conformance_pinned_seeds(seed, family):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_run(seed: int, family: str):
-    values, stats, _ = run_spec(REF, make_spec(seed), family, "plan")
+def _reference_run(seed: int, family: str, attn: bool = True):
+    values, stats, _ = run_spec(REF, make_spec(seed), family, "plan",
+                                attn=attn)
     return values, stats
 
 
@@ -416,11 +437,17 @@ def check_backend_conformance(seed: int, family: str, backend: str) -> None:
     """A port backend against the reference ``serial`` stream: values,
     transfer stream and stats as for the port's serial backend, live-set
     peaks at least serial's (a concurrent level may be in flight)."""
-    ref_values, ref_stats = _reference_run(seed, family)
-    ctx = f"seed {seed} {family} port {backend}"
+    for attn in _attn_runs(family):
+        _check_backend_conformance(seed, family, backend, attn)
+
+
+def _check_backend_conformance(seed: int, family: str, backend: str,
+                               attn: bool) -> None:
+    ref_values, ref_stats = _reference_run(seed, family, attn)
+    ctx = f"seed {seed} {family} attn {attn} port {backend}"
     values, stats, ex = run_spec(PORT, make_spec(seed), family, "plan",
-                                 PORT_BACKENDS[backend]())
-    _assert_values(ref_values, values, family, ctx, seed)
+                                 PORT_BACKENDS[backend](), attn=attn)
+    _assert_values(ref_values, values, family, ctx, seed, attn)
     assert _events(stats) == _events(ref_stats), ctx
     assert stats.peak_live_bytes >= ref_stats.peak_live_bytes, ctx
     assert stats.peak_live_payloads >= ref_stats.peak_live_payloads, ctx

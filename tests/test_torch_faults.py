@@ -38,6 +38,7 @@ from repro.kernels.gemm import ops as ref_gemm_ops
 from repro.kernels.gemm.ops import gemm_tile as ref_gemm_tile
 from repro.linalg import tiles as ref_tiles
 from repro_torch import core as port_bind
+from repro_torch import compat
 from repro_torch.compat import to_numpy
 from repro_torch.core.backends import threadpool
 from repro_torch.kernels.chain import ops as chain_ops
@@ -160,8 +161,10 @@ def test_gemm_bodies_compute_what_the_kernel_does_not_take(bodies, case):
     payloads = _gemm_case(case)
     exp = _one_op(ref_bind, ref_body, payloads, jnp.asarray)
     launches = gemm_ops.matmul_accumulate.launches
+    calls = gemm_ops.accumulate_body.calls
     got = _one_op(port_bind, port_body, payloads, torch.from_numpy)
     assert gemm_ops.matmul_accumulate.launches == launches
+    assert gemm_ops.accumulate_body.calls == calls + 1
     assert gemm_ops.accumulate_problem(
         *(torch.from_numpy(x) for x in payloads)) is not None
     assert tuple(got.shape) == exp.shape
@@ -186,7 +189,9 @@ def _attn_case(name):
 def test_attn_step_computes_what_the_kernel_does_not_take(case, tol):
     payloads = _attn_case(case)
     exp = _one_op(ref_bind, ref_attn_step, payloads, jnp.asarray)
+    calls = fa_ops.step_body.calls
     got = _one_op(port_bind, attn_step, payloads, torch.from_numpy)
+    assert fa_ops.step_body.calls == calls + 1
     assert chain_ops.attn_problem(
         ("single",) * 4, 0, 1,
         tuple(torch.from_numpy(x) for x in payloads)) is not None
@@ -217,6 +222,61 @@ def test_bodies_take_the_kernel_exactly_when_its_rule_accepts():
     assert torch.equal(attn_step(o, q, k, v),
                        chain_ops.chain_attn(one, 0, 1, o, q, k, v))
     assert chain_ops.attn_problem(one, 0, 1, (o.numpy(), q, k, v))
+
+
+def test_bodies_copy_strided_tiles_of_a_kernel_dtype_into_row_major():
+    """A 2-D tile of a kernel dtype that is not contiguous (a transposed
+    view) goes to the kernel as a row-major copy, not to the body
+    expression: on the card it launches the kernel instead of computing
+    with PyTorch uncounted.  The result is the reference's."""
+    rng = np.random.default_rng(6)
+    c, a, b = (rng.normal(size=(5, 5)).astype(np.float32) for _ in range(3))
+    exp = np.asarray(ref_gemm_tile(jnp.asarray(c), jnp.asarray(a).T,
+                                   jnp.asarray(b)))
+    at = torch.from_numpy(a).T
+    assert not at.is_contiguous()
+    for body in (gemm_tile, port_tiles._t_gemm_acc):
+        calls = gemm_ops.accumulate_body.calls
+        got = body(torch.from_numpy(c), at, torch.from_numpy(b))
+        assert gemm_ops.accumulate_body.calls == calls, body.__name__
+        np.testing.assert_allclose(got.numpy(), exp, rtol=1e-5, atol=1e-5)
+    o, q, k, v = (rng.normal(size=s).astype(np.float32)
+                  for s in ((8, 6), (4, 8), (7, 4), (7, 6)))
+    exp = np.asarray(ref_attn_step(*(jnp.asarray(x) for x in (o, q.T, k,
+                                                              v))))
+    calls = fa_ops.step_body.calls
+    got = attn_step(torch.from_numpy(o), torch.from_numpy(q).T,
+                    torch.from_numpy(k), torch.from_numpy(v))
+    assert fa_ops.step_body.calls == calls
+    np.testing.assert_allclose(got.numpy(), exp, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shapes", [((40, 50), (50, 30)),
+                                    ((2, 40, 50), (50, 30)),
+                                    ((3, 0), (0, 4))])
+def test_integer_product_wraps_as_jax_in_bounded_memory(shapes):
+    """The card's integer ``a @ b`` (``compat.int_matmul``, run here on
+    CPU tensors): the reference's int32 product, wrapping on overflow,
+    formed a few columns of ``a`` at a time so that no temporary passes
+    its byte budget."""
+    rng = np.random.default_rng(13)
+    a, b = (rng.integers(-2 ** 20, 2 ** 20, size=s).astype(np.int32)
+            for s in shapes)
+    exp = np.asarray(jnp.matmul(jnp.asarray(a), jnp.asarray(b)))
+    wrapped = (a.astype(np.int64) @ b.astype(np.int64)).astype(np.int32)
+    np.testing.assert_array_equal(exp, wrapped)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    budget = 16384      # 3 columns a time in the first case, 1 in the second
+    step = compat.k_step(ta, tb, budget)
+    assert step >= 1
+    got = compat.int_matmul(ta, tb, budget)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), exp)
+    # at Listing 1's 1024^2 int32 tile: 16 columns, 64 MiB, a time
+    tile = torch.empty((1024, 1024), dtype=torch.int32)
+    step = compat.k_step(tile, tile)
+    assert step * 1024 * 1024 * 4 <= compat.INT_PRODUCT_BYTES
+    assert step == 16
 
 
 # -- 3. float16 at the kernels' entry points ----------------------------------

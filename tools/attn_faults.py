@@ -19,11 +19,15 @@ reference's tolerance (3e-2) of the oracle on the padded inputs, within
 the limits scaled to each value against the float32 oracle
 (``bf16_attention_error``), and zero where a row sees no key.  A float32
 fault's library (the ``f32_3xtf32`` route) runs ``MID_ATTN`` at d 64 and
-128 and the reference's cases at d 64 and 128 in float32, each output
-within the reference's float32 tolerance (2e-5) of the oracle.  The
+128, the reference's cases at d 64 and 128 and one long causal case
+(``LONG_F32``: eight Qwen3-14B heads over two, S 8192, d 128) in float32,
+each output held as ``chip_smoke.py`` holds the route: within the
+reference's float32 tolerance (2e-5) of the oracle, and, per slice of at
+most 8 heads, no farther from a float64 computation than
+``TF32_VS_SIMT`` times the CUDA-core route's (``f32_simt``, this
+checkout's library, on copies at an odd offset) on the same inputs.  The
 control runs both sets.  A fault is caught when some case fails a check;
-how many cases the scaled limits and the 3e-2 tolerance each fail is
-printed for bf16.
+how many cases each check fails is printed.
 
 Prints, per fault, how many cases caught it and the worst statistics over
 the cases.  Exits non-zero when the control fails a check or a fault
@@ -38,7 +42,8 @@ import sys
 
 from _ab import KERNELS, ROOT, build_all, start
 from chip_smoke import (ATTN_CASES, ATTN_TOL, MID_ATTN, MID_HEAD_DIMS,
-                        bf16_attention_error, bf16_within)
+                        TF32_VS_SIMT, attention64, bf16_attention_error,
+                        bf16_within)
 
 # (name, dtype, file, line, replacement, whether the checks must catch it);
 # line and replacement may be tuples of lines, each replaced in turn
@@ -72,7 +77,37 @@ FAULTS = (
     ("V's lo half dropped", "float32", "attn_tf32.cuh",
      "*reinterpret_cast<float*>(lo + off) = tf32_rna(x - h);",
      "*reinterpret_cast<float*>(lo + off) = 0.0f;", True),
+    # every key tile's P V accumulated into O inside the tensor cores,
+    # whose sums truncate, instead of summed from zero per tile and added
+    # to O with an IEEE add (the route's first design)
+    ("tile sums added in the tensor cores", "float32", "attn_tf32.cuh",
+     ("      issue_pv<D>(ot, s, pl, vh, vl);",
+      "                wg_desc(v_hi + va, 16, 1024), kk > 0);",
+      "      for (int i = 0; i < C::OR; ++i) o[i] = __fadd_rn(o[i], ot[i]);"),
+     ("      issue_pv<D>(o, s, pl, vh, vl);",
+      "                wg_desc(v_hi + va, 16, 1024), 1);",
+      ""), True),
+    # S's three products in one accumulator: hi.hi's large terms truncate
+    # the lo products' small ones
+    ("S in one accumulator", "float32", "attn_tf32.cuh",
+     ("    wgmma_ss<C::BKV>(s_lo, wg_desc(q_lo + qa, 16, 1024),\n"
+      "                     wg_desc(k_hi + ka, 16, 1024), kk > 0);\n"
+      "    wgmma_ss<C::BKV>(s_lo, wg_desc(q_hi + qa, 16, 1024),\n"
+      "                     wg_desc(k_lo + ka, 16, 1024), 1);\n"
+      "    wgmma_ss<C::BKV>(s, wg_desc(q_hi + qa, 16, 1024),\n"
+      "                     wg_desc(k_hi + ka, 16, 1024), kk > 0);\n",
+      "      for (int i = 0; i < C::SR; ++i) s[i] = __fadd_rn(s[i], pl[i]);"),
+     ("    wgmma_ss<C::BKV>(s, wg_desc(q_lo + qa, 16, 1024),\n"
+      "                     wg_desc(k_hi + ka, 16, 1024), kk > 0);\n"
+      "    wgmma_ss<C::BKV>(s, wg_desc(q_hi + qa, 16, 1024),\n"
+      "                     wg_desc(k_lo + ka, 16, 1024), 1);\n"
+      "    wgmma_ss<C::BKV>(s, wg_desc(q_hi + qa, 16, 1024),\n"
+      "                     wg_desc(k_hi + ka, 16, 1024), 1);\n",
+      ""), False),
 )
+# (B, Hq, Hkv, S, d): a float32 case long enough (256 key tiles a row
+# block) for error that grows with the number of key tiles to show
+LONG_F32 = (1, 8, 2, 8192, 128)
 _P, _I, _I64, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_double)
 FA_ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _D, _I, _I,
@@ -127,12 +162,13 @@ def main(argv: list[str]) -> int:
     if torch is None:
         return 1
     from repro_torch.kernels._build import CudaLibrary
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
     faults = (None,) + FAULTS
     libs = [planted(CudaLibrary, i, f) for i, f in enumerate(faults)]
-    build_all(libs, ("error",))
+    build_all(libs + [fa_kernel.LIBRARY], ("error",))
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
@@ -156,13 +192,22 @@ def main(argv: list[str]) -> int:
                 f"({b}, {hq}, {hkv}, {sq}, {skv}, {d}) causal {causal} "
                 f"window {window}", q, k, v, causal, window, exp, exp32,
                 ~seen.any(dim=-1)))
+    def odd_offset(t):
+        # the same values at an address no 16-byte-aligned route can read
+        view = torch.empty(t.numel() + 1, dtype=t.dtype,
+                           device=dev)[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
     # float32 on the 3xTF32 route: MID_ATTN and the reference's cases at the
-    # head dims it takes
+    # head dims it takes, and LONG_F32
     f32_shapes = [(b, hq, hkv, sq, skv, d, causal, window, blk)
                   for d in (64, 128)
                   for b, hq, hkv, sq, skv, causal, window, blk in MID_ATTN]
     f32_shapes += [case[:5] + (d,) + case[6:] + (16,)
                    for d in (64, 128) for case in ATTN_CASES]
+    b, hq, hkv, s, d = LONG_F32
+    f32_shapes.append((b, hq, hkv, s, s, d, True, None, 512))
     for b, hq, hkv, sq, skv, d, causal, window, blk in f32_shapes:
         q = torch.randn((b, hq, sq, d), generator=gen, device=dev)
         k = torch.randn((b, hkv, skv, d), generator=gen, device=dev)
@@ -172,9 +217,20 @@ def main(argv: list[str]) -> int:
         exp = fa_ref.attention(q, k, v, causal=causal, window=window)
         seen = fa_ref.mask(q.shape[2], k.shape[2], causal=causal,
                            window=window, device=dev)
+        # float64 and f32_simt's error from it, per slice of 8 heads
+        copies = [odd_offset(t) for t in (q, k, v)]
+        if fa_ops.route(torch.float32, d, [t.data_ptr() for t in copies]) \
+                != "f32_simt":
+            raise RuntimeError("odd-offset copies do not take f32_simt")
+        simt = fa_ops.flash_attention(*copies, causal=causal, window=window,
+                                      bq=q.shape[2], bkv=k.shape[2])
+        exp64 = attention64(torch, fa_ref, q, k, v, causal, window)
+        bases = [(simt[:, h0:h0 + 8].double() - exp64[:, h0:h0 + 8])
+                 .abs().max().item() for h0 in range(0, q.shape[1], 8)]
+        del copies, simt
         cases["float32"].append((
             f"({b}, {hq}, {hkv}, {sq}, {skv}, {d}) causal {causal} window "
-            f"{window}", q, k, v, causal, window, exp, None,
+            f"{window}", q, k, v, causal, window, exp, (exp64, bases),
             ~seen.any(dim=-1)))
 
     def run_case(lib, dname, label, q, k, v, causal, window):
@@ -202,18 +258,28 @@ def main(argv: list[str]) -> int:
             name = f"{name} [{dname}]"
             caught, by_limits, by_tolerance, first = 0, 0, 0, None
             worst = {"element": 0.0, "slice": 0.0, "row": 0.0,
-                     "max_abs": 0.0}
+                     "max_abs": 0.0, "vs_simt": 0.0}
             for (label, q, k, v, causal, window, exp, exp32,
                  blind) in cases[dname]:
                 out = run_case(lib, dname, label, q, k, v, causal, window)
                 max_abs = (out.double() - exp.double()).abs().max().item()
                 if dname == "float32":
                     tol = ATTN_TOL["float32"]
-                    ok = (bool(torch.isfinite(out).all())
-                          and torch.allclose(out, exp, rtol=tol, atol=tol)
-                          and not out[:, :, blind].any().item())
-                    stats = {"max_abs": max_abs}
-                    by_tolerance += not ok
+                    tolerance = (bool(torch.isfinite(out).all())
+                                 and torch.allclose(out, exp, rtol=tol,
+                                                    atol=tol)
+                                 and not out[:, :, blind].any().item())
+                    exp64, bases = exp32
+                    vs_simt = max(
+                        (out[:, h0:h0 + 8].double() - exp64[:, h0:h0 + 8])
+                        .abs().max().item() / max(base, 1e-30)
+                        for h0, base in zip(range(0, out.shape[1], 8),
+                                            bases))
+                    limits = vs_simt <= TF32_VS_SIMT
+                    stats = {"max_abs": max_abs, "vs_simt": vs_simt}
+                    by_tolerance += not tolerance
+                    by_limits += not limits
+                    ok = tolerance and limits
                 else:
                     stats = bf16_attention_error(out, exp32, v)
                     stats["max_abs"] = max_abs
@@ -238,10 +304,13 @@ def main(argv: list[str]) -> int:
             n = len(cases[dname])
             if dname == "float32":
                 what = (f"caught by {caught} of {n} cases (first: {first}; "
-                        f"the 2e-5 tolerance)" if caught
+                        f"by the 2e-5 tolerance {by_tolerance}, by the "
+                        f"float64 limit {by_limits})" if caught
                         else f"passes all {n} cases")
                 print(f"[fault] {name}: {what}; max_abs_err "
-                      f"{worst['max_abs']:.3e} against the oracle")
+                      f"{worst['max_abs']:.3e} against the oracle, error "
+                      f"against float64 at most {worst['vs_simt']:.2f} x "
+                      f"f32_simt's (limit {TF32_VS_SIMT})")
             else:
                 what = (f"caught by {caught} of {n} cases (first: {first};"
                         f" by the scaled limits {by_limits}, by the 3e-2 "
