@@ -73,12 +73,24 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    (run on copies at an odd offset); the kernel's time beside its plain
    version's, ``scaled_dot_product_attention``'s (a yardstick the port
    never calls, timed for every model and dtype) and its bound;
-4c. the linear scan (``linear_scan``) against its plain version (a
-   sequential f32 loop) at the reference's shapes (also in float16) and,
-   through the entry point, at RecurrentGemma-9B's RG-LRU width (1, 8192,
-   4096), f32 and bf16; again in f32 with ``a`` in (0.999, 1], which keeps the carry
-   across chunks alive, against a float64 loop (no farther from it than
-   the f32 plain loop); ``a = 0`` gives ``x`` exactly; times and bound;
+4c. the linear scan (``linear_scan``, one launch a call) at the
+   reference's shapes, at many-chunk shapes with a short last chunk
+   (``LONG_SCANS``: an odd D, and three sequences) and at RecurrentGemma-9B's
+   RG-LRU width (1, 8192, 4096), in f32, bf16 and f16, each on its route
+   and again on views at an odd offset (the ``ldg`` route): bit for bit
+   its chunked plain version (``ref.linear_scan_chunked``) and the two
+   routes each other, within the tolerance of the sequential oracle, ``a =
+   0`` giving ``x`` exactly, the counted route ``ops.route``'s, both routes
+   run; NaNs with every bit set in ``a`` and ``x`` (the look-back's "not
+   yet" word) come out as the chunked version's; again in f32 with ``a`` in (0.999, 1], which keeps the carry across
+   chunks alive, against a float64 loop (no farther from it than the f32
+   plain loop); at RG-LRU width, with every count zeroed just before, f32
+   and bf16: one launch, the device time of the memset and the kernel
+   (CUDA graph) on both routes beside the bound, the plain loop's time and
+   ``torch.add(a, x, out=y)``'s (the card's rate for the same 3 S D
+   elements, a yardstick), each the better of two graphs, and the
+   profile: one ``linear_scan_kernel`` a call, none of the three-pass
+   kernels;
 5. Listing 1 (``run_distributed_gemm``) at n=8192, ib=1024, float32, a
    2x2 grid of simulated ranks on the one card, cold then warm: 512 kernel
    launches and a relative error <= 1e-4 against a float64 product;
@@ -185,6 +197,9 @@ BF16_ROW_NRMS = 2.0 ** -6
 # RecurrentGemma-9B's RG-LRU (B, S, lru_width); f32 at the property test's
 # bound for any block size, bf16 at the reference's
 SCAN_SHAPES = ((1, 16, 4), (2, 64, 8), (3, 100, 5), (1, 256, 16))
+# many 128-step chunks with a short last one: an odd D (every route's
+# ragged slab), and three sequences whose last slab is part full
+LONG_SCANS = ((2, 1000, 33), (3, 4000, 160))
 FULL_SCAN = (1, 8192, 4096)
 # float16 as float32 inside, rounded once to 11 bits: as ATTN_TOL's
 SCAN_TOL = {"float32": 2e-5, "bfloat16": 4e-2, "float16": 1e-2}
@@ -221,6 +236,15 @@ def check(cond: bool, msg: str) -> None:
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def gpu_clocks() -> str:
+    """The card's SM and memory clocks now, as ``nvidia-smi`` reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
@@ -1213,7 +1237,7 @@ def main() -> int:
                                 "flash_attention_kernel": 0})
             del q, k, v, run
 
-    # -- 4c. linear scan against its plain version ---------------------------
+    # -- 4c. linear scan against its plain versions ---------------------------
     def decay(shape, dt):
         # a in (0.2, 0.99), a forget gate's range, as the reference's tests
         return (torch.rand(shape, generator=gen, device=dev) * 0.79
@@ -1223,29 +1247,100 @@ def main() -> int:
         tol = SCAN_TOL[dname]
         return close("scan", name, got, exp, tol, tol)
 
-    for dname in ("float32", "bfloat16"):
-        dt = dtypes[dname]
-        for shape in SCAN_SHAPES:
+    def scan_run(a, x, bs=32):
+        """``linear_scan`` through its entry point: one launch, counted on
+        the route ``ops.route`` gives a and x (the wrapper asks the built
+        launcher and holds it against ``ops.route``; where it pads, it
+        copies into fresh aligned tensors).  Returns (output, route)."""
+        s = a.shape[1]
+        padded = (-s) % max(1, min(bs, s))
+        want = ls_ops.route(a.dtype, a.shape[2],
+                            () if padded else (a.data_ptr(), x.data_ptr()))
+        before = dict(ls_ops.linear_scan.routes)
+        out = ls_ops.linear_scan(a, x, bs=bs)
+        counted = {r: n - before.get(r, 0)
+                   for r, n in ls_ops.linear_scan.routes.items()
+                   if n != before.get(r, 0)}
+        check(counted == {want: 1}, f"linear scan: launches counted by route "
+              f"{counted}, expected one on {want}")
+        return out, want
+
+    def scan_bits(name, got, a, x):
+        # the kernel is the chunked algorithm: its plain version bit for bit
+        exp = ls_ref.linear_scan_chunked(a, x, chunk=ls_kernel.CHUNK)
+        torch.cuda.synchronize()
+        check(torch.equal(bits(torch, got), bits(torch, exp)),
+              f"{name}: not bit for bit ref.linear_scan_chunked")
+
+    print(f"[scan] route rule: tma where a and x are 16-byte aligned and a "
+          f"row of D elements is a multiple of 16 bytes, ldg (coalesced "
+          f"loads) for any other operands; chunks of {ls_kernel.CHUNK} steps, "
+          f"one launch a call")
+    ls_ops.linear_scan.routes = {}
+    for dname in ("float32", "bfloat16", "float16"):
+        dt = getattr(torch, dname)
+        for shape in (*SCAN_SHAPES, *LONG_SCANS, FULL_SCAN):
             a, x = decay(shape, dt), rand(shape, dt)
-            scan_compare(f"linear_scan {shape} bs 32 {dname}",
-                         ls_ops.linear_scan(a, x, bs=32),
+            label = f"linear_scan {shape} {dname}"
+            got, path = scan_run(a, x)
+            scan_compare(f"{label} ({path})", got,
                          ls_ref.linear_scan(a, x), dname)
-            zero = ls_ops.linear_scan(torch.zeros_like(a), x, bs=32)
+            scan_bits(label, got, a, x)
+            # the same values one element into their storage: no padding
+            # (bs = S), so the kernel reads the odd-offset views themselves
+            a_odd, x_odd = odd_offset(a), odd_offset(x)
+            odd, path_odd = scan_run(a_odd, x_odd, bs=shape[1])
+            check(path_odd == "ldg", f"{label} odd offset: route {path_odd}")
             torch.cuda.synchronize()
-            check(torch.equal(zero, x), f"linear_scan {shape} {dname}: "
-                  f"a = 0 does not give x")
-    for shape in SCAN_SHAPES:
-        a, x = decay(shape, torch.float16), rand(shape, torch.float16)
-        scan_compare(f"linear_scan {shape} bs 32 float16",
-                     ls_ops.linear_scan(a, x, bs=32),
-                     ls_ref.linear_scan(a, x), "float16")
-    print("[scan] a = 0 gives x exactly at every shape: ok")
+            check(torch.equal(bits(torch, odd), bits(torch, got)),
+                  f"{label}: the {path_odd} route's bits differ from the "
+                  f"{path} route's")
+            zero, _ = scan_run(torch.zeros_like(a), x)
+            torch.cuda.synchronize()
+            check(torch.equal(zero, x), f"{label}: a = 0 does not give x")
+            print(f"[scan] {label}: routes {path} and {path_odd} (odd "
+                  f"offset) bit for bit ref.linear_scan_chunked and each "
+                  f"other; a = 0 gives x exactly")
+            del a, x, got, a_odd, x_odd, odd, zero
+    # a published aggregate or carry is never the all-ones "not yet" word
+    # the kernel polls for: NaNs whose every bit is set, in a and in x,
+    # must come out as the chunked plain version's (NaN where it is NaN,
+    # every other value bit for bit) and never stall a look-back
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        shape = LONG_SCANS[1]
+        a32, x32 = decay(shape, torch.float32), rand(shape, torch.float32)
+        ones = torch.tensor(-1, dtype=torch.int32, device=dev).view(
+            torch.float32)
+        for t in (a32, x32):
+            hit = torch.randint(0, t.numel(), (t.numel() // 50000,),
+                                generator=gen, device=dev)
+            t.view(-1)[hit] = ones
+        a, x = a32.to(dt), x32.to(dt)
+        got, path = scan_run(a, x)
+        exp = ls_ref.linear_scan_chunked(a, x, chunk=ls_kernel.CHUNK)
+        torch.cuda.synchronize()
+        nan = exp.isnan()
+        check(torch.equal(got.isnan(), nan) and torch.equal(
+            bits(torch, got[~nan]), bits(torch, exp[~nan])),
+              f"linear_scan {shape} {dname} with all-ones NaNs: not the "
+              f"chunked plain version's")
+        print(f"[scan] linear_scan {shape} {dname} ({path}) with all-ones "
+              f"NaNs in a and x: {int(nan.sum())} NaN outputs where the "
+              f"chunked plain version has them, every other value bit for "
+              f"bit")
+        del a32, x32, a, x, got, exp, nan
+    print(f"[scan] launches by route: {ls_ops.linear_scan.routes}")
+    check(set(ls_ops.linear_scan.routes) == set(ls_ops.ROUTES),
+          f"linear scan: routes run {sorted(ls_ops.linear_scan.routes)}, "
+          f"expected every one of {sorted(ls_ops.ROUTES)}")
     # a in (0.999, 1] keeps a chunk's carry alive (0.999^128 ≈ 0.88); the
     # reference's range forgets it within a chunk (0.6^128 ≈ 1e-28), so
-    # only this checks the carry pass across chunks.  Over such long memory
+    # only this checks the carry across chunks.  Over such long memory
     # the f32 loop itself strays from the exact recurrence by more than
     # 2e-5 (the rounding of sums over ~1000 steps), so both are held against
-    # a float64 loop: the kernel may stray no farther than the f32 loop.
+    # a float64 loop: the kernel may stray no farther from it than the f32
+    # loop.
     def scan_f64(a, x):
         h = torch.zeros_like(x[:, 0], dtype=torch.float64)
         y = torch.empty(x.shape, dtype=torch.float64, device=x.device)
@@ -1254,18 +1349,19 @@ def main() -> int:
             y[:, t] = h
         return y
 
-    for shape in ((2, 1000, 33), FULL_SCAN):
+    for shape in (LONG_SCANS[0], FULL_SCAN):
         a = 1 - torch.rand(shape, generator=gen, device=dev) * 1e-3
         x = rand(shape, torch.float32)
         exact = scan_f64(a, x)
-        got = ls_ops.linear_scan(a, x)
+        got, path = scan_run(a, x, bs=256)
+        scan_bits(f"linear_scan {shape} a in (0.999, 1]", got, a, x)
         err = (got.double() - exact).abs().max().item()
         plain = ls_ref.linear_scan(a, x)
         err_plain = (plain.double() - exact).abs().max().item()
         check(bool(torch.isfinite(got).all()) and err <= err_plain,
               f"linear_scan {shape} a in (0.999, 1]: {err:.3e} from the "
               f"float64 recurrence, the f32 loop {err_plain:.3e}")
-        print(f"[scan] linear_scan {shape} a in (0.999, 1] float32: "
+        print(f"[scan] linear_scan {shape} a in (0.999, 1] float32 ({path}): "
               f"max_abs_err {err:.3e} from the float64 recurrence, no more "
               f"than the f32 loop's {err_plain:.3e}: ok")
     del a, x, exact, got, plain
@@ -1286,29 +1382,48 @@ def main() -> int:
         wall = time.perf_counter() - t0
         path_counts[label] = counts()
         only(label, path_counts[label], "linear_scan", 1)
+        path = ls_ops.route(dt, FULL_SCAN[2], (a.data_ptr(), x.data_ptr()))
+        check(ls_ops.linear_scan.routes == {path: 1},
+              f"{label}: launches by route {ls_ops.linear_scan.routes}")
         err = scan_compare(label, got, ls_ref.linear_scan(a, x), dname)
-        zero = ls_ops.linear_scan(torch.zeros_like(a), x)
-        torch.cuda.synchronize()
-        check(torch.equal(zero, x), f"{label}: a = 0 does not give x")
-        del got, zero
-        ms = time_ms(torch, run)
+        scan_bits(label, got, a, x)
+        del got
+        # device time: the memset and the kernel of each call, back to back
+        # in a CUDA graph (no host time between calls), the better of two
+        # graphs: the first graph timed after the plain loops has run
+        # slower once in f32, by about 15%, where the profiler showed the
+        # kernel at its usual time
+        graphs = [graph_ms(torch, run) for _ in range(2)]
+        ms = min(graphs)
+        a_odd, x_odd = odd_offset(a), odd_offset(x)
+        ms_ldg = min(graph_ms(torch, lambda: ls_ops.linear_scan(a_odd, x_odd))
+                     for _ in range(2))
+        y = torch.empty_like(x)
+        add_ms = min(graph_ms(torch, lambda: torch.add(a, x, out=y))
+                     for _ in range(2))
+        clocks = gpu_clocks()
         plain = time_ms(torch, lambda a=a, x=x: ls_ref.linear_scan(a, x),
                         iters=2, warmup=1)
         nbytes = 3 * a.numel() * a.element_size()
         bnd, by = bound_ms(nbytes, 2 * a.numel(), dname)
         print(f"[scan] {label}: first call {wall * 1e3:.3f} ms wall; kernel "
-              f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s of the bound's "
-              f"bytes), plain {plain:.3f} ms, no single-call library "
-              f"counterpart, bound {bnd:.4f} ms ({by}, {nbytes / 1e6:.1f} "
-              f"MB)")
+              f"({path}) {ms:.4f} ms (graphs {graphs[0]:.4f}, "
+              f"{graphs[1]:.4f}; {nbytes / ms / 1e6:.1f} GB/s of the "
+              f"bound's bytes, {bnd / ms:.3f} of the bound), on the ldg "
+              f"route (odd offset) {ms_ldg:.4f} ms; torch.add(a, x, out=y), "
+              f"the card's rate for the same 3 S D elements (a yardstick, "
+              f"not the same function) {add_ms:.4f} ms; plain {plain:.3f} "
+              f"ms; no single-call library counterpart; bound {bnd:.4f} ms "
+              f"({by}, {nbytes / 1e6:.1f} MB); clocks (SM, memory) after "
+              f"the timings: {clocks}")
         scan_times[dname] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                  bound_ms=bnd, bound_by=by, library_ms=None)
-        if dname == "float32":
-            device_profile(torch, label, run, warm_wall(run),
-                           {"linear_scan_chunk_kernel": 1,
-                            "linear_scan_carry_kernel": 1,
-                            "linear_scan_apply_kernel": 1})
-        del a, x, run
+        device_profile(torch, label, run, warm_wall(run),
+                       {"linear_scan_kernel": 1,
+                        "linear_scan_chunk_kernel": 0,
+                        "linear_scan_carry_kernel": 0,
+                        "linear_scan_apply_kernel": 0})
+        del a, x, run, a_odd, x_odd, y
 
     # -- 5-6. Listing 1 and Strassen, serial -------------------------------------
     n = N_LISTING

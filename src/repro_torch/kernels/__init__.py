@@ -5,6 +5,10 @@ Each package holds the CUDA source (``csrc/``), its build and binding
 version (``ref.py``) and the public wrappers with their launch counters
 (``ops.py``).
 
+Every public entry point copies a strided operand of a kernel dtype into
+a row-major one (:func:`row_major`) before its checks, so it takes any
+view the reference's wrapper takes.
+
 Launch counters are plain integers on the wrapper functions.  Wrappers
 may be called from the thread-pool backend's workers, so every increment
 goes through :func:`count_launch`, which holds one lock.  A tensor op
@@ -39,12 +43,13 @@ def count_body(body) -> None:
 
 
 def row_major(dtypes, *operands) -> tuple:
-    """``operands`` with every 2-D tensor of one of ``dtypes`` that is not
-    contiguous copied into a contiguous one (a kernel reads row-major
-    tiles); every other operand as it is."""
+    """``operands`` with every tensor of one of ``dtypes`` that is not
+    contiguous, of any rank, copied into a contiguous one (a kernel reads
+    row-major operands); every other operand as it is.  A contiguous view
+    at any offset stays as it is."""
     return tuple(
         x.contiguous() if (isinstance(x, torch.Tensor)
-                           and not is_batchedtensor(x) and x.dim() == 2
+                           and not is_batchedtensor(x)
                            and x.dtype in dtypes and not x.is_contiguous())
         else x for x in operands)
 

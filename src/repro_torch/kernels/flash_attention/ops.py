@@ -7,7 +7,8 @@ sliding-window masks.  It pads Sq and Skv to multiples of ``bq`` / ``bkv``
 exactly as the reference's wrapper does (``repro/kernels/flash_attention/
 ops.py``), runs the kernel (:mod:`.kernel`) on CUDA tensors or the oracle on
 the padded inputs (:func:`.ref.attention`) on CPU tensors, and only there,
-and slices back to Sq.  The padding keeps a quirk of the reference: padded
+and slices back to Sq; a strided view is copied into a row-major one
+first.  The padding keeps a quirk of the reference: padded
 keys are zeros that only the causal mask hides, so non-causal windowed
 attention over a ragged Skv attends to them (ROADMAP Queue 3); non-causal
 unwindowed attention refuses to pad.  ``backend="plain"`` asks for the
@@ -96,8 +97,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         if t.dim() != 4:
             raise ValueError(f"expected (B, H, S, D) tensors, got shape "
                              f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError("expected contiguous tensors")
     b, hq, _, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
@@ -150,6 +149,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """(B, Hq, Sq, D) × (B, Hkv, Skv, D)² → (B, Hq, Sq, D)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: expected one of {BACKENDS}")
+    q, k, v = row_major(DTYPES, q, k, v)
     _check(q, k, v)
     if backend == "plain":
         return ref.attention(q, k, v, causal=causal, window=window,

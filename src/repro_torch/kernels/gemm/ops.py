@@ -3,9 +3,9 @@ on CPU.
 
 ``matmul(a, b)`` computes ``a @ b`` and ``matmul_accumulate(c, a, b)``
 computes ``c + a @ b`` (the Bind tile transaction ``gemm(a, b, c: InOut)``)
-in one launch.  Both take 2-D contiguous float32, bfloat16, float16 or
-float64 tensors of one dtype on one device and return a new tensor of that
-dtype.
+in one launch.  Both take 2-D float32, bfloat16, float16 or float64
+tensors of one dtype on one device and return a new tensor of that dtype;
+a strided view is copied into a row-major one first.
 The kernel masks ragged edges itself, so unlike the reference's
 ``ops.py`` nothing is padded.
 
@@ -97,8 +97,6 @@ def _problem(*tensors) -> Optional[tuple[type, str]]:
             return TypeError, f"mixed dtypes {first.dtype} and {t.dtype}"
         if t.device != first.device:
             return ValueError, f"tensors on {first.device} and {t.device}"
-        if not t.is_contiguous():
-            return ValueError, "expected contiguous (row-major) tensors"
     if first.device.type not in ("cpu", "cuda"):
         return ValueError, f"unsupported device {first.device}"
     return None
@@ -139,6 +137,7 @@ def accumulate_problem(c, a, b) -> Optional[str]:
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with the accumulator of :func:`.ref.acc_dtype`."""
+    a, b = row_major(DTYPES, a, b)
     _check(a, b)
     m, n = _shapes(a, b)
     if a.device.type == "cpu":
@@ -158,6 +157,7 @@ matmul.routes = {}
 def matmul_accumulate(c: torch.Tensor, a: torch.Tensor,
                       b: torch.Tensor) -> torch.Tensor:
     """``c + a @ b``, the sum taken in the accumulator type, in one launch."""
+    c, a, b = row_major(DTYPES, c, a, b)
     bad = _accumulate_problem(c, a, b)
     if bad:
         raise bad[0](bad[1])

@@ -1,11 +1,21 @@
 """Public entry points of the recurrence ``y_t = a_t ⊙ y_{t-1} + x_t``.
 
 ``linear_scan(a, x)`` runs the whole recurrence over ``(B, S, D)``: the
-hand-written chunked kernel (:mod:`.kernel`) on CUDA tensors, the plain
-sequential loop (:mod:`.ref`) on CPU tensors, and only there.  It pads S as
-the reference's wrapper does (``repro/kernels/linear_scan/ops.py``) and
-counts its launches in ``linear_scan.launches``.  ``backend="plain"`` asks
-for the oracle on any device (the reference's ``backend="xla"``).
+hand-written chunked kernel (:mod:`.kernel`, one launch) on CUDA tensors,
+the plain sequential loop (:mod:`.ref`) on CPU tensors, and only there.  A
+strided view is copied into a row-major one first.  It pads S as the
+reference's wrapper does (``repro/kernels/linear_scan/ops.py``), counts its
+launches in ``linear_scan.launches`` and each launch's route in
+``linear_scan.routes`` (route name -> launches): the route the built
+launcher reports for the very operands it is handed, which must be the one
+:func:`route` gives them.  ``backend="plain"`` asks for the oracle on any
+device (the reference's ``backend="xla"``).
+
+:func:`route` says how the kernel stages its tiles (``csrc/linear_scan.cu``
+``route_of`` is the same rule in C): by TMA (``"tma"``) when ``a`` and
+``x`` start 16-byte aligned and a row of D elements is a multiple of 16
+bytes, else by coalesced loads (``"ldg"``); the two give the same bits.
+RecurrentGemma-9B's RG-LRU width (4096) takes ``"tma"``.
 
 ``scan_step`` is the per-level form, shaped for the Bind tracer: the carry
 ``y`` is ``InOut``, and the ``"ewise"`` tag marks the body as a
@@ -22,11 +32,25 @@ import torch.nn.functional as F
 from repro_torch.compat import jax_operands
 from repro_torch.core.trace import In, InOut
 
-from .. import count_launch
+from .. import count_launch, row_major
 from . import kernel, ref
 
 DTYPES = tuple(kernel.SUFFIX)
 BACKENDS = ("cuda", "plain")
+# the routes, in the order of the Route enum of csrc/linear_scan.cu
+ROUTES = ("tma", "ldg")
+
+
+def route(dtype: torch.dtype, d: int, addresses=()) -> str:
+    """The route of a scan over rows of ``d`` elements of ``dtype`` whose
+    ``a`` and ``x`` start at ``addresses`` (device byte addresses): TMA
+    when every address is 16-byte aligned and a row is a multiple of 16
+    bytes, else coalesced loads."""
+    if dtype not in DTYPES:
+        raise TypeError(f"no linear scan route for dtype {dtype}")
+    row = d * dtype.itemsize
+    aligned = all(int(p) % 16 == 0 for p in addresses)
+    return "tma" if aligned and row % 16 == 0 else "ldg"
 
 
 def _check(a: torch.Tensor, x: torch.Tensor) -> None:
@@ -36,8 +60,6 @@ def _check(a: torch.Tensor, x: torch.Tensor) -> None:
         if t.dtype not in DTYPES:
             raise TypeError(f"dtype {t.dtype} is not supported; expected one "
                             f"of {DTYPES}")
-        if not t.is_contiguous():
-            raise ValueError("expected contiguous tensors")
     if a.dim() != 3 or a.shape != x.shape:
         raise ValueError(f"expected a and x of one (B, S, D) shape, got "
                          f"{tuple(a.shape)} and {tuple(x.shape)}")
@@ -58,6 +80,7 @@ def linear_scan(a: torch.Tensor, x: torch.Tensor, *, bs: int = 256,
     """
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: expected one of {BACKENDS}")
+    a, x = row_major(DTYPES, a, x)
     _check(a, x)
     if backend == "plain":
         return ref.linear_scan(a, x)
@@ -71,12 +94,29 @@ def linear_scan(a: torch.Tensor, x: torch.Tensor, *, bs: int = 256,
     else:
         out = torch.empty_like(x)
         if out.numel():
+            path = _route_taken(a, x)
             kernel.launch(a, x, out)
-            count_launch(linear_scan)
+            count_launch(linear_scan, path)
     return out[:, :s, :]
 
 
 linear_scan.launches = 0
+linear_scan.routes = {}
+
+
+def _route_taken(a: torch.Tensor, x: torch.Tensor) -> str:
+    """The route the built launcher takes for these operands, held against
+    :func:`route` on the same addresses: a library and a mirror that
+    disagree raise before anything is launched."""
+    d = a.shape[2]
+    addresses = (a.data_ptr(), x.data_ptr())
+    taken = ROUTES[kernel.launcher_route(a.dtype, *addresses, d)]
+    want = route(a.dtype, d, addresses)
+    if taken != want:
+        raise RuntimeError(f"linear scan: the launcher takes {taken} where "
+                           f"ops.route says {want} (d {d}, addresses "
+                           f"{addresses})")
+    return taken
 
 
 def scan_step(y, a, x):

@@ -1,7 +1,7 @@
 """The port against the reference where the two once disagreed.
 
 Each test holds the port against the JAX package on the same NumPy inputs
-(made from a seed), on one of four behaviours in which the port used to
+(made from a seed), on one of five behaviours in which the port used to
 differ from it:
 
 1. ``attn_step`` on NumPy payloads: the reference's ``jax.nn.softmax``
@@ -21,7 +21,12 @@ differ from it:
    card: by its host enqueue cost, so a plan of card payloads delegates to
    ``serial``.  There is no card here, so the rule is driven by counting
    CPU tensors as on the card; on CPU tensors and NumPy the reference's
-   counters hold (``tests/test_torch_backends.py``).
+   counters hold (``tests/test_torch_backends.py``);
+5. strided views at the kernels' entry points (``linear_scan``,
+   ``flash_attention``, ``matmul``, ``matmul_accumulate``): the reference's
+   wrappers take any array, the port's used to raise ``ValueError`` on a
+   tensor that is not contiguous; they now copy it into a row-major one
+   first and give the reference's result.
 """
 
 import jax
@@ -386,3 +391,61 @@ def test_threads_price_card_plans_apart_from_host_ones(monkeypatch):
             wf.call(gemm_tile, (h, h, h), name="gemm_tile")
         wf.fetch(ns[1])
         assert (backend.plans_delegated, backend.pooled_levels) == (1, 2)
+
+
+# -- 5. strided views at the kernels' entry points -----------------------------
+
+def test_strided_linear_scan_matches_the_references_wrapper():
+    """Gates and inputs kept (B, D, S), every other step taken and
+    transposed to (B, S, D): a view with two strides off row-major."""
+    rng = np.random.default_rng(31)
+    a = rng.uniform(0.2, 0.99, size=(2, 6, 80)).astype(np.float32)
+    x = rng.normal(size=(2, 6, 80)).astype(np.float32)
+    exp = np.asarray(ref_ls(jnp.asarray(a)[:, :, ::2].transpose(0, 2, 1),
+                            jnp.asarray(x)[:, :, ::2].transpose(0, 2, 1),
+                            bs=16, interpret=True))
+    ta, tx = (torch.from_numpy(t)[:, :, ::2].transpose(1, 2) for t in (a, x))
+    assert not ta.is_contiguous() and tuple(ta.shape) == (2, 40, 6)
+    got = ls_ops.linear_scan(ta, tx, bs=16)
+    np.testing.assert_allclose(got.numpy(), exp, rtol=1e-5, atol=1e-5)
+
+
+def test_strided_flash_attention_matches_the_references_wrapper():
+    """q, k, v as slices of one fused (B, S, 3, H, D) projection,
+    transposed to (B, H, S, D)."""
+    rng = np.random.default_rng(32)
+    qkv = rng.normal(size=(1, 48, 3, 2, 16)).astype(np.float32)
+    exp = np.asarray(ref_fa(*(jnp.asarray(qkv)[:, :, i].transpose(0, 2, 1, 3)
+                              for i in range(3)),
+                            bq=16, bkv=16, interpret=True))
+    views = [torch.from_numpy(qkv)[:, :, i].transpose(1, 2) for i in range(3)]
+    assert not any(t.is_contiguous() for t in views)
+    got = fa_ops.flash_attention(*views, bq=16, bkv=16)
+    np.testing.assert_allclose(got.numpy(), exp, rtol=2e-5, atol=2e-5)
+
+
+def test_strided_matmul_matches_the_references_wrapper():
+    """``a`` a column slice of a wider matrix, ``b`` a transposed one."""
+    rng = np.random.default_rng(33)
+    wide = rng.normal(size=(20, 64)).astype(np.float32)
+    bt = rng.normal(size=(12, 24)).astype(np.float32)
+    exp = np.asarray(ref_gemm_ops.matmul(jnp.asarray(wide)[:, 8:32],
+                                         jnp.asarray(bt).T, interpret=True))
+    a, b = torch.from_numpy(wide)[:, 8:32], torch.from_numpy(bt).t()
+    assert not (a.is_contiguous() or b.is_contiguous())
+    got = gemm_ops.matmul(a, b)
+    np.testing.assert_allclose(got.numpy(), exp, rtol=1e-4, atol=1e-3)
+
+
+def test_strided_matmul_accumulate_matches_the_references_wrapper():
+    """``c`` transposed, ``a`` every other row of a taller matrix."""
+    rng = np.random.default_rng(34)
+    ct = rng.normal(size=(12, 20)).astype(np.float32)
+    tall = rng.normal(size=(40, 24)).astype(np.float32)
+    b = rng.normal(size=(24, 12)).astype(np.float32)
+    exp = np.asarray(jnp.asarray(ct).T + ref_gemm_ops.matmul(
+        jnp.asarray(tall)[::2], jnp.asarray(b), interpret=True))
+    c, a = torch.from_numpy(ct).t(), torch.from_numpy(tall)[::2]
+    assert not (c.is_contiguous() or a.is_contiguous())
+    got = gemm_ops.matmul_accumulate(c, a, torch.from_numpy(b))
+    np.testing.assert_allclose(got.numpy(), exp, rtol=1e-4, atol=1e-3)

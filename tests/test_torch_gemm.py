@@ -88,7 +88,6 @@ def test_float64_accumulates_in_float64():
 
 
 @pytest.mark.parametrize("bad, err", [
-    (lambda a, b: (a.t(), b), ValueError),                  # not contiguous
     (lambda a, b: (a, b.double()), TypeError),              # mixed dtypes
     (lambda a, b: (a.int(), b.int()), TypeError),           # no kernel dtype
     (lambda a, b: (a[0], b), ValueError),                   # not 2-D
@@ -101,6 +100,27 @@ def test_wrappers_reject_what_the_kernel_does_not_take(bad, err):
     x, y = bad(a, b)
     with pytest.raises(err):
         ops.matmul(x, y)
+
+
+@pytest.mark.parametrize("dname", sorted(DTYPES))
+def test_transposed_views_match_reference_kernel(dname):
+    """A transposed view is multiplied as the reference multiplies the same
+    array: the wrappers copy it into a row-major one first."""
+    rng = np.random.default_rng(7)
+    ja, ta = _pair(rng, (24, 40), dname)
+    jb, tb = _pair(rng, (24, 16), dname)
+    jc, tc = _pair(rng, (16, 40), dname)
+    assert not ta.t().is_contiguous()
+    exp = ref_ops.matmul(ja.T, jb, bm=64, bn=64, bk=64, interpret=True)
+    rtol, atol = DTYPES[dname][2]
+    got = ops.matmul(ta.t(), tb)
+    np.testing.assert_allclose(to_numpy(got), np.asarray(exp, np.float32),
+                               rtol=rtol, atol=atol)
+    got = ops.matmul_accumulate(tc.t(), ta.t(), tb)
+    np.testing.assert_allclose(
+        to_numpy(got), np.asarray(jc.T, np.float32) + np.asarray(exp,
+                                                                 np.float32),
+        rtol=rtol, atol=atol)
 
 
 def test_accumulate_rejects_wrong_c_shape():
