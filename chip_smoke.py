@@ -108,8 +108,9 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    ``backend="threads"``, cold then warm: C bitwise equal to the serial
    run's, the same transfer stream, 512 and 343 GEMM launches; then the
    reference's bar for ``threads`` (``benchmarks/bench_dag_overhead.py``:
-   threads >= 0.9x serial) on both, as the best of five interleaved warm
-   rounds of each; the tensor bodies on operands their kernels do not
+   threads >= 0.9x serial) on both, as the best of 20 interleaved warm
+   rounds of each (the side that goes first alternating, each run after a
+   ``gc.collect()``); the tensor bodies on operands their kernels do not
    take (int32 and mixed-dtype ``gemm_tile`` and ``_t_gemm_acc``, 3-D and
    float16 ``attn_step``): no kernel launch, one call of the body
    expression, its result the reference's; every other run of 4b-8
@@ -121,9 +122,37 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    run, one more run under ``torch.profiler`` prints the device time by
    kernel and the device's busy share, and checks that the card ran
    exactly the kernels that were counted;
+8c. the serving runtime (``repro_torch.serve.ServingRuntime``) on
+   ``serial``, ``fused`` and ``threads``, each with ``max_batch`` 1 and 8,
+   cold then warm: 8 lock-step client threads (``bench_serving.py``'s
+   shape), each one init request and 6 step requests on CUDA tensors: a
+   ``gemm_tile`` on its 1024^2 f32 C tile (A and B shared: the GEMM), an
+   ``attn_step`` on its 512 x 128 carry with fresh 512-key k and v made
+   by the client thread (``chain_attn``, one level) and the decode step
+   ``x * 0.99 + 0.5`` on a 1024^2 state; every session's C, carry and
+   state bitwise what the same steps give recorded into one workflow on
+   a ``serial`` executor, 48 GEMM and 48 ``chain_attn`` launches and no
+   other, 56 requests completed, requests coalesced under ``max_batch``
+   8 (and then, under ``fused``, ops fused), the device memory given back after
+   ``close()``; printed: requests/s, the runtime's p50/p99 (time to
+   enqueue: a future resolves when the kernels are enqueued), the
+   clients' p50/p99 to a host copy of the result, and the busy share of
+   one more warm run under ``torch.profiler``; per backend, quickstart
+   section 11 on CUDA payloads (the third submission shed, the poison
+   pill poisons only its session, bisection salvages the other request)
+   and ``bench_serving.py``'s steady state (100 steps, the trace bounded
+   by ``compact_threshold`` 12, compactions above 0, bitwise 100 eager
+   steps);
+8d. MapReduce: ``sort_integers`` on 2^26 uniform 31-bit int64 held as one
+   CUDA tensor at 1, 4 and 8 nodes under ``serial`` and ``fused``: equal to
+   ``torch.sort``, on the card, no kernel wrapper launched, the memory
+   given back; the wall, the shuffle's bytes and messages, and the busy
+   share printed; and ``examples/mapreduce_sort.py``'s 2,000,000 values
+   as a NumPy array on the host, equal to ``np.sort``;
 9. a ``kernels`` JSON line (every ported kernel with its launches on its
-   path and its times), the card's name and power limit, and, last,
-   ``{"ok": true, "device": {...}}``.
+   path and its times; the GEMM's accumulate and ``chain_attn`` also with
+   their launches in one serving arm), the card's name and power limit,
+   and, last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when the
 port's sources are not beside it.
@@ -131,9 +160,11 @@ port's sources are not beside it.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -148,6 +179,18 @@ DOT_LEVELS = 8            # gemm_tile chain depth: one C tile of Listing 1
 ATTN_TILE = (512, 512, 128, 128)   # attn_step chain: m, n, d, dv (Qwen3-14B)
 ATTN_LEVELS = 16
 SEED = 0
+# the serving phase: bench_serving.py's full shape (sessions, steps), each
+# step one GEMM (a Listing 1 tile), one chain_attn level and a decode step
+SERVE_SESSIONS, SERVE_STEPS = 8, 6
+SERVE_KERNELS = {"gemm_simt_kernel": SERVE_SESSIONS * SERVE_STEPS,
+                 "chain_attn_kernel": SERVE_SESSIONS * SERVE_STEPS}
+# the MapReduce phase: 2^26 uniform 31-bit int64 (512 MiB) on the card, the
+# example's 2,000,000 on the host
+SORT_N = 1 << 26
+SORT_HOST_N = 2_000_000
+SORT_NODES = (1, 4, 8)
+# rounds of the threads-vs-serial bar (phase 8)
+THREADS_ROUNDS = 20
 # the GEMM's kernels, one per tile loop (kernels/gemm/csrc/gemm.cu)
 GEMM_KERNELS = ("gemm_simt_kernel", "gemm_wgmma_kernel", "gemm_dmma_kernel")
 
@@ -411,6 +454,7 @@ def bits(torch, t):
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -438,6 +482,9 @@ def main() -> int:
     from repro_torch.linalg import Tiled, gemm_strassen
     from repro_torch.linalg import tiles as tiles_ops
     from repro_torch.linalg.distributed import run_distributed_gemm
+    from repro_torch.mapreduce import sort_integers
+    from repro_torch.serve import (RuntimeOverloaded, ServingRuntime,
+                                   SessionPoisoned)
 
     # -- 1. environment ---------------------------------------------------------
     card = gpu_name_and_power()
@@ -1628,14 +1675,21 @@ def main() -> int:
             print(f"[{label}] walls cold {walls['cold']:.4f} s warm "
                   f"{walls['warm']:.4f} s, busy {busy:.1f}%")
     # the reference's bar (benchmarks/bench_dag_overhead.py): threads at
-    # least 0.9x serial, held on CUDA tiles.  Host walls vary by +-20%
-    # from run to run, so each side's best of five interleaved warm rounds
+    # least 0.9x serial, held on CUDA tiles, each side's best of
+    # interleaved warm rounds.  Host walls of one run swing by tens of per
+    # cent from round to round, more than the gap between two sides that
+    # run the same serial plan loop, so THREADS_ROUNDS rounds, the side
+    # that goes first alternating from round to round, and each run after
+    # a cyclic collection, so that neither side pays for one that the
+    # other's garbage set off
     for path, (run, wrapper, want, tol) in paths.items():
         best = {"serial": float("inf"), "threads": float("inf")}
         delegated = 0
-        for _ in range(5):
-            for backend in ("serial", "threads"):
+        for round_ in range(THREADS_ROUNDS):
+            for backend in (("serial", "threads"), ("threads", "serial")
+                            )[round_ % 2]:
                 ex_backend = bind.get_backend(backend)
+                gc.collect()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 result = run(ex_backend)
@@ -1645,10 +1699,11 @@ def main() -> int:
                     delegated += ex_backend.plans_delegated
                 del result
         ratio = best["serial"] / best["threads"]
-        print(f"[threads] {path}: best of 5 interleaved warm walls serial "
+        print(f"[threads] {path}: best of {THREADS_ROUNDS} interleaved warm "
+              f"walls (first side alternating, collected before each) serial "
               f"{best['serial']:.4f} s, threads {best['threads']:.4f} s "
               f"({ratio:.3f} x serial's speed, bar 0.9), plans delegated to "
-              f"serial {delegated} of 5")
+              f"serial {delegated} of {THREADS_ROUNDS}")
         check(ratio >= 0.9, f"{path}: threads at {ratio:.3f} x serial, "
               f"below the reference's 0.9")
 
@@ -1704,6 +1759,330 @@ def main() -> int:
     print(f"[memory] peak allocated "
           f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB")
 
+    # -- 8c. the serving runtime on the card -----------------------------------
+    @bind.op
+    def decode_step(x: bind.InOut, s: bind.In):
+        # bench_serving.py's decode step
+        return x * 0.99 + s
+
+    @bind.op
+    def guard(x: bind.InOut):
+        # quickstart section 11's poison check
+        if float(torch.min(x)) < 0:
+            raise ValueError("negative activation")
+        return x
+
+    f32 = torch.float32
+    sq_rows, skv, d_head, dv_head = ATTN_TILE
+    serve_a, serve_b = rand((IB, IB), f32), rand((IB, IB), f32)
+    serve_init = [{"c": rand((IB, IB), f32), "o": rand((sq_rows, dv_head), f32),
+                   "q": rand((sq_rows, d_head), f32), "x": rand((IB, IB), f32)}
+                  for _ in range(SERVE_SESSIONS)]
+    n_requests = SERVE_SESSIONS * (1 + SERVE_STEPS)
+    n_kernel_steps = SERVE_SESSIONS * SERVE_STEPS
+
+    def kv_stream(i):
+        """Session ``i``'s fresh k and v for each step, made on the card by
+        whoever iterates (its client thread), the same in every run."""
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 1000 + i)
+        for _ in range(SERVE_STEPS):
+            yield (torch.randn((skv, d_head), generator=g, device=dev),
+                   torch.randn((skv, dv_head), generator=g, device=dev))
+
+    def init_state(make, i):
+        # A and B are the same two tensors in every session
+        return {"a": make(serve_a, "a"), "b": make(serve_b, "b"),
+                **{name: make(t, name) for name, t in serve_init[i].items()}}
+
+    def record_step(make, st, k, v):
+        """One served step: Listing 1's tile accumulate (the GEMM), one
+        attention block on a Qwen3-14B head's query tile (chain_attn, one
+        level) and the decode step; returns the session's C, carry and
+        state."""
+        wf = bind.current_workflow()
+        wf.call(gemm_tile, (st["c"], st["a"], st["b"]), name="gemm_tile")
+        wf.call(attn_step, (st["o"], st["q"], make(k, "k"), make(v, "v")),
+                name="attn_step")
+        decode_step(st["x"], 0.5)
+        return st["c"], st["o"], st["x"]
+
+    # the same steps recorded into one workflow, run by a serial executor
+    zero_counts()
+    ex = bind.LocalExecutor(1, backend="serial")
+    with bind.Workflow(executor=ex) as wf:
+        states = [init_state(wf.array, i) for i in range(SERVE_SESSIONS)]
+        streams = [kv_stream(i) for i in range(SERVE_SESSIONS)]
+        for _ in range(SERVE_STEPS):
+            for i in range(SERVE_SESSIONS):
+                k, v = next(streams[i])
+                record_step(wf.array, states[i], k, v)
+        serve_want = [tuple(wf.fetch(st[name]) for name in ("c", "o", "x"))
+                      for st in states]
+    torch.cuda.synchronize()
+    got = counts()
+    check(got["gemm.matmul_accumulate"] == n_kernel_steps
+          and got["chain.attn"] == n_kernel_steps,
+          f"serve reference: launches {got}")
+    del ex, wf, states, streams, k, v
+
+    def serve_arm(backend, max_batch):
+        """8 lock-step clients (bench_serving.py's shape) against one
+        runtime: each opens a session, sends one init request, waits for
+        all, then sends its steps one at a time, copying each result to the
+        host before the next.  Returns what the checks and the lines need."""
+        rt = ServingRuntime(n_nodes=1, backend=backend, max_batch=max_batch)
+        barrier = threading.Barrier(SERVE_SESSIONS)
+        waits = bind.LatencyStats()
+        lock = threading.Lock()
+
+        def client(i):
+            sess = rt.session()
+
+            def init(s):
+                s.state.update(init_state(s.array, i))
+
+            sess.submit(init).result(timeout=300)
+            barrier.wait(timeout=300)
+            result = None
+            for k, v in kv_stream(i):
+                t0 = time.perf_counter()
+                fut = sess.submit(
+                    lambda s, k=k, v=v: record_step(s.array, s.state, k, v))
+                result = fut.result(timeout=300)
+                for t in result:
+                    t.cpu()
+                with lock:
+                    waits.record(time.perf_counter() - t0)
+            return result
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SERVE_SESSIONS) as pool:
+            finals = list(pool.map(client, range(SERVE_SESSIONS)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        bk = rt.executor.backend
+        out = {"finals": finals, "wall": wall, "waits": waits,
+               "metrics": rt.metrics, "backend": bk}
+        rt.close()
+        return out
+
+    def same_finals(label, finals):
+        for i, (want, final) in enumerate(zip(serve_want, finals)):
+            for name, w, g in zip(("C", "carry", "state"), want, final):
+                same_bits(f"{label}: session {i} {name} vs the serial "
+                          f"workflow", g, w)
+
+    for backend in ("serial", "fused", "threads"):
+        for max_batch in (1, 8):
+            label = f"serve {backend} max_batch={max_batch}"
+            for phase in ("cold", "warm"):
+                zero_counts()
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated(dev)
+                arm = serve_arm(backend, max_batch)
+                got = counts()
+                m, bk = arm["metrics"], arm["backend"]
+                same_finals(f"{label} {phase}", arm["finals"])
+                launched = {k: v for k, v in got.items() if v}
+                check(launched == {"gemm.matmul_accumulate": n_kernel_steps,
+                                   "chain.attn": n_kernel_steps},
+                      f"{label}: launches {launched}, expected "
+                      f"{n_kernel_steps} GEMM and {n_kernel_steps} chain_attn "
+                      f"launches, no other kernel and no body expression")
+                check(m.requests_completed == n_requests
+                      and m.requests_failed == 0,
+                      f"{label}: {m.requests_completed} requests completed, "
+                      f"{m.requests_failed} failed")
+                # one request's three ops differ in signature: only requests
+                # flushed together give the fused backend ops to stack
+                if max_batch > 1:
+                    check(m.coalesced_requests > 0,
+                          f"{label}: no request coalesced")
+                    check(backend != "fused" or bk.ops_fused > 0,
+                          f"{label}: no op fused")
+                extra = (f"batches_dispatched {bk.batches_dispatched}, "
+                         f"ops_fused {bk.ops_fused}" if backend == "fused"
+                         else f"plans_delegated {bk.plans_delegated}"
+                         if backend == "threads" else "")
+                lat, waits = m.latency, arm["waits"]
+                wall = arm["wall"]
+                print(f"[serve] {label} {phase}: {n_requests} requests in "
+                      f"{wall:.4f} s ({n_requests / wall:.1f} requests/s); "
+                      f"runtime latency (submit to enqueue) p50 "
+                      f"{lat.p50 * 1e3:.3f} ms p99 {lat.p99 * 1e3:.3f} ms; "
+                      f"clients' wait to a host copy p50 "
+                      f"{waits.p50 * 1e3:.3f} ms p99 {waits.p99 * 1e3:.3f} "
+                      f"ms; flushes {m.flushes}, batched_flushes "
+                      f"{m.batched_flushes}, coalesced_requests "
+                      f"{m.coalesced_requests}, max_batch {m.max_batch}"
+                      + (f", {extra}" if extra else "")
+                      + f"; GEMM launches {got['gemm.matmul_accumulate']}, "
+                      f"chain_attn launches {got['chain.attn']}; bitwise the "
+                      f"serial workflow")
+                del arm, m, bk, lat, waits
+                freed(label, base)
+            busy = device_profile(
+                torch, label, lambda b=backend, mb=max_batch: serve_arm(b, mb),
+                wall, SERVE_KERNELS)
+            print(f"[serve] {label}: warm wall {wall:.4f} s, busy {busy:.1f}%")
+
+        # quickstart section 11 on CUDA payloads: shedding and bisection
+        zero_counts()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        one = torch.full((IB, IB), 1.0, device=dev) * 0.99 + 0.5
+        with ServingRuntime(n_nodes=1, backend=backend, autostart=False,
+                            max_queue=2, compact_threshold=8) as rt:
+            def step_for(value):
+                def step(s):
+                    x = s.state.get("x")
+                    if x is None:
+                        x = s.state["x"] = s.array(
+                            torch.full((IB, IB), value, device=dev), name="x")
+                    guard(x)
+                    decode_step(x, 0.5)
+                    return x
+                return step
+
+            sessions = [rt.session() for _ in range(3)]
+            futs = [sessions[0].submit(step_for(1.0)),
+                    sessions[1].submit(step_for(-1.0))]   # the poison pill
+            try:
+                sessions[2].submit(step_for(3.0))
+                fail(f"serve {backend}: a full queue took a third request")
+            except RuntimeOverloaded:
+                pass
+            rt.start()
+            same_bits(f"serve {backend} overload: salvaged request",
+                      futs[0].result(timeout=60), one)
+            try:
+                futs[1].result(timeout=60)
+                fail(f"serve {backend}: the poison pill succeeded")
+            except ValueError:
+                pass
+            check(sessions[1].poisoned is not None
+                  and sessions[0].poisoned is None
+                  and sessions[2].poisoned is None,
+                  f"serve {backend}: poisoned {sessions}")
+            try:
+                sessions[1].submit(step_for(1.0))
+                fail(f"serve {backend}: a poisoned session took a request")
+            except SessionPoisoned:
+                pass
+            m = rt.metrics
+            check(m.requests_shed == 1 and m.bisections == 1
+                  and m.requests_salvaged == 1 and m.requests_completed == 1,
+                  f"serve {backend} overload: {m.summary()}")
+            print(f"[serve] {backend} overload: {m.requests_shed} shed, "
+                  f"{m.bisections} bisection x {m.bisect_probes} probes "
+                  f"salvaged {m.requests_salvaged}; session 1 alone poisoned")
+        del rt, sessions, futs, m, one
+        # the poison pill's exception holds, through its traceback's frames,
+        # the batch that raised it, whose futures hold the exception: the
+        # reference's runtime does the same (ROADMAP Queue 3), so the
+        # failed batch and its runtime go at the next cyclic collection
+        held = torch.cuda.memory_allocated(dev) - base
+        gc.collect()
+        print(f"[serve] {backend} overload: {held} bytes held by the failed "
+              f"batch's traceback cycle until gc.collect()")
+        freed(f"serve {backend} overload", base)
+
+        # bench_serving.py's steady state: one session, 100 decode steps
+        steady = rand((IB, IB), f32)
+        want = steady
+        for _ in range(100):
+            want = want * 0.99 + 0.5
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        sizes = []
+        t0 = time.perf_counter()
+        with ServingRuntime(n_nodes=1, backend=backend, admission_window=0.0,
+                            compact_threshold=12) as rt:
+            s = rt.session()
+
+            def step(sess):
+                if "x" not in sess.state:
+                    sess.state["x"] = sess.array(steady, name="x")
+                decode_step(sess.state["x"], 0.5)
+                return sess.state["x"]
+
+            for _ in range(100):
+                got = s.submit(step).result(timeout=60)
+                sizes.append(len(rt._wf.ops))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            same_bits(f"serve {backend} steady state", got, want)
+            m = rt.metrics
+            check(max(sizes) <= 12 and m.trace_ops_hwm <= 12
+                  and m.compactions > 0,
+                  f"serve {backend} steady state: trace sizes up to "
+                  f"{max(sizes)}, {m.summary()}")
+            print(f"[serve] {backend} steady state: 100 steps in "
+                  f"{wall:.4f} s, trace_ops_hwm {m.trace_ops_hwm} (bound 12), "
+                  f"{m.compactions} compactions, {m.ops_compacted} ops "
+                  f"compacted; bitwise 100 eager steps")
+        del rt, s, got, m, steady, want
+        freed(f"serve {backend} steady state", base)
+    del serve_a, serve_b, serve_init, serve_want
+
+    # -- 8d. MapReduce: sorting integers on the card and on the host -----------
+    keys = torch.randint(0, 2 ** 31 - 1, (SORT_N,), generator=gen,
+                         device=dev, dtype=torch.int64)
+    keys_sorted = torch.sort(keys).values
+    for backend in ("serial", "fused"):
+        for nodes in SORT_NODES:
+            label = f"sort {backend} {nodes} nodes"
+
+            def sort_run(backend=backend, nodes=nodes):
+                ex = bind.LocalExecutor(nodes, collective_mode="tree",
+                                        backend=backend)
+                return sort_integers(keys, n_nodes=nodes, executor=ex)
+
+            zero_counts()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            out, stats = sort_run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(isinstance(out, torch.Tensor) and out.device == keys.device
+                  and out.dtype == torch.int64,
+                  f"{label}: came back as {type(out)} on "
+                  f"{getattr(out, 'device', None)}")
+            check(torch.equal(out, keys_sorted),
+                  f"{label}: differs from torch.sort")
+            launched = {k: v for k, v in counts().items() if v}
+            check(not launched, f"{label}: launched {launched}")
+            print(f"[mapreduce] {label}: 2^{SORT_N.bit_length() - 1} int64 "
+                  f"on the card: {wall * 1e3:.3f} ms, shuffle "
+                  f"{stats.bytes_transferred} bytes in "
+                  f"{stats.message_count} implicit transfers, ops "
+                  f"{stats.ops_executed}; equal to torch.sort, on the card")
+            del out, stats
+            freed(label, base)
+            busy = device_profile(torch, label, sort_run, wall, {})
+            print(f"[mapreduce] {label}: wall {wall * 1e3:.3f} ms, busy "
+                  f"{busy:.1f}%")
+    del keys, keys_sorted
+    host_keys = np.random.default_rng(SEED).integers(
+        0, 2 ** 31 - 1, size=SORT_HOST_N, dtype=np.int64)
+    host_sorted = np.sort(host_keys)
+    for nodes in SORT_NODES:
+        t0 = time.perf_counter()
+        out, stats = sort_integers(host_keys, n_nodes=nodes)
+        wall = time.perf_counter() - t0
+        check(isinstance(out, np.ndarray) and np.array_equal(out, host_sorted),
+              f"sort numpy {nodes} nodes: differs from np.sort")
+        print(f"[mapreduce] numpy {nodes} nodes: {SORT_HOST_N} int64 on the "
+              f"host: {wall * 1e3:.3f} ms, shuffle {stats.bytes_transferred} "
+              f"bytes in {stats.message_count} implicit transfers; equal to "
+              f"np.sort")
+    del host_keys, host_sorted, out, stats
+    print(f"[memory] peak allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB")
+
     # -- 9. result lines --------------------------------------------------------------
     gemm_source = "src/repro_torch/kernels/gemm/csrc/gemm.cu"
     chain_source = "src/repro_torch/kernels/chain/csrc/chain.cu"
@@ -1748,11 +2127,17 @@ def main() -> int:
          "src/repro/kernels/linear_scan/kernel.py:50",
          path_counts[scan_label]["linear_scan"], scan_times["float32"]),
     )
+    # the served steps launch the GEMM's accumulate and chain_attn too: one
+    # each a step, counted on the launchers in every serving arm
+    served = {"gemm.matmul_accumulate": n_kernel_steps,
+              "chain.attn": n_kernel_steps}
     kernels = []
     for name, source, replaces, launches, numbers in rows:
         check(launches > 0, f"{name}: never launched on its path")
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches, **numbers))
+        if name in served:
+            kernels[-1]["serve_launches"] = served[name]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,52 @@
+"""The port's examples (``examples/torch_*.py``) run in-process on the host.
+
+Each runs through its ``main`` with ``--cpu`` at a small size and must
+print ``OK``; without ``--cpu`` on a host with no GPU each must stop with
+a non-zero code rather than fall back to the CPU.  The Listing 1 example
+prints the reference example's accounting, line for line.
+"""
+
+import importlib.util
+import os
+
+import pytest
+import torch
+
+EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
+SCRIPTS = {"torch_quickstart": ["--cpu"],
+           "torch_mapreduce_sort": ["--cpu", "--n", "20000",
+                                    "--backend", "fused"],
+           "torch_distributed_gemm": ["--cpu"]}
+
+
+def _load(name):
+    spec = importlib.util.spec_from_file_location(
+        f"_example_{name}", os.path.join(EXAMPLES, f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("name", sorted(SCRIPTS))
+def test_example_runs_on_the_host(name, capsys):
+    assert _load(name).main(SCRIPTS[name]) == 0
+    out = capsys.readouterr().out
+    assert out.splitlines()[-1] == "OK", out
+
+
+@pytest.mark.parametrize("name", sorted(SCRIPTS))
+def test_example_refuses_without_a_gpu(name, capsys, monkeypatch):
+    module = _load(name)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert module.main([]) == 1
+    captured = capsys.readouterr()
+    assert "--cpu" in captured.err
+    assert "OK" not in captured.out
+
+
+def test_distributed_gemm_example_prints_the_reference_accounting(capsys):
+    _load("torch_distributed_gemm").bind_version(torch.device("cpu"))
+    port = capsys.readouterr().out.replace(" on cpu", "").splitlines()
+    _load("distributed_gemm").bind_version()
+    ref = capsys.readouterr().out.splitlines()
+    assert port == ref and len(port) == 3

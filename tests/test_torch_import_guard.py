@@ -49,6 +49,9 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.kernels.flash_attention.kernel",
                 "repro_torch.kernels.flash_attention.ref",
                 "repro_torch.linalg.distributed",
+                "repro_torch.mapreduce.engine", "repro_torch.mapreduce.sort",
+                "repro_torch.serve.runtime", "repro_torch.serve.session",
+                "repro_torch.serve.metrics",
                 "repro_torch.launch.mesh", "repro_torch.compat"):
         assert mod in got["modules"], mod
     assert got["bad"] == [], f"repro_torch pulled in: {got['bad']}"
