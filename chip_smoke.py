@@ -149,10 +149,36 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    given back; the wall, the shuffle's bytes and messages, and the busy
    share printed; and ``examples/mapreduce_sort.py``'s 2,000,000 values
    as a NumPy array on the host, equal to ``np.sort``;
+8e. the LM stack (``[lm]``, :func:`lm_phase`): RecurrentGemma-9B at its
+   published widths and depth (38 layers, d_model 4096, 16 heads over 1,
+   head_dim 256, d_ff 12288, lru_width 4096, window 2048, vocab 256000),
+   bf16, its 9,395,666,944 weight-matrix parameters (``count_params``)
+   drawn on the card from a seeded ``torch.Generator``; served through
+   ``make_prefill_step`` / ``make_decode_step``: 2 prompts of 4096 tokens,
+   then 32 greedy decode steps, cold then warm; the warm run with every
+   count zeroed just before: exactly 12 ``flash_attention`` launches on
+   ``bf16_wgmma`` and 26 ``linear_scan`` launches on ``tma``, no other
+   kernel wrapper, no call of either plain version (counted by wrappers
+   installed here), the operands handed to the entry points and how many
+   a row-major copy takes; the profile of a prefill shows the two kernels
+   by name (12 and 26), and where the device time goes (cuBLAS GEMMs,
+   flash attention, the scan, copies, the rest) for prefill and decode,
+   with the busy shares; prefill and decode walls, tokens/s and their
+   bounds (prefill's FLOPs at the bf16 peak, a decode step's weight bytes
+   at the HBM rate); every kernel call of one more prefill held against its
+   plain version (attention within 3e-2 and ``bf16_attention_error``'s
+   limits, the scan bit for bit ``ref.linear_scan_chunked`` and within
+   2e-5 of the sequential oracle); the device memory given back; then
+   the reference's serving check in float32 at 5 layers (one pattern
+   period and the tail): a 3072-token prefill (past the window) and 8
+   teacher-forced decode steps, each step's logits within 2e-3 of the
+   full-sequence forward's;
 9. a ``kernels`` JSON line (every ported kernel with its launches on its
    path and its times; the GEMM's accumulate and ``chain_attn`` also with
-   their launches in one serving arm), the card's name and power limit,
-   and, last, ``{"ok": true, "device": {...}}``.
+   their launches in one serving arm, ``flash_attention`` and
+   ``linear_scan`` with their launches, route and mean device time in one
+   ``[lm]`` prefill), the card's name and power limit, and, last, ``{"ok":
+   true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when the
 port's sources are not beside it.
@@ -445,6 +471,398 @@ def device_profile(torch, label: str, run, wall_s: float,
           f"{wall_s * 1e3:.3f} ms wall (busy {busy:.1f}%); "
           + "; ".join(parts))
     return busy
+
+
+# the LM phase: RecurrentGemma-9B at its published widths and depth
+# (src/repro/configs/recurrentgemma_9b.py), bf16, random weights from SEED;
+# B prompts of S tokens (S past the 2048 window), then greedy decode steps
+LM_ARCH = "recurrentgemma_9b"
+LM_PARAMS = 9_395_666_944
+LM_BATCH, LM_PROMPT, LM_DECODE = 2, 4096, 32
+# kernel calls per prefill: one flash_attention per local_attn block, one
+# linear_scan per rglru block (12 x (rglru, rglru, local_attn) + 2 rglru)
+LM_KERNELS = {"flash_attention": ("bf16_wgmma", 12),
+              "linear_scan": ("tma", 26)}
+# teacher forcing in float32 at one pattern period plus the tail (5
+# layers): prefill past the window (a prompt of whole 1024-key chunks, as
+# the chunked path requires), then decode steps against the full-sequence
+# forward, the reference's own serving check (tests/test_serve.py:34-62)
+# at its tolerance
+LM_TF_LAYERS, LM_TF_PROMPT, LM_TF_DECODE = 5, 3072, 8
+LM_TF_TOL = 2e-3
+
+
+def lm_phase(torch, dev, gen, card: str, zero_counts, counts) -> dict:
+    """``[lm]``: serve RecurrentGemma-9B on the card through the port's
+    entry points (``LanguageModel``, ``make_prefill_step``,
+    ``make_decode_step``), check the kernels its prefill launches, hold
+    each of them against its plain version, check decode against the
+    full sequence in float32, and print the walls, rates, bounds, busy
+    shares and where the device time goes.  Returns, per kernel entry
+    point, its launches per prefill and its mean device time there."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.linear_scan import kernel as ls_kernel
+    from repro_torch.kernels.linear_scan import ops as ls_ops
+    from repro_torch.kernels.linear_scan import ref as ls_ref
+    from repro_torch.models import LanguageModel, attention_xla, recurrent
+    from repro_torch.models.blocks import count_params
+    from repro_torch.train import make_decode_step, make_prefill_step
+    from torch.profiler import ProfilerActivity, profile
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def held_blocks():
+        # the sizes of the largest allocations still live, for a failure
+        sizes = sorted((blk["size"] for seg in torch.cuda.memory_snapshot()
+                        for blk in seg["blocks"]
+                        if blk["state"] == "active_allocated"), reverse=True)
+        return sizes[:8]
+
+    # cuBLAS takes its workspace from the caching allocator at a stream's
+    # first product and keeps it: take it before the baseline
+    for dt in (torch.bfloat16, torch.float32):
+        for n in (1, 64):
+            (torch.ones((n, 64), dtype=dt, device=dev)
+             @ torch.ones((64, 64), dtype=dt, device=dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # -- build the model at full width and depth ---------------------------
+    cfg = configs.get(LM_ARCH)
+    t0 = time.perf_counter()
+    model = LanguageModel(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    sync()
+    t_init = time.perf_counter() - t0
+    n_matrix = model.param_count()
+    check(n_matrix == count_params(cfg) == LM_PARAMS,
+          f"[lm] {n_matrix} parameters in weight matrices, count_params "
+          f"{count_params(cfg)}, expected {LM_PARAMS}")
+    n_all = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    kinds = [kind for _, kind in model.layers()]
+    check(len(kinds) == cfg.n_layers == 38, f"[lm] {len(kinds)} layers")
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers ({kinds.count('rglru')} "
+          f"rglru, {kinds.count('local_attn')} local_attn), d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, "
+          f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, lru_width "
+          f"{cfg.lru_width}, window {cfg.window}, vocab {cfg.vocab_size}, "
+          f"{model.dtype}; {n_matrix:,} parameters in weight matrices "
+          f"(= count_params), {n_all:,} with norms, lam and conv_b; "
+          f"{w_bytes:,} bytes; drawn on the card from seed {SEED} in "
+          f"{t_init:.3f} s ({card})")
+    check(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+          "[lm] non-finite initial parameters")
+    after_model = torch.cuda.memory_allocated(dev)
+
+    # -- serve through the port's entry points ---------------------------
+    b, s, n_dec = LM_BATCH, LM_PROMPT, LM_DECODE
+    prefill = make_prefill_step(model, s_max=s + n_dec)
+    decode = make_decode_step(model)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev)
+
+    def serve():
+        """Prefill, then n_dec greedy decode steps; (tokens, walls)."""
+        sync()
+        t0 = time.perf_counter()
+        logits, states = prefill(tokens)
+        sync()
+        t1 = time.perf_counter()
+        check(tuple(logits.shape) == (b, 1, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"[lm] prefill logits {tuple(logits.shape)} not finite")
+        token = logits[:, -1].argmax(dim=-1, keepdim=True)
+        out = [token]
+        for t in range(n_dec):
+            logits, states = decode(states, token, s + t)
+            token = logits[:, -1].argmax(dim=-1, keepdim=True)
+            out.append(token)
+        sync()
+        t2 = time.perf_counter()
+        check(bool(torch.isfinite(logits).all()), "[lm] decode logits not "
+              "finite")
+        return torch.cat(out, dim=1), t1 - t0, t2 - t1
+
+    # the plain versions, counted by wrappers installed here: a served run
+    # must call neither; the operands the entry points are handed, and
+    # how many of them a row-major copy takes
+    plain = {"flash_attention": 0, "linear_scan": 0}
+    handed = {"operands": 0, "strided": 0, "strided_bytes": 0}
+    originals = {"fa_ref": fa_ref.attention, "ls_ref": ls_ref.linear_scan,
+                 "fa": attention_xla.flash_attention,
+                 "ls": recurrent.linear_scan}
+
+    def counting_plain(name, fn):
+        def wrapper(*args, **kwargs):
+            plain[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    def watching(fn):
+        def wrapper(*tensors, **kwargs):
+            for t in tensors:
+                handed["operands"] += 1
+                if not t.is_contiguous():
+                    handed["strided"] += 1
+                    handed["strided_bytes"] += t.numel() * t.element_size()
+            return fn(*tensors, **kwargs)
+        return wrapper
+
+    fa_ref.attention = counting_plain("flash_attention", fa_ref.attention)
+    ls_ref.linear_scan = counting_plain("linear_scan", ls_ref.linear_scan)
+    attention_xla.flash_attention = watching(originals["fa"])
+    recurrent.linear_scan = watching(originals["ls"])
+    try:
+        cold = serve()
+        zero_counts()
+        for key in plain:
+            plain[key] = 0
+        for key in handed:
+            handed[key] = 0
+        generated, t_prefill, t_decode = serve()
+        got = counts()
+    finally:
+        fa_ref.attention = originals["fa_ref"]
+        ls_ref.linear_scan = originals["ls_ref"]
+        attention_xla.flash_attention = originals["fa"]
+        recurrent.linear_scan = originals["ls"]
+    check(tuple(generated.shape) == (b, n_dec + 1)
+          and bool(((generated >= 0) & (generated < cfg.vocab_size)).all()),
+          f"[lm] generated tokens {tuple(generated.shape)}")
+    check(torch.equal(generated, cold[0]), "[lm] two served runs of the "
+          "same prompt generated different tokens")
+    for name, (route, want) in LM_KERNELS.items():
+        wrapper = {"flash_attention": fa_ops.flash_attention,
+                   "linear_scan": ls_ops.linear_scan}[name]
+        check(got[name] == want and wrapper.routes == {route: want},
+              f"[lm] {name}: {got[name]} launches by route "
+              f"{wrapper.routes}, expected {want} on {route} a prefill")
+    others = {k: v for k, v in got.items() if v and k not in LM_KERNELS}
+    check(not others, f"[lm] unexpected launches {others}")
+    check(plain == {"flash_attention": 0, "linear_scan": 0},
+          f"[lm] the served run called plain versions: {plain}")
+    print(f"[lm] served run: {got['flash_attention']} flash_attention "
+          f"launches on {fa_ops.flash_attention.routes}, "
+          f"{got['linear_scan']} linear_scan on "
+          f"{ls_ops.linear_scan.routes}, no other kernel wrapper; plain "
+          f"versions called {plain}; {handed['operands']} operands handed "
+          f"to the entry points, {handed['strided']} strided "
+          f"({handed['strided_bytes']} bytes copied to row-major)")
+
+    pre_flops = 2 * (n_matrix - cfg.vocab_size * cfg.d_model) * b * s
+    w = min(cfg.window, s)
+    visible = b * (w * (w + 1) // 2 + (s - w) * w)
+    attn_flops = 4 * cfg.n_heads * cfg.head_dim * visible * kinds.count(
+        "local_attn")
+    head_flops = 2 * b * cfg.d_model * cfg.vocab_size
+    pre_bound = (pre_flops + attn_flops + head_flops) / PEAK_FLOPS[
+        "bfloat16"] * 1e3
+    dec_bound = w_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[lm] prefill {b} x {s} tokens: cold {cold[1]:.4f} s, warm "
+          f"{t_prefill:.4f} s, {b * s / t_prefill:.1f} tokens/s; bound "
+          f"{pre_bound:.3f} ms (({pre_flops:.4e} weight + {attn_flops:.4e} "
+          f"attention + {head_flops:.4e} head) FLOP at 989 TFLOP/s bf16), "
+          f"{pre_bound / 1e3 / t_prefill * 100:.1f}% of it ({card})")
+    print(f"[lm] decode {n_dec} steps x {b}: cold {cold[2]:.4f} s, warm "
+          f"{t_decode:.4f} s, {t_decode / n_dec * 1e3:.3f} ms a step, "
+          f"{b * n_dec / t_decode:.1f} tokens/s; bound {dec_bound:.3f} ms a "
+          f"step ({w_bytes:,} weight bytes at 3.35 TB/s), "
+          f"{dec_bound / (t_decode / n_dec * 1e3) * 100:.1f}% of it ({card})")
+
+    # -- where the device time goes --------------------------------------
+    def lm_profile(label, run, wall_s, expect):
+        for attempt in range(3):
+            sync()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run()
+                sync()
+            kernels = sorted(
+                ((e.self_device_time_total / 1e3, e.count, e.key)
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.self_device_time_total > 0), reverse=True)
+            seen = {k: sum(c for _m, c, key in kernels if k in key)
+                    for k in expect}
+            if seen == expect:
+                break
+            print(f"[lm] profile {label}: the trace shows {seen}, expected "
+                  f"{expect} (attempt {attempt + 1} of 3)")
+        check(seen == expect, f"[lm] profile {label}: {seen}, expected "
+              f"{expect}")
+        total = sum(ms for ms, _n, _k in kernels)
+
+        def share(test):
+            return sum(ms for ms, _n, key in kernels if test(key.lower()))
+
+        parts = {
+            "flash attention": share(lambda k: "flash_attention" in k),
+            "linear scan": share(lambda k: "linear_scan" in k),
+            "GEMM (cuBLAS)": share(lambda k: ("gemm" in k or "nvjet" in k
+                                              or "cutlass" in k
+                                              or "xmma" in k)),
+            "copies": share(lambda k: "copy" in k),
+        }
+        parts["other"] = total - sum(parts.values())
+        print(f"[lm] profile {label}: device kernel time {total:.3f} ms of "
+              f"{wall_s * 1e3:.3f} ms wall (busy "
+              f"{100 * total / (wall_s * 1e3):.1f}%); " + "; ".join(
+                  f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
+                  for k, v in parts.items()) + f" ({card})")
+        for ms, cnt, key in kernels[:10]:
+            print(f"[lm] profile {label}:   {ms:9.3f} ms {cnt:5d}x "
+                  f"{key[:100]}")
+        return kernels, total
+
+    pre_kernels, _ = lm_profile(
+        "prefill", lambda: prefill(tokens), t_prefill,
+        {"flash_attention_wgmma_kernel": 12, "linear_scan_kernel": 26})
+    _, states = prefill(tokens)
+    token = generated[:, :1]
+
+    def decode_run():
+        st = states
+        for t in range(n_dec):
+            _, st = decode(st, token, s + t)
+
+    lm_profile("decode", decode_run, t_decode,
+               {"flash_attention": 0, "linear_scan": 0})
+    del states
+    kernel_ms = {}
+    for name, key in (("flash_attention", "flash_attention_wgmma_kernel"),
+                      ("linear_scan", "linear_scan_kernel")):
+        ms = sum(m for m, _n, k in pre_kernels if key in k)
+        kernel_ms[name] = ms / LM_KERNELS[name][1]
+        print(f"[lm] {key} inside the served prefill: {ms:.3f} ms for "
+              f"{LM_KERNELS[name][1]} launches, {kernel_ms[name]:.4f} ms "
+              f"each ({card})")
+    print(f"[lm] peak device memory {torch.cuda.max_memory_allocated(dev):,}"
+          f" bytes with {after_model - base:,} of weights ({card})")
+
+    # -- every kernel call of one prefill against its plain version -------
+    errors = {"flash_attention": 0.0, "linear_scan": 0.0, "oracle": 0.0}
+    calls = {"flash_attention": 0, "linear_scan": 0}
+
+    def attention_held(q, k, v, *, causal, window, scale, bq, bkv):
+        out = originals["fa"](q, k, v, causal=causal, window=window,
+                              scale=scale, bq=bq, bkv=bkv)
+        sq = q.shape[2]
+        padded = fa_ops.pad(q, k, v, causal=causal, window=window, bq=bq,
+                            bkv=bkv)
+        exp = fa_ref.attention(*padded, causal=causal, window=window,
+                               scale=scale)[:, :, :sq]
+        tol = ATTN_TOL["bfloat16"]
+        torch.testing.assert_close(out, exp, rtol=tol, atol=tol)
+        exp32 = fa_ref.attention(*(t.float() for t in padded),
+                                 causal=causal, window=window,
+                                 scale=scale)[:, :, :sq]
+        stats = bf16_attention_error(out, exp32, padded[2])
+        check(bf16_within(stats), f"[lm] attention call "
+              f"{calls['flash_attention']}: outside the bf16 limits {stats}")
+        errors["flash_attention"] = max(
+            errors["flash_attention"],
+            (out.double() - exp.double()).abs().max().item())
+        calls["flash_attention"] += 1
+        return out
+
+    def scan_held(a, x):
+        out = originals["ls"](a, x)
+        exp = ls_ref.linear_scan_chunked(a, x, chunk=ls_kernel.CHUNK)
+        check(torch.equal(bits(torch, out), bits(torch, exp)),
+              f"[lm] scan call {calls['linear_scan']}: not bit for bit "
+              f"ref.linear_scan_chunked")
+        oracle = ls_ref.linear_scan(a, x)
+        tol = SCAN_TOL["float32"]
+        torch.testing.assert_close(out, oracle, rtol=tol, atol=tol)
+        errors["oracle"] = max(errors["oracle"], (
+            out.double() - oracle.double()).abs().max().item())
+        calls["linear_scan"] += 1
+        return out
+
+    attention_xla.flash_attention = attention_held
+    recurrent.linear_scan = scan_held
+    try:
+        t0 = time.perf_counter()
+        prefill(tokens)
+        sync()
+    finally:
+        attention_xla.flash_attention = originals["fa"]
+        recurrent.linear_scan = originals["ls"]
+    check(calls == {"flash_attention": 12, "linear_scan": 26},
+          f"[lm] held {calls} kernel calls, expected 12 and 26")
+    print(f"[lm] every kernel call of one prefill against its plain "
+          f"version ({time.perf_counter() - t0:.3f} s): 12 flash_attention "
+          f"(bf16, {tuple(tokens.shape)} prompts) within "
+          f"{ATTN_TOL['bfloat16']} and the bf16 limits, max_abs_err "
+          f"{errors['flash_attention']:.3e}; 26 linear_scan (f32 ({b}, {s}, "
+          f"{cfg.lru_width})) bit for bit ref.linear_scan_chunked, max_abs_err "
+          f"{errors['oracle']:.3e} against the sequential oracle (<= "
+          f"{SCAN_TOL['float32']})")
+    del model, prefill, decode, tokens, generated, cold
+    gc.collect()
+    sync()
+    left = torch.cuda.memory_allocated(dev) - base
+    check(left < 4 << 20, f"[lm] {left} bytes still allocated after the "
+          f"bf16 model was dropped (largest blocks {held_blocks()})")
+    print(f"[lm] device memory held after the bf16 model was dropped: "
+          f"{left} bytes")
+
+    # -- decode against the full sequence, float32 ----------------------------
+    cfg32 = dataclasses.replace(cfg, n_layers=LM_TF_LAYERS, dtype="float32")
+    model = LanguageModel(cfg32, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    n32 = model.param_count()
+    n_pre, n_tf = LM_TF_PROMPT, LM_TF_DECODE
+    toks = torch.randint(0, cfg.vocab_size, (1, n_pre + n_tf), generator=gen,
+                         device=dev)
+    zero_counts()
+    hidden = model(toks)
+    full = model.logits(hidden[:, n_pre - 1:])          # (1, n_tf + 1, V)
+    del hidden
+    logits, states = make_prefill_step(model, s_max=n_pre + n_tf)(
+        toks[:, :n_pre])
+    tf_err = [(logits[:, 0] - full[:, 0]).abs().max().item()]
+    torch.testing.assert_close(logits[:, 0], full[:, 0], rtol=LM_TF_TOL,
+                               atol=LM_TF_TOL)
+    step = make_decode_step(model)
+    for t in range(n_tf):
+        logits, states = step(states, toks[:, n_pre + t:n_pre + t + 1],
+                              n_pre + t)
+        torch.testing.assert_close(logits[:, 0], full[:, t + 1],
+                                   rtol=LM_TF_TOL, atol=LM_TF_TOL)
+        tf_err.append((logits[:, 0] - full[:, t + 1]).abs().max().item())
+    got = counts()
+    want32 = {"flash_attention": 2, "linear_scan": 8}
+    check({k: got[k] for k in want32} == want32
+          and fa_ops.flash_attention.routes == {"f32_simt": 2}
+          and ls_ops.linear_scan.routes == {"tma": 8},
+          f"[lm] float32 forward and prefill launched {got}, routes "
+          f"{fa_ops.flash_attention.routes} / {ls_ops.linear_scan.routes}")
+    print(f"[lm] teacher forcing, float32, {LM_TF_LAYERS} layers ({n32:,} "
+          f"parameters in weight matrices): prefill {n_pre} tokens "
+          f"(window {cfg.window}), then {n_tf} decode steps against the "
+          f"full-sequence forward: max_abs_err "
+          f"{', '.join(f'{e:.3e}' for e in tf_err)} (<= {LM_TF_TOL}); "
+          f"kernels {want32} on f32_simt / tma")
+    del model, full, logits, states, step, toks
+    gc.collect()
+    sync()
+    left = torch.cuda.memory_allocated(dev) - base
+    check(left < 4 << 20, f"[lm] {left} bytes still allocated after the "
+          f"phase (largest blocks {held_blocks()})")
+    print(f"[lm] device memory held after the phase: {left} bytes")
+    return {name: {"lm_launches": want, "lm_route": route,
+                   "lm_ms": kernel_ms[name]}
+            for name, (route, want) in LM_KERNELS.items()}
 
 
 def bits(torch, t):
@@ -2083,6 +2501,9 @@ def main() -> int:
     print(f"[memory] peak allocated "
           f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB")
 
+    # -- 8e. the LM stack: RecurrentGemma-9B served on the card ----------------
+    lm = lm_phase(torch, dev, gen, card, zero_counts, counts)
+
     # -- 9. result lines --------------------------------------------------------------
     gemm_source = "src/repro_torch/kernels/gemm/csrc/gemm.cu"
     chain_source = "src/repro_torch/kernels/chain/csrc/chain.cu"
@@ -2138,6 +2559,7 @@ def main() -> int:
                             replaces=replaces, launches=launches, **numbers))
         if name in served:
             kernels[-1]["serve_launches"] = served[name]
+        kernels[-1].update(lm.get(name, {}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,197 @@
+"""LanguageModel — the serving half of ``repro/models/model.py`` in PyTorch.
+
+The model is an ``nn.Module`` that holds its parameters under the
+reference's dict paths: ``emb``, ``ln_f``, ``lm_head`` (untied heads),
+``groups.<g>.b<i>.<sublayer>.<name>`` for the ``g``-th repeat of the block
+pattern (the reference stacks these along a leading axis and scans over
+them; the port loops over the groups), and ``tail.<i>...`` for the
+remainder layers.  Construction allocates uninitialised storage on its
+device (the card unless the caller asks for another; ``"meta"`` allocates
+nothing); :meth:`init` draws every parameter from a ``torch.Generator``
+on that device, one sublayer at a time;
+:func:`repro_torch.models.weights.carry_params` loads the reference's
+parameters instead.
+
+Serving: :meth:`prefill` runs the prompt through every block (attention
+through the flash-attention entry point, the RG-LRU scan through the
+linear-scan entry point) and returns the last token's logits and the
+decode states; :meth:`decode_step` advances one token against them in
+plain PyTorch.  States are nested like the reference's, with the groups
+as a list: ``{"groups": [{"b0": state, ...}, ...] or None, "tail":
+[...]}``.  The training half (``loss``) comes with a later slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+
+from repro_torch.sharding.constraints import shard_act
+
+from . import blocks
+from .layers import Params, dense_init, init_rmsnorm, rmsnorm
+
+
+def _dtype_of(cfg) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+class LanguageModel(Params):
+    """The decoder-only stack of ``cfg`` for serving.
+
+    ``device`` defaults to the card; with no CUDA device that raises
+    rather than falling back to the CPU.  A configuration with a part the
+    port does not run yet raises :class:`ValueError` before anything is
+    allocated (:func:`.blocks.check_ported`).
+    """
+
+    def __init__(self, cfg, *, device=None):
+        blocks.check_ported(cfg)
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("LanguageModel: no CUDA device "
+                               "(torch.cuda.is_available() is false); pass "
+                               "device='cpu' to run on the host")
+        dt = _dtype_of(cfg)
+
+        def init(generator, dev):
+            emb = torch.randn((cfg.vocab_size, cfg.d_model),
+                              generator=generator, device=dev)
+            p = {"emb": emb.mul_(0.02).to(dt),
+                 "ln_f": init_rmsnorm(cfg.d_model, dt, dev)}
+            del emb
+            if not cfg.tie_embeddings:
+                p["lm_head"] = dense_init(generator, cfg.d_model,
+                                          cfg.vocab_size, dt, device=dev)
+            return p
+
+        super().__init__(init, device)
+        self.cfg = cfg
+        self.dtype = dt
+        self.groups = nn.ModuleList(
+            nn.ModuleDict({f"b{i}": blocks.Block(kind, cfg, dt, device)
+                           for i, kind in enumerate(cfg.block_pattern)})
+            for _ in range(cfg.n_groups))
+        self.tail = nn.ModuleList(blocks.Block(kind, cfg, dt, device)
+                                  for kind in cfg.tail_pattern)
+
+    @property
+    def device(self) -> torch.device:
+        return self._parameters["emb"].device
+
+    def init(self, generator: torch.Generator) -> "LanguageModel":
+        """Draw every parameter from ``generator`` (on the model's
+        device); returns the model."""
+        return self.reset(generator)
+
+    def param_count(self) -> int:
+        """The elements of every weight matrix: what
+        ``ModelConfig.param_count()`` counts analytically (it leaves out
+        the norm scales, biases and the RG-LRU's ``lam`` and ``conv_b``)."""
+        return sum(p.numel() for p in self.parameters() if p.dim() >= 2)
+
+    def layers(self):
+        """(block, kind) for every layer, in depth order."""
+        pattern = self.cfg.block_pattern
+        for group in self.groups:
+            for i, kind in enumerate(pattern):
+                yield group[f"b{i}"], kind
+        for i, blk in enumerate(self.tail):
+            yield blk, pattern[i]
+
+    # ------------------------------------------------------------------
+    # embedding, full sequence, head
+    # ------------------------------------------------------------------
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self["emb"][tokens]
+        if self.cfg.emb_scale:
+            # a Python float keeps the embeddings' dtype, as jax's weak
+            # typing does
+            x = x * math.sqrt(self.cfg.d_model)
+        return shard_act(x, "residual")
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Final-norm hidden states (B, S, d) of ``tokens`` (B, S); the
+        reference also returns the MoE auxiliary loss, 0 here."""
+        x = self.embed(tokens)
+        for blk, kind in self.layers():
+            x = blocks.apply_block(blk, x, kind, self.cfg)
+        return rmsnorm(x, self["ln_f"], self.cfg.norm_eps)
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        head = self["emb"].T if self.cfg.tie_embeddings else self["lm_head"]
+        return hidden @ head
+
+    # ------------------------------------------------------------------
+    # serving
+    # ------------------------------------------------------------------
+    def init_states(self, batch: int, s_max: int) -> dict:
+        """Zero decode states laid out like :meth:`prefill`'s."""
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+
+        def group_states():
+            return {f"b{i}": blocks.init_block_state(kind, cfg, batch, s_max,
+                                                     dt, dev)
+                    for i, kind in enumerate(cfg.block_pattern)}
+
+        return {
+            "groups": ([group_states() for _ in range(cfg.n_groups)]
+                       if cfg.n_groups else None),
+            "tail": [blocks.init_block_state(kind, cfg, batch, s_max, dt, dev)
+                     for kind in cfg.tail_pattern],
+        }
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, *, s_max: int):
+        """Run the prompt ``tokens`` (B, S), returning (the last token's
+        logits (B, 1, V), decode states with room for ``s_max``
+        positions).  Attention takes the chunked path, whose chunk check
+        (S % min(512, S) == 0 and S % min(1024, S) == 0) is the
+        reference's."""
+        cfg = self.cfg
+        pattern = cfg.block_pattern
+        x = self.embed(tokens)
+        states = {"groups": [] if cfg.n_groups else None, "tail": []}
+        for group in self.groups:
+            st = {}
+            for i, kind in enumerate(pattern):
+                x, st[f"b{i}"] = blocks.apply_block(
+                    group[f"b{i}"], x, kind, cfg, return_state=True,
+                    s_max=s_max, chunked=True)
+            states["groups"].append(st)
+        for i, blk in enumerate(self.tail):
+            x, st = blocks.apply_block(blk, x, pattern[i], cfg,
+                                       return_state=True, s_max=s_max,
+                                       chunked=True)
+            states["tail"].append(st)
+        # the norm is per position: normalising the last one alone gives
+        # the reference's values without the full (B, S, d) pass
+        x = rmsnorm(x[:, -1:, :], self["ln_f"], cfg.norm_eps)
+        return self.logits(x), states
+
+    @torch.no_grad()
+    def decode_step(self, states: dict, token: torch.Tensor, pos: int):
+        """token: (B, 1) integers; pos: the position it takes.  Returns
+        (logits (B, 1, V), states); the KV caches are written in place."""
+        cfg = self.cfg
+        pattern = cfg.block_pattern
+        x = self["emb"][token]
+        if cfg.emb_scale:
+            x = x * math.sqrt(cfg.d_model)
+        new_groups = [] if states.get("groups") is not None else None
+        for group, st in zip(self.groups, states.get("groups") or ()):
+            new_st = {}
+            for i, kind in enumerate(pattern):
+                x, new_st[f"b{i}"] = blocks.apply_block_decode(
+                    group[f"b{i}"], x, st[f"b{i}"], kind, pos, cfg)
+            new_groups.append(new_st)
+        new_tail = []
+        for i, blk in enumerate(self.tail):
+            x, s2 = blocks.apply_block_decode(blk, x, states["tail"][i],
+                                              pattern[i], pos, cfg)
+            new_tail.append(s2)
+        x = rmsnorm(x, self["ln_f"], cfg.norm_eps)
+        return self.logits(x), {"groups": new_groups, "tail": new_tail}

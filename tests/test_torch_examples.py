@@ -16,7 +16,8 @@ EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
 SCRIPTS = {"torch_quickstart": ["--cpu"],
            "torch_mapreduce_sort": ["--cpu", "--n", "20000",
                                     "--backend", "fused"],
-           "torch_distributed_gemm": ["--cpu"]}
+           "torch_distributed_gemm": ["--cpu"],
+           "torch_serve_lm": ["--cpu", "--batch", "2", "--tokens", "8"]}
 
 
 def _load(name):

@@ -52,6 +52,13 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.mapreduce.engine", "repro_torch.mapreduce.sort",
                 "repro_torch.serve.runtime", "repro_torch.serve.session",
                 "repro_torch.serve.metrics",
-                "repro_torch.launch.mesh", "repro_torch.compat"):
+                "repro_torch.launch.mesh", "repro_torch.compat",
+                "repro_torch.configs", "repro_torch.configs.recurrentgemma_9b",
+                "repro_torch.models.config", "repro_torch.models.layers",
+                "repro_torch.models.attention_xla",
+                "repro_torch.models.recurrent", "repro_torch.models.blocks",
+                "repro_torch.models.model", "repro_torch.models.weights",
+                "repro_torch.sharding.constraints",
+                "repro_torch.train.serve"):
         assert mod in got["modules"], mod
     assert got["bad"] == [], f"repro_torch pulled in: {got['bad']}"
