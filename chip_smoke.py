@@ -10,10 +10,11 @@ Phases, each on its own lines; any failure raises and exits non-zero:
 1. environment: the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions; TF32 is switched off for float32 products;
 2. build: the hand-written kernels are compiled from the checkout's
-   sources into ``build/``, one ``nvcc`` per library, all four started
+   sources into ``build/``, one ``nvcc`` per library, all five started
    together: the GEMM (``src/repro_torch/kernels/gemm/csrc/gemm.cu``), the
    chain kernels (``src/repro_torch/kernels/chain/csrc/chain.cu``), flash
-   attention (``.../flash_attention/csrc/flash_attention.cu``) and the
+   attention (``.../flash_attention/csrc/flash_attention.cu``), its
+   backward (``.../flash_attention/csrc/flash_attention_bwd.cu``) and the
    linear scan (``.../linear_scan/csrc/linear_scan.cu``); the SASS of the
    tensor-core routes must hold their instructions (HGMMA for ``wgmma``,
    the GEMM's, ``chain_dot``'s and flash attention's two, bf16 and
@@ -173,12 +174,41 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    period and the tail): a 3072-token prefill (past the window) and 8
    teacher-forced decode steps, each step's logits within 2e-3 of the
    full-sequence forward's;
+8f. training (``[train]``, :func:`train_phase`): RecurrentGemma-9B at its
+   published widths with the depth cut to one pattern period (3 layers:
+   rglru, rglru, local_attn; 1,705,017,344 weight-matrix parameters), bf16,
+   random weights from a seed, the reference's AdamW under
+   ``warmup_cosine``, B 1 x S 4096 from ``SyntheticLMDataset``, remat on,
+   10 steps through ``make_train_step``: every loss and grad norm finite,
+   the last three losses' mean below the first, every parameter a finite
+   non-zero gradient at step 1; with every count zeroed before the first
+   step, exactly 2 ``flash_attention`` (``bf16_wgmma``), 1
+   ``flash_attention_bwd`` (``bf16_simt``) and 6 ``linear_scan`` (``tma``;
+   4 forward, 2 backward) launches a step, no other kernel wrapper, no
+   plain version called; step 1's attention backward held to its plain
+   version in float32 (rms error per head slice <= 2^-7 of the plain
+   version's) and its 6 scan launches bit for bit
+   ``ref.linear_scan_chunked``; the warm step wall (median of steps
+   3-10), tokens/s, model FLOP/s against the bf16 peak, the bound (6 N T
+   at 989 TFLOP/s plus the optimizer's bytes at 3.35 TB/s), peak memory,
+   and one more step under the profiler (busy share; device time by class:
+   cuBLAS GEMMs, attention forward and backward, scan, copies, the
+   optimizer by CUDA events, the rest); a float32 step through the kernels
+   against the same step on the plain versions on the card (loss and every
+   gradient within 1e-3 of its largest value); the attention backward at
+   RecurrentGemma-9B's training shape (bf16, f32) and Qwen3-14B's width
+   (bf16) against its plain version and against a second call of itself
+   (bit for bit: no atomics), timed beside its bound, the plain version
+   and SDPA's backward (a yardstick the port never calls); the memory
+   given back;
 9. a ``kernels`` JSON line (every ported kernel with its launches on its
    path and its times; the GEMM's accumulate and ``chain_attn`` also with
    their launches in one serving arm, ``flash_attention`` and
    ``linear_scan`` with their launches, route and mean device time in one
-   ``[lm]`` prefill), the card's name and power limit, and, last, ``{"ok":
-   true, "device": {...}}``.
+   ``[lm]`` prefill and their launches in one ``[train]`` step; the
+   attention backward with its launches over ``[train]``'s 10 steps and
+   its times at RecurrentGemma-9B's training shape), the card's name and
+   power limit, and, last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when the
 port's sources are not beside it.
@@ -188,6 +218,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -215,8 +246,10 @@ SERVE_KERNELS = {"gemm_simt_kernel": SERVE_SESSIONS * SERVE_STEPS,
 SORT_N = 1 << 26
 SORT_HOST_N = 2_000_000
 SORT_NODES = (1, 4, 8)
-# rounds of the threads-vs-serial bar (phase 8)
-THREADS_ROUNDS = 20
+# rounds of the threads-vs-serial bar (phase 8): both sides run the same
+# serial loop on card operands, so the best of each must sample past the
+# host's noise (a one-card machine shares its host's cores)
+THREADS_ROUNDS = 40
 # the GEMM's kernels, one per tile loop (kernels/gemm/csrc/gemm.cu)
 GEMM_KERNELS = ("gemm_simt_kernel", "gemm_wgmma_kernel", "gemm_dmma_kernel")
 
@@ -417,6 +450,23 @@ def bound_ms(nbytes: int, flops: int, dtype: str) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def held_blocks(torch) -> list:
+    """The sizes of the largest device allocations still live (for a
+    failure message)."""
+    sizes = sorted((blk["size"] for seg in torch.cuda.memory_snapshot()
+                    for blk in seg["blocks"]
+                    if blk["state"] == "active_allocated"), reverse=True)
+    return sizes[:8]
+
+
+def visible_pairs(s: int, window) -> int:
+    """(row, key) pairs causal attention over one sequence of ``s`` sees:
+    row r sees min(r + 1, window) keys."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
 def device_profile(torch, label: str, run, wall_s: float,
                    expect: dict) -> float:
     """Run ``run`` once more under ``torch.profiler`` and print where the
@@ -515,13 +565,6 @@ def lm_phase(torch, dev, gen, card: str, zero_counts, counts) -> dict:
 
     def sync():
         torch.cuda.synchronize()
-
-    def held_blocks():
-        # the sizes of the largest allocations still live, for a failure
-        sizes = sorted((blk["size"] for seg in torch.cuda.memory_snapshot()
-                        for blk in seg["blocks"]
-                        if blk["state"] == "active_allocated"), reverse=True)
-        return sizes[:8]
 
     # cuBLAS takes its workspace from the caching allocator at a stream's
     # first product and keeps it: take it before the baseline
@@ -812,7 +855,7 @@ def lm_phase(torch, dev, gen, card: str, zero_counts, counts) -> dict:
     sync()
     left = torch.cuda.memory_allocated(dev) - base
     check(left < 4 << 20, f"[lm] {left} bytes still allocated after the "
-          f"bf16 model was dropped (largest blocks {held_blocks()})")
+          f"bf16 model was dropped (largest blocks {held_blocks(torch)})")
     print(f"[lm] device memory held after the bf16 model was dropped: "
           f"{left} bytes")
 
@@ -858,11 +901,537 @@ def lm_phase(torch, dev, gen, card: str, zero_counts, counts) -> dict:
     sync()
     left = torch.cuda.memory_allocated(dev) - base
     check(left < 4 << 20, f"[lm] {left} bytes still allocated after the "
-          f"phase (largest blocks {held_blocks()})")
+          f"phase (largest blocks {held_blocks(torch)})")
     print(f"[lm] device memory held after the phase: {left} bytes")
     return {name: {"lm_launches": want, "lm_route": route,
                    "lm_ms": kernel_ms[name]}
             for name, (route, want) in LM_KERNELS.items()}
+
+
+# the training phase: RecurrentGemma-9B at its published widths, depth cut
+# to one pattern period (rglru, rglru, local_attn) so that both kernels and
+# both backwards run; bf16, random weights from SEED, B 1 x S 4096 (past the
+# 2048 window, which then binds in both directions), remat on, 10 steps of
+# the reference's AdamW under warmup_cosine
+TRAIN_LAYERS = 3
+TRAIN_PARAMS = 1_705_017_344           # count_params of the 3-layer model
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 1, 4096, 10
+TRAIN_LR = (1e-3, 2, TRAIN_STEPS)      # warmup_cosine(peak, warmup, total)
+# kernel launches a step, and the route of each: with remat each group's
+# forward runs twice, so 2 flash_attention forwards and 4 linear_scan
+# forwards, then one attention backward and 2 scans over the reversed
+# sequence (the scan's backward)
+TRAIN_KERNELS = {"flash_attention": ("bf16_wgmma", 2),
+                 "flash_attention_bwd": ("bf16_simt", 1),
+                 "linear_scan": ("tma", 6)}
+# the float32 step through the kernels against the same step with the plain
+# versions on the card: per tensor, the largest difference over the largest
+# |plain value| (f32 sums in other orders through three layers, the loss and
+# its gradient: ~1e-5 expected)
+TRAIN_F32_TOL = 1e-3
+# the attention backward against its plain version in f32: rms error per
+# (batch, head) slice over the plain version's rms (the forward's f32
+# tolerance, 2e-5); bf16 takes BF16_SLICE_NRMS (2^-7)
+BWD_F32_NRMS = 2e-5
+# the optimizer's bytes a parameter: the bf16 gradient read twice (the norm,
+# the update), m, v and the float32 master each read and written, the bf16
+# parameter written
+OPT_BYTES_PER_PARAM = 2 * 2 + 3 * 2 * 4 + 2
+# the attention backward timed at RecurrentGemma-9B's training shape and at
+# Qwen3-14B's width (40 query heads over 8, causal): (B, Hq, Hkv, S, D,
+# window, dtypes)
+BWD_SHAPES = {"RecurrentGemma-9B": (1, 16, 1, 4096, 256, 2048,
+                                    ("bfloat16", "float32")),
+              "Qwen3-14B": (1, 40, 8, 4096, 128, None, ("bfloat16",))}
+
+
+def slice_nrms(got, exp) -> float:
+    """The largest rms error of a (batch, head) slice of ``got`` (B, H, S,
+    D) over ``exp``'s rms there."""
+    err = (got.double() - exp.double()).square().sum((2, 3))
+    ref = exp.double().square().sum((2, 3)).clamp_min(1e-300)
+    return (err / ref).sqrt().max().item()
+
+
+def train_phase(torch, dev, card: str, zero_counts, counts) -> dict:
+    """``[train]``: train RecurrentGemma-9B at its published widths (3
+    layers) on the card through the port's entry points
+    (``LanguageModel.loss``, ``AdamW``, ``warmup_cosine``,
+    ``SyntheticLMDataset``, ``make_train_step``); check the losses, the
+    first step's gradients, the kernels every step launches and each
+    backward launch of step 1 against its plain version, a float32 step
+    against the same step on the plain versions, and the memory; print the
+    step wall, rates, bound, busy share, device time by class and peak
+    memory; time the attention backward at two widths beside its bound,
+    its plain version and SDPA's backward.  Returns the ``kernels`` line's
+    additions: ``train_launches`` for the two kernels and the attention
+    backward's row."""
+    import dataclasses
+    import statistics
+
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.linear_scan import kernel as ls_kernel
+    from repro_torch.kernels.linear_scan import ops as ls_ops
+    from repro_torch.kernels.linear_scan import ref as ls_ref
+    from repro_torch.models import LanguageModel
+    from repro_torch.models.blocks import count_params
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train import make_train_step
+    from torch.profiler import ProfilerActivity, profile
+
+    def sync():
+        torch.cuda.synchronize()
+
+    # cuBLAS takes a workspace from the caching allocator for each thread's
+    # handle and keeps it; the backward runs on autograd's own thread, so
+    # take its workspaces with one small backward before the baseline
+    for dt in (torch.bfloat16, torch.float32):
+        w = torch.ones((64, 64), dtype=dt, device=dev, requires_grad=True)
+        (torch.ones((8, 64), dtype=dt, device=dev) @ w).sum().backward()
+    del w
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # -- the model, at full width and one pattern period deep ---------------
+    cfg = dataclasses.replace(configs.get(LM_ARCH), n_layers=TRAIN_LAYERS)
+    n_params = count_params(cfg)
+    check(n_params == TRAIN_PARAMS, f"[train] count_params {n_params}, "
+          f"expected {TRAIN_PARAMS}")
+    t0 = time.perf_counter()
+    model = LanguageModel(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    sync()
+    t_init = time.perf_counter() - t0
+    kinds = [kind for _, kind in model.layers()]
+    check(kinds == ["rglru", "rglru", "local_attn"], f"[train] {kinds}")
+    check(model.param_count() == n_params, "[train] param_count")
+    n_all = sum(p.numel() for p in model.parameters())
+    print(f"[train] {cfg.name} at its published widths (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, "
+          f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, lru_width "
+          f"{cfg.lru_width}, window {cfg.window}, vocab {cfg.vocab_size}, "
+          f"tied embeddings), depth cut from 38 to {TRAIN_LAYERS} layers "
+          f"({', '.join(kinds)}), {model.dtype}: {n_params:,} parameters "
+          f"in weight matrices, {n_all:,} in all; drawn on the card from "
+          f"seed {SEED} in {t_init:.3f} s; B {TRAIN_BATCH} x S {TRAIN_SEQ}, "
+          f"remat on, AdamW with warmup_cosine{TRAIN_LR} ({card})")
+
+    # -- plain versions counted; step 1's backward launches held ----------
+    plain_names = (("attention", fa_ref), ("attention_grad", fa_ref),
+                   ("linear_scan", ls_ref))
+    originals = {name: getattr(mod, name) for name, mod in plain_names}
+    # the attention Function's backward (a staticmethod), held in step 1;
+    # the entry point it calls keeps its name, so it counts its launches
+    originals.update(backward=fa_ops._Attention.__dict__["backward"],
+                     kernel_scan=ls_ops._kernel_scan,
+                     scan_bwd=ls_ops.linear_scan_bwd)
+    plain = {name: 0 for name, _ in plain_names}
+    holding = [False]
+    held = {"attention_bwd": 0, "nrms": 0.0, "err": 0.0, "scan": 0,
+            "scan_bwd": 0}
+
+    def counting(name):
+        fn = originals[name]
+
+        def wrapper(*args, **kwargs):
+            plain[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    def bwd_held(ctx, dout):
+        # what _Attention.backward does (its saved tensors can be unpacked
+        # once under remat), with step 1's result held
+        q, k, v, out = ctx.saved_tensors
+        causal, window, scale = ctx.mask
+        got = fa_ops.flash_attention_bwd(q, k, v, out, dout, causal=causal,
+                                         window=window, scale=scale)
+        if holding[0]:
+            exp = originals["attention_grad"](
+                q.float(), k.float(), v.float(), dout.float(), causal=causal,
+                window=window, scale=scale)
+            for name, g, e in zip(("dq", "dk", "dv"), got, exp):
+                check(g.dtype == q.dtype and bool(torch.isfinite(g).all()),
+                      f"[train] attention backward {name}: {g.dtype}, "
+                      f"finite {bool(torch.isfinite(g).all())}")
+                nrms = slice_nrms(g, e)
+                check(nrms <= BF16_SLICE_NRMS, f"[train] attention backward "
+                      f"{name}: rms error per head slice {nrms:.3e} of the "
+                      f"plain version's (> {BF16_SLICE_NRMS:.3e})")
+                held["nrms"] = max(held["nrms"], nrms)
+                held["err"] = max(held["err"], (g.double() - e.double())
+                                  .abs().max().item())
+            held["attention_bwd"] += 1
+        return (*got, None, None, None)
+
+    def scan_held(a, x):
+        out = originals["kernel_scan"](a, x)
+        if holding[0]:
+            exp = ls_ref.linear_scan_chunked(a, x, chunk=ls_kernel.CHUNK)
+            check(torch.equal(bits(torch, out), bits(torch, exp)),
+                  f"[train] scan launch {held['scan']}: not bit for bit "
+                  f"ref.linear_scan_chunked")
+            held["scan"] += 1
+        return out
+
+    def scan_bwd_counted(a, y, g):
+        if holding[0]:
+            held["scan_bwd"] += 1
+        return originals["scan_bwd"](a, y, g)
+
+    def install():
+        for name, mod in plain_names:
+            setattr(mod, name, counting(name))
+        fa_ops._Attention.backward = staticmethod(bwd_held)
+        ls_ops._kernel_scan = scan_held
+        ls_ops.linear_scan_bwd = scan_bwd_counted
+
+    def restore():
+        for name, mod in plain_names:
+            setattr(mod, name, originals[name])
+        fa_ops._Attention.backward = originals["backward"]
+        ls_ops._kernel_scan = originals["kernel_scan"]
+        ls_ops.linear_scan_bwd = originals["scan_bwd"]
+
+    first_grads = {}
+    opt_ms = []
+
+    class Watching(AdamW):
+        """AdamW that reads the first step's gradients and times each
+        update with CUDA events."""
+
+        def update(self, grads, state, params):
+            if state.count == 0:
+                for name, g in grads.items():
+                    first_grads[name] = (bool(torch.isfinite(g).all()),
+                                         g.float().abs().max().item())
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = super().update(grads, state, params)
+            end.record()
+            opt_ms.append((start, end))
+            return out
+
+    # -- 10 steps --------------------------------------------------------------
+    opt = Watching(learning_rate=warmup_cosine(*TRAIN_LR))
+    state = opt.init(model)
+    step = make_train_step(model, opt)
+    data = SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                              seed=SEED, device=dev)
+    batches = [data.batch_at(i) for i in range(TRAIN_STEPS + 1)]
+    losses, norms, walls = [], [], []
+    install()
+    try:
+        zero_counts()
+        for i in range(TRAIN_STEPS):
+            holding[0] = i == 0
+            sync()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batches[i])
+            sync()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+        holding[0] = False
+        got = counts()
+        routes = {"flash_attention": dict(fa_ops.flash_attention.routes),
+                  "flash_attention_bwd":
+                      dict(fa_ops.flash_attention_bwd.routes),
+                  "linear_scan": dict(ls_ops.linear_scan.routes)}
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"[train] losses {losses}, grad norms {norms}")
+    check(statistics.mean(losses[-3:]) < losses[0],
+          f"[train] the loss did not fall: {losses}")
+    names = [n for n, _ in model.named_parameters()]
+    check(sorted(first_grads) == sorted(names),
+          "[train] step 1 did not see every parameter's gradient")
+    bad = [n for n, (finite, top) in first_grads.items()
+           if not finite or top == 0.0]
+    check(not bad, f"[train] step 1: zero or non-finite gradients {bad}")
+    for name, (route, per_step) in TRAIN_KERNELS.items():
+        want = per_step * TRAIN_STEPS
+        check(got[name] == want and routes[name] == {route: want},
+              f"[train] {name}: {got[name]} launches by route "
+              f"{routes[name]}, expected {want} on {route} "
+              f"({per_step} a step)")
+    others = {k: v for k, v in got.items() if v and k not in TRAIN_KERNELS}
+    check(not others, f"[train] unexpected launches {others}")
+    check(not any(plain.values()), f"[train] plain versions called {plain}")
+    check(held["attention_bwd"] == 1 and held["scan"] == 6
+          and held["scan_bwd"] == 2,
+          f"[train] step 1 held {held}, expected 1 attention backward, 6 "
+          f"scan launches of which 2 backward")
+    print(f"[train] losses {', '.join(f'{x:.4f}' for x in losses)}; grad "
+          f"norms {', '.join(f'{x:.4f}' for x in norms)}: finite, the last "
+          f"three's mean {statistics.mean(losses[-3:]):.4f} below the first")
+    print(f"[train] step 1: all {len(first_grads)} parameters got a finite, "
+          f"non-zero gradient (smallest max |g| "
+          f"{min(top for _, top in first_grads.values()):.3e}); its "
+          f"attention backward held to its plain version (float32 on the "
+          f"same bf16 inputs): rms error per head slice at most "
+          f"{held['nrms']:.3e} of the plain version's (<= "
+          f"{BF16_SLICE_NRMS:.3e}), max_abs_err {held['err']:.3e}; its 6 "
+          f"linear_scan launches (4 forward, 2 backward over the reversed "
+          f"sequence) bit for bit ref.linear_scan_chunked")
+    print(f"[train] launches over {TRAIN_STEPS} steps: "
+          + ", ".join(f"{k} {got[k]} on {routes[k]}" for k in TRAIN_KERNELS)
+          + f"; no other kernel wrapper; plain versions called {plain}")
+
+    warm = statistics.median(walls[2:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    model_flops = 6 * n_params * tokens
+    t_ops = model_flops / PEAK_FLOPS["bfloat16"] * 1e3
+    opt_bytes = n_all * OPT_BYTES_PER_PARAM
+    t_opt = opt_bytes / HBM_BYTES_PER_S * 1e3
+    bound = t_ops + t_opt
+    sync()
+    opt_times = [a.elapsed_time(b) for a, b in opt_ms]
+    print(f"[train] step walls {', '.join(f'{w:.4f}' for w in walls)} s; "
+          f"warm (median of steps 3-{TRAIN_STEPS}) {warm:.4f} s, "
+          f"{tokens / warm:.1f} tokens/s; model FLOP/s "
+          f"{model_flops / warm / 1e12:.2f} TFLOP/s (6 N T = "
+          f"{model_flops:.4e}), {100 * model_flops / warm / PEAK_FLOPS['bfloat16']:.1f}% "
+          f"of the bf16 dense peak; bound {bound:.3f} ms ({t_ops:.3f} ms of "
+          f"6 N T at 989 TFLOP/s + {t_opt:.3f} ms of the optimizer's "
+          f"{opt_bytes:.4e} bytes at 3.35 TB/s), "
+          f"{100 * bound / (warm * 1e3):.1f}% of it; the optimizer "
+          f"{statistics.median(opt_times[2:]):.3f} ms a step (CUDA events); "
+          f"peak device memory {peak:,} bytes ({card})")
+
+    # -- where a step's device time goes -------------------------------------
+    for attempt in range(3):
+        del opt_ms[:]
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, metrics = step(state, batches[TRAIN_STEPS])
+            sync()
+        kernels = sorted(
+            ((e.self_device_time_total / 1e3, e.count, e.key)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.self_device_time_total > 0), reverse=True)
+        seen = {k: sum(c for _m, c, key in kernels if k in key)
+                for k in ("flash_attention_wgmma_kernel",
+                          "attention_bwd_dq_kernel",
+                          "attention_bwd_dkv_kernel", "linear_scan_kernel")}
+        if seen == {"flash_attention_wgmma_kernel": 2,
+                    "attention_bwd_dq_kernel": 1,
+                    "attention_bwd_dkv_kernel": 1, "linear_scan_kernel": 6}:
+            break
+        print(f"[train] profile: the trace shows {seen} (attempt "
+              f"{attempt + 1} of 3)")
+    check(seen == {"flash_attention_wgmma_kernel": 2,
+                   "attention_bwd_dq_kernel": 1,
+                   "attention_bwd_dkv_kernel": 1, "linear_scan_kernel": 6},
+          f"[train] profile of a step: {seen}")
+    total = sum(ms for ms, _n, _k in kernels)
+
+    def share(test):
+        return sum(ms for ms, _n, key in kernels if test(key.lower()))
+
+    opt_dev = opt_ms[-1][0].elapsed_time(opt_ms[-1][1])
+    parts = {
+        "cuBLAS GEMMs": share(lambda k: ("gemm" in k or "nvjet" in k
+                                         or "cutlass" in k or "xmma" in k)),
+        "attention forward": share(lambda k: "flash_attention" in k),
+        "attention backward": share(lambda k: "attention_bwd" in k),
+        "scan": share(lambda k: "linear_scan" in k),
+        "copies": share(lambda k: "copy" in k),
+    }
+    parts["optimizer (events)"] = opt_dev
+    parts["element-wise and the rest"] = total - sum(parts.values())
+    print(f"[train] profile of one more step: device kernel time "
+          f"{total:.3f} ms of the warm {warm * 1e3:.3f} ms wall (busy "
+          f"{100 * total / (warm * 1e3):.1f}%); " + "; ".join(
+              f"{k} {v:.3f} ms ({100 * v / max(total, 1e-9):.1f}%)"
+              for k, v in parts.items()) + f" ({card})")
+    for ms, cnt, key in kernels[:10]:
+        print(f"[train] profile:   {ms:9.3f} ms {cnt:5d}x {key[:100]}")
+    del model, state, step, opt, batches, metrics, prof, kernels, opt_ms
+    first_grads.clear()
+    gc.collect()
+    sync()
+    left = torch.cuda.memory_allocated(dev) - base
+    check(left < 4 << 20, f"[train] {left} bytes still allocated after the "
+          f"bf16 model was dropped (largest blocks {held_blocks(torch)})")
+    print(f"[train] device memory held after the bf16 run: {left} bytes")
+
+    # -- one float32 step: through the kernels, then on the plain versions ---
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = LanguageModel(cfg32, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    model.requires_grad_(True)
+    batch = data.batch_at(0)
+
+    def loss_and_grads():
+        loss, _ = model.loss(batch)
+        loss.backward()
+        grads = {}
+        for name, p in model.named_parameters():
+            grads[name], p.grad = p.grad, None
+        return loss.detach(), grads
+
+    zero_counts()
+    loss_k, grads_k = loss_and_grads()
+    sync()
+    got = counts()
+    want32 = {"flash_attention": {"f32_simt": 2},
+              "flash_attention_bwd": {"f32_simt": 1},
+              "linear_scan": {"tma": 6}}
+    routes = {"flash_attention": fa_ops.flash_attention.routes,
+              "flash_attention_bwd": fa_ops.flash_attention_bwd.routes,
+              "linear_scan": ls_ops.linear_scan.routes}
+    check(routes == want32 and not {k: v for k, v in got.items()
+                                    if v and k not in want32},
+          f"[train] float32 step launched {got}, routes {routes}")
+
+    def attend_plain(q, k, v, *, causal, window, scale):
+        return originals["attention"](q, k, v, causal=causal, window=window,
+                                      scale=scale)
+
+    def bwd_plain(q, k, v, out, dout, **kw):
+        return originals["attention_grad"](q, k, v, dout, **kw)
+
+    kernels_fns = (fa_ops._attend, fa_ops.flash_attention_bwd,
+                   ls_ops._kernel_scan)
+    fa_ops._attend, fa_ops.flash_attention_bwd = attend_plain, bwd_plain
+    ls_ops._kernel_scan = originals["linear_scan"]
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        loss_p, grads_p = loss_and_grads()
+        sync()
+        t_plain = time.perf_counter() - t0
+        got = counts()
+    finally:
+        (fa_ops._attend, fa_ops.flash_attention_bwd,
+         ls_ops._kernel_scan) = kernels_fns
+    check(not any(got.values()), f"[train] the plain float32 step launched "
+          f"{got}")
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    check(loss_err <= TRAIN_F32_TOL, f"[train] float32 loss "
+          f"{loss_k.item()} through the kernels, {loss_p.item()} plain")
+    worst, worst_name = 0.0, None
+    for name, gp in grads_p.items():
+        rel = ((grads_k[name] - gp).abs().max()
+               / gp.abs().max().clamp_min(1e-30)).item()
+        check(math.isfinite(rel) and rel <= TRAIN_F32_TOL,
+              f"[train] float32 gradient {name}: largest difference "
+              f"{rel:.3e} of its largest |value| (> {TRAIN_F32_TOL})")
+        if rel >= worst:
+            worst, worst_name = rel, name
+    print(f"[train] float32 step ({TRAIN_LAYERS} layers, B {TRAIN_BATCH} x "
+          f"S {TRAIN_SEQ}): loss {loss_k.item():.6f} through the kernels "
+          f"(flash_attention f32_simt x 2, its backward f32_simt x 1, "
+          f"linear_scan tma x 6), {loss_p.item():.6f} on the plain versions "
+          f"on the card ({t_plain:.3f} s; relative difference "
+          f"{loss_err:.3e}); all {len(grads_p)} gradients within "
+          f"{TRAIN_F32_TOL} of their largest |value| (worst {worst:.3e}, "
+          f"{worst_name})")
+    del model, batch, grads_k, grads_p, gp, loss_k, loss_p, data
+    gc.collect()
+    sync()
+    left = torch.cuda.memory_allocated(dev) - base
+    check(left < 4 << 20, f"[train] {left} bytes still allocated after the "
+          f"float32 step (largest blocks {held_blocks(torch)})")
+
+    # -- the attention backward at two widths --------------------------------
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bwd_times = {(name, dname): attention_bwd_timed(
+        torch, dev, gen, card, name, dname, *shape[:-1])
+        for name, shape in BWD_SHAPES.items() for dname in shape[-1]}
+    gc.collect()
+    sync()
+    left = torch.cuda.memory_allocated(dev) - base
+    check(left < 4 << 20, f"[train] {left} bytes still allocated after the "
+          f"phase (largest blocks {held_blocks(torch)})")
+    print(f"[train] device memory held after the phase: {left} bytes")
+    per_step = {k: v for k, (_r, v) in TRAIN_KERNELS.items()}
+    return {
+        "flash_attention": {"train_launches": per_step["flash_attention"]},
+        "linear_scan": {"train_launches": per_step["linear_scan"]},
+        "flash_attention_bwd": dict(
+            launches=per_step["flash_attention_bwd"] * TRAIN_STEPS,
+            train_launches=per_step["flash_attention_bwd"],
+            train_route=TRAIN_KERNELS["flash_attention_bwd"][0],
+            **bwd_times[("RecurrentGemma-9B", "bfloat16")]),
+    }
+
+
+def attention_bwd_timed(torch, dev, gen, card: str, name: str, dname: str,
+                        b: int, hq: int, hkv: int, s: int, d: int,
+                        window) -> dict:
+    """The attention backward at one shape: held to its plain version
+    (float32 on the same inputs: rms error per head slice within
+    BF16_SLICE_NRMS in bf16, BWD_F32_NRMS in f32) and to a second call of
+    itself (bit for bit), and timed beside its
+    bound, the plain version and SDPA's backward (a yardstick the port
+    never calls: an explicit mask for a window).  Returns the ``kernels``
+    line's numbers."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dname]
+    q = torch.randn((b, hq, s, d), generator=gen, device=dev).to(dt)
+    k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dt)
+            for _ in range(2))
+    out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+    dout = torch.randn(out.shape, generator=gen, device=dev).to(dt)
+    kw = dict(causal=True, window=window, scale=d ** -0.5)
+    got = fa_ops.flash_attention_bwd(q, k, v, out, dout, **kw)
+    # no atomics: a second call gives the same bits
+    again = fa_ops.flash_attention_bwd(q, k, v, out, dout, **kw)
+    check(all(torch.equal(bits(torch, g), bits(torch, h))
+              for g, h in zip(got, again)),
+          f"[train] attention backward {name} {dname}: two calls differ")
+    del again
+    exp = fa_ref.attention_grad(q.float(), k.float(), v.float(),
+                                dout.float(), **kw)
+    limit = BF16_SLICE_NRMS if dname == "bfloat16" else BWD_F32_NRMS
+    nrms = max(slice_nrms(g, e) for g, e in zip(got, exp))
+    err = max((g.double() - e.double()).abs().max().item()
+              for g, e in zip(got, exp))
+    check(nrms <= limit, f"[train] attention backward {name} {dname}: rms "
+          f"error per head slice {nrms:.3e} (> {limit:.3e})")
+    del got, exp
+    ms = time_ms(torch, lambda: fa_ops.flash_attention_bwd(
+        q, k, v, out, dout, **kw), iters=5, warmup=1)
+    plain_ms = time_ms(torch, lambda: fa_ref.attention_grad(
+        q, k, v, dout, **kw), iters=2, warmup=1)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    if window is None:
+        o = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=True, enable_gqa=True)
+    else:
+        seen = fa_ref.mask(s, s, causal=True, window=window, device=dev)
+        o = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, attn_mask=seen, enable_gqa=True)
+    lib = time_ms(torch, lambda: torch.autograd.grad(
+        o, leaves, dout, retain_graph=True), iters=5, warmup=1)
+    flops = 10 * b * hq * d * visible_pairs(s, window)
+    nbytes = 4 * (q.numel() + k.numel()) * q.element_size()
+    bnd, by = bound_ms(nbytes, flops, dname)
+    print(f"[train] attention backward {name} {dname} (q ({b}, {hq}, {s}, "
+          f"{d}), k, v ({b}, {hkv}, {s}, {d}), window {window}, "
+          f"{fa_ops.bwd_route(dt, d)}): {ms:.3f} ms "
+          f"({flops / ms / 1e9:.2f} TFLOP/s of the 10 d FLOP a visible pair "
+          f"and head), plain {plain_ms:.3f} ms, SDPA's backward {lib:.3f} "
+          f"ms, bound {bnd:.4f} ms ({by}, {flops:.3e} FLOP); against the "
+          f"plain version rms error per head slice {nrms:.3e} (<= "
+          f"{limit:.3e}), max_abs_err {err:.3e}; two calls bit for bit "
+          f"equal ({card})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                bound_by=by, library_ms=lib)
 
 
 def bits(torch, t):
@@ -918,7 +1487,7 @@ def main() -> int:
     # -- 2. build: one nvcc per library, started together -------------------
     t0 = time.perf_counter()
     libraries = (kernel.LIBRARY, chain_kernel.LIBRARY, fa_kernel.LIBRARY,
-                 ls_kernel.LIBRARY)
+                 ls_kernel.LIBRARY, fa_kernel.BWD_LIBRARY)
     with ThreadPoolExecutor(len(libraries)) as pool:
         built = list(pool.map(lambda lib: lib.build(), libraries))
     for lib in libraries:
@@ -1384,6 +1953,7 @@ def main() -> int:
                 "chain.dot": chain_ops.chain_dot,
                 "chain.attn": chain_ops.chain_attn,
                 "flash_attention": fa_ops.flash_attention,
+                "flash_attention_bwd": fa_ops.flash_attention_bwd,
                 "linear_scan": ls_ops.linear_scan}
 
     # the tensor bodies' expressions, taken where a kernel refuses the
@@ -1615,12 +2185,6 @@ def main() -> int:
           f"flash attention: routes run "
           f"{sorted(fa_ops.flash_attention.routes)}, expected every one of "
           f"{fa_ops.ROUTES}")
-
-    def visible_pairs(s, window):
-        # causal over one sequence of s: row r sees min(r + 1, window) keys
-        if window is None or window >= s:
-            return s * (s + 1) // 2
-        return window * (window + 1) // 2 + (s - window) * window
 
     attn_times = {}
     for model, (b, hq, hkv, s, d, window) in FULL_ATTN.items():
@@ -2504,6 +3068,9 @@ def main() -> int:
     # -- 8e. the LM stack: RecurrentGemma-9B served on the card ----------------
     lm = lm_phase(torch, dev, gen, card, zero_counts, counts)
 
+    # -- 8f. training: RecurrentGemma-9B's widths, 3 layers, on the card ------
+    train = train_phase(torch, dev, card, zero_counts, counts)
+
     # -- 9. result lines --------------------------------------------------------------
     gemm_source = "src/repro_torch/kernels/gemm/csrc/gemm.cu"
     chain_source = "src/repro_torch/kernels/chain/csrc/chain.cu"
@@ -2547,6 +3114,15 @@ def main() -> int:
          "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
          "src/repro/kernels/linear_scan/kernel.py:50",
          path_counts[scan_label]["linear_scan"], scan_times["float32"]),
+        # no TPU kernel: the reference differentiates its attention oracle
+        # (flash_attention/ref.py:7) with XLA's autodiff; the numbers are
+        # the [train] phase's, at RecurrentGemma-9B's training shape in bf16
+        ("flash_attention_bwd",
+         "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+         "src/repro/kernels/flash_attention/ref.py:7",
+         train["flash_attention_bwd"]["launches"],
+         {k: v for k, v in train["flash_attention_bwd"].items()
+          if k != "launches"}),
     )
     # the served steps launch the GEMM's accumulate and chain_attn too: one
     # each a step, counted on the launchers in every serving arm
@@ -2560,6 +3136,8 @@ def main() -> int:
         if name in served:
             kernels[-1]["serve_launches"] = served[name]
         kernels[-1].update(lm.get(name, {}))
+        if name in ("flash_attention", "linear_scan"):
+            kernels[-1].update(train[name])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

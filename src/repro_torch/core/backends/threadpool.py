@@ -54,6 +54,8 @@ from __future__ import annotations
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
+from operator import attrgetter
 from typing import Optional
 
 import torch
@@ -110,6 +112,9 @@ def threshold_from_topology(topology) -> Optional[int]:
     return int(fps * _FUTURE_COST_S * _BREAK_EVEN_MULTIPLE)
 
 
+_flops = attrgetter("flops")
+
+
 def _on_card(payload) -> bool:
     """True for a payload whose op bodies only enqueue work on the card."""
     return isinstance(payload, torch.Tensor) and payload.is_cuda
@@ -164,6 +169,39 @@ class ThreadPoolBackend(Backend):
         return DISPATCH_THRESHOLD if calibrated is None else calibrated
 
     def _plan_inline_throughout(self, ex, wf, plan, threshold: int) -> bool:
+        """:meth:`_sweep`'s verdict, reused while nothing it reads changed.
+
+        The sweep reads the threshold, every op's flops and, of the plan's
+        input keys (those read before the plan writes them), each one's
+        bytes and whether it lies on the card.  A plan replayed from the
+        plan cache on inputs of the same sizes and placement therefore gets
+        the same verdict, and the check costs a pass over the inputs
+        instead of one over every argument of every op.
+        """
+        memo = plan.inline_memo
+        if memo is None:
+            written: set = set()
+            inputs: dict = {}
+            for p in plan.schedule:
+                for k in p.arg_keys:
+                    if k is not None and k not in written:
+                        inputs[k] = None
+                written.update(p.write_keys)
+            memo = plan.inline_memo = [
+                tuple(inputs), tuple(p.op_id for p in plan.schedule), None]
+        inputs, op_ids, last = memo
+        # map() over C callables: this runs on every replay of the plan
+        seen = (threshold,
+                tuple(map(_flops, map(wf.ops.__getitem__, op_ids))),
+                tuple(map(ex._key_bytes.get, inputs)),
+                tuple(map(_on_card, map(partial(_payload, ex), inputs))))
+        if last is not None and last[0] == seen:
+            return last[1]
+        verdict = self._sweep(ex, wf, plan, threshold)
+        memo[2] = (seen, verdict)   # one store: threads may share the plan
+        return verdict
+
+    def _sweep(self, ex, wf, plan, threshold: int) -> bool:
         """True when no level of the whole plan could reach ``threshold``.
 
         A static sweep over the schedule *before* execution: per-op work is

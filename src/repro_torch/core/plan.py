@@ -173,12 +173,16 @@ class ExecutionPlan:
     backend consults it (and the equivalent :attr:`ChainSlice.lowerable`)
     to decide which schedule slices may run as chain kernels.
     Structure-derived, so rebinding shares it with the template.
+
+    ``inline_memo`` is the threads backend's memo of its whole-plan
+    pre-sweep (:mod:`.backends.threadpool`): the plan's input keys and its
+    last verdict.  Key-bearing, so a rebound plan starts without one.
     """
 
     __slots__ = ("schedule", "wavefront_counts", "n_rounds", "start", "end",
                  "n_nodes", "collective_mode", "total_writes", "levels",
                  "level_groups", "has_fusion_groups", "chains", "level_flops",
-                 "level_kernels")
+                 "level_kernels", "inline_memo")
 
     def __init__(self, schedule, wavefront_counts, n_rounds, start, end,
                  n_nodes, collective_mode, level_flops=()):
@@ -198,6 +202,7 @@ class ExecutionPlan:
         self.level_flops = tuple(level_flops) if level_flops else \
             (0,) * len(self.levels)
         self.level_kernels = _level_kernels(schedule, self.levels)
+        self.inline_memo = None     # the threads backend's last pre-sweep
 
     def __len__(self) -> int:
         return len(self.schedule)
@@ -233,6 +238,7 @@ class ExecutionPlan:
             for c in self.chains)
         plan.level_flops = self.level_flops
         plan.level_kernels = self.level_kernels
+        plan.inline_memo = None     # keyed by this schedule's own inputs
         return plan
 
 

@@ -18,6 +18,13 @@ and each launch's route in ``flash_attention.routes`` (route name ->
 launches): the route the built launcher reports for the very operands it
 is handed, which must be the one :func:`route` gives them.
 
+It is differentiable in q, k and v (:class:`_Attention`, around the padded
+call): the backward is :func:`flash_attention_bwd`, the hand-written
+backward kernel (``csrc/flash_attention_bwd.cu``, routes :data:`BWD_ROUTES`,
+counted in ``flash_attention_bwd.launches`` / ``routes``) on the card and
+its plain version :func:`.ref.attention_grad` on the CPU.  The reference
+has no backward kernel: it differentiates its oracle with XLA.
+
 :func:`route` says which loop a launch takes (``csrc/flash_attention.cu``
 is the same rule in C, and :func:`.kernel.launcher_route` asks the built
 library, as the wrapper does before every launch): float32 on the tensor
@@ -61,6 +68,9 @@ DTYPES = tuple(kernel.SUFFIX)
 BACKENDS = ("cuda", "plain")
 # the routes, in the order of the Route enum of csrc/flash_attention.cu
 ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f32_3xtf32", "f16_simt")
+# the backward's routes, in the order of the Route enum of
+# csrc/flash_attention_bwd.cu
+BWD_ROUTES = ("f32_simt", "bf16_simt", "f16_simt")
 
 
 def route(dtype: torch.dtype, d: int, addresses=()) -> str:
@@ -146,7 +156,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window=None, scale=None,
                     bq: int = 512, bkv: int = 512,
                     backend: str = "cuda") -> torch.Tensor:
-    """(B, Hq, Sq, D) × (B, Hkv, Skv, D)² → (B, Hq, Sq, D)."""
+    """(B, Hq, Sq, D) × (B, Hkv, Skv, D)² → (B, Hq, Sq, D), differentiable
+    in q, k and v (:class:`_Attention`)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: expected one of {BACKENDS}")
     q, k, v = row_major(DTYPES, q, k, v)
@@ -157,21 +168,121 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sq = q.shape[2]
     scale = q.shape[3] ** -0.5 if scale is None else scale
     q, k, v = pad(q, k, v, causal=causal, window=window, bq=bq, bkv=bkv)
-    if q.device.type == "cpu":
-        out = ref.attention(q, k, v, causal=causal, window=window,
-                            scale=scale)
-    else:
-        out = torch.empty_like(q)
-        if out.numel():
-            path = _route_taken(q, k, v, out)
-            kernel.launch(q, k, v, out, causal=causal, window=window,
-                          scale=scale)
-            count_launch(flash_attention, path)
+    out = _Attention.apply(q, k, v, causal, window, scale)
     return out[:, :, :sq, :]
 
 
 flash_attention.launches = 0
 flash_attention.routes = {}
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool, window, scale: float) -> torch.Tensor:
+    """Attention of the padded, checked operands: the kernel on CUDA
+    tensors (counted in ``flash_attention.launches`` / ``routes``), the
+    oracle on CPU tensors."""
+    if q.device.type == "cpu":
+        return ref.attention(q, k, v, causal=causal, window=window,
+                             scale=scale)
+    out = torch.empty_like(q)
+    if out.numel():
+        path = _route_taken(q, k, v, out)
+        kernel.launch(q, k, v, out, causal=causal, window=window,
+                      scale=scale)
+        count_launch(flash_attention, path)
+    return out
+
+
+class _Attention(torch.autograd.Function):
+    """Attention of the padded operands with its gradient: the forward is
+    :func:`_attend` (the kernel on the card, unchanged); it saves q, k, v
+    and the output, and the backward is :func:`flash_attention_bwd` (the
+    backward kernel on the card, :func:`.ref.attention_grad` on the CPU).
+    The reference has no kernel here: it differentiates its oracle with
+    XLA's autodiff (ROADMAP Queue 3)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out = _attend(q, k, v, causal=causal, window=window, scale=scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = (causal, window, scale)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        causal, window, scale = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, causal=causal,
+                                         window=window, scale=scale)
+        return dq, dk, dv, None, None, None
+
+
+def bwd_route(dtype: torch.dtype, d: int) -> str:
+    """The route of the backward kernel at head dim ``d`` on operands of
+    ``dtype``: the CUDA cores for each dtype (``csrc/flash_attention_bwd.cu``
+    ``bind_flash_attention_bwd_route`` is the same rule in C)."""
+    if dtype not in DTYPES:
+        raise TypeError(f"no attention backward route for dtype {dtype}")
+    if not 0 < d <= kernel.MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} is outside 1..{kernel.MAX_HEAD_DIM}")
+    return BWD_ROUTES[kernel.DTYPE_CODES[dtype]]
+
+
+def _bwd_route_taken(dtype: torch.dtype, d: int) -> str:
+    """The route the built backward library takes, held against
+    :func:`bwd_route`: a library and a mirror that disagree raise before
+    anything is launched."""
+    index = kernel.bwd_launcher_route(dtype, d)
+    taken = BWD_ROUTES[index] if 0 <= index < len(BWD_ROUTES) else None
+    want = bwd_route(dtype, d)
+    if taken != want:
+        raise RuntimeError(f"attention backward: the launcher takes {taken} "
+                           f"where ops.bwd_route says {want} (d {d})")
+    return taken
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool = True, window=None,
+                        scale=None) -> tuple:
+    """(dq, dk, dv) of attention of ``q`` (B, Hq, Sq, D) over ``k``, ``v``
+    (B, Hkv, Skv, D), given its output ``out`` and the output's gradient
+    ``dout``, each in its operand's dtype.  The operands are the padded
+    ones the forward ran on (:func:`pad`): this is the gradient of the
+    padded function, whose padding rows the caller's slice cuts.
+
+    On CUDA tensors the backward kernel (two launches, counted as one call
+    in ``flash_attention_bwd.launches`` and by route in
+    ``flash_attention_bwd.routes``: the built library's route, held
+    against :func:`bwd_route`); on CPU tensors its plain version
+    :func:`.ref.attention_grad`, and only there.
+    """
+    q, k, v, out, dout = row_major(DTYPES, q, k, v, out, dout)
+    _check(q, k, v)
+    for t in (out, dout):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"out and dout must be {q.dtype} tensors of "
+                             f"q's shape {tuple(q.shape)} on {q.device}, "
+                             f"got {t.dtype}{tuple(t.shape)} on {t.device}")
+    scale = q.shape[3] ** -0.5 if scale is None else scale
+    if q.device.type == "cpu":
+        return ref.attention_grad(q, k, v, dout, causal=causal,
+                                  window=window, scale=scale)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() and k.numel():
+        taken = _bwd_route_taken(q.dtype, q.shape[3])
+        kernel.launch_bwd(q, k, v, out, dout, dq, dk, dv, causal=causal,
+                          window=window, scale=scale)
+        count_launch(flash_attention_bwd, taken)
+    else:
+        for t in (dq, dk, dv):
+            t.zero_()
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.routes = {}
 
 
 _ONE_LEVEL = ("single",) * 4

@@ -8,6 +8,12 @@ so at most one ``(Sq, Skv)`` score matrix lives at a time (268 MB at S =
 plain version: :func:`.ops.flash_attention` calls it so on CPU tensors, and
 ``chip_smoke.py`` holds the kernel against it so on the card.
 
+:func:`attention_grad` is the gradient of :func:`attention` as autograd
+through it forms it (softmax's backward ``p (dp - sum(p dp))``), in
+float32 with the heads of a GQA group summed in float32: the backward
+kernel's plain version (``csrc/flash_attention_bwd.cu``), which
+:func:`.ops.flash_attention_bwd` calls on CPU tensors.
+
 :func:`attn_step` is one level of the chain body ``o + softmax(q kᵀ / √d)
 v`` in the accumulator type (float32 for float32 and bfloat16, float64 for
 float64), the carry rounded to its dtype: the plain version of one level
@@ -55,6 +61,40 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             p = torch.where(any_seen, torch.softmax(s, dim=-1), 0.0)
             out[bi, h] = (p @ v[bi, h // group].float()).to(q.dtype)
     return out
+
+
+def attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   dout: torch.Tensor, *, causal: bool = True, window=None,
+                   scale=None) -> tuple:
+    """(dq, dk, dv) of :func:`attention` at ``q``, ``k``, ``v`` for the
+    output gradient ``dout``, each in its operand's dtype: per (batch,
+    query head) p as the oracle forms it, dp = dout v^T, ds = p (dp -
+    sum(p dp)), zero on masked keys and on rows that see no key; dq =
+    (ds scale) k, and (ds scale)^T q and p^T dout summed into dk and dv
+    over the group's heads, all in float32."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    seen = mask(sq, skv, causal=causal, window=window, device=q.device)
+    any_seen = seen.any(dim=-1, keepdim=True)
+    f32 = torch.float32
+    dq = torch.empty(q.shape, dtype=f32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=f32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=f32, device=q.device)
+    for bi in range(b):
+        for h in range(hq):
+            qq, g = q[bi, h].float(), dout[bi, h].float()
+            kk, vv = k[bi, h // group].float(), v[bi, h // group].float()
+            s = torch.where(seen, (qq @ kk.T) * scale, NEG_INF)
+            p = torch.where(any_seen, torch.softmax(s, dim=-1), 0.0)
+            dp = g @ vv.T
+            ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+            ds = torch.where(seen, ds, 0.0) * scale
+            dq[bi, h] = ds @ kk
+            dk[bi, h // group] += ds.T @ qq
+            dv[bi, h // group] += p.T @ g
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attn_step(o: torch.Tensor, q: torch.Tensor, k: torch.Tensor,

@@ -9,7 +9,10 @@ launches in ``linear_scan.launches`` and each launch's route in
 ``linear_scan.routes`` (route name -> launches): the route the built
 launcher reports for the very operands it is handed, which must be the one
 :func:`route` gives them.  ``backend="plain"`` asks for the oracle on any
-device (the reference's ``backend="xla"``).
+device (the reference's ``backend="xla"``).  It is differentiable in ``a``
+and ``x`` (:class:`_Scan`): the backward is one more scan, over the
+reversed sequence (:func:`linear_scan_bwd`), on the same kernel on the
+card, counted as the forward's launches are.
 
 :func:`route` says how the kernel stages its tiles (``csrc/linear_scan.cu``
 ``route_of`` is the same rule in C): by TMA (``"tma"``) when ``a`` and
@@ -76,7 +79,8 @@ def linear_scan(a: torch.Tensor, x: torch.Tensor, *, bs: int = 256,
     """``y_t = a_t ⊙ y_{t-1} + x_t`` over (B, S, D); ``y_{-1} = 0``.
 
     Float32 inside, the result in ``x.dtype``.  ``bs`` sets only the
-    padding of S (the kernel chunks S itself).
+    padding of S (the kernel chunks S itself).  Differentiable in ``a``
+    and ``x`` (:class:`_Scan`).
     """
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: expected one of {BACKENDS}")
@@ -89,19 +93,68 @@ def linear_scan(a: torch.Tensor, x: torch.Tensor, *, bs: int = 256,
     if pad:
         a = F.pad(a, (0, 0, 0, pad))
         x = F.pad(x, (0, 0, 0, pad))
-    if a.device.type == "cpu":
-        out = ref.linear_scan(a, x)
-    else:
-        out = torch.empty_like(x)
-        if out.numel():
-            path = _route_taken(a, x)
-            kernel.launch(a, x, out)
-            count_launch(linear_scan, path)
-    return out[:, :s, :]
+    return _Scan.apply(a, x)[:, :s, :]
 
 
 linear_scan.launches = 0
 linear_scan.routes = {}
+
+
+def _scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The scan of checked, padded operands: the kernel on CUDA tensors
+    (:func:`_kernel_scan`), the plain loop on CPU tensors."""
+    if a.device.type == "cpu":
+        return ref.linear_scan(a, x)
+    return _kernel_scan(a, x)
+
+
+def _kernel_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """One launch of the scan kernel on CUDA tensors, counted in
+    ``linear_scan.launches`` and by route in ``linear_scan.routes``: the
+    forward's launches and the backward's alike."""
+    out = torch.empty_like(x)
+    if out.numel():
+        path = _route_taken(a, x)
+        kernel.launch(a, x, out)
+        count_launch(linear_scan, path)
+    return out
+
+
+class _Scan(torch.autograd.Function):
+    """The scan of padded operands with its gradient.  The forward is
+    :func:`_scan` (the kernel on the card, as before) and saves ``a`` and
+    ``y``; the backward (:func:`linear_scan_bwd`) is one more scan over the
+    reversed sequence, so on the card it is one more launch of the same
+    kernel.  The padding of S is differentiated as the forward pads it:
+    the caller's ``F.pad`` and slice are on the graph."""
+
+    @staticmethod
+    def forward(ctx, a, x):
+        y = _scan(a, x)
+        ctx.save_for_backward(a, y)
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        a, y = ctx.saved_tensors
+        return linear_scan_bwd(a, y, g)
+
+
+def linear_scan_bwd(a: torch.Tensor, y: torch.Tensor,
+                    g: torch.Tensor) -> tuple:
+    """``(da, dx)`` of the scan ``y`` of ``a`` and ``x`` for the output
+    gradient ``g`` (:func:`.ref.linear_scan_grad`): ``dx`` is the scan of
+    ``g`` over the reversed sequence with ``a`` shifted one step ahead,
+    and ``da = dx ⊙ y_{t-1}``.  The reversed scan is the scan kernel on CUDA
+    tensors (one launch, counted as the forward's are) and the plain loop
+    on CPU tensors."""
+    a, y, g = row_major(DTYPES, a, y, g)
+    _check(a, y)
+    _check(a, g)
+    if a.device.type == "cpu":
+        return ref.linear_scan_grad(a, y, g)
+    return ref.linear_scan_grad(a, y, g, scan=_kernel_scan)
 
 
 def _route_taken(a: torch.Tensor, x: torch.Tensor) -> str:

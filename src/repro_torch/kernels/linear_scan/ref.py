@@ -15,6 +15,11 @@ and the cast to bfloat16 or float16 rounds to nearest even as the kernel's
 does, so on the same inputs it gives the kernel's exact bits.  Nothing on
 the main path calls it: the tests hold it against the reference, and
 ``chip_smoke.py`` holds the kernel against it with ``torch.equal``.
+
+:func:`linear_scan_grad` is the scan's backward: one more scan, over the
+reversed sequence (:func:`grad_operands`), then one element-wise product.
+With the plain loop as its scan it is the backward's plain version; the
+entry point's backward hands it the kernel on the card.
 """
 
 from __future__ import annotations
@@ -32,6 +37,29 @@ def linear_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         h = a32[:, t] * h + x32[:, t]
         y[:, t] = h
     return y.to(x.dtype)
+
+
+def grad_operands(a: torch.Tensor, g: torch.Tensor) -> tuple:
+    """The backward's scan operands: ``a`` shifted one step ahead along S
+    (``a_{t+1}``, 0 in the last place) and the output gradient ``g``, both
+    reversed along S.  The scan of them, reversed back, is ``h_t = g_t +
+    a_{t+1} h_{t+1}`` with ``h_{S-1} = g_{S-1}``: the gradient of ``x``."""
+    a_next = F.pad(a[:, 1:], (0, 0, 0, 1))
+    return a_next.flip(1), g.flip(1)
+
+
+def linear_scan_grad(a: torch.Tensor, y: torch.Tensor, g: torch.Tensor, *,
+                     scan=None) -> tuple:
+    """``(da, dx)`` of ``y = linear_scan(a, x)`` for the output gradient
+    ``g``: ``dx`` is ``scan`` (:func:`linear_scan` by default) of
+    :func:`grad_operands`, reversed back (in ``g``'s dtype, float32
+    inside), and ``da_t = dx_t y_{t-1}`` with ``y_{-1} = 0``, in float32,
+    cast to ``a.dtype``."""
+    scan = linear_scan if scan is None else scan
+    dx = scan(*grad_operands(a, g)).flip(1)
+    y_prev = F.pad(y[:, :-1], (0, 0, 1, 0))
+    da = (dx.float() * y_prev.float()).to(a.dtype)
+    return da, dx
 
 
 def _step(a: torch.Tensor, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -1,1 +1,2 @@
-"""Launch-side helpers of the port: the topology cost model."""
+"""Launch-side helpers of the port: the topology cost model and the
+training launcher (:mod:`.train`)."""

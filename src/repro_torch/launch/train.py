@@ -1,0 +1,134 @@
+"""End-to-end training launcher — ``repro/launch/train.py`` on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch recurrentgemma_9b --reduced --steps 200 --batch 8 --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma_7b \
+        --reduced --steps 3 --cpu
+
+The reference's flags, on the card unless ``--cpu`` asks for the host
+(with no card and no ``--cpu`` it stops with exit code 1 and a message).
+The model draws its weights from a ``torch.Generator`` seeded with
+``--seed``; AdamW with ``warmup_cosine``; batches from
+``SyntheticLMDataset``; every 10th step and the last print ``[train]
+{json}`` (appended to ``--log-file`` as a JSON line), and
+``--metrics-out`` gets ``{"final": ...}``.
+
+Checkpoints and the supervisor's heartbeat (``--ckpt-dir``, ``--resume
+auto`` with a checkpoint directory, ``--heartbeat``, ``--crash-at-step``)
+come with Slice 4, and several devices (``--fake-devices``,
+``--mesh-model`` above 1, a ``--grad-sync`` schedule) with Slice 3: each
+raises :class:`ValueError` naming its slice.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true",
+                    help="tiny same-family config (CPU-runnable)")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the host instead of the GPU")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--resume", choices=("auto", "never"), default="auto")
+    ap.add_argument("--heartbeat", default=None)
+    ap.add_argument("--log-file", default=None)
+    ap.add_argument("--fake-devices", type=int, default=0)
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="model-axis size when fake devices are used")
+    ap.add_argument("--grad-sync", default="implicit",
+                    choices=("implicit", "tree", "ring", "hierarchical"))
+    ap.add_argument("--crash-at-step", type=int, default=None,
+                    help="fault-injection hook for the integration test")
+    ap.add_argument("--metrics-out", default=None)
+    return ap.parse_args(argv)
+
+
+def check_ported(args) -> None:
+    """Raise :class:`ValueError` for a flag whose feature the port does
+    not run yet, naming the slice that brings it."""
+    slice4 = "comes with Slice 4 (checkpoints and the supervisor, ROADMAP " \
+             "Queue 1)"
+    slice3 = "comes with Slice 3 (multi-device, ROADMAP Queue 1)"
+    if args.ckpt_dir is not None:
+        raise ValueError(f"--ckpt-dir (and --resume {args.resume} from it) "
+                         f"{slice4}")
+    if args.heartbeat is not None:
+        raise ValueError(f"--heartbeat {slice4}")
+    if args.crash_at_step is not None:
+        raise ValueError(f"--crash-at-step {slice4}")
+    if args.fake_devices:
+        raise ValueError(f"--fake-devices {slice3}")
+    if args.mesh_model > 1:
+        raise ValueError(f"--mesh-model {args.mesh_model} {slice3}")
+    if args.grad_sync != "implicit":
+        raise ValueError(f"--grad-sync {args.grad_sync} {slice3}")
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    check_ported(args)
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train.step import make_train_step
+
+    if not args.cpu and not torch.cuda.is_available():
+        print("repro_torch.launch.train: no GPU (torch.cuda.is_available() "
+              "is false); pass --cpu to run on the host", file=sys.stderr)
+        return 1
+    dev = torch.device("cpu" if args.cpu else "cuda")
+
+    cfg = configs.get(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = LanguageModel(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(args.seed))
+    optimizer = AdamW(
+        learning_rate=warmup_cosine(args.lr, args.warmup, args.steps))
+    data = SyntheticLMDataset(
+        vocab_size=cfg.vocab_size, seq_len=args.seq,
+        global_batch=args.batch, seed=args.seed, device=dev)
+    opt_state = optimizer.init(model)
+    step_fn = make_train_step(model, optimizer)
+
+    log_f = open(args.log_file, "a") if args.log_file else None
+    final_metrics = {}
+    try:
+        for step in range(args.steps):
+            opt_state, metrics = step_fn(opt_state, data.batch_at(step))
+            if step % 10 == 0 or step == args.steps - 1:
+                final_metrics = {k: float(v) for k, v in metrics.items()}
+                line = json.dumps({"step": step, **final_metrics})
+                print(f"[train] {line}", flush=True)
+                if log_f:
+                    log_f.write(line + "\n")
+                    log_f.flush()
+    finally:
+        if log_f:
+            log_f.close()
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            json.dump({"final": final_metrics}, f)
+    print("[train] done", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,5 @@
 """Block composition — ``repro/models/blocks.py`` in PyTorch, for the block
-kinds of the serving slice: ``attn`` (full causal GQA), ``swa``
+kinds the port serves and trains: ``attn`` (full causal GQA), ``swa``
 (sliding-window), ``local_attn`` (hybrid-local window, MQA in
 RecurrentGemma) and ``rglru``.  Each block is a pre-norm sublayer with a
 residual, then the MLP with its own pre-norm and residual.
@@ -30,7 +30,7 @@ HAS_MLP = ("attn", "swa", "local_attn", "rglru")
 PORTED_KINDS = ("attn", "swa", "local_attn", "rglru")
 _LATER = ("the rest of the LM stack (ROADMAP Queue 1, Slice 6: xLSTM "
           "blocks, mixture of experts, encoder-decoder and vision front "
-          "ends, training)")
+          "ends)")
 
 
 def check_ported(cfg, kinds=None) -> None:

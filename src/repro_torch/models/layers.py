@@ -7,13 +7,14 @@ to tensors: a :class:`Params` module (what
 Dtypes follow the reference's jax promotion: norms and RoPE compute in
 float32 and cast back, products stay in the parameters' dtype.
 
-Prefill attention, the materialised path and the chunked one alike, goes
-through the port's flash-attention entry point
+Full-sequence attention (training, the materialised path and the chunked
+prefill alike) goes through the port's flash-attention entry point
 (:func:`repro_torch.kernels.flash_attention.ops.flash_attention`): the
 hand-written kernel on the card, its plain version on the CPU.  The
 reference computes the same function with its oracle
 (``kernels.flash_attention.ref.attention``) or its chunked XLA loop
-(``models/attention_xla.py``).  Decode attention (one query against the
+(``models/attention_xla.py``); the entry point is differentiable, its
+backward the hand-written backward kernel on the card.  Decode attention (one query against the
 cache) stays plain PyTorch, as the reference computes it outside any
 kernel.
 """
@@ -47,7 +48,9 @@ class Params(nn.Module):
     gives each parameter uninitialised storage on ``device``;
     :meth:`reset` draws the values, one sublayer at a time, so no more
     than one sublayer's float32 draws is ever alive beside the weights.
-    Parameters take no gradient: this is the serving path.
+    Parameters take no gradient until a trainer asks for one
+    (:func:`repro_torch.train.step.make_train_step` calls
+    ``requires_grad_(True)``), so serving builds no autograd graph.
     """
 
     def __init__(self, init, device):

@@ -1,4 +1,5 @@
-"""LanguageModel — the serving half of ``repro/models/model.py`` in PyTorch.
+"""LanguageModel — ``repro/models/model.py`` in PyTorch, for the block kinds
+the port runs.
 
 The model is an ``nn.Module`` that holds its parameters under the
 reference's dict paths: ``emb``, ``ln_f``, ``lm_head`` (untied heads),
@@ -12,13 +13,21 @@ on that device, one sublayer at a time;
 :func:`repro_torch.models.weights.carry_params` loads the reference's
 parameters instead.
 
+Training: :meth:`forward` runs under autograd (the parameters take a
+gradient once a trainer calls ``requires_grad_(True)``), each pattern
+group under ``torch.utils.checkpoint`` with ``remat`` (the reference's
+``jax.checkpoint(..., nothing_saveable)``); :meth:`loss` is the
+reference's cross-entropy over full float32 logits.  Attention and the
+RG-LRU scan go through the kernels' entry points, whose backwards are the
+backward kernel and one more scan-kernel launch on the card.
+
 Serving: :meth:`prefill` runs the prompt through every block (attention
 through the flash-attention entry point, the RG-LRU scan through the
 linear-scan entry point) and returns the last token's logits and the
 decode states; :meth:`decode_step` advances one token against them in
-plain PyTorch.  States are nested like the reference's, with the groups
-as a list: ``{"groups": [{"b0": state, ...}, ...] or None, "tail":
-[...]}``.  The training half (``loss``) comes with a later slice.
+plain PyTorch.  Both run under ``torch.no_grad()``.  States are nested
+like the reference's, with the groups as a list: ``{"groups": [{"b0":
+state, ...}, ...] or None, "tail": [...]}``.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import math
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.sharding.constraints import shard_act
 
@@ -39,7 +49,7 @@ def _dtype_of(cfg) -> torch.dtype:
 
 
 class LanguageModel(Params):
-    """The decoder-only stack of ``cfg`` for serving.
+    """The decoder-only stack of ``cfg``, for training and serving.
 
     ``device`` defaults to the card; with no CUDA device that raises
     rather than falling back to the CPU.  A configuration with a part the
@@ -112,18 +122,64 @@ class LanguageModel(Params):
             x = x * math.sqrt(self.cfg.d_model)
         return shard_act(x, "residual")
 
-    @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _group(self, group: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
+        for i, kind in enumerate(self.cfg.block_pattern):
+            x = blocks.apply_block(group[f"b{i}"], x, kind, self.cfg)
+        return x
+
+    def forward(self, tokens: torch.Tensor, *,
+                remat: bool = True) -> torch.Tensor:
         """Final-norm hidden states (B, S, d) of ``tokens`` (B, S); the
-        reference also returns the MoE auxiliary loss, 0 here."""
+        reference also returns the MoE auxiliary loss, 0 here.
+
+        Runs under autograd when grad mode is on.  With ``remat`` and grad
+        mode on, each pattern group runs under ``torch.utils.checkpoint``
+        (non-reentrant), which keeps only the group's input and runs the
+        group again in the backward, as the reference's ``jax.checkpoint``
+        with ``nothing_saveable`` does; the tail layers are not
+        checkpointed, as in the reference."""
         x = self.embed(tokens)
-        for blk, kind in self.layers():
-            x = blocks.apply_block(blk, x, kind, self.cfg)
+        for group in self.groups:
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(self._group, group, x, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = self._group(group, x)
+        pattern = self.cfg.block_pattern
+        for i, blk in enumerate(self.tail):
+            x = blocks.apply_block(blk, x, pattern[i], self.cfg)
         return rmsnorm(x, self["ln_f"], self.cfg.norm_eps)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         head = self["emb"].T if self.cfg.tie_embeddings else self["lm_head"]
         return hidden @ head
+
+    # ------------------------------------------------------------------
+    # loss
+    # ------------------------------------------------------------------
+    def loss(self, batch: dict, *, n_chunks: int = 8, remat: bool = True):
+        """The reference's LM cross-entropy: ``batch`` holds ``tokens`` and
+        ``labels`` (B, S), label -1 masked.  Returns ``(loss, {"nll",
+        "aux", "tokens"})`` with ``loss = nll + 0.01 aux``; ``aux`` (the
+        MoE balance loss) is 0 for every family the port runs.
+
+        The logits are the full (B, S, V) product cast to float32, as the
+        reference's are; ``n_chunks`` is kept for the reference's signature
+        and ignored, as it is there."""
+        del n_chunks
+        hidden = self.forward(batch["tokens"], remat=remat)
+        labels = batch["labels"]
+        aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        logits = self.logits(hidden).float()
+        mask = labels >= 0
+        y_safe = torch.where(mask, labels, 0).long()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, y_safe[..., None])[..., 0]
+        nll_sum = torch.where(mask, logz - gold, 0.0).sum()
+        n_tok = mask.sum()
+        nll = nll_sum / torch.clamp(n_tok, min=1)
+        total = nll + 0.01 * aux
+        return total, {"nll": nll, "aux": aux, "tokens": n_tok}
 
     # ------------------------------------------------------------------
     # serving

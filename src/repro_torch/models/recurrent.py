@@ -6,7 +6,9 @@ linear-scan entry point
 (:func:`repro_torch.kernels.linear_scan.ops.linear_scan`: the
 hand-written kernel on the card, its plain loop on the CPU), where the
 reference calls its oracle ``kernels.linear_scan.ref.linear_scan``; both
-take ``a`` and the gated input in float32.  Decode carries an O(1) state
+take ``a`` and the gated input in float32.  The entry point is
+differentiable: its backward is one more scan, over the reversed
+sequence, on the same kernel.  Decode carries an O(1) state
 and takes the single step ``a * h + x`` in plain PyTorch.
 """
 

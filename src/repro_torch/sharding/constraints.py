@@ -4,9 +4,9 @@ identity, as the reference's are.
 
 Model code tags activations with semantic names (``"residual"``,
 ``"kv_gathered"``, ``"ffn_hidden"``) and calls these hooks; the port runs
-the serving path on one card, so the only policy is ``None``.  A sharding
-policy (``repro/sharding/policy.py``) comes with the multi-device slice
-and the LM stack's training half: asking for one raises
+the LM stack (serving and training) on one card, so the only policy is
+``None``.  A sharding policy (``repro/sharding/policy.py``, Slice 6's
+last module) comes with the multi-device slice: asking for one raises
 :class:`ValueError` until then.
 """
 
@@ -19,9 +19,9 @@ def _refuse(policy) -> None:
     if policy is not None:
         raise ValueError(
             f"sharding policy {policy!r}: the port runs the LM stack on one "
-            f"device with policy=None; sharding policies come with "
-            f"Slice 3 (multi-device) and Slice 6's training half "
-            f"(ROADMAP Queue 1)")
+            f"device with policy=None; sharding policies "
+            f"(Slice 6's sharding/policy.py) come with Slice 3 "
+            f"(multi-device, ROADMAP Queue 1)")
 
 
 def current_policy():

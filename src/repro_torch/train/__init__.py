@@ -1,5 +1,9 @@
-"""Serving step factories (the training steps come with a later slice)."""
+"""Training and serving step factories."""
 
 from .serve import make_decode_step, make_prefill_step
+from .step import make_eval_step, make_manual_dp_train_step, make_train_step
 
-__all__ = ["make_prefill_step", "make_decode_step"]
+__all__ = [
+    "make_train_step", "make_eval_step", "make_manual_dp_train_step",
+    "make_prefill_step", "make_decode_step",
+]

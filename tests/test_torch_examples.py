@@ -1,8 +1,9 @@
 """The port's examples (``examples/torch_*.py``) run in-process on the host.
 
 Each runs through its ``main`` with ``--cpu`` at a small size and must
-print ``OK``; without ``--cpu`` on a host with no GPU each must stop with
-a non-zero code rather than fall back to the CPU.  The Listing 1 example
+print ``OK`` (the training example only once its loss has dropped);
+without ``--cpu`` on a host with no GPU each must stop with a non-zero
+code rather than fall back to the CPU.  The Listing 1 example
 prints the reference example's accounting, line for line.
 """
 
@@ -17,7 +18,10 @@ SCRIPTS = {"torch_quickstart": ["--cpu"],
            "torch_mapreduce_sort": ["--cpu", "--n", "20000",
                                     "--backend", "fused"],
            "torch_distributed_gemm": ["--cpu"],
-           "torch_serve_lm": ["--cpu", "--batch", "2", "--tokens", "8"]}
+           "torch_serve_lm": ["--cpu", "--batch", "2", "--tokens", "8"],
+           # ROADMAP's acceptance line for the training half: 50 tiny
+           # steps, the loss drops (the example checks it before "OK")
+           "torch_train_lm": ["--cpu", "--preset", "tiny", "--steps", "50"]}
 
 
 def _load(name):
@@ -29,8 +33,11 @@ def _load(name):
 
 
 @pytest.mark.parametrize("name", sorted(SCRIPTS))
-def test_example_runs_on_the_host(name, capsys):
-    assert _load(name).main(SCRIPTS[name]) == 0
+def test_example_runs_on_the_host(name, capsys, tmp_path):
+    args = SCRIPTS[name]
+    if name == "torch_train_lm":
+        args = [*args, "--out", str(tmp_path)]
+    assert _load(name).main(args) == 0
     out = capsys.readouterr().out
     assert out.splitlines()[-1] == "OK", out
 

@@ -368,6 +368,35 @@ def test_threads_delegate_a_plan_of_card_operands_to_serial(monkeypatch):
         np.testing.assert_array_equal(got, exp)
 
 
+def test_threads_reuse_the_pre_sweep_of_a_cached_plan(monkeypatch):
+    """A plan replayed from the plan cache on inputs of the same sizes and
+    placement takes the last verdict without sweeping again; inputs that
+    move off the card sweep again and pool."""
+    port_bind.clear_plan_cache()
+    sweeps = []
+    sweep = threadpool.ThreadPoolBackend._sweep
+
+    def counted(self, *args):
+        sweeps.append(1)
+        return sweep(self, *args)
+
+    monkeypatch.setattr(threadpool.ThreadPoolBackend, "_sweep", counted)
+    monkeypatch.setattr(threadpool, "_on_card",
+                        lambda p: isinstance(p, torch.Tensor))
+    delegated = []
+    for _ in range(2):
+        outs, backend = _wide_plan(port_bind.ThreadPoolBackend(), _big)
+        delegated.append(backend.plans_delegated)
+    assert (len(sweeps), delegated) == (1, [1, 1])
+    monkeypatch.setattr(threadpool, "_on_card", lambda p: False)
+    outs, backend = _wide_plan(port_bind.ThreadPoolBackend(), _big)
+    assert len(sweeps) == 2
+    assert (backend.pooled_levels, backend.plans_delegated) == (3, 0)
+    serial, _ = _wide_plan("serial", _big)
+    for got, exp in zip(outs, serial):
+        np.testing.assert_array_equal(got, exp)
+
+
 def test_threads_price_card_plans_apart_from_host_ones(monkeypatch):
     """Card operands cost no work, host ones what the reference prices:
     a flush of card tiles delegates to serial, a flush of NumPy tiles

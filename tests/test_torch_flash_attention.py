@@ -359,3 +359,205 @@ def test_route_taken_is_the_launchers_held_to_the_rule(monkeypatch, offset,
         with pytest.raises(RuntimeError, match="the launcher takes"):
             ops._route_taken(q, k, v, out)
     assert asked == [(torch.bfloat16, (*addresses, 128))]
+
+
+# ---------------------------------------------------------------------------
+# the gradient: the autograd Function around the entry point, and the
+# backward kernel's plain version, against jax.grad of the reference oracle
+# ---------------------------------------------------------------------------
+
+import jax  # noqa: E402
+
+# float32 sums in another order (the port's explicit softmax backward
+# against XLA's autodiff of the einsum oracle): a few float32 ulps of the
+# largest gradient
+GRAD_TOL = 2e-5
+
+GRAD_CASES = [
+    *ATTN_CASES,                                  # MHA, GQA 2:1, MQA, ...
+    (1, 8, 2, 40, 40, 16, True, 12),              # GQA 4:1, windowed
+    (2, 4, 1, 37, 37, 8, True, 9),                # MQA, ragged, windowed
+]
+
+
+def _ref_grads(qkv, dout, *, causal, window, pad_to=None):
+    """jax.grad of the reference oracle (on zero-padded q, k, v when
+    ``pad_to`` = (Sq', Skv'), cut back to Sq: the padded function the
+    entry point computes)."""
+    sq = qkv[0].shape[2]
+
+    def f(q, k, v):
+        if pad_to is not None:
+            q = jnp.pad(q, ((0, 0), (0, 0), (0, pad_to[0] - sq), (0, 0)))
+            pk = ((0, 0), (0, 0), (0, pad_to[1] - k.shape[2]), (0, 0))
+            k, v = jnp.pad(k, pk), jnp.pad(v, pk)
+        out = ref_oracle.attention(q, k, v, causal=causal, window=window)
+        return jnp.sum(out[:, :, :sq] * dout)
+
+    return [np.asarray(g) for g in jax.jit(jax.grad(f, argnums=(0, 1, 2)))(
+        *(jnp.asarray(t) for t in qkv))]
+
+
+def _port_grads(qkv, dout, **kw):
+    q, k, v = (torch.from_numpy(t).requires_grad_(True) for t in qkv)
+    out = ops.flash_attention(q, k, v, **kw)
+    out.backward(torch.from_numpy(dout))
+    return out, [t.grad.numpy() for t in (q, k, v)]
+
+
+def _close_grads(got, want, tol=GRAD_TOL):
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape, name
+        scale = max(np.abs(w).max(), 1.0)
+        np.testing.assert_allclose(g, w, rtol=0, atol=tol * scale,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", GRAD_CASES)
+def test_gradient_matches_jax_grad_of_the_oracle(b, hq, hkv, sq, skv, d,
+                                                 causal, window, rng):
+    qkv = _qkv(rng, b, hq, hkv, sq, skv, d)
+    dout = rng.normal(size=(b, hq, sq, d)).astype(np.float32)
+    # one tile of 64: where the keys are ragged, the padded keys stay
+    # hidden from every row (causal), so this is the oracle's own gradient
+    kw = dict(causal=causal, window=window, bq=64, bkv=64)
+    out, got = _port_grads(qkv, dout, **kw)
+    assert out.grad_fn is not None
+    _close_grads(got, _ref_grads(qkv, dout, causal=causal, window=window))
+
+
+def test_gradient_of_the_padded_function_with_small_tiles(rng):
+    """Ragged Sq and Skv padded to tiles of 16: the entry point
+    differentiates the padded function, whose padding rows its slice
+    cuts."""
+    qkv = _qkv(rng, 1, 4, 2, 33, 33, 8)
+    dout = rng.normal(size=(1, 4, 33, 8)).astype(np.float32)
+    _, got = _port_grads(qkv, dout, causal=True, window=None, bq=16, bkv=16)
+    _close_grads(got, _ref_grads(qkv, dout, causal=True, window=None,
+                                 pad_to=(48, 48)))
+
+
+def test_gradient_of_the_padded_keys_quirk_is_the_padded_functions(rng):
+    """Non-causal windowed attention over a ragged Skv attends to the
+    padded zero keys (the reference wrapper's quirk): the gradient is that
+    of the padded function, not of the oracle on the unpadded inputs."""
+    qkv = _qkv(rng, 1, 2, 2, 33, 33, 8)
+    dout = rng.normal(size=(1, 2, 33, 8)).astype(np.float32)
+    kw = dict(causal=False, window=8)
+    _, got = _port_grads(qkv, dout, bq=16, bkv=16, **kw)
+    _close_grads(got, _ref_grads(qkv, dout, pad_to=(48, 48), **kw))
+    unpadded = _ref_grads(qkv, dout, **kw)
+    assert np.abs(got[0] - unpadded[0]).max() > 1e-2
+
+
+def test_row_that_sees_no_key_gets_a_zero_gradient(rng):
+    """Rows past Skv + window see no key: their output is zero and so is
+    their gradient, as jax.grad of the oracle gives on the padded inputs
+    (the pinned divergence from the reference's kernel is in the forward
+    only)."""
+    qkv = _qkv(rng, 1, 4, 2, 40, 24, 8)
+    dout = rng.normal(size=(1, 4, 40, 8)).astype(np.float32)
+    kw = dict(causal=True, window=6)
+    _, got = _port_grads(qkv, dout, bq=16, bkv=16, **kw)
+    blind = ~ref.mask(48, 32, causal=True, window=6,
+                      device="cpu").any(dim=-1)[:40].numpy()
+    assert blind.any()
+    assert not got[0][:, :, blind].any()
+    _close_grads(got, _ref_grads(qkv, dout, pad_to=(48, 32), **kw))
+
+
+def test_plain_backward_is_autograd_through_the_oracle(rng):
+    """``ref.attention_grad`` against PyTorch's autograd through
+    ``ref.attention`` on the same (padded) operands, bf16 included (the
+    plain version accumulates in float32, autograd in bf16: bf16
+    tolerance there)."""
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 3e-2)):
+        q, k, v = (torch.from_numpy(t).to(dtype)
+                   for t in _qkv(rng, 2, 4, 1, 24, 24, 16))
+        g = torch.from_numpy(rng.normal(size=(2, 4, 24, 16)).astype(
+            np.float32)).to(dtype)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ref.attention(*leaves, causal=True, window=5).backward(g)
+        got = ref.attention_grad(q, k, v, g, causal=True, window=5)
+        for t, want in zip(got, leaves):
+            assert t.dtype == dtype
+            torch.testing.assert_close(t.float(), want.grad.float(),
+                                       rtol=tol, atol=tol)
+
+
+def test_backward_entry_point_on_the_cpu_is_the_plain_version(rng,
+                                                              monkeypatch):
+    qkv = [torch.from_numpy(t) for t in _qkv(rng, 1, 4, 2, 32, 32, 16)]
+    out = ops.flash_attention(*qkv, causal=True)
+    dout = torch.from_numpy(rng.normal(size=(1, 4, 32, 16)).astype(
+        np.float32))
+    calls = []
+    plain = ref.attention_grad
+
+    def counting(*args, **kwargs):
+        calls.append(kwargs)
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(ref, "attention_grad", counting)
+    ops.flash_attention_bwd.launches = 0
+    got = ops.flash_attention_bwd(*qkv, out, dout, causal=True)
+    assert len(calls) == 1 and ops.flash_attention_bwd.launches == 0
+    for t, want in zip(got, plain(*qkv, dout, causal=True)):
+        assert torch.equal(t, want)
+    with pytest.raises(ValueError, match="out and dout"):
+        ops.flash_attention_bwd(*qkv, out[:, :, :8], dout)
+
+
+def test_backward_route_is_the_cuda_cores_for_every_dtype():
+    assert ops.BWD_ROUTES == ("f32_simt", "bf16_simt", "f16_simt")
+    for dtype, want in zip(ops.DTYPES, ops.BWD_ROUTES):
+        assert ops.bwd_route(dtype, 256) == want
+    with pytest.raises(TypeError):
+        ops.bwd_route(torch.float64, 64)
+    with pytest.raises(ValueError):
+        ops.bwd_route(torch.float32, 257)
+    source = kernel.BWD_SOURCES[0].read_text()
+    enum = re.search(r"enum Route : int \{([^}]*)\}", source).group(1)
+    names = [n.split("=")[0].strip().lower() for n in enum.split(",")]
+    assert tuple(names) == ops.BWD_ROUTES
+
+
+@pytest.mark.parametrize("agree", [True, False], ids=["agree", "disagree"])
+def test_backward_route_taken_is_the_launchers_held_to_the_rule(
+        monkeypatch, agree):
+    """The backward asks the built library (here a stand-in) for its route
+    and raises, before any launch, where ``ops.bwd_route`` disagrees."""
+    asked = []
+
+    def launcher_route(dtype, d):
+        asked.append((dtype, d))
+        return 1 if agree else 0
+
+    monkeypatch.setattr(kernel, "bwd_launcher_route", launcher_route)
+    if agree:
+        assert ops._bwd_route_taken(torch.bfloat16, 256) == "bf16_simt"
+    else:
+        with pytest.raises(RuntimeError, match="the launcher takes"):
+            ops._bwd_route_taken(torch.bfloat16, 256)
+    assert asked == [(torch.bfloat16, 256)]
+
+
+def test_backward_library_is_its_own_with_every_symbol_bound():
+    """The backward builds into a library of its own (the forward's
+    sources, headers and symbols unchanged), and each symbol it binds is
+    an ``extern "C"`` entry point with as many parameters as ctypes
+    passes."""
+    assert kernel.BWD_LIBRARY.path().name.startswith(
+        "libbind_flash_attention_bwd_")
+    assert kernel.BWD_LIBRARY.sources == kernel.BWD_SOURCES
+    assert kernel.BWD_SOURCES[0] not in kernel.SOURCES
+    source = kernel.BWD_SOURCES[0].read_text()
+    assert "#include \"" not in source
+    assert set(kernel.BWD_LIBRARY.symbols) == extern_c_symbols(
+        kernel.BWD_SOURCES[0])
+    assert set(kernel.BWD_LIBRARY.symbols) == {
+        f"bind_flash_attention_bwd_{s}" for s in kernel.SUFFIX.values()} | {
+        kernel.BWD_ROUTE_SYMBOL}
+    for sym, argtypes in kernel.BWD_LIBRARY.symbols.items():
+        params = re.search(rf"int {sym}\((.*?)\)", source, re.S).group(1)
+        assert params.count(",") + 1 == len(argtypes), sym

@@ -59,6 +59,9 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.models.recurrent", "repro_torch.models.blocks",
                 "repro_torch.models.model", "repro_torch.models.weights",
                 "repro_torch.sharding.constraints",
-                "repro_torch.train.serve"):
+                "repro_torch.train.serve", "repro_torch.train.step",
+                "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+                "repro_torch.optim.compression",
+                "repro_torch.data.pipeline", "repro_torch.launch.train"):
         assert mod in got["modules"], mod
     assert got["bad"] == [], f"repro_torch pulled in: {got['bad']}"

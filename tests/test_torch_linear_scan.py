@@ -349,3 +349,87 @@ def test_scratch_holds_every_chunks_words_and_the_ticket():
     chunks = -(-s // kernel.CHUNK)
     assert kernel.scratch_words(b, s, d) == 3 * b * chunks * d + 1
     assert "3 * batch * ceil(s / CHUNK) * d + 1" in _SOURCE.read_text()
+
+
+# -- the gradient: one more scan over the reversed sequence -----------------
+
+import jax  # noqa: E402
+
+from repro.kernels.linear_scan import ref as ref_oracle  # noqa: E402
+
+# float32: the backward's recurrence h_t = g_t + a_{t+1} h_{t+1} is the
+# same product-then-sum as the transpose XLA takes of the oracle's scan;
+# only da's product order may differ: 1e-6 of the largest gradient
+GRAD_TOL = 1e-6
+GRAD_SHAPES = [*SCAN_SHAPES, (2, 37, 6), (1, 300, 5)]
+
+
+def _ref_scan_grads(a, x, g):
+    def f(a, x):
+        return jnp.sum(ref_oracle.linear_scan(a, x) * g)
+    return [np.asarray(t) for t in jax.jit(jax.grad(f, argnums=(0, 1)))(
+        jnp.asarray(a), jnp.asarray(x))]
+
+
+@pytest.mark.parametrize("memory", ["forget", "long"])
+@pytest.mark.parametrize("b,s,d", GRAD_SHAPES)
+def test_gradient_matches_jax_grad_of_the_oracle(b, s, d, memory, rng):
+    """(da, dx) through the entry point (its autograd Function, the plain
+    backward on the CPU) against jax.grad of the reference's oracle, f32,
+    with S ragged against ``bs`` (the padding differentiated as the forward
+    pads) and ``a`` in (0.999, 1] as well as a forget gate's range."""
+    a = _gates(rng, (b, s, d), memory)
+    x = rng.normal(size=(b, s, d)).astype(np.float32)
+    g = rng.normal(size=(b, s, d)).astype(np.float32)
+    ta, tx = (torch.from_numpy(t).requires_grad_(True) for t in (a, x))
+    y = ops.linear_scan(ta, tx, bs=32)
+    assert y.grad_fn is not None
+    y.backward(torch.from_numpy(g))
+    for name, got, want in zip(("da", "dx"), (ta.grad, tx.grad),
+                               _ref_scan_grads(a, x, g)):
+        scale = max(np.abs(want).max(), 1.0)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=GRAD_TOL * scale, err_msg=name)
+
+
+def test_plain_backward_is_the_reversed_scan(rng):
+    """``ref.linear_scan_grad`` is one scan of ``grad_operands`` reversed
+    back (bit for bit the plain loop on them) and equals autograd through
+    the plain loop; ``dx`` is the gradient at ``y_{-1} = 0``."""
+    a = torch.from_numpy(rng.uniform(0.2, 0.99, (2, 40, 7)).astype(
+        np.float32))
+    x, g = (torch.from_numpy(rng.normal(size=(2, 40, 7)).astype(np.float32))
+            for _ in range(2))
+    y = ref.linear_scan(a, x)
+    da, dx = ref.linear_scan_grad(a, y, g)
+    ar, gr = ref.grad_operands(a, g)
+    assert torch.equal(ar[:, 0], torch.zeros_like(ar[:, 0]))
+    assert torch.equal(ar[:, 1:].flip(1), a[:, 1:])
+    assert torch.equal(dx, ref.linear_scan(ar, gr).flip(1))
+    la, lx = (t.clone().requires_grad_(True) for t in (a, x))
+    ref.linear_scan(la, lx).backward(g)
+    assert torch.equal(dx, lx.grad)
+    torch.testing.assert_close(da, la.grad, rtol=1e-6, atol=1e-6)
+    # the backward's scan on the chunked algorithm (what the kernel runs on
+    # the card) agrees with the loop within the forward's f32 tolerance
+    chunked = ref.linear_scan_chunked(ar, gr).flip(1)
+    torch.testing.assert_close(chunked, dx, rtol=2e-5, atol=2e-5)
+
+
+def test_backward_on_the_cpu_takes_the_plain_version(monkeypatch, rng):
+    a = torch.from_numpy(rng.uniform(0.2, 0.99, (1, 20, 4)).astype(
+        np.float32)).requires_grad_(True)
+    x = torch.from_numpy(rng.normal(size=(1, 20, 4)).astype(
+        np.float32)).requires_grad_(True)
+    calls = []
+    plain = ref.linear_scan_grad
+
+    def counting(*args, **kwargs):
+        calls.append(kwargs)
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(ref, "linear_scan_grad", counting)
+    ops.linear_scan(a, x).sum().backward()
+    assert calls == [{}]      # the plain loop as its scan, no kernel
+    assert ops.linear_scan.launches == 0
+    assert a.grad is not None and x.grad is not None

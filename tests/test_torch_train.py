@@ -1,0 +1,344 @@
+"""The port's training half against the JAX package's, end to end.
+
+Parameters drawn by the reference's ``LanguageModel.init`` are carried
+into the port (``repro_torch.models.weights.carry_params``); tokens and
+labels come from NumPy with a seed (some labels -1, masked).  For each
+ported reduced configuration ``model.loss`` and every parameter's
+gradient (autograd through the port's two kernel entry points, whose
+backwards run their plain versions here) agree with
+``jax.value_and_grad`` of the reference's ``loss`` in float32: the loss
+within 1e-5, each gradient within 1e-4 of its leaf's largest |gradient|
+(float32 sums in another order through ~10 layers of products).  Then:
+``remat`` changes no bit; the kernels' autograd Functions are on the graph
+and their backwards run (a cut graph fails here, where the values alone
+would not show it on the CPU); a 5-step ``make_train_step`` loss curve
+follows the reference's within 1e-3 (the parameters are not compared
+element by element after several steps: Adam's first step moves a
+near-zero gradient by lr times its sign); the data pipeline gives the
+reference's batches bit for bit; ``launch/train.py`` runs and refuses the
+flags that wait for Slices 3 and 4.
+"""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as ref_configs
+from repro.data import SyntheticLMDataset as RefDataset
+from repro.data import make_batch_specs as ref_batch_specs
+from repro.models import LanguageModel as RefModel
+from repro.optim import AdamW as RefAdamW
+from repro.optim import warmup_cosine as ref_warmup_cosine
+from repro.train import step as ref_step
+from repro_torch import configs
+from repro_torch.data import SyntheticLMDataset, make_batch_specs
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.linear_scan import ops as ls_ops
+from repro_torch.kernels.linear_scan import ref as ls_ref
+from repro_torch.launch import train as launch_train
+from repro_torch.models import LanguageModel, weights
+from repro_torch.optim import AdamW, warmup_cosine
+from repro_torch.train import (make_eval_step, make_manual_dp_train_step,
+                               make_train_step)
+
+PORTED = ("recurrentgemma_9b", "gemma_7b", "h2o_danube_1_8b", "qwen2_5_32b",
+          "qwen3_14b")
+B, S = 2, 20                # S past the reduced window (16)
+LOSS_TOL, GRAD_TOL = 1e-5, 1e-4
+CURVE_TOL = 1e-3
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _carried(arch, seed=2):
+    rcfg = ref_configs.get(arch).reduced()
+    ref = RefModel(rcfg)
+    params = jax.jit(ref.init)(jax.random.PRNGKey(seed))
+    model = weights.carry_params(
+        LanguageModel(configs.get(arch).reduced(), device="cpu"),
+        _np(params))
+    return rcfg, ref, params, model
+
+
+def _batch(rng, vocab, b=B, s=S):
+    toks = rng.integers(0, vocab, (b, s + 1)).astype(np.int32)
+    labels = toks[:, 1:].copy()
+    labels[:, ::7] = -1
+    return {"tokens": toks[:, :-1], "labels": labels}
+
+
+def _port_batch(batch):
+    return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+
+
+def _port_loss_and_grads(model, batch, remat=True):
+    model.requires_grad_(True)
+    model.zero_grad(set_to_none=True)
+    loss, metrics = model.loss(_port_batch(batch), remat=remat)
+    loss.backward()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_loss_and_every_gradient_match_the_reference(arch, rng):
+    rcfg, ref, params, model = _carried(arch)
+    batch = _batch(rng, rcfg.vocab_size)
+
+    def loss_fn(p):
+        return ref.loss(p, {k: jnp.asarray(v) for k, v in batch.items()},
+                        remat=False)
+
+    (want_loss, want_metrics), want_grads = jax.jit(
+        jax.value_and_grad(loss_fn, has_aux=True))(params)
+    loss, metrics, grads = _port_loss_and_grads(model, batch)
+    assert loss.dtype == torch.float32 and loss.dim() == 0
+    assert float(loss) == pytest.approx(float(want_loss), rel=LOSS_TOL)
+    assert float(metrics["nll"]) == pytest.approx(float(want_metrics["nll"]),
+                                                  rel=LOSS_TOL)
+    assert float(metrics["aux"]) == float(want_metrics["aux"]) == 0.0
+    assert int(metrics["tokens"]) == int(want_metrics["tokens"]) == int(
+        (batch["labels"] >= 0).sum())
+    theirs = weights.leaves(weights.port_tree(_np(want_grads)))
+    assert set(theirs) == set(grads)
+    for name, want in theirs.items():
+        want = np.asarray(want, np.float32)
+        got = grads[name].numpy()
+        assert got.shape == want.shape, name
+        scale = max(float(np.abs(want).max()), 1e-30)
+        err = float(np.abs(got - want).max())
+        assert err <= GRAD_TOL * scale, (
+            f"{arch} {name}: max error {err:.3e}, largest |grad| {scale:.3e}")
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "qwen3_14b"])
+def test_remat_changes_no_bit(arch, rng):
+    cfg = configs.get(arch).reduced()
+    model = LanguageModel(cfg, device="cpu").init(
+        torch.Generator().manual_seed(4))
+    batch = _batch(rng, cfg.vocab_size)
+    loss_r, _, grads_r = _port_loss_and_grads(model, batch, remat=True)
+    loss_n, _, grads_n = _port_loss_and_grads(model, batch, remat=False)
+    assert torch.equal(loss_r, loss_n)
+    for name in grads_r:
+        assert torch.equal(grads_r[name], grads_n[name]), name
+
+
+def _graph_nodes(t):
+    seen, todo, names = set(), [t.grad_fn], []
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        names.append(type(fn).__name__)
+        todo.extend(nxt for nxt, _ in fn.next_functions)
+    return names
+
+
+def test_the_graph_runs_through_both_kernels_backwards(rng, monkeypatch):
+    """A reduced RecurrentGemma group (rglru, rglru, local_attn): the
+    output's autograd graph holds the port's attention and scan Functions,
+    and the backward runs their backwards (counted on the plain versions
+    they take on the CPU), once per layer even with remat.  Every parameter
+    gets a non-zero gradient: a kernel entry point that cut the graph
+    (an output without a ``grad_fn``) would leave the parameters below it
+    without one."""
+    cfg = configs.get("recurrentgemma_9b").reduced()
+    model = LanguageModel(cfg, device="cpu").init(
+        torch.Generator().manual_seed(5))
+    model.requires_grad_(True)
+    calls = {"attention": 0, "scan": 0, "attention_fwd": 0, "scan_fwd": 0}
+
+    def counting(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(fa_ref, "attention_grad",
+                        counting("attention", fa_ref.attention_grad))
+    monkeypatch.setattr(ls_ref, "linear_scan_grad",
+                        counting("scan", ls_ref.linear_scan_grad))
+    monkeypatch.setattr(fa_ref, "attention",
+                        counting("attention_fwd", fa_ref.attention))
+    monkeypatch.setattr(ls_ref, "linear_scan",
+                        counting("scan_fwd", ls_ref.linear_scan))
+    batch = _port_batch(_batch(rng, cfg.vocab_size))
+    hidden = model(batch["tokens"], remat=False)
+    names = _graph_nodes(hidden)
+    assert "_AttentionBackward" in names and "_ScanBackward" in names
+    kinds = [kind for _, kind in model.layers()]
+    n_attn, n_scan = kinds.count("local_attn"), kinds.count("rglru")
+    assert names.count("_AttentionBackward") == n_attn
+    assert names.count("_ScanBackward") == n_scan
+    calls.update(attention_fwd=0, scan_fwd=0)
+    loss, _ = model.loss(batch, remat=True)
+    loss.backward()
+    # remat runs each group's forward twice; each backward once
+    assert calls["attention"] == n_attn and calls["scan"] == n_scan
+    # the scan's backward is one more (plain) scan per layer
+    assert calls["attention_fwd"] == 2 * n_attn
+    assert calls["scan_fwd"] == 3 * n_scan
+    for name, p in model.named_parameters():
+        assert p.grad is not None and bool(p.grad.abs().sum() > 0), name
+    assert fa_ops.flash_attention.launches == 0
+    assert ls_ops.linear_scan.launches == 0
+
+
+def _ref_curve(rcfg, ref, params, batches, lr):
+    opt = RefAdamW(learning_rate=ref_warmup_cosine(*lr))
+    state = opt.init(params)
+    step = ref_step.make_train_step(ref, opt)
+    out = []
+    for batch in batches:
+        params, state, metrics = step(
+            params, state, {k: jnp.asarray(v) for k, v in batch.items()})
+        out.append({k: float(v) for k, v in metrics.items()})
+    return out
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "h2o_danube_1_8b"])
+def test_five_train_steps_follow_the_references_loss_curve(arch):
+    rcfg, ref, params, model = _carried(arch, seed=3)
+    data = RefDataset(rcfg.vocab_size, S, B, seed=1)
+    batches = [{k: np.asarray(v) for k, v in data.batch_at(i).items()}
+               for i in range(5)]
+    lr = (3e-3, 2, 5)
+    want = _ref_curve(rcfg, ref, params, batches, lr)
+    opt = AdamW(learning_rate=warmup_cosine(*lr))
+    state = opt.init(model)
+    step = make_train_step(model, opt)
+    got = []
+    for batch in batches:
+        state, metrics = step(state, _port_batch(batch))
+        got.append({k: float(v) for k, v in metrics.items()})
+    assert state.count == 5
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert set(g) == set(w) == {"loss", "nll", "aux", "tokens",
+                                    "grad_norm", "lr"}
+        for key in ("loss", "nll", "grad_norm", "lr"):
+            assert g[key] == pytest.approx(w[key], rel=CURVE_TOL), (i, key)
+        assert g["tokens"] == w["tokens"]
+    assert got[-1]["loss"] < got[0]["loss"]
+
+
+def test_train_step_options(rng):
+    cfg = configs.get("gemma_7b").reduced()
+    model = LanguageModel(cfg, device="cpu").init(
+        torch.Generator().manual_seed(6))
+    opt = AdamW(learning_rate=1e-3)
+    batch = _port_batch(_batch(rng, cfg.vocab_size))
+    state = opt.init(model)
+    kept = {n: t.clone() for n, t in state.m.items()}
+    # donate=False leaves the state it was given as it was
+    new, _ = make_train_step(model, opt, donate=False)(state, batch)
+    assert state.count == 0 and new.count == 1
+    for n in kept:
+        assert torch.equal(state.m[n], kept[n]) and not torch.equal(
+            new.m[n], kept[n])
+    # gradients cast before the update (the reference's A3)
+    seen = []
+
+    class Watching(AdamW):
+        def update(self, grads, state, params):
+            seen.extend(g.dtype for g in grads.values())
+            return super().update(grads, state, params)
+
+    w = Watching(learning_rate=1e-3)
+    make_train_step(model, w, grad_reduce_dtype="bfloat16")(w.init(model),
+                                                            batch)
+    assert set(seen) == {torch.bfloat16}
+    # eval: the loss without a gradient, as the reference's eval step
+    metrics = make_eval_step(model)(batch)
+    assert set(metrics) == {"loss", "nll", "aux", "tokens"}
+    assert metrics["loss"].grad_fn is None
+
+
+def test_multi_device_steps_name_their_slice():
+    model = LanguageModel(configs.get("gemma_7b").reduced(), device="meta")
+    with pytest.raises(ValueError, match="Slice 3"):
+        make_manual_dp_train_step(model, AdamW(), mesh=None)
+    for make in (lambda: make_train_step(model, AdamW(), object()),
+                 lambda: make_eval_step(model, object())):
+        with pytest.raises(ValueError, match="Slice 3"):
+            make()
+
+
+@pytest.mark.parametrize("seed, step", [(0, 0), (0, 7), (3, 2)])
+def test_data_pipeline_gives_the_references_batches_bit_for_bit(seed, step):
+    kw = dict(vocab_size=512, seq_len=33, global_batch=3, seed=seed,
+              enc_len=5, d_model=8, vision_tokens=4)
+    want = RefDataset(**kw).batch_at(step)
+    got = SyntheticLMDataset(**kw, device="cpu").batch_at(step)
+    assert set(got) == set(want) == {"tokens", "labels", "frames", "pixels"}
+    for k, v in want.items():
+        v = np.asarray(v)
+        assert got[k].device.type == "cpu"
+        assert got[k].numpy().dtype == v.dtype, k
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+
+
+def test_data_pipeline_refuses_the_card_without_one(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SyntheticLMDataset(16, 4, 1).batch_at(0)
+
+
+@pytest.mark.parametrize("arch", configs.ARCHS)
+def test_batch_specs_match_the_references(arch):
+    for cfg, rcfg in ((configs.get(arch), ref_configs.get(arch)),
+                      (configs.get(arch).reduced(),
+                       ref_configs.get(arch).reduced())):
+        want = ref_batch_specs(rcfg, 96, 2)
+        got = make_batch_specs(cfg, 96, 2)
+        assert set(got) == set(want)
+        for k, spec in want.items():
+            assert got[k].shape == tuple(spec.shape), k
+            assert str(got[k].dtype).split(".")[-1] == str(spec.dtype), k
+            assert got[k].ndim == spec.ndim
+
+
+def test_launch_train_runs_on_the_host(tmp_path, capsys):
+    log, out = tmp_path / "log.jsonl", tmp_path / "metrics.json"
+    assert launch_train.main(["--arch", "recurrentgemma_9b", "--reduced",
+                              "--steps", "3", "--cpu", "--log-file",
+                              str(log), "--metrics-out", str(out)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[-1] == "[train] done"
+    steps = [json.loads(line[len("[train] "):]) for line in lines[:-1]]
+    assert [s["step"] for s in steps] == [0, 2]
+    assert all(np.isfinite(s["loss"]) for s in steps)
+    assert [json.loads(x)["step"] for x in log.read_text().splitlines()] == [
+        0, 2]
+    final = json.loads(out.read_text())["final"]
+    assert final == {k: v for k, v in steps[-1].items() if k != "step"}
+
+
+def test_launch_train_refuses_without_a_gpu(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert launch_train.main(["--arch", "gemma_7b", "--reduced"]) == 1
+    assert "--cpu" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags, slice_", [
+    (["--ckpt-dir", "ckpt"], "Slice 4"),
+    (["--ckpt-dir", "ckpt", "--resume", "never"], "Slice 4"),
+    (["--heartbeat", "hb"], "Slice 4"),
+    (["--crash-at-step", "2"], "Slice 4"),
+    (["--fake-devices", "4"], "Slice 3"),
+    (["--mesh-model", "2"], "Slice 3"),
+    (["--grad-sync", "tree"], "Slice 3"),
+    (["--grad-sync", "ring"], "Slice 3"),
+])
+def test_launch_train_flags_that_wait_for_their_slice(flags, slice_):
+    with pytest.raises(ValueError, match=slice_):
+        launch_train.main(["--arch", "gemma_7b", "--reduced", "--cpu",
+                           "--steps", "1", *flags])
