@@ -64,6 +64,13 @@
 // about 2e-3 for unit-variance v, well inside the reference's bf16
 // tolerance of 3e-2, which also covers rounding the output to bf16.
 //
+// The log-sum-exp, on request: given a (B, Hq, Sq) float32 buffer, the
+// block also stores each row's log-sum-exp of its scaled, masked scores in
+// natural-log units, (m + log2 l) ln 2, once l is reduced (+inf for a row
+// that sees no key, so that the backward's p is exactly 0 there).  Only a
+// store is added: out is computed as without it.  The backward
+// (attn_bwd_wgmma.cuh) reads it instead of sweeping the keys for it.
+//
 // TMA needs 16-byte-aligned bases and rows of whole 16-byte units, and the
 // tiles are 64 columns wide: the route (flash_attention.cu) takes bf16 with
 // d % 64 == 0, d <= 256 and q, k, v, out 16-byte aligned, and sends any
@@ -297,12 +304,13 @@ __device__ __forceinline__ void softmax(float (&sc)[BKV / 2],
 // dynamic shared memory at smem.  tq, tk, tv: q, k, v as (D, S, heads)
 // tensor maps read in boxes of 64 columns by BQ (q) or BKV (k, v) rows.
 // Block (x, y) computes q head x % Hq of batch x / Hq for query tile
-// gridDim.y - 1 - y.
+// gridDim.y - 1 - y.  LSE: null, or the (B, Hq, Sq) log-sum-exp buffer.
 template <int D>
 __device__ __forceinline__ void attention_block(const CUtensorMap* tq,
                                                 const CUtensorMap* tk,
                                                 const CUtensorMap* tv,
                                                 __nv_bfloat16* __restrict__ O,
+                                                float* __restrict__ LSE,
                                                 const Shape& sh,
                                                 unsigned char* smem) {
   using C = Cfg<D>;
@@ -454,6 +462,10 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* tq,
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     const int64_t row = row_a + 8 * h;
     if (row >= sh.sq) continue;
+    if (LSE != nullptr && (lane & 3) == 0)
+      LSE[bh * sh.sq + row] =
+          l[h] == 0.0f ? INFINITY
+                       : (m[h] + log2f(l[h])) * 0.6931471805599453f;
     const float inv = 1.0f / (l[h] == 0.0f ? 1.0f : l[h]);
     __nv_bfloat16* dst = O + (bh * sh.sq + row) * D + col_l;
 #pragma unroll

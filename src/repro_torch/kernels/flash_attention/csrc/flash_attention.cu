@@ -71,7 +71,9 @@
 // C interface (bound with ctypes): device pointers, sizes and a cudaStream_t;
 // each entry point launches on that stream without synchronising and returns
 // cudaGetLastError() (0 on success).  bind_flash_attention_route says which
-// route a call takes.
+// route a call takes.  bind_flash_attention_bf16_lse is the bf16 entry point
+// that also hands the backward each row's log-sum-exp (attn_wgmma.cuh): the
+// training forward calls it, and only on the BF16_WGMMA route.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -171,16 +173,17 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
                              __nv_bfloat16* __restrict__ O,
+                             float* __restrict__ LSE,
                              const bind_attn_wg::Shape sh) {
   extern __shared__ __align__(1024) unsigned char wg_smem[];
-  bind_attn_wg::attention_block<D>(&tq, &tk, &tv, O, sh, wg_smem);
+  bind_attn_wg::attention_block<D>(&tq, &tk, &tv, O, LSE, sh, wg_smem);
 }
 
 template <int D>
 cudaError_t launch_wgmma_d(const void* q, const void* k, const void* v,
-                           void* out, int64_t batch, int64_t hq, int64_t hkv,
-                           int64_t sq, int64_t skv, float scale, Mask mask,
-                           cudaStream_t stream) {
+                           void* out, float* lse, int64_t batch, int64_t hq,
+                           int64_t hkv, int64_t sq, int64_t skv, float scale,
+                           Mask mask, cudaStream_t stream) {
   using C = bind_attn_wg::Cfg<D>;
   const int64_t tiles = (sq + bind_attn_wg::BQ - 1) / bind_attn_wg::BQ;
   // TMA coordinates are 32-bit; the query tiles are the grid's y
@@ -200,23 +203,23 @@ cudaError_t launch_wgmma_d(const void* q, const void* k, const void* v,
   const dim3 grid(static_cast<unsigned>(batch * hq),
                   static_cast<unsigned>(tiles));
   kern<<<grid, bind_attn_wg::THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), sh);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, sh);
   return cudaGetLastError();
 }
 
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* out, int64_t batch, int64_t hq, int64_t hkv,
-                         int64_t sq, int64_t skv, int d, float scale,
-                         Mask mask, cudaStream_t stream) {
+                         void* out, float* lse, int64_t batch, int64_t hq,
+                         int64_t hkv, int64_t sq, int64_t skv, int d,
+                         float scale, Mask mask, cudaStream_t stream) {
   switch (d) {
-    case 64: return launch_wgmma_d<64>(q, k, v, out, batch, hq, hkv, sq, skv,
-                                       scale, mask, stream);
-    case 128: return launch_wgmma_d<128>(q, k, v, out, batch, hq, hkv, sq,
-                                         skv, scale, mask, stream);
-    case 192: return launch_wgmma_d<192>(q, k, v, out, batch, hq, hkv, sq,
-                                         skv, scale, mask, stream);
-    case 256: return launch_wgmma_d<256>(q, k, v, out, batch, hq, hkv, sq,
-                                         skv, scale, mask, stream);
+    case 64: return launch_wgmma_d<64>(q, k, v, out, lse, batch, hq, hkv, sq,
+                                       skv, scale, mask, stream);
+    case 128: return launch_wgmma_d<128>(q, k, v, out, lse, batch, hq, hkv,
+                                         sq, skv, scale, mask, stream);
+    case 192: return launch_wgmma_d<192>(q, k, v, out, lse, batch, hq, hkv,
+                                         sq, skv, scale, mask, stream);
+    case 256: return launch_wgmma_d<256>(q, k, v, out, lse, batch, hq, hkv,
+                                         sq, skv, scale, mask, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -297,11 +300,13 @@ cudaError_t launch_nj(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// lse: null, or a (B, Hq, Sq) float32 buffer for each row's log-sum-exp,
+// which only the BF16_WGMMA route writes (any other route refuses one)
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out,
-           int64_t batch, int64_t hq, int64_t hkv, int64_t sq, int64_t skv,
-           int64_t d, double scale, int causal, int windowed, int64_t window,
-           void* stream) {
+           float* lse, int64_t batch, int64_t hq, int64_t hkv, int64_t sq,
+           int64_t skv, int64_t d, double scale, int causal, int windowed,
+           int64_t window, void* stream) {
   if (batch <= 0 || hq <= 0 || sq <= 0 || d <= 0)
     return static_cast<int>(cudaGetLastError());
   if (hkv <= 0 || hq % hkv != 0 || d > MAX_HEAD_DIM || hq > 65535 ||
@@ -312,9 +317,11 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const int dd = static_cast<int>(d);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Route route = route_of(dtype_of<T>(), d, q, k, v, out);
+  if (lse != nullptr && route != BF16_WGMMA)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (route == BF16_WGMMA)
-    return static_cast<int>(launch_wgmma(q, k, v, out, batch, hq, hkv, sq,
-                                         skv, dd, s, mask, st));
+    return static_cast<int>(launch_wgmma(q, k, v, out, lse, batch, hq, hkv,
+                                         sq, skv, dd, s, mask, st));
   if (route == F32_3XTF32)
     return static_cast<int>(launch_tf32(q, k, v, out, batch, hq, hkv, sq,
                                         skv, dd, s, mask, st));
@@ -333,8 +340,8 @@ int bind_flash_attention_f32(const void* q, const void* k, const void* v,
                              int64_t hkv, int64_t sq, int64_t skv, int64_t d,
                              double scale, int causal, int windowed,
                              int64_t window, void* stream) {
-  return launch<float>(q, k, v, out, batch, hq, hkv, sq, skv, d, scale,
-                       causal, windowed, window, stream);
+  return launch<float>(q, k, v, out, nullptr, batch, hq, hkv, sq, skv, d,
+                       scale, causal, windowed, window, stream);
 }
 
 int bind_flash_attention_bf16(const void* q, const void* k, const void* v,
@@ -342,8 +349,24 @@ int bind_flash_attention_bf16(const void* q, const void* k, const void* v,
                               int64_t hkv, int64_t sq, int64_t skv, int64_t d,
                               double scale, int causal, int windowed,
                               int64_t window, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, batch, hq, hkv, sq, skv, d,
-                               scale, causal, windowed, window, stream);
+  return launch<__nv_bfloat16>(q, k, v, out, nullptr, batch, hq, hkv, sq,
+                               skv, d, scale, causal, windowed, window,
+                               stream);
+}
+
+// bind_flash_attention_bf16 that also stores each row's log-sum-exp into
+// lse, a (B, Hq, Sq) float32 buffer: only on the BF16_WGMMA route (any
+// other operands give cudaErrorInvalidValue and launch nothing)
+int bind_flash_attention_bf16_lse(const void* q, const void* k,
+                                  const void* v, void* out, void* lse,
+                                  int64_t batch, int64_t hq, int64_t hkv,
+                                  int64_t sq, int64_t skv, int64_t d,
+                                  double scale, int causal, int windowed,
+                                  int64_t window, void* stream) {
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<__nv_bfloat16>(q, k, v, out, static_cast<float*>(lse), batch,
+                               hq, hkv, sq, skv, d, scale, causal, windowed,
+                               window, stream);
 }
 
 int bind_flash_attention_f16(const void* q, const void* k, const void* v,
@@ -351,8 +374,8 @@ int bind_flash_attention_f16(const void* q, const void* k, const void* v,
                              int64_t hkv, int64_t sq, int64_t skv, int64_t d,
                              double scale, int causal, int windowed,
                              int64_t window, void* stream) {
-  return launch<__half>(q, k, v, out, batch, hq, hkv, sq, skv, d, scale,
-                        causal, windowed, window, stream);
+  return launch<__half>(q, k, v, out, nullptr, batch, hq, hkv, sq, skv, d,
+                        scale, causal, windowed, window, stream);
 }
 
 // The route (enum Route) a call of element type dtype (F32 0, BF16 1, F16

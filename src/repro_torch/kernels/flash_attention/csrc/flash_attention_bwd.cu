@@ -55,22 +55,35 @@
 //
 // What bounds it on an H100: operations.  Per head and visible (row, key)
 // pair the gradient needs about 10 d FLOP (s, dp, dq, dk, dv: five products
-// of 2 d); this kernel does 16 d (it recomputes s in both kernels and dp in
-// both), on the CUDA cores in f32, at one block of 8 warps an SM, against
-// the card's 67 TFLOP/s outside the tensor cores (989 in bf16 on them).  A
-// redesign onto wgmma is later work (ROADMAP Queue 2); this one is simple
-// and right first.
+// of 2 d); the CUDA-core kernels above do 16 d (they recompute s in both
+// kernels and dp in both), in f32, at one block of 8 warps an SM, against
+// the card's 67 TFLOP/s outside the tensor cores (989 in bf16 on them).
+// They are the f32_simt, bf16_simt and f16_simt routes.  The bf16_wgmma
+// route is on the tensor cores: wgmma fed by TMA, with the log-sum-exp the
+// forward saved (attn_bwd_wgmma.cuh, whose header gives its design, its
+// bound and its tolerance).
+//
+// Routes (route_of below; kernels/flash_attention/ops.py bwd_route is the
+// same rule in Python, and bind_flash_attention_bwd_route answers it for
+// any operands): BF16_WGMMA for bfloat16 with d % 64 == 0, d <= 256, q, k,
+// v, out, dout and the saved log-sum-exp 16-byte aligned, and a saved
+// log-sum-exp; otherwise the CUDA-core route of the element type, which
+// sweeps the keys for the log-sum-exp itself.
 //
 // C interface (bound with ctypes): device pointers, sizes and a
 // cudaStream_t; each entry point launches on that stream without
 // synchronising and returns cudaGetLastError() (0 on success).
-// bind_flash_attention_bwd_route says which route a call takes.
+// bind_flash_attention_bwd_{f32,bf16,f16} run the CUDA-core routes, with
+// lse a scratch they write; bind_flash_attention_bwd_bf16_lse runs the
+// BF16_WGMMA route, with lse the forward's and a head-group count.
 
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "attn_bwd_wgmma.cuh"
 
 namespace {
 
@@ -81,9 +94,27 @@ constexpr int RQ = BQ / LANES;         // query rows (or columns) per thread
 constexpr int MAX_HEAD_DIM = 256;
 
 // the routes, in the order of kernels/flash_attention/ops.py BWD_ROUTES
-enum Route : int { F32_SIMT = 0, BF16_SIMT = 1, F16_SIMT = 2 };
+enum Route : int { F32_SIMT = 0, BF16_SIMT = 1, F16_SIMT = 2, BF16_WGMMA = 3 };
 // the element types, numbered as kernel.py DTYPE_CODES numbers them
 enum DType : int { F32 = 0, BF16 = 1, F16 = 2 };
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// the route of a backward of element type dtype at head dim d on these
+// operands (lse: the forward's log-sum-exp, or null); -1 for another type
+// or a head dim the kernels do not take
+inline int route_of(int dtype, int64_t d, const void* q, const void* k,
+                    const void* v, const void* out, const void* dout,
+                    const void* lse) {
+  if (dtype < F32 || dtype > F16 || d <= 0 || d > MAX_HEAD_DIM) return -1;
+  if (dtype == BF16 && d % 64 == 0 && lse != nullptr && aligned16(q) &&
+      aligned16(k) && aligned16(v) && aligned16(out) && aligned16(dout) &&
+      aligned16(lse))
+    return BF16_WGMMA;
+  return dtype == F32 ? F32_SIMT : dtype == BF16 ? BF16_SIMT : F16_SIMT;
+}
 
 struct Mask {
   bool causal;      // key <= row
@@ -578,12 +609,42 @@ int bind_flash_attention_bwd_f16(
       hq, hkv, sq, skv, d, scale, causal, windowed, window, stream);
 }
 
+// The bf16 backward on the tensor cores (BF16_WGMMA): lse is the forward's
+// (B, Hq, Sq) log-sum-exp, delta a (B, Hq, Sq) float32 scratch, part null
+// when groups == 1 and otherwise a (2, B, groups, Hkv, Skv, D) float32
+// scratch; groups (the dk/dv blocks' head groups) divides Hq / Hkv.
+// Operands the route does not take give cudaErrorInvalidValue and launch
+// nothing.
+int bind_flash_attention_bwd_bf16_lse(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, void* dq, void* dk, void* dv, const void* lse,
+    void* delta, void* part, int64_t batch, int64_t hq, int64_t hkv,
+    int64_t sq, int64_t skv, int64_t d, double scale, int causal,
+    int windowed, int64_t window, int64_t groups, void* stream) {
+  if (route_of(BF16, d, q, k, v, o, dout, lse) != BF16_WGMMA ||
+      batch <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 ||
+      skv <= 0 || groups <= 0 || (hq / hkv) % groups != 0 ||
+      (groups > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float s = static_cast<float>(scale);
+  const bind_attn_bwd::Shape sh{
+      hq, hkv, sq, skv, s, s * bind_attn_bwd::LOG2E,
+      bind_attn::Mask{causal != 0, windowed != 0, window}, groups};
+  return static_cast<int>(bind_attn_bwd::launch(
+      q, k, v, o, dout, dq, dk, dv, static_cast<const float*>(lse),
+      static_cast<float*>(delta), static_cast<float*>(part), batch, sh, d,
+      static_cast<cudaStream_t>(stream)));
+}
+
 // The route (enum Route) the backward of element type dtype (F32 0, BF16 1,
-// F16 2) takes at head dim d: the CUDA cores for every type; -1 for another
-// type or a head dim the kernel does not take.
-int bind_flash_attention_bwd_route(int dtype, int64_t d) {
-  if (dtype < F32 || dtype > F16 || d <= 0 || d > MAX_HEAD_DIM) return -1;
-  return dtype == F32 ? F32_SIMT : dtype == BF16 ? BF16_SIMT : F16_SIMT;
+// F16 2) takes at head dim d on these operands, lse the forward's
+// log-sum-exp or null (route_of); -1 for another type or a head dim the
+// kernels do not take.
+int bind_flash_attention_bwd_route(int dtype, int64_t d, const void* q,
+                                   const void* k, const void* v,
+                                   const void* out, const void* dout,
+                                   const void* lse) {
+  return route_of(dtype, d, q, k, v, out, dout, lse);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 """Build and bind the flash-attention kernel (``csrc/flash_attention.cu``)
 and its backward (``csrc/flash_attention_bwd.cu``, a library of its own so
-that the forward's build and bits stay as they were).
+that the forward's build and bits stay as they were, with its tensor-core
+route in ``csrc/attn_bwd_wgmma.cuh``).
 
 Built at first use through the shared :mod:`repro_torch.kernels._build`
 helper, with the CUDA-core tile loop it shares with the chain kernel
@@ -43,42 +44,75 @@ _ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _D, _I, _I,
 ROUTE_SYMBOL = "bind_flash_attention_route"
 _ROUTE_ARGS = (_I, _P, _P, _P, _P, _I64)
 
+# the bf16 forward that also stores each row's log-sum-exp: (q, k, v, out,
+# lse, batch, ...) as _ARGS
+LSE_SYMBOL = "bind_flash_attention_bf16_lse"
+_LSE_ARGS = _ARGS[:4] + (_P,) + _ARGS[4:]
+
 LIBRARY = CudaLibrary("bind_flash_attention", SOURCES, HEADERS,
                       {**{f"bind_flash_attention_{s}": _ARGS
                           for s in SUFFIX.values()},
+                       LSE_SYMBOL: _LSE_ARGS,
                        ROUTE_SYMBOL: _ROUTE_ARGS})
 
 
-# the backward: (q, k, v, out, dout, dq, dk, dv, lse, delta, batch, hq, hkv,
-# sq, skv, d, scale, causal, windowed, window, stream)
+# the backward's CUDA-core routes: (q, k, v, out, dout, dq, dk, dv, lse,
+# delta, batch, hq, hkv, sq, skv, d, scale, causal, windowed, window,
+# stream), lse and delta scratch
 BWD_SOURCES = (_HERE / "csrc" / "flash_attention_bwd.cu",)
+BWD_HEADERS = (_HERE / "csrc" / "attn_bwd_wgmma.cuh",
+               _HERE / "csrc" / "attn_wgmma.cuh",
+               _HERE / "csrc" / "attn_tile.cuh",
+               _HERE.parent / "gemm" / "csrc" / "gemm_tile.cuh",
+               _HERE.parent / "gemm" / "csrc" / "gemm_wgmma.cuh")
 _BWD_ARGS = (_P,) * 10 + (_I64,) * 6 + (_D, _I, _I, _I64, _P)
+# its tensor-core route: (q, k, v, out, dout, dq, dk, dv, lse, delta, part,
+# batch, hq, hkv, sq, skv, d, scale, causal, windowed, window, groups,
+# stream), lse the forward's, delta and part scratch
+BWD_LSE_SYMBOL = "bind_flash_attention_bwd_bf16_lse"
+_BWD_LSE_ARGS = (_P,) * 11 + (_I64,) * 6 + (_D, _I, _I, _I64, _I64, _P)
 # which route (an index of ops.BWD_ROUTES) a backward takes: (element-type
-# code, d)
+# code, d, q, k, v, out, dout, lse)
 BWD_ROUTE_SYMBOL = "bind_flash_attention_bwd_route"
-BWD_LIBRARY = CudaLibrary("bind_flash_attention_bwd", BWD_SOURCES, (),
+_BWD_ROUTE_ARGS = (_I, _I64) + (_P,) * 6
+BWD_LIBRARY = CudaLibrary("bind_flash_attention_bwd", BWD_SOURCES,
+                          BWD_HEADERS,
                           {**{f"bind_flash_attention_bwd_{s}": _BWD_ARGS
                               for s in SUFFIX.values()},
-                           BWD_ROUTE_SYMBOL: (_I, _I64)})
+                           BWD_LSE_SYMBOL: _BWD_LSE_ARGS,
+                           BWD_ROUTE_SYMBOL: _BWD_ROUTE_ARGS})
+# keys of a block of the tensor-core route's dk/dv kernel
+# (attn_bwd_wgmma.cuh BIG)
+BWD_KEY_BLOCK = 128
+
+
+def _mask_args(causal: bool, window) -> tuple:
+    return (int(causal), int(window is not None),
+            0 if window is None else int(window))
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           out: torch.Tensor, *, causal: bool, window, scale: float) -> None:
+           out: torch.Tensor, *, causal: bool, window, scale: float,
+           lse: torch.Tensor | None = None) -> None:
     """Enqueue attention of ``q`` (B, Hq, Sq, D) over ``k``, ``v`` (B, Hkv,
-    Skv, D) into ``out`` on the current stream.
+    Skv, D) into ``out`` on the current stream; given ``lse``, a (B, Hq,
+    Sq) float32 buffer, also each row's log-sum-exp there (the bf16
+    tensor-core route only: the library refuses it on any other).
 
     The caller (:mod:`.ops`) has checked every operand.  Does not
     synchronise; raises when the launch is refused.
     """
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if lse is None:
+        symbol = f"bind_flash_attention_{SUFFIX[q.dtype]}"
+    else:
+        symbol, ptrs = LSE_SYMBOL, ptrs + (lse.data_ptr(),)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        LIBRARY.call(f"bind_flash_attention_{SUFFIX[q.dtype]}", q.data_ptr(),
-                     k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
-                     sq, skv, d, float(scale), int(causal),
-                     int(window is not None),
-                     0 if window is None else int(window), stream)
+        LIBRARY.call(symbol, *ptrs, b, hq, hkv, sq, skv, d, float(scale),
+                     *_mask_args(causal, window), stream)
 
 
 def launcher_route(dtype: torch.dtype, q_ptr: int, k_ptr: int, v_ptr: int,
@@ -90,35 +124,67 @@ def launcher_route(dtype: torch.dtype, q_ptr: int, k_ptr: int, v_ptr: int,
     return fn(DTYPE_CODES[dtype], q_ptr, k_ptr, v_ptr, out_ptr, d)
 
 
+def dkv_groups(hq: int, hkv: int, batch: int, skv: int, sms: int) -> int:
+    """How many head groups the tensor-core route's dk/dv kernel splits a
+    kv head's ``hq // hkv`` query heads into: the largest divisor of
+    ``hq // hkv`` that keeps its blocks (``batch * hkv`` x key blocks x
+    groups, one resident on an SM) within the card's ``sms`` SMs, and 1
+    where one group already fills them."""
+    group = hq // hkv
+    blocks = batch * hkv * -(-skv // BWD_KEY_BLOCK)
+    return max(g for g in range(1, group + 1)
+               if group % g == 0 and (g == 1 or blocks * g <= sms))
+
+
 def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                out: torch.Tensor, dout: torch.Tensor, dq: torch.Tensor,
                dk: torch.Tensor, dv: torch.Tensor, *, causal: bool, window,
-               scale: float) -> None:
+               scale: float, lse: torch.Tensor | None = None) -> None:
     """Enqueue the backward of attention (``q`` (B, Hq, Sq, D), ``k``, ``v``
     (B, Hkv, Skv, D), its output ``out`` and the output's gradient
-    ``dout``) into ``dq``, ``dk``, ``dv`` on the current stream: two kernel
-    launches, with the (B, Hq, Sq) float32 log-sum-exp and delta scratch
-    allocated here.
+    ``dout``) into ``dq``, ``dk``, ``dv`` on the current stream.
 
-    The caller (:mod:`.ops`) has checked every operand.  Does not
-    synchronise; raises when a launch is refused.
+    Without ``lse``, the CUDA-core route of the dtype: two kernel launches,
+    with the (B, Hq, Sq) float32 log-sum-exp and delta scratch allocated
+    here.  With ``lse``, the forward's (B, Hq, Sq) log-sum-exp, the bf16
+    tensor-core route: three launches (four with head groups,
+    :func:`dkv_groups`), with the delta scratch and the head groups'
+    float32 partials allocated here.
+
+    The caller (:mod:`.ops`) has checked every operand and the route.  Does
+    not synchronise; raises when a launch is refused.
     """
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    mask = _mask_args(causal, window)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        BWD_LIBRARY.call(f"bind_flash_attention_bwd_{SUFFIX[q.dtype]}",
+        if lse is None:
+            scratch = torch.empty_like(delta)
+            BWD_LIBRARY.call(f"bind_flash_attention_bwd_{SUFFIX[q.dtype]}",
+                             *(t.data_ptr() for t in (q, k, v, out, dout, dq,
+                                                      dk, dv, scratch,
+                                                      delta)),
+                             b, hq, hkv, sq, skv, d, float(scale), *mask,
+                             stream)
+            return
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        groups = dkv_groups(hq, hkv, b, skv, sms)
+        part = (torch.empty((2, b, groups, hkv, skv, d), dtype=torch.float32,
+                            device=q.device) if groups > 1 else None)
+        BWD_LIBRARY.call(BWD_LSE_SYMBOL,
                          *(t.data_ptr() for t in (q, k, v, out, dout, dq, dk,
                                                   dv, lse, delta)),
-                         b, hq, hkv, sq, skv, d, float(scale), int(causal),
-                         int(window is not None),
-                         0 if window is None else int(window), stream)
+                         None if part is None else part.data_ptr(),
+                         b, hq, hkv, sq, skv, d, float(scale), *mask, groups,
+                         stream)
 
 
-def bwd_launcher_route(dtype: torch.dtype, d: int) -> int:
+def bwd_launcher_route(dtype: torch.dtype, d: int, addresses) -> int:
     """The route index the built backward library takes for ``dtype`` at
-    head dim ``d`` (-1 where it takes none)."""
+    head dim ``d`` on operands at ``addresses`` (q, k, v, out, dout and the
+    forward's log-sum-exp, 0 or None where there is none); -1 where it
+    takes none."""
     fn = getattr(BWD_LIBRARY.load(), BWD_ROUTE_SYMBOL)
-    return fn(DTYPE_CODES[dtype], d)
+    return fn(DTYPE_CODES[dtype], d, *(a or None for a in addresses))

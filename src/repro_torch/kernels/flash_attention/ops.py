@@ -22,8 +22,11 @@ It is differentiable in q, k and v (:class:`_Attention`, around the padded
 call): the backward is :func:`flash_attention_bwd`, the hand-written
 backward kernel (``csrc/flash_attention_bwd.cu``, routes :data:`BWD_ROUTES`,
 counted in ``flash_attention_bwd.launches`` / ``routes``) on the card and
-its plain version :func:`.ref.attention_grad` on the CPU.  The reference
-has no backward kernel: it differentiates its oracle with XLA.
+its plain versions on the CPU.  A call that records a gradient asks the
+forward for each row's log-sum-exp, which the bf16 tensor-core route
+(and, on the CPU, :func:`.ref.attention_lse`) hands back; the backward's
+bf16 tensor-core route (``bf16_wgmma``, :func:`bwd_route`) reads it.  The
+reference has no backward kernel: it differentiates its oracle with XLA.
 
 :func:`route` says which loop a launch takes (``csrc/flash_attention.cu``
 is the same rule in C, and :func:`.kernel.launcher_route` asks the built
@@ -70,7 +73,7 @@ BACKENDS = ("cuda", "plain")
 ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f32_3xtf32", "f16_simt")
 # the backward's routes, in the order of the Route enum of
 # csrc/flash_attention_bwd.cu
-BWD_ROUTES = ("f32_simt", "bf16_simt", "f16_simt")
+BWD_ROUTES = ("f32_simt", "bf16_simt", "f16_simt", "bf16_wgmma")
 
 
 def route(dtype: torch.dtype, d: int, addresses=()) -> str:
@@ -168,7 +171,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sq = q.shape[2]
     scale = q.shape[3] ** -0.5 if scale is None else scale
     q, k, v = pad(q, k, v, causal=causal, window=window, bq=bq, bkv=bkv)
-    out = _Attention.apply(q, k, v, causal, window, scale)
+    record = torch.is_grad_enabled() and any(t.requires_grad
+                                             for t in (q, k, v))
+    out = _Attention.apply(q, k, v, causal, window, scale, record)
     return out[:, :, :sq, :]
 
 
@@ -177,86 +182,124 @@ flash_attention.routes = {}
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-            causal: bool, window, scale: float) -> torch.Tensor:
-    """Attention of the padded, checked operands: the kernel on CUDA
-    tensors (counted in ``flash_attention.launches`` / ``routes``), the
-    oracle on CPU tensors."""
+            causal: bool, window, scale: float, lse: bool) -> tuple:
+    """``(out, lse)``: attention of the padded, checked operands, the
+    kernel on CUDA tensors (counted in ``flash_attention.launches`` /
+    ``routes``), the oracle on CPU tensors; and, when ``lse`` asks for it
+    and the route hands it back (``bf16_wgmma``; :func:`.ref.attention_lse`
+    on the CPU), each row's log-sum-exp, (B, Hq, Sq) float32, else None."""
     if q.device.type == "cpu":
+        if lse:
+            return ref.attention_lse(q, k, v, causal=causal, window=window,
+                                     scale=scale)
         return ref.attention(q, k, v, causal=causal, window=window,
-                             scale=scale)
+                             scale=scale), None
     out = torch.empty_like(q)
+    rows = None
     if out.numel():
         path = _route_taken(q, k, v, out)
+        if lse and path == "bf16_wgmma":
+            rows = torch.empty(q.shape[:3], dtype=torch.float32,
+                               device=q.device)
         kernel.launch(q, k, v, out, causal=causal, window=window,
-                      scale=scale)
+                      scale=scale, lse=rows)
         count_launch(flash_attention, path)
-    return out
+    return out, rows
 
 
 class _Attention(torch.autograd.Function):
     """Attention of the padded operands with its gradient: the forward is
-    :func:`_attend` (the kernel on the card, unchanged); it saves q, k, v
-    and the output, and the backward is :func:`flash_attention_bwd` (the
-    backward kernel on the card, :func:`.ref.attention_grad` on the CPU).
-    The reference has no kernel here: it differentiates its oracle with
-    XLA's autodiff (ROADMAP Queue 3)."""
+    :func:`_attend` (the kernel on the card), asked for each row's
+    log-sum-exp when the call records a gradient (``record``); it saves q,
+    k, v, the output and that log-sum-exp (None where the route gave
+    none), and the backward is :func:`flash_attention_bwd` (the backward
+    kernel on the card, its plain versions on the CPU).  The reference has
+    no kernel here: it differentiates its oracle with XLA's autodiff
+    (ROADMAP Queue 3)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale):
-        out = _attend(q, k, v, causal=causal, window=window, scale=scale)
-        ctx.save_for_backward(q, k, v, out)
+    def forward(ctx, q, k, v, causal, window, scale, record):
+        out, lse = _attend(q, k, v, causal=causal, window=window,
+                           scale=scale, lse=record)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (causal, window, scale)
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         causal, window, scale = ctx.mask
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, causal=causal,
-                                         window=window, scale=scale)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse=lse,
+                                         causal=causal, window=window,
+                                         scale=scale)
+        return dq, dk, dv, None, None, None, None
 
 
-def bwd_route(dtype: torch.dtype, d: int) -> str:
+def bwd_route(dtype: torch.dtype, d: int, addresses=()) -> str:
     """The route of the backward kernel at head dim ``d`` on operands of
-    ``dtype``: the CUDA cores for each dtype (``csrc/flash_attention_bwd.cu``
-    ``bind_flash_attention_bwd_route`` is the same rule in C)."""
+    ``dtype`` whose q, k, v, out, dout and saved log-sum-exp start at
+    ``addresses`` (device byte addresses; the log-sum-exp's 0 or None
+    where the forward saved none; empty: all aligned, a log-sum-exp
+    saved): bfloat16 goes to the tensor cores (``bf16_wgmma``) when the
+    tiles of 64 columns cover d (``d % 64 == 0``, ``d <= 256``), TMA can
+    read every operand (each address 16-byte aligned) and the forward
+    saved its log-sum-exp; every other call takes the CUDA cores of its
+    dtype (``csrc/flash_attention_bwd.cu`` ``route_of`` is the same rule
+    in C)."""
     if dtype not in DTYPES:
         raise TypeError(f"no attention backward route for dtype {dtype}")
     if not 0 < d <= kernel.MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} is outside 1..{kernel.MAX_HEAD_DIM}")
+    addresses = tuple(addresses)
+    saved = not addresses or (len(addresses) == 6 and bool(addresses[5]))
+    aligned = all(int(x or 0) % 16 == 0 for x in addresses)
+    if dtype == torch.bfloat16 and d % 64 == 0 and saved and aligned:
+        return "bf16_wgmma"
     return BWD_ROUTES[kernel.DTYPE_CODES[dtype]]
 
 
-def _bwd_route_taken(dtype: torch.dtype, d: int) -> str:
-    """The route the built backward library takes, held against
-    :func:`bwd_route`: a library and a mirror that disagree raise before
-    anything is launched."""
-    index = kernel.bwd_launcher_route(dtype, d)
+def _bwd_addresses(q, k, v, out, dout, lse) -> tuple:
+    return tuple(t.data_ptr() for t in (q, k, v, out, dout)) + (
+        0 if lse is None else lse.data_ptr(),)
+
+
+def _bwd_route_taken(dtype: torch.dtype, d: int, addresses) -> str:
+    """The route the built backward library takes for operands at
+    ``addresses`` (:func:`bwd_route`'s), held against :func:`bwd_route`: a
+    library and a mirror that disagree raise before anything is
+    launched."""
+    index = kernel.bwd_launcher_route(dtype, d, addresses)
     taken = BWD_ROUTES[index] if 0 <= index < len(BWD_ROUTES) else None
-    want = bwd_route(dtype, d)
+    want = bwd_route(dtype, d, addresses)
     if taken != want:
         raise RuntimeError(f"attention backward: the launcher takes {taken} "
-                           f"where ops.bwd_route says {want} (d {d})")
+                           f"where ops.bwd_route says {want} (d {d}, "
+                           f"addresses {addresses})")
     return taken
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor, *,
+                        lse: torch.Tensor | None = None,
                         causal: bool = True, window=None,
                         scale=None) -> tuple:
     """(dq, dk, dv) of attention of ``q`` (B, Hq, Sq, D) over ``k``, ``v``
-    (B, Hkv, Skv, D), given its output ``out`` and the output's gradient
-    ``dout``, each in its operand's dtype.  The operands are the padded
-    ones the forward ran on (:func:`pad`): this is the gradient of the
-    padded function, whose padding rows the caller's slice cuts.
+    (B, Hkv, Skv, D), given its output ``out``, the output's gradient
+    ``dout`` and, where the forward saved it, each row's log-sum-exp
+    ``lse`` ((B, Hq, Sq) float32), each gradient in its operand's dtype.
+    The operands are the padded ones the forward ran on (:func:`pad`):
+    this is the gradient of the padded function, whose padding rows the
+    caller's slice cuts.
 
-    On CUDA tensors the backward kernel (two launches, counted as one call
-    in ``flash_attention_bwd.launches`` and by route in
+    On CUDA tensors the backward kernel of :func:`bwd_route` (counted as
+    one call in ``flash_attention_bwd.launches`` and by route in
     ``flash_attention_bwd.routes``: the built library's route, held
-    against :func:`bwd_route`); on CPU tensors its plain version
-    :func:`.ref.attention_grad`, and only there.
+    against :func:`bwd_route`): ``bf16_wgmma`` reads ``lse``, the CUDA-core
+    routes sweep the keys for it.  On CPU tensors the plain version of the
+    route the same call takes on the card, and only there:
+    :func:`.ref.attention_grad_lse` for ``bf16_wgmma``,
+    :func:`.ref.attention_grad` for the others.
     """
     q, k, v, out, dout = row_major(DTYPES, q, k, v, out, dout)
     _check(q, k, v)
@@ -265,15 +308,29 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"out and dout must be {q.dtype} tensors of "
                              f"q's shape {tuple(q.shape)} on {q.device}, "
                              f"got {t.dtype}{tuple(t.shape)} on {t.device}")
+    if lse is not None and (lse.shape != q.shape[:3]
+                            or lse.dtype != torch.float32
+                            or lse.device != q.device
+                            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 tensor of shape "
+                         f"{tuple(q.shape[:3])} on {q.device}, got "
+                         f"{lse.dtype}{tuple(lse.shape)} on {lse.device}")
     scale = q.shape[3] ** -0.5 if scale is None else scale
+    addresses = _bwd_addresses(q, k, v, out, dout, lse)
     if q.device.type == "cpu":
+        if lse is not None and bwd_route(q.dtype, q.shape[3],
+                                         addresses) == "bf16_wgmma":
+            return ref.attention_grad_lse(q, k, v, out, dout, lse,
+                                          causal=causal, window=window,
+                                          scale=scale)
         return ref.attention_grad(q, k, v, dout, causal=causal,
                                   window=window, scale=scale)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() and k.numel():
-        taken = _bwd_route_taken(q.dtype, q.shape[3])
+        taken = _bwd_route_taken(q.dtype, q.shape[3], addresses)
         kernel.launch_bwd(q, k, v, out, dout, dq, dk, dv, causal=causal,
-                          window=window, scale=scale)
+                          window=window, scale=scale,
+                          lse=lse if taken == "bf16_wgmma" else None)
         count_launch(flash_attention_bwd, taken)
     else:
         for t in (dq, dk, dv):

@@ -11,6 +11,7 @@ padding quirk, the wrapper's checks, ``attn_step`` and the launch counter
 are pinned.
 """
 
+import ctypes
 import re
 
 import jax.numpy as jnp
@@ -228,8 +229,13 @@ def test_library_is_named_by_its_sources_and_headers():
     assert set(kernel.SUFFIX) == set(ops.DTYPES)
     assert set(kernel.LIBRARY.symbols) == {
         f"bind_flash_attention_{s}" for s in kernel.SUFFIX.values()} | {
-        kernel.ROUTE_SYMBOL}
+        kernel.ROUTE_SYMBOL, kernel.LSE_SYMBOL}
     assert kernel.ROUTE_SYMBOL == "bind_flash_attention_route"
+    # the log-sum-exp entry point is the bf16 one with one more pointer
+    assert kernel.LSE_SYMBOL == "bind_flash_attention_bf16_lse"
+    bf16 = kernel.LIBRARY.symbols["bind_flash_attention_bf16"]
+    assert kernel.LIBRARY.symbols[kernel.LSE_SYMBOL] == (
+        bf16[:4] + (ctypes.c_void_p,) + bf16[4:])
 
 
 def test_every_bound_symbol_is_an_extern_c_entry_point_with_its_arity():
@@ -509,9 +515,14 @@ def test_backward_entry_point_on_the_cpu_is_the_plain_version(rng,
 
 
 def test_backward_route_is_the_cuda_cores_for_every_dtype():
-    assert ops.BWD_ROUTES == ("f32_simt", "bf16_simt", "f16_simt")
+    """Without a saved log-sum-exp every dtype takes its CUDA-core route
+    (the tensor-core route reads the forward's); the names are in the C
+    enum's order, the tensor-core route appended."""
+    assert ops.BWD_ROUTES == ("f32_simt", "bf16_simt", "f16_simt",
+                              "bf16_wgmma")
     for dtype, want in zip(ops.DTYPES, ops.BWD_ROUTES):
-        assert ops.bwd_route(dtype, 256) == want
+        assert ops.bwd_route(dtype, 256, (0, 16, 32, 48, 64, None)) == want
+        assert ops.bwd_route(dtype, 256, (0, 16, 32, 48, 64)) == want
     with pytest.raises(TypeError):
         ops.bwd_route(torch.float64, 64)
     with pytest.raises(ValueError):
@@ -522,42 +533,285 @@ def test_backward_route_is_the_cuda_cores_for_every_dtype():
     assert tuple(names) == ops.BWD_ROUTES
 
 
+# q, k, v, out, dout and the saved log-sum-exp, all 16-byte aligned
+_ALIGNED6 = (0, 16, 32, 48, 64, 80)
+
+
+@pytest.mark.parametrize("dtype, d, addresses, want", [
+    # bfloat16 with a saved log-sum-exp: tiles of 64 columns must cover d,
+    # up to 256
+    *[(torch.bfloat16, d, _ALIGNED6,
+       "bf16_wgmma" if d in (64, 128, 192, 256) else "bf16_simt")
+      for d in (16, 64, 80, 128, 192, 256)],
+    (torch.bfloat16, 128, (), "bf16_wgmma"),
+    # and TMA must read each of the six operands
+    *[(torch.bfloat16, 128, _ALIGNED6[:i] + (_ALIGNED6[i] + 2,)
+       + _ALIGNED6[i + 1:], "bf16_simt") for i in range(6)],
+    # no log-sum-exp saved (an f32 forward, a misaligned forward, a call
+    # without one)
+    (torch.bfloat16, 256, _ALIGNED6[:5] + (None,), "bf16_simt"),
+    (torch.bfloat16, 256, _ALIGNED6[:5] + (0,), "bf16_simt"),
+    (torch.bfloat16, 256, _ALIGNED6[:5], "bf16_simt"),
+    # float32 and float16 stay on the CUDA cores, saved log-sum-exp or not
+    (torch.float32, 128, _ALIGNED6, "f32_simt"),
+    (torch.float32, 256, (), "f32_simt"),
+    (torch.float16, 128, _ALIGNED6, "f16_simt"),
+])
+def test_backward_route_by_dtype_head_dim_alignment_and_lse(dtype, d,
+                                                           addresses, want):
+    assert ops.bwd_route(dtype, d, addresses) == want
+    assert want in ops.BWD_ROUTES
+
+
 @pytest.mark.parametrize("agree", [True, False], ids=["agree", "disagree"])
 def test_backward_route_taken_is_the_launchers_held_to_the_rule(
         monkeypatch, agree):
     """The backward asks the built library (here a stand-in) for its route
-    and raises, before any launch, where ``ops.bwd_route`` disagrees."""
+    on the very operands' addresses and raises, before any launch, where
+    ``ops.bwd_route`` disagrees."""
     asked = []
 
-    def launcher_route(dtype, d):
-        asked.append((dtype, d))
+    def launcher_route(dtype, d, addresses):
+        asked.append((dtype, d, tuple(addresses)))
         return 1 if agree else 0
 
     monkeypatch.setattr(kernel, "bwd_launcher_route", launcher_route)
+    addresses = _ALIGNED6[:5] + (0,)
     if agree:
-        assert ops._bwd_route_taken(torch.bfloat16, 256) == "bf16_simt"
+        assert ops._bwd_route_taken(torch.bfloat16, 256,
+                                    addresses) == "bf16_simt"
     else:
         with pytest.raises(RuntimeError, match="the launcher takes"):
-            ops._bwd_route_taken(torch.bfloat16, 256)
-    assert asked == [(torch.bfloat16, 256)]
+            ops._bwd_route_taken(torch.bfloat16, 256, addresses)
+    assert asked == [(torch.bfloat16, 256, addresses)]
+
+
+@pytest.mark.parametrize("offset, lse, want", [
+    (0, True, "bf16_wgmma"),
+    (1, True, "bf16_simt"),      # a view one element in: 2 bytes off 16
+    (0, False, "bf16_simt"),
+])
+def test_backward_route_taken_follows_the_rule_on_real_operands(
+        monkeypatch, offset, lse, want):
+    """The wrapper hands the library the addresses of q, k, v, out, dout
+    and the saved log-sum-exp (0 without one); a stand-in library that
+    answers by the rule agrees with ``ops.bwd_route`` on each."""
+    n = 2 * 64 * 128
+    store = torch.zeros(5 * n + 1, dtype=torch.bfloat16)
+    q, k, v, out, dout = (store[offset + i * n:][:n].view(1, 2, 64, 128)
+                          for i in range(5))
+    saved = torch.zeros((1, 2, 64)) if lse else None
+    addresses = ops._bwd_addresses(q, k, v, out, dout, saved)
+    assert addresses[5] == (saved.data_ptr() if lse else 0)
+    asked = []
+
+    def launcher_route(dtype, d, addrs):
+        asked.append(tuple(addrs))
+        return ops.BWD_ROUTES.index(ops.bwd_route(dtype, d, addrs))
+
+    monkeypatch.setattr(kernel, "bwd_launcher_route", launcher_route)
+    assert ops._bwd_route_taken(torch.bfloat16, 128, addresses) == want
+    assert asked == [addresses]
+
+
+def test_dkv_groups_fill_the_card_and_divide_the_group():
+    """The tensor-core dk/dv kernel splits a kv head's query heads into
+    head groups only while its blocks stay within the card's SMs:
+    RecurrentGemma-9B's training shape (16 heads over 1, S 4096) takes 4
+    on 132 SMs, Qwen3-14B's (40 over 8) needs none."""
+    assert kernel.dkv_groups(16, 1, 1, 4096, 132) == 4
+    assert kernel.dkv_groups(40, 8, 1, 4096, 132) == 1
+    assert kernel.dkv_groups(16, 1, 1, 128, 132) == 16
+    assert kernel.dkv_groups(6, 1, 1, 1024, 132) == 6
+    assert kernel.dkv_groups(6, 1, 1, 4096, 100) == 3
+    assert kernel.dkv_groups(1, 1, 4, 64, 132) == 1
 
 
 def test_backward_library_is_its_own_with_every_symbol_bound():
     """The backward builds into a library of its own (the forward's
-    sources, headers and symbols unchanged), and each symbol it binds is
-    an ``extern "C"`` entry point with as many parameters as ctypes
+    sources and symbols unchanged) with the tensor-core route's header and
+    those it draws on hashed into its name, and each symbol it binds is an
+    ``extern "C"`` entry point with as many parameters as ctypes
     passes."""
     assert kernel.BWD_LIBRARY.path().name.startswith(
         "libbind_flash_attention_bwd_")
     assert kernel.BWD_LIBRARY.sources == kernel.BWD_SOURCES
     assert kernel.BWD_SOURCES[0] not in kernel.SOURCES
     source = kernel.BWD_SOURCES[0].read_text()
-    assert "#include \"" not in source
+    headers = {h.resolve() for h in kernel.BWD_LIBRARY.headers}
+    assert _includes(kernel.BWD_SOURCES[0]) == headers
+    assert {h.name for h in headers} == {
+        "attn_bwd_wgmma.cuh", "attn_wgmma.cuh", "attn_tile.cuh",
+        "gemm_tile.cuh", "gemm_wgmma.cuh"}
     assert set(kernel.BWD_LIBRARY.symbols) == extern_c_symbols(
         kernel.BWD_SOURCES[0])
     assert set(kernel.BWD_LIBRARY.symbols) == {
         f"bind_flash_attention_bwd_{s}" for s in kernel.SUFFIX.values()} | {
-        kernel.BWD_ROUTE_SYMBOL}
+        kernel.BWD_ROUTE_SYMBOL, kernel.BWD_LSE_SYMBOL}
     for sym, argtypes in kernel.BWD_LIBRARY.symbols.items():
         params = re.search(rf"int {sym}\((.*?)\)", source, re.S).group(1)
         assert params.count(",") + 1 == len(argtypes), sym
+
+
+# ---------------------------------------------------------------------------
+# the log-sum-exp the forward hands the backward, and the plain version of
+# the backward that reads it
+# ---------------------------------------------------------------------------
+
+def _masked_scores(q, k, *, causal, window, scale):
+    """(B, Hq, Sq, Skv) float32 scaled scores, -inf where hidden."""
+    group = q.shape[1] // k.shape[1]
+    kk = k.float().repeat_interleave(group, dim=1)
+    s = (q.float() @ kk.transpose(-1, -2)) * scale
+    seen = ref.mask(q.shape[2], k.shape[2], causal=causal, window=window,
+                    device="cpu")
+    return torch.where(seen, s, float("-inf"))
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", GRAD_CASES)
+def test_attention_lse_is_the_oracle_and_its_logsumexp(b, hq, hkv, sq, skv,
+                                                       d, causal, window,
+                                                       rng):
+    q, k, v = (torch.from_numpy(t) for t in _qkv(rng, b, hq, hkv, sq, skv,
+                                                 d))
+    kw = dict(causal=causal, window=window, scale=d ** -0.5)
+    out, lse = ref.attention_lse(q, k, v, **kw)
+    assert torch.equal(out, ref.attention(q, k, v, **kw))
+    assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
+    want = torch.logsumexp(_masked_scores(q, k, **kw), dim=-1)
+    torch.testing.assert_close(lse, want, rtol=1e-6, atol=1e-6)
+
+
+def test_attention_lse_is_inf_on_a_row_that_sees_no_key(rng):
+    q, k, v = (torch.from_numpy(t) for t in _qkv(rng, 1, 4, 2, 40, 24, 8))
+    out, lse = ref.attention_lse(q, k, v, causal=True, window=6)
+    blind = ~ref.mask(40, 24, causal=True, window=6,
+                      device="cpu").any(dim=-1)
+    assert blind.any() and not blind.all()
+    assert torch.isinf(lse[:, :, blind]).all() and (lse[:, :, blind] > 0).all()
+    assert torch.isfinite(lse[:, :, ~blind]).all()
+    assert not out[:, :, blind].any()
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", GRAD_CASES)
+def test_gradient_from_the_lse_matches_jax_grad_of_the_oracle(
+        b, hq, hkv, sq, skv, d, causal, window, rng):
+    qkv = _qkv(rng, b, hq, hkv, sq, skv, d)
+    dout = rng.normal(size=(b, hq, sq, d)).astype(np.float32)
+    q, k, v = (torch.from_numpy(t) for t in qkv)
+    kw = dict(causal=causal, window=window)
+    out, lse = ref.attention_lse(q, k, v, **kw)
+    got = ref.attention_grad_lse(q, k, v, out, torch.from_numpy(dout), lse,
+                                 **kw)
+    assert all(t.dtype == torch.float32 for t in got)
+    _close_grads([t.numpy() for t in got],
+                 _ref_grads(qkv, dout, **kw))
+
+
+def test_gradient_from_the_lse_is_zero_on_rows_that_see_no_key(rng):
+    q, k, v = (torch.from_numpy(t) for t in _qkv(rng, 1, 4, 2, 40, 24, 8))
+    dout = torch.from_numpy(rng.normal(size=(1, 4, 40, 8)).astype(
+        np.float32))
+    kw = dict(causal=True, window=6)
+    out, lse = ref.attention_lse(q, k, v, **kw)
+    dq, dk, dv = ref.attention_grad_lse(q, k, v, out, dout, lse, **kw)
+    blind = ~ref.mask(40, 24, causal=True, window=6,
+                      device="cpu").any(dim=-1)
+    assert blind.any()
+    assert not dq[:, :, blind].any()
+    # and they add nothing to dk or dv: the same sums without those rows
+    keep = ~blind
+    _, dk2, dv2 = ref.attention_grad_lse(
+        q[:, :, keep], k, v, out[:, :, keep], dout[:, :, keep],
+        lse[:, :, keep], scale=8 ** -0.5, causal=False, window=None)
+    exp = ref.attention_grad(q, k, v, dout, **kw)
+    torch.testing.assert_close(dk, exp[1], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dv, exp[2], rtol=1e-5, atol=1e-5)
+    assert torch.isfinite(dk2).all() and torch.isfinite(dv2).all()
+
+
+def test_gradient_from_the_lse_in_bf16_is_close_to_float32(rng):
+    """bf16 operands: the plain version sums in float32 and rounds each
+    gradient once, within the bf16 tolerance of the float32 result."""
+    q, k, v = (torch.from_numpy(t) for t in _qkv(rng, 1, 4, 1, 48, 48, 64))
+    dout = torch.from_numpy(rng.normal(size=(1, 4, 48, 64)).astype(
+        np.float32))
+    kw = dict(causal=True, window=20)
+    bf = [t.to(torch.bfloat16) for t in (q, k, v, dout)]
+    out, lse = ref.attention_lse(*bf[:3], **kw)
+    got = ref.attention_grad_lse(*bf[:3], out, bf[3], lse, **kw)
+    exp = ref.attention_grad(*(t.float() for t in bf), **kw)
+    for g, e in zip(got, exp):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), e, rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_function_on_the_cpu_saves_an_lse_and_matches_jax(dtype, rng,
+                                                          monkeypatch):
+    """The autograd Function asks the CPU's plain forward for the
+    log-sum-exp when the call records a gradient, saves it, and its
+    backward takes the plain version of the route the same call takes on
+    the card: ``attention_grad_lse`` for bf16 at d 64, ``attention_grad``
+    for float32; both match ``jax.value_and_grad`` of the oracle."""
+    b, hq, hkv, s, d = 1, 4, 2, 64, 64
+    qkv = _qkv(rng, b, hq, hkv, s, s, d)
+    dout = rng.normal(size=(b, hq, s, d)).astype(np.float32)
+    calls = {"lse": 0, "grad": 0, "grad_lse": 0}
+    saved = []
+    for name, key in (("attention_lse", "lse"), ("attention_grad", "grad"),
+                      ("attention_grad_lse", "grad_lse")):
+        def counting(*args, _fn=getattr(ref, name), _key=key, **kwargs):
+            calls[_key] += 1
+            result = _fn(*args, **kwargs)
+            if _key == "lse":
+                saved.append(result[1])
+            return result
+        monkeypatch.setattr(ref, name, counting)
+    q, k, v = (torch.from_numpy(t).to(dtype).requires_grad_(True)
+               for t in qkv)
+    out = ops.flash_attention(q, k, v, causal=True, window=24)
+    node = out.grad_fn
+    while type(node).__name__ != "_AttentionBackward":
+        node = node.next_functions[0][0]     # the slice back to Sq
+    _, _, _, _, lse = node.saved_tensors
+    assert saved and lse is saved[0] and lse.shape == (b, hq, s)
+    out.backward(torch.from_numpy(dout).to(dtype))
+    bf16 = dtype == torch.bfloat16
+    assert calls == {"lse": 1, "grad": int(not bf16),
+                     "grad_lse": int(bf16)}
+    got = [t.grad.float().numpy() for t in (q, k, v)]
+    if bf16:
+        want = _ref_grads([t.detach().float().numpy() for t in (q, k, v)],
+                          torch.from_numpy(dout).to(dtype).float().numpy(),
+                          causal=True, window=24)
+        _close_grads(got, want, tol=3e-2)
+    else:
+        _close_grads(got, _ref_grads(qkv, dout, causal=True, window=24))
+    # without a gradient to record, the forward asks for no log-sum-exp
+    with torch.no_grad():
+        ops.flash_attention(q, k, v, causal=True, window=24)
+    assert calls["lse"] == 1
+
+
+def test_backward_entry_point_on_the_cpu_takes_the_lse_route(rng,
+                                                             monkeypatch):
+    """On CPU tensors the backward with a saved log-sum-exp computes the
+    plain version of the route the card would take: bf16 at d 64 reads
+    the log-sum-exp (``attention_grad_lse``), bit for bit; without one
+    it is ``attention_grad``; it checks the log-sum-exp's shape."""
+    q, k, v = (torch.from_numpy(t).to(torch.bfloat16)
+               for t in _qkv(rng, 1, 4, 2, 64, 64, 64))
+    dout = torch.from_numpy(rng.normal(size=(1, 4, 64, 64)).astype(
+        np.float32)).to(torch.bfloat16)
+    out, lse = ref.attention_lse(q, k, v, causal=True)
+    got = ops.flash_attention_bwd(q, k, v, out, dout, lse=lse, causal=True)
+    want = ref.attention_grad_lse(q, k, v, out, dout, lse, causal=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    got = ops.flash_attention_bwd(q, k, v, out, dout, causal=True)
+    for g, w in zip(got, ref.attention_grad(q, k, v, dout, causal=True)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="lse must be"):
+        ops.flash_attention_bwd(q, k, v, out, dout, lse=lse[:, :2])
+    assert ops.flash_attention_bwd.launches == 0

@@ -169,6 +169,9 @@ def test_the_graph_runs_through_both_kernels_backwards(rng, monkeypatch):
                         counting("scan", ls_ref.linear_scan_grad))
     monkeypatch.setattr(fa_ref, "attention",
                         counting("attention_fwd", fa_ref.attention))
+    # a forward that records a gradient hands the backward its log-sum-exp
+    monkeypatch.setattr(fa_ref, "attention_lse",
+                        counting("attention_fwd", fa_ref.attention_lse))
     monkeypatch.setattr(ls_ref, "linear_scan",
                         counting("scan_fwd", ls_ref.linear_scan))
     batch = _port_batch(_batch(rng, cfg.vocab_size))
@@ -334,11 +337,30 @@ def test_launch_train_refuses_without_a_gpu(monkeypatch, capsys):
     (["--heartbeat", "hb"], "Slice 4"),
     (["--crash-at-step", "2"], "Slice 4"),
     (["--fake-devices", "4"], "Slice 3"),
-    (["--mesh-model", "2"], "Slice 3"),
-    (["--grad-sync", "tree"], "Slice 3"),
-    (["--grad-sync", "ring"], "Slice 3"),
 ])
 def test_launch_train_flags_that_wait_for_their_slice(flags, slice_):
     with pytest.raises(ValueError, match=slice_):
         launch_train.main(["--arch", "gemma_7b", "--reduced", "--cpu",
                            "--steps", "1", *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--mesh-model", "2"],
+    ["--grad-sync", "tree"],
+    ["--grad-sync", "ring"],
+    ["--fake-devices", "1"],
+])
+def test_launch_train_one_device_ignores_the_mesh_flags(flags, capsys):
+    """On one device the reference reads neither ``--mesh-model`` nor
+    ``--grad-sync`` (``src/repro/launch/train.py:86-100``), and
+    ``--fake-devices 1`` leaves one device: the run trains and prints the
+    same ``[train]`` lines as without the flags."""
+    base = ["--arch", "gemma_7b", "--reduced", "--cpu", "--steps", "1",
+            "--batch", "2", "--seq", "32"]
+    assert launch_train.main(base) == 0
+    want = capsys.readouterr().out
+    assert launch_train.main([*base, *flags]) == 0
+    got = capsys.readouterr().out
+    assert got == want
+    assert got.splitlines()[-1] == "[train] done"
+    assert got.startswith("[train] {")

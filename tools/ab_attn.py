@@ -32,14 +32,33 @@ C entry points on the same inputs:
   value against the float32 oracle (``bf16_attention_error``), and a row
   that sees no key exactly zero; the route each side takes is printed (a
   side without ``bind_flash_attention_route`` has one loop);
+* where this side has ``bind_flash_attention_bf16_lse`` (the forward
+  that hands the backward each row's log-sum-exp), its output on every
+  bf16 case that takes ``bf16_wgmma`` bit for bit the other side's
+  ``bind_flash_attention_bf16`` output, and its log-sum-exp within
+  ``LSE_TOL`` of the plain version's (``ref.attention_lse`` in float32 on
+  the same inputs; +inf on exactly the rows that see no key);
+* the attention backward (``.../flash_attention/csrc/
+  flash_attention_bwd.cu``, where the other side has one) in float32 and
+  bfloat16 at the reference's cases at d 64 and 128, at ``MID_ATTN``
+  (float32 at d 64 and 128, bfloat16 at ``MID_HEAD_DIMS``) and at
+  ``chip_smoke.py``'s ``BWD_SHAPES``: on the CUDA-core routes
+  (``f32_simt``, ``bf16_simt``: the ``bind_flash_attention_bwd_{f32,bf16}``
+  entry points) bit for bit the other side's, and, where this side has
+  ``bind_flash_attention_bwd_bf16_lse``, its ``bf16_wgmma`` route, given
+  this side's log-sum-exp, within ``chip_smoke.py``'s ``BF16_SLICE_NRMS``
+  rms per head slice of the plain version (``ref.attention_grad`` in
+  float32);
 * ``chain_attn`` in float32, bfloat16 and float64 at ``chip_smoke.py``'s
   two shapes (a 512-row Qwen3-14B tile x 16 levels of 512 keys, and a
   ragged (100, 70, d 40, dv 24) x 3) in its three layouts: bit for bit
   equal on the two sides (a side whose entry point takes a workspace and
   row-tile counters gets them);
 * the kernels are timed with CUDA events in the order other, this, this,
-  other: flash attention at both full widths in both dtypes, and
-  ``chain_attn`` at the 512-row tile in float32.
+  other: flash attention at both full widths in both dtypes, the
+  backward at ``BWD_SHAPES`` (the other side's bf16 entry point against
+  this side's ``bf16_wgmma`` where it has one; float32 on ``f32_simt``),
+  and ``chain_attn`` at the 512-row tile in float32.
 
 The card's name and power limit come first.  Exits non-zero on the first
 disagreement.
@@ -53,9 +72,10 @@ import sys
 from pathlib import Path
 
 from _ab import KERNELS, ROOT, ab, build_all, start
-from chip_smoke import (ATTN_CASES, ATTN_TOL, FULL_ATTN, MID_ATTN,
-                        MID_HEAD_DIMS, ODD_ATTN, TF32_VS_SIMT, attention64,
-                        bf16_attention_error, bf16_within)
+from chip_smoke import (ATTN_CASES, ATTN_TOL, BF16_SLICE_NRMS, BWD_SHAPES,
+                        FULL_ATTN, MID_ATTN, MID_HEAD_DIMS, ODD_ATTN,
+                        TF32_VS_SIMT, attention64, bf16_attention_error,
+                        bf16_within, slice_nrms)
 
 # the routes in the order of flash_attention.cu's Route enum; a side whose
 # bind_flash_attention_route takes the element size has the first three
@@ -74,6 +94,15 @@ _P, _I, _I64, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 FA_ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _D, _I, _I,
            _I64, _P)
 FA_ROUTE_ARGS = (_I, _P, _P, _P, _P, _I64)
+LSE_SYMBOL = "bind_flash_attention_bf16_lse"
+FA_LSE_ARGS = FA_ARGS[:4] + (_P,) + FA_ARGS[4:]
+BWD_ARGS = (_P,) * 10 + (_I64,) * 6 + (_D, _I, _I, _I64, _P)
+BWD_LSE_SYMBOL = "bind_flash_attention_bwd_bf16_lse"
+BWD_LSE_ARGS = (_P,) * 11 + (_I64,) * 6 + (_D, _I, _I, _I64, _I64, _P)
+# the log-sum-exp against the plain version's in float32 on the same bf16
+# inputs: the same f32 scores summed in another order, one MUFU ex2 a key
+# (a few float32 ulps of values up to ~10)
+LSE_TOL = 1e-5
 # bind_chain_attn_*: with (work, done) after out, or without
 CHAIN_ARGS = {True: (_P, _P, _I64, _P, _I64, _P, _I64, _P, _P, _P, _I64,
                      _I64, _I64, _I64, _I64, _D, _P),
@@ -82,8 +111,9 @@ CHAIN_ARGS = {True: (_P, _P, _I64, _P, _I64, _P, _I64, _P, _P, _P, _I64,
 
 
 def libraries(CudaLibrary, side: str, root: Path):
-    """(flash attention, chain) libraries of the checkout at ``root``, and
-    whether its ``chain_attn`` takes a workspace."""
+    """(flash attention, chain) libraries of the checkout at ``root``,
+    whether its ``chain_attn`` takes a workspace, and its attention
+    backward's library (None where it has none)."""
     fa_dir = root / KERNELS / "flash_attention" / "csrc"
     headers = tuple(sorted((root / KERNELS / "gemm" / "csrc").glob("*.cuh"))
                     + sorted(fa_dir.glob("*.cuh")))
@@ -92,6 +122,16 @@ def libraries(CudaLibrary, side: str, root: Path):
                for s in FA_SUFFIX.values()}
     if "bind_flash_attention_route" in source:
         fa_syms["bind_flash_attention_route"] = FA_ROUTE_ARGS
+    if LSE_SYMBOL in source:
+        fa_syms[LSE_SYMBOL] = FA_LSE_ARGS
+    bwd = None
+    bwd_cu = fa_dir / "flash_attention_bwd.cu"
+    if bwd_cu.is_file():
+        bwd_syms = {f"bind_flash_attention_bwd_{s}": BWD_ARGS
+                    for s in FA_SUFFIX.values()}
+        if BWD_LSE_SYMBOL in bwd_cu.read_text():
+            bwd_syms[BWD_LSE_SYMBOL] = BWD_LSE_ARGS
+        bwd = CudaLibrary(f"ab_fa_bwd_{side}", (bwd_cu,), headers, bwd_syms)
     fa = CudaLibrary(f"ab_fa_{side}", (fa_dir / "flash_attention.cu",),
                      headers, fa_syms)
     # how its route entry point names the element type
@@ -105,7 +145,7 @@ def libraries(CudaLibrary, side: str, root: Path):
         f"ab_chain_{side}", (chain_cu,), headers,
         {f"bind_chain_attn_{s}": CHAIN_ARGS[with_work]
          for s in CHAIN_SUFFIX.values()})
-    return fa, chain, with_work
+    return fa, chain, with_work, bwd
 
 
 def main(argv: list[str]) -> int:
@@ -117,13 +157,15 @@ def main(argv: list[str]) -> int:
         return 1
     from repro_torch.kernels._build import CudaLibrary
     from repro_torch.kernels.chain import ref as chain_ref
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
     other = Path(argv[0]).resolve()
     libs = {side: libraries(CudaLibrary, side, root)
             for side, root in (("other", other), ("this", ROOT))}
-    build_all([lib for fa, chain, _ in libs.values() for lib in (fa, chain)],
+    build_all([lib for sides in libs.values() for lib in sides
+               if isinstance(lib, CudaLibrary)],
               ("registers", "spill", "error", "wgmma"))
 
     dev = torch.device("cuda", 0)
@@ -169,6 +211,21 @@ def main(argv: list[str]) -> int:
         seen = fa_ref.mask(q.shape[2], k.shape[2], causal=causal,
                            window=window, device=dev)
         blind = ~seen.any(dim=-1)
+        lse_ok, lse_what = True, ""
+        if routes["this"] == "bf16_wgmma" and LSE_SYMBOL in libs["this"][0] \
+                .symbols:
+            out, lse = lse_call(q, k, v, causal, window)
+            _, want = fa_ref.attention_lse(q.float(), k.float(), v.float(),
+                                           causal=causal, window=window)
+            fin = torch.isfinite(want)
+            lerr = ((lse[fin] - want[fin]).abs().max().item()
+                    if fin.any() else 0.0)
+            lse_ok = (torch.equal(out, outs["other"])
+                      and torch.equal(torch.isinf(lse), ~fin)
+                      and bool((lse[~fin] > 0).all()) and lerr <= LSE_TOL)
+            lse_what = (f"; with the log-sum-exp: out bit for bit the "
+                        f"other's, lse within {lerr:.2e} (<= {LSE_TOL}), "
+                        f"+inf on the {int((~fin).sum())} blind rows")
         name = (f"flash_attention {label}{(b, hq, hkv, sq, skv, d)} causal "
                 f"{causal} window {window} {dname} (routes: this "
                 f"{routes['this']}, other {routes['other']})")
@@ -211,8 +268,93 @@ def main(argv: list[str]) -> int:
                     f"{stats['this']['row']:.2e}), {int(blind.sum())} blind "
                     f"rows zero")
         err = (outs["this"].double() - exp.double()).abs().max().item()
-        print(f"[check] {name}: {what}: {'ok' if ok else 'FAILED'}; this vs "
-              f"oracle max_abs_err {err:.3e}")
+        ok = ok and lse_ok
+        print(f"[check] {name}: {what}{lse_what}: {'ok' if ok else 'FAILED'}"
+              f"; this vs oracle max_abs_err {err:.3e}")
+        return ok
+
+    def lse_call(q, k, v, causal, window):
+        """This side's bf16 forward with each row's log-sum-exp."""
+        b, hq, sq, d = q.shape
+        out = torch.empty_like(q)
+        lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+        libs["this"][0].call(
+            LSE_SYMBOL, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b, hq, k.shape[1], sq,
+            k.shape[2], d, d ** -0.5, int(causal), int(window is not None),
+            0 if window is None else window, stream)
+        return out, lse
+
+    def bwd_call(side, q, k, v, out, dout, causal, window):
+        """The side's CUDA-core backward of q's dtype."""
+        b, hq, sq, d = q.shape
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+        delta = torch.empty_like(lse)
+        libs[side][3].call(
+            f"bind_flash_attention_bwd_{FA_SUFFIX[str(q.dtype)[6:]]}",
+            *(t.data_ptr() for t in (q, k, v, out, dout, *grads, lse,
+                                     delta)),
+            b, hq, k.shape[1], sq, k.shape[2], d, d ** -0.5, int(causal),
+            int(window is not None), 0 if window is None else window,
+            stream)
+        return grads
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def bwd_wgmma_call(q, k, v, out, dout, lse, causal, window):
+        """This side's bf16 backward on the tensor cores."""
+        b, hq, sq, d = q.shape
+        hkv, skv = k.shape[1], k.shape[2]
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        delta = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+        groups = fa_kernel.dkv_groups(hq, hkv, b, skv, sms)
+        part = (torch.empty((2, b, groups, hkv, skv, d), dtype=torch.float32,
+                            device=dev) if groups > 1 else None)
+        libs["this"][3].call(
+            BWD_LSE_SYMBOL,
+            *(t.data_ptr() for t in (q, k, v, out, dout, *grads, lse,
+                                     delta)),
+            None if part is None else part.data_ptr(), b, hq, hkv, sq, skv,
+            d, d ** -0.5, int(causal), int(window is not None),
+            0 if window is None else window, groups, stream)
+        return grads
+
+    def wgmma_bwd(q):
+        return (str(q.dtype) == "torch.bfloat16" and q.shape[3] % 64 == 0
+                and BWD_LSE_SYMBOL in libs["this"][3].symbols)
+
+    def bwd_case(label, shape, dname, blk):
+        b, hq, hkv, sq, skv, d, causal, window = shape
+        dt = getattr(torch, dname)
+        q = rand((b, hq, sq, d), dt)
+        k, v = rand((b, hkv, skv, d), dt), rand((b, hkv, skv, d), dt)
+        q, k, v = fa_ops.pad(q, k, v, causal=causal, window=window, bq=blk,
+                             bkv=blk)
+        dout = rand(q.shape, dt)
+        out = torch.empty_like(q)
+        fa_call("this", q, k, v, out, causal, window)
+        got = {side: bwd_call(side, q, k, v, out, dout, causal, window)
+               for side in libs}
+        torch.cuda.synchronize()
+        ok = all(torch.equal(a, c) for a, c in zip(got["this"],
+                                                   got["other"]))
+        what = (f"{'f32' if dname == 'float32' else 'bf16'}_simt this vs "
+                f"other bitwise equal")
+        del got
+        if wgmma_bwd(q):
+            out, lse = lse_call(q, k, v, causal, window)
+            grads = bwd_wgmma_call(q, k, v, out, dout, lse, causal, window)
+            exp = fa_ref.attention_grad(q.float(), k.float(), v.float(),
+                                        dout.float(), causal=causal,
+                                        window=window)
+            nrms = max(slice_nrms(g, e) for g, e in zip(grads, exp))
+            ok = ok and nrms <= BF16_SLICE_NRMS
+            what += (f"; bf16_wgmma within {nrms:.2e} rms per head slice of "
+                     f"the plain version (<= {BF16_SLICE_NRMS:.2e})")
+        print(f"[check] flash_attention_bwd {label}{(b, hq, hkv, sq, skv, d)}"
+              f" causal {causal} window {window} {dname}: {what}: "
+              f"{'ok' if ok else 'FAILED'}")
         return ok
 
     cases = [("", case, "float32", 16) for case in ATTN_CASES]
@@ -238,6 +380,29 @@ def main(argv: list[str]) -> int:
     for label, shape, dname, blk in cases:
         if not fa_case(label, shape, dname, blk):
             return 1
+    if libs["this"][3] is not None and libs["other"][3] is not None:
+        bwd_cases = []
+        for d in (64, 128):
+            for dname in ("float32", "bfloat16"):
+                bwd_cases += [("", case[:5] + (d,) + case[6:], dname, 16)
+                              for case in ATTN_CASES]
+                bwd_cases.append(("", (1, 2, 2, 64, 32, d, True, 8), dname,
+                                  16))
+            bwd_cases += [("mid ", (b, hq, hkv, sq, skv, d, causal, window),
+                           "float32", blk)
+                          for b, hq, hkv, sq, skv, causal, window, blk
+                          in MID_ATTN]
+        for d in MID_HEAD_DIMS:
+            bwd_cases += [("mid ", (b, hq, hkv, sq, skv, d, causal, window),
+                           "bfloat16", blk)
+                          for b, hq, hkv, sq, skv, causal, window, blk
+                          in MID_ATTN]
+        for model, (b, hq, hkv, s, d, window, dnames) in BWD_SHAPES.items():
+            bwd_cases += [(f"{model} ", (b, hq, hkv, s, s, d, True, window),
+                           dname, 512) for dname in dnames]
+        for label, shape, dname, blk in bwd_cases:
+            if not bwd_case(label, shape, dname, blk):
+                return 1
 
     def chain_call(side, dname, o, q, qs, k, ks, v, vs, L, out):
         m, dv = o.shape
@@ -297,6 +462,36 @@ def main(argv: list[str]) -> int:
                f"{routes['this']}, other {routes['other']})",
                lambda side: fa_call(side, q, k, v, out, True, window), 5, 1)
             del q, k, v, out
+    if libs["this"][3] is not None and libs["other"][3] is not None:
+        for model, (b, hq, hkv, s, d, window, dnames) in BWD_SHAPES.items():
+            for dname in dnames:
+                dt = getattr(torch, dname)
+                q = rand((b, hq, s, d), dt)
+                k, v = rand((b, hkv, s, d), dt), rand((b, hkv, s, d), dt)
+                dout = rand(q.shape, dt)
+                out = torch.empty_like(q)
+                fa_call("this", q, k, v, out, True, window)
+                if wgmma_bwd(q):
+                    out, lse = lse_call(q, k, v, True, window)
+                    label = "this bf16_wgmma, other bf16_simt"
+
+                    def run(side, q=q, k=k, v=v, out=out, dout=dout,
+                            lse=lse, window=window):
+                        if side == "this":
+                            return bwd_wgmma_call(q, k, v, out, dout, lse,
+                                                  True, window)
+                        return bwd_call(side, q, k, v, out, dout, True,
+                                        window)
+                else:
+                    label = "both sides' CUDA-core route"
+
+                    def run(side, q=q, k=k, v=v, out=out, dout=dout,
+                            window=window):
+                        return bwd_call(side, q, k, v, out, dout, True,
+                                        window)
+                ab(torch, f"flash_attention_bwd {model} {dname} ({label})",
+                   run, 5, 1)
+                del q, k, v, out, dout
     m, n, d, dv, L = CHAIN_SHAPES[0]
     (o, q, k, v), (qs, ks, vs) = chain_operands(CHAIN_LAYOUTS[0], m, n, d,
                                                 dv, L, torch.float32)
