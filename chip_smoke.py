@@ -206,6 +206,51 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    atomics), timed beside its bound, the plain version and SDPA's backward
    (a yardstick the port never calls), ``bf16_wgmma`` required faster than
    both the plain version and ``bf16_simt``; the memory given back;
+8g. the rest of the LM stack, served (``[lm_moe]``,
+   :func:`lm_moe_phase`): granite-moe-3b-a800m at its published widths and
+   depth (32 layers, d_model 1536, 24 heads over 8, head_dim 64, 40
+   experts top-8, expert d_ff 512, vocab 49155, tied), bf16 with float32
+   routers, its 3,298,693,632 weight-matrix parameters (882,774,528 active
+   a token) drawn on the card from a seed; 2 prompts of 4096 tokens and 32
+   greedy decode steps through ``make_prefill_step`` / ``make_decode_step``,
+   cold then warm: exactly 32 ``flash_attention`` launches on
+   ``bf16_wgmma`` a prefill, no other kernel wrapper, no plain version
+   called, two served runs the same tokens (the MoE combine has no
+   atomics); walls, tokens/s and bounds (prefill: active weights' FLOPs
+   plus attention's at 989 TFLOP/s; a decode step: every weight byte at
+   3.35 TB/s); the profile of a prefill and of the decode steps by class,
+   the MoE's routing, dispatch, expert FFN and combine apart (profiler
+   ranges around them); peak memory; every attention call of one more
+   prefill held to its plain version with the bf16 limits, the balance
+   loss of each layer finite and positive, the (token, slot) pairs each
+   layer's capacity drops; the memory given back; the reference's serving
+   check in float32 at 2 layers with a capacity that drops no token;
+8h. the other four families (``[lm_families]``,
+   :func:`lm_families_phase`), bf16 at their published widths, each 2
+   prompts and 8 decode steps, cold then warm: Moonshot-v1-16b-a3b (64
+   experts top-6, MHA at d 128; depth cut to 4 of 48 layers, its 28.06 B
+   parameters being 56 GB), Seamless-m4t-medium (12 encoder layers over 2 x
+   1024 frames, 12 decoder layers over 2 x 4096 tokens with
+   cross-attention: 12 + 12 + 12 launches, the cross-attention non-causal
+   with 4096 queries over 1024 keys), Phi-3-vision-4.2b (64 patches + 4032
+   tokens, d 96 on ``bf16_simt``, 32 launches) and xLSTM-350m (24 mLSTM /
+   sLSTM layers, no kernel; the sLSTM's Python loop timed a token a layer
+   with CUDA events); launches by route, two served runs the same tokens,
+   every attention call of one more prefill held to its plain version;
+   walls, rates, peak memory, the memory given back, and each family's
+   float32 serving check at 2 layers;
+8i. training the five (``[train_families]``, :func:`train_families_phase`)
+   at their published widths, two layers (Seamless one encoder and one
+   decoder layer), bf16, B 1 x S 2048, remat, 3 AdamW steps: losses
+   finite, every parameter a finite non-zero gradient at step 1, the
+   attention forward and backward launches by route every step, step 1's
+   attention backwards (Seamless's non-causal cross-attention with Sq 2048
+   over Skv 512 among them) within 2^-7 rms per head slice of
+   ``ref.attention_grad``, the memory given back; then attention at the
+   families' shapes (:func:`family_attention_timed`: Granite's 24 over 8
+   at d 64, Seamless's cross-attention 4096 over 1024 non-causal, Phi-3's
+   d 96 on ``bf16_simt``), forward and backward, each held to its plain
+   version and timed beside its bound, the plain version and SDPA's;
 9. a ``kernels`` JSON line (every ported kernel with its launches on its
    path and its times; the GEMM's accumulate and ``chain_attn`` also with
    their launches in one serving arm, ``flash_attention`` and
@@ -213,8 +258,12 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    ``[lm]`` prefill and their launches in one ``[train]`` step; the
    attention backward with its launches over ``[train]``'s 10 steps, its
    times at RecurrentGemma-9B's training shape and each bf16 route's time
-   at both widths), the card's name and
-   power limit, and, last, ``{"ok": true, "device": {...}}``.
+   at both widths; ``flash_attention`` also with each family's launches
+   and routes a prefill, its device time inside the Granite prefill and
+   its times at the families' shapes, the backward with each family's
+   launches a training step and its times there), the script's time (each
+   LM phase prints its own as it ends), the card's name and power limit, and, last, ``{"ok": true, "device":
+   {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when the
 port's sources are not beside it.
@@ -225,6 +274,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import statistics
 import subprocess
 import sys
 import threading
@@ -232,6 +282,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
@@ -529,6 +580,262 @@ def device_profile(torch, label: str, run, wall_s: float,
     return busy
 
 
+def memory_back(torch, dev, base: int, label: str) -> None:
+    """Collect, then check the device memory allocated above ``base`` is
+    back under 4 MiB."""
+    gc.collect()
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated(dev) - base
+    check(left < 4 << 20, f"{label}: {left} bytes still allocated "
+          f"(largest blocks {held_blocks(torch)})")
+    print(f"{label}: device memory held after it: {left} bytes")
+
+
+def memory_base(torch, dev) -> int:
+    """The device memory allocated now, taken as a phase's baseline once
+    cuBLAS holds its workspaces: cuBLAS takes one from the caching
+    allocator at each handle's first product and keeps it, and the
+    backward runs on autograd's own thread with a handle of its own, so
+    one small product of each kind, and one small backward, come first.
+    Resets the peak."""
+    for dt in (torch.bfloat16, torch.float32):
+        for n in (1, 8):
+            w = torch.ones((64, 64), dtype=dt, device=dev,
+                           requires_grad=True)
+            (torch.ones((n, 64), dtype=dt, device=dev) @ w).sum().backward()
+        torch.bmm(torch.ones((2, 8, 64), dtype=dt, device=dev),
+                  torch.ones((2, 64, 64), dtype=dt, device=dev))
+    del w
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+class AttentionHeld:
+    """A stand-in for ``attention_xla.flash_attention`` (the prefill's
+    entry point) that runs it and holds every call to its plain version on
+    the same padded inputs: within the reference's bf16 tolerance and
+    ``bf16_attention_error``'s limits against the float32 oracle.  Counts
+    the calls by (causal, Sq, Skv)."""
+
+    def __init__(self, torch, fa_ops, fa_ref, original, label: str):
+        self.torch, self.fa_ops, self.fa_ref = torch, fa_ops, fa_ref
+        self.original, self.label = original, label
+        self.calls, self.err, self.worst = {}, 0.0, {}
+
+    def __call__(self, q, k, v, *, causal, window, scale, bq, bkv):
+        torch, fa_ref = self.torch, self.fa_ref
+        out = self.original(q, k, v, causal=causal, window=window,
+                            scale=scale, bq=bq, bkv=bkv)
+        sq = q.shape[2]
+        padded = self.fa_ops.pad(q, k, v, causal=causal, window=window,
+                                 bq=bq, bkv=bkv)
+        exp = fa_ref.attention(*padded, causal=causal, window=window,
+                               scale=scale)[:, :, :sq]
+        tol = ATTN_TOL["bfloat16"]
+        torch.testing.assert_close(out, exp, rtol=tol, atol=tol)
+        exp32 = fa_ref.attention(*(t.float() for t in padded),
+                                 causal=causal, window=window,
+                                 scale=scale)[:, :, :sq]
+        stats = bf16_attention_error(out, exp32, padded[2])
+        key = (causal, sq, k.shape[2])
+        n = sum(self.calls.values())
+        check(bf16_within(stats), f"{self.label} attention call {n} {key}: "
+              f"outside the bf16 limits {stats}")
+        self.calls[key] = self.calls.get(key, 0) + 1
+        self.err = max(self.err, (out.double() - exp.double()).abs().max()
+                       .item())
+        for name, value in stats.items():
+            self.worst[name] = max(self.worst.get(name, 0.0), value)
+        return out
+
+    def summary(self) -> str:
+        shapes = ", ".join(
+            f"{n} x ({'causal' if c else 'non-causal'} Sq {sq} Skv {skv})"
+            for (c, sq, skv), n in self.calls.items())
+        worst = ", ".join(f"{k} {v:.3e}" for k, v in self.worst.items())
+        return (f"{sum(self.calls.values())} calls [{shapes}] within "
+                f"{ATTN_TOL['bfloat16']} of the plain version, max_abs_err "
+                f"{self.err:.3e}; bf16 limits against the f32 oracle, worst "
+                f"{worst}")
+
+
+def profile_classes(torch, label: str, run, wall_s: float, expect: dict,
+                    ranges=()) -> tuple:
+    """Run ``run`` once more under ``torch.profiler`` and print where the
+    device time goes, by class: the hand-written kernels, the cuBLAS GEMMs,
+    copies, the device time of each ``torch.profiler.record_function``
+    range in ``ranges`` (its kernels' time, children's included; a range's
+    GEMMs are not counted again among the GEMMs) and the rest; and the busy
+    share of the unprofiled ``wall_s``.  ``expect`` maps a kernel name to
+    its launches the trace must show.  Returns (kernels by (ms, count,
+    name), total ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def is_gemm(name):
+        name = name.lower()
+        return ("gemm" in name or "nvjet" in name or "cutlass" in name
+                or "xmma" in name)
+
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        # the ranges' own device-side spans are no kernels
+        kernels = sorted(
+            ((e.self_device_time_total / 1e3, e.count, e.key)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.self_device_time_total > 0 and e.key not in ranges),
+            reverse=True)
+        seen = {k: sum(c for _m, c, key in kernels if k in key)
+                for k in expect}
+        if seen == expect:
+            break
+        print(f"{label} profile: the trace shows {seen}, expected {expect} "
+              f"(attempt {attempt + 1} of 3)")
+    check(seen == expect, f"{label} profile: {seen}, expected {expect}")
+    total = sum(ms for ms, _n, _k in kernels)
+
+    def under(event):
+        """The kernels an event and its children launched."""
+        yield from event.kernels
+        for child in event.cpu_children:
+            yield from under(child)
+
+    parts, range_gemm = {}, 0.0
+    for name in ranges:
+        ms = gemm = 0.0
+        for event in prof.events():
+            if event.name == name:
+                for kinfo in under(event):
+                    ms += kinfo.duration / 1e3
+                    gemm += kinfo.duration / 1e3 if is_gemm(kinfo.name) \
+                        else 0.0
+        parts[name] = ms
+        range_gemm += gemm
+    by_name = {
+        "flash attention": lambda k: "flash_attention" in k,
+        "attention backward": lambda k: "attention_bwd" in k,
+        "linear scan": lambda k: "linear_scan" in k,
+        "copies": lambda k: "copy" in k.lower(),
+    }
+    for cls, test in by_name.items():
+        ms = sum(m for m, _n, key in kernels if test(key))
+        if ms:
+            parts[cls] = ms
+    parts["cuBLAS GEMMs" + (" (outside the ranges)" if ranges else "")] = \
+        sum(m for m, _n, key in kernels if is_gemm(key)) - range_gemm
+    parts["the rest (element-wise, norms)"] = total - sum(parts.values())
+    print(f"{label} profile: device kernel time {total:.3f} ms of "
+          f"{wall_s * 1e3:.3f} ms wall (busy "
+          f"{100 * total / (wall_s * 1e3):.1f}%); " + "; ".join(
+              f"{k} {v:.3f} ms ({100 * v / max(total, 1e-9):.1f}%)"
+              for k, v in parts.items()))
+    for ms, cnt, key in kernels[:8]:
+        print(f"{label} profile:   {ms:9.3f} ms {cnt:5d}x {key[:100]}")
+    return kernels, total
+
+
+def served(torch, prefill, decode, tokens, extras, n_img: int, n_dec: int,
+           label: str, vocab: int):
+    """Prefill ``tokens`` (with the front ends' ``extras``), then ``n_dec``
+    greedy decode steps; (generated tokens, prefill wall, decode wall)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, states = prefill(tokens, **extras)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    b, s = tokens.shape
+    check(tuple(logits.shape) == (b, 1, vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{label} prefill logits {tuple(logits.shape)} not finite")
+    token = logits[:, -1].argmax(dim=-1, keepdim=True)
+    out = [token]
+    for t in range(n_dec):
+        logits, states = decode(states, token, n_img + s + t)
+        token = logits[:, -1].argmax(dim=-1, keepdim=True)
+        out.append(token)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(bool(torch.isfinite(logits).all()), f"{label} decode logits not "
+          f"finite")
+    generated = torch.cat(out, dim=1)
+    check(tuple(generated.shape) == (b, n_dec + 1)
+          and bool(((generated >= 0) & (generated < vocab)).all()),
+          f"{label} generated tokens {tuple(generated.shape)}")
+    return generated, t1 - t0, t2 - t1
+
+
+def front_ends(torch, cfg, gen, dev, batch: int, enc_len: int) -> dict:
+    """The stub front ends' inputs ``cfg`` takes, float32 on the card as
+    the data pipeline makes them: the encoder's frames, the patches."""
+    out = {}
+    if cfg.encoder_layers:
+        out["frames"] = torch.randn((batch, enc_len, cfg.d_model),
+                                    generator=gen, device=dev)
+    if cfg.frontend == "vision":
+        out["pixels"] = torch.randn((batch, cfg.vision_tokens, cfg.d_model),
+                                    generator=gen, device=dev)
+    return out
+
+
+def teacher_forcing(torch, dev, gen, cfg, label: str, zero_counts,
+                    counts) -> str:
+    """The reference's serving check (tests/test_serve.py:34-62) in float32
+    at FAM_TF_LAYERS layers of ``cfg``'s widths: a prefill, then
+    teacher-forced decode steps, each step's logits within LM_TF_TOL of the
+    full-sequence forward's.  Returns a line to print."""
+    import dataclasses
+
+    from repro_torch.models import LanguageModel
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    over = dict(n_layers=FAM_TF_LAYERS, dtype="float32")
+    if cfg.encoder_layers:
+        over["encoder_layers"] = FAM_TF_LAYERS
+    if cfg.is_moe:
+        # C = T: no token drops, as decode's C = T
+        over["capacity_factor"] = cfg.n_experts / cfg.n_experts_active
+    cfg32 = dataclasses.replace(cfg, **over)
+    model = LanguageModel(cfg32, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    n_img = cfg.vision_tokens if cfg.frontend == "vision" else 0
+    n_pre, n_tf = FAM_TF_PROMPT - n_img, FAM_TF_DECODE
+    toks = torch.randint(0, cfg.vocab_size, (1, n_pre + n_tf), generator=gen,
+                         device=dev)
+    ext = front_ends(torch, cfg, gen, dev, 1, FAM_TF_PROMPT // 4)
+    zero_counts()
+    hidden = model(toks, **ext)
+    full = model.logits(hidden[:, n_img + n_pre - 1:])
+    del hidden
+    logits, states = make_prefill_step(model, s_max=n_img + n_pre + n_tf)(
+        toks[:, :n_pre], **ext)
+    errs = [(logits[:, 0] - full[:, 0]).abs().max().item()]
+    torch.testing.assert_close(logits[:, 0], full[:, 0], rtol=LM_TF_TOL,
+                               atol=LM_TF_TOL)
+    step = make_decode_step(model)
+    for t in range(n_tf):
+        logits, states = step(states, toks[:, n_pre + t:n_pre + t + 1],
+                              n_img + n_pre + t)
+        torch.testing.assert_close(logits[:, 0], full[:, t + 1],
+                                   rtol=LM_TF_TOL, atol=LM_TF_TOL)
+        errs.append((logits[:, 0] - full[:, t + 1]).abs().max().item())
+    got = {k: v for k, v in counts().items() if v}
+    check(set(got) <= {"flash_attention"}, f"{label} float32 check "
+          f"launched {got}")
+    del model, full, logits, states, step, toks, ext
+    return (f"{label} teacher forcing, float32, {FAM_TF_LAYERS} layers"
+            f"{' (encoder too)' if cfg.encoder_layers else ''}: prefill "
+            f"{n_img + n_pre} positions, then {n_tf} decode steps against "
+            f"the full-sequence forward: max_abs_err "
+            f"{max(errs):.3e} (<= {LM_TF_TOL}); launches {got}")
+
+
 # the LM phase: RecurrentGemma-9B at its published widths and depth
 # (src/repro/configs/recurrentgemma_9b.py), bf16, random weights from SEED;
 # B prompts of S tokens (S past the 2048 window), then greedy decode steps
@@ -568,22 +875,11 @@ def lm_phase(torch, dev, gen, card: str, zero_counts, counts) -> dict:
     from repro_torch.models import LanguageModel, attention_xla, recurrent
     from repro_torch.models.blocks import count_params
     from repro_torch.train import make_decode_step, make_prefill_step
-    from torch.profiler import ProfilerActivity, profile
 
     def sync():
         torch.cuda.synchronize()
 
-    # cuBLAS takes its workspace from the caching allocator at a stream's
-    # first product and keeps it: take it before the baseline
-    for dt in (torch.bfloat16, torch.float32):
-        for n in (1, 64):
-            (torch.ones((n, 64), dtype=dt, device=dev)
-             @ torch.ones((64, 64), dtype=dt, device=dev))
-    gc.collect()
-    torch.cuda.empty_cache()
-    sync()
-    base = torch.cuda.memory_allocated(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
+    base = memory_base(torch, dev)
 
     # -- build the model at full width and depth ---------------------------
     cfg = configs.get(LM_ARCH)
@@ -622,25 +918,8 @@ def lm_phase(torch, dev, gen, card: str, zero_counts, counts) -> dict:
 
     def serve():
         """Prefill, then n_dec greedy decode steps; (tokens, walls)."""
-        sync()
-        t0 = time.perf_counter()
-        logits, states = prefill(tokens)
-        sync()
-        t1 = time.perf_counter()
-        check(tuple(logits.shape) == (b, 1, cfg.vocab_size)
-              and bool(torch.isfinite(logits).all()),
-              f"[lm] prefill logits {tuple(logits.shape)} not finite")
-        token = logits[:, -1].argmax(dim=-1, keepdim=True)
-        out = [token]
-        for t in range(n_dec):
-            logits, states = decode(states, token, s + t)
-            token = logits[:, -1].argmax(dim=-1, keepdim=True)
-            out.append(token)
-        sync()
-        t2 = time.perf_counter()
-        check(bool(torch.isfinite(logits).all()), "[lm] decode logits not "
-              "finite")
-        return torch.cat(out, dim=1), t1 - t0, t2 - t1
+        return served(torch, prefill, decode, tokens, {}, 0, n_dec, "[lm]",
+                      cfg.vocab_size)
 
     # the plain versions, counted by wrappers installed here: a served run
     # must call neither; the operands the entry points are handed, and
@@ -695,9 +974,6 @@ def lm_phase(torch, dev, gen, card: str, zero_counts, counts) -> dict:
         attention_xla.flash_attention = originals["fa"]
         recurrent.linear_scan = originals["ls"]
         fa_kernel.launch = originals["fa_launch"]
-    check(tuple(generated.shape) == (b, n_dec + 1)
-          and bool(((generated >= 0) & (generated < cfg.vocab_size)).all()),
-          f"[lm] generated tokens {tuple(generated.shape)}")
     check(torch.equal(generated, cold[0]), "[lm] two served runs of the "
           "same prompt generated different tokens")
     for name, (route, want) in LM_KERNELS.items():
@@ -742,52 +1018,8 @@ def lm_phase(torch, dev, gen, card: str, zero_counts, counts) -> dict:
           f"{dec_bound / (t_decode / n_dec * 1e3) * 100:.1f}% of it ({card})")
 
     # -- where the device time goes --------------------------------------
-    def lm_profile(label, run, wall_s, expect):
-        for attempt in range(3):
-            sync()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                run()
-                sync()
-            kernels = sorted(
-                ((e.self_device_time_total / 1e3, e.count, e.key)
-                 for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and e.self_device_time_total > 0), reverse=True)
-            seen = {k: sum(c for _m, c, key in kernels if k in key)
-                    for k in expect}
-            if seen == expect:
-                break
-            print(f"[lm] profile {label}: the trace shows {seen}, expected "
-                  f"{expect} (attempt {attempt + 1} of 3)")
-        check(seen == expect, f"[lm] profile {label}: {seen}, expected "
-              f"{expect}")
-        total = sum(ms for ms, _n, _k in kernels)
-
-        def share(test):
-            return sum(ms for ms, _n, key in kernels if test(key.lower()))
-
-        parts = {
-            "flash attention": share(lambda k: "flash_attention" in k),
-            "linear scan": share(lambda k: "linear_scan" in k),
-            "GEMM (cuBLAS)": share(lambda k: ("gemm" in k or "nvjet" in k
-                                              or "cutlass" in k
-                                              or "xmma" in k)),
-            "copies": share(lambda k: "copy" in k),
-        }
-        parts["other"] = total - sum(parts.values())
-        print(f"[lm] profile {label}: device kernel time {total:.3f} ms of "
-              f"{wall_s * 1e3:.3f} ms wall (busy "
-              f"{100 * total / (wall_s * 1e3):.1f}%); " + "; ".join(
-                  f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
-                  for k, v in parts.items()) + f" ({card})")
-        for ms, cnt, key in kernels[:10]:
-            print(f"[lm] profile {label}:   {ms:9.3f} ms {cnt:5d}x "
-                  f"{key[:100]}")
-        return kernels, total
-
-    pre_kernels, _ = lm_profile(
-        "prefill", lambda: prefill(tokens), t_prefill,
+    pre_kernels, _ = profile_classes(
+        torch, "[lm] prefill", lambda: prefill(tokens), t_prefill,
         {"flash_attention_wgmma_kernel": 12, "linear_scan_kernel": 26})
     _, states = prefill(tokens)
     token = generated[:, :1]
@@ -797,8 +1029,8 @@ def lm_phase(torch, dev, gen, card: str, zero_counts, counts) -> dict:
         for t in range(n_dec):
             _, st = decode(st, token, s + t)
 
-    lm_profile("decode", decode_run, t_decode,
-               {"flash_attention": 0, "linear_scan": 0})
+    profile_classes(torch, "[lm] decode", decode_run, t_decode,
+                    {"flash_attention": 0, "linear_scan": 0})
     del states
     kernel_ms = {}
     for name, key in (("flash_attention", "flash_attention_wgmma_kernel"),
@@ -812,46 +1044,24 @@ def lm_phase(torch, dev, gen, card: str, zero_counts, counts) -> dict:
           f" bytes with {after_model - base:,} of weights ({card})")
 
     # -- every kernel call of one prefill against its plain version -------
-    errors = {"flash_attention": 0.0, "linear_scan": 0.0, "oracle": 0.0}
-    calls = {"flash_attention": 0, "linear_scan": 0}
-
-    def attention_held(q, k, v, *, causal, window, scale, bq, bkv):
-        out = originals["fa"](q, k, v, causal=causal, window=window,
-                              scale=scale, bq=bq, bkv=bkv)
-        sq = q.shape[2]
-        padded = fa_ops.pad(q, k, v, causal=causal, window=window, bq=bq,
-                            bkv=bkv)
-        exp = fa_ref.attention(*padded, causal=causal, window=window,
-                               scale=scale)[:, :, :sq]
-        tol = ATTN_TOL["bfloat16"]
-        torch.testing.assert_close(out, exp, rtol=tol, atol=tol)
-        exp32 = fa_ref.attention(*(t.float() for t in padded),
-                                 causal=causal, window=window,
-                                 scale=scale)[:, :, :sq]
-        stats = bf16_attention_error(out, exp32, padded[2])
-        check(bf16_within(stats), f"[lm] attention call "
-              f"{calls['flash_attention']}: outside the bf16 limits {stats}")
-        errors["flash_attention"] = max(
-            errors["flash_attention"],
-            (out.double() - exp.double()).abs().max().item())
-        calls["flash_attention"] += 1
-        return out
+    held = AttentionHeld(torch, fa_ops, fa_ref, originals["fa"], "[lm]")
+    scans = {"calls": 0, "oracle": 0.0}
 
     def scan_held(a, x):
         out = originals["ls"](a, x)
         exp = ls_ref.linear_scan_chunked(a, x, chunk=ls_kernel.CHUNK)
         check(torch.equal(bits(torch, out), bits(torch, exp)),
-              f"[lm] scan call {calls['linear_scan']}: not bit for bit "
+              f"[lm] scan call {scans['calls']}: not bit for bit "
               f"ref.linear_scan_chunked")
         oracle = ls_ref.linear_scan(a, x)
         tol = SCAN_TOL["float32"]
         torch.testing.assert_close(out, oracle, rtol=tol, atol=tol)
-        errors["oracle"] = max(errors["oracle"], (
+        scans["oracle"] = max(scans["oracle"], (
             out.double() - oracle.double()).abs().max().item())
-        calls["linear_scan"] += 1
+        scans["calls"] += 1
         return out
 
-    attention_xla.flash_attention = attention_held
+    attention_xla.flash_attention = held
     recurrent.linear_scan = scan_held
     try:
         t0 = time.perf_counter()
@@ -860,24 +1070,17 @@ def lm_phase(torch, dev, gen, card: str, zero_counts, counts) -> dict:
     finally:
         attention_xla.flash_attention = originals["fa"]
         recurrent.linear_scan = originals["ls"]
-    check(calls == {"flash_attention": 12, "linear_scan": 26},
-          f"[lm] held {calls} kernel calls, expected 12 and 26")
+    check(sum(held.calls.values()) == 12 and scans["calls"] == 26,
+          f"[lm] held {held.calls} attention and {scans['calls']} scan "
+          f"calls, expected 12 and 26")
     print(f"[lm] every kernel call of one prefill against its plain "
-          f"version ({time.perf_counter() - t0:.3f} s): 12 flash_attention "
-          f"(bf16, {tuple(tokens.shape)} prompts) within "
-          f"{ATTN_TOL['bfloat16']} and the bf16 limits, max_abs_err "
-          f"{errors['flash_attention']:.3e}; 26 linear_scan (f32 ({b}, {s}, "
-          f"{cfg.lru_width})) bit for bit ref.linear_scan_chunked, max_abs_err "
-          f"{errors['oracle']:.3e} against the sequential oracle (<= "
-          f"{SCAN_TOL['float32']})")
-    del model, prefill, decode, tokens, generated, cold
-    gc.collect()
-    sync()
-    left = torch.cuda.memory_allocated(dev) - base
-    check(left < 4 << 20, f"[lm] {left} bytes still allocated after the "
-          f"bf16 model was dropped (largest blocks {held_blocks(torch)})")
-    print(f"[lm] device memory held after the bf16 model was dropped: "
-          f"{left} bytes")
+          f"version ({time.perf_counter() - t0:.3f} s): flash_attention "
+          f"(bf16, {tuple(tokens.shape)} prompts) {held.summary()}; 26 "
+          f"linear_scan (f32 ({b}, {s}, {cfg.lru_width})) bit for bit "
+          f"ref.linear_scan_chunked, max_abs_err {scans['oracle']:.3e} "
+          f"against the sequential oracle (<= {SCAN_TOL['float32']})")
+    del model, prefill, decode, tokens, generated, cold, held
+    memory_back(torch, dev, base, "[lm] the bf16 model")
 
     # -- decode against the full sequence, float32 ----------------------------
     cfg32 = dataclasses.replace(cfg, n_layers=LM_TF_LAYERS, dtype="float32")
@@ -917,12 +1120,7 @@ def lm_phase(torch, dev, gen, card: str, zero_counts, counts) -> dict:
           f"{', '.join(f'{e:.3e}' for e in tf_err)} (<= {LM_TF_TOL}); "
           f"kernels {want32} on f32_simt / tma")
     del model, full, logits, states, step, toks
-    gc.collect()
-    sync()
-    left = torch.cuda.memory_allocated(dev) - base
-    check(left < 4 << 20, f"[lm] {left} bytes still allocated after the "
-          f"phase (largest blocks {held_blocks(torch)})")
-    print(f"[lm] device memory held after the phase: {left} bytes")
+    memory_back(torch, dev, base, "[lm] the phase")
     return {name: {"lm_launches": want, "lm_route": route,
                    "lm_ms": kernel_ms[name]}
             for name, (route, want) in LM_KERNELS.items()}
@@ -1012,18 +1210,7 @@ def train_phase(torch, dev, card: str, zero_counts, counts) -> dict:
     def sync():
         torch.cuda.synchronize()
 
-    # cuBLAS takes a workspace from the caching allocator for each thread's
-    # handle and keeps it; the backward runs on autograd's own thread, so
-    # take its workspaces with one small backward before the baseline
-    for dt in (torch.bfloat16, torch.float32):
-        w = torch.ones((64, 64), dtype=dt, device=dev, requires_grad=True)
-        (torch.ones((8, 64), dtype=dt, device=dev) @ w).sum().backward()
-    del w
-    gc.collect()
-    torch.cuda.empty_cache()
-    sync()
-    base = torch.cuda.memory_allocated(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
+    base = memory_base(torch, dev)
 
     # -- the model, at full width and one pattern period deep ---------------
     cfg = dataclasses.replace(configs.get(LM_ARCH), n_layers=TRAIN_LAYERS)
@@ -1512,6 +1699,630 @@ def attention_bwd_timed(torch, dev, gen, card: str, name: str, dname: str,
     return dict(max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=plain_ms,
                 bound_ms=bnd, bound_by=by, library_ms=lib,
                 route_ms={k: v["ms"] for k, v in routes.items()})
+
+
+# the rest of the LM stack: granite-moe-3b-a800m served at its published
+# widths and depth (src/repro/configs/granite_moe_3b_a800m.py), bf16, random
+# weights from SEED; B prompts of S tokens, then greedy decode steps
+MOE_ARCH = "granite_moe_3b_a800m"
+MOE_PARAMS = 3_298_693_632             # count_params
+MOE_ACTIVE = 882_774_528               # active_param_count: 8 of 40 experts
+MOE_BATCH, MOE_PROMPT, MOE_DECODE = 2, 4096, 32
+# one flash_attention launch a layer a prefill, on the tensor cores (d 64)
+MOE_KERNELS = {"bf16_wgmma": 32}
+# the reference's serving check in float32 at 2 layers, with a capacity
+# that drops no token (C = T, as reduced() sets it: decode never drops, so
+# a forward that dropped tokens would differ from decode by design)
+FAM_TF_LAYERS, FAM_TF_PROMPT, FAM_TF_DECODE = 2, 1024, 8
+# the other four families at their published widths: (arch, depth or None
+# for the published one, encoder frames a prompt, text tokens a prompt,
+# flash_attention launches by route a prefill, whether to serve cold
+# before the counted run).  Moonshot's 28.06 B parameters (56 GB in bf16)
+# do not fit beside the rest of the script: its depth is cut to 4 of 48
+# layers
+FAMILIES = (
+    ("moonshot_v1_16b_a3b", 4, 0, 4096, {"bf16_wgmma": 4}, True),
+    # 12 encoder (non-causal), 12 decoder (causal), 12 cross-attention
+    # (non-causal, 4096 queries over 1024 keys)
+    ("seamless_m4t_medium", None, 1024, 4096, {"bf16_wgmma": 36}, True),
+    # 64 image patches + 4032 text tokens; d 96 takes the CUDA cores
+    ("phi_3_vision_4_2b", None, 0, 4032, {"bf16_simt": 32}, True),
+    # mLSTM and sLSTM blocks: no attention, no kernel.  The sLSTM's
+    # host-bound Python loop (17 s a prefill) is as warm in its first run
+    # as in a second, so it is served once
+    ("xlstm_350m", None, 0, 4096, {}, False),
+)
+FAM_BATCH, FAM_DECODE = 2, 8
+# training each of the five at its published widths, one pattern period or
+# two layers deep (Seamless one encoder and one decoder layer): B 1 x S
+# 2048 positions (Phi-3's 64 patches among them), bf16, remat, AdamW;
+# flash_attention (forward twice with remat) and its backward by route a
+# step
+TRAIN_FAMILIES = (
+    ("granite_moe_3b_a800m", dict(n_layers=2),
+     {"bf16_wgmma": 4}, {"bf16_wgmma": 2}),
+    ("moonshot_v1_16b_a3b", dict(n_layers=2),
+     {"bf16_wgmma": 4}, {"bf16_wgmma": 2}),
+    ("seamless_m4t_medium", dict(n_layers=1, encoder_layers=1),
+     {"bf16_wgmma": 6}, {"bf16_wgmma": 3}),
+    ("phi_3_vision_4_2b", dict(n_layers=2),
+     {"bf16_simt": 4}, {"bf16_simt": 2}),
+    ("xlstm_350m", dict(n_layers=2), {}, {}),
+)
+TRAIN_FAM_SEQ, TRAIN_FAM_STEPS = 2048, 3
+# attention at the shapes the new families give it, timed beside its bound,
+# its plain version and SDPA (forward and backward): (B, Hq, Hkv, Sq, Skv,
+# D, causal)
+FAMILY_ATTN = {
+    "Granite-MoE-3B (24/8, d 64)": (2, 24, 8, 4096, 4096, 64, True),
+    "Seamless cross (16/16, Sq 4096 / Skv 1024)": (2, 16, 16, 4096, 1024,
+                                                   64, False),
+    "Phi-3-vision (32/32, d 96)": (2, 32, 32, 4096, 4096, 96, True),
+}
+
+
+def _moe_ranges(moe_mod):
+    """Wrap the mixture-of-experts stages in profiler ranges; returns the
+    originals to restore."""
+    import torch
+
+    originals = {}
+    for name, fn in (("_route", moe_mod._route),
+                     ("_dispatch", moe_mod._dispatch),
+                     ("_expert_ffn", moe_mod._expert_ffn),
+                     ("_combine", moe_mod._combine)):
+        def ranged(*args, _fn=fn, _name=f"moe{name}", **kwargs):
+            with torch.profiler.record_function(_name):
+                return _fn(*args, **kwargs)
+        originals[name] = fn
+        setattr(moe_mod, name, ranged)
+    return originals
+
+
+MOE_RANGES = ("moe_route", "moe_dispatch", "moe_expert_ffn", "moe_combine")
+
+
+def lm_moe_phase(torch, dev, gen, card: str, zero_counts, counts) -> dict:
+    """``[lm_moe]``: serve granite-moe-3b-a800m at its published widths and
+    depth on the card through the port's entry points; check the kernel
+    launches, hold every attention call of a prefill to its plain version,
+    read the balance loss and the tokens each layer's capacity drops, check
+    decode against the full sequence in float32, and print the walls,
+    rates, bounds, where the device time goes (the MoE stages apart) and
+    the memory.  Returns the ``kernels`` line's additions."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.linear_scan import ref as ls_ref
+    from repro_torch.models import LanguageModel, attention_xla
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.blocks import count_params
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    base = memory_base(torch, dev)
+    cfg = configs.get(MOE_ARCH)
+    t0 = time.perf_counter()
+    model = LanguageModel(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_matrix = model.param_count()
+    check(n_matrix == count_params(cfg) == MOE_PARAMS
+          and count_params(cfg, active_only=True) == MOE_ACTIVE,
+          f"[lm_moe] {n_matrix} parameters in weight matrices, "
+          f"count_params {count_params(cfg)}, expected {MOE_PARAMS}")
+    kinds = [kind for _, kind in model.layers()]
+    check(kinds == ["attn"] * 32, f"[lm_moe] layers {kinds}")
+    routers = [p.dtype for n, p in model.named_parameters()
+               if n.endswith("moe.router")]
+    check(routers == [torch.float32] * 32,
+          f"[lm_moe] the routers' dtypes {routers}")
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"[lm_moe] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, "
+          f"head_dim {cfg.head_dim}, {cfg.n_experts} experts top-"
+          f"{cfg.n_experts_active}, expert d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, tied, {model.dtype} (routers float32); "
+          f"{n_matrix:,} parameters in weight matrices (= count_params), "
+          f"{MOE_ACTIVE:,} active a token; {w_bytes:,} bytes; drawn on the "
+          f"card from seed {SEED} in {t_init:.3f} s ({card})")
+
+    b, s, n_dec = MOE_BATCH, MOE_PROMPT, MOE_DECODE
+    prefill = make_prefill_step(model, s_max=s + n_dec)
+    decode = make_decode_step(model)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev)
+    plain = {"attention": 0, "attention_lse": 0, "linear_scan": 0}
+    originals = {"attention": fa_ref.attention,
+                 "attention_lse": fa_ref.attention_lse,
+                 "linear_scan": ls_ref.linear_scan}
+
+    def counting(name):
+        def wrapper(*args, **kwargs):
+            plain[name] += 1
+            return originals[name](*args, **kwargs)
+        return wrapper
+
+    for name, mod in (("attention", fa_ref), ("attention_lse", fa_ref),
+                      ("linear_scan", ls_ref)):
+        setattr(mod, name, counting(name))
+    try:
+        cold = served(torch, prefill, decode, tokens, {}, 0, n_dec,
+                      "[lm_moe]", cfg.vocab_size)
+        zero_counts()
+        for key in plain:
+            plain[key] = 0
+        generated, t_prefill, t_decode = served(
+            torch, prefill, decode, tokens, {}, 0, n_dec, "[lm_moe]",
+            cfg.vocab_size)
+        got = counts()
+        routes = dict(fa_ops.flash_attention.routes)
+    finally:
+        fa_ref.attention = originals["attention"]
+        fa_ref.attention_lse = originals["attention_lse"]
+        ls_ref.linear_scan = originals["linear_scan"]
+    check(torch.equal(generated, cold[0]), "[lm_moe] two served runs of the "
+          "same prompt generated different tokens")
+    check(got["flash_attention"] == 32 and routes == MOE_KERNELS,
+          f"[lm_moe] flash_attention: {got['flash_attention']} launches by "
+          f"route {routes}, expected {MOE_KERNELS} a prefill")
+    others = {k: v for k, v in got.items() if v and k != "flash_attention"}
+    check(not others, f"[lm_moe] unexpected launches {others}")
+    check(not any(plain.values()), f"[lm_moe] plain versions called {plain}")
+    print(f"[lm_moe] served run: {got['flash_attention']} flash_attention "
+          f"launches on {routes}, no other kernel wrapper, no plain version "
+          f"called; two served runs gave the same {tuple(generated.shape)} "
+          f"tokens")
+
+    # bounds: the active weights' FLOPs (the embedding is a lookup), the
+    # attention's visible pairs, the head at the last position; a decode
+    # step reads every weight (its buffer covers all 40 experts)
+    active = MOE_ACTIVE - cfg.vocab_size * cfg.d_model
+    pre_flops = 2 * active * b * s
+    attn_flops = 4 * cfg.n_heads * cfg.head_dim * b * visible_pairs(
+        s, None) * cfg.n_layers
+    head_flops = 2 * b * cfg.d_model * cfg.vocab_size
+    pre_bound = (pre_flops + attn_flops + head_flops) / PEAK_FLOPS[
+        "bfloat16"] * 1e3
+    dec_bound = w_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[lm_moe] prefill {b} x {s} tokens: cold {cold[1]:.4f} s, warm "
+          f"{t_prefill:.4f} s, {b * s / t_prefill:.1f} tokens/s; bound "
+          f"{pre_bound:.3f} ms (({pre_flops:.4e} active-weight + "
+          f"{attn_flops:.4e} attention + {head_flops:.4e} head) FLOP at 989 "
+          f"TFLOP/s bf16), {pre_bound / 1e3 / t_prefill * 100:.1f}% of it "
+          f"({card})")
+    print(f"[lm_moe] decode {n_dec} steps x {b}: cold {cold[2]:.4f} s, warm "
+          f"{t_decode:.4f} s, {t_decode / n_dec * 1e3:.3f} ms a step, "
+          f"{b * n_dec / t_decode:.1f} tokens/s; bound {dec_bound:.3f} ms a "
+          f"step ({w_bytes:,} weight bytes at 3.35 TB/s), "
+          f"{dec_bound / (t_decode / n_dec * 1e3) * 100:.1f}% of it ({card})")
+
+    # -- where the device time goes, the MoE stages apart --------------------
+    moe_originals = _moe_ranges(moe_mod)
+    try:
+        pre_kernels, _ = profile_classes(
+            torch, "[lm_moe] prefill", lambda: prefill(tokens), t_prefill,
+            {"flash_attention_wgmma_kernel": 32}, MOE_RANGES)
+        _, states = prefill(tokens)
+        token = generated[:, :1]
+
+        def decode_run():
+            st = states
+            for t in range(n_dec):
+                _, st = decode(st, token, s + t)
+
+        profile_classes(torch, "[lm_moe] decode", decode_run, t_decode,
+                        {"flash_attention": 0}, MOE_RANGES)
+        del states
+    finally:
+        for name, fn in moe_originals.items():
+            setattr(moe_mod, name, fn)
+    attn_ms = sum(m for m, _n, k in pre_kernels
+                  if "flash_attention_wgmma_kernel" in k)
+    print(f"[lm_moe] flash_attention_wgmma_kernel inside the served prefill: "
+          f"{attn_ms:.3f} ms for 32 launches, {attn_ms / 32:.4f} ms each "
+          f"({card})")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[lm_moe] peak device memory {peak:,} bytes with {w_bytes:,} of "
+          f"weights ({card})")
+
+    # -- one more prefill: every attention call held, aux and drops read -----
+    held = AttentionHeld(torch, fa_ops, fa_ref,
+                         attention_xla.flash_attention, "[lm_moe]")
+    aux, drops = [], []
+    layer_fn, dispatch_fn = moe_mod.moe_layer, moe_mod._dispatch
+
+    def layer_read(p, x, cfg_):
+        y, a = layer_fn(p, x, cfg_)
+        aux.append(a.item())
+        return y, a
+
+    def dispatch_read(x, top_i, top_w, E, C):
+        buf, meta = dispatch_fn(x, top_i, top_w, E, C)
+        drops.append(int((~meta[3]).sum()))
+        return buf, meta
+
+    attention_xla.flash_attention = held
+    moe_mod.moe_layer, moe_mod._dispatch = layer_read, dispatch_read
+    try:
+        t0 = time.perf_counter()
+        prefill(tokens)
+        torch.cuda.synchronize()
+    finally:
+        attention_xla.flash_attention = held.original
+        moe_mod.moe_layer, moe_mod._dispatch = layer_fn, dispatch_fn
+    check(held.calls == {(True, s, s): 32}, f"[lm_moe] held {held.calls}")
+    check(len(aux) == 32 and all(math.isfinite(a) and a > 0 for a in aux),
+          f"[lm_moe] aux per layer {aux}")
+    capacity = moe_mod._capacity(b * s, cfg)
+    print(f"[lm_moe] every attention call of one prefill against its plain "
+          f"version ({time.perf_counter() - t0:.3f} s): {held.summary()}")
+    print(f"[lm_moe] balance loss aux: {sum(aux):.4f} over the 32 layers "
+          f"(each {min(aux):.4f}-{max(aux):.4f}; 1 is a uniform router); "
+          f"(token, slot) pairs dropped at each layer's capacity C = "
+          f"{capacity} of {b * s * cfg.n_experts_active}: {drops} "
+          f"({sum(drops)} in all)")
+    del model, prefill, decode, tokens, generated, cold, held
+    memory_back(torch, dev, base, "[lm_moe] the bf16 model")
+
+    line = teacher_forcing(torch, dev, gen, cfg, "[lm_moe]", zero_counts,
+                           counts)
+    print(line)
+    memory_back(torch, dev, base, "[lm_moe] the phase")
+    return {"name": cfg.name, "launches": 32, "route": "bf16_wgmma",
+            "ms": attn_ms / 32}
+
+
+def lm_families_phase(torch, dev, gen, card: str, zero_counts,
+                      counts) -> dict:
+    """``[lm_families]``: serve Moonshot (4 layers), Seamless, Phi-3-vision
+    and xLSTM at their published widths on the card, each a prefill and
+    FAM_DECODE greedy decode steps, cold then warm; check the attention
+    launches by route, hold every attention call of one more prefill to
+    its plain version, time the sLSTM's loop, check decode against the full
+    sequence in float32 at a small depth, and print walls, rates and
+    memory.  Returns, per family, its launches by route a prefill."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models import LanguageModel, attention_xla, xlstm
+    from repro_torch.models.blocks import count_params
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    out = {}
+    for arch, depth, enc_len, n_text, want, twice in FAMILIES:
+        base = memory_base(torch, dev)
+        full = configs.get(arch)
+        cfg = full if depth is None else dataclasses.replace(
+            full, n_layers=depth)
+        label = f"[lm_families] {cfg.name}"
+        model = LanguageModel(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(SEED))
+        n_matrix = model.param_count()
+        check(n_matrix == count_params(cfg), f"{label}: param_count "
+              f"{n_matrix}, count_params {count_params(cfg)}")
+        kinds = [kind for _, kind in model.layers()]
+        n_img = cfg.vision_tokens if cfg.frontend == "vision" else 0
+        print(f"{label}: {cfg.n_layers} layers"
+              + (f" of {full.n_layers}" if depth is not None else "")
+              + (f" + {cfg.encoder_layers} encoder layers"
+                 if cfg.encoder_layers else "")
+              + f" ({', '.join(sorted(set(kinds)))}), d_model {cfg.d_model}, "
+              f"{cfg.n_heads} heads over {cfg.n_kv_heads}, head_dim "
+              f"{cfg.head_dim_}, vocab {cfg.vocab_size}, {model.dtype}; "
+              f"{n_matrix:,} parameters in weight matrices (= count_params"
+              f"{'; the published depth has ' + format(full.param_count(), ',') if depth is not None else ''}) "
+              f"({card})")
+        b = FAM_BATCH
+        s_max = n_img + n_text + FAM_DECODE
+        prefill = make_prefill_step(model, s_max=s_max)
+        decode = make_decode_step(model)
+        tokens = torch.randint(0, cfg.vocab_size, (b, n_text), generator=gen,
+                               device=dev)
+        ext = front_ends(torch, cfg, gen, dev, b, enc_len)
+        slstm_events = []
+        slstm_fn = xlstm.slstm_block
+
+        def slstm_timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = slstm_fn(*args, **kwargs)
+            end.record()
+            slstm_events.append((start, end))
+            return result
+
+        cold = served(torch, prefill, decode, tokens, ext, n_img, FAM_DECODE,
+                      label, cfg.vocab_size) if twice else None
+        zero_counts()
+        xlstm.slstm_block = slstm_timed
+        try:
+            generated, t_pre, t_dec = served(
+                torch, prefill, decode, tokens, ext, n_img, FAM_DECODE, label,
+                cfg.vocab_size)
+        finally:
+            xlstm.slstm_block = slstm_fn
+        got = counts()
+        routes = dict(fa_ops.flash_attention.routes)
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(cold is None or torch.equal(generated, cold[0]),
+              f"{label}: two served runs generated different tokens")
+        check(routes == want and got["flash_attention"] == sum(want.values()),
+              f"{label}: flash_attention launches by route {routes}, "
+              f"expected {want} a prefill")
+        others = {k: v for k, v in got.items() if v and k != "flash_attention"}
+        check(not others, f"{label}: unexpected launches {others}")
+        positions = b * (n_img + n_text)
+        print(f"{label}: prefill {b} x ({n_img} patches + {n_text} tokens"
+              + (f", {enc_len} encoder frames" if enc_len else "")
+              + (f"): cold {cold[1]:.4f} s, warm" if cold else "): once")
+              + f" {t_pre:.4f} s, "
+              f"{positions / t_pre:.1f} positions/s; decode {FAM_DECODE} "
+              f"steps: {t_dec:.4f} s, {t_dec / FAM_DECODE * 1e3:.3f} ms "
+              f"a step, {b * FAM_DECODE / t_dec:.1f} tokens/s; launches "
+              f"{routes or 'none'} a prefill, no other kernel wrapper; peak "
+              f"device memory {peak:,} bytes ({card})")
+        if slstm_events:
+            torch.cuda.synchronize()
+            per = [a.elapsed_time(e) for a, e in slstm_events]
+            print(f"{label}: the sLSTM's Python loop over {n_text} tokens, "
+                  f"{len(per)} layers: {sum(per):.1f} ms of the "
+                  f"{t_pre * 1e3:.1f} ms prefill, "
+                  f"{statistics.median(per) / n_text:.4f} ms a token a layer "
+                  f"(median layer; CUDA events) ({card})")
+        if want:
+            held = AttentionHeld(torch, fa_ops, fa_ref,
+                                 attention_xla.flash_attention, label)
+            attention_xla.flash_attention = held
+            try:
+                prefill(tokens, **ext)
+                torch.cuda.synchronize()
+            finally:
+                attention_xla.flash_attention = held.original
+            check(sum(held.calls.values()) == sum(want.values()),
+                  f"{label}: held {held.calls}")
+            print(f"{label}: every attention call of one prefill against its "
+                  f"plain version: {held.summary()}")
+            del held
+        out[cfg.name] = {"launches": sum(want.values()),
+                         "routes": dict(want)}
+        del model, prefill, decode, tokens, ext, generated, cold
+        slstm_events.clear()
+        memory_back(torch, dev, base, f"{label} the bf16 model")
+        print(teacher_forcing(torch, dev, gen, full, label, zero_counts,
+                              counts))
+        memory_back(torch, dev, base, label)
+    return out
+
+
+def train_families_phase(torch, dev, card: str, zero_counts,
+                         counts) -> dict:
+    """``[train_families]``: train each of the five new families at its
+    published widths (TRAIN_FAMILIES' depths), bf16, B 1 x S
+    TRAIN_FAM_SEQ, remat, TRAIN_FAM_STEPS AdamW steps through
+    ``make_train_step``; check the losses, step 1's gradients (finite and
+    non-zero for every parameter), the attention launches and backward
+    launches by route every step, step 1's attention backward calls
+    against ``ref.attention_grad`` (rms error per head slice within
+    BF16_SLICE_NRMS), and the memory.  Returns the backward's launches a
+    step per family."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models import LanguageModel
+    from repro_torch.models.blocks import count_params
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train import make_train_step
+
+    backward = fa_ops._Attention.__dict__["backward"]
+    out = {}
+    for arch, over, want_fwd, want_bwd in TRAIN_FAMILIES:
+        base = memory_base(torch, dev)
+        cfg = dataclasses.replace(configs.get(arch), **over)
+        label = f"[train_families] {cfg.name}"
+        model = LanguageModel(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(SEED))
+        n_params = model.param_count()
+        check(n_params == count_params(cfg), f"{label}: param_count")
+        n_img = cfg.vision_tokens if cfg.frontend == "vision" else 0
+        data = SyntheticLMDataset(
+            cfg.vocab_size, TRAIN_FAM_SEQ - n_img, 1, seed=SEED,
+            enc_len=(TRAIN_FAM_SEQ // cfg.encoder_ratio
+                     if cfg.encoder_layers else 0),
+            d_model=cfg.d_model if (cfg.encoder_layers or cfg.frontend)
+            else 0, vision_tokens=n_img, device=dev)
+        first, held = {}, {"calls": 0, "nrms": 0.0, "shapes": set()}
+        holding = [False]
+
+        class Watching(AdamW):
+            def update(self, grads, state, params):
+                if state.count == 0:
+                    for name, g in grads.items():
+                        first[name] = (bool(torch.isfinite(g).all()),
+                                       g.float().abs().max().item())
+                return super().update(grads, state, params)
+
+        def bwd_held(ctx, dout):
+            q, k, v, o, lse = ctx.saved_tensors
+            causal, window, scale = ctx.mask
+            got = fa_ops.flash_attention_bwd(q, k, v, o, dout, lse=lse,
+                                             causal=causal, window=window,
+                                             scale=scale)
+            if holding[0]:
+                exp = fa_ref.attention_grad(
+                    q.float(), k.float(), v.float(), dout.float(),
+                    causal=causal, window=window, scale=scale)
+                for name, g, e in zip(("dq", "dk", "dv"), got, exp):
+                    nrms = slice_nrms(g, e)
+                    check(bool(torch.isfinite(g).all())
+                          and nrms <= BF16_SLICE_NRMS,
+                          f"{label} attention backward {name} "
+                          f"({'causal' if causal else 'non-causal'} Sq "
+                          f"{q.shape[2]} Skv {k.shape[2]}): rms error per "
+                          f"head slice {nrms:.3e} (> {BF16_SLICE_NRMS:.3e})")
+                    held["nrms"] = max(held["nrms"], nrms)
+                held["calls"] += 1
+                held["shapes"].add((causal, q.shape[2], k.shape[2]))
+            return (*got, None, None, None, None)
+
+        opt = Watching(learning_rate=warmup_cosine(1e-3, 1, TRAIN_FAM_STEPS))
+        state = opt.init(model)
+        step = make_train_step(model, opt)
+        losses, walls = [], []
+        fa_ops._Attention.backward = staticmethod(bwd_held)
+        try:
+            zero_counts()
+            for i in range(TRAIN_FAM_STEPS):
+                holding[0] = i == 0
+                batch = data.batch_at(i)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                losses.append(float(metrics["loss"]))
+                if i == 0:
+                    aux = float(metrics["aux"])
+            holding[0] = False
+            got = counts()
+            routes = {"flash_attention": dict(fa_ops.flash_attention.routes),
+                      "flash_attention_bwd":
+                          dict(fa_ops.flash_attention_bwd.routes)}
+        finally:
+            fa_ops._Attention.backward = backward
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(all(math.isfinite(x) for x in losses), f"{label}: losses "
+              f"{losses}")
+        check(not cfg.is_moe or (math.isfinite(aux) and aux > 0),
+              f"{label}: aux {aux}")
+        names = [n for n, _ in model.named_parameters()]
+        bad = [n for n in names if n not in first or not first[n][0]
+               or first[n][1] == 0.0]
+        check(not bad, f"{label}: step 1 zero, missing or non-finite "
+              f"gradients {bad[:8]}")
+        steps = TRAIN_FAM_STEPS
+        want = {"flash_attention": {r: n * steps for r, n in want_fwd.items()},
+                "flash_attention_bwd": {r: n * steps
+                                        for r, n in want_bwd.items()}}
+        check(routes == want, f"{label}: launches by route {routes}, "
+              f"expected {want} over {steps} steps")
+        others = {k: v for k, v in got.items()
+                  if v and k not in ("flash_attention", "flash_attention_bwd")}
+        check(not others, f"{label}: unexpected launches {others}")
+        check(held["calls"] == sum(want_bwd.values()),
+              f"{label}: step 1 held {held['calls']} attention backwards, "
+              f"expected {sum(want_bwd.values())}")
+        shapes = ", ".join(f"{'causal' if c else 'non-causal'} Sq {a} Skv {k}"
+                           for c, a, k in sorted(held["shapes"]))
+        print(f"{label}: {cfg.n_layers} layers"
+              + (f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers
+                 else "")
+              + f" at the published widths, {n_params:,} parameters in "
+              f"weight matrices; B 1 x S {TRAIN_FAM_SEQ}"
+              + (f" ({n_img} patches)" if n_img else "")
+              + f", remat: losses {', '.join(f'{x:.4f}' for x in losses)}"
+              + (f" (aux {aux:.4f} at step 1)" if cfg.is_moe else "")
+              + f"; step walls {', '.join(f'{w:.4f}' for w in walls)} s; "
+              f"every parameter's gradient finite and non-zero at step 1; "
+              f"launches a step {want_fwd or 'none'} forward, "
+              f"{want_bwd or 'none'} backward; step 1's {held['calls']} "
+              f"attention backwards [{shapes}] within {held['nrms']:.3e} rms "
+              f"per head slice of the plain version (<= "
+              f"{BF16_SLICE_NRMS:.3e}); peak device memory {peak:,} bytes "
+              f"({card})")
+        out[cfg.name] = {"bwd_launches": sum(want_bwd.values()),
+                         "bwd_routes": dict(want_bwd)}
+        del model, state, step, opt, data, metrics, batch
+        first.clear()
+        memory_back(torch, dev, base, label)
+    return out
+
+
+def family_attention_timed(torch, dev, gen, card: str) -> dict:
+    """Attention at the shapes the new families give it (FAMILY_ATTN), in
+    bf16 through the entry points: the forward (its route, held to its
+    plain version) and the backward (with the forward's log-sum-exp where
+    the route hands one back, held within BF16_SLICE_NRMS), each timed
+    beside its bound, its plain version and SDPA's (a yardstick the port
+    never calls).  Returns the numbers by shape."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    out = {}
+    for name, (b, hq, hkv, sq, skv, d, causal) in FAMILY_ATTN.items():
+        dt = torch.bfloat16
+        q = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(dt)
+        k, v = (torch.randn((b, hkv, skv, d), generator=gen,
+                            device=dev).to(dt) for _ in range(2))
+        kw = dict(causal=causal, window=None, scale=d ** -0.5)
+        route = fa_ops.route(dt, d, [t.data_ptr() for t in (q, k, v, q)])
+        fa_ops.flash_attention.routes = {}
+        got = fa_ops.flash_attention(q, k, v, causal=causal, bkv=skv)
+        check(fa_ops.flash_attention.routes == {route: 1},
+              f"[attn families] {name}: routes "
+              f"{fa_ops.flash_attention.routes}, expected {route}")
+        exp32 = fa_ref.attention(q.float(), k.float(), v.float(), **kw)
+        stats = bf16_attention_error(got, exp32, v)
+        check(bf16_within(stats), f"[attn families] {name}: outside the "
+              f"bf16 limits {stats}")
+        exp = fa_ref.attention(q, k, v, **kw)
+        err = (got.double() - exp.double()).abs().max().item()
+        ms = time_ms(torch, lambda: fa_ops.flash_attention(
+            q, k, v, causal=causal, bkv=skv))
+        plain = time_ms(torch, lambda: fa_ref.attention(q, k, v, **kw),
+                        iters=2, warmup=1)
+        sdpa = time_ms(torch, lambda: torch.nn.functional
+                       .scaled_dot_product_attention(
+                           q, k, v, is_causal=causal, enable_gqa=True))
+        pairs = b * (visible_pairs(sq, None) if causal else sq * skv)
+        flops = 4 * hq * d * pairs
+        nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+        bnd, by = bound_ms(nbytes, flops, "bfloat16")
+        # the backward: the training forward hands it the log-sum-exp
+        # where its route gives one
+        o, lse = fa_ops._attend(q, k, v, lse=True, **kw)
+        dout = torch.randn(o.shape, generator=gen, device=dev).to(dt)
+        bwd_route = fa_ops.bwd_route(dt, d, fa_ops._bwd_addresses(
+            q, k, v, o, dout, lse))
+        grads = fa_ops.flash_attention_bwd(q, k, v, o, dout, lse=lse, **kw)
+        exp_g = fa_ref.attention_grad(q.float(), k.float(), v.float(),
+                                      dout.float(), **kw)
+        nrms = max(slice_nrms(g, e) for g, e in zip(grads, exp_g))
+        check(nrms <= BF16_SLICE_NRMS, f"[attn families] {name} backward "
+              f"({bwd_route}): rms error per head slice {nrms:.3e}")
+        del grads, exp_g
+        bwd_ms = time_ms(torch, lambda: fa_ops.flash_attention_bwd(
+            q, k, v, o, dout, lse=lse, **kw), iters=5, warmup=1)
+        bwd_plain = time_ms(torch, lambda: fa_ref.attention_grad(
+            q, k, v, dout, **kw), iters=1, warmup=1)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        o2 = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=causal, enable_gqa=True)
+        bwd_sdpa = time_ms(torch, lambda: torch.autograd.grad(
+            o2, leaves, dout, retain_graph=True), iters=5, warmup=1)
+        bwd_bnd, bwd_by = bound_ms(2 * (4 * q.numel() + 4 * k.numel()),
+                                   10 * hq * d * pairs, "bfloat16")
+        print(f"[attn families] {name} bf16 (q ({b}, {hq}, {sq}, {d}), k, v "
+              f"({b}, {hkv}, {skv}, {d}), {'causal' if causal else 'non-causal'}): "
+              f"forward [{route}] {ms:.3f} ms ({flops / ms / 1e9:.2f} "
+              f"TFLOP/s), plain {plain:.3f} ms, SDPA {sdpa:.3f} ms, bound "
+              f"{bnd:.4f} ms ({by}); max_abs_err {err:.3e} against the plain "
+              f"version, bf16 limits {stats}; backward [{bwd_route}] "
+              f"{bwd_ms:.3f} ms, plain {bwd_plain:.3f} ms, SDPA's backward "
+              f"{bwd_sdpa:.3f} ms, bound {bwd_bnd:.4f} ms ({bwd_by}), rms "
+              f"error per head slice {nrms:.3e} ({card})")
+        out[name] = dict(route=route, ms=ms, plain_ms=plain, bound_ms=bnd,
+                         bound_by=by, library_ms=sdpa, max_abs_err=err,
+                         bwd_route=bwd_route, bwd_ms=bwd_ms,
+                         bwd_plain_ms=bwd_plain, bwd_library_ms=bwd_sdpa,
+                         bwd_bound_ms=bwd_bnd)
+        del q, k, v, got, exp, exp32, o, lse, dout, leaves, o2
+    return out
 
 
 def bits(torch, t):
@@ -3156,11 +3967,29 @@ def main() -> int:
     print(f"[memory] peak allocated "
           f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB")
 
+    def timed(label, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(torch, dev, *args)
+        print(f"[time] {label}: {time.perf_counter() - t0:.1f} s")
+        return out
+
     # -- 8e. the LM stack: RecurrentGemma-9B served on the card ----------------
-    lm = lm_phase(torch, dev, gen, card, zero_counts, counts)
+    lm = timed("[lm]", lm_phase, gen, card, zero_counts, counts)
 
     # -- 8f. training: RecurrentGemma-9B's widths, 3 layers, on the card ------
-    train = train_phase(torch, dev, card, zero_counts, counts)
+    train = timed("[train]", train_phase, card, zero_counts, counts)
+
+    # -- 8g. the rest of the LM stack: granite-moe-3b-a800m served -------------
+    lm_moe = timed("[lm_moe]", lm_moe_phase, gen, card, zero_counts, counts)
+
+    # -- 8h. Moonshot, Seamless, Phi-3-vision, xLSTM at their published widths -
+    families = timed("[lm_families]", lm_families_phase, gen, card,
+                     zero_counts, counts)
+
+    # -- 8i. training the five, and attention at the shapes they give it ------
+    train_fams = timed("[train_families]", train_families_phase, card,
+                       zero_counts, counts)
+    fam_attn = timed("[attn families]", family_attention_timed, gen, card)
 
     # -- 9. result lines --------------------------------------------------------------
     gemm_source = "src/repro_torch/kernels/gemm/csrc/gemm.cu"
@@ -3231,7 +4060,31 @@ def main() -> int:
         kernels[-1].update(lm.get(name, {}))
         if name in ("flash_attention", "linear_scan"):
             kernels[-1].update(train[name])
+    # the families of the rest of the LM stack: flash_attention's launches
+    # and routes a prefill per family, its device time inside the Granite
+    # prefill and its times at the families' shapes; the backward's
+    # launches a training step per family and its times there
+    attn_row = next(k for k in kernels if k["name"] == "flash_attention")
+    attn_row["family_launches"] = {
+        lm_moe["name"]: {"launches": lm_moe["launches"],
+                         "routes": {lm_moe["route"]: lm_moe["launches"]}},
+        **{name: {"launches": f["launches"], "routes": f["routes"]}
+           for name, f in families.items()}}
+    attn_row["granite_ms"] = lm_moe["ms"]
+    attn_row["family_shapes"] = {
+        name: {k: v for k, v in t.items() if not k.startswith("bwd_")}
+        for name, t in fam_attn.items()}
+    bwd_row = next(k for k in kernels if k["name"] == "flash_attention_bwd")
+    bwd_row["family_train_launches"] = {
+        name: {"launches": t["bwd_launches"], "routes": t["bwd_routes"]}
+        for name, t in train_fams.items()}
+    bwd_row["family_shapes"] = {
+        name: {"route": t["bwd_route"], "ms": t["bwd_ms"],
+               "plain_ms": t["bwd_plain_ms"], "bound_ms": t["bwd_bound_ms"],
+               "library_ms": t["bwd_library_ms"]}
+        for name, t in fam_attn.items()}
     print(json.dumps({"kernels": kernels}))
+    print(f"[time] chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -9,9 +9,11 @@ The reference's flags, on the card unless ``--cpu`` asks for the host
 (with no card and no ``--cpu`` it stops with exit code 1 and a message).
 The model draws its weights from a ``torch.Generator`` seeded with
 ``--seed``; AdamW with ``warmup_cosine``; batches from
-``SyntheticLMDataset``; every 10th step and the last print ``[train]
-{json}`` (appended to ``--log-file`` as a JSON line), and
-``--metrics-out`` gets ``{"final": ...}``.
+``SyntheticLMDataset``, with the encoder's frames (``--seq`` /
+``encoder_ratio`` of them) or the image patches where the model takes
+them; every 10th step and the last print ``[train] {json}`` (appended to
+``--log-file`` as a JSON line), and ``--metrics-out`` gets ``{"final":
+...}``.
 
 Checkpoints and the supervisor's heartbeat (``--ckpt-dir``, ``--resume
 auto`` with a checkpoint directory, ``--heartbeat``, ``--crash-at-step``)
@@ -103,7 +105,11 @@ def main(argv=None) -> int:
         learning_rate=warmup_cosine(args.lr, args.warmup, args.steps))
     data = SyntheticLMDataset(
         vocab_size=cfg.vocab_size, seq_len=args.seq,
-        global_batch=args.batch, seed=args.seed, device=dev)
+        global_batch=args.batch, seed=args.seed,
+        enc_len=(args.seq // cfg.encoder_ratio if cfg.encoder_layers else 0),
+        d_model=cfg.d_model if (cfg.encoder_layers or cfg.frontend) else 0,
+        vision_tokens=cfg.vision_tokens if cfg.frontend == "vision" else 0,
+        device=dev)
     opt_state = optimizer.init(model)
     step_fn = make_train_step(model, optimizer)
 

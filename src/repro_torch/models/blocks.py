@@ -1,16 +1,20 @@
-"""Block composition — ``repro/models/blocks.py`` in PyTorch, for the block
-kinds the port serves and trains: ``attn`` (full causal GQA), ``swa``
-(sliding-window), ``local_attn`` (hybrid-local window, MQA in
-RecurrentGemma) and ``rglru``.  Each block is a pre-norm sublayer with a
-residual, then the MLP with its own pre-norm and residual.
+"""Block composition — ``repro/models/blocks.py`` in PyTorch: every
+architecture is a ``block_pattern`` over these kinds.
+
+Kinds: ``attn`` (full causal GQA), ``swa`` (sliding-window),
+``local_attn`` (hybrid-local window, MQA in RecurrentGemma), ``rglru``,
+``mlstm`` and ``slstm``.  Each block is a pre-norm sublayer with a
+residual; attention-family blocks and ``rglru`` are followed by a dense
+or mixture-of-experts MLP with its own pre-norm and residual, while the
+xLSTM blocks carry their feed-forward inside; a decoder block of an
+encoder-decoder model also has cross-attention (``ln_cross``, ``cross``)
+between the two.
 
 A block is a :class:`Block` module whose parameters carry the reference's
-dict keys (``ln1``, ``attn.wq``, ``rec.lam``, ``ln2``, ``mlp.w_up``, ...).
-The xLSTM kinds (``mlstm``, ``slstm``), cross-attention (encoder-decoder)
-and mixture-of-experts MLPs come with the rest of the LM stack
-(:func:`check_ported` raises for them).  :func:`count_params` counts every
-kind, as the reference's does, so ``ModelConfig.param_count()`` answers
-for all ten configurations.
+dict keys (``ln1``, ``attn.wq``, ``rec.lam``, ``mlstm.wq``, ``ln_cross``,
+``cross.wk``, ``ln2``, ``mlp.w_up``, ``moe.router``,
+``moe.experts.w_gate``, ...).  :func:`count_params` counts every kind, as
+the reference's does.
 """
 
 from __future__ import annotations
@@ -22,39 +26,16 @@ import torch.nn.functional as F
 
 from repro_torch.sharding.constraints import shard_act
 
-from . import layers, recurrent
+from . import layers, moe as moe_mod, recurrent, xlstm
 from .layers import Params, init_rmsnorm, rmsnorm
 
 ATTN_KINDS = ("attn", "swa", "local_attn", "cross")
 HAS_MLP = ("attn", "swa", "local_attn", "rglru")
-PORTED_KINDS = ("attn", "swa", "local_attn", "rglru")
-_LATER = ("the rest of the LM stack (ROADMAP Queue 1, Slice 6: xLSTM "
-          "blocks, mixture of experts, encoder-decoder and vision front "
-          "ends)")
-
-
-def check_ported(cfg, kinds=None) -> None:
-    """Raise :class:`ValueError`, naming the slice that brings it, for a
-    part of ``cfg`` the port does not run yet (``kinds``: the block kinds
-    to check, ``cfg.block_pattern`` by default)."""
-    for kind in cfg.block_pattern if kinds is None else kinds:
-        if kind in ("mlstm", "slstm"):
-            raise ValueError(f"{cfg.name}: block kind {kind!r} (xLSTM) is "
-                             f"not ported yet; it comes with {_LATER}")
-        if kind == "cross":
-            raise ValueError(f"{cfg.name}: cross-attention is not ported "
-                             f"yet; it comes with {_LATER}")
-        if kind not in PORTED_KINDS:
-            raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
-    if cfg.is_moe:
-        raise ValueError(f"{cfg.name}: mixture-of-experts MLPs are not "
-                         f"ported yet; they come with {_LATER}")
-    if cfg.encoder_layers:
-        raise ValueError(f"{cfg.name}: the encoder-decoder stack is not "
-                         f"ported yet; it comes with {_LATER}")
-    if cfg.frontend is not None:
-        raise ValueError(f"{cfg.name}: the {cfg.frontend} front end is not "
-                         f"ported yet; it comes with {_LATER}")
+# the sublayer each kind holds, and the functions that draw it
+_SUBLAYER = {"rglru": ("rec", recurrent.init_recurrent),
+             "mlstm": ("mlstm", xlstm.init_mlstm),
+             "slstm": ("slstm", xlstm.init_slstm),
+             **{kind: ("attn", layers.init_attention) for kind in ATTN_KINDS}}
 
 
 def _window_of(kind: str, cfg) -> Optional[int]:
@@ -68,43 +49,63 @@ def _ring(kind: str, cfg) -> bool:
                 and cfg.window)
 
 
+def _known(kind: str) -> None:
+    if kind not in _SUBLAYER:
+        raise ValueError(f"unknown block kind {kind!r}")
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
 class Block(Params):
-    """One block's parameters: ``ln1``, the sublayer (``attn`` or
-    ``rec``), and ``ln2`` with ``mlp``; ``kind`` is its block kind."""
+    """One block's parameters: ``ln1`` and the sublayer (``attn``,
+    ``rec``, ``mlstm`` or ``slstm``); with ``cross``, ``ln_cross`` and the
+    cross-attention ``cross``; for the kinds with an MLP, ``ln2`` and
+    ``mlp`` (or ``moe``, whose ``router`` stays float32, and its
+    ``experts``).  ``kind`` is its block kind."""
 
-    def __init__(self, kind: str, cfg, dtype, device):
-        check_ported(cfg, (kind,))
+    def __init__(self, kind: str, cfg, dtype, device, *, cross: bool = False):
+        _known(kind)
 
         def norms(generator, dev):
             p = {"ln1": init_rmsnorm(cfg.d_model, dtype, dev)}
+            if cross:
+                p["ln_cross"] = init_rmsnorm(cfg.d_model, dtype, dev)
             if kind in HAS_MLP:
                 p["ln2"] = init_rmsnorm(cfg.d_model, dtype, dev)
             return p
 
         super().__init__(norms, device)
         self.kind = kind
-        if kind in ATTN_KINDS:
-            self.attn = Params(lambda g, dev: layers.init_attention(
+        name, init = _SUBLAYER[kind]
+        self.add_module(name, Params(lambda g, dev: init(g, cfg, dtype, dev),
+                                     device))
+        if cross:
+            self.cross = Params(lambda g, dev: layers.init_attention(
                 g, cfg, dtype, dev), device)
-        else:
-            self.rec = Params(lambda g, dev: recurrent.init_recurrent(
+        if kind in HAS_MLP and cfg.is_moe:
+            self.moe = Params(lambda g, dev: moe_mod.init_router(g, cfg, dev),
+                              device)
+            self.moe.experts = Params(lambda g, dev: moe_mod.init_experts(
                 g, cfg, dtype, dev), device)
-        if kind in HAS_MLP:
+        elif kind in HAS_MLP:
             self.mlp = Params(lambda g, dev: layers.init_mlp(
                 g, cfg, dtype, dev), device)
 
 
-def init_block(generator, kind: str, cfg, dtype, device) -> Block:
+def init_block(generator, kind: str, cfg, dtype, device, *,
+               cross: bool = False) -> Block:
     """A :class:`Block` of ``kind`` drawn from ``generator``."""
-    return Block(kind, cfg, dtype, device).reset(generator)
+    return Block(kind, cfg, dtype, device, cross=cross).reset(generator)
+
+
+def _has(p, name: str) -> bool:
+    return name in p if isinstance(p, dict) else hasattr(p, name)
 
 
 # ---------------------------------------------------------------------------
-# apply (full sequence: prefill)
+# apply (full sequence: train / prefill)
 # ---------------------------------------------------------------------------
 
 def apply_block(
@@ -115,13 +116,18 @@ def apply_block(
     *,
     causal: bool = True,
     positions: Optional[torch.Tensor] = None,
+    memory_h: Optional[torch.Tensor] = None,   # encoder hiddens (cross-attn)
     return_state: bool = False,
     s_max: Optional[int] = None,            # cache capacity when prefilling
     chunked: bool = False,
 ):
-    """Returns ``x_out``, or ``(x_out, state)`` with ``return_state`` (the
-    reference also returns the MoE auxiliary loss, always 0 here)."""
-    check_ported(cfg, (kind,))
+    """Returns ``(x_out, moe_aux_loss)``, or ``(x_out, aux, state)`` with
+    ``return_state``, as the reference's does; ``aux`` is a float32 zero
+    for a block without a mixture of experts.  A block with
+    cross-attention attends ``memory_h``; its state is then ``{"self":
+    ..., "cross": {"k", "v"}}``."""
+    _known(kind)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     state = None
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if kind in ATTN_KINDS:
@@ -149,21 +155,45 @@ def apply_block(
             out = layers.attention(
                 p["attn"], h, cfg, causal=causal, window=win,
                 positions=positions, chunked=chunked)
-    else:
+    elif kind == "rglru":
         r = recurrent.recurrent_block(p["rec"], h, cfg,
                                       return_state=return_state)
+        out, state = r if return_state else (r, None)
+    elif kind == "mlstm":
+        r = xlstm.mlstm_block(p["mlstm"], h, cfg, return_state=return_state,
+                              chunked=chunked)
+        out, state = r if return_state else (r, None)
+    else:
+        r = xlstm.slstm_block(p["slstm"], h, cfg, return_state=return_state)
         out, state = r if return_state else (r, None)
     x = x + out.to(x.dtype)
     x = shard_act(x, "residual")
 
+    if _has(p, "cross") and memory_h is not None:
+        h = rmsnorm(x, p["ln_cross"], cfg.norm_eps)
+        if return_state:
+            out, (ck, cv) = layers.attention(
+                p["cross"], h, cfg, memory_h=memory_h, return_kv=True,
+                chunked=chunked)
+            state = {"self": state, "cross": {"k": ck, "v": cv}}
+        else:
+            out = layers.attention(p["cross"], h, cfg, memory_h=memory_h,
+                                   chunked=chunked)
+        x = x + out.to(x.dtype)
+    elif _has(p, "cross") and return_state:
+        state = {"self": state, "cross": None}
+
     if kind in HAS_MLP:
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-        out = layers.mlp(p["mlp"], h, cfg.mlp)
+        if cfg.is_moe:
+            out, aux = moe_mod.moe_layer(p["moe"], h, cfg)
+        else:
+            out = layers.mlp(p["mlp"], h, cfg.mlp)
         x = x + out.to(x.dtype)
         x = shard_act(x, "residual")
     if return_state:
-        return x, state
-    return x
+        return x, aux, state
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -178,33 +208,71 @@ def apply_block_decode(
     pos: int,
     cfg,
 ) -> tuple[torch.Tensor, Any]:
-    check_ported(cfg, (kind,))
+    """One token through the block against its decode ``state`` (a
+    ``{"self", "cross"}`` pair for a block with cross-attention, whose
+    encoder cache is read and never written); a mixture of experts runs at
+    capacity T, so no token drops."""
+    _known(kind)
+    has_cross = (isinstance(state, dict) and "cross" in state
+                 and "self" in state)
+    self_state = state["self"] if has_cross else state
+
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if kind in ATTN_KINDS:
-        out, state = layers.attention_decode(
-            p["attn"], h, state, pos, cfg, window=_window_of(kind, cfg),
+        out, self_state = layers.attention_decode(
+            p["attn"], h, self_state, pos, cfg, window=_window_of(kind, cfg),
             ring=_ring(kind, cfg))
+    elif kind == "rglru":
+        out, self_state = recurrent.recurrent_block_decode(
+            p["rec"], h, self_state, cfg)
+    elif kind == "mlstm":
+        out, self_state = xlstm.mlstm_block_decode(
+            p["mlstm"], h, self_state, cfg)
     else:
-        out, state = recurrent.recurrent_block_decode(p["rec"], h, state, cfg)
+        out, self_state = xlstm.slstm_block_decode(
+            p["slstm"], h, self_state, cfg)
     x = x + out.to(x.dtype)
+
+    if has_cross and state["cross"] is not None:
+        h = rmsnorm(x, p["ln_cross"], cfg.norm_eps)
+        out, _ = layers.attention_decode(
+            p["cross"], h, state["cross"], pos, cfg, is_cross=True)
+        x = x + out.to(x.dtype)
 
     if kind in HAS_MLP:
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-        out = layers.mlp(p["mlp"], h, cfg.mlp)
+        if cfg.is_moe:
+            out, _ = moe_mod.moe_layer(p["moe"], h, cfg)
+        else:
+            out = layers.mlp(p["mlp"], h, cfg.mlp)
         x = x + out.to(x.dtype)
-    return x, state
+    if has_cross:
+        return x, {"self": self_state, "cross": state["cross"]}
+    return x, self_state
 
 
 def init_block_state(kind: str, cfg, batch: int, s_max: int, dtype,
-                     device) -> Any:
+                     device, *, enc_len: int = 0) -> Any:
     """Decode-time carried state for one block: a KV cache (full length,
-    or the last ``window`` slots with ``cfg.ring_cache``) or the RG-LRU's
-    conv window and hidden state."""
-    check_ported(cfg, (kind,))
+    or the last ``window`` slots with ``cfg.ring_cache``), the RG-LRU's
+    conv window and hidden state, or an xLSTM block's recurrent state;
+    with ``enc_len``, ``{"self": that, "cross": the encoder's K/V
+    cache}``."""
+    _known(kind)
     if kind in ATTN_KINDS:
         cap = min(cfg.window, s_max) if _ring(kind, cfg) else s_max
-        return layers.init_attention_cache(cfg, batch, cap, dtype, device)
-    return recurrent.init_recurrent_state(cfg, batch, dtype, device)
+        state = layers.init_attention_cache(cfg, batch, cap, dtype, device)
+    elif kind == "rglru":
+        state = recurrent.init_recurrent_state(cfg, batch, dtype, device)
+    elif kind == "mlstm":
+        state = xlstm.init_mlstm_state(cfg, batch, dtype, device)
+    else:
+        state = xlstm.init_slstm_state(cfg, batch, dtype, device)
+    if enc_len:
+        cross = layers.init_attention_cache(cfg, batch, enc_len, dtype,
+                                            device)
+        return {"self": state, "cross": cross}
+    return state
 
 
 # ---------------------------------------------------------------------------

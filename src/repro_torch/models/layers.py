@@ -8,7 +8,8 @@ Dtypes follow the reference's jax promotion: norms and RoPE compute in
 float32 and cast back, products stay in the parameters' dtype.
 
 Full-sequence attention (training, the materialised path and the chunked
-prefill alike) goes through the port's flash-attention entry point
+prefill alike; self-attention and cross-attention over an encoder's
+hidden states) goes through the port's flash-attention entry point
 (:func:`repro_torch.kernels.flash_attention.ops.flash_attention`): the
 hand-written kernel on the card, its plain version on the CPU.  The
 reference computes the same function with its oracle
@@ -180,6 +181,32 @@ def _project_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor):
     return q, k, v
 
 
+def project_kv(p, memory_h: torch.Tensor, cfg):
+    """Cross-attention K/V from encoder hidden states (no RoPE)."""
+    b, s, _ = memory_h.shape
+    hd = cfg.head_dim_
+    k = memory_h @ p["wk"]
+    v = memory_h @ p["wv"]
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    k = k.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    v = v.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    if cfg.qk_norm:
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    return k, v
+
+
+def _project_q(p, x: torch.Tensor, cfg) -> torch.Tensor:
+    b, s, _ = x.shape
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim_).transpose(1, 2)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+    return q
+
+
 def attention(
     p,
     x: torch.Tensor,                   # (B, S, d)
@@ -188,18 +215,32 @@ def attention(
     causal: bool = True,
     window: Optional[int] = None,
     positions: Optional[torch.Tensor] = None,
+    memory_h: Optional[torch.Tensor] = None,  # cross-attn: encoder hiddens
+    kv_override: Optional[tuple] = None,      # cross-attn: precomputed (k, v)
     return_kv: bool = False,
     chunked: bool = False,
 ):
-    """Full-sequence (prefill) self-attention through the flash-attention
-    entry point; ``chunked`` takes :func:`.attention_xla.chunked_attention`
-    (the same entry point, with the reference's chunk-size check).  The
-    reference's cross-attention arguments (``memory_h``, ``kv_override``)
-    come with the encoder-decoder slice."""
+    """Full-sequence (prefill and training) attention through the
+    flash-attention entry point; ``chunked`` takes
+    :func:`.attention_xla.chunked_attention` (the same entry point, with
+    the reference's chunk-size check).  With ``memory_h`` or
+    ``kv_override`` it is cross-attention over an encoder's hidden states
+    (queries without RoPE, K/V from :func:`project_kv`), never causal.
+
+    A non-causal call hands the entry point the whole key length as its
+    key block, so no key is padded: the reference's models call its
+    oracle, which pads nothing, and a zero-padded key would be attended
+    (the entry point's padded-keys quirk, ROADMAP Queue 3)."""
     b, s, _ = x.shape
-    if positions is None:
-        positions = torch.arange(s, device=x.device)
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    if memory_h is not None or kv_override is not None:
+        q = _project_q(p, x, cfg)
+        k, v = kv_override if kv_override is not None else project_kv(
+            p, memory_h, cfg)
+        causal = False
+    else:
+        if positions is None:
+            positions = torch.arange(s, device=x.device)
+        q, k, v = _project_qkv(p, x, cfg, positions)
     k = shard_act(k, "kv_gathered")
     v = shard_act(v, "kv_gathered")
     scale = cfg.head_dim_ ** -0.5
@@ -207,8 +248,9 @@ def attention(
         out = chunked_attention(q, k, v, causal=causal, window=window,
                                 scale=scale)
     else:
+        whole = {} if causal else {"bkv": max(1, k.shape[2])}
         out = flash_attention(q, k, v, causal=causal, window=window,
-                              scale=scale)
+                              scale=scale, **whole)
     out = out.transpose(1, 2).reshape(b, s, -1)
     out = out @ p["wo"]
     if return_kv:
@@ -224,9 +266,14 @@ def attention_decode(
     cfg,
     *,
     window: Optional[int] = None,
+    is_cross: bool = False,             # cache holds static encoder K/V
     ring: bool = False,                 # windowed ring buffer (SWA decode)
 ) -> tuple[torch.Tensor, dict]:
     """Single-token decode against a KV cache, in plain PyTorch.
+
+    With ``is_cross`` the cache holds the encoder's keys and values
+    (cross-attention): the query attends to all of them and nothing is
+    written.
 
     The new key and value are written into the cache tensors in place
     (slot ``pos``, or ``pos % W`` with ``ring``); the reference returns
@@ -239,16 +286,19 @@ def attention_decode(
     b = x.shape[0]
     hd = cfg.head_dim_
     pos = int(pos)
-    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(p, x, cfg, positions)
     k, v = cache["k"], cache["v"]
     s_max = k.shape[2]
-    slot = pos % s_max if ring else pos
-    if not 0 <= slot < s_max:
-        raise ValueError(f"decode position {pos} is past the cache's "
-                         f"{s_max} slots")
-    k[:, :, slot:slot + 1] = k_new
-    v[:, :, slot:slot + 1] = v_new
+    if is_cross:
+        q = _project_q(p, x, cfg)
+    else:
+        positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        q, k_new, v_new = _project_qkv(p, x, cfg, positions)
+        slot = pos % s_max if ring else pos
+        if not 0 <= slot < s_max:
+            raise ValueError(f"decode position {pos} is past the cache's "
+                             f"{s_max} slots")
+        k[:, :, slot:slot + 1] = k_new
+        v[:, :, slot:slot + 1] = v_new
 
     kvh = k.shape[1]
     group = cfg.n_heads // kvh
@@ -256,15 +306,16 @@ def attention_decode(
     # side by side, (B, KV, group, hd) against (B, KV, S, hd)
     qg = q.float().reshape(b, kvh, group, hd)
     s_ = torch.einsum("bhgd,bhkd->bhgk", qg, k.float()) * (hd ** -0.5)
-    kpos = torch.arange(s_max, device=x.device)
-    if ring:
-        # slots <= pos are written; wrapped slots are all in-window
-        mask = (kpos <= pos) | (pos >= s_max)
-    else:
-        mask = kpos <= pos
-        if window is not None:
-            mask = mask & (kpos > pos - window)
-    s_ = torch.where(mask, s_, NEG_INF)
+    if not is_cross:
+        kpos = torch.arange(s_max, device=x.device)
+        if ring:
+            # slots <= pos are written; wrapped slots are all in-window
+            mask = (kpos <= pos) | (pos >= s_max)
+        else:
+            mask = kpos <= pos
+            if window is not None:
+                mask = mask & (kpos > pos - window)
+        s_ = torch.where(mask, s_, NEG_INF)
     o = torch.einsum("bhgk,bhkd->bhgd", torch.softmax(s_, dim=-1),
                      v.float()).to(x.dtype)
     o = o.reshape(b, 1, -1)

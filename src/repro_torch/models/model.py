@@ -1,13 +1,16 @@
-"""LanguageModel — ``repro/models/model.py`` in PyTorch, for the block kinds
-the port runs.
+"""LanguageModel — ``repro/models/model.py`` in PyTorch: one substrate for
+all ten architectures (decoder-only, encoder-decoder, and the stub front
+ends: audio frames into the encoder, vision patch embeddings prepended to
+the token sequence).
 
 The model is an ``nn.Module`` that holds its parameters under the
 reference's dict paths: ``emb``, ``ln_f``, ``lm_head`` (untied heads),
 ``groups.<g>.b<i>.<sublayer>.<name>`` for the ``g``-th repeat of the block
 pattern (the reference stacks these along a leading axis and scans over
-them; the port loops over the groups), and ``tail.<i>...`` for the
-remainder layers.  Construction allocates uninitialised storage on its
-device (the card unless the caller asks for another; ``"meta"`` allocates
+them; the port loops over the groups), ``tail.<i>...`` for the remainder
+layers, and for an encoder-decoder ``enc.groups...``, ``enc.tail...`` and
+``enc.ln_f``.  Construction allocates uninitialised storage on its device
+(the card unless the caller asks for another; ``"meta"`` allocates
 nothing); :meth:`init` draws every parameter from a ``torch.Generator``
 on that device, one sublayer at a time;
 :func:`repro_torch.models.weights.carry_params` loads the reference's
@@ -17,17 +20,21 @@ Training: :meth:`forward` runs under autograd (the parameters take a
 gradient once a trainer calls ``requires_grad_(True)``), each pattern
 group under ``torch.utils.checkpoint`` with ``remat`` (the reference's
 ``jax.checkpoint(..., nothing_saveable)``); :meth:`loss` is the
-reference's cross-entropy over full float32 logits.  Attention and the
-RG-LRU scan go through the kernels' entry points, whose backwards are the
-backward kernel and one more scan-kernel launch on the card.
+reference's cross-entropy over full float32 logits plus 0.01 times the
+mixture-of-experts balance loss summed over the decoder's blocks.
+Attention and the RG-LRU scan go through the kernels' entry points, whose
+backwards are the backward kernel and one more scan-kernel launch on the
+card.
 
-Serving: :meth:`prefill` runs the prompt through every block (attention
-through the flash-attention entry point, the RG-LRU scan through the
-linear-scan entry point) and returns the last token's logits and the
-decode states; :meth:`decode_step` advances one token against them in
-plain PyTorch.  Both run under ``torch.no_grad()``.  States are nested
-like the reference's, with the groups as a list: ``{"groups": [{"b0":
-state, ...}, ...] or None, "tail": [...]}``.
+Serving: :meth:`prefill` runs the prompt (and the encoder's frames, or the
+image patches before it) through every block (attention through the
+flash-attention entry point, the RG-LRU scan through the linear-scan entry
+point) and returns the last token's logits and the decode states;
+:meth:`decode_step` advances one token against them in plain PyTorch.
+Both run under ``torch.no_grad()``.  States are nested like the
+reference's, with the groups as a list: ``{"groups": [{"b0": state, ...},
+...] or None, "tail": [...]}``, a decoder block's state a ``{"self",
+"cross"}`` pair in an encoder-decoder.
 """
 
 from __future__ import annotations
@@ -48,17 +55,28 @@ def _dtype_of(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+def _stack(cfg, dt, device, n_layers: int, *, cross: bool):
+    """The pattern groups (a list of ``{"b<i>": Block}``) and the tail
+    blocks of a stack of ``n_layers``."""
+    period = cfg.pattern_period
+    groups = nn.ModuleList(
+        nn.ModuleDict({f"b{i}": blocks.Block(kind, cfg, dt, device,
+                                             cross=cross)
+                       for i, kind in enumerate(cfg.block_pattern)})
+        for _ in range(n_layers // period))
+    tail = nn.ModuleList(blocks.Block(kind, cfg, dt, device, cross=cross)
+                         for kind in cfg.block_pattern[:n_layers % period])
+    return groups, tail
+
+
 class LanguageModel(Params):
-    """The decoder-only stack of ``cfg``, for training and serving.
+    """The stack of ``cfg``, for training and serving.
 
     ``device`` defaults to the card; with no CUDA device that raises
-    rather than falling back to the CPU.  A configuration with a part the
-    port does not run yet raises :class:`ValueError` before anything is
-    allocated (:func:`.blocks.check_ported`).
+    rather than falling back to the CPU.
     """
 
     def __init__(self, cfg, *, device=None):
-        blocks.check_ported(cfg)
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("LanguageModel: no CUDA device "
@@ -80,12 +98,13 @@ class LanguageModel(Params):
         super().__init__(init, device)
         self.cfg = cfg
         self.dtype = dt
-        self.groups = nn.ModuleList(
-            nn.ModuleDict({f"b{i}": blocks.Block(kind, cfg, dt, device)
-                           for i, kind in enumerate(cfg.block_pattern)})
-            for _ in range(cfg.n_groups))
-        self.tail = nn.ModuleList(blocks.Block(kind, cfg, dt, device)
-                                  for kind in cfg.tail_pattern)
+        self.groups, self.tail = _stack(cfg, dt, device, cfg.n_layers,
+                                        cross=cfg.encoder_layers > 0)
+        if cfg.encoder_layers:
+            self.enc = Params(lambda g, dev: {
+                "ln_f": init_rmsnorm(cfg.d_model, dt, dev)}, device)
+            self.enc.groups, self.enc.tail = _stack(
+                cfg, dt, device, cfg.encoder_layers, cross=False)
 
     @property
     def device(self) -> torch.device:
@@ -99,11 +118,12 @@ class LanguageModel(Params):
     def param_count(self) -> int:
         """The elements of every weight matrix: what
         ``ModelConfig.param_count()`` counts analytically (it leaves out
-        the norm scales, biases and the RG-LRU's ``lam`` and ``conv_b``)."""
+        the norm scales, biases, the RG-LRU's ``lam`` and ``conv_b`` and
+        the xLSTM blocks' ``skip`` and ``b_gates``)."""
         return sum(p.numel() for p in self.parameters() if p.dim() >= 2)
 
     def layers(self):
-        """(block, kind) for every layer, in depth order."""
+        """(block, kind) for every layer of the decoder, in depth order."""
         pattern = self.cfg.block_pattern
         for group in self.groups:
             for i, kind in enumerate(pattern):
@@ -112,43 +132,90 @@ class LanguageModel(Params):
             yield blk, pattern[i]
 
     # ------------------------------------------------------------------
-    # embedding, full sequence, head
+    # embedding, stacks, head
     # ------------------------------------------------------------------
-    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def embed(self, tokens: torch.Tensor,
+              extra_embeds: torch.Tensor | None = None) -> torch.Tensor:
+        """Token embeddings, with ``extra_embeds`` (vision patches)
+        prepended along the sequence."""
         x = self["emb"][tokens]
         if self.cfg.emb_scale:
             # a Python float keeps the embeddings' dtype, as jax's weak
             # typing does
             x = x * math.sqrt(self.cfg.d_model)
+        if extra_embeds is not None:
+            x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
         return shard_act(x, "residual")
 
-    def _group(self, group: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
+    def _group(self, group: nn.ModuleDict, x: torch.Tensor, memory_h,
+               causal: bool, chunked: bool):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, kind in enumerate(self.cfg.block_pattern):
-            x = blocks.apply_block(group[f"b{i}"], x, kind, self.cfg)
-        return x
+            x, a = blocks.apply_block(group[f"b{i}"], x, kind, self.cfg,
+                                      causal=causal, memory_h=memory_h,
+                                      chunked=chunked)
+            aux = aux + a
+        return x, aux
 
-    def forward(self, tokens: torch.Tensor, *,
-                remat: bool = True) -> torch.Tensor:
-        """Final-norm hidden states (B, S, d) of ``tokens`` (B, S); the
-        reference also returns the MoE auxiliary loss, 0 here.
-
-        Runs under autograd when grad mode is on.  With ``remat`` and grad
-        mode on, each pattern group runs under ``torch.utils.checkpoint``
-        (non-reentrant), which keeps only the group's input and runs the
-        group again in the backward, as the reference's ``jax.checkpoint``
-        with ``nothing_saveable`` does; the tail layers are not
-        checkpointed, as in the reference."""
-        x = self.embed(tokens)
-        for group in self.groups:
+    def _run_stack(self, stack, x: torch.Tensor, *, causal: bool = True,
+                   memory_h=None, remat: bool = True, chunked: bool = False):
+        """``(x, aux summed over the stack's blocks)``.  With ``remat`` and
+        grad mode on, each pattern group runs under
+        ``torch.utils.checkpoint`` (non-reentrant), which keeps only the
+        group's inputs and runs the group again in the backward, as the
+        reference's ``jax.checkpoint`` with ``nothing_saveable`` does; the
+        tail layers are not checkpointed, as in the reference."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for group in stack.groups:
             if remat and torch.is_grad_enabled():
-                x = checkpoint(self._group, group, x, use_reentrant=False,
-                               preserve_rng_state=False)
+                x, a = checkpoint(self._group, group, x, memory_h, causal,
+                                  chunked, use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
-                x = self._group(group, x)
+                x, a = self._group(group, x, memory_h, causal, chunked)
+            aux = aux + a
         pattern = self.cfg.block_pattern
-        for i, blk in enumerate(self.tail):
-            x = blocks.apply_block(blk, x, pattern[i], self.cfg)
-        return rmsnorm(x, self["ln_f"], self.cfg.norm_eps)
+        for i, blk in enumerate(stack.tail):
+            x, a = blocks.apply_block(blk, x, pattern[i], self.cfg,
+                                      causal=causal, memory_h=memory_h,
+                                      chunked=chunked)
+            aux = aux + a
+        return x, aux
+
+    def _encode(self, frames: torch.Tensor, *, remat: bool,
+                chunked: bool = False) -> torch.Tensor:
+        """The encoder's final-norm hidden states of ``frames`` (B, S_enc,
+        d), non-causal; its blocks' aux is dropped, as the reference's
+        forward drops it."""
+        enc_x = shard_act(frames.to(self.dtype), "residual")
+        enc_x, _ = self._run_stack(self.enc, enc_x, causal=False,
+                                   remat=remat, chunked=chunked)
+        return rmsnorm(enc_x, self.enc["ln_f"], self.cfg.norm_eps)
+
+    def hidden_and_aux(self, tokens: torch.Tensor, *, frames=None,
+                       pixels=None, remat: bool = True):
+        """``(final-norm hidden states (B, S, d), MoE aux loss)``: the
+        reference's ``forward``.  ``frames``: the encoder's input
+        embeddings (encoder-decoder); ``pixels``: patch embeddings
+        prepended to the tokens (vision), so S counts them."""
+        memory_h = None
+        if self.cfg.encoder_layers:
+            memory_h = self._encode(frames, remat=remat)
+        x = self.embed(tokens, pixels)
+        x, aux = self._run_stack(self, x, causal=True, memory_h=memory_h,
+                                 remat=remat)
+        return rmsnorm(x, self["ln_f"], self.cfg.norm_eps), aux
+
+    def forward(self, tokens: torch.Tensor, *, frames=None, pixels=None,
+                remat: bool = True) -> torch.Tensor:
+        """Final-norm hidden states (B, S, d) of ``tokens`` (B, S): the
+        first of the reference's ``(hidden, aux)``
+        (:meth:`hidden_and_aux` gives both).
+
+        Runs under autograd when grad mode is on, each pattern group under
+        ``torch.utils.checkpoint`` with ``remat``."""
+        return self.hidden_and_aux(tokens, frames=frames, pixels=pixels,
+                                   remat=remat)[0]
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         head = self["emb"].T if self.cfg.tie_embeddings else self["lm_head"]
@@ -159,17 +226,25 @@ class LanguageModel(Params):
     # ------------------------------------------------------------------
     def loss(self, batch: dict, *, n_chunks: int = 8, remat: bool = True):
         """The reference's LM cross-entropy: ``batch`` holds ``tokens`` and
-        ``labels`` (B, S), label -1 masked.  Returns ``(loss, {"nll",
-        "aux", "tokens"})`` with ``loss = nll + 0.01 aux``; ``aux`` (the
-        MoE balance loss) is 0 for every family the port runs.
+        ``labels`` (B, S), label -1 masked, and ``frames`` / ``pixels``
+        where the model takes them (the image positions carry no loss).
+        Returns ``(loss, {"nll", "aux", "tokens"})`` with ``loss = nll +
+        0.01 aux``, ``aux`` the MoE balance loss summed over the decoder's
+        blocks (0 without experts).
 
         The logits are the full (B, S, V) product cast to float32, as the
         reference's are; ``n_chunks`` is kept for the reference's signature
         and ignored, as it is there."""
         del n_chunks
-        hidden = self.forward(batch["tokens"], remat=remat)
+        pixels = batch.get("pixels")
+        hidden, aux = self.hidden_and_aux(
+            batch["tokens"], frames=batch.get("frames"), pixels=pixels,
+            remat=remat)
         labels = batch["labels"]
-        aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        if pixels is not None:
+            pad = torch.full(pixels.shape[:2], -1, dtype=labels.dtype,
+                             device=labels.device)
+            labels = torch.cat([pad, labels], dim=1)
         logits = self.logits(hidden).float()
         mask = labels >= 0
         y_safe = torch.where(mask, labels, 0).long()
@@ -184,44 +259,50 @@ class LanguageModel(Params):
     # ------------------------------------------------------------------
     # serving
     # ------------------------------------------------------------------
-    def init_states(self, batch: int, s_max: int) -> dict:
-        """Zero decode states laid out like :meth:`prefill`'s."""
+    def init_states(self, batch: int, s_max: int, *,
+                    enc_len: int = 0) -> dict:
+        """Zero decode states laid out like :meth:`prefill`'s (with
+        ``enc_len``, each block's encoder cache beside its own state)."""
         cfg, dt, dev = self.cfg, self.dtype, self.device
 
-        def group_states():
-            return {f"b{i}": blocks.init_block_state(kind, cfg, batch, s_max,
-                                                     dt, dev)
-                    for i, kind in enumerate(cfg.block_pattern)}
+        def state(kind):
+            return blocks.init_block_state(kind, cfg, batch, s_max, dt, dev,
+                                           enc_len=enc_len)
 
         return {
-            "groups": ([group_states() for _ in range(cfg.n_groups)]
+            "groups": ([{f"b{i}": state(kind)
+                         for i, kind in enumerate(cfg.block_pattern)}
+                        for _ in range(cfg.n_groups)]
                        if cfg.n_groups else None),
-            "tail": [blocks.init_block_state(kind, cfg, batch, s_max, dt, dev)
-                     for kind in cfg.tail_pattern],
+            "tail": [state(kind) for kind in cfg.tail_pattern],
         }
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, *, s_max: int):
-        """Run the prompt ``tokens`` (B, S), returning (the last token's
-        logits (B, 1, V), decode states with room for ``s_max``
-        positions).  Attention takes the chunked path, whose chunk check
-        (S % min(512, S) == 0 and S % min(1024, S) == 0) is the
-        reference's."""
+    def prefill(self, tokens: torch.Tensor, *, s_max: int, frames=None,
+                pixels=None):
+        """Run the prompt ``tokens`` (B, S) (after the image patches
+        ``pixels``; against the encoder's ``frames``), returning (the last
+        token's logits (B, 1, V), decode states with room for ``s_max``
+        positions, patches included).  Attention takes the chunked path,
+        whose chunk check (S % min(512, S) == 0 and S % min(1024, S) == 0)
+        is the reference's, in the encoder too."""
         cfg = self.cfg
         pattern = cfg.block_pattern
-        x = self.embed(tokens)
+        memory_h = None
+        if cfg.encoder_layers:
+            memory_h = self._encode(frames, remat=False, chunked=True)
+        x = self.embed(tokens, pixels)
         states = {"groups": [] if cfg.n_groups else None, "tail": []}
+        kw = dict(memory_h=memory_h, return_state=True, s_max=s_max,
+                  chunked=True)
         for group in self.groups:
             st = {}
             for i, kind in enumerate(pattern):
-                x, st[f"b{i}"] = blocks.apply_block(
-                    group[f"b{i}"], x, kind, cfg, return_state=True,
-                    s_max=s_max, chunked=True)
+                x, _, st[f"b{i}"] = blocks.apply_block(
+                    group[f"b{i}"], x, kind, cfg, **kw)
             states["groups"].append(st)
         for i, blk in enumerate(self.tail):
-            x, st = blocks.apply_block(blk, x, pattern[i], cfg,
-                                       return_state=True, s_max=s_max,
-                                       chunked=True)
+            x, _, st = blocks.apply_block(blk, x, pattern[i], cfg, **kw)
             states["tail"].append(st)
         # the norm is per position: normalising the last one alone gives
         # the reference's values without the full (B, S, d) pass

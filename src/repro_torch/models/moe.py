@@ -1,0 +1,160 @@
+"""Mixture-of-Experts layer: sort-based token dispatch into a fixed-capacity
+(E, C, d) buffer — ``repro/models/moe.py`` in PyTorch, its local path.
+
+Each token's router picks its top-k experts; the (token, slot) pairs are
+sorted by expert id (a *stable* sort, so within an expert the earlier
+token comes first), each expert takes its first C pairs and the rest drop
+(Switch-style), and the k expert outputs of a token are summed back with
+their router weights.  Capacity ``C = ceil(T k / E * capacity_factor)``
+(at least 4) for a full sequence and ``C = T`` for a decode step, so no
+token drops mid-generation.
+
+The reference's expert-parallel path (``all_to_all`` over a model axis,
+``moe_mode="ep"``) and its replicated ``shard_map`` run only under a
+sharding policy, which comes with the multi-device slice: with no policy
+the reference runs :func:`_moe_tokens_local`, as the port does (a policy
+raises in :mod:`repro_torch.sharding.constraints`).
+
+The expert FFN is three batched products, which the reference leaves to
+XLA's ``einsum`` outside any kernel: here ``torch.bmm``.  The combine is
+deterministic: the reference's ``.at[token_idx].add`` would be a
+scatter-add with float atomics on the card, so two served runs could
+differ in their bits; the port gathers each token's k weighted expert
+outputs into (T, k, d) and sums over k in a fixed order (ROADMAP Queue 3).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def init_router(generator, cfg, device) -> dict:
+    """The router, (d, E), float32 in every model dtype (the reference's
+    ``init_moe`` casts it so)."""
+    w = torch.randn((cfg.d_model, cfg.n_experts), generator=generator,
+                    device=device)
+    return {"router": w.mul_(1.0 / math.sqrt(cfg.d_model))}
+
+
+def init_experts(generator, cfg, dtype, device) -> dict:
+    """The experts' stacked SwiGLU weights: ``w_gate``, ``w_up`` (E, d,
+    ff) and ``w_down`` (E, ff, d)."""
+    E, d, ff = cfg.n_experts, cfg.d_model, cfg.d_ff
+
+    def draw(shape, scale):
+        w = torch.randn(shape, generator=generator, device=device)
+        return w.mul_(scale).to(dtype)
+
+    return {"w_gate": draw((E, d, ff), 1.0 / math.sqrt(d)),
+            "w_up": draw((E, d, ff), 1.0 / math.sqrt(d)),
+            "w_down": draw((E, ff, d), 1.0 / math.sqrt(ff))}
+
+
+def init_moe(generator, cfg, dtype, device) -> dict:
+    """The reference's parameter tree: ``{"router", "experts": {...}}``."""
+    return {**init_router(generator, cfg, device),
+            "experts": init_experts(generator, cfg, dtype, device)}
+
+
+def _capacity(t_local: int, cfg) -> int:
+    c = math.ceil(t_local * cfg.n_experts_active / cfg.n_experts
+                  * cfg.capacity_factor)
+    return max(4, c)
+
+
+def _dispatch(x: torch.Tensor, top_i: torch.Tensor, top_w: torch.Tensor,
+              E: int, C: int):
+    """Build the (E, C, d) buffer and the combine metadata ``(slot,
+    token_idx, w, valid)`` from local tokens ``x`` (T, d)."""
+    T, d = x.shape
+    k = top_i.shape[1]
+    flat_e = top_i.reshape(-1)                          # (T*k,)
+    sort_idx = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[sort_idx]
+    first = torch.searchsorted(sorted_e, torch.arange(E, device=x.device,
+                                                      dtype=sorted_e.dtype))
+    pos = torch.arange(T * k, device=x.device) - first[sorted_e]
+    valid = pos < C
+    slot = torch.where(valid, sorted_e * C + pos, E * C)  # E*C: trash row
+    token_idx = sort_idx // k
+    # the token each buffer row holds, T for an empty row (a zero row
+    # appended to x); the trash row E*C takes every dropped pair, in no
+    # defined order, and is cut off, so no value depends on that order.
+    # One gather fills the buffer: the reference's scatter of x[token_idx]
+    # times valid, value for value, in fewer passes over it
+    src = torch.full((E * C + 1,), T, dtype=token_idx.dtype,
+                     device=x.device)
+    src[slot] = token_idx
+    buf = torch.cat([x, x.new_zeros((1, d))])[src[:E * C]]
+    meta = (slot, token_idx, top_w.reshape(-1)[sort_idx], valid)
+    return buf.reshape(E, C, d), meta
+
+
+def _combine(expert_out: torch.Tensor, meta, T: int) -> torch.Tensor:
+    """Each token's k expert outputs, weighted and summed: the reference's
+    scatter-add without atomics.  A stable sort on the token index puts
+    each token's k pairs side by side in the order the reference's
+    scatter adds them (its experts' ids ascending); the sum over them runs
+    in that fixed order, so the bits do not depend on scheduling."""
+    E, C, d = expert_out.shape
+    slot, token_idx, w, valid = meta
+    order = torch.argsort(token_idx, stable=True)
+    flat = torch.cat([expert_out.reshape(E * C, d),
+                      expert_out.new_zeros((1, d))])
+    vals = flat[slot[order]] * (w * valid).to(expert_out.dtype)[order, None]
+    return vals.reshape(T, -1, d).sum(dim=1)
+
+
+def _expert_ffn(experts, buf: torch.Tensor, mlp_kind: str) -> torch.Tensor:
+    """(E, C, d) × expert weights -> (E, C, d)."""
+    gate = torch.bmm(buf, experts["w_gate"])
+    act = F.silu(gate) if mlp_kind == "swiglu" else F.gelu(
+        gate, approximate="tanh")
+    h = act * torch.bmm(buf, experts["w_up"])
+    return torch.bmm(h, experts["w_down"])
+
+
+def _route(p, x: torch.Tensor, cfg):
+    """``(top_i, top_w, aux)``: each token's top-k experts and their
+    renormalised weights, and the Switch-style load-balance loss.
+
+    ``lax.top_k`` breaks ties toward the lower index, ``torch.topk`` in no
+    stated order; a float32 router makes ties between experts' probabilities
+    vanishingly rare, so the port does not sort to force the order.  The
+    order of a token's k slots does not decide which tokens drop (the
+    dispatch sort is stable on (token, slot) and a token's experts are
+    distinct)."""
+    logits = x.float() @ p["router"]                    # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_i = torch.topk(probs, cfg.n_experts_active, dim=-1)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    # the share of (token, slot) pairs each expert receives is a count,
+    # with no gradient; the mean router probability carries the gradient
+    dispatch_frac = torch.bincount(
+        top_i.reshape(-1), minlength=cfg.n_experts).float() / (
+        x.shape[0] * cfg.n_experts_active)
+    mean_prob = probs.mean(dim=0)
+    aux = cfg.n_experts * torch.sum(dispatch_frac * mean_prob)
+    return top_i, top_w, aux
+
+
+def _moe_tokens_local(p, x: torch.Tensor, cfg, C: int):
+    """Every expert applied to the local tokens ``x`` (T, d)."""
+    top_i, top_w, aux = _route(p, x, cfg)
+    buf, meta = _dispatch(x, top_i, top_w, cfg.n_experts, C)
+    out = _expert_ffn(p["experts"], buf, cfg.mlp)
+    return _combine(out, meta, x.shape[0]), aux
+
+
+def moe_layer(p, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, d) -> ((B, S, d), aux loss), with no sharding policy:
+    capacity ``T`` for a decode step (S == 1), :func:`_capacity` else."""
+    b, s, d = x.shape
+    t = b * s
+    C = t if s == 1 else _capacity(t, cfg)
+    y, aux = _moe_tokens_local(p, x.reshape(t, d), cfg, C)
+    return y.reshape(b, s, d), aux
+

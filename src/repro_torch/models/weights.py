@@ -1,9 +1,14 @@
 """Carry the reference's parameters and decode states into the port.
 
 The reference keeps parameters and states as nested dicts and lists of
-arrays, with the pattern groups stacked: every leaf under ``groups`` has a
-leading axis of ``n_groups``.  The port keeps one tensor per layer
-(``groups.<g>.b<i>...``).  :func:`port_tree` unstacks the groups;
+arrays, with the pattern groups stacked: every leaf under ``groups`` (and
+under an encoder's ``enc.groups``) has a leading axis of the number of
+groups.  The port keeps one tensor per layer (``groups.<g>.b<i>...``).
+Every subtree is carried the same way: the experts of a mixture
+(``moe.experts``, stacked over experts, not groups), the xLSTM blocks'
+leaves, and in the states the ``{"self", "cross"}`` pairs of an
+encoder-decoder and the xLSTM states (mLSTM ``C, n, m, conv``, sLSTM
+``c, n, h, m``).  :func:`port_tree` unstacks the groups;
 :func:`carry_params` copies a tree of arrays into a
 :class:`~repro_torch.models.model.LanguageModel` by name, and
 :func:`carry_states` makes the port's decode states of a reference state
@@ -48,13 +53,16 @@ def _map(fn, tree):
 
 def port_tree(tree: dict) -> dict:
     """The reference's tree with its stacked ``groups`` split into a list
-    of per-group trees (leading axis ``g`` -> list index ``g``)."""
+    of per-group trees (leading axis ``g`` -> list index ``g``), the
+    encoder's (``enc.groups``) too."""
     out = dict(tree)
     groups = tree.get("groups")
     if groups is not None:
         n = np.shape(next(iter(leaves(groups).values())))[0]
         out["groups"] = [_map(lambda leaf, g=g: np.asarray(leaf)[g], groups)
                          for g in range(n)]
+    if isinstance(tree.get("enc"), dict):
+        out["enc"] = port_tree(tree["enc"])
     return out
 
 

@@ -5,8 +5,9 @@ identity, as the reference's are.
 Model code tags activations with semantic names (``"residual"``,
 ``"kv_gathered"``, ``"ffn_hidden"``) and calls these hooks; the port runs
 the LM stack (serving and training) on one card, so the only policy is
-``None``.  A sharding policy (``repro/sharding/policy.py``, Slice 6's
-last module) comes with the multi-device slice: asking for one raises
+``None``.  A sharding policy (``repro/sharding/policy.py``, the LM
+stack's last module, which the mixture of experts' expert-parallel path
+needs) comes with the multi-device slice: asking for one raises
 :class:`ValueError` until then.
 """
 
@@ -20,7 +21,8 @@ def _refuse(policy) -> None:
         raise ValueError(
             f"sharding policy {policy!r}: the port runs the LM stack on one "
             f"device with policy=None; sharding policies "
-            f"(Slice 6's sharding/policy.py) come with Slice 3 "
+            f"(repro/sharding/policy.py, and with them the mixture of "
+            f"experts' expert-parallel path) come with Slice 3 "
             f"(multi-device, ROADMAP Queue 1)")
 
 

@@ -2,8 +2,10 @@
 single-token decode — ``repro/train/serve.py`` for ``policy=None``.
 
 The model holds its parameters (an ``nn.Module``), so the steps take no
-``params`` argument: ``make_prefill_step(model, s_max=...)(tokens)`` and
-``make_decode_step(model)(states, token, pos)``.  On one device no state
+``params`` argument: ``make_prefill_step(model, s_max=...)(tokens,
+frames=None, pixels=None)`` (the encoder's frames of an encoder-decoder,
+the image patches of a vision model) and ``make_decode_step(model)(states,
+token, pos)``.  On one device no state
 is sharded; a sharding policy comes with the multi-device slice and
 raises :class:`ValueError` until then
 (:mod:`repro_torch.sharding.constraints`).
@@ -24,9 +26,10 @@ def state_spec(policy, path_keys: tuple, shape: tuple[int, ...]) -> tuple:
 def make_prefill_step(model, policy=None, *, s_max: int):
     _refuse(policy)
 
-    def step(tokens):
+    def step(tokens, frames=None, pixels=None):
         with use_policy(policy):
-            return model.prefill(tokens, s_max=s_max)
+            return model.prefill(tokens, s_max=s_max, frames=frames,
+                                 pixels=pixels)
     return step
 
 

@@ -1,7 +1,8 @@
 """The port's examples (``examples/torch_*.py``) run in-process on the host.
 
 Each runs through its ``main`` with ``--cpu`` at a small size and must
-print ``OK`` (the training example only once its loss has dropped);
+print ``OK`` (the serving example also on the families with an encoder, a
+vision front end, experts or xLSTM blocks) (the training example only once its loss has dropped);
 without ``--cpu`` on a host with no GPU each must stop with a non-zero
 code rather than fall back to the CPU.  The Listing 1 example
 prints the reference example's accounting, line for line.
@@ -50,6 +51,21 @@ def test_example_refuses_without_a_gpu(name, capsys, monkeypatch):
     captured = capsys.readouterr()
     assert "--cpu" in captured.err
     assert "OK" not in captured.out
+
+
+@pytest.mark.parametrize("arch", ["seamless_m4t_medium", "phi_3_vision_4_2b",
+                                  "granite_moe_3b_a800m", "xlstm_350m"])
+def test_serve_lm_example_serves_every_family(arch, capsys):
+    """The serving example takes any of the ten configurations, handing the
+    encoder's frames or the image patches to the prefill step."""
+    assert _load("torch_serve_lm").main(["--cpu", "--arch", arch, "--batch",
+                                         "2", "--tokens", "4"]) == 0
+    out = capsys.readouterr().out
+    assert out.splitlines()[-1] == "OK", out
+    if arch == "seamless_m4t_medium":
+        assert "frames (2, 4, 64)" in out
+    if arch == "phi_3_vision_4_2b":
+        assert "pixels (2, 8, 64)" in out
 
 
 def test_distributed_gemm_example_prints_the_reference_accounting(capsys):
