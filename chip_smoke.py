@@ -125,6 +125,30 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    run, one more run under ``torch.profiler`` prints the device time by
    kernel and the device's busy share, and checks that the card ran
    exactly the kernels that were counted;
+8a. the process pool (``[procs]``, :func:`procs_phase`): Listing 1 at
+   n=8192, ib=1024, float32, 2x2 ranks on ``backend="procs"``, one spawned
+   worker process per rank with its own CUDA context, three iterations
+   into fresh C tiles in one workflow (cold; re-shipped once A's and B's
+   replicas settle; warm), against the same program on ``serial``: C bit
+   for bit every iteration, the transfer stream and the stats equal, 512
+   ``f32_simt`` launches an iteration summed over the workers (a probe op,
+   :func:`worker_probe`, reads and resets each worker's counters), four
+   distinct worker processes with a CUDA context and no ``jax`` or
+   ``repro`` loaded, the warm iteration one "run" message a worker, no
+   serial fallback; walls beside serial's, the bytes staged between card
+   and host in the workers and the share of the wall the busiest spends
+   in those copies, the busy share (serial's profiled device time over the
+   wall), ``/dev/shm`` sampled; after ``shutdown_pools()`` no segment left
+   and the memory back; then faults (``[faults]``, :func:`faults_phase`):
+   the same Listing 1 with rank 1 killed at wavefront 2, simulated on
+   ``serial``, ``fused`` and ``threads``, and rank 2's worker killed for
+   good by a real ``SIGKILL`` on ``procs`` (its placements re-bound onto
+   ``choose_replacement``'s pick on a ring), C bit for bit the fault-free
+   C, fewer ops recomputed than a full replay; three passes with per-rank
+   ``Workflow.checkpoint`` barriers after the first and rank 1 killed at
+   the last boundary, on ``serial`` and on ``procs`` (a transient
+   ``SIGKILL``: the worker respawned): the barriers' C tiles read back
+   from disk, fewer ops recomputed than without, the same counts on both;
 8c. the serving runtime (``repro_torch.serve.ServingRuntime``) on
    ``serial``, ``fused`` and ``threads``, each with ``max_batch`` 1 and 8,
    cold then warm: 8 lock-step client threads (``bench_serving.py``'s
@@ -251,6 +275,17 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    at d 64, Seamless's cross-attention 4096 over 1024 non-causal, Phi-3's
    d 96 on ``bf16_simt``), forward and backward, each held to its plain
    version and timed beside its bound, the plain version and SDPA's;
+8j. training that checkpoints (``[train_ckpt]``, :func:`train_ckpt_phase`):
+   granite-moe-3b-a800m at its published widths, 2 layers, bf16, B 1 x S
+   2048, 4 AdamW steps saving parameters and optimizer state through
+   ``CheckpointManager`` after step 1 (3.9 GB; the host snapshot, write and
+   restore seconds and the bytes printed), a model from another seed
+   restoring it and taking steps 3-4 to the same losses (within 1e-5,
+   bit for bit printed), the attention launches by route; then
+   ``gemma_7b --reduced`` (the reference test's arguments) on the card
+   under the ``Supervisor``: a run that crashes at step 25 (exit 42), a
+   second supervisor that resumes it from step 19 to the final loss of an
+   uninterrupted run (relative 1e-5);
 9. a ``kernels`` JSON line (every ported kernel with its launches on its
    path and its times; the GEMM's accumulate and ``chain_attn`` also with
    their launches in one serving arm, ``flash_attention`` and
@@ -261,8 +296,10 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    at both widths; ``flash_attention`` also with each family's launches
    and routes a prefill, its device time inside the Granite prefill and
    its times at the families' shapes, the backward with each family's
-   launches a training step and its times there), the script's time (each
-   LM phase prints its own as it ends), the card's name and power limit, and, last, ``{"ok": true, "device":
+   launches a training step and its times there; the GEMM also with its
+   launches an iteration inside the ``procs`` workers, the ``procs`` and
+   ``serial`` walls and the ops each fault recomputed), the script's time
+   (each LM phase prints its own as it ends), the card's name and power limit, and, last, ``{"ok": true, "device":
    {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when the
@@ -274,6 +311,8 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2325,6 +2364,589 @@ def family_attention_timed(torch, dev, gen, card: str) -> dict:
     return out
 
 
+# -- Slice 4: the process pool, fault tolerance, training that checkpoints --
+PROCS_ITERS = 3          # Listing 1 iterations in one workflow: cold,
+                         # re-shipped (A/B replicas settled), warm (delta)
+SHM_NEEDED = 16 << 30    # /dev/shm the [procs] phase needs at n = 8192:
+                         # every ref's head stays live (the reference's
+                         # pinning), Listing 1's 512 partial products an
+                         # iteration among them (11.4 GiB over the three)
+SHM_PREFIX = "bnd"       # shm_store.segment_name's prefix
+
+
+def worker_probe(c_tile):
+    """Op body of ``[procs]``: the facts of the process it runs in, with
+    its GEMM launch counters and staged bytes read *and reset* (a
+    ``procs`` worker counts in its own process).  Recorded after a
+    Listing 1 iteration on a C tile its rank owns, so it runs after every
+    leaf product of the iteration."""
+    import os as _os
+
+    import torch
+
+    from repro_torch.core import shm_store
+    from repro_torch.core.backends import procs
+    from repro_torch.kernels.gemm import ops
+
+    facts = {"pid": _os.getpid(), "rank": procs._CURRENT_RANK,
+             "cuda": torch.cuda.is_available(),
+             "context": torch.cuda.is_initialized(),
+             "device": str(c_tile.device),
+             "launches": ops.matmul.launches,
+             "routes": dict(ops.matmul.routes),
+             "other": (ops.matmul_accumulate.launches
+                       + ops.accumulate_body.calls),
+             "staged": dict(shm_store.STAGED),
+             "foreign": sorted(k for k in sys.modules
+                               if k in ("jax", "jaxlib", "repro")
+                               or k.startswith(("jax.", "jaxlib.",
+                                                "repro.")))}
+    ops.matmul.launches = 0
+    ops.matmul.routes = {}
+    shm_store.STAGED.update(to_host=0, to_device=0, seconds=0.0)
+    return facts
+
+
+class ShmWatch:
+    """Samples the bytes this process's procs sessions hold in /dev/shm
+    every 10 ms while it is entered; ``peak`` is the largest sample."""
+
+    def __init__(self):
+        self.prefix = f"{SHM_PREFIX}{os.getpid():x}-"
+        self.peak = 0
+        self._stop = threading.Event()
+
+    def held(self) -> tuple[int, int]:
+        """``(files, bytes)`` of the sessions' segments now."""
+        files = size = 0
+        for name in os.listdir("/dev/shm"):
+            if name.startswith(self.prefix):
+                try:
+                    size += os.path.getsize(os.path.join("/dev/shm", name))
+                    files += 1
+                except OSError:
+                    pass
+        return files, size
+
+    def _run(self):
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, self.held()[1])
+
+    def __enter__(self):
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def shm_gone(label: str) -> None:
+    """After ``shutdown_pools``: no segment of this process's sessions is
+    left in /dev/shm (the workers unlink theirs as they exit)."""
+    watch = ShmWatch()
+    deadline = time.monotonic() + 30
+    while True:
+        files, size = watch.held()
+        if not files or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    check(files == 0, f"{label}: {files} segments ({size} bytes) of the "
+          f"sessions left in /dev/shm after shutdown")
+    print(f"{label}: no segment of the sessions left in /dev/shm")
+
+
+def listing1_iterations(torch, bind, A, B, backend, iters: int):
+    """Listing 1 ``iters`` times in ONE workflow on one executor, into
+    fresh C tiles each time (A and B the same tiles), with
+    :func:`worker_probe` recorded on each rank's first C tile after each
+    iteration.  Returns per iteration ``(C, wall, probe facts, control
+    messages)``, the stats and the executor."""
+    from repro_torch.linalg import Tiled
+    from repro_torch.linalg.distributed import (distributed_gemm_listing1,
+                                                make_distributed_inputs,
+                                                owner_rank)
+
+    nt = N_LISTING // IB
+    ex = bind.LocalExecutor(4, backend=backend)
+    runs = []
+    with bind.Workflow(n_nodes=4, executor=ex) as wf:
+        a, b, c = make_distributed_inputs(wf, A, B, ib=IB, NP=2, NQ=2)
+        for it in range(iters):
+            if it:
+                c = Tiled.zeros(wf, nt, nt, IB, torch.float32, "C",
+                                rank_of=lambda i, k: owner_rank(i, k, 2, 2),
+                                device=A.device)
+            distributed_gemm_listing1(wf, a, b, c, 2, 2)
+            probes = []
+            for r in range(4):
+                with bind.node(r):
+                    probes.append(wf.apply(worker_probe,
+                                           (c.tile(r // 2, r % 2),),
+                                           name="probe"))
+            before = ex._stats.control_messages
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            C = c.to_array()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            facts = [wf.fetch(p) for p in probes]
+            runs.append((C, wall, facts,
+                         ex.stats.control_messages - before))
+    return runs, ex.stats, ex
+
+
+def procs_phase(torch, dev, bind, A, B, card, same_bits, zero_counts,
+                serial_busy) -> dict:
+    """``[procs]``: Listing 1 at n = N_LISTING, ib = IB, float32, 2 x 2
+    ranks on ``backend="procs"``: one spawned worker process per rank,
+    each with its own CUDA context on the card, every leaf product the
+    hand-written GEMM (``f32_simt``) inside a worker.  PROCS_ITERS
+    iterations in one workflow (cold; re-shipped once A's and B's replicas
+    settle; warm, one "run" message a worker) against the same program on
+    ``serial``: C of each iteration bit for bit, the transfer stream and
+    the stats equal, 512 launches an iteration summed over four distinct
+    worker processes on the card that hold no jax and no repro, no serial
+    fallback; walls, the busy share, staged bytes and /dev/shm bytes
+    printed; after shutdown no segment left and the device memory back."""
+    from repro_torch.core import shm_store
+    from repro_torch.core.backends.procs import shutdown_pools
+
+    free = shutil.disk_usage("/dev/shm").free
+    check(free >= SHM_NEEDED, f"[procs] /dev/shm has {free} bytes free, "
+          f"fewer than the {SHM_NEEDED} bytes Listing 1's segments need at "
+          f"n = {N_LISTING}")
+    base = memory_base(torch, dev)
+    nt = N_LISTING // IB
+    want = nt ** 3
+    zero_counts()
+    serial, s_stats, s_ex = listing1_iterations(torch, bind, A, B,
+                                                "serial", PROCS_ITERS)
+    backend = bind.ProcessPoolBackend()
+    parent = dict(shm_store.STAGED)
+    with ShmWatch() as watch:
+        runs, stats, ex = listing1_iterations(torch, bind, A, B, backend,
+                                              PROCS_ITERS)
+        held_files, held_bytes = watch.held()
+    staged_parent = {k: shm_store.STAGED[k] - parent.get(k, 0)
+                     for k in ("to_host", "to_device")}
+    names = ("cold", "re-shipped", "warm")
+    pids = set()
+    for it, ((C, wall, facts, msgs), (Cs, swall, sfacts, smsgs)) in \
+            enumerate(zip(runs, serial)):
+        label = f"[procs] iteration {it + 1} ({names[it]})"
+        same_bits(f"{label}: C vs serial", C, Cs)
+        launches = sum(f["launches"] for f in facts)
+        routes = {}
+        for f in facts:
+            for r, n in f["routes"].items():
+                routes[r] = routes.get(r, 0) + n
+        check(launches == want and routes == {"f32_simt": want},
+              f"{label}: {launches} GEMM launches {routes} in the workers, "
+              f"expected {want} on f32_simt")
+        check(sum(f["launches"] for f in sfacts) == want,
+              f"{label}: serial made {sum(f['launches'] for f in sfacts)} "
+              f"launches")
+        check(not any(f["other"] for f in facts),
+              f"{label}: other GEMM paths ran {[f['other'] for f in facts]}")
+        check([f["rank"] for f in facts] == [0, 1, 2, 3]
+              and len({f["pid"] for f in facts} | {os.getpid()}) == 5,
+              f"{label}: not four distinct worker processes: {facts}")
+        check(all(f["cuda"] and f["context"] and f["device"] == "cuda:0"
+                  for f in facts),
+              f"{label}: a worker without its CUDA context on the card")
+        check(not any(f["foreign"] for f in facts),
+              f"{label}: a worker loaded {[f['foreign'] for f in facts]}")
+        pids.update(f["pid"] for f in facts)
+        to_dev = sum(f["staged"]["to_device"] for f in facts)
+        to_host = sum(f["staged"]["to_host"] for f in facts)
+        secs = max(f["staged"]["seconds"] for f in facts)
+        print(f"{label}: wall {wall:.4f} s ({2 * N_LISTING ** 3 / wall / 1e12:.3f} "
+              f"TFLOP/s) against serial's {swall:.4f} s ({wall / swall:.1f}x); "
+              f"{launches} f32_simt launches over worker pids "
+              f"{sorted(f['pid'] for f in facts)}; control messages {msgs}; "
+              f"staged in the workers {to_dev / 2 ** 30:.3f} GiB "
+              f"host->device, {to_host / 2 ** 30:.3f} GiB device->host, "
+              f"the busiest worker {secs:.3f} s in those copies "
+              f"({100 * secs / wall:.1f}% of the wall); busy share "
+              f"{serial_busy * swall / wall:.1f}% (the serial run's profiled "
+              f"device time over this wall) ({card})")
+    check(pids == {f["pid"] for f in runs[0][2]},
+          f"[procs] the workers changed between iterations: {pids}")
+    check(runs[-1][3] == 4, f"[procs] the warm iteration sent "
+          f"{runs[-1][3]} control messages, expected one 'run' a worker")
+    check(backend.fallbacks == 0 and backend.plans_run == PROCS_ITERS,
+          f"[procs] fallbacks {backend.fallbacks}, plans run "
+          f"{backend.plans_run}")
+    check(list(stats.transfers) == list(s_stats.transfers),
+          "[procs] transfer stream differs from serial's")
+    for name in ("ops_executed", "copies_elided", "wavefronts",
+                 "wavefront_flops", "bytes_transferred", "message_count"):
+        check(getattr(stats, name) == getattr(s_stats, name),
+              f"[procs] {name} {getattr(stats, name)} != serial's "
+              f"{getattr(s_stats, name)}")
+    check(stats.peak_live_bytes >= s_stats.peak_live_bytes,
+          "[procs] peak live bytes below serial's")
+    print(f"[procs] stats equal serial's: ops {stats.ops_executed}, "
+          f"messages {stats.message_count}, bytes "
+          f"{stats.bytes_transferred}, wavefronts {len(stats.wavefronts)}; "
+          f"control messages {stats.control_messages} in all; the parent "
+          f"staged {staged_parent['to_host'] / 2 ** 30:.3f} GiB "
+          f"device->host (seeds), {staged_parent['to_device'] / 2 ** 30:.3f}"
+          f" GiB host->device (fetches); /dev/shm: peak "
+          f"{watch.peak / 2 ** 30:.3f} GiB sampled, {held_files} segments "
+          f"({held_bytes / 2 ** 30:.3f} GiB) held at the end, "
+          f"{free / 2 ** 30:.1f} GiB free before")
+    out = {"launches": want, "walls": [r[1] for r in runs],
+           "serial_walls": [r[1] for r in serial], "C": serial[0][0]}
+    del runs, serial, ex, s_ex, C, Cs
+    shutdown_pools()
+    shm_gone("[procs]")
+    keep = out["C"].untyped_storage().nbytes()
+    memory_back(torch, dev, base + keep, "[procs] the phase")
+    return out
+
+
+def faults_phase(torch, dev, bind, A, B, C_ref, card, same_bits) -> dict:
+    """``[faults]``: Listing 1 under ``FaultInjector.kill_rank``: simulated
+    on ``serial``, ``fused`` and ``threads``; on ``procs`` a real worker
+    ``SIGKILL``, permanent (elastic rebind onto ``choose_replacement``'s
+    pick on a ring); C bit for bit the fault-free C, one recovery, fewer
+    ops recomputed than a full replay.  Then three passes of Listing 1
+    into one C with rank 1 killed at the last boundary, with and without
+    ``Workflow.checkpoint`` barriers over C after the first pass (on
+    ``serial``, and with them on ``procs``: a transient ``SIGKILL``, the
+    worker respawned): the barriers' versions come back from disk and
+    fewer ops are recomputed."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.core.backends import procs as procs_mod
+    from repro_torch.core.recovery import choose_replacement
+    from repro_torch.launch.mesh import make_topology
+    from repro_torch.linalg.distributed import (distributed_gemm_listing1,
+                                                make_distributed_inputs,
+                                                owner_rank)
+
+    base = memory_base(torch, dev)
+    nt = N_LISTING // IB
+
+    def run(backend, injector=None, topology=None, passes=1, ckpt=None):
+        ex = bind.LocalExecutor(4, backend=backend, fault_injector=injector,
+                                topology=topology)
+        with bind.Workflow(n_nodes=4, executor=ex) as wf:
+            a, b, c = make_distributed_inputs(wf, A, B, ib=IB, NP=2, NQ=2)
+            distributed_gemm_listing1(wf, a, b, c, 2, 2)
+            if ckpt is not None:
+                # one barrier on each rank over the C tiles it owns, each
+                # into a directory of its own (the ranks' workers save at
+                # once): no replica is shipped for it, so a killed rank's
+                # tiles are lost and come back from disk
+                for r in range(4):
+                    with bind.node(r):
+                        wf.checkpoint(
+                            [c.tile(i, k) for i in range(nt)
+                             for k in range(nt)
+                             if owner_rank(i, k, 2, 2) == r],
+                            CheckpointManager(f"{ckpt}/rank{r}",
+                                              async_save=False))
+            for _ in range(passes - 1):
+                distributed_gemm_listing1(wf, a, b, c, 2, 2)
+            t0 = time.perf_counter()
+            C = c.to_array()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return C, ex.stats, ex, wall
+
+    _, free_stats, _, _ = run("serial")
+    full = free_stats.ops_executed
+    ring = make_topology("ring", 4)
+    cases = [("serial", "serial", dict(injector=1)),
+             ("fused", "fused", dict(injector=1)),
+             ("threads", "threads", dict(injector=1)),
+             ("procs permanent SIGKILL", "procs",
+              dict(injector=2, topology=ring))]
+    out = {}
+    for label, backend, kw in cases:
+        victim = kw.pop("injector")
+        inj = bind.FaultInjector.kill_rank(victim, 2,
+                                           permanent=backend == "procs")
+        backend_obj = (bind.ProcessPoolBackend() if backend == "procs"
+                       else backend)
+        C, st, ex, wall = run(backend_obj, inj, **kw)
+        tag = f"[faults] {label}"
+        same_bits(f"{tag}: C vs the fault-free C", C, C_ref)
+        check(st.recoveries >= 1 and inj.fired,
+              f"{tag}: {st.recoveries} recoveries")
+        check(0 < st.recomputed_ops < full,
+              f"{tag}: {st.recomputed_ops} ops recomputed of {full}")
+        extra = ""
+        if backend == "procs":
+            check(backend_obj.fallbacks == 0, f"{tag}: fell back to serial")
+            pool = procs_mod._POOLS[4]
+            repl = choose_replacement(victim, [0, 1, 3], ring)
+            check(ex._rank_map == {victim: repl}
+                  and not ex._stores[victim] and not pool.alive[victim],
+                  f"{tag}: rank map {ex._rank_map}, stores of the dead "
+                  f"rank {len(ex._stores[victim])}")
+            extra = (f", rank {victim} decommissioned, its placements "
+                     f"re-bound onto rank {repl} (ring topology)")
+        print(f"{tag}: rank {victim} killed at wavefront 2: "
+              f"{st.recoveries} recovery, {st.recomputed_ops} of {full} "
+              f"ops recomputed (ratio {st.recompute_ratio:.3f}), recovery "
+              f"{st.recovery_time_s:.3f} s, wall {wall:.3f} s; C bit for "
+              f"bit the fault-free C{extra} ({card})")
+        out[label] = {"recomputed": st.recomputed_ops, "wall": wall}
+        del C, ex
+    # the checkpoint barrier: three passes (a pass's products do not wait
+    # for the one before, so the barrier after pass 1 runs beside pass 2's
+    # last add, and pass 3's last add reads what pass 2 left), rank 1 lost
+    # at the last boundary
+    ckpt_root = ROOT / "build" / "chip_smoke_faults_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    C3_ref, plain_stats, _, _ = run("serial", passes=3)
+    _, barrier_stats, _, _ = run("serial", passes=3,
+                                 ckpt=str(ckpt_root / "fault-free"))
+    # the same kill with and without the barriers simulated on serial
+    # (the op counts are the backends' common accounting, equal above),
+    # then with them on procs: a real, transient SIGKILL (the worker is
+    # respawned), the dead worker's C tiles read back from the files its
+    # barrier wrote
+    got = {}
+    for label, backend, with_barrier, stats_ in (
+            ("serial, no barrier", "serial", False, plain_stats),
+            ("serial, barriers", "serial", True, barrier_stats),
+            ("procs, barriers", "procs", True, barrier_stats)):
+        backend_obj = (bind.ProcessPoolBackend() if backend == "procs"
+                       else backend)
+        inj = bind.FaultInjector.kill_rank(1, len(stats_.wavefronts) - 1)
+        t0 = time.perf_counter()
+        C, st, ex, _ = run(backend_obj, inj, passes=3,
+                           ckpt=str(ckpt_root / label) if with_barrier
+                           else None)
+        wall = time.perf_counter() - t0
+        tag = f"[faults] three passes ({label} after the first pass)"
+        same_bits(f"{tag}: C vs the fault-free C", C, C3_ref)
+        check(st.recoveries == 1 and 0 < st.recomputed_ops < 3 * full,
+              f"{tag}: {st.recoveries} recoveries, {st.recomputed_ops} ops "
+              f"recomputed of {3 * full}")
+        extra = ""
+        if backend == "procs":
+            check(backend_obj.fallbacks == 0, f"{tag}: fell back to serial")
+            # the killed worker's replacement is the pool's youngest
+            pool = procs_mod._POOLS[4]
+            others = [pool.spawned_at[r] for r in range(4) if r != 1]
+            check(pool.alive[1] and pool.procs[1].is_alive()
+                  and pool.spawned_at[1] > max(others),
+                  f"{tag}: the killed worker was not replaced")
+            extra = (f"; worker 1 killed and respawned "
+                     f"{pool.spawned_at[1] - max(others):.1f} s after the "
+                     f"others, as pid {pool.procs[1].pid}")
+        got[label] = st
+        print(f"{tag}: rank 1 killed at the last boundary: "
+              f"{st.recomputed_ops} of {3 * full} ops recomputed, "
+              f"{st.restored_versions} versions restored from disk, "
+              f"recovery {st.recovery_time_s:.3f} s, wall {wall:.3f} s; C "
+              f"bit for bit the fault-free C{extra} ({card})")
+        del C, ex
+    plain, barred = got["serial, no barrier"], got["procs, barriers"]
+    check(barred.restored_versions >= 1
+          and barred.recomputed_ops < plain.recomputed_ops
+          and (barred.recomputed_ops, barred.restored_versions)
+          == (got["serial, barriers"].recomputed_ops,
+              got["serial, barriers"].restored_versions),
+          f"[faults] the barriers recomputed {barred.recomputed_ops} ops "
+          f"({got['serial, barriers'].recomputed_ops} simulated), without "
+          f"them {plain.recomputed_ops}")
+    print(f"[faults] with the barriers {barred.recomputed_ops} ops "
+          f"recomputed ({barred.restored_versions} C tiles from disk), "
+          f"without them {plain.recomputed_ops}")
+    got = {True: barred, False: plain}
+    out["barrier"] = {"with": got[True].recomputed_ops,
+                      "without": got[False].recomputed_ops}
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    del C3_ref
+    procs_mod.shutdown_pools()
+    shm_gone("[faults]")
+    memory_back(torch, dev, base, "[faults] the phase")
+    return out
+
+
+TRAIN_CKPT_ARCH = "granite_moe_3b_a800m"
+TRAIN_CKPT_LAYERS, TRAIN_CKPT_SEQ, TRAIN_CKPT_STEPS = 2, 2048, 4
+SUPERVISED = ["--arch", "gemma_7b", "--reduced", "--steps", "30", "--batch",
+              "4", "--seq", "32", "--lr", "1e-3", "--ckpt-every", "10"]
+
+
+def train_ckpt_phase(torch, dev, card: str, zero_counts, counts) -> dict:
+    """``[train_ckpt]``: (1) in process, TRAIN_CKPT_ARCH at its published
+    widths with TRAIN_CKPT_LAYERS layers, bf16, B 1 x S TRAIN_CKPT_SEQ,
+    TRAIN_CKPT_STEPS AdamW steps, saving parameters and optimizer state
+    through ``CheckpointManager`` after step 1; a fresh model and optimizer
+    from another seed restore it and take steps 2-4: their losses equal
+    the uninterrupted run's, the attention forward and backward launched
+    by route as ``[train_families]`` counts them; (2) the trainer under the
+    ``Supervisor``: a run that crashes at step 25 (exit 42) and a second
+    supervisor that resumes it from the step-19 checkpoint to the final
+    loss of an uninterrupted run (relative 1e-5)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.runtime import Supervisor
+    from repro_torch.train import make_train_step
+
+    root = ROOT / "build" / "chip_smoke_train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    disk = shutil.disk_usage(root).free
+    cfg = dataclasses.replace(configs.get(TRAIN_CKPT_ARCH),
+                              n_layers=TRAIN_CKPT_LAYERS)
+    data = SyntheticLMDataset(cfg.vocab_size, TRAIN_CKPT_SEQ, 1, seed=SEED,
+                              device=dev)
+    opt = AdamW(learning_rate=warmup_cosine(1e-3, 1, TRAIN_CKPT_STEPS))
+
+    def trainer(seed):
+        model = LanguageModel(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(seed))
+        return model, opt.init(model), make_train_step(model, opt)
+
+    label = f"[train_ckpt] {cfg.name}"
+    model, state, step = trainer(SEED)
+    params = dict(model.named_parameters())
+    mgr = CheckpointManager(str(root / "inproc"), keep_n=1)
+    losses, saved = [], {}
+    zero_counts()
+    for i in range(TRAIN_CKPT_STEPS):
+        state, metrics = step(state, data.batch_at(i))
+        losses.append(float(metrics["loss"]))
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(i, (params, state), extra={"step": i})
+            saved["snapshot_s"] = time.perf_counter() - t0
+            mgr.wait()
+            saved["write_s"] = time.perf_counter() - t0
+    routes = {"flash_attention": dict(fa_ops.flash_attention.routes),
+              "flash_attention_bwd": dict(fa_ops.flash_attention_bwd.routes)}
+    want = {"flash_attention": {"bf16_wgmma": 2 * TRAIN_CKPT_LAYERS
+                                * TRAIN_CKPT_STEPS},
+            "flash_attention_bwd": {"bf16_wgmma": TRAIN_CKPT_LAYERS
+                                    * TRAIN_CKPT_STEPS}}
+    check(routes == want, f"{label}: launches by route {routes}, expected "
+          f"{want}")
+    others = {k: v for k, v in counts().items()
+              if v and k not in ("flash_attention", "flash_attention_bwd")}
+    check(not others, f"{label}: unexpected launches {others}")
+    step_dir = Path(mgr._step_dir(1))
+    nbytes = sum(f.stat().st_size for f in step_dir.iterdir())
+    n_params = sum(p.numel() for p in params.values())
+    del model, state, step, params, metrics
+    # the baseline once the uninterrupted run has taken every workspace
+    # its kernels and cuBLAS keep: the restored run must give back all of
+    # its own memory
+    base = memory_base(torch, dev)
+    model, state, step = trainer(SEED + 1)
+    params = dict(model.named_parameters())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (restored, state), extra = mgr.restore((params, state))
+    with torch.no_grad():
+        for name, p in params.items():
+            p.copy_(restored[name])
+    del restored, p     # the loop's last parameter (an expert's 60 MiB)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(extra == {"step": 1}, f"{label}: extra {extra}")
+    resumed = []
+    zero_counts()
+    for i in range(2, TRAIN_CKPT_STEPS):
+        state, metrics = step(state, data.batch_at(i))
+        resumed.append(float(metrics["loss"]))
+    bitwise = resumed == losses[2:]
+    check(all(math.isclose(a, b, rel_tol=1e-5)
+              for a, b in zip(resumed, losses[2:])),
+          f"{label}: resumed losses {resumed} against {losses[2:]}")
+    r_routes = {"flash_attention": dict(fa_ops.flash_attention.routes),
+                "flash_attention_bwd": dict(fa_ops.flash_attention_bwd.routes)}
+    print(f"{label}: {cfg.n_layers} layers at the published widths, "
+          f"{n_params:,} parameters, bf16, B 1 x S {TRAIN_CKPT_SEQ}: losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)}; launches by route over "
+          f"{TRAIN_CKPT_STEPS} steps {routes}; checkpoint after step 1: "
+          f"{nbytes:,} bytes in {len(list(step_dir.iterdir()))} files, "
+          f"save returned after {saved['snapshot_s']:.3f} s (host snapshot), "
+          f"written after {saved['write_s']:.3f} s, restored in "
+          f"{restore_s:.3f} s ({disk / 2 ** 30:.1f} GiB free on disk "
+          f"before); a fresh model from seed {SEED + 1} restored it and took "
+          f"steps 3-{TRAIN_CKPT_STEPS}: losses "
+          f"{', '.join(f'{x:.6f}' for x in resumed)}, bit for bit "
+          f"{bitwise}, launches by route {r_routes} ({card})")
+    out = {"bytes": nbytes, "snapshot_s": saved["snapshot_s"],
+           "write_s": saved["write_s"], "restore_s": restore_s,
+           "bitwise": bitwise}
+    del model, state, step, params, metrics, mgr
+    memory_back(torch, dev, base, label)
+
+    # the trainer under the Supervisor, on the card
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    ck, hb = root / "ck", root / "hb"
+    hb.touch()
+    log = root / "log.jsonl"
+    argv = [sys.executable, "-m", "repro_torch.launch.train", *SUPERVISED,
+            "--ckpt-dir", str(ck), "--heartbeat", str(hb), "--log-file",
+            str(log)]
+    t0 = time.perf_counter()
+    sup = Supervisor([*argv, "--crash-at-step", "25"], heartbeat_file=str(hb),
+                     heartbeat_timeout=600, max_restarts=0, env=env)
+    try:
+        sup.run(poll=0.2)
+        fail("[train_ckpt] the crashing run exited cleanly")
+    except RuntimeError as e:
+        check("last exit 42" in str(e), f"[train_ckpt] supervisor: {e}")
+    crash_s = time.perf_counter() - t0
+    metrics_out = root / "resumed.json"
+    t0 = time.perf_counter()
+    sup2 = Supervisor([*argv, "--metrics-out", str(metrics_out)],
+                      heartbeat_file=str(hb), heartbeat_timeout=600,
+                      max_restarts=2, env=env)
+    check(sup2.run(poll=0.2) == 0 and sup2.restarts == 0,
+          "[train_ckpt] the resumed run did not exit 0")
+    resume_s = time.perf_counter() - t0
+    logged = [json.loads(line)["step"]
+              for line in log.read_text().splitlines()]
+    check(logged == [0, 10, 20, 20, 29], f"[train_ckpt] logged steps "
+          f"{logged}: the resumed run did not go on from step 20")
+    steps = sorted(n.name for n in ck.iterdir())
+    check(steps == ["step_0000000009", "step_0000000019", "step_0000000029"],
+          f"[train_ckpt] checkpoints {steps}")
+    with open(metrics_out) as f:
+        resumed_loss = json.load(f)["final"]["loss"]
+    ref_out = root / "ref.json"
+    t0 = time.perf_counter()
+    check(launch_train.main([*SUPERVISED, "--metrics-out", str(ref_out)])
+          == 0, "[train_ckpt] the uninterrupted run failed")
+    ref_s = time.perf_counter() - t0
+    with open(ref_out) as f:
+        ref_loss = json.load(f)["final"]["loss"]
+    check(math.isclose(resumed_loss, ref_loss, rel_tol=1e-5),
+          f"[train_ckpt] resumed final loss {resumed_loss} against "
+          f"{ref_loss}")
+    print(f"[train_ckpt] supervisor, gemma_7b reduced on the card: the "
+          f"run with --crash-at-step 25 exited 42 after {crash_s:.1f} s "
+          f"(supervisor gave up, 0 restarts); the second supervisor resumed "
+          f"it from step 19 (logged steps {logged}) and exited 0 after "
+          f"{resume_s:.1f} s; final loss {resumed_loss!r} against the "
+          f"uninterrupted run's {ref_loss!r} ({ref_s:.1f} s in process), "
+          f"bit for bit {resumed_loss == ref_loss}")
+    out["supervised"] = {"resumed": resumed_loss, "ref": ref_loss}
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def bits(torch, t):
     """``t``'s bit pattern as integers (NaNs and signed zeros compare)."""
     width = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -3388,6 +4010,7 @@ def main() -> int:
              "strassen": (strassen, "gemm.matmul_accumulate",
                           7 ** (nt.bit_length() - 1), 1e-3)}
     serial = {}             # path -> (C, transfers) of the serial warm run
+    serial_busy = {}        # path -> the serial warm run's busy share (%)
     for path, (run, wrapper, want, tol) in paths.items():
         def describe(phase, result, got, wall, mallocs, path=path,
                      wrapper=wrapper, want=want, tol=tol):
@@ -3412,8 +4035,8 @@ def main() -> int:
             path, run, describe,
             keep=lambda r, t=transfers: t.extend(r[1].transfers) or r[0])
         path_counts[path] = got
-        device_profile(torch, path, run, walls["warm"],
-                       {"gemm_simt_kernel": want})
+        serial_busy[path] = device_profile(torch, path, run, walls["warm"],
+                                           {"gemm_simt_kernel": want})
         serial[path] = (C, transfers)
         del C
 
@@ -3590,6 +4213,16 @@ def main() -> int:
               f"serial {delegated} of {THREADS_ROUNDS}")
         check(ratio >= 0.9, f"{path}: threads at {ratio:.3f} x serial, "
               f"below the reference's 0.9")
+
+    # -- 8a. Listing 1 on the process pool, and under faults -------------------
+    t0 = time.perf_counter()
+    procs = procs_phase(torch, dev, bind, A, B, card, same_bits, zero_counts,
+                        serial_busy["listing1"])
+    print(f"[time] [procs]: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    faults = faults_phase(torch, dev, bind, A, B, procs.pop("C"), card,
+                          same_bits)
+    print(f"[time] [faults]: {time.perf_counter() - t0:.1f} s")
 
     # -- 8b. tensor bodies on operands their kernels do not take ------------
     gi = torch.randint(-9, 9, (64, 64), generator=gen, device=dev,
@@ -3991,6 +4624,10 @@ def main() -> int:
                        zero_counts, counts)
     fam_attn = timed("[attn families]", family_attention_timed, gen, card)
 
+    # -- 8j. training that checkpoints, crashes and resumes ---------------------
+    train_ckpt = timed("[train_ckpt]", train_ckpt_phase, card, zero_counts,
+                       counts)
+
     # -- 9. result lines --------------------------------------------------------------
     gemm_source = "src/repro_torch/kernels/gemm/csrc/gemm.cu"
     chain_source = "src/repro_torch/kernels/chain/csrc/chain.cu"
@@ -4083,6 +4720,17 @@ def main() -> int:
                "plain_ms": t["bwd_plain_ms"], "bound_ms": t["bwd_bound_ms"],
                "library_ms": t["bwd_library_ms"]}
         for name, t in fam_attn.items()}
+    # Listing 1's leaf products inside the procs workers, an iteration's
+    # launches summed over the four worker processes
+    gemm_row = next(k for k in kernels if k["name"] == "gemm.matmul")
+    gemm_row["procs_launches"] = procs["launches"]
+    gemm_row["procs_walls_s"] = procs["walls"]
+    gemm_row["procs_serial_walls_s"] = procs["serial_walls"]
+    gemm_row["faults_recomputed_ops"] = {k: v["recomputed"] if "recomputed"
+                                         in v else v
+                                         for k, v in faults.items()}
+    attn_row["train_ckpt"] = {k: v for k, v in train_ckpt.items()
+                              if k != "supervised"}
     print(json.dumps({"kernels": kernels}))
     print(f"[time] chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
     print(card)

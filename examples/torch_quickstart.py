@@ -2,9 +2,10 @@
 
 The port's counterpart of ``examples/quickstart.py``, with tensor payloads
 on the card: sections 1-7 (recording, tiled linear algebra, plan replay,
-backends, chain fusion, stitching, the topology model), 10 (serving) and
-11 (overload safety).  Sections 8-9 (fault tolerance, the process pool)
-and 12 (the device mesh) wait for the port's later slices.
+backends, chain fusion, stitching, the topology model), 8 (fault
+tolerance), 9 (the process pool: one worker process per rank, each with
+its own CUDA context on the card), 10 (serving) and 11 (overload safety).
+Section 12 (the device mesh) waits for the multi-device slice.
 
     PYTHONPATH=src python examples/torch_quickstart.py          # on the GPU
     PYTHONPATH=src python examples/torch_quickstart.py --cpu    # on the host
@@ -204,6 +205,98 @@ def main(argv=None) -> int:
     topo = make_topology("ring", 4, latency_s=1e-6, bandwidth_Bps=10e9)
     print(f"estimated comm makespan on a 4-node ring: "
           f"{ex.stats.estimated_makespan(topo) * 1e6:.2f} us")
+
+    # 8. fault tolerance: the executor records which op produced every
+    #    version, so losing a rank does NOT mean replaying the program.
+    #    A FaultInjector kills rank 2 mid-GEMM; the recovery planner walks
+    #    the lineage of the lost versions back to surviving replicas /
+    #    initial placements, recomputes only that ancestor closure, and
+    #    resumes the interrupted plan from the failed wavefront:
+    from repro_torch.linalg.distributed import (distributed_gemm_listing1,
+                                                make_distributed_inputs,
+                                                run_distributed_gemm)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    A = torch.randn((32, 32), generator=gen, device=dev)
+    B = torch.randn((32, 32), generator=gen, device=dev)
+    NP = NQ = 2
+    want, _, _ = run_distributed_gemm(A, B, ib=8, NP=NP, NQ=NQ, device=dev)
+    inj = bind.FaultInjector.kill_rank(2, wavefront=3)
+    fex = bind.LocalExecutor(NP * NQ, fault_injector=inj,
+                             topology=make_topology("ring", NP * NQ))
+    with bind.Workflow(n_nodes=NP * NQ, executor=fex) as wf:
+        a, b, c = make_distributed_inputs(wf, A, B, ib=8, NP=NP, NQ=NQ)
+        distributed_gemm_listing1(wf, a, b, c, NP, NQ)
+        out = c.to_array()
+    assert torch.equal(out, want)
+    st = fex.stats
+    print(f"killed rank 2 at wavefront 3: {st.recoveries} recovery, "
+          f"{st.recomputed_ops}/{st.ops_executed} ops recomputed "
+          f"(ratio {st.recompute_ratio:.2f}) — C bit for bit the fault-free "
+          f"one")
+
+    #    A *permanently* dead rank additionally triggers elastic rebind:
+    #    the cached plan skeleton is re-bound to the surviving n-1 ranks
+    #    (replacement priced by the topology model), and every later op
+    #    placement is remapped — the dead rank never holds data again.
+    #    decommission_rank() exposes the same machinery for planned
+    #    shrinks:
+    eex = bind.LocalExecutor(NP * NQ, topology=make_topology("ring", NP * NQ))
+    with bind.Workflow(n_nodes=NP * NQ, executor=eex) as wf:
+        a, b, c = make_distributed_inputs(wf, A, B, ib=8, NP=NP, NQ=NQ)
+        distributed_gemm_listing1(wf, a, b, c, NP, NQ)
+        wf.sync()
+        moved_to = eex.decommission_rank(wf, 2)    # elastic n -> n-1
+        distributed_gemm_listing1(wf, a, b, c, NP, NQ)   # c += A@B again
+        out = c.to_array()
+    close(out, 2 * want, 1e-5)
+    assert not eex._stores[2]
+    print(f"decommissioned rank 2 (state migrated to ring neighbour "
+          f"{moved_to}); second GEMM ran on 3 ranks")
+
+    # 9. real parallelism: backend="procs" executes the SAME compiled plan
+    #    on a pool of long-lived OS worker processes, one per simulated
+    #    rank, each with its own CUDA context on the card.  Versions live
+    #    in multiprocessing.shared_memory segments owned by their worker
+    #    (a CUDA tile staged through host memory); ships are cross-process
+    #    memcpys; the frontend keeps ShmRef handles and replays the
+    #    commit/GC/transfer accounting, so values, stats and the transfer
+    #    stream stay identical to serial.  Warm iterations cost ONE
+    #    control message per worker ("run plan N").
+    #
+    #      backend   dispatch                    wins when
+    #      serial    in-process, op at a time    chains; reference/debugging
+    #      threads   in-process thread pool      bodies that release the GIL
+    #      fused     batched (vmap) calls        many small aligned ops
+    #      procs     one OS process per rank     NumPy bodies on many cores;
+    #                                            real isolation, real kills
+    from repro_torch.core.backends.procs import shutdown_pools
+
+    procs = bind.ProcessPoolBackend()
+    got, pst, _ = run_distributed_gemm(A, B, ib=8, NP=NP, NQ=NQ, device=dev,
+                                       backend=procs)
+    assert torch.equal(got, want) and procs.fallbacks == 0
+    print(f"procs backend: Listing 1 in {procs.plans_run} plan(s) on "
+          f"{NP * NQ} worker processes, {pst.control_messages} control "
+          f"messages, {pst.message_count} simulated transfers — C bit for "
+          f"bit serial's")
+
+    #    worker-kill recovery: the injector SIGKILLs the rank-1 *process*
+    #    mid-plan.  The frontend detects the death at a wavefront boundary,
+    #    reads the barrier slots for the proven fully-committed prefix,
+    #    respawns the worker, and section 8's lineage recovery recomputes
+    #    only the lost closure — same bits out.
+    kex = bind.LocalExecutor(NP * NQ, backend=bind.ProcessPoolBackend(),
+                             fault_injector=bind.FaultInjector.kill_rank(
+                                 1, wavefront=2))
+    with bind.Workflow(n_nodes=NP * NQ, executor=kex) as wf:
+        a, b, c = make_distributed_inputs(wf, A, B, ib=8, NP=NP, NQ=NQ)
+        distributed_gemm_listing1(wf, a, b, c, NP, NQ)
+        out = c.to_array()
+    assert torch.equal(out, want) and kex.backend.fallbacks == 0
+    print(f"SIGKILLed worker 1 mid-plan: {kex.stats.recoveries} recovery, "
+          f"{kex.stats.recomputed_ops} ops recomputed — C bit for bit")
+    shutdown_pools()
 
     # 10. always-on serving: a background thread owns the executor and one
     #     long-lived workflow; clients submit step closures and get

@@ -9,9 +9,10 @@ The port's stack end to end: config -> model (weights from a seeded
 pipeline -> ``make_train_step`` (attention and its backward through the
 hand-written kernels on the card).  The loss must fall visibly (the
 synthetic corpus has learnable bigram structure); the run writes its loss
-curve as JSON to ``--out``.  Checkpoints come with Slice 4 (ROADMAP Queue
-1), so this example saves none.  Runs on the GPU; without one, and without
-``--cpu``, it stops with a message.
+curve as JSON to ``--out`` and checkpoints (parameters and optimizer
+state) to ``--out``/ckpt every 100 steps and after the last, through
+``repro_torch.ckpt.CheckpointManager`` (the reference's format).  Runs on
+the GPU; without one, and without ``--cpu``, it stops with a message.
 """
 
 import argparse
@@ -27,6 +28,7 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.ckpt import CheckpointManager  # noqa: E402
 from repro_torch.data import SyntheticLMDataset  # noqa: E402
 from repro_torch.models import LanguageModel  # noqa: E402
 from repro_torch.optim import AdamW, warmup_cosine  # noqa: E402
@@ -75,6 +77,8 @@ def main(argv=None) -> int:
                               device=dev)
     opt_state = opt.init(model)
     step_fn = make_train_step(model, opt)
+    params = dict(model.named_parameters())
+    ckpt = CheckpointManager(os.path.join(args.out, "ckpt"))
 
     curve = []
     t0 = time.time()
@@ -86,6 +90,11 @@ def main(argv=None) -> int:
             print(f"step {step:4d} loss {loss:.4f} "
                   f"({(time.time() - t0) / (step + 1):.2f}s/step)",
                   flush=True)
+        if (step + 1) % 100 == 0:
+            ckpt.save(step, (params, opt_state), extra={"step": step})
+    ckpt.save(args.steps - 1, (params, opt_state),
+              extra={"step": args.steps - 1}, block=True)
+    print(f"checkpoint: step {ckpt.latest_step()} -> {ckpt.dir}")
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "loss_curve.json"), "w") as f:
         json.dump(curve, f, indent=1)

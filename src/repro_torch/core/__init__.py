@@ -16,8 +16,8 @@ Public API (the ``bind::`` namespace of the paper)::
 
 Mirrors :mod:`repro.core` for one device: recording, planning (with the
 plan and program-trace caches), and replay through :class:`LocalExecutor`
-on the ``serial``, ``threads``, ``fused`` and ``mesh`` backends or the
-interpreter.
+on the ``serial``, ``threads``, ``fused``, ``procs`` and ``mesh`` backends
+or the interpreter, with fault injection and lineage recovery.
 """
 
 from .trace import BindArray, In, InOut, Out, OpNode, Workflow, current_workflow, op
@@ -60,9 +60,17 @@ from .backends import (
     BatchSlice,
     FusedBatchBackend,
     MeshBackend,
+    ProcessPoolBackend,
     SerialPlanBackend,
     ThreadPoolBackend,
     get_backend,
+)
+from .backends.base import FaultInjector, RankFailure
+from .recovery import (
+    PlanCheckpoint,
+    build_subset_plan,
+    choose_replacement,
+    plan_recovery,
 )
 
 __all__ = [
@@ -77,5 +85,8 @@ __all__ = [
     "clear_program_cache", "probe_plan", "resolve_plan",
     "EXEC_CACHE", "ExecutableCache",
     "BACKENDS", "Backend", "BatchBucket", "BatchSlice", "SerialPlanBackend",
-    "ThreadPoolBackend", "FusedBatchBackend", "MeshBackend", "get_backend",
+    "ThreadPoolBackend", "FusedBatchBackend", "MeshBackend",
+    "ProcessPoolBackend", "get_backend", "FaultInjector", "RankFailure",
+    "PlanCheckpoint", "build_subset_plan", "choose_replacement",
+    "plan_recovery",
 ]

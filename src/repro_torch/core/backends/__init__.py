@@ -15,6 +15,12 @@ transfers, live-footprint accounting, stats.  A **backend** owns only the
   level run as one ``torch.func.vmap`` call over stacked operands, and whole
   *signature chains* (:class:`~repro_torch.core.plan.ChainSlice`) as one
   call each;
+* ``"procs"``   — :class:`ProcessPoolBackend`: one long-lived worker
+  *process* per simulated rank, rank-local stores in shared memory, ships
+  as real cross-process memcpys — GIL-free parallelism for NumPy op bodies
+  the ``threads`` backend cannot overlap, plus *real* worker-kill fault
+  injection feeding the recovery machinery (a CUDA payload is staged
+  through host memory);
 * ``"mesh"``    — :class:`MeshBackend`: ``fused``, with kernel-tagged
   chains run as one hand-written chain-kernel launch each; lowering ships
   onto several GPUs arrives with Slice 3.
@@ -22,9 +28,7 @@ transfers, live-footprint accounting, stats.  A **backend** owns only the
 All backends replay the same plan against the same frontend state, so
 payload values and the transfer event stream are identical across backends;
 only wall-clock (and, for concurrent backends, the moment a level's
-in-flight payloads peak) differs.  The reference's process-pool backend
-arrives with a later slice of the port (``ROADMAP.md``, Queue 1); asking for
-it names its slice.
+in-flight payloads peak) differs.
 """
 
 from __future__ import annotations
@@ -33,18 +37,15 @@ from .base import Backend, BatchBucket, BatchSlice, spill_dead_buckets
 from .serial import SerialPlanBackend
 from .threadpool import ThreadPoolBackend
 from .fused import FusedBatchBackend
+from .procs import ProcessPoolBackend
 from .mesh import MeshBackend
 
 BACKENDS: dict[str, type] = {
     SerialPlanBackend.name: SerialPlanBackend,
     ThreadPoolBackend.name: ThreadPoolBackend,
     FusedBatchBackend.name: FusedBatchBackend,
+    ProcessPoolBackend.name: ProcessPoolBackend,
     MeshBackend.name: MeshBackend,
-}
-
-# reference backends not ported yet -> the ROADMAP slice that brings them
-_LATER_SLICES = {
-    "procs": "Slice 4",
 }
 
 
@@ -55,11 +56,6 @@ def get_backend(spec) -> Backend:
     cls = BACKENDS.get(spec) if isinstance(spec, str) else None
     if cls is not None:
         return cls()
-    if isinstance(spec, str) and spec in _LATER_SLICES:
-        raise ValueError(
-            f"execution backend {spec!r} is not ported yet: it arrives with "
-            f"ROADMAP Queue 1 {_LATER_SLICES[spec]}; "
-            f"available: {sorted(BACKENDS)}")
     raise ValueError(
         f"unknown execution backend {spec!r}; "
         f"available: {sorted(BACKENDS)}")
@@ -67,4 +63,5 @@ def get_backend(spec) -> Backend:
 
 __all__ = ["Backend", "BatchBucket", "BatchSlice", "SerialPlanBackend",
            "ThreadPoolBackend", "FusedBatchBackend", "MeshBackend",
-           "BACKENDS", "get_backend", "spill_dead_buckets"]
+           "ProcessPoolBackend", "BACKENDS", "get_backend",
+           "spill_dead_buckets"]

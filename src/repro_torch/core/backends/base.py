@@ -12,6 +12,10 @@ op body itself:
 * :func:`commit`       — place written payloads, sample live peaks, run GC
   (through :func:`drop_versions`, the one shared drop idiom).
 
+A :class:`FaultInjector` on the executor is consulted by every backend at
+each wavefront boundary, before the level mutates any state; a due kill or
+ship drop raises :class:`RankFailure`, which the executor recovers from.
+
 The fused backends keep a level's results as one stacked buffer
 (:class:`BatchBucket`) whose rows live in the stores as lazy
 :class:`BatchSlice` payloads; :func:`spill_dead_buckets` concretises the
@@ -35,6 +39,138 @@ from __future__ import annotations
 from ..stats import TransferEvent, _nbytes
 
 
+class RankFailure(RuntimeError):
+    """A simulated rank failure, raised at a wavefront boundary.
+
+    Carries everything the recovery planner (:mod:`repro_torch.core.recovery`)
+    needs: the lost ``rank``, the global ``wavefront`` ordinal the failure
+    precedes (an index into ``ExecutionStats.wavefronts``), the
+    plan-relative ``level`` ordinal (``None`` under the interpreter, which
+    reports ``op_index`` instead), the failure ``kind`` (``"kill"`` wipes
+    the rank's whole store, ``"ship"`` loses one in-flight replica listed
+    in ``lost_keys``), and whether the rank is ``permanent``ly dead
+    (triggering elastic rebind instead of transient recovery).
+    """
+
+    def __init__(self, rank: int, wavefront: int, *, level=None,
+                 op_index=None, kind: str = "kill", permanent: bool = False,
+                 lost_keys=None):
+        super().__init__(
+            f"rank {rank} {'lost a ship' if kind == 'ship' else 'failed'} "
+            f"at wavefront {wavefront}"
+            f"{' (permanent)' if permanent else ''}")
+        self.rank = rank
+        self.wavefront = wavefront
+        self.level = level
+        self.op_index = op_index
+        self.kind = kind
+        self.permanent = permanent
+        self.lost_keys = lost_keys
+
+
+class FaultInjector:
+    """Deterministic seeded fault policies, consulted at wavefront boundaries.
+
+    Every backend calls :meth:`check` once per wavefront level (the
+    interpreter: once per op) *before* mutating any state for that level,
+    so a raised :class:`RankFailure` always observes a consistent store.
+    Policies are one-shot and fire at the **first** boundary whose global
+    wavefront ordinal reaches their target (fused chains dispatch several
+    levels atomically, so a mid-chain target fires at the chain's exit
+    boundary).  The executor suspends the injector while a recovery
+    sub-plan runs — recovery never re-faults itself.
+
+    Construct via the policy classmethods (each returns a fresh injector,
+    so a fuzzer replaying one scenario across backends builds one per run)
+    or compose several policies with ``FaultInjector([...])``.
+    """
+
+    def __init__(self, policies=()):
+        self.policies = [dict(p) for p in policies]
+        self.fired: list[dict] = []
+        self.delays = 0
+        self.delay_s = 0.0
+        self._suspended = 0
+
+    # -- policy constructors -------------------------------------------------
+    @classmethod
+    def kill_rank(cls, rank: int, wavefront: int,
+                  permanent: bool = False) -> "FaultInjector":
+        """Kill rank ``rank`` at the first boundary >= ``wavefront``."""
+        return cls([{"kind": "kill", "rank": rank, "wavefront": wavefront,
+                     "permanent": permanent, "fired": False}])
+
+    @classmethod
+    def drop_ship(cls, wavefront: int, seed: int = 0) -> "FaultInjector":
+        """Lose one replicated version from one holder rank (a transfer
+        that never arrived) at the first boundary >= ``wavefront`` where a
+        replica exists; ``seed`` picks the victim deterministically."""
+        return cls([{"kind": "ship", "wavefront": wavefront, "seed": seed,
+                     "fired": False}])
+
+    @classmethod
+    def delay_rank(cls, rank: int, wavefront: int,
+                   seconds: float = 0.0) -> "FaultInjector":
+        """A straggler, not a failure: counted (and optionally priced) but
+        raising nothing — the plan's wavefront barrier absorbs it."""
+        return cls([{"kind": "delay", "rank": rank, "wavefront": wavefront,
+                     "seconds": seconds, "fired": False}])
+
+    # -- executor-side protocol ----------------------------------------------
+    @property
+    def armed(self) -> bool:
+        """True while an un-fired policy could still raise."""
+        return (not self._suspended
+                and any(not p["fired"] for p in self.policies))
+
+    def suspend(self) -> None:
+        self._suspended += 1
+
+    def resume(self) -> None:
+        self._suspended -= 1
+
+    def _pick_replica(self, ex, seed: int):
+        """Deterministic (version, holder) victim for a ship drop: a
+        non-root replica of some multiply-held version, or None if nothing
+        is replicated yet (the policy then waits for a later boundary)."""
+        cands = sorted(
+            (k, tuple(sorted(rs))) for k, rs in ex._where.items()
+            if len(rs) >= 2)
+        if not cands:
+            return None
+        vkey, ranks = cands[seed % len(cands)]
+        return vkey, ranks[-1]
+
+    def check(self, ex, wavefront: int, level=None, op_index=None) -> None:
+        """Fire any due policy; raises :class:`RankFailure` for kill/ship."""
+        if self._suspended:
+            return
+        for pol in self.policies:
+            if pol["fired"] or wavefront < pol["wavefront"]:
+                continue
+            kind = pol["kind"]
+            if kind == "delay":
+                pol["fired"] = True
+                self.delays += 1
+                self.delay_s += pol.get("seconds", 0.0)
+                continue
+            if kind == "ship":
+                victim = self._pick_replica(ex, pol.get("seed", 0))
+                if victim is None:
+                    continue
+                vkey, dst = victim
+                pol["fired"] = True
+                self.fired.append(pol)
+                raise RankFailure(dst, wavefront, level=level,
+                                  op_index=op_index, kind="ship",
+                                  lost_keys=(vkey,))
+            pol["fired"] = True
+            self.fired.append(pol)
+            raise RankFailure(pol["rank"], wavefront, level=level,
+                              op_index=op_index, kind="kill",
+                              permanent=pol.get("permanent", False))
+
+
 class Backend:
     """Dispatch strategy for a compiled plan (see package docstring)."""
 
@@ -48,7 +184,8 @@ class Backend:
 
         Called when the executor forgets its stores (a new ``Workflow``
         restarts the version-id streams, so every held key is stale).
-        Simulated backends keep no payload state of their own.
+        Simulated backends keep no payload state of their own — the
+        process-pool backend overrides this to clear worker arenas.
         """
 
     def __repr__(self) -> str:

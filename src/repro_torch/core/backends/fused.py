@@ -287,7 +287,15 @@ class FusedBatchBackend(Backend):
                     if plan.chains and min_chain else None)
         li = 0
         n_levels = len(levels)
+        inj = getattr(ex, "fault_injector", None)
+        if inj is not None and not inj.armed:
+            inj = None
         while li < n_levels:
+            if inj is not None:
+                # wavefront-boundary fault consult; a chain dispatches its
+                # levels atomically, so a mid-chain target fires at the
+                # chain's exit boundary (the next time this line runs)
+                inj.check(ex, ex._wavefront_base + li, level=li)
             chain = chain_at.get(li) if chain_at else None
             if (chain is not None and chain.n_levels >= min_chain
                     and chain.fn not in self._no_chain

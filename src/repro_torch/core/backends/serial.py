@@ -15,7 +15,8 @@ nothing here synchronises.
 from __future__ import annotations
 
 from ..stats import TransferEvent, _nbytes
-from .base import Backend, drop_versions
+from .base import (Backend, apply_ships, commit, drop_versions, gather_args,
+                   resolve_call)
 
 
 class SerialPlanBackend(Backend):
@@ -24,6 +25,14 @@ class SerialPlanBackend(Backend):
     name = "serial"
 
     def execute(self, ex, wf, plan) -> None:
+        inj = getattr(ex, "fault_injector", None)
+        if inj is not None and inj.armed:
+            # fault-checked replay via the shared per-op primitives: the
+            # executor's counters stay authoritative at every step, so a
+            # RankFailure raised at a level boundary observes consistent
+            # state (the local-mirroring hot loop below writes back only at
+            # the end and must never be interrupted mid-flight)
+            return self._execute_checked(ex, wf, plan, inj)
         ops = wf.ops
         stores = ex._stores
         where = ex._where
@@ -141,3 +150,19 @@ class SerialPlanBackend(Backend):
 
         ex._live_bytes, ex._live_entries = live_b, live_c
         stats.peak_live_bytes, stats.peak_live_payloads = peak_b, peak_c
+
+    def _execute_checked(self, ex, wf, plan, inj) -> None:
+        """Level-major replay consulting the fault injector at every
+        wavefront boundary; identical transitions to the hot loop (both
+        flow through the :mod:`.base` primitives' semantics)."""
+        ops = wf.ops
+        schedule = plan.schedule
+        for li, (lo, hi) in enumerate(plan.levels):
+            inj.check(ex, ex._wavefront_base + li, level=li)
+            for idx in range(lo, hi):
+                p = schedule[idx]
+                node = ops[p.op_id]
+                if p.ships:
+                    apply_ships(ex, p)
+                args = gather_args(ex, p, node)
+                commit(ex, p, node, resolve_call(ex, p, args)(*args))

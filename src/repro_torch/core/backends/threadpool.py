@@ -44,9 +44,6 @@ version from card operands passes that on to the versions' readers), so
 its levels run inline, and a plan whose operands all lie on the card
 delegates to the serial backend.  On NumPy and CPU-tensor payloads the
 pricing, and every counter, is the reference's.
-
-The fault-injection hooks of the reference wait for ROADMAP Queue 1
-Slice 4.
 """
 
 from __future__ import annotations
@@ -283,7 +280,15 @@ class ThreadPoolBackend(Backend):
             return
         ops = wf.ops
         schedule = plan.schedule
-        for lo, hi in plan.levels:
+        inj = getattr(ex, "fault_injector", None)
+        if inj is not None and not inj.armed:
+            inj = None
+        for li, (lo, hi) in enumerate(plan.levels):
+            if inj is not None:
+                # consult the injector before any of this level's state
+                # mutates — a raised RankFailure sees a boundary-consistent
+                # executor (all prior levels fully committed)
+                inj.check(ex, ex._wavefront_base + li, level=li)
             if hi - lo == 1:                      # chain fast path: no pool
                 p = schedule[lo]
                 if p.ships:

@@ -207,6 +207,123 @@ class ExecutionPlan:
     def __len__(self) -> int:
         return len(self.schedule)
 
+    def rebind_ranks(self, rank_map: dict, holders: dict, pinned,
+                     wf=None) -> "ExecutionPlan":
+        """Re-bind this plan's skeleton to a remapped rank placement.
+
+        The elastic-degradation half of the fault-tolerance story: when a
+        rank is declared permanently dead, the structural analysis (level
+        slices, signature groups, chain alignment, wavefront counts) stays
+        valid — only the *placement-derived* products change.  This
+        re-simulates exec ranks, ship schedules and GC drop lists over the
+        existing schedule with every rank sent through ``rank_map``
+        (typically ``{dead: replacement}``), starting from the live
+        ``holders`` state, and recomputes ``level_flops`` against the
+        merged placement when ``wf`` is given (rank merging changes the
+        busiest-rank sum).  Chains whose interior levels acquire ships
+        under the new holder state are dropped (a fused chain must stay
+        interior-ship-free); everything else is shared with the template —
+        the same reuse contract as :meth:`rebind`.
+        """
+        pinned = set(pinned)
+        mapped_exec = []
+        readers: dict = {}
+        reader_ranks: dict = {}
+        for p in self.schedule:
+            er = tuple(dict.fromkeys(rank_map.get(r, r)
+                                     for r in p.exec_ranks))
+            mapped_exec.append(er)
+            for k in p.arg_keys:
+                if k is None:
+                    continue
+                readers[k] = readers.get(k, 0) + 1
+                s = reader_ranks.get(k)
+                if s is None:
+                    reader_ranks[k] = s = set()
+                s.update(er)
+        sim: dict = {}
+        naive = self.collective_mode == "naive"
+        rel_round = 0
+        schedule = []
+        for p, er in zip(self.schedule, mapped_exec):
+            ships = []
+            for k in p.arg_keys:
+                if k is None:
+                    continue
+                hold = sim.get(k)
+                if hold is None:
+                    rs = holders.get(k)
+                    assert rs, f"version {k} was never materialised"
+                    sim[k] = hold = set(rs)
+                missing = sorted((set(er) | reader_ranks[k]) - hold)
+                if not missing:
+                    continue
+                root = min(hold)
+                transfers = []
+                if naive or len(missing) == 1:
+                    for dst in missing:
+                        rel_round += 1
+                        transfers.append((root, dst, "p2p", rel_round))
+                else:
+                    tree = broadcast_tree(root, [root] + missing)
+                    for round_pairs in tree.rounds:
+                        rel_round += 1
+                        for src, dst in round_pairs:
+                            transfers.append((src, dst, "broadcast",
+                                              rel_round))
+                hold.update(missing)
+                ships.append((k, root, tuple(transfers)))
+            for k in p.write_keys:
+                sim[k] = set(er)
+            gc_keys = []
+            for k in p.arg_keys:
+                if k is None:
+                    continue
+                left = readers[k] - 1
+                readers[k] = left
+                if left <= 0 and k not in pinned and k in sim:
+                    gc_keys.append(k)
+                    del sim[k]
+            schedule.append(PlanOp(p.op_id, p.fn, p.arg_keys, p.write_keys,
+                                   er, tuple(ships), tuple(gc_keys),
+                                   p.level))
+        plan = object.__new__(ExecutionPlan)
+        plan.schedule = tuple(schedule)
+        plan.wavefront_counts = self.wavefront_counts
+        plan.n_rounds = rel_round
+        plan.start = self.start
+        plan.end = self.end
+        plan.n_nodes = self.n_nodes
+        plan.collective_mode = self.collective_mode
+        plan.total_writes = self.total_writes
+        plan.levels = self.levels
+        plan.level_groups = self.level_groups
+        plan.has_fusion_groups = self.has_fusion_groups
+        plan.chains = tuple(
+            ChainSlice(c.members, c.width, c.first_level, c.fn, c.carry_pos,
+                       c.payload_positions,
+                       frozenset(plan.schedule[m].write_keys[0]
+                                 for lvl in c.members[:-1] for m in lvl))
+            for c in self.chains
+            if not any(plan.schedule[m].ships
+                       for lvl in c.members[1:] for m in lvl))
+        plan.level_kernels = self.level_kernels
+        plan.inline_memo = None     # keyed by this schedule's own inputs
+        if wf is not None:
+            acc: dict[int, dict[int, int]] = {}
+            for p in plan.schedule:
+                fl = wf.ops[p.op_id].flops
+                if fl:
+                    per_rank = acc.setdefault(p.level, {})
+                    for r in p.exec_ranks:
+                        per_rank[r] = per_rank.get(r, 0) + fl
+            plan.level_flops = tuple(
+                max(acc[lv].values()) if lv in acc else 0
+                for lv in range(1, len(plan.levels) + 1))
+        else:
+            plan.level_flops = self.level_flops
+        return plan
+
     def rebind(self, schedule, start: int, end: int) -> "ExecutionPlan":
         """A structurally identical plan re-pointed at ``schedule``'s keys.
 
@@ -396,7 +513,8 @@ def _signature_chains(schedule, levels) -> tuple:
     return tuple(chains)
 
 
-def _flops_per_level(ops, level_of: dict, n_levels: int) -> list[int]:
+def _flops_per_level(ops, level_of: dict, n_levels: int,
+                     rank_map: dict = None) -> list[int]:
     """Critical-path compute per level: max over ranks of summed op flops.
 
     Ops of one level run concurrently across ranks but serialise on a rank,
@@ -408,7 +526,7 @@ def _flops_per_level(ops, level_of: dict, n_levels: int) -> list[int]:
     for node in ops:
         if node.flops:
             per_rank = acc.setdefault(level_of[node.op_id], {})
-            for r in placement_ranks(node.placement):
+            for r in map_ranks(placement_ranks(node.placement), rank_map):
                 per_rank[r] = per_rank.get(r, 0) + node.flops
     return [max(acc[lv].values()) if lv in acc else 0
             for lv in range(1, n_levels + 1)]
@@ -462,13 +580,25 @@ def wavefront_levels(wf, start: int, end: int) -> tuple[dict[int, int], list[int
     return level, [counts[k] for k in sorted(counts)]
 
 
+def map_ranks(ranks, rank_map) -> tuple[int, ...]:
+    """Send a rank tuple through an (elastic-rebind) rank map, deduplicated
+    in order — two ranks merged by the map must not double-place."""
+    if not rank_map:
+        return tuple(ranks)
+    return tuple(dict.fromkeys(rank_map.get(r, r) for r in ranks))
+
+
 def build_plan(wf, start: int, end: int, n_nodes: int, collective_mode: str,
-               holders: dict, pinned: Iterable) -> ExecutionPlan:
+               holders: dict, pinned: Iterable,
+               rank_map: dict = None) -> ExecutionPlan:
     """Compile ``wf.ops[start:end]`` into an :class:`ExecutionPlan`.
 
     ``holders`` maps version_key -> set of ranks holding its payload at run
     start (copied, never mutated); ``pinned`` are version keys exempt from
-    GC.  The simulation walks ops in execution
+    GC.  ``rank_map`` (elastic degradation, :mod:`repro_torch.core.recovery`)
+    re-points recorded placements at surviving ranks — every
+    placement-derived product (exec ranks, ships, flops attribution) is
+    computed in the mapped space.  The simulation walks ops in execution
     order (wavefront level major, trace order minor — identical to trace
     order whenever the trace is already level-sorted, which keeps stats
     byte-compatible with the interpreter on such workflows).
@@ -483,7 +613,7 @@ def build_plan(wf, start: int, end: int, n_nodes: int, collective_mode: str,
     readers: dict[tuple[int, int], int] = {}
     reader_ranks: dict[tuple[int, int], set[int]] = {}
     for node in ops:
-        rr = placement_ranks(node.placement)
+        rr = map_ranks(placement_ranks(node.placement), rank_map)
         for v in node.reads:
             k = v.key
             readers[k] = readers.get(k, 0) + 1
@@ -499,7 +629,7 @@ def build_plan(wf, start: int, end: int, n_nodes: int, collective_mode: str,
     schedule = []
     for i in order:
         node = ops[i]
-        exec_ranks = placement_ranks(node.placement)
+        exec_ranks = map_ranks(placement_ranks(node.placement), rank_map)
         ships = []
         for v in node.reads:
             k = v.key
@@ -546,7 +676,8 @@ def build_plan(wf, start: int, end: int, n_nodes: int, collective_mode: str,
         ))
     return ExecutionPlan(tuple(schedule), wavefront_counts, rel_round,
                          start, end, n_nodes, collective_mode,
-                         _flops_per_level(ops, level, len(wavefront_counts)))
+                         _flops_per_level(ops, level, len(wavefront_counts),
+                                          rank_map))
 
 
 # ---------------------------------------------------------------------------
@@ -567,15 +698,16 @@ def clear_plan_cache() -> None:
 
 def absolute_plan_key(wf, start: int, end: int, n_nodes: int,
                       collective_mode: str, holders: dict,
-                      pinned: Iterable) -> tuple:
+                      pinned: Iterable, rank_map: dict = None) -> tuple:
     """Exact-identity cache key for a planned range.
 
     Ties the structural segment signature to everything else the simulation
     consumed: world size, collective mode, the run-start holder state of the
     versions the range *reads* (ship schedules and GC depend on nothing else
-    in the stores — unrelated live payloads must not cause misses) and the
-    pinned set — a hit guarantees the cached ship/GC schedules are valid
-    for this run.
+    in the stores — unrelated live payloads must not cause misses), the
+    pinned set, and the elastic rank map (a remapped plan must never
+    satisfy an unmapped lookup or vice versa) — a hit guarantees the cached
+    ship/GC schedules are valid for this run.
     """
     read_holders: dict[tuple[int, int], tuple[int, ...]] = {}
     for node in wf.ops[start:end]:
@@ -590,6 +722,7 @@ def absolute_plan_key(wf, start: int, end: int, n_nodes: int,
         segment_signature(wf, start, end),
         tuple(sorted(read_holders.items())),
         tuple(sorted(pinned)),
+        tuple(sorted(rank_map.items())) if rank_map else (),
     )
 
 
@@ -642,3 +775,198 @@ def plan_for(wf, start: int, end: int, n_nodes: int, collective_mode: str,
                           pinned)
         _plan_cache_put(key, plan)
     return plan
+
+
+# ---------------------------------------------------------------------------
+# Rank-local plan slicing (process-pool backend)
+# ---------------------------------------------------------------------------
+
+class RankSlices:
+    """A plan resolved into per-rank, per-level picklable work lists.
+
+    The process-pool backend ships each worker only its own slice:
+    ``worker_levels[rank][li]`` is ``(pulls, ops, drops)`` where ``pulls``
+    are ``(version_key, src_rank)`` memcpys realising this rank's share of
+    the level's ship schedule, ``ops`` are ``(fn_index, argspec,
+    write_keys, report)`` descriptors (``argspec`` entries are ``(0, key)``
+    payload reads from the rank's own arena or ``(1, const_index)`` into
+    the shared ``consts`` vector; ``report`` marks the one exec rank that
+    reports result nbytes back), and ``drops`` are the version keys whose
+    last reader sits in this level — the per-op GC drop lists re-bucketed
+    by holder rank so workers free eagerly.
+
+    ``fns`` is the registered fn table (pickled by reference — workers
+    resolve the module-level callables on their side); constants are
+    *not* baked into descriptors because plans are reused across runs with
+    different embedded constants.  ``read_holders`` records the holder
+    ranks of every key the plan reads before writing, so a later run may
+    validate that a cached slice's ship/drop distribution is still valid.
+    """
+
+    __slots__ = ("fns", "consts", "worker_levels", "read_holders",
+                 "n_levels")
+
+    def __init__(self, fns, consts, worker_levels, read_holders, n_levels):
+        self.fns = fns
+        self.consts = consts
+        self.worker_levels = worker_levels
+        self.read_holders = read_holders
+        self.n_levels = n_levels
+
+
+def slice_for_ranks(plan: ExecutionPlan, wf, holders: dict,
+                    n_ranks: int) -> RankSlices:
+    """Slice ``plan`` into per-rank wavefront work lists (see
+    :class:`RankSlices`).
+
+    Re-simulates holder evolution exactly as :func:`build_plan` did (ships
+    add replicas, writes place on exec ranks, GC removes every replica) so
+    each drop lands on precisely the ranks physically holding a segment.
+    Broadcast-tree ships are realised as direct pulls from the tree root:
+    the *accounting* keeps the tree shape (the frontend replays
+    ``p.ships`` virtually), but the physical memcpy always reads the root
+    rank's segment — the root committed it before the level started, so
+    every pull inside one level is race-free without intra-level rounds.
+    """
+    n_levels = len(plan.levels)
+    fns: list = []
+    fn_idx: dict = {}
+    consts: list = []
+    per_rank = [[([], [], []) for _ in range(n_levels)]
+                for _ in range(n_ranks)]
+    sim: dict = {}
+    read_holders: dict = {}
+
+    def ensure(k):
+        hold = sim.get(k)
+        if hold is None:
+            rs = holders.get(k)
+            sim[k] = hold = set(rs) if rs else set()
+            read_holders[k] = tuple(sorted(hold))
+        return hold
+
+    for p in plan.schedule:
+        node = wf.ops[p.op_id]
+        li = p.level - 1
+        for k, root, transfers in p.ships:
+            hold = ensure(k)
+            for _src, dst, _kind, _rel in transfers:
+                if dst not in hold:
+                    per_rank[dst][li][0].append((k, root))
+                    hold.add(dst)
+        for k in p.arg_keys:
+            if k is not None:
+                ensure(k)
+        fi = fn_idx.get(p.fn)
+        if fi is None:
+            fn_idx[p.fn] = fi = len(fns)
+            fns.append(p.fn)
+        argspec = []
+        for k, a in zip(p.arg_keys, node.args):
+            if k is not None:
+                argspec.append((0, k))
+            else:
+                argspec.append((1, len(consts)))
+                consts.append(a[1])
+        desc = (fi, tuple(argspec), p.write_keys)
+        for j, r in enumerate(p.exec_ranks):
+            per_rank[r][li][1].append(desc + (j == 0,))
+        for k in p.write_keys:
+            sim[k] = set(p.exec_ranks)
+        for k in p.gc_keys:
+            hold = sim.pop(k, None)
+            if hold:
+                for r in hold:
+                    per_rank[r][li][2].append(k)
+    worker_levels = tuple(
+        tuple((tuple(pl), tuple(ops), tuple(dr)) for pl, ops, dr in lvls)
+        for lvls in per_rank)
+    return RankSlices(tuple(fns), tuple(consts), worker_levels,
+                      read_holders, n_levels)
+
+
+def key_map(template: ExecutionPlan, plan: ExecutionPlan):
+    """Per-ref translation ``{template ref: (plan ref, index shift)}``
+    mapping ``template``'s keys onto ``plan``'s, or None if the two
+    schedules are not equivalent under one.
+
+    :func:`key_delta`'s check (exhaustive over every key-bearing field:
+    args, writes, GC, ship roots and schedules) with one generalisation: a
+    ref may map onto *another* ref, one to one.  A loop iteration that
+    creates fresh arrays (``wf.apply`` temporaries, new output tiles) binds
+    the same plan skeleton to new refs each time; the ``procs`` backend
+    then still sends only the translation table, where the reference's
+    ``key_delta`` (refs fixed) finds no delta and re-ships the plan.
+    """
+    if len(template.schedule) != len(plan.schedule):
+        return None
+    trans: dict[int, tuple[int, int]] = {}
+    taken: dict[int, int] = {}
+
+    def match(ok, nk):
+        if ok is None or nk is None:
+            return ok is None and nk is None
+        t = (nk[0], nk[1] - ok[1])
+        if trans.setdefault(ok[0], t) != t:
+            return False
+        return taken.setdefault(nk[0], ok[0]) == ok[0]
+
+    for op_, np_ in zip(template.schedule, plan.schedule):
+        if (op_.fn is not np_.fn or op_.exec_ranks != np_.exec_ranks
+                or op_.level != np_.level
+                or len(op_.arg_keys) != len(np_.arg_keys)
+                or len(op_.write_keys) != len(np_.write_keys)
+                or len(op_.gc_keys) != len(np_.gc_keys)
+                or len(op_.ships) != len(np_.ships)):
+            return None
+        for ok, nk in zip(op_.arg_keys, np_.arg_keys):
+            if not match(ok, nk):
+                return None
+        for ok, nk in zip(op_.write_keys, np_.write_keys):
+            if not match(ok, nk):
+                return None
+        for ok, nk in zip(op_.gc_keys, np_.gc_keys):
+            if not match(ok, nk):
+                return None
+        for (okk, oroot, otr), (nkk, nroot, ntr) in zip(op_.ships,
+                                                        np_.ships):
+            if oroot != nroot or otr != ntr or not match(okk, nkk):
+                return None
+    return trans
+
+
+def translate(trans: dict, key: tuple[int, int]) -> tuple[int, int]:
+    """``key`` through a :func:`key_map` translation."""
+    t = trans.get(key[0])
+    return key if t is None else (t[0], key[1] + t[1])
+
+
+def key_delta(template: ExecutionPlan, plan: ExecutionPlan):
+    """Per-ref version-index shift mapping ``template``'s keys onto
+    ``plan``'s, or None if the two schedules are not shift-equivalent.
+
+    The program-trace cache replays a loop body against fresh version keys
+    every iteration (:meth:`ExecutionPlan.rebind`): same structure, every
+    key of ref ``r`` advanced by a per-ref constant.  The check is
+    exhaustive over every key-bearing field (args, writes, GC, ship
+    roots/schedules), so a successful delta *proves* a worker-resident
+    plan slice replays correctly under translation.  The reference's
+    function: :func:`key_map` with every ref mapped onto itself.
+    """
+    trans = key_map(template, plan)
+    if trans is None or any(new != old for old, (new, _d) in trans.items()):
+        return None
+    return {old: d for old, (_new, d) in trans.items()}
+
+
+def plan_consts(plan: ExecutionPlan, wf) -> tuple:
+    """The plan's embedded-constant vector, in :func:`slice_for_ranks`
+    order (schedule-major, argument-position minor).  Read from the live
+    ops — constants are never baked into plans or shipped slices."""
+    out = []
+    for p in plan.schedule:
+        node = wf.ops[p.op_id]
+        for k, a in zip(p.arg_keys, node.args):
+            if k is None:
+                out.append(a[1])
+    return tuple(out)

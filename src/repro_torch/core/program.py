@@ -165,6 +165,12 @@ def _bind(tmpl: ProgramPlan, keys: tuple, start: int, end: int) -> ExecutionPlan
 
 PROGRAM_CACHE_SIZE = 32
 _PROGRAM_CACHE: "OrderedDict[tuple, ProgramPlan]" = OrderedDict()
+# structural skeleton index for elastic rebind: the latest *unmapped*
+# template per (n_nodes, collective_mode, ops_sig), regardless of holder /
+# pinned state — after a permanent rank death the pre-failure holder
+# signatures can never recur, but the structural analysis is still valid
+# and ExecutionPlan.rebind_ranks re-simulates everything placement-derived.
+_SKELETON_INDEX: "OrderedDict[tuple, ProgramPlan]" = OrderedDict()
 _PROGRAM_CACHE_LOCK = threading.Lock()
 PROGRAM_CACHE_STATS = {"hits": 0, "misses": 0}
 
@@ -172,25 +178,12 @@ PROGRAM_CACHE_STATS = {"hits": 0, "misses": 0}
 def clear_program_cache() -> None:
     with _PROGRAM_CACHE_LOCK:
         _PROGRAM_CACHE.clear()
+        _SKELETON_INDEX.clear()
         PROGRAM_CACHE_STATS["hits"] = PROGRAM_CACHE_STATS["misses"] = 0
 
 
-def _program_template(wf, start: int, end: int, n_nodes: int,
-                      collective_mode: str, holders: dict, pinned: set):
-    """``(pkey, keys, template-or-None)`` from the relocatable cache;
-    a found template is moved to the LRU end and counted as a hit."""
-    ops_sig, ext, pin, keys = _normalize(wf, start, end, holders, pinned)
-    pkey = (n_nodes, collective_mode, ops_sig, ext, pin)
-    with _PROGRAM_CACHE_LOCK:
-        tmpl = _PROGRAM_CACHE.get(pkey)
-        if tmpl is not None:
-            _PROGRAM_CACHE.move_to_end(pkey)
-            PROGRAM_CACHE_STATS["hits"] += 1
-    return pkey, keys, tmpl
-
-
 def probe_plan(wf, start: int, end: int, n_nodes: int, collective_mode: str,
-               holders: dict, pinned: Iterable):
+               holders: dict, pinned: Iterable, rank_map: dict = None):
     """Cache-only lookup of the stitched plan for ``[start, end)``.
 
     Same lookup order as :func:`resolve_plan` (exact-identity plan cache,
@@ -210,12 +203,18 @@ def probe_plan(wf, start: int, end: int, n_nodes: int, collective_mode: str,
     """
     pinned = set(pinned)
     akey = absolute_plan_key(wf, start, end, n_nodes, collective_mode,
-                             holders, pinned)
+                             holders, pinned, rank_map)
     plan = _plan_cache_probe(akey)
     if plan is not None:
         return plan
-    _pkey, keys, tmpl = _program_template(wf, start, end, n_nodes,
-                                          collective_mode, holders, pinned)
+    ops_sig, ext, pin, keys = _normalize(wf, start, end, holders, pinned)
+    rmap_sig = tuple(sorted(rank_map.items())) if rank_map else ()
+    pkey = (n_nodes, collective_mode, ops_sig, ext, pin, rmap_sig)
+    with _PROGRAM_CACHE_LOCK:
+        tmpl = _PROGRAM_CACHE.get(pkey)
+        if tmpl is not None:
+            _PROGRAM_CACHE.move_to_end(pkey)
+            PROGRAM_CACHE_STATS["hits"] += 1
     if tmpl is None:
         return None
     plan = _bind(tmpl, keys, start, end)
@@ -224,33 +223,64 @@ def probe_plan(wf, start: int, end: int, n_nodes: int, collective_mode: str,
 
 
 def resolve_plan(wf, start: int, end: int, n_nodes: int, collective_mode: str,
-                 holders: dict, pinned: Iterable) -> ExecutionPlan:
+                 holders: dict, pinned: Iterable,
+                 rank_map: dict = None) -> ExecutionPlan:
     """Fetch-bind-or-build the stitched plan for a pending program range.
 
     Tries the exact-identity plan cache, then the relocatable program-trace
     cache (binding the skeleton to this program's keys), then builds —
     storing the result under both keys either way, so an identical replay
     of the same program is always an exact-cache hit.
+
+    Under an elastic ``rank_map`` (a permanently dead rank re-bound to a
+    survivor) both caches key on the map; on a miss, a structurally-equal
+    *unmapped* template recorded before the failure is re-bound to the
+    (n−1)-rank placement via :meth:`ExecutionPlan.rebind_ranks` instead of
+    paying a fresh structural analysis.
     """
     pinned = set(pinned)
     akey = absolute_plan_key(wf, start, end, n_nodes, collective_mode,
-                             holders, pinned)
+                             holders, pinned, rank_map)
     plan = _plan_cache_get(akey)
     if plan is not None:
         return plan
-    pkey, keys, tmpl = _program_template(wf, start, end, n_nodes,
-                                         collective_mode, holders, pinned)
+    ops_sig, ext, pin, keys = _normalize(wf, start, end, holders, pinned)
+    rmap_sig = tuple(sorted(rank_map.items())) if rank_map else ()
+    pkey = (n_nodes, collective_mode, ops_sig, ext, pin, rmap_sig)
+    skel = None
+    with _PROGRAM_CACHE_LOCK:
+        tmpl = _PROGRAM_CACHE.get(pkey)
+        if tmpl is not None:
+            _PROGRAM_CACHE.move_to_end(pkey)
+            PROGRAM_CACHE_STATS["hits"] += 1
+        else:
+            if rank_map:
+                skel = _SKELETON_INDEX.get((n_nodes, collective_mode,
+                                            ops_sig))
+            if skel is not None:
+                PROGRAM_CACHE_STATS["hits"] += 1
+            else:
+                PROGRAM_CACHE_STATS["misses"] += 1
     if tmpl is not None:
         plan = _bind(tmpl, keys, start, end)
         _plan_cache_put(akey, plan)
         return plan
-    with _PROGRAM_CACHE_LOCK:
-        PROGRAM_CACHE_STATS["misses"] += 1
-    plan = build_plan(wf, start, end, n_nodes, collective_mode, holders,
-                      pinned)
+    if skel is not None:
+        # elastic path: re-point the pre-failure skeleton at this program's
+        # keys, then re-bind its placement products to the surviving ranks
+        plan = _bind(skel, keys, start, end).rebind_ranks(
+            rank_map, holders, pinned, wf)
+    else:
+        plan = build_plan(wf, start, end, n_nodes, collective_mode, holders,
+                          pinned, rank_map)
     _plan_cache_put(akey, plan)
     with _PROGRAM_CACHE_LOCK:
         _PROGRAM_CACHE[pkey] = ProgramPlan(plan, keys, start)
         while len(_PROGRAM_CACHE) > PROGRAM_CACHE_SIZE:
             _PROGRAM_CACHE.popitem(last=False)
+        if not rank_map:
+            _SKELETON_INDEX[(n_nodes, collective_mode, ops_sig)] = \
+                ProgramPlan(plan, keys, start)
+            while len(_SKELETON_INDEX) > PROGRAM_CACHE_SIZE:
+                _SKELETON_INDEX.popitem(last=False)
     return plan

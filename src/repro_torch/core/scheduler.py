@@ -39,19 +39,25 @@ simulated seconds.
 from __future__ import annotations
 
 import threading
+import time
 import weakref
 from itertools import islice
 from typing import Any, Optional, Union
 
 from .backends import get_backend
-from .backends.base import BatchSlice, drop_versions, spill_dead_buckets
+from .backends.base import (BatchSlice, RankFailure, drop_versions,
+                            spill_dead_buckets)
 from .collectives import broadcast_tree
 from .executable_cache import EXEC_CACHE, ExecutableCache
 from .placement import placement_ranks
-from .plan import PLAN_CACHE_STATS, wavefront_flops, wavefront_levels
+from .plan import (PLAN_CACHE_STATS, map_ranks, wavefront_flops,
+                   wavefront_levels)
 from .program import PROGRAM_CACHE_STATS, Segment, probe_plan, resolve_plan
+from .recovery import (apply_failure, build_subset_plan, choose_replacement,
+                       plan_recovery, wipe_rank)
+from .shm_store import ShmRef
 from .stats import ExecutionStats, TransferEvent, _nbytes
-from .trace import Workflow
+from .trace import OpNode, Workflow
 
 __all__ = ["ExecutionStats", "TransferEvent", "LocalExecutor"]
 
@@ -77,7 +83,13 @@ class LocalExecutor:
 
     ``topology`` is an optional cost model
     (:class:`repro_torch.launch.mesh.Topology`); the thread-pool backend
-    seeds its dispatch threshold from a calibrated one.
+    seeds its dispatch threshold from a calibrated one, and elastic
+    recovery prices its choice of a replacement rank with it.
+
+    ``fault_injector`` (:class:`~repro_torch.core.backends.base.FaultInjector`)
+    is consulted at every wavefront boundary; a :class:`RankFailure` it
+    raises (or a ``procs`` worker that really died) is recovered narrowly
+    from lineage (:mod:`repro_torch.core.recovery`) and the plan resumes.
 
     ``stitch`` (default True) defers each ``run()`` segment into a pending
     program trace and executes the stitched whole at the next
@@ -108,9 +120,9 @@ class LocalExecutor:
     flush-failure bisection relies on this.  Overridable per flush via
     ``flush(protect_inputs=...)``.
 
-    **Thread safety** — ``run()``, ``flush()``, ``value()`` and the
-    ``stats`` property are serialised on an internal re-entrant lock and
-    safe to call from concurrent client threads.
+    **Thread safety** — ``run()``, ``flush()``, ``value()``, the ``stats``
+    property and ``decommission_rank()`` are serialised on an internal
+    re-entrant lock and safe to call from concurrent client threads.
     *Recording* (``Workflow.call``/``apply``/``array``) is not the
     executor's surface and is NOT thread-safe: keep each workflow's
     recording on one thread (the serving runtime's single-writer
@@ -118,12 +130,13 @@ class LocalExecutor:
     flush.
 
     **Failure contract** — if a flush fails mid-program (an op-body
-    exception), the original exception re-raises and the executor stays
-    *usable*: the failed program's recorded segments are discarded (its
-    writes dropped — fetching a version it produced raises ``KeyError``),
-    accounting is rolled back to the pre-flush snapshot (peaks keep their
-    physically-true values), and payloads that existed before the flush —
-    every head pinned at the program's last sync, plus (under
+    exception, or a :class:`RankFailure` recovery could not mask), the
+    original exception re-raises and the executor stays *usable*: the
+    failed program's recorded segments are discarded (its writes dropped —
+    fetching a version it produced raises ``KeyError``), accounting is
+    rolled back to the pre-flush snapshot (peaks and recovery counters
+    keep their physically-true values), and payloads that existed before
+    the flush — every head pinned at the program's last sync, plus (under
     ``protect_inputs``) every external input the program read — remain
     fetchable.  Both continuing to record on the same workflow and
     switching to a fresh ``Workflow`` afterwards work; switching
@@ -138,6 +151,7 @@ class LocalExecutor:
                  stitch: bool = True,
                  prefix_cache: bool = False,
                  protect_inputs: bool = False,
+                 fault_injector: Optional[Any] = None,
                  topology: Optional[Any] = None):
         if collective_mode not in ("tree", "naive"):
             raise ValueError(f"unknown collective_mode {collective_mode!r}")
@@ -150,7 +164,15 @@ class LocalExecutor:
         self.prefix_cache = bool(prefix_cache)
         self.protect_inputs = bool(protect_inputs)
         self.backend = get_backend(backend if backend is not None else "serial")
+        # fault tolerance: a FaultInjector consulted at wavefront
+        # boundaries; a topology cost model pricing elastic replacement
+        # choices; the permanent-death record (dead rank -> immediate
+        # replacement) and its path-compressed rank map threaded through
+        # planning after an elastic rebind
+        self.fault_injector = fault_injector
         self.topology = topology
+        self._decommissioned: dict[int, int] = {}
+        self._rank_map: Optional[dict[int, int]] = None
         # payload stores: rank -> version_key -> payload
         self._stores: dict[int, dict[tuple[int, int], Any]] = {
             r: {} for r in range(n_nodes)
@@ -177,9 +199,9 @@ class LocalExecutor:
         # be reclaimed, but a *switch* to a different workflow must reset
         # the stores — Workflow() restarts the version-id streams)
         self._wf_token: Optional[weakref.ref] = None
-        # serialises the public surfaces (run/flush/value/stats) against
-        # each other; re-entrant because a stats read or value() flushes
-        # internally
+        # serialises the public surfaces (run/flush/value/stats/
+        # decommission_rank) against each other; re-entrant because a
+        # stats read or value() flushes internally
         self._lock = threading.RLock()
         # global wavefront ordinal of the executing plan's first level —
         # backends stamp it onto TransferEvents for the makespan model
@@ -279,8 +301,10 @@ class LocalExecutor:
         (:meth:`Workflow.compact_trace`).  Steady-state memory becomes
         O(live state) instead of O(steps ever served); the relocatable
         program-trace cache keys survive rebasing, so warm loops keep
-        replaying cached plans afterwards.  Returns the number of op
-        records removed.
+        replaying cached plans afterwards.  The documented trade: lineage
+        below the compaction horizon is gone, so fault recovery can no
+        longer recompute it (checkpoint first if that matters).  Returns
+        the number of op records removed.
         """
         with self._lock:
             if self._pending:
@@ -304,6 +328,10 @@ class LocalExecutor:
         of its stacked buffer here — a copy, not a view, so the buffer does
         not outlive its other rows — and written back, so repeated fetches
         copy once; ``stats.fetch_bytes_copied`` counts those bytes.
+        Shared-memory payloads (``procs`` backend) come back as *zero-copy
+        views* of the worker's segment for NumPy and CPU tensors, and as
+        one host-to-device copy for a CUDA tensor (counted), also written
+        back so repeated fetches attach once.
         """
         with self._lock:
             if self._pending:
@@ -316,6 +344,12 @@ class LocalExecutor:
                 concrete = payload.concrete()
                 payload.release()
                 self._stats.fetch_bytes_copied += _nbytes(concrete)
+                for r in ranks:
+                    self._stores[r][version.key] = concrete
+                payload = concrete
+            elif type(payload) is ShmRef:
+                concrete, copied = payload.view()
+                self._stats.fetch_bytes_copied += copied
                 for r in ranks:
                     self._stores[r][version.key] = concrete
                 payload = concrete
@@ -455,9 +489,10 @@ class LocalExecutor:
         """Forget every payload: the stores' keys belong to a previous
         workflow whose version-id streams a fresh ``Workflow()`` restarts.
 
-        Machine state survives (stats, caches, the round counter); only
-        payload residency and its live accounting reset.  The backend drops
-        its own payload state too.
+        Machine state survives (decommissioned ranks, the elastic rank
+        map, stats, caches, the round counter); only payload residency and
+        its live accounting reset.  The backend drops its own payload state
+        too (process-pool worker arenas hold the same stale keys).
         """
         self.backend.reset(self)
         for store in self._stores.values():
@@ -488,9 +523,12 @@ class LocalExecutor:
         # them (``wf.array(..., rank=r)``); transfers away from there are
         # implicit.  Only items recorded since the last placement are new.
         if self._init_seen < upto:
+            rm = self._rank_map
             for vkey, (payload, rank) in islice(
                     wf.initial.items(), self._init_seen, upto):
                 if vkey not in self._where:
+                    if rm:
+                        rank = rm.get(rank, rank)
                     self._place(rank, vkey, payload)
             self._init_seen = upto
 
@@ -583,12 +621,13 @@ class LocalExecutor:
         fetchable, while fetching anything the failed program produced
         raises ``KeyError`` instead of returning a phantom.
 
-        Peaks are deliberately *not* rolled back — they record
-        physically-true high-water marks.  Live-footprint counters are
-        recomputed from the stores: the serial hot loop mirrors them into
-        locals and writes them back only on success, so their incremental
-        values are unreliable mid-flight (store/index/byte maps are
-        mutated inline and stay mutually consistent).
+        Peaks and recovery counters are deliberately *not* rolled back —
+        they record physically-true high-water marks and recovery work
+        that really ran.  Live-footprint counters are recomputed from the
+        stores: the serial hot loop mirrors them into locals and writes
+        them back only on success, so their incremental values are
+        unreliable mid-flight (store/index/byte maps are mutated inline and
+        stay mutually consistent).
         """
         st = self._stats
         ops, copies, n_tr, n_wf, n_wff, rnd = snap
@@ -663,7 +702,7 @@ class LocalExecutor:
                     break
                 p = probe_plan(wf, pos, b, self.n_nodes,
                                self.collective_mode, self._where,
-                               pin_of[b])
+                               pin_of[b], rank_map=self._rank_map)
                 if p is not None:
                     plan, nxt = p, b
                     break
@@ -684,7 +723,8 @@ class LocalExecutor:
                     for lo, hi in zip(later, later[1:]):
                         if probe_plan(wf, lo, hi, self.n_nodes,
                                       self.collective_mode, self._where,
-                                      pin_of[hi]) is not None:
+                                      pin_of[hi],
+                                      rank_map=self._rank_map) is not None:
                             nxt = later[0]
                             break
                 self._run_planned(wf, pos, nxt, pin_of[nxt])
@@ -694,20 +734,44 @@ class LocalExecutor:
     def _run_planned(self, wf: Workflow, start: int, end: int,
                      pinned: set, preplan=None) -> ExecutionStats:
         stats = self._stats
-        plan = preplan if preplan is not None else resolve_plan(
+        current = preplan if preplan is not None else resolve_plan(
             wf, start, end, self.n_nodes, self.collective_mode, self._where,
-            pinned)
-        base_round = self._round_counter
-        self._wavefront_base = len(stats.wavefronts)
-        self.backend.execute(self, wf, plan)
-        stats.ops_executed += len(plan.schedule)
-        # zero-copy accounting: every InOut write in pass-by-value C++
-        # semantics would deep-copy; versioning just re-points.
-        stats.copies_elided += plan.total_writes
-        self._round_counter = base_round + plan.n_rounds
-        # wavefronts accumulate across program flushes
-        stats.wavefronts.extend(plan.wavefront_counts)
-        stats.wavefront_flops.extend(plan.level_flops)
+            pinned, rank_map=self._rank_map)
+        while current is not None:
+            base_round = self._round_counter
+            self._wavefront_base = len(stats.wavefronts)
+            try:
+                self.backend.execute(self, wf, current)
+            except RankFailure as failure:
+                # backends raise at a wavefront boundary: levels [0, level)
+                # are fully committed, the failed level untouched.  Account
+                # the completed prefix, then recover and resume from the
+                # boundary — the loop re-enters with the replanned suffix.
+                level = failure.level if failure.level is not None else 0
+                lo = (current.levels[level][0]
+                      if level < len(current.levels)
+                      else len(current.schedule))
+                stats.ops_executed += lo
+                stats.copies_elided += sum(
+                    p.n_writes for p in current.schedule[:lo])
+                stats.wavefronts.extend(current.wavefront_counts[:level])
+                stats.wavefront_flops.extend(current.level_flops[:level])
+                # the prefix's transfers consumed relative rounds from this
+                # plan's budget; skip the whole budget so recovery/suffix
+                # round ids never collide with it
+                self._round_counter = base_round + current.n_rounds
+                current = self._recover_planned(wf, current, level, failure,
+                                                pinned)
+                continue
+            stats.ops_executed += len(current.schedule)
+            # zero-copy accounting: every InOut write in pass-by-value C++
+            # semantics would deep-copy; versioning just re-points.
+            stats.copies_elided += current.total_writes
+            self._round_counter = base_round + current.n_rounds
+            # wavefronts accumulate across program flushes
+            stats.wavefronts.extend(current.wavefront_counts)
+            stats.wavefront_flops.extend(current.level_flops)
+            current = None
         # program-end residency pass: whatever backend ran, partially-dead
         # fused buckets must not outlive the flush (serial and threads
         # release rows they GC; the spill copies out the survivors so
@@ -715,16 +779,147 @@ class LocalExecutor:
         spill_dead_buckets(self)
         return stats
 
+    # -- fault recovery --------------------------------------------------------
+    def _note_death(self, dead: int, replacement: Optional[int] = None) -> int:
+        """Record a permanent rank death; returns its replacement and
+        refreshes the path-compressed elastic rank map."""
+        alive = [r for r in range(self.n_nodes)
+                 if r != dead and r not in self._decommissioned]
+        if replacement is None:
+            replacement = choose_replacement(dead, alive, self.topology)
+        if replacement not in alive:
+            raise ValueError(
+                f"replacement rank {replacement} is not a surviving rank")
+        self._decommissioned[dead] = replacement
+        # path-compress: a replacement that later died itself forwards to
+        # its own (transitively live) replacement — deaths are ordered, so
+        # every chain terminates at a surviving rank
+        rm = {}
+        for d in self._decommissioned:
+            r = d
+            while r in self._decommissioned:
+                r = self._decommissioned[r]
+            rm[d] = r
+        self._rank_map = rm
+        return rm[dead]
+
+    def _recover_planned(self, wf: Workflow, plan, level: int, failure,
+                         pinned: set):
+        """Narrow recovery at a failed wavefront boundary.
+
+        Materialises the failure against the stores, walks plan lineage to
+        the minimal ancestor closure of the lost still-needed versions
+        (:func:`repro_torch.core.recovery.plan_recovery`), replays that
+        closure as a recovery sub-plan with the injector suspended, and
+        returns the failed plan's suffix *replanned* from the post-recovery
+        holder state (the original plan's precomputed ships assumed
+        pre-failure stores) — or None when the failure hit the final
+        boundary.
+        """
+        stats = self._stats
+        t0 = time.perf_counter()
+        if failure.permanent:
+            self._note_death(failure.rank)
+        apply_failure(self, failure)
+        suffix = (plan.schedule[plan.levels[level][0]:]
+                  if level < len(plan.levels) else ())
+        suffix_ids = [p.op_id for p in suffix]
+        needed = set(pinned)
+        for p in suffix:
+            for k in p.arg_keys:
+                if k is not None:
+                    needed.add(k)
+        rec_plan, restored, _replaced = plan_recovery(
+            self, wf, needed, rank_map=self._rank_map,
+            future=frozenset(suffix_ids))
+        stats.recoveries += 1
+        stats.restored_versions += restored
+        if rec_plan is not None:
+            self._execute_recovery_plan(wf, rec_plan)
+        resumed = None
+        if suffix_ids:
+            resumed = build_subset_plan(wf, suffix_ids, self.n_nodes,
+                                        self.collective_mode, self._where,
+                                        pinned, self._rank_map)
+        stats.recovery_time_s += time.perf_counter() - t0
+        return resumed
+
+    def _execute_recovery_plan(self, wf: Workflow, plan) -> None:
+        """Replay a recovery sub-plan (injector suspended — recovery never
+        re-faults itself) and account it as recomputed work."""
+        stats = self._stats
+        base_round = self._round_counter
+        self._wavefront_base = len(stats.wavefronts)
+        inj = self.fault_injector
+        if inj is not None:
+            inj.suspend()
+        try:
+            self.backend.execute(self, wf, plan)
+        finally:
+            if inj is not None:
+                inj.resume()
+        n = len(plan.schedule)
+        stats.ops_executed += n
+        stats.recomputed_ops += n
+        stats.copies_elided += plan.total_writes
+        self._round_counter = base_round + plan.n_rounds
+        stats.wavefronts.extend(plan.wavefront_counts)
+        stats.wavefront_flops.extend(plan.level_flops)
+
+    def decommission_rank(self, wf: Workflow, rank: int,
+                          replacement: Optional[int] = None) -> int:
+        """Elastically retire ``rank``: re-bind its placements onto a
+        surviving rank and narrowly recover whatever only it held.
+
+        The explicit (caller-initiated) half of elastic degradation — the
+        implicit half is a ``permanent=True`` kill policy firing mid-plan.
+        Any pending program flushes first (it was planned for the old world
+        size); subsequent plans re-bind cached skeletons to the shrunken
+        placement via the program cache's skeleton index instead of paying
+        re-analysis.  Returns the replacement rank.
+        """
+        if self.n_nodes <= 1:
+            raise ValueError("cannot decommission the only rank")
+        if rank in self._decommissioned:
+            raise ValueError(f"rank {rank} already dead")
+        with self._lock:
+            if self._pending:
+                self._flush()
+            stats = self._stats
+            t0 = time.perf_counter()
+            replacement = self._note_death(rank, replacement)
+            lost = wipe_rank(self, rank)
+            if lost:
+                # still-demanded versions: every ref head (fetchable /
+                # readable by ops recorded later), plus reads of ops
+                # recorded but not yet synced — those snapshot then-current
+                # heads that later records may since have superseded
+                recorded_upto = getattr(wf, "_synced_upto", len(wf.ops))
+                needed = set(self._pinned(wf))
+                for node in wf.ops[recorded_upto:]:
+                    for v in node.reads:
+                        needed.add(v.key)
+                rec_plan, restored, _replaced = plan_recovery(
+                    self, wf, needed, rank_map=self._rank_map,
+                    future=frozenset(range(recorded_upto, len(wf.ops))))
+                stats.recoveries += 1
+                stats.restored_versions += restored
+                if rec_plan is not None:
+                    self._execute_recovery_plan(wf, rec_plan)
+                stats.recovery_time_s += time.perf_counter() - t0
+            return replacement
+
     # -- reference interpreter (trace order, per-op) --------------------------
-    @staticmethod
-    def _reader_ranks(ops) -> dict:
-        """Per version, the set of ranks that will read it — the "queue of
-        communications involving the same object" the paper builds its
-        trees from."""
+    def _reader_ranks(self, ops, i: int = 0) -> dict:
+        """Per version, the set of (mapped) ranks that will read it — the
+        "queue of communications involving the same object" the paper builds
+        its trees from.  Recomputed over the remaining ops after an elastic
+        rebind (the precomputed sets would still name the dead rank)."""
         reader_ranks: dict[tuple[int, int], set[int]] = {}
-        for op_node in ops:
+        for op_node in ops[i:]:
             for v in op_node.reads:
-                for r in placement_ranks(op_node.placement):
+                for r in map_ranks(placement_ranks(op_node.placement),
+                                   self._rank_map):
                     reader_ranks.setdefault(v.key, set()).add(r)
         return reader_ranks
 
@@ -745,15 +940,29 @@ class LocalExecutor:
 
         reader_ranks = self._reader_ranks(ops)
 
-        # wavefronts accumulate across program flushes
+        # wavefronts accumulate across program flushes (extended up front so
+        # a mid-program recovery sub-plan appends after this program's
+        # levels; content is identical to the loop-end extend it replaces)
         self._stats.wavefronts.extend(counts)
         self._stats.wavefront_flops.extend(wavefront_flops(wf, start, end))
 
+        inj = self.fault_injector
         # Ship each version to all its future readers the moment it exists —
         # started eagerly (async in real Bind), giving comm/compute overlap.
-        for op_node in ops:
+        i = 0
+        n = len(ops)
+        while i < n:
+            op_node = ops[i]
             wavefront = base + level_of[op_node.op_id] - 1
-            ranks = placement_ranks(op_node.placement)
+            if inj is not None and inj.armed:
+                try:
+                    inj.check(self, wavefront, op_index=i)
+                except RankFailure as failure:
+                    self._recover_interpret(wf, ops, i, failure, pinned)
+                    reader_ranks = self._reader_ranks(ops, i)
+                    continue        # retry op i against the healed stores
+            ranks = map_ranks(placement_ranks(op_node.placement),
+                              self._rank_map)
             # 1. implicit transfers for inputs not local yet
             for v in op_node.reads:
                 self._ship(v.key, set(ranks) | (reader_ranks.get(v.key) or set()),
@@ -785,4 +994,33 @@ class LocalExecutor:
                 readers[v.key] -= 1
                 if readers[v.key] <= 0 and v.key not in pinned:
                     self._drop(v.key)
+            i += 1
         return self._stats
+
+    def _recover_interpret(self, wf: Workflow, ops, i: int, failure,
+                           pinned: set) -> None:
+        """Interpreter-side narrow recovery before retrying op ``i``.
+
+        Same shape as :meth:`_recover_planned` minus the suffix replan: the
+        interpreter re-ships on demand, so after the lineage closure replays
+        (through the plan machinery — recovery is planned work even under
+        ``mode="interpret"``) the per-op loop simply resumes.
+        """
+        stats = self._stats
+        t0 = time.perf_counter()
+        if failure.permanent:
+            self._note_death(failure.rank)
+        apply_failure(self, failure)
+        remaining = ops[i:]
+        needed = set(pinned)
+        for op_node in remaining:
+            for v in op_node.reads:
+                needed.add(v.key)
+        rec_plan, restored, _replaced = plan_recovery(
+            self, wf, needed, rank_map=self._rank_map,
+            future=frozenset(op_node.op_id for op_node in remaining))
+        stats.recoveries += 1
+        stats.restored_versions += restored
+        if rec_plan is not None:
+            self._execute_recovery_plan(wf, rec_plan)
+        stats.recovery_time_s += time.perf_counter() - t0

@@ -207,6 +207,10 @@ class Workflow:
         # per-op structural signatures (see core.plan.segment_signature),
         # built at record time so plan-cache keys are a slice, not a rescan.
         self._op_sigs: list[tuple] = []
+        # version_key -> (PlanCheckpoint, leaf index): versions saved by a
+        # checkpoint barrier — recovery's lineage walk terminates here.
+        self._ckpt_sources: dict[tuple[int, int], tuple[Any, int]] = {}
+        self._ckpt_counter = 0
 
     # -- context management ------------------------------------------------
     def __enter__(self):
@@ -417,9 +421,14 @@ class Workflow:
           version a surviving op still references (indices are preserved,
           never reused — see :meth:`Ref.compact`);
         * ``initial`` entries already placed by the executor are dropped
-          unless still live (a ref's current head).
+          unless still live (a ref's current head), and checkpoint sources
+          for compacted versions are forgotten.
 
-        The relocatable program-trace cache survives:
+        The cost is recoverability below the horizon: lineage-based fault
+        recovery cannot recompute what it can no longer see (the same
+        truncation contract as an executed checkpoint barrier, without the
+        disk copy) — callers that need deep recovery should checkpoint
+        before compacting.  The relocatable program-trace cache survives:
         its keys are normalized to (ref-ordinal, index-delta), which
         rebasing preserves, so steady-state loops keep their zero-replan
         hits across compactions.
@@ -462,6 +471,10 @@ class Workflow:
                 new_initial[k] = item
                 new_placed += 1
         self.initial = new_initial
+        if self._ckpt_sources:
+            self._ckpt_sources = {
+                k: v for k, v in self._ckpt_sources.items()
+                if k in live or self.refs[k[0]].head.key == k}
         return upto, new_placed
 
     # -- execution boundary ---------------------------------------------------
@@ -478,6 +491,34 @@ class Workflow:
         """Read back the head payload of an array (implies sync)."""
         self.sync()
         return self._executor.value(arr.ref.head)
+
+    def checkpoint(self, arrays: Sequence[BindArray], manager,
+                   step: Optional[int] = None, name: str = "ckpt"):
+        """Record an atomic checkpoint barrier over ``arrays``.
+
+        The barrier is a normal recorded op (all-``In``, zero writes) whose
+        body saves the read payloads through ``manager``
+        (:class:`repro_torch.ckpt.CheckpointManager`) — it rides plans,
+        backends and caches like any op.  Once executed, the recovery
+        planner's lineage walk *terminates* at the checkpointed versions:
+        they rehydrate from disk instead of recomputing their ancestry
+        (:mod:`repro_torch.core.recovery`).  Returns the barrier op's callable.
+        """
+        from .recovery import PlanCheckpoint
+
+        arrays = tuple(arrays)
+        if step is None:
+            step = self._ckpt_counter
+        self._ckpt_counter = step + 1
+        ckpt = PlanCheckpoint(manager, step)
+        ckpt.__bind_intents__ = (In,) * len(arrays)
+        # snapshot heads BEFORE recording: these are the versions the
+        # barrier reads and can later restore
+        saved_keys = tuple(a.ref.head.key for a in arrays)
+        self.call(ckpt, arrays, name=name)
+        for i, k in enumerate(saved_keys):
+            self._ckpt_sources[k] = (ckpt, i)
+        return ckpt
 
 
 def op(fn: Callable = None, *, flops: int = 0) -> Callable:

@@ -16,6 +16,7 @@ on hosts without ``nvcc`` or a GPU.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -82,20 +83,27 @@ class CudaLibrary:
         if out.is_file():
             return out, ""
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, self.sources)],
-                capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}) "
-                                   f"building {out.name}:\n{log}")
-            os.replace(tmp, out)    # atomic: readers never see a partial file
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        # one build across processes (the procs backend's workers load the
+        # libraries too): the others wait here and find it built; the lock
+        # dies with its holder, so a killed build blocks no later one
+        with open(out.with_suffix(".lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if out.is_file():
+                return out, ""
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            try:
+                proc = subprocess.run(
+                    [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, self.sources)],
+                    capture_output=True, text=True)
+                log = proc.stdout + proc.stderr
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}) "
+                                       f"building {out.name}:\n{log}")
+                os.replace(tmp, out)    # atomic: readers never see a partial file
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
         return out, log
 
     def load(self) -> ctypes.CDLL:

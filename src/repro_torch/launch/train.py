@@ -15,20 +15,31 @@ them; every 10th step and the last print ``[train] {json}`` (appended to
 ``--log-file`` as a JSON line), and ``--metrics-out`` gets ``{"final":
 ...}``.
 
-Checkpoints and the supervisor's heartbeat (``--ckpt-dir``, ``--resume
-auto`` with a checkpoint directory, ``--heartbeat``, ``--crash-at-step``)
-come with Slice 4, and several devices (``--fake-devices`` of 2 or more)
-with Slice 3: each raises :class:`ValueError` naming its slice.  On one
-device the reference reads neither ``--mesh-model`` nor ``--grad-sync``
-(it builds a mesh or a manual gradient sync only when
-``len(jax.devices()) > 1``), and neither does the port: it trains as
-without them.
+With ``--ckpt-dir`` the parameters and the optimizer state are saved
+through :class:`repro_torch.ckpt.CheckpointManager` after every
+``--ckpt-every``-th step (asynchronously) and after the last (blocking);
+with ``--resume auto`` (the default) a run that finds a checkpoint there
+restores it, prints ``[train] resumed from step N`` and goes on from step
+N + 1.  ``--heartbeat`` names a file touched after every step (the
+:class:`repro_torch.runtime.Supervisor`'s liveness signal), and
+``--crash-at-step N`` ends the process with exit code 42 when step N is
+reached (the fault-injection hook; a checkpoint still being written is
+finished first, so the crash always follows the last save's step).  The
+parameters are restored into the model in place and the optimizer state
+replaced, so a resumed run takes the same steps as an uninterrupted one.
+
+Several devices (``--fake-devices`` of 2 or more) come with Slice 3: the
+flag raises :class:`ValueError` naming its slice.  On one device the
+reference reads neither ``--mesh-model`` nor ``--grad-sync`` (it builds a
+mesh or a manual gradient sync only when ``len(jax.devices()) > 1``), and
+neither does the port: it trains as without them.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -64,18 +75,9 @@ def parse_args(argv=None):
 def check_ported(args) -> None:
     """Raise :class:`ValueError` for a flag whose feature the port does
     not run yet, naming the slice that brings it."""
-    slice4 = "comes with Slice 4 (checkpoints and the supervisor, ROADMAP " \
-             "Queue 1)"
-    slice3 = "comes with Slice 3 (multi-device, ROADMAP Queue 1)"
-    if args.ckpt_dir is not None:
-        raise ValueError(f"--ckpt-dir (and --resume {args.resume} from it) "
-                         f"{slice4}")
-    if args.heartbeat is not None:
-        raise ValueError(f"--heartbeat {slice4}")
-    if args.crash_at_step is not None:
-        raise ValueError(f"--crash-at-step {slice4}")
     if args.fake_devices >= 2:
-        raise ValueError(f"--fake-devices {args.fake_devices} {slice3}")
+        raise ValueError(f"--fake-devices {args.fake_devices} comes with "
+                         f"Slice 3 (multi-device, ROADMAP Queue 1)")
 
 
 def main(argv=None) -> int:
@@ -85,9 +87,11 @@ def main(argv=None) -> int:
     import torch
 
     from repro_torch import configs
+    from repro_torch.ckpt import CheckpointManager
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.models import LanguageModel
     from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.runtime.supervisor import touch_heartbeat
     from repro_torch.train.step import make_train_step
 
     if not args.cpu and not torch.cuda.is_available():
@@ -112,12 +116,36 @@ def main(argv=None) -> int:
         device=dev)
     opt_state = optimizer.init(model)
     step_fn = make_train_step(model, optimizer)
+    params = dict(model.named_parameters())
+
+    start_step = 0
+    ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    if ckpt and args.resume == "auto" and ckpt.latest_step() is not None:
+        (saved, opt_state), extra = ckpt.restore((params, opt_state))
+        with torch.no_grad():
+            for name, p in params.items():
+                p.copy_(saved[name])
+        del saved
+        start_step = int(extra["step"]) + 1
+        print(f"[train] resumed from step {start_step - 1}", flush=True)
 
     log_f = open(args.log_file, "a") if args.log_file else None
     final_metrics = {}
     try:
-        for step in range(args.steps):
+        for step in range(start_step, args.steps):
+            if args.crash_at_step is not None and step == args.crash_at_step:
+                print(f"[train] injected crash at step {step}", flush=True)
+                if ckpt:
+                    # the hook crashes between steps, after the writes of
+                    # the steps before it: on a fast card an async save
+                    # a few steps back would still be in flight
+                    ckpt.wait()
+                os._exit(42)
             opt_state, metrics = step_fn(opt_state, data.batch_at(step))
+            if args.heartbeat:
+                touch_heartbeat(args.heartbeat)
+            if ckpt and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
+                ckpt.save(step, (params, opt_state), extra={"step": step})
             if step % 10 == 0 or step == args.steps - 1:
                 final_metrics = {k: float(v) for k, v in metrics.items()}
                 line = json.dumps({"step": step, **final_metrics})
@@ -128,6 +156,10 @@ def main(argv=None) -> int:
     finally:
         if log_f:
             log_f.close()
+    if ckpt:
+        ckpt.save(args.steps - 1, (params, opt_state),
+                  extra={"step": args.steps - 1}, block=True)
+        ckpt.wait()
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:
             json.dump({"final": final_metrics}, f)

@@ -47,9 +47,14 @@ hops for the trace-order interpreter), ``ops_executed``,
 totals, and the live-set peaks.  Executable-cache counters are excluded:
 the reference jit-compiles jax payloads, the port runs every body eagerly.
 
-The op pool is built once per package by :func:`make_pool`, so each body
-carries its own package's intents; the kernel-tagged bodies ``scan_step``,
-``gemm_tile`` and ``attn_step`` are each package's own.
+The op pool is built once per package, so each body carries its own
+package's intents; the kernel-tagged bodies ``scan_step``, ``gemm_tile``
+and ``attn_step`` are each package's own.  The reference's is built by
+:func:`make_pool`; the port's is the same pool at module level in
+``tests/_torch_conformance_ops.py``, which the ``procs`` backend's worker
+processes import (a closure cannot be pickled, and a worker that imported
+this module would load ``jax``).  ``procs`` must run every plan in its
+workers: a fallback to the serial path fails the case.
 """
 
 import functools
@@ -59,6 +64,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_conformance_ops import POOL as PORT
 from test_conformance import N_WORKFLOWS, make_spec
 
 from repro import core as ref_bind
@@ -66,10 +72,7 @@ from repro.kernels.flash_attention.ops import attn_step as ref_attn_step
 from repro.kernels.gemm.ops import gemm_tile as ref_gemm_tile
 from repro.kernels.linear_scan.ops import scan_step as ref_scan_step
 from repro_torch import core as port_bind
-from repro_torch.compat import jax_matmul, jax_operands, to_numpy
-from repro_torch.kernels.flash_attention.ops import attn_step as port_attn_step
-from repro_torch.kernels.gemm.ops import gemm_tile as port_gemm_tile
-from repro_torch.kernels.linear_scan.ops import scan_step as port_scan_step
+from repro_torch.compat import to_numpy
 
 SHAPE = (4, 4)
 FAMILIES = ("numpy", "tensor", "bfloat16")
@@ -96,27 +99,12 @@ def with_attn_chains(spec: dict) -> dict:
     return {**spec, "ops": ops}
 
 
-def _same(*xs):
-    return xs
-
-
-def _port_operands(*xs):
-    """The port's mirror of jax's mixing: once a tensor is among a body's
-    operands, NumPy ones become tensors as jax makes arrays of them."""
-    if any(isinstance(x, torch.Tensor) for x in xs) and any(
-            isinstance(x, np.ndarray) for x in xs):
-        return jax_operands(*xs)
-    return xs
-
-
-def make_pool(bind, scan_step, gemm_tile, attn_step, operands=_same,
-              host=np.asarray, matmul=lambda a, b: a @ b):
+def make_pool(bind, scan_step, gemm_tile, attn_step):
     """The conformance op pool with ``bind``'s intents (see
     ``tests/_conformance_ops.py`` for what each body exercises) and the
-    package's own kernel-tagged bodies.  ``operands`` mixes a body's
-    operands as the package's payloads mix (jax arrays with NumPy in the
-    reference, tensors with NumPy in the port), ``host`` reads a payload
-    on the host, ``matmul`` is the package's ``@``."""
+    package's own kernel-tagged bodies: the reference's side (the port's
+    is ``tests/_torch_conformance_ops.py``, which mixes NumPy operands
+    into tensors as jax mixes them into arrays)."""
 
     def _scale(a, s):
         return a * s
@@ -125,41 +113,34 @@ def make_pool(bind, scan_step, gemm_tile, attn_step, operands=_same,
         return a + s
 
     def _branchy(a, s):
-        if float(host(a).sum()) >= 0:
+        if float(np.asarray(a).sum()) >= 0:
             return a * s
         return a + s
 
     def _add(a, b):
-        a, b = operands(a, b)
         return a + b
 
     def _mix(a, b):
-        a, b = operands(a, b)
         return a * 0.5 + b
 
     def _mm(a, b):
-        return matmul(*operands(a, b))
+        return a @ b
 
     def _combine(a, b):
-        a, b = operands(a, b)
         return a + b
 
     def _addr(x, y):
-        x, y = operands(x, y)
         return x + y
 
     def _mixr(x, y):
-        x, y = operands(x, y)
         return x * 0.5 + y
 
     def _bsel(a, b):
-        a, b = operands(a, b)
-        if float(host(a).sum()) >= 0:
+        if float(np.asarray(a).sum()) >= 0:
             return a + b
         return a * 0.5 + b
 
     def _axpy(y, x, s):
-        y, x = operands(y, x)
         return y + x * s
 
     In, InOut = bind.In, bind.InOut
@@ -179,15 +160,12 @@ def make_pool(bind, scan_step, gemm_tile, attn_step, operands=_same,
 
 
 REF = make_pool(ref_bind, ref_scan_step, ref_gemm_tile, ref_attn_step)
-PORT = make_pool(port_bind, port_scan_step, port_gemm_tile, port_attn_step,
-                 operands=_port_operands, host=to_numpy,
-                 matmul=lambda a, b: (jax_matmul(a, b) if isinstance(
-                     a, torch.Tensor) else a @ b))
 
 # the port's backends beyond serial, each a fresh instance per run
 PORT_BACKENDS = {
     "threads": lambda: "threads",
     "fused": lambda: "fused",
+    "procs": lambda: port_bind.ProcessPoolBackend(),
     "mesh": lambda: port_bind.MeshBackend(pallas=True),
 }
 
@@ -303,13 +281,15 @@ def _fetched(payload):
         if dtype == "bfloat16" else to_numpy(payload)
 
 
-def run_spec(pool, spec, family, mode, backend="serial", attn=True):
+def run_spec(pool, spec, family, mode, backend="serial", attn=True,
+             fault_injector=None):
     """Replay ``spec`` (with the ``attn_step`` chains of
     :func:`with_attn_chains` when ``attn``) in ``family``'s payloads."""
     bind = pool.bind
     if attn:
         spec = with_attn_chains(spec)
-    ex = bind.LocalExecutor(spec["n_nodes"], mode=mode, backend=backend)
+    ex = bind.LocalExecutor(spec["n_nodes"], mode=mode, backend=backend,
+                            fault_injector=fault_injector)
     with bind.Workflow(n_nodes=spec["n_nodes"], executor=ex) as wf:
         handles = []
         for kind, rank, vals in spec["arrays"]:
@@ -462,6 +442,8 @@ def _check_backend_conformance(seed: int, family: str, backend: str,
     # every lazy row was released or copied out by the end of the flush
     assert not ex._lazy_buckets or all(
         len(b.live) == b.n for b in ex._lazy_buckets), ctx
+    if backend == "procs":      # every plan ran in the workers
+        assert ex.backend.fallbacks == 0 and ex.backend.plans_run > 0, ctx
 
 
 @pytest.mark.parametrize("backend", sorted(PORT_BACKENDS))
@@ -484,12 +466,16 @@ def test_interpret_peaks_match_reference_interpreter():
 
 
 def test_unported_backends_name_their_slice():
-    with pytest.raises(ValueError, match="Slice 4"):
-        port_bind.LocalExecutor(2, backend="procs")
+    """Every backend of the reference resolves in the port now (``procs``
+    landed with Slice 4); an unknown name still raises."""
+    assert sorted(port_bind.BACKENDS) == sorted(ref_bind.BACKENDS)
     with pytest.raises(ValueError, match="unknown execution backend"):
         port_bind.get_backend("nope")
     for name, cls in (("serial", port_bind.SerialPlanBackend),
                       ("threads", port_bind.ThreadPoolBackend),
                       ("fused", port_bind.FusedBatchBackend),
+                      ("procs", port_bind.ProcessPoolBackend),
                       ("mesh", port_bind.MeshBackend)):
         assert isinstance(port_bind.get_backend(name), cls)
+    assert isinstance(port_bind.LocalExecutor(2, backend="procs").backend,
+                      port_bind.ProcessPoolBackend)

@@ -1,7 +1,8 @@
 """The port's examples (``examples/torch_*.py``) run in-process on the host.
 
 Each runs through its ``main`` with ``--cpu`` at a small size and must
-print ``OK`` (the serving example also on the families with an encoder, a
+print ``OK`` (the quickstart after its fault-tolerance and process-pool
+sections, the training example after saving a checkpoint) (the serving example also on the families with an encoder, a
 vision front end, experts or xLSTM blocks) (the training example only once its loss has dropped);
 without ``--cpu`` on a host with no GPU each must stop with a non-zero
 code rather than fall back to the CPU.  The Listing 1 example
@@ -41,6 +42,20 @@ def test_example_runs_on_the_host(name, capsys, tmp_path):
     assert _load(name).main(args) == 0
     out = capsys.readouterr().out
     assert out.splitlines()[-1] == "OK", out
+    if name == "torch_quickstart":      # sections 8-9: recovery, procs
+        assert "1 recovery" in out and "C bit for bit the fault-free" in out
+        assert "procs backend: Listing 1 in 1 plan(s) on 4 worker" in out
+        assert "SIGKILLed worker 1 mid-plan: 1 recovery" in out
+    if name == "torch_train_lm":        # a checkpoint the next run restores
+        from repro_torch.ckpt import CheckpointManager
+
+        assert "checkpoint: step 49" in out
+        mgr = CheckpointManager(str(tmp_path / "ckpt"))
+        assert mgr.latest_step() == 49
+        manifest = mgr._manifest(49)
+        assert manifest["extra"] == {"step": 49}
+        assert all(leaf["dtype"] == "float32" or leaf["shape"] == []
+                   for leaf in manifest["leaves"])
 
 
 @pytest.mark.parametrize("name", sorted(SCRIPTS))

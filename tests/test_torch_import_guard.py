@@ -62,6 +62,10 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.train.serve", "repro_torch.train.step",
                 "repro_torch.optim.adamw", "repro_torch.optim.schedule",
                 "repro_torch.optim.compression",
-                "repro_torch.data.pipeline", "repro_torch.launch.train"):
+                "repro_torch.data.pipeline", "repro_torch.launch.train",
+                "repro_torch.core.backends.procs",
+                "repro_torch.core.shm_store", "repro_torch.core.recovery",
+                "repro_torch.ckpt.manager",
+                "repro_torch.runtime.supervisor"):
         assert mod in got["modules"], mod
     assert got["bad"] == [], f"repro_torch pulled in: {got['bad']}"

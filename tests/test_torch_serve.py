@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_conformance_ops as procs_ops
 from _serve_ops import bomb as ref_bomb
 from _serve_ops import decay as ref_decay_op
 from _serve_ops import ref_decay
@@ -729,9 +730,23 @@ def test_served_gemm_and_attention_steps(backend, kind, max_batch):
                                        rtol=1e-4, atol=1e-4)
 
 
-def test_procs_backend_names_its_slice():
-    with pytest.raises(ValueError, match="Slice 4"):
-        port_serve.ServingRuntime(backend="procs")
+@pytest.mark.parametrize("kind", KINDS)
+def test_procs_backend_names_its_slice(kind):
+    """The serving runtime on ``backend="procs"`` (Slice 4 landed): the
+    served ``gemm_tile`` / ``attn_step`` / decode steps run in the pool's
+    worker processes and give the reference ``serial`` runtime's values
+    (NumPy bit for bit but the softmax; CPU tensors within the float32
+    tolerances) and the same serving counters.  The decode step's body is
+    ``tests/_torch_conformance_ops.py``'s, which a worker can import."""
+    exp = _kernel_steps(Side("ref", kind), "serial", 8)
+    side = Side("port", kind)
+    side.decay = procs_ops.decay
+    got = _kernel_steps(side, "procs", 8)
+    if kind == "numpy":
+        tols = [None, ATTN_TOL, None] * SESSIONS
+    else:
+        tols = [GEMM_TOL, ATTN_TOL, DECAY_TOL] * SESSIONS
+    compare(got, exp, kind, tols)
 
 
 def _failed_batch_lifetime(side):

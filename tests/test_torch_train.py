@@ -332,10 +332,6 @@ def test_launch_train_refuses_without_a_gpu(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags, slice_", [
-    (["--ckpt-dir", "ckpt"], "Slice 4"),
-    (["--ckpt-dir", "ckpt", "--resume", "never"], "Slice 4"),
-    (["--heartbeat", "hb"], "Slice 4"),
-    (["--crash-at-step", "2"], "Slice 4"),
     (["--fake-devices", "4"], "Slice 3"),
 ])
 def test_launch_train_flags_that_wait_for_their_slice(flags, slice_):
