@@ -107,6 +107,25 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    Qwen3-14B query tile (512 x 128, fresh k and v per level): one
    chain-kernel launch each, bitwise equal to ``backend="serial"`` on the
    card;
+7b. the rank mesh (``[mesh]``, :func:`mesh_phase`): Listing 1 as in 5 on
+   ``MeshBackend(devices=("cuda:0",) * 4)`` — ship lowering armed, the 4
+   ranks sharing the card — once per ship schedule (``tree``, ``ring``,
+   ``hierarchical``), cold then warm: C bit for bit serial's, the stats
+   and transfer stream equal, every tensor ship lowered to ``ppermute``
+   rounds (``ships_lowered`` = the ships, none simulated, three copies
+   each), 512 ``f32_simt`` launches and no body expression, every
+   destination shard of the cold run storage of its own with the
+   payload's bits, the memory back; the ships, copies and bytes an
+   iteration, the warm wall beside serial's, and the profile (the GEMMs
+   and the copies' device time apart, the card showing exactly the
+   counted copies); the 64-level ``scan_step`` chain (x per level) and
+   the 8-level ``gemm_tile`` chain through ``MeshBackend(pallas="auto",
+   devices=("cuda:0",) * 4)``: one chain-kernel launch each, bit for bit
+   serial's; ``distributed_gemm_shardmap`` on a (2, 4) rank mesh at
+   8192^2 float32, ``tree`` and ``ring``, within 1e-4 relative of the
+   dense product, timed beside it; ``selftest_collectives``,
+   ``selftest_mesh`` and ``selftest_distgemm`` with ``--device cuda``,
+   each printing ``OK``;
 8. Listing 1 and Strassen under ``backend="fused"`` and
    ``backend="threads"``, cold then warm: C bitwise equal to the serial
    run's, the same transfer stream, 512 and 343 GEMM launches; then the
@@ -144,7 +163,8 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    ``serial``, ``fused`` and ``threads``, and rank 2's worker killed for
    good by a real ``SIGKILL`` on ``procs`` (its placements re-bound onto
    ``choose_replacement``'s pick on a ring), C bit for bit the fault-free
-   C, fewer ops recomputed than a full replay; three passes with per-rank
+   C, fewer ops recomputed than a full replay; three passes at n=4096
+   (``FAULTS_PASSES_N``) with per-rank
    ``Workflow.checkpoint`` barriers after the first and rank 1 killed at
    the last boundary, on ``serial`` and on ``procs`` (a transient
    ``SIGKILL``: the worker respawned): the barriers' C tiles read back
@@ -242,7 +262,7 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    called, two served runs the same tokens (the MoE combine has no
    atomics); walls, tokens/s and bounds (prefill: active weights' FLOPs
    plus attention's at 989 TFLOP/s; a decode step: every weight byte at
-   3.35 TB/s); the profile of a prefill and of the decode steps by class,
+   3.35 TB/s); the profile of a prefill and of 8 decode steps by class,
    the MoE's routing, dispatch, expert FFN and combine apart (profiler
    ranges around them); peak memory; every attention call of one more
    prefill held to its plain version with the bf16 limits, the balance
@@ -298,7 +318,10 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    its times at the families' shapes, the backward with each family's
    launches a training step and its times there; the GEMM also with its
    launches an iteration inside the ``procs`` workers, the ``procs`` and
-   ``serial`` walls and the ops each fault recomputed), the script's time
+   ``serial`` walls and the ops each fault recomputed; the GEMM and
+   ``chain_ewise`` / ``chain_dot`` rows also with their launches on the
+   armed rank mesh, ``mesh_launches``, and the GEMM row with the mesh's
+   ships, copies, walls and the shard_map GEMM's times), the script's time
    (each LM phase prints its own as it ends), the card's name and power limit, and, last, ``{"ok": true, "device":
    {...}}``.
 
@@ -564,13 +587,15 @@ def visible_pairs(s: int, window) -> int:
 
 
 def device_profile(torch, label: str, run, wall_s: float,
-                   expect: dict) -> float:
+                   expect: dict, found: dict | None = None) -> float:
     """Run ``run`` once more under ``torch.profiler`` and print where the
     device time goes: kernel time by name, and the device's busy share of
     the unprofiled warm wall time ``wall_s``.  ``expect`` maps a kernel
     name to the number of its launches the card must show: the card ran
     the hand-written kernels, not something in their place.  Returns the
-    busy share in percent."""
+    busy share in percent; ``found``, when given, gets each expected
+    name's ``(ms, launches)``, the device time in all (``"total"``) and
+    every kernel's ``(ms, launches, name)`` (``"kernels"``)."""
     from torch.profiler import ProfilerActivity, profile
 
     attempts = 3
@@ -607,12 +632,17 @@ def device_profile(torch, label: str, run, wall_s: float,
         got_n = sum(cnt for _, cnt in hits)
         check(got_n == want, f"{label}: profiler saw {got_n} {name} "
               f"launches, expected {want}")
+        if found is not None:
+            found[name] = (got_ms, got_n)
         if got_n:
             parts.append(f"{name} {got_n} launches {got_ms:.3f} ms (mean "
                          f"{got_ms / got_n:.4f} ms, "
                          f"{100 * got_ms / total:.1f}% of device time)")
         else:
             parts.append(f"{name} 0 launches")
+    if found is not None:
+        found["total"] = total
+        found["kernels"] = kernels
     print(f"[profile] {label} warm: device kernel time {total:.3f} ms of "
           f"{wall_s * 1e3:.3f} ms wall (busy {busy:.1f}%); "
           + "; ".join(parts))
@@ -1747,6 +1777,9 @@ MOE_ARCH = "granite_moe_3b_a800m"
 MOE_PARAMS = 3_298_693_632             # count_params
 MOE_ACTIVE = 882_774_528               # active_param_count: 8 of 40 experts
 MOE_BATCH, MOE_PROMPT, MOE_DECODE = 2, 4096, 32
+# decode steps of the profiled decode run (the host-bound steps repeat:
+# the first 8 of the 32 served show where a step's device time goes)
+MOE_PROFILE_DECODE = 8
 # one flash_attention launch a layer a prefill, on the tensor cores (d 64)
 MOE_KERNELS = {"bf16_wgmma": 32}
 # the reference's serving check in float32 at 2 layers, with a capacity
@@ -1947,10 +1980,13 @@ def lm_moe_phase(torch, dev, gen, card: str, zero_counts, counts) -> dict:
 
         def decode_run():
             st = states
-            for t in range(n_dec):
+            for t in range(MOE_PROFILE_DECODE):
                 _, st = decode(st, token, s + t)
 
-        profile_classes(torch, "[lm_moe] decode", decode_run, t_decode,
+        # the busy share against the served run's wall for as many steps
+        profile_classes(torch, f"[lm_moe] decode ({MOE_PROFILE_DECODE} "
+                        f"steps)", decode_run,
+                        t_decode * MOE_PROFILE_DECODE / n_dec,
                         {"flash_attention": 0}, MOE_RANGES)
         del states
     finally:
@@ -2365,6 +2401,12 @@ def family_attention_timed(torch, dev, gen, card: str) -> dict:
 
 
 # -- Slice 4: the process pool, fault tolerance, training that checkpoints --
+# the three-pass checkpoint-barrier runs of [faults]: a 4 x 4 grid of IB
+# tiles, on which the barriers still save ops (serial: 68 ops recomputed
+# without them, 64 and 4 C tiles from disk with them; 560 / 544 / 16 at
+# the 8 x 8 grid)
+FAULTS_PASSES_N = 4 * IB
+
 PROCS_ITERS = 3          # Listing 1 iterations in one workflow: cold,
                          # re-shipped (A/B replicas settled), warm (delta)
 SHM_NEEDED = 16 << 30    # /dev/shm the [procs] phase needs at n = 8192:
@@ -2613,12 +2655,12 @@ def faults_phase(torch, dev, bind, A, B, C_ref, card, same_bits) -> dict:
     on ``serial``, ``fused`` and ``threads``; on ``procs`` a real worker
     ``SIGKILL``, permanent (elastic rebind onto ``choose_replacement``'s
     pick on a ring); C bit for bit the fault-free C, one recovery, fewer
-    ops recomputed than a full replay.  Then three passes of Listing 1
-    into one C with rank 1 killed at the last boundary, with and without
-    ``Workflow.checkpoint`` barriers over C after the first pass (on
-    ``serial``, and with them on ``procs``: a transient ``SIGKILL``, the
-    worker respawned): the barriers' versions come back from disk and
-    fewer ops are recomputed."""
+    ops recomputed than a full replay.  Then three passes of Listing 1 at
+    n = FAULTS_PASSES_N into one C with rank 1 killed at the last
+    boundary, with and without ``Workflow.checkpoint`` barriers over C
+    after the first pass (on ``serial``, and with them on ``procs``: a
+    transient ``SIGKILL``, the worker respawned): the barriers' versions
+    come back from disk and fewer ops are recomputed."""
     from repro_torch.ckpt import CheckpointManager
     from repro_torch.core.backends import procs as procs_mod
     from repro_torch.core.recovery import choose_replacement
@@ -2628,13 +2670,15 @@ def faults_phase(torch, dev, bind, A, B, C_ref, card, same_bits) -> dict:
                                                 owner_rank)
 
     base = memory_base(torch, dev)
-    nt = N_LISTING // IB
 
-    def run(backend, injector=None, topology=None, passes=1, ckpt=None):
+    def run(backend, injector=None, topology=None, passes=1, ckpt=None,
+            operands=(A, B)):
         ex = bind.LocalExecutor(4, backend=backend, fault_injector=injector,
                                 topology=topology)
+        nt = operands[0].shape[0] // IB
         with bind.Workflow(n_nodes=4, executor=ex) as wf:
-            a, b, c = make_distributed_inputs(wf, A, B, ib=IB, NP=2, NQ=2)
+            a, b, c = make_distributed_inputs(wf, *operands, ib=IB, NP=2,
+                                              NQ=2)
             distributed_gemm_listing1(wf, a, b, c, 2, 2)
             if ckpt is not None:
                 # one barrier on each rank over the C tiles it owns, each
@@ -2699,12 +2743,19 @@ def faults_phase(torch, dev, bind, A, B, C_ref, card, same_bits) -> dict:
         del C, ex
     # the checkpoint barrier: three passes (a pass's products do not wait
     # for the one before, so the barrier after pass 1 runs beside pass 2's
-    # last add, and pass 3's last add reads what pass 2 left), rank 1 lost
-    # at the last boundary
+    # last add, and pass 3's last add reads what pass 2 left: with two
+    # passes the barrier saves no op), rank 1 lost at the last boundary.
+    # On the top-left FAULTS_PASSES_N block of A and B: a 4 x 4 grid of
+    # the same tiles makes the same recovery (the lost tiles' last adds
+    # recomputed fewer with the barriers, their C tiles read from disk)
+    # for an eighth of the leaves and of procs' host staging
     ckpt_root = ROOT / "build" / "chip_smoke_faults_ckpt"
     shutil.rmtree(ckpt_root, ignore_errors=True)
-    C3_ref, plain_stats, _, _ = run("serial", passes=3)
-    _, barrier_stats, _, _ = run("serial", passes=3,
+    m = FAULTS_PASSES_N
+    operands = (A[:m, :m].contiguous(), B[:m, :m].contiguous())
+    C3_ref, plain_stats, _, _ = run("serial", passes=3, operands=operands)
+    full3 = plain_stats.ops_executed
+    _, barrier_stats, _, _ = run("serial", passes=3, operands=operands,
                                  ckpt=str(ckpt_root / "fault-free"))
     # the same kill with and without the barriers simulated on serial
     # (the op counts are the backends' common accounting, equal above),
@@ -2720,15 +2771,16 @@ def faults_phase(torch, dev, bind, A, B, C_ref, card, same_bits) -> dict:
                        else backend)
         inj = bind.FaultInjector.kill_rank(1, len(stats_.wavefronts) - 1)
         t0 = time.perf_counter()
-        C, st, ex, _ = run(backend_obj, inj, passes=3,
+        C, st, ex, _ = run(backend_obj, inj, passes=3, operands=operands,
                            ckpt=str(ckpt_root / label) if with_barrier
                            else None)
         wall = time.perf_counter() - t0
-        tag = f"[faults] three passes ({label} after the first pass)"
+        tag = (f"[faults] three passes at n={m} ({label} after the first "
+               f"pass)")
         same_bits(f"{tag}: C vs the fault-free C", C, C3_ref)
-        check(st.recoveries == 1 and 0 < st.recomputed_ops < 3 * full,
+        check(st.recoveries == 1 and 0 < st.recomputed_ops < full3,
               f"{tag}: {st.recoveries} recoveries, {st.recomputed_ops} ops "
-              f"recomputed of {3 * full}")
+              f"recomputed of {full3}")
         extra = ""
         if backend == "procs":
             check(backend_obj.fallbacks == 0, f"{tag}: fell back to serial")
@@ -2743,7 +2795,7 @@ def faults_phase(torch, dev, bind, A, B, C_ref, card, same_bits) -> dict:
                      f"others, as pid {pool.procs[1].pid}")
         got[label] = st
         print(f"{tag}: rank 1 killed at the last boundary: "
-              f"{st.recomputed_ops} of {3 * full} ops recomputed, "
+              f"{st.recomputed_ops} of {full3} ops recomputed, "
               f"{st.restored_versions} versions restored from disk, "
               f"recovery {st.recovery_time_s:.3f} s, wall {wall:.3f} s; C "
               f"bit for bit the fault-free C{extra} ({card})")
@@ -2764,7 +2816,7 @@ def faults_phase(torch, dev, bind, A, B, C_ref, card, same_bits) -> dict:
     out["barrier"] = {"with": got[True].recomputed_ops,
                       "without": got[False].recomputed_ops}
     shutil.rmtree(ckpt_root, ignore_errors=True)
-    del C3_ref
+    del C3_ref, operands
     procs_mod.shutdown_pools()
     shm_gone("[faults]")
     memory_back(torch, dev, base, "[faults] the phase")
@@ -2945,6 +2997,291 @@ def train_ckpt_phase(torch, dev, card: str, zero_counts, counts) -> dict:
     out["supervised"] = {"resumed": resumed_loss, "ref": ref_loss}
     shutil.rmtree(root, ignore_errors=True)
     return out
+
+
+# -- Slice 3a: the rank mesh — ship lowering, chains, the shard_map GEMM ----
+MESH_RANKS = 4            # Listing 1's 2 x 2 ranks, sharing the one card
+SHARDMAP_MESH = (2, 4)    # the (p, q) rank mesh of selftest_distgemm.py
+SHARDMAP_TOL = 1e-4       # relative Frobenius error against the dense A @ B
+SHARDMAP_ITERS = 5
+MESH_WARM_ROUNDS = 3      # warm walls of serial and each schedule: the best
+
+
+def mesh_phase(torch, dev, bind, A, B, C_serial, card, same_bits, only,
+               measured, chains) -> dict:
+    """``[mesh]``: Listing 1 (``A @ B`` at n = N_LISTING, ib = IB, f32, 2 x
+    2 ranks) on ``MeshBackend(devices=(dev,) * 4)`` — ship lowering armed,
+    the four ranks sharing the card — once per ship schedule, cold then
+    warm: C bit for bit ``C_serial``, the stats and transfer stream
+    ``serial``'s, every tensor ship lowered (three copies each), 512
+    ``f32_simt`` launches, no body expression, every destination shard of
+    the cold run storage of its own holding the payload's bits, the memory
+    back; the warm run profiled (the GEMMs and the copies apart).  Then
+    ``chains`` (label -> (run, wrapper, levels)) through
+    ``MeshBackend(pallas="auto", devices=(dev,) * 4)``: one chain-kernel
+    launch each, bit for bit ``serial``; ``distributed_gemm_shardmap`` on a
+    (2, 4) rank mesh against the dense product, both schedules, timed
+    beside it; the three self-tests with ``--device cuda``.  Returns the
+    ``kernels`` line's additions."""
+    import contextlib
+    import importlib
+    import io
+
+    from repro_torch.core import lowering
+    from repro_torch.core.spmd import make_mesh
+    from repro_torch.kernels.gemm import ops as gemm_ops
+    from repro_torch.linalg.distributed import (distributed_gemm_shardmap,
+                                                run_distributed_gemm)
+
+    base = memory_base(torch, dev)
+    devices = (dev,) * MESH_RANKS
+    n = A.shape[0]
+    leaves = (n // IB) ** 3
+    flops = 2 * n ** 3
+
+    def listing1(backend):
+        C, stats, _ = run_distributed_gemm(A, B, ib=IB, NP=2, NQ=2,
+                                           device=dev, backend=backend)
+        return C, stats
+
+    def best_wall(run):
+        """The best of MESH_WARM_ROUNDS warm walls of ``run``, each after
+        a cyclic collection (host walls swing by tens of per cent)."""
+        best = float("inf")
+        for _ in range(MESH_WARM_ROUNDS):
+            gc.collect()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = run()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+            del result
+        return best
+
+    # serial here, for its warm wall and its stats beside the armed runs
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        C_s, s_stats = listing1("serial")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    serial_wall = best_wall(lambda: listing1("serial"))
+    same_bits("[mesh] serial Listing 1 vs the serial run of section 5", C_s,
+              C_serial)
+    del C_s
+    s_transfers = list(s_stats.transfers)
+    s_facts = (s_stats.ops_executed, s_stats.message_count,
+               s_stats.bytes_transferred, s_stats.wavefronts)
+    # one ship schedule per version and wavefront; every payload of
+    # Listing 1 on the card is a CUDA tensor, so every ship lowers
+    ships = len({(t.version_key, t.wavefront) for t in s_transfers})
+    print(f"[mesh] Listing 1 n={n} ib={IB} float32, 2 x 2 ranks: serial "
+          f"walls {walls[0]:.4f} s cold, {walls[1]:.4f} s warm, "
+          f"{serial_wall:.4f} s the best of {MESH_WARM_ROUNDS} warm; "
+          f"{ships} ship schedules ({len(s_transfers)} transfers, "
+          f"{s_stats.bytes_transferred} bytes) an iteration ({card})")
+
+    def shard_checked(broadcast, tally):
+        """``MeshBackend._broadcast_shards`` holding every result: each
+        rank's shard storage of its own on the card, the root's the
+        payload, every other one its bits."""
+        def wrapper(payload, root):
+            shards = broadcast(payload, root)
+            check(shards is not None,
+                  f"[mesh] a broadcast from rank {root}: simulated")
+            storages = {s.untyped_storage().data_ptr() for s in shards}
+            check(len(shards) == MESH_RANKS == len(storages)
+                  and shards[root] is payload
+                  and all(s.device == payload.device for s in shards),
+                  f"[mesh] a broadcast from rank {root}: "
+                  f"{len(storages)} storages for {len(shards)} shards")
+            check(all(torch.equal(s, payload) for s in shards),
+                  f"[mesh] a broadcast from rank {root}: a shard differs "
+                  f"from the payload")
+            tally[0] += 1
+            return shards
+        return wrapper
+
+    # the device-to-device copies the same plan makes without a rank mesh:
+    # fused's level loop (the one the mesh backend runs) copies out the
+    # batched adds' shipped rows
+    found = {}
+    device_profile(torch, "listing1 fused (the copies' baseline)",
+                   lambda: listing1("fused"), serial_wall,
+                   {"gemm_simt_kernel": leaves}, found)
+    own_copies = sum(cnt for _ms, cnt, key in found["kernels"]
+                     if "Memcpy DtoD" in key)
+    own_ms = sum(ms for ms, _cnt, key in found["kernels"]
+                 if "Memcpy DtoD" in key)
+    print(f"[mesh] Listing 1 on fused: {own_copies} device-to-device "
+          f"copies an iteration of its own (shipped rows copied out), "
+          f"{own_ms:.3f} ms ({card})")
+    out = {"ships": ships, "serial_wall_s": serial_wall, "walls_s": {},
+           "copy_ms": {}, "copies": {}, "bytes_copied": {}}
+    launches = {}
+    for schedule in lowering.SHIP_SCHEDULES:
+        label = f"listing1 mesh {schedule}"
+        seen = {}
+        checked = [0]
+
+        def run(schedule=schedule, seen=seen, checked=checked):
+            mb = bind.MeshBackend(devices=devices, schedule=schedule)
+            if "backend" not in seen:   # the cold run: every shard held
+                mb._broadcast_shards = shard_checked(mb._broadcast_shards,
+                                                     checked)
+            seen["backend"] = mb
+            return listing1(mb)
+
+        def describe(phase, result, got, wall, mallocs, label=label,
+                     seen=seen, checked=checked):
+            C, stats = result
+            mb = seen["backend"]
+            mesh = mb.mesh(MESH_RANKS)
+            routes = dict(gemm_ops.matmul.routes)
+            ratio = wall / serial_wall
+            print(f"[mesh] {label} {phase}: wall {wall:.4f} s ({ratio:.2f}x "
+                  f"serial's best warm {serial_wall:.4f} s; "
+                  f"{flops / wall / 1e12:.3f} TFLOP/s), ships lowered "
+                  f"{mb.ships_lowered} of {ships}, simulated "
+                  f"{mb.ships_simulated}, {mesh.copies} copies of "
+                  f"{mesh.bytes_copied} bytes, gemm.matmul launches "
+                  f"{got['gemm.matmul']} by route {routes}, cudaMalloc "
+                  f"calls {mallocs} ({card})")
+            same_bits(f"{label} {phase}: C vs serial", C, C_serial)
+            check(list(stats.transfers) == s_transfers,
+                  f"{label}: transfer stream differs from serial")
+            check((stats.ops_executed, stats.message_count,
+                   stats.bytes_transferred, stats.wavefronts) == s_facts,
+                  f"{label}: stats differ from serial")
+            check(mb._active and mb._schedule_eff == schedule
+                  and mb.ships_lowered == ships
+                  and mb.ships_simulated == 0
+                  and mesh.copies == (MESH_RANKS - 1) * ships,
+                  f"{label}: {mb.ships_lowered} ships lowered, "
+                  f"{mb.ships_simulated} simulated, {mesh.copies} copies "
+                  f"({ships} ships)")
+            check(routes == {"f32_simt": leaves},
+                  f"{label}: GEMM launches by route {routes}")
+            only(label, got, "gemm.matmul", leaves)
+            if phase == "cold":
+                check(checked[0] == ships, f"{label}: {checked[0]} "
+                      f"broadcasts held of {ships}")
+                print(f"[mesh] {label} cold: each of the {ships} "
+                      f"broadcasts gave {MESH_RANKS} shards of distinct "
+                      f"storage on {dev}, each the payload's bits")
+            out["copies"][schedule] = mesh.copies
+            out["bytes_copied"][schedule] = mesh.bytes_copied
+
+        _kept, got, walls = measured(label, run, describe)
+        launches[schedule] = got["gemm.matmul"]
+        best = best_wall(run)
+        out["walls_s"][schedule] = best
+        print(f"[mesh] {label}: the best of {MESH_WARM_ROUNDS} warm walls "
+              f"{best:.4f} s, {best / serial_wall:.2f}x serial's "
+              f"{serial_wall:.4f} s ({card})")
+        found = {}
+        n_copies = (MESH_RANKS - 1) * ships
+        busy = device_profile(
+            torch, label, run, walls["warm"],
+            {"gemm_simt_kernel": leaves,
+             "Memcpy DtoD": own_copies + n_copies}, found)
+        # the ppermute copies' time: the copies' time less fused's own
+        copy_ms = found["Memcpy DtoD"][0] - own_ms
+        check(copy_ms > 0, f"{label}: the copies took {found['Memcpy DtoD']}"
+              f", fused's own {own_ms} ms")
+        fill_ms = sum(ms for ms, _cnt, key in found["kernels"]
+                      if "FillFunctor" in key)
+        out["copy_ms"][schedule] = copy_ms
+        each_s = copy_ms / n_copies / 1e3
+        rate = 2 * IB * IB * 4 / each_s / 1e12
+        print(f"[mesh] {label}: device time {found['total']:.3f} ms, of it "
+              f"the GEMMs {found['gemm_simt_kernel'][0]:.3f} ms, the "
+              f"{n_copies} ppermute copies {copy_ms:.3f} ms "
+              f"({each_s * 1e6:.2f} us each, {rate:.3f} TB/s read + "
+              f"written) and the fills {fill_ms:.3f} ms (the "
+              f"zeroed staging and C); busy {busy:.1f}% of the warm wall "
+              f"({card})")
+    check(set(launches.values()) == {leaves},
+          f"[mesh] GEMM launches by schedule {launches}")
+
+    # -- the chain kernels under pallas="auto" on an armed rank mesh --------
+    chain_launches = {}
+    for label, (run, wrapper, levels) in chains.items():
+        want, _ = run("serial")
+
+        def mesh_run(run=run):
+            return run(bind.MeshBackend(pallas="auto", devices=devices))
+
+        def describe(phase, result, got, wall, mallocs, label=label,
+                     wrapper=wrapper, levels=levels, want=want):
+            res, mb = result
+            print(f"[mesh] {label} {phase}: MeshBackend(pallas=\"auto\", "
+                  f"{MESH_RANKS} ranks on {dev}): wall {wall * 1e3:.3f} ms, "
+                  f"pallas_chains_dispatched {mb.pallas_chains_dispatched}, "
+                  f"ops_pallas {mb.ops_pallas}, launches {got}")
+            check(mb.pallas == "auto" and mb._pallas_enabled(),
+                  f"{label}: pallas=\"auto\" not enabled")
+            same_bits(f"mesh {label} {phase}: vs serial", res, want)
+            check(mb.pallas_chains_dispatched == 1
+                  and mb.ops_pallas == levels,
+                  f"{label}: {mb.pallas_chains_dispatched} chain "
+                  f"dispatches, {mb.ops_pallas} ops, expected 1 and "
+                  f"{levels}")
+            only(f"mesh {label}", got, wrapper, 1)
+
+        _kept, got, _walls = measured(f"mesh {label}", mesh_run, describe)
+        chain_launches[wrapper] = got[wrapper]
+        del want, describe      # the closure holds the serial result
+
+    # -- distributed_gemm_shardmap on a (2, 4) rank mesh ---------------------
+    dense = A @ B
+    dense_ms = time_ms(torch, lambda: A @ B, iters=SHARDMAP_ITERS, warmup=1)
+    dense_norm = torch.linalg.norm(dense.double()).item()
+    mesh = make_mesh(SHARDMAP_MESH, ("p", "q"), (dev,) * math.prod(
+        SHARDMAP_MESH))
+    out["shardmap_ms"], out["dense_ms"] = {}, dense_ms
+    for schedule in ("tree", "ring"):
+        fn = distributed_gemm_shardmap(mesh, schedule=schedule)
+        copies, nbytes = mesh.copies, mesh.bytes_copied
+        C = fn(A, B)
+        torch.cuda.synchronize()
+        copies, nbytes = mesh.copies - copies, mesh.bytes_copied - nbytes
+        check(C.shape == dense.shape and C.device == dense.device
+              and bool(torch.isfinite(C).all()),
+              f"[mesh] shardmap {schedule}: {C.dtype}{tuple(C.shape)}")
+        rel = torch.linalg.norm(C.double() - dense.double()).item() \
+            / dense_norm
+        check(rel <= SHARDMAP_TOL, f"[mesh] shardmap {schedule}: relative "
+              f"error {rel:.3e} > {SHARDMAP_TOL}")
+        del C
+        ms = time_ms(torch, lambda fn=fn: fn(A, B), iters=SHARDMAP_ITERS,
+                     warmup=1)
+        out["shardmap_ms"][schedule] = ms
+        print(f"[mesh] distributed_gemm_shardmap {SHARDMAP_MESH} ranks on "
+              f"{dev}, {n}^2 float32, schedule {schedule}: rel_err "
+              f"{rel:.3e} against the dense product (<= {SHARDMAP_TOL}), "
+              f"{copies} copies of {nbytes} bytes a call, {ms:.3f} ms a "
+              f"call against the dense A @ B's {dense_ms:.3f} ms "
+              f"({ms / dense_ms:.2f}x) ({card})")
+    del dense
+
+    # -- the three self-tests, their ranks sharing the card -----------------
+    for name in ("collectives", "mesh", "distgemm"):
+        module = importlib.import_module(
+            f"repro_torch.launch.selftest_{name}")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = module.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        lines = buf.getvalue().splitlines()
+        check(rc == 0 and lines[-1:] == ["OK"],
+              f"[mesh] selftest_{name} --device cuda: rc {rc}, {lines[-3:]}")
+        print(f"[mesh] python -m repro_torch.launch.selftest_{name} --device "
+              f"cuda: OK in {time.perf_counter() - t0:.2f} s")
+    memory_back(torch, dev, base, "[mesh] the phase")
+    return {"gemm.matmul": launches["tree"], **chain_launches, "mesh": out}
 
 
 def bits(torch, t):
@@ -4141,6 +4478,14 @@ def main() -> int:
               f"{serial_walls[1] * 1e3:.3f} ms; mesh walls cold "
               f"{walls['cold'] * 1e3:.3f} ms warm {walls['warm'] * 1e3:.3f} "
               f"ms, busy {busy:.1f}%")
+
+    # -- 7b. the rank mesh: ships as ppermute rounds, pallas="auto" --------
+    t0 = time.perf_counter()
+    mesh = mesh_phase(
+        torch, dev, bind, A, B, serial["listing1"][0], card, same_bits, only,
+        measured, {label: chains[label][:3] for label in
+                   ("scan chain, x per level", "gemm_tile chain")})
+    print(f"[time] [mesh]: {time.perf_counter() - t0:.1f} s")
     del Y0, X0, XL, C0, AL, BL, O0, QA, KL, VL
 
     # -- 8. Listing 1 and Strassen under fused and threads ---------------------
@@ -4723,6 +5068,12 @@ def main() -> int:
     # Listing 1's leaf products inside the procs workers, an iteration's
     # launches summed over the four worker processes
     gemm_row = next(k for k in kernels if k["name"] == "gemm.matmul")
+    # on the armed rank mesh: Listing 1's leaves an iteration, one chain
+    # launch a chain workflow under pallas="auto"
+    for row in kernels:
+        if row["name"] in mesh:
+            row["mesh_launches"] = mesh[row["name"]]
+    gemm_row["mesh"] = mesh["mesh"]
     gemm_row["procs_launches"] = procs["launches"]
     gemm_row["procs_walls_s"] = procs["walls"]
     gemm_row["procs_serial_walls_s"] = procs["serial_walls"]

@@ -4,8 +4,8 @@ The port's counterpart of ``examples/quickstart.py``, with tensor payloads
 on the card: sections 1-7 (recording, tiled linear algebra, plan replay,
 backends, chain fusion, stitching, the topology model), 8 (fault
 tolerance), 9 (the process pool: one worker process per rank, each with
-its own CUDA context on the card), 10 (serving) and 11 (overload safety).
-Section 12 (the device mesh) waits for the multi-device slice.
+its own CUDA context on the card), 10 (serving), 11 (overload safety) and
+12 (the rank mesh: 4 ranks that share the card, or the host).
 
     PYTHONPATH=src python examples/torch_quickstart.py          # on the GPU
     PYTHONPATH=src python examples/torch_quickstart.py --cpu    # on the host
@@ -382,6 +382,71 @@ def main(argv=None) -> int:
               f"{m.compactions} compactions kept the trace at "
               f"<= {m.trace_ops_hwm} ops across "
               f"{m.requests_completed} requests")
+
+    # 12. lowering onto a rank mesh: the mesh backend executes the SAME
+    #     compiled plan on one device per rank — here 4 ranks that share
+    #     one device, as the reference's fake CPU devices share a host.
+    #     Broadcast ships run as log-depth ppermute rounds (tree / ring /
+    #     hierarchical, picked from the topology model), each a copy into
+    #     the destination rank's own allocation; kernel-tagged chains run
+    #     as ONE chain-kernel launch.  Values, stats and the transfer
+    #     stream stay identical to the simulated backends.
+    from repro_torch.kernels.gemm.ops import gemm_tile
+    from repro_torch.kernels.linear_scan.ops import scan_step
+
+    mesh_b = bind.MeshBackend(devices=(dev,) * 4)
+    ex12 = bind.LocalExecutor(4, collective_mode="tree", mode="plan",
+                              backend=mesh_b)
+    T = 32
+    gen12 = torch.Generator().manual_seed(12)
+    At = [[torch.randn((T, T), generator=gen12).to(dev) for _ in range(2)]
+          for _ in range(2)]
+    Bt = [[torch.randn((T, T), generator=gen12).to(dev) for _ in range(2)]
+          for _ in range(2)]
+    with bind.Workflow(n_nodes=4, executor=ex12) as wf:
+        # distributed GEMM: operand tiles live where they were produced,
+        # each C tile accumulates on its own rank — every remote operand
+        # read becomes a broadcast ship the planner derives, which the
+        # mesh backend runs as ppermute rounds
+        a12 = [[wf.array(At[i][k], f"A{i}{k}", rank=2 * i + k)
+                for k in range(2)] for i in range(2)]
+        b12 = [[wf.array(Bt[k][j], f"B{k}{j}", rank=2 * k + j)
+                for j in range(2)] for k in range(2)]
+        c12 = [[wf.array(torch.zeros((T, T), device=dev), f"C{i}{j}",
+                         rank=2 * i + j) for j in range(2)] for i in range(2)]
+        for i in range(2):
+            for j in range(2):
+                with bind.node(2 * i + j):
+                    for k in range(2):      # 2-level gemm_tile kernel chain
+                        wf.call(gemm_tile, (c12[i][j], a12[i][k], b12[k][j]),
+                                name="gemm_tile")
+        wf.sync()
+        for i in range(2):
+            for j in range(2):
+                want = At[i][0] @ Bt[0][j] + At[i][1] @ Bt[1][j]
+                close(wf.fetch(c12[i][j]), want, 1e-4)
+    # ... and a width-1 kernel-tagged scan chain: the whole 8-level run
+    # dispatches as ONE chain-kernel launch
+    ex12b = bind.LocalExecutor(1, mode="plan", backend=mesh_b)
+    with bind.Workflow(n_nodes=1, executor=ex12b) as wf:
+        y12 = wf.array(torch.ones((T,), device=dev), "y")
+        x12 = wf.array(torch.full((T,), 0.25, device=dev), "x")
+        for _ in range(8):
+            wf.call(scan_step, (y12, 0.5, x12), name="scan_step")
+        got = wf.fetch(y12)
+    ref12 = torch.ones((T,), device=dev)
+    for _ in range(8):
+        ref12 = scan_step(ref12, 0.5, torch.full((T,), 0.25, device=dev))
+    assert torch.equal(got, ref12)
+    assert mesh_b.ships_lowered > 0 and mesh_b.ships_simulated == 0
+    assert mesh_b.pallas_chains_dispatched >= 1
+    print(f"mesh backend on 4 ranks sharing {dev}: collectives ACTIVE — "
+          f"{mesh_b.ships_lowered} ships lowered / "
+          f"{mesh_b.ships_simulated} simulated "
+          f"(schedule={mesh_b._schedule_eff}, "
+          f"{mesh_b.mesh(4).copies} copies), "
+          f"{mesh_b.pallas_chains_dispatched} chain kernel launch(es); "
+          f"transfer stream identical to serial by construction")
     print("OK")
     return 0
 

@@ -16,6 +16,10 @@ reference hands NumPy operands to jax, which (64-bit types off) makes a
 ``jax.Array`` maps to a ``torch.Tensor``: NumPy operands become tensors on
 the device of the body's first tensor operand, or on the CPU when there is
 none (a NumPy workflow stays on the host).
+
+``shard_map`` and ``axis_size`` are the reference's names for the rank
+mesh's SPMD entry points (:mod:`repro_torch.core.spmd`), so code reads as
+the reference's does: ``from repro_torch.compat import shard_map``.
 """
 
 from __future__ import annotations
@@ -169,6 +173,10 @@ def to_numpy(tensor: Any) -> np.ndarray:
     return t.numpy()
 
 
-__all__ = ["INT_PRODUCT_BYTES", "NP_TO_TORCH", "TORCH_TO_NP",
+# last: importing repro_torch.core (spmd's package) imports this module
+from repro_torch.core.spmd import axis_size, shard_map  # noqa: E402
+
+__all__ = ["INT_PRODUCT_BYTES", "NP_TO_TORCH", "TORCH_TO_NP", "axis_size",
            "cuda_available", "int_matmul", "jax_matmul", "jax_operands",
-           "k_step", "numpy_dtype", "to_numpy", "to_torch", "torch_dtype"]
+           "k_step", "numpy_dtype", "shard_map", "to_numpy", "to_torch",
+           "torch_dtype"]

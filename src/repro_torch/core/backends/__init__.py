@@ -21,9 +21,10 @@ transfers, live-footprint accounting, stats.  A **backend** owns only the
   the ``threads`` backend cannot overlap, plus *real* worker-kill fault
   injection feeding the recovery machinery (a CUDA payload is staged
   through host memory);
-* ``"mesh"``    — :class:`MeshBackend`: ``fused``, with kernel-tagged
-  chains run as one hand-written chain-kernel launch each; lowering ships
-  onto several GPUs arrives with Slice 3.
+* ``"mesh"``    — :class:`MeshBackend`: ``fused`` on a rank mesh (one
+  torch device per rank, repeats allowed): ships run as ``ppermute``
+  broadcast rounds that copy each payload onto every rank's device, and
+  kernel-tagged chains as one hand-written chain-kernel launch each.
 
 All backends replay the same plan against the same frontend state, so
 payload values and the transfer event stream are identical across backends;

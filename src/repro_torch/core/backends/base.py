@@ -344,18 +344,24 @@ def spill_dead_buckets(ex) -> int:
     return spilled
 
 
-def apply_ships(ex, p) -> None:
-    """Replay ``p``'s precomputed ship schedule (plan order, main thread)."""
+def apply_ships(ex, p, lower=None) -> None:
+    """Replay ``p``'s precomputed ship schedule (plan order, main thread).
+
+    ``lower(payload, root)``, where given, runs the ship and returns what
+    each rank then holds, indexed by rank; where it returns ``None`` the
+    destinations hold the payload itself (the ship is simulated).
+    """
     stores, where = ex._stores, ex._where
     events = ex._stats.transfers
     base_round = ex._round_counter
     wavefront = ex._wavefront_base + p.level - 1
     for vkey, root, transfers in p.ships:
         payload = stores[root][vkey]
+        held = None if lower is None else lower(payload, root)
         nb = _nbytes(payload)
         ranks = where[vkey]
         for src, dst, kind, rel in transfers:
-            stores[dst][vkey] = payload
+            stores[dst][vkey] = payload if held is None else held[dst]
             ranks.add(dst)
             ex._live_entries += 1
             events.append(

@@ -1,20 +1,32 @@
 """Distributed classical GEMM with logarithmic reduction (paper Listing 1, Fig. 3/4).
 
-:func:`distributed_gemm_listing1` is the paper-faithful 18-line version over
-the Bind model: per-``j`` partial products placed on node
-``(i % NP) * NQ + j % NQ``, accumulated by the explicit binary tree
-``for (s = 1; s < nt; s *= 2)`` with the listing's slot rotation, executed
-by the LocalExecutor (validates semantics + collective accounting).  The
-ranks are simulated: on one GPU every rank's tiles live on that card, and
-every partial product launches the hand-written GEMM kernel.
+Two implementations of the same algorithm:
+
+* :func:`distributed_gemm_listing1` — the paper-faithful 18-line version
+  over the Bind model: per-``j`` partial products placed on node
+  ``(i % NP) * NQ + j % NQ``, accumulated by the explicit binary tree
+  ``for (s = 1; s < nt; s *= 2)`` with the listing's slot rotation,
+  executed by the LocalExecutor (validates semantics + collective
+  accounting).  On one GPU every rank's tiles live on that card, and every
+  partial product launches the hand-written GEMM kernel.
+
+* :func:`distributed_gemm_shardmap` — the mesh lowering: the same
+  partial-sum + log-reduction structure expressed as a ``shard_map`` over a
+  (p, q) rank mesh (:mod:`repro_torch.core.spmd`), with the reduction
+  schedule selectable (the paper's binary tree vs the ring) — the unit of
+  the collective ablation.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch import core as bind
-from repro_torch.compat import to_torch
+from repro_torch.compat import shard_map, to_torch
+from repro_torch.core import lowering
+from repro_torch.core.spmd import P
 from repro_torch.kernels.gemm import ops as gemm_ops
 from .tiles import Tiled, _t_iadd
 
@@ -99,3 +111,52 @@ def run_distributed_gemm(
         out = c.to_array()
     est = ex.stats.estimated_makespan(topology) if topology is not None else 0.0
     return out, ex.stats, est
+
+
+# ---------------------------------------------------------------------------
+# Mesh lowering
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def tf32_off():
+    """Switch TF32 off for float32 products on the card inside the block,
+    and restore the process's setting after it."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def distributed_gemm_shardmap(
+    mesh, *, schedule: str = "tree", p_axis: str = "p", q_axis: str = "q"
+):
+    """Build an ``(A, B) -> A @ B`` over a (p, q) rank mesh.
+
+    A is block-distributed ``(i→p, j→q)`` and B ``(j→q)`` — the exact data
+    placement of Listing 1; each rank computes its local partial GEMM and
+    the ``q`` axis reduces it with the chosen schedule (``"tree"`` is the
+    paper's logarithmic reduction, ``"ring"`` the bandwidth-optimal ring).
+    The local product is a plain ``torch.matmul``, as the reference's is
+    XLA's dot (callers that want IEEE float32 products on the card call it
+    under :func:`tf32_off`); the result lies on the mesh's first device.
+    """
+
+    def local(a_blk, b_blk):
+        part = a_blk @ b_blk  # (M/p, N) partial over the q axis
+        if schedule == "tree":
+            part = lowering.tree_allreduce(part, q_axis)
+        elif schedule == "ring":
+            part = lowering.ring_allreduce(part, q_axis)
+        else:
+            raise ValueError(schedule)
+        return part
+
+    return shard_map(
+        local,
+        mesh=mesh,
+        in_specs=(P(p_axis, q_axis), P(q_axis, None)),
+        out_specs=P(p_axis, None),
+        check_vma=False,
+    )

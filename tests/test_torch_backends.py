@@ -482,13 +482,6 @@ def test_chain_kernel_route_is_resolved_once():
     assert mb.pallas_chains_dispatched == 2 and cache.compiles == 1
 
 
-def test_armed_multi_gpu_plan_names_slice_3():
-    mb = port_bind.MeshBackend(pallas=True)
-    mb._n_devices = 2       # as on a host with two GPUs
-    with pytest.raises(NotImplementedError, match="Slice 3"):
-        run(PORT, mb, _scan_chain(), n_nodes=2)
-
-
 # ---------------------------------------------------------------------------
 # Where the port departs from the reference on purpose
 # ---------------------------------------------------------------------------

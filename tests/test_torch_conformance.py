@@ -3,10 +3,12 @@
 The port's ``serial`` backend and ``interpret`` mode replay the seeded
 random workflows of ``tests/test_conformance.py`` (its generator and its 50
 pinned seeds) and are held against the reference ``serial`` backend on the
-same workflow; so are the port's ``threads``, ``fused`` and
+same workflow; so are the port's ``threads``, ``fused``,
 ``MeshBackend(pallas=True)`` (chains of the tagged kernel bodies through
-the chain kernels' plain route on the CPU), which may only report higher
-live-set peaks.  Each seed runs in two payload families:
+the chain kernels' plain route on the CPU) and ``mesh_armed``, a
+``MeshBackend`` on 4 CPU rank devices (every plan of 2-4 ranks lowers its
+tensor ships to ``ppermute`` rounds; NumPy ships stay simulated), which
+may only report higher live-set peaks.  Each seed runs in two payload families:
 
 * ``numpy`` — every array a NumPy payload (the generator's jax payloads
   become NumPy float32 / int32 arrays).  Both packages run the same NumPy
@@ -167,6 +169,8 @@ PORT_BACKENDS = {
     "fused": lambda: "fused",
     "procs": lambda: port_bind.ProcessPoolBackend(),
     "mesh": lambda: port_bind.MeshBackend(pallas=True),
+    # ship lowering armed: 4 CPU rank devices take every plan of 2-4 ranks
+    "mesh_armed": lambda: port_bind.MeshBackend(devices=("cpu",) * 4),
 }
 
 
@@ -444,6 +448,24 @@ def _check_backend_conformance(seed: int, family: str, backend: str,
         len(b.live) == b.n for b in ex._lazy_buckets), ctx
     if backend == "procs":      # every plan ran in the workers
         assert ex.backend.fallbacks == 0 and ex.backend.plans_run > 0, ctx
+    if backend == "mesh_armed":
+        _check_armed_ships(ex, family, ctx)
+
+
+def _check_armed_ships(ex, family: str, ctx: str) -> None:
+    """Every ship of a multi-rank plan went through the armed mesh: as
+    ``ppermute`` rounds where the payload is a tensor (every payload of
+    the tensor families), simulated where it is NumPy."""
+    mb = ex.backend
+    ships = len({(t.version_key, t.wavefront) for t in ex.stats.transfers})
+    if ex.n_nodes < 2:
+        assert mb.ships_lowered == mb.ships_simulated == 0, ctx
+        return
+    assert mb.ships_lowered + mb.ships_simulated == ships, ctx
+    if family != "numpy":
+        assert mb.ships_simulated == 0, ctx
+        assert mb.mesh(ex.n_nodes).copies == (ex.n_nodes - 1) \
+            * mb.ships_lowered, ctx
 
 
 @pytest.mark.parametrize("backend", sorted(PORT_BACKENDS))
@@ -451,6 +473,18 @@ def _check_backend_conformance(seed: int, family: str, backend: str,
 @pytest.mark.parametrize("seed", range(N_WORKFLOWS))
 def test_port_backends_conformance_pinned_seeds(seed, family, backend):
     check_backend_conformance(seed, family, backend)
+
+
+def test_armed_mesh_lowers_ships_over_the_sweep():
+    """The armed mesh is not vacuous: over the 50 seeds in the tensor
+    family it lowers ships of plans of 2, 3 and 4 ranks."""
+    lowered = {}
+    for seed in range(N_WORKFLOWS):
+        _, _, ex = run_spec(PORT, make_spec(seed), "tensor", "plan",
+                            PORT_BACKENDS["mesh_armed"]())
+        lowered[ex.n_nodes] = (lowered.get(ex.n_nodes, 0)
+                               + ex.backend.ships_lowered)
+    assert all(lowered.get(n, 0) > 0 for n in (2, 3, 4)), lowered
 
 
 def test_interpret_peaks_match_reference_interpreter():

@@ -1,8 +1,9 @@
 """The port's examples (``examples/torch_*.py``) run in-process on the host.
 
 Each runs through its ``main`` with ``--cpu`` at a small size and must
-print ``OK`` (the quickstart after its fault-tolerance and process-pool
-sections, the training example after saving a checkpoint) (the serving example also on the families with an encoder, a
+print ``OK`` (the quickstart after its fault-tolerance, process-pool
+and rank-mesh sections, the Listing 1 example after its ``shard_map``
+half, the training example after saving a checkpoint) (the serving example also on the families with an encoder, a
 vision front end, experts or xLSTM blocks) (the training example only once its loss has dropped);
 without ``--cpu`` on a host with no GPU each must stop with a non-zero
 code rather than fall back to the CPU.  The Listing 1 example
@@ -46,6 +47,13 @@ def test_example_runs_on_the_host(name, capsys, tmp_path):
         assert "1 recovery" in out and "C bit for bit the fault-free" in out
         assert "procs backend: Listing 1 in 1 plan(s) on 4 worker" in out
         assert "SIGKILLed worker 1 mid-plan: 1 recovery" in out
+        # section 12: the rank mesh lowers the ships, the chain is a kernel
+        assert ("mesh backend on 4 ranks sharing cpu: collectives ACTIVE"
+                in out) and "/ 0 simulated" in out
+    if name == "torch_distributed_gemm":    # the shard_map half
+        for schedule in ("tree", "ring"):
+            assert (f"[mesh lowering] (2,4) mesh on cpu, schedule="
+                    f"{schedule}: OK") in out
     if name == "torch_train_lm":        # a checkpoint the next run restores
         from repro_torch.ckpt import CheckpointManager
 

@@ -66,6 +66,10 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.core.backends.procs",
                 "repro_torch.core.shm_store", "repro_torch.core.recovery",
                 "repro_torch.ckpt.manager",
-                "repro_torch.runtime.supervisor"):
+                "repro_torch.runtime.supervisor",
+                "repro_torch.core.spmd", "repro_torch.core.lowering",
+                "repro_torch.launch.selftest_collectives",
+                "repro_torch.launch.selftest_mesh",
+                "repro_torch.launch.selftest_distgemm"):
         assert mod in got["modules"], mod
     assert got["bad"] == [], f"repro_torch pulled in: {got['bad']}"
