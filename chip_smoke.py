@@ -277,9 +277,10 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    1024 frames, 12 decoder layers over 2 x 4096 tokens with
    cross-attention: 12 + 12 + 12 launches, the cross-attention non-causal
    with 4096 queries over 1024 keys), Phi-3-vision-4.2b (64 patches + 4032
-   tokens, d 96 on ``bf16_simt``, 32 launches) and xLSTM-350m (24 mLSTM /
-   sLSTM layers, no kernel; the sLSTM's Python loop timed a token a layer
-   with CUDA events); launches by route, two served runs the same tokens,
+   tokens, d 96 on ``bf16_simt``, 32 launches) and xLSTM-350m (6 of its 24
+   mLSTM / sLSTM layers, 3 whole pattern periods: its sLSTM loop is
+   host-bound, no kernel; the loop timed a token a layer with CUDA
+   events); launches by route, two served runs the same tokens,
    every attention call of one more prefill held to its plain version;
    walls, rates, peak memory, the memory given back, and each family's
    float32 serving check at 2 layers;
@@ -306,6 +307,29 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    under the ``Supervisor``: a run that crashes at step 25 (exit 42), a
    second supervisor that resumes it from step 19 to the final loss of an
    uninterrupted run (relative 1e-5);
+8k. the LM on rank meshes (``[lm_mesh]``, :func:`lm_mesh_phase`), the
+   ranks sharing the card: explicit data parallelism on h2o-danube-1.8b at
+   its published widths, 2 layers, float32, 8 x 1024 tokens, 3 AdamW steps
+   through ``make_manual_dp_train_step`` with the ``tree`` and ``ring``
+   schedules on 4 ranks and ``hierarchical`` with and without the int8
+   pod hop on (2, 2) ranks, each held to ``make_train_step`` on the card
+   with the reference self-test's bounds (2e-4; int8 5e-2 / 5e-3), every
+   rank's replica, masters and moments bit for bit rank 0's after every
+   step, every step's copies and bytes the schedule's closed-form count
+   (``launch/meter_gradsync.py``), 8 ``flash_attention`` and 8
+   ``flash_attention_bwd`` launches a step on ``f32_simt``, no plain
+   version; the warm step wall, busy share, copies and GiB a step; then
+   Moonshot's expert parallelism at its published widths, 4 layers, bf16:
+   a 2 x 4096 prefill under ``make_policy(make_host_mesh(1, 4))`` (16
+   experts a rank, two ``all_to_all`` a layer) with 4 ``bf16_wgmma``
+   launches, held to the same prefill in ``moe_mode="replicated"`` within
+   the bf16 limits, timed beside it and beside a prefill without a
+   policy, its copies and bytes; 8 decode steps under a policy with
+   ``seq_sharded=False``; the loss's gradient at 2 layers, B 1 x S 2048,
+   every expert weight a finite non-zero gradient, within 2e-2 of each
+   leaf's largest value of replicated mode's; the memory given back; then
+   ``selftest_train_dp``, ``selftest_elastic`` and ``meter_gradsync`` with
+   ``--device cuda``;
 9. a ``kernels`` JSON line (every ported kernel with its launches on its
    path and its times; the GEMM's accumulate and ``chain_attn`` also with
    their launches in one serving arm, ``flash_attention`` and
@@ -321,7 +345,10 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    ``serial`` walls and the ops each fault recomputed; the GEMM and
    ``chain_ewise`` / ``chain_dot`` rows also with their launches on the
    armed rank mesh, ``mesh_launches``, and the GEMM row with the mesh's
-   ships, copies, walls and the shard_map GEMM's times), the script's time
+   ships, copies, walls and the shard_map GEMM's times; ``flash_attention``
+   and its backward also with their launches by route in one ``[lm_mesh]``
+   DP step, one expert-parallel prefill and its gradient, under
+   ``lm_mesh``), the script's time
    (each LM phase prints its own as it ends), the card's name and power limit, and, last, ``{"ok": true, "device":
    {...}}``.
 
@@ -1800,9 +1827,11 @@ FAMILIES = (
     # 64 image patches + 4032 text tokens; d 96 takes the CUDA cores
     ("phi_3_vision_4_2b", None, 0, 4032, {"bf16_simt": 32}, True),
     # mLSTM and sLSTM blocks: no attention, no kernel.  The sLSTM's
-    # host-bound Python loop (17 s a prefill) is as warm in its first run
-    # as in a second, so it is served once
-    ("xlstm_350m", None, 0, 4096, {}, False),
+    # host-bound Python loop (17 s a prefill at 24 layers) is as warm in
+    # its first run as in a second, so it is served once, and at a quarter
+    # of the depth (3 of 12 pattern periods), which leaves room for
+    # [lm_mesh] in the script's time
+    ("xlstm_350m", 6, 0, 4096, {}, False),
 )
 FAM_BATCH, FAM_DECODE = 2, 8
 # training each of the five at its published widths, one pattern period or
@@ -2996,6 +3025,514 @@ def train_ckpt_phase(torch, dev, card: str, zero_counts, counts) -> dict:
           f"bit for bit {resumed_loss == ref_loss}")
     out["supervised"] = {"resumed": resumed_loss, "ref": ref_loss}
     shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# -- Slice 3b: the LM on rank meshes — explicit DP, expert parallelism -------
+DP_ARCH = "h2o_danube_1_8b"
+DP_LAYERS, DP_BATCH, DP_SEQ, DP_STEPS, DP_LR = 2, 8, 1024, 3, 1e-3
+# name, mesh shape, axis names, schedule, compress_outer
+DP_RUNS = (("tree", (4,), ("data",), "tree", False),
+           ("ring", (4,), ("data",), "ring", False),
+           ("hierarchical", (2, 2), ("pod", "data"), "hierarchical", False),
+           ("hierarchical+int8", (2, 2), ("pod", "data"), "hierarchical",
+            True))
+# f32 at d 80 takes the CUDA cores both ways: each of the 4 ranks runs 2
+# layers' forward and backward a step
+DP_KERNELS = {"flash_attention": {"f32_simt": 8},
+              "flash_attention_bwd": {"f32_simt": 8}}
+# the int8 run's share of parameters that may leave the reference
+# self-test's elementwise bound (5e-2 relative + 5e-3) of the single stream;
+# none may move further from it than 2 DP_STEPS lr + 5e-3 (each step's AdamW
+# update of each run is about lr whatever its gradient's size: at most every
+# step of the one against the other's)
+DP_INT8_BEYOND = 1e-6
+EP_ARCH, EP_LAYERS, EP_RANKS = "moonshot_v1_16b_a3b", 4, 4
+EP_BATCH, EP_PROMPT, EP_DECODE = 2, 4096, 8
+EP_KERNELS = {"bf16_wgmma": EP_LAYERS}
+EP_GRAD_LAYERS, EP_GRAD_SEQ = 2, 2048
+
+
+def _params_beyond(torch, model, want: dict, rtol: float, atol: float):
+    """``(largest |p - want| - rtol |want|, elements where that exceeds
+    atol, largest |p - want|)`` over ``model``'s parameters."""
+    worst, beyond, moved = 0.0, 0, 0.0
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            diff = (p - want[n]).abs()
+            moved = max(moved, float(diff.max()))
+            diff -= rtol * want[n].abs()
+            worst = max(worst, float(diff.max()))
+            beyond += int((diff > atol).sum())
+    return worst, beyond, moved
+
+
+def _flipped_moments(torch, model, m: dict, want: dict, want_m: dict,
+                     rtol: float, atol: float) -> int:
+    """The witness of an element that left the bound: how many of those
+    elements have a first moment (rank 0's of ``m``) of the other sign
+    than the single stream's (``want_m``)."""
+    flipped = 0
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            out_of = (p - want[n]).abs() - rtol * want[n].abs() > atol
+            if bool(out_of.any()):
+                flipped += int((torch.sign(m[n].shards[0][out_of])
+                                != torch.sign(want_m[n][out_of])).sum())
+    return flipped
+
+
+def _largest_share(torch, got: dict, want: dict) -> float:
+    """The largest ``|got - want|`` over a leaf, as a share of the leaf's
+    largest ``|want|``, over every leaf."""
+    worst = 0.0
+    for n, g in got.items():
+        w = want[n].float()
+        worst = max(worst, float((g.float() - w).abs().max())
+                    / max(float(w.abs().max()), 1e-30))
+    return worst
+
+
+def lm_mesh_phase(torch, dev, card: str, zero_counts, counts) -> dict:
+    """``[lm_mesh]``: the LM on rank meshes that share the card.
+
+    (a) explicit data parallelism: h2o-danube-1.8b at its published widths,
+    DP_LAYERS layers, float32, DP_BATCH x DP_SEQ tokens, DP_STEPS AdamW
+    steps through ``make_manual_dp_train_step`` for each of DP_RUNS, held
+    to ``make_train_step`` on the same card with the reference self-test's
+    bounds; every rank's replica, masters and moments bit for bit rank 0's
+    after every step; every step's copies and bytes the schedule's
+    closed-form count; the attention launches by route every step, no
+    plain version, and every attention call of the first run's first step
+    (forward and backward, at the rank's shape) held to its plain version
+    on the same inputs; warm step wall, busy share, copies and GiB a step.
+    (b) expert parallelism: Moonshot at its published widths, EP_LAYERS
+    layers, bf16, a prefill of EP_BATCH x EP_PROMPT tokens under
+    ``make_policy(make_host_mesh(1, EP_RANKS))`` held to the same prefill
+    in ``moe_mode="replicated"`` under the same policy and timed beside a
+    prefill without a policy, EP_DECODE decode steps under a policy with
+    ``seq_sharded=False``, and the loss's gradient at EP_GRAD_LAYERS
+    layers against replicated mode's.  (c) the three Slice 3b self-tests
+    with ``--device cuda``.  Returns the launches by route of the last DP
+    step, an EP prefill and the EP gradient."""
+    import contextlib
+    import dataclasses
+    import importlib
+    import io
+
+    from repro_torch import configs
+    from repro_torch.core.spmd import make_mesh
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.meter_gradsync import (expected_copies,
+                                                  gradient_leaves)
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import AdamW
+    from repro_torch.sharding import make_policy, use_policy
+    from repro_torch.train import make_prefill_step, make_decode_step
+    from repro_torch.train.step import (init_error_state,
+                                        make_manual_dp_train_step,
+                                        make_train_step)
+
+    out = {}
+    plain = dict.fromkeys(("attention", "attention_lse", "attention_grad",
+                           "attention_grad_lse"), 0)
+    originals = {name: getattr(fa_ref, name) for name in plain}
+    attend = fa_ops._attend
+    backward = fa_ops._Attention.__dict__["backward"]
+    held = {"fwd": 0, "bwd": 0, "fwd_err": 0.0, "bwd_nrms": 0.0,
+            "bwd_err": 0.0, "shapes": set()}
+
+    def counting(name):
+        def wrapper(*args, **kwargs):
+            plain[name] += 1
+            return originals[name](*args, **kwargs)
+        return wrapper
+
+    def attend_held(q, k, v, *, causal, window, scale, lse):
+        # the path's forward, held to the plain version on its inputs
+        out_, rows = attend(q, k, v, causal=causal, window=window,
+                            scale=scale, lse=lse)
+        exp = originals["attention"](q, k, v, causal=causal, window=window,
+                                     scale=scale)
+        tol = ATTN_TOL[str(q.dtype).split(".")[-1]]
+        diff = (out_.double() - exp.double()).abs()
+        check(bool(torch.isfinite(out_).all())
+              and bool((diff <= tol + tol * exp.double().abs()).all()),
+              f"[lm_mesh] attention forward {tuple(q.shape)}: beyond rtol "
+              f"{tol} atol {tol} of the plain version (largest error "
+              f"{float(diff.max()):.3e})")
+        held["fwd"] += 1
+        held["fwd_err"] = max(held["fwd_err"], float(diff.max()))
+        held["shapes"].add((tuple(q.shape), tuple(k.shape), str(q.dtype),
+                            causal, window))
+        return out_, rows
+
+    def bwd_held(ctx, dout):
+        # what _Attention.backward does, held to the plain version
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, scale = ctx.mask
+        got = fa_ops.flash_attention_bwd(q, k, v, o, dout, lse=lse,
+                                         causal=causal, window=window,
+                                         scale=scale)
+        exp = originals["attention_grad"](q, k, v, dout, causal=causal,
+                                          window=window, scale=scale)
+        for name, g, e in zip(("dq", "dk", "dv"), got, exp):
+            nrms = slice_nrms(g, e)
+            check(bool(torch.isfinite(g).all()) and nrms <= BWD_F32_NRMS,
+                  f"[lm_mesh] attention backward {name} {tuple(q.shape)}: "
+                  f"rms error per head slice {nrms:.3e} of the plain "
+                  f"version's (> {BWD_F32_NRMS:.3e})")
+            held["bwd_nrms"] = max(held["bwd_nrms"], nrms)
+            held["bwd_err"] = max(held["bwd_err"], (g.double() - e.double())
+                                  .abs().max().item())
+        held["bwd"] += 1
+        return (*got, None, None, None, None)
+
+    def routes():
+        return {"flash_attention": dict(fa_ops.flash_attention.routes),
+                "flash_attention_bwd": dict(fa_ops.flash_attention_bwd.routes)}
+
+    # -- (a) explicit data parallelism ---------------------------------------
+    base = memory_base(torch, dev)
+    cfg = dataclasses.replace(configs.get(DP_ARCH), n_layers=DP_LAYERS,
+                              dtype="float32")
+    label = f"[lm_mesh] {cfg.name}"
+    data = SyntheticLMDataset(cfg.vocab_size, DP_SEQ, DP_BATCH, seed=SEED,
+                              device=dev)
+    opt = AdamW(learning_rate=DP_LR)
+
+    def fresh():
+        return LanguageModel(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(SEED))
+
+    single = fresh()
+    n_params = single.param_count()
+    n_elems = sum(p.numel() for p in single.parameters())
+    step = make_train_step(single, opt)
+    state = opt.init(single)
+    losses, walls = [], []
+    for i in range(DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, data.batch_at(i))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    single_warm = min(walls[1:])
+    want = {n: p.detach() for n, p in single.named_parameters()}
+    want_m = state.m
+    del state, step, metrics
+    print(f"{label}: {cfg.n_layers} of {configs.get(DP_ARCH).n_layers} "
+          f"layers at the published widths (d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads at d {cfg.head_dim_}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, window {cfg.window}), "
+          f"float32, {n_params:,} parameters in weight matrices; single "
+          f"stream (make_train_step, remat): losses "
+          f"{', '.join(f'{x:.5f}' for x in losses)}; step walls "
+          f"{', '.join(f'{w:.4f}' for w in walls)} s ({card})")
+    dp_out, last_routes = {}, None
+    for name, shape, axes, schedule, compress in DP_RUNS:
+        run_label = f"{label} {name} on {dict(zip(axes, shape))}"
+        model = fresh()
+        mesh = make_mesh(shape, axes, (dev,) * math.prod(shape))
+        step = make_manual_dp_train_step(model, opt, mesh, schedule=schedule,
+                                         data_axes=axes,
+                                         compress_outer=compress)
+        state, err = opt.init(model), init_error_state(model)
+        n_copies, n_bytes = expected_copies(schedule, compress,
+                                            dict(zip(axes, shape)),
+                                            gradient_leaves(model))
+        losses, walls = [], []
+        for name_ in plain:
+            setattr(fa_ref, name_, counting(name_))
+        try:
+            for i in range(DP_STEPS):
+                batch = data.batch_at(i)
+                zero_counts()
+                for key in plain:
+                    plain[key] = 0
+                c0, b0 = mesh.copies, mesh.bytes_copied
+                # the first run's first step holds every attention call
+                hold = name == DP_RUNS[0][0] and i == 0
+                if hold:
+                    fa_ops._attend = attend_held
+                    fa_ops._Attention.backward = staticmethod(bwd_held)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    state, loss, err = step(state, batch, err)
+                finally:
+                    fa_ops._attend = attend
+                    fa_ops._Attention.backward = backward
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                got, by_route = counts(), routes()
+                last_routes = by_route
+                losses.append(float(loss))
+                if hold:
+                    n_calls = DP_KERNELS["flash_attention"]["f32_simt"]
+                    check(held["fwd"] == n_calls and held["bwd"] == n_calls,
+                          f"{run_label}: held {held['fwd']} forward and "
+                          f"{held['bwd']} backward attention calls, "
+                          f"expected {n_calls} each")
+                    print(f"{run_label} step 1: every attention call held to "
+                          f"its plain version on the same inputs, "
+                          f"{held['fwd']} forward (q, k, dtype, causal, "
+                          f"window: {sorted(held['shapes'])}; max_abs_err "
+                          f"{held['fwd_err']:.3e} within rtol and atol "
+                          f"{ATTN_TOL['float32']}) and {held['bwd']} backward "
+                          f"(rms error per head slice {held['bwd_nrms']:.3e} "
+                          f"<= {BWD_F32_NRMS:.0e}, max_abs_err "
+                          f"{held['bwd_err']:.3e}) ({card})")
+                check(by_route == DP_KERNELS, f"{run_label} step {i + 1}: "
+                      f"launches by route {by_route}, expected {DP_KERNELS}")
+                others = {k: v for k, v in got.items() if v and k not in
+                          DP_KERNELS}
+                check(not others, f"{run_label}: unexpected launches "
+                      f"{others}")
+                check(not any(plain.values()), f"{run_label}: plain versions "
+                      f"called {plain}")
+                check((mesh.copies - c0, mesh.bytes_copied - b0)
+                      == (n_copies, n_bytes),
+                      f"{run_label} step {i + 1}: {mesh.copies - c0} copies "
+                      f"of {mesh.bytes_copied - b0} bytes, the schedule "
+                      f"counts {n_copies} of {n_bytes}")
+                unequal = [n for tree in (step.params, state.master, state.m,
+                                          state.v)
+                           for n, v in tree.items()
+                           if not all(torch.equal(t, v.shards[0])
+                                      for t in v.shards[1:])]
+                check(not unequal, f"{run_label} step {i + 1}: ranks differ "
+                      f"in {unequal[:4]}")
+        finally:
+            for name_, fn in originals.items():
+                setattr(fa_ref, name_, fn)
+        rtol, atol = (5e-2, 5e-3) if compress else (2e-4, 2e-4)
+        worst, beyond, moved = _params_beyond(torch, model, want, rtol, atol)
+        if compress:
+            # Adam turns a near-zero gradient's quantisation error into a
+            # whole step of either sign: the reference's elementwise bound
+            # holds on all but a few elements of 302.8 M, and none moves
+            # further than every step the other way
+            cap = 2 * DP_STEPS * DP_LR + atol
+            check(beyond <= n_elems * DP_INT8_BEYOND and moved <= cap,
+                  f"{run_label}: {beyond} parameters beyond rtol {rtol} + "
+                  f"atol {atol} of the single stream (at most "
+                  f"{n_elems * DP_INT8_BEYOND:.0f}), the largest difference "
+                  f"{moved:.3e} (at most {cap:.3e})")
+            flipped = _flipped_moments(torch, model, state.m, want, want_m,
+                                       rtol, atol)
+            print(f"{run_label}: {beyond} elements beyond the bound, "
+                  f"{flipped} of them with a first moment of the other sign "
+                  f"than the single stream's; the largest difference "
+                  f"{moved:.3e} of at most {cap:.3e} ({card})")
+        else:
+            check(worst <= atol, f"{run_label}: parameters {worst:.3e} "
+                  f"beyond rtol {rtol} of the single stream (atol {atol})")
+        if compress:
+            big = max(float(e.shards[0].abs().max()) for e in err.values())
+            check(big < 1.0, f"{run_label}: error feedback {big}")
+        warm = min(walls[1:])
+        busy = device_profile(
+            torch, run_label, lambda: step(state, data.batch_at(DP_STEPS),
+                                           err), warm, {})
+        gib = n_bytes / 2 ** 30
+        print(f"{run_label}: losses {', '.join(f'{x:.5f}' for x in losses)}; "
+              f"parameters within rtol {rtol} + {worst:.3e} of the single "
+              f"stream (atol {atol}; {beyond} of {n_elems:,} elements "
+              f"beyond it; the largest difference {moved:.3e}, "
+              f"{moved / DP_LR:.2f} lr); every rank's replica, masters and "
+              f"moments bit for bit rank 0's after every step; a step "
+              f"{n_copies} copies, {gib:.3f} GiB ({n_bytes / mesh.size:,.0f} "
+              f"bytes a rank), the schedule's count; launches a step "
+              f"{DP_KERNELS}, no plain version; step walls "
+              f"{', '.join(f'{w:.4f}' for w in walls)} s, warm {warm:.4f} s "
+              f"(the single stream's {single_warm:.4f} s); busy "
+              f"{busy:.1f}% ({card})")
+        dp_out[name] = {"warm_s": warm, "busy": busy, "copies": n_copies,
+                        "gib": gib}
+        del model, step, state, err, loss, got, mesh
+    del single, want, want_m
+    memory_back(torch, dev, base, f"{label} data parallel")
+    out["dp_step"] = {k: dict(v) for k, v in last_routes.items()}
+    out["dp"] = dp_out
+
+    # -- (b) expert parallelism ----------------------------------------------
+    base = memory_base(torch, dev)
+    full = configs.get(EP_ARCH)
+    cfg = dataclasses.replace(full, n_layers=EP_LAYERS)
+    rep_cfg = dataclasses.replace(cfg, moe_mode="replicated")
+    label = f"[lm_mesh] {cfg.name}"
+    model = LanguageModel(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    mesh = make_host_mesh(1, EP_RANKS, device=dev)
+    policy = make_policy(mesh)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (EP_BATCH, EP_PROMPT),
+                           generator=gen, device=dev)
+    s_max = EP_PROMPT + EP_DECODE
+    prefill = make_prefill_step(model, policy, s_max=s_max)
+
+    def timed_prefill(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, states = fn(tokens)
+        torch.cuda.synchronize()
+        return logits, states, time.perf_counter() - t0
+
+    timed_prefill(prefill)                        # cold
+    for name_ in plain:
+        setattr(fa_ref, name_, counting(name_))
+    try:
+        zero_counts()
+        for key in plain:
+            plain[key] = 0
+        c0, b0 = mesh.copies, mesh.bytes_copied
+        logits, states, t_ep = timed_prefill(prefill)
+        got, by_route = counts(), routes()
+    finally:
+        for name_, fn in originals.items():
+            setattr(fa_ref, name_, fn)
+    ep_copies, ep_bytes = mesh.copies - c0, mesh.bytes_copied - b0
+    check(by_route["flash_attention"] == EP_KERNELS
+          and got["flash_attention"] == EP_LAYERS,
+          f"{label}: launches by route {by_route}, expected {EP_KERNELS} a "
+          f"prefill")
+    others = {k: v for k, v in got.items() if v and k != "flash_attention"}
+    check(not others, f"{label}: unexpected launches {others}")
+    check(not any(plain.values()), f"{label}: plain versions called {plain}")
+    check(bool(torch.isfinite(logits).all()), f"{label}: EP logits not "
+          f"finite")
+    # tokens cross the model axis twice a layer: n (n - 1) copies each, and
+    # aux's ring pmean 2 n (n - 1)
+    n = EP_RANKS
+    check(ep_copies == EP_LAYERS * (2 * n * (n - 1) + 2 * n * (n - 1)),
+          f"{label}: {ep_copies} copies a prefill")
+    ep_busy = device_profile(torch, f"{label} EP prefill",
+                             lambda: prefill(tokens), t_ep, {})
+    c1 = mesh.copies
+    model.cfg = rep_cfg
+    try:
+        rep_logits, rep_states, t_rep = timed_prefill(prefill)
+        rep_copies = mesh.copies - c1
+    finally:
+        model.cfg = cfg
+    del rep_states
+    rtol, atol = TOL["bfloat16"]
+    err_ep = (logits.float() - rep_logits.float()).abs()
+    lim = atol + rtol * rep_logits.float().abs()
+    check(bool((err_ep <= lim).all()), f"{label}: EP logits beyond the bf16 "
+          f"limits of replicated mode's (largest error {float(err_ep.max())})")
+    plain_prefill = make_prefill_step(model, s_max=s_max)
+    timed_prefill(plain_prefill)
+    t_plain = timed_prefill(plain_prefill)[2]
+    print(f"{label}: {EP_LAYERS} of {full.n_layers} layers at the published "
+          f"widths ({cfg.n_experts} experts top-{cfg.n_experts_active}, "
+          f"expert d_ff {cfg.d_ff}), bf16, prefill {EP_BATCH} x {EP_PROMPT} "
+          f"under make_policy(make_host_mesh(1, {n})): {cfg.n_experts // n} "
+          f"experts a rank, two all_to_all a MoE layer; {ep_copies} copies "
+          f"of {ep_bytes / 2 ** 30:.3f} GiB a prefill ({ep_bytes:,} bytes); "
+          f"launches {by_route['flash_attention']}, no plain version; "
+          f"logits within the bf16 limits of moe_mode='replicated' under "
+          f"the same policy (largest error {float(err_ep.max()):.3e}; "
+          f"replicated {rep_copies} copies, aux's pmean only); walls: EP "
+          f"{t_ep:.4f} s (busy {ep_busy:.1f}%), replicated {t_rep:.4f} s, "
+          f"no policy {t_plain:.4f} s ({card})")
+    del rep_logits, err_ep, lim, plain_prefill
+    dec_policy = make_policy(make_host_mesh(1, n, device=dev),
+                             seq_sharded=False)
+    decode = make_decode_step(model, dec_policy)
+    token = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(EP_DECODE):
+        logits, states = decode(states, token, EP_PROMPT + t)
+        token = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits).all()), f"{label}: decode logits")
+    print(f"{label}: {EP_DECODE} decode steps under a policy with "
+          f"seq_sharded=False (capacity = the rank's tokens): "
+          f"{t_dec / EP_DECODE * 1e3:.3f} ms a step, "
+          f"{dec_policy.mesh.copies} copies in all ({card})")
+    out["ep_prefill"] = {"flash_attention": dict(by_route["flash_attention"])}
+    out["ep"] = {"prefill_s": t_ep, "busy": ep_busy,
+                 "replicated_s": t_rep, "no_policy_s": t_plain,
+                 "copies": ep_copies, "gib": ep_bytes / 2 ** 30,
+                 "decode_ms": t_dec / EP_DECODE * 1e3}
+    del model, prefill, decode, states, logits, token, tokens
+    memory_back(torch, dev, base, f"{label} expert-parallel serving")
+
+    base = memory_base(torch, dev)
+    cfg = dataclasses.replace(full, n_layers=EP_GRAD_LAYERS)
+    model = LanguageModel(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    model.requires_grad_(True)
+    data = SyntheticLMDataset(cfg.vocab_size, EP_GRAD_SEQ, 1, seed=SEED,
+                              device=dev)
+    batch = data.batch_at(0)
+    grads = {}
+    for mode in ("ep", "replicated"):
+        model.cfg = dataclasses.replace(cfg, moe_mode=mode)
+        zero_counts()
+        with use_policy(policy):
+            loss, metrics = model.loss(batch, remat=False)
+            loss.backward()
+        grads[mode] = {n: p.grad for n, p in model.named_parameters()}
+        if mode == "ep":
+            by_route = routes()
+            check(by_route == {"flash_attention": {"bf16_wgmma":
+                                                   EP_GRAD_LAYERS},
+                               "flash_attention_bwd": {"bf16_wgmma":
+                                                       EP_GRAD_LAYERS}},
+                  f"{label} gradient: launches by route {by_route}")
+            ep_loss = float(loss.detach())
+        model.zero_grad(set_to_none=True)
+    model.cfg = cfg
+    experts = [n for n in grads["ep"] if ".experts." in n]
+    bad = [n for n in experts if not bool(torch.isfinite(grads["ep"][n]).all())
+           or float(grads["ep"][n].abs().max()) == 0.0]
+    check(len(experts) == 3 * EP_GRAD_LAYERS and not bad,
+          f"{label} gradient: expert weights without a finite non-zero "
+          f"gradient {bad}")
+    worst = _largest_share(torch, grads["ep"], grads["replicated"])
+    check(worst <= TOL["bfloat16"][0], f"{label} gradient: EP against "
+          f"replicated {worst:.3e} of a leaf's largest value")
+    print(f"{label}: the loss and its gradient at {EP_GRAD_LAYERS} layers, B "
+          f"1 x S {EP_GRAD_SEQ}, under the policy: loss {ep_loss:.4f}; every "
+          f"expert weight a finite non-zero gradient; within {worst:.3e} of "
+          f"each leaf's largest value of replicated mode's gradient "
+          f"(<= {TOL['bfloat16'][0]}); launches {by_route} ({card})")
+    out["ep_grad"] = by_route
+    del model, grads, batch, data, loss, metrics
+    memory_back(torch, dev, base, f"{label} expert-parallel gradient")
+
+    # -- (c) the self-tests, their ranks sharing the card ---------------------
+    for name in ("selftest_train_dp", "selftest_elastic", "meter_gradsync"):
+        module = importlib.import_module(f"repro_torch.launch.{name}")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = module.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        lines = buf.getvalue().splitlines()
+        ok = rc == 0 and (lines[-1:] == ["OK"] if name.startswith("selftest")
+                          else len(lines) == 4)
+        check(ok, f"[lm_mesh] {name} --device cuda: rc {rc}, {lines[-3:]}")
+        print(f"[lm_mesh] python -m repro_torch.launch.{name} --device cuda: "
+              f"rc 0 in {time.perf_counter() - t0:.2f} s")
+        if name == "meter_gradsync":
+            for line in lines:
+                row = json.loads(line)
+                c = row["collectives"]
+                print(f"[lm_mesh] meter {row['schedule']}: "
+                      f"{c['ppermute']['count']:.0f} copies, "
+                      f"{c['ppermute']['bytes']:,.0f} bytes a rank (the "
+                      f"reference's wire model: "
+                      f"{c['reference_wire_model']['total_bytes']:,.0f})")
     return out
 
 
@@ -4973,6 +5510,9 @@ def main() -> int:
     train_ckpt = timed("[train_ckpt]", train_ckpt_phase, card, zero_counts,
                        counts)
 
+    # -- 8k. the LM on rank meshes: explicit DP and expert parallelism -------
+    lm_mesh = timed("[lm_mesh]", lm_mesh_phase, card, zero_counts, counts)
+
     # -- 9. result lines --------------------------------------------------------------
     gemm_source = "src/repro_torch/kernels/gemm/csrc/gemm.cu"
     chain_source = "src/repro_torch/kernels/chain/csrc/chain.cu"
@@ -5082,6 +5622,16 @@ def main() -> int:
                                          for k, v in faults.items()}
     attn_row["train_ckpt"] = {k: v for k, v in train_ckpt.items()
                               if k != "supervised"}
+    # the LM on rank meshes: launches by route of one explicit-DP step (4
+    # ranks), one expert-parallel Moonshot prefill and its gradient
+    attn_row["lm_mesh"] = {
+        "dp_step": lm_mesh["dp_step"]["flash_attention"],
+        "ep_prefill": lm_mesh["ep_prefill"]["flash_attention"],
+        "ep_grad": lm_mesh["ep_grad"]["flash_attention"],
+        "dp": lm_mesh["dp"], "ep": lm_mesh["ep"]}
+    bwd_row["lm_mesh"] = {
+        "dp_step": lm_mesh["dp_step"]["flash_attention_bwd"],
+        "ep_grad": lm_mesh["ep_grad"]["flash_attention_bwd"]}
     print(json.dumps({"kernels": kernels}))
     print(f"[time] chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
     print(card)

@@ -1,4 +1,5 @@
-"""Checkpointing: atomic and async — ``repro/ckpt/manager.py`` on tensors.
+"""Checkpointing: atomic, async, elastic — ``repro/ckpt/manager.py`` on
+tensors.
 
 * **Atomic** — writes land in ``step_N.tmp`` and are ``rename``d only after
   every leaf + manifest is fsync'd; a crash mid-save can never corrupt the
@@ -19,10 +20,17 @@
   ``None`` a subtree without leaves), so a checkpoint written by either
   package restores in the other.
 
+* **Elastic** — a leaf placed on a rank mesh (a
+  :class:`~repro_torch.core.spmd.Sharded` value with its spec, as
+  ``NamedSharding.place`` returns it) is saved as its *global* array; ``restore(like, shardings=...)``
+  places each leaf by its :class:`~repro_torch.core.spmd.NamedSharding`
+  on whatever mesh the new job brings up (8 ranks to 4 and back to 8 in
+  ``launch/selftest_elastic.py``).
+
 :meth:`CheckpointManager.restore` rebuilds the structure of ``like``: a
-tensor leaf comes back as a tensor on ``like``'s device and in its dtype, a
-NumPy leaf as NumPy, a Python number as that number.  Several devices
-(re-sharding on restore) wait for the multi-device slice.
+tensor leaf comes back as a tensor on ``like``'s device and in its dtype
+(placed by its sharding when ``shardings`` gives one), a NumPy leaf as
+NumPy, a Python number as that number.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.core.spmd import Sharded, assemble
 
 # dtypes NumPy cannot hold: stored as raw bits, the logical dtype in the
 # manifest (the reference's _BITCAST)
@@ -109,6 +119,8 @@ def unflatten(like, leaves):
 def _snapshot(leaf, copy: bool):
     """A host snapshot of one leaf: ``(storage ndarray, logical dtype)``.
     ``copy`` makes it independent of the leaf's memory."""
+    if isinstance(leaf, Sharded):
+        leaf, copy = assemble(leaf), False      # a new global tensor
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if t.device.type != "cpu" or copy:
@@ -136,7 +148,10 @@ def _from_storage(arr: np.ndarray, logical: str):
 
 def _like(stored, ref):
     """A stored leaf in the form of ``ref``: a tensor on its device and in
-    its dtype, NumPy in its dtype, or a Python number."""
+    its dtype (a placed ``ref``: on its mesh's first device), NumPy in its
+    dtype, or a Python number."""
+    if isinstance(ref, Sharded):
+        ref = ref.shards[0]
     if isinstance(ref, torch.Tensor):
         t = stored if isinstance(stored, torch.Tensor) else \
             torch.from_numpy(np.ascontiguousarray(stored))
@@ -266,10 +281,13 @@ class CheckpointManager:
         arr = np.load(os.path.join(self._step_dir(step), meta["path"]))
         return _from_storage(arr, meta["dtype"])
 
-    def restore(self, like: Any, step: Optional[int] = None
-                ) -> tuple[Any, dict]:
+    def restore(self, like: Any, step: Optional[int] = None,
+                shardings: Any = None) -> tuple[Any, dict]:
         """Restore step ``step`` (default: the latest) into the structure
-        of ``like``.  Returns ``(tree, extra)``."""
+        of ``like``; with ``shardings`` (the structure of ``like`` with a
+        :class:`~repro_torch.core.spmd.NamedSharding` for each leaf) each
+        leaf is placed on its sharding's mesh, whatever mesh saved it.
+        Returns ``(tree, extra)``."""
         self.wait()
         self._gc_tmp()
         step = self.latest_step() if step is None else step
@@ -281,13 +299,21 @@ class CheckpointManager:
             raise ValueError(
                 "checkpoint/model structure mismatch "
                 f"({len(manifest['leaves'])} vs {len(refs)} leaves)")
+        places = ([None] * len(refs) if shardings is None
+                  else flatten(shardings))
+        if len(places) != len(refs):
+            raise ValueError(f"{len(places)} shardings for {len(refs)} "
+                             f"leaves")
         out = []
-        for meta, ref in zip(manifest["leaves"], refs):
+        for meta, ref, place in zip(manifest["leaves"], refs, places):
             stored = self._load(step, meta)
-            if list(stored.shape) != list(np.shape(ref)):
+            shape = (ref.global_shape if isinstance(ref, Sharded)
+                     else np.shape(ref))
+            if list(stored.shape) != list(shape):
                 raise ValueError(f"shape mismatch {tuple(stored.shape)} vs "
-                                 f"{tuple(np.shape(ref))}")
-            out.append(_like(stored, ref))
+                                 f"{tuple(shape)}")
+            leaf = _like(stored, ref)
+            out.append(leaf if place is None else place.place(leaf))
         return unflatten(like, out), manifest["extra"]
 
     def load_leaf(self, step: int, i: int):

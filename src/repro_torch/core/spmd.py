@@ -20,7 +20,13 @@ process, thread or communicator per rank:
 * :func:`shard_map` splits global tensors by :class:`P` specs, calls the
   body once on the sharded values inside the mesh's axis context (for
   :func:`axis_size` / :func:`axis_index`), and assembles the result by
-  spec.
+  spec.  An argument already *placed* on the mesh under its spec (a
+  :class:`Sharded` that carries that spec, as :class:`NamedSharding`'s
+  :meth:`~NamedSharding.place` returns it) passes through without a new
+  split, as a ``jax.Array`` already laid out by its sharding does;
+* the collectives the model code calls directly (:func:`all_to_all`,
+  :func:`psum`, :func:`pmean`, :func:`all_gather`) are built from
+  :func:`ppermute`, so the mesh counts their copies too.
 
 A collective acts on every group along its named axis independently: on a
 ``(p, q)`` mesh a reduction over ``q`` runs once for every ``p``.  An axis
@@ -200,16 +206,36 @@ class Sharded:
     gets ``None``.
     """
 
-    __slots__ = ("mesh", "shards")
+    __slots__ = ("mesh", "shards", "spec")
     __hash__ = None
 
-    def __init__(self, mesh: Mesh, shards):
+    def __init__(self, mesh: Mesh, shards, spec: "P | None" = None):
         shards = list(shards)
         if len(shards) != mesh.size:
             raise ValueError(f"{len(shards)} shards for a mesh of "
                              f"{mesh.size} positions")
         self.mesh = mesh
         self.shards = shards
+        # the spec of a global value this one is placed as (None: the
+        # per-rank values of a body, no global value)
+        self.spec = spec
+
+    @property
+    def sharding(self) -> "NamedSharding":
+        """The :class:`NamedSharding` of a placed value."""
+        if self.spec is None:
+            raise AttributeError("a per-rank value has no sharding; "
+                                 "place it with NamedSharding.place")
+        return NamedSharding(self.mesh, self.spec)
+
+    @property
+    def global_shape(self) -> tuple:
+        """The shape of the global value a placed one holds."""
+        shape = list(self.shape)
+        for dim, entry in enumerate(self.sharding.spec):
+            if entry is not None:
+                shape[dim] *= self.mesh.axis_size(entry)
+        return tuple(shape)
 
     def map(self, fn, *others) -> "Sharded":
         """``fn`` on each rank's shard (and the same rank's shard of every
@@ -246,6 +272,20 @@ class Sharded:
     __and__ = _lift(operator.and_)
     __eq__ = _lift(operator.eq)
     __lt__ = _lift(operator.lt)
+
+
+def per_rank(tree, mesh: Mesh) -> Sharded:
+    """A dict / list / tuple of :class:`Sharded` leaves as one
+    :class:`Sharded` whose shard on each rank is the tree of that rank's
+    shards (what a body hands to a per-rank function of a whole tree)."""
+    def at(t, r):
+        if isinstance(t, dict):
+            return {k: at(v, r) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(at(v, r) for v in t)
+        return t.shards[r]
+
+    return Sharded(mesh, [at(tree, r) for r in range(mesh.size)])
 
 
 def where(cond: Sharded, a: Sharded, b: Sharded) -> Sharded:
@@ -306,13 +346,21 @@ def _spec_slices(mesh: Mesh, spec: P, shape, rank: int) -> tuple:
     return tuple(out)
 
 
-def _split(mesh: Mesh, spec: P, value: torch.Tensor) -> Sharded:
+def _split(mesh: Mesh, spec: P, value) -> Sharded:
+    """``value`` split by ``spec``: a new allocation per rank on its
+    device (not a :func:`ppermute`, so not counted).  A value already
+    placed on ``mesh`` under ``spec`` passes through as it is; one placed
+    otherwise is assembled and split again."""
+    if isinstance(value, Sharded):
+        if value.mesh is mesh and value.spec == spec:
+            return value
+        value = _assemble(value.mesh, value.sharding.spec, value)
     shards = []
     for r, dev in enumerate(mesh.rank_devices):
         block = value[_spec_slices(mesh, spec, value.shape, r)]
         shard = torch.empty(block.shape, dtype=block.dtype, device=dev)
         shards.append(shard.copy_(block))
-    return Sharded(mesh, shards)
+    return Sharded(mesh, shards, spec)
 
 
 def _assemble(mesh: Mesh, spec: P, value: Sharded) -> torch.Tensor:
@@ -360,7 +408,10 @@ def shard_map(f, *, mesh: Mesh, in_specs, out_specs,
     all arguments, or one spec tree per argument), calls ``f`` once on the
     :class:`Sharded` values inside the mesh's axis context, and assembles
     ``f``'s result by ``out_specs`` onto the mesh's first device.
-    ``check_vma`` / ``check_rep`` are accepted and ignored (no check)."""
+
+    An argument placed on ``mesh`` under its spec passes through without
+    a copy.  ``check_vma`` / ``check_rep`` are accepted and ignored (no
+    check)."""
     del check_vma, check_rep
 
     def call(*args):
@@ -375,6 +426,107 @@ def shard_map(f, *, mesh: Mesh, in_specs, out_specs,
     return call
 
 
-__all__ = ["Mesh", "P", "Sharded", "as_device", "axis_index", "axis_size",
-           "current_mesh", "in_mesh", "make_mesh", "ppermute", "shard_map",
-           "where"]
+class NamedSharding:
+    """``jax.sharding.NamedSharding``: a :class:`Mesh` and a :class:`P`.
+    :meth:`place` lays a global tensor out by it (one new allocation per
+    rank, on the rank's device), :meth:`assemble` gathers a placed value
+    back into one tensor on the mesh's first device."""
+
+    __slots__ = ("mesh", "spec")
+
+    def __init__(self, mesh: Mesh, spec: P):
+        self.mesh = mesh
+        self.spec = P(*spec)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh!r}, {self.spec!r})"
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, NamedSharding) and other.mesh is self.mesh
+                and other.spec == self.spec)
+
+    __hash__ = None
+
+    def place(self, value) -> Sharded:
+        """``value`` (a tensor, or a value placed elsewhere) placed by
+        this sharding; a value placed by it already is returned as it
+        is."""
+        return _split(self.mesh, self.spec, value)
+
+    def assemble(self, value: Sharded) -> torch.Tensor:
+        """The global tensor of a value placed by this sharding."""
+        return _assemble(self.mesh, self.spec, value)
+
+
+def assemble(value):
+    """The global tensor of a placed :class:`Sharded` (anything else as it
+    is): ``np.asarray`` of a sharded ``jax.Array``, on the mesh's first
+    device."""
+    if isinstance(value, Sharded):
+        return value.sharding.assemble(value)
+    return value
+
+
+# -- the collectives the model code calls directly ---------------------------
+
+def all_to_all(x: Sharded, axis_name, split_axis: int, concat_axis: int,
+               *, tiled: bool = True) -> Sharded:
+    """``lax.all_to_all(..., tiled=True)``: within every group along
+    ``axis_name`` (``n`` ranks), rank ``i`` cuts its shard into ``n``
+    blocks along ``split_axis`` and sends block ``j`` to rank ``j``; rank
+    ``j`` concatenates the blocks it receives along ``concat_axis`` in the
+    senders' order.  ``n - 1`` :func:`ppermute` rounds (round ``t``: every
+    rank to the rank ``t`` ahead), so ``n (n - 1)`` copies a group; a
+    rank's own block is not copied.  The copies carry gradients."""
+    if not tiled:
+        raise NotImplementedError("all_to_all: only the tiled form")
+    mesh = x.mesh
+    n = mesh.axis_size(axis_name)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dimension {split_axis} of {x.shape} "
+                         f"does not split {n} ways")
+    idx = mesh.axis_index(axis_name)
+    blocks = x.map(lambda t: torch.tensor_split(t, n, split_axis))
+    got = [[None] * n for _ in range(mesh.size)]
+    for r in range(mesh.size):
+        got[r][idx[r]] = blocks.shards[r][idx[r]]
+    for t in range(1, n):
+        send = Sharded(mesh, [b[(i + t) % n]
+                              for b, i in zip(blocks.shards, idx)])
+        recv = ppermute(send, axis_name, [(i, (i + t) % n) for i in range(n)])
+        for r in range(mesh.size):
+            got[r][(idx[r] - t) % n] = recv.shards[r]
+    return Sharded(mesh, [torch.cat(g, concat_axis) for g in got])
+
+
+def psum(x: Sharded, axis_name) -> Sharded:
+    """``lax.psum`` over ``axis_name`` (a name or a tuple of names): the
+    ring all-reduce of :func:`repro_torch.core.lowering.ring_allreduce`
+    (a reduce-scatter and an all-gather, as XLA lowers ``psum``), so every
+    rank ends with the same bits."""
+    from .lowering import ring_allreduce
+    return ring_allreduce(x, axis_name)
+
+
+def pmean(x: Sharded, axis_name) -> Sharded:
+    """``lax.pmean``: :func:`psum` over the axes' ranks."""
+    n = x.mesh.axis_size(axis_name)
+    return psum(x, axis_name) / n
+
+
+def all_gather(x: Sharded, axis_name, *, axis: int = 0,
+               tiled: bool = False) -> Sharded:
+    """``lax.all_gather``: every rank of a group gets every rank's shard
+    in axis-index order, stacked on a new dimension ``axis`` (``tiled``:
+    concatenated along ``axis``), over ``n - 1`` ring rounds; the dtype
+    is the shard's, so int8 codes travel as int8."""
+    from .lowering import _ring_all_gather
+    join = torch.cat if tiled else torch.stack
+    return _ring_all_gather(x, axis_name).map(lambda ch: join(ch, axis))
+
+
+__all__ = ["Mesh", "NamedSharding", "P", "Sharded", "all_gather",
+           "all_to_all", "as_device", "assemble", "axis_index", "axis_size",
+           "current_mesh", "in_mesh", "make_mesh", "per_rank", "pmean",
+           "ppermute",
+           "psum", "shard_map", "where"]

@@ -1,4 +1,5 @@
-"""The topology cost model.
+"""The topology cost model, and the small rank mesh of the tests and the
+trainer (:func:`make_host_mesh`).
 
 The :class:`Topology` cost model prices the LocalExecutor's simulated
 transfers in *time* (per-hop latency + per-byte bandwidth over a
@@ -12,6 +13,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,3 +151,23 @@ def make_topology(kind: str = "flat", n_nodes: int = 1, *,
     return Topology(kind=kind, n_nodes=n_nodes, latency_s=latency_s,
                     bandwidth_Bps=bandwidth_Bps, arity=arity,
                     flops_per_s=flops_per_s)
+
+
+def make_host_mesh(n_data: int, n_model: int = 1, device="cuda"):
+    """A small rank mesh (tests, self-tests, the trainer's
+    ``--fake-devices``): ``(n_data,)`` over ``("data",)``, or ``(n_data,
+    n_model)`` over ``("data", "model")`` when ``n_model > 1``, every rank
+    on ``device`` (the card unless the caller asks for another), as the
+    reference's fake CPU devices share one host.  Without a card ``cuda``
+    raises rather than moving to the host."""
+    from repro_torch.core.spmd import make_mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_host_mesh: no CUDA device "
+                           "(torch.cuda.is_available() is false); pass "
+                           "device='cpu' to share the host")
+    if n_model > 1:
+        return make_mesh((n_data, n_model), ("data", "model"),
+                         (dev,) * (n_data * n_model))
+    return make_mesh((n_data,), ("data",), (dev,) * n_data)

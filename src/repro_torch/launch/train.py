@@ -28,11 +28,19 @@ finished first, so the crash always follows the last save's step).  The
 parameters are restored into the model in place and the optimizer state
 replaced, so a resumed run takes the same steps as an uninterrupted one.
 
-Several devices (``--fake-devices`` of 2 or more) come with Slice 3: the
-flag raises :class:`ValueError` naming its slice.  On one device the
-reference reads neither ``--mesh-model`` nor ``--grad-sync`` (it builds a
-mesh or a manual gradient sync only when ``len(jax.devices()) > 1``), and
-neither does the port: it trains as without them.
+``--fake-devices N`` (2 or more) trains on N ranks that share the card
+(the host with ``--cpu``), as the reference's N fake CPU devices share
+one host.  ``--grad-sync tree|ring|hierarchical`` takes the explicit
+data-parallel step on a ``("data",)`` mesh of N ranks
+(:func:`repro_torch.train.step.make_manual_dp_train_step`); ``implicit``
+(the default) takes :func:`repro_torch.sharding.make_policy` of
+``make_host_mesh(N // --mesh-model, --mesh-model)`` and the policy's
+step, whose mixture-of-experts layers run per rank.  Checkpoints hold the
+global arrays either way (the manual step's placed state is assembled on
+save and placed again on resume).  With one device the reference reads
+neither ``--mesh-model`` nor ``--grad-sync`` (it builds a mesh or a
+manual gradient sync only when ``len(jax.devices()) > 1``), and neither
+does the port: it trains as without them.
 """
 
 from __future__ import annotations
@@ -72,17 +80,8 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def check_ported(args) -> None:
-    """Raise :class:`ValueError` for a flag whose feature the port does
-    not run yet, naming the slice that brings it."""
-    if args.fake_devices >= 2:
-        raise ValueError(f"--fake-devices {args.fake_devices} comes with "
-                         f"Slice 3 (multi-device, ROADMAP Queue 1)")
-
-
 def main(argv=None) -> int:
     args = parse_args(argv)
-    check_ported(args)
 
     import torch
 
@@ -91,8 +90,12 @@ def main(argv=None) -> int:
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.models import LanguageModel
     from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.runtime.supervisor import touch_heartbeat
-    from repro_torch.train.step import make_train_step
+    from repro_torch.sharding import make_policy
+    from repro_torch.train.step import (init_error_state,
+                                        make_manual_dp_train_step,
+                                        make_train_step)
 
     if not args.cpu and not torch.cuda.is_available():
         print("repro_torch.launch.train: no GPU (torch.cuda.is_available() "
@@ -115,8 +118,19 @@ def main(argv=None) -> int:
         vision_tokens=cfg.vision_tokens if cfg.frontend == "vision" else 0,
         device=dev)
     opt_state = optimizer.init(model)
-    step_fn = make_train_step(model, optimizer)
     params = dict(model.named_parameters())
+    n_dev = max(args.fake_devices, 1)
+    policy = manual_step = err = None
+    if args.grad_sync != "implicit" and n_dev > 1:
+        manual_step = make_manual_dp_train_step(
+            model, optimizer, make_host_mesh(n_dev, device=dev),
+            schedule=args.grad_sync)
+        err = init_error_state(model)
+    elif n_dev > 1:
+        policy = make_policy(make_host_mesh(
+            n_dev // args.mesh_model, args.mesh_model, device=dev))
+    step_fn = make_train_step(model, optimizer, policy) \
+        if manual_step is None else None
 
     start_step = 0
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
@@ -141,7 +155,12 @@ def main(argv=None) -> int:
                     # a few steps back would still be in flight
                     ckpt.wait()
                 os._exit(42)
-            opt_state, metrics = step_fn(opt_state, data.batch_at(step))
+            batch = data.batch_at(step)
+            if manual_step is not None:
+                opt_state, loss, err = manual_step(opt_state, batch, err)
+                metrics = {"loss": loss}
+            else:
+                opt_state, metrics = step_fn(opt_state, batch)
             if args.heartbeat:
                 touch_heartbeat(args.heartbeat)
             if ckpt and args.ckpt_every and (step + 1) % args.ckpt_every == 0:

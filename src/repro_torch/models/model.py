@@ -45,7 +45,8 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.sharding.constraints import shard_act
+from repro_torch.sharding.constraints import (current_policy, shard_act,
+                                              use_policy)
 
 from . import blocks
 from .layers import Params, dense_init, init_rmsnorm, rmsnorm
@@ -157,6 +158,14 @@ class LanguageModel(Params):
             aux = aux + a
         return x, aux
 
+    def _group_under(self, policy, group, x, memory_h, causal, chunked):
+        # the recomputation of a checkpointed group runs in the backward,
+        # on the autograd engine's thread for a card: it takes the policy
+        # the forward ran under, as the reference's remat replays the
+        # code it traced
+        with use_policy(policy):
+            return self._group(group, x, memory_h, causal, chunked)
+
     def _run_stack(self, stack, x: torch.Tensor, *, causal: bool = True,
                    memory_h=None, remat: bool = True, chunked: bool = False):
         """``(x, aux summed over the stack's blocks)``.  With ``remat`` and
@@ -168,8 +177,9 @@ class LanguageModel(Params):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for group in stack.groups:
             if remat and torch.is_grad_enabled():
-                x, a = checkpoint(self._group, group, x, memory_h, causal,
-                                  chunked, use_reentrant=False,
+                x, a = checkpoint(self._group_under, current_policy(), group,
+                                  x, memory_h, causal, chunked,
+                                  use_reentrant=False,
                                   preserve_rng_state=False)
             else:
                 x, a = self._group(group, x, memory_h, causal, chunked)

@@ -1,5 +1,5 @@
 """Mixture-of-Experts layer: sort-based token dispatch into a fixed-capacity
-(E, C, d) buffer — ``repro/models/moe.py`` in PyTorch, its local path.
+(E, C, d) buffer — ``repro/models/moe.py`` in PyTorch.
 
 Each token's router picks its top-k experts; the (token, slot) pairs are
 sorted by expert id (a *stable* sort, so within an expert the earlier
@@ -9,11 +9,17 @@ their router weights.  Capacity ``C = ceil(T k / E * capacity_factor)``
 (at least 4) for a full sequence and ``C = T`` for a decode step, so no
 token drops mid-generation.
 
-The reference's expert-parallel path (``all_to_all`` over a model axis,
-``moe_mode="ep"``) and its replicated ``shard_map`` run only under a
-sharding policy, which comes with the multi-device slice: with no policy
-the reference runs :func:`_moe_tokens_local`, as the port does (a policy
-raises in :mod:`repro_torch.sharding.constraints`).
+With no policy (or one without a model axis) the layer runs
+:func:`_moe_tokens_local` on every token.  Under a
+:class:`~repro_torch.sharding.policy.ShardingPolicy` it runs a
+``shard_map`` over the policy's rank mesh, each rank on its shard of the
+tokens (batch over the data axes, sequence over the model axis), with the
+capacity of its ``t_loc`` tokens, so a shard drops the tokens the
+reference's shard drops.  Expert parallelism (``moe_mode="ep"``, the
+experts dividing over the model axis): each rank holds ``E / n`` experts,
+and an ``all_to_all`` before the expert FFN and one after it exchange the
+token buffers; otherwise every rank holds every expert.  The balance loss
+is the ``pmean`` of the ranks'.
 
 The expert FFN is three batched products, which the reference leaves to
 XLA's ``einsum`` outside any kernel: here ``torch.bmm``.  The combine is
@@ -29,6 +35,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core import spmd
+from repro_torch.core.spmd import P
+from repro_torch.sharding.constraints import current_policy
 
 
 def init_router(generator, cfg, device) -> dict:
@@ -149,12 +159,75 @@ def _moe_tokens_local(p, x: torch.Tensor, cfg, C: int):
     return _combine(out, meta, x.shape[0]), aux
 
 
+def _moe_tokens_ep(p, x: torch.Tensor, cfg, C: int, axis: str):
+    """Expert parallel, inside ``shard_map``: ``p``'s experts are this
+    rank's ``E / n``; the token buffers go to their experts' ranks and
+    back through :func:`repro_torch.core.spmd.all_to_all`."""
+    routed = x.map(lambda xx, pp: _route(pp, xx, cfg), p)
+    aux = routed.map(lambda r: r[2])
+    disp = x.map(lambda xx, r: _dispatch(xx, r[0], r[1], cfg.n_experts, C),
+                 routed)
+    # send each expert group to its owner; receive the peers' tokens
+    buf = spmd.all_to_all(disp.map(lambda dd: dd[0]), axis, split_axis=0,
+                          concat_axis=1)                     # (E/n, n C, d)
+    out = buf.map(lambda bb, pp: _expert_ffn(pp["experts"], bb, cfg.mlp), p)
+    out = spmd.all_to_all(out, axis, split_axis=1, concat_axis=0)
+    y = out.map(lambda oo, dd, xx: _combine(oo, dd[1], xx.shape[0]), disp, x)
+    return y, aux
+
+
+def _params_tree(p) -> dict:
+    """A MoE sublayer's parameters as the reference's dict."""
+    return {"router": p["router"],
+            "experts": {k: p["experts"][k]
+                        for k in ("w_gate", "w_up", "w_down")}}
+
+
 def moe_layer(p, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, S, d) -> ((B, S, d), aux loss), with no sharding policy:
-    capacity ``T`` for a decode step (S == 1), :func:`_capacity` else."""
+    """(B, S, d) -> ((B, S, d), aux loss).  Capacity ``T`` for a decode
+    step (S == 1), :func:`_capacity` else, of the local ``T`` under a
+    policy."""
     b, s, d = x.shape
-    t = b * s
-    C = t if s == 1 else _capacity(t, cfg)
-    y, aux = _moe_tokens_local(p, x.reshape(t, d), cfg, C)
-    return y.reshape(b, s, d), aux
+    pol = current_policy()
+    if pol is None or pol.model_axis is None:
+        t = b * s
+        C = t if s == 1 else _capacity(t, cfg)
+        y, aux = _moe_tokens_local(p, x.reshape(t, d), cfg, C)
+        return y.reshape(b, s, d), aux
+
+    mesh = pol.mesh
+    dp = pol.dp_axes if pol.batch_sharded else None
+    sp = pol.model_axis if pol.seq_sharded else None
+    x_spec = P(dp, sp, None)
+    n_model = pol.model_size
+    b_loc = b // pol.dp_size if pol.batch_sharded else b
+    s_loc = s // n_model if pol.seq_sharded else s
+    t_loc = b_loc * s_loc
+    C = t_loc if s == 1 else _capacity(t_loc, cfg)
+    ep = (cfg.moe_mode == "ep" and cfg.n_experts % n_model == 0
+          and n_model > 1)
+    all_axes = tuple(mesh.axis_names)
+    tree = _params_tree(p)
+
+    if ep:
+        e_spec = {k: P(pol.model_axis, None, None) for k in tree["experts"]}
+        p_spec = {"router": P(None, None), "experts": e_spec}
+
+        def run(pp, xx):
+            y, aux = _moe_tokens_ep(spmd.per_rank(pp, mesh),
+                                    xx.map(lambda v: v.reshape(t_loc, d)),
+                                    cfg, C, pol.model_axis)
+            return (y.map(lambda v, v0: v.reshape(v0.shape), xx),
+                    spmd.pmean(aux, all_axes))
+    else:
+        p_spec = {"router": P(), "experts": {k: P() for k in tree["experts"]}}
+
+        def run(pp, xx):
+            out = xx.map(lambda v, pr: _moe_tokens_local(
+                pr, v.reshape(t_loc, d), cfg, C), spmd.per_rank(pp, mesh))
+            y = out.map(lambda o, v: o[0].reshape(v.shape), xx)
+            return y, spmd.pmean(out.map(lambda o: o[1]), all_axes)
+
+    return spmd.shard_map(run, mesh=mesh, in_specs=(p_spec, x_spec),
+                          out_specs=(x_spec, P()))(tree, x)
 

@@ -1,17 +1,22 @@
-"""Int8 block quantisation — the two quantisers of
-``repro/optim/compression.py`` in PyTorch.
+"""Gradient compression for scarce cross-pod links: int8 block
+quantisation with error feedback — ``repro/optim/compression.py`` in
+PyTorch.
 
 Block-wise symmetric int8 codes with a float32 scale per block of
-:data:`BLOCK` values, round half to even as ``jnp.round``.  The
-all-reduce that moves these codes across devices
-(:func:`compressed_allreduce`) is a collective and comes with the
-multi-device slice.
+:data:`BLOCK` values, round half to even as ``jnp.round``.
+:func:`compressed_allreduce` moves those codes across a mesh axis (inside
+``shard_map``): all-gather of the int8 codes and the float32 scales, then
+a local dequantise-and-sum, with the quantisation residual fed back into
+the next step's gradient.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core import spmd
+from repro_torch.core.spmd import Sharded
 
 BLOCK = 256
 
@@ -41,10 +46,33 @@ def dequantize_int8(codes: torch.Tensor, scale: torch.Tensor, shape,
     return flat[:n].reshape(shape).to(dtype)
 
 
-def compressed_allreduce(x, axis_name, *, error=None):
-    """The reference's int8 all-reduce with error feedback across a mesh
-    axis: a collective, which the port does not run yet."""
-    raise ValueError(
-        "compressed_allreduce is a collective across devices: it comes "
-        "with Slice 3 (multi-device, ROADMAP Queue 1); the port trains on "
-        "one device")
+def compressed_allreduce(x: Sharded, axis_name, *,
+                         error: Sharded | None = None) -> tuple:
+    """All-reduce ``x`` over ``axis_name`` moving int8 on the wire, with
+    error feedback; returns ``(mean float32, residual)``, both per rank.
+
+    Per rank: add the carried ``error``, quantise, and keep what the
+    quantisation lost as the new residual.  The int8 codes and the float32
+    scales are all-gathered (:func:`repro_torch.core.spmd.all_gather`,
+    stacked, so the copies carry int8), and each rank dequantises every
+    rank's blocks and sums them in rank order, so every rank ends with the
+    same bits."""
+    xf = x.map(lambda t: t.float())
+    if error is not None:
+        xf = xf + error
+    quant = xf.map(quantize_int8)
+    codes = quant.map(lambda q: q[0])                 # (nb, BLOCK) int8
+    scale = quant.map(lambda q: q[1])                 # (nb,) float32
+    new_error = xf.map(lambda t, q: t - dequantize_int8(q[0], q[1], t.shape),
+                       quant)
+    n = x.mesh.axis_size(axis_name)
+    all_codes = spmd.all_gather(codes, axis_name)     # (n, nb, BLOCK) int8
+    all_scales = spmd.all_gather(scale, axis_name)    # (n, nb) float32
+
+    def mean(t, c, s):
+        acc = c[0].float() * s[0][:, None]
+        for j in range(1, n):
+            acc = acc + c[j].float() * s[j][:, None]
+        return acc.reshape(-1)[:t.numel()].reshape(t.shape) / n
+
+    return xf.map(mean, all_codes, all_scales), new_error

@@ -1,5 +1,7 @@
-"""Sharding hooks for ``policy=None`` (one device); see :mod:`.constraints`."""
+"""Sharding policies and the activation hooks that read them."""
 
 from .constraints import current_policy, shard_act, shard_param_slice, use_policy
+from .policy import ShardingPolicy, make_policy
 
-__all__ = ["current_policy", "shard_act", "shard_param_slice", "use_policy"]
+__all__ = ["ShardingPolicy", "current_policy", "make_policy", "shard_act",
+           "shard_param_slice", "use_policy"]

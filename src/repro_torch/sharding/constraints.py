@@ -1,48 +1,50 @@
-"""Activation-sharding hooks of the reference (``repro/sharding/
-constraints.py``) for one device: with no policy active every hook is the
-identity, as the reference's are.
+"""Activation-sharding hooks — ``repro/sharding/constraints.py``: Bind's
+scope-guard idea at the mesh level.
 
-Model code tags activations with semantic names (``"residual"``,
-``"kv_gathered"``, ``"ffn_hidden"``) and calls these hooks; the port runs
-the LM stack (serving and training) on one card, so the only policy is
-``None``.  A sharding policy (``repro/sharding/policy.py``, the LM
-stack's last module, which the mixture of experts' expert-parallel path
-needs) comes with the multi-device slice: asking for one raises
-:class:`ValueError` until then.
+Model code never mentions a mesh; it tags activations with semantic names
+(``"residual"``, ``"kv_gathered"``, ``"ffn_hidden"``).  A
+:class:`~repro_torch.sharding.policy.ShardingPolicy` is made active for a
+block with :func:`use_policy` (thread-local, as the reference's), and the
+layers that act on it explicitly read it with :func:`current_policy`: the
+mixture of experts runs its ``shard_map`` over the policy's mesh.
+
+In the reference each tag resolves to ``with_sharding_constraint`` under a
+policy, which tells the partitioner where a value lies and never changes
+it.  The port has no partitioner: its activations stay whole on the
+mesh's first device, so :func:`shard_act` and :func:`shard_param_slice`
+return their argument with or without a policy.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 
-
-def _refuse(policy) -> None:
-    if policy is not None:
-        raise ValueError(
-            f"sharding policy {policy!r}: the port runs the LM stack on one "
-            f"device with policy=None; sharding policies "
-            f"(repro/sharding/policy.py, and with them the mixture of "
-            f"experts' expert-parallel path) come with Slice 3 "
-            f"(multi-device, ROADMAP Queue 1)")
+_TLS = threading.local()
 
 
 def current_policy():
-    """The active policy: always ``None`` in the port."""
-    return None
+    """The policy :func:`use_policy` made active on this thread, or
+    ``None``."""
+    return getattr(_TLS, "policy", None)
 
 
 @contextlib.contextmanager
 def use_policy(policy):
-    """Activate ``policy`` for the block; only ``None`` is accepted."""
-    _refuse(policy)
-    yield policy
+    """Make ``policy`` (or ``None``) the active one for the block."""
+    prev = current_policy()
+    _TLS.policy = policy
+    try:
+        yield policy
+    finally:
+        _TLS.policy = prev
 
 
 def shard_act(x, tag: str):
-    """Identity: no policy is active."""
+    """``x``: a sharding constraint places a value and never changes it."""
     return x
 
 
 def shard_param_slice(tree):
-    """Identity: no policy is active."""
+    """``tree``: as :func:`shard_act`, for a layer's parameters."""
     return tree

@@ -1,31 +1,100 @@
 """Serving step factories: prefill (full sequence, cache-building) and
-single-token decode — ``repro/train/serve.py`` for ``policy=None``.
+single-token decode — ``repro/train/serve.py`` in PyTorch.
 
 The model holds its parameters (an ``nn.Module``), so the steps take no
-``params`` argument: ``make_prefill_step(model, s_max=...)(tokens,
+``params`` argument: ``make_prefill_step(model, policy, s_max=...)(tokens,
 frames=None, pixels=None)`` (the encoder's frames of an encoder-decoder,
-the image patches of a vision model) and ``make_decode_step(model)(states,
-token, pos)``.  On one device no state
-is sharded; a sharding policy comes with the multi-device slice and
-raises :class:`ValueError` until then
-(:mod:`repro_torch.sharding.constraints`).
+the image patches of a vision model) and ``make_decode_step(model,
+policy)(states, token, pos)``.  Under a sharding policy each step runs
+inside ``use_policy``, so the mixture-of-experts layers run per rank on
+the policy's mesh.
+
+:func:`state_spec` / :func:`tree_state_shardings` are the reference's
+decode-state layout (batch over the data axes, the KV cache's sequence
+over the model axis): the specs a caller places states by
+(:class:`repro_torch.core.spmd.NamedSharding`, the checkpoint manager's
+``restore(shardings=)``); the steps themselves keep the states whole on
+the mesh's first device, where the reference's partitioner places them by
+these specs.
 """
 
 from __future__ import annotations
 
-from repro_torch.sharding.constraints import _refuse, use_policy
+from typing import Any
+
+from repro_torch.core.spmd import NamedSharding, P
+from repro_torch.sharding.constraints import use_policy
 
 
-def state_spec(policy, path_keys: tuple, shape: tuple[int, ...]) -> tuple:
-    """Sharding spec for one decode-state leaf: with ``policy=None`` every
-    dimension unsharded (``None``), as ``PartitionSpec(None, ...)``."""
-    _refuse(policy)
-    return (None,) * len(shape)
+def state_spec(policy, path_keys: tuple, shape: tuple) -> P:
+    """Sharding spec for one decode-state leaf, the reference's rule:
+    ``path_keys`` is the leaf's path (``groups`` in it marks the
+    reference's stacked groups, whose leading dimension stays whole; the
+    port's per-group leaves are given the stacked shape by
+    :func:`tree_state_shardings`).  With no policy every dimension is
+    whole."""
+    if policy is None:
+        return P(*([None] * len(shape)))
+    dp = policy.dp_axes if policy.batch_sharded else None
+    m = policy.model_axis
+    n_model = policy.model_size
+    stacked = "groups" in path_keys
+    o = 1 if stacked else 0
+    spec: list[Any] = [None] * len(shape)
+    if (dp is not None and len(shape) > o
+            and shape[o] % max(policy.dp_size, 1) == 0):
+        spec[o] = dp
+    if m is None or n_model <= 1:
+        return P(*spec)
+    last = path_keys[-1] if path_keys else ""
+    if len(shape) - o == 4 and last in ("k", "v"):
+        if policy.params_tp and shape[o + 1] % n_model == 0:
+            spec[o + 1] = m              # TP serving: heads with their
+            return P(*spec)              # head-sharded projections
+        if shape[o + 2] % n_model == 0:
+            spec[o + 2] = m              # sequence dim of the KV cache
+        return P(*spec)
+    # generic: largest trailing dim divisible by the model axis
+    cands = [d for d in range(o + 1, len(shape)) if shape[d] % n_model == 0
+             and shape[d] >= n_model]
+    if cands:
+        spec[max(cands, key=lambda d: shape[d])] = m
+    return P(*spec)
+
+
+def tree_state_shardings(policy, states):
+    """The port's decode states (``{"groups": [per-group states] or None,
+    "tail": [...]}``) mapped to :class:`NamedSharding` leaves.  A leaf of
+    group ``g`` is decided on the shape the reference stacks the groups
+    to, and loses the leading entry."""
+    n_groups = len(states.get("groups") or ())
+
+    def walk(tree, keys, stacked):
+        if isinstance(tree, dict):
+            return {k: walk(v, keys + (k,), stacked) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, keys + (i,), stacked)
+                              for i, v in enumerate(tree))
+        if tree is None:
+            return None
+        shape = tuple(tree.shape)
+        if stacked:
+            spec = P(*state_spec(policy, keys, (n_groups,) + shape)[1:])
+        else:
+            spec = state_spec(policy, keys, shape)
+        return NamedSharding(policy.mesh, spec)
+
+    out = {}
+    for key, sub in states.items():
+        if key == "groups" and sub is not None:
+            # the reference's path has no group index
+            out[key] = [walk(g, ("groups",), True) for g in sub]
+        else:
+            out[key] = walk(sub, (key,), False)
+    return out
 
 
 def make_prefill_step(model, policy=None, *, s_max: int):
-    _refuse(policy)
-
     def step(tokens, frames=None, pixels=None):
         with use_policy(policy):
             return model.prefill(tokens, s_max=s_max, frames=frames,
@@ -34,8 +103,6 @@ def make_prefill_step(model, policy=None, *, s_max: int):
 
 
 def make_decode_step(model, policy=None):
-    _refuse(policy)
-
     def step(states, token, pos):
         with use_policy(policy):
             return model.decode_step(states, token, pos)

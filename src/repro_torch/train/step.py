@@ -1,24 +1,40 @@
-"""Training step factories — ``repro/train/step.py`` for ``policy=None``.
+"""Training step factories — ``repro/train/step.py`` in PyTorch.
 
-:func:`make_train_step` is the reference's loss → grad → AdamW step on one
-device.  The model holds its parameters (an ``nn.Module``), as the serving
-steps' models do, so the step is ``step(opt_state, batch) -> (opt_state,
+:func:`make_train_step` is the reference's loss → grad → AdamW step.  The
+model holds its parameters (an ``nn.Module``), as the serving steps'
+models do, so the step is ``step(opt_state, batch) -> (opt_state,
 metrics)``: it takes the gradient of ``model.loss`` with autograd (through
 the attention backward kernel and the scan kernel on the card) and updates
 the parameters and the optimizer state in place, where the reference
-donates both to XLA (ROADMAP Queue 3).
+donates both to XLA (ROADMAP Queue 3).  Under a sharding policy the loss
+runs inside ``use_policy``, so its mixture-of-experts layers run per rank
+on the policy's mesh; what the reference's partitioner places at rest
+(parameters, optimizer state, activations) stays whole on the mesh's
+first device.
 
-The reference's other step family, :func:`make_manual_dp_train_step`
-(explicit data parallelism over a device mesh, with its error-feedback
-state ``init_error_state``), is a collective schedule: it raises
-:class:`ValueError` until the multi-device slice.
+:func:`make_manual_dp_train_step` is the reference's explicit data
+parallelism (the paper's idea on an LM): parameters replicated on every
+rank of a mesh, the batch split over ``data_axes``, each rank's gradient
+synchronised with a chosen collective schedule (the paper's binary tree,
+the ring, or the pod-aware hierarchical one), or int8-compressed with
+error feedback across the outermost axis (:func:`init_error_state`).
+It synchronises the reference's leaves: a layer's tensor joins the other
+pattern groups' tensor of the same path, stacked in group order
+(:func:`stacked_leaves`), so each collective, each schedule's choice of
+dimension and each int8 block is the reference's.
 """
 
 from __future__ import annotations
 
+import re
+
 import torch
 
-from repro_torch.sharding.constraints import _refuse, use_policy
+from repro_torch.core import lowering, spmd
+from repro_torch.core.spmd import NamedSharding, P, Sharded
+from repro_torch.optim.adamw import OptState, named
+from repro_torch.optim.compression import compressed_allreduce
+from repro_torch.sharding.constraints import use_policy
 
 
 def _dtype(dtype) -> torch.dtype | None:
@@ -40,10 +56,9 @@ def make_train_step(model, optimizer, policy=None, *, n_loss_chunks: int = 8,
     ``opt_state``, and with ``donate=False`` the step updates a copy and
     leaves the state it was given as it was.  ``grad_reduce_dtype`` casts
     the gradients before the update, as the reference does (its A3:
-    ``"bfloat16"``).  A sharding ``policy`` raises :class:`ValueError`
-    until the multi-device slice.
+    ``"bfloat16"``).  Under a sharding ``policy`` the loss runs inside
+    ``use_policy(policy)``.
     """
-    _refuse(policy)
     model.requires_grad_(True)
     params = dict(model.named_parameters())
     reduce_dtype = _dtype(grad_reduce_dtype)
@@ -75,8 +90,7 @@ def make_train_step(model, optimizer, policy=None, *, n_loss_chunks: int = 8,
 
 def make_eval_step(model, policy=None, *, n_loss_chunks: int = 8):
     """Returns ``step(batch) -> metrics``: the loss without remat and
-    without a gradient."""
-    _refuse(policy)
+    without a gradient (inside ``use_policy(policy)``)."""
 
     @torch.no_grad()
     def step(batch):
@@ -88,11 +102,166 @@ def make_eval_step(model, policy=None, *, n_loss_chunks: int = 8):
     return step
 
 
-def make_manual_dp_train_step(model, optimizer, mesh, **kwargs):
-    """The reference's explicit data-parallel step: a collective schedule
-    over a device mesh, which the port does not run yet."""
-    raise ValueError(
-        "make_manual_dp_train_step synchronises gradients across a device "
-        "mesh (tree / ring / hierarchical schedules, int8 compression): it "
-        "comes with Slice 3 (multi-device, ROADMAP Queue 1)")
+class _Loss(torch.nn.Module):
+    """``model.loss`` as a module's forward, for
+    ``torch.func.functional_call`` over a rank's replica tensors."""
 
+    def __init__(self, model, n_chunks: int):
+        super().__init__()
+        self.model = model
+        self.n_chunks = n_chunks
+
+    def forward(self, batch):
+        return self.model.loss(batch, n_chunks=self.n_chunks, remat=False)
+
+
+_GROUP = re.compile(r"^(.*?)groups\.(\d+)\.(.*)$")
+
+
+def stacked_leaves(names) -> list:
+    """The reference's parameter leaves as lists of the port's names: a
+    name under ``groups.<g>.`` joins the other groups' name of the same
+    path, in group order (the reference stacks the pattern groups on a
+    leading axis); any other name stands alone."""
+    out: dict = {}
+    for n in names:
+        m = _GROUP.match(n)
+        key = (m.group(1), m.group(3)) if m else n
+        out.setdefault(key, []).append((int(m.group(2)) if m else -1, n))
+    return [[n for _, n in sorted(v)] for v in out.values()]
+
+
+def _stack(tensors: list) -> torch.Tensor:
+    return tensors[0] if len(tensors) == 1 else torch.stack(tensors)
+
+
+def _place_replicas(model, mesh) -> dict:
+    """``{name: Sharded}``, the model's parameters replicated (spec
+    ``P()``) on every rank: rank 0's are the model's own tensors where the
+    mesh's first device is the model's, every other rank's a copy on its
+    device.  Each takes a gradient."""
+    out = {}
+    first = mesh.rank_devices[0]
+    for name, p in model.named_parameters():
+        shards = []
+        for r, dev in enumerate(mesh.rank_devices):
+            if r == 0 and p.device == first:
+                t = p
+            else:
+                t = torch.empty(p.shape, dtype=p.dtype, device=dev)
+                with torch.no_grad():
+                    t.copy_(p)
+            shards.append(t.requires_grad_(True))
+        out[name] = Sharded(mesh, shards, P())
+    return out
+
+
+def make_manual_dp_train_step(model, optimizer, mesh, *,
+                              schedule: str = "tree",
+                              data_axes: tuple = ("data",),
+                              compress_outer: bool = False,
+                              n_loss_chunks: int = 4):
+    """Explicit-DP step over ``mesh`` (a :class:`repro_torch.core.spmd.Mesh`
+    whose ranks may share a device): parameters replicated, the batch
+    split on ``data_axes``, gradients synced with ``schedule`` (``tree``,
+    ``ring``, ``hierarchical``: :func:`repro_torch.core.lowering.
+    sync_gradients`).  With ``compress_outer`` and two or more data axes,
+    the gradients are averaged over the innermost axis and then all-reduced
+    int8-compressed with error feedback over the outermost one.
+
+    Returns ``step(opt_state, batch, err) -> (opt_state, loss, err)``: the
+    reference's ``(params, opt_state, batch, err)`` step with the
+    parameters held by the model.  On the first call the step places the
+    model's parameters on every rank (rank 0 keeps the model's own
+    tensors), and ``opt_state`` (``optimizer.init(model)``) and ``err``
+    (:func:`init_error_state`) are placed on every rank
+    (:class:`~repro_torch.core.spmd.NamedSharding` ``P()``); the step
+    returns them placed, and handed back they are placed already, so each
+    rank's replica, moments and residual stay on its device between steps
+    and are updated in place.  ``loss`` is the mean over the ranks (rank
+    0's value, a tensor on the mesh's first device); ``step.params`` holds
+    the placed parameters.  Every rank runs the loss without remat, its
+    backward, and the optimizer's update on the synced gradients; every
+    schedule leaves the same bits on every rank.
+    """
+    model.requires_grad_(True)
+    names = [n for n, _ in model.named_parameters()]
+    stacks = stacked_leaves(names)
+    loss_mod = _Loss(model, n_loss_chunks)
+    whole = NamedSharding(mesh, P())
+    compress = compress_outer and len(data_axes) > 1
+
+    def unstack(stack, value: Sharded) -> dict:
+        """A stacked leaf's value per layer name, placed ``P()``."""
+        if len(stack) == 1:
+            return {stack[0]: Sharded(mesh, value.shards, P())}
+        return {n: Sharded(mesh, [t[g] for t in value.shards], P())
+                for g, n in enumerate(stack)}
+
+    def body(p, os_, b, e, count):
+        ranks = range(mesh.size)
+        losses, grads = [], [[] for _ in stacks]
+        for r in ranks:
+            mine = {f"model.{n}": p[n].shards[r] for n in names}
+            loss, _ = torch.func.functional_call(
+                loss_mod, mine, ({k: v.shards[r] for k, v in b.items()},))
+            loss.backward()
+            for i, stack in enumerate(stacks):
+                own = [p[n].shards[r] for n in stack]
+                grads[i].append(_stack([t.grad if t.grad is not None
+                                        else torch.zeros_like(t)
+                                        for t in own]))
+                for t in own:
+                    t.grad = None
+            losses.append(loss.detach())
+        grads = {i: Sharded(mesh, g) for i, g in enumerate(grads)}
+        synced, new_err = {}, {}
+        if compress:
+            inner = data_axes[-1]
+            for i, stack in enumerate(stacks):
+                g = spmd.pmean(grads[i], inner)
+                err = Sharded(mesh, [_stack([e[n].shards[r] for n in stack])
+                                     for r in ranks])
+                mean, res = compressed_allreduce(g, data_axes[0], error=err)
+                synced.update(unstack(stack, mean))
+                new_err.update(unstack(stack, res))
+        else:
+            grads = lowering.sync_gradients(grads, schedule, data_axes)
+            for i, stack in enumerate(stacks):
+                synced.update(unstack(stack, grads[i]))
+            new_err = e
+        grads = synced
+        loss = spmd.pmean(Sharded(mesh, losses), data_axes)
+        master, m, v = os_
+        for r in ranks:
+            optimizer.update(
+                {n: grads[n].shards[r] for n in names},
+                OptState({n: master[n].shards[r] for n in names},
+                         {n: m[n].shards[r] for n in names},
+                         {n: v[n].shards[r] for n in names}, count),
+                {n: p[n].shards[r] for n in names})
+        return (master, m, v), loss.shards[0], new_err
+
+    def step(opt_state, batch, err):
+        if step.params is None:
+            step.params = _place_replicas(model, mesh)
+        os_ = tuple({n: whole.place(t) for n, t in tree.items()}
+                    for tree in opt_state[:3])
+        b = {k: NamedSharding(mesh, P(tuple(data_axes),
+                                      *([None] * (x.ndim - 1)))).place(x)
+             for k, x in batch.items()}
+        e = {n: whole.place(t) for n, t in err.items()}
+        with spmd.in_mesh(mesh):
+            (master, m, v), loss, err = body(step.params, os_, b, e,
+                                             opt_state.count)
+        return OptState(master, m, v, opt_state.count + 1), loss, err
+
+    step.params = None
+    return step
+
+
+def init_error_state(params) -> dict:
+    """Zero float32 error-feedback residuals, one per parameter (a module
+    or ``{name: tensor}``), on each parameter's device."""
+    return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for n, p in named(params).items()}

@@ -388,12 +388,36 @@ def test_sharding_hooks_are_the_identity_without_a_policy():
 
 
 def test_a_sharding_policy_names_its_slice():
-    with pytest.raises(ValueError, match="Slice 3"):
-        with constraints.use_policy(object()):
-            pass
-    model = LanguageModel(configs.get("gemma_7b").reduced(), device="meta")
-    for make in (lambda: serve.make_prefill_step(model, object(), s_max=4),
-                 lambda: serve.make_decode_step(model, object()),
-                 lambda: serve.state_spec(object(), (), (1,))):
-        with pytest.raises(ValueError, match="Slice 3"):
-            make()
+    """A sharding policy is accepted where Slice 3 refused it: the context
+    holds it, ``state_spec`` gives the reference's layout, and the serving
+    steps run under it with the values they have without one (a dense
+    model: no layer reads the policy)."""
+    from repro_torch.core.spmd import Mesh, P
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import make_policy
+
+    big = make_policy(Mesh(np.full((16, 16), "meta", dtype=object),
+                           ("data", "model")))
+    with constraints.use_policy(big) as pol:
+        assert pol is big and constraints.current_policy() is big
+        x = torch.ones(3)
+        assert constraints.shard_act(x, "residual") is x
+    assert constraints.current_policy() is None
+    # the reference's own rules (tests/test_dryrun_tools.py)
+    assert serve.state_spec(big, ("groups", "b0", "k"),
+                            (2, 128, 16, 32768, 256)) == P(
+        None, ("data",), None, "model", None)
+    assert serve.state_spec(big, ("h",), (128, 4096)) == P(("data",),
+                                                           "model")
+    model = LanguageModel(configs.get("gemma_7b").reduced(),
+                          device="cpu").init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, 512, (2, 8), generator=torch.Generator()
+                           .manual_seed(1))
+    policy = make_policy(make_host_mesh(2, 2, device="cpu"))
+    want, states0 = serve.make_prefill_step(model, s_max=16)(tokens)
+    got, states = serve.make_prefill_step(model, policy, s_max=16)(tokens)
+    assert torch.equal(got, want)
+    nxt = got.argmax(-1)
+    assert torch.equal(serve.make_decode_step(model, policy)(states, nxt,
+                                                             8)[0],
+                       serve.make_decode_step(model)(states0, nxt, 8)[0])

@@ -16,8 +16,10 @@ Model level (the reduced granite-moe-3b-a800m and moonshot-v1-16b-a3b,
 reference parameters carried in, 1e-4): forward, prefill, every decode
 step, the loss with a non-zero ``aux`` and every gradient, with tokens
 dropping too; the weight carry keeps the router float32 in a bf16 model
-and every bf16 leaf bit for bit; a sharding policy raises naming Slice 3
-on the MoE path.  On the CPU no kernel is launched.
+and every bf16 leaf bit for bit; under a sharding policy the MoE path runs
+its expert-parallel ``all_to_all`` on the policy's mesh (held to the
+reference in ``tests/test_torch_policy.py``).  On the CPU no kernel is
+launched.
 """
 
 import jax
@@ -265,17 +267,33 @@ def test_bfloat16_weights_carry_bit_for_bit_with_a_float32_router():
 
 
 def test_a_sharding_policy_names_slice_3_on_the_moe_path(rng):
-    """The expert-parallel path runs only under a policy with a model
-    axis, which comes with the multi-device slice."""
-    model = LanguageModel(configs.get(MOE[1]).reduced(), device="cpu")
+    """Where Slice 3 refused a policy, the expert-parallel path runs: the
+    tokens cross the model axis in two ``all_to_all`` (no token drops at
+    the reduced capacity, so the output is the unsharded layer's), and
+    every policy-taking step builds and runs."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import make_policy
+
+    model = LanguageModel(configs.get(MOE[1]).reduced(), device="cpu").init(
+        torch.Generator().manual_seed(0))
     x = torch.from_numpy(rng.normal(size=(1, 4, 64)).astype(np.float32))
     p = model["groups"][0]["b0"]["moe"]
-    with pytest.raises(ValueError, match="Slice 3"):
-        with constraints.use_policy(object()):
-            moe.moe_layer(p, x, model.cfg)
-    for make in (lambda: make_prefill_step(model, object(), s_max=4),
-                 lambda: make_decode_step(model, object()),
-                 lambda: make_train_step(model, AdamW(), object()),
-                 lambda: make_eval_step(model, object())):
-        with pytest.raises(ValueError, match="Slice 3"):
-            make()
+    policy = make_policy(make_host_mesh(1, 4, device="cpu"))
+    want, _ = moe.moe_layer(p, x, model.cfg)
+    with constraints.use_policy(policy):
+        got, aux = moe.moe_layer(p, x, model.cfg)
+    # 2 all_to_all of 4 · 3 copies, and the ring pmean of aux (2 · 4 · 3)
+    assert policy.mesh.copies == 2 * 12 + 24
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert aux.shape == ()
+    tokens = torch.from_numpy(rng.integers(0, 512, (1, 8)))
+    batch = {"tokens": tokens, "labels": tokens}
+    logits, states = make_prefill_step(model, policy, s_max=12)(tokens)
+    make_decode_step(model, make_policy(make_host_mesh(1, 4, device="cpu"),
+                                        seq_sharded=False))(
+        states, logits.argmax(-1), 8)
+    opt = AdamW(learning_rate=1e-3)
+    _, metrics = make_train_step(model, opt, policy)(opt.init(model), batch)
+    assert np.isfinite(float(metrics["loss"]))
+    assert set(make_eval_step(model, policy)(batch)) == {"loss", "nll",
+                                                         "aux", "tokens"}

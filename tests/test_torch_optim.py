@@ -11,7 +11,8 @@ place, with the product and the sum of ``m * b1 + (1 - b1) g`` possibly
 fused: a few float32 ulps); ``grad_norm`` to 1e-6 relative (the port
 sums per-tensor norms).  ``warmup_cosine`` gives the reference's values to
 float32 rounding; ``quantize_int8`` / ``dequantize_int8`` its codes and
-scales exactly (round half to even on both sides).
+scales exactly (round half to even on both sides); ``compressed_allreduce``
+on a rank mesh gives the mean of the reference's dequantised codes.
 """
 
 import jax
@@ -222,5 +223,28 @@ def test_quantize_int8_shapes_dtypes_and_zero_blocks(rng):
 
 
 def test_compressed_allreduce_names_its_slice():
-    with pytest.raises(ValueError, match="Slice 3"):
-        compressed_allreduce(torch.zeros(4), "pod")
+    """Where Slice 3 refused it, ``compressed_allreduce`` runs on a rank
+    mesh: the mean of the ranks' dequantised codes and each rank's
+    residual, as the reference's quantisers give them (the reference's
+    collective itself: ``tests/test_torch_dp.py``)."""
+    from repro_torch.core import spmd
+
+    rng = np.random.default_rng(3)
+    xs = [rng.normal(size=(3, 100)).astype(np.float32) for _ in range(4)]
+    mesh = spmd.make_mesh((4,), ("pod",), ("cpu",) * 4)
+    x = spmd.Sharded(mesh, [torch.from_numpy(v) for v in xs])
+    with spmd.in_mesh(mesh):
+        mean, res = compressed_allreduce(x, "pod")
+    deq = []
+    for v in xs:
+        c, sc = ref_quantize(jnp.asarray(v))
+        deq.append(np.asarray(ref_dequantize(c, sc, v.shape)))
+    want = (((deq[0] + deq[1]) + deq[2]) + deq[3]) / 4
+    for r in range(4):
+        np.testing.assert_allclose(mean.shards[r].numpy(), want, rtol=0,
+                                   atol=1e-6)
+        np.testing.assert_allclose(res.shards[r].numpy(), xs[r] - deq[r],
+                                   rtol=0, atol=1e-6)
+        assert torch.equal(mean.shards[r], mean.shards[0])
+    # codes and scales each all-gathered on a ring of 4: 2 · 4 · 3 copies
+    assert mesh.copies == 24

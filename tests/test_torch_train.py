@@ -15,8 +15,9 @@ would not show it on the CPU); a 5-step ``make_train_step`` loss curve
 follows the reference's within 1e-3 (the parameters are not compared
 element by element after several steps: Adam's first step moves a
 near-zero gradient by lr times its sign); the data pipeline gives the
-reference's batches bit for bit; ``launch/train.py`` runs and refuses the
-flags that wait for Slices 3 and 4.
+reference's batches bit for bit; ``launch/train.py`` runs, on one device
+and on a rank mesh (``--fake-devices``), and the multi-device steps run
+where Slice 3 refused them.
 """
 
 import json
@@ -266,13 +267,49 @@ def test_train_step_options(rng):
 
 
 def test_multi_device_steps_name_their_slice():
-    model = LanguageModel(configs.get("gemma_7b").reduced(), device="meta")
-    with pytest.raises(ValueError, match="Slice 3"):
-        make_manual_dp_train_step(model, AdamW(), mesh=None)
-    for make in (lambda: make_train_step(model, AdamW(), object()),
-                 lambda: make_eval_step(model, object())):
-        with pytest.raises(ValueError, match="Slice 3"):
-            make()
+    """Where Slice 3 refused them, the multi-device steps run: the manual
+    data-parallel step on a rank mesh (a 2-rank tree: 2 copies a leaf,
+    the pattern groups stacked as the reference's, and the ring pmean of
+    the loss) ends with the single stream's parameters,
+    and the policy-taking train and eval steps give the policy-free values
+    on a dense model (no layer reads the policy)."""
+    from repro_torch.core.spmd import make_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import make_policy
+    from repro_torch.train.step import init_error_state, stacked_leaves
+
+    cfg = configs.get("gemma_7b").reduced()
+    data = SyntheticLMDataset(cfg.vocab_size, 16, 4, device="cpu")
+
+    def fresh():
+        return LanguageModel(cfg, device="cpu").init(
+            torch.Generator().manual_seed(0))
+
+    one, two = fresh(), fresh()
+    opt = AdamW(learning_rate=1e-3)
+    s1, s2 = opt.init(one), opt.init(two)
+    mesh = make_mesh((2,), ("data",), ("cpu",) * 2)
+    dp = make_manual_dp_train_step(two, opt, mesh, schedule="tree")
+    err = init_error_state(two)
+    single = make_train_step(one, opt)
+    for s in range(2):
+        s1, m = single(s1, data.batch_at(s))
+        s2, loss, err = dp(s2, data.batch_at(s), err)
+    n_leaves = len(stacked_leaves(dict(two.named_parameters())))
+    assert mesh.copies == 2 * (2 * n_leaves + 2 * 2 * 1)
+    for (name, a), b in zip(one.named_parameters(), two.parameters()):
+        np.testing.assert_allclose(b.detach().numpy(), a.detach().numpy(),
+                                   rtol=2e-4, atol=2e-4, err_msg=name)
+    policy = make_policy(make_host_mesh(2, 2, device="cpu"))
+    ev = make_eval_step(one, policy)(data.batch_at(0))
+    assert float(ev["loss"]) == float(make_eval_step(one)(
+        data.batch_at(0))["loss"])
+    a, b = fresh(), fresh()
+    _, ma = make_train_step(a, opt)(opt.init(a), data.batch_at(0))
+    _, mb = make_train_step(b, opt, policy)(opt.init(b), data.batch_at(0))
+    assert float(ma["loss"]) == float(mb["loss"])
+    for pa, pb in zip(a.parameters(), b.parameters()):
+        assert torch.equal(pa, pb)
 
 
 @pytest.mark.parametrize("seed, step", [(0, 0), (0, 7), (3, 2)])
@@ -334,10 +371,23 @@ def test_launch_train_refuses_without_a_gpu(monkeypatch, capsys):
 @pytest.mark.parametrize("flags, slice_", [
     (["--fake-devices", "4"], "Slice 3"),
 ])
-def test_launch_train_flags_that_wait_for_their_slice(flags, slice_):
-    with pytest.raises(ValueError, match=slice_):
-        launch_train.main(["--arch", "gemma_7b", "--reduced", "--cpu",
-                           "--steps", "1", *flags])
+def test_launch_train_flags_that_wait_for_their_slice(flags, slice_, capsys):
+    """The flag Slice 3 refused runs: 4 ranks sharing the host under the
+    policy of a (4, 1) mesh (``--grad-sync implicit``), with the one-rank
+    run's loss on a dense model (the reference's trainer under the same
+    flags: ``tests/test_torch_dp_train.py``).  The gradient norm is held
+    to 1e-6: two runs of the same flags on the host differ in its last
+    bits."""
+    base = ["--arch", "gemma_7b", "--reduced", "--cpu", "--steps", "1"]
+    assert launch_train.main([*base, *flags]) == 0
+    got = capsys.readouterr().out.splitlines()
+    assert launch_train.main(base) == 0
+    want = capsys.readouterr().out.splitlines()
+    assert got[-1] == want[-1] == "[train] done" and len(got) == len(want)
+    g, w = (json.loads(x[0][len("[train] "):]) for x in (got, want))
+    assert g.pop("grad_norm") == pytest.approx(w.pop("grad_norm"), rel=1e-6)
+    assert g == w
+    assert slice_ not in "\n".join(got)
 
 
 @pytest.mark.parametrize("flags", [
