@@ -286,8 +286,8 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    float32 serving check at 2 layers;
 8i. training the five (``[train_families]``, :func:`train_families_phase`)
    at their published widths, two layers (Seamless one encoder and one
-   decoder layer), bf16, B 1 x S 2048, remat, 3 AdamW steps: losses
-   finite, every parameter a finite non-zero gradient at step 1, the
+   decoder layer), bf16, B 1 x S 2048, remat, 3 AdamW steps (xLSTM 2):
+   losses finite, every parameter a finite non-zero gradient at step 1, the
    attention forward and backward launches by route every step, step 1's
    attention backwards (Seamless's non-causal cross-attention with Sq 2048
    over Skv 512 among them) within 2^-7 rms per head slice of
@@ -327,9 +327,21 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    policy, its copies and bytes; 8 decode steps under a policy with
    ``seq_sharded=False``; the loss's gradient at 2 layers, B 1 x S 2048,
    every expert weight a finite non-zero gradient, within 2e-2 of each
-   leaf's largest value of replicated mode's; the memory given back; then
-   ``selftest_train_dp``, ``selftest_elastic`` and ``meter_gradsync`` with
-   ``--device cuda``;
+   leaf's largest value of replicated mode's; the memory given back (the
+   prefill and decode steps there split the whole weights every call);
+   then the policy's ``make_train_step`` with parameters, masters and
+   moments at rest as per-rank shards on (2, 2) ranks: at danube's 2
+   layers held to the policy-free step (bit for bit, printed), at its
+   published 24 layers (which four DP replicas with AdamW state could not
+   hold) with its wall, model FLOP/s, busy share, peak memory and
+   resident bytes a rank; each with its copies, bytes and resident bytes
+   the closed form, 2 forward and 1 backward ``f32_simt`` launches a
+   layer a step; the Moonshot prefill again with the weights at rest
+   (the experts on the expert axis): logits bit for bit, the expert
+   splits gone, splits and copies the closed form; 8 decode steps with
+   the weights TP-sharded at rest within the bf16 limits of decode
+   without a policy; then ``selftest_train_dp``, ``selftest_elastic`` and
+   ``meter_gradsync`` with ``--device cuda``;
 9. a ``kernels`` JSON line (every ported kernel with its launches on its
    path and its times; the GEMM's accumulate and ``chain_attn`` also with
    their launches in one serving arm, ``flash_attention`` and
@@ -1851,6 +1863,10 @@ TRAIN_FAMILIES = (
     ("xlstm_350m", dict(n_layers=2), {}, {}),
 )
 TRAIN_FAM_SEQ, TRAIN_FAM_STEPS = 2048, 3
+# xLSTM's sLSTM loop is one Python step a token: two steps keep every
+# check of the phase (step 1's gradients, the launches every step) at a
+# third less of its time
+TRAIN_FAM_STEPS_OF = {"xlstm_350m": 2}
 # attention at the shapes the new families give it, timed beside its bound,
 # its plain version and SDPA (forward and backward): (B, Hq, Hkv, Sq, Skv,
 # D, causal)
@@ -2205,7 +2221,8 @@ def train_families_phase(torch, dev, card: str, zero_counts,
                          counts) -> dict:
     """``[train_families]``: train each of the five new families at its
     published widths (TRAIN_FAMILIES' depths), bf16, B 1 x S
-    TRAIN_FAM_SEQ, remat, TRAIN_FAM_STEPS AdamW steps through
+    TRAIN_FAM_SEQ, remat, TRAIN_FAM_STEPS AdamW steps (TRAIN_FAM_STEPS_OF
+    where a family takes fewer) through
     ``make_train_step``; check the losses, step 1's gradients (finite and
     non-zero for every parameter), the attention launches and backward
     launches by route every step, step 1's attention backward calls
@@ -2274,14 +2291,15 @@ def train_families_phase(torch, dev, card: str, zero_counts,
                 held["shapes"].add((causal, q.shape[2], k.shape[2]))
             return (*got, None, None, None, None)
 
-        opt = Watching(learning_rate=warmup_cosine(1e-3, 1, TRAIN_FAM_STEPS))
+        steps = TRAIN_FAM_STEPS_OF.get(arch, TRAIN_FAM_STEPS)
+        opt = Watching(learning_rate=warmup_cosine(1e-3, 1, steps))
         state = opt.init(model)
         step = make_train_step(model, opt)
         losses, walls = [], []
         fa_ops._Attention.backward = staticmethod(bwd_held)
         try:
             zero_counts()
-            for i in range(TRAIN_FAM_STEPS):
+            for i in range(steps):
                 holding[0] = i == 0
                 batch = data.batch_at(i)
                 torch.cuda.synchronize()
@@ -2309,7 +2327,6 @@ def train_families_phase(torch, dev, card: str, zero_counts,
                or first[n][1] == 0.0]
         check(not bad, f"{label}: step 1 zero, missing or non-finite "
               f"gradients {bad[:8]}")
-        steps = TRAIN_FAM_STEPS
         want = {"flash_attention": {r: n * steps for r, n in want_fwd.items()},
                 "flash_attention_bwd": {r: n * steps
                                         for r, n in want_bwd.items()}}
@@ -3047,10 +3064,19 @@ DP_KERNELS = {"flash_attention": {"f32_simt": 8},
 # update of each run is about lr whatever its gradient's size: at most every
 # step of the one against the other's)
 DP_INT8_BEYOND = 1e-6
+# Slice 3c: the policy's step with parameters, masters and moments at rest
+# as per-rank shards (flat FSDP) on (2, 2) ranks sharing the card.  The
+# activations stay whole, so each layer's attention runs once on the whole
+# batch, again in the remat recompute, and its backward once
+FSDP_MESH = (2, 2)
+FSDP_KERNELS = {"flash_attention": {"f32_simt": 2 * DP_LAYERS},
+                "flash_attention_bwd": {"f32_simt": DP_LAYERS}}
+FSDP_FULL_STEPS = 3          # h2o-danube-1.8b at its published 24 layers
 EP_ARCH, EP_LAYERS, EP_RANKS = "moonshot_v1_16b_a3b", 4, 4
 EP_BATCH, EP_PROMPT, EP_DECODE = 2, 4096, 8
 EP_KERNELS = {"bf16_wgmma": EP_LAYERS}
 EP_GRAD_LAYERS, EP_GRAD_SEQ = 2, 2048
+TP_DECODE = 8                # decode steps with the weights TP at rest
 
 
 def _params_beyond(torch, model, want: dict, rtol: float, atol: float):
@@ -3080,6 +3106,16 @@ def _flipped_moments(torch, model, m: dict, want: dict, want_m: dict,
                 flipped += int((torch.sign(m[n].shards[0][out_of])
                                 != torch.sign(want_m[n][out_of])).sum())
     return flipped
+
+
+def _clone_tree(torch, tree):
+    """A decode-state tree with every tensor copied (decode writes its
+    caches in place)."""
+    if isinstance(tree, dict):
+        return {k: _clone_tree(torch, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone_tree(torch, v) for v in tree)
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
 def _largest_share(torch, got: dict, want: dict) -> float:
@@ -3112,25 +3148,45 @@ def lm_mesh_phase(torch, dev, card: str, zero_counts, counts) -> dict:
     in ``moe_mode="replicated"`` under the same policy and timed beside a
     prefill without a policy, EP_DECODE decode steps under a policy with
     ``seq_sharded=False``, and the loss's gradient at EP_GRAD_LAYERS
-    layers against replicated mode's.  (c) the three Slice 3b self-tests
-    with ``--device cuda``.  Returns the launches by route of the last DP
-    step, an EP prefill and the EP gradient."""
+    layers against replicated mode's; the prefill and decode there run
+    under ``use_policy`` on the whole weights (split every call).  (c)
+    the three Slice 3b self-tests with ``--device cuda``.
+
+    Slice 3c, the parameters at rest as per-rank shards: (d) the policy's
+    ``make_train_step`` at (a)'s size on FSDP_MESH ranks, held to (a)'s
+    single stream (bit for bit, printed; else within 2e-4), its copies,
+    bytes and resident bytes a rank the closed forms; (e) the same at
+    h2o-danube-1.8b's published depth for FSDP_FULL_STEPS steps: losses,
+    every shard's step-1 gradient finite and non-zero, the launches by
+    route, warm wall, model FLOP/s, busy share, peak memory and resident
+    bytes; (f) (b)'s prefill through ``make_prefill_step`` under the
+    policy, the weights at rest (the experts on the expert axis): logits
+    bit for bit (b)'s, the expert splits gone, splits and copies the
+    closed forms, wall and busy share; (g) TP_DECODE decode steps under
+    ``params_tp=True``: logits within the bf16 limits of decode without
+    a policy, copies a step the closed form, ms a step.  Returns the
+    launches by route of the last DP step, the FSDP steps, an EP prefill
+    and the EP gradient, and the numbers printed."""
     import contextlib
     import dataclasses
     import importlib
     import io
 
     from repro_torch import configs
+    from repro_torch.core import spmd
     from repro_torch.core.spmd import make_mesh
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.meter_gradsync import (expected_copies,
-                                                  gradient_leaves)
+                                                  fsdp_expected_copies,
+                                                  gradient_leaves,
+                                                  moe_expected_splits,
+                                                  serving_expected_copies)
     from repro_torch.models import LanguageModel
     from repro_torch.optim import AdamW
-    from repro_torch.sharding import make_policy, use_policy
+    from repro_torch.sharding import make_policy, unplace, use_policy
     from repro_torch.train import make_prefill_step, make_decode_step
     from repro_torch.train.step import (init_error_state,
                                         make_manual_dp_train_step,
@@ -3195,6 +3251,153 @@ def lm_mesh_phase(torch, dev, card: str, zero_counts, counts) -> dict:
         return {"flash_attention": dict(fa_ops.flash_attention.routes),
                 "flash_attention_bwd": dict(fa_ops.flash_attention_bwd.routes)}
 
+    def fsdp_run(cfg, label, data, want_kernels, steps, single=None):
+        """The policy's step on FSDP_MESH ranks sharing the card, its
+        parameters, masters and moments at rest as per-rank shards: every
+        step's launches by route (no plain version), copies and bytes the
+        closed form, step 1's every shard gradient finite and non-zero,
+        the per-rank resident bytes the closed form (each leaf's global
+        elements over its distinct blocks); with ``single`` (the
+        policy-free run's ``(losses, params, first moments)``) held to it
+        bit for bit (else within the DP step's 2e-4, printed), and every
+        attention call of step 1 held to its plain version on its own
+        inputs (the single stream launches the same kernel, so the bits
+        alone would not see a fault of it).  Returns the numbers it
+        prints."""
+        model = LanguageModel(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(SEED))
+        n_params = model.param_count()
+        policy = make_policy(make_host_mesh(*FSDP_MESH, device=dev))
+        mesh = policy.mesh
+        first = {}
+
+        class Watching(AdamW):
+            def update(self, grads, state, params, **kw):
+                if state.count == 0:
+                    for name, g in grads.items():
+                        ok = (bool(torch.isfinite(g).all())
+                              and bool((g != 0).any()))
+                        first[name] = first.get(name, True) and ok
+                return super().update(grads, state, params, **kw)
+
+        opt = Watching(learning_rate=DP_LR)
+        step = make_train_step(model, opt, policy)
+        placement = model.placement
+        state = opt.init(model)
+        whole_bytes = sum(p.numel() * p.element_size()
+                          for p in model.parameters())
+        # a rank holds each leaf's global elements over its distinct
+        # blocks, and a float32 master and two moments beside each
+        want_rank = sum(
+            math.prod(v.global_shape) // len(spmd.block_ranks(mesh, v.spec))
+            * (v.shards[0].element_size() + 12)
+            for v in placement.params.values())
+        got_rank = [sum(v.shards[r].numel() * v.shards[r].element_size()
+                        for tree in (placement.params, state.master,
+                                     state.m, state.v)
+                        for v in tree.values()) for r in range(mesh.size)]
+        check(got_rank == [want_rank] * mesh.size, f"{label}: resident "
+              f"bytes a rank {got_rank}, the closed form {want_rank}")
+        replicated = sum(v.shards[0].numel() * (v.shards[0].element_size()
+                                                + 12)
+                         for v in placement.params.values() if
+                         all(e is None for e in v.spec))
+        n_copies, n_bytes = fsdp_expected_copies(
+            model, policy, tokens=DP_BATCH * DP_SEQ)
+        losses, walls = [], []
+        for name_ in plain:
+            setattr(fa_ref, name_, counting(name_))
+        try:
+            for i in range(steps):
+                batch = data.batch_at(i)
+                zero_counts()
+                for key in plain:
+                    plain[key] = 0
+                c0, b0 = mesh.copies, mesh.bytes_copied
+                hold = single is not None and i == 0
+                if hold:
+                    held.update(fwd=0, bwd=0, fwd_err=0.0, bwd_nrms=0.0,
+                                bwd_err=0.0, shapes=set())
+                    fa_ops._attend = attend_held
+                    fa_ops._Attention.backward = staticmethod(bwd_held)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    state, metrics = step(state, batch)
+                finally:
+                    fa_ops._attend = attend
+                    fa_ops._Attention.backward = backward
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                got, by_route = counts(), routes()
+                losses.append(float(metrics["loss"]))
+                if hold:
+                    n_fwd = want_kernels["flash_attention"]["f32_simt"]
+                    n_bwd = want_kernels["flash_attention_bwd"]["f32_simt"]
+                    check(held["fwd"] == n_fwd and held["bwd"] == n_bwd,
+                          f"{label}: held {held['fwd']} forward and "
+                          f"{held['bwd']} backward attention calls, "
+                          f"expected {n_fwd} and {n_bwd}")
+                    print(f"{label} step 1: every attention call held to "
+                          f"its plain version on the same inputs, "
+                          f"{held['fwd']} forward (q, k, dtype, causal, "
+                          f"window: {sorted(held['shapes'])}; max_abs_err "
+                          f"{held['fwd_err']:.3e} within rtol and atol "
+                          f"{ATTN_TOL['float32']}) and {held['bwd']} "
+                          f"backward (rms error per head slice "
+                          f"{held['bwd_nrms']:.3e} <= {BWD_F32_NRMS:.0e}, "
+                          f"max_abs_err {held['bwd_err']:.3e}) ({card})")
+                check(by_route == want_kernels, f"{label} step {i + 1}: "
+                      f"launches by route {by_route}, expected "
+                      f"{want_kernels}")
+                others = {k: v for k, v in got.items() if v and k not in
+                          want_kernels}
+                check(not others, f"{label}: unexpected launches {others}")
+                check(not any(plain.values()), f"{label}: plain versions "
+                      f"called {plain}")
+                check((mesh.copies - c0, mesh.bytes_copied - b0)
+                      == (n_copies, n_bytes),
+                      f"{label} step {i + 1}: {mesh.copies - c0} copies of "
+                      f"{mesh.bytes_copied - b0} bytes, the closed form "
+                      f"{n_copies} of {n_bytes}")
+        finally:
+            for name_, fn in originals.items():
+                setattr(fa_ref, name_, fn)
+        check(all(math.isfinite(x) for x in losses), f"{label}: losses "
+              f"{losses}")
+        bad = [n for n in placement.params if not first.get(n)]
+        check(not bad, f"{label}: step 1 shard gradients zero, missing or "
+              f"not finite {bad[:6]}")
+        out = {"losses": losses, "walls": walls, "copies": n_copies,
+               "gib": n_bytes / 2 ** 30, "rank_bytes": want_rank,
+               "replicated_bytes": replicated, "whole_bytes": whole_bytes,
+               "n_params": n_params, "routes": by_route}
+        if single is not None:
+            want_losses, want, want_m = single
+            bitwise = losses == want_losses
+            worst = 0.0
+            with torch.no_grad():
+                for n, v in placement.params.items():
+                    g = spmd.assemble(v)
+                    bitwise &= torch.equal(g, want[n])
+                    diff = (g - want[n]).abs() - 2e-4 * want[n].abs()
+                    worst = max(worst, float(diff.max()))
+                    m_n = spmd.assemble(state.m[n])
+                    bitwise &= torch.equal(m_n, want_m[n])
+                    del g, diff, m_n
+            check(bitwise or worst <= 2e-4, f"{label}: parameters "
+                  f"{worst:.3e} beyond rtol 2e-4 of the policy-free step "
+                  f"(atol 2e-4)")
+            out["bitwise"], out["worst"] = bitwise, worst
+        warm = min(walls[1:])
+        out["warm_s"] = warm
+        out["busy"] = device_profile(
+            torch, label, lambda: step(state, data.batch_at(steps)), warm,
+            {})
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        del model, step, state, metrics, placement, opt
+        return out
+
     # -- (a) explicit data parallelism ---------------------------------------
     base = memory_base(torch, dev)
     cfg = dataclasses.replace(configs.get(DP_ARCH), n_layers=DP_LAYERS,
@@ -3222,6 +3425,7 @@ def lm_mesh_phase(torch, dev, card: str, zero_counts, counts) -> dict:
         walls.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
     single_warm = min(walls[1:])
+    single_losses = list(losses)
     want = {n: p.detach() for n, p in single.named_parameters()}
     want_m = state.m
     del state, step, metrics
@@ -3355,10 +3559,72 @@ def lm_mesh_phase(torch, dev, card: str, zero_counts, counts) -> dict:
         dp_out[name] = {"warm_s": warm, "busy": busy, "copies": n_copies,
                         "gib": gib}
         del model, step, state, err, loss, got, mesh
-    del single, want, want_m
-    memory_back(torch, dev, base, f"{label} data parallel")
     out["dp_step"] = {k: dict(v) for k, v in last_routes.items()}
     out["dp"] = dp_out
+
+    # -- (d) the policy's step, parameters and AdamW state at rest -----------
+    run_label = f"{label} FSDP on {dict(zip(('data', 'model'), FSDP_MESH))}"
+    fsdp = fsdp_run(cfg, run_label, data, FSDP_KERNELS, DP_STEPS,
+                    single=(single_losses, want, want_m))
+    print(f"{run_label}: make_train_step under make_policy(make_host_mesh"
+          f"{FSDP_MESH}), parameters, masters and moments at rest as "
+          f"per-rank shards ({fsdp['rank_bytes']:,} bytes a rank, the "
+          f"closed form: a quarter of every sharded leaf, "
+          f"{fsdp['replicated_bytes']:,} of replicated small leaves, against "
+          f"{4 * fsdp['whole_bytes']:,} for the whole with AdamW state); "
+          f"losses {', '.join(f'{x:.5f}' for x in fsdp['losses'])}; bit for "
+          f"bit the policy-free step's parameters, first moments and losses: "
+          f"{fsdp['bitwise']} (largest beyond rtol 2e-4: "
+          f"{fsdp['worst']:.3e}); every shard's gradient finite and non-zero "
+          f"at step 1; a step {fsdp['copies']} copies, {fsdp['gib']:.3f} GiB "
+          f"(the closed form: each leaf gathered in the forward and again in "
+          f"the remat recompute, its gradient split once); launches a step "
+          f"{fsdp['routes']} (each layer's attention once on the whole batch "
+          f"and again in the recompute, its backward once), no plain "
+          f"version; step walls {', '.join(f'{w:.4f}' for w in fsdp['walls'])}"
+          f" s, warm {fsdp['warm_s']:.4f} s (the single stream's "
+          f"{single_warm:.4f} s); busy {fsdp['busy']:.1f}% ({card})")
+    out["fsdp_step"] = {k: dict(v) for k, v in fsdp["routes"].items()}
+    out["fsdp"] = {k: fsdp[k] for k in ("warm_s", "busy", "copies", "gib",
+                                         "rank_bytes", "bitwise")}
+    del single, want, want_m
+    memory_back(torch, dev, base, f"{label} data parallel and FSDP")
+
+    # -- (e) FSDP at full depth: what the DP replicas cannot hold ------------
+    base = memory_base(torch, dev)
+    full_cfg = dataclasses.replace(configs.get(DP_ARCH), dtype="float32")
+    run_label = (f"[lm_mesh] {full_cfg.name} full depth FSDP on "
+                 f"{dict(zip(('data', 'model'), FSDP_MESH))}")
+    n_full = full_cfg.n_layers
+    full_kernels = {"flash_attention": {"f32_simt": 2 * n_full},
+                    "flash_attention_bwd": {"f32_simt": n_full}}
+    full = fsdp_run(full_cfg, run_label, data, full_kernels, FSDP_FULL_STEPS)
+    tokens = DP_BATCH * DP_SEQ
+    flops = 6 * full["n_params"] * tokens
+    dp_need = FSDP_MESH[0] * FSDP_MESH[1] * 4 * full["whole_bytes"]
+    print(f"{run_label}: {n_full} layers at the published widths, float32, "
+          f"{full['n_params']:,} parameters in weight matrices, "
+          f"{DP_BATCH} x {DP_SEQ} tokens, {FSDP_FULL_STEPS} AdamW steps: "
+          f"losses {', '.join(f'{x:.5f}' for x in full['losses'])}; every "
+          f"shard's gradient finite and non-zero at step 1; launches a step "
+          f"{full['routes']} ({n_full} forward, {n_full} again in the remat "
+          f"recompute, {n_full} backward: the activations are whole, so each "
+          f"layer runs once a pass, not once a rank); a step "
+          f"{full['copies']} copies, {full['gib']:.3f} GiB; step walls "
+          f"{', '.join(f'{w:.4f}' for w in full['walls'])} s, warm "
+          f"{full['warm_s']:.4f} s, {flops / full['warm_s'] / 1e12:.2f} "
+          f"model TFLOP/s (6 N T / wall); busy {full['busy']:.1f}%; peak "
+          f"memory {full['peak_gb']:.2f} GB; resident "
+          f"{full['rank_bytes'] / 1e9:.3f} GB a rank of parameters, "
+          f"masters and moments "
+          f"({4 * full['rank_bytes'] / 1e9:.3f} GB on the card), against "
+          f"{dp_need / 1e9:.1f} GB for {FSDP_MESH[0] * FSDP_MESH[1]} DP "
+          f"replicas with their AdamW state ({card})")
+    out["fsdp_full_step"] = {k: dict(v) for k, v in full["routes"].items()}
+    out["fsdp_full"] = {k: full[k] for k in ("warm_s", "busy", "copies",
+                                              "gib", "rank_bytes", "peak_gb")}
+    out["fsdp_full"]["model_tflops"] = flops / full["warm_s"] / 1e12
+    memory_back(torch, dev, base, f"{run_label}")
 
     # -- (b) expert parallelism ----------------------------------------------
     base = memory_base(torch, dev)
@@ -3374,7 +3640,12 @@ def lm_mesh_phase(torch, dev, card: str, zero_counts, counts) -> dict:
     tokens = torch.randint(0, cfg.vocab_size, (EP_BATCH, EP_PROMPT),
                            generator=gen, device=dev)
     s_max = EP_PROMPT + EP_DECODE
-    prefill = make_prefill_step(model, policy, s_max=s_max)
+
+    def prefill(tokens):
+        # the split-per-call path: the whole weights under the policy, so
+        # every call splits the expert weights for its shard_map
+        with use_policy(policy):
+            return model.prefill(tokens, s_max=s_max)
 
     def timed_prefill(fn):
         torch.cuda.synchronize()
@@ -3391,12 +3662,17 @@ def lm_mesh_phase(torch, dev, card: str, zero_counts, counts) -> dict:
         for key in plain:
             plain[key] = 0
         c0, b0 = mesh.copies, mesh.bytes_copied
+        s0, sb0 = mesh.splits, mesh.bytes_split
         logits, states, t_ep = timed_prefill(prefill)
         got, by_route = counts(), routes()
     finally:
         for name_, fn in originals.items():
             setattr(fa_ref, name_, fn)
     ep_copies, ep_bytes = mesh.copies - c0, mesh.bytes_copied - b0
+    ep_splits = (mesh.splits - s0, mesh.bytes_split - sb0)
+    check(ep_splits == moe_expected_splits(model, policy, batch=EP_BATCH,
+                                           seq=EP_PROMPT, at_rest=False),
+          f"{label}: {ep_splits} splits (count, bytes) a prefill")
     check(by_route["flash_attention"] == EP_KERNELS
           and got["flash_attention"] == EP_LAYERS,
           f"{label}: launches by route {by_route}, expected {EP_KERNELS} a "
@@ -3429,12 +3705,16 @@ def lm_mesh_phase(torch, dev, card: str, zero_counts, counts) -> dict:
     plain_prefill = make_prefill_step(model, s_max=s_max)
     timed_prefill(plain_prefill)
     t_plain = timed_prefill(plain_prefill)[2]
+    ep_logits = logits.clone()
     print(f"{label}: {EP_LAYERS} of {full.n_layers} layers at the published "
           f"widths ({cfg.n_experts} experts top-{cfg.n_experts_active}, "
           f"expert d_ff {cfg.d_ff}), bf16, prefill {EP_BATCH} x {EP_PROMPT} "
           f"under make_policy(make_host_mesh(1, {n})): {cfg.n_experts // n} "
-          f"experts a rank, two all_to_all a MoE layer; {ep_copies} copies "
-          f"of {ep_bytes / 2 ** 30:.3f} GiB a prefill ({ep_bytes:,} bytes); "
+          f"experts a rank, two all_to_all a MoE layer; the whole weights "
+          f"split every call ({ep_splits[0]} splits of "
+          f"{ep_splits[1] / 2 ** 30:.3f} GiB, the closed form); {ep_copies} "
+          f"copies of {ep_bytes / 2 ** 30:.3f} GiB a prefill ({ep_bytes:,} "
+          f"bytes); "
           f"launches {by_route['flash_attention']}, no plain version; "
           f"logits within the bf16 limits of moe_mode='replicated' under "
           f"the same policy (largest error {float(err_ep.max()):.3e}; "
@@ -3444,7 +3724,11 @@ def lm_mesh_phase(torch, dev, card: str, zero_counts, counts) -> dict:
     del rep_logits, err_ep, lim, plain_prefill
     dec_policy = make_policy(make_host_mesh(1, n, device=dev),
                              seq_sharded=False)
-    decode = make_decode_step(model, dec_policy)
+    def decode(states, token, pos):
+        # split per call, as the prefill above
+        with use_policy(dec_policy):
+            return model.decode_step(states, token, pos)
+
     token = logits[:, -1].argmax(-1, keepdim=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3462,8 +3746,131 @@ def lm_mesh_phase(torch, dev, card: str, zero_counts, counts) -> dict:
     out["ep"] = {"prefill_s": t_ep, "busy": ep_busy,
                  "replicated_s": t_rep, "no_policy_s": t_plain,
                  "copies": ep_copies, "gib": ep_bytes / 2 ** 30,
+                 "splits": ep_splits[0], "split_gib": ep_splits[1] / 2 ** 30,
                  "decode_ms": t_dec / EP_DECODE * 1e3}
-    del model, prefill, decode, states, logits, token, tokens
+    del decode, states, logits, token
+
+    # -- (f) the same prefill with the experts at rest on the expert axis ----
+    rest_prefill = make_prefill_step(model, policy, s_max=s_max)
+    timed_prefill(rest_prefill)                   # cold
+    for name_ in plain:
+        setattr(fa_ref, name_, counting(name_))
+    try:
+        zero_counts()
+        for key in plain:
+            plain[key] = 0
+        c0, b0 = mesh.copies, mesh.bytes_copied
+        s0, sb0 = mesh.splits, mesh.bytes_split
+        logits, states, t_rest = timed_prefill(rest_prefill)
+        got, by_route = counts(), routes()
+    finally:
+        for name_, fn in originals.items():
+            setattr(fa_ref, name_, fn)
+    rest_copies = (mesh.copies - c0, mesh.bytes_copied - b0)
+    rest_splits = (mesh.splits - s0, mesh.bytes_split - sb0)
+    check(by_route["flash_attention"] == EP_KERNELS
+          and not {k: v for k, v in got.items()
+                   if v and k != "flash_attention"}
+          and not any(plain.values()),
+          f"{label} at rest: launches {got} by route {by_route}, plain "
+          f"{plain}")
+    check(torch.equal(logits, ep_logits), f"{label} at rest: logits differ "
+          f"from the split-per-call path's (largest "
+          f"{float((logits.float() - ep_logits.float()).abs().max())})")
+    want_splits = moe_expected_splits(model, policy, batch=EP_BATCH,
+                                      seq=EP_PROMPT, at_rest=True)
+    check(rest_splits == want_splits
+          and ep_splits[0] - rest_splits[0] == 3 * n * EP_LAYERS,
+          f"{label} at rest: {rest_splits} splits a prefill, the closed "
+          f"form {want_splits}")
+    want_copies = serving_expected_copies(model, policy,
+                                          tokens=EP_BATCH * EP_PROMPT,
+                                          decode=False)
+    check(rest_copies == want_copies, f"{label} at rest: {rest_copies} "
+          f"copies a prefill, the closed form {want_copies}")
+    rest_busy = device_profile(torch, f"{label} EP prefill at rest",
+                               lambda: rest_prefill(tokens), t_rest, {})
+    rank_gb = model.placement.rank_bytes()[0] / 1e9
+    print(f"{label}: the prefill with the weights at rest "
+          f"(make_prefill_step under the policy: flat FSDP, the experts on "
+          f"the model axis, {rank_gb:.3f} GB a rank): logits bit for bit the "
+          f"split-per-call path's; {rest_splits[0]} splits of "
+          f"{rest_splits[1] / 2 ** 30:.3f} GiB a prefill (was "
+          f"{ep_splits[0]} of {ep_splits[1] / 2 ** 30:.3f}: the "
+          f"{3 * n * EP_LAYERS} expert-weight splits gone, the closed form); "
+          f"{rest_copies[0]} copies of {rest_copies[1] / 2 ** 30:.3f} GiB "
+          f"(the closed form: the {ep_copies} of the collectives and each "
+          f"dense leaf's gather); wall {t_rest:.4f} s (busy "
+          f"{rest_busy:.1f}%) against the split-per-call path's "
+          f"{t_ep:.4f} s ({card})")
+    out["ep"].update(rest_s=t_rest, rest_busy=rest_busy,
+                     rest_splits=rest_splits[0],
+                     rest_copies=rest_copies[0],
+                     rest_gib=rest_copies[1] / 2 ** 30)
+    del ep_logits
+
+    # -- (g) decode with the weights TP-sharded at rest ----------------------
+    # the reference first: decode without a policy on the whole weights,
+    # before the TP placement exists, so no TP shard or gather reaches it
+    free_states = _clone_tree(torch, states)
+    unplace(model)
+    whole = {n: p.detach().clone() for n, p in model.named_parameters()}
+    free_decode = make_decode_step(model)
+    token = logits[:, -1].argmax(-1, keepdim=True)
+    fed, free_out = [], []
+    for t in range(TP_DECODE):
+        free_logits, free_states = free_decode(free_states, token,
+                                               EP_PROMPT + t)
+        fed.append(token)
+        free_out.append(free_logits)
+        # both take the policy-free run's next token
+        token = free_logits[:, -1].argmax(-1, keepdim=True)
+    del free_states, free_decode
+    tp_policy = make_policy(make_host_mesh(1, n, device=dev),
+                            params_tp=True, seq_sharded=False)
+    tp_decode = make_decode_step(model, tp_policy)
+    moved = [name for name, v in model.placement.params.items()
+             if not torch.equal(spmd.assemble(v), whole[name])]
+    check(not moved, f"{label} TP decode: the weights placed by _tp_spec "
+          f"do not assemble to the whole weights in {moved[:4]}")
+    del whole
+    tp_mesh = tp_policy.mesh
+    want_step = serving_expected_copies(model, tp_policy, tokens=EP_BATCH,
+                                        decode=True)
+    walls, worst = [], 0.0
+    rtol, atol = TOL["bfloat16"]
+    for t in range(TP_DECODE):
+        c0 = tp_mesh.copies
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, states = tp_decode(states, fed[t], EP_PROMPT + t)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check(tp_mesh.copies - c0 == want_step[0], f"{label} TP decode step "
+              f"{t + 1}: {tp_mesh.copies - c0} copies, the closed form "
+              f"{want_step[0]}")
+        free_logits = free_out[t]
+        err = (logits.float() - free_logits.float()).abs()
+        check(bool((err <= atol + rtol * free_logits.float().abs()).all()),
+              f"{label} TP decode step {t + 1}: beyond the bf16 limits of "
+              f"the decode without a policy (largest {float(err.max())})")
+        worst = max(worst, float(err.max()))
+    tp_ms = sorted(walls)[len(walls) // 2] * 1e3
+    tp_leaves = sum(1 for v in model.placement.params.values()
+                    if tp_policy.model_axis in v.spec)
+    print(f"{label}: {TP_DECODE} decode steps under make_policy(..., "
+          f"params_tp=True, seq_sharded=False), the weights at rest by "
+          f"_tp_spec ({tp_leaves} leaves on the model axis, assembled bit "
+          f"for bit the whole weights) and gathered at use: logits within "
+          f"the bf16 limits of decode without a policy on the whole weights, "
+          f"run before the TP placement (largest error {worst:.3e}); "
+          f"{want_step[0]} copies of "
+          f"{want_step[1] / 2 ** 30:.3f} GiB a step (the closed form); "
+          f"median {tp_ms:.3f} ms a step ({card})")
+    out["ep"].update(tp_decode_ms=tp_ms, tp_copies=want_step[0],
+                     tp_gib=want_step[1] / 2 ** 30)
+    del (model, prefill, rest_prefill, tp_decode, states, logits,
+         free_logits, free_out, fed, token, tokens, err)
     memory_back(torch, dev, base, f"{label} expert-parallel serving")
 
     base = memory_base(torch, dev)
@@ -5623,14 +6030,21 @@ def main() -> int:
     attn_row["train_ckpt"] = {k: v for k, v in train_ckpt.items()
                               if k != "supervised"}
     # the LM on rank meshes: launches by route of one explicit-DP step (4
-    # ranks), one expert-parallel Moonshot prefill and its gradient
+    # ranks), one FSDP step at 2 layers and one at full depth (the
+    # parameters at rest as shards), one expert-parallel Moonshot prefill
+    # and its gradient
     attn_row["lm_mesh"] = {
         "dp_step": lm_mesh["dp_step"]["flash_attention"],
+        "fsdp_step": lm_mesh["fsdp_step"]["flash_attention"],
+        "fsdp_full_step": lm_mesh["fsdp_full_step"]["flash_attention"],
         "ep_prefill": lm_mesh["ep_prefill"]["flash_attention"],
         "ep_grad": lm_mesh["ep_grad"]["flash_attention"],
-        "dp": lm_mesh["dp"], "ep": lm_mesh["ep"]}
+        "dp": lm_mesh["dp"], "fsdp": lm_mesh["fsdp"],
+        "fsdp_full": lm_mesh["fsdp_full"], "ep": lm_mesh["ep"]}
     bwd_row["lm_mesh"] = {
         "dp_step": lm_mesh["dp_step"]["flash_attention_bwd"],
+        "fsdp_step": lm_mesh["fsdp_step"]["flash_attention_bwd"],
+        "fsdp_full_step": lm_mesh["fsdp_full_step"]["flash_attention_bwd"],
         "ep_grad": lm_mesh["ep_grad"]["flash_attention_bwd"]}
     print(json.dumps({"kernels": kernels}))
     print(f"[time] chip_smoke.py took {time.perf_counter() - T_START:.1f} s")

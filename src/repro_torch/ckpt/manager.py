@@ -286,8 +286,8 @@ class CheckpointManager:
         """Restore step ``step`` (default: the latest) into the structure
         of ``like``; with ``shardings`` (the structure of ``like`` with a
         :class:`~repro_torch.core.spmd.NamedSharding` for each leaf) each
-        leaf is placed on its sharding's mesh, whatever mesh saved it.
-        Returns ``(tree, extra)``."""
+        tensor leaf is placed on its sharding's mesh, whatever mesh saved
+        it (a number stays a number).  Returns ``(tree, extra)``."""
         self.wait()
         self._gc_tmp()
         step = self.latest_step() if step is None else step
@@ -313,7 +313,11 @@ class CheckpointManager:
                 raise ValueError(f"shape mismatch {tuple(stored.shape)} vs "
                                  f"{tuple(shape)}")
             leaf = _like(stored, ref)
-            out.append(leaf if place is None else place.place(leaf))
+            # a number (the optimizer's count) is the same on every rank:
+            # its replicated sharding leaves it as it is
+            out.append(leaf if place is None
+                       or not isinstance(leaf, torch.Tensor)
+                       else place.place(leaf))
         return unflatten(like, out), manifest["extra"]
 
     def load_leaf(self, step: int, i: int):

@@ -74,8 +74,11 @@ class Mesh:
 
     ``devices`` is a nested sequence (or array) of devices or device
     strings whose shape is the mesh's; a device may repeat.  The mesh
-    counts what :func:`ppermute` copies onto it (``copies``,
-    ``bytes_copied``).
+    counts what :func:`ppermute` and :func:`gather` copy onto it
+    (``copies``, ``bytes_copied``), and apart from those the blocks a
+    split by spec allocates (``splits``, ``bytes_split``: what
+    :func:`shard_map` and :meth:`NamedSharding.place` cut from a global
+    tensor).
     """
 
     def __init__(self, devices, axis_names):
@@ -95,6 +98,8 @@ class Mesh:
         self.size = grid.size
         self.copies = 0
         self.bytes_copied = 0
+        self.splits = 0
+        self.bytes_split = 0
         self._groups: dict = {}
         self._index: dict = {}
         self._coords = np.indices(grid.shape).reshape(grid.ndim, -1)
@@ -148,6 +153,18 @@ class Mesh:
         self.copies += 1
         self.bytes_copied += tensor.numel() * tensor.element_size()
         return out
+
+    def copy_into(self, out: torch.Tensor, tensor: torch.Tensor, *,
+                  add: bool = False) -> None:
+        """``tensor`` copied (``add``: added) into the view ``out``, which
+        lies on another rank's device (or the same card), counted as one
+        copy."""
+        if add:
+            out.add_(tensor)
+        else:
+            out.copy_(tensor)
+        self.copies += 1
+        self.bytes_copied += tensor.numel() * tensor.element_size()
 
 
 def make_mesh(axis_shapes, axis_names, devices) -> Mesh:
@@ -348,9 +365,10 @@ def _spec_slices(mesh: Mesh, spec: P, shape, rank: int) -> tuple:
 
 def _split(mesh: Mesh, spec: P, value) -> Sharded:
     """``value`` split by ``spec``: a new allocation per rank on its
-    device (not a :func:`ppermute`, so not counted).  A value already
-    placed on ``mesh`` under ``spec`` passes through as it is; one placed
-    otherwise is assembled and split again."""
+    device (not a :func:`ppermute`: counted in ``mesh.splits``, not in
+    ``mesh.copies``).  A value already placed on ``mesh`` under ``spec``
+    passes through as it is; one placed otherwise is assembled and split
+    again."""
     if isinstance(value, Sharded):
         if value.mesh is mesh and value.spec == spec:
             return value
@@ -360,30 +378,44 @@ def _split(mesh: Mesh, spec: P, value) -> Sharded:
         block = value[_spec_slices(mesh, spec, value.shape, r)]
         shard = torch.empty(block.shape, dtype=block.dtype, device=dev)
         shards.append(shard.copy_(block))
+        mesh.splits += 1
+        mesh.bytes_split += block.numel() * block.element_size()
     return Sharded(mesh, shards, spec)
 
 
-def _assemble(mesh: Mesh, spec: P, value: Sharded) -> torch.Tensor:
-    """The global tensor whose blocks are ``value``'s shards; along axes
-    ``spec`` does not name, the shard at index 0 (the value is taken to be
-    replicated there, as ``check_vma=False`` takes it)."""
+def block_ranks(mesh: Mesh, spec: P) -> list:
+    """The ranks that hold the distinct blocks of a value placed under
+    ``spec``: those at index 0 along every axis the spec leaves unnamed
+    (the others hold replicas of their blocks)."""
     named = set()
     for entry in spec:
         if entry is not None:
             named.update(entry if isinstance(entry, tuple) else (entry,))
-    local = value.shape
-    shape = list(local)
+    unnamed = [d for d, ax in enumerate(mesh.axis_names) if ax not in named]
+    return [r for r in range(mesh.size)
+            if not any(mesh._coords[d][r] for d in unnamed)]
+
+
+def _assemble(mesh: Mesh, spec: P, value: Sharded, *,
+              counted: bool = False) -> torch.Tensor:
+    """The global tensor whose blocks are ``value``'s shards; along axes
+    ``spec`` does not name, the shard at index 0 (the value is taken to be
+    replicated there, as ``check_vma=False`` takes it).  ``counted``: each
+    block's copy counts in ``mesh.copies``."""
+    shape = list(value.shape)
     for dim, entry in enumerate(spec):
         if entry is not None:
             shape[dim] *= mesh.axis_size(entry)
     out = torch.empty(shape, dtype=value.dtype, device=mesh.rank_devices[0])
-    unnamed = [d for d, ax in enumerate(mesh.axis_names) if ax not in named]
-    for r, shard in enumerate(value.shards):
-        if any(mesh._coords[d][r] for d in unnamed):
-            continue
+    for r in block_ranks(mesh, spec):
+        shard = value.shards[r]
         if shard is None:
             raise RuntimeError(f"shard_map: rank {r} has no output")
-        out[_spec_slices(mesh, spec, shape, r)].copy_(shard)
+        view = out[_spec_slices(mesh, spec, shape, r)]
+        if counted:
+            mesh.copy_into(view, shard)
+        else:
+            view.copy_(shard)
     return out
 
 
@@ -457,6 +489,11 @@ class NamedSharding:
         """The global tensor of a value placed by this sharding."""
         return _assemble(self.mesh, self.spec, value)
 
+    def index(self, shape, rank: int) -> tuple:
+        """The slices of ``rank``'s block of a global ``shape`` (one
+        entry of ``jax.sharding.Sharding.devices_indices_map``)."""
+        return _spec_slices(self.mesh, self.spec, tuple(shape), rank)
+
 
 def assemble(value):
     """The global tensor of a placed :class:`Sharded` (anything else as it
@@ -465,6 +502,12 @@ def assemble(value):
     if isinstance(value, Sharded):
         return value.sharding.assemble(value)
     return value
+
+
+def gather(value: Sharded) -> torch.Tensor:
+    """:func:`assemble` with each distinct block's copy counted in
+    ``mesh.copies`` (:func:`block_ranks`: one copy a block)."""
+    return _assemble(value.mesh, value.sharding.spec, value, counted=True)
 
 
 # -- the collectives the model code calls directly ---------------------------
@@ -527,6 +570,7 @@ def all_gather(x: Sharded, axis_name, *, axis: int = 0,
 
 __all__ = ["Mesh", "NamedSharding", "P", "Sharded", "all_gather",
            "all_to_all", "as_device", "assemble", "axis_index", "axis_size",
-           "current_mesh", "in_mesh", "make_mesh", "per_rank", "pmean",
+           "block_ranks", "current_mesh", "gather", "in_mesh", "make_mesh",
+           "per_rank", "pmean",
            "ppermute",
            "psum", "shard_map", "where"]

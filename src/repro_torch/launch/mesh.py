@@ -153,11 +153,17 @@ def make_topology(kind: str = "flat", n_nodes: int = 1, *,
                     flops_per_s=flops_per_s)
 
 
-def make_host_mesh(n_data: int, n_model: int = 1, device="cuda"):
+def make_host_mesh(n_data: int | None = None, n_model: int = 1,
+                   device="cuda"):
     """A small rank mesh (tests, self-tests, the trainer's
     ``--fake-devices``): ``(n_data,)`` over ``("data",)``, or ``(n_data,
-    n_model)`` over ``("data", "model")`` when ``n_model > 1``, every rank
-    on ``device`` (the card unless the caller asks for another), as the
+    n_model)`` over ``("data", "model")`` when ``n_model > 1``.
+
+    Without ``n_data`` the mesh takes every device of ``device``'s type,
+    one rank each, as the reference's takes ``len(jax.devices())``:
+    ``torch.cuda.device_count() // n_model`` cards, or the one host.
+    With ``n_data`` every rank lies on ``device`` (the card unless the
+    caller asks for another), so ranks may repeat a device, as the
     reference's fake CPU devices share one host.  Without a card ``cuda``
     raises rather than moving to the host."""
     from repro_torch.core.spmd import make_mesh
@@ -167,7 +173,16 @@ def make_host_mesh(n_data: int, n_model: int = 1, device="cuda"):
         raise RuntimeError("make_host_mesh: no CUDA device "
                            "(torch.cuda.is_available() is false); pass "
                            "device='cpu' to share the host")
+    if n_data is None:
+        n = torch.cuda.device_count() if dev.type == "cuda" else 1
+        n_data = n // n_model
+        if n_data < 1:
+            raise ValueError(f"make_host_mesh: {n} {dev.type} device(s) "
+                             f"cannot hold a model axis of {n_model}")
+        devices = ([torch.device("cuda", i) for i in range(n_data * n_model)]
+                   if dev.type == "cuda" else [dev])
+    else:
+        devices = [dev] * (n_data * n_model)
     if n_model > 1:
-        return make_mesh((n_data, n_model), ("data", "model"),
-                         (dev,) * (n_data * n_model))
-    return make_mesh((n_data,), ("data",), (dev,) * n_data)
+        return make_mesh((n_data, n_model), ("data", "model"), devices)
+    return make_mesh((n_data,), ("data",), devices)

@@ -35,9 +35,12 @@ data-parallel step on a ``("data",)`` mesh of N ranks
 (:func:`repro_torch.train.step.make_manual_dp_train_step`); ``implicit``
 (the default) takes :func:`repro_torch.sharding.make_policy` of
 ``make_host_mesh(N // --mesh-model, --mesh-model)`` and the policy's
-step, whose mixture-of-experts layers run per rank.  Checkpoints hold the
-global arrays either way (the manual step's placed state is assembled on
-save and placed again on resume).  With one device the reference reads
+step: the parameters, the AdamW masters and both moments rest as per-rank
+shards (flat FSDP, the experts on the model axis), each layer group's
+weights are gathered whole as it runs, the activations stay whole on the
+first rank's device, and the mixture-of-experts layers run per rank.
+Checkpoints hold the global arrays either way (placed state is assembled
+on save and placed again on resume).  With one device the reference reads
 neither ``--mesh-model`` nor ``--grad-sync`` (it builds a mesh or a
 manual gradient sync only when ``len(jax.devices()) > 1``), and neither
 does the port: it trains as without them.
@@ -69,7 +72,11 @@ def parse_args(argv=None):
     ap.add_argument("--resume", choices=("auto", "never"), default="auto")
     ap.add_argument("--heartbeat", default=None)
     ap.add_argument("--log-file", default=None)
-    ap.add_argument("--fake-devices", type=int, default=0)
+    ap.add_argument("--fake-devices", type=int, default=0,
+                    help="N ranks sharing the card (the host with --cpu); "
+                         "under --grad-sync implicit the parameters and "
+                         "the optimizer state rest as per-rank shards, the "
+                         "activations whole on the first rank")
     ap.add_argument("--mesh-model", type=int, default=1,
                     help="model-axis size when fake devices are used")
     ap.add_argument("--grad-sync", default="implicit",
@@ -117,8 +124,6 @@ def main(argv=None) -> int:
         d_model=cfg.d_model if (cfg.encoder_layers or cfg.frontend) else 0,
         vision_tokens=cfg.vision_tokens if cfg.frontend == "vision" else 0,
         device=dev)
-    opt_state = optimizer.init(model)
-    params = dict(model.named_parameters())
     n_dev = max(args.fake_devices, 1)
     policy = manual_step = err = None
     if args.grad_sync != "implicit" and n_dev > 1:
@@ -131,14 +136,27 @@ def main(argv=None) -> int:
             n_dev // args.mesh_model, args.mesh_model, device=dev))
     step_fn = make_train_step(model, optimizer, policy) \
         if manual_step is None else None
+    # under a policy the model is placed now: its state is placed with it
+    opt_state = optimizer.init(model)
+    placement = model.placement
+    params = (placement.params if placement is not None
+              else dict(model.named_parameters()))
 
     start_step = 0
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     if ckpt and args.resume == "auto" and ckpt.latest_step() is not None:
-        (saved, opt_state), extra = ckpt.restore((params, opt_state))
-        with torch.no_grad():
-            for name, p in params.items():
-                p.copy_(saved[name])
+        if placement is not None:
+            sh = placement.shardings
+            (saved, opt_state), extra = ckpt.restore(
+                (params, opt_state),
+                shardings=(sh, type(opt_state)(sh, sh, sh,
+                                               policy.replicated())))
+            placement.load(saved)
+        else:
+            (saved, opt_state), extra = ckpt.restore((params, opt_state))
+            with torch.no_grad():
+                for name, p in params.items():
+                    p.copy_(saved[name])
         del saved
         start_step = int(extra["step"]) + 1
         print(f"[train] resumed from step {start_step - 1}", flush=True)

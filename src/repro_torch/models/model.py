@@ -35,10 +35,18 @@ Both run under ``torch.no_grad()``.  States are nested like the
 reference's, with the groups as a list: ``{"groups": [{"b0": state, ...},
 ...] or None, "tail": [...]}``, a decoder block's state a ``{"self",
 "cross"}`` pair in an encoder-decoder.
+
+A model placed at rest under a sharding policy
+(:func:`repro_torch.sharding.placement.place_model`, ``model.placement``)
+holds ``meta`` placeholders: every pass gathers the embedding, final norm
+and head for its length, and each pattern group's (or tail block's)
+weights just before the group runs, inside the checkpointed group under
+remat.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -47,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.sharding.constraints import (current_policy, shard_act,
                                               use_policy)
+from repro_torch.sharding.placement import placement_of
 
 from . import blocks
 from .layers import Params, dense_init, init_rmsnorm, rmsnorm
@@ -99,6 +108,7 @@ class LanguageModel(Params):
         super().__init__(init, device)
         self.cfg = cfg
         self.dtype = dt
+        self.placement = None
         self.groups, self.tail = _stack(cfg, dt, device, cfg.n_layers,
                                         cross=cfg.encoder_layers > 0)
         if cfg.encoder_layers:
@@ -109,7 +119,29 @@ class LanguageModel(Params):
 
     @property
     def device(self) -> torch.device:
+        placement = placement_of(self)
+        if placement is not None:
+            return placement.device
         return self._parameters["emb"].device
+
+    def _gathered(self, module, *, recurse: bool = True):
+        """Within the block, a placed model's ``module`` holds its
+        gathered parameters (:meth:`repro_torch.sharding.placement.
+        Placement.installed`); a model holding them whole runs as it
+        is."""
+        placement = placement_of(self)
+        if placement is None:
+            return contextlib.nullcontext()
+        return placement.installed(module, recurse=recurse)
+
+    def _own(self):
+        """The embedding, final norm and head (and an encoder's final
+        norm) gathered for the block."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(self._gathered(self, recurse=False))
+        if self.cfg.encoder_layers:
+            stack.enter_context(self._gathered(self.enc, recurse=False))
+        return stack
 
     def init(self, generator: torch.Generator) -> "LanguageModel":
         """Draw every parameter from ``generator`` (on the model's
@@ -151,18 +183,20 @@ class LanguageModel(Params):
     def _group(self, group: nn.ModuleDict, x: torch.Tensor, memory_h,
                causal: bool, chunked: bool):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i, kind in enumerate(self.cfg.block_pattern):
-            x, a = blocks.apply_block(group[f"b{i}"], x, kind, self.cfg,
-                                      causal=causal, memory_h=memory_h,
-                                      chunked=chunked)
-            aux = aux + a
+        with self._gathered(group):
+            for i, kind in enumerate(self.cfg.block_pattern):
+                x, a = blocks.apply_block(group[f"b{i}"], x, kind, self.cfg,
+                                          causal=causal, memory_h=memory_h,
+                                          chunked=chunked)
+                aux = aux + a
         return x, aux
 
     def _group_under(self, policy, group, x, memory_h, causal, chunked):
         # the recomputation of a checkpointed group runs in the backward,
         # on the autograd engine's thread for a card: it takes the policy
         # the forward ran under, as the reference's remat replays the
-        # code it traced
+        # code it traced (and, on a placed model, gathers the group's
+        # weights again)
         with use_policy(policy):
             return self._group(group, x, memory_h, causal, chunked)
 
@@ -186,9 +220,10 @@ class LanguageModel(Params):
             aux = aux + a
         pattern = self.cfg.block_pattern
         for i, blk in enumerate(stack.tail):
-            x, a = blocks.apply_block(blk, x, pattern[i], self.cfg,
-                                      causal=causal, memory_h=memory_h,
-                                      chunked=chunked)
+            with self._gathered(blk):
+                x, a = blocks.apply_block(blk, x, pattern[i], self.cfg,
+                                          causal=causal, memory_h=memory_h,
+                                          chunked=chunked)
             aux = aux + a
         return x, aux
 
@@ -208,13 +243,14 @@ class LanguageModel(Params):
         reference's ``forward``.  ``frames``: the encoder's input
         embeddings (encoder-decoder); ``pixels``: patch embeddings
         prepended to the tokens (vision), so S counts them."""
-        memory_h = None
-        if self.cfg.encoder_layers:
-            memory_h = self._encode(frames, remat=remat)
-        x = self.embed(tokens, pixels)
-        x, aux = self._run_stack(self, x, causal=True, memory_h=memory_h,
-                                 remat=remat)
-        return rmsnorm(x, self["ln_f"], self.cfg.norm_eps), aux
+        with self._own():
+            memory_h = None
+            if self.cfg.encoder_layers:
+                memory_h = self._encode(frames, remat=remat)
+            x = self.embed(tokens, pixels)
+            x, aux = self._run_stack(self, x, causal=True,
+                                     memory_h=memory_h, remat=remat)
+            return rmsnorm(x, self["ln_f"], self.cfg.norm_eps), aux
 
     def forward(self, tokens: torch.Tensor, *, frames=None, pixels=None,
                 remat: bool = True) -> torch.Tensor:
@@ -228,8 +264,10 @@ class LanguageModel(Params):
                                    remat=remat)[0]
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        head = self["emb"].T if self.cfg.tie_embeddings else self["lm_head"]
-        return hidden @ head
+        with self._own():
+            head = (self["emb"].T if self.cfg.tie_embeddings
+                    else self["lm_head"])
+            return hidden @ head
 
     # ------------------------------------------------------------------
     # loss
@@ -247,15 +285,16 @@ class LanguageModel(Params):
         and ignored, as it is there."""
         del n_chunks
         pixels = batch.get("pixels")
-        hidden, aux = self.hidden_and_aux(
-            batch["tokens"], frames=batch.get("frames"), pixels=pixels,
-            remat=remat)
+        with self._own():
+            hidden, aux = self.hidden_and_aux(
+                batch["tokens"], frames=batch.get("frames"), pixels=pixels,
+                remat=remat)
+            logits = self.logits(hidden).float()
         labels = batch["labels"]
         if pixels is not None:
             pad = torch.full(pixels.shape[:2], -1, dtype=labels.dtype,
                              device=labels.device)
             labels = torch.cat([pad, labels], dim=1)
-        logits = self.logits(hidden).float()
         mask = labels >= 0
         y_safe = torch.where(mask, labels, 0).long()
         logz = torch.logsumexp(logits, dim=-1)
@@ -298,26 +337,30 @@ class LanguageModel(Params):
         is the reference's, in the encoder too."""
         cfg = self.cfg
         pattern = cfg.block_pattern
-        memory_h = None
-        if cfg.encoder_layers:
-            memory_h = self._encode(frames, remat=False, chunked=True)
-        x = self.embed(tokens, pixels)
-        states = {"groups": [] if cfg.n_groups else None, "tail": []}
-        kw = dict(memory_h=memory_h, return_state=True, s_max=s_max,
-                  chunked=True)
-        for group in self.groups:
-            st = {}
-            for i, kind in enumerate(pattern):
-                x, _, st[f"b{i}"] = blocks.apply_block(
-                    group[f"b{i}"], x, kind, cfg, **kw)
-            states["groups"].append(st)
-        for i, blk in enumerate(self.tail):
-            x, _, st = blocks.apply_block(blk, x, pattern[i], cfg, **kw)
-            states["tail"].append(st)
-        # the norm is per position: normalising the last one alone gives
-        # the reference's values without the full (B, S, d) pass
-        x = rmsnorm(x[:, -1:, :], self["ln_f"], cfg.norm_eps)
-        return self.logits(x), states
+        with self._own():
+            memory_h = None
+            if cfg.encoder_layers:
+                memory_h = self._encode(frames, remat=False, chunked=True)
+            x = self.embed(tokens, pixels)
+            states = {"groups": [] if cfg.n_groups else None, "tail": []}
+            kw = dict(memory_h=memory_h, return_state=True, s_max=s_max,
+                      chunked=True)
+            for group in self.groups:
+                st = {}
+                with self._gathered(group):
+                    for i, kind in enumerate(pattern):
+                        x, _, st[f"b{i}"] = blocks.apply_block(
+                            group[f"b{i}"], x, kind, cfg, **kw)
+                states["groups"].append(st)
+            for i, blk in enumerate(self.tail):
+                with self._gathered(blk):
+                    x, _, st = blocks.apply_block(blk, x, pattern[i], cfg,
+                                                  **kw)
+                states["tail"].append(st)
+            # the norm is per position: normalising the last one alone
+            # gives the reference's values without the full (B, S, d) pass
+            x = rmsnorm(x[:, -1:, :], self["ln_f"], cfg.norm_eps)
+            return self.logits(x), states
 
     @torch.no_grad()
     def decode_step(self, states: dict, token: torch.Tensor, pos: int):
@@ -325,20 +368,23 @@ class LanguageModel(Params):
         (logits (B, 1, V), states); the KV caches are written in place."""
         cfg = self.cfg
         pattern = cfg.block_pattern
-        x = self["emb"][token]
-        if cfg.emb_scale:
-            x = x * math.sqrt(cfg.d_model)
-        new_groups = [] if states.get("groups") is not None else None
-        for group, st in zip(self.groups, states.get("groups") or ()):
-            new_st = {}
-            for i, kind in enumerate(pattern):
-                x, new_st[f"b{i}"] = blocks.apply_block_decode(
-                    group[f"b{i}"], x, st[f"b{i}"], kind, pos, cfg)
-            new_groups.append(new_st)
-        new_tail = []
-        for i, blk in enumerate(self.tail):
-            x, s2 = blocks.apply_block_decode(blk, x, states["tail"][i],
-                                              pattern[i], pos, cfg)
-            new_tail.append(s2)
-        x = rmsnorm(x, self["ln_f"], cfg.norm_eps)
-        return self.logits(x), {"groups": new_groups, "tail": new_tail}
+        with self._own():
+            x = self["emb"][token]
+            if cfg.emb_scale:
+                x = x * math.sqrt(cfg.d_model)
+            new_groups = [] if states.get("groups") is not None else None
+            for group, st in zip(self.groups, states.get("groups") or ()):
+                new_st = {}
+                with self._gathered(group):
+                    for i, kind in enumerate(pattern):
+                        x, new_st[f"b{i}"] = blocks.apply_block_decode(
+                            group[f"b{i}"], x, st[f"b{i}"], kind, pos, cfg)
+                new_groups.append(new_st)
+            new_tail = []
+            for i, blk in enumerate(self.tail):
+                with self._gathered(blk):
+                    x, s2 = blocks.apply_block_decode(
+                        blk, x, states["tail"][i], pattern[i], pos, cfg)
+                new_tail.append(s2)
+            x = rmsnorm(x, self["ln_f"], cfg.norm_eps)
+            return self.logits(x), {"groups": new_groups, "tail": new_tail}

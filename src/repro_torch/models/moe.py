@@ -21,6 +21,12 @@ and an ``all_to_all`` before the expert FFN and one after it exchange the
 token buffers; otherwise every rank holds every expert.  The balance loss
 is the ``pmean`` of the ranks'.
 
+On a model placed at rest (:mod:`repro_torch.sharding.placement`) the
+expert weights stay placed by their leaf spec, the expert dim on the model
+axis: expert parallelism takes them on its in-spec without a split (a
+gather over the other axes where the spec names one of more than one
+rank), every other path gathers them whole.
+
 The expert FFN is three batched products, which the reference leaves to
 XLA's ``einsum`` outside any kernel: here ``torch.bmm``.  The combine is
 deterministic: the reference's ``.at[token_idx].add`` would be a
@@ -39,6 +45,7 @@ import torch.nn.functional as F
 from repro_torch.core import spmd
 from repro_torch.core.spmd import P
 from repro_torch.sharding.constraints import current_policy
+from repro_torch.sharding.placement import Resting
 
 
 def init_router(generator, cfg, device) -> dict:
@@ -176,11 +183,29 @@ def _moe_tokens_ep(p, x: torch.Tensor, cfg, C: int, axis: str):
     return y, aux
 
 
-def _params_tree(p) -> dict:
-    """A MoE sublayer's parameters as the reference's dict."""
+def _params_tree(p, spec=None, mesh=None) -> dict:
+    """A MoE sublayer's parameters as the reference's dict.  Expert
+    weights at rest (:class:`~repro_torch.sharding.placement.Resting`, a
+    placed model's) are taken on ``spec`` over ``mesh`` (expert
+    parallelism: the placement at rest itself where it has the same
+    blocks), else gathered whole."""
+    def take(w):
+        if not isinstance(w, Resting):
+            return w
+        return w.whole() if spec is None else w.on(spec, mesh)
+
     return {"router": p["router"],
-            "experts": {k: p["experts"][k]
+            "experts": {k: take(p["experts"][k])
                         for k in ("w_gate", "w_up", "w_down")}}
+
+
+def uses_ep(cfg, policy) -> bool:
+    """Whether the layer runs expert-parallel under ``policy``: experts
+    split evenly over a model axis of more than one rank."""
+    if policy is None or policy.model_axis is None:
+        return False
+    n = policy.model_size
+    return cfg.moe_mode == "ep" and cfg.n_experts % n == 0 and n > 1
 
 
 def moe_layer(p, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
@@ -192,7 +217,7 @@ def moe_layer(p, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     if pol is None or pol.model_axis is None:
         t = b * s
         C = t if s == 1 else _capacity(t, cfg)
-        y, aux = _moe_tokens_local(p, x.reshape(t, d), cfg, C)
+        y, aux = _moe_tokens_local(_params_tree(p), x.reshape(t, d), cfg, C)
         return y.reshape(b, s, d), aux
 
     mesh = pol.mesh
@@ -204,13 +229,15 @@ def moe_layer(p, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     s_loc = s // n_model if pol.seq_sharded else s
     t_loc = b_loc * s_loc
     C = t_loc if s == 1 else _capacity(t_loc, cfg)
-    ep = (cfg.moe_mode == "ep" and cfg.n_experts % n_model == 0
-          and n_model > 1)
+    ep = uses_ep(cfg, pol)
     all_axes = tuple(mesh.axis_names)
-    tree = _params_tree(p)
+    e_one = P(pol.model_axis, None, None)
 
     if ep:
-        e_spec = {k: P(pol.model_axis, None, None) for k in tree["experts"]}
+        # experts at rest are taken on the in-spec: shard_map passes a
+        # value placed under it through without a split
+        tree = _params_tree(p, e_one, mesh)
+        e_spec = {k: e_one for k in tree["experts"]}
         p_spec = {"router": P(None, None), "experts": e_spec}
 
         def run(pp, xx):
@@ -220,6 +247,7 @@ def moe_layer(p, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
             return (y.map(lambda v, v0: v.reshape(v0.shape), xx),
                     spmd.pmean(aux, all_axes))
     else:
+        tree = _params_tree(p)
         p_spec = {"router": P(), "experts": {k: P() for k in tree["experts"]}}
 
         def run(pp, xx):

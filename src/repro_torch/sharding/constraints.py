@@ -10,9 +10,14 @@ mixture of experts runs its ``shard_map`` over the policy's mesh.
 
 In the reference each tag resolves to ``with_sharding_constraint`` under a
 policy, which tells the partitioner where a value lies and never changes
-it.  The port has no partitioner: its activations stay whole on the
-mesh's first device, so :func:`shard_act` and :func:`shard_param_slice`
-return their argument with or without a policy.
+it.  The port has no partitioner.  What rests as per-rank shards under a
+policy is the parameters and the AdamW state
+(:mod:`repro_torch.sharding.placement`, placed by the policy's train,
+prefill and decode steps, each group's weights gathered whole as it
+runs); the activations and the decode states stay whole on the mesh's
+first device, since the ranks share one card and a split would only cut
+every op into per-rank launches.  So :func:`shard_act` and
+:func:`shard_param_slice` return their argument with or without a policy.
 """
 
 from __future__ import annotations

@@ -7,15 +7,24 @@ frames=None, pixels=None)`` (the encoder's frames of an encoder-decoder,
 the image patches of a vision model) and ``make_decode_step(model,
 policy)(states, token, pos)``.  Under a sharding policy each step runs
 inside ``use_policy``, so the mixture-of-experts layers run per rank on
-the policy's mesh.
+the policy's mesh, and the model's parameters rest as per-rank shards by
+``policy.tree_param_shardings``, as the reference's ``lower_prefill`` /
+``lower_decode`` pin them (:mod:`repro_torch.sharding.placement`):
+flat FSDP, or under ``params_tp`` the decode weights TP-sharded over the
+model axis (``ShardingPolicy._tp_spec``).  The activations stay whole, so
+each group's weights are gathered whole as the group runs, TP shards
+included: where the reference's column- and row-parallel products move
+no weight bytes, the port moves each group's weights once a step.  A
+model rests by one placement: a step under a policy that would place it
+otherwise raises when it is built (the caller unplaces it first), and a
+step without a policy runs the model as it rests.
 
 :func:`state_spec` / :func:`tree_state_shardings` are the reference's
 decode-state layout (batch over the data axes, the KV cache's sequence
 over the model axis): the specs a caller places states by
 (:class:`repro_torch.core.spmd.NamedSharding`, the checkpoint manager's
 ``restore(shardings=)``); the steps themselves keep the states whole on
-the mesh's first device, where the reference's partitioner places them by
-these specs.
+the mesh's first device, as they keep the activations.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from typing import Any
 
 from repro_torch.core.spmd import NamedSharding, P
 from repro_torch.sharding.constraints import use_policy
+from repro_torch.sharding.placement import check_placement, place_model
 
 
 def state_spec(policy, path_keys: tuple, shape: tuple) -> P:
@@ -94,8 +104,23 @@ def tree_state_shardings(policy, states):
     return out
 
 
+def _placed_by(model, policy):
+    """The placement a step under ``policy`` runs on (``None`` without a
+    policy): an unplaced model is placed by it now, one placed otherwise
+    raises (:func:`repro_torch.sharding.placement.place_model`)."""
+    return None if policy is None else place_model(model, policy)
+
+
 def make_prefill_step(model, policy=None, *, s_max: int):
+    """The prefill under ``policy``, on the model placed at rest by it
+    (:func:`_placed_by`; the step raises if the model is placed again
+    later).  Without a policy the model runs as it rests: a placed
+    model's groups are gathered whole at use."""
+    placement = _placed_by(model, policy)
+
     def step(tokens, frames=None, pixels=None):
+        if policy is not None:
+            check_placement(model, placement)
         with use_policy(policy):
             return model.prefill(tokens, s_max=s_max, frames=frames,
                                  pixels=pixels)
@@ -103,7 +128,13 @@ def make_prefill_step(model, policy=None, *, s_max: int):
 
 
 def make_decode_step(model, policy=None):
+    """A decode step under ``policy``, placed as :func:`make_prefill_step`
+    places; without a policy the model runs as it rests."""
+    placement = _placed_by(model, policy)
+
     def step(states, token, pos):
+        if policy is not None:
+            check_placement(model, placement)
         with use_policy(policy):
             return model.decode_step(states, token, pos)
     return step

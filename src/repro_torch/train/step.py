@@ -6,11 +6,20 @@ models do, so the step is ``step(opt_state, batch) -> (opt_state,
 metrics)``: it takes the gradient of ``model.loss`` with autograd (through
 the attention backward kernel and the scan kernel on the card) and updates
 the parameters and the optimizer state in place, where the reference
-donates both to XLA (ROADMAP Queue 3).  Under a sharding policy the loss
-runs inside ``use_policy``, so its mixture-of-experts layers run per rank
-on the policy's mesh; what the reference's partitioner places at rest
-(parameters, optimizer state, activations) stays whole on the mesh's
-first device.
+donates both to XLA (ROADMAP Queue 3).  Under a sharding policy the step
+places what the reference's ``jit_with`` pins at rest: the parameters,
+the float32 masters and both moments as per-rank shards by
+``policy.tree_param_shardings`` (flat FSDP over ``("data", "model")``,
+expert weights on the model axis; :mod:`repro_torch.sharding.placement`),
+the count replicated.  Each layer group's weights are gathered whole just
+before the group runs (again in the backward's recompute under remat),
+the gradients reach the shards through the gather's backward (cast to
+``grad_reduce_dtype``, then split: the reduce-scatter of the reference's
+§Perf A1), and AdamW updates each rank's shards in place.  Activations
+stay whole on the mesh's first device: the ranks share one card, where a
+sequence or batch split would only cut every op into per-rank launches.
+The loss runs inside ``use_policy``, so its mixture-of-experts layers run
+per rank on the policy's mesh.
 
 :func:`make_manual_dp_train_step` is the reference's explicit data
 parallelism (the paper's idea on an LM): parameters replicated on every
@@ -35,6 +44,8 @@ from repro_torch.core.spmd import NamedSharding, P, Sharded
 from repro_torch.optim.adamw import OptState, named
 from repro_torch.optim.compression import compressed_allreduce
 from repro_torch.sharding.constraints import use_policy
+from repro_torch.sharding.placement import (check_placement, place_model,
+                                            placement_of)
 
 
 def _dtype(dtype) -> torch.dtype | None:
@@ -56,14 +67,34 @@ def make_train_step(model, optimizer, policy=None, *, n_loss_chunks: int = 8,
     ``opt_state``, and with ``donate=False`` the step updates a copy and
     leaves the state it was given as it was.  ``grad_reduce_dtype`` casts
     the gradients before the update, as the reference does (its A3:
-    ``"bfloat16"``).  Under a sharding ``policy`` the loss runs inside
-    ``use_policy(policy)``.
+    ``"bfloat16"``).
+
+    Under a sharding ``policy`` an unplaced model is placed at rest now
+    (:func:`repro_torch.sharding.placement.place_model`; one placed
+    otherwise already raises, it is never placed again behind the
+    caller's back), the loss runs inside ``use_policy(policy)``, and the
+    step places ``opt_state``'s masters and moments by the parameters'
+    shardings (a state placed so already, as :meth:`AdamW.init` of the
+    placed model gives it and the step returns it, is kept as it is).  A
+    model placed already is trained on its shards with or without a
+    policy.  Each leaf's gradient norm is taken on its whole gradient
+    before the split, so the global norm, and with it every update, has
+    the policy-free step's bits on a dense model.  The step raises if the
+    model was placed or unplaced after it was built.
     """
     model.requires_grad_(True)
-    params = dict(model.named_parameters())
     reduce_dtype = _dtype(grad_reduce_dtype)
+    if policy is not None:
+        place_model(model, policy)
+    placement = placement_of(model)
+    if placement is not None:
+        return _placed_train_step(model, optimizer, policy, placement,
+                                  n_loss_chunks=n_loss_chunks, remat=remat,
+                                  donate=donate, reduce_dtype=reduce_dtype)
+    params = dict(model.named_parameters())
 
     def step(opt_state, batch):
+        check_placement(model, None)
         for p in params.values():
             p.grad = None
         with use_policy(policy):
@@ -88,9 +119,56 @@ def make_train_step(model, optimizer, policy=None, *, n_loss_chunks: int = 8,
     return step
 
 
+def _placed_train_step(model, optimizer, policy, placement, *, n_loss_chunks,
+                       remat, donate, reduce_dtype):
+    """:func:`make_train_step` on a placed model: the gradients reach the
+    shards through the gathers' backward, and AdamW runs rank by rank on
+    each rank's shards with the global norm of the whole gradients."""
+    placement.requires_grad_(True)
+    placement.grad_dtype = reduce_dtype
+    mesh = placement.mesh
+    params = placement.params
+
+    def placed(tree, copy: bool) -> dict:
+        out = {n: placement.shardings[n].place(t) for n, t in tree.items()}
+        if copy:
+            out = {n: Sharded(mesh, [t.clone() for t in v.shards], v.spec)
+                   for n, v in out.items()}
+        return out
+
+    def step(opt_state, batch):
+        check_placement(model, placement)
+        master, m, v = (placed(tree, not donate) for tree in opt_state[:3])
+        placement.zero_grad()
+        with use_policy(policy):
+            loss, metrics = model.loss(batch, n_chunks=n_loss_chunks,
+                                       remat=remat)
+        loss.backward()
+        gnorm = torch.linalg.vector_norm(torch.stack(placement.grad_norms()))
+        for r in range(mesh.size):
+            own = {n: value.shards[r] for n, value in params.items()}
+            grads = {n: t.grad if t.grad is not None else torch.zeros_like(t)
+                     for n, t in own.items()}
+            _, _, opt_metrics = optimizer.update(
+                grads, OptState({n: t.shards[r] for n, t in master.items()},
+                                {n: t.shards[r] for n, t in m.items()},
+                                {n: t.shards[r] for n, t in v.items()},
+                                opt_state.count), own, grad_norm=gnorm)
+            del grads
+        placement.zero_grad()
+        metrics = {k: val.detach() for k, val in metrics.items()}
+        metrics.update(loss=loss.detach(), **opt_metrics)
+        return OptState(master, m, v, opt_state.count + 1), metrics
+
+    return step
+
+
 def make_eval_step(model, policy=None, *, n_loss_chunks: int = 8):
     """Returns ``step(batch) -> metrics``: the loss without remat and
-    without a gradient (inside ``use_policy(policy)``)."""
+    without a gradient (inside ``use_policy(policy)``; a placed model
+    gathers each group's weights as it runs, as the train step's forward
+    does).  The reference's eval step pins no placement, and neither does
+    this one."""
 
     @torch.no_grad()
     def step(batch):

@@ -272,8 +272,10 @@ def test_multi_device_steps_name_their_slice():
     the pattern groups stacked as the reference's, and the ring pmean of
     the loss) ends with the single stream's parameters,
     and the policy-taking train and eval steps give the policy-free values
-    on a dense model (no layer reads the policy)."""
-    from repro_torch.core.spmd import make_mesh
+    on a dense model (no layer reads the policy); the policy's step keeps
+    the parameters as per-rank shards at rest, so they are compared
+    assembled (``spmd.assemble``), bit for bit."""
+    from repro_torch.core.spmd import assemble, make_mesh
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.sharding import make_policy
     from repro_torch.train.step import init_error_state, stacked_leaves
@@ -308,8 +310,10 @@ def test_multi_device_steps_name_their_slice():
     _, ma = make_train_step(a, opt)(opt.init(a), data.batch_at(0))
     _, mb = make_train_step(b, opt, policy)(opt.init(b), data.batch_at(0))
     assert float(ma["loss"]) == float(mb["loss"])
-    for pa, pb in zip(a.parameters(), b.parameters()):
-        assert torch.equal(pa, pb)
+    placed = b.placement.params
+    for (name, pa), nb in zip(a.named_parameters(), placed):
+        assert name == nb
+        assert torch.equal(pa, assemble(placed[name])), name
 
 
 @pytest.mark.parametrize("seed, step", [(0, 0), (0, 7), (3, 2)])
