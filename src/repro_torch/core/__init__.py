@@ -22,7 +22,7 @@ or the interpreter, with fault injection and lineage recovery.
 
 from .trace import BindArray, In, InOut, Out, OpNode, Workflow, current_workflow, op
 from .placement import NodeSet, node, nodes, placement_rank, placement_ranks
-from .versioning import Ref, Version
+from .versioning import Ref, Version, VersionStore
 from .collectives import (
     InferredCollective,
     TreeSchedule,
@@ -76,7 +76,7 @@ from .recovery import (
 __all__ = [
     "BindArray", "In", "InOut", "Out", "OpNode", "Workflow", "current_workflow",
     "op", "NodeSet", "node", "nodes", "placement_rank", "placement_ranks",
-    "Ref", "Version", "InferredCollective", "TreeSchedule",
+    "Ref", "Version", "VersionStore", "InferredCollective", "TreeSchedule",
     "allreduce_tree", "broadcast_tree", "infer_broadcasts", "infer_reductions",
     "reduce_tree", "ExecutionStats", "LatencyStats", "LocalExecutor",
     "TransferEvent", "ChainSlice", "ExecutionPlan", "PLAN_CACHE_STATS",

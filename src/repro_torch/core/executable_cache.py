@@ -329,3 +329,11 @@ class ExecutableCache:
 
 # Process-wide cache: signatures are shared across executors and workflows.
 EXEC_CACHE = ExecutableCache()
+
+
+def process_local_cache() -> ExecutableCache:
+    """The calling process's executable cache: :data:`EXEC_CACHE`.  In a
+    ``procs`` worker the module is imported afresh, so its process-wide
+    instance is that worker's own cache, filled on first replay and kept
+    for the worker's lifetime."""
+    return EXEC_CACHE

@@ -20,6 +20,8 @@ import dataclasses
 import itertools
 from typing import Any
 
+import torch
+
 # Global monotone id streams.  Determinism matters: the paper requires every
 # process to reconstruct the *identical* DAG from the same sequential trace,
 # so ids must be a pure function of trace order (no randomness, no id()).
@@ -117,3 +119,59 @@ def reset_ids() -> None:
     global _REF_IDS
     _REF_IDS = itertools.count()
 
+
+
+class VersionStore:
+    """Payload storage for versions, with refcount-based reclamation.
+
+    Mirrors the paper's note that multi-versioning costs memory proportional
+    to the exposed parallelism, "with smart memory reusage to mitigate the
+    overhead when possible": once every consumer of a version has executed,
+    its payload is dropped (unless it is a live head the user may still
+    read).  Payloads are kept as given (tensors on their device, NumPy
+    arrays on the host); :attr:`live_bytes` counts a tensor's
+    ``numel × element_size`` and a NumPy array's ``nbytes``.
+    """
+
+    def __init__(self):
+        self._data: dict[tuple[int, int], Any] = {}
+        self._pending_readers: dict[tuple[int, int], int] = {}
+        self._pinned: set[tuple[int, int]] = set()
+        self.peak_live = 0
+
+    def put(self, version: Version, value: Any) -> None:
+        self._data[version.key] = value
+        self.peak_live = max(self.peak_live, len(self._data))
+
+    def get(self, version: Version) -> Any:
+        return self._data[version.key]
+
+    def has(self, version: Version) -> bool:
+        return version.key in self._data
+
+    def pin(self, version: Version) -> None:
+        """Prevent reclamation (live heads visible to user code)."""
+        self._pinned.add(version.key)
+
+    def add_reader(self, version: Version, n: int = 1) -> None:
+        k = version.key
+        self._pending_readers[k] = self._pending_readers.get(k, 0) + n
+
+    def release_reader(self, version: Version) -> None:
+        k = version.key
+        left = self._pending_readers.get(k, 0) - 1
+        self._pending_readers[k] = left
+        if left <= 0 and k not in self._pinned and k in self._data:
+            del self._data[k]
+
+    @property
+    def live_bytes(self) -> int:
+        total = 0
+        for v in self._data.values():
+            if isinstance(v, torch.Tensor):
+                total += v.numel() * v.element_size()
+                continue
+            nbytes = getattr(v, "nbytes", None)
+            if nbytes is not None:
+                total += int(nbytes)
+        return total

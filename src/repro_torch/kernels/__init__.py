@@ -14,7 +14,9 @@ may be called from the thread-pool backend's workers, so every increment
 goes through :func:`count_launch`, which holds one lock.  A tensor op
 body that computes its reference expression instead of launching its
 kernel counts that call in ``calls`` on the body function
-(:func:`count_body`), so a run can show that no op took that path.
+(:func:`count_body`), so a run can show that no op took that path.  A
+call on ``meta`` tensors launches nothing and adds the operations it
+stands for to ``meta_flops`` on its entry point (:func:`count_meta`).
 """
 
 from __future__ import annotations
@@ -34,6 +36,14 @@ def count_launch(wrapper, route: str | None = None) -> None:
         wrapper.launches += 1
         if route is not None:
             wrapper.routes[route] = wrapper.routes.get(route, 0) + 1
+
+
+def count_meta(wrapper, flops: int) -> None:
+    """Add ``flops`` to ``wrapper.meta_flops``: the operations a call on
+    ``meta`` tensors (a dry run, which launches nothing) stands for
+    (thread-safe)."""
+    with _LAUNCH_LOCK:
+        wrapper.meta_flops += flops
 
 
 def count_body(body) -> None:

@@ -8,7 +8,10 @@ exactly as the reference's wrapper does (``repro/kernels/flash_attention/
 ops.py``), runs the kernel (:mod:`.kernel`) on CUDA tensors or the oracle on
 the padded inputs (:func:`.ref.attention`) on CPU tensors, and only there,
 and slices back to Sq; a strided view is copied into a row-major one
-first.  The padding keeps a quirk of the reference: padded
+first.  On ``meta`` tensors (a dry run) the forward and the backward
+launch nothing: they return empty ``meta`` outputs of the kernel's shapes
+and dtypes and add the call's operations (:func:`attention_flops`) to
+``flash_attention.meta_flops`` / ``flash_attention_bwd.meta_flops``.  The padding keeps a quirk of the reference: padded
 keys are zeros that only the causal mask hides, so non-causal windowed
 attention over a ragged Skv attends to them (ROADMAP Queue 3); non-causal
 unwindowed attention refuses to pad.  ``backend="plain"`` asks for the
@@ -64,11 +67,14 @@ import torch.nn.functional as F
 from repro_torch.compat import jax_matmul, jax_operands
 from repro_torch.core.trace import In, InOut
 
-from .. import count_body, count_launch, row_major
+from .. import count_body, count_launch, count_meta, row_major
 from . import kernel, ref
 
 DTYPES = tuple(kernel.SUFFIX)
 BACKENDS = ("cuda", "plain")
+# the card launches the kernel, the host computes its plain version, meta
+# tensors (a dry run) get their shapes and operations counted
+DEVICES = ("cpu", "cuda", "meta")
 # the routes, in the order of the Route enum of csrc/flash_attention.cu
 ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f32_3xtf32", "f16_simt")
 # the backward's routes, in the order of the Route enum of
@@ -118,8 +124,29 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"{hq} query heads over {k.shape[1]} kv heads")
     if d > kernel.MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} > {kernel.MAX_HEAD_DIM}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in DEVICES:
         raise ValueError(f"unsupported device {q.device}")
+
+
+def visible_pairs(sq: int, skv: int, *, causal: bool, window) -> int:
+    """The (query row, key) pairs :func:`.ref.mask` lets through: the
+    score products a call's kernel computes for each (batch, query
+    head)."""
+    r = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(r, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(r - window + 1, 0) if window is not None else 0
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def attention_flops(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+                    window, backward: bool = False) -> int:
+    """The operations of one call on ``q`` (B, Hq, Sq, D) over ``k``, as
+    ``chip_smoke.py``'s bounds count them: ``4 B Hq D`` a visible pair for
+    the forward (two products), ``10 B Hq D`` for the backward (five)."""
+    b, hq, sq, d = q.shape
+    per = 10 if backward else 4
+    return per * b * hq * d * visible_pairs(sq, k.shape[2], causal=causal,
+                                            window=window)
 
 
 def pad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
@@ -179,6 +206,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.routes = {}
+flash_attention.meta_flops = 0
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -194,6 +222,15 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      scale=scale)
         return ref.attention(q, k, v, causal=causal, window=window,
                              scale=scale), None
+    if q.device.type == "meta":
+        # a dry run: the shapes the kernel's route would give, nothing
+        # launched, its operations counted
+        count_meta(flash_attention, attention_flops(
+            q, k, causal=causal, window=window))
+        rows = (torch.empty(q.shape[:3], dtype=torch.float32, device="meta")
+                if lse and route(q.dtype, q.shape[3]) == "bf16_wgmma"
+                else None)
+        return torch.empty_like(q), rows
     out = torch.empty_like(q)
     rows = None
     if out.numel():
@@ -326,6 +363,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.attention_grad(q, k, v, dout, causal=causal,
                                   window=window, scale=scale)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.device.type == "meta":
+        count_meta(flash_attention_bwd, attention_flops(
+            q, k, causal=causal, window=window, backward=True))
+        return dq, dk, dv
     if q.numel() and k.numel():
         taken = _bwd_route_taken(q.dtype, q.shape[3], addresses)
         kernel.launch_bwd(q, k, v, out, dout, dq, dk, dv, causal=causal,
@@ -340,6 +381,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.routes = {}
+flash_attention_bwd.meta_flops = 0
 
 
 _ONE_LEVEL = ("single",) * 4

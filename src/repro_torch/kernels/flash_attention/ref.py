@@ -58,6 +58,18 @@ def _attention(q, k, v, *, causal, window, scale, with_lse: bool):
     scale = d ** -0.5 if scale is None else scale
     seen = mask(sq, skv, causal=causal, window=window, device=q.device)
     any_seen = seen.any(dim=-1, keepdim=True)
+    if q.device.type == "meta":
+        # shapes only (a dry run): no score matrix to bound, so every
+        # (batch, head) in one product: the same products, as many
+        # operations as the loop below
+        kk = k.float().repeat_interleave(group, dim=1)
+        s = torch.matmul(q.float(), kk.transpose(-1, -2)) * scale
+        s = torch.where(seen, s, NEG_INF)
+        p = torch.where(any_seen, torch.softmax(s, dim=-1), 0.0)
+        out = torch.matmul(p, v.float().repeat_interleave(group, dim=1))
+        lse = (torch.where(any_seen[:, 0], torch.logsumexp(s, dim=-1),
+                           float("inf")) if with_lse else None)
+        return out.to(q.dtype), lse
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)

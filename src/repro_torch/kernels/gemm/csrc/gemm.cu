@@ -29,10 +29,18 @@
 // accumulator type before one rounding: matmul_accumulate (c + a@b) is one
 // launch.
 //
+// Every route writes the accumulator, rounded once, in the output type
+// its caller asks for (matmul's out_dtype: float32, bfloat16, float64 or
+// float16 for any of the four input types; c, when given, is of the
+// output type).  The output type does not choose the route; with the
+// input's own type as output each route runs the same code as the chain
+// kernel's (gemm_routes.cuh).
+//
 // C interface (bound with ctypes): every entry point takes device pointers,
-// the sizes and a cudaStream_t, launches on that stream without
-// synchronising, and returns cudaGetLastError() (0 on success).  c may be
-// NULL.  bind_gemm_route says which route a problem takes.
+// the sizes, the output type's code and a cudaStream_t, launches on that
+// stream without synchronising, and returns cudaGetLastError() (0 on
+// success).  c may be NULL.  bind_gemm_route says which route a problem
+// takes.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -46,71 +54,88 @@ namespace {
 
 using namespace bind_gemm;
 
-template <typename T>
+template <typename T, typename O>
 __global__ void __launch_bounds__(SIMT_THREADS)
-gemm_simt_kernel(const Problem<T> p) {
+gemm_simt_kernel(const Problem<T, O> p) {
   extern __shared__ __align__(16) unsigned char simt_smem[];
-  simt_tile<T>(p, simt_smem);
+  simt_tile<T, O>(p, simt_smem);
 }
 
+template <typename O>
 __global__ void __launch_bounds__(WG_THREADS)
 gemm_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
                   const __grid_constant__ CUtensorMap tb,
-                  const Problem<__nv_bfloat16> p) {
+                  const Problem<__nv_bfloat16, O> p) {
   extern __shared__ __align__(1024) unsigned char wg_smem[];
-  wgmma_tile(&ta, &tb, p, wg_smem);
+  wgmma_tile<O>(&ta, &tb, p, wg_smem);
 }
 
+template <typename O>
 __global__ void __launch_bounds__(DM_THREADS)
-gemm_dmma_kernel(const Problem<double> p) {
+gemm_dmma_kernel(const Problem<double, O> p) {
   extern __shared__ __align__(16) unsigned char dm_smem[];
-  dmma_tile(p, dm_smem);
-}
-
-template <typename T>
-Problem<T> problem(const void* a, const void* b, const void* c, void* out,
-                   int64_t M, int64_t N, int64_t K) {
-  return Problem<T>{static_cast<const T*>(a), 0, static_cast<const T*>(b), 0,
-                    static_cast<const T*>(c), static_cast<T*>(out), M, N, K,
-                    1};
+  dmma_tile<O>(p, dm_smem);
 }
 
 // float64 has no CUDA-core route: no simt kernel is instantiated for it
-template <typename T>
+template <typename T, typename O>
 int run(const void* a, const void* b, const void* c, void* out, int64_t M,
         int64_t N, int64_t K, void* stream) {
-  const Problem<T> p = problem<T>(a, b, c, out, M, N, K);
+  const Problem<T, O> p{static_cast<const T*>(a), 0,
+                        static_cast<const T*>(b), 0,
+                        static_cast<const O*>(c), static_cast<O*>(out),
+                        M, N, K, 1};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if constexpr (std::is_same_v<T, double>)
-    return static_cast<int>(
-        launch(p, st, nullptr, gemm_wgmma_kernel, gemm_dmma_kernel));
+    return static_cast<int>(launch(p, st, nullptr, gemm_wgmma_kernel<O>,
+                                   gemm_dmma_kernel<O>));
   else
-    return static_cast<int>(launch(p, st, gemm_simt_kernel<T>,
-                                   gemm_wgmma_kernel, gemm_dmma_kernel));
+    return static_cast<int>(launch(p, st, gemm_simt_kernel<T, O>,
+                                   gemm_wgmma_kernel<O>,
+                                   gemm_dmma_kernel<O>));
+}
+
+// run<T, O> for the output-type code out_dtype (the element-type codes of
+// bind_gemm_route); cudaErrorInvalidValue for another code
+template <typename T>
+int run_to(int out_dtype, const void* a, const void* b, const void* c,
+           void* out, int64_t M, int64_t N, int64_t K, void* stream) {
+  switch (out_dtype) {
+    case 0: return run<T, float>(a, b, c, out, M, N, K, stream);
+    case 1: return run<T, __nv_bfloat16>(a, b, c, out, M, N, K, stream);
+    case 2: return run<T, double>(a, b, c, out, M, N, K, stream);
+    case 3: return run<T, __half>(a, b, c, out, M, N, K, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
+// out (of the type out_dtype names) = a @ b (+ c, of out's type)
 int bind_gemm_f32(const void* a, const void* b, const void* c, void* out,
-                  int64_t M, int64_t N, int64_t K, void* stream) {
-  return run<float>(a, b, c, out, M, N, K, stream);
+                  int64_t M, int64_t N, int64_t K, int out_dtype,
+                  void* stream) {
+  return run_to<float>(out_dtype, a, b, c, out, M, N, K, stream);
 }
 
 int bind_gemm_bf16(const void* a, const void* b, const void* c, void* out,
-                   int64_t M, int64_t N, int64_t K, void* stream) {
-  return run<__nv_bfloat16>(a, b, c, out, M, N, K, stream);
+                   int64_t M, int64_t N, int64_t K, int out_dtype,
+                   void* stream) {
+  return run_to<__nv_bfloat16>(out_dtype, a, b, c, out, M, N, K, stream);
 }
 
 int bind_gemm_f64(const void* a, const void* b, const void* c, void* out,
-                  int64_t M, int64_t N, int64_t K, void* stream) {
-  return run<double>(a, b, c, out, M, N, K, stream);
+                  int64_t M, int64_t N, int64_t K, int out_dtype,
+                  void* stream) {
+  return run_to<double>(out_dtype, a, b, c, out, M, N, K, stream);
 }
 
 int bind_gemm_f16(const void* a, const void* b, const void* c, void* out,
-                  int64_t M, int64_t N, int64_t K, void* stream) {
-  return run<__half>(a, b, c, out, M, N, K, stream);
+                  int64_t M, int64_t N, int64_t K, int out_dtype,
+                  void* stream) {
+  return run_to<__half>(out_dtype, a, b, c, out, M, N, K, stream);
 }
 
 // The route (bind_gemm::Route) a problem of element type dtype (0:

@@ -85,7 +85,8 @@ __device__ __forceinline__ void dmma(double (&d)[4],
 
 // The f64 route.  All DM_THREADS threads call it, with DM_SMEM bytes of
 // dynamic shared memory at ``smem``.
-__device__ __forceinline__ void dmma_tile(const Problem<double>& p,
+template <typename O = double>
+__device__ __forceinline__ void dmma_tile(const Problem<double, O>& p,
                                           unsigned char* smem) {
   DmmaStage* sm = reinterpret_cast<DmmaStage*>(smem);
   const int tid = threadIdx.x;

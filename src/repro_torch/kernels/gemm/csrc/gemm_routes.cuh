@@ -41,8 +41,8 @@ inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <typename T>
-inline Route route_of(const Problem<T>& p) {
+template <typename T, typename O>
+inline Route route_of(const Problem<T, O>& p) {
   if constexpr (std::is_same_v<T, float>) {
     return F32_SIMT;
   } else if constexpr (std::is_same_v<T, double>) {
@@ -76,11 +76,14 @@ cudaError_t start(Kernel kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-// Launch problem p on its route: simt(Problem<T>) for F32_SIMT / BF16_SIMT,
-// wgmma(map A, map B, Problem<bf16>) for BF16_WGMMA, dmma(Problem<double>)
-// for F64_DMMA.  Returns the launch's error (cudaSuccess when it went).
-template <typename T, typename SimtK, typename WgmmaK, typename DmmaK>
-cudaError_t launch(const Problem<T>& p, cudaStream_t stream, SimtK simt,
+// Launch problem p on its route: simt(Problem<T, O>) for F32_SIMT /
+// BF16_SIMT / F16_SIMT, wgmma(map A, map B, Problem<bf16, O>) for
+// BF16_WGMMA, dmma(Problem<double, O>) for F64_DMMA.  The output type O
+// does not choose the route.  Returns the launch's error (cudaSuccess
+// when it went).
+template <typename T, typename O, typename SimtK, typename WgmmaK,
+          typename DmmaK>
+cudaError_t launch(const Problem<T, O>& p, cudaStream_t stream, SimtK simt,
                    WgmmaK wgmma, DmmaK dmma) {
   if (p.M <= 0 || p.N <= 0 || p.L <= 0) return cudaGetLastError();
   if constexpr (std::is_same_v<T, double>) {

@@ -47,14 +47,17 @@ namespace bind_gemm {
 
 // out = C + sum_{l < L} A_l @ B_l with A_l = A + l * a_stride (M x K,
 // row-major) and B_l = B + l * b_stride (K x N); after each level the sum
-// is rounded to T and becomes the next level's C.  C may be NULL (L = 1).
-template <typename T> struct Problem {
+// is rounded to O and becomes the next level's C.  C may be NULL (L = 1).
+// O, the type of C and out, is T unless the GEMM's caller asks for
+// another output type (matmul's out_dtype: one level, no C); the
+// accumulator stays T's (AccType) and is rounded once to O.
+template <typename T, typename O = T> struct Problem {
   const T* A;
   int64_t a_stride;
   const T* B;
   int64_t b_stride;
-  const T* C;
-  T* out;
+  const O* C;
+  O* out;
   int64_t M, N, K, L;
 };
 
@@ -68,21 +71,42 @@ __device__ __forceinline__ float to_acc(__nv_bfloat16 x) {
 __device__ __forceinline__ float to_acc(__half x) { return __half2float(x); }
 __device__ __forceinline__ double to_acc(double x) { return x; }
 
-// accumulator value -> element type, rounding to nearest even
-template <typename T>
-__device__ __forceinline__ T from_acc(typename AccType<T>::type v);
-template <> __device__ __forceinline__ float from_acc<float>(float v) {
+// accumulator value -> output type O, one rounding to nearest even (a
+// float64 accumulator goes straight to a narrow type, never through
+// float32)
+template <typename O> __device__ __forceinline__ O acc_to(float v);
+template <> __device__ __forceinline__ float acc_to<float>(float v) {
   return v;
 }
 template <>
-__device__ __forceinline__ __nv_bfloat16 from_acc<__nv_bfloat16>(float v) {
+__device__ __forceinline__ __nv_bfloat16 acc_to<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
-template <> __device__ __forceinline__ __half from_acc<__half>(float v) {
+template <> __device__ __forceinline__ __half acc_to<__half>(float v) {
   return __float2half_rn(v);
 }
-template <> __device__ __forceinline__ double from_acc<double>(double v) {
+template <> __device__ __forceinline__ double acc_to<double>(float v) {
+  return static_cast<double>(v);
+}
+template <typename O> __device__ __forceinline__ O acc_to(double v);
+template <> __device__ __forceinline__ double acc_to<double>(double v) {
   return v;
+}
+template <> __device__ __forceinline__ float acc_to<float>(double v) {
+  return __double2float_rn(v);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 acc_to<__nv_bfloat16>(double v) {
+  return __double2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half acc_to<__half>(double v) {
+  return __double2half(v);
+}
+
+// accumulator value -> element type: acc_to<T> of T's own accumulator
+template <typename T>
+__device__ __forceinline__ T from_acc(typename AccType<T>::type v) {
+  return acc_to<T>(v);
 }
 
 // fused multiply-add with one IEEE rounding (round to nearest even); the
@@ -97,17 +121,19 @@ __device__ __forceinline__ double mac(double a, double b, double c) {
 // The epilogue of level l for one element on the tensor-core routes, whose
 // accumulators leave no registers for a carry: the level's sum v (from 0
 // in the accumulator type) plus the carry (C at level 0, the previous
-// level's out after it), rounded once to T.  The same thread wrote
+// level's out after it), rounded once to O.  The same thread wrote
 // out[gm, gn] at level l - 1, so no barrier is needed between levels.
 // simt_tile does the same with the carry in registers.
-template <typename T>
-__device__ __forceinline__ void store_level(const Problem<T>& p, int64_t l,
-                                            int64_t gm, int64_t gn,
+template <typename T, typename O>
+__device__ __forceinline__ void store_level(const Problem<T, O>& p,
+                                            int64_t l, int64_t gm,
+                                            int64_t gn,
                                             typename AccType<T>::type v) {
-  const T* carry = l == 0 ? p.C : p.out;
+  using Acc = typename AccType<T>::type;
+  const O* carry = l == 0 ? p.C : p.out;
   const int64_t e = gm * p.N + gn;
-  if (carry != nullptr) v = to_acc(carry[e]) + v;
-  p.out[e] = from_acc<T>(v);
+  if (carry != nullptr) v = static_cast<Acc>(to_acc(carry[e])) + v;
+  p.out[e] = acc_to<O>(v);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -238,8 +264,8 @@ struct PanelLoader {
 
 // The CUDA-core route.  All SIMT_THREADS threads of the block call it,
 // with SIMT_SMEM bytes of dynamic shared memory at ``smem``.
-template <typename T>
-__device__ __forceinline__ void simt_tile(const Problem<T>& p,
+template <typename T, typename O = T>
+__device__ __forceinline__ void simt_tile(const Problem<T, O>& p,
                                           unsigned char* smem) {
   SimtStage* sm = reinterpret_cast<SimtStage*>(smem);
   const int tid = threadIdx.x;
@@ -329,11 +355,13 @@ __device__ __forceinline__ void simt_tile(const Problem<T>& p,
           const bool in = gm < p.M && gn < p.N;
           // as store_level, with the carry in registers after level 0
           // (0 + acc is acc: the sum is never -0)
-          const float c = cl != 0 ? carry[i][j]
-                          : (in && p.C != nullptr ? to_acc(p.C[gm * p.N + gn])
-                                                  : 0.0f);
-          const T r = from_acc<T>(c + acc[i][j]);
-          carry[i][j] = to_acc(r);
+          const float c =
+              cl != 0 ? carry[i][j]
+                      : (in && p.C != nullptr
+                             ? static_cast<float>(to_acc(p.C[gm * p.N + gn]))
+                             : 0.0f);
+          const O r = acc_to<O>(c + acc[i][j]);
+          carry[i][j] = static_cast<float>(to_acc(r));
           if (in && cl == p.L - 1) p.out[gm * p.N + gn] = r;
           acc[i][j] = 0.0f;
         }

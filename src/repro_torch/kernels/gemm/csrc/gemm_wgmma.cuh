@@ -18,8 +18,9 @@
 // warpgroup issues 4 k16 steps of two m64n64k16 instructions (bf16
 // operands from shared memory, fp32 accumulators in registers), waits for
 // them, and the stage goes back to the loader.  The ragged edge is TMA's
-// zero fill.  The epilogue adds C in fp32 and rounds once to bf16
-// (gemm_tile.cuh store_level).
+// zero fill.  The epilogue adds C in fp32 and rounds once to bf16, or to
+// the output type the GEMM's caller asked for (gemm_tile.cuh
+// store_level).
 //
 // TMA needs a 16-byte-aligned base and row strides that are multiples of
 // 16 bytes: gemm_routes.cuh sends other operands to the CUDA-core route.
@@ -137,10 +138,10 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
 
 // All WG_THREADS threads call it, with WG_SMEM bytes of dynamic shared
 // memory at ``smem``.  ta: A as (K, M, levels), tb: B as (N, K, levels).
-__device__ __forceinline__ void wgmma_tile(const CUtensorMap* ta,
-                                           const CUtensorMap* tb,
-                                           const Problem<__nv_bfloat16>& p,
-                                           unsigned char* smem) {
+template <typename O = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_tile(
+    const CUtensorMap* ta, const CUtensorMap* tb,
+    const Problem<__nv_bfloat16, O>& p, unsigned char* smem) {
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + WG_STAGES * WG_STAGE);

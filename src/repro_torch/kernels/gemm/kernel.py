@@ -34,12 +34,14 @@ SYMBOLS = {
     torch.float64: "bind_gemm_f64",
     torch.float16: "bind_gemm_f16",
 }
-# torch dtype -> the element-type code of bind_gemm_route
+# torch dtype -> the element-type code of bind_gemm_route, and of the
+# entry points' output type
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2,
                torch.float16: 3}
+# (a, b, c, out, M, N, K, out's type code, stream)
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-             ctypes.c_int64, ctypes.c_void_p)
+             ctypes.c_int64, ctypes.c_int, ctypes.c_void_p)
 
 # which route (an index of ops.ROUTES) the launcher takes for a problem:
 # (element-type code, a, a_stride, b, b_stride, M, N, K)
@@ -77,8 +79,11 @@ def launch(a: torch.Tensor, b: torch.Tensor, c, out: torch.Tensor) -> None:
     """Enqueue ``out = a @ b (+ c)`` on the current stream of ``a``'s device.
 
     The caller (:mod:`.ops`) has checked devices, dtypes, shapes and
-    contiguity and allocated ``out``.  Does not synchronise; raises when the
-    launch is refused (the C function returns ``cudaGetLastError()``).
+    contiguity and allocated ``out``, whose dtype (any of
+    :data:`DTYPE_CODES`'; ``c``'s too) is the type the kernel writes: the
+    accumulator of ``a``'s dtype rounded once to it.  Does not
+    synchronise; raises when the launch is refused (the C function returns
+    ``cudaGetLastError()``).
     """
     m, k = a.shape
     n = b.shape[1]
@@ -86,7 +91,8 @@ def launch(a: torch.Tensor, b: torch.Tensor, c, out: torch.Tensor) -> None:
         stream = torch.cuda.current_stream(a.device).cuda_stream
         LIBRARY.call(SYMBOLS[a.dtype], a.data_ptr(), b.data_ptr(),
                      c.data_ptr() if c is not None else None,
-                     out.data_ptr(), m, n, k, stream)
+                     out.data_ptr(), m, n, k, DTYPE_CODES[out.dtype],
+                     stream)
 
 
 def launcher_route(dtype: torch.dtype, a_ptr: int, a_stride: int, b_ptr: int,

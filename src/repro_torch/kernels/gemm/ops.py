@@ -5,15 +5,20 @@ on CPU.
 computes ``c + a @ b`` (the Bind tile transaction ``gemm(a, b, c: InOut)``)
 in one launch.  Both take 2-D float32, bfloat16, float16 or float64
 tensors of one dtype on one device and return a new tensor of that dtype;
-a strided view is copied into a row-major one first.
-The kernel masks ragged edges itself, so unlike the reference's
-``ops.py`` nothing is padded.
+``matmul``'s ``out_dtype`` asks for any other of the four as output (the
+reference kernel's ``out_dtype``: the accumulator rounded once to it; it
+does not change the route).  A strided view is copied into a row-major
+one first.  The kernel masks ragged edges itself, so unlike the
+reference's ``ops.py`` nothing is padded.
 
 On a CUDA tensor a wrapper launches the kernel or raises; on a CPU tensor,
-and only there, it computes the plain version (:mod:`.ref`).  Each wrapper
-counts its kernel launches in ``launches`` (a plain integer on the
-function), so a run can show that its main path went through the kernel,
-and each launch's route in ``routes`` (route name -> launches).
+and only there, it computes the plain version (:mod:`.ref`); on a ``meta``
+tensor (a dry run: shapes, no storage) it returns an empty ``meta`` result
+of the kernel's shape and dtype, launches nothing, and adds the call's
+``2 M N K`` operations to ``meta_flops``.  Each wrapper counts its kernel
+launches in ``launches`` (a plain integer on the function), so a run can
+show that its main path went through the kernel, and each launch's route
+in ``routes`` (route name -> launches).
 
 :func:`route` says which tile loop a launch takes (``csrc/gemm_routes.cuh``
 is the same rule in C, and :func:`.kernel.launcher_route` asks the built
@@ -50,10 +55,13 @@ import torch
 from torch._C._functorch import is_batchedtensor
 
 from ...compat import jax_matmul, jax_operands
-from .. import count_body, count_launch, row_major
+from .. import count_body, count_launch, count_meta, row_major
 from . import kernel, ref
 
 DTYPES = tuple(kernel.SYMBOLS)
+# the card launches the kernel, the host computes its plain version, meta
+# tensors get their shapes (and the operations counted)
+DEVICES = ("cpu", "cuda", "meta")
 # the routes, in the order of bind_gemm::Route (csrc/gemm_routes.cuh)
 ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f64_dmma", "f16_simt")
 
@@ -97,7 +105,7 @@ def _problem(*tensors) -> Optional[tuple[type, str]]:
             return TypeError, f"mixed dtypes {first.dtype} and {t.dtype}"
         if t.device != first.device:
             return ValueError, f"tensors on {first.device} and {t.device}"
-    if first.device.type not in ("cpu", "cuda"):
+    if first.device.type not in DEVICES:
         return ValueError, f"unsupported device {first.device}"
     return None
 
@@ -135,14 +143,23 @@ def accumulate_problem(c, a, b) -> Optional[str]:
     return bad[1] if bad else None
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` with the accumulator of :func:`.ref.acc_dtype`."""
+def matmul(a: torch.Tensor, b: torch.Tensor, *,
+           out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``a @ b`` with the accumulator of :func:`.ref.acc_dtype`, rounded
+    once to ``out_dtype`` (default ``a``'s dtype; any of :data:`DTYPES`)."""
     a, b = row_major(DTYPES, a, b)
     _check(a, b)
     m, n = _shapes(a, b)
+    out_dtype = a.dtype if out_dtype is None else out_dtype
+    if out_dtype not in DTYPES:
+        raise TypeError(f"out_dtype {out_dtype} is not supported; expected "
+                        f"one of {DTYPES}")
     if a.device.type == "cpu":
-        return ref.matmul(a, b)
-    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+        return ref.matmul(a, b, out_dtype)
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    if a.device.type == "meta":
+        count_meta(matmul, 2 * m * n * a.shape[1])
+        return out
     if out.numel():
         path = route(a.dtype, m, n, a.shape[1], (a.data_ptr(), b.data_ptr()))
         kernel.launch(a, b, None, out)
@@ -152,6 +169,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 matmul.launches = 0
 matmul.routes = {}
+matmul.meta_flops = 0
 
 
 def matmul_accumulate(c: torch.Tensor, a: torch.Tensor,
@@ -165,6 +183,9 @@ def matmul_accumulate(c: torch.Tensor, a: torch.Tensor,
     if a.device.type == "cpu":
         return ref.matmul_accumulate(c, a, b)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    if a.device.type == "meta":
+        count_meta(matmul_accumulate, 2 * m * n * a.shape[1])
+        return out
     if out.numel():
         path = route(a.dtype, m, n, a.shape[1], (a.data_ptr(), b.data_ptr()))
         kernel.launch(a, b, c, out)
@@ -174,6 +195,7 @@ def matmul_accumulate(c: torch.Tensor, a: torch.Tensor,
 
 matmul_accumulate.launches = 0
 matmul_accumulate.routes = {}
+matmul_accumulate.meta_flops = 0
 
 
 # --------------------------------------------------------------------------

@@ -12,7 +12,9 @@ launcher reports for the very operands it is handed, which must be the one
 device (the reference's ``backend="xla"``).  It is differentiable in ``a``
 and ``x`` (:class:`_Scan`): the backward is one more scan, over the
 reversed sequence (:func:`linear_scan_bwd`), on the same kernel on the
-card, counted as the forward's launches are.
+card, counted as the forward's launches are.  On ``meta`` tensors (a dry
+run) both return empty ``meta`` outputs of the kernel's shapes and launch
+nothing (the scan has no products for a FLOP count).
 
 :func:`route` says how the kernel stages its tiles (``csrc/linear_scan.cu``
 ``route_of`` is the same rule in C): by TMA (``"tma"``) when ``a`` and
@@ -70,7 +72,7 @@ def _check(a: torch.Tensor, x: torch.Tensor) -> None:
         raise TypeError(f"mixed dtypes {a.dtype} and {x.dtype}")
     if a.device != x.device:
         raise ValueError(f"tensors on {a.device} and {x.device}")
-    if a.device.type not in ("cpu", "cuda"):
+    if a.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {a.device}")
 
 
@@ -105,6 +107,8 @@ def _scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     (:func:`_kernel_scan`), the plain loop on CPU tensors."""
     if a.device.type == "cpu":
         return ref.linear_scan(a, x)
+    if a.device.type == "meta":     # a dry run: the shape, no launch
+        return torch.empty_like(x)
     return _kernel_scan(a, x)
 
 
@@ -154,7 +158,7 @@ def linear_scan_bwd(a: torch.Tensor, y: torch.Tensor,
     _check(a, g)
     if a.device.type == "cpu":
         return ref.linear_scan_grad(a, y, g)
-    return ref.linear_scan_grad(a, y, g, scan=_kernel_scan)
+    return ref.linear_scan_grad(a, y, g, scan=_scan)
 
 
 def _route_taken(a: torch.Tensor, x: torch.Tensor) -> str:

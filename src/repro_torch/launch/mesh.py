@@ -1,5 +1,6 @@
-"""The topology cost model, and the small rank mesh of the tests and the
-trainer (:func:`make_host_mesh`).
+"""The topology cost model, the small rank mesh of the tests and the
+trainer (:func:`make_host_mesh`), and the dry run's production mesh
+(:func:`make_production_mesh`).
 
 The :class:`Topology` cost model prices the LocalExecutor's simulated
 transfers in *time* (per-hop latency + per-byte bandwidth over a
@@ -151,6 +152,28 @@ def make_topology(kind: str = "flat", n_nodes: int = 1, *,
     return Topology(kind=kind, n_nodes=n_nodes, latency_s=latency_s,
                     bandwidth_Bps=bandwidth_Bps, arity=arity,
                     flops_per_s=flops_per_s)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="meta"):
+    """The reference's production mesh: ``(16, 16)`` over ``("data",
+    "model")``, or with ``multi_pod`` ``(2, 16, 16)`` over ``("pod",
+    "data", "model")``.
+
+    Its only user is the dry run (:mod:`repro_torch.launch.dryrun`), which
+    allocates nothing, as the reference's traces shapes only; so the 256
+    or 512 ranks are ``meta`` devices unless the caller gives another
+    ``device``, on which they all lie (``"cuda"``: they share the card, as
+    :func:`make_host_mesh`'s ``n_data`` ranks do).  The reference's ranks
+    are 256 or 512 chips (ROADMAP Queue 3)."""
+    from repro_torch.core.spmd import make_mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_production_mesh: no CUDA device "
+                           "(torch.cuda.is_available() is false)")
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, [dev] * math.prod(shape))
 
 
 def make_host_mesh(n_data: int | None = None, n_model: int = 1,

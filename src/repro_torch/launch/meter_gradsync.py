@@ -15,9 +15,9 @@ holds the copies and bytes per rank.  Beside them stand
 :func:`expected_copies` (the port's schedules counted in closed form:
 ``copies_expected`` / ``bytes_expected``, per rank) and
 :func:`wire_model` (the reference's per-device wire bytes of the
-collectives it emits for the same schedule, by the formulas of
-``repro/launch/dryrun.py``'s ``parse_collective_bytes``:
-``reference_wire_model``).  Both count the loss's ``pmean`` besides the
+collectives it emits for the same schedule, priced as its
+``parse_collective_bytes`` prices them, by
+:func:`repro_torch.launch.dryrun.wire_bytes`: ``reference_wire_model``).  Both count the loss's ``pmean`` besides the
 gradients.  Exits non-zero when a measured count differs from
 :func:`expected_copies`.
 
@@ -313,40 +313,44 @@ def wire_model(schedule: str, compress: bool, axes: dict, leaves,
                loss_bytes: int = 4) -> dict:
     """The reference's per-device wire bytes for the same step, by kind,
     from the collectives its step emits (``lax.ppermute`` rounds for the
-    tree, ``psum`` / ``psum_scatter`` / ``all_gather`` otherwise) and the
-    formulas of ``parse_collective_bytes``: all-reduce ``2 O (g-1)/g``,
-    reduce-scatter ``O_out (g-1)``, all-gather ``O (g-1)/g``,
-    collective-permute ``O``."""
+    tree, ``psum`` / ``psum_scatter`` / ``all_gather`` otherwise), each
+    priced as ``parse_collective_bytes`` prices it
+    (:func:`repro_torch.launch.dryrun.wire_bytes` of its output and
+    group)."""
+    from repro_torch.launch.dryrun import wire_bytes
+
     names = list(axes)
     size = math.prod(axes.values())
     out = {"all-reduce": 0.0, "reduce-scatter": 0.0, "all-gather": 0.0,
            "collective-permute": 0.0}
 
-    def ar(o, g):
-        out["all-reduce"] += 2 * o * (g - 1) / g
+    def add(kind, o, g):
+        out[kind] += wire_bytes(kind, o, g)
 
     for shape, item in leaves:
         b = math.prod(shape) * item
         if compress and len(names) > 1:
             o, i = axes[names[0]], axes[names[-1]]
-            ar(b, i)
+            add("all-reduce", b, i)
             nb = -(-math.prod(shape) // 256)
-            out["all-gather"] += (o * nb * 256 + o * nb * 4) * (o - 1) / o
+            add("all-gather", o * nb * 256, o)
+            add("all-gather", o * nb * 4, o)
         elif schedule == "tree":
             for ax in names:
                 rounds = math.ceil(math.log2(axes[ax])) if axes[ax] > 1 else 0
-                out["collective-permute"] += 2 * rounds * b
+                for _ in range(2 * rounds):
+                    add("collective-permute", b, 2)
         elif schedule == "ring" or len(names) == 1:
-            ar(b, size)
+            add("all-reduce", b, size)
         else:
             o, i = axes[names[0]], axes[names[-1]]
             if not any(d % i == 0 for d in shape):
-                ar(b, size)
+                add("all-reduce", b, size)
                 continue
-            out["reduce-scatter"] += (b / i) * (i - 1)
-            ar(b / i, o)
-            out["all-gather"] += b * (i - 1) / i
-    ar(loss_bytes, size)
+            add("reduce-scatter", b / i, i)
+            add("all-reduce", b / i, o)
+            add("all-gather", b, i)
+    add("all-reduce", loss_bytes, size)
     out["total_bytes"] = sum(out.values())
     return out
 

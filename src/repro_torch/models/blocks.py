@@ -120,10 +120,13 @@ def apply_block(
     return_state: bool = False,
     s_max: Optional[int] = None,            # cache capacity when prefilling
     chunked: bool = False,
+    meter: bool = False,
 ):
     """Returns ``(x_out, moe_aux_loss)``, or ``(x_out, aux, state)`` with
     ``return_state``, as the reference's does; ``aux`` is a float32 zero
-    for a block without a mixture of experts.  A block with
+    for a block without a mixture of experts.  ``meter`` (the model's
+    meter mode) runs attention and the RG-LRU scan as their plain
+    versions.  A block with
     cross-attention attends ``memory_h``; its state is then ``{"self":
     ..., "cross": {"k", "v"}}``."""
     _known(kind)
@@ -135,7 +138,8 @@ def apply_block(
         if return_state:
             out, (k, v) = layers.attention(
                 p["attn"], h, cfg, causal=causal, window=win,
-                positions=positions, return_kv=True, chunked=chunked)
+                positions=positions, return_kv=True, chunked=chunked,
+                meter=meter)
             s_have = k.shape[2]
             if _ring(kind, cfg):
                 # arrange the last W positions into ring slots (p % W)
@@ -154,10 +158,10 @@ def apply_block(
         else:
             out = layers.attention(
                 p["attn"], h, cfg, causal=causal, window=win,
-                positions=positions, chunked=chunked)
+                positions=positions, chunked=chunked, meter=meter)
     elif kind == "rglru":
         r = recurrent.recurrent_block(p["rec"], h, cfg,
-                                      return_state=return_state)
+                                      return_state=return_state, meter=meter)
         out, state = r if return_state else (r, None)
     elif kind == "mlstm":
         r = xlstm.mlstm_block(p["mlstm"], h, cfg, return_state=return_state,
@@ -174,11 +178,11 @@ def apply_block(
         if return_state:
             out, (ck, cv) = layers.attention(
                 p["cross"], h, cfg, memory_h=memory_h, return_kv=True,
-                chunked=chunked)
+                chunked=chunked, meter=meter)
             state = {"self": state, "cross": {"k": ck, "v": cv}}
         else:
             out = layers.attention(p["cross"], h, cfg, memory_h=memory_h,
-                                   chunked=chunked)
+                                   chunked=chunked, meter=meter)
         x = x + out.to(x.dtype)
     elif _has(p, "cross") and return_state:
         state = {"self": state, "cross": None}

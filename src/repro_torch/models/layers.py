@@ -29,6 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention import ref as attn_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.sharding.constraints import shard_act
 
@@ -219,11 +220,15 @@ def attention(
     kv_override: Optional[tuple] = None,      # cross-attn: precomputed (k, v)
     return_kv: bool = False,
     chunked: bool = False,
+    meter: bool = False,
 ):
     """Full-sequence (prefill and training) attention through the
     flash-attention entry point; ``chunked`` takes
     :func:`.attention_xla.chunked_attention` (the same entry point, with
-    the reference's chunk-size check).  With ``memory_h`` or
+    the reference's chunk-size check).  ``meter`` takes the materialised
+    oracle (``kernels.flash_attention.ref.attention``) instead, as the
+    reference's meter mode does: no kernel, every product an op a FLOP
+    counter sees.  With ``memory_h`` or
     ``kv_override`` it is cross-attention over an encoder's hidden states
     (queries without RoPE, K/V from :func:`project_kv`), never causal.
 
@@ -244,7 +249,10 @@ def attention(
     k = shard_act(k, "kv_gathered")
     v = shard_act(v, "kv_gathered")
     scale = cfg.head_dim_ ** -0.5
-    if chunked:
+    if meter:
+        out = attn_ref.attention(q, k, v, causal=causal, window=window,
+                                 scale=scale)
+    elif chunked:
         out = chunked_attention(q, k, v, causal=causal, window=window,
                                 scale=scale)
     else:

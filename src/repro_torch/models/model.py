@@ -84,9 +84,20 @@ class LanguageModel(Params):
 
     ``device`` defaults to the card; with no CUDA device that raises
     rather than falling back to the CPU.
+
+    ``meter=True`` is the reference's meter mode, for the dry run's
+    counts (:mod:`repro_torch.launch.dryrun`): every full-sequence
+    attention (training, prefill, the encoder, cross-attention) computes
+    the materialised oracle ``kernels.flash_attention.ref.attention``, the
+    RG-LRU scan its plain chunked version, and prefill leaves the chunked
+    path, so the step launches no kernel on any device and a FLOP counter
+    sees every product as an op.  The reference's meter mode also unrolls
+    its scans over the layer groups (``unroll=``); the port's layers are
+    modules that a Python loop runs one by one, so it has nothing to
+    unroll.  A default model launches the kernels as ever.
     """
 
-    def __init__(self, cfg, *, device=None):
+    def __init__(self, cfg, *, device=None, meter: bool = False):
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("LanguageModel: no CUDA device "
@@ -108,6 +119,7 @@ class LanguageModel(Params):
         super().__init__(init, device)
         self.cfg = cfg
         self.dtype = dt
+        self.meter = meter
         self.placement = None
         self.groups, self.tail = _stack(cfg, dt, device, cfg.n_layers,
                                         cross=cfg.encoder_layers > 0)
@@ -187,7 +199,7 @@ class LanguageModel(Params):
             for i, kind in enumerate(self.cfg.block_pattern):
                 x, a = blocks.apply_block(group[f"b{i}"], x, kind, self.cfg,
                                           causal=causal, memory_h=memory_h,
-                                          chunked=chunked)
+                                          chunked=chunked, meter=self.meter)
                 aux = aux + a
         return x, aux
 
@@ -223,7 +235,7 @@ class LanguageModel(Params):
             with self._gathered(blk):
                 x, a = blocks.apply_block(blk, x, pattern[i], self.cfg,
                                           causal=causal, memory_h=memory_h,
-                                          chunked=chunked)
+                                          chunked=chunked, meter=self.meter)
             aux = aux + a
         return x, aux
 
@@ -340,11 +352,12 @@ class LanguageModel(Params):
         with self._own():
             memory_h = None
             if cfg.encoder_layers:
-                memory_h = self._encode(frames, remat=False, chunked=True)
+                memory_h = self._encode(frames, remat=False,
+                                        chunked=not self.meter)
             x = self.embed(tokens, pixels)
             states = {"groups": [] if cfg.n_groups else None, "tail": []}
             kw = dict(memory_h=memory_h, return_state=True, s_max=s_max,
-                      chunked=True)
+                      chunked=not self.meter, meter=self.meter)
             for group in self.groups:
                 st = {}
                 with self._gathered(group):

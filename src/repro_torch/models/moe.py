@@ -150,9 +150,13 @@ def _route(p, x: torch.Tensor, cfg):
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     # the share of (token, slot) pairs each expert receives is a count,
     # with no gradient; the mean router probability carries the gradient
-    dispatch_frac = torch.bincount(
-        top_i.reshape(-1), minlength=cfg.n_experts).float() / (
-        x.shape[0] * cfg.n_experts_active)
+    # (an exact integer count that also runs on meta tensors, which
+    # bincount does not)
+    flat = top_i.reshape(-1)
+    counts = torch.zeros(cfg.n_experts, dtype=torch.int64,
+                         device=x.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+    dispatch_frac = counts.float() / (x.shape[0] * cfg.n_experts_active)
     mean_prob = probs.mean(dim=0)
     aux = cfg.n_experts * torch.sum(dispatch_frac * mean_prob)
     return top_i, top_w, aux

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.linear_scan.ops import linear_scan
+from repro_torch.kernels.linear_scan.ref import linear_scan_chunked
 
 from .layers import dense_init
 
@@ -72,13 +73,16 @@ def _rg_lru_gates(p, u: torch.Tensor):
     return a, gated
 
 
-def recurrent_block(p, x: torch.Tensor, cfg, *, return_state: bool = False):
-    """(B, S, d) -> (B, S, d), parallel (prefill) form."""
+def recurrent_block(p, x: torch.Tensor, cfg, *, return_state: bool = False,
+                    meter: bool = False):
+    """(B, S, d) -> (B, S, d), parallel (prefill) form.  ``meter`` runs
+    the scan's plain chunked version (:func:`.linear_scan_chunked`, whose
+    ops grow by the chunk, not by the step) instead of the kernel."""
     xb = x @ p["w_x"]
     yb = F.gelu(x @ p["w_y"], approximate="tanh")
     u, conv_state = _causal_conv(xb, p["conv_k"], p["conv_b"])
     a, gated = _rg_lru_gates(p, u)
-    h = linear_scan(a, gated)
+    h = linear_scan_chunked(a, gated) if meter else linear_scan(a, gated)
     out = (h.to(x.dtype) * yb) @ p["w_out"]
     if return_state:
         return out, {"conv": conv_state, "h": h[:, -1, :].clone()}

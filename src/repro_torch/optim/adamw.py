@@ -120,6 +120,11 @@ class AdamW:
         c1 = float(f32(1.0) - f32(self.b1) ** f32(count))
         c2 = float(f32(1.0) - f32(self.b2) ** f32(count))
         lr = self._lr(count)
+        if any(p.is_meta for p in ps.values()):
+            # a dry run (repro_torch.launch.dryrun): storage-less tensors
+            # have no values to update, and their shapes stay as they are
+            return params, state._replace(count=count), {"grad_norm": gnorm,
+                                                          "lr": lr}
         for n, p in ps.items():
             g = grads[n].float()
             if scale is not None:

@@ -11,6 +11,7 @@ are pinned.
 
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -93,7 +94,7 @@ def test_float64_accumulates_in_float64():
     (lambda a, b: (a[0], b), ValueError),                   # not 2-D
     (lambda a, b: (a, b[:3]), ValueError),                  # inner mismatch
     (lambda a, b: (a.numpy(), b), TypeError),               # not a tensor
-    (lambda a, b: (a.to("meta"), b.to("meta")), ValueError),  # no kernel
+    (lambda a, b: (a, b.to("meta")), ValueError),           # two devices
 ])
 def test_wrappers_reject_what_the_kernel_does_not_take(bad, err):
     a, b = torch.ones(4, 4), torch.ones(4, 4)
@@ -246,3 +247,126 @@ def test_cpu_calls_count_no_route():
     ops.matmul(a, a)
     ops.matmul_accumulate(a, a, a)
     assert ops.matmul.routes == {} and ops.matmul_accumulate.routes == {}
+
+
+# every dtype the GEMM takes: (jax dtype, torch dtype, test_kernels.py's
+# tolerance for it); float64 at float32's, since the reference sums
+# float64 in float32 (preferred_element_type) where the port sums it in
+# float64
+ALL_DTYPES = {"float32": (jnp.float32, torch.float32, (1e-4, 1e-3)),
+              "bfloat16": (jnp.bfloat16, torch.bfloat16, (2e-2, 2e-1)),
+              "float16": (jnp.float16, torch.float16, (2e-2, 2e-1)),
+              "float64": (jnp.float64, torch.float64, (1e-4, 1e-3))}
+
+
+# the accumulator's type for each input type, and the types by precision
+ACC = {"float32": "float32", "bfloat16": "float32", "float16": "float32",
+       "float64": "float64"}
+PRECISION = ("bfloat16", "float16", "float32", "float64")
+
+
+def out_tolerance(in_name, out_name):
+    """An output's tolerance: that of the less precise of the accumulator
+    and the output type, so that a wide output of narrow inputs is held to
+    the accumulator's precision, not the inputs'."""
+    return ALL_DTYPES[min(ACC[in_name], out_name, key=PRECISION.index)][2]
+
+
+@pytest.mark.parametrize("out_name", sorted(ALL_DTYPES))
+@pytest.mark.parametrize("in_name", sorted(ALL_DTYPES))
+def test_out_dtype_matches_the_references(in_name, out_name):
+    """``matmul(a, b, out_dtype=)`` and ``ref.matmul(a, b, out_dtype)``
+    hold to the reference's ``ref.matmul(a, b, out_dtype)`` and its
+    interpret-mode ``matmul_pallas(out_dtype=)``, for every pair of the
+    four dtypes, within ``out_tolerance`` (the sums run in another order,
+    and one rounding to the output type may land an ulp of it apart)."""
+    from repro.kernels.gemm import ref as ref_ref
+    from repro.kernels.gemm.kernel import matmul_pallas
+
+    jin, tin, _ = ALL_DTYPES[in_name]
+    jout, tout, _ = ALL_DTYPES[out_name]
+    rtol, atol = out_tolerance(in_name, out_name)
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(64, 96)).astype(np.float32)
+    y = rng.normal(size=(96, 32)).astype(np.float32)
+    ta, tb = torch.from_numpy(x).to(tin), torch.from_numpy(y).to(tin)
+    with jax.enable_x64(True):      # float64 stays float64 in jax
+        ja, jb = jnp.asarray(x, dtype=jin), jnp.asarray(y, dtype=jin)
+        outs = (ref_ref.matmul(ja, jb, jout),
+                matmul_pallas(ja, jb, bm=32, bn=32, bk=32, out_dtype=jout,
+                              interpret=True))
+        assert all(o.dtype == jnp.dtype(jout) for o in outs)
+        want = [np.asarray(o, np.float64) for o in outs]
+    for got in (ref.matmul(ta, tb, tout), ops.matmul(ta, tb, out_dtype=tout)):
+        assert got.dtype == tout and tuple(got.shape) == (64, 32)
+        for exp in want:
+            np.testing.assert_allclose(to_numpy(got).astype(np.float64), exp,
+                                       rtol=rtol, atol=atol)
+    # the input's own dtype is the default
+    assert torch.equal(ops.matmul(ta, tb, out_dtype=tin), ops.matmul(ta, tb))
+
+
+def _nearest_even(x, bits, emin):
+    """float64 ``x`` rounded once to nearest even, to ``bits`` significant
+    bits with ``emin`` the exponent of the smallest subnormal step."""
+    _, e = np.frexp(x)
+    step = np.ldexp(1.0, np.maximum(e - bits, emin))
+    return np.rint(x / step) * step
+
+
+def test_out_dtype_rounds_the_accumulator_once():
+    """A float64 product written as bfloat16 or float16 is its float64 sum
+    rounded once to nearest even (held to a rounding by hand, on sums that
+    lie just past a tie of the narrow type, where torch's own cast, which
+    rounds to float32 first, lands on the other side); a bfloat16 product
+    written as float32 keeps the float32 sum (no element farther from the
+    float64 sum than float32's rounding allows, and not the bfloat16
+    output widened)."""
+    rng = np.random.default_rng(5)
+    a = rng.normal(size=(40, 72))
+    b = rng.normal(size=(72, 24))
+    # rows that are one element, against a first row of B of ones: their
+    # sums are exact, a tie of the narrow type plus far less than a float32
+    # ulp
+    b[0] = 1.0
+    ties = [1 + 2.0 ** -8 + 2.0 ** -30, -(3 + 2.0 ** -7 + 2.0 ** -31),
+            1 + 2.0 ** -11 + 2.0 ** -40, -(5 + 2.0 ** -9 + 2.0 ** -35)]
+    for i, t in enumerate(ties):
+        a[i] = 0.0
+        a[i, 0] = t
+    a64, b64 = torch.from_numpy(a), torch.from_numpy(b)
+    exact = (a64 @ b64).numpy()
+    for dt, bits, emin in ((torch.bfloat16, 8, -133),
+                           (torch.float16, 11, -24)):
+        want = _nearest_even(exact, bits, emin)
+        twice = (a64 @ b64).to(dt).double().numpy()
+        assert (twice[:len(ties)] != want[:len(ties)]).any()
+        for got in (ref.matmul(a64, b64, dt),
+                    ops.matmul(a64, b64, out_dtype=dt)):
+            assert got.dtype == dt
+            np.testing.assert_array_equal(got.double().numpy(), want)
+    a16 = a64.to(torch.bfloat16)
+    b16 = b64.to(torch.bfloat16)
+    wide = ops.matmul(a16, b16, out_dtype=torch.float32)
+    exact = a16.double() @ b16.double()
+    scale = (a16.double().abs() @ b16.double().abs())
+    assert bool(((wide.double() - exact).abs()
+                 <= 72 * 2.0 ** -24 * scale).all())
+    assert not torch.equal(wide, ops.matmul(a16, b16).float())
+
+
+def test_out_dtype_refuses_a_dtype_without_a_kernel():
+    a = torch.ones(4, 4)
+    with pytest.raises(TypeError, match="out_dtype"):
+        ops.matmul(a, a, out_dtype=torch.int32)
+
+
+def test_entry_points_take_the_output_type_code():
+    """Static: each dtype's entry point of ``csrc/gemm.cu`` takes the
+    output type's code before the stream, and ``kernel.launch`` binds
+    it."""
+    source = kernel.SOURCES[0].read_text()
+    for sym in kernel.SYMBOLS.values():
+        params = re.search(rf"int {sym}\(([^)]*)\)", source).group(1)
+        assert "int out_dtype, void* stream" in " ".join(params.split())
+        assert params.count(",") + 1 == len(kernel.LIBRARY.symbols[sym])

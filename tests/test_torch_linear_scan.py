@@ -190,8 +190,9 @@ def test_chunked_long_memory_is_no_farther_from_float64_than_the_loop(
         b, s, d, rng):
     """With a in (0.999, 1] the carry crosses chunks alive: the chunked
     version strays from the exact (float64) recurrence no farther than the
-    sequential f32 loop does (``chip_smoke.py`` holds the kernel to the
-    same)."""
+    sequential f32 loop does, on these draws (``chip_smoke.py`` holds the
+    kernel to a float64 run of the chunked order within float32's worst
+    case of rounding, and prints this comparison over several seeds)."""
     a = _gates(rng, (b, s, d), "long")
     x = rng.normal(size=(b, s, d)).astype(np.float32)
     h = np.zeros((b, d))

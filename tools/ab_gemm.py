@@ -21,9 +21,12 @@ points on the same inputs:
 * float32 outputs must be bit for bit equal on the two sides; bfloat16 and
   float64 outputs must lie within ``chip_smoke.py``'s tolerance (``TOL``,
   ``atol`` times the levels for the chain) of the plain PyTorch version and
-  of each other;
+  of each other, and whether they are bit for bit equal is printed;
 * the route each side's launcher took is printed (a side without
   ``bind_gemm_route`` has one tile loop for every dtype);
+* a side whose entry points take an output-type code (``int out_dtype``)
+  is asked for the inputs' own type, so its same-dtype output is held
+  to the other side's;
 * at 1024^3 the three kernels are timed in each dtype with CUDA events (20
   calls after 3 warm-up calls, 5 after 1 for the chain) in the order
   other, this, this, other.
@@ -52,6 +55,8 @@ TOL = {"float32": (1e-4, 1e-3), "bfloat16": (2e-2, 2e-1),
        "float64": (1e-10, 1e-9)}
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 GEMM_ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _P)
+# entry points with the output type's code before the stream
+GEMM_OUT_ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _I, _P)
 DOT_ARGS = (_P, _P, _I64, _P, _I64, _P, _I64, _I64, _I64, _I64, _P)
 ROUTE_ARGS = (_I, _P, _I64, _P, _I64, _I64, _I64, _I64)
 
@@ -61,13 +66,16 @@ def libraries(CudaLibrary, side: str, root: Path):
     gemm_dir = root / KERNELS / "gemm" / "csrc"
     headers = tuple(sorted(gemm_dir.glob("*.cuh"))) + tuple(sorted(
         (root / KERNELS / "flash_attention" / "csrc").glob("*.cuh")))
-    gemm_syms = {f"bind_gemm_{s}": GEMM_ARGS for s in SUFFIX.values()}
     source = (gemm_dir / "gemm.cu").read_text()
+    out_code = "int out_dtype" in source
+    gemm_syms = {f"bind_gemm_{s}": GEMM_OUT_ARGS if out_code else GEMM_ARGS
+                 for s in SUFFIX.values()}
     if "bind_gemm_route" in source:
         gemm_syms["bind_gemm_route"] = ROUTE_ARGS
     gemm = CudaLibrary(f"ab_gemm_{side}", (gemm_dir / "gemm.cu",), headers,
                        gemm_syms)
     gemm.route_by_size = "int elem_bytes" in source
+    gemm.out_code = out_code
     chain = CudaLibrary(
         f"ab_chain_{side}", (root / KERNELS / "chain" / "csrc" / "chain.cu",),
         headers, {f"bind_chain_dot_{s}": DOT_ARGS for s in SUFFIX.values()})
@@ -108,9 +116,11 @@ def main(argv: list[str]) -> int:
 
     def gemm_call(side, dname, a, b, c, out):
         m, k = a.shape
-        libs[side][0].call(f"bind_gemm_{SUFFIX[dname]}", a.data_ptr(),
-                           b.data_ptr(), None if c is None else c.data_ptr(),
-                           out.data_ptr(), m, b.shape[1], k, stream)
+        gemm = libs[side][0]
+        code = (DTYPE_CODES[dname],) if gemm.out_code else ()
+        gemm.call(f"bind_gemm_{SUFFIX[dname]}", a.data_ptr(), b.data_ptr(),
+                  None if c is None else c.data_ptr(), out.data_ptr(), m,
+                  b.shape[1], k, *code, stream)
 
     def dot_call(side, dname, c, a, a_stride, b, b_stride, L, out):
         m, n = c.shape
@@ -140,8 +150,10 @@ def main(argv: list[str]) -> int:
                                   (outs["this"], outs["other"])))
             what = f"within rtol {rtol} atol {atol} x {levels}"
         err = (outs["this"].double() - exp.double()).abs().max().item()
+        same = torch.equal(outs["other"], outs["this"])
         print(f"[check] {name}: this vs other {what}: "
-              f"{'ok' if ok else 'FAILED'}; this vs plain max_abs_err "
+              f"{'ok' if ok else 'FAILED'} (bit for bit: "
+              f"{'yes' if same else 'no'}); this vs plain max_abs_err "
               f"{err:.3e}")
         return ok
 
