@@ -60,9 +60,10 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    64 and 128 (the tensor-core routes) with a case whose rows past Skv +
    window see no key (exactly zero), f32 and bf16 cases with many key
    tiles per query tile (``MID_ATTN``: causal, windowed, ragged,
-   non-causal; f32 at d 64 and 128, bf16 at 64, 128, 192 and 256), bf16
-   and f32 views at an odd offset (the CUDA cores), float16 (the CUDA
-   cores), h2o-danube-1.8b's head dim 80 (bf16 on the CUDA cores) and,
+   non-causal; f32 at d 64 and 128, bf16 at 64, 80, 96, 128, 192 and
+   256), bf16 views at an odd offset at d 128 and 96 and f32 ones (the
+   CUDA cores), float16 (the CUDA cores), h2o-danube-1.8b's head dim 80
+   (bf16 on the tensor cores, its last 64-column panel 16 columns) and,
    through the entry point with every count zeroed just before, at full
    width: RecurrentGemma-9B local attention (16 heads over 1, S 8192, D
    256, window 2048) and Qwen3-14B (40 over 8, S 8192, D 128), causal, f32
@@ -277,7 +278,7 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    1024 frames, 12 decoder layers over 2 x 4096 tokens with
    cross-attention: 12 + 12 + 12 launches, the cross-attention non-causal
    with 4096 queries over 1024 keys), Phi-3-vision-4.2b (64 patches + 4032
-   tokens, d 96 on ``bf16_simt``, 32 launches) and xLSTM-350m (6 of its 24
+   tokens, d 96 on ``bf16_wgmma``, 32 launches) and xLSTM-350m (6 of its 24
    mLSTM / sLSTM layers, 3 whole pattern periods: its sLSTM loop is
    host-bound, no kernel; the loop timed a token a layer with CUDA
    events); launches by route, two served runs the same tokens,
@@ -293,9 +294,11 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    over Skv 512 among them) within 2^-7 rms per head slice of
    ``ref.attention_grad``, the memory given back; then attention at the
    families' shapes (:func:`family_attention_timed`: Granite's 24 over 8
-   at d 64, Seamless's cross-attention 4096 over 1024 non-causal, Phi-3's
-   d 96 on ``bf16_simt``), forward and backward, each held to its plain
-   version and timed beside its bound, the plain version and SDPA's;
+   at d 64, Seamless's cross-attention 4096 over 1024 non-causal,
+   Phi-3-vision's 32 over 32 at d 96 and h2o-danube's 32 over 8 at d 80),
+   forward and backward, each held to its plain version and timed beside
+   its bound, the plain version and SDPA's, and at d 80 and 96 beside
+   ``bf16_simt`` (views at an odd offset), which it must beat;
 8j. training that checkpoints (``[train_ckpt]``, :func:`train_ckpt_phase`):
    granite-moe-3b-a800m at its published widths, 2 layers, bf16, B 1 x S
    2048, 4 AdamW steps saving parameters and optimizer state through
@@ -439,7 +442,7 @@ MID_ATTN = ((1, 4, 2, 1024, 1024, True, None, 512),
             (1, 2, 2, 1000, 1000, True, None, 8),
             (1, 2, 2, 512, 1000, False, None, 8),
             (1, 2, 1, 777, 777, False, 200, 7))
-MID_HEAD_DIMS = (64, 128, 192, 256)
+MID_HEAD_DIMS = (64, 80, 96, 128, 192, 256)
 # bfloat16 attention against the float32 oracle on the same inputs, to
 # limits scaled to each value (bf16_attention_error).  The output is
 # rounded once to bf16: at most 2^-8 |exp| off.  The tensor-core route
@@ -1321,6 +1324,14 @@ BWD_SHAPES = {"RecurrentGemma-9B": (1, 16, 1, 4096, 256, 2048,
               "Qwen3-14B": (1, 40, 8, 4096, 128, None, ("bfloat16",))}
 
 
+def odd_offset(t):
+    """A copy of ``t`` one element into its storage: the same values, an
+    address no 16-byte-aligned route can read."""
+    view = t.new_empty(t.numel() + 1)[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def slice_nrms(got, exp) -> float:
     """The largest rms error of a (batch, head) slice of ``got`` (B, H, S,
     D) over ``exp``'s rms there."""
@@ -1775,8 +1786,7 @@ def attention_bwd_timed(torch, dev, gen, card: str, name: str, dname: str,
     exp = fa_ref.attention_grad(q.float(), k.float(), v.float(),
                                 dout.float(), **kw)
     limit = BF16_SLICE_NRMS if dname == "bfloat16" else BWD_F32_NRMS
-    odd = torch.empty(q.numel() + 1, dtype=dt, device=dev)[1:].view(q.shape)
-    odd.copy_(q)
+    odd = odd_offset(q)
     calls = {fa_ops.bwd_route(dt, d, fa_ops._bwd_addresses(
         q, k, v, out, dout, lse)): (q, lse)}
     if dname == "bfloat16":
@@ -1880,8 +1890,8 @@ FAMILIES = (
     # 12 encoder (non-causal), 12 decoder (causal), 12 cross-attention
     # (non-causal, 4096 queries over 1024 keys)
     ("seamless_m4t_medium", None, 1024, 4096, {"bf16_wgmma": 36}, True),
-    # 64 image patches + 4032 text tokens; d 96 takes the CUDA cores
-    ("phi_3_vision_4_2b", None, 0, 4032, {"bf16_simt": 32}, True),
+    # 64 image patches + 4032 text tokens; d 96 takes the tensor cores
+    ("phi_3_vision_4_2b", None, 0, 4032, {"bf16_wgmma": 32}, True),
     # mLSTM and sLSTM blocks: no attention, no kernel.  The sLSTM's
     # host-bound Python loop (17 s a prefill at 24 layers) is as warm in
     # its first run as in a second, so it is served once, and at a quarter
@@ -1903,7 +1913,7 @@ TRAIN_FAMILIES = (
     ("seamless_m4t_medium", dict(n_layers=1, encoder_layers=1),
      {"bf16_wgmma": 6}, {"bf16_wgmma": 3}),
     ("phi_3_vision_4_2b", dict(n_layers=2),
-     {"bf16_simt": 4}, {"bf16_simt": 2}),
+     {"bf16_wgmma": 4}, {"bf16_wgmma": 2}),
     ("xlstm_350m", dict(n_layers=2), {}, {}),
 )
 TRAIN_FAM_SEQ, TRAIN_FAM_STEPS = 2048, 3
@@ -1919,6 +1929,7 @@ FAMILY_ATTN = {
     "Seamless cross (16/16, Sq 4096 / Skv 1024)": (2, 16, 16, 4096, 1024,
                                                    64, False),
     "Phi-3-vision (32/32, d 96)": (2, 32, 32, 4096, 4096, 96, True),
+    "h2o-danube (32/8, d 80)": (2, 32, 8, 4096, 4096, 80, True),
 }
 
 
@@ -2414,7 +2425,11 @@ def family_attention_timed(torch, dev, gen, card: str) -> dict:
     plain version) and the backward (with the forward's log-sum-exp where
     the route hands one back, held within BF16_SLICE_NRMS), each timed
     beside its bound, its plain version and SDPA's (a yardstick the port
-    never calls).  Returns the numbers by shape."""
+    never calls).  Every shape takes the tensor cores both ways; where its
+    head dim is no multiple of 64 (Phi-3-vision's 96, h2o-danube's 80)
+    each direction is also timed on ``bf16_simt`` (the same values one
+    element into their storage), which ``bf16_wgmma`` must beat.  Returns
+    the numbers by shape."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
@@ -2454,7 +2469,13 @@ def family_attention_timed(torch, dev, gen, card: str) -> dict:
         dout = torch.randn(o.shape, generator=gen, device=dev).to(dt)
         bwd_route = fa_ops.bwd_route(dt, d, fa_ops._bwd_addresses(
             q, k, v, o, dout, lse))
+        check(route == bwd_route == "bf16_wgmma", f"[attn families] "
+              f"{name}: routes {route} / {bwd_route}, expected bf16_wgmma")
+        fa_ops.flash_attention_bwd.routes = {}
         grads = fa_ops.flash_attention_bwd(q, k, v, o, dout, lse=lse, **kw)
+        check(fa_ops.flash_attention_bwd.routes == {bwd_route: 1},
+              f"[attn families] {name} backward: routes "
+              f"{fa_ops.flash_attention_bwd.routes}, expected {bwd_route}")
         exp_g = fa_ref.attention_grad(q.float(), k.float(), v.float(),
                                       dout.float(), **kw)
         nrms = max(slice_nrms(g, e) for g, e in zip(grads, exp_g))
@@ -2472,6 +2493,34 @@ def family_attention_timed(torch, dev, gen, card: str) -> dict:
             o2, leaves, dout, retain_graph=True), iters=5, warmup=1)
         bwd_bnd, bwd_by = bound_ms(2 * (4 * q.numel() + 4 * k.numel()),
                                    10 * hq * d * pairs, "bfloat16")
+        simt = {}
+        if d % 64:
+            # the CUDA-core loops on the same values: q one element in
+            odd = odd_offset(q)
+            fa_ops.flash_attention.routes = {}
+            fa_ops.flash_attention_bwd.routes = {}
+            fa_ops.flash_attention(odd, k, v, causal=causal, bkv=skv)
+            fa_ops.flash_attention_bwd(odd, k, v, o, dout, lse=lse, **kw)
+            check(fa_ops.flash_attention.routes == {"bf16_simt": 1}
+                  and fa_ops.flash_attention_bwd.routes == {"bf16_simt": 1},
+                  f"[attn families] {name}: q at an odd offset took "
+                  f"{fa_ops.flash_attention.routes} / "
+                  f"{fa_ops.flash_attention_bwd.routes}, expected bf16_simt")
+            simt = dict(
+                simt_ms=time_ms(torch, lambda: fa_ops.flash_attention(
+                    odd, k, v, causal=causal, bkv=skv), iters=3, warmup=1),
+                bwd_simt_ms=time_ms(torch, lambda: fa_ops.flash_attention_bwd(
+                    odd, k, v, o, dout, lse=lse, **kw), iters=2, warmup=1))
+            del odd
+            check(ms < simt["simt_ms"] and bwd_ms < simt["bwd_simt_ms"],
+                  f"[attn families] {name}: bf16_wgmma {ms:.3f} / "
+                  f"{bwd_ms:.3f} ms is not below bf16_simt's "
+                  f"{simt['simt_ms']:.3f} / {simt['bwd_simt_ms']:.3f} ms")
+            print(f"[attn families] {name}: bf16_simt (q at an odd offset) "
+                  f"forward {simt['simt_ms']:.3f} ms, backward "
+                  f"{simt['bwd_simt_ms']:.3f} ms; bf16_wgmma "
+                  f"{simt['simt_ms'] / ms:.1f}x / "
+                  f"{simt['bwd_simt_ms'] / bwd_ms:.1f}x faster")
         print(f"[attn families] {name} bf16 (q ({b}, {hq}, {sq}, {d}), k, v "
               f"({b}, {hkv}, {skv}, {d}), {'causal' if causal else 'non-causal'}): "
               f"forward [{route}] {ms:.3f} ms ({flops / ms / 1e9:.2f} "
@@ -2485,7 +2534,7 @@ def family_attention_timed(torch, dev, gen, card: str) -> dict:
                          bound_by=by, library_ms=sdpa, max_abs_err=err,
                          bwd_route=bwd_route, bwd_ms=bwd_ms,
                          bwd_plain_ms=bwd_plain, bwd_library_ms=bwd_sdpa,
-                         bwd_bound_ms=bwd_bnd)
+                         bwd_bound_ms=bwd_bnd, **simt)
         del q, k, v, got, exp, exp32, o, lse, dout, leaves, o2
     return out
 
@@ -4556,6 +4605,17 @@ def main() -> int:
             count = body.count(op)
             print(f"[build] {name}: {count} {op} instructions in its SASS")
             check(count > 0, f"{name}: no {op} instruction in its SASS")
+            if "attention" not in name or "wgmma" not in name:
+                continue
+            # each head dim's instantiation of the attention tensor-core
+            # kernels, those whose last 64-column panel is partly real
+            # among them
+            per_d = {d: sum(f.count(op) for f in functions
+                            if f"{name}ILi{d}E" in f.split("\n", 1)[0])
+                     for d in fa_ops.WGMMA_HEAD_DIMS}
+            print(f"[build]   {op} by head dim: {per_d}")
+            check(all(per_d.values()), f"{name}: an instantiation without "
+                  f"{op} in its SASS ({per_d})")
 
     # -- 3. GEMM kernel against its plain version ----------------------------
     gen = torch.Generator(device=dev)
@@ -5196,14 +5256,6 @@ def main() -> int:
                   f"{stats}")
         return err
 
-    def odd_offset(t):
-        """A copy of ``t`` one element into its storage: the same values,
-        an address no 16-byte-aligned route can read."""
-        view = torch.empty(t.numel() + 1, dtype=t.dtype,
-                           device=t.device)[1:].view(t.shape)
-        view.copy_(t)
-        return view
-
     tf32_ratios = []
 
     def tf32_accuracy(name, got, q, k, v, causal, window, blk):
@@ -5261,9 +5313,9 @@ def main() -> int:
 
     print(f"[attn] route rule: f32_3xtf32 for float32 with d % 32 == 0, d "
           f"<= 128 and q, k, v, out 16-byte aligned, f32_simt for any other "
-          f"float32; bf16_wgmma for bfloat16 with d % 64 == 0, d <= 256 and "
-          f"the operands 16-byte aligned, bf16_simt for any other bfloat16; "
-          f"f16_simt for float16")
+          f"float32; bf16_wgmma for bfloat16 with d in "
+          f"{fa_ops.WGMMA_HEAD_DIMS} and the operands 16-byte aligned, "
+          f"bf16_simt for any other bfloat16; f16_simt for float16")
     small = [("", case, 16, "float32") for case in ATTN_CASES]
     small.append(("", (1, 4, 2, 64, 64, 16, True, None), 32, "bfloat16"))
     small.append(("", (1, 4, 2, 64, 64, 16, True, None), 32, "float16"))
@@ -5277,10 +5329,11 @@ def main() -> int:
                       for case in ATTN_CASES]
             small.append(("", (1, 2, 2, 64, 32, d, True, 8), 16, dname))
     # many key tiles per query tile, at every head dim of the tensor cores
+    # (float32 at the 3xTF32 route's d 64 and 128)
     for d in MID_HEAD_DIMS:
         for dname in ("float32", "bfloat16"):
-            if dname == "float32" and fa_ops.route(
-                    torch.float32, d) != "f32_3xtf32":
+            if dname == "float32" and (d % 64 or fa_ops.route(
+                    torch.float32, d) != "f32_3xtf32"):
                 continue
             small += [(" mid", (b, hq, hkv, sq, skv, d, causal, window), blk,
                        dname)
@@ -5298,6 +5351,11 @@ def main() -> int:
         attn_compare(name, got, q, k, v, causal, window, blk, dname)
         if path == "f32_3xtf32":
             tf32_accuracy(name, got, q, k, v, causal, window, blk)
+        # bf16 at every head dim of WGMMA_HEAD_DIMS takes the tensor cores
+        # (h2o-danube's d 80 and MID_ATTN's d 80 / 96 among them)
+        check(dname != "bfloat16" or d not in fa_ops.WGMMA_HEAD_DIMS
+              or path == "bf16_wgmma",
+              f"{name}: took {path}, expected bf16_wgmma")
         seen = fa_ref.mask(sq, skv, causal=causal, window=window, device=dev)
         blind = ~seen.any(dim=-1)
         if blind.any():
@@ -5316,6 +5374,16 @@ def main() -> int:
     check(path == "bf16_simt", f"flash attention on views at an odd offset "
           f"took {path}, expected bf16_simt")
     attn_compare(f"flash_attention (1, 2, 2, 256, 256, 128) causal True "
+                 f"bfloat16, views at an odd 2-byte offset [{path}]", got, q,
+                 k, v, True, None, 256, "bfloat16")
+    # and at Phi-3-vision's d 96, whose aligned operands take the tensor
+    # cores: a view one element in still goes to the CUDA-core loop
+    shape96 = (1, 2, 256, 96)
+    q, k, v = (odd_offset(rand(shape96, torch.bfloat16)) for _ in range(3))
+    got, path = attn_run(q, k, v, causal=True, window=None, bq=256, bkv=256)
+    check(path == "bf16_simt", f"flash attention at d 96 on views at an odd "
+          f"offset took {path}, expected bf16_simt")
+    attn_compare(f"flash_attention (1, 2, 2, 256, 256, 96) causal True "
                  f"bfloat16, views at an odd 2-byte offset [{path}]", got, q,
                  k, v, True, None, 256, "bfloat16")
     # and float32 views one element (4 bytes) in: the 3xTF32 loop's 16-byte
@@ -6423,7 +6491,9 @@ def main() -> int:
     bwd_row["family_shapes"] = {
         name: {"route": t["bwd_route"], "ms": t["bwd_ms"],
                "plain_ms": t["bwd_plain_ms"], "bound_ms": t["bwd_bound_ms"],
-               "library_ms": t["bwd_library_ms"]}
+               "library_ms": t["bwd_library_ms"],
+               **({"simt_ms": t["bwd_simt_ms"]} if "bwd_simt_ms" in t
+                  else {})}
         for name, t in fam_attn.items()}
     # Listing 1's leaf products inside the procs workers, an iteration's
     # launches summed over the four worker processes

@@ -57,10 +57,11 @@
 // kernel holds dQ, S and dP: 192 at d = 256.  Both run 256 threads a
 // block, which a thread may give 255 registers (attn_wgmma.cuh says why
 // 9-12 warps may not).  With CUDA 12.8's ptxas (-Xptxas -v) the dq kernel
-// takes 151 / 188 / 215 / 244 registers at d = 64 / 128 / 192 / 256 and the
-// dk/dv kernel 198 / 254 / 244 / 255, none spilling (chip_smoke.py fails
-// on a spill); the masks work in 32-bit positions relative to the tile,
-// which keeps dk/dv at d = 128 from spilling, as it did with 64-bit ones.
+// takes 151 / 160 / 168 / 188 / 215 / 244 registers at d = 64 / 80 / 96 /
+// 128 / 192 / 256 and the dk/dv kernel 198 / 216 / 233 / 254 / 244 / 255,
+// none spilling (chip_smoke.py fails on a spill); the masks work in 32-bit
+// positions relative to the tile, which keeps dk/dv at d = 128 from
+// spilling, as it did with 64-bit ones.
 //
 // Shared memory: two 128-row tiles of the block (Q and dO, or K and V) and
 // a ring of 64-row tile pairs: 128 KB + STAGES x 64 KB at d = 256, so one
@@ -98,10 +99,20 @@
 // bf16 output, as on the CUDA-core route.  The sums are f32, each gradient
 // rounded once to bf16.
 //
+// Head dims that are no multiple of 64 (80, 96) take the forward's scheme
+// (attn_wgmma.cuh): ceil(d / 64) panels, the last one's columns past d
+// TMA's zeros; the products that sum over d (S, dP, S^T, dP^T) step over
+// the real columns only, those whose N is d (dQ, dV, dK) issue the last
+// panel at N = d % 64, and no store writes a column past d (nor do the
+// head groups' partials).  They keep d 128's shared memory and its one
+// pass, with fewer registers: dq 160 / 168 and dk/dv 216 / 233 at d 80 /
+// 96.
+//
 // TMA needs 16-byte-aligned bases, and the tiles are 64 columns wide: the
-// route (flash_attention_bwd.cu route_of) takes bf16 with d % 64 == 0, d <=
-// 256, q, k, v, out, dout and the log-sum-exp 16-byte aligned, and a
-// log-sum-exp saved by the forward; any other call takes the CUDA cores.
+// route (flash_attention_bwd.cu route_of) takes bf16 with d one of
+// wgmma_head_dim's (64, 80, 96, 128, 192, 256), q, k, v, out, dout and the
+// log-sum-exp 16-byte aligned, and a log-sum-exp saved by the forward; any
+// other call takes the CUDA cores.
 
 #pragma once
 
@@ -120,7 +131,10 @@ using bind_attn_wg::exp2_fast;
 using bind_attn_wg::issue_pv;
 using bind_attn_wg::issue_qk;
 using bind_attn_wg::pack_bf16;
+using bind_attn_wg::panels;
 using bind_attn_wg::pin;
+using bind_attn_wg::pin_acc;
+using bind_attn_wg::real_cols;
 using bind_attn_wg::warpgroup_sync;
 using bind_gemm::mbar_expect;
 using bind_gemm::mbar_init;
@@ -140,8 +154,9 @@ constexpr int SMALL = 64;
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D> struct Cfg {
-  static_assert(D % 64 == 0 && D >= 64 && D <= 256, "d: 64, 128, 192, 256");
-  static constexpr int PANELS = D / 64;             // 64-column panels
+  static_assert(bind_attn_wg::wgmma_head_dim(D),
+                "d: 64, 80, 96, 128, 192, 256");
+  static constexpr int PANELS = panels(D);          // 64-column panels
   static constexpr int BIG_PANEL = BIG * 128;       // bytes of a panel
   static constexpr int SMALL_PANEL = SMALL * 128;
   static constexpr int BIG_BYTES = PANELS * BIG_PANEL;
@@ -218,7 +233,7 @@ __device__ __forceinline__ void load_rows(unsigned char* dst,
                                           uint64_t* bar, int64_t row,
                                           int64_t z) {
 #pragma unroll
-  for (int p = 0; p < D / 64; ++p)
+  for (int p = 0; p < panels(D); ++p)
     tma_load(dst + p * R * 128, map, bar, p * 64, static_cast<int>(row),
              static_cast<int>(z));
 }
@@ -436,15 +451,13 @@ __device__ __forceinline__ void dq_block(const CUtensorMap* tq,
       dq_scores(sc, dp, da, lse2, dlt, sh, mask,
                 static_cast<int>(row_a - k0) - col_l,
                 capped(sh.skv - k0, SMALL) - col_l, win, masks(k0));
-#pragma unroll
-      for (int p = 0; p < PANELS; ++p) pin(dq[p]);
+      pin_acc<D>(dq);
       pin(da);
       wg_fence();
       issue_pv<D, SMALL>(dq, da, k_addr);
       wg_commit();
       wg_wait_all();
-#pragma unroll
-      for (int p = 0; p < PANELS; ++p) pin(dq[p]);
+      pin_acc<D>(dq);
     }
     release<STAGES>(sm.done0, wg, tid, it, n,
                     [&](int next) { issue(next, false); });
@@ -460,9 +473,10 @@ __device__ __forceinline__ void dq_block(const CUtensorMap* tq,
     for (int p = 0; p < PANELS; ++p)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(dst + p * 64 + 8 * j) =
-            __floats2bfloat162_rn(dq[p][4 * j + 2 * h] * sh.scale,
-                                  dq[p][4 * j + 2 * h + 1] * sh.scale);
+        if (real_cols(D, p, j))
+          *reinterpret_cast<__nv_bfloat162*>(dst + p * 64 + 8 * j) =
+              __floats2bfloat162_rn(dq[p][4 * j + 2 * h] * sh.scale,
+                                    dq[p][4 * j + 2 * h + 1] * sh.scale);
   }
 }
 
@@ -558,9 +572,10 @@ template <int D> struct DkvBlock {
         for (int p = 0; p < PANELS; ++p)
 #pragma unroll
           for (int j = 0; j < 8; ++j)
-            *reinterpret_cast<__nv_bfloat162*>(dst + p * 64 + 8 * j) =
-                __floats2bfloat162_rn(acc[p][4 * j + 2 * h] * mul,
-                                      acc[p][4 * j + 2 * h + 1] * mul);
+            if (real_cols(D, p, j))
+              *reinterpret_cast<__nv_bfloat162*>(dst + p * 64 + 8 * j) =
+                  __floats2bfloat162_rn(acc[p][4 * j + 2 * h] * mul,
+                                        acc[p][4 * j + 2 * h + 1] * mul);
       } else {
         const int64_t per = sh.hkv * sh.skv * D;    // a (b, g) slice
         const int64_t batch = gridDim.x / (sh.groups * sh.hkv);
@@ -570,9 +585,10 @@ template <int D> struct DkvBlock {
         for (int p = 0; p < PANELS; ++p)
 #pragma unroll
           for (int j = 0; j < 8; ++j)
-            *reinterpret_cast<float2*>(dst + p * 64 + 8 * j) =
-                make_float2(acc[p][4 * j + 2 * h] * mul,
-                            acc[p][4 * j + 2 * h + 1] * mul);
+            if (real_cols(D, p, j))
+              *reinterpret_cast<float2*>(dst + p * 64 + 8 * j) =
+                  make_float2(acc[p][4 * j + 2 * h] * mul,
+                              acc[p][4 * j + 2 * h + 1] * mul);
       }
     }
   }
@@ -657,11 +673,8 @@ template <int D> struct DkvBlock {
           if constexpr (WANT_DV) pa[i] = pack_bf16(p[0], p[1]);
           if constexpr (WANT_DK) da[i] = pack_bf16(ds[0], ds[1]);
         }
-#pragma unroll
-        for (int p = 0; p < PANELS; ++p) {
-          if constexpr (WANT_DV) pin(dv[p]);
-          if constexpr (WANT_DK) pin(dk[p]);
-        }
+        if constexpr (WANT_DV) pin_acc<D>(dv);
+        if constexpr (WANT_DK) pin_acc<D>(dk);
         if constexpr (WANT_DV) pin(pa);
         if constexpr (WANT_DK) pin(da);
         wg_fence();
@@ -669,11 +682,8 @@ template <int D> struct DkvBlock {
         if constexpr (WANT_DK) issue_pv<D, SMALL>(dk, da, q_addr);
         wg_commit();
         wg_wait_all();
-#pragma unroll
-        for (int p = 0; p < PANELS; ++p) {
-          if constexpr (WANT_DV) pin(dv[p]);
-          if constexpr (WANT_DK) pin(dk[p]);
-        }
+        if constexpr (WANT_DV) pin_acc<D>(dv);
+        if constexpr (WANT_DK) pin_acc<D>(dk);
       }
       release<STAGES>(sm.done0, wg, tid, it, total,
                       [&](int next) { issue(next); });
@@ -841,6 +851,10 @@ inline cudaError_t launch(const void* q, const void* k, const void* v,
                           int64_t d, cudaStream_t stream) {
   switch (d) {
     case 64: return launch_d<64>(q, k, v, o, dout, dq, dk, dv, lse, delta,
+                                 part, batch, sh, stream);
+    case 80: return launch_d<80>(q, k, v, o, dout, dq, dk, dv, lse, delta,
+                                 part, batch, sh, stream);
+    case 96: return launch_d<96>(q, k, v, o, dout, dq, dk, dv, lse, delta,
                                  part, batch, sh, stream);
     case 128: return launch_d<128>(q, k, v, o, dout, dq, dk, dv, lse, delta,
                                    part, batch, sh, stream);

@@ -43,7 +43,8 @@
 //     is the A-operand register layout of a k16 step (registers 8 kk .. 8 kk
 //     + 7 of S are step kk's four A registers), so P never goes through
 //     shared memory.  V is keys x d, N-major: the transposed-B form, one
-//     m64n64k16 per 64 columns of d.  At the end O / l is rounded once to
+//     m64n64k16 per 64-column panel of d (the last at N = d % 64 where d
+//     is no multiple of 64, below).  At the end O / l is rounded once to
 //     bf16 and stored from registers;
 //   * masks from the kernel's own tiles: the block loads only the key tiles
 //     the mask leaves for its 128 rows (the causal t1 and windowed t0 of
@@ -71,10 +72,28 @@
 // store is added: out is computed as without it.  The backward
 // (attn_bwd_wgmma.cuh) reads it instead of sweeping the keys for it.
 //
-// TMA needs 16-byte-aligned bases and rows of whole 16-byte units, and the
-// tiles are 64 columns wide: the route (flash_attention.cu) takes bf16 with
-// d % 64 == 0, d <= 256 and q, k, v, out 16-byte aligned, and sends any
-// other bf16 call to the CUDA-core loop (attn_tile.cuh).
+// Head dims that are no multiple of 64 (h2o-danube's 80, Phi-3-vision's
+// 96): a row of d is ceil(d / 64) panels of 64 columns, and the last one
+// holds d % 64 real columns.  The tensor maps give TMA the real row width
+// d, so its 64-column box past d writes zeros into shared memory and reads
+// no byte more (the full box still counts towards the mbarrier's bytes).
+// Q K^T steps its k16 slices over the d real columns only (5 / 6 at d 80 /
+// 96).  P V issues the last panel at N = d % 64 (m64n16k16 / m64n32k16):
+// through the N-major descriptor of the full panel it reads the first
+// 16 / 32 columns of each 128-byte swizzled row, which the swizzle keeps
+// where TMA put them (the addresses are swizzled, not the panel); each
+// output column is its own sum, so the real ones are those the panel at
+// N = 64 over the zeros would give.  The accumulator keeps d 128's 64
+// registers a thread, of which the last panel's unused ones hold nothing
+// and are dropped by the compiler: with CUDA 12.8's ptxas the kernel takes
+// 196 / 204 registers at d 80 / 96 (221 at d 128), for a quarter / a
+// third less P V work than at N = 64.  No store writes a column past d.
+//
+// TMA needs 16-byte-aligned bases and rows of whole 16-byte units (d 80 /
+// 96: 160 / 192 bytes): the route (flash_attention.cu) takes bf16 with d
+// one of wgmma_head_dim's (64, 80, 96, 128, 192, 256) and q, k, v, out
+// 16-byte aligned, and sends any other bf16 call to the CUDA-core loop
+// (attn_tile.cuh).
 
 #pragma once
 
@@ -105,10 +124,27 @@ constexpr int CONSUMERS = 2;            // warpgroups of 64 rows each
 constexpr int THREADS = 128 * CONSUMERS;
 constexpr int STAGES = 2;               // K and V tiles in flight
 
+// the head dims the tensor-core routes of the forward and the backward
+// take (route_of in flash_attention.cu and flash_attention_bwd.cu; ops.py
+// WGMMA_HEAD_DIMS is the same set)
+__host__ __device__ constexpr bool wgmma_head_dim(int64_t d) {
+  return d == 64 || d == 80 || d == 96 || d == 128 || d == 192 || d == 256;
+}
+
+// 64-column panels of a row of d: the last one of d 80 / 96 holds 16 / 32
+// real columns and TMA's zero fill past them
+__host__ __device__ constexpr int panels(int d) { return (d + 63) / 64; }
+
+// whether columns 64 p + 8 j .. + 7 of a panel's accumulator fragment are
+// real (d is a multiple of 16, so the 8 columns are all real or all pad)
+__host__ __device__ constexpr bool real_cols(int d, int p, int j) {
+  return 64 * p + 8 * j < d;
+}
+
 template <int D> struct Cfg {
-  static_assert(D % 64 == 0 && D >= 64 && D <= 256, "d: 64, 128, 192, 256");
+  static_assert(wgmma_head_dim(D), "d: 64, 80, 96, 128, 192, 256");
   static constexpr int BKV = D <= 128 ? 128 : 64;   // keys per tile
-  static constexpr int PANELS = D / 64;             // 64-column panels
+  static constexpr int PANELS = panels(D);          // 64-column panels
   static constexpr int Q_PANEL = BQ * 128;          // bytes of a Q panel
   static constexpr int KV_PANEL = BKV * 128;        // bytes of a K/V panel
   static constexpr int Q_BYTES = PANELS * Q_PANEL;
@@ -193,7 +229,49 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// the same with 32 columns of B (the first half of a 64-column panel)
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : BIND_AW_D8(0), BIND_AW_D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// the same with 16 columns of B (the first quarter of a panel)
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "1;\n}\n"
+      : BIND_AW_D8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef BIND_AW_D8
+
+// the first N / 2 registers of a panel's accumulator fragment: its first N
+// columns
+template <int N>
+__device__ __forceinline__ float (&first(float (&acc)[32]))[N / 2] {
+  return *reinterpret_cast<float (*)[N / 2]>(&acc[0]);
+}
+
+// keeps the compiler from moving the accumulator registers of a row of d
+// across a wgmma fence, commit or wait: every panel's, and of the last
+// panel of d 80 / 96 only the ones its product writes (the rest hold
+// nothing and are left for the compiler to drop)
+template <int D>
+__device__ __forceinline__ void pin_acc(float (&acc)[panels(D)][32]) {
+#pragma unroll
+  for (int p = 0; p < D / 64; ++p) pin(acc[p]);
+  if constexpr (D % 64 != 0) pin(first<D % 64>(acc[D / 64]));
+}
 
 // 2^x on the MUFU unit, subnormals flushed to zero (a weight below 2^-126
 // of the row's largest is 0 either way in bf16 P)
@@ -227,18 +305,24 @@ __device__ __forceinline__ void issue_qk(float (&sc)[BKV / 2],
 }
 
 // O (64 x D) += P (registers) V (the tile at v_addr: keys x D, N-major in
-// 64-column panels, 8-key groups 1024 bytes apart, a k16 step 2048 bytes)
+// 64-column panels, 8-key groups 1024 bytes apart, a k16 step 2048 bytes);
+// the last panel of d 80 / 96 at N = 16 / 32, its real columns only
 template <int D, int BKV>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 64][32],
+__device__ __forceinline__ void issue_pv(float (&o)[panels(D)][32],
                                          const uint32_t (&pa)[BKV / 4],
                                          uint32_t v_addr) {
 #pragma unroll
-  for (int kk = 0; kk < BKV / 16; ++kk)
+  for (int kk = 0; kk < BKV / 16; ++kk) {
 #pragma unroll
     for (int p = 0; p < D / 64; ++p)
       wgmma_rs(o[p], &pa[4 * kk],
                wg_desc(v_addr + p * (BKV * 128) + kk * 2048, BKV * 128,
                        1024));
+    if constexpr (D % 64 != 0)
+      wgmma_rs(first<D % 64>(o[D / 64]), &pa[4 * kk],
+               wg_desc(v_addr + (D / 64) * (BKV * 128) + kk * 2048,
+                       BKV * 128, 1024));
+  }
 }
 
 // The online softmax of a tile's scores sc: sc[4 j + e] is row row_a + 8
@@ -440,15 +524,13 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* tq,
       softmax<BKV, PANELS>(sc, pa, o, m, l, sh, mask, k0, row_a, col_l,
                            masks(k0));
       mbar_wait(&v_full[s], ph);
-#pragma unroll
-      for (int p = 0; p < PANELS; ++p) pin(o[p]);
+      pin_acc<D>(o);
       pin(pa);
       wg_fence();
       issue_pv<D, BKV>(o, pa, smem_addr(vs + s * C::KV_BYTES));
       wg_commit();
       wg_wait_all();
-#pragma unroll
-      for (int p = 0; p < PANELS; ++p) pin(o[p]);
+      pin_acc<D>(o);
     } else {
       mbar_wait(&v_full[s], ph);
     }
@@ -472,9 +554,10 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* tq,
     for (int p = 0; p < PANELS; ++p)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(dst + p * 64 + 8 * j) =
-            __floats2bfloat162_rn(o[p][4 * j + 2 * h] * inv,
-                                  o[p][4 * j + 2 * h + 1] * inv);
+        if (real_cols(D, p, j))
+          *reinterpret_cast<__nv_bfloat162*>(dst + p * 64 + 8 * j) =
+              __floats2bfloat162_rn(o[p][4 * j + 2 * h] * inv,
+                                    o[p][4 * j + 2 * h + 1] * inv);
   }
 }
 

@@ -17,11 +17,12 @@
 //               aligned: the tensor cores in 3xTF32 (attn_tf32.cuh);
 //   F32_SIMT    any other float32 (d > 128, odd d, misaligned views): the
 //               CUDA-core loop (attn_tile.cuh), any d <= 256;
-//   BF16_WGMMA  bfloat16 with d % 64 == 0, d <= 256 and q, k, v, out
-//               16-byte aligned: the tensor cores, wgmma fed by TMA
+//   BF16_WGMMA  bfloat16 with d in {64, 80, 96, 128, 192, 256}
+//               (bind_attn_wg::wgmma_head_dim) and q, k, v, out 16-byte
+//               aligned: the tensor cores, wgmma fed by TMA
 //               (attn_wgmma.cuh);
-//   BF16_SIMT   any other bfloat16 (h2o-danube's d = 80, for one): the
-//               CUDA-core loop, fp32 inside;
+//   BF16_SIMT   any other bfloat16 (other head dims, views at an odd
+//               offset): the CUDA-core loop, fp32 inside;
 //   F16_SIMT    float16: the CUDA-core loop, fp32 inside, as bf16_simt.
 //
 // The CUDA-core loop (flash_attention_kernel):
@@ -112,8 +113,8 @@ inline Route route_of(DType dtype, int64_t d, const void* q, const void* k,
       return d % 32 == 0 && d > 0 && d <= 128 && aligned ? F32_3XTF32
                                                          : F32_SIMT;
     case BF16:
-      return d % 64 == 0 && d > 0 && d <= 256 && aligned ? BF16_WGMMA
-                                                         : BF16_SIMT;
+      return bind_attn_wg::wgmma_head_dim(d) && aligned ? BF16_WGMMA
+                                                        : BF16_SIMT;
     default: return F16_SIMT;
   }
 }
@@ -213,6 +214,10 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          float scale, Mask mask, cudaStream_t stream) {
   switch (d) {
     case 64: return launch_wgmma_d<64>(q, k, v, out, lse, batch, hq, hkv, sq,
+                                       skv, scale, mask, stream);
+    case 80: return launch_wgmma_d<80>(q, k, v, out, lse, batch, hq, hkv, sq,
+                                       skv, scale, mask, stream);
+    case 96: return launch_wgmma_d<96>(q, k, v, out, lse, batch, hq, hkv, sq,
                                        skv, scale, mask, stream);
     case 128: return launch_wgmma_d<128>(q, k, v, out, lse, batch, hq, hkv,
                                          sq, skv, scale, mask, stream);

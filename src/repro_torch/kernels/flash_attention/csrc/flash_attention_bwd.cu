@@ -65,8 +65,9 @@
 //
 // Routes (route_of below; kernels/flash_attention/ops.py bwd_route is the
 // same rule in Python, and bind_flash_attention_bwd_route answers it for
-// any operands): BF16_WGMMA for bfloat16 with d % 64 == 0, d <= 256, q, k,
-// v, out, dout and the saved log-sum-exp 16-byte aligned, and a saved
+// any operands): BF16_WGMMA for bfloat16 with d in {64, 80, 96, 128, 192,
+// 256} (bind_attn_wg::wgmma_head_dim, the forward's set), q, k, v, out,
+// dout and the saved log-sum-exp 16-byte aligned, and a saved
 // log-sum-exp; otherwise the CUDA-core route of the element type, which
 // sweeps the keys for the log-sum-exp itself.
 //
@@ -109,9 +110,9 @@ inline int route_of(int dtype, int64_t d, const void* q, const void* k,
                     const void* v, const void* out, const void* dout,
                     const void* lse) {
   if (dtype < F32 || dtype > F16 || d <= 0 || d > MAX_HEAD_DIM) return -1;
-  if (dtype == BF16 && d % 64 == 0 && lse != nullptr && aligned16(q) &&
-      aligned16(k) && aligned16(v) && aligned16(out) && aligned16(dout) &&
-      aligned16(lse))
+  if (dtype == BF16 && bind_attn_wg::wgmma_head_dim(d) && lse != nullptr &&
+      aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) &&
+      aligned16(dout) && aligned16(lse))
     return BF16_WGMMA;
   return dtype == F32 ? F32_SIMT : dtype == BF16 ? BF16_SIMT : F16_SIMT;
 }

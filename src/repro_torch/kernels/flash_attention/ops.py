@@ -37,11 +37,14 @@ library, as the wrapper does before every launch): float32 on the tensor
 cores in 3xTF32 (``f32_3xtf32``) when the head dim is a multiple of 32 up
 to 128 and q, k, v and out are 16-byte aligned, else on the CUDA cores
 (``f32_simt``); bfloat16 on the tensor cores (``bf16_wgmma``: ``wgmma``
-fed by TMA) when the head dim is a multiple of 64 up to 256 and the
-operands are 16-byte aligned, else on the CUDA cores (``bf16_simt``);
-float16 on the CUDA cores (``f16_simt``).  Qwen3-14B (d 128) takes
-``f32_3xtf32`` and ``bf16_wgmma``; RecurrentGemma-9B (d 256) ``f32_simt``
-and ``bf16_wgmma``; h2o-danube's d 80 ``f32_simt`` and ``bf16_simt``.
+fed by TMA) when the head dim is one of :data:`WGMMA_HEAD_DIMS` (64, 80,
+96, 128, 192, 256: whole 64-column panels, or a last panel of 16 / 32
+real columns over TMA's zero fill) and the operands are 16-byte aligned,
+else on the CUDA cores (``bf16_simt``); float16 on the CUDA cores
+(``f16_simt``).  Qwen3-14B (d 128) takes ``f32_3xtf32`` and
+``bf16_wgmma``; RecurrentGemma-9B (d 256) ``f32_simt`` and ``bf16_wgmma``;
+h2o-danube's d 80 and Phi-3-vision's d 96 ``f32_simt`` and
+``bf16_wgmma``.
 
 ``attn_step(o, q, k, v)`` is the executor-callable block accumulation ``o ←
 o + softmax(q kᵀ / √d) v``, tagged ``"dot"`` so a fused chain of it runs as
@@ -80,6 +83,9 @@ ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f32_3xtf32", "f16_simt")
 # the backward's routes, in the order of the Route enum of
 # csrc/flash_attention_bwd.cu
 BWD_ROUTES = ("f32_simt", "bf16_simt", "f16_simt", "bf16_wgmma")
+# the head dims of both bf16 tensor-core routes (wgmma_head_dim of
+# csrc/attn_wgmma.cuh)
+WGMMA_HEAD_DIMS = (64, 80, 96, 128, 192, 256)
 
 
 def route(dtype: torch.dtype, d: int, addresses=()) -> str:
@@ -87,9 +93,9 @@ def route(dtype: torch.dtype, d: int, addresses=()) -> str:
     whose q, k, v and out start at ``addresses`` (device byte addresses):
     float32 goes to the tensor cores in 3xTF32 when the 32-column panels
     cover d (``d % 32 == 0``, ``d <= 128``) and every address is 16-byte
-    aligned, bfloat16 when the tiles of 64 columns cover d (``d % 64 ==
-    0``, ``d <= 256``) and TMA can read every operand (each address 16-byte
-    aligned); float16 stays on the CUDA cores."""
+    aligned, bfloat16 when d is one of :data:`WGMMA_HEAD_DIMS` and TMA can
+    read every operand (each address 16-byte aligned); float16 stays on
+    the CUDA cores."""
     aligned = all(int(x) % 16 == 0 for x in addresses)
     if dtype == torch.float32:
         tf32 = d % 32 == 0 and 0 < d <= 128 and aligned
@@ -98,7 +104,7 @@ def route(dtype: torch.dtype, d: int, addresses=()) -> str:
         return "f16_simt"
     if dtype != torch.bfloat16:
         raise TypeError(f"no attention route for dtype {dtype}")
-    tma = d % 64 == 0 and 0 < d <= 256 and aligned
+    tma = d in WGMMA_HEAD_DIMS and aligned
     return "bf16_wgmma" if tma else "bf16_simt"
 
 
@@ -278,12 +284,12 @@ def bwd_route(dtype: torch.dtype, d: int, addresses=()) -> str:
     ``dtype`` whose q, k, v, out, dout and saved log-sum-exp start at
     ``addresses`` (device byte addresses; the log-sum-exp's 0 or None
     where the forward saved none; empty: all aligned, a log-sum-exp
-    saved): bfloat16 goes to the tensor cores (``bf16_wgmma``) when the
-    tiles of 64 columns cover d (``d % 64 == 0``, ``d <= 256``), TMA can
-    read every operand (each address 16-byte aligned) and the forward
-    saved its log-sum-exp; every other call takes the CUDA cores of its
-    dtype (``csrc/flash_attention_bwd.cu`` ``route_of`` is the same rule
-    in C)."""
+    saved): bfloat16 goes to the tensor cores (``bf16_wgmma``) when d is
+    one of :data:`WGMMA_HEAD_DIMS`, TMA can read every operand (each
+    address 16-byte aligned) and the forward saved its log-sum-exp; every
+    other call takes the CUDA cores of its dtype
+    (``csrc/flash_attention_bwd.cu`` ``route_of`` is the same rule in
+    C)."""
     if dtype not in DTYPES:
         raise TypeError(f"no attention backward route for dtype {dtype}")
     if not 0 < d <= kernel.MAX_HEAD_DIM:
@@ -291,7 +297,8 @@ def bwd_route(dtype: torch.dtype, d: int, addresses=()) -> str:
     addresses = tuple(addresses)
     saved = not addresses or (len(addresses) == 6 and bool(addresses[5]))
     aligned = all(int(x or 0) % 16 == 0 for x in addresses)
-    if dtype == torch.bfloat16 and d % 64 == 0 and saved and aligned:
+    tma = d in WGMMA_HEAD_DIMS and saved and aligned
+    if dtype == torch.bfloat16 and tma:
         return "bf16_wgmma"
     return BWD_ROUTES[kernel.DTYPE_CODES[dtype]]
 

@@ -249,6 +249,32 @@ def test_every_bound_symbol_is_an_extern_c_entry_point_with_its_arity():
         assert params.count(",") + 1 == len(argtypes), sym
 
 
+
+def test_wgmma_head_dims_are_one_rule_in_python_and_both_c_routes():
+    """Static: ``ops.WGMMA_HEAD_DIMS`` is the set ``wgmma_head_dim`` of
+    ``csrc/attn_wgmma.cuh`` admits, both C ``route_of``s (forward and
+    backward) ask that one function, and each tensor-core launcher
+    instantiates exactly those head dims (no nvcc needed)."""
+    csrc = kernel.SOURCES[0].parent
+    rule = re.search(r"bool wgmma_head_dim\(int64_t d\) \{(.*?)\}",
+                     (csrc / "attn_wgmma.cuh").read_text(), re.S).group(1)
+    assert tuple(sorted(int(x) for x in re.findall(r"d == (\d+)", rule))) \
+        == ops.WGMMA_HEAD_DIMS
+    forward = kernel.SOURCES[0].read_text()
+    backward = kernel.BWD_SOURCES[0].read_text()
+    for source in (forward, backward):
+        body = re.search(r"route_of\([^)]*\) \{.*?\n\}", source,
+                         re.S).group(0)
+        assert "bind_attn_wg::wgmma_head_dim(d)" in body
+        assert "% 64" not in body
+    switches = (
+        re.search(r"cudaError_t launch_wgmma\(.*?\n\}", forward, re.S),
+        re.search(r"inline cudaError_t launch\(.*?\n\}",
+                  (csrc / "attn_bwd_wgmma.cuh").read_text(), re.S))
+    for switch in switches:
+        cases = re.findall(r"case (\d+):", switch.group(0))
+        assert tuple(int(c) for c in cases) == ops.WGMMA_HEAD_DIMS
+
 KB = 1 << 10
 
 
@@ -259,11 +285,16 @@ KB = 1 << 10
        "f32_3xtf32" if d in (64, 128) else "f32_simt")
       for d in (16, 64, 80, 128, 256, 320)],
     (torch.float32, 128, (4, 8, 12, 20), "f32_simt"),
-    # bfloat16: tiles of 64 columns must cover d, up to 256
+    # bfloat16: the head dims of the 64-column panels, whole or with a last
+    # panel of 16 / 32 real columns, up to 256
     (torch.bfloat16, 16, (0, 16, 32, 48), "bf16_simt"),
+    (torch.bfloat16, 48, (0, 16, 32, 48), "bf16_simt"),
     (torch.bfloat16, 64, (0, 16, 32, 48), "bf16_wgmma"),
-    (torch.bfloat16, 80, (0, 16, 32, 48), "bf16_simt"),    # h2o-danube
+    (torch.bfloat16, 80, (0, 16, 32, 48), "bf16_wgmma"),   # h2o-danube
+    (torch.bfloat16, 96, (0, 16, 32, 48), "bf16_wgmma"),   # Phi-3-vision
+    (torch.bfloat16, 112, (0, 16, 32, 48), "bf16_simt"),
     (torch.bfloat16, 128, (0, 16, 32, 48), "bf16_wgmma"),  # Qwen3-14B
+    (torch.bfloat16, 160, (0, 16, 32, 48), "bf16_simt"),
     (torch.bfloat16, 192, (0, 16, 32, 48), "bf16_wgmma"),
     (torch.bfloat16, 256, (0, 16, 32, 48), "bf16_wgmma"),  # RecurrentGemma
     (torch.bfloat16, 320, (0, 16, 32, 48), "bf16_simt"),
@@ -273,7 +304,10 @@ KB = 1 << 10
     (torch.bfloat16, 128, (0, 8, 32, 48), "bf16_simt"),
     (torch.bfloat16, 128, (0, 16, 34, 48), "bf16_simt"),
     (torch.bfloat16, 256, (0, 16, 32, 56), "bf16_simt"),
+    (torch.bfloat16, 96, (0, 16, 34, 48), "bf16_simt"),
+    (torch.bfloat16, 80, (0, 16, 32, 50), "bf16_simt"),
     (torch.bfloat16, 128, (), "bf16_wgmma"),
+    (torch.bfloat16, 96, (), "bf16_wgmma"),
 ])
 def test_route_by_dtype_head_dim_and_alignment(dtype, d, addresses, want):
     assert ops.route(dtype, d, addresses) == want
@@ -383,6 +417,10 @@ GRAD_CASES = [
     *ATTN_CASES,                                  # MHA, GQA 2:1, MQA, ...
     (1, 8, 2, 40, 40, 16, True, 12),              # GQA 4:1, windowed
     (2, 4, 1, 37, 37, 8, True, 9),                # MQA, ragged, windowed
+    # the head dims whose last 64-column panel is partly real on the card
+    (1, 4, 1, 48, 48, 80, True, None),            # h2o-danube: GQA 4:1
+    (1, 2, 2, 40, 40, 96, True, None),            # Phi-3-vision: MHA
+    (1, 4, 2, 33, 33, 96, True, 10),              # GQA, ragged, windowed
 ]
 
 
@@ -541,17 +579,22 @@ _ALIGNED6 = (0, 16, 32, 48, 64, 80)
     # bfloat16 with a saved log-sum-exp: tiles of 64 columns must cover d,
     # up to 256
     *[(torch.bfloat16, d, _ALIGNED6,
-       "bf16_wgmma" if d in (64, 128, 192, 256) else "bf16_simt")
-      for d in (16, 64, 80, 128, 192, 256)],
+       "bf16_wgmma" if d in (64, 80, 96, 128, 192, 256) else "bf16_simt")
+      for d in (16, 48, 64, 80, 96, 112, 128, 160, 192, 256)],
     (torch.bfloat16, 128, (), "bf16_wgmma"),
+    (torch.bfloat16, 96, (), "bf16_wgmma"),
     # and TMA must read each of the six operands
     *[(torch.bfloat16, 128, _ALIGNED6[:i] + (_ALIGNED6[i] + 2,)
+       + _ALIGNED6[i + 1:], "bf16_simt") for i in range(6)],
+    *[(torch.bfloat16, 96, _ALIGNED6[:i] + (_ALIGNED6[i] + 2,)
        + _ALIGNED6[i + 1:], "bf16_simt") for i in range(6)],
     # no log-sum-exp saved (an f32 forward, a misaligned forward, a call
     # without one)
     (torch.bfloat16, 256, _ALIGNED6[:5] + (None,), "bf16_simt"),
     (torch.bfloat16, 256, _ALIGNED6[:5] + (0,), "bf16_simt"),
     (torch.bfloat16, 256, _ALIGNED6[:5], "bf16_simt"),
+    (torch.bfloat16, 96, _ALIGNED6[:5] + (None,), "bf16_simt"),
+    (torch.bfloat16, 80, _ALIGNED6[:5] + (0,), "bf16_simt"),
     # float32 and float16 stay on the CUDA cores, saved log-sum-exp or not
     (torch.float32, 128, _ALIGNED6, "f32_simt"),
     (torch.float32, 256, (), "f32_simt"),
@@ -815,3 +858,44 @@ def test_backward_entry_point_on_the_cpu_takes_the_lse_route(rng,
     with pytest.raises(ValueError, match="lse must be"):
         ops.flash_attention_bwd(q, k, v, out, dout, lse=lse[:, :2])
     assert ops.flash_attention_bwd.launches == 0
+
+
+
+@pytest.mark.parametrize("d, hq, hkv, window", [(80, 4, 1, None),
+                                                (96, 2, 2, None),
+                                                (96, 4, 2, 20)])
+def test_bf16_at_d_80_and_96_differentiates_through_the_lse_route(
+        d, hq, hkv, window, rng, monkeypatch):
+    """h2o-danube's d 80 and Phi-3-vision's d 96 take both tensor-core
+    routes on the card, so a bf16 call that records a gradient saves the
+    CPU forward's log-sum-exp and its backward is their plain version,
+    ``ref.attention_grad_lse``, never ``ref.attention_grad``; the
+    gradient matches ``jax.grad`` of the oracle on the bf16 inputs within
+    the bf16 tolerance."""
+    b, s = 1, 40
+    assert ops.route(torch.bfloat16, d) == "bf16_wgmma"
+    assert ops.bwd_route(torch.bfloat16, d) == "bf16_wgmma"
+    qkv = _qkv(rng, b, hq, hkv, s, s, d)
+    dout = torch.from_numpy(rng.normal(size=(b, hq, s, d)).astype(
+        np.float32)).to(torch.bfloat16)
+    calls = []
+    plain = ref.attention_grad_lse
+
+    def counting(*args, **kwargs):
+        calls.append(kwargs)
+        return plain(*args, **kwargs)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the CUDA-core route's plain version ran")
+
+    monkeypatch.setattr(ref, "attention_grad_lse", counting)
+    monkeypatch.setattr(ref, "attention_grad", refused)
+    q, k, v = (torch.from_numpy(t).to(torch.bfloat16).requires_grad_(True)
+               for t in qkv)
+    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    out.backward(dout)
+    assert len(calls) == 1
+    got = [t.grad.float().numpy() for t in (q, k, v)]
+    want = _ref_grads([t.detach().float().numpy() for t in (q, k, v)],
+                      dout.float().numpy(), causal=True, window=window)
+    _close_grads(got, want, tol=3e-2)

@@ -26,39 +26,49 @@ C entry points on the same inputs:
   of 8 heads, when the other side took ``f32_simt``;
 * flash attention in bfloat16 at the same cases with the head dim raised
   to 64 and 128, at ``chip_smoke.py``'s ``MID_ATTN`` cases (many key tiles
-  per query tile) at d 64, 128, 192 and 256, at d 80 and at full width:
-  each side within the reference's bf16 tolerance (3e-2) of the oracle on
-  the padded inputs and within ``chip_smoke.py``'s limits scaled to each
-  value against the float32 oracle (``bf16_attention_error``), and a row
-  that sees no key exactly zero; the route each side takes is printed (a
-  side without ``bind_flash_attention_route`` has one loop);
+  per query tile) at every head dim of ``MID_HEAD_DIMS`` (64, 80, 96, 128,
+  192, 256), at h2o-danube's d 80 and at full width: each side within the
+  reference's bf16 tolerance (3e-2) of the oracle on the padded inputs
+  and within ``chip_smoke.py``'s limits scaled to each value against the
+  float32 oracle (``bf16_attention_error``), and a row that sees no key
+  exactly zero; where both sides take ``bf16_wgmma``, this side's output
+  bit for bit the other's; the route each side takes is printed (a side
+  without ``bind_flash_attention_route`` has one loop);
 * where this side has ``bind_flash_attention_bf16_lse`` (the forward
   that hands the backward each row's log-sum-exp), its output on every
-  bf16 case that takes ``bf16_wgmma`` bit for bit the other side's
+  bf16 case that takes ``bf16_wgmma`` bit for bit its own
   ``bind_flash_attention_bf16`` output, and its log-sum-exp within
   ``LSE_TOL`` of the plain version's (``ref.attention_lse`` in float32 on
-  the same inputs; +inf on exactly the rows that see no key);
+  the same inputs; +inf on exactly the rows that see no key) and, where
+  the other side has the entry point and takes ``bf16_wgmma`` too, bit for
+  bit the other side's;
 * the attention backward (``.../flash_attention/csrc/
   flash_attention_bwd.cu``, where the other side has one) in float32 and
   bfloat16 at the reference's cases at d 64 and 128, at ``MID_ATTN``
   (float32 at d 64 and 128, bfloat16 at ``MID_HEAD_DIMS``) and at
   ``chip_smoke.py``'s ``BWD_SHAPES``: on the CUDA-core routes
   (``f32_simt``, ``bf16_simt``: the ``bind_flash_attention_bwd_{f32,bf16}``
-  entry points) bit for bit the other side's, and, where this side has
-  ``bind_flash_attention_bwd_bf16_lse``, its ``bf16_wgmma`` route, given
-  this side's log-sum-exp, within ``chip_smoke.py``'s ``BF16_SLICE_NRMS``
-  rms per head slice of the plain version (``ref.attention_grad`` in
-  float32);
+  entry points) bit for bit the other side's, and, where this side's
+  ``bind_flash_attention_bwd_route`` gives ``bf16_wgmma``, that route,
+  given this side's log-sum-exp, within ``chip_smoke.py``'s
+  ``BF16_SLICE_NRMS`` rms per head slice of the plain version
+  (``ref.attention_grad`` in float32) and, where the other side takes
+  ``bf16_wgmma`` too, dq, dk and dv bit for bit the other side's on the
+  same inputs and log-sum-exp (where it does not, as the parent of the
+  d 80 / 96 routes does not, held to the plain version only);
 * ``chain_attn`` in float32, bfloat16 and float64 at ``chip_smoke.py``'s
   two shapes (a 512-row Qwen3-14B tile x 16 levels of 512 keys, and a
   ragged (100, 70, d 40, dv 24) x 3) in its three layouts: bit for bit
   equal on the two sides (a side whose entry point takes a workspace and
   row-tile counters gets them);
 * the kernels are timed with CUDA events in the order other, this, this,
-  other: flash attention at both full widths in both dtypes, the
-  backward at ``BWD_SHAPES`` (the other side's bf16 entry point against
-  this side's ``bf16_wgmma`` where it has one; float32 on ``f32_simt``),
-  and ``chain_attn`` at the 512-row tile in float32.
+  other: flash attention at both full widths in both dtypes and at
+  ``FAMILY_ATTN``'s shapes whose head dim is no multiple of 64
+  (Phi-3-vision's d 96, h2o-danube's d 80) in bf16, each side on the
+  route it takes; the backward at ``BWD_SHAPES`` and those two shapes
+  (each side's ``bf16_wgmma`` where its route takes it, else its bf16
+  CUDA-core entry point; float32 on ``f32_simt``); and ``chain_attn`` at
+  the 512-row tile in float32.
 
 The card's name and power limit come first.  Exits non-zero on the first
 disagreement.
@@ -73,7 +83,8 @@ from pathlib import Path
 
 from _ab import KERNELS, ROOT, ab, build_all, start
 from chip_smoke import (ATTN_CASES, ATTN_TOL, BF16_SLICE_NRMS, BWD_SHAPES,
-                        FULL_ATTN, MID_ATTN, MID_HEAD_DIMS, ODD_ATTN,
+                        FAMILY_ATTN, FULL_ATTN, MID_ATTN, MID_HEAD_DIMS,
+                        ODD_ATTN,
                         TF32_VS_SIMT, attention64, bf16_attention_error,
                         bf16_within, slice_nrms)
 
@@ -99,6 +110,11 @@ FA_LSE_ARGS = FA_ARGS[:4] + (_P,) + FA_ARGS[4:]
 BWD_ARGS = (_P,) * 10 + (_I64,) * 6 + (_D, _I, _I, _I64, _P)
 BWD_LSE_SYMBOL = "bind_flash_attention_bwd_bf16_lse"
 BWD_LSE_ARGS = (_P,) * 11 + (_I64,) * 6 + (_D, _I, _I, _I64, _I64, _P)
+# the backward's route: (element-type code, d, q, k, v, out, dout, lse),
+# an index of BWD_ROUTES
+BWD_ROUTE_SYMBOL = "bind_flash_attention_bwd_route"
+BWD_ROUTE_ARGS = (_I, _I64) + (_P,) * 6
+BWD_ROUTES = ("f32_simt", "bf16_simt", "f16_simt", "bf16_wgmma")
 # the log-sum-exp against the plain version's in float32 on the same bf16
 # inputs: the same f32 scores summed in another order, one MUFU ex2 a key
 # (a few float32 ulps of values up to ~10)
@@ -131,6 +147,8 @@ def libraries(CudaLibrary, side: str, root: Path):
                     for s in FA_SUFFIX.values()}
         if BWD_LSE_SYMBOL in bwd_cu.read_text():
             bwd_syms[BWD_LSE_SYMBOL] = BWD_LSE_ARGS
+        if BWD_ROUTE_SYMBOL in bwd_cu.read_text():
+            bwd_syms[BWD_ROUTE_SYMBOL] = BWD_ROUTE_ARGS
         bwd = CudaLibrary(f"ab_fa_bwd_{side}", (bwd_cu,), headers, bwd_syms)
     fa = CudaLibrary(f"ab_fa_{side}", (fa_dir / "flash_attention.cu",),
                      headers, fa_syms)
@@ -211,21 +229,32 @@ def main(argv: list[str]) -> int:
         seen = fa_ref.mask(q.shape[2], k.shape[2], causal=causal,
                            window=window, device=dev)
         blind = ~seen.any(dim=-1)
+        both_wgmma = routes["this"] == routes["other"] == "bf16_wgmma"
         lse_ok, lse_what = True, ""
+        if both_wgmma:
+            lse_ok = torch.equal(outs["this"], outs["other"])
+            lse_what = "; both bf16_wgmma: out bit for bit the other's"
         if routes["this"] == "bf16_wgmma" and LSE_SYMBOL in libs["this"][0] \
                 .symbols:
-            out, lse = lse_call(q, k, v, causal, window)
+            out, lse = lse_call("this", q, k, v, causal, window)
             _, want = fa_ref.attention_lse(q.float(), k.float(), v.float(),
                                            causal=causal, window=window)
             fin = torch.isfinite(want)
             lerr = ((lse[fin] - want[fin]).abs().max().item()
                     if fin.any() else 0.0)
-            lse_ok = (torch.equal(out, outs["other"])
+            lse_ok = (lse_ok and torch.equal(out, outs["this"])
                       and torch.equal(torch.isinf(lse), ~fin)
                       and bool((lse[~fin] > 0).all()) and lerr <= LSE_TOL)
-            lse_what = (f"; with the log-sum-exp: out bit for bit the "
-                        f"other's, lse within {lerr:.2e} (<= {LSE_TOL}), "
-                        f"+inf on the {int((~fin).sum())} blind rows")
+            lse_what += (f"; with the log-sum-exp: out bit for bit the "
+                         f"entry point's without it, lse within {lerr:.2e} "
+                         f"(<= {LSE_TOL}), +inf on the {int((~fin).sum())} "
+                         f"blind rows")
+            if both_wgmma and LSE_SYMBOL in libs["other"][0].symbols:
+                out2, lse2 = lse_call("other", q, k, v, causal, window)
+                lse_ok = (lse_ok and torch.equal(out, out2)
+                          and torch.equal(lse, lse2))
+                lse_what += ", out and lse bit for bit the other's"
+                del out2, lse2
         name = (f"flash_attention {label}{(b, hq, hkv, sq, skv, d)} causal "
                 f"{causal} window {window} {dname} (routes: this "
                 f"{routes['this']}, other {routes['other']})")
@@ -273,12 +302,12 @@ def main(argv: list[str]) -> int:
               f"; this vs oracle max_abs_err {err:.3e}")
         return ok
 
-    def lse_call(q, k, v, causal, window):
-        """This side's bf16 forward with each row's log-sum-exp."""
+    def lse_call(side, q, k, v, causal, window):
+        """The side's bf16 forward with each row's log-sum-exp."""
         b, hq, sq, d = q.shape
         out = torch.empty_like(q)
         lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
-        libs["this"][0].call(
+        libs[side][0].call(
             LSE_SYMBOL, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), b, hq, k.shape[1], sq,
             k.shape[2], d, d ** -0.5, int(causal), int(window is not None),
@@ -302,8 +331,8 @@ def main(argv: list[str]) -> int:
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    def bwd_wgmma_call(q, k, v, out, dout, lse, causal, window):
-        """This side's bf16 backward on the tensor cores."""
+    def bwd_wgmma_call(side, q, k, v, out, dout, lse, causal, window):
+        """The side's bf16 backward on the tensor cores."""
         b, hq, sq, d = q.shape
         hkv, skv = k.shape[1], k.shape[2]
         grads = tuple(torch.empty_like(t) for t in (q, k, v))
@@ -311,7 +340,7 @@ def main(argv: list[str]) -> int:
         groups = fa_kernel.dkv_groups(hq, hkv, b, skv, sms)
         part = (torch.empty((2, b, groups, hkv, skv, d), dtype=torch.float32,
                             device=dev) if groups > 1 else None)
-        libs["this"][3].call(
+        libs[side][3].call(
             BWD_LSE_SYMBOL,
             *(t.data_ptr() for t in (q, k, v, out, dout, *grads, lse,
                                      delta)),
@@ -320,9 +349,26 @@ def main(argv: list[str]) -> int:
             0 if window is None else window, groups, stream)
         return grads
 
-    def wgmma_bwd(q):
-        return (str(q.dtype) == "torch.bfloat16" and q.shape[3] % 64 == 0
-                and BWD_LSE_SYMBOL in libs["this"][3].symbols)
+    def bwd_route(side, q, k, v, out, dout, lse):
+        """The route the side's backward takes on these operands, given
+        the log-sum-exp ``lse`` (None: a side without the route entry
+        point)."""
+        bwd = libs[side][3]
+        if BWD_ROUTE_SYMBOL not in bwd.symbols:
+            return None
+        r = bwd.load().bind_flash_attention_bwd_route(
+            DTYPE_CODES[str(q.dtype)[6:]], q.shape[3],
+            *(t.data_ptr() for t in (q, k, v, out, dout, lse)))
+        return BWD_ROUTES[r]
+
+    def wgmma_bwd(side, q, k, v, out, dout):
+        """Whether the side's backward takes bf16_wgmma on these operands
+        with the forward's log-sum-exp."""
+        if (str(q.dtype) != "torch.bfloat16"
+                or BWD_LSE_SYMBOL not in libs[side][3].symbols):
+            return False
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
+        return bwd_route(side, q, k, v, out, dout, lse) == "bf16_wgmma"
 
     def bwd_case(label, shape, dname, blk):
         b, hq, hkv, sq, skv, d, causal, window = shape
@@ -342,9 +388,10 @@ def main(argv: list[str]) -> int:
         what = (f"{'f32' if dname == 'float32' else 'bf16'}_simt this vs "
                 f"other bitwise equal")
         del got
-        if wgmma_bwd(q):
-            out, lse = lse_call(q, k, v, causal, window)
-            grads = bwd_wgmma_call(q, k, v, out, dout, lse, causal, window)
+        if wgmma_bwd("this", q, k, v, out, dout):
+            out, lse = lse_call("this", q, k, v, causal, window)
+            grads = bwd_wgmma_call("this", q, k, v, out, dout, lse, causal,
+                                   window)
             exp = fa_ref.attention_grad(q.float(), k.float(), v.float(),
                                         dout.float(), causal=causal,
                                         window=window)
@@ -352,6 +399,17 @@ def main(argv: list[str]) -> int:
             ok = ok and nrms <= BF16_SLICE_NRMS
             what += (f"; bf16_wgmma within {nrms:.2e} rms per head slice of "
                      f"the plain version (<= {BF16_SLICE_NRMS:.2e})")
+            if wgmma_bwd("other", q, k, v, out, dout):
+                other = bwd_wgmma_call("other", q, k, v, out, dout, lse,
+                                       causal, window)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, c) for a, c in zip(grads, other))
+                ok = ok and same
+                what += (f", dq, dk, dv bit for bit the other side's "
+                         f"bf16_wgmma: {same}")
+                del other
+            else:
+                what += " (the other side's bf16 route is the CUDA cores)"
         print(f"[check] flash_attention_bwd {label}{(b, hq, hkv, sq, skv, d)}"
               f" causal {causal} window {window} {dname}: {what}: "
               f"{'ok' if ok else 'FAILED'}")
@@ -451,8 +509,16 @@ def main(argv: list[str]) -> int:
     print(f"[check] row-tile counters left at zero: "
           f"{all(not t.any().item() for t in done.values())}")
 
-    for model, (b, hq, hkv, s, d, window) in FULL_ATTN.items():
-        for dname in ("float32", "bfloat16"):
+    # (B, Hq, Hkv, S, D, window, dtypes) of the timed forwards and
+    # backwards: the full widths, and the families' shapes whose last
+    # 64-column panel is partly real
+    timed = {**{model: (b, hq, hkv, s, d, window, ("float32", "bfloat16"))
+                for model, (b, hq, hkv, s, d, window) in FULL_ATTN.items()},
+             **{model: (b, hq, hkv, sq, d, None, ("bfloat16",))
+                for model, (b, hq, hkv, sq, skv, d, causal)
+                in FAMILY_ATTN.items() if d % 64 and causal and sq == skv}}
+    for model, (b, hq, hkv, s, d, window, dnames) in timed.items():
+        for dname in dnames:
             dt = getattr(torch, dname)
             q = rand((b, hq, s, d), dt)
             k, v = rand((b, hkv, s, d), dt), rand((b, hkv, s, d), dt)
@@ -463,7 +529,9 @@ def main(argv: list[str]) -> int:
                lambda side: fa_call(side, q, k, v, out, True, window), 5, 1)
             del q, k, v, out
     if libs["this"][3] is not None and libs["other"][3] is not None:
-        for model, (b, hq, hkv, s, d, window, dnames) in BWD_SHAPES.items():
+        shapes = {**BWD_SHAPES, **{m: t for m, t in timed.items()
+                                   if m not in FULL_ATTN}}
+        for model, (b, hq, hkv, s, d, window, dnames) in shapes.items():
             for dname in dnames:
                 dt = getattr(torch, dname)
                 q = rand((b, hq, s, d), dt)
@@ -471,27 +539,27 @@ def main(argv: list[str]) -> int:
                 dout = rand(q.shape, dt)
                 out = torch.empty_like(q)
                 fa_call("this", q, k, v, out, True, window)
-                if wgmma_bwd(q):
-                    out, lse = lse_call(q, k, v, True, window)
-                    label = "this bf16_wgmma, other bf16_simt"
+                lse = None
+                if wgmma_bwd("this", q, k, v, out, dout):
+                    out, lse = lse_call("this", q, k, v, True, window)
+                # each side on the route its library takes with the
+                # forward's log-sum-exp
+                wgmma = {side: lse is not None
+                         and wgmma_bwd(side, q, k, v, out, dout)
+                         for side in libs}
+                label = ", ".join(
+                    f"{side} {'bf16_wgmma' if wgmma[side] else 'CUDA cores'}"
+                    for side in ("this", "other"))
 
-                    def run(side, q=q, k=k, v=v, out=out, dout=dout,
-                            lse=lse, window=window):
-                        if side == "this":
-                            return bwd_wgmma_call(q, k, v, out, dout, lse,
-                                                  True, window)
-                        return bwd_call(side, q, k, v, out, dout, True,
-                                        window)
-                else:
-                    label = "both sides' CUDA-core route"
-
-                    def run(side, q=q, k=k, v=v, out=out, dout=dout,
-                            window=window):
-                        return bwd_call(side, q, k, v, out, dout, True,
-                                        window)
+                def run(side, q=q, k=k, v=v, out=out, dout=dout, lse=lse,
+                        window=window, wgmma=wgmma):
+                    if wgmma[side]:
+                        return bwd_wgmma_call(side, q, k, v, out, dout, lse,
+                                              True, window)
+                    return bwd_call(side, q, k, v, out, dout, True, window)
                 ab(torch, f"flash_attention_bwd {model} {dname} ({label})",
                    run, 5, 1)
-                del q, k, v, out, dout
+                del q, k, v, out, dout, lse
     m, n, d, dv, L = CHAIN_SHAPES[0]
     (o, q, k, v), (qs, ks, vs) = chain_operands(CHAIN_LAYOUTS[0], m, n, d,
                                                 dv, L, torch.float32)

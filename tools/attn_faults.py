@@ -63,6 +63,14 @@ FAULTS = (
     ("window one key wider", "bfloat16", "attn_wgmma.cuh",
      "vis = vis && row - key < mask.window;",
      "vis = vis && row - key <= mask.window;", True),
+    # the last 64-column panel of d 80 / 96, partly real: its k16 slices
+    # of Q K^T, and its P V product at N = d % 64
+    ("last panel left out of Q K^T", "bfloat16", "attn_wgmma.cuh",
+     "  for (int kk = 0; kk < D / 16; ++kk) {",
+     "  for (int kk = 0; kk < D / 64 * 4; ++kk) {", True),
+    ("last panel left out of P V", "bfloat16", "attn_wgmma.cuh",
+     "    if constexpr (D % 64 != 0)\n      wgmma_rs(first<D % 64>",
+     "    if constexpr (false)\n      wgmma_rs(first<D % 64>", True),
     ("l rounded to bf16 every tile", "bfloat16", "attn_wgmma.cuh",
      "l[h] = corr[h] * l[h] + sum[h];",
      "l[h] = __bfloat162float(__float2bfloat16(corr[h] * l[h] + sum[h]));",
