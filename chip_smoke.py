@@ -60,10 +60,11 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    64 and 128 (the tensor-core routes) with a case whose rows past Skv +
    window see no key (exactly zero), f32 and bf16 cases with many key
    tiles per query tile (``MID_ATTN``: causal, windowed, ragged,
-   non-causal; f32 at d 64 and 128, bf16 at 64, 80, 96, 128, 192 and
-   256), bf16 views at an odd offset at d 128 and 96 and f32 ones (the
+   non-causal; f32 at d 64, 80, 96 and 128, bf16 at 64, 80, 96, 128, 192
+   and 256), bf16 views at an odd offset at d 128 and 96 and f32 ones (the
    CUDA cores), float16 (the CUDA cores), h2o-danube-1.8b's head dim 80
-   (bf16 on the tensor cores, its last 64-column panel 16 columns) and,
+   (bf16 and, since its 32-column panels take a last one of 16 columns,
+   f32 on the tensor cores) and,
    through the entry point with every count zeroed just before, at full
    width: RecurrentGemma-9B local attention (16 heads over 1, S 8192, D
    256, window 2048) and Qwen3-14B (40 over 8, S 8192, D 128), causal, f32
@@ -320,8 +321,8 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    rank's replica, masters and moments bit for bit rank 0's after every
    step, every step's copies and bytes the schedule's closed-form count
    (``launch/meter_gradsync.py``), 8 ``flash_attention`` and 8
-   ``flash_attention_bwd`` launches a step on ``f32_simt``, no plain
-   version; the warm step wall, busy share, copies and GiB a step; then
+   ``flash_attention_bwd`` launches a step on ``f32_3xtf32`` (DP_ROUTE), no
+   plain version; the warm step wall, busy share, copies and GiB a step; then
    Moonshot's expert parallelism at its published widths, 4 layers, bf16:
    a 2 x 4096 prefill under ``make_policy(make_host_mesh(1, 4))`` (16
    experts a rank, two ``all_to_all`` a layer) with 4 ``bf16_wgmma``
@@ -338,7 +339,7 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    published 24 layers (which four DP replicas with AdamW state could not
    hold) with its wall, model FLOP/s, busy share, peak memory and
    resident bytes a rank; each with its copies, bytes and resident bytes
-   the closed form, 2 forward and 1 backward ``f32_simt`` launches a
+   the closed form, 2 forward and 1 backward ``f32_3xtf32`` launches a
    layer a step; the Moonshot prefill again with the weights at rest
    (the experts on the expert axis): logits bit for bit, the expert
    splits gone, splits and copies the closed form; 8 decode steps with
@@ -377,6 +378,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -612,6 +614,49 @@ def attention64(torch, fa_ref, q, k, v, causal, window, heads=None):
             p = torch.where(any_seen, torch.softmax(sc, dim=-1), 0.0)
             out[bi, i] = p @ v[bi, h // group].double()
     return out
+
+
+def attention_grad64(torch, fa_ref, q, k, v, dout, causal, window):
+    """float64 (dq, dk, dv) of attention of ``q`` over ``k``, ``v`` for the
+    output gradient ``dout`` (the port's ``flash_attention.ref`` masks and
+    its ``attention_grad``'s arithmetic, each product in float64): the
+    yardstick of the f32_3xtf32 backward's accuracy."""
+    b, hq, sq, d = q.shape
+    group = hq // k.shape[1]
+    seen = fa_ref.mask(sq, k.shape[2], causal=causal, window=window,
+                       device=q.device)
+    any_seen = seen.any(dim=-1, keepdim=True)
+    f64 = torch.float64
+    dq = torch.empty(q.shape, dtype=f64, device=q.device)
+    dk = torch.zeros(k.shape, dtype=f64, device=q.device)
+    dv = torch.zeros(v.shape, dtype=f64, device=q.device)
+    for bi in range(b):
+        for h in range(hq):
+            qq, g = q[bi, h].double(), dout[bi, h].double()
+            kk, vv = k[bi, h // group].double(), v[bi, h // group].double()
+            sc = torch.where(seen, (qq @ kk.T) * d ** -0.5, -1e300)
+            p = torch.where(any_seen, torch.softmax(sc, dim=-1), 0.0)
+            dp = g @ vv.T
+            ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+            ds = torch.where(seen, ds, 0.0) * d ** -0.5
+            dq[bi, h] = ds @ kk
+            dk[bi, h // group] += ds.T @ qq
+            dv[bi, h // group] += p.T @ g
+    return dq, dk, dv
+
+
+def tf32_vs_simt(got, simt, exact, heads: int = 8) -> float:
+    """The largest ratio, over slices of at most ``heads`` heads (dim 1),
+    of ``got``'s largest |error| against ``exact`` (float64) to
+    ``simt``'s (the f32_simt route's on the same inputs): at most
+    TF32_VS_SIMT for an f32_3xtf32 result."""
+    worst = 0.0
+    for h0 in range(0, got.shape[1], heads):
+        sl = slice(h0, h0 + heads)
+        e = (got[:, sl].double() - exact[:, sl]).abs().max().item()
+        base = (simt[:, sl].double() - exact[:, sl]).abs().max().item()
+        worst = max(worst, e / max(base, 1e-30))
+    return worst
 
 
 def bf16_attention_error(got, exp32, v) -> dict:
@@ -1319,9 +1364,13 @@ BWD_WGMMA_KERNELS = ("attention_bwd_delta_kernel",
                      "attention_bwd_dq_wgmma_kernel",
                      "attention_bwd_dkv_wgmma_kernel",
                      "attention_bwd_dkv_sum_kernel")
+# (and in float32, where the f32_3xtf32 route takes it: Qwen3-14B's width
+# and h2o-danube-1.8b's FSDP step shape, [lm_mesh]'s (d) / (e))
 BWD_SHAPES = {"RecurrentGemma-9B": (1, 16, 1, 4096, 256, 2048,
                                     ("bfloat16", "float32")),
-              "Qwen3-14B": (1, 40, 8, 4096, 128, None, ("bfloat16",))}
+              "Qwen3-14B": (1, 40, 8, 4096, 128, None,
+                            ("bfloat16", "float32")),
+              "h2o-danube-1.8b": (8, 32, 8, 1024, 80, 4096, ("float32",))}
 
 
 def odd_offset(t):
@@ -1670,8 +1719,15 @@ def train_phase(torch, dev, card: str, zero_counts, counts) -> dict:
     loss_k, grads_k = loss_and_grads()
     sync()
     got = counts()
-    want32 = {"flash_attention": {"f32_simt": 2},
-              "flash_attention_bwd": {"f32_simt": 1},
+    # the routes the rule gives RecurrentGemma-9B's d 256 in float32: the
+    # CUDA cores both ways (outside TF32_HEAD_DIMS, so the forward saves
+    # no log-sum-exp)
+    fwd32 = fa_ops.route(torch.float32, cfg.head_dim)
+    bwd32 = fa_ops.bwd_route(torch.float32, cfg.head_dim, (0,) * 5 + (None,))
+    check((fwd32, bwd32) == ("f32_simt", "f32_simt"), f"[train] float32 "
+          f"routes {fwd32} / {bwd32} at d {cfg.head_dim}")
+    want32 = {"flash_attention": {fwd32: 2},
+              "flash_attention_bwd": {bwd32: 1},
               "linear_scan": {"tma": 6}}
     routes = {"flash_attention": fa_ops.flash_attention.routes,
               "flash_attention_bwd": fa_ops.flash_attention_bwd.routes,
@@ -1717,7 +1773,7 @@ def train_phase(torch, dev, card: str, zero_counts, counts) -> dict:
             worst, worst_name = rel, name
     print(f"[train] float32 step ({TRAIN_LAYERS} layers, B {TRAIN_BATCH} x "
           f"S {TRAIN_SEQ}): loss {loss_k.item():.6f} through the kernels "
-          f"(flash_attention f32_simt x 2, its backward f32_simt x 1, "
+          f"(flash_attention {fwd32} x 2, its backward {bwd32} x 1, "
           f"linear_scan tma x 6), {loss_p.item():.6f} on the plain versions "
           f"on the card ({t_plain:.3f} s; relative difference "
           f"{loss_err:.3e}); all {len(grads_p)} gradients within "
@@ -1755,6 +1811,11 @@ def train_phase(torch, dev, card: str, zero_counts, counts) -> dict:
             # each route's time at both widths
             route_ms={f"{name} {dname}": times["route_ms"]
                       for (name, dname), times in bwd_times.items()}),
+        # the float32 route on the tensor cores at h2o-danube-1.8b's FSDP
+        # step shape ([lm_mesh]'s path), and at Qwen3-14B's width
+        "flash_attention_bwd.f32": dict(
+            bwd_times[("h2o-danube-1.8b", "float32")],
+            qwen3=bwd_times[("Qwen3-14B", "float32")]),
     }
 
 
@@ -1764,14 +1825,18 @@ def attention_bwd_timed(torch, dev, gen, card: str, name: str, dname: str,
     """The attention backward at one shape, on each route its dtype has
     here (bf16: ``bf16_wgmma`` with the forward's log-sum-exp, and
     ``bf16_simt``, forced by handing it q as a view at an odd element
-    offset; f32: ``f32_simt``): held to its plain version (float32 on the
-    same inputs: rms error per head slice within BF16_SLICE_NRMS in bf16,
-    BWD_F32_NRMS in f32) and to a second call of itself (bit for bit), and
-    timed beside its bound, the plain version and SDPA's backward (a
-    yardstick the port never calls: an explicit mask for a window);
-    ``bf16_wgmma`` must beat both the plain version and ``bf16_simt``.
-    Returns the ``kernels`` line's numbers: those of the route the
-    training step takes, and each route's time."""
+    offset; f32: ``f32_3xtf32`` with the forward's log-sum-exp where d is
+    one of TF32_HEAD_DIMS, and ``f32_simt``, without one): held to its
+    plain version (float32 on the same inputs: rms error per head slice
+    within BF16_SLICE_NRMS in bf16, BWD_F32_NRMS in f32) and to a second
+    call of itself (bit for bit), ``f32_3xtf32`` also to float64 (at most
+    TF32_VS_SIMT times ``f32_simt``'s error on the same inputs, per slice
+    of 8 heads), and timed beside its bound, the plain version and SDPA's
+    backward (a yardstick the port never calls: an explicit mask for a
+    window); each tensor-core route must beat its dtype's CUDA-core route,
+    ``bf16_wgmma`` the plain version too.  Returns the ``kernels`` line's
+    numbers: those of the route the training step takes, and each route's
+    time."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
@@ -1794,7 +1859,13 @@ def attention_bwd_timed(torch, dev, gen, card: str, name: str, dname: str,
             odd, k, v, out, dout, lse))] = (odd, lse)
         check(set(calls) == {"bf16_wgmma", "bf16_simt"},
               f"[train] attention backward {name}: routes {set(calls)}")
-    routes = {}
+    elif d in fa_ops.TF32_HEAD_DIMS:
+        # the CUDA-core route on the same operands: no log-sum-exp
+        calls[fa_ops.bwd_route(dt, d, fa_ops._bwd_addresses(
+            q, k, v, out, dout, None))] = (q, None)
+        check(set(calls) == {"f32_3xtf32", "f32_simt"},
+              f"[train] attention backward {name}: routes {set(calls)}")
+    routes, grads = {}, {}
     for route, (qq, saved) in calls.items():
         fa_ops.flash_attention_bwd.routes = {}
         got = fa_ops.flash_attention_bwd(qq, k, v, out, dout, lse=saved,
@@ -1816,12 +1887,29 @@ def attention_bwd_timed(torch, dev, gen, card: str, name: str, dname: str,
         check(nrms <= limit, f"[train] attention backward {name} {dname} "
               f"{route}: rms error per head slice {nrms:.3e} (> "
               f"{limit:.3e})")
+        if route.startswith("f32") and len(calls) > 1:
+            grads[route] = got
         del got
         ms = time_ms(torch, lambda qq=qq, saved=saved:
                      fa_ops.flash_attention_bwd(qq, k, v, out, dout,
                                                 lse=saved, **kw),
                      iters=20 if route == "bf16_wgmma" else 5, warmup=1)
         routes[route] = dict(ms=ms, nrms=nrms, max_abs_err=err)
+    if grads:
+        # f32_3xtf32 against float64, beside f32_simt on the same inputs
+        exact = attention_grad64(torch, fa_ref, q, k, v, dout, True, window)
+        ratio = max(tf32_vs_simt(g, s_, x) for g, s_, x in zip(
+            grads["f32_3xtf32"], grads["f32_simt"], exact))
+        check(ratio <= TF32_VS_SIMT, f"[train] attention backward {name} "
+              f"f32_3xtf32: {ratio:.2f} x f32_simt's float64 error (limit "
+              f"{TF32_VS_SIMT})")
+        routes["f32_3xtf32"]["vs_simt"] = ratio
+        print(f"[train] attention backward {name} float32: f32_3xtf32 "
+              f"against float64 at most {ratio:.2f} x f32_simt's error on "
+              f"the same inputs per slice of 8 heads (limit "
+              f"{TF32_VS_SIMT})")
+        del exact
+    grads.clear()
     del exp, odd
     plain_ms = time_ms(torch, lambda: fa_ref.attention_grad(
         q, k, v, dout, **kw), iters=2, warmup=1)
@@ -1839,13 +1927,16 @@ def attention_bwd_timed(torch, dev, gen, card: str, name: str, dname: str,
     nbytes = 4 * (q.numel() + k.numel()) * q.element_size()
     bnd, by = bound_ms(nbytes, flops, dname)
     for route, r in routes.items():
+        # f32_3xtf32's own bound: three TF32 products for each float32 one
+        rb = (bound_ms(nbytes, TF32_PRODUCTS * flops, "tf32")[0]
+              if route == "f32_3xtf32" else bnd)
         print(f"[train] attention backward {name} {dname} (q ({b}, {hq}, "
               f"{s}, {d}), k, v ({b}, {hkv}, {s}, {d}), window {window}, "
               f"{route}): {r['ms']:.3f} ms ({flops / r['ms'] / 1e9:.2f} "
               f"TFLOP/s of the 10 d FLOP a visible pair and head: the "
-              f"bound is {100 * bnd / r['ms']:.1f}% of the time), plain "
+              f"bound is {100 * rb / r['ms']:.1f}% of the time), plain "
               f"{plain_ms:.3f} ms, SDPA's backward {lib:.3f} ms, bound "
-              f"{bnd:.4f} ms ({by}, {flops:.3e} FLOP); against the plain "
+              f"{rb:.4f} ms ({by}, {flops:.3e} FLOP); against the plain "
               f"version rms error per head slice {r['nrms']:.3e} (<= "
               f"{limit:.3e}), max_abs_err {r['max_abs_err']:.3e}; two calls "
               f"bit for bit equal ({card})")
@@ -1855,11 +1946,19 @@ def attention_bwd_timed(torch, dev, gen, card: str, name: str, dname: str,
               f"[train] attention backward {name}: bf16_wgmma {fast:.3f} ms "
               f"is not below the plain version ({plain_ms:.3f}) and "
               f"bf16_simt ({routes['bf16_simt']['ms']:.3f})")
-    main_route = "bf16_wgmma" if "bf16_wgmma" in routes else next(
-        iter(routes))
+    if "f32_3xtf32" in routes:
+        fast = routes["f32_3xtf32"]["ms"]
+        check(fast < routes["f32_simt"]["ms"], f"[train] attention backward "
+              f"{name}: f32_3xtf32 {fast:.3f} ms is not below f32_simt "
+              f"({routes['f32_simt']['ms']:.3f})")
+    main_route = next(r for r in ("bf16_wgmma", "f32_3xtf32", *routes)
+                      if r in routes)
     r = routes[main_route]
+    # the 3xTF32 bound: three TF32 products for each float32 one
+    tf32_bnd = (bound_ms(nbytes, TF32_PRODUCTS * flops, "tf32")[0]
+                if main_route == "f32_3xtf32" else bnd)
     return dict(max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=plain_ms,
-                bound_ms=bnd, bound_by=by, library_ms=lib,
+                bound_ms=tf32_bnd, bound_by=by, library_ms=lib,
                 route_ms={k: v["ms"] for k, v in routes.items()})
 
 
@@ -1931,6 +2030,12 @@ FAMILY_ATTN = {
     "Phi-3-vision (32/32, d 96)": (2, 32, 32, 4096, 4096, 96, True),
     "h2o-danube (32/8, d 80)": (2, 32, 8, 4096, 4096, 80, True),
 }
+# float32 attention at the shape [lm_mesh]'s FSDP step gives it (the
+# whole batch of h2o-danube-1.8b, 8 x 1024, window 4096): the training
+# forward on f32_3xtf32, timed beside f32_simt on the same values, its
+# bound, its plain version and SDPA's; (B, Hq, Hkv, S, D, window)
+FAMILY_F32_ATTN = {"h2o-danube-1.8b (32/8, d 80, [lm_mesh]'s FSDP step)":
+                   (8, 32, 8, 1024, 80, 4096)}
 
 
 def _moe_ranges(moe_mod):
@@ -2536,6 +2641,82 @@ def family_attention_timed(torch, dev, gen, card: str) -> dict:
                          bwd_plain_ms=bwd_plain, bwd_library_ms=bwd_sdpa,
                          bwd_bound_ms=bwd_bnd, **simt)
         del q, k, v, got, exp, exp32, o, lse, dout, leaves, o2
+    return {"bf16": out, "f32": f32_attention_timed(torch, dev, gen, card)}
+
+
+def f32_attention_timed(torch, dev, gen, card: str) -> dict:
+    """The float32 training forward (``_attend`` asked for the log-sum-exp,
+    as ``_Attention`` asks) at FAMILY_F32_ATTN's shapes: on
+    ``f32_3xtf32``, held to its plain version (ATTN_TOL) and to float64
+    (at most TF32_VS_SIMT times ``f32_simt``'s error on the same values
+    one element into their storage, per slice of 8 heads), its
+    log-sum-exp to ``ref.attention_lse``'s, and timed beside
+    ``f32_simt``, which it must beat, its 3xTF32 bound, the plain version
+    and SDPA's forward.  Returns the numbers by shape."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    out = {}
+    tol = ATTN_TOL["float32"]
+    for name, (b, hq, hkv, s, d, window) in FAMILY_F32_ATTN.items():
+        q = torch.randn((b, hq, s, d), generator=gen, device=dev)
+        k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev)
+                for _ in range(2))
+        kw = dict(causal=True, window=window, scale=d ** -0.5)
+        fa_ops.flash_attention.routes = {}
+        got, lse = fa_ops._attend(q, k, v, lse=True, **kw)
+        odd = odd_offset(q)
+        simt, _ = fa_ops._attend(odd, k, v, lse=False, **kw)
+        check(fa_ops.flash_attention.routes
+              == {"f32_3xtf32": 1, "f32_simt": 1} and lse is not None,
+              f"[attn families] {name}: routes "
+              f"{fa_ops.flash_attention.routes}, expected f32_3xtf32 with a "
+              f"log-sum-exp and, one element in, f32_simt")
+        exp, exp_lse = fa_ref.attention_lse(q, k, v, **kw)
+        diff = (got.double() - exp.double()).abs()
+        err = diff.max().item()
+        check(bool((diff <= tol + tol * exp.double().abs()).all()),
+              f"[attn families] {name} float32: beyond rtol and atol {tol} "
+              f"of the plain version ({err:.3e})")
+        lse_err = (lse - exp_lse).abs().max().item()
+        check(lse_err <= tol, f"[attn families] {name}: log-sum-exp "
+              f"{lse_err:.3e} off ref.attention_lse's")
+        exact = attention64(torch, fa_ref, q, k, v, True, window)
+        ratio = tf32_vs_simt(got, simt, exact)
+        check(ratio <= TF32_VS_SIMT, f"[attn families] {name}: f32_3xtf32 "
+              f"{ratio:.2f} x f32_simt's float64 error (limit "
+              f"{TF32_VS_SIMT})")
+        del exact, exp, exp_lse, simt
+        ms = time_ms(torch, lambda: fa_ops._attend(q, k, v, lse=True, **kw))
+        simt_ms = time_ms(torch, lambda: fa_ops._attend(odd, k, v, lse=False,
+                                                        **kw),
+                          iters=5, warmup=1)
+        plain = time_ms(torch, lambda: fa_ref.attention(q, k, v, **kw),
+                        iters=2, warmup=1)
+        # a window of S keys or more hides none: SDPA's causal mask
+        check(window >= s, f"[attn families] {name}: window {window}")
+        sdpa = time_ms(torch, lambda: torch.nn.functional
+                       .scaled_dot_product_attention(
+                           q, k, v, is_causal=True, enable_gqa=True))
+        flops = 4 * b * hq * d * visible_pairs(s, window)
+        nbytes = 4 * (2 * q.numel() + 2 * k.numel())
+        bnd, by = bound_ms(nbytes, TF32_PRODUCTS * flops, "tf32")
+        check(ms < simt_ms, f"[attn families] {name}: f32_3xtf32 {ms:.3f} "
+              f"ms is not below f32_simt's {simt_ms:.3f}")
+        print(f"[attn families] {name} float32 (q ({b}, {hq}, {s}, {d}), k, "
+              f"v ({b}, {hkv}, {s}, {d}), causal, window {window}): the "
+              f"training forward [f32_3xtf32, with its log-sum-exp] {ms:.3f} "
+              f"ms ({flops / ms / 1e9:.2f} TFLOP/s; its 3xTF32 bound "
+              f"{bnd:.4f} ms ({by}) is {100 * bnd / ms:.1f}% of it), "
+              f"f32_simt (q one element in) {simt_ms:.3f} ms "
+              f"({simt_ms / ms:.1f}x), plain {plain:.3f} ms, SDPA {sdpa:.3f} "
+              f"ms; max_abs_err {err:.3e} against the plain version, "
+              f"log-sum-exp {lse_err:.3e}; against float64 {ratio:.2f} x "
+              f"f32_simt's error (limit {TF32_VS_SIMT}) ({card})")
+        out[name] = dict(route="f32_3xtf32", ms=ms, simt_ms=simt_ms,
+                         plain_ms=plain, bound_ms=bnd, bound_by=by,
+                         library_ms=sdpa, max_abs_err=err, vs_simt=ratio)
+        del q, k, v, got, lse, odd
     return out
 
 
@@ -3147,10 +3328,12 @@ DP_RUNS = (("tree", (4,), ("data",), "tree", False),
            ("hierarchical", (2, 2), ("pod", "data"), "hierarchical", False),
            ("hierarchical+int8", (2, 2), ("pod", "data"), "hierarchical",
             True))
-# f32 at d 80 takes the CUDA cores both ways: each of the 4 ranks runs 2
-# layers' forward and backward a step
-DP_KERNELS = {"flash_attention": {"f32_simt": 8},
-              "flash_attention_bwd": {"f32_simt": 8}}
+# f32 at d 80 takes the tensor cores in 3xTF32 both ways (80 is one of
+# ops.TF32_HEAD_DIMS, and the training forward saves its log-sum-exp):
+# each of the 4 ranks runs 2 layers' forward and backward a step
+DP_ROUTE = "f32_3xtf32"
+DP_KERNELS = {"flash_attention": {DP_ROUTE: 8},
+              "flash_attention_bwd": {DP_ROUTE: 8}}
 # the int8 run's share of parameters that may leave the reference
 # self-test's elementwise bound (5e-2 relative + 5e-3) of the single stream;
 # none may move further from it than 2 DP_STEPS lr + 5e-3 (each step's AdamW
@@ -3162,8 +3345,8 @@ DP_INT8_BEYOND = 1e-6
 # activations stay whole, so each layer's attention runs once on the whole
 # batch, again in the remat recompute, and its backward once
 FSDP_MESH = (2, 2)
-FSDP_KERNELS = {"flash_attention": {"f32_simt": 2 * DP_LAYERS},
-                "flash_attention_bwd": {"f32_simt": DP_LAYERS}}
+FSDP_KERNELS = {"flash_attention": {DP_ROUTE: 2 * DP_LAYERS},
+                "flash_attention_bwd": {DP_ROUTE: DP_LAYERS}}
 FSDP_FULL_STEPS = 3          # h2o-danube-1.8b at its published 24 layers
 EP_ARCH, EP_LAYERS, EP_RANKS = "moonshot_v1_16b_a3b", 4, 4
 EP_BATCH, EP_PROMPT, EP_DECODE = 2, 4096, 8
@@ -3344,6 +3527,17 @@ def lm_mesh_phase(torch, dev, card: str, zero_counts, counts) -> dict:
         return {"flash_attention": dict(fa_ops.flash_attention.routes),
                 "flash_attention_bwd": dict(fa_ops.flash_attention_bwd.routes)}
 
+    def attention_time(label, prof) -> float:
+        """Print a profiled step's attention kernels, by name, launches
+        and ms a launch; returns their device time in ms."""
+        attn = [(ms, n, re.search(r"(\w+_kernel(<[^>]*>)?)", key).group(1))
+                for ms, n, key in prof["kernels"] if "attention" in key]
+        total = sum(ms for ms, _n, _k in attn)
+        print(f"{label}: attention device time {total:.3f} ms of "
+              f"{prof['total']:.3f}: " + "; ".join(
+                  f"{name} {n} x {ms / n:.3f} ms" for ms, n, name in attn))
+        return total
+
     def fsdp_run(cfg, label, data, want_kernels, steps, single=None):
         """The policy's step on FSDP_MESH ranks sharing the card, its
         parameters, masters and moments at rest as per-rank shards: every
@@ -3425,8 +3619,8 @@ def lm_mesh_phase(torch, dev, card: str, zero_counts, counts) -> dict:
                 got, by_route = counts(), routes()
                 losses.append(float(metrics["loss"]))
                 if hold:
-                    n_fwd = want_kernels["flash_attention"]["f32_simt"]
-                    n_bwd = want_kernels["flash_attention_bwd"]["f32_simt"]
+                    n_fwd = want_kernels["flash_attention"][DP_ROUTE]
+                    n_bwd = want_kernels["flash_attention_bwd"][DP_ROUTE]
                     check(held["fwd"] == n_fwd and held["bwd"] == n_bwd,
                           f"{label}: held {held['fwd']} forward and "
                           f"{held['bwd']} backward attention calls, "
@@ -3484,9 +3678,11 @@ def lm_mesh_phase(torch, dev, card: str, zero_counts, counts) -> dict:
             out["bitwise"], out["worst"] = bitwise, worst
         warm = min(walls[1:])
         out["warm_s"] = warm
+        prof = {}
         out["busy"] = device_profile(
             torch, label, lambda: step(state, data.batch_at(steps)), warm,
-            {})
+            {}, found=prof)
+        out["attention_ms"] = attention_time(label, prof)
         out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         del model, step, state, metrics, placement, opt
         return out
@@ -3570,7 +3766,7 @@ def lm_mesh_phase(torch, dev, card: str, zero_counts, counts) -> dict:
                 last_routes = by_route
                 losses.append(float(loss))
                 if hold:
-                    n_calls = DP_KERNELS["flash_attention"]["f32_simt"]
+                    n_calls = DP_KERNELS["flash_attention"][DP_ROUTE]
                     check(held["fwd"] == n_calls and held["bwd"] == n_calls,
                           f"{run_label}: held {held['fwd']} forward and "
                           f"{held['bwd']} backward attention calls, "
@@ -3633,9 +3829,11 @@ def lm_mesh_phase(torch, dev, card: str, zero_counts, counts) -> dict:
             big = max(float(e.shards[0].abs().max()) for e in err.values())
             check(big < 1.0, f"{run_label}: error feedback {big}")
         warm = min(walls[1:])
+        prof = {}
         busy = device_profile(
             torch, run_label, lambda: step(state, data.batch_at(DP_STEPS),
-                                           err), warm, {})
+                                           err), warm, {}, found=prof)
+        attention_time(run_label, prof)
         gib = n_bytes / 2 ** 30
         print(f"{run_label}: losses {', '.join(f'{x:.5f}' for x in losses)}; "
               f"parameters within rtol {rtol} + {worst:.3e} of the single "
@@ -3689,8 +3887,8 @@ def lm_mesh_phase(torch, dev, card: str, zero_counts, counts) -> dict:
     run_label = (f"[lm_mesh] {full_cfg.name} full depth FSDP on "
                  f"{dict(zip(('data', 'model'), FSDP_MESH))}")
     n_full = full_cfg.n_layers
-    full_kernels = {"flash_attention": {"f32_simt": 2 * n_full},
-                    "flash_attention_bwd": {"f32_simt": n_full}}
+    full_kernels = {"flash_attention": {DP_ROUTE: 2 * n_full},
+                    "flash_attention_bwd": {DP_ROUTE: n_full}}
     full = fsdp_run(full_cfg, run_label, data, full_kernels, FSDP_FULL_STEPS)
     tokens = DP_BATCH * DP_SEQ
     flops = 6 * full["n_params"] * tokens
@@ -4563,8 +4761,11 @@ def main() -> int:
                 regs = line.split("Used")[1].split(",")[0].strip()
                 # the backward's tensor-core kernels hold their
                 # accumulators in registers, and must not spill them
-                check(not ("attention_bwd" in kernel_name
-                           and "wgmma" in kernel_name)
+                # (the float32 ones and the 3xTF32 forward too)
+                check(not (("attention_bwd" in kernel_name
+                            and ("wgmma" in kernel_name
+                                 or "tf32" in kernel_name))
+                           or "flash_attention_tf32" in kernel_name)
                       or spill.startswith("0 bytes stack frame, 0 bytes "
                                           "spill stores"),
                       f"{kernel_name}: spills ({spill})")
@@ -4594,6 +4795,10 @@ def main() -> int:
                             (built[4][0], {"attention_bwd_dq_wgmma_kernel":
                                            "HGMMA",
                                            "attention_bwd_dkv_wgmma_kernel":
+                                           "HGMMA",
+                                           "attention_bwd_dq_tf32_kernel":
+                                           "HGMMA",
+                                           "attention_bwd_dkv_tf32_kernel":
                                            "HGMMA"})):
         sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                               capture_output=True, text=True, check=True,
@@ -4605,14 +4810,23 @@ def main() -> int:
             count = body.count(op)
             print(f"[build] {name}: {count} {op} instructions in its SASS")
             check(count > 0, f"{name}: no {op} instruction in its SASS")
-            if "attention" not in name or "wgmma" not in name:
+            if "attention" not in name or op != "HGMMA":
                 continue
             # each head dim's instantiation of the attention tensor-core
-            # kernels, those whose last 64-column panel is partly real
-            # among them
+            # kernels, those whose last panel is partly real among them
+            # (the 3xTF32 forward's with and without its log-sum-exp apart,
+            # and the 3xTF32 dk/dv kernel's dV and dK sweeps)
+            if "tf32" not in name:
+                tags = {d: f"{name}ILi{d}E" for d in fa_ops.WGMMA_HEAD_DIMS}
+            elif "dq" in name:
+                tags = {d: f"{name}ILi{d}E" for d in fa_ops.TF32_HEAD_DIMS}
+            else:
+                what = ("", "+lse") if "bwd" not in name else (" dv", " dk")
+                tags = {f"{d}{what[x]}": f"{name}ILi{d}ELb{x}E"
+                        for d in fa_ops.TF32_HEAD_DIMS for x in (0, 1)}
             per_d = {d: sum(f.count(op) for f in functions
-                            if f"{name}ILi{d}E" in f.split("\n", 1)[0])
-                     for d in fa_ops.WGMMA_HEAD_DIMS}
+                            if tag in f.split("\n", 1)[0])
+                     for d, tag in tags.items()}
             print(f"[build]   {op} by head dim: {per_d}")
             check(all(per_d.values()), f"{name}: an instantiation without "
                   f"{op} in its SASS ({per_d})")
@@ -5311,9 +5525,9 @@ def main() -> int:
               f"route {counted}, expected one on {want}")
         return out, want
 
-    print(f"[attn] route rule: f32_3xtf32 for float32 with d % 32 == 0, d "
-          f"<= 128 and q, k, v, out 16-byte aligned, f32_simt for any other "
-          f"float32; bf16_wgmma for bfloat16 with d in "
+    print(f"[attn] route rule: f32_3xtf32 for float32 with d in "
+          f"{fa_ops.TF32_HEAD_DIMS} and q, k, v, out 16-byte aligned, "
+          f"f32_simt for any other float32; bf16_wgmma for bfloat16 with d in "
           f"{fa_ops.WGMMA_HEAD_DIMS} and the operands 16-byte aligned, "
           f"bf16_simt for any other bfloat16; f16_simt for float16")
     small = [("", case, 16, "float32") for case in ATTN_CASES]
@@ -5329,11 +5543,11 @@ def main() -> int:
                       for case in ATTN_CASES]
             small.append(("", (1, 2, 2, 64, 32, d, True, 8), 16, dname))
     # many key tiles per query tile, at every head dim of the tensor cores
-    # (float32 at the 3xTF32 route's d 64 and 128)
+    # (float32 at the 3xTF32 route's d 64, 80, 96 and 128)
     for d in MID_HEAD_DIMS:
         for dname in ("float32", "bfloat16"):
-            if dname == "float32" and (d % 64 or fa_ops.route(
-                    torch.float32, d) != "f32_3xtf32"):
+            if dname == "float32" and fa_ops.route(
+                    torch.float32, d) != "f32_3xtf32":
                 continue
             small += [(" mid", (b, hq, hkv, sq, skv, d, causal, window), blk,
                        dname)
@@ -6455,6 +6669,15 @@ def main() -> int:
          train["flash_attention_bwd"]["launches"],
          {k: v for k, v in train["flash_attention_bwd"].items()
           if k != "launches"}),
+        # the float32 backward on the tensor cores (3xTF32): the launches
+        # of one [lm_mesh] FSDP step at h2o-danube-1.8b's 24 layers, the
+        # numbers [train]'s at that step's shape
+        ("flash_attention_bwd.f32",
+         "src/repro_torch/kernels/flash_attention/csrc/attn_bwd_tf32.cuh",
+         "src/repro/kernels/flash_attention/ref.py:7",
+         lm_mesh["fsdp_full_step"]["flash_attention_bwd"].get(DP_ROUTE, 0),
+         {k: v for k, v in train["flash_attention_bwd.f32"].items()
+          if k != "route_ms"}),
     )
     # the served steps launch the GEMM's accumulate and chain_attn too: one
     # each a step, counted on the launchers in every serving arm
@@ -6483,7 +6706,21 @@ def main() -> int:
     attn_row["granite_ms"] = lm_moe["ms"]
     attn_row["family_shapes"] = {
         name: {k: v for k, v in t.items() if not k.startswith("bwd_")}
-        for name, t in fam_attn.items()}
+        for name, t in fam_attn["bf16"].items()}
+    # the float32 training forward at the FSDP step's shape, and its
+    # launches on [lm_mesh]'s path (one explicit-DP step, one FSDP step at
+    # 24 layers)
+    f32_row = next(k for k in kernels if k["name"] == "flash_attention.f32")
+    f32_row["family_shapes"] = fam_attn["f32"]
+    f32_row["lm_mesh_launches"] = {
+        step: lm_mesh[step]["flash_attention"].get(DP_ROUTE, 0)
+        for step in ("dp_step", "fsdp_step", "fsdp_full_step")}
+    bwd32_row = next(k for k in kernels
+                     if k["name"] == "flash_attention_bwd.f32")
+    bwd32_row["lm_mesh_launches"] = {
+        step: lm_mesh[step]["flash_attention_bwd"].get(DP_ROUTE, 0)
+        for step in ("dp_step", "fsdp_step", "fsdp_full_step")}
+    bwd32_row["route_ms"] = train["flash_attention_bwd.f32"]["route_ms"]
     bwd_row = next(k for k in kernels if k["name"] == "flash_attention_bwd")
     bwd_row["family_train_launches"] = {
         name: {"launches": t["bwd_launches"], "routes": t["bwd_routes"]}
@@ -6494,7 +6731,7 @@ def main() -> int:
                "library_ms": t["bwd_library_ms"],
                **({"simt_ms": t["bwd_simt_ms"]} if "bwd_simt_ms" in t
                   else {})}
-        for name, t in fam_attn.items()}
+        for name, t in fam_attn["bf16"].items()}
     # Listing 1's leaf products inside the procs workers, an iteration's
     # launches summed over the four worker processes
     gemm_row = next(k for k in kernels if k["name"] == "gemm.matmul")

@@ -53,10 +53,26 @@
 // Shared memory.  Q hi and lo for BQ = 128 rows stay for the whole sweep:
 // 2 x 128 x d x 4 bytes, 128 KB at d = 128.  What is left holds one key
 // tile, hi and lo of K and of V^T: 4 x BKV x d x 4 bytes, so BKV = 32 keys
-// at d = 128 (64 KB; 197,632 bytes with the alignment pad, of 232,448) and
-// 64 at d <= 64 (128 KB at d = 64 with Q's 64).  At d = 192 or 256 Q alone
-// (192 / 256 KB) leaves no room for a key tile at 128 rows, and at 64 rows
-// a block would hold 16-key tiles: those head dims stay on f32_simt.
+// at d >= 80 (64 KB at 128; 197,632 bytes with the alignment pad, of
+// 232,448; 144,384 at d = 80) and 64 at d <= 64 (128 KB at d = 64 with
+// Q's 64).  At d = 80 a key tile of 64 would hold the next tile's 40
+// registers beside O, P V's and S's: 255 and a spill.  At d = 192 or 256 Q alone (192 / 256 KB) leaves no
+// room for a key tile at 128 rows, and at 64 rows a block would hold
+// 16-key tiles: those head dims stay on f32_simt.
+//
+// Head dims (tf32_head_dim, which the C route_of of the forward and of the
+// backward both call): 32, 64, 80, 96, 128.  A row is ceil(d / 32)
+// panels; at d = 80 the last one holds 16 real columns and 16 the split
+// pass fills with zeros once a block (nothing is loaded by TMA here, so
+// the threads write them; no product reads them).  Q K^T steps its k8
+// slices over the real columns only (10 at d = 80), P V is issued at N =
+// d (m64n80k8), and no store writes past column d.
+//
+// Log-sum-exp.  The training forward (attention_block<D, true>) also
+// stores each row's log-sum-exp, (m + log2 l) ln 2 with m in the scaled
+// log2 units of the sweep, +inf for a row that sees no key, as the bf16
+// route does; the backward's f32_3xtf32 route (attn_bwd_tf32.cuh) reads
+// it.  The output's arithmetic is the same source either way.
 //
 // Pipeline (two warpgroups of 64 query rows, 256 threads, one block an SM,
 // 255 registers a thread: no producer warp, as in attn_wgmma.cuh).  The
@@ -79,8 +95,8 @@
 // Registers a thread at d = 128: O 64, the tile's P V 64, S (P hi) 16, P
 // lo 16, the next tile 32, softmax state and addresses (ptxas: about 250,
 // no spill).  The route (flash_attention.cu) takes
-// float32 with d % 32 == 0, d <= 128 and q, k, v, out 16-byte aligned (the
-// 16-byte loads and the 128-byte panels).
+// float32 with d one of tf32_head_dim's and q, k, v, out 16-byte aligned
+// (the 16-byte loads and the 128-byte panels).
 
 #pragma once
 
@@ -103,21 +119,37 @@ using bind_gemm::wg_wait_all;
 constexpr int BQ = 128;                 // query rows per block
 constexpr int THREADS = 256;            // two warpgroups of 64 rows
 
+// the head dims of the f32_3xtf32 routes, forward and backward (ops.py
+// TF32_HEAD_DIMS)
+__host__ __device__ constexpr bool tf32_head_dim(int64_t d) {
+  return d == 32 || d == 64 || d == 80 || d == 96 || d == 128;
+}
+
+// 32-column panels of a row of d: the last one of d 80 holds 16 real
+// columns and the split pass's zeros past them
+__host__ __device__ constexpr int tf32_panels(int d) { return (d + 31) / 32; }
+
 template <int D> struct Cfg {
-  static_assert(D % 32 == 0 && D >= 32 && D <= 128, "d: 32, 64, 96, 128");
+  static_assert(tf32_head_dim(D), "d: 32, 64, 80, 96, 128");
+  static constexpr int PANELS = tf32_panels(D);
   static constexpr int BKV = D <= 64 ? 64 : 32;        // keys per tile
   static constexpr int Q_PANEL = BQ * 128;             // 32 columns of Q
   static constexpr int K_PANEL = BKV * 128;            // 32 columns of K
   static constexpr int V_PANEL = D * 128;              // 32 keys of V^T
-  static constexpr int Q_BYTES = (D / 32) * Q_PANEL;   // hi or lo
-  static constexpr int K_BYTES = (D / 32) * K_PANEL;
+  static constexpr int Q_BYTES = PANELS * Q_PANEL;     // hi or lo
+  static constexpr int K_BYTES = PANELS * K_PANEL;
   static constexpr int V_BYTES = (BKV / 32) * V_PANEL;
   static constexpr size_t SMEM =
       1024 + 2 * size_t(Q_BYTES) + 2 * size_t(K_BYTES) + 2 * size_t(V_BYTES);
   static constexpr int SR = BKV / 2;                   // S registers a thread
   static constexpr int OR = D / 2;                     // O registers a thread
-  static constexpr int LOADS = BKV * D / 4 / THREADS;  // float4 a thread
-  static_assert(LOADS * 4 * THREADS == BKV * D, "tile / threads");
+  // float4 a thread: at d = 80 the last of 3 on half of the threads
+  static constexpr int CHUNKS = BKV * D / 4;
+  static constexpr int LOADS = (CHUNKS + THREADS - 1) / THREADS;
+  static constexpr bool EXACT = LOADS * THREADS == CHUNKS;
+  static_assert(CHUNKS * 4 == BKV * D && (EXACT || D % 32 != 0),
+                "tile / threads");
+  static_assert(SMEM <= 232448, "shared memory");
 };
 
 // the problem of one launch; q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D)
@@ -155,11 +187,18 @@ template <int N> __device__ __forceinline__ void pin(float (&d)[N]) {
 #define BIND_TF_A(i) "r"(__float_as_uint(a##i))
 
 // d (64 x N, fp32) [+]= A (64 x 8, K-major, shared) B (8 x N, K-major,
-// shared), TF32 operands, N = 32 or 64; accumulate 0 overwrites d
+// shared), TF32 operands, N = 16, 32 or 64; accumulate 0 overwrites d
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int accumulate) {
-  if constexpr (N == 32) {
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+        : BIND_TF_D8(0)
+        : "l"(da), "l"(db), "r"(accumulate));
+  } else if constexpr (N == 32) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
@@ -168,7 +207,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
         : BIND_TF_D8(0), BIND_TF_D8(8)
         : "l"(da), "l"(db), "r"(accumulate));
   } else {
-    static_assert(N == 64, "S is 64 x 32 or 64 x 64");
+    static_assert(N == 64, "S is 64 x 16, 64 x 32 or 64 x 64");
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
@@ -181,7 +220,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
 }
 
 // d (64 x N, fp32) [+]= A (64 x 8, TF32 in registers a0..a3) B (8 x N,
-// K-major, shared), N = 32, 64, 96 or 128; accumulate 0 overwrites d
+// K-major, shared), N = 32, 64, 80, 96 or 128; accumulate 0 overwrites d
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], float a0,
                                          float a1, float a2, float a3,
@@ -205,6 +244,18 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], float a0,
         : BIND_TF_D8(0), BIND_TF_D8(8), BIND_TF_D8(16), BIND_TF_D8(24)
         : BIND_TF_A(0), BIND_TF_A(1), BIND_TF_A(2), BIND_TF_A(3), "l"(db),
           "r"(accumulate));
+  } else if constexpr (N == 80) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, "
+        "%41, %42, %43}, %44, p, 1, 1;\n}\n"
+        : BIND_TF_D8(0), BIND_TF_D8(8), BIND_TF_D8(16), BIND_TF_D8(24),
+          BIND_TF_D8(32)
+        : BIND_TF_A(0), BIND_TF_A(1), BIND_TF_A(2), BIND_TF_A(3), "l"(db),
+          "r"(accumulate));
   } else if constexpr (N == 96) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
@@ -219,7 +270,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], float a0,
         : BIND_TF_A(0), BIND_TF_A(1), BIND_TF_A(2), BIND_TF_A(3), "l"(db),
           "r"(accumulate));
   } else {
-    static_assert(N == 128, "O is 64 x 32, 64, 96 or 128");
+    static_assert(N == 128, "O is 64 x 32, 64, 80, 96 or 128");
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
@@ -294,6 +345,23 @@ __device__ __forceinline__ void stage_q(const float* q, int64_t rows,
   }
 }
 
+// The columns past d of the last panel of rows [0, rows) of a K-major
+// buffer (panels panel_bytes apart), zeros in hi and lo; nothing at d % 32
+// == 0.  Once a block: the split pass never writes them.
+template <int D>
+__device__ __forceinline__ void zero_pad(unsigned char* hi,
+                                         unsigned char* lo, int rows,
+                                         int panel_bytes) {
+  constexpr int CH = D / 4, PAD = tf32_panels(D) * 8 - CH;
+  if constexpr (PAD > 0) {
+    for (int i = threadIdx.x; i < rows * PAD; i += blockDim.x) {
+      const int r = i / PAD, c = (CH + i % PAD) * 4;
+      st_split4(hi, lo, swz(r, c, panel_bytes),
+                make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+    }
+  }
+}
+
 // The next key tile in registers: K as stage_q takes Q, V with the 32 lanes
 // of a warp on 32 keys of one 4-column chunk (V^T's stores then fall on 32
 // banks).  Keys at or past ``keys`` read as zeros.
@@ -307,6 +375,9 @@ template <int D> struct TileRegs {
 #pragma unroll
     for (int j = 0; j < Cfg<D>::LOADS; ++j) {
       const int i = threadIdx.x + THREADS * j;
+      if constexpr (!Cfg<D>::EXACT) {
+        if (i >= Cfg<D>::CHUNKS) break;
+      }
       const int kr = i / CH, kc = (i % CH) * 4;
       k[j] = ld4(kb + kr * D + kc, kr < keys);
       const int vr = i % BKV, vc = (i / BKV) * 4;
@@ -320,6 +391,9 @@ template <int D> struct TileRegs {
 #pragma unroll
     for (int j = 0; j < Cfg<D>::LOADS; ++j) {
       const int i = threadIdx.x + THREADS * j;
+      if constexpr (!Cfg<D>::EXACT) {
+        if (i >= Cfg<D>::CHUNKS) break;
+      }
       st_split4(hi, lo, swz(i / CH, (i % CH) * 4, Cfg<D>::K_PANEL), k[j]);
     }
   }
@@ -330,6 +404,9 @@ template <int D> struct TileRegs {
 #pragma unroll
     for (int j = 0; j < Cfg<D>::LOADS; ++j) {
       const int i = threadIdx.x + THREADS * j;
+      if constexpr (!Cfg<D>::EXACT) {
+        if (i >= Cfg<D>::CHUNKS) break;
+      }
       const int slot = key_slot(i % BKV), c = (i / BKV) * 4;
       st_split(hi, lo, swz(c + 0, slot, Cfg<D>::V_PANEL), v[j].x);
       st_split(hi, lo, swz(c + 1, slot, Cfg<D>::V_PANEL), v[j].y);
@@ -451,10 +528,12 @@ __device__ __forceinline__ void softmax(float (&s)[Cfg<D>::SR],
 
 // All THREADS threads of a block call it, with Cfg<D>::SMEM bytes of
 // dynamic shared memory at smem.  Block (x, y) computes q head x % Hq of
-// batch x / Hq for query tile gridDim.y - 1 - y.
-template <int D>
+// batch x / Hq for query tile gridDim.y - 1 - y; with LSE, also each of
+// its rows' log-sum-exp into the (B, Hq, Sq) buffer lse.
+template <int D, bool LSE>
 __device__ __forceinline__ void attention_block(const Shape& sh,
-                                                unsigned char* smem) {
+                                                unsigned char* smem,
+                                                float* __restrict__ lse) {
   using C = Cfg<D>;
   constexpr int BKV = C::BKV;
   unsigned char* q_hi = reinterpret_cast<unsigned char*>(
@@ -488,6 +567,8 @@ __device__ __forceinline__ void attention_block(const Shape& sh,
 
   TileRegs<D> next;
   if (n > 0) next.load(kb + t0 * BKV * D, vb + t0 * BKV * D, sh.skv - t0 * BKV);
+  zero_pad<D>(q_hi, q_lo, BQ, C::Q_PANEL);
+  zero_pad<D>(k_hi, k_lo, BKV, C::K_PANEL);
   stage_q<D>(sh.q + (bh * sh.sq + q0) * D, sh.sq - q0, q_hi, q_lo);
   if (n > 0) next.store_k(k_hi, k_lo);
   fence_async_shared();
@@ -575,6 +656,12 @@ __device__ __forceinline__ void attention_block(const Shape& sh,
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     const int64_t row = row_a + 8 * h;
     if (row >= sh.sq) continue;
+    if constexpr (LSE) {
+      if ((lane & 3) == 0)
+        lse[bh * sh.sq + row] =
+            l[h] == 0.0f ? INFINITY
+                         : (m[h] + log2f(l[h])) * 0.6931471805599453f;
+    }
     const float safe = l[h] == 0.0f ? 1.0f : l[h];
     float* dst = sh.out + (bh * sh.sq + row) * D + col_l;
 #pragma unroll

@@ -13,10 +13,11 @@
 // attention/ops.py route() is the same rule in Python, and
 // bind_flash_attention_route answers it for any operands):
 //
-//   F32_3XTF32  float32 with d % 32 == 0, d <= 128 and q, k, v, out 16-byte
+//   F32_3XTF32  float32 with d in {32, 64, 80, 96, 128}
+//               (bind_attn_tf::tf32_head_dim) and q, k, v, out 16-byte
 //               aligned: the tensor cores in 3xTF32 (attn_tf32.cuh);
-//   F32_SIMT    any other float32 (d > 128, odd d, misaligned views): the
-//               CUDA-core loop (attn_tile.cuh), any d <= 256;
+//   F32_SIMT    any other float32 (d > 128, other head dims, misaligned
+//               views): the CUDA-core loop (attn_tile.cuh), any d <= 256;
 //   BF16_WGMMA  bfloat16 with d in {64, 80, 96, 128, 192, 256}
 //               (bind_attn_wg::wgmma_head_dim) and q, k, v, out 16-byte
 //               aligned: the tensor cores, wgmma fed by TMA
@@ -72,9 +73,11 @@
 // C interface (bound with ctypes): device pointers, sizes and a cudaStream_t;
 // each entry point launches on that stream without synchronising and returns
 // cudaGetLastError() (0 on success).  bind_flash_attention_route says which
-// route a call takes.  bind_flash_attention_bf16_lse is the bf16 entry point
-// that also hands the backward each row's log-sum-exp (attn_wgmma.cuh): the
-// training forward calls it, and only on the BF16_WGMMA route.
+// route a call takes.  bind_flash_attention_bf16_lse and
+// bind_flash_attention_f32_lse are the entry points that also hand the
+// backward each row's log-sum-exp (attn_wgmma.cuh, attn_tf32.cuh): the
+// training forward calls them, and only on the BF16_WGMMA and F32_3XTF32
+// routes.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -110,8 +113,8 @@ inline Route route_of(DType dtype, int64_t d, const void* q, const void* k,
       aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out);
   switch (dtype) {
     case F32:
-      return d % 32 == 0 && d > 0 && d <= 128 && aligned ? F32_3XTF32
-                                                         : F32_SIMT;
+      return bind_attn_tf::tf32_head_dim(d) && aligned ? F32_3XTF32
+                                                       : F32_SIMT;
     case BF16:
       return bind_attn_wg::wgmma_head_dim(d) && aligned ? BF16_WGMMA
                                                         : BF16_SIMT;
@@ -119,22 +122,24 @@ inline Route route_of(DType dtype, int64_t d, const void* q, const void* k,
   }
 }
 
-template <int D>
+// LSE: the training forward, which also writes each row's log-sum-exp
+template <int D, bool LSE>
 __global__ void __launch_bounds__(bind_attn_tf::THREADS, 1)
-flash_attention_tf32_kernel(const bind_attn_tf::Shape sh) {
+flash_attention_tf32_kernel(const bind_attn_tf::Shape sh,
+                            float* __restrict__ lse) {
   extern __shared__ __align__(1024) unsigned char tf_smem[];
-  bind_attn_tf::attention_block<D>(sh, tf_smem);
+  bind_attn_tf::attention_block<D, LSE>(sh, tf_smem, lse);
 }
 
-template <int D>
-cudaError_t launch_tf32_d(const void* q, const void* k, const void* v,
-                          void* out, int64_t batch, int64_t hq, int64_t hkv,
-                          int64_t sq, int64_t skv, float scale, Mask mask,
-                          cudaStream_t stream) {
+template <int D, bool LSE>
+cudaError_t launch_tf32_dl(const void* q, const void* k, const void* v,
+                           void* out, float* lse, int64_t batch, int64_t hq,
+                           int64_t hkv, int64_t sq, int64_t skv, float scale,
+                           Mask mask, cudaStream_t stream) {
   using C = bind_attn_tf::Cfg<D>;
   const int64_t tiles = (sq + bind_attn_tf::BQ - 1) / bind_attn_tf::BQ;
   if (tiles > 65535 || batch * hq > 0x7fffffff) return cudaErrorInvalidValue;
-  auto kern = flash_attention_tf32_kernel<D>;
+  auto kern = flash_attention_tf32_kernel<D, LSE>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::SMEM));
@@ -147,23 +152,37 @@ cudaError_t launch_tf32_d(const void* q, const void* k, const void* v,
                                hq, hkv, sq, skv, scale_log2, mask};
   const dim3 grid(static_cast<unsigned>(batch * hq),
                   static_cast<unsigned>(tiles));
-  kern<<<grid, bind_attn_tf::THREADS, C::SMEM, stream>>>(sh);
+  kern<<<grid, bind_attn_tf::THREADS, C::SMEM, stream>>>(sh, lse);
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_tf32_d(const void* q, const void* k, const void* v,
+                          void* out, float* lse, int64_t batch, int64_t hq,
+                          int64_t hkv, int64_t sq, int64_t skv, float scale,
+                          Mask mask, cudaStream_t stream) {
+  if (lse != nullptr)
+    return launch_tf32_dl<D, true>(q, k, v, out, lse, batch, hq, hkv, sq,
+                                   skv, scale, mask, stream);
+  return launch_tf32_dl<D, false>(q, k, v, out, lse, batch, hq, hkv, sq, skv,
+                                  scale, mask, stream);
+}
+
 cudaError_t launch_tf32(const void* q, const void* k, const void* v,
-                        void* out, int64_t batch, int64_t hq, int64_t hkv,
-                        int64_t sq, int64_t skv, int d, float scale,
-                        Mask mask, cudaStream_t stream) {
+                        void* out, float* lse, int64_t batch, int64_t hq,
+                        int64_t hkv, int64_t sq, int64_t skv, int d,
+                        float scale, Mask mask, cudaStream_t stream) {
   switch (d) {
-    case 32: return launch_tf32_d<32>(q, k, v, out, batch, hq, hkv, sq, skv,
-                                      scale, mask, stream);
-    case 64: return launch_tf32_d<64>(q, k, v, out, batch, hq, hkv, sq, skv,
-                                      scale, mask, stream);
-    case 96: return launch_tf32_d<96>(q, k, v, out, batch, hq, hkv, sq, skv,
-                                      scale, mask, stream);
-    case 128: return launch_tf32_d<128>(q, k, v, out, batch, hq, hkv, sq,
-                                        skv, scale, mask, stream);
+    case 32: return launch_tf32_d<32>(q, k, v, out, lse, batch, hq, hkv, sq,
+                                      skv, scale, mask, stream);
+    case 64: return launch_tf32_d<64>(q, k, v, out, lse, batch, hq, hkv, sq,
+                                      skv, scale, mask, stream);
+    case 80: return launch_tf32_d<80>(q, k, v, out, lse, batch, hq, hkv, sq,
+                                      skv, scale, mask, stream);
+    case 96: return launch_tf32_d<96>(q, k, v, out, lse, batch, hq, hkv, sq,
+                                      skv, scale, mask, stream);
+    case 128: return launch_tf32_d<128>(q, k, v, out, lse, batch, hq, hkv,
+                                        sq, skv, scale, mask, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -306,7 +325,8 @@ cudaError_t launch_nj(const void* q, const void* k, const void* v, void* out,
 }
 
 // lse: null, or a (B, Hq, Sq) float32 buffer for each row's log-sum-exp,
-// which only the BF16_WGMMA route writes (any other route refuses one)
+// which only the BF16_WGMMA and F32_3XTF32 routes write (any other route
+// refuses one)
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int64_t batch, int64_t hq, int64_t hkv, int64_t sq,
@@ -322,14 +342,14 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const int dd = static_cast<int>(d);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Route route = route_of(dtype_of<T>(), d, q, k, v, out);
-  if (lse != nullptr && route != BF16_WGMMA)
+  if (lse != nullptr && route != BF16_WGMMA && route != F32_3XTF32)
     return static_cast<int>(cudaErrorInvalidValue);
   if (route == BF16_WGMMA)
     return static_cast<int>(launch_wgmma(q, k, v, out, lse, batch, hq, hkv,
                                          sq, skv, dd, s, mask, st));
   if (route == F32_3XTF32)
-    return static_cast<int>(launch_tf32(q, k, v, out, batch, hq, hkv, sq,
-                                        skv, dd, s, mask, st));
+    return static_cast<int>(launch_tf32(q, k, v, out, lse, batch, hq, hkv,
+                                        sq, skv, dd, s, mask, st));
   return static_cast<int>(with_value_blocks(dd, [&](auto nj) {
     return launch_nj<T, decltype(nj)::value>(q, k, v, out, batch, hq, hkv,
                                              sq, skv, dd, s, mask, st);
@@ -372,6 +392,21 @@ int bind_flash_attention_bf16_lse(const void* q, const void* k,
   return launch<__nv_bfloat16>(q, k, v, out, static_cast<float*>(lse), batch,
                                hq, hkv, sq, skv, d, scale, causal, windowed,
                                window, stream);
+}
+
+// bind_flash_attention_f32 that also stores each row's log-sum-exp into
+// lse, a (B, Hq, Sq) float32 buffer: only on the F32_3XTF32 route (any
+// other operands give cudaErrorInvalidValue and launch nothing)
+int bind_flash_attention_f32_lse(const void* q, const void* k,
+                                 const void* v, void* out, void* lse,
+                                 int64_t batch, int64_t hq, int64_t hkv,
+                                 int64_t sq, int64_t skv, int64_t d,
+                                 double scale, int causal, int windowed,
+                                 int64_t window, void* stream) {
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<float>(q, k, v, out, static_cast<float*>(lse), batch, hq,
+                       hkv, sq, skv, d, scale, causal, windowed, window,
+                       stream);
 }
 
 int bind_flash_attention_f16(const void* q, const void* k, const void* v,

@@ -61,22 +61,27 @@
 // They are the f32_simt, bf16_simt and f16_simt routes.  The bf16_wgmma
 // route is on the tensor cores: wgmma fed by TMA, with the log-sum-exp the
 // forward saved (attn_bwd_wgmma.cuh, whose header gives its design, its
-// bound and its tolerance).
+// bound and its tolerance); so is the f32_3xtf32 route, each product three
+// TF32 wgmma (attn_bwd_tf32.cuh, the same).
 //
 // Routes (route_of below; kernels/flash_attention/ops.py bwd_route is the
 // same rule in Python, and bind_flash_attention_bwd_route answers it for
 // any operands): BF16_WGMMA for bfloat16 with d in {64, 80, 96, 128, 192,
-// 256} (bind_attn_wg::wgmma_head_dim, the forward's set), q, k, v, out,
-// dout and the saved log-sum-exp 16-byte aligned, and a saved
-// log-sum-exp; otherwise the CUDA-core route of the element type, which
-// sweeps the keys for the log-sum-exp itself.
+// 256} (bind_attn_wg::wgmma_head_dim, the forward's set), F32_3XTF32 for
+// float32 with d in {32, 64, 80, 96, 128} (bind_attn_tf::tf32_head_dim,
+// the forward's set), each with q, k, v, out, dout and the saved
+// log-sum-exp 16-byte aligned and a saved log-sum-exp; otherwise the
+// CUDA-core route of the element type, which sweeps the keys for the
+// log-sum-exp itself.
 //
 // C interface (bound with ctypes): device pointers, sizes and a
 // cudaStream_t; each entry point launches on that stream without
 // synchronising and returns cudaGetLastError() (0 on success).
 // bind_flash_attention_bwd_{f32,bf16,f16} run the CUDA-core routes, with
 // lse a scratch they write; bind_flash_attention_bwd_bf16_lse runs the
-// BF16_WGMMA route, with lse the forward's and a head-group count.
+// BF16_WGMMA route, with lse the forward's and a head-group count, and
+// bind_flash_attention_bwd_f32_lse the F32_3XTF32 route, with lse the
+// forward's.
 
 #include <cmath>
 #include <cstdint>
@@ -84,6 +89,7 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include "attn_bwd_tf32.cuh"
 #include "attn_bwd_wgmma.cuh"
 
 namespace {
@@ -95,7 +101,9 @@ constexpr int RQ = BQ / LANES;         // query rows (or columns) per thread
 constexpr int MAX_HEAD_DIM = 256;
 
 // the routes, in the order of kernels/flash_attention/ops.py BWD_ROUTES
-enum Route : int { F32_SIMT = 0, BF16_SIMT = 1, F16_SIMT = 2, BF16_WGMMA = 3 };
+enum Route : int {
+  F32_SIMT = 0, BF16_SIMT = 1, F16_SIMT = 2, BF16_WGMMA = 3, F32_3XTF32 = 4
+};
 // the element types, numbered as kernel.py DTYPE_CODES numbers them
 enum DType : int { F32 = 0, BF16 = 1, F16 = 2 };
 
@@ -110,10 +118,13 @@ inline int route_of(int dtype, int64_t d, const void* q, const void* k,
                     const void* v, const void* out, const void* dout,
                     const void* lse) {
   if (dtype < F32 || dtype > F16 || d <= 0 || d > MAX_HEAD_DIM) return -1;
-  if (dtype == BF16 && bind_attn_wg::wgmma_head_dim(d) && lse != nullptr &&
-      aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) &&
-      aligned16(dout) && aligned16(lse))
+  const bool tensor_cores = lse != nullptr && aligned16(q) && aligned16(k) &&
+                            aligned16(v) && aligned16(out) &&
+                            aligned16(dout) && aligned16(lse);
+  if (dtype == BF16 && bind_attn_wg::wgmma_head_dim(d) && tensor_cores)
     return BF16_WGMMA;
+  if (dtype == F32 && bind_attn_tf::tf32_head_dim(d) && tensor_cores)
+    return F32_3XTF32;
   return dtype == F32 ? F32_SIMT : dtype == BF16 ? BF16_SIMT : F16_SIMT;
 }
 
@@ -635,6 +646,33 @@ int bind_flash_attention_bwd_bf16_lse(
       q, k, v, o, dout, dq, dk, dv, static_cast<const float*>(lse),
       static_cast<float*>(delta), static_cast<float*>(part), batch, sh, d,
       static_cast<cudaStream_t>(stream)));
+}
+
+// The f32 backward on the tensor cores in 3xTF32 (F32_3XTF32): lse is the
+// forward's (B, Hq, Sq) log-sum-exp, delta a (B, Hq, Sq) float32 scratch.
+// Operands the route does not take give cudaErrorInvalidValue and launch
+// nothing.
+int bind_flash_attention_bwd_f32_lse(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, void* dq, void* dk, void* dv, const void* lse,
+    void* delta, int64_t batch, int64_t hq, int64_t hkv, int64_t sq,
+    int64_t skv, int64_t d, double scale, int causal, int windowed,
+    int64_t window, void* stream) {
+  if (route_of(F32, d, q, k, v, o, dout, lse) != F32_3XTF32 || batch <= 0 ||
+      hq <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 || skv <= 0 ||
+      delta == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float s = static_cast<float>(scale);
+  const bind_attn_bwd_tf::Shape sh{
+      static_cast<const float*>(q),    static_cast<const float*>(k),
+      static_cast<const float*>(v),    static_cast<const float*>(o),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<float*>(delta),      static_cast<float*>(dq),
+      static_cast<float*>(dk),         static_cast<float*>(dv),
+      hq, hkv, sq, skv, s, s * bind_attn_bwd_tf::LOG2E,
+      bind_attn::Mask{causal != 0, windowed != 0, window}};
+  return static_cast<int>(bind_attn_bwd_tf::launch(
+      sh, batch, d, static_cast<cudaStream_t>(stream)));
 }
 
 // The route (enum Route) the backward of element type dtype (F32 0, BF16 1,

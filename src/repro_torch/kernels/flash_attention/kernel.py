@@ -1,7 +1,8 @@
 """Build and bind the flash-attention kernel (``csrc/flash_attention.cu``)
 and its backward (``csrc/flash_attention_bwd.cu``, a library of its own so
 that the forward's build and bits stay as they were, with its tensor-core
-route in ``csrc/attn_bwd_wgmma.cuh``).
+routes in ``csrc/attn_bwd_wgmma.cuh`` (bf16) and ``csrc/attn_bwd_tf32.cuh``
+(float32 in 3xTF32)).
 
 Built at first use through the shared :mod:`repro_torch.kernels._build`
 helper, with the CUDA-core tile loop it shares with the chain kernel
@@ -44,15 +45,17 @@ _ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _D, _I, _I,
 ROUTE_SYMBOL = "bind_flash_attention_route"
 _ROUTE_ARGS = (_I, _P, _P, _P, _P, _I64)
 
-# the bf16 forward that also stores each row's log-sum-exp: (q, k, v, out,
-# lse, batch, ...) as _ARGS
+# the bf16 and f32 forwards that also store each row's log-sum-exp: (q, k,
+# v, out, lse, batch, ...) as _ARGS
 LSE_SYMBOL = "bind_flash_attention_bf16_lse"
+F32_LSE_SYMBOL = "bind_flash_attention_f32_lse"
+LSE_SYMBOLS = {torch.bfloat16: LSE_SYMBOL, torch.float32: F32_LSE_SYMBOL}
 _LSE_ARGS = _ARGS[:4] + (_P,) + _ARGS[4:]
 
 LIBRARY = CudaLibrary("bind_flash_attention", SOURCES, HEADERS,
                       {**{f"bind_flash_attention_{s}": _ARGS
                           for s in SUFFIX.values()},
-                       LSE_SYMBOL: _LSE_ARGS,
+                       **{sym: _LSE_ARGS for sym in LSE_SYMBOLS.values()},
                        ROUTE_SYMBOL: _ROUTE_ARGS})
 
 
@@ -61,6 +64,8 @@ LIBRARY = CudaLibrary("bind_flash_attention", SOURCES, HEADERS,
 # stream), lse and delta scratch
 BWD_SOURCES = (_HERE / "csrc" / "flash_attention_bwd.cu",)
 BWD_HEADERS = (_HERE / "csrc" / "attn_bwd_wgmma.cuh",
+               _HERE / "csrc" / "attn_bwd_tf32.cuh",
+               _HERE / "csrc" / "attn_tf32.cuh",
                _HERE / "csrc" / "attn_wgmma.cuh",
                _HERE / "csrc" / "attn_tile.cuh",
                _HERE.parent / "gemm" / "csrc" / "gemm_tile.cuh",
@@ -71,6 +76,8 @@ _BWD_ARGS = (_P,) * 10 + (_I64,) * 6 + (_D, _I, _I, _I64, _P)
 # stream), lse the forward's, delta and part scratch
 BWD_LSE_SYMBOL = "bind_flash_attention_bwd_bf16_lse"
 _BWD_LSE_ARGS = (_P,) * 11 + (_I64,) * 6 + (_D, _I, _I, _I64, _I64, _P)
+# the float32 tensor-core route (3xTF32): _BWD_ARGS, lse the forward's
+BWD_F32_LSE_SYMBOL = "bind_flash_attention_bwd_f32_lse"
 # which route (an index of ops.BWD_ROUTES) a backward takes: (element-type
 # code, d, q, k, v, out, dout, lse)
 BWD_ROUTE_SYMBOL = "bind_flash_attention_bwd_route"
@@ -80,6 +87,7 @@ BWD_LIBRARY = CudaLibrary("bind_flash_attention_bwd", BWD_SOURCES,
                           {**{f"bind_flash_attention_bwd_{s}": _BWD_ARGS
                               for s in SUFFIX.values()},
                            BWD_LSE_SYMBOL: _BWD_LSE_ARGS,
+                           BWD_F32_LSE_SYMBOL: _BWD_ARGS,
                            BWD_ROUTE_SYMBOL: _BWD_ROUTE_ARGS})
 # keys of a block of the tensor-core route's dk/dv kernel
 # (attn_bwd_wgmma.cuh BIG)
@@ -96,8 +104,9 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            lse: torch.Tensor | None = None) -> None:
     """Enqueue attention of ``q`` (B, Hq, Sq, D) over ``k``, ``v`` (B, Hkv,
     Skv, D) into ``out`` on the current stream; given ``lse``, a (B, Hq,
-    Sq) float32 buffer, also each row's log-sum-exp there (the bf16
-    tensor-core route only: the library refuses it on any other).
+    Sq) float32 buffer, also each row's log-sum-exp there (the tensor-core
+    routes only, ``bf16_wgmma`` and ``f32_3xtf32``: the library refuses it
+    on any other).
 
     The caller (:mod:`.ops`) has checked every operand.  Does not
     synchronise; raises when the launch is refused.
@@ -108,7 +117,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lse is None:
         symbol = f"bind_flash_attention_{SUFFIX[q.dtype]}"
     else:
-        symbol, ptrs = LSE_SYMBOL, ptrs + (lse.data_ptr(),)
+        symbol, ptrs = LSE_SYMBOLS[q.dtype], ptrs + (lse.data_ptr(),)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         LIBRARY.call(symbol, *ptrs, b, hq, hkv, sq, skv, d, float(scale),
@@ -146,10 +155,11 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Without ``lse``, the CUDA-core route of the dtype: two kernel launches,
     with the (B, Hq, Sq) float32 log-sum-exp and delta scratch allocated
-    here.  With ``lse``, the forward's (B, Hq, Sq) log-sum-exp, the bf16
-    tensor-core route: three launches (four with head groups,
-    :func:`dkv_groups`), with the delta scratch and the head groups'
-    float32 partials allocated here.
+    here.  With ``lse``, the forward's (B, Hq, Sq) log-sum-exp, the
+    tensor-core route of the dtype: bf16 three launches (four with head
+    groups, :func:`dkv_groups`), with the delta scratch and the head
+    groups' float32 partials allocated here; float32 (3xTF32) four (delta,
+    dq, dv, dk), with the delta scratch.
 
     The caller (:mod:`.ops`) has checked every operand and the route.  Does
     not synchronise; raises when a launch is refused.
@@ -166,6 +176,13 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              *(t.data_ptr() for t in (q, k, v, out, dout, dq,
                                                       dk, dv, scratch,
                                                       delta)),
+                             b, hq, hkv, sq, skv, d, float(scale), *mask,
+                             stream)
+            return
+        if q.dtype == torch.float32:
+            BWD_LIBRARY.call(BWD_F32_LSE_SYMBOL,
+                             *(t.data_ptr() for t in (q, k, v, out, dout, dq,
+                                                      dk, dv, lse, delta)),
                              b, hq, hkv, sq, skv, d, float(scale), *mask,
                              stream)
             return

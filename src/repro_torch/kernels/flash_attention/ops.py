@@ -26,25 +26,26 @@ call): the backward is :func:`flash_attention_bwd`, the hand-written
 backward kernel (``csrc/flash_attention_bwd.cu``, routes :data:`BWD_ROUTES`,
 counted in ``flash_attention_bwd.launches`` / ``routes``) on the card and
 its plain versions on the CPU.  A call that records a gradient asks the
-forward for each row's log-sum-exp, which the bf16 tensor-core route
-(and, on the CPU, :func:`.ref.attention_lse`) hands back; the backward's
-bf16 tensor-core route (``bf16_wgmma``, :func:`bwd_route`) reads it.  The
-reference has no backward kernel: it differentiates its oracle with XLA.
+forward for each row's log-sum-exp, which the tensor-core routes
+(``bf16_wgmma``, ``f32_3xtf32``; on the CPU :func:`.ref.attention_lse`)
+hand back; the backward's tensor-core routes of the same names
+(:func:`bwd_route`) read it.  The reference has no backward kernel: it
+differentiates its oracle with XLA.
 
 :func:`route` says which loop a launch takes (``csrc/flash_attention.cu``
 is the same rule in C, and :func:`.kernel.launcher_route` asks the built
 library, as the wrapper does before every launch): float32 on the tensor
-cores in 3xTF32 (``f32_3xtf32``) when the head dim is a multiple of 32 up
-to 128 and q, k, v and out are 16-byte aligned, else on the CUDA cores
-(``f32_simt``); bfloat16 on the tensor cores (``bf16_wgmma``: ``wgmma``
+cores in 3xTF32 (``f32_3xtf32``) when the head dim is one of
+:data:`TF32_HEAD_DIMS` (32, 64, 80, 96, 128: whole 32-column panels, or a
+last panel of 16 real columns) and q, k, v and out are 16-byte aligned,
+else on the CUDA cores (``f32_simt``); bfloat16 on the tensor cores (``bf16_wgmma``: ``wgmma``
 fed by TMA) when the head dim is one of :data:`WGMMA_HEAD_DIMS` (64, 80,
 96, 128, 192, 256: whole 64-column panels, or a last panel of 16 / 32
 real columns over TMA's zero fill) and the operands are 16-byte aligned,
 else on the CUDA cores (``bf16_simt``); float16 on the CUDA cores
-(``f16_simt``).  Qwen3-14B (d 128) takes ``f32_3xtf32`` and
-``bf16_wgmma``; RecurrentGemma-9B (d 256) ``f32_simt`` and ``bf16_wgmma``;
-h2o-danube's d 80 and Phi-3-vision's d 96 ``f32_simt`` and
-``bf16_wgmma``.
+(``f16_simt``).  Qwen3-14B (d 128), h2o-danube (d 80) and Phi-3-vision
+(d 96) take ``f32_3xtf32`` and ``bf16_wgmma``; RecurrentGemma-9B (d 256)
+``f32_simt`` and ``bf16_wgmma``.
 
 ``attn_step(o, q, k, v)`` is the executor-callable block accumulation ``o ←
 o + softmax(q kᵀ / √d) v``, tagged ``"dot"`` so a fused chain of it runs as
@@ -82,23 +83,30 @@ DEVICES = ("cpu", "cuda", "meta")
 ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f32_3xtf32", "f16_simt")
 # the backward's routes, in the order of the Route enum of
 # csrc/flash_attention_bwd.cu
-BWD_ROUTES = ("f32_simt", "bf16_simt", "f16_simt", "bf16_wgmma")
+BWD_ROUTES = ("f32_simt", "bf16_simt", "f16_simt", "bf16_wgmma",
+              "f32_3xtf32")
 # the head dims of both bf16 tensor-core routes (wgmma_head_dim of
 # csrc/attn_wgmma.cuh)
 WGMMA_HEAD_DIMS = (64, 80, 96, 128, 192, 256)
+# the head dims of both float32 tensor-core routes (tf32_head_dim of
+# csrc/attn_tf32.cuh)
+TF32_HEAD_DIMS = (32, 64, 80, 96, 128)
+# the routes whose forward hands back a log-sum-exp and whose backward
+# reads it
+LSE_ROUTES = ("bf16_wgmma", "f32_3xtf32")
 
 
 def route(dtype: torch.dtype, d: int, addresses=()) -> str:
     """The route of a call with head dim ``d`` on operands of ``dtype``
     whose q, k, v and out start at ``addresses`` (device byte addresses):
-    float32 goes to the tensor cores in 3xTF32 when the 32-column panels
-    cover d (``d % 32 == 0``, ``d <= 128``) and every address is 16-byte
-    aligned, bfloat16 when d is one of :data:`WGMMA_HEAD_DIMS` and TMA can
-    read every operand (each address 16-byte aligned); float16 stays on
-    the CUDA cores."""
+    float32 goes to the tensor cores in 3xTF32 when d is one of
+    :data:`TF32_HEAD_DIMS` and every address is 16-byte aligned, bfloat16
+    when d is one of :data:`WGMMA_HEAD_DIMS` and TMA can read every
+    operand (each address 16-byte aligned); float16 stays on the CUDA
+    cores."""
     aligned = all(int(x) % 16 == 0 for x in addresses)
     if dtype == torch.float32:
-        tf32 = d % 32 == 0 and 0 < d <= 128 and aligned
+        tf32 = d in TF32_HEAD_DIMS and aligned
         return "f32_3xtf32" if tf32 else "f32_simt"
     if dtype == torch.float16:
         return "f16_simt"
@@ -220,8 +228,9 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """``(out, lse)``: attention of the padded, checked operands, the
     kernel on CUDA tensors (counted in ``flash_attention.launches`` /
     ``routes``), the oracle on CPU tensors; and, when ``lse`` asks for it
-    and the route hands it back (``bf16_wgmma``; :func:`.ref.attention_lse`
-    on the CPU), each row's log-sum-exp, (B, Hq, Sq) float32, else None."""
+    and the route hands it back (:data:`LSE_ROUTES`;
+    :func:`.ref.attention_lse` on the CPU), each row's log-sum-exp, (B, Hq,
+    Sq) float32, else None."""
     if q.device.type == "cpu":
         if lse:
             return ref.attention_lse(q, k, v, causal=causal, window=window,
@@ -234,14 +243,14 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         count_meta(flash_attention, attention_flops(
             q, k, causal=causal, window=window))
         rows = (torch.empty(q.shape[:3], dtype=torch.float32, device="meta")
-                if lse and route(q.dtype, q.shape[3]) == "bf16_wgmma"
+                if lse and route(q.dtype, q.shape[3]) in LSE_ROUTES
                 else None)
         return torch.empty_like(q), rows
     out = torch.empty_like(q)
     rows = None
     if out.numel():
         path = _route_taken(q, k, v, out)
-        if lse and path == "bf16_wgmma":
+        if lse and path in LSE_ROUTES:
             rows = torch.empty(q.shape[:3], dtype=torch.float32,
                                device=q.device)
         kernel.launch(q, k, v, out, causal=causal, window=window,
@@ -285,11 +294,11 @@ def bwd_route(dtype: torch.dtype, d: int, addresses=()) -> str:
     ``addresses`` (device byte addresses; the log-sum-exp's 0 or None
     where the forward saved none; empty: all aligned, a log-sum-exp
     saved): bfloat16 goes to the tensor cores (``bf16_wgmma``) when d is
-    one of :data:`WGMMA_HEAD_DIMS`, TMA can read every operand (each
-    address 16-byte aligned) and the forward saved its log-sum-exp; every
-    other call takes the CUDA cores of its dtype
-    (``csrc/flash_attention_bwd.cu`` ``route_of`` is the same rule in
-    C)."""
+    one of :data:`WGMMA_HEAD_DIMS`, float32 (``f32_3xtf32``) when d is one
+    of :data:`TF32_HEAD_DIMS`, each when every address is 16-byte aligned
+    and the forward saved its log-sum-exp; every other call takes the
+    CUDA cores of its dtype (``csrc/flash_attention_bwd.cu`` ``route_of``
+    is the same rule in C)."""
     if dtype not in DTYPES:
         raise TypeError(f"no attention backward route for dtype {dtype}")
     if not 0 < d <= kernel.MAX_HEAD_DIM:
@@ -297,9 +306,11 @@ def bwd_route(dtype: torch.dtype, d: int, addresses=()) -> str:
     addresses = tuple(addresses)
     saved = not addresses or (len(addresses) == 6 and bool(addresses[5]))
     aligned = all(int(x or 0) % 16 == 0 for x in addresses)
-    tma = d in WGMMA_HEAD_DIMS and saved and aligned
-    if dtype == torch.bfloat16 and tma:
-        return "bf16_wgmma"
+    if saved and aligned:
+        if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+            return "bf16_wgmma"
+        if dtype == torch.float32 and d in TF32_HEAD_DIMS:
+            return "f32_3xtf32"
     return BWD_ROUTES[kernel.DTYPE_CODES[dtype]]
 
 
@@ -339,10 +350,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On CUDA tensors the backward kernel of :func:`bwd_route` (counted as
     one call in ``flash_attention_bwd.launches`` and by route in
     ``flash_attention_bwd.routes``: the built library's route, held
-    against :func:`bwd_route`): ``bf16_wgmma`` reads ``lse``, the CUDA-core
-    routes sweep the keys for it.  On CPU tensors the plain version of the
-    route the same call takes on the card, and only there:
-    :func:`.ref.attention_grad_lse` for ``bf16_wgmma``,
+    against :func:`bwd_route`): ``bf16_wgmma`` and ``f32_3xtf32`` read
+    ``lse``, the CUDA-core routes sweep the keys for it.  On CPU tensors
+    the plain version of the route the same call takes on the card, and
+    only there: :func:`.ref.attention_grad_lse` for :data:`LSE_ROUTES`,
     :func:`.ref.attention_grad` for the others.
     """
     q, k, v, out, dout = row_major(DTYPES, q, k, v, out, dout)
@@ -363,7 +374,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     addresses = _bwd_addresses(q, k, v, out, dout, lse)
     if q.device.type == "cpu":
         if lse is not None and bwd_route(q.dtype, q.shape[3],
-                                         addresses) == "bf16_wgmma":
+                                         addresses) in LSE_ROUTES:
             return ref.attention_grad_lse(q, k, v, out, dout, lse,
                                           causal=causal, window=window,
                                           scale=scale)
@@ -378,7 +389,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         taken = _bwd_route_taken(q.dtype, q.shape[3], addresses)
         kernel.launch_bwd(q, k, v, out, dout, dq, dk, dv, causal=causal,
                           window=window, scale=scale,
-                          lse=lse if taken == "bf16_wgmma" else None)
+                          lse=lse if taken in LSE_ROUTES else None)
         count_launch(flash_attention_bwd, taken)
     else:
         for t in (dq, dk, dv):

@@ -229,13 +229,19 @@ def test_library_is_named_by_its_sources_and_headers():
     assert set(kernel.SUFFIX) == set(ops.DTYPES)
     assert set(kernel.LIBRARY.symbols) == {
         f"bind_flash_attention_{s}" for s in kernel.SUFFIX.values()} | {
-        kernel.ROUTE_SYMBOL, kernel.LSE_SYMBOL}
+        kernel.ROUTE_SYMBOL, kernel.LSE_SYMBOL, kernel.F32_LSE_SYMBOL}
     assert kernel.ROUTE_SYMBOL == "bind_flash_attention_route"
-    # the log-sum-exp entry point is the bf16 one with one more pointer
+    # the log-sum-exp entry points are the bf16 and f32 ones with one more
+    # pointer
     assert kernel.LSE_SYMBOL == "bind_flash_attention_bf16_lse"
-    bf16 = kernel.LIBRARY.symbols["bind_flash_attention_bf16"]
-    assert kernel.LIBRARY.symbols[kernel.LSE_SYMBOL] == (
-        bf16[:4] + (ctypes.c_void_p,) + bf16[4:])
+    assert kernel.F32_LSE_SYMBOL == "bind_flash_attention_f32_lse"
+    assert kernel.LSE_SYMBOLS == {torch.bfloat16: kernel.LSE_SYMBOL,
+                                  torch.float32: kernel.F32_LSE_SYMBOL}
+    for dtype, sym in kernel.LSE_SYMBOLS.items():
+        plain = kernel.LIBRARY.symbols[
+            f"bind_flash_attention_{kernel.SUFFIX[dtype]}"]
+        assert kernel.LIBRARY.symbols[sym] == (
+            plain[:4] + (ctypes.c_void_p,) + plain[4:])
 
 
 def test_every_bound_symbol_is_an_extern_c_entry_point_with_its_arity():
@@ -275,14 +281,44 @@ def test_wgmma_head_dims_are_one_rule_in_python_and_both_c_routes():
         cases = re.findall(r"case (\d+):", switch.group(0))
         assert tuple(int(c) for c in cases) == ops.WGMMA_HEAD_DIMS
 
+
+def test_tf32_head_dims_are_one_rule_in_python_and_both_c_routes():
+    """Static: ``ops.TF32_HEAD_DIMS`` is the set ``tf32_head_dim`` of
+    ``csrc/attn_tf32.cuh`` admits (80 among them, 32 / 64 / 96 / 128
+    kept), both C ``route_of``s (forward and backward) ask that one
+    function, and each 3xTF32 launcher instantiates exactly those head
+    dims (no nvcc needed)."""
+    csrc = kernel.SOURCES[0].parent
+    rule = re.search(r"bool tf32_head_dim\(int64_t d\) \{(.*?)\}",
+                     (csrc / "attn_tf32.cuh").read_text(), re.S).group(1)
+    assert tuple(sorted(int(x) for x in re.findall(r"d == (\d+)", rule))) \
+        == ops.TF32_HEAD_DIMS
+    assert {32, 64, 80, 96, 128} <= set(ops.TF32_HEAD_DIMS)
+    assert all(d % 16 == 0 and d <= 128 for d in ops.TF32_HEAD_DIMS)
+    forward = kernel.SOURCES[0].read_text()
+    backward = kernel.BWD_SOURCES[0].read_text()
+    for source in (forward, backward):
+        body = re.search(r"route_of\([^)]*\) \{.*?\n\}", source,
+                         re.S).group(0)
+        assert "bind_attn_tf::tf32_head_dim(d)" in body
+        assert "% 32" not in body
+    switches = (
+        re.search(r"cudaError_t launch_tf32\(.*?\n\}", forward, re.S),
+        re.search(r"inline cudaError_t launch\(.*?\n\}",
+                  (csrc / "attn_bwd_tf32.cuh").read_text(), re.S))
+    for switch in switches:
+        cases = re.findall(r"case (\d+):", switch.group(0))
+        assert tuple(int(c) for c in cases) == ops.TF32_HEAD_DIMS
+
 KB = 1 << 10
 
 
 @pytest.mark.parametrize("dtype, d, addresses, want", [
-    # float32 goes to the tensor cores (3xTF32) where 32-column panels
-    # cover d up to 128, else it stays on the CUDA cores
+    # float32 goes to the tensor cores (3xTF32) at TF32_HEAD_DIMS (whole
+    # 32-column panels, or d 80's last panel of 16), else it stays on the
+    # CUDA cores
     *[(torch.float32, d, (0, 4 * KB, 8 * KB, 12 * KB),
-       "f32_3xtf32" if d in (64, 128) else "f32_simt")
+       "f32_3xtf32" if d in (64, 80, 128) else "f32_simt")
       for d in (16, 64, 80, 128, 256, 320)],
     (torch.float32, 128, (4, 8, 12, 20), "f32_simt"),
     # bfloat16: the head dims of the 64-column panels, whole or with a last
@@ -315,13 +351,16 @@ def test_route_by_dtype_head_dim_and_alignment(dtype, d, addresses, want):
 
 
 @pytest.mark.parametrize("d, addresses, want", [
-    # the 32-column panels of the 3xTF32 loop: d 32, 64, 96, 128
-    *[(d, (0, 16, 32, 48), "f32_3xtf32") for d in (32, 64, 96, 128)],
+    # the 32-column panels of the 3xTF32 loop: d 32, 64, 96, 128, and 80
+    # (h2o-danube) with a last panel of 16 real columns
+    *[(d, (0, 16, 32, 48), "f32_3xtf32") for d in (32, 64, 80, 96, 128)],
     (128, (), "f32_3xtf32"),
-    # head dims the panels do not cover, or above 128 (RecurrentGemma-9B's
+    (80, (), "f32_3xtf32"),
+    # head dims outside TF32_HEAD_DIMS, or above 128 (RecurrentGemma-9B's
     # 256: no key tile fits beside 128 rows of Q hi and lo)
-    *[(d, (0, 16, 32, 48), "f32_simt") for d in (0, 8, 16, 48, 80, 100,
-                                                 160, 192, 256)],
+    *[(d, (0, 16, 32, 48), "f32_simt") for d in (0, 8, 16, 48, 100, 160,
+                                                 192, 256)],
+    (80, (0, 16, 32, 52), "f32_simt"),
     # misaligned operands: any of q, k, v, out off 16 bytes (a view at an
     # odd element offset)
     (128, (4, 16, 32, 48), "f32_simt"),
@@ -554,10 +593,10 @@ def test_backward_entry_point_on_the_cpu_is_the_plain_version(rng,
 
 def test_backward_route_is_the_cuda_cores_for_every_dtype():
     """Without a saved log-sum-exp every dtype takes its CUDA-core route
-    (the tensor-core route reads the forward's); the names are in the C
-    enum's order, the tensor-core route appended."""
+    (the tensor-core routes read the forward's); the names are in the C
+    enum's order, the tensor-core routes appended."""
     assert ops.BWD_ROUTES == ("f32_simt", "bf16_simt", "f16_simt",
-                              "bf16_wgmma")
+                              "bf16_wgmma", "f32_3xtf32")
     for dtype, want in zip(ops.DTYPES, ops.BWD_ROUTES):
         assert ops.bwd_route(dtype, 256, (0, 16, 32, 48, 64, None)) == want
         assert ops.bwd_route(dtype, 256, (0, 16, 32, 48, 64)) == want
@@ -595,9 +634,23 @@ _ALIGNED6 = (0, 16, 32, 48, 64, 80)
     (torch.bfloat16, 256, _ALIGNED6[:5], "bf16_simt"),
     (torch.bfloat16, 96, _ALIGNED6[:5] + (None,), "bf16_simt"),
     (torch.bfloat16, 80, _ALIGNED6[:5] + (0,), "bf16_simt"),
-    # float32 and float16 stay on the CUDA cores, saved log-sum-exp or not
-    (torch.float32, 128, _ALIGNED6, "f32_simt"),
+    # float32 with a saved log-sum-exp: the 3xTF32 tensor cores at
+    # TF32_HEAD_DIMS (h2o-danube's 80, Qwen3-14B's 128), the CUDA cores
+    # elsewhere (RecurrentGemma-9B's 256)
+    *[(torch.float32, d, _ALIGNED6,
+       "f32_3xtf32" if d in (32, 64, 80, 96, 128) else "f32_simt")
+      for d in (16, 32, 48, 64, 80, 96, 112, 128, 192, 256)],
+    (torch.float32, 128, _ALIGNED6, "f32_3xtf32"),
+    (torch.float32, 80, (), "f32_3xtf32"),
     (torch.float32, 256, (), "f32_simt"),
+    # and each of the six operands 16-byte aligned
+    *[(torch.float32, 80, _ALIGNED6[:i] + (_ALIGNED6[i] + 4,)
+       + _ALIGNED6[i + 1:], "f32_simt") for i in range(6)],
+    # no log-sum-exp saved: the CUDA cores
+    (torch.float32, 80, _ALIGNED6[:5] + (None,), "f32_simt"),
+    (torch.float32, 128, _ALIGNED6[:5] + (0,), "f32_simt"),
+    (torch.float32, 64, _ALIGNED6[:5], "f32_simt"),
+    # float16 stays on the CUDA cores, saved log-sum-exp or not
     (torch.float16, 128, _ALIGNED6, "f16_simt"),
 ])
 def test_backward_route_by_dtype_head_dim_alignment_and_lse(dtype, d,
@@ -684,13 +737,20 @@ def test_backward_library_is_its_own_with_every_symbol_bound():
     headers = {h.resolve() for h in kernel.BWD_LIBRARY.headers}
     assert _includes(kernel.BWD_SOURCES[0]) == headers
     assert {h.name for h in headers} == {
-        "attn_bwd_wgmma.cuh", "attn_wgmma.cuh", "attn_tile.cuh",
-        "gemm_tile.cuh", "gemm_wgmma.cuh"}
+        "attn_bwd_wgmma.cuh", "attn_bwd_tf32.cuh", "attn_tf32.cuh",
+        "attn_wgmma.cuh", "attn_tile.cuh", "gemm_tile.cuh",
+        "gemm_wgmma.cuh"}
     assert set(kernel.BWD_LIBRARY.symbols) == extern_c_symbols(
         kernel.BWD_SOURCES[0])
     assert set(kernel.BWD_LIBRARY.symbols) == {
         f"bind_flash_attention_bwd_{s}" for s in kernel.SUFFIX.values()} | {
-        kernel.BWD_ROUTE_SYMBOL, kernel.BWD_LSE_SYMBOL}
+        kernel.BWD_ROUTE_SYMBOL, kernel.BWD_LSE_SYMBOL,
+        kernel.BWD_F32_LSE_SYMBOL}
+    # the float32 tensor-core route takes the CUDA-core routes' arguments,
+    # lse the forward's
+    assert kernel.BWD_F32_LSE_SYMBOL == "bind_flash_attention_bwd_f32_lse"
+    assert (kernel.BWD_LIBRARY.symbols[kernel.BWD_F32_LSE_SYMBOL]
+            == kernel.BWD_LIBRARY.symbols["bind_flash_attention_bwd_f32"])
     for sym, argtypes in kernel.BWD_LIBRARY.symbols.items():
         params = re.search(rf"int {sym}\((.*?)\)", source, re.S).group(1)
         assert params.count(",") + 1 == len(argtypes), sym
@@ -795,8 +855,9 @@ def test_function_on_the_cpu_saves_an_lse_and_matches_jax(dtype, rng,
     """The autograd Function asks the CPU's plain forward for the
     log-sum-exp when the call records a gradient, saves it, and its
     backward takes the plain version of the route the same call takes on
-    the card: ``attention_grad_lse`` for bf16 at d 64, ``attention_grad``
-    for float32; both match ``jax.value_and_grad`` of the oracle."""
+    the card: ``attention_grad_lse`` for bf16 (``bf16_wgmma``) and float32
+    (``f32_3xtf32``) at d 64; both match ``jax.value_and_grad`` of the
+    oracle."""
     b, hq, hkv, s, d = 1, 4, 2, 64, 64
     qkv = _qkv(rng, b, hq, hkv, s, s, d)
     dout = rng.normal(size=(b, hq, s, d)).astype(np.float32)
@@ -821,8 +882,7 @@ def test_function_on_the_cpu_saves_an_lse_and_matches_jax(dtype, rng,
     assert saved and lse is saved[0] and lse.shape == (b, hq, s)
     out.backward(torch.from_numpy(dout).to(dtype))
     bf16 = dtype == torch.bfloat16
-    assert calls == {"lse": 1, "grad": int(not bf16),
-                     "grad_lse": int(bf16)}
+    assert calls == {"lse": 1, "grad": 0, "grad_lse": 1}
     got = [t.grad.float().numpy() for t in (q, k, v)]
     if bf16:
         want = _ref_grads([t.detach().float().numpy() for t in (q, k, v)],
@@ -899,3 +959,50 @@ def test_bf16_at_d_80_and_96_differentiates_through_the_lse_route(
     want = _ref_grads([t.detach().float().numpy() for t in (q, k, v)],
                       dout.float().numpy(), causal=True, window=window)
     _close_grads(got, want, tol=3e-2)
+
+
+def test_float32_at_d_80_saves_an_lse_and_matches_jax_value_and_grad(
+        rng, monkeypatch):
+    """h2o-danube's d 80 takes both float32 tensor-core routes on the card,
+    so the ``_Attention`` Function at float32, GQA 4/1 and a window saves
+    the CPU forward's log-sum-exp and its backward is their plain
+    version, ``ref.attention_grad_lse``, never ``ref.attention_grad``;
+    the output and the gradient match ``jax.value_and_grad`` of the
+    oracle within 2e-5 on the same NumPy inputs."""
+    b, hq, hkv, s, d, window = 1, 4, 1, 40, 80, 12
+    assert ops.route(torch.float32, d) == "f32_3xtf32"
+    assert ops.bwd_route(torch.float32, d) == "f32_3xtf32"
+    qkv = _qkv(rng, b, hq, hkv, s, s, d)
+    dout = rng.normal(size=(b, hq, s, d)).astype(np.float32)
+    calls = []
+    plain = ref.attention_grad_lse
+
+    def counting(*args, **kwargs):
+        calls.append(kwargs)
+        return plain(*args, **kwargs)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the CUDA-core route's plain version ran")
+
+    monkeypatch.setattr(ref, "attention_grad_lse", counting)
+    monkeypatch.setattr(ref, "attention_grad", refused)
+    q, k, v = (torch.from_numpy(t).requires_grad_(True) for t in qkv)
+    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    node = out.grad_fn
+    while type(node).__name__ != "_AttentionBackward":
+        node = node.next_functions[0][0]
+    assert node.saved_tensors[4].shape == (b, hq, s)
+    out.backward(torch.from_numpy(dout))
+    assert len(calls) == 1
+
+    def f(q, k, v):
+        o = ref_oracle.attention(q, k, v, causal=True, window=window)
+        return jnp.sum(o * dout), o
+
+    (_, want_out), want = jax.value_and_grad(f, argnums=(0, 1, 2),
+                                             has_aux=True)(
+        *(jnp.asarray(t) for t in qkv))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out),
+                               rtol=0, atol=2e-5)
+    _close_grads([t.grad.numpy() for t in (q, k, v)],
+                 [np.asarray(g) for g in want], tol=2e-5)

@@ -16,14 +16,18 @@ C entry points on the same inputs:
 
 * flash attention in float32 at the reference's cases (``ATTN_CASES`` of
   ``chip_smoke.py``), h2o-danube-1.8b's head dim 80 and full
-  RecurrentGemma-9B and Qwen3-14B width, and again at head dims 64 and
-  128 and at ``MID_ATTN`` at d 64 and 128: where this side takes
-  ``f32_simt``, bit for bit equal on the two sides; where it takes
-  ``f32_3xtf32`` (a route an older side may not have: its float32 is the
-  CUDA-core loop), each side within the reference's float32 tolerance
-  (2e-5) of the oracle, and this side's largest error against a float64
-  computation at most ``TF32_VS_SIMT`` times the other side's, per slice
-  of 8 heads, when the other side took ``f32_simt``;
+  RecurrentGemma-9B and Qwen3-14B width, and again at head dims 32, 64,
+  80, 96 and 128 and at ``MID_ATTN`` at d 64, 80 and 128: where this side
+  takes ``f32_simt``, bit for bit equal on the two sides; where both take
+  ``f32_3xtf32``, bit for bit equal too; where this side takes
+  ``f32_3xtf32`` and the other ``f32_simt`` (an older side's float32 at a
+  head dim its 3xTF32 loop did not take), each side within the
+  reference's float32 tolerance (2e-5) of the oracle, and this side's
+  largest error against a float64 computation at most ``TF32_VS_SIMT``
+  times the other side's, per slice of 8 heads; where this side has
+  ``bind_flash_attention_f32_lse``, its output on every ``f32_3xtf32``
+  case bit for bit its own ``bind_flash_attention_f32`` output and its
+  log-sum-exp within ``LSE_TOL`` of ``ref.attention_lse``'s;
 * flash attention in bfloat16 at the same cases with the head dim raised
   to 64 and 128, at ``chip_smoke.py``'s ``MID_ATTN`` cases (many key tiles
   per query tile) at every head dim of ``MID_HEAD_DIMS`` (64, 80, 96, 128,
@@ -46,10 +50,16 @@ C entry points on the same inputs:
   flash_attention_bwd.cu``, where the other side has one) in float32 and
   bfloat16 at the reference's cases at d 64 and 128, at ``MID_ATTN``
   (float32 at d 64 and 128, bfloat16 at ``MID_HEAD_DIMS``) and at
-  ``chip_smoke.py``'s ``BWD_SHAPES``: on the CUDA-core routes
-  (``f32_simt``, ``bf16_simt``: the ``bind_flash_attention_bwd_{f32,bf16}``
-  entry points) bit for bit the other side's, and, where this side's
-  ``bind_flash_attention_bwd_route`` gives ``bf16_wgmma``, that route,
+  ``chip_smoke.py``'s ``BWD_SHAPES``, float32 also at d 32, 80 and 96: on
+  the CUDA-core routes (``f32_simt``, ``bf16_simt``: the
+  ``bind_flash_attention_bwd_{f32,bf16}`` entry points) bit for bit the
+  other side's; where this side's ``bind_flash_attention_bwd_route``
+  gives ``f32_3xtf32``, that route, given this side's log-sum-exp, within
+  ``BWD_F32_NRMS`` rms per head slice of the plain version, at most
+  ``TF32_VS_SIMT`` times this side's ``f32_simt`` error against a float64
+  gradient per slice of 8 heads, two calls bit for bit, and bit for bit
+  the other side's where it takes ``f32_3xtf32`` too; and, where it gives
+  ``bf16_wgmma``, that route,
   given this side's log-sum-exp, within ``chip_smoke.py``'s
   ``BF16_SLICE_NRMS`` rms per head slice of the plain version
   (``ref.attention_grad`` in float32) and, where the other side takes
@@ -65,10 +75,11 @@ C entry points on the same inputs:
   other: flash attention at both full widths in both dtypes and at
   ``FAMILY_ATTN``'s shapes whose head dim is no multiple of 64
   (Phi-3-vision's d 96, h2o-danube's d 80) in bf16, each side on the
-  route it takes; the backward at ``BWD_SHAPES`` and those two shapes
-  (each side's ``bf16_wgmma`` where its route takes it, else its bf16
-  CUDA-core entry point; float32 on ``f32_simt``); and ``chain_attn`` at
-  the 512-row tile in float32.
+  route it takes, and the float32 training forward at ``FAMILY_F32_ATTN``
+  (h2o-danube-1.8b's FSDP step shape); the backward at ``BWD_SHAPES`` and
+  those two shapes (each side's tensor-core route where it takes one with
+  the forward's log-sum-exp, else its CUDA-core entry point); and
+  ``chain_attn`` at the 512-row tile in float32.
 
 The card's name and power limit come first.  Exits non-zero on the first
 disagreement.
@@ -83,10 +94,11 @@ from pathlib import Path
 
 from _ab import KERNELS, ROOT, ab, build_all, start
 from chip_smoke import (ATTN_CASES, ATTN_TOL, BF16_SLICE_NRMS, BWD_SHAPES,
-                        FAMILY_ATTN, FULL_ATTN, MID_ATTN, MID_HEAD_DIMS,
-                        ODD_ATTN,
-                        TF32_VS_SIMT, attention64, bf16_attention_error,
-                        bf16_within, slice_nrms)
+                        BWD_F32_NRMS, FAMILY_ATTN, FAMILY_F32_ATTN,
+                        FULL_ATTN, MID_ATTN, MID_HEAD_DIMS, ODD_ATTN,
+                        TF32_VS_SIMT, attention64, attention_grad64,
+                        bf16_attention_error, bf16_within, slice_nrms,
+                        tf32_vs_simt)
 
 # the routes in the order of flash_attention.cu's Route enum; a side whose
 # bind_flash_attention_route takes the element size has the first three
@@ -106,15 +118,19 @@ FA_ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _D, _I, _I,
            _I64, _P)
 FA_ROUTE_ARGS = (_I, _P, _P, _P, _P, _I64)
 LSE_SYMBOL = "bind_flash_attention_bf16_lse"
+F32_LSE_SYMBOL = "bind_flash_attention_f32_lse"
+LSE_SYMBOLS = {"bfloat16": LSE_SYMBOL, "float32": F32_LSE_SYMBOL}
 FA_LSE_ARGS = FA_ARGS[:4] + (_P,) + FA_ARGS[4:]
 BWD_ARGS = (_P,) * 10 + (_I64,) * 6 + (_D, _I, _I, _I64, _P)
 BWD_LSE_SYMBOL = "bind_flash_attention_bwd_bf16_lse"
 BWD_LSE_ARGS = (_P,) * 11 + (_I64,) * 6 + (_D, _I, _I, _I64, _I64, _P)
+BWD_F32_LSE_SYMBOL = "bind_flash_attention_bwd_f32_lse"
 # the backward's route: (element-type code, d, q, k, v, out, dout, lse),
 # an index of BWD_ROUTES
 BWD_ROUTE_SYMBOL = "bind_flash_attention_bwd_route"
 BWD_ROUTE_ARGS = (_I, _I64) + (_P,) * 6
-BWD_ROUTES = ("f32_simt", "bf16_simt", "f16_simt", "bf16_wgmma")
+BWD_ROUTES = ("f32_simt", "bf16_simt", "f16_simt", "bf16_wgmma",
+              "f32_3xtf32")
 # the log-sum-exp against the plain version's in float32 on the same bf16
 # inputs: the same f32 scores summed in another order, one MUFU ex2 a key
 # (a few float32 ulps of values up to ~10)
@@ -138,8 +154,9 @@ def libraries(CudaLibrary, side: str, root: Path):
                for s in FA_SUFFIX.values()}
     if "bind_flash_attention_route" in source:
         fa_syms["bind_flash_attention_route"] = FA_ROUTE_ARGS
-    if LSE_SYMBOL in source:
-        fa_syms[LSE_SYMBOL] = FA_LSE_ARGS
+    for sym in LSE_SYMBOLS.values():
+        if sym in source:
+            fa_syms[sym] = FA_LSE_ARGS
     bwd = None
     bwd_cu = fa_dir / "flash_attention_bwd.cu"
     if bwd_cu.is_file():
@@ -147,6 +164,8 @@ def libraries(CudaLibrary, side: str, root: Path):
                     for s in FA_SUFFIX.values()}
         if BWD_LSE_SYMBOL in bwd_cu.read_text():
             bwd_syms[BWD_LSE_SYMBOL] = BWD_LSE_ARGS
+        if BWD_F32_LSE_SYMBOL in bwd_cu.read_text():
+            bwd_syms[BWD_F32_LSE_SYMBOL] = BWD_ARGS
         if BWD_ROUTE_SYMBOL in bwd_cu.read_text():
             bwd_syms[BWD_ROUTE_SYMBOL] = BWD_ROUTE_ARGS
         bwd = CudaLibrary(f"ab_fa_bwd_{side}", (bwd_cu,), headers, bwd_syms)
@@ -234,8 +253,8 @@ def main(argv: list[str]) -> int:
         if both_wgmma:
             lse_ok = torch.equal(outs["this"], outs["other"])
             lse_what = "; both bf16_wgmma: out bit for bit the other's"
-        if routes["this"] == "bf16_wgmma" and LSE_SYMBOL in libs["this"][0] \
-                .symbols:
+        if (routes["this"] in ("bf16_wgmma", "f32_3xtf32")
+                and LSE_SYMBOLS[dname] in libs["this"][0].symbols):
             out, lse = lse_call("this", q, k, v, causal, window)
             _, want = fa_ref.attention_lse(q.float(), k.float(), v.float(),
                                            causal=causal, window=window)
@@ -249,7 +268,8 @@ def main(argv: list[str]) -> int:
                          f"entry point's without it, lse within {lerr:.2e} "
                          f"(<= {LSE_TOL}), +inf on the {int((~fin).sum())} "
                          f"blind rows")
-            if both_wgmma and LSE_SYMBOL in libs["other"][0].symbols:
+            if ((both_wgmma or routes["other"] == routes["this"])
+                    and LSE_SYMBOLS[dname] in libs["other"][0].symbols):
                 out2, lse2 = lse_call("other", q, k, v, causal, window)
                 lse_ok = (lse_ok and torch.equal(out, out2)
                           and torch.equal(lse, lse2))
@@ -258,9 +278,10 @@ def main(argv: list[str]) -> int:
         name = (f"flash_attention {label}{(b, hq, hkv, sq, skv, d)} causal "
                 f"{causal} window {window} {dname} (routes: this "
                 f"{routes['this']}, other {routes['other']})")
-        if dname == "float32" and routes["this"] != "f32_3xtf32":
+        if dname == "float32" and (routes["this"] != "f32_3xtf32"
+                                   or routes["other"] == "f32_3xtf32"):
             ok = torch.equal(outs["this"], outs["other"])
-            what = "this vs other bitwise equal"
+            what = f"both {routes['this']}: this vs other bitwise equal"
         elif dname == "float32":
             # no bits to match across routes: both to the oracle, and this
             # side to float64 beside the other's CUDA-core loop
@@ -303,12 +324,12 @@ def main(argv: list[str]) -> int:
         return ok
 
     def lse_call(side, q, k, v, causal, window):
-        """The side's bf16 forward with each row's log-sum-exp."""
+        """The side's forward of q's dtype with each row's log-sum-exp."""
         b, hq, sq, d = q.shape
         out = torch.empty_like(q)
         lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
         libs[side][0].call(
-            LSE_SYMBOL, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            LSE_SYMBOLS[str(q.dtype)[6:]], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), b, hq, k.shape[1], sq,
             k.shape[2], d, d ** -0.5, int(causal), int(window is not None),
             0 if window is None else window, stream)
@@ -370,6 +391,29 @@ def main(argv: list[str]) -> int:
         lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
         return bwd_route(side, q, k, v, out, dout, lse) == "bf16_wgmma"
 
+    def tf32_bwd(side, q, k, v, out, dout):
+        """Whether the side's backward takes f32_3xtf32 on these operands
+        with the forward's log-sum-exp."""
+        if (str(q.dtype) != "torch.float32"
+                or BWD_F32_LSE_SYMBOL not in libs[side][3].symbols):
+            return False
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
+        return bwd_route(side, q, k, v, out, dout, lse) == "f32_3xtf32"
+
+    def bwd_tf32_call(side, q, k, v, out, dout, lse, causal, window):
+        """The side's float32 backward on the tensor cores (3xTF32)."""
+        b, hq, sq, d = q.shape
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        delta = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+        libs[side][3].call(
+            BWD_F32_LSE_SYMBOL,
+            *(t.data_ptr() for t in (q, k, v, out, dout, *grads, lse,
+                                     delta)),
+            b, hq, k.shape[1], sq, k.shape[2], d, d ** -0.5, int(causal),
+            int(window is not None), 0 if window is None else window,
+            stream)
+        return grads
+
     def bwd_case(label, shape, dname, blk):
         b, hq, hkv, sq, skv, d, causal, window = shape
         dt = getattr(torch, dname)
@@ -387,7 +431,39 @@ def main(argv: list[str]) -> int:
                                                    got["other"]))
         what = (f"{'f32' if dname == 'float32' else 'bf16'}_simt this vs "
                 f"other bitwise equal")
+        simt = got["this"]
         del got
+        if tf32_bwd("this", q, k, v, out, dout):
+            out, lse = lse_call("this", q, k, v, causal, window)
+            grads = bwd_tf32_call("this", q, k, v, out, dout, lse, causal,
+                                  window)
+            again = bwd_tf32_call("this", q, k, v, out, dout, lse, causal,
+                                  window)
+            exp = fa_ref.attention_grad(q, k, v, dout, causal=causal,
+                                        window=window)
+            exp64 = attention_grad64(torch, fa_ref, q, k, v, dout, causal,
+                                     window)
+            nrms = max(slice_nrms(g, e) for g, e in zip(grads, exp))
+            vs = max(tf32_vs_simt(g, s_, x)
+                     for g, s_, x in zip(grads, simt, exp64))
+            twice = all(torch.equal(a, c) for a, c in zip(grads, again))
+            ok = ok and nrms <= BWD_F32_NRMS and vs <= TF32_VS_SIMT and twice
+            what += (f"; f32_3xtf32 within {nrms:.2e} rms per head slice of "
+                     f"the plain version (<= {BWD_F32_NRMS:.0e}), "
+                     f"{vs:.2f} x f32_simt's float64 error (limit "
+                     f"{TF32_VS_SIMT}), two calls bit for bit: {twice}")
+            if tf32_bwd("other", q, k, v, out, dout):
+                other = bwd_tf32_call("other", q, k, v, out, dout, lse,
+                                      causal, window)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, c) for a, c in zip(grads, other))
+                ok = ok and same
+                what += f", bit for bit the other side's f32_3xtf32: {same}"
+                del other
+            else:
+                what += " (the other side's float32 route is the CUDA cores)"
+            del grads, again, exp, exp64
+        del simt
         if wgmma_bwd("this", q, k, v, out, dout):
             out, lse = lse_call("this", q, k, v, causal, window)
             grads = bwd_wgmma_call("this", q, k, v, out, dout, lse, causal,
@@ -423,6 +499,12 @@ def main(argv: list[str]) -> int:
             # Sq > Skv under causal + window: rows past Skv + window see no
             # key
             cases.append(("", (1, 2, 2, 64, 32, d, True, 8), dname, 16))
+    # float32 at every head dim of the 3xTF32 loop
+    for d in (32, 80, 96):
+        cases += [("", case[:5] + (d,) + case[6:], "float32", 16)
+                  for case in ATTN_CASES]
+        cases.append(("", (1, 2, 2, 64, 32, d, True, 8), "float32", 16))
+    for d in (64, 80, 128):
         cases += [("mid ", (b, hq, hkv, sq, skv, d, causal, window),
                    "float32", blk)
                   for b, hq, hkv, sq, skv, causal, window, blk in MID_ATTN]
@@ -439,7 +521,8 @@ def main(argv: list[str]) -> int:
         if not fa_case(label, shape, dname, blk):
             return 1
     if libs["this"][3] is not None and libs["other"][3] is not None:
-        bwd_cases = []
+        bwd_cases = [("", case[:5] + (d,) + case[6:], "float32", 16)
+                     for d in (32, 80, 96) for case in ATTN_CASES]
         for d in (64, 128):
             for dname in ("float32", "bfloat16"):
                 bwd_cases += [("", case[:5] + (d,) + case[6:], dname, 16)
@@ -528,6 +611,24 @@ def main(argv: list[str]) -> int:
                f"{routes['this']}, other {routes['other']})",
                lambda side: fa_call(side, q, k, v, out, True, window), 5, 1)
             del q, k, v, out
+    # the float32 training forward (with its log-sum-exp where the side's
+    # route hands one back) at the FSDP step's shape
+    for model, (b, hq, hkv, s, d, window) in FAMILY_F32_ATTN.items():
+        q = rand((b, hq, s, d), torch.float32)
+        k, v = (rand((b, hkv, s, d), torch.float32) for _ in range(2))
+        out = torch.empty_like(q)
+        routes = {side: fa_route(side, q, k, v, out) for side in libs}
+        lse_fwd = {side: routes[side] == "f32_3xtf32" and F32_LSE_SYMBOL
+                   in libs[side][0].symbols for side in libs}
+
+        def fwd(side, q=q, k=k, v=v, out=out, window=window):
+            if lse_fwd[side]:
+                return lse_call(side, q, k, v, True, window)
+            return fa_call(side, q, k, v, out, True, window)
+        ab(torch, f"flash_attention {model} float32 training forward "
+           f"(routes: this {routes['this']}, other {routes['other']})",
+           fwd, 5, 1)
+        del q, k, v, out
     if libs["this"][3] is not None and libs["other"][3] is not None:
         shapes = {**BWD_SHAPES, **{m: t for m, t in timed.items()
                                    if m not in FULL_ATTN}}
@@ -540,22 +641,26 @@ def main(argv: list[str]) -> int:
                 out = torch.empty_like(q)
                 fa_call("this", q, k, v, out, True, window)
                 lse = None
-                if wgmma_bwd("this", q, k, v, out, dout):
+                if (wgmma_bwd("this", q, k, v, out, dout)
+                        or tf32_bwd("this", q, k, v, out, dout)):
                     out, lse = lse_call("this", q, k, v, True, window)
                 # each side on the route its library takes with the
                 # forward's log-sum-exp
-                wgmma = {side: lse is not None
-                         and wgmma_bwd(side, q, k, v, out, dout)
-                         for side in libs}
-                label = ", ".join(
-                    f"{side} {'bf16_wgmma' if wgmma[side] else 'CUDA cores'}"
-                    for side in ("this", "other"))
+                tc = {side: None if lse is None
+                      else "bf16_wgmma" if wgmma_bwd(side, q, k, v, out, dout)
+                      else "f32_3xtf32" if tf32_bwd(side, q, k, v, out, dout)
+                      else None for side in libs}
+                label = ", ".join(f"{side} {tc[side] or 'CUDA cores'}"
+                                  for side in ("this", "other"))
 
                 def run(side, q=q, k=k, v=v, out=out, dout=dout, lse=lse,
-                        window=window, wgmma=wgmma):
-                    if wgmma[side]:
+                        window=window, tc=tc):
+                    if tc[side] == "bf16_wgmma":
                         return bwd_wgmma_call(side, q, k, v, out, dout, lse,
                                               True, window)
+                    if tc[side] == "f32_3xtf32":
+                        return bwd_tf32_call(side, q, k, v, out, dout, lse,
+                                             True, window)
                     return bwd_call(side, q, k, v, out, dout, True, window)
                 ab(torch, f"flash_attention_bwd {model} {dname} ({label})",
                    run, 5, 1)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Plant faults in copies of the tensor-core attention kernels (bfloat16
-and 3xTF32) and show that ``chip_smoke.py``'s checks catch them.
+and 3xTF32, and the 3xTF32 backward) and show that ``chip_smoke.py``'s
+checks catch them.
 
 Usage, from the root of a checkout, on a machine with one CUDA card::
 
@@ -25,9 +26,17 @@ each output held as ``chip_smoke.py`` holds the route: within the
 reference's float32 tolerance (2e-5) of the oracle, and, per slice of at
 most 8 heads, no farther from a float64 computation than
 ``TF32_VS_SIMT`` times the CUDA-core route's (``f32_simt``, this
-checkout's library, on copies at an odd offset) on the same inputs.  The
-control runs both sets.  A fault is caught when some case fails a check;
-how many cases each check fails is printed.
+checkout's library, on copies at an odd offset) on the same inputs.  A
+fault of the float32 backward (``f32_3xtf32``, ``attn_bwd_tf32.cuh``) is
+planted in a copy of the backward library, which runs ``BWD_F32`` (h2o-
+danube-1.8b's FSDP shape, ``MID_ATTN`` at d 80 and a long causal case at
+d 128) from this checkout's forward and its log-sum-exp, each gradient
+held as ``chip_smoke.py`` holds the route: within ``BWD_F32_NRMS`` (2e-5)
+rms per head slice of the plain version, and, per slice of at most 8
+heads, no farther from a float64 gradient than ``TF32_VS_SIMT`` times
+``f32_simt``'s on the same inputs.  The control runs all three sets.  A
+fault is caught when some case fails a check; how many cases each check
+fails is printed.
 
 Prints, per fault, how many cases caught it and the worst statistics over
 the cases.  Exits non-zero when the control fails a check or a fault
@@ -41,9 +50,10 @@ import shutil
 import sys
 
 from _ab import KERNELS, ROOT, build_all, start
-from chip_smoke import (ATTN_CASES, ATTN_TOL, MID_ATTN, MID_HEAD_DIMS,
-                        TF32_VS_SIMT, attention64, bf16_attention_error,
-                        bf16_within)
+from chip_smoke import (ATTN_CASES, ATTN_TOL, BWD_F32_NRMS, MID_ATTN,
+                        MID_HEAD_DIMS, TF32_VS_SIMT, attention64,
+                        attention_grad64, bf16_attention_error, bf16_within,
+                        odd_offset, slice_nrms, tf32_vs_simt)
 
 # (name, dtype, file, line, replacement, whether the checks must catch it);
 # line and replacement may be tuples of lines, each replaced in turn
@@ -112,12 +122,34 @@ FAULTS = (
       "    wgmma_ss<C::BKV>(s, wg_desc(q_hi + qa, 16, 1024),\n"
       "                     wg_desc(k_hi + ka, 16, 1024), 1);\n",
       ""), False),
+    # the backward: every key tile's dQ and every query tile's dK and dV
+    # accumulated inside the tensor cores across the sweep, instead of
+    # summed from zero per tile and added with an IEEE add
+    ("backward tile sums added in the tensor cores", "float32 backward",
+     "attn_bwd_tf32.cuh",
+     ("    issue_grad<D>(dqt, s, sl, kth, ktl);",
+      "    for (int i = 0; i < C::OR; ++i) dq[i] = __fadd_rn(dq[i], dqt[i]);",
+      "    issue_grad<D>(at, st, stl, th, tl);",
+      "    for (int i = 0; i < C::OR; ++i) acc[i] = __fadd_rn(acc[i], at[i]);",
+      "                desc(t_hi, kk * 32), kk > 0);"),
+     ("    issue_grad<D>(dq, s, sl, kth, ktl);", "",
+      "    issue_grad<D>(acc, st, stl, th, tl);", "",
+      "                desc(t_hi, kk * 32), 1);"), True),
+    # dS's (and P's) lo halves dropped: their products in plain TF32
+    ("backward dS and P in plain TF32", "float32 backward",
+     "attn_bwd_tf32.cuh", "  lo = tf32_rna(x - hi);", "  lo = 0.0f;", True),
 )
+# the float32 backward's cases: (B, Hq, Hkv, S, d, window), causal;
+# h2o-danube-1.8b's FSDP step shape, and one long enough (512 key tiles a
+# row block, 2048 query tiles a key block) for the tensor cores'
+# truncating sums to show
+BWD_F32 = ((8, 32, 8, 1024, 80, 4096), (1, 8, 2, 8192, 128, None))
 # (B, Hq, Hkv, S, d): a float32 case long enough (256 key tiles a row
 # block) for error that grows with the number of key tiles to show
 LONG_F32 = (1, 8, 2, 8192, 128)
 _P, _I, _I64, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_double)
+BWD_ARGS = (_P,) * 10 + (_I64,) * 6 + (_D, _I, _I, _I64, _P)
 FA_ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _D, _I, _I,
            _I64, _P)
 ROUTE_ARGS = (_I, _P, _P, _P, _P, _I64)
@@ -129,9 +161,10 @@ WANT = {"float32": "f32_3xtf32", "bfloat16": "bf16_wgmma"}
 TOL = ATTN_TOL["bfloat16"]      # the reference's, rtol = atol
 
 
-def planted(CudaLibrary, index: int, fault):
+def planted(CudaLibrary, index, fault, backward: bool = False):
     """The flash-attention library of a copy of the sources with ``fault``
-    (``None``: the control) planted."""
+    (``None``: the control) planted; the backward's library for a fault of
+    the backward, or ``backward``."""
     copy = ROOT / "build" / "attn_faults" / str(index)
     if copy.exists():
         shutil.rmtree(copy)
@@ -154,6 +187,11 @@ def planted(CudaLibrary, index: int, fault):
     headers = tuple(sorted((copy / "gemm" / "csrc").glob("*.cuh"))
                     + sorted((copy / "flash_attention" / "csrc")
                              .glob("*.cuh")))
+    if backward or (fault is not None and fault[1] == "float32 backward"):
+        return CudaLibrary(f"attn_fault_bwd_{index}",
+                           (copy / "flash_attention" / "csrc" /
+                            "flash_attention_bwd.cu",), headers,
+                           {"bind_flash_attention_bwd_f32_lse": BWD_ARGS})
     return CudaLibrary(f"attn_fault_{index}",
                        (copy / "flash_attention" / "csrc" /
                         "flash_attention.cu",), headers,
@@ -176,7 +214,9 @@ def main(argv: list[str]) -> int:
 
     faults = (None,) + FAULTS
     libs = [planted(CudaLibrary, i, f) for i, f in enumerate(faults)]
-    build_all(libs + [fa_kernel.LIBRARY], ("error",))
+    control_bwd = planted(CudaLibrary, "control_bwd", None, backward=True)
+    build_all(libs + [control_bwd, fa_kernel.LIBRARY, fa_kernel.BWD_LIBRARY],
+              ("error",))
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
@@ -200,13 +240,6 @@ def main(argv: list[str]) -> int:
                 f"({b}, {hq}, {hkv}, {sq}, {skv}, {d}) causal {causal} "
                 f"window {window}", q, k, v, causal, window, exp, exp32,
                 ~seen.any(dim=-1)))
-    def odd_offset(t):
-        # the same values at an address no 16-byte-aligned route can read
-        view = torch.empty(t.numel() + 1, dtype=t.dtype,
-                           device=dev)[1:].view(t.shape)
-        view.copy_(t)
-        return view
-
     # float32 on the 3xTF32 route: MID_ATTN and the reference's cases at the
     # head dims it takes, and LONG_F32
     f32_shapes = [(b, hq, hkv, sq, skv, d, causal, window, blk)
@@ -241,6 +274,45 @@ def main(argv: list[str]) -> int:
             f"{window}", q, k, v, causal, window, exp, (exp64, bases),
             ~seen.any(dim=-1)))
 
+    # the float32 backward: this checkout's forward and its log-sum-exp,
+    # the plain version, float64 and f32_simt (no log-sum-exp) on the same
+    # inputs
+    bwd_cases = []
+    bwd_shapes = [(b, hq, hkv, sq, 80, window)
+                  for b, hq, hkv, sq, skv, causal, window, blk in MID_ATTN
+                  if causal and sq == skv] + list(BWD_F32)
+    for b, hq, hkv, s, d, window in bwd_shapes:
+        q = torch.randn((b, hq, s, d), generator=gen, device=dev)
+        k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev)
+                for _ in range(2))
+        kw = dict(causal=True, window=window, scale=d ** -0.5)
+        out, lse = fa_ops._attend(q, k, v, lse=True, **kw)
+        dout = torch.randn(q.shape, generator=gen, device=dev)
+        simt = fa_ops.flash_attention_bwd(q, k, v, out, dout, lse=None, **kw)
+        if fa_ops.bwd_route(torch.float32, d, fa_ops._bwd_addresses(
+                q, k, v, out, dout, lse)) != "f32_3xtf32":
+            raise RuntimeError(f"d {d}: the backward does not take "
+                               f"f32_3xtf32")
+        exp = fa_ref.attention_grad(q, k, v, dout, **kw)
+        exp64 = attention_grad64(torch, fa_ref, q, k, v, dout, True, window)
+        bwd_cases.append((f"({b}, {hq}, {hkv}, {s}, {s}, {d}) causal True "
+                          f"window {window}", q, k, v, out, dout, lse,
+                          window, exp, exp64, simt))
+    cases["float32 backward"] = bwd_cases
+
+    def run_bwd(lib, q, k, v, out, dout, lse, window):
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        delta = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
+        b, hq, s, d = q.shape
+        lib.call("bind_flash_attention_bwd_f32_lse",
+                 *(t.data_ptr() for t in (q, k, v, out, dout, *grads, lse,
+                                          delta)),
+                 b, hq, k.shape[1], s, k.shape[2], d, d ** -0.5, 1,
+                 int(window is not None), 0 if window is None else window,
+                 stream)
+        torch.cuda.synchronize()
+        return grads
+
     def run_case(lib, dname, label, q, k, v, causal, window):
         out = torch.empty_like(q)
         b, hq, sq, d = q.shape
@@ -260,10 +332,46 @@ def main(argv: list[str]) -> int:
 
     failed = False
     for fault, lib in zip(faults, libs):
-        dnames = ("bfloat16", "float32") if fault is None else (fault[1],)
+        dnames = (("bfloat16", "float32", "float32 backward")
+                  if fault is None else (fault[1],))
         for dname in dnames:
             name = "control (no fault)" if fault is None else fault[0]
             name = f"{name} [{dname}]"
+            if dname == "float32 backward":
+                lib_b = control_bwd if fault is None else lib
+                caught, by_nrms, by_limits, first = 0, 0, 0, None
+                worst = {"nrms": 0.0, "vs_simt": 0.0}
+                for (label, q, k, v, out, dout, lse, window, exp, exp64,
+                     simt) in cases[dname]:
+                    got = run_bwd(lib_b, q, k, v, out, dout, lse, window)
+                    nrms = max(slice_nrms(g, e) for g, e in zip(got, exp))
+                    vs = max(tf32_vs_simt(g, s_, x)
+                             for g, s_, x in zip(got, simt, exp64))
+                    finite = all(bool(torch.isfinite(g).all()) for g in got)
+                    by_nrms += not (finite and nrms <= BWD_F32_NRMS)
+                    by_limits += not vs <= TF32_VS_SIMT
+                    for key, x in (("nrms", nrms), ("vs_simt", vs)):
+                        if not x <= worst[key] and worst[key] == worst[key]:
+                            worst[key] = x
+                    if not (finite and nrms <= BWD_F32_NRMS
+                            and vs <= TF32_VS_SIMT):
+                        caught += 1
+                        first = first or label
+                n = len(cases[dname])
+                what = (f"caught by {caught} of {n} cases (first: {first}; "
+                        f"by the {BWD_F32_NRMS:.0e} rms per head slice "
+                        f"{by_nrms}, by the float64 limit {by_limits})"
+                        if caught else f"passes all {n} cases")
+                print(f"[fault] {name}: {what}; rms error per head slice at "
+                      f"most {worst['nrms']:.3e} of the plain version's, "
+                      f"error against float64 at most "
+                      f"{worst['vs_simt']:.2f} x f32_simt's (limit "
+                      f"{TF32_VS_SIMT})")
+                if fault is None:
+                    failed |= caught > 0
+                elif fault[5] and not caught:
+                    failed = True
+                continue
             caught, by_limits, by_tolerance, first = 0, 0, 0, None
             worst = {"element": 0.0, "slice": 0.0, "row": 0.0,
                      "max_abs": 0.0, "vs_simt": 0.0}
