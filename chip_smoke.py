@@ -60,15 +60,17 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    64 and 128 (the tensor-core routes) with a case whose rows past Skv +
    window see no key (exactly zero), f32 and bf16 cases with many key
    tiles per query tile (``MID_ATTN``: causal, windowed, ragged,
-   non-causal; f32 at d 64, 80, 96 and 128, bf16 at 64, 80, 96, 128, 192
-   and 256), bf16 views at an odd offset at d 128 and 96 and f32 ones (the
+   non-causal; f32 at d 64, 80, 96, 128 and 256, bf16 at 64, 80, 96, 128,
+   192 and 256), bf16 views at an odd offset at d 128 and 96 and f32 ones (the
    CUDA cores), float16 (the CUDA cores), h2o-danube-1.8b's head dim 80
    (bf16 and, since its 32-column panels take a last one of 16 columns,
    f32 on the tensor cores) and,
    through the entry point with every count zeroed just before, at full
    width: RecurrentGemma-9B local attention (16 heads over 1, S 8192, D
-   256, window 2048) and Qwen3-14B (40 over 8, S 8192, D 128), causal, f32
-   and bf16; every call's counted route (the built launcher's for the
+   256, window 2048), Qwen3-14B (40 over 8, S 8192, D 128) and Gemma-7B
+   (16 over 16, S 4096, D 256), causal, f32 and bf16 (f32 at d 256 also
+   on ``f32_simt``, q one element in, which ``f32_3xtf32`` must beat);
+   every call's counted route (the built launcher's for the
    operands, which the wrapper holds against ``ops.route``) checked
    against ``ops.route`` of the inputs, every route run; bf16 also
    against the float32 oracle to limits scaled to each value
@@ -243,10 +245,12 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    and one more step under the profiler (busy share; device time by class:
    cuBLAS GEMMs, attention forward and backward, scan, copies, the
    optimizer by CUDA events, the rest); a float32 step through the kernels
-   against the same step on the plain versions on the card (loss and every
-   gradient within 1e-3 of its largest value); the attention backward at
-   RecurrentGemma-9B's training shape (bf16, f32) and Qwen3-14B's width
-   (bf16), in bf16 on both routes (``bf16_wgmma`` with the forward's
+   (attention on ``f32_3xtf32`` both ways) against the same step on the
+   plain versions on the card (loss and every gradient within 1e-3 of its
+   largest value), timed; the attention backward at RecurrentGemma-9B's
+   training shape (bf16, f32), Qwen3-14B's width (bf16, f32),
+   h2o-danube-1.8b's and Gemma-7B's (f32), in bf16 on both routes
+   (``bf16_wgmma`` with the forward's
    log-sum-exp, ``bf16_simt`` forced by a view at an odd offset), against
    its plain version and against a second call of itself (bit for bit: no
    atomics), timed beside its bound, the plain version and SDPA's backward
@@ -293,7 +297,12 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    attention forward and backward launches by route every step, step 1's
    attention backwards (Seamless's non-causal cross-attention with Sq 2048
    over Skv 512 among them) within 2^-7 rms per head slice of
-   ``ref.attention_grad``, the memory given back; then attention at the
+   ``ref.attention_grad``, the memory given back; Gemma-7B at its
+   published widths in float32 (2 of 28 layers, B 1 x S 4096): step 1's
+   loss and every gradient within 1e-3 of the same step on the plain
+   versions, 3 AdamW steps through ``make_train_step`` (4 attention
+   forwards and 2 backwards a step, all ``f32_3xtf32``), step walls,
+   model FLOP/s, peak memory, one step profiled; then attention at the
    families' shapes (:func:`family_attention_timed`: Granite's 24 over 8
    at d 64, Seamless's cross-attention 4096 over 1024 non-causal,
    Phi-3-vision's 32 over 32 at d 96 and h2o-danube's 32 over 8 at d 80),
@@ -427,7 +436,9 @@ ATTN_CASES = ((1, 2, 2, 32, 32, 8, True, None),
 # full width, causal, one sequence of 8192 (src/repro/configs/*.py):
 # (B, Hq, Hkv, S, D, window)
 FULL_ATTN = {"RecurrentGemma-9B": (1, 16, 1, 8192, 256, 2048),
-             "Qwen3-14B": (1, 40, 8, 8192, 128, None)}
+             "Qwen3-14B": (1, 40, 8, 8192, 128, None),
+             # Gemma-7B's training shape (16 / 16 heads at d 256, causal)
+             "Gemma-7B": (1, 16, 16, 4096, 256, None)}
 ODD_ATTN = ("h2o-danube-1.8b", (1, 32, 8, 1024, 80, 4096))
 # the reference's tolerances (tests/test_kernels.py): rtol = atol; the
 # reference has none for float16: its output is rounded once to 11 bits
@@ -710,6 +721,10 @@ def visible_pairs(s: int, window) -> int:
     return window * (window + 1) // 2 + (s - window) * window
 
 
+# spin kernels that close every profiled window (device_profile)
+PROFILE_PAD = 64
+
+
 def device_profile(torch, label: str, run, wall_s: float,
                    expect: dict, found: dict | None = None) -> float:
     """Run ``run`` once more under ``torch.profiler`` and print where the
@@ -722,18 +737,26 @@ def device_profile(torch, label: str, run, wall_s: float,
     every kernel's ``(ms, launches, name)`` (``"kernels"``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    attempts = 5
+    attempts = 8
     for attempt in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
+            # a tail of spin kernels (PROFILE_PAD, left out of every number
+            # below) and a pause before the trace closes: traces of a run
+            # with one or two kernels came back empty now and then
+            for _ in range(PROFILE_PAD):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            time.sleep(0.02)
         kernels = sorted(
             ((e.self_device_time_total / 1e3, e.count, e.key)
              for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA
-             and e.self_device_time_total > 0),
+             and e.self_device_time_total > 0
+             and "spin_kernel" not in e.key),
             reverse=True)
         seen = {name: sum(cnt for _ms, cnt, key in kernels if name in key)
                 for name in expect}
@@ -743,8 +766,9 @@ def device_profile(torch, label: str, run, wall_s: float,
         # or the first kernel of a run whose launches were counted and
         # whose result was right): trace the run again; the checks below
         # fail if no trace shows exactly the counted launches
-        print(f"[profile] {label}: the trace shows {seen}, expected "
-              f"{expect} (attempt {attempt + 1} of {attempts})")
+        print(f"[profile] {label}: the trace shows {seen} among "
+              f"{sum(n for _ms, n, _k in kernels)} kernel launches, "
+              f"expected {expect} (attempt {attempt + 1} of {attempts})")
     for ms, cnt, key in kernels[:6]:
         print(f"[profile] {label}:   {ms:9.3f} ms {cnt:5d}x {key[:90]}")
     total = sum(ms for ms, _n, _k in kernels)
@@ -1309,7 +1333,7 @@ def lm_phase(torch, dev, gen, card: str, zero_counts, counts) -> dict:
               "linear_scan": 2 * kinds.count("rglru")}
     check({k: got[k] for k in want32} == want32
           and fa_ops.flash_attention.routes == {
-              "f32_simt": want32["flash_attention"]}
+              "f32_3xtf32": want32["flash_attention"]}
           and ls_ops.linear_scan.routes == {"tma": want32["linear_scan"]},
           f"[lm] float32 forward and prefill launched {got}, routes "
           f"{fa_ops.flash_attention.routes} / {ls_ops.linear_scan.routes}")
@@ -1318,7 +1342,7 @@ def lm_phase(torch, dev, gen, card: str, zero_counts, counts) -> dict:
           f"(window {cfg.window}), then {n_tf} decode steps against the "
           f"full-sequence forward: max_abs_err "
           f"{', '.join(f'{e:.3e}' for e in tf_err)} (<= {LM_TF_TOL}); "
-          f"kernels {want32} on f32_simt / tma")
+          f"kernels {want32} on f32_3xtf32 / tma")
     del model, full, logits, states, step, toks
     memory_back(torch, dev, base, "[lm] the phase")
     return {name: {"lm_launches": want, "lm_route": route,
@@ -1370,7 +1394,9 @@ BWD_SHAPES = {"RecurrentGemma-9B": (1, 16, 1, 4096, 256, 2048,
                                     ("bfloat16", "float32")),
               "Qwen3-14B": (1, 40, 8, 4096, 128, None,
                             ("bfloat16", "float32")),
-              "h2o-danube-1.8b": (8, 32, 8, 1024, 80, 4096, ("float32",))}
+              "h2o-danube-1.8b": (8, 32, 8, 1024, 80, 4096, ("float32",)),
+              # Gemma-7B's training shape, on d 256's 3xTF32 blocks
+              "Gemma-7B": (1, 16, 16, 4096, 256, None, ("float32",))}
 
 
 def odd_offset(t):
@@ -1720,11 +1746,11 @@ def train_phase(torch, dev, card: str, zero_counts, counts) -> dict:
     sync()
     got = counts()
     # the routes the rule gives RecurrentGemma-9B's d 256 in float32: the
-    # CUDA cores both ways (outside TF32_HEAD_DIMS, so the forward saves
-    # no log-sum-exp)
+    # tensor cores in 3xTF32 both ways (the forward saves its log-sum-exp
+    # for the backward)
     fwd32 = fa_ops.route(torch.float32, cfg.head_dim)
-    bwd32 = fa_ops.bwd_route(torch.float32, cfg.head_dim, (0,) * 5 + (None,))
-    check((fwd32, bwd32) == ("f32_simt", "f32_simt"), f"[train] float32 "
+    bwd32 = fa_ops.bwd_route(torch.float32, cfg.head_dim)
+    check((fwd32, bwd32) == ("f32_3xtf32", "f32_3xtf32"), f"[train] float32 "
           f"routes {fwd32} / {bwd32} at d {cfg.head_dim}")
     want32 = {"flash_attention": {fwd32: 2},
               "flash_attention_bwd": {bwd32: 1},
@@ -1735,6 +1761,12 @@ def train_phase(torch, dev, card: str, zero_counts, counts) -> dict:
     check(routes == want32 and not {k: v for k, v in got.items()
                                     if v and k not in want32},
           f"[train] float32 step launched {got}, routes {routes}")
+    # the step again through the kernels, timed
+    sync()
+    t0 = time.perf_counter()
+    loss_and_grads()
+    sync()
+    t_kernels = time.perf_counter() - t0
 
     def attend_plain(q, k, v, *, causal, window, scale, lse):
         return originals["attention"](q, k, v, causal=causal, window=window,
@@ -1774,7 +1806,8 @@ def train_phase(torch, dev, card: str, zero_counts, counts) -> dict:
     print(f"[train] float32 step ({TRAIN_LAYERS} layers, B {TRAIN_BATCH} x "
           f"S {TRAIN_SEQ}): loss {loss_k.item():.6f} through the kernels "
           f"(flash_attention {fwd32} x 2, its backward {bwd32} x 1, "
-          f"linear_scan tma x 6), {loss_p.item():.6f} on the plain versions "
+          f"linear_scan tma x 6; the loss and its gradient again "
+          f"{t_kernels:.3f} s), {loss_p.item():.6f} on the plain versions "
           f"on the card ({t_plain:.3f} s; relative difference "
           f"{loss_err:.3e}); all {len(grads_p)} gradients within "
           f"{TRAIN_F32_TOL} of their largest |value| (worst {worst:.3e}, "
@@ -1816,6 +1849,13 @@ def train_phase(torch, dev, card: str, zero_counts, counts) -> dict:
         "flash_attention_bwd.f32": dict(
             bwd_times[("h2o-danube-1.8b", "float32")],
             qwen3=bwd_times[("Qwen3-14B", "float32")]),
+        # and at d 256 (its blocks of its own): RecurrentGemma-9B's training
+        # shape, and Gemma-7B's
+        "flash_attention_bwd.f32_d256": dict(
+            bwd_times[("RecurrentGemma-9B", "float32")],
+            gemma=bwd_times[("Gemma-7B", "float32")]),
+        "f32_step_launches": {"flash_attention": 2,
+                              "flash_attention_bwd": 1},
     }
 
 
@@ -2020,6 +2060,18 @@ TRAIN_FAM_SEQ, TRAIN_FAM_STEPS = 2048, 3
 # check of the phase (step 1's gradients, the launches every step) at a
 # third less of its time
 TRAIN_FAM_STEPS_OF = {"xlstm_350m": 2}
+# Gemma-7B at its published widths in float32 (src/repro/configs/
+# gemma_7b.py: d_model 3072, 16 / 16 heads at d 256, causal, vocab 256000),
+# depth cut to 2 of 28 layers (1,340,080,128 parameters in weight
+# matrices: ~21.5 GB of weights, gradients and AdamW moments, ~4.2 GB a
+# logits-sized tensor); B 1 x S 4096, GEMMA_F32_STEPS AdamW steps through
+# make_train_step, remat: a step launches the attention forward twice a
+# layer and its backward once, both f32_3xtf32 (d 256's blocks)
+GEMMA_F32_ARCH, GEMMA_F32_LAYERS = "gemma_7b", 2
+GEMMA_F32_NAME = "gemma-7b float32"    # its [train_families] key
+GEMMA_F32_SEQ, GEMMA_F32_STEPS = 4096, 3
+GEMMA_F32_KERNELS = {"flash_attention": {"f32_3xtf32": 4},
+                     "flash_attention_bwd": {"f32_3xtf32": 2}}
 # attention at the shapes the new families give it, timed beside its bound,
 # its plain version and SDPA (forward and backward): (B, Hq, Hkv, Sq, Skv,
 # D, causal)
@@ -2521,7 +2573,180 @@ def train_families_phase(torch, dev, card: str, zero_counts,
         del model, state, step, opt, data, metrics, batch
         first.clear()
         memory_back(torch, dev, base, label)
+    gemma = gemma_f32_train(torch, dev, card, zero_counts, counts)
+    out[gemma["name"]] = gemma
     return out
+
+
+def gemma_f32_train(torch, dev, card: str, zero_counts, counts) -> dict:
+    """Gemma-7B trained in float32 at its published widths
+    (GEMMA_F32_LAYERS of its 28 layers), B 1 x S GEMMA_F32_SEQ: step 1's
+    loss and every gradient through the kernels held within
+    TRAIN_F32_TOL of the same step on the plain versions (on the card, no
+    kernel launched), then GEMMA_F32_STEPS AdamW steps through
+    ``make_train_step``, each launching GEMMA_F32_KERNELS (f32_3xtf32
+    both ways, no plain version), timed; model FLOP/s, peak memory, one
+    more step profiled.  Returns the step's numbers."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models import LanguageModel
+    from repro_torch.models.blocks import count_params
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train import make_train_step
+
+    base = memory_base(torch, dev)
+    cfg = dataclasses.replace(configs.get(GEMMA_F32_ARCH),
+                              n_layers=GEMMA_F32_LAYERS, dtype="float32")
+    label = f"[train_families] {cfg.name} float32"
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+           cfg.vocab_size) == (3072, 16, 16, 256, 256000),
+          f"{label}: widths {cfg}")
+    check(fa_ops.route(torch.float32, cfg.head_dim) == "f32_3xtf32"
+          and fa_ops.bwd_route(torch.float32, cfg.head_dim) == "f32_3xtf32",
+          f"{label}: d {cfg.head_dim} is not on f32_3xtf32 both ways")
+    model = LanguageModel(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    n_params = model.param_count()
+    check(n_params == count_params(cfg), f"{label}: param_count")
+    data = SyntheticLMDataset(cfg.vocab_size, GEMMA_F32_SEQ, 1, seed=SEED,
+                              device=dev)
+    model.requires_grad_(True)
+    batch = data.batch_at(0)
+
+    def loss_and_grads():
+        loss, _ = model.loss(batch)
+        loss.backward()
+        grads = {}
+        for name, p in model.named_parameters():
+            grads[name], p.grad = p.grad, None
+        return loss.detach(), grads
+
+    # -- step 1 through the kernels, then on the plain versions -------------
+    fa_ops.flash_attention.routes = {}
+    fa_ops.flash_attention_bwd.routes = {}
+    zero_counts()
+    loss_k, grads_k = loss_and_grads()
+    torch.cuda.synchronize()
+    got = counts()
+    routes = {"flash_attention": dict(fa_ops.flash_attention.routes),
+              "flash_attention_bwd": dict(fa_ops.flash_attention_bwd.routes)}
+    check(routes == GEMMA_F32_KERNELS
+          and not {k: v for k, v in got.items()
+                   if v and k not in GEMMA_F32_KERNELS},
+          f"{label}: step 1 launched {got}, routes {routes}")
+
+    def attend_plain(q, k, v, *, causal, window, scale, lse):
+        return fa_ref.attention(q, k, v, causal=causal, window=window,
+                                scale=scale), None
+
+    def bwd_plain(q, k, v, out, dout, lse=None, **kw):
+        return fa_ref.attention_grad(q, k, v, dout, **kw)
+
+    kernel_fns = (fa_ops._attend, fa_ops.flash_attention_bwd)
+    fa_ops._attend, fa_ops.flash_attention_bwd = attend_plain, bwd_plain
+    try:
+        zero_counts()
+        loss_p, grads_p = loss_and_grads()
+        torch.cuda.synchronize()
+        got = counts()
+    finally:
+        fa_ops._attend, fa_ops.flash_attention_bwd = kernel_fns
+    check(not any(got.values()), f"{label}: the plain step launched {got}")
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    check(loss_err <= TRAIN_F32_TOL, f"{label}: loss {loss_k.item()} "
+          f"through the kernels, {loss_p.item()} plain")
+    worst, worst_name = 0.0, None
+    for name, gp in grads_p.items():
+        rel = ((grads_k[name] - gp).abs().max()
+               / gp.abs().max().clamp_min(1e-30)).item()
+        check(math.isfinite(rel) and rel <= TRAIN_F32_TOL
+              and gp.abs().max().item() > 0,
+              f"{label}: gradient {name}: largest difference {rel:.3e} of "
+              f"its largest |value| (> {TRAIN_F32_TOL})")
+        if rel >= worst:
+            worst, worst_name = rel, name
+    print(f"{label}: step 1 loss {loss_k.item():.6f} through the kernels, "
+          f"{loss_p.item():.6f} on the plain versions (relative difference "
+          f"{loss_err:.3e}); all {len(grads_p)} gradients non-zero and "
+          f"within {TRAIN_F32_TOL} of their largest |value| (worst "
+          f"{worst:.3e}, {worst_name}); launches {routes}")
+    del grads_k, grads_p, gp, loss_k, loss_p
+    gc.collect()
+
+    # -- GEMMA_F32_STEPS steps through make_train_step -----------------------
+    opt = AdamW(learning_rate=warmup_cosine(1e-3, 1, GEMMA_F32_STEPS))
+    state = opt.init(model)
+    step = make_train_step(model, opt)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, walls = [], []
+    fa_ops.flash_attention.routes = {}
+    fa_ops.flash_attention_bwd.routes = {}
+    zero_counts()
+    for i in range(GEMMA_F32_STEPS):
+        batch = data.batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    got = counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    routes = {"flash_attention": dict(fa_ops.flash_attention.routes),
+              "flash_attention_bwd": dict(fa_ops.flash_attention_bwd.routes)}
+    want = {k: {r: n * GEMMA_F32_STEPS for r, n in v.items()}
+            for k, v in GEMMA_F32_KERNELS.items()}
+    check(routes == want and not {k: v for k, v in got.items()
+                                  if v and k not in want},
+          f"{label}: {GEMMA_F32_STEPS} steps launched {got}, routes "
+          f"{routes}, expected {want}")
+    check(all(math.isfinite(x) for x in losses), f"{label}: losses {losses}")
+    warm = statistics.median(walls[1:])
+    tokens = GEMMA_F32_SEQ
+    model_flops = 6 * n_params * tokens
+    print(f"{label}: {cfg.n_layers} of 28 layers at the published widths, "
+          f"{n_params:,} parameters in weight matrices; B 1 x S "
+          f"{GEMMA_F32_SEQ}, remat, AdamW: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; step walls "
+          f"{', '.join(f'{w:.4f}' for w in walls)} s, warm (median of steps "
+          f"2-{GEMMA_F32_STEPS}) {warm:.4f} s, {tokens / warm:.1f} tokens/s, "
+          f"model FLOP/s {model_flops / warm / 1e12:.2f} TFLOP/s (6 N T = "
+          f"{model_flops:.4e}); peak device memory {peak:,} bytes; launches "
+          f"{routes} ({card})")
+    batch = data.batch_at(GEMMA_F32_STEPS)
+    found = {}
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, batch)
+
+    busy = device_profile(
+        torch, label, one_step, warm,
+        {"flash_attention_tf32_kernel": 4,
+         "attention_bwd_dq_tf32_kernel": 2,
+         "attention_bwd_dkv_tf32_kernel": 4,
+         "attention_bwd_delta_f32_kernel": 2}, found)
+    attn_ms = sum(found[k][0] for k in (
+        "flash_attention_tf32_kernel", "attention_bwd_dq_tf32_kernel",
+        "attention_bwd_dkv_tf32_kernel", "attention_bwd_delta_f32_kernel"))
+    print(f"{label}: attention {attn_ms:.3f} ms of the profiled step's "
+          f"{found['total']:.3f} ms of device time (busy {busy:.1f}%)")
+    del model, state, step, opt, data, metrics, batch
+    memory_back(torch, dev, base, label)
+    check(f"{cfg.name} float32" == GEMMA_F32_NAME, f"{label}: name")
+    return {"name": GEMMA_F32_NAME,
+            "bwd_launches": GEMMA_F32_KERNELS["flash_attention_bwd"][
+                "f32_3xtf32"],
+            "bwd_routes": dict(GEMMA_F32_KERNELS["flash_attention_bwd"]),
+            "fwd_launches": GEMMA_F32_KERNELS["flash_attention"][
+                "f32_3xtf32"],
+            "step_walls_s": walls, "model_tflops": model_flops / warm / 1e12,
+            "peak_bytes": peak, "attention_ms": attn_ms,
+            "device_ms": found["total"], "losses": losses}
 
 
 def family_attention_timed(torch, dev, gen, card: str) -> dict:
@@ -2733,7 +2958,6 @@ SHM_NEEDED = 16 << 30    # /dev/shm the [procs] phase needs at n = 8192:
                          # every ref's head stays live (the reference's
                          # pinning), Listing 1's 512 partial products an
                          # iteration among them (11.4 GiB over the three)
-SHM_PREFIX = "bnd"       # shm_store.segment_name's prefix
 
 
 def worker_probe(c_tile):
@@ -2774,7 +2998,9 @@ class ShmWatch:
     every 10 ms while it is entered; ``peak`` is the largest sample."""
 
     def __init__(self):
-        self.prefix = f"{SHM_PREFIX}{os.getpid():x}-"
+        from repro_torch.core.shm_store import SEGMENT_PREFIX
+
+        self.prefix = f"{SEGMENT_PREFIX}{os.getpid():x}-"
         self.peak = 0
         self._stop = threading.Event()
 
@@ -4752,6 +4978,11 @@ def main() -> int:
         for line in log.splitlines():
             if "error" in line.lower():
                 print(f"[build]   {line.strip()}")
+            # ptxas serialised the wgmma of an attention tensor-core kernel
+            # for registers (C7511) or around a call (C7514)
+            if ("C7511" in line or "C7514" in line) and "attention" in line:
+                print(f"[build]   {line.strip()[:240]}")
+                check(False, f"wgmma serialised: {line.strip()[:240]}")
             if "Function properties for" in line:
                 kernel_name = line.split("for")[-1].strip()
                 spill = ""
@@ -5614,6 +5845,7 @@ def main() -> int:
           f"{max(tf32_ratios):.2f} x f32_simt's error over "
           f"{len(tf32_ratios)} cases (limit {TF32_VS_SIMT})")
     print(f"[attn] launches by route: {fa_ops.flash_attention.routes}")
+    attn_route_launches = dict(fa_ops.flash_attention.routes)
     check(set(fa_ops.flash_attention.routes) == set(fa_ops.ROUTES),
           f"flash attention: routes run "
           f"{sorted(fa_ops.flash_attention.routes)}, expected every one of "
@@ -5668,6 +5900,7 @@ def main() -> int:
                 del seen
             flops = 4 * b * hq * d * visible_pairs(s, window)
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+            simt = {}
             if path == "f32_3xtf32":
                 bnd, by = bound_ms(nbytes, TF32_PRODUCTS * flops, "tf32")
                 simt_bnd, _ = bound_ms(nbytes, flops, "float32")
@@ -5675,6 +5908,33 @@ def main() -> int:
                       f"products ({TF32_PRODUCTS} x {flops:.3e} FLOP at "
                       f"{PEAK_FLOPS['tf32'] / 1e12:.0f} TFLOP/s); on the "
                       f"CUDA cores it would be {simt_bnd:.4f} ms")
+                if d == 256:
+                    # the CUDA-core loop that d 256 ran before, on the same
+                    # values (q one element in), which it must beat
+                    odd = odd_offset(q)
+                    fa_ops.flash_attention.routes = {}
+                    simt_out = fa_ops.flash_attention(
+                        odd, k, v, causal=True, window=window)
+                    check(fa_ops.flash_attention.routes == {"f32_simt": 1},
+                          f"{label}: q one element in took "
+                          f"{fa_ops.flash_attention.routes}")
+                    simt_err = (simt_out.double() - fa_ref.attention(
+                        q, k, v, causal=True, window=window).double()
+                    ).abs().max().item()
+                    del simt_out
+                    simt_ms = time_ms(torch, lambda odd=odd, k=k, v=v,
+                                      window=window: fa_ops.flash_attention(
+                                          odd, k, v, causal=True,
+                                          window=window), iters=3, warmup=1)
+                    del odd
+                    check(ms < simt_ms, f"{label}: f32_3xtf32 {ms:.3f} ms is "
+                          f"not below f32_simt's {simt_ms:.3f}")
+                    simt = dict(simt_ms=simt_ms, simt_max_abs_err=simt_err,
+                                simt_bound_ms=simt_bnd)
+                    print(f"[attn] {label}: f32_simt on the same values (q "
+                          f"one element in) {simt_ms:.3f} ms, max_abs_err "
+                          f"{simt_err:.3e} against the plain version; "
+                          f"f32_3xtf32 {simt_ms / ms:.2f}x faster")
             else:
                 bnd, by = bound_ms(nbytes, flops, dname)
             print(f"[attn] {label} [{path}]: first call {wall * 1e3:.3f} ms "
@@ -5684,11 +5944,11 @@ def main() -> int:
                   f"bound {bnd:.4f} ms ({by}, {flops:.3e} FLOP)")
             attn_times[(model, dname)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                bound_by=by, library_ms=lib, attn_route=path)
+                bound_by=by, library_ms=lib, attn_route=path, **simt)
             if (model, dname) == ("RecurrentGemma-9B", "float32"):
                 device_profile(torch, label, run, warm_wall(run),
-                               {"flash_attention_kernel": 1,
-                                "flash_attention_wgmma_kernel": 0})
+                               {"flash_attention_tf32_kernel": 1,
+                                "flash_attention_kernel": 0})
             if (model, dname) == ("Qwen3-14B", "float32"):
                 device_profile(torch, label, run, warm_wall(run),
                                {"flash_attention_tf32_kernel": 1,
@@ -6624,6 +6884,8 @@ def main() -> int:
     attn_bf16_label = "flash_attention Qwen3-14B bfloat16"
     attn_f32_label = "flash_attention Qwen3-14B float32"
     scan_label = f"linear_scan RG-LRU {FULL_SCAN} float32"
+    rg32 = attn_times[("RecurrentGemma-9B", "float32")]
+    gemma32 = train_fams[GEMMA_F32_NAME]
     rows = (
         ("gemm.matmul", gemm_source, gemm_replaces,
          path_counts["listing1"]["gemm.matmul"],
@@ -6639,11 +6901,24 @@ def main() -> int:
          chain_times[("dot", "float32")]),
         ("chain.attn", chain_source, chain_replaces,
          path_counts["attn_step chain"]["chain.attn"], chain_times["attn"]),
+        # the CUDA-core loop: its launches in [attn]'s reference cases (d
+        # 16 and the views no tensor-core route reads), its numbers at
+        # RecurrentGemma-9B's float32 shape on the same values as the
+        # 3xTF32 block (q one element in), which took its place there
         ("flash_attention",
          "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention/kernel.py:100",
+         attn_route_launches["f32_simt"],
+         {"max_abs_err": rg32["simt_max_abs_err"], "ms": rg32["simt_ms"],
+          "plain_ms": rg32["plain_ms"], "bound_ms": rg32["simt_bound_ms"],
+          "bound_by": rg32["bound_by"], "library_ms": rg32["library_ms"]}),
+        # the 3xTF32 blocks of d 256: RecurrentGemma-9B's float32 prefill
+        # shape, Gemma-7B's training shape beside it
+        ("flash_attention.f32_d256",
+         "src/repro_torch/kernels/flash_attention/csrc/attn_tf32_wide.cuh",
+         "src/repro/kernels/flash_attention/kernel.py:100",
          path_counts[attn_label]["flash_attention"],
-         attn_times[("RecurrentGemma-9B", "float32")]),
+         dict(rg32, gemma=attn_times[("Gemma-7B", "float32")])),
         ("flash_attention.bf16",
          "src/repro_torch/kernels/flash_attention/csrc/attn_wgmma.cuh",
          "src/repro/kernels/flash_attention/kernel.py:100",
@@ -6677,6 +6952,16 @@ def main() -> int:
          "src/repro/kernels/flash_attention/ref.py:7",
          lm_mesh["fsdp_full_step"]["flash_attention_bwd"].get(DP_ROUTE, 0),
          {k: v for k, v in train["flash_attention_bwd.f32"].items()
+          if k != "route_ms"}),
+        # and its blocks of d 256: the launches of [train_families]'
+        # Gemma-7B float32 steps, the numbers [train]'s at RecurrentGemma-
+        # 9B's training shape (Gemma-7B's beside them)
+        ("flash_attention_bwd.f32_d256",
+         "src/repro_torch/kernels/flash_attention/csrc/"
+         "attn_bwd_tf32_wide.cuh",
+         "src/repro/kernels/flash_attention/ref.py:7",
+         gemma32["bwd_launches"] * GEMMA_F32_STEPS,
+         {k: v for k, v in train["flash_attention_bwd.f32_d256"].items()
           if k != "route_ms"}),
     )
     # the served steps launch the GEMM's accumulate and chain_attn too: one
@@ -6721,6 +7006,23 @@ def main() -> int:
         step: lm_mesh[step]["flash_attention_bwd"].get(DP_ROUTE, 0)
         for step in ("dp_step", "fsdp_step", "fsdp_full_step")}
     bwd32_row["route_ms"] = train["flash_attention_bwd.f32"]["route_ms"]
+    # d 256's blocks on the training paths: RecurrentGemma-9B's float32
+    # step ([train]) and Gemma-7B's ([train_families]), launches a step
+    f256_row = next(k for k in kernels
+                    if k["name"] == "flash_attention.f32_d256")
+    f256_row["train_launches"] = {
+        "RecurrentGemma-9B": train["f32_step_launches"]["flash_attention"],
+        "Gemma-7B": gemma32["fwd_launches"]}
+    b256_row = next(k for k in kernels
+                    if k["name"] == "flash_attention_bwd.f32_d256")
+    b256_row["train_launches"] = {
+        "RecurrentGemma-9B": train["f32_step_launches"][
+            "flash_attention_bwd"],
+        "Gemma-7B": gemma32["bwd_launches"]}
+    b256_row["route_ms"] = train["flash_attention_bwd.f32_d256"]["route_ms"]
+    b256_row["gemma_step"] = {k: gemma32[k] for k in (
+        "step_walls_s", "model_tflops", "peak_bytes", "attention_ms",
+        "device_ms")}
     bwd_row = next(k for k in kernels if k["name"] == "flash_attention_bwd")
     bwd_row["family_train_launches"] = {
         name: {"launches": t["bwd_launches"], "routes": t["bwd_routes"]}

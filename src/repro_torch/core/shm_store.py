@@ -58,11 +58,17 @@ STAGED = {"to_host": 0, "to_device": 0, "seconds": 0.0}
 _HEADER = struct.Struct("<BBBh3xB")
 _ALIGN = 64
 _DEVICE_TYPES = ("cpu", "cuda")
+# The port's segments carry a prefix of their own.  The reference package
+# names its segments ``bnd{session}-...`` with the same ``pid-seq`` sessions
+# (its own counter, also from 1), so under one prefix a reference pool alive
+# in the same process could hold segments that match a port pool's names;
+# ``t`` is no hex digit, so no reference name starts with this prefix.
+SEGMENT_PREFIX = "bndt"
 
 
 def segment_name(session: str, vkey: tuple[int, int], rank: int) -> str:
     """Deterministic shm name for one (version, rank) replica."""
-    return f"bnd{session}-{vkey[0]}-{vkey[1]}-r{rank}"
+    return f"{SEGMENT_PREFIX}{session}-{vkey[0]}-{vkey[1]}-r{rank}"
 
 
 def payload_kind(payload: Any) -> int:

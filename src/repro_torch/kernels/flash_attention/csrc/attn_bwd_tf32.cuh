@@ -107,7 +107,8 @@
 // dv.  p uses the accurate exp2f of the forward.
 //
 // The route (flash_attention_bwd.cu route_of) takes float32 with d one of
-// tf32_head_dim's (32, 64, 80, 96, 128), q, k, v, out, dout and the
+// tf32_head_dim's (32, 64, 80, 96, 128 here; 256 on the blocks of
+// attn_bwd_tf32_wide.cuh, included below), q, k, v, out, dout and the
 // log-sum-exp 16-byte aligned, and a log-sum-exp the forward saved; any
 // other float32 call takes f32_simt.
 
@@ -143,7 +144,8 @@ constexpr int OWN = 64;        // a block's query rows (dq) or keys (dk/dv)
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D> struct Cfg {
-  static_assert(bind_attn_tf::tf32_head_dim(D), "d: 32, 64, 80, 96, 128");
+  static_assert(bind_attn_tf::tf32_head_dim(D) && D <= 128,
+                "d: 32, 64, 80, 96, 128");
   static constexpr int PANELS = bind_attn_tf::tf32_panels(D);
   // rows of a streamed tile: keys (dq), query rows (dk/dv)
   static constexpr int BS = D <= 80 ? 32 : 16;
@@ -178,6 +180,12 @@ struct Shape {
   float scale;           // softmax scale
   float scale_log2;      // scale * log2(e)
   Mask mask;
+  // d 256 (attn_bwd_tf32_wide.cuh): the head groups a kv head's query
+  // heads are split into across dk / dv blocks, and with more than one
+  // their float32 partials, a (2, B, groups, Hkv, Skv, D) scratch (0: dV,
+  // 1: dK); 1 and null below d 256
+  float* part;
+  int64_t groups;
 };
 
 // whether a row sees a key diff = row - key before it, `left` keys short of
@@ -738,43 +746,76 @@ __device__ __forceinline__ void dkv_block(const Shape& sh,
   store_rows<D>(acc, DK ? sh.scale : 1.0f, dst, kb0, sh.skv);
 }
 
+}  // namespace bind_attn_bwd_tf
+
+// the blocks of d 256 (bind_attn_bwd_tfw), built from the helpers above
+#include "attn_bwd_tf32_wide.cuh"
+
+namespace bind_attn_bwd_tf {
+
 // ---- kernels and the launcher -----------------------------------------------------
 
+// a block's threads and dynamic shared memory at head dim D: one
+// warpgroup up to d 128, two at d 256 (attn_bwd_tf32_wide.cuh)
+template <int D, bool WIDE = (D > 128)> struct Blocks {
+  static constexpr int THREADS = bind_attn_bwd_tf::THREADS;
+  static constexpr size_t DQ = Cfg<D>::DQ_SMEM;
+  static constexpr size_t DV = DkvSmem<D, false>::BYTES;
+  static constexpr size_t DK = DkvSmem<D, true>::BYTES;
+};
+template <int D> struct Blocks<D, true> {
+  using W = bind_attn_bwd_tfw::Cfg<D>;
+  static constexpr int THREADS = bind_attn_bwd_tfw::THREADS;
+  static constexpr size_t DQ = W::DQ_SMEM;
+  static constexpr size_t DV = W::DV_SMEM;
+  static constexpr size_t DK = W::DK_SMEM;
+};
+
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Blocks<D>::THREADS, 1)
 attention_bwd_dq_tf32_kernel(const Shape sh) {
   extern __shared__ __align__(1024) unsigned char bwd_tf_smem[];
-  dq_block<D>(sh, bwd_tf_smem);
+  if constexpr (D > 128)
+    bind_attn_bwd_tfw::dq_block<D>(sh, bwd_tf_smem);
+  else
+    dq_block<D>(sh, bwd_tf_smem);
 }
 
 // DK false: dV; true: dK (two kernels: one holding both passes had ptxas
 // serialise every wgmma of it, C7514)
 template <int D, bool DK>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Blocks<D>::THREADS, 1)
 attention_bwd_dkv_tf32_kernel(const Shape sh) {
   extern __shared__ __align__(1024) unsigned char bwd_tf_smem[];
-  dkv_block<D, DK>(sh, bwd_tf_smem);
+  if constexpr (D <= 128)
+    dkv_block<D, DK>(sh, bwd_tf_smem);
+  else if constexpr (DK)
+    bind_attn_bwd_tfw::dk_block<D>(sh, bwd_tf_smem);
+  else
+    bind_attn_bwd_tfw::dv_block<D>(sh, bwd_tf_smem);
 }
 
 // Enqueues (i)-(iv); sh.delta is a (B, Hq, Sq) float32 scratch.
 template <int D>
 cudaError_t launch_d(const Shape& sh, int64_t batch, cudaStream_t stream) {
-  using C = Cfg<D>;
+  using C = Blocks<D>;
   const int64_t q_tiles = (sh.sq + OWN - 1) / OWN;
   const int64_t k_blocks = (sh.skv + OWN - 1) / OWN;
   if (q_tiles > 65535 || k_blocks > 65535 || batch * sh.hq > 0x7fffffff ||
-      batch * sh.hkv > 0x7fffffff || sh.sq > 0x7fffffff ||
-      sh.skv > 0x7fffffff)
+      batch * sh.hkv * sh.groups > 0x7fffffff || sh.sq > 0x7fffffff ||
+      sh.skv > 0x7fffffff || sh.groups < 1 ||
+      (sh.hq / sh.hkv) % sh.groups != 0 ||
+      (sh.groups > 1 && (D <= 128 || sh.part == nullptr)))
     return cudaErrorInvalidValue;
   auto kdq = attention_bwd_dq_tf32_kernel<D>;
   auto kdv = attention_bwd_dkv_tf32_kernel<D, false>;
   auto kdk = attention_bwd_dkv_tf32_kernel<D, true>;
-  constexpr size_t DV_SMEM = DkvSmem<D, false>::BYTES;
-  constexpr size_t DK_SMEM = DkvSmem<D, true>::BYTES;
+  constexpr size_t DV_SMEM = C::DV;
+  constexpr size_t DK_SMEM = C::DK;
   cudaError_t err;
   if ((err = cudaFuncSetAttribute(kdq,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  static_cast<int>(C::DQ_SMEM))) !=
+                                  static_cast<int>(C::DQ))) !=
           cudaSuccess ||
       (err = cudaFuncSetAttribute(kdv,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -791,13 +832,27 @@ cudaError_t launch_d(const Shape& sh, int64_t batch, cudaStream_t stream) {
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   kdq<<<dim3(static_cast<unsigned>(batch * sh.hq),
              static_cast<unsigned>(q_tiles)),
-        THREADS, C::DQ_SMEM, stream>>>(sh);
+        C::THREADS, C::DQ, stream>>>(sh);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const dim3 kv_grid(static_cast<unsigned>(batch * sh.hkv),
+  const dim3 kv_grid(static_cast<unsigned>(batch * sh.hkv * sh.groups),
                      static_cast<unsigned>(k_blocks));
-  kdv<<<kv_grid, THREADS, DV_SMEM, stream>>>(sh);
+  kdv<<<kv_grid, C::THREADS, DV_SMEM, stream>>>(sh);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  kdk<<<kv_grid, THREADS, DK_SMEM, stream>>>(sh);
+  kdk<<<kv_grid, C::THREADS, DK_SMEM, stream>>>(sh);
+  if constexpr (D > 128) {
+    // the head groups' partials, summed in order
+    if (sh.groups > 1) {
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      const int64_t per = sh.hkv * sh.skv * D;
+      const int64_t quads = batch * per / 4;
+      bind_attn_bwd_tfw::attention_bwd_dkv_sum_f32_kernel<<<
+          dim3(static_cast<unsigned>(quads < 2048 * 256
+                                         ? (quads + 255) / 256
+                                         : 2048),
+               2),
+          256, 0, stream>>>(sh.part, sh.dv, sh.dk, batch, sh.groups, per);
+    }
+  }
   return cudaGetLastError();
 }
 
@@ -809,6 +864,7 @@ inline cudaError_t launch(const Shape& sh, int64_t batch, int64_t d,
     case 80: return launch_d<80>(sh, batch, stream);
     case 96: return launch_d<96>(sh, batch, stream);
     case 128: return launch_d<128>(sh, batch, stream);
+    case 256: return launch_d<256>(sh, batch, stream);
     default: return cudaErrorInvalidValue;
   }
 }

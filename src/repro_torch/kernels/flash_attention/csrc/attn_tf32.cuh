@@ -57,11 +57,14 @@
 // 232,448; 144,384 at d = 80) and 64 at d <= 64 (128 KB at d = 64 with
 // Q's 64).  At d = 80 a key tile of 64 would hold the next tile's 40
 // registers beside O, P V's and S's: 255 and a spill.  At d = 192 or 256 Q alone (192 / 256 KB) leaves no
-// room for a key tile at 128 rows, and at 64 rows a block would hold
-// 16-key tiles: those head dims stay on f32_simt.
+// room for a key tile at 128 rows: d 256 runs the block of
+// attn_tf32_wide.cuh (64 rows, two warpgroups each owning half of O's
+// columns, S split over d between them, 16-key tiles), d 192 stays on
+// f32_simt.
 //
 // Head dims (tf32_head_dim, which the C route_of of the forward and of the
-// backward both call): 32, 64, 80, 96, 128.  A row is ceil(d / 32)
+// backward both call): 32, 64, 80, 96, 128 here, 256 in
+// attn_tf32_wide.cuh (and attn_bwd_tf32_wide.cuh).  A row is ceil(d / 32)
 // panels; at d = 80 the last one holds 16 real columns and 16 the split
 // pass fills with zeros once a block (nothing is loaded by TMA here, so
 // the threads write them; no product reads them).  Q K^T steps its k8
@@ -120,9 +123,10 @@ constexpr int BQ = 128;                 // query rows per block
 constexpr int THREADS = 256;            // two warpgroups of 64 rows
 
 // the head dims of the f32_3xtf32 routes, forward and backward (ops.py
-// TF32_HEAD_DIMS)
+// TF32_HEAD_DIMS); 256 runs the blocks of attn_tf32_wide.cuh and
+// attn_bwd_tf32_wide.cuh
 __host__ __device__ constexpr bool tf32_head_dim(int64_t d) {
-  return d == 32 || d == 64 || d == 80 || d == 96 || d == 128;
+  return d == 32 || d == 64 || d == 80 || d == 96 || d == 128 || d == 256;
 }
 
 // 32-column panels of a row of d: the last one of d 80 holds 16 real
@@ -130,7 +134,7 @@ __host__ __device__ constexpr bool tf32_head_dim(int64_t d) {
 __host__ __device__ constexpr int tf32_panels(int d) { return (d + 31) / 32; }
 
 template <int D> struct Cfg {
-  static_assert(tf32_head_dim(D), "d: 32, 64, 80, 96, 128");
+  static_assert(tf32_head_dim(D) && D <= 128, "d: 32, 64, 80, 96, 128");
   static constexpr int PANELS = tf32_panels(D);
   static constexpr int BKV = D <= 64 ? 64 : 32;        // keys per tile
   static constexpr int Q_PANEL = BQ * 128;             // 32 columns of Q
@@ -220,12 +224,22 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
 }
 
 // d (64 x N, fp32) [+]= A (64 x 8, TF32 in registers a0..a3) B (8 x N,
-// K-major, shared), N = 32, 64, 80, 96 or 128; accumulate 0 overwrites d
+// K-major, shared), N = 16, 32, 64, 80, 96 or 128; accumulate 0 overwrites
+// d
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], float a0,
                                          float a1, float a2, float a3,
                                          uint64_t db, int accumulate) {
-  if constexpr (N == 32) {
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, "
+        "1;\n}\n"
+        : BIND_TF_D8(0)
+        : BIND_TF_A(0), BIND_TF_A(1), BIND_TF_A(2), BIND_TF_A(3), "l"(db),
+          "r"(accumulate));
+  } else if constexpr (N == 32) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "

@@ -13,11 +13,12 @@
 // attention/ops.py route() is the same rule in Python, and
 // bind_flash_attention_route answers it for any operands):
 //
-//   F32_3XTF32  float32 with d in {32, 64, 80, 96, 128}
+//   F32_3XTF32  float32 with d in {32, 64, 80, 96, 128, 256}
 //               (bind_attn_tf::tf32_head_dim) and q, k, v, out 16-byte
-//               aligned: the tensor cores in 3xTF32 (attn_tf32.cuh);
-//   F32_SIMT    any other float32 (d > 128, other head dims, misaligned
-//               views): the CUDA-core loop (attn_tile.cuh), any d <= 256;
+//               aligned: the tensor cores in 3xTF32 (attn_tf32.cuh; d 256
+//               attn_tf32_wide.cuh);
+//   F32_SIMT    any other float32 (other head dims, misaligned views):
+//               the CUDA-core loop (attn_tile.cuh), any d <= 256;
 //   BF16_WGMMA  bfloat16 with d in {64, 80, 96, 128, 192, 256}
 //               (bind_attn_wg::wgmma_head_dim) and q, k, v, out 16-byte
 //               aligned: the tensor cores, wgmma fed by TMA
@@ -58,7 +59,10 @@
 // split into hi and lo (and V transposed) on their way into shared memory,
 // the online softmax in fp32 with the accurate exp2f.  Bound: three TF32
 // products at 495 TFLOP/s; the header says what its design does about
-// shared memory, layouts and registers.
+// shared memory, layouts and registers.  At d 256 (flash_attention_tf32_
+// kernel's other block, attn_tf32_wide.cuh) a block is 64 query rows, each
+// warpgroup owning half of O's columns, S split over d between them and
+// summed once through shared memory.
 //
 // The tensor-core loop (flash_attention_wgmma_kernel, attn_wgmma.cuh): two
 // warpgroups of 64 query rows each, sharing K and V tiles that TMA brings
@@ -85,6 +89,7 @@
 #include <cuda_runtime.h>
 
 #include "attn_tf32.cuh"
+#include "attn_tf32_wide.cuh"
 #include "attn_tile.cuh"
 #include "attn_wgmma.cuh"
 
@@ -122,13 +127,28 @@ inline Route route_of(DType dtype, int64_t d, const void* q, const void* k,
   }
 }
 
+// the 3xTF32 block of head dim D: attn_tf32.cuh's up to d 128,
+// attn_tf32_wide.cuh's at d 256 (both 256 threads)
+template <int D, bool WIDE = (D > 128)> struct Tf32Block {
+  static constexpr int BQ = bind_attn_tf::BQ;
+  static constexpr size_t SMEM = bind_attn_tf::Cfg<D>::SMEM;
+};
+template <int D> struct Tf32Block<D, true> {
+  static constexpr int BQ = bind_attn_tfw::BQ;
+  static constexpr size_t SMEM = bind_attn_tfw::Cfg<D>::SMEM;
+};
+static_assert(bind_attn_tf::THREADS == bind_attn_tfw::THREADS, "threads");
+
 // LSE: the training forward, which also writes each row's log-sum-exp
 template <int D, bool LSE>
 __global__ void __launch_bounds__(bind_attn_tf::THREADS, 1)
 flash_attention_tf32_kernel(const bind_attn_tf::Shape sh,
                             float* __restrict__ lse) {
   extern __shared__ __align__(1024) unsigned char tf_smem[];
-  bind_attn_tf::attention_block<D, LSE>(sh, tf_smem, lse);
+  if constexpr (D > 128)
+    bind_attn_tfw::attention_block<D, LSE>(sh, tf_smem, lse);
+  else
+    bind_attn_tf::attention_block<D, LSE>(sh, tf_smem, lse);
 }
 
 template <int D, bool LSE>
@@ -136,8 +156,8 @@ cudaError_t launch_tf32_dl(const void* q, const void* k, const void* v,
                            void* out, float* lse, int64_t batch, int64_t hq,
                            int64_t hkv, int64_t sq, int64_t skv, float scale,
                            Mask mask, cudaStream_t stream) {
-  using C = bind_attn_tf::Cfg<D>;
-  const int64_t tiles = (sq + bind_attn_tf::BQ - 1) / bind_attn_tf::BQ;
+  using C = Tf32Block<D>;
+  const int64_t tiles = (sq + C::BQ - 1) / C::BQ;
   if (tiles > 65535 || batch * hq > 0x7fffffff) return cudaErrorInvalidValue;
   auto kern = flash_attention_tf32_kernel<D, LSE>;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -182,6 +202,8 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v,
     case 96: return launch_tf32_d<96>(q, k, v, out, lse, batch, hq, hkv, sq,
                                       skv, scale, mask, stream);
     case 128: return launch_tf32_d<128>(q, k, v, out, lse, batch, hq, hkv,
+                                        sq, skv, scale, mask, stream);
+    case 256: return launch_tf32_d<256>(q, k, v, out, lse, batch, hq, hkv,
                                         sq, skv, scale, mask, stream);
     default: return cudaErrorInvalidValue;
   }

@@ -68,8 +68,9 @@
 // same rule in Python, and bind_flash_attention_bwd_route answers it for
 // any operands): BF16_WGMMA for bfloat16 with d in {64, 80, 96, 128, 192,
 // 256} (bind_attn_wg::wgmma_head_dim, the forward's set), F32_3XTF32 for
-// float32 with d in {32, 64, 80, 96, 128} (bind_attn_tf::tf32_head_dim,
-// the forward's set), each with q, k, v, out, dout and the saved
+// float32 with d in {32, 64, 80, 96, 128, 256} (bind_attn_tf::
+// tf32_head_dim, the forward's set; d 256 on the blocks of
+// attn_bwd_tf32_wide.cuh), each with q, k, v, out, dout and the saved
 // log-sum-exp 16-byte aligned and a saved log-sum-exp; otherwise the
 // CUDA-core route of the element type, which sweeps the keys for the
 // log-sum-exp itself.
@@ -649,15 +650,18 @@ int bind_flash_attention_bwd_bf16_lse(
 }
 
 // The f32 backward on the tensor cores in 3xTF32 (F32_3XTF32): lse is the
-// forward's (B, Hq, Sq) log-sum-exp, delta a (B, Hq, Sq) float32 scratch.
+// forward's (B, Hq, Sq) log-sum-exp, delta a (B, Hq, Sq) float32 scratch;
+// at d 256 a kv head's query heads split into `groups` head groups across
+// the dk / dv blocks, whose float32 partials go to part, a (2, B, groups,
+// Hkv, Skv, D) scratch (null with one group, the only count below d 256).
 // Operands the route does not take give cudaErrorInvalidValue and launch
 // nothing.
 int bind_flash_attention_bwd_f32_lse(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, const void* lse,
-    void* delta, int64_t batch, int64_t hq, int64_t hkv, int64_t sq,
-    int64_t skv, int64_t d, double scale, int causal, int windowed,
-    int64_t window, void* stream) {
+    void* delta, void* part, int64_t batch, int64_t hq, int64_t hkv,
+    int64_t sq, int64_t skv, int64_t d, double scale, int causal,
+    int windowed, int64_t window, int64_t groups, void* stream) {
   if (route_of(F32, d, q, k, v, o, dout, lse) != F32_3XTF32 || batch <= 0 ||
       hq <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 || skv <= 0 ||
       delta == nullptr)
@@ -670,7 +674,8 @@ int bind_flash_attention_bwd_f32_lse(
       static_cast<float*>(delta),      static_cast<float*>(dq),
       static_cast<float*>(dk),         static_cast<float*>(dv),
       hq, hkv, sq, skv, s, s * bind_attn_bwd_tf::LOG2E,
-      bind_attn::Mask{causal != 0, windowed != 0, window}};
+      bind_attn::Mask{causal != 0, windowed != 0, window},
+      static_cast<float*>(part), groups};
   return static_cast<int>(bind_attn_bwd_tf::launch(
       sh, batch, d, static_cast<cudaStream_t>(stream)));
 }

@@ -26,6 +26,7 @@ SOURCES = (_HERE / "csrc" / "flash_attention.cu",)
 HEADERS = (_HERE / "csrc" / "attn_tile.cuh",
            _HERE / "csrc" / "attn_wgmma.cuh",
            _HERE / "csrc" / "attn_tf32.cuh",
+           _HERE / "csrc" / "attn_tf32_wide.cuh",
            _HERE.parent / "gemm" / "csrc" / "gemm_tile.cuh",
            _HERE.parent / "gemm" / "csrc" / "gemm_wgmma.cuh")
 
@@ -65,7 +66,9 @@ LIBRARY = CudaLibrary("bind_flash_attention", SOURCES, HEADERS,
 BWD_SOURCES = (_HERE / "csrc" / "flash_attention_bwd.cu",)
 BWD_HEADERS = (_HERE / "csrc" / "attn_bwd_wgmma.cuh",
                _HERE / "csrc" / "attn_bwd_tf32.cuh",
+               _HERE / "csrc" / "attn_bwd_tf32_wide.cuh",
                _HERE / "csrc" / "attn_tf32.cuh",
+               _HERE / "csrc" / "attn_tf32_wide.cuh",
                _HERE / "csrc" / "attn_wgmma.cuh",
                _HERE / "csrc" / "attn_tile.cuh",
                _HERE.parent / "gemm" / "csrc" / "gemm_tile.cuh",
@@ -76,8 +79,11 @@ _BWD_ARGS = (_P,) * 10 + (_I64,) * 6 + (_D, _I, _I, _I64, _P)
 # stream), lse the forward's, delta and part scratch
 BWD_LSE_SYMBOL = "bind_flash_attention_bwd_bf16_lse"
 _BWD_LSE_ARGS = (_P,) * 11 + (_I64,) * 6 + (_D, _I, _I, _I64, _I64, _P)
-# the float32 tensor-core route (3xTF32): _BWD_ARGS, lse the forward's
+# the float32 tensor-core route (3xTF32): _BWD_LSE_ARGS, lse the forward's,
+# part and groups the head groups of d 256 (one, and no scratch, below)
 BWD_F32_LSE_SYMBOL = "bind_flash_attention_bwd_f32_lse"
+BWD_LSE_SYMBOLS = {torch.bfloat16: BWD_LSE_SYMBOL,
+                   torch.float32: BWD_F32_LSE_SYMBOL}
 # which route (an index of ops.BWD_ROUTES) a backward takes: (element-type
 # code, d, q, k, v, out, dout, lse)
 BWD_ROUTE_SYMBOL = "bind_flash_attention_bwd_route"
@@ -87,11 +93,12 @@ BWD_LIBRARY = CudaLibrary("bind_flash_attention_bwd", BWD_SOURCES,
                           {**{f"bind_flash_attention_bwd_{s}": _BWD_ARGS
                               for s in SUFFIX.values()},
                            BWD_LSE_SYMBOL: _BWD_LSE_ARGS,
-                           BWD_F32_LSE_SYMBOL: _BWD_ARGS,
+                           BWD_F32_LSE_SYMBOL: _BWD_LSE_ARGS,
                            BWD_ROUTE_SYMBOL: _BWD_ROUTE_ARGS})
-# keys of a block of the tensor-core route's dk/dv kernel
-# (attn_bwd_wgmma.cuh BIG)
+# keys of a block of the tensor-core routes' dk/dv kernels
+# (attn_bwd_wgmma.cuh BIG; attn_bwd_tf32_wide.cuh OWN, d 256)
 BWD_KEY_BLOCK = 128
+BWD_TF32_KEY_BLOCK = 64
 
 
 def _mask_args(causal: bool, window) -> tuple:
@@ -133,14 +140,15 @@ def launcher_route(dtype: torch.dtype, q_ptr: int, k_ptr: int, v_ptr: int,
     return fn(DTYPE_CODES[dtype], q_ptr, k_ptr, v_ptr, out_ptr, d)
 
 
-def dkv_groups(hq: int, hkv: int, batch: int, skv: int, sms: int) -> int:
-    """How many head groups the tensor-core route's dk/dv kernel splits a
-    kv head's ``hq // hkv`` query heads into: the largest divisor of
-    ``hq // hkv`` that keeps its blocks (``batch * hkv`` x key blocks x
-    groups, one resident on an SM) within the card's ``sms`` SMs, and 1
-    where one group already fills them."""
+def dkv_groups(hq: int, hkv: int, batch: int, skv: int, sms: int,
+               key_block: int = BWD_KEY_BLOCK) -> int:
+    """How many head groups a tensor-core route's dk/dv kernel splits a kv
+    head's ``hq // hkv`` query heads into: the largest divisor of ``hq //
+    hkv`` that keeps its blocks (``batch * hkv`` x key blocks of
+    ``key_block`` x groups, one resident on an SM) within the card's
+    ``sms`` SMs, and 1 where one group already fills them."""
     group = hq // hkv
-    blocks = batch * hkv * -(-skv // BWD_KEY_BLOCK)
+    blocks = batch * hkv * -(-skv // key_block)
     return max(g for g in range(1, group + 1)
                if group % g == 0 and (g == 1 or blocks * g <= sms))
 
@@ -157,9 +165,9 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with the (B, Hq, Sq) float32 log-sum-exp and delta scratch allocated
     here.  With ``lse``, the forward's (B, Hq, Sq) log-sum-exp, the
     tensor-core route of the dtype: bf16 three launches (four with head
-    groups, :func:`dkv_groups`), with the delta scratch and the head
-    groups' float32 partials allocated here; float32 (3xTF32) four (delta,
-    dq, dv, dk), with the delta scratch.
+    groups, :func:`dkv_groups`), float32 (3xTF32) four (delta, dq, dv, dk;
+    five with head groups, at d 256 only), each with the delta scratch and
+    the head groups' float32 partials allocated here.
 
     The caller (:mod:`.ops`) has checked every operand and the route.  Does
     not synchronise; raises when a launch is refused.
@@ -179,18 +187,16 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              b, hq, hkv, sq, skv, d, float(scale), *mask,
                              stream)
             return
-        if q.dtype == torch.float32:
-            BWD_LIBRARY.call(BWD_F32_LSE_SYMBOL,
-                             *(t.data_ptr() for t in (q, k, v, out, dout, dq,
-                                                      dk, dv, lse, delta)),
-                             b, hq, hkv, sq, skv, d, float(scale), *mask,
-                             stream)
-            return
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        groups = dkv_groups(hq, hkv, b, skv, sms)
+        if q.dtype == torch.float32:
+            # head groups at d 256 only (its blocks of 64 keys); below, one
+            groups = (dkv_groups(hq, hkv, b, skv, sms, BWD_TF32_KEY_BLOCK)
+                      if d > 128 else 1)
+        else:
+            groups = dkv_groups(hq, hkv, b, skv, sms)
         part = (torch.empty((2, b, groups, hkv, skv, d), dtype=torch.float32,
                             device=q.device) if groups > 1 else None)
-        BWD_LIBRARY.call(BWD_LSE_SYMBOL,
+        BWD_LIBRARY.call(BWD_LSE_SYMBOLS[q.dtype],
                          *(t.data_ptr() for t in (q, k, v, out, dout, dq, dk,
                                                   dv, lse, delta)),
                          None if part is None else part.data_ptr(),

@@ -37,15 +37,16 @@ is the same rule in C, and :func:`.kernel.launcher_route` asks the built
 library, as the wrapper does before every launch): float32 on the tensor
 cores in 3xTF32 (``f32_3xtf32``) when the head dim is one of
 :data:`TF32_HEAD_DIMS` (32, 64, 80, 96, 128: whole 32-column panels, or a
-last panel of 16 real columns) and q, k, v and out are 16-byte aligned,
+last panel of 16 real columns; 256 on blocks of its own) and q, k, v and
+out are 16-byte aligned,
 else on the CUDA cores (``f32_simt``); bfloat16 on the tensor cores (``bf16_wgmma``: ``wgmma``
 fed by TMA) when the head dim is one of :data:`WGMMA_HEAD_DIMS` (64, 80,
 96, 128, 192, 256: whole 64-column panels, or a last panel of 16 / 32
 real columns over TMA's zero fill) and the operands are 16-byte aligned,
 else on the CUDA cores (``bf16_simt``); float16 on the CUDA cores
 (``f16_simt``).  Qwen3-14B (d 128), h2o-danube (d 80) and Phi-3-vision
-(d 96) take ``f32_3xtf32`` and ``bf16_wgmma``; RecurrentGemma-9B (d 256)
-``f32_simt`` and ``bf16_wgmma``.
+(d 96) take ``f32_3xtf32`` and ``bf16_wgmma``; so do RecurrentGemma-9B and
+Gemma-7B (d 256).
 
 ``attn_step(o, q, k, v)`` is the executor-callable block accumulation ``o ←
 o + softmax(q kᵀ / √d) v``, tagged ``"dot"`` so a fused chain of it runs as
@@ -90,7 +91,7 @@ BWD_ROUTES = ("f32_simt", "bf16_simt", "f16_simt", "bf16_wgmma",
 WGMMA_HEAD_DIMS = (64, 80, 96, 128, 192, 256)
 # the head dims of both float32 tensor-core routes (tf32_head_dim of
 # csrc/attn_tf32.cuh)
-TF32_HEAD_DIMS = (32, 64, 80, 96, 128)
+TF32_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 # the routes whose forward hands back a log-sum-exp and whose backward
 # reads it
 LSE_ROUTES = ("bf16_wgmma", "f32_3xtf32")

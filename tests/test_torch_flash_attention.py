@@ -220,8 +220,8 @@ def test_library_is_named_by_its_sources_and_headers():
     path = kernel.LIBRARY.path()
     assert path.name.startswith("libbind_flash_attention_")
     assert {h.name for h in kernel.LIBRARY.headers} == {
-        "attn_tile.cuh", "attn_wgmma.cuh", "attn_tf32.cuh", "gemm_tile.cuh",
-        "gemm_wgmma.cuh"}
+        "attn_tile.cuh", "attn_wgmma.cuh", "attn_tf32.cuh",
+        "attn_tf32_wide.cuh", "gemm_tile.cuh", "gemm_wgmma.cuh"}
     # every header the source includes, the new route's too, is hashed
     # into the library's name
     headers = {h.resolve() for h in kernel.LIBRARY.headers}
@@ -284,17 +284,19 @@ def test_wgmma_head_dims_are_one_rule_in_python_and_both_c_routes():
 
 def test_tf32_head_dims_are_one_rule_in_python_and_both_c_routes():
     """Static: ``ops.TF32_HEAD_DIMS`` is the set ``tf32_head_dim`` of
-    ``csrc/attn_tf32.cuh`` admits (80 among them, 32 / 64 / 96 / 128
-    kept), both C ``route_of``s (forward and backward) ask that one
-    function, and each 3xTF32 launcher instantiates exactly those head
-    dims (no nvcc needed)."""
+    ``csrc/attn_tf32.cuh`` admits (80 and 256 among them, 32 / 64 / 96 /
+    128 kept; 256 runs the blocks of ``attn_tf32_wide.cuh`` and
+    ``attn_bwd_tf32_wide.cuh``), both C ``route_of``s (forward and
+    backward) ask that one function, and each 3xTF32 launcher instantiates
+    exactly those head dims (no nvcc needed)."""
     csrc = kernel.SOURCES[0].parent
     rule = re.search(r"bool tf32_head_dim\(int64_t d\) \{(.*?)\}",
                      (csrc / "attn_tf32.cuh").read_text(), re.S).group(1)
     assert tuple(sorted(int(x) for x in re.findall(r"d == (\d+)", rule))) \
         == ops.TF32_HEAD_DIMS
-    assert {32, 64, 80, 96, 128} <= set(ops.TF32_HEAD_DIMS)
-    assert all(d % 16 == 0 and d <= 128 for d in ops.TF32_HEAD_DIMS)
+    assert {32, 64, 80, 96, 128, 256} <= set(ops.TF32_HEAD_DIMS)
+    assert all(d % 16 == 0 and (d <= 128 or d == 256)
+               for d in ops.TF32_HEAD_DIMS)
     forward = kernel.SOURCES[0].read_text()
     backward = kernel.BWD_SOURCES[0].read_text()
     for source in (forward, backward):
@@ -315,10 +317,10 @@ KB = 1 << 10
 
 @pytest.mark.parametrize("dtype, d, addresses, want", [
     # float32 goes to the tensor cores (3xTF32) at TF32_HEAD_DIMS (whole
-    # 32-column panels, or d 80's last panel of 16), else it stays on the
-    # CUDA cores
+    # 32-column panels, or d 80's last panel of 16; d 256 on blocks of its
+    # own), else it stays on the CUDA cores
     *[(torch.float32, d, (0, 4 * KB, 8 * KB, 12 * KB),
-       "f32_3xtf32" if d in (64, 80, 128) else "f32_simt")
+       "f32_3xtf32" if d in (64, 80, 128, 256) else "f32_simt")
       for d in (16, 64, 80, 128, 256, 320)],
     (torch.float32, 128, (4, 8, 12, 20), "f32_simt"),
     # bfloat16: the head dims of the 64-column panels, whole or with a last
@@ -352,14 +354,16 @@ def test_route_by_dtype_head_dim_and_alignment(dtype, d, addresses, want):
 
 @pytest.mark.parametrize("d, addresses, want", [
     # the 32-column panels of the 3xTF32 loop: d 32, 64, 96, 128, and 80
-    # (h2o-danube) with a last panel of 16 real columns
-    *[(d, (0, 16, 32, 48), "f32_3xtf32") for d in (32, 64, 80, 96, 128)],
+    # (h2o-danube) with a last panel of 16 real columns; d 256
+    # (RecurrentGemma-9B, Gemma-7B) on the 64-row blocks of its own
+    *[(d, (0, 16, 32, 48), "f32_3xtf32") for d in (32, 64, 80, 96, 128,
+                                                   256)],
     (128, (), "f32_3xtf32"),
     (80, (), "f32_3xtf32"),
-    # head dims outside TF32_HEAD_DIMS, or above 128 (RecurrentGemma-9B's
-    # 256: no key tile fits beside 128 rows of Q hi and lo)
+    # head dims outside TF32_HEAD_DIMS (192: no key tile fits beside 128
+    # rows of Q hi and lo, and no model has it)
     *[(d, (0, 16, 32, 48), "f32_simt") for d in (0, 8, 16, 48, 100, 160,
-                                                 192, 256)],
+                                                 192)],
     (80, (0, 16, 32, 52), "f32_simt"),
     # misaligned operands: any of q, k, v, out off 16 bytes (a view at an
     # odd element offset)
@@ -635,14 +639,14 @@ _ALIGNED6 = (0, 16, 32, 48, 64, 80)
     (torch.bfloat16, 96, _ALIGNED6[:5] + (None,), "bf16_simt"),
     (torch.bfloat16, 80, _ALIGNED6[:5] + (0,), "bf16_simt"),
     # float32 with a saved log-sum-exp: the 3xTF32 tensor cores at
-    # TF32_HEAD_DIMS (h2o-danube's 80, Qwen3-14B's 128), the CUDA cores
-    # elsewhere (RecurrentGemma-9B's 256)
+    # TF32_HEAD_DIMS (h2o-danube's 80, Qwen3-14B's 128, RecurrentGemma-9B's
+    # and Gemma-7B's 256), the CUDA cores elsewhere (192)
     *[(torch.float32, d, _ALIGNED6,
-       "f32_3xtf32" if d in (32, 64, 80, 96, 128) else "f32_simt")
+       "f32_3xtf32" if d in (32, 64, 80, 96, 128, 256) else "f32_simt")
       for d in (16, 32, 48, 64, 80, 96, 112, 128, 192, 256)],
     (torch.float32, 128, _ALIGNED6, "f32_3xtf32"),
     (torch.float32, 80, (), "f32_3xtf32"),
-    (torch.float32, 256, (), "f32_simt"),
+    (torch.float32, 256, (), "f32_3xtf32"),
     # and each of the six operands 16-byte aligned
     *[(torch.float32, 80, _ALIGNED6[:i] + (_ALIGNED6[i] + 4,)
        + _ALIGNED6[i + 1:], "f32_simt") for i in range(6)],
@@ -723,6 +727,55 @@ def test_dkv_groups_fill_the_card_and_divide_the_group():
     assert kernel.dkv_groups(1, 1, 4, 64, 132) == 1
 
 
+def test_dkv_groups_of_the_float32_route_at_head_dim_256():
+    """f32_3xtf32's dk / dv blocks at d 256 hold 64 keys: RecurrentGemma-
+    9B's training shape (64 key blocks over one kv head) takes 2 head
+    groups on 132 SMs, Gemma-7B's (16 kv heads) none; below d 256 the
+    route never splits, whatever the shape, and the launcher is handed
+    partials only with more than one group."""
+    key_block = kernel.BWD_TF32_KEY_BLOCK
+    assert key_block == 64
+    assert kernel.dkv_groups(16, 1, 1, 4096, 132, key_block) == 2
+    assert kernel.dkv_groups(16, 16, 1, 4096, 132, key_block) == 1
+    assert kernel.dkv_groups(4, 1, 1, 1024, 132, key_block) == 4
+    calls = []
+
+    class Library:
+        def call(self, symbol, *args):
+            calls.append((symbol, args))
+
+    dev = torch.device("meta")
+    for d, (hq, hkv, s), want in ((256, (16, 1, 4096), 2),
+                                  (128, (16, 1, 4096), 1),
+                                  (256, (16, 16, 4096), 1)):
+        q = torch.empty((1, hq, s, d), device=dev)
+        kv = torch.empty((1, hkv, s, d), device=dev)
+        calls.clear()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(kernel, "BWD_LIBRARY", Library())
+            mp.setattr(torch.cuda, "device", lambda _d: _Null())
+            mp.setattr(torch.cuda, "current_stream",
+                       lambda _d: type("S", (), {"cuda_stream": 0})())
+            mp.setattr(torch.cuda, "get_device_properties",
+                       lambda _d: type("P", (), {
+                           "multi_processor_count": 132})())
+            kernel.launch_bwd(q, kv, kv, q, q, q, kv, kv, causal=True,
+                              window=None, scale=d ** -0.5,
+                              lse=torch.empty(q.shape[:3], device=dev))
+        (symbol, args), = calls
+        assert symbol == kernel.BWD_F32_LSE_SYMBOL
+        assert args[-2] == want
+        assert (args[10] is None) == (want == 1)
+
+
+class _Null:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
 def test_backward_library_is_its_own_with_every_symbol_bound():
     """The backward builds into a library of its own (the forward's
     sources and symbols unchanged) with the tensor-core route's header and
@@ -737,20 +790,21 @@ def test_backward_library_is_its_own_with_every_symbol_bound():
     headers = {h.resolve() for h in kernel.BWD_LIBRARY.headers}
     assert _includes(kernel.BWD_SOURCES[0]) == headers
     assert {h.name for h in headers} == {
-        "attn_bwd_wgmma.cuh", "attn_bwd_tf32.cuh", "attn_tf32.cuh",
-        "attn_wgmma.cuh", "attn_tile.cuh", "gemm_tile.cuh",
-        "gemm_wgmma.cuh"}
+        "attn_bwd_wgmma.cuh", "attn_bwd_tf32.cuh", "attn_bwd_tf32_wide.cuh",
+        "attn_tf32.cuh", "attn_tf32_wide.cuh", "attn_wgmma.cuh",
+        "attn_tile.cuh", "gemm_tile.cuh", "gemm_wgmma.cuh"}
     assert set(kernel.BWD_LIBRARY.symbols) == extern_c_symbols(
         kernel.BWD_SOURCES[0])
     assert set(kernel.BWD_LIBRARY.symbols) == {
         f"bind_flash_attention_bwd_{s}" for s in kernel.SUFFIX.values()} | {
         kernel.BWD_ROUTE_SYMBOL, kernel.BWD_LSE_SYMBOL,
         kernel.BWD_F32_LSE_SYMBOL}
-    # the float32 tensor-core route takes the CUDA-core routes' arguments,
-    # lse the forward's
+    # the float32 tensor-core route takes the bf16 one's arguments: lse
+    # the forward's, and the head groups' partials and count (d 256's
+    # dk / dv blocks split a kv head's query heads as bf16_wgmma's do)
     assert kernel.BWD_F32_LSE_SYMBOL == "bind_flash_attention_bwd_f32_lse"
     assert (kernel.BWD_LIBRARY.symbols[kernel.BWD_F32_LSE_SYMBOL]
-            == kernel.BWD_LIBRARY.symbols["bind_flash_attention_bwd_f32"])
+            == kernel.BWD_LIBRARY.symbols[kernel.BWD_LSE_SYMBOL])
     for sym, argtypes in kernel.BWD_LIBRARY.symbols.items():
         params = re.search(rf"int {sym}\((.*?)\)", source, re.S).group(1)
         assert params.count(",") + 1 == len(argtypes), sym
@@ -783,6 +837,44 @@ def test_attention_lse_is_the_oracle_and_its_logsumexp(b, hq, hkv, sq, skv,
     assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
     want = torch.logsumexp(_masked_scores(q, k, **kw), dim=-1)
     torch.testing.assert_close(lse, want, rtol=1e-6, atol=1e-6)
+
+
+# RecurrentGemma-9B's and Gemma-7B's head dim, which f32_3xtf32 runs on
+# blocks of its own on the card: windowed GQA 4:1, causal MHA
+D256_CASES = [
+    (1, 4, 1, 96, 96, 256, True, 40),
+    (1, 2, 2, 96, 96, 256, True, None),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", D256_CASES)
+def test_lse_plain_versions_at_head_dim_256_match_the_reference(
+        b, hq, hkv, sq, skv, d, causal, window, rng):
+    """The plain versions the card's d 256 float32 routes are held to: the
+    forward with its log-sum-exp against the reference's Pallas kernel
+    (interpret mode) and the log-sum-exp of the reference's masked
+    scores, the backward from the log-sum-exp against ``jax.grad`` of the
+    reference's oracle, each within 2e-5."""
+    qkv = _qkv(rng, b, hq, hkv, sq, skv, d)
+    dout = rng.normal(size=(b, hq, sq, d)).astype(np.float32)
+    q, k, v = (torch.from_numpy(t) for t in qkv)
+    kw = dict(causal=causal, window=window)
+    out, lse = ref.attention_lse(q, k, v, scale=d ** -0.5, **kw)
+    np.testing.assert_allclose(out.numpy(), _reference(qkv, **kw),
+                               rtol=2e-5, atol=2e-5)
+    jq, jk, jv = (jnp.asarray(t) for t in qkv)
+    jk = jnp.repeat(jk, hq // hkv, axis=1)
+    scores = jnp.einsum("bhqd,bhkd->bhqk", jq, jk) * d ** -0.5
+    seen = np.asarray(ref.mask(sq, skv, causal=causal, window=window,
+                               device="cpu"))
+    want = jax.scipy.special.logsumexp(
+        jnp.where(seen, scores, -jnp.inf), axis=-1)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+    got = ref.attention_grad_lse(q, k, v, out, torch.from_numpy(dout), lse,
+                                 **kw)
+    _close_grads([t.numpy() for t in got], _ref_grads(qkv, dout, **kw),
+                 tol=2e-5)
 
 
 def test_attention_lse_is_inf_on_a_row_that_sees_no_key(rng):

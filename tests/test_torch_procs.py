@@ -18,6 +18,7 @@ The port's workers import their op bodies from ``tests/_torch_conformance_ops.py
 pool of a world size is spawned once per test process.
 """
 
+import itertools
 import os
 import pickle
 import time
@@ -417,9 +418,64 @@ def test_shutdown_leaves_no_segment():
     deadline = time.monotonic() + 10
     while time.monotonic() < deadline:
         left = [f for f in os.listdir("/dev/shm")
-                if f.startswith(f"bnd{session}-")]
+                if f.startswith(f"{shm_store.SEGMENT_PREFIX}{session}-")]
         if not left:
             break
         time.sleep(0.05)
     assert left == []
     assert all(p is None for p in pool.procs)
+
+
+def test_port_and_reference_segments_never_share_a_name(monkeypatch):
+    """A reference pool and a port pool whose sessions are the same
+    ``pid-seq`` string, both alive in one process (as when one test worker
+    runs ``tests/test_procs_backend.py`` and then this file): no segment
+    name of either package starts with the port's prefix for that session
+    but the port's own, and the port's ``shutdown_pools()`` leaves none of
+    its segments and unlinks none of the reference's."""
+    from multiprocessing import shared_memory
+
+    from repro.core import shm_store as ref_shm
+    from repro.core.backends import procs as ref_procs
+
+    def ref_shutdown():
+        pool = ref_procs._POOLS.pop(n, None)
+        if pool is not None:
+            pool.shutdown()
+
+    n = 2
+    procs_mod.shutdown_pools()
+    ref_shutdown()
+    seq = 7919
+    monkeypatch.setattr(ref_procs, "_OWNER_SEQ", itertools.count(seq))
+    monkeypatch.setattr(procs_mod, "_OWNER_SEQ", itertools.count(seq))
+    ref_vals, _, _ = _run(ref_bind,
+                          lambda wf, a: _ref_chains(wf, a, 3, (1,)), n,
+                          "procs")
+    ref_session = ref_procs._POOLS[n].session
+    # a segment the live reference pool could hold under its session
+    ref_name = ref_shm.segment_name(ref_session, (1, 0), 0)
+    held = shared_memory.SharedMemory(name=ref_name, create=True, size=64)
+    try:
+        vals, _, _ = _run(port_bind, _port_chains(3, (1,)), n, "procs")
+        for a, b in zip(ref_vals, vals):
+            np.testing.assert_array_equal(b, a)
+        pool = procs_mod._POOLS[n]
+        assert pool.session == ref_session
+        port_prefix = f"{shm_store.SEGMENT_PREFIX}{pool.session}-"
+        assert not ref_name.startswith(port_prefix)
+        assert shm_store.segment_name(pool.session, (1, 0), 0) != ref_name
+        procs_mod.shutdown_pools()
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline:
+            left = [f for f in os.listdir("/dev/shm")
+                    if f.startswith(port_prefix)]
+            if not left:
+                break
+            time.sleep(0.05)
+        assert left == []
+        assert ref_name in os.listdir("/dev/shm")
+    finally:
+        held.close()
+        held.unlink()
+        ref_shutdown()

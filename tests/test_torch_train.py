@@ -58,12 +58,12 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def _carried(arch, seed=2):
-    rcfg = ref_configs.get(arch).reduced()
+def _carried(arch, seed=2, **overrides):
+    rcfg = ref_configs.get(arch).reduced(**overrides)
     ref = RefModel(rcfg)
     params = jax.jit(ref.init)(jax.random.PRNGKey(seed))
     model = weights.carry_params(
-        LanguageModel(configs.get(arch).reduced(), device="cpu"),
+        LanguageModel(configs.get(arch).reduced(**overrides), device="cpu"),
         _np(params))
     return rcfg, ref, params, model
 
@@ -232,6 +232,62 @@ def test_five_train_steps_follow_the_references_loss_curve(arch):
             assert g[key] == pytest.approx(w[key], rel=CURVE_TOL), (i, key)
         assert g["tokens"] == w["tokens"]
     assert got[-1]["loss"] < got[0]["loss"]
+
+
+def test_gemma_7b_step_at_head_dim_256_matches_the_reference(rng):
+    """Gemma-7B's head dim (256; ``reduced()`` gives 16), float32: the
+    attention takes the log-sum-exp route, as f32_3xtf32 does on the card
+    (the forward hands ``ref.attention_lse``'s log-sum-exp to
+    ``ref.attention_grad_lse``); the first step's loss and every gradient
+    against ``jax.value_and_grad`` of the reference's loss (1e-5 / 1e-4 of
+    each leaf's largest |gradient|), then two ``make_train_step`` steps
+    against the reference's within 1e-3."""
+    rcfg, ref, params, model = _carried("gemma_7b", seed=4, head_dim=256)
+    assert model.cfg.head_dim == rcfg.head_dim == 256
+    assert fa_ops.bwd_route(torch.float32, 256) == "f32_3xtf32"
+    batch = _batch(rng, rcfg.vocab_size)
+
+    def loss_fn(p):
+        return ref.loss(p, {k: jnp.asarray(v) for k, v in batch.items()},
+                        remat=False)
+
+    (want_loss, _), want_grads = jax.jit(
+        jax.value_and_grad(loss_fn, has_aux=True))(params)
+    calls = []
+    plain = fa_ref.attention_grad_lse
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return plain(*args, **kwargs)
+
+    fa_ref.attention_grad_lse = counting
+    try:
+        loss, _, grads = _port_loss_and_grads(model, batch)
+    finally:
+        fa_ref.attention_grad_lse = plain
+    assert calls and len(calls) == rcfg.n_layers
+    assert float(loss) == pytest.approx(float(want_loss), rel=LOSS_TOL)
+    theirs = weights.leaves(weights.port_tree(_np(want_grads)))
+    assert set(theirs) == set(grads)
+    for name, want in theirs.items():
+        want = np.asarray(want, np.float32)
+        scale = max(float(np.abs(want).max()), 1e-30)
+        err = float(np.abs(grads[name].numpy() - want).max())
+        assert err <= GRAD_TOL * scale, name
+    model.zero_grad(set_to_none=True)
+    data = RefDataset(rcfg.vocab_size, S, B, seed=2)
+    batches = [{k: np.asarray(v) for k, v in data.batch_at(i).items()}
+               for i in range(2)]
+    lr = (3e-3, 1, 5)
+    want = _ref_curve(rcfg, ref, params, batches, lr)
+    opt = AdamW(learning_rate=warmup_cosine(*lr))
+    state = opt.init(model)
+    step = make_train_step(model, opt)
+    for batch, w in zip(batches, want):
+        state, metrics = step(state, _port_batch(batch))
+        for key in ("loss", "nll", "grad_norm", "lr"):
+            assert float(metrics[key]) == pytest.approx(w[key],
+                                                        rel=CURVE_TOL), key
 
 
 def test_train_step_options(rng):

@@ -16,8 +16,9 @@ C entry points on the same inputs:
 
 * flash attention in float32 at the reference's cases (``ATTN_CASES`` of
   ``chip_smoke.py``), h2o-danube-1.8b's head dim 80 and full
-  RecurrentGemma-9B and Qwen3-14B width, and again at head dims 32, 64,
-  80, 96 and 128 and at ``MID_ATTN`` at d 64, 80 and 128: where this side
+  RecurrentGemma-9B, Qwen3-14B and Gemma-7B width, and again at head dims
+  32, 64, 80, 96, 128 and 256 and at ``MID_ATTN`` at d 64, 80, 128 and
+  256: where this side
   takes ``f32_simt``, bit for bit equal on the two sides; where both take
   ``f32_3xtf32``, bit for bit equal too; where this side takes
   ``f32_3xtf32`` and the other ``f32_simt`` (an older side's float32 at a
@@ -49,8 +50,9 @@ C entry points on the same inputs:
 * the attention backward (``.../flash_attention/csrc/
   flash_attention_bwd.cu``, where the other side has one) in float32 and
   bfloat16 at the reference's cases at d 64 and 128, at ``MID_ATTN``
-  (float32 at d 64 and 128, bfloat16 at ``MID_HEAD_DIMS``) and at
-  ``chip_smoke.py``'s ``BWD_SHAPES``, float32 also at d 32, 80 and 96: on
+  (float32 at d 64, 128 and 256, bfloat16 at ``MID_HEAD_DIMS``) and at
+  ``chip_smoke.py``'s ``BWD_SHAPES``, float32 also at d 32, 80, 96 and
+  256: on
   the CUDA-core routes (``f32_simt``, ``bf16_simt``: the
   ``bind_flash_attention_bwd_{f32,bf16}`` entry points) bit for bit the
   other side's; where this side's ``bind_flash_attention_bwd_route``
@@ -164,11 +166,18 @@ def libraries(CudaLibrary, side: str, root: Path):
                     for s in FA_SUFFIX.values()}
         if BWD_LSE_SYMBOL in bwd_cu.read_text():
             bwd_syms[BWD_LSE_SYMBOL] = BWD_LSE_ARGS
+        f32_groups = False
         if BWD_F32_LSE_SYMBOL in bwd_cu.read_text():
-            bwd_syms[BWD_F32_LSE_SYMBOL] = BWD_ARGS
+            # an entry point that takes d 256's head groups and partials
+            entry = re.search(r"int bind_flash_attention_bwd_f32_lse\((.*?)\)",
+                              bwd_cu.read_text(), re.S).group(1)
+            f32_groups = "groups" in entry
+            bwd_syms[BWD_F32_LSE_SYMBOL] = (BWD_LSE_ARGS if f32_groups
+                                            else BWD_ARGS)
         if BWD_ROUTE_SYMBOL in bwd_cu.read_text():
             bwd_syms[BWD_ROUTE_SYMBOL] = BWD_ROUTE_ARGS
         bwd = CudaLibrary(f"ab_fa_bwd_{side}", (bwd_cu,), headers, bwd_syms)
+        bwd.f32_groups = f32_groups
     fa = CudaLibrary(f"ab_fa_{side}", (fa_dir / "flash_attention.cu",),
                      headers, fa_syms)
     # how its route entry point names the element type
@@ -401,17 +410,29 @@ def main(argv: list[str]) -> int:
         return bwd_route(side, q, k, v, out, dout, lse) == "f32_3xtf32"
 
     def bwd_tf32_call(side, q, k, v, out, dout, lse, causal, window):
-        """The side's float32 backward on the tensor cores (3xTF32)."""
+        """The side's float32 backward on the tensor cores (3xTF32), with
+        this checkout's head groups at d 256 where its entry point takes
+        them."""
         b, hq, sq, d = q.shape
+        hkv, skv = k.shape[1], k.shape[2]
         grads = tuple(torch.empty_like(t) for t in (q, k, v))
         delta = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
-        libs[side][3].call(
-            BWD_F32_LSE_SYMBOL,
-            *(t.data_ptr() for t in (q, k, v, out, dout, *grads, lse,
-                                     delta)),
-            b, hq, k.shape[1], sq, k.shape[2], d, d ** -0.5, int(causal),
-            int(window is not None), 0 if window is None else window,
-            stream)
+        ptrs = [t.data_ptr() for t in (q, k, v, out, dout, *grads, lse,
+                                       delta)]
+        mask = (int(causal), int(window is not None),
+                0 if window is None else window)
+        if not libs[side][3].f32_groups:
+            libs[side][3].call(BWD_F32_LSE_SYMBOL, *ptrs, b, hq, hkv, sq,
+                               skv, d, d ** -0.5, *mask, stream)
+            return grads
+        groups = (fa_kernel.dkv_groups(hq, hkv, b, skv, sms,
+                                       fa_kernel.BWD_TF32_KEY_BLOCK)
+                  if d > 128 else 1)
+        part = (torch.empty((2, b, groups, hkv, skv, d), dtype=torch.float32,
+                            device=dev) if groups > 1 else None)
+        libs[side][3].call(BWD_F32_LSE_SYMBOL, *ptrs,
+                           None if part is None else part.data_ptr(), b, hq,
+                           hkv, sq, skv, d, d ** -0.5, *mask, groups, stream)
         return grads
 
     def bwd_case(label, shape, dname, blk):
@@ -499,12 +520,13 @@ def main(argv: list[str]) -> int:
             # Sq > Skv under causal + window: rows past Skv + window see no
             # key
             cases.append(("", (1, 2, 2, 64, 32, d, True, 8), dname, 16))
-    # float32 at every head dim of the 3xTF32 loop
-    for d in (32, 80, 96):
+    # float32 at every head dim of the 3xTF32 loop (d 256 on its own
+    # blocks)
+    for d in (32, 80, 96, 256):
         cases += [("", case[:5] + (d,) + case[6:], "float32", 16)
                   for case in ATTN_CASES]
         cases.append(("", (1, 2, 2, 64, 32, d, True, 8), "float32", 16))
-    for d in (64, 80, 128):
+    for d in (64, 80, 128, 256):
         cases += [("mid ", (b, hq, hkv, sq, skv, d, causal, window),
                    "float32", blk)
                   for b, hq, hkv, sq, skv, causal, window, blk in MID_ATTN]
@@ -522,7 +544,11 @@ def main(argv: list[str]) -> int:
             return 1
     if libs["this"][3] is not None and libs["other"][3] is not None:
         bwd_cases = [("", case[:5] + (d,) + case[6:], "float32", 16)
-                     for d in (32, 80, 96) for case in ATTN_CASES]
+                     for d in (32, 80, 96, 256) for case in ATTN_CASES]
+        bwd_cases += [("mid ", (b, hq, hkv, sq, skv, 256, causal, window),
+                       "float32", blk)
+                      for b, hq, hkv, sq, skv, causal, window, blk
+                      in MID_ATTN]
         for d in (64, 128):
             for dname in ("float32", "bfloat16"):
                 bwd_cases += [("", case[:5] + (d,) + case[6:], dname, 16)

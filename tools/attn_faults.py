@@ -19,9 +19,10 @@ each output checked as ``chip_smoke.py`` checks it: within the
 reference's tolerance (3e-2) of the oracle on the padded inputs, within
 the limits scaled to each value against the float32 oracle
 (``bf16_attention_error``), and zero where a row sees no key.  A float32
-fault's library (the ``f32_3xtf32`` route) runs ``MID_ATTN`` at d 64 and
-128, the reference's cases at d 64 and 128 and one long causal case
-(``LONG_F32``: eight Qwen3-14B heads over two, S 8192, d 128) in float32,
+fault's library (the ``f32_3xtf32`` route) runs ``MID_ATTN`` at d 64,
+128 and 256, the reference's cases at d 64, 128 and 256 and two long
+causal cases (``LONG_F32``: eight heads over two, S 8192 at Qwen3-14B's
+d 128, S 16384 at d 256) in float32,
 each output held as ``chip_smoke.py`` holds the route: within the
 reference's float32 tolerance (2e-5) of the oracle, and, per slice of at
 most 8 heads, no farther from a float64 computation than
@@ -29,12 +30,16 @@ most 8 heads, no farther from a float64 computation than
 checkout's library, on copies at an odd offset) on the same inputs.  A
 fault of the float32 backward (``f32_3xtf32``, ``attn_bwd_tf32.cuh``) is
 planted in a copy of the backward library, which runs ``BWD_F32`` (h2o-
-danube-1.8b's FSDP shape, ``MID_ATTN`` at d 80 and a long causal case at
-d 128) from this checkout's forward and its log-sum-exp, each gradient
+danube-1.8b's FSDP shape, ``MID_ATTN``'s causal cases at d 80 and 256 and
+long causal cases at d 128 and 256) from this checkout's forward and its
+log-sum-exp, each gradient
 held as ``chip_smoke.py`` holds the route: within ``BWD_F32_NRMS`` (2e-5)
 rms per head slice of the plain version, and, per slice of at most 8
 heads, no farther from a float64 gradient than ``TF32_VS_SIMT`` times
-``f32_simt``'s on the same inputs.  The control runs all three sets.  A
+``f32_simt``'s on the same inputs.  The faults named ``d 256`` are
+planted in the blocks of head dim 256 alone (``attn_tf32_wide.cuh``,
+``attn_bwd_tf32_wide.cuh``), so only its cases can catch them.  The
+control runs all three sets.  A
 fault is caught when some case fails a check; how many cases each check
 fails is printed.
 
@@ -138,18 +143,69 @@ FAULTS = (
     # dS's (and P's) lo halves dropped: their products in plain TF32
     ("backward dS and P in plain TF32", "float32 backward",
      "attn_bwd_tf32.cuh", "  lo = tf32_rna(x - hi);", "  lo = 0.0f;", True),
+    # the same faults planted in d 256's blocks alone (attn_tf32_wide.cuh,
+    # attn_bwd_tf32_wide.cuh): caught only by the d 256 cases
+    ("d 256: tile sums added in the tensor cores", "float32",
+     "attn_tf32_wide.cuh",
+     ("    issue_pv<D>(ot, s, pl, vh, vl);",
+      "                           desc64(v_hi + kk * 32), kk > 0);",
+      "    for (int i = 0; i < C::OR; ++i) o[i] = __fadd_rn(o[i], ot[i]);"),
+     ("    issue_pv<D>(o, s, pl, vh, vl);",
+      "                           desc64(v_hi + kk * 32), 1);",
+      ""), True),
+    # S's lo products and P's lo half dropped: S and P V in plain TF32 but
+    # for V's lo half
+    ("d 256: S and P in plain TF32", "float32", "attn_tf32_wide.cuh",
+     ("          make_float4(__fadd_rn(s[i], pl[i]), __fadd_rn(s[i + 1], "
+      "pl[i + 1]),\n                      __fadd_rn(s[i + 2], pl[i + 2]),\n"
+      "                      __fadd_rn(s[i + 3], pl[i + 3]));",
+      "    pl[i] = tf32_rna(p - hi);"),
+     ("          make_float4(s[i], s[i + 1], s[i + 2], s[i + 3]);",
+      "    pl[i] = 0.0f;"), True),
+    ("d 256: backward tile sums added in the tensor cores",
+     "float32 backward", "attn_bwd_tf32_wide.cuh",
+     ("    issue_grad<D>(dqt, s, sl, kth, ktl);",
+      "    for (int i = 0; i < C::OR; ++i) dq[i] = __fadd_rn(dq[i], dqt[i]);",
+      "    issue_grad<D>(dkt, st, stl, qth, qtl);",
+      "    for (int i = 0; i < C::OR; ++i) acc[i] = __fadd_rn(acc[i], dkt[i]);",
+      "    issue_grad<D>(dvt, st, stl, dth, dtl);",
+      "    for (int i = 0; i < C::OR; ++i) acc[i] = __fadd_rn(acc[i], dvt[i]);",
+      "                           desc64(t_hi + kk * 32), kk > 0);"),
+     ("    issue_grad<D>(dq, s, sl, kth, ktl);", "",
+      "    issue_grad<D>(acc, st, stl, qth, qtl);", "",
+      "    issue_grad<D>(acc, st, stl, dth, dtl);", "",
+      "                           desc64(t_hi + kk * 32), 1);"), True),
+    ("d 256: backward dS and P in plain TF32", "float32 backward",
+     "attn_bwd_tf32_wide.cuh",
+     ("    for (int i = 0; i < C::AR; ++i) split(s[i], sl[i]);",
+      "    for (int i = 0; i < C::AR; ++i) split(st[i], stl[i]);",
+      "          split(st[i], stl[i]);"),
+     ("    for (int i = 0; i < C::AR; ++i) { s[i] = tf32_rna(s[i]); "
+      "sl[i] = 0.0f; }",
+      "    for (int i = 0; i < C::AR; ++i) { st[i] = tf32_rna(st[i]); "
+      "stl[i] = 0.0f; }",
+      "          st[i] = tf32_rna(st[i]); stl[i] = 0.0f;"), True),
 )
 # the float32 backward's cases: (B, Hq, Hkv, S, d, window), causal;
 # h2o-danube-1.8b's FSDP step shape, and one long enough (512 key tiles a
 # row block, 2048 query tiles a key block) for the tensor cores'
 # truncating sums to show
-BWD_F32 = ((8, 32, 8, 1024, 80, 4096), (1, 8, 2, 8192, 128, None))
-# (B, Hq, Hkv, S, d): a float32 case long enough (256 key tiles a row
-# block) for error that grows with the number of key tiles to show
-LONG_F32 = (1, 8, 2, 8192, 128)
+BWD_F32 = ((8, 32, 8, 1024, 80, 4096), (1, 8, 2, 8192, 128, None),
+           # d 256's blocks: 256 key tiles of 16 a row block, 1024 query
+           # tiles of 16 a key block
+           (1, 8, 2, 4096, 256, None))
+# (B, Hq, Hkv, S, d): float32 cases long enough (256 key tiles a row
+# block at d 128, 1024 of 16 keys at d 256) for error that grows with the
+# number of key tiles to show; at d 256 f32_simt's own error against
+# float64 is larger (its dot products run over 256 columns): on an H100
+# the planted drift reached 3.79 times it at S 8192, under TF32_VS_SIMT,
+# and 5.23 at S 16384
+LONG_F32 = ((1, 8, 2, 8192, 128), (1, 8, 2, 16384, 256))
 _P, _I, _I64, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_double)
-BWD_ARGS = (_P,) * 10 + (_I64,) * 6 + (_D, _I, _I, _I64, _P)
+# bind_flash_attention_bwd_f32_lse: ten tensors, d 256's head-group
+# partials, sizes, scale, mask, head groups, stream
+BWD_ARGS = (_P,) * 11 + (_I64,) * 6 + (_D, _I, _I, _I64, _I64, _P)
 FA_ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _D, _I, _I,
            _I64, _P)
 ROUTE_ARGS = (_I, _P, _P, _P, _P, _I64)
@@ -243,12 +299,12 @@ def main(argv: list[str]) -> int:
     # float32 on the 3xTF32 route: MID_ATTN and the reference's cases at the
     # head dims it takes, and LONG_F32
     f32_shapes = [(b, hq, hkv, sq, skv, d, causal, window, blk)
-                  for d in (64, 128)
+                  for d in (64, 128, 256)
                   for b, hq, hkv, sq, skv, causal, window, blk in MID_ATTN]
     f32_shapes += [case[:5] + (d,) + case[6:] + (16,)
-                   for d in (64, 128) for case in ATTN_CASES]
-    b, hq, hkv, s, d = LONG_F32
-    f32_shapes.append((b, hq, hkv, s, s, d, True, None, 512))
+                   for d in (64, 128, 256) for case in ATTN_CASES]
+    f32_shapes += [(b, hq, hkv, s, s, d, True, None, 512)
+                   for b, hq, hkv, s, d in LONG_F32]
     for b, hq, hkv, sq, skv, d, causal, window, blk in f32_shapes:
         q = torch.randn((b, hq, sq, d), generator=gen, device=dev)
         k = torch.randn((b, hkv, skv, d), generator=gen, device=dev)
@@ -278,7 +334,7 @@ def main(argv: list[str]) -> int:
     # the plain version, float64 and f32_simt (no log-sum-exp) on the same
     # inputs
     bwd_cases = []
-    bwd_shapes = [(b, hq, hkv, sq, 80, window)
+    bwd_shapes = [(b, hq, hkv, sq, d, window) for d in (80, 256)
                   for b, hq, hkv, sq, skv, causal, window, blk in MID_ATTN
                   if causal and sq == skv] + list(BWD_F32)
     for b, hq, hkv, s, d, window in bwd_shapes:
@@ -300,16 +356,26 @@ def main(argv: list[str]) -> int:
                           window, exp, exp64, simt))
     cases["float32 backward"] = bwd_cases
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
     def run_bwd(lib, q, k, v, out, dout, lse, window):
         grads = [torch.empty_like(t) for t in (q, k, v)]
         delta = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
         b, hq, s, d = q.shape
+        hkv = k.shape[1]
+        # d 256's head groups, as the port's launch_bwd picks them
+        groups = (fa_kernel.dkv_groups(hq, hkv, b, s, sms,
+                                       fa_kernel.BWD_TF32_KEY_BLOCK)
+                  if d > 128 else 1)
+        part = (torch.empty((2, b, groups, hkv, s, d), dtype=torch.float32,
+                            device=dev) if groups > 1 else None)
         lib.call("bind_flash_attention_bwd_f32_lse",
                  *(t.data_ptr() for t in (q, k, v, out, dout, *grads, lse,
                                           delta)),
-                 b, hq, k.shape[1], s, k.shape[2], d, d ** -0.5, 1,
+                 None if part is None else part.data_ptr(),
+                 b, hq, hkv, s, k.shape[2], d, d ** -0.5, 1,
                  int(window is not None), 0 if window is None else window,
-                 stream)
+                 groups, stream)
         torch.cuda.synchronize()
         return grads
 
