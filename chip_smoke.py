@@ -24,13 +24,24 @@ Phases, each on its own lines; any failure raises and exits non-zero:
 3. the GEMM kernel against its plain PyTorch version on the card on every
    route (``kernels/gemm/ops.py`` ``route``, checked against the route the
    built launcher takes): at the main path's leaf shape 1024^3 in float32
-   (CUDA cores), bfloat16 (``wgmma``) and float64 (DMMA), at the ragged
-   shapes (130, 70, 260), (1, 128, 1) and (130, 72, 264), in float16 (the
-   CUDA cores) at the ragged ones, and on views at an odd element offset
-   (bfloat16 on the CUDA cores), for ``matmul`` and ``matmul_accumulate``,
-   the route printed beside each result and the launches by route after; at 1024^3 the kernel's time beside the plain
-   version's, ``torch.matmul``'s (``torch.addmm``'s for the accumulate) as
-   a yardstick the port never calls, and the card's bound;
+   (``f32_3xtf32``: the TF32 tensor cores, three products), bfloat16
+   (``wgmma``) and float64 (DMMA), at the ragged shapes (130, 70, 260),
+   (1, 128, 1) and (130, 72, 264), in float16 (the CUDA cores) at the
+   ragged ones, and on views at an odd element offset (float32 and
+   bfloat16 on the CUDA cores), for ``matmul`` and ``matmul_accumulate``,
+   the route printed beside each result and the launches by route after;
+   every ``f32_3xtf32`` output (1024^3, K 8192, the aligned ragged shapes
+   of ``TF32_SHAPES``) also against a float64 product: its largest error
+   at most ``TF32_VS_SIMT`` times ``f32_simt``'s on the same values
+   (copies at an odd offset), and two calls bit for bit (at K 4,
+   ``TF32_TINY``, the float64 errors printed only); with NaNs and
+   infinities among the inputs (``NON_FINITE``), NaN, +inf and -inf
+   exactly where ``torch.matmul``'s are, on both float32 routes; the SASS
+   of both 3xTF32 kernels holds TF32 HGMMA and they do not spill; at
+   1024^3 the kernel's time beside the plain version's,
+   ``torch.matmul``'s (``torch.addmm``'s for the accumulate) as a
+   yardstick the port never calls, the card's bound and, in float32,
+   ``f32_simt``'s on the same values;
 4. the chain kernels on the card: ``chain_ewise`` (``scan_step``) bit for
    bit against its plain version (a per-level PyTorch loop of ``a * y +
    x``) in float32, bfloat16 and float64 over every layout (the carry at
@@ -100,9 +111,10 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    kernels;
 5. Listing 1 (``run_distributed_gemm``) at n=8192, ib=1024, float32, a
    2x2 grid of simulated ranks on the one card, cold then warm: 512 kernel
-   launches and a relative error <= 1e-4 against a float64 product;
+   launches, all ``f32_3xtf32`` (the profile: 512 ``gemm_tf32_kernel``),
+   and a relative error <= 1e-4 against a float64 product;
 6. Strassen (``gemm_strassen``) on the same 8x8 grid of 1024 tiles: 343
-   kernel launches and a relative error <= 1e-3;
+   kernel launches, all ``f32_3xtf32``, and a relative error <= 1e-3;
 7. the chain path through the engine, ``LocalExecutor(1, mode="plan",
    backend=MeshBackend(pallas=True))``, cold then warm: a 64-level
    ``scan_step`` chain on a 1024^2 float32 carry with ``x`` the same every
@@ -117,7 +129,7 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    ``hierarchical``), cold then warm: C bit for bit serial's, the stats
    and transfer stream equal, every tensor ship lowered to ``ppermute``
    rounds (``ships_lowered`` = the ships, none simulated, three copies
-   each), 512 ``f32_simt`` launches and no body expression, every
+   each), 512 ``f32_3xtf32`` launches and no body expression, every
    destination shard of the cold run storage of its own with the
    payload's bits, the memory back; the ships, copies and bytes an
    iteration, the warm wall beside serial's, and the profile (the GEMMs
@@ -134,10 +146,11 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    ``backend="threads"``, cold then warm: C bitwise equal to the serial
    run's, the same transfer stream, 512 and 343 GEMM launches; then the
    reference's bar for ``threads`` (``benchmarks/bench_dag_overhead.py``:
-   threads >= 0.9x serial) on both, as the best of 20 interleaved warm
-   rounds of each (the side that goes first alternating, each run after a
-   ``gc.collect()``); the tensor bodies on operands their kernels do not
-   take (int32 and mixed-dtype ``gemm_tile`` and ``_t_gemm_acc``, 3-D and
+   threads >= 0.9x serial) on both, as the best of THREADS_ROUNDS
+   interleaved warm rounds of each (the side that goes first alternating,
+   each run after a ``gc.collect()``); the tensor bodies on operands their
+   kernels do not take (int32 and mixed-dtype ``gemm_tile`` and
+   ``_t_gemm_acc``, 3-D and
    float16 ``attn_step``): no kernel launch, one call of the body
    expression, its result the reference's; every other run of 4b-8
    counts the body expressions too (``accumulate_body.calls``,
@@ -154,7 +167,7 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    into fresh C tiles in one workflow (cold; re-shipped once A's and B's
    replicas settle; warm), against the same program on ``serial``: C bit
    for bit every iteration, the transfer stream and the stats equal, 512
-   ``f32_simt`` launches an iteration summed over the workers (a probe op,
+   ``f32_3xtf32`` launches an iteration summed over the workers (a probe op,
    :func:`worker_probe`, reads and resets each worker's counters), four
    distinct worker processes with a CUDA context and no ``jax`` or
    ``repro`` loaded, the warm iteration one "run" message a worker, no
@@ -411,7 +424,7 @@ SEED = 0
 # the serving phase: bench_serving.py's full shape (sessions, steps), each
 # step one GEMM (a Listing 1 tile), one chain_attn level and a decode step
 SERVE_SESSIONS, SERVE_STEPS = 8, 6
-SERVE_KERNELS = {"gemm_simt_kernel": SERVE_SESSIONS * SERVE_STEPS,
+SERVE_KERNELS = {"gemm_tf32_kernel": SERVE_SESSIONS * SERVE_STEPS,
                  "chain_attn_kernel": SERVE_SESSIONS * SERVE_STEPS}
 # the MapReduce phase: 2^26 uniform 31-bit int64 (512 MiB) on the card, the
 # example's 2,000,000 on the host
@@ -420,10 +433,21 @@ SORT_HOST_N = 2_000_000
 SORT_NODES = (1, 4, 8)
 # rounds of the threads-vs-serial bar (phase 8): both sides run the same
 # serial loop on card operands, so the best of each must sample past the
-# host's noise (a one-card machine shares its host's cores)
-THREADS_ROUNDS = 40
+# host's noise (a one-card machine shares its host's cores); 80 since the
+# 3xTF32 GEMM left Listing 1 host-bound (best of 40: serial 0.0443 s,
+# threads 0.0493 in one run on an H100, where the threads backend adds
+# only a pass over the plan's inputs to the same serial loop)
+THREADS_ROUNDS = 80
 # the GEMM's kernels, one per tile loop (kernels/gemm/csrc/gemm.cu)
-GEMM_KERNELS = ("gemm_simt_kernel", "gemm_wgmma_kernel", "gemm_dmma_kernel")
+GEMM_KERNELS = ("gemm_simt_kernel", "gemm_wgmma_kernel", "gemm_dmma_kernel",
+                "gemm_tf32_kernel")
+# the route and kernel of every float32 GEMM on the main path (Listing 1,
+# Strassen, procs, the armed mesh, served gemm_tile, gemm_tile chains):
+# aligned 1024^2 tiles take the tensor cores in 3xTF32, never f32_simt
+F32_ROUTE = "f32_3xtf32"
+F32_KERNEL = "gemm_tf32_kernel"
+# the 3xTF32 GEMM's tensor-core instruction in the SASS
+TF32_HGMMA = "HGMMA.64x64x8.F32.TF32"
 
 # flash attention: the reference's cases (tests/test_kernels.py:75-82,
 # padded with bq = bkv = 16) as (B, Hq, Hkv, Sq, Skv, D, causal, window)
@@ -505,6 +529,29 @@ TF32_PRODUCTS = 3
 # f32_3xtf32's largest error against a float64 computation, at most this
 # many times f32_simt's on the same inputs
 TF32_VS_SIMT = 4.0
+# (m, k, n) of the GEMM's f32_3xtf32 checks against float64 past the leaf:
+# K 8192 (DOT_LEVELS levels of 1024 in one sum), ragged M and N, K % 8 ==
+# 4 (a last k8 step of 4), a single row
+TF32_SHAPES = ((1024, 8192, 1024), (130, 72, 264), (130, 68, 260),
+               (200, 1028, 132), (1, 1024, 68))
+# shapes held to the plain version and to themselves (two calls), whose
+# float64 errors are printed but not held to TF32_VS_SIMT: at K 4 either
+# route's error is a float32 ulp or two on four values (3xTF32's floor is
+# its dropped lo.lo term, 2^-22 relative, which a chain of 4 IEEE FMAs
+# can beat by luck: 2.3e-7 against 2.0e-8 on an H100), so the ratio of
+# the two maxima measures nothing
+TF32_TINY = ((1, 4, 4), (64, 4, 64))
+# (operand, element, float32 bits) of the GEMM's non-finite check: NaNs
+# (CUDA's canonical one, its negative, torch's and its negative) and
+# infinities of both signs, two of them in row 9 of a.  A signalling NaN
+# with nothing in its top 10 mantissa bits is left out: TF32 keeps only
+# those bits, so f32_3xtf32 reads it as +-inf
+NON_FINITE = (("a", (3, 5), 0x7FFFFFFF), ("a", (100, 700), -1),
+              ("a", (500, 0), 0x7FC00000), ("a", (7, 1023), 0x7F800000),
+              ("a", (8, 40), -0x800000), ("a", (9, 41), 0x7F800000),
+              ("a", (9, 42), 0x7F800000), ("b", (9, 200), -0x800000),
+              ("b", (600, 64), 0x7F800000), ("b", (1000, 1000), -0x400000),
+              ("b", (1023, 500), -0x800000))
 # kernel vs plain version: (rtol, atol) per dtype.  float32 and bfloat16 are
 # the reference's GEMM contract (tests/test_kernels.py); the two versions sum
 # in different orders.  float64 sums of 1024 unit-variance products carry
@@ -721,7 +768,7 @@ def visible_pairs(s: int, window) -> int:
     return window * (window + 1) // 2 + (s - window) * window
 
 
-# spin kernels that close every profiled window (device_profile)
+# spin kernels that open and close every profiled window (device_profile)
 PROFILE_PAD = 64
 
 
@@ -742,15 +789,21 @@ def device_profile(torch, label: str, run, wall_s: float,
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-            # a tail of spin kernels (PROFILE_PAD, left out of every number
-            # below) and a pause before the trace closes: traces of a run
-            # with one or two kernels came back empty now and then
-            for _ in range(PROFILE_PAD):
-                torch.cuda._sleep(1)
-            torch.cuda.synchronize()
-            time.sleep(0.02)
+            # spin kernels (PROFILE_PAD, left out of every number below)
+            # and a pause on both sides of the run: traces of a run of a
+            # millisecond with one or two kernels came back empty now and
+            # then, with a tail alone too (every attempt of one process)
+            for pad in ("head", "tail"):
+                if pad == "tail":
+                    run()
+                    torch.cuda.synchronize()
+                for _ in range(PROFILE_PAD):
+                    torch.cuda._sleep(1)
+                torch.cuda.synchronize()
+                time.sleep(0.02)
+        spins = sum(e.count for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and "spin_kernel" in e.key)
         kernels = sorted(
             ((e.self_device_time_total / 1e3, e.count, e.key)
              for e in prof.key_averages()
@@ -767,8 +820,9 @@ def device_profile(torch, label: str, run, wall_s: float,
         # whose result was right): trace the run again; the checks below
         # fail if no trace shows exactly the counted launches
         print(f"[profile] {label}: the trace shows {seen} among "
-              f"{sum(n for _ms, n, _k in kernels)} kernel launches, "
-              f"expected {expect} (attempt {attempt + 1} of {attempts})")
+              f"{sum(n for _ms, n, _k in kernels)} kernel launches and "
+              f"{spins} of the {2 * PROFILE_PAD} spin kernels, expected "
+              f"{expect} (attempt {attempt + 1} of {attempts})")
     for ms, cnt, key in kernels[:6]:
         print(f"[profile] {label}:   {ms:9.3f} ms {cnt:5d}x {key[:90]}")
     total = sum(ms for ms, _n, _k in kernels)
@@ -3090,7 +3144,7 @@ def procs_phase(torch, dev, bind, A, B, card, same_bits, zero_counts,
     """``[procs]``: Listing 1 at n = N_LISTING, ib = IB, float32, 2 x 2
     ranks on ``backend="procs"``: one spawned worker process per rank,
     each with its own CUDA context on the card, every leaf product the
-    hand-written GEMM (``f32_simt``) inside a worker.  PROCS_ITERS
+    hand-written GEMM (``f32_3xtf32``) inside a worker.  PROCS_ITERS
     iterations in one workflow (cold; re-shipped once A's and B's replicas
     settle; warm, one "run" message a worker) against the same program on
     ``serial``: C of each iteration bit for bit, the transfer stream and
@@ -3130,9 +3184,9 @@ def procs_phase(torch, dev, bind, A, B, card, same_bits, zero_counts,
         for f in facts:
             for r, n in f["routes"].items():
                 routes[r] = routes.get(r, 0) + n
-        check(launches == want and routes == {"f32_simt": want},
+        check(launches == want and routes == {F32_ROUTE: want},
               f"{label}: {launches} GEMM launches {routes} in the workers, "
-              f"expected {want} on f32_simt")
+              f"expected {want} on {F32_ROUTE}")
         check(sum(f["launches"] for f in sfacts) == want,
               f"{label}: serial made {sum(f['launches'] for f in sfacts)} "
               f"launches")
@@ -3152,7 +3206,7 @@ def procs_phase(torch, dev, bind, A, B, card, same_bits, zero_counts,
         secs = max(f["staged"]["seconds"] for f in facts)
         print(f"{label}: wall {wall:.4f} s ({2 * N_LISTING ** 3 / wall / 1e12:.3f} "
               f"TFLOP/s) against serial's {swall:.4f} s ({wall / swall:.1f}x); "
-              f"{launches} f32_simt launches over worker pids "
+              f"{launches} {F32_ROUTE} launches over worker pids "
               f"{sorted(f['pid'] for f in facts)}; control messages {msgs}; "
               f"staged in the workers {to_dev / 2 ** 30:.3f} GiB "
               f"host->device, {to_host / 2 ** 30:.3f} GiB device->host, "
@@ -4639,7 +4693,7 @@ def mesh_phase(torch, dev, bind, A, B, C_serial, card, same_bits, only,
     the four ranks sharing the card — once per ship schedule, cold then
     warm: C bit for bit ``C_serial``, the stats and transfer stream
     ``serial``'s, every tensor ship lowered (three copies each), 512
-    ``f32_simt`` launches, no body expression, every destination shard of
+    ``f32_3xtf32`` launches, no body expression, every destination shard of
     the cold run storage of its own holding the payload's bits, the memory
     back; the warm run profiled (the GEMMs and the copies apart).  Then
     ``chains`` (label -> (run, wrapper, levels)) through
@@ -4734,7 +4788,7 @@ def mesh_phase(torch, dev, bind, A, B, C_serial, card, same_bits, only,
     found = {}
     device_profile(torch, "listing1 fused (the copies' baseline)",
                    lambda: listing1("fused"), serial_wall,
-                   {"gemm_simt_kernel": leaves}, found)
+                   {F32_KERNEL: leaves}, found)
     own_copies = sum(cnt for _ms, cnt, key in found["kernels"]
                      if "Memcpy DtoD" in key)
     own_ms = sum(ms for ms, _cnt, key in found["kernels"]
@@ -4786,8 +4840,9 @@ def mesh_phase(torch, dev, bind, A, B, C_serial, card, same_bits, only,
                   f"{label}: {mb.ships_lowered} ships lowered, "
                   f"{mb.ships_simulated} simulated, {mesh.copies} copies "
                   f"({ships} ships)")
-            check(routes == {"f32_simt": leaves},
-                  f"{label}: GEMM launches by route {routes}")
+            check(routes == {F32_ROUTE: leaves},
+                  f"{label}: GEMM launches by route {routes}, expected "
+                  f"{leaves} on {F32_ROUTE}")
             only(label, got, "gemm.matmul", leaves)
             if phase == "cold":
                 check(checked[0] == ships, f"{label}: {checked[0]} "
@@ -4809,7 +4864,7 @@ def mesh_phase(torch, dev, bind, A, B, C_serial, card, same_bits, only,
         n_copies = (MESH_RANKS - 1) * ships
         busy = device_profile(
             torch, label, run, walls["warm"],
-            {"gemm_simt_kernel": leaves,
+            {F32_KERNEL: leaves,
              "Memcpy DtoD": own_copies + n_copies}, found)
         # the ppermute copies' time: the copies' time less fused's own
         copy_ms = found["Memcpy DtoD"][0] - own_ms
@@ -4821,7 +4876,7 @@ def mesh_phase(torch, dev, bind, A, B, C_serial, card, same_bits, only,
         each_s = copy_ms / n_copies / 1e3
         rate = 2 * IB * IB * 4 / each_s / 1e12
         print(f"[mesh] {label}: device time {found['total']:.3f} ms, of it "
-              f"the GEMMs {found['gemm_simt_kernel'][0]:.3f} ms, the "
+              f"the GEMMs {found[F32_KERNEL][0]:.3f} ms, the "
               f"{n_copies} ppermute copies {copy_ms:.3f} ms "
               f"({each_s * 1e6:.2f} us each, {rate:.3f} TB/s read + "
               f"written) and the fills {fill_ms:.3f} ms (the "
@@ -4854,6 +4909,11 @@ def mesh_phase(torch, dev, bind, A, B, C_serial, card, same_bits, only,
                   f"dispatches, {mb.ops_pallas} ops, expected 1 and "
                   f"{levels}")
             only(f"mesh {label}", got, wrapper, 1)
+            if wrapper == "chain.dot":
+                routes = dict(importlib.import_module(
+                    "repro_torch.kernels.chain.ops").chain_dot.routes)
+                check(routes == {F32_ROUTE: 1}, f"mesh {label}: chain_dot "
+                      f"by route {routes}, expected {F32_ROUTE}")
 
         _kept, got, _walls = measured(f"mesh {label}", mesh_run, describe)
         chain_launches[wrapper] = got[wrapper]
@@ -4996,7 +5056,9 @@ def main() -> int:
                 check(not (("attention_bwd" in kernel_name
                             and ("wgmma" in kernel_name
                                  or "tf32" in kernel_name))
-                           or "flash_attention_tf32" in kernel_name)
+                           or "flash_attention_tf32" in kernel_name
+                           or "gemm_tf32_kernel" in kernel_name
+                           or "chain_dot_tf32_kernel" in kernel_name)
                       or spill.startswith("0 bytes stack frame, 0 bytes "
                                           "spill stores"),
                       f"{kernel_name}: spills ({spill})")
@@ -5013,12 +5075,16 @@ def main() -> int:
                   f"a stack frame or spills")
 
     # the tensor-core routes really issue tensor-core instructions: wgmma
-    # is HGMMA in the SASS, the f64 MMA DMMA
+    # is HGMMA in the SASS (on TF32 operands for the 3xTF32 GEMM), the f64
+    # MMA DMMA
     cuobjdump = Path(kernel.nvcc()).parent / "cuobjdump"
     for lib_path, wants in ((built[0][0], {"gemm_wgmma_kernel": "HGMMA",
-                                           "gemm_dmma_kernel": "DMMA"}),
+                                           "gemm_dmma_kernel": "DMMA",
+                                           "gemm_tf32_kernel": TF32_HGMMA}),
                             (built[1][0], {"chain_dot_wgmma_kernel": "HGMMA",
-                                           "chain_dot_dmma_kernel": "DMMA"}),
+                                           "chain_dot_dmma_kernel": "DMMA",
+                                           "chain_dot_tf32_kernel":
+                                           TF32_HGMMA}),
                             (built[2][0], {"flash_attention_wgmma_kernel":
                                            "HGMMA",
                                            "flash_attention_tf32_kernel":
@@ -5107,6 +5173,71 @@ def main() -> int:
               f"ops.route says {want}")
         return want
 
+    def f32_vs_simt(name, call, route, exact, a, b, limit=True,
+                    tag="gemm"):
+        """``call(a, b)`` of float32 ``a``, ``b`` on ``f32_3xtf32`` (the
+        route ``route(a, b)`` names), against ``exact`` (float64) beside
+        ``f32_simt``'s error on the same values (``call`` of copies one
+        element into their storage, which 16-byte loads cannot read): at
+        most TF32_VS_SIMT times it (printed only without ``limit``); two
+        calls bit for bit.  Returns the output, both errors and the
+        odd-offset copies."""
+        check(route(a, b) == F32_ROUTE, f"{name}: takes {route(a, b)}, "
+              f"expected {F32_ROUTE}")
+        got = call(a, b)
+        again = call(a, b)
+        odd = (odd_offset(a), odd_offset(b))
+        check(route(*odd) == "f32_simt",
+              f"{name}: the odd-offset copies take {route(*odd)}")
+        simt = call(*odd)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{name}: two calls differ")
+        err = (got.double() - exact).abs().max().item()
+        base = (simt.double() - exact).abs().max().item()
+        check(not limit or err <= TF32_VS_SIMT * base, f"{name}: against "
+              f"float64 {err:.3e}, {err / max(base, 1e-30):.2f} x "
+              f"f32_simt's {base:.3e} (limit {TF32_VS_SIMT})")
+        held = f"limit {TF32_VS_SIMT}" if limit else "not held: K 4"
+        print(f"[{tag}]   {name} against float64: {err:.3e}, f32_simt "
+              f"{base:.3e} on the same values ({err / max(base, 1e-30):.2f}"
+              f" x, {held}); two calls bit for bit")
+        return got, err, base, odd
+
+    def gemm_f32(fn, a, b, c=None):
+        """``fn`` (``ops.matmul`` or ``ops.matmul_accumulate``) as the
+        ``call``, ``route`` and ``exact`` of f32_vs_simt and f32_numbers."""
+        exact = a.double() @ b.double()
+        if c is not None:
+            exact += c.double()
+        lead = () if c is None else (c,)
+        return (lambda x, y: fn(*lead, x, y)), gemm_route, exact
+
+    def f32_numbers(name, call, route, exact, a, b, ms, flops, nbytes,
+                    tag="gemm", iters=20):
+        """The float32 leaf's extra numbers: float64 errors of both routes
+        (f32_vs_simt), f32_simt's time on the same values (must be above
+        the kernel's) and bound at 67 TFLOP/s; the route's own bound at
+        three TF32 products.  The kernel (first timed as ``ms``) and
+        f32_simt are timed in the order kernel, f32_simt, f32_simt, kernel
+        and each keeps its better time: the card's first timings of the
+        script read up to 3x slow."""
+        _got, err, base, odd = f32_vs_simt(name, call, route, exact, a, b,
+                                           tag=tag)
+        simt_ms = min(time_ms(torch, lambda: call(*odd), iters)
+                      for _ in range(2))
+        ms = min(ms, time_ms(torch, lambda: call(a, b), iters))
+        simt_bnd, _ = bound_ms(nbytes, flops, "float32")
+        bnd, by = bound_ms(nbytes, TF32_PRODUCTS * flops, "tf32")
+        check(ms < simt_ms, f"{name}: f32_3xtf32 {ms:.4f} ms is not below "
+              f"f32_simt's {simt_ms:.4f} on the same values")
+        print(f"[{tag}]   {name}: f32_simt on the same values {simt_ms:.4f} "
+              f"ms (bound {simt_bnd:.4f} ms at 67 TFLOP/s), f32_3xtf32 "
+              f"{simt_ms / ms:.2f}x faster; f32_3xtf32's bound "
+              f"{bnd:.4f} ms at three TF32 products ({bnd / ms:.3f} of it)")
+        return dict(ms=ms, bound_ms=bnd, bound_by=by, simt_ms=simt_ms,
+                    simt_bound_ms=simt_bnd, err64=err, simt_err64=base,
+                    vs_simt=err / max(base, 1e-30))
+
     leaf = {}
     for dname, dt in dtypes.items():
         a, b = rand((IB, IB), dt), rand((IB, IB), dt)
@@ -5117,13 +5248,21 @@ def main() -> int:
         plain = time_ms(torch, lambda: ref.matmul(a, b))
         lib = time_ms(torch, lambda: torch.matmul(a, b))
         flops = 2 * IB ** 3
-        bnd, by = bound_ms(3 * IB * IB * a.element_size(), flops, dname)
+        nbytes = 3 * IB * IB * a.element_size()
+        bnd, by = bound_ms(nbytes, flops, dname)
+        extra = (f32_numbers(f"matmul {IB}^3 float32",
+                             *gemm_f32(ops.matmul, a, b), a, b, ms, flops,
+                             nbytes)
+                 if dt == torch.float32 else {})
+        ms = extra.pop("ms", ms)
+        bnd, by = extra.get("bound_ms", bnd), extra.get("bound_by", by)
         print(f"[gemm] matmul {IB}^3 {dname} [{path}]: kernel {ms:.4f} ms "
               f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms, "
               f"torch.matmul {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
         leaf[("matmul", dname)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                       bound_ms=bnd, bound_by=by,
-                                       library_ms=lib, gemm_route=path)
+                                       library_ms=lib, gemm_route=path,
+                                       **{"bound_ms": bnd, "bound_by": by,
+                                          **extra})
     for dname, dt in dtypes.items():
         c, a, b = rand((IB, IB), dt), rand((IB, IB), dt), rand((IB, IB), dt)
         path = gemm_route(a, b)
@@ -5134,14 +5273,80 @@ def main() -> int:
         plain = time_ms(torch, lambda: ref.matmul_accumulate(c, a, b))
         lib = time_ms(torch, lambda: torch.addmm(c, a, b))
         flops = 2 * IB ** 3 + IB * IB
-        bnd, by = bound_ms(4 * IB * IB * a.element_size(), flops, dname)
+        nbytes = 4 * IB * IB * a.element_size()
+        bnd, by = bound_ms(nbytes, flops, dname)
+        extra = (f32_numbers(f"matmul_accumulate {IB}^3 float32",
+                             *gemm_f32(ops.matmul_accumulate, a, b, c), a,
+                             b, ms, flops, nbytes)
+                 if dt == torch.float32 else {})
+        ms = extra.pop("ms", ms)
+        bnd, by = extra.get("bound_ms", bnd), extra.get("bound_by", by)
         print(f"[gemm] matmul_accumulate {IB}^3 {dname} [{path}]: kernel "
               f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
               f"{plain:.4f} ms, torch.addmm {lib:.4f} ms, bound {bnd:.4f} ms "
               f"({by})")
         leaf[("matmul_accumulate", dname)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-            bound_by=by, library_ms=lib, gemm_route=path)
+            max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+            gemm_route=path, **{"bound_ms": bnd, "bound_by": by, **extra})
+    # f32_3xtf32 against float64 beyond the leaf: K 8192 (a chain_dot's
+    # eight levels in one sum), aligned ragged M and N, a last k8 step of
+    # 4 (K % 8 == 4), a single row; inputs from a generator of their own,
+    # so every later check draws what it drew before
+    tf32_gen = torch.Generator(device=dev)
+    tf32_gen.manual_seed(SEED)
+    for m, k, n in TF32_SHAPES + TF32_TINY:
+        a = torch.randn((m, k), generator=tf32_gen, device=dev)
+        b = torch.randn((k, n), generator=tf32_gen, device=dev)
+        c = torch.randn((m, n), generator=tf32_gen, device=dev)
+        for name, fn, cc in (("matmul", ops.matmul, None),
+                             ("matmul_accumulate", ops.matmul_accumulate, c)):
+            label = f"{name} ({m},{k},{n}) float32 [{F32_ROUTE}]"
+            got, _err, _base, _odd = f32_vs_simt(
+                label, *gemm_f32(fn, a, b, cc), a, b,
+                limit=(m, k, n) not in TF32_TINY)
+            compare(label, got, ref.matmul(a, b) if cc is None
+                    else ref.matmul_accumulate(cc, a, b), "float32")
+        del a, b, c
+    # non-finite inputs: NaNs (CUDA's canonical 0x7FFFFFFF, its negative,
+    # torch's 0x7FC00000 and its negative) and infinities of both signs in
+    # a and b, two infinities in one row, -inf meeting a zero.
+    # f32_3xtf32 (and f32_simt on odd-offset copies) must give NaN, +inf
+    # and -inf exactly where torch.matmul's IEEE product (torch.addmm's)
+    # has them
+    a = torch.randn((IB, IB), generator=tf32_gen, device=dev)
+    b = torch.randn((IB, IB), generator=tf32_gen, device=dev)
+    c = torch.randn((IB, IB), generator=tf32_gen, device=dev)
+    for x, at, word in NON_FINITE:
+        (a if x == "a" else b).view(torch.int32)[at] = word
+    b[40, 11] = 0.0
+
+    def non_finite(x):
+        return torch.isnan(x), torch.isposinf(x), torch.isneginf(x)
+
+    for name, fn, cc, lib in (
+            ("matmul", ops.matmul, None, torch.matmul(a, b)),
+            ("matmul_accumulate", ops.matmul_accumulate, c,
+             torch.addmm(c, a, b))):
+        lead = () if cc is None else (cc,)
+        check(gemm_route(a, b) == F32_ROUTE, f"{name} with NaN and inf: "
+              f"takes {gemm_route(a, b)}")
+        want = non_finite(lib)
+        counts = [int(w.sum()) for w in want]
+        check(all(counts), f"{name} with NaN and inf: torch's NaN, +inf, "
+              f"-inf counts {counts}")
+        for route_name, got in (
+                (F32_ROUTE, fn(*lead, a, b)),
+                ("f32_simt", fn(*lead, odd_offset(a), odd_offset(b)))):
+            have = non_finite(got)
+            check(all(torch.equal(h, w) for h, w in zip(have, want)),
+                  f"{name} {IB}^3 float32 [{route_name}] with NaN and inf "
+                  f"inputs: NaN, +inf, -inf counts "
+                  f"{[int(h.sum()) for h in have]} not where torch's "
+                  f"{counts} are")
+        print(f"[gemm] {name} {IB}^3 float32 with NaN and inf inputs: NaN, "
+              f"+inf, -inf outputs {counts} on {F32_ROUTE} and f32_simt, "
+              f"exactly where torch's are")
+    del a, b, c, lib
     # the ragged edge on every route; (130, 72, 264) is ragged but TMA can
     # read it in bfloat16 (the tensor-core route), the others are not
     for m, k, n in ((130, 70, 260), (1, 128, 1), (130, 72, 264)):
@@ -5500,6 +5705,19 @@ def main() -> int:
         flops = L * (2 * IB ** 3 + IB * IB)
         nbytes = (2 * IB * IB + A.numel() + B.numel()) * c.element_size()
         bnd, by = bound_ms(nbytes, flops, dname)
+        extra = {}
+        if path == F32_ROUTE:
+            # f32_simt's chain on the same values (copies at an odd
+            # offset): its time, and both routes against float64
+            extra = f32_numbers(
+                f"chain_dot {IB}^3 x {L} float32",
+                lambda x, y: chain_ops.chain_dot(layout, 0, L, c, x, y),
+                lambda x, y: chain_ops.dot_route(layout, L, c, x, y),
+                c.double() + torch.einsum("lmk,lkn->mn", A.double(),
+                                          B.double()),
+                A, B, ms, flops, nbytes, tag="chain", iters=10)
+            ms, bnd, by = (extra.pop(key)
+                           for key in ("ms", "bound_ms", "bound_by"))
         print(f"[chain] chain_dot {IB}^3 x {L} levels {dname} [{path}]: "
               f"kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
               f"(per-level PyTorch) {plain:.4f} ms, max_abs_err {err:.3e}, "
@@ -5508,7 +5726,7 @@ def main() -> int:
               f"bound {bnd:.4f} ms ({by})")
         chain_times[("dot", dname)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-            bound_by=by, library_ms=lib, gemm_route=path)
+            bound_by=by, library_ms=lib, gemm_route=path, **extra)
         del got, exp, c, A, B, A_cat, B_cat
     print(f"[chain] chain_dot launches by route: {dict(chain_ops.chain_dot.routes)}")
     # every GEMM route but float16's: there is no float16 chain kernel (a
@@ -6262,6 +6480,9 @@ def main() -> int:
             check(bool(torch.isfinite(C).all()), f"{path}: non-finite values")
             check(err <= tol, f"{path}: relative error {err} > {tol}")
             only(path, got, wrapper, want)
+            routes = dict(wrappers[wrapper].routes)
+            check(routes == {F32_ROUTE: want}, f"{path}: {wrapper} launches "
+                  f"by route {routes}, expected {want} on {F32_ROUTE}")
 
         transfers = []
         C, got, walls = measured(
@@ -6269,7 +6490,7 @@ def main() -> int:
             keep=lambda r, t=transfers: t.extend(r[1].transfers) or r[0])
         path_counts[path] = got
         serial_busy[path] = device_profile(torch, path, run, walls["warm"],
-                                           {"gemm_simt_kernel": want})
+                                           {F32_KERNEL: want})
         serial[path] = (C, transfers)
         del C
 
@@ -6328,7 +6549,7 @@ def main() -> int:
         "scan chain, x per level": (lambda b: scan_chain(b, True),
                                     "chain.ewise", L, "chain_ewise_kernel"),
         "gemm_tile chain": (gemm_chain, "chain.dot", DOT_LEVELS,
-                            "chain_dot_simt_kernel"),
+                            "chain_dot_tf32_kernel"),
         "attn_step chain": (attn_chain, "chain.attn", ATTN_LEVELS,
                             "chain_attn_kernel"),
     }
@@ -6360,6 +6581,10 @@ def main() -> int:
                   f"{label}: {mb.pallas_chains_dispatched} chain dispatches, "
                   f"{mb.ops_pallas} ops, expected 1 and {levels}")
             only(label, got, wrapper, 1)
+            if wrapper == "chain.dot":
+                check(chain_ops.chain_dot.routes == {F32_ROUTE: 1},
+                      f"{label}: chain_dot by route "
+                      f"{chain_ops.chain_dot.routes}, expected {F32_ROUTE}")
 
         def mesh_run(run=run):
             return run(bind.MeshBackend(pallas=True))
@@ -6416,10 +6641,14 @@ def main() -> int:
                 check(list(stats.transfers) == transfers,
                       f"{label}: transfer stream differs from serial")
                 only(label, got, wrapper, want)
+                routes = dict(wrappers[wrapper].routes)
+                check(routes == {F32_ROUTE: want}, f"{label}: {wrapper} "
+                      f"launches by route {routes}, expected {want} on "
+                      f"{F32_ROUTE}")
 
             _kept, got, walls = measured(label, traced, describe)
             busy = device_profile(torch, label, traced, walls["warm"],
-                                  {"gemm_simt_kernel": want})
+                                  {F32_KERNEL: want})
             print(f"[{label}] walls cold {walls['cold']:.4f} s warm "
                   f"{walls['warm']:.4f} s, busy {busy:.1f}%")
     # the reference's bar (benchmarks/bench_dag_overhead.py): threads at
@@ -6649,6 +6878,10 @@ def main() -> int:
                       f"{label}: launches {launched}, expected "
                       f"{n_kernel_steps} GEMM and {n_kernel_steps} chain_attn "
                       f"launches, no other kernel and no body expression")
+                routes = dict(ops.matmul_accumulate.routes)
+                check(routes == {F32_ROUTE: n_kernel_steps}, f"{label}: "
+                      f"GEMM launches by route {routes}, expected "
+                      f"{n_kernel_steps} on {F32_ROUTE}")
                 check(m.requests_completed == n_requests
                       and m.requests_failed == 0,
                       f"{label}: {m.requests_completed} requests completed, "

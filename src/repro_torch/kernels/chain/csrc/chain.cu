@@ -48,11 +48,13 @@
 //   * chain_dot, for kernels/gemm/ops.py gemm_tile (c <- c + a @ b): the
 //     hand-written GEMM with a level loop outside its K loop.  It takes the
 //     GEMM's route for the dtype and alignment (gemm_routes.cuh: f32 on the
-//     CUDA cores, bf16 on the tensor cores with wgmma and TMA or, when TMA
-//     cannot read the operands, on the CUDA cores, f64 on the f64 tensor
-//     cores) and runs its tile loop with the levels as one stream of K
-//     panels.  Each block owns an output tile for the whole chain; per
-//     level it sums that level's A and B ("single" or "xs") over K from 0,
+//     TF32 tensor cores in 3xTF32 when 16-byte loads can read the operands
+//     and on the CUDA cores otherwise, bf16 on the tensor cores with wgmma
+//     and TMA or, when TMA cannot read the operands, on the CUDA cores, f64
+//     on the f64 tensor cores) and runs its tile loop with the levels as
+//     one stream of K panels.  Each block owns an output tile for the
+//     whole chain; per level it sums that level's A and B ("single" or
+//     "xs") over K from 0,
 //     adds the carry in the accumulator type and rounds to the carry's
 //     type, as per-level matmul_accumulate does.  The carry stays in
 //     registers on the CUDA-core route; on the tensor-core routes, whose
@@ -61,7 +63,9 @@
 //     at the next).  Per-level replay launches the same tile
 //     loop with one level, so the two are bitwise equal in every dtype.
 //     Bound on an H100: operations; 8 levels of 1024^3 f32 are 17.2 GFLOP,
-//     0.256 ms at the 67 TFLOP/s f32 rate outside the tensor cores.
+//     0.104 ms as three TF32 products at 495 TFLOP/s (0.256 ms at the 67
+//     TFLOP/s f32 rate outside the tensor cores, which a misaligned chain
+//     takes).
 //
 //   * chain_attn, for kernels/flash_attention/ops.py attn_step (o <- o +
 //     softmax(q k^T / sqrt(d)) v): the flash-attention tile loop
@@ -461,6 +465,12 @@ chain_dot_dmma_kernel(const Problem<double> p) {
   dmma_tile(p, dm_smem);
 }
 
+__global__ void __launch_bounds__(TF_THREADS)
+chain_dot_tf32_kernel(const Problem<float> p) {
+  extern __shared__ __align__(1024) unsigned char tf_smem[];
+  tf32_tile(p, tf_smem);
+}
+
 template <typename T>
 int launch_dot(const void* c, const void* a, int64_t a_stride, const void* b,
                int64_t b_stride, void* out, int64_t M, int64_t N, int64_t K,
@@ -472,11 +482,13 @@ int launch_dot(const void* c, const void* a, int64_t a_stride, const void* b,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if constexpr (std::is_same_v<T, double>)   // no CUDA-core route for f64
     return static_cast<int>(launch(p, st, nullptr, chain_dot_wgmma_kernel,
-                                   chain_dot_dmma_kernel));
+                                   chain_dot_dmma_kernel,
+                                   chain_dot_tf32_kernel));
   else
     return static_cast<int>(launch(p, st, chain_dot_simt_kernel<T>,
                                    chain_dot_wgmma_kernel,
-                                   chain_dot_dmma_kernel));
+                                   chain_dot_dmma_kernel,
+                                   chain_dot_tf32_kernel));
 }
 
 // ----------------------------------------------------------------- attn --

@@ -8,10 +8,12 @@
 // The TF32 tensor cores run 495 TFLOP/s, but one TF32 product keeps about
 // three decimal digits, two orders of magnitude outside the reference's
 // float32 tolerance (2e-5).  3xTF32 keeps float32's accuracy: every operand
-// x is split into hi = tf32(x) (cvt.rna) and lo = tf32(x - hi), so x = hi +
-// lo to 2^-22 relative, and a product is hi.hi + hi.lo + lo.hi (the lo.lo
-// term is below 2^-22 of it), each a TF32 wgmma accumulated in fp32.  Three
-// products at 495 TFLOP/s bound the Qwen3-14B call at 4.17 ms.
+// x is split into hi = tf32(x) and lo = tf32(x - hi) (tf32_rna of
+// ../../gemm/csrc/tf32.cuh, cvt.rna, which the GEMM shares), so
+// x = hi + lo to 2^-22 relative, and a product is hi.hi + hi.lo + lo.hi
+// (the lo.lo term is below 2^-22 of it), each a TF32 wgmma accumulated in
+// fp32.  Three products at 495 TFLOP/s bound the Qwen3-14B call at
+// 4.17 ms.
 //
 // Layout.  TF32 wgmma reads both operands K-major from shared memory (no
 // transposed form, unlike bf16), or A from registers:
@@ -108,6 +110,7 @@
 #include <cuda_runtime.h>
 
 #include "../../gemm/csrc/gemm_wgmma.cuh"
+#include "../../gemm/csrc/tf32.cuh"
 #include "attn_tile.cuh"
 
 namespace bind_attn_tf {
@@ -118,6 +121,9 @@ using bind_gemm::wg_commit;
 using bind_gemm::wg_desc;
 using bind_gemm::wg_fence;
 using bind_gemm::wg_wait_all;
+using bind_tf32::fence_async_shared;
+using bind_tf32::pin;
+using bind_tf32::tf32_rna;
 
 constexpr int BQ = 128;                 // query rows per block
 constexpr int THREADS = 256;            // two warpgroups of 64 rows
@@ -168,22 +174,6 @@ struct Shape {
 };
 
 // ---- PTX wrappers -----------------------------------------------------------
-
-__device__ __forceinline__ float tf32_rna(float x) {
-  uint32_t y;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
-  return __uint_as_float(y);
-}
-
-// the threads' shared-memory stores, visible to the tensor cores' reads
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-template <int N> __device__ __forceinline__ void pin(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 #define BIND_TF_D8(o)                                                     \
   "+f"(d[o + 0]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),          \

@@ -9,7 +9,8 @@ helper, with the CUDA-core tile loop it shares with the chain kernel
 (``csrc/attn_tile.cuh``), the tensor-core loops of the ``bf16_wgmma`` route
 (``csrc/attn_wgmma.cuh``) and of the ``f32_3xtf32`` route
 (``csrc/attn_tf32.cuh``), and the GEMM headers they draw on (conversions,
-the TMA and ``wgmma`` helpers).  Nothing here runs at import time.
+the TMA and ``wgmma`` helpers, the TF32 rounding).  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ HEADERS = (_HERE / "csrc" / "attn_tile.cuh",
            _HERE / "csrc" / "attn_tf32.cuh",
            _HERE / "csrc" / "attn_tf32_wide.cuh",
            _HERE.parent / "gemm" / "csrc" / "gemm_tile.cuh",
-           _HERE.parent / "gemm" / "csrc" / "gemm_wgmma.cuh")
+           _HERE.parent / "gemm" / "csrc" / "gemm_wgmma.cuh",
+           _HERE.parent / "gemm" / "csrc" / "tf32.cuh")
 
 SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
           torch.float16: "f16"}
@@ -72,7 +74,8 @@ BWD_HEADERS = (_HERE / "csrc" / "attn_bwd_wgmma.cuh",
                _HERE / "csrc" / "attn_wgmma.cuh",
                _HERE / "csrc" / "attn_tile.cuh",
                _HERE.parent / "gemm" / "csrc" / "gemm_tile.cuh",
-               _HERE.parent / "gemm" / "csrc" / "gemm_wgmma.cuh")
+               _HERE.parent / "gemm" / "csrc" / "gemm_wgmma.cuh",
+               _HERE.parent / "gemm" / "csrc" / "tf32.cuh")
 _BWD_ARGS = (_P,) * 10 + (_I64,) * 6 + (_D, _I, _I, _I64, _P)
 # its tensor-core route: (q, k, v, out, dout, dq, dk, dv, lse, delta, part,
 # batch, hq, hkv, sq, skv, d, scale, causal, windowed, window, groups,

@@ -7,14 +7,23 @@
 // over K inside each block, and the accumulator lives in registers instead
 // of VMEM scratch.
 //
-// Each dtype has its own route (gemm_routes.cuh), each a tile loop shared
+// Each dtype has its own routes (gemm_routes.cuh), each a tile loop shared
 // with the chain kernel:
-//   * float32 on the CUDA cores (gemm_tile.cuh): IEEE fp32 FMAs, never
-//     TF32, in a pipelined loop (cp.async ring, 8x4 micro-tile, 16-byte
-//     shared loads).  Bound on an H100: operations, 67 TFLOP/s at the
-//     main path's 1024^3 leaf (2.1 GFLOP against 12 MB, about 180 FLOP per
-//     byte); the loop issues 12 shared loads per 128 FMAs, so FMA issue,
-//     not shared memory, is what it runs into;
+//   * float32 on the TF32 tensor cores in 3xTF32 (gemm_tf32.cuh) when its
+//     operands take 16-byte loads (16-byte-aligned A and B, K and N
+//     multiples of 4): each operand split into a TF32 hi and lo, three
+//     wgmma products a k8 step (hi.hi, hi.lo, lo.hi), each 32-wide K panel
+//     summed from zero in its own accumulators and added to the sum in
+//     registers with IEEE adds.  Bound on an H100: operations, three TF32
+//     products at 495 TFLOP/s, 0.0130 ms at the main path's 1024^3 leaf
+//     (2.1 GFLOP against 12 MB).  Every float32 result of this route is
+//     within a few times the CUDA-core route's error of the exact
+//     product, but no longer that route's bits;
+//   * other float32 on the CUDA cores (gemm_tile.cuh): IEEE fp32 FMAs in
+//     a pipelined loop (cp.async ring, 8x4 micro-tile, 16-byte shared
+//     loads), any shape and alignment.  Bound: operations, 67 TFLOP/s;
+//     the loop issues 12 shared loads per 128 FMAs, so FMA issue, not
+//     shared memory, is what it runs into;
 //   * bfloat16 on the tensor cores (gemm_wgmma.cuh): wgmma fed by TMA, fp32
 //     accumulators; operands TMA cannot read (misaligned, odd row strides)
 //     take the CUDA-core loop instead.  Bound: 989 TFLOP/s, so at 1024^3
@@ -77,6 +86,13 @@ gemm_dmma_kernel(const Problem<double, O> p) {
   dmma_tile<O>(p, dm_smem);
 }
 
+template <typename O>
+__global__ void __launch_bounds__(TF_THREADS)
+gemm_tf32_kernel(const Problem<float, O> p) {
+  extern __shared__ __align__(1024) unsigned char tf_smem[];
+  tf32_tile<O>(p, tf_smem);
+}
+
 // float64 has no CUDA-core route: no simt kernel is instantiated for it
 template <typename T, typename O>
 int run(const void* a, const void* b, const void* c, void* out, int64_t M,
@@ -88,11 +104,13 @@ int run(const void* a, const void* b, const void* c, void* out, int64_t M,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if constexpr (std::is_same_v<T, double>)
     return static_cast<int>(launch(p, st, nullptr, gemm_wgmma_kernel<O>,
-                                   gemm_dmma_kernel<O>));
+                                   gemm_dmma_kernel<O>,
+                                   gemm_tf32_kernel<O>));
   else
     return static_cast<int>(launch(p, st, gemm_simt_kernel<T, O>,
                                    gemm_wgmma_kernel<O>,
-                                   gemm_dmma_kernel<O>));
+                                   gemm_dmma_kernel<O>,
+                                   gemm_tf32_kernel<O>));
 }
 
 // run<T, O> for the output-type code out_dtype (the element-type codes of

@@ -6,7 +6,13 @@
 // alignment (kernels/gemm/ops.py route() is the same rule in Python, and
 // bind_gemm_route in gemm.cu answers it for any operands):
 //
-//   F32_SIMT    float32: the CUDA cores (gemm_tile.cuh), any shape;
+//   F32_3XTF32  float32 whose A and B the 16-byte loads can read: both
+//               bases 16-byte aligned, K and N multiples of 4 (rows of
+//               whole 16-byte chunks), K > 0, level strides multiples of 4
+//               elements: the TF32 tensor cores, three products
+//               (gemm_tf32.cuh);
+//   F32_SIMT    any other float32: the CUDA cores (gemm_tile.cuh), any
+//               shape;
 //   BF16_WGMMA  bfloat16 whose A and B TMA can read: both bases 16-byte
 //               aligned, K and N multiples of 8 (row strides multiples of
 //               16 bytes), K > 0, level strides multiples of 16 bytes;
@@ -28,13 +34,15 @@
 #include <type_traits>
 
 #include "gemm_dmma.cuh"
+#include "gemm_tf32.cuh"
 #include "gemm_tile.cuh"
 #include "gemm_wgmma.cuh"
 
 namespace bind_gemm {
 
 enum Route : int {
-  F32_SIMT = 0, BF16_SIMT = 1, BF16_WGMMA = 2, F64_DMMA = 3, F16_SIMT = 4
+  F32_SIMT = 0, BF16_SIMT = 1, BF16_WGMMA = 2, F64_DMMA = 3, F16_SIMT = 4,
+  F32_3XTF32 = 5
 };
 
 inline bool aligned16(const void* p) {
@@ -44,7 +52,10 @@ inline bool aligned16(const void* p) {
 template <typename T, typename O>
 inline Route route_of(const Problem<T, O>& p) {
   if constexpr (std::is_same_v<T, float>) {
-    return F32_SIMT;
+    const bool tc = aligned16(p.A) && aligned16(p.B) && p.K > 0 &&
+                    p.K % 4 == 0 && p.N % 4 == 0 && p.a_stride % 4 == 0 &&
+                    p.b_stride % 4 == 0;
+    return tc ? F32_3XTF32 : F32_SIMT;
   } else if constexpr (std::is_same_v<T, double>) {
     return F64_DMMA;
   } else if constexpr (std::is_same_v<T, __half>) {
@@ -78,18 +89,23 @@ cudaError_t start(Kernel kernel, dim3 grid, int threads, size_t smem,
 
 // Launch problem p on its route: simt(Problem<T, O>) for F32_SIMT /
 // BF16_SIMT / F16_SIMT, wgmma(map A, map B, Problem<bf16, O>) for
-// BF16_WGMMA, dmma(Problem<double, O>) for F64_DMMA.  The output type O
-// does not choose the route.  Returns the launch's error (cudaSuccess
-// when it went).
+// BF16_WGMMA, dmma(Problem<double, O>) for F64_DMMA, tf32(Problem<float,
+// O>) for F32_3XTF32.  The output type O does not choose the route.
+// Returns the launch's error (cudaSuccess when it went).
 template <typename T, typename O, typename SimtK, typename WgmmaK,
-          typename DmmaK>
+          typename DmmaK, typename Tf32K>
 cudaError_t launch(const Problem<T, O>& p, cudaStream_t stream, SimtK simt,
-                   WgmmaK wgmma, DmmaK dmma) {
+                   WgmmaK wgmma, DmmaK dmma, Tf32K tf32) {
   if (p.M <= 0 || p.N <= 0 || p.L <= 0) return cudaGetLastError();
   if constexpr (std::is_same_v<T, double>) {
     return start(dmma, dim3(blocks(p.N, DM_BN), blocks(p.M, DM_BM)),
                  DM_THREADS, DM_SMEM, stream, p);
   } else {
+    if constexpr (std::is_same_v<T, float>) {
+      if (route_of(p) == F32_3XTF32)
+        return start(tf32, dim3(blocks(p.N, TF_BN), blocks(p.M, TF_BM)),
+                     TF_THREADS, TF_SMEM, stream, p);
+    }
     if constexpr (std::is_same_v<T, __nv_bfloat16>) {
       if (route_of(p) == BF16_WGMMA) {
         CUtensorMap ta, tb;

@@ -8,12 +8,14 @@
 //
 // This file holds what every route shares (the problem, the epilogue,
 // cp.async, the panel loader) and the route of the CUDA cores, simt_tile:
-// float32 and float16 inputs, and bfloat16 operands whose alignment the
-// tensor-core route cannot take (gemm_routes.cuh).  Every output element is one chain
-// of IEEE fp32 fused multiply-adds (__fmaf_rn, never TF32) in ascending k
-// from +0, so the result does not depend on the tiling (a zero-filled
-// product past the ragged edge leaves a sum that is never -0 unchanged):
-// it is bit for bit the one of the first GEMM kernel of the port.
+// float16 inputs, and float32 and bfloat16 operands whose alignment or row
+// lengths the tensor-core routes cannot take (gemm_routes.cuh: aligned
+// float32 runs 3xTF32 on the tensor cores, gemm_tf32.cuh).  Every output
+// element of simt_tile is one chain of IEEE fp32 fused multiply-adds
+// (__fmaf_rn, no TF32) in ascending k from +0, so the result does not
+// depend on the tiling (a zero-filled product past the ragged edge leaves
+// a sum that is never -0 unchanged): it is bit for bit the one of the
+// first GEMM kernel of the port.
 //
 // simt_tile: one block of 128 threads owns a 64x64 output tile (1024^2
 // gives 256 blocks, two on most of the 132 SMs, whose barriers then

@@ -2,7 +2,9 @@
 
 The source and the headers it shares with the chain kernel (the route
 rule and launch, ``csrc/gemm_routes.cuh``, and one tile loop per route:
-``gemm_tile.cuh``, ``gemm_wgmma.cuh``, ``gemm_dmma.cuh``) are compiled at first use through the shared
+``gemm_tile.cuh``, ``gemm_wgmma.cuh``, ``gemm_dmma.cuh``,
+``gemm_tf32.cuh`` with the TF32 rounding it shares with flash attention,
+``tf32.cuh``) are compiled at first use through the shared
 :mod:`repro_torch.kernels._build` helper: ``nvcc`` for ``sm_90a`` into a
 hash-named shared library with a plain C interface, loaded with
 :mod:`ctypes`.  A missing ``nvcc`` or a failed build raises: there is no
@@ -25,7 +27,8 @@ from .._build import BUILD_DIR, NVCC_FLAGS, CudaLibrary, nvcc
 _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "csrc" / "gemm.cu",)
 HEADERS = tuple(_HERE / "csrc" / name for name in (
-    "gemm_routes.cuh", "gemm_tile.cuh", "gemm_wgmma.cuh", "gemm_dmma.cuh"))
+    "gemm_routes.cuh", "gemm_tile.cuh", "gemm_wgmma.cuh", "gemm_dmma.cuh",
+    "gemm_tf32.cuh", "tf32.cuh"))
 
 # torch dtype -> C entry point of csrc/gemm.cu
 SYMBOLS = {

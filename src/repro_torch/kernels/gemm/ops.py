@@ -22,10 +22,15 @@ in ``routes`` (route name -> launches).
 
 :func:`route` says which tile loop a launch takes (``csrc/gemm_routes.cuh``
 is the same rule in C, and :func:`.kernel.launcher_route` asks the built
-library): float32 on the CUDA cores, bfloat16 on the tensor cores
-(``wgmma`` fed by TMA) when TMA can read both operands and on the CUDA
-cores otherwise, float64 on the f64 tensor cores, float16 on the CUDA
-cores with an fp32 accumulator.  The chain kernel's
+library): float32 on the TF32 tensor cores in 3xTF32 (``f32_3xtf32``:
+three TF32 products of hi and lo halves, each K panel summed apart and
+added with IEEE adds) when 16-byte loads can read both operands (every
+address 16-byte aligned, ``k`` and ``n`` multiples of 4, ``k > 0``), and
+on the CUDA cores (``f32_simt``, one IEEE FMA chain an element) otherwise,
+so a ragged ``k`` or ``n`` or an odd offset takes ``f32_simt``; bfloat16 on
+the tensor cores (``wgmma`` fed by TMA) when TMA can read both operands
+and on the CUDA cores otherwise, float64 on the f64 tensor cores, float16
+on the CUDA cores with an fp32 accumulator.  The chain kernel's
 ``chain_dot`` takes the same route for its chain as per-level replay takes
 at every level.
 
@@ -63,26 +68,29 @@ DTYPES = tuple(kernel.SYMBOLS)
 # tensors get their shapes (and the operations counted)
 DEVICES = ("cpu", "cuda", "meta")
 # the routes, in the order of bind_gemm::Route (csrc/gemm_routes.cuh)
-ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f64_dmma", "f16_simt")
+ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f64_dmma", "f16_simt",
+          "f32_3xtf32")
 
 
 def route(dtype: torch.dtype, m: int, n: int, k: int,
           addresses=()) -> str:
     """The route of a GEMM problem: ``(m, k) @ (k, n)`` of ``dtype`` whose
     ``a`` and ``b`` operands start at ``addresses`` (device byte addresses;
-    for a chain, every level's).  bfloat16 goes to the tensor cores when
-    TMA can read its operands: every address 16-byte aligned and row
-    strides (``2k``, ``2n`` bytes) multiples of 16 bytes."""
+    for a chain, every level's).  float32 goes to the tensor cores when
+    16-byte loads can read its operands: every address 16-byte aligned,
+    ``k > 0`` and row strides (``4k``, ``4n`` bytes) multiples of 16
+    bytes; bfloat16 when TMA can: the same with ``2k``, ``2n`` bytes."""
+    aligned = all(int(x) % 16 == 0 for x in addresses)
     if dtype == torch.float32:
-        return "f32_simt"
+        tc = k > 0 and k % 4 == 0 and n % 4 == 0 and aligned
+        return "f32_3xtf32" if tc else "f32_simt"
     if dtype == torch.float64:
         return "f64_dmma"
     if dtype == torch.float16:
         return "f16_simt"
     if dtype != torch.bfloat16:
         raise TypeError(f"no GEMM route for dtype {dtype}")
-    tma = (k > 0 and k % 8 == 0 and n % 8 == 0
-           and all(int(x) % 16 == 0 for x in addresses))
+    tma = k > 0 and k % 8 == 0 and n % 8 == 0 and aligned
     return "bf16_wgmma" if tma else "bf16_simt"
 
 

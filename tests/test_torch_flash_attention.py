@@ -221,7 +221,7 @@ def test_library_is_named_by_its_sources_and_headers():
     assert path.name.startswith("libbind_flash_attention_")
     assert {h.name for h in kernel.LIBRARY.headers} == {
         "attn_tile.cuh", "attn_wgmma.cuh", "attn_tf32.cuh",
-        "attn_tf32_wide.cuh", "gemm_tile.cuh", "gemm_wgmma.cuh"}
+        "attn_tf32_wide.cuh", "gemm_tile.cuh", "gemm_wgmma.cuh", "tf32.cuh"}
     # every header the source includes, the new route's too, is hashed
     # into the library's name
     headers = {h.resolve() for h in kernel.LIBRARY.headers}
@@ -792,7 +792,7 @@ def test_backward_library_is_its_own_with_every_symbol_bound():
     assert {h.name for h in headers} == {
         "attn_bwd_wgmma.cuh", "attn_bwd_tf32.cuh", "attn_bwd_tf32_wide.cuh",
         "attn_tf32.cuh", "attn_tf32_wide.cuh", "attn_wgmma.cuh",
-        "attn_tile.cuh", "gemm_tile.cuh", "gemm_wgmma.cuh"}
+        "attn_tile.cuh", "gemm_tile.cuh", "gemm_wgmma.cuh", "tf32.cuh"}
     assert set(kernel.BWD_LIBRARY.symbols) == extern_c_symbols(
         kernel.BWD_SOURCES[0])
     assert set(kernel.BWD_LIBRARY.symbols) == {

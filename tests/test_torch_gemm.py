@@ -176,7 +176,7 @@ def test_library_name_tracks_the_sources():
     assert _includes(kernel.SOURCES[0]) <= headers
     assert {h.name for h in headers} == {
         "gemm_routes.cuh", "gemm_tile.cuh", "gemm_wgmma.cuh",
-        "gemm_dmma.cuh"}
+        "gemm_dmma.cuh", "gemm_tf32.cuh", "tf32.cuh"}
 
 
 def test_every_bound_symbol_is_an_extern_c_entry_point():
@@ -191,8 +191,17 @@ KB = 1 << 10
 
 
 @pytest.mark.parametrize("dtype, m, n, k, addresses, want", [
-    (torch.float32, 1024, 1024, 1024, (0, 4 * KB), "f32_simt"),
+    (torch.float32, 1024, 1024, 1024, (0, 4 * KB), "f32_3xtf32"),
+    (torch.float32, 130, 264, 72, (16, 32), "f32_3xtf32"),  # ragged M
+    (torch.float32, 130, 260, 68, (0, 16), "f32_3xtf32"),   # K % 8 == 4
+    (torch.float32, 1, 4, 4, (0, 16), "f32_3xtf32"),
     (torch.float32, 130, 260, 70, (4, 8), "f32_simt"),     # any alignment
+    (torch.float32, 130, 260, 70, (0, 16), "f32_simt"),    # K % 4
+    (torch.float32, 128, 258, 64, (0, 16), "f32_simt"),    # N % 4
+    (torch.float32, 1, 1, 128, (0, 16), "f32_simt"),       # (1, 128, 1)
+    (torch.float32, 64, 64, 0, (0, 16), "f32_simt"),       # K = 0
+    (torch.float32, 1024, 1024, 1024, (4, 4 * KB), "f32_simt"),  # a odd
+    (torch.float32, 1024, 1024, 1024, (0, 4 * KB, 8), "f32_simt"),  # level
     (torch.float64, 1024, 1024, 1024, (0, 8 * KB), "f64_dmma"),
     (torch.float64, 1, 1, 128, (8, 24), "f64_dmma"),
     (torch.bfloat16, 1024, 1024, 1024, (0, 2 * KB), "bf16_wgmma"),
@@ -226,6 +235,17 @@ def test_route_of_a_contiguous_view_at_an_offset(offset, want):
     base_aligned = store.data_ptr() % 16 == 0
     got = ops.route(a.dtype, m, n, k, (a.data_ptr(), b.data_ptr()))
     assert got == (want if base_aligned else "bf16_simt")
+
+
+def test_route_enum_matches_the_c_source():
+    """``ROUTES`` lists ``bind_gemm::Route``'s names in its order, so the
+    launcher's answer indexes it."""
+    source = (kernel.SOURCES[0].parent / "gemm_routes.cuh").read_text()
+    enum = re.search(r"enum Route : int \{(.*?)\};", source, re.S).group(1)
+    pairs = re.findall(r"(\w+) = (\d+)", enum)
+    assert ops.ROUTES == tuple(n.lower() for n, i in sorted(
+        pairs, key=lambda p: int(p[1])))
+    assert [int(i) for _, i in pairs] == list(range(len(pairs)))
 
 
 def test_route_rejects_dtypes_without_a_kernel():
@@ -370,3 +390,150 @@ def test_entry_points_take_the_output_type_code():
         params = re.search(rf"int {sym}\(([^)]*)\)", source).group(1)
         assert "int out_dtype, void* stream" in " ".join(params.split())
         assert params.count(",") + 1 == len(kernel.LIBRARY.symbols[sym])
+
+
+# --------------------------------------------------------------------------
+# The f32_3xtf32 route's arithmetic, emulated on the CPU
+# --------------------------------------------------------------------------
+
+TF32_PANEL = 32        # csrc/gemm_tf32.cuh TF_BK: the K panel summed apart
+
+
+FLT_MAX = float(np.finfo(np.float32).max)
+
+
+def _trunc(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its last 13 bits dropped: the TF32 the tensor cores read
+    of a float32 register."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to TF32 as the route's ``tf32_rna``
+    (``cvt.rna.tf32.f32``) rounds it: to nearest with ties away from zero
+    for finite values and +-inf, a NaN truncated (it stays a NaN unless its
+    top 10 mantissa bits are 0)."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isnan(x), _trunc(x), rounded)
+
+
+def _lo(x: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """``x``'s lo half beside ``hi = _tf32(x)`` as the tensor cores read
+    it: x - hi (exact in float32) truncated to TF32; NaN for +-inf and
+    NaN."""
+    return torch.where(torch.isfinite(x), _trunc(x - hi),
+                       torch.tensor(float("nan")))
+
+
+def _emulate_3xtf32(a: torch.Tensor, b: torch.Tensor,
+                    products=("hi.hi", "hi.lo", "lo.hi"),
+                    nan_lo_dropped=True) -> torch.Tensor:
+    """The route's sum for float32 ``a @ b``: each operand split into hi =
+    tf32(x) and lo = x - hi; per 32-wide K panel hi.hi apart from the lo
+    products (each panel's products exact, in float64, then rounded once
+    to float32 as an fp32 accumulator would hold them), the panel's
+    hi.hi + fmax(lo, -FLT_MAX) (hi.hi + lo if ``nan_lo_dropped`` is false)
+    rounded to float32 and added to the float32 sum.  The tensor cores'
+    truncating adds inside a panel are not modelled."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _lo(a, a_hi), _lo(b, b_hi)
+    terms = {"hi.hi": (a_hi, b_hi), "hi.lo": (a_hi, b_lo),
+             "lo.hi": (a_lo, b_hi)}
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for k0 in range(0, a.shape[1], TF32_PANEL):
+        ks = slice(k0, k0 + TF32_PANEL)
+        panel = {name: (x[:, ks].double() @ y[ks].double()).float()
+                 for name, (x, y) in terms.items() if name in products}
+        hh = panel.get("hi.hi", torch.zeros_like(acc))
+        lo = sum((panel[n] for n in ("hi.lo", "lo.hi") if n in panel),
+                 torch.zeros_like(acc))
+        if nan_lo_dropped:
+            lo = torch.fmax(lo, torch.tensor(-FLT_MAX))
+        acc = acc + (hh + lo)
+    return acc
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    """``_tf32`` keeps 10 mantissa bits: a value half a TF32 step above a
+    TF32 number rounds away from zero, just below it rounds down, and lo
+    recovers x to within 2^-21 of it.  +-inf keeps its bits and a NaN its
+    top 10 mantissa bits: CUDA's canonical 0x7FFFFFFF (which the add alone
+    would carry into -0.0), its negative and torch's 0x7FC00000 stay NaNs
+    and so are their lo halves; a signalling NaN with nothing in its top 10
+    mantissa bits becomes inf (as the tensor cores read it)."""
+    one = 1.0
+    step = 2.0 ** -10
+    x = torch.tensor([one + step / 2, -(one + step / 2),
+                      one + step / 2 - 2.0 ** -23, 3.0], dtype=torch.float32)
+    assert _tf32(x).tolist() == [one + step, -(one + step), one, 3.0]
+    special = torch.tensor([0x7F800000, -0x800000, 0x7FFFFFFF, -1,
+                            0x7FC00000, 0x7F800001],
+                           dtype=torch.int32).view(torch.float32)
+    assert _tf32(special).view(torch.int32).tolist() == [
+        0x7F800000, -0x800000, 0x7FFFE000, -0x2000, 0x7FC00000, 0x7F800000]
+    assert bool(torch.isnan(_lo(special, _tf32(special))).all())
+    v = torch.from_numpy(np.random.default_rng(0).normal(size=4096)
+                         .astype(np.float32))
+    hi = _tf32(v)
+    lo = _lo(v, hi)
+    assert torch.equal(_tf32(hi), hi) and torch.equal(_trunc(lo), lo)
+    rel = ((hi.double() + lo.double() - v.double()).abs()
+           / v.double().abs()).max().item()
+    assert rel <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("m, k, n", [(256, 256, 256), (256, 2048, 256)])
+def test_3xtf32_emulation_holds_the_reference_and_sees_its_faults(m, k, n):
+    """The route's arithmetic (three TF32 products of hi and lo halves, each
+    K panel summed apart, panel sums added in float32), emulated here, is
+    within the float32 tolerance of the reference's ``ref.matmul`` on the
+    same values; the faults the card's checks plant (``hi.hi`` alone,
+    ``hi.lo`` dropped) fall outside it, so the tolerance sees them."""
+    from repro.kernels.gemm import ref as ref_jax
+
+    rng = np.random.default_rng(31)
+    a_np = rng.normal(size=(m, k)).astype(np.float32)
+    b_np = rng.normal(size=(k, n)).astype(np.float32)
+    exp = torch.from_numpy(np.array(
+        ref_jax.matmul(jnp.asarray(a_np), jnp.asarray(b_np))))
+    a, b = torch.from_numpy(a_np), torch.from_numpy(b_np)
+    rtol, atol = DTYPES["float32"][2]
+    got = _emulate_3xtf32(a, b)
+    torch.testing.assert_close(got, exp, rtol=rtol, atol=atol)
+    exact = a.double() @ b.double()
+    err = (got.double() - exact).abs().max().item()
+    for fault in (("hi.hi",), ("hi.hi", "lo.hi")):
+        bad = _emulate_3xtf32(a, b, fault)
+        assert not torch.allclose(bad, exp, rtol=rtol, atol=atol), fault
+        assert (bad.double() - exact).abs().max().item() > 10 * err, fault
+
+
+def test_3xtf32_emulation_is_non_finite_where_the_product_is():
+    """NaNs (CUDA's canonical one, its negative, torch's and its negative)
+    and infinities of both signs in ``a`` and ``b``: the route's sum is
+    NaN, +inf and -inf exactly where the IEEE product is.  Without the
+    panel's fmax (the lo products' NaN dropped) an infinite operand gives
+    NaN where the product is +-inf: its lo is inf - inf."""
+    rng = np.random.default_rng(31)
+    a = torch.from_numpy(rng.normal(size=(64, 96)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(96, 48)).astype(np.float32))
+    for t, at, bits in ((a, (3, 5), 0x7FFFFFFF), (a, (10, 70), -1),
+                        (a, (20, 0), 0x7FC00000), (a, (7, 95), 0x7F800000),
+                        (a, (8, 40), -0x800000), (a, (9, 41), 0x7F800000),
+                        (a, (9, 42), 0x7F800000), (b, (9, 20), -0x800000),
+                        (b, (60, 33), 0x7F800000), (b, (90, 40), -0x400000),
+                        (b, (95, 30), -0x800000)):
+        t.view(torch.int32)[at] = bits
+    b[40, 11] = 0.0                      # -inf x 0 in row 8
+    exact = a.double() @ b.double()
+
+    def pattern(x):
+        return torch.isnan(x), torch.isposinf(x), torch.isneginf(x)
+
+    want = pattern(exact)
+    assert all(bool(w.any()) for w in want)
+    got = pattern(_emulate_3xtf32(a, b))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    bad = pattern(_emulate_3xtf32(a, b, nan_lo_dropped=False))
+    assert not torch.equal(bad[0], want[0])

@@ -15,13 +15,17 @@ points on the same inputs:
 
 * ``matmul``, ``matmul_accumulate`` and ``chain_dot`` (per-level and
   shared ``a``/``b``) at 1024^3 (x 8 levels for the chain), (130, 70,
-  260) (x 3) and (1, 128, 1), and in bfloat16 also at (130, 72, 264), a
-  ragged shape the tensor-core route takes, and on a view at an odd
-  element offset, which it does not;
-* float32 outputs must be bit for bit equal on the two sides; bfloat16 and
-  float64 outputs must lie within ``chip_smoke.py``'s tolerance (``TOL``,
-  ``atol`` times the levels for the chain) of the plain PyTorch version and
-  of each other, and whether they are bit for bit equal is printed;
+  260) (x 3), (1, 128, 1) and (130, 72, 264), a ragged shape the
+  tensor-core routes take, and on a view at an odd element offset, which
+  they do not; float16 through the GEMM alone (there is no float16 chain
+  kernel);
+* every output must lie within ``chip_smoke.py``'s tolerance (``TOL``,
+  ``atol`` times the levels for the chain) of the plain PyTorch version;
+  where both sides take the same route (``f32_simt``, every bfloat16,
+  float64 and float16 route) the outputs must be bit for bit equal; where
+  this side takes ``f32_3xtf32`` and the other ``f32_simt``, both are held
+  to a float64 product and this side's largest error must be at most
+  ``TF32_VS_SIMT`` times the other's;
 * the route each side's launcher took is printed (a side without
   ``bind_gemm_route`` has one tile loop for every dtype);
 * a side whose entry points take an output-type code (``int out_dtype``)
@@ -42,17 +46,19 @@ import sys
 from pathlib import Path
 
 from _ab import KERNELS, ROOT, ab, build_all, start
+from chip_smoke import TF32_VS_SIMT
 
 N = 1024
 LEVELS = 8
 SUFFIX = {"float32": "f32", "bfloat16": "bf16", "float64": "f64"}
-ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f64_dmma", "f16_simt")
+# the GEMM's entry points (the chain kernel has no float16 one)
+GEMM_SUFFIX = {**SUFFIX, "float16": "f16"}
 # bind_gemm_route's element-type codes (a side whose entry point takes the
 # element size has the first four routes)
 DTYPE_CODES = {"float32": 0, "bfloat16": 1, "float64": 2, "float16": 3}
 # chip_smoke.py's TOL: kernel vs plain version, (rtol, atol) per dtype
 TOL = {"float32": (1e-4, 1e-3), "bfloat16": (2e-2, 2e-1),
-       "float64": (1e-10, 1e-9)}
+       "float64": (1e-10, 1e-9), "float16": (1e-2, 1e-2)}
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 GEMM_ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _P)
 # entry points with the output type's code before the stream
@@ -69,7 +75,7 @@ def libraries(CudaLibrary, side: str, root: Path):
     source = (gemm_dir / "gemm.cu").read_text()
     out_code = "int out_dtype" in source
     gemm_syms = {f"bind_gemm_{s}": GEMM_OUT_ARGS if out_code else GEMM_ARGS
-                 for s in SUFFIX.values()}
+                 for s in GEMM_SUFFIX.values()}
     if "bind_gemm_route" in source:
         gemm_syms["bind_gemm_route"] = ROUTE_ARGS
     gemm = CudaLibrary(f"ab_gemm_{side}", (gemm_dir / "gemm.cu",), headers,
@@ -90,6 +96,7 @@ def main(argv: list[str]) -> int:
     if torch is None:
         return 1
     from repro_torch.kernels._build import CudaLibrary
+    from repro_torch.kernels.gemm.ops import ROUTES
 
     other = Path(argv[0]).resolve()
     libs = {side: libraries(CudaLibrary, side, root)
@@ -118,7 +125,8 @@ def main(argv: list[str]) -> int:
         m, k = a.shape
         gemm = libs[side][0]
         code = (DTYPE_CODES[dname],) if gemm.out_code else ()
-        gemm.call(f"bind_gemm_{SUFFIX[dname]}", a.data_ptr(), b.data_ptr(),
+        gemm.call(f"bind_gemm_{GEMM_SUFFIX[dname]}", a.data_ptr(),
+                  b.data_ptr(),
                   None if c is None else c.data_ptr(), out.data_ptr(), m,
                   b.shape[1], k, *code, stream)
 
@@ -137,30 +145,39 @@ def main(argv: list[str]) -> int:
             v = (v.to(acc) + a.to(acc) @ b.to(acc)).to(c.dtype)
         return v
 
-    def agree(name, dname, outs, exp, levels=1):
+    def agree(name, dname, outs, exp, routes, exact=None, levels=1):
+        """Both sides within TOL of the plain version ``exp``; bit for bit
+        where they take one route, else (this side on f32_3xtf32, the
+        other on f32_simt) this side's error against the float64
+        ``exact`` at most TF32_VS_SIMT times the other's."""
         torch.cuda.synchronize()
-        if dname == "float32":
-            ok = torch.equal(outs["other"], outs["this"])
-            what = "bitwise equal"
-        else:
-            rtol, atol = TOL[dname]
-            ok = all(torch.allclose(x.double(), y.double(), rtol=rtol,
-                                    atol=atol * levels)
-                     for x, y in ((outs["this"], exp), (outs["other"], exp),
-                                  (outs["this"], outs["other"])))
-            what = f"within rtol {rtol} atol {atol} x {levels}"
-        err = (outs["this"].double() - exp.double()).abs().max().item()
+        rtol, atol = TOL[dname]
+        ok = all(torch.allclose(x.double(), exp.double(), rtol=rtol,
+                                atol=atol * levels) for x in outs.values())
         same = torch.equal(outs["other"], outs["this"])
+        err = (outs["this"].double() - exp.double()).abs().max().item()
+        if routes["this"] == routes["other"] or exact is None:
+            ok = ok and same
+            what = "bit for bit"
+        else:
+            e = {s: (outs[s].double() - exact).abs().max().item()
+                 for s in outs}
+            ratio = e["this"] / max(e["other"], 1e-30)
+            ok = ok and ratio <= TF32_VS_SIMT
+            what = (f"against float64 {e['this']:.3e}, the other's "
+                    f"{e['other']:.3e} ({ratio:.2f} x, limit "
+                    f"{TF32_VS_SIMT})")
         print(f"[check] {name}: this vs other {what}: "
               f"{'ok' if ok else 'FAILED'} (bit for bit: "
-              f"{'yes' if same else 'no'}); this vs plain max_abs_err "
+              f"{'yes' if same else 'no'}); within rtol {rtol} atol {atol} "
+              f"x {levels} of the plain version, this side's max_abs_err "
               f"{err:.3e}")
         return ok
 
-    shapes = {"float32": [(N, N, N), (130, 70, 260), (1, 128, 1)],
-              "bfloat16": [(N, N, N), (130, 70, 260), (1, 128, 1),
-                           (130, 72, 264), "odd"],
-              "float64": [(N, N, N), (130, 70, 260), (1, 128, 1)]}
+    every = [(N, N, N), (130, 70, 260), (1, 128, 1), (130, 72, 264), "odd"]
+    shapes = {"float32": every, "bfloat16": every,
+              "float64": [(N, N, N), (130, 70, 260), (1, 128, 1)],
+              "float16": every}
     for dname, cases in shapes.items():
         dt = getattr(torch, dname)
         for shape in cases:
@@ -182,10 +199,16 @@ def main(argv: list[str]) -> int:
                     gemm_call(side, dname, a, b, c_arg, outs[side])
                 exp = plain_levels(torch.zeros_like(c) if c_arg is None
                                    else c, a, b, 1, False)
+                exact = None
+                if dname == "float32":
+                    exact = a.double() @ b.double()
+                    if c_arg is not None:
+                        exact += c.double()
                 if not agree(f"{op} {label} (routes: this {routes['this']},"
-                             f" other {routes['other']})", dname, outs, exp):
+                             f" other {routes['other']})", dname, outs, exp,
+                             routes, exact):
                     return 1
-            if shape == "odd":
+            if shape == "odd" or dname not in SUFFIX:
                 continue
             L = LEVELS if m == N else 3
             A, B = rand((L, m, k), dt), rand((L, k, n), dt)
@@ -193,17 +216,23 @@ def main(argv: list[str]) -> int:
                 a_arg, b_arg = (A, B) if per_level else (A[0], B[0])
                 a_stride = m * k if per_level else 0
                 b_stride = k * n if per_level else 0
-                r = route("this", dt, a_arg, a_stride, b_arg, b_stride, m, n,
-                          k)
+                r = {s: route(s, dt, a_arg, a_stride, b_arg, b_stride, m, n,
+                              k) for s in libs}
                 outs = {s: torch.empty((m, n), dtype=dt, device=dev)
                         for s in libs}
                 for side in libs:
                     dot_call(side, dname, c, a_arg, a_stride, b_arg,
                              b_stride, L, outs[side])
                 exp = plain_levels(c, a_arg, b_arg, L, per_level)
+                exact = None
+                if dname == "float32":
+                    exact = c.double() + (
+                        torch.einsum("lmk,lkn->mn", A.double(), B.double())
+                        if per_level else L * (A[0].double() @ B[0].double()))
                 layout = "xs" if per_level else "single"
-                if not agree(f"chain_dot {label} x {L} {layout} (route: "
-                             f"this {r})", dname, outs, exp, L):
+                if not agree(f"chain_dot {label} x {L} {layout} (routes: "
+                             f"this {r['this']}, other {r['other']})", dname,
+                             outs, exp, r, exact, L):
                     return 1
 
     for dname in SUFFIX:
