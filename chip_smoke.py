@@ -17,10 +17,11 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    backward (``.../flash_attention/csrc/flash_attention_bwd.cu``) and the
    linear scan (``.../linear_scan/csrc/linear_scan.cu``); the SASS of the
    tensor-core routes must hold their instructions (HGMMA for ``wgmma``,
-   the GEMM's, ``chain_dot``'s, flash attention's two, bf16 and 3xTF32,
-   and the bf16 attention backward's dq and dk/dv kernels; DMMA for the
-   f64 MMA), read with ``cuobjdump``, and the backward's tensor-core
-   kernels must not spill (``-Xptxas -v``);
+   the GEMM's, ``chain_dot``'s, flash attention's two, 16-bit and
+   3xTF32, and the 16-bit attention backward's dq and dk/dv kernels, each
+   head dim's bf16 and f16 instantiation apart, on operands of its type;
+   DMMA for the f64 MMA), read with ``cuobjdump``, and the attention
+   tensor-core kernels must not spill (``-Xptxas -v``);
 3. the GEMM kernel against its plain PyTorch version on the card on every
    route (``kernels/gemm/ops.py`` ``route``, checked against the route the
    built launcher takes): at the main path's leaf shape 1024^3 in float32
@@ -67,25 +68,30 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    launches) bit for bit against replay;
 4b. flash attention (``flash_attention``) against its plain version (the
    oracle on the padded inputs) at the reference's cases
-   (``tests/test_kernels.py``) in f32, again in f32 and bf16 at head dims
-   64 and 128 (the tensor-core routes) with a case whose rows past Skv +
-   window see no key (exactly zero), f32 and bf16 cases with many key
-   tiles per query tile (``MID_ATTN``: causal, windowed, ragged,
-   non-causal; f32 at d 64, 80, 96, 128 and 256, bf16 at 64, 80, 96, 128,
-   192 and 256), bf16 views at an odd offset at d 128 and 96 and f32 ones (the
-   CUDA cores), float16 (the CUDA cores), h2o-danube-1.8b's head dim 80
+   (``tests/test_kernels.py``) in f32, again in f32, bf16 and f16 at head
+   dims 64 and 128 (the tensor-core routes) with a case whose rows past
+   Skv + window see no key (exactly zero), f32, bf16 and f16 cases with
+   many key tiles per query tile (``MID_ATTN``: causal, windowed, ragged,
+   non-causal; f32 at d 64, 80, 96, 128 and 256, bf16 and f16 at 64, 80,
+   96, 128, 192 and 256), bf16 and f16 views at an odd offset at d 128
+   and 96 and f32 ones (the CUDA cores), float16 at d 16 (the CUDA
+   cores), h2o-danube-1.8b's head dim 80
    (bf16 and, since its 32-column panels take a last one of 16 columns,
    f32 on the tensor cores) and,
    through the entry point with every count zeroed just before, at full
    width: RecurrentGemma-9B local attention (16 heads over 1, S 8192, D
    256, window 2048), Qwen3-14B (40 over 8, S 8192, D 128) and Gemma-7B
    (16 over 16, S 4096, D 256), causal, f32 and bf16 (f32 at d 256 also
-   on ``f32_simt``, q one element in, which ``f32_3xtf32`` must beat);
+   on ``f32_simt``, q one element in, which ``f32_3xtf32`` must beat), and
+   f16 at RecurrentGemma-9B's and Qwen3-14B's (``f16_wgmma``: two calls
+   bit for bit, faster than the plain version and than ``f16_simt`` on
+   the same values one element in);
    every call's counted route (the built launcher's for the
    operands, which the wrapper holds against ``ops.route``) checked
-   against ``ops.route`` of the inputs, every route run; bf16 also
-   against the float32 oracle to limits scaled to each value
-   (``bf16_attention_error``); every ``f32_3xtf32`` output also against a
+   against ``ops.route`` of the inputs, every route run; bf16 and f16
+   also against the float32 oracle to limits scaled to each value, of
+   each dtype's unit roundoff (``half_attention_error``,
+   ``HALF_LIMITS``); every ``f32_3xtf32`` output also against a
    float64 computation, per head at full width: its largest error at most
    ``TF32_VS_SIMT`` times the ``f32_simt`` route's on the same inputs
    (run on copies at an odd offset); the kernel's time beside its plain
@@ -230,7 +236,7 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    with the busy shares; prefill and decode walls, tokens/s and their
    bounds (prefill's FLOPs at the bf16 peak, a decode step's weight bytes
    at the HBM rate); every kernel call of one more prefill held against its
-   plain version (attention within 3e-2 and ``bf16_attention_error``'s
+   plain version (attention within 3e-2 and ``half_attention_error``'s
    limits, the scan bit for bit ``ref.linear_scan_chunked`` and within
    2e-5 of the sequential oracle); the device memory given back; then
    the reference's serving check in float32 at 5 layers (one pattern
@@ -261,14 +267,17 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    (attention on ``f32_3xtf32`` both ways) against the same step on the
    plain versions on the card (loss and every gradient within 1e-3 of its
    largest value), timed; the attention backward at RecurrentGemma-9B's
-   training shape (bf16, f32), Qwen3-14B's width (bf16, f32),
-   h2o-danube-1.8b's and Gemma-7B's (f32), in bf16 on both routes
-   (``bf16_wgmma`` with the forward's
-   log-sum-exp, ``bf16_simt`` forced by a view at an odd offset), against
-   its plain version and against a second call of itself (bit for bit: no
-   atomics), timed beside its bound, the plain version and SDPA's backward
-   (a yardstick the port never calls), ``bf16_wgmma`` required faster than
-   both the plain version and ``bf16_simt``; the memory given back;
+   training shape (bf16, f32, f16), Qwen3-14B's width (bf16, f32, f16),
+   h2o-danube-1.8b's and Gemma-7B's (f32), in bf16 and f16 on both routes
+   (``bf16_wgmma`` / ``f16_wgmma`` with the forward's log-sum-exp,
+   ``bf16_simt`` / ``f16_simt`` forced by a view at an odd offset),
+   against its plain version and against a second call of itself (bit for
+   bit: no atomics), timed beside its bound, the plain version and SDPA's
+   backward (a yardstick the port never calls), each tensor-core route
+   required faster than both the plain version and its CUDA-core route;
+   f16's overflow case (|dS| past 65504: ``f16_wgmma``'s dq and dk not
+   finite where ``f16_simt``'s are, a pinned divergence); the memory
+   given back;
 8g. the rest of the LM stack, served (``[lm_moe]``,
    :func:`lm_moe_phase`): granite-moe-3b-a800m at its published widths and
    depth (32 layers, d_model 1536, 24 heads over 8, head_dim 64, 40
@@ -321,7 +330,9 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    Phi-3-vision's 32 over 32 at d 96 and h2o-danube's 32 over 8 at d 80),
    forward and backward, each held to its plain version and timed beside
    its bound, the plain version and SDPA's, and at d 80 and 96 beside
-   ``bf16_simt`` (views at an odd offset), which it must beat;
+   ``bf16_simt`` (views at an odd offset), which it must beat; the same
+   in f16 at d 64, 80 and 96 on ``f16_wgmma`` (its forward beside
+   ``f16_simt``);
 8j. training that checkpoints (``[train_ckpt]``, :func:`train_ckpt_phase`):
    granite-moe-3b-a800m at its published widths, 2 layers, bf16, B 1 x S
    2048, 4 AdamW steps saving parameters and optimizer state through
@@ -448,6 +459,9 @@ F32_ROUTE = "f32_3xtf32"
 F32_KERNEL = "gemm_tf32_kernel"
 # the 3xTF32 GEMM's tensor-core instruction in the SASS
 TF32_HGMMA = "HGMMA.64x64x8.F32.TF32"
+# the mangled element type of the 16-bit attention kernels' instantiations
+# (flash_attention_wgmma_kernel<D, T>, attention_bwd_*_wgmma_kernel<D, T>)
+HALF_MANGLED = {"bf16": "13__nv_bfloat16", "f16": "6__half"}
 
 # flash attention: the reference's cases (tests/test_kernels.py:75-82,
 # padded with bq = bkv = 16) as (B, Hq, Hkv, Sq, Skv, D, causal, window)
@@ -464,6 +478,9 @@ FULL_ATTN = {"RecurrentGemma-9B": (1, 16, 1, 8192, 256, 2048),
              # Gemma-7B's training shape (16 / 16 heads at d 256, causal)
              "Gemma-7B": (1, 16, 16, 4096, 256, None)}
 ODD_ATTN = ("h2o-danube-1.8b", (1, 32, 8, 1024, 80, 4096))
+# the full widths that also run in float16 (f16_wgmma, and f16_simt on
+# the same values one element into their storage)
+FULL_ATTN_F16 = ("RecurrentGemma-9B", "Qwen3-14B")
 # the reference's tolerances (tests/test_kernels.py): rtol = atol; the
 # reference has none for float16: its output is rounded once to 11 bits
 # (2^-11 relative) from fp32 sums in another order than the plain
@@ -481,7 +498,7 @@ MID_ATTN = ((1, 4, 2, 1024, 1024, True, None, 512),
             (1, 2, 1, 777, 777, False, 200, 7))
 MID_HEAD_DIMS = (64, 80, 96, 128, 192, 256)
 # bfloat16 attention against the float32 oracle on the same inputs, to
-# limits scaled to each value (bf16_attention_error).  The output is
+# limits scaled to each value (half_attention_error).  The output is
 # rounded once to bf16: at most 2^-8 |exp| off.  The tensor-core route
 # also rounds each weight p in [0, 1] to bf16 before P V: at most 2^-8 p
 # off, so an element at most 2^-8 max|v| off (the weights sum to one).
@@ -493,6 +510,28 @@ MID_HEAD_DIMS = (64, 80, 96, 128, 192, 256)
 BF16_ELEMENT = 2.0 ** -8
 BF16_SLICE_NRMS = 2.0 ** -7
 BF16_ROW_NRMS = 2.0 ** -6
+# float16 (f16_wgmma) by the same derivation with f16's unit roundoff u =
+# 2^-11 in place of bf16's 2^-8: the output rounded once, at most 2^-11
+# |exp| off, and each weight p rounded to f16 before P V, at most 2^-11 p
+# off where p is normal (2^-14 and up) and at most 2^-25 absolute below
+# (f16's subnormals, which bf16 does not have), so an element at most
+# (2^-11 + Skv 2^-25) max|v| off for a row of Skv keys.  The per-element
+# limit is the sum, 2^-11 (|exp| + max|v|) + F16_SUBNORMAL Skv max|v|; the
+# rms limits are bf16's multiples of u, 2u a slice and 4u a row (2^-10 and
+# 2^-9), eight times tighter.  In the float64 model above scaled to f16 the
+# rms sits near 3e-4 a slice; with P rounded through bf16 first (2^-8 p
+# off: the fault tools/attn_faults.py plants) near 1.7e-3, above 2^-10.
+# The backward is held to F16_SLICE_NRMS rms per head slice of the plain
+# version in float32, as bf16's is to BF16_SLICE_NRMS.
+F16_ELEMENT = 2.0 ** -11
+F16_SUBNORMAL = 2.0 ** -25
+F16_SLICE_NRMS = 2.0 ** -10
+F16_ROW_NRMS = 2.0 ** -9
+# each 16-bit dtype's limits: (element, subnormal, slice rms, row rms)
+HALF_LIMITS = {"bfloat16": (BF16_ELEMENT, 0.0, BF16_SLICE_NRMS,
+                            BF16_ROW_NRMS),
+               "float16": (F16_ELEMENT, F16_SUBNORMAL, F16_SLICE_NRMS,
+                           F16_ROW_NRMS)}
 # linear scan: the reference's shapes (tests/test_kernels.py:129) and
 # RecurrentGemma-9B's RG-LRU (B, S, lru_width); f32 at the property test's
 # bound for any block size, bf16 at the reference's
@@ -717,17 +756,22 @@ def tf32_vs_simt(got, simt, exact, heads: int = 8) -> float:
     return worst
 
 
-def bf16_attention_error(got, exp32, v) -> dict:
-    """How far the bfloat16 attention output ``got`` (B, H, S, D) lies from
-    the float32 oracle ``exp32`` on the same inputs, with ``v`` the values:
-    ``element`` (the largest error over its limit, BF16_ELEMENT (|exp| +
-    max|v|)), ``slice`` and ``row`` (the largest root-mean-square error
-    of a (batch, head) slice and of a row over exp's there; rows that see
-    no key are left out).  Within the limits when ``element <= 1``,
-    ``slice <= BF16_SLICE_NRMS`` and ``row <= BF16_ROW_NRMS``."""
+def half_attention_error(got, exp32, v) -> dict:
+    """How far the 16-bit (bfloat16 or float16) attention output ``got``
+    (B, H, S, D) lies from the float32 oracle ``exp32`` on the same
+    inputs, with ``v`` (B, Hkv, Skv, D) the values: ``element`` (the
+    largest error over its limit, ELEMENT (|exp| + max|v|) + SUBNORMAL Skv
+    max|v| of its dtype's HALF_LIMITS), ``slice`` and ``row`` (the largest
+    root-mean-square error of a (batch, head) slice and of a row over
+    exp's there; rows that see no key are left out).  Within the limits
+    (:func:`half_within`) when ``element <= 1`` and the rms errors are
+    within the dtype's slice and row limits."""
+    dname = str(got.dtype).removeprefix("torch.")
+    element, subnormal = HALF_LIMITS[dname][:2]
     exp = exp32.double()
     err = got.double() - exp
-    limit = BF16_ELEMENT * (exp.abs() + v.abs().max().double())
+    vmax = v.abs().max().double()
+    limit = element * (exp.abs() + vmax) + subnormal * v.shape[2] * vmax
     element = (err.abs() / limit.clamp_min(1e-300)).max().item()
     e2, x2 = err.square(), exp.square()
     slices = (e2.sum((2, 3)) / x2.sum((2, 3)).clamp_min(1e-300)).sqrt()
@@ -738,9 +782,12 @@ def bf16_attention_error(got, exp32, v) -> dict:
     return {"element": element, "slice": slices.max().item(), "row": row}
 
 
-def bf16_within(stats: dict) -> bool:
-    return (stats["element"] <= 1.0 and stats["slice"] <= BF16_SLICE_NRMS
-            and stats["row"] <= BF16_ROW_NRMS)
+def half_within(stats: dict, dname: str) -> bool:
+    """Whether :func:`half_attention_error`'s ``stats`` of a ``dname``
+    output are within that dtype's HALF_LIMITS."""
+    _, _, slice_nrms_, row_nrms = HALF_LIMITS[dname]
+    return (stats["element"] <= 1.0 and stats["slice"] <= slice_nrms_
+            and stats["row"] <= row_nrms)
 
 
 def bound_ms(nbytes: int, flops: int, dtype: str) -> tuple[float, str]:
@@ -888,7 +935,7 @@ class AttentionHeld:
     """A stand-in for ``attention_xla.flash_attention`` (the prefill's
     entry point) that runs it and holds every call to its plain version on
     the same padded inputs: within the reference's bf16 tolerance and
-    ``bf16_attention_error``'s limits against the float32 oracle.  Counts
+    ``half_attention_error``'s limits against the float32 oracle.  Counts
     the calls by (causal, Sq, Skv)."""
 
     def __init__(self, torch, fa_ops, fa_ref, original, label: str):
@@ -910,11 +957,11 @@ class AttentionHeld:
         exp32 = fa_ref.attention(*(t.float() for t in padded),
                                  causal=causal, window=window,
                                  scale=scale)[:, :, :sq]
-        stats = bf16_attention_error(out, exp32, padded[2])
+        stats = half_attention_error(out, exp32, padded[2])
         key = (causal, sq, k.shape[2])
         n = sum(self.calls.values())
-        check(bf16_within(stats), f"{self.label} attention call {n} {key}: "
-              f"outside the bf16 limits {stats}")
+        check(half_within(stats, "bfloat16"), f"{self.label} attention "
+              f"call {n} {key}: outside the bf16 limits {stats}")
         self.calls[key] = self.calls.get(key, 0) + 1
         self.err = max(self.err, (out.double() - exp.double()).abs().max()
                        .item())
@@ -1444,10 +1491,11 @@ BWD_WGMMA_KERNELS = ("attention_bwd_delta_kernel",
                      "attention_bwd_dkv_sum_kernel")
 # (and in float32, where the f32_3xtf32 route takes it: Qwen3-14B's width
 # and h2o-danube-1.8b's FSDP step shape, [lm_mesh]'s (d) / (e))
+# (and in float16, on f16_wgmma and f16_simt, at RG-9B's and Qwen3-14B's)
 BWD_SHAPES = {"RecurrentGemma-9B": (1, 16, 1, 4096, 256, 2048,
-                                    ("bfloat16", "float32")),
+                                    ("bfloat16", "float32", "float16")),
               "Qwen3-14B": (1, 40, 8, 4096, 128, None,
-                            ("bfloat16", "float32")),
+                            ("bfloat16", "float32", "float16")),
               "h2o-danube-1.8b": (8, 32, 8, 1024, 80, 4096, ("float32",)),
               # Gemma-7B's training shape, on d 256's 3xTF32 blocks
               "Gemma-7B": (1, 16, 16, 4096, 256, None, ("float32",))}
@@ -1878,6 +1926,7 @@ def train_phase(torch, dev, card: str, zero_counts, counts) -> dict:
     bwd_times = {(name, dname): attention_bwd_timed(
         torch, dev, gen, card, name, dname, *shape[:-1])
         for name, shape in BWD_SHAPES.items() for dname in shape[-1]}
+    overflow = f16_overflow_case(torch, dev, gen, card)
     gc.collect()
     sync()
     left = torch.cuda.memory_allocated(dev) - base
@@ -1894,7 +1943,7 @@ def train_phase(torch, dev, card: str, zero_counts, counts) -> dict:
             train_route=TRAIN_KERNELS["flash_attention_bwd"][0],
             **{k: v for k, v in bwd_times[("RecurrentGemma-9B",
                                            "bfloat16")].items()
-               if k != "route_ms"},
+               if k not in ("route_ms", "checked_launches")},
             # each route's time at both widths
             route_ms={f"{name} {dname}": times["route_ms"]
                       for (name, dname), times in bwd_times.items()}),
@@ -1908,6 +1957,12 @@ def train_phase(torch, dev, card: str, zero_counts, counts) -> dict:
         "flash_attention_bwd.f32_d256": dict(
             bwd_times[("RecurrentGemma-9B", "float32")],
             gemma=bwd_times[("Gemma-7B", "float32")]),
+        # float16 on the tensor cores (f16_wgmma): at Qwen3-14B's width,
+        # RecurrentGemma-9B's training shape beside it, the overflow case
+        "flash_attention_bwd.f16": dict(
+            bwd_times[("Qwen3-14B", "float16")],
+            rg9b=bwd_times[("RecurrentGemma-9B", "float16")],
+            overflow_finite=overflow),
         "f32_step_launches": {"flash_attention": 2,
                               "flash_attention_bwd": 1},
     }
@@ -1917,24 +1972,26 @@ def attention_bwd_timed(torch, dev, gen, card: str, name: str, dname: str,
                         b: int, hq: int, hkv: int, s: int, d: int,
                         window) -> dict:
     """The attention backward at one shape, on each route its dtype has
-    here (bf16: ``bf16_wgmma`` with the forward's log-sum-exp, and
-    ``bf16_simt``, forced by handing it q as a view at an odd element
-    offset; f32: ``f32_3xtf32`` with the forward's log-sum-exp where d is
-    one of TF32_HEAD_DIMS, and ``f32_simt``, without one): held to its
-    plain version (float32 on the same inputs: rms error per head slice
-    within BF16_SLICE_NRMS in bf16, BWD_F32_NRMS in f32) and to a second
+    here (bf16 / f16: ``bf16_wgmma`` / ``f16_wgmma`` with the forward's
+    log-sum-exp, and ``bf16_simt`` / ``f16_simt``, forced by handing it q
+    as a view at an odd element offset; f32: ``f32_3xtf32`` with the
+    forward's log-sum-exp where d is one of TF32_HEAD_DIMS, and
+    ``f32_simt``, without one): held to its plain version (float32 on the
+    same inputs: rms error per head slice within the dtype's slice limit
+    of HALF_LIMITS in bf16 and f16, BWD_F32_NRMS in f32) and to a second
     call of itself (bit for bit), ``f32_3xtf32`` also to float64 (at most
     TF32_VS_SIMT times ``f32_simt``'s error on the same inputs, per slice
     of 8 heads), and timed beside its bound, the plain version and SDPA's
     backward (a yardstick the port never calls: an explicit mask for a
     window); each tensor-core route must beat its dtype's CUDA-core route,
-    ``bf16_wgmma`` the plain version too.  Returns the ``kernels`` line's
-    numbers: those of the route the training step takes, and each route's
-    time."""
+    ``bf16_wgmma`` and ``f16_wgmma`` the plain version too.  Returns the
+    ``kernels`` line's numbers: those of the route the training step takes
+    (of the tensor-core route in f16, with its launches in the checked
+    calls, ``checked_launches``), and each route's time."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
-    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dname]
+    dt = getattr(torch, dname)
     q = torch.randn((b, hq, s, d), generator=gen, device=dev).to(dt)
     k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dt)
             for _ in range(2))
@@ -1944,14 +2001,14 @@ def attention_bwd_timed(torch, dev, gen, card: str, name: str, dname: str,
     dout = torch.randn(out.shape, generator=gen, device=dev).to(dt)
     exp = fa_ref.attention_grad(q.float(), k.float(), v.float(),
                                 dout.float(), **kw)
-    limit = BF16_SLICE_NRMS if dname == "bfloat16" else BWD_F32_NRMS
+    limit = HALF_LIMITS[dname][2] if dname in HALF_LIMITS else BWD_F32_NRMS
     odd = odd_offset(q)
     calls = {fa_ops.bwd_route(dt, d, fa_ops._bwd_addresses(
         q, k, v, out, dout, lse)): (q, lse)}
-    if dname == "bfloat16":
+    if dname in HALF_LIMITS:
         calls[fa_ops.bwd_route(dt, d, fa_ops._bwd_addresses(
             odd, k, v, out, dout, lse))] = (odd, lse)
-        check(set(calls) == {"bf16_wgmma", "bf16_simt"},
+        check(set(calls) == set(fa_ops.WGMMA_ROUTES[dt]),
               f"[train] attention backward {name}: routes {set(calls)}")
     elif d in fa_ops.TF32_HEAD_DIMS:
         # the CUDA-core route on the same operands: no log-sum-exp
@@ -1959,7 +2016,7 @@ def attention_bwd_timed(torch, dev, gen, card: str, name: str, dname: str,
             q, k, v, out, dout, None))] = (q, None)
         check(set(calls) == {"f32_3xtf32", "f32_simt"},
               f"[train] attention backward {name}: routes {set(calls)}")
-    routes, grads = {}, {}
+    routes, grads, checked = {}, {}, {}
     for route, (qq, saved) in calls.items():
         fa_ops.flash_attention_bwd.routes = {}
         got = fa_ops.flash_attention_bwd(qq, k, v, out, dout, lse=saved,
@@ -1970,6 +2027,7 @@ def attention_bwd_timed(torch, dev, gen, card: str, name: str, dname: str,
         check(fa_ops.flash_attention_bwd.routes == {route: 2},
               f"[train] attention backward {name} {dname}: launched "
               f"{fa_ops.flash_attention_bwd.routes}, expected {route}")
+        checked[route] = fa_ops.flash_attention_bwd.routes[route]
         check(all(torch.equal(bits(torch, g), bits(torch, h))
                   for g, h in zip(got, again)),
               f"[train] attention backward {name} {dname} {route}: two "
@@ -1987,7 +2045,7 @@ def attention_bwd_timed(torch, dev, gen, card: str, name: str, dname: str,
         ms = time_ms(torch, lambda qq=qq, saved=saved:
                      fa_ops.flash_attention_bwd(qq, k, v, out, dout,
                                                 lse=saved, **kw),
-                     iters=20 if route == "bf16_wgmma" else 5, warmup=1)
+                     iters=20 if route.endswith("wgmma") else 5, warmup=1)
         routes[route] = dict(ms=ms, nrms=nrms, max_abs_err=err)
     if grads:
         # f32_3xtf32 against float64, beside f32_simt on the same inputs
@@ -2034,26 +2092,74 @@ def attention_bwd_timed(torch, dev, gen, card: str, name: str, dname: str,
               f"version rms error per head slice {r['nrms']:.3e} (<= "
               f"{limit:.3e}), max_abs_err {r['max_abs_err']:.3e}; two calls "
               f"bit for bit equal ({card})")
-    if "bf16_wgmma" in routes:
-        fast = routes["bf16_wgmma"]["ms"]
-        check(fast < plain_ms and fast < routes["bf16_simt"]["ms"],
-              f"[train] attention backward {name}: bf16_wgmma {fast:.3f} ms "
+    if dname in HALF_LIMITS:
+        wgmma, simt = fa_ops.WGMMA_ROUTES[dt]
+        fast = routes[wgmma]["ms"]
+        check(fast < plain_ms and fast < routes[simt]["ms"],
+              f"[train] attention backward {name}: {wgmma} {fast:.3f} ms "
               f"is not below the plain version ({plain_ms:.3f}) and "
-              f"bf16_simt ({routes['bf16_simt']['ms']:.3f})")
+              f"{simt} ({routes[simt]['ms']:.3f})")
     if "f32_3xtf32" in routes:
         fast = routes["f32_3xtf32"]["ms"]
         check(fast < routes["f32_simt"]["ms"], f"[train] attention backward "
               f"{name}: f32_3xtf32 {fast:.3f} ms is not below f32_simt "
               f"({routes['f32_simt']['ms']:.3f})")
-    main_route = next(r for r in ("bf16_wgmma", "f32_3xtf32", *routes)
-                      if r in routes)
+    main_route = next(r for r in ("bf16_wgmma", "f16_wgmma", "f32_3xtf32",
+                                  *routes) if r in routes)
     r = routes[main_route]
     # the 3xTF32 bound: three TF32 products for each float32 one
     tf32_bnd = (bound_ms(nbytes, TF32_PRODUCTS * flops, "tf32")[0]
                 if main_route == "f32_3xtf32" else bnd)
     return dict(max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=plain_ms,
                 bound_ms=tf32_bnd, bound_by=by, library_ms=lib,
-                route_ms={k: v["ms"] for k, v in routes.items()})
+                route_ms={k: v["ms"] for k, v in routes.items()},
+                checked_launches=checked[main_route])
+
+
+def f16_overflow_case(torch, dev, gen, card: str) -> dict:
+    """A pinned divergence (ROADMAP Queue 3): ``f16_wgmma`` rounds dS = p
+    (dp - delta) to float16 before dQ += dS K and dK += dS^T Q, where
+    ``f16_simt`` keeps it in float32.  Scores near zero (q, k ~ 0.003)
+    spread p over 1024 keys; |dout| ~ 1e4 and |v| ~ 1e3 put |dp - delta|
+    near 1e8 and |dS| past 65504, while every true gradient stays below
+    1e4.  Runs both routes and the plain version (float32 inside) on the
+    same values, prints which give finite dq, dk, dv, and checks the
+    pinned outcome: the plain version and ``f16_simt`` finite,
+    ``f16_wgmma``'s dq and dk not, its dv (from P alone) finite."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    b, h, s, d = 1, 2, 1024, 128
+    dt = torch.float16
+    q, k = (3e-3 * torch.randn((b, h, s, d), generator=gen, device=dev)
+            for _ in range(2))
+    v = 1e3 * torch.randn((b, h, s, d), generator=gen, device=dev)
+    dout = 1e4 * torch.randn((b, h, s, d), generator=gen, device=dev)
+    q, k, v, dout = (x.to(dt) for x in (q, k, v, dout))
+    kw = dict(causal=False, window=None, scale=d ** -0.5)
+    out, lse = fa_ops._attend(q, k, v, lse=True, **kw)
+    finite = {}
+    for route, qq, saved in (("f16_wgmma", q, lse),
+                             ("f16_simt", odd_offset(q), None)):
+        fa_ops.flash_attention_bwd.routes = {}
+        got = fa_ops.flash_attention_bwd(qq, k, v, out, dout, lse=saved, **kw)
+        check(fa_ops.flash_attention_bwd.routes == {route: 1},
+              f"[train] f16 overflow case: launched "
+              f"{fa_ops.flash_attention_bwd.routes}, expected {route}")
+        finite[route] = [bool(torch.isfinite(g).all()) for g in got]
+    plain = fa_ref.attention_grad(q, k, v, dout, **kw)
+    finite["plain"] = [bool(torch.isfinite(g).all()) for g in plain]
+    largest = [g.float().abs().max().item() for g in plain]
+    print(f"[train] f16 overflow case (q, k ~ 3e-3, v ~ 1e3, dout ~ 1e4, "
+          f"({b}, {h}, {s}, {d}), non-causal): dq, dk, dv finite: "
+          + "; ".join(f"{r} {f}" for r, f in finite.items())
+          + f"; the plain version's largest |dq|, |dk|, |dv| "
+          f"{largest[0]:.1f}, {largest[1]:.1f}, {largest[2]:.1f} ({card})")
+    check(finite["plain"] == finite["f16_simt"] == [True] * 3
+          and finite["f16_wgmma"] == [False, False, True],
+          f"[train] f16 overflow case: finite dq, dk, dv {finite}, expected "
+          f"the pinned divergence (f16_wgmma's dq and dk not finite)")
+    return finite
 
 
 # the rest of the LM stack: granite-moe-3b-a800m served at its published
@@ -2136,6 +2242,10 @@ FAMILY_ATTN = {
     "Phi-3-vision (32/32, d 96)": (2, 32, 32, 4096, 4096, 96, True),
     "h2o-danube (32/8, d 80)": (2, 32, 8, 4096, 4096, 80, True),
 }
+# the families' shapes that also run in float16, both ways on f16_wgmma:
+# d 64, 80 and 96 (its last 64-column panel of 16 / 32 real columns)
+FAMILY_F16 = ("Granite-MoE-3B (24/8, d 64)", "Phi-3-vision (32/32, d 96)",
+              "h2o-danube (32/8, d 80)")
 # float32 attention at the shape [lm_mesh]'s FSDP step gives it (the
 # whole batch of h2o-danube-1.8b, 8 x 1024, window 4096): the training
 # forward on f32_3xtf32, timed beside f32_simt on the same values, its
@@ -2805,21 +2915,26 @@ def gemma_f32_train(torch, dev, card: str, zero_counts, counts) -> dict:
 
 def family_attention_timed(torch, dev, gen, card: str) -> dict:
     """Attention at the shapes the new families give it (FAMILY_ATTN), in
-    bf16 through the entry points: the forward (its route, held to its
-    plain version) and the backward (with the forward's log-sum-exp where
-    the route hands one back, held within BF16_SLICE_NRMS), each timed
-    beside its bound, its plain version and SDPA's (a yardstick the port
-    never calls).  Every shape takes the tensor cores both ways; where its
-    head dim is no multiple of 64 (Phi-3-vision's 96, h2o-danube's 80)
-    each direction is also timed on ``bf16_simt`` (the same values one
-    element into their storage), which ``bf16_wgmma`` must beat.  Returns
-    the numbers by shape."""
+    bf16 (and at FAMILY_F16's in f16) through the entry points: the
+    forward (its route, held to its plain version) and the backward (with
+    the forward's log-sum-exp where the route hands one back, held within
+    the dtype's slice limit of HALF_LIMITS), each timed beside its bound,
+    its plain version and SDPA's (a yardstick the port never calls).
+    Every shape takes the tensor cores both ways; where its head dim is no
+    multiple of 64 (Phi-3-vision's 96, h2o-danube's 80) each bf16
+    direction is also timed on ``bf16_simt`` (the same values one element
+    into their storage), which ``bf16_wgmma`` must beat.  Returns the
+    numbers by dtype and shape."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
-    out = {}
-    for name, (b, hq, hkv, sq, skv, d, causal) in FAMILY_ATTN.items():
-        dt = torch.bfloat16
+    out = {"bf16": {}, "f16": {}}
+    for key, name, (b, hq, hkv, sq, skv, d, causal) in (
+            [("bf16", *item) for item in FAMILY_ATTN.items()]
+            + [("f16", name, FAMILY_ATTN[name]) for name in FAMILY_F16]):
+        dt = torch.bfloat16 if key == "bf16" else torch.float16
+        dname = str(dt).removeprefix("torch.")
+        wgmma = fa_ops.WGMMA_ROUTES[dt][0]
         q = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(dt)
         k, v = (torch.randn((b, hkv, skv, d), generator=gen,
                             device=dev).to(dt) for _ in range(2))
@@ -2831,11 +2946,19 @@ def family_attention_timed(torch, dev, gen, card: str) -> dict:
               f"[attn families] {name}: routes "
               f"{fa_ops.flash_attention.routes}, expected {route}")
         exp32 = fa_ref.attention(q.float(), k.float(), v.float(), **kw)
-        stats = bf16_attention_error(got, exp32, v)
-        check(bf16_within(stats), f"[attn families] {name}: outside the "
-              f"bf16 limits {stats}")
+        stats = half_attention_error(got, exp32, v)
+        check(half_within(stats, dname), f"[attn families] {name}: "
+              f"outside the {dname} limits {stats}")
         exp = fa_ref.attention(q, k, v, **kw)
         err = (got.double() - exp.double()).abs().max().item()
+        tol = ATTN_TOL[dname]
+        check(torch.allclose(got.float(), exp.float(), rtol=tol, atol=tol),
+              f"[attn families] {name} {dname}: max_abs_err {err:.3e} "
+              f"against the plain version (tolerance {tol})")
+        # no atomics: a second call gives the same bits
+        check(torch.equal(bits(torch, got), bits(torch, fa_ops.flash_attention(
+            q, k, v, causal=causal, bkv=skv))), f"[attn families] {name} "
+              f"{dname}: two calls differ")
         ms = time_ms(torch, lambda: fa_ops.flash_attention(
             q, k, v, causal=causal, bkv=skv))
         plain = time_ms(torch, lambda: fa_ref.attention(q, k, v, **kw),
@@ -2846,15 +2969,15 @@ def family_attention_timed(torch, dev, gen, card: str) -> dict:
         pairs = b * (visible_pairs(sq, None) if causal else sq * skv)
         flops = 4 * hq * d * pairs
         nbytes = 2 * (2 * q.numel() + 2 * k.numel())
-        bnd, by = bound_ms(nbytes, flops, "bfloat16")
+        bnd, by = bound_ms(nbytes, flops, dname)
         # the backward: the training forward hands it the log-sum-exp
         # where its route gives one
         o, lse = fa_ops._attend(q, k, v, lse=True, **kw)
         dout = torch.randn(o.shape, generator=gen, device=dev).to(dt)
         bwd_route = fa_ops.bwd_route(dt, d, fa_ops._bwd_addresses(
             q, k, v, o, dout, lse))
-        check(route == bwd_route == "bf16_wgmma", f"[attn families] "
-              f"{name}: routes {route} / {bwd_route}, expected bf16_wgmma")
+        check(route == bwd_route == wgmma, f"[attn families] {name}: "
+              f"routes {route} / {bwd_route}, expected {wgmma}")
         fa_ops.flash_attention_bwd.routes = {}
         grads = fa_ops.flash_attention_bwd(q, k, v, o, dout, lse=lse, **kw)
         check(fa_ops.flash_attention_bwd.routes == {bwd_route: 1},
@@ -2863,8 +2986,9 @@ def family_attention_timed(torch, dev, gen, card: str) -> dict:
         exp_g = fa_ref.attention_grad(q.float(), k.float(), v.float(),
                                       dout.float(), **kw)
         nrms = max(slice_nrms(g, e) for g, e in zip(grads, exp_g))
-        check(nrms <= BF16_SLICE_NRMS, f"[attn families] {name} backward "
-              f"({bwd_route}): rms error per head slice {nrms:.3e}")
+        check(nrms <= HALF_LIMITS[dname][2], f"[attn families] {name} "
+              f"{dname} backward ({bwd_route}): rms error per head slice "
+              f"{nrms:.3e}")
         del grads, exp_g
         bwd_ms = time_ms(torch, lambda: fa_ops.flash_attention_bwd(
             q, k, v, o, dout, lse=lse, **kw), iters=5, warmup=1)
@@ -2876,9 +3000,27 @@ def family_attention_timed(torch, dev, gen, card: str) -> dict:
         bwd_sdpa = time_ms(torch, lambda: torch.autograd.grad(
             o2, leaves, dout, retain_graph=True), iters=5, warmup=1)
         bwd_bnd, bwd_by = bound_ms(2 * (4 * q.numel() + 4 * k.numel()),
-                                   10 * hq * d * pairs, "bfloat16")
+                                   10 * hq * d * pairs, dname)
         simt = {}
-        if d % 64:
+        if key == "f16":
+            # the CUDA-core forward on the same values (q one element in),
+            # which f16_wgmma must beat
+            odd = odd_offset(q)
+            fa_ops.flash_attention.routes = {}
+            fa_ops.flash_attention(odd, k, v, causal=causal, bkv=skv)
+            check(fa_ops.flash_attention.routes == {"f16_simt": 1},
+                  f"[attn families] {name}: q at an odd offset took "
+                  f"{fa_ops.flash_attention.routes}, expected f16_simt")
+            simt = dict(simt_ms=time_ms(torch, lambda: fa_ops.flash_attention(
+                odd, k, v, causal=causal, bkv=skv), iters=3, warmup=1))
+            del odd
+            check(ms < simt["simt_ms"], f"[attn families] {name}: f16_wgmma "
+                  f"{ms:.3f} ms is not below f16_simt's "
+                  f"{simt['simt_ms']:.3f} ms")
+            print(f"[attn families] {name}: f16_simt forward (q at an odd "
+                  f"offset) {simt['simt_ms']:.3f} ms; f16_wgmma "
+                  f"{simt['simt_ms'] / ms:.1f}x faster")
+        if d % 64 and key == "bf16":
             # the CUDA-core loops on the same values: q one element in
             odd = odd_offset(q)
             fa_ops.flash_attention.routes = {}
@@ -2905,22 +3047,23 @@ def family_attention_timed(torch, dev, gen, card: str) -> dict:
                   f"{simt['bwd_simt_ms']:.3f} ms; bf16_wgmma "
                   f"{simt['simt_ms'] / ms:.1f}x / "
                   f"{simt['bwd_simt_ms'] / bwd_ms:.1f}x faster")
-        print(f"[attn families] {name} bf16 (q ({b}, {hq}, {sq}, {d}), k, v "
-              f"({b}, {hkv}, {skv}, {d}), {'causal' if causal else 'non-causal'}): "
+        print(f"[attn families] {name} {key} (q ({b}, {hq}, {sq}, {d}), k, "
+              f"v ({b}, {hkv}, {skv}, {d}), "
+              f"{'causal' if causal else 'non-causal'}): "
               f"forward [{route}] {ms:.3f} ms ({flops / ms / 1e9:.2f} "
               f"TFLOP/s), plain {plain:.3f} ms, SDPA {sdpa:.3f} ms, bound "
               f"{bnd:.4f} ms ({by}); max_abs_err {err:.3e} against the plain "
-              f"version, bf16 limits {stats}; backward [{bwd_route}] "
+              f"version, {key} limits {stats}; backward [{bwd_route}] "
               f"{bwd_ms:.3f} ms, plain {bwd_plain:.3f} ms, SDPA's backward "
               f"{bwd_sdpa:.3f} ms, bound {bwd_bnd:.4f} ms ({bwd_by}), rms "
               f"error per head slice {nrms:.3e} ({card})")
-        out[name] = dict(route=route, ms=ms, plain_ms=plain, bound_ms=bnd,
-                         bound_by=by, library_ms=sdpa, max_abs_err=err,
-                         bwd_route=bwd_route, bwd_ms=bwd_ms,
-                         bwd_plain_ms=bwd_plain, bwd_library_ms=bwd_sdpa,
-                         bwd_bound_ms=bwd_bnd, **simt)
+        out[key][name] = dict(
+            route=route, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+            library_ms=sdpa, max_abs_err=err, bwd_route=bwd_route,
+            bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain, bwd_library_ms=bwd_sdpa,
+            bwd_bound_ms=bwd_bnd, **simt)
         del q, k, v, got, exp, exp32, o, lse, dout, leaves, o2
-    return {"bf16": out, "f32": f32_attention_timed(torch, dev, gen, card)}
+    return {**out, "f32": f32_attention_timed(torch, dev, gen, card)}
 
 
 def f32_attention_timed(torch, dev, gen, card: str) -> dict:
@@ -5050,12 +5193,14 @@ def main() -> int:
                 spill = line.strip()
             elif "registers" in line and kernel_name:
                 regs = line.split("Used")[1].split(",")[0].strip()
-                # the backward's tensor-core kernels hold their
-                # accumulators in registers, and must not spill them
-                # (the float32 ones and the 3xTF32 forward too)
+                # the tensor-core attention kernels hold their
+                # accumulators in registers, and must not spill them (the
+                # backward's of every dtype, the 16-bit forward of bf16
+                # and f16, and the 3xTF32 forward)
                 check(not (("attention_bwd" in kernel_name
                             and ("wgmma" in kernel_name
                                  or "tf32" in kernel_name))
+                           or "flash_attention_wgmma" in kernel_name
                            or "flash_attention_tf32" in kernel_name
                            or "gemm_tf32_kernel" in kernel_name
                            or "chain_dot_tf32_kernel" in kernel_name)
@@ -5111,10 +5256,14 @@ def main() -> int:
                 continue
             # each head dim's instantiation of the attention tensor-core
             # kernels, those whose last panel is partly real among them
-            # (the 3xTF32 forward's with and without its log-sum-exp apart,
-            # and the 3xTF32 dk/dv kernel's dV and dK sweeps)
+            # (the 16-bit kernels' bf16 and f16 ones apart, by their
+            # mangled element type; the 3xTF32 forward's with and without
+            # its log-sum-exp apart, and the 3xTF32 dk/dv kernel's dV and
+            # dK sweeps)
             if "tf32" not in name:
-                tags = {d: f"{name}ILi{d}E" for d in fa_ops.WGMMA_HEAD_DIMS}
+                tags = {f"{d} {key}": f"{name}ILi{d}E{mangled}"
+                        for d in fa_ops.WGMMA_HEAD_DIMS
+                        for key, mangled in HALF_MANGLED.items()}
             elif "dq" in name:
                 tags = {d: f"{name}ILi{d}E" for d in fa_ops.TF32_HEAD_DIMS}
             else:
@@ -5127,6 +5276,22 @@ def main() -> int:
             print(f"[build]   {op} by head dim: {per_d}")
             check(all(per_d.values()), f"{name}: an instantiation without "
                   f"{op} in its SASS ({per_d})")
+            if "tf32" in name:
+                continue
+            # the operand type of each 16-bit instantiation's HGMMA: bf16
+            # ones name it (HGMMA.64x64x16.F32.BF16), f16 ones do not
+            # (HGMMA.64x64x16.F32, the f16 form), and none is TF32
+            for key, mangled in HALF_MANGLED.items():
+                kinds = {line.split("HGMMA")[1].split()[0]
+                         for f in functions
+                         if f"{name}ILi" in f.split("\n", 1)[0]
+                         and mangled in f.split("\n", 1)[0]
+                         for line in f.splitlines() if "HGMMA" in line}
+                want = ".F32.BF16" if key == "bf16" else ".F32"
+                print(f"[build]   {key} HGMMA forms: {sorted(kinds)}")
+                check(bool(kinds) and all(x.endswith(want) for x in kinds),
+                      f"{name} {key}: HGMMA forms {sorted(kinds)}, each "
+                      f"expected to end in {want}")
 
     # -- 3. GEMM kernel against its plain version ----------------------------
     gen = torch.Generator(device=dev)
@@ -5504,6 +5669,13 @@ def main() -> int:
             times[dout] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                bound_ms=bnd, bound_by=by, library_ms=lib,
                                gemm_route=path)
+            if dout == din:
+                # torch.matmul in the input's own dtype: the yardstick of
+                # a tensor-core route for it
+                times[dout]["matmul_ms"] = graph_ms(
+                    torch, lambda: torch.matmul(a, b))
+                lib_says += (f", torch.matmul "
+                             f"{times[dout]['matmul_ms']:.4f} ms")
             print(f"[gemm] matmul {IB}^3 {din} -> {dout} [{path}]: kernel "
                   f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
                   f"{plain:.4f} ms, {lib_says}, bound {bnd:.4f} ms ({by})")
@@ -5896,9 +6068,10 @@ def main() -> int:
 
     def attn_compare(name, got, q, k, v, causal, window, blk, dname):
         """``got`` against the plain version (the oracle on the padded
-        inputs) at the reference's tolerance and, in bfloat16, against the
-        float32 oracle on the same inputs to the limits scaled to each
-        value (``bf16_attention_error``).  Returns the largest error."""
+        inputs) at the reference's tolerance and, in bfloat16 and float16,
+        against the float32 oracle on the same inputs to the dtype's limits
+        scaled to each value (``half_attention_error``).  Returns the
+        largest error."""
         sq = q.shape[2]
         padded = fa_ops.pad(q, k, v, causal=causal, window=window, bq=blk,
                             bkv=blk)
@@ -5906,17 +6079,18 @@ def main() -> int:
                                window=window)[:, :, :sq]
         tol = ATTN_TOL[dname]
         err = close("attn", name, got, exp, tol, tol)
-        if dname == "bfloat16":
+        if dname in HALF_LIMITS:
             del exp
             exp32 = fa_ref.attention(*(t.float() for t in padded),
                                      causal=causal, window=window)[:, :, :sq]
-            stats = bf16_attention_error(got, exp32, padded[2])
-            print(f"[attn]   bf16 limits: element {stats['element']:.3f} of "
-                  f"its limit (<= 1), slice rms {stats['slice']:.3e} (<= "
-                  f"{BF16_SLICE_NRMS:.3e}), row rms {stats['row']:.3e} (<= "
-                  f"{BF16_ROW_NRMS:.3e})")
-            check(bf16_within(stats), f"{name}: outside the bf16 limits: "
-                  f"{stats}")
+            stats = half_attention_error(got, exp32, padded[2])
+            _, _, slice_lim, row_lim = HALF_LIMITS[dname]
+            print(f"[attn]   {dname} limits: element {stats['element']:.3f} "
+                  f"of its limit (<= 1), slice rms {stats['slice']:.3e} (<= "
+                  f"{slice_lim:.3e}), row rms {stats['row']:.3e} (<= "
+                  f"{row_lim:.3e})")
+            check(half_within(stats, dname), f"{name}: outside the {dname} "
+                  f"limits: {stats}")
         return err
 
     tf32_ratios = []
@@ -5978,23 +6152,22 @@ def main() -> int:
           f"{fa_ops.TF32_HEAD_DIMS} and q, k, v, out 16-byte aligned, "
           f"f32_simt for any other float32; bf16_wgmma for bfloat16 with d in "
           f"{fa_ops.WGMMA_HEAD_DIMS} and the operands 16-byte aligned, "
-          f"bf16_simt for any other bfloat16; f16_simt for float16")
+          f"bf16_simt for any other bfloat16; f16_wgmma / f16_simt for "
+          f"float16 by bfloat16's rule")
     small = [("", case, 16, "float32") for case in ATTN_CASES]
     small.append(("", (1, 4, 2, 64, 64, 16, True, None), 32, "bfloat16"))
     small.append(("", (1, 4, 2, 64, 64, 16, True, None), 32, "float16"))
-    small.append((" mid", MID_ATTN[1][:5] + (64,) + MID_ATTN[1][5:7],
-                  MID_ATTN[1][7], "float16"))
     # the reference's cases again at head dims the tensor cores take, and
     # rows past Skv + window that see no key
     for d in (64, 128):
-        for dname in ("float32", "bfloat16"):
+        for dname in ("float32", "bfloat16", "float16"):
             small += [("", case[:5] + (d,) + case[6:], 16, dname)
                       for case in ATTN_CASES]
             small.append(("", (1, 2, 2, 64, 32, d, True, 8), 16, dname))
     # many key tiles per query tile, at every head dim of the tensor cores
     # (float32 at the 3xTF32 route's d 64, 80, 96 and 128)
     for d in MID_HEAD_DIMS:
-        for dname in ("float32", "bfloat16"):
+        for dname in ("float32", "bfloat16", "float16"):
             if dname == "float32" and fa_ops.route(
                     torch.float32, d) != "f32_3xtf32":
                 continue
@@ -6014,11 +6187,12 @@ def main() -> int:
         attn_compare(name, got, q, k, v, causal, window, blk, dname)
         if path == "f32_3xtf32":
             tf32_accuracy(name, got, q, k, v, causal, window, blk)
-        # bf16 at every head dim of WGMMA_HEAD_DIMS takes the tensor cores
-        # (h2o-danube's d 80 and MID_ATTN's d 80 / 96 among them)
-        check(dname != "bfloat16" or d not in fa_ops.WGMMA_HEAD_DIMS
-              or path == "bf16_wgmma",
-              f"{name}: took {path}, expected bf16_wgmma")
+        # bf16 and f16 at every head dim of WGMMA_HEAD_DIMS take the
+        # tensor cores (h2o-danube's d 80 and MID_ATTN's d 80 / 96 among
+        # them)
+        wgmma = fa_ops.WGMMA_ROUTES.get(getattr(torch, dname), (None,))[0]
+        check(wgmma is None or d not in fa_ops.WGMMA_HEAD_DIMS
+              or path == wgmma, f"{name}: took {path}, expected {wgmma}")
         seen = fa_ref.mask(sq, skv, causal=causal, window=window, device=dev)
         blind = ~seen.any(dim=-1)
         if blind.any():
@@ -6049,6 +6223,18 @@ def main() -> int:
     attn_compare(f"flash_attention (1, 2, 2, 256, 256, 96) causal True "
                  f"bfloat16, views at an odd 2-byte offset [{path}]", got, q,
                  k, v, True, None, 256, "bfloat16")
+    # float16 views one element in, at d 128 and 96, where aligned ones
+    # take f16_wgmma: the CUDA-core loop
+    for shape_ in (shape, shape96):
+        q, k, v = (odd_offset(rand(shape_, torch.float16)) for _ in range(3))
+        got, path = attn_run(q, k, v, causal=True, window=None, bq=256,
+                             bkv=256)
+        check(path == "f16_simt", f"flash attention on float16 views at an "
+              f"odd offset (d {shape_[3]}) took {path}, expected f16_simt")
+        b_, h_, s_, d_ = shape_
+        attn_compare(f"flash_attention {(b_, h_, h_, s_, s_, d_)} causal "
+                     f"True float16, views at an odd 2-byte offset [{path}]",
+                     got, q, k, v, True, None, 256, "float16")
     # and float32 views one element (4 bytes) in: the 3xTF32 loop's 16-byte
     # loads cannot read them, so they take the CUDA cores
     q, k, v = (odd_offset(rand(shape, torch.float32)) for _ in range(3))
@@ -6071,8 +6257,9 @@ def main() -> int:
 
     attn_times = {}
     for model, (b, hq, hkv, s, d, window) in FULL_ATTN.items():
-        for dname in ("float32", "bfloat16"):
-            dt = dtypes[dname]
+        for dname in ("float32", "bfloat16") + (
+                ("float16",) if model in FULL_ATTN_F16 else ()):
+            dt = getattr(torch, dname)
             label = f"flash_attention {model} {dname}"
             q, k, v = attn_inputs(b, hq, hkv, s, s, d, dt)
 
@@ -6097,6 +6284,12 @@ def main() -> int:
             err = attn_compare(name, got, q, k, v, True, window, 512, dname)
             if path == "f32_3xtf32":
                 tf32_accuracy(name, got, q, k, v, True, window, 512)
+            if dname == "float16":
+                # no atomics: a second call gives the same bits
+                again = run()
+                check(torch.equal(bits(torch, got), bits(torch, again)),
+                      f"{label}: two calls differ")
+                del again
             del got
             ms = time_ms(torch, run, iters=5, warmup=1)
             plain = time_ms(torch, lambda q=q, k=k, v=v, window=window:
@@ -6155,6 +6348,34 @@ def main() -> int:
                           f"f32_3xtf32 {simt_ms / ms:.2f}x faster")
             else:
                 bnd, by = bound_ms(nbytes, flops, dname)
+            if dname == "float16":
+                # the CUDA-core loop on the same values (q, k, v one
+                # element into their storage), which f16_wgmma must beat,
+                # as it must the plain version
+                odd = [odd_offset(x) for x in (q, k, v)]
+                fa_ops.flash_attention.routes = {}
+                simt_out = fa_ops.flash_attention(*odd, causal=True,
+                                                  window=window)
+                check(fa_ops.flash_attention.routes == {"f16_simt": 1},
+                      f"{label}: q, k, v one element in took "
+                      f"{fa_ops.flash_attention.routes}")
+                simt_err = (simt_out.double() - fa_ref.attention(
+                    q, k, v, causal=True, window=window).double()
+                ).abs().max().item()
+                del simt_out
+                simt_ms = time_ms(torch, lambda odd=odd, window=window:
+                                  fa_ops.flash_attention(
+                                      *odd, causal=True, window=window),
+                                  iters=3, warmup=1)
+                del odd
+                check(ms < simt_ms and ms < plain, f"{label}: f16_wgmma "
+                      f"{ms:.3f} ms is not below f16_simt's {simt_ms:.3f} "
+                      f"and the plain version's {plain:.3f}")
+                simt = dict(simt_ms=simt_ms, simt_max_abs_err=simt_err)
+                print(f"[attn] {label}: f16_simt on the same values (q, k, "
+                      f"v one element in) {simt_ms:.3f} ms, max_abs_err "
+                      f"{simt_err:.3e} against the plain version; f16_wgmma "
+                      f"{simt_ms / ms:.2f}x faster, two calls bit for bit")
             print(f"[attn] {label} [{path}]: first call {wall * 1e3:.3f} ms "
                   f"wall; kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s), "
                   f"plain {plain:.3f} ms, scaled_dot_product_attention "
@@ -7162,6 +7383,16 @@ def main() -> int:
          "src/repro/kernels/flash_attention/kernel.py:100",
          path_counts[attn_f32_label]["flash_attention"],
          attn_times[("Qwen3-14B", "float32")]),
+        # float16 on the tensor cores (f16_wgmma, attn_wgmma.cuh's loop
+        # instantiated for f16): no model runs float16, so its launches
+        # are those of [attn]'s Qwen3-14B float16 run, its numbers that
+        # run's (RecurrentGemma-9B's beside them)
+        ("flash_attention.f16",
+         "src/repro_torch/kernels/flash_attention/csrc/attn_wgmma.cuh",
+         "src/repro/kernels/flash_attention/kernel.py:100",
+         path_counts["flash_attention Qwen3-14B float16"]["flash_attention"],
+         dict(attn_times[("Qwen3-14B", "float16")],
+              rg9b=attn_times[("RecurrentGemma-9B", "float16")])),
         ("linear_scan",
          "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
          "src/repro/kernels/linear_scan/kernel.py:50",
@@ -7196,6 +7427,17 @@ def main() -> int:
          gemma32["bwd_launches"] * GEMMA_F32_STEPS,
          {k: v for k, v in train["flash_attention_bwd.f32_d256"].items()
           if k != "route_ms"}),
+        # the float16 backward on the tensor cores (f16_wgmma): no model
+        # runs float16; its launches are [train]'s checked f16 calls at
+        # Qwen3-14B's width and RecurrentGemma-9B's training shape, its
+        # numbers Qwen3-14B's (RG-9B's beside them)
+        ("flash_attention_bwd.f16",
+         "src/repro_torch/kernels/flash_attention/csrc/attn_bwd_wgmma.cuh",
+         "src/repro/kernels/flash_attention/ref.py:7",
+         train["flash_attention_bwd.f16"]["checked_launches"]
+         + train["flash_attention_bwd.f16"]["rg9b"]["checked_launches"],
+         {k: v for k, v in train["flash_attention_bwd.f16"].items()
+          if k not in ("route_ms", "checked_launches")}),
     )
     # the served steps launch the GEMM's accumulate and chain_attn too: one
     # each a step, counted on the launchers in every serving arm
@@ -7256,6 +7498,20 @@ def main() -> int:
     b256_row["gemma_step"] = {k: gemma32[k] for k in (
         "step_walls_s", "model_tflops", "peak_bytes", "attention_ms",
         "device_ms")}
+    # float16: the launches of [attn]'s cases on f16_wgmma, and the
+    # families' shapes both ways
+    f16_row = next(k for k in kernels if k["name"] == "flash_attention.f16")
+    f16_row["attn_launches"] = attn_route_launches["f16_wgmma"]
+    f16_row["family_shapes"] = {
+        name: {k: v for k, v in t.items() if not k.startswith("bwd_")}
+        for name, t in fam_attn["f16"].items()}
+    bwd16_row = next(k for k in kernels
+                     if k["name"] == "flash_attention_bwd.f16")
+    bwd16_row["family_shapes"] = {
+        name: {"route": t["bwd_route"], "ms": t["bwd_ms"],
+               "plain_ms": t["bwd_plain_ms"], "bound_ms": t["bwd_bound_ms"],
+               "library_ms": t["bwd_library_ms"]}
+        for name, t in fam_attn["f16"].items()}
     bwd_row = next(k for k in kernels if k["name"] == "flash_attention_bwd")
     bwd_row["family_train_launches"] = {
         name: {"launches": t["bwd_launches"], "routes": t["bwd_routes"]}

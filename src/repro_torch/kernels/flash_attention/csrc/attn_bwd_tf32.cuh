@@ -118,11 +118,15 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "attn_mask.cuh"
 #include "attn_tf32.cuh"
 
 namespace bind_attn_bwd_tf {
 
+using bind_attn::capped;
 using bind_attn::Mask;
+using bind_attn::visible;
+using bind_attn::window32;
 using bind_attn_tf::fence_async_shared;
 using bind_attn_tf::key_slot;
 using bind_attn_tf::ld4;
@@ -187,24 +191,6 @@ struct Shape {
   float* part;
   int64_t groups;
 };
-
-// whether a row sees a key diff = row - key before it, `left` keys short of
-// Skv (left > 0: the key exists), under a window of win keys; 32-bit
-__device__ __forceinline__ bool visible(const Mask& mask, int diff, int left,
-                                        int win) {
-  bool vis = left > 0;
-  if (mask.causal) vis = vis && diff >= 0;
-  if (mask.windowed) vis = vis && diff < win;
-  return vis;
-}
-
-__device__ __forceinline__ int window32(const Mask& mask) {
-  return static_cast<int>(mask.window < (1 << 30) ? mask.window : (1 << 30));
-}
-
-__device__ __forceinline__ int capped(int64_t a, int cap) {
-  return static_cast<int>(a < cap ? a : cap);
-}
 
 // x, opaque to the compiler: what a loop derives from it (descriptors,
 // shared-memory offsets) is formed where it is used, each iteration, and

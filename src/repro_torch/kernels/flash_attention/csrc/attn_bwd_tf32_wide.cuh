@@ -63,20 +63,21 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "attn_mask.cuh"
 #include "attn_tf32_wide.cuh"
 
 namespace bind_attn_bwd_tfw {
 
+using bind_attn::capped;
 using bind_attn::Mask;
-using bind_attn_bwd_tf::capped;
+using bind_attn::visible;
+using bind_attn::window32;
 using bind_attn_bwd_tf::desc;
 using bind_attn_bwd_tf::desc_lo;
 using bind_attn_bwd_tf::LOG2E;
 using bind_attn_bwd_tf::opaque;
 using bind_attn_bwd_tf::Shape;
 using bind_attn_bwd_tf::split;
-using bind_attn_bwd_tf::visible;
-using bind_attn_bwd_tf::window32;
 using bind_attn_tf::fence_async_shared;
 using bind_attn_tf::key_slot;
 using bind_attn_tf::ld4;

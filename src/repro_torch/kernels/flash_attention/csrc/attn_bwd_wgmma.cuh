@@ -1,10 +1,14 @@
-// The bfloat16 route of the attention backward on the tensor cores
-// (bf16_wgmma): dq, dk, dv of out = softmax(q k^T * scale + mask) v from q,
-// k, v, out, dout and the forward's per-row log-sum-exp, built from the
-// pieces of the forward's tensor-core loop (attn_wgmma.cuh: the wgmma
-// forms, the exp2, the packing of an accumulator into bf16 A registers) and
-// of the GEMM's (gemm/csrc/gemm_wgmma.cuh: mbarriers, TMA tensor maps, wgmma
-// descriptors, the transposed-B form).
+// The 16-bit routes of the attention backward on the tensor cores,
+// bfloat16 (bf16_wgmma) and float16 (f16_wgmma): dq, dk, dv of out =
+// softmax(q k^T * scale + mask) v from q, k, v, out, dout and the forward's
+// per-row log-sum-exp, built from the pieces of the forward's tensor-core
+// loop (attn_wgmma.cuh: the wgmma forms, the exp2, the packing of an
+// accumulator into A registers of the element type) and of the GEMM's
+// (gemm/csrc/gemm_wgmma.cuh: mbarriers, TMA tensor maps, wgmma descriptors,
+// the transposed-B form).  The element type T is a template parameter of
+// every kernel here; attn_wgmma.cuh's Elem<T> holds what differs between
+// bf16 and f16 (wgmma's operand type, the packing of P and dS, the stores,
+// TMA's data type); the rest is one code for both.
 //
 // What bounds it on an H100: operations.  Per head and visible (row, key)
 // pair the gradient needs five products of 2 d FLOP (s, dp, dq, dk, dv):
@@ -18,7 +22,7 @@
 // Three launches (four with head groups):
 //   (i)   attention_bwd_delta_kernel: delta = sum_c dout_c out_c per row
 //         into a (B, Hq, Sq) float32 scratch, one warp a row, lanes over
-//         bf16 pairs and a fixed shuffle tree.  Bound by bytes (it reads
+//         pairs of elements and a fixed shuffle tree.  Bound by bytes (it reads
 //         out and dout once), so it is a plain CUDA kernel in this
 //         library: it builds with the kernels it feeds, and the path
 //         imports no Triton;
@@ -32,8 +36,8 @@
 //         2^(s scale log2 e - lse log2 e) and ds = p (dp - delta) on the
 //         accumulator fragment, lse and delta read once a row, and dQ +=
 //         dS K with dS from registers (the S accumulator paired into
-//         bf16x2 is the A operand of a k16 step, the forward's P V form)
-//         and K N-major (the transposed-B form);
+//         bf16x2 or f16x2 is the A operand of a k16 step, the forward's
+//         P V form) and K N-major (the transposed-B form);
 //   (iii) attention_bwd_dkv_wgmma_kernel, one block per (128 keys, kv head,
 //         head group, batch), two warpgroups of 64 keys sharing Q and dO
 //         tiles of 64 query rows in a ring; K and V stay in shared memory.
@@ -97,7 +101,13 @@
 // error of a head slice is about 2^-9 / sqrt(3) of its rms, 1e-3, inside
 // chip_smoke.py's 2^-7 rms per head slice.  delta comes from the stored
 // bf16 output, as on the CUDA-core route.  The sums are f32, each gradient
-// rounded once to bf16.
+// rounded once to bf16.  In float16 P and dS move by at most 2^-11
+// relative (f16's unit roundoff; 2^-25 absolute below 2^-14, its
+// subnormals), eight times less: chip_smoke.py holds f16_wgmma to 2^-10
+// rms per head slice.  Unlike the CUDA-core route, which keeps dS in fp32,
+// this route rounds dS = p (dp - delta) to f16 before dQ += dS K and dK +=
+// dS^T Q: where |dS| passes 65504 (|dout| |v| of order 1e7 or more) it is
+// inf, and so are the gradients it feeds (ROADMAP Queue 3).
 //
 // Head dims that are no multiple of 64 (80, 96) take the forward's scheme
 // (attn_wgmma.cuh): ceil(d / 64) panels, the last one's columns past d
@@ -109,7 +119,7 @@
 // 96.
 //
 // TMA needs 16-byte-aligned bases, and the tiles are 64 columns wide: the
-// route (flash_attention_bwd.cu route_of) takes bf16 with d one of
+// routes (flash_attention_bwd.cu route_of) take bf16 or f16 with d one of
 // wgmma_head_dim's (64, 80, 96, 128, 192, 256), q, k, v, out, dout and the
 // log-sum-exp 16-byte aligned, and a log-sum-exp saved by the forward; any
 // other call takes the CUDA cores.
@@ -120,21 +130,27 @@
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include "attn_mask.cuh"
 #include "attn_wgmma.cuh"
 
 namespace bind_attn_bwd {
 
+using bind_attn::capped;
 using bind_attn::Mask;
+using bind_attn::visible;
+using bind_attn::window32;
+using bind_attn_wg::Elem;
 using bind_attn_wg::exp2_fast;
 using bind_attn_wg::issue_pv;
 using bind_attn_wg::issue_qk;
-using bind_attn_wg::pack_bf16;
 using bind_attn_wg::panels;
 using bind_attn_wg::pin;
 using bind_attn_wg::pin_acc;
 using bind_attn_wg::real_cols;
+using bind_attn_wg::store2;
 using bind_attn_wg::warpgroup_sync;
 using bind_gemm::mbar_expect;
 using bind_gemm::mbar_init;
@@ -250,46 +266,23 @@ __device__ __forceinline__ void release(unsigned int* done, int wg, int tid,
     refill(it + STAGES);
 }
 
-// whether a row sees a key diff = row - key before it, `left` keys short
-// of Skv (left > 0: the key exists), under a window of win keys; 32-bit,
-// positions relative to the tile, to spare registers
-__device__ __forceinline__ bool visible(const Mask& mask, int diff, int left,
-                                        int win) {
-  bool vis = left > 0;
-  if (mask.causal) vis = vis && diff >= 0;
-  if (mask.windowed) vis = vis && diff < win;
-  return vis;
-}
-
-// the window as a 32-bit count (a window of 2^30 or more keys hides none
-// of the at most 2^31 - 1 keys TMA can address)
-__device__ __forceinline__ int window32(const Mask& mask) {
-  return static_cast<int>(mask.window < (1 << 30) ? mask.window : (1 << 30));
-}
-
-// min(a, cap) as a 32-bit count, for a >= 0 of any size
-__device__ __forceinline__ int capped(int64_t a, int cap) {
-  return static_cast<int>(a < cap ? a : cap);
-}
-
 // ---- (i) delta ---------------------------------------------------------------
 
 // DELTA[r] = sum_c dO[r, c] O[r, c] in f32 for r < rows, one warp a row
+template <typename T>
 __global__ void __launch_bounds__(256)
-attention_bwd_delta_kernel(const __nv_bfloat16* __restrict__ O,
-                           const __nv_bfloat16* __restrict__ dO,
+attention_bwd_delta_kernel(const T* __restrict__ O, const T* __restrict__ dO,
                            float* __restrict__ DELTA, int64_t rows, int d) {
+  using Pair = typename Elem<T>::Pair;
   const int64_t row = static_cast<int64_t>(blockIdx.x) * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const __nv_bfloat162* o =
-      reinterpret_cast<const __nv_bfloat162*>(O + row * d);
-  const __nv_bfloat162* g =
-      reinterpret_cast<const __nv_bfloat162*>(dO + row * d);
+  const Pair* o = reinterpret_cast<const Pair*>(O + row * d);
+  const Pair* g = reinterpret_cast<const Pair*>(dO + row * d);
   float s = 0.0f;
   for (int c = lane; c < d / 2; c += 32) {
-    const float2 a = __bfloat1622float2(o[c]);
-    const float2 b = __bfloat1622float2(g[c]);
+    const float2 a = Elem<T>::unpair(o[c]);
+    const float2 b = Elem<T>::unpair(g[c]);
     s = fmaf(a.x, b.x, s);
     s = fmaf(a.y, b.y, s);
   }
@@ -303,8 +296,9 @@ attention_bwd_delta_kernel(const __nv_bfloat16* __restrict__ O,
 
 // p and ds of a tile of the dq kernel's fragment: s[4 j + e] and dp[4 j +
 // e] are row row_a + 8 (e / 2), key k0 + 8 j + col_l + e % 2; ds leaves as
-// bf16 pairs, the A registers of dQ += dS K.  Where masked: rel = row_a -
+// pairs of T, the A registers of dQ += dS K.  Where masked: rel = row_a -
 // k0 - col_l, left = min(Skv - k0, SMALL) - col_l.
+template <typename T>
 __device__ __forceinline__ void dq_scores(float (&s)[32], float (&dp)[32],
                                           uint32_t (&da)[16],
                                           const float (&lse2)[2],
@@ -324,7 +318,7 @@ __device__ __forceinline__ void dq_scores(float (&s)[32], float (&dp)[32],
         p = 0.0f;
       ds[e] = p * (dp[2 * i + e] - dlt[h]);
     }
-    da[i] = pack_bf16(ds[0], ds[1]);
+    da[i] = Elem<T>::pack(ds[0], ds[1]);
   }
 }
 
@@ -333,14 +327,14 @@ __device__ __forceinline__ void dq_scores(float (&s)[32], float (&dp)[32],
 // of BIG rows; tk, tv: k, v as (D, Skv, B Hkv) in boxes of SMALL rows.
 // Block (x, y) computes dq of q head x % Hq of batch x / Hq for query tile
 // gridDim.y - 1 - y.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void dq_block(const CUtensorMap* tq,
                                          const CUtensorMap* tdo,
                                          const CUtensorMap* tk,
                                          const CUtensorMap* tv,
                                          const float* __restrict__ LSE,
                                          const float* __restrict__ DELTA,
-                                         __nv_bfloat16* __restrict__ DQ,
+                                         T* __restrict__ DQ,
                                          const Shape& sh,
                                          unsigned char* smem) {
   using C = Cfg<D>;
@@ -437,8 +431,8 @@ __device__ __forceinline__ void dq_block(const CUtensorMap* tq,
     mbar_wait(&sm.full1[s], ph);
     if (!skip) {
       wg_fence();
-      issue_qk<D, SMALL>(sc, q_addr, k_addr);
-      issue_qk<D, SMALL>(dp, do_addr, v_addr);
+      issue_qk<T, D, SMALL>(sc, q_addr, k_addr);
+      issue_qk<T, D, SMALL>(dp, do_addr, v_addr);
       wg_commit();
       wg_wait_all();
       pin(sc);
@@ -448,13 +442,13 @@ __device__ __forceinline__ void dq_block(const CUtensorMap* tq,
                     [&](int next) { issue(next, true); });
     if (!skip) {
       uint32_t da[16];
-      dq_scores(sc, dp, da, lse2, dlt, sh, mask,
+      dq_scores<T>(sc, dp, da, lse2, dlt, sh, mask,
                 static_cast<int>(row_a - k0) - col_l,
-                capped(sh.skv - k0, SMALL) - col_l, win, masks(k0));
+                   capped(sh.skv - k0, SMALL) - col_l, win, masks(k0));
       pin_acc<D>(dq);
       pin(da);
       wg_fence();
-      issue_pv<D, SMALL>(dq, da, k_addr);
+      issue_pv<T, D, SMALL>(dq, da, k_addr);
       wg_commit();
       wg_wait_all();
       pin_acc<D>(dq);
@@ -468,15 +462,14 @@ __device__ __forceinline__ void dq_block(const CUtensorMap* tq,
   for (int h = 0; h < 2; ++h) {
     const int64_t row = row_a + 8 * h;
     if (row >= sh.sq) continue;
-    __nv_bfloat16* dst = DQ + (bh * sh.sq + row) * D + col_l;
+    T* dst = DQ + (bh * sh.sq + row) * D + col_l;
 #pragma unroll
     for (int p = 0; p < PANELS; ++p)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         if (real_cols(D, p, j))
-          *reinterpret_cast<__nv_bfloat162*>(dst + p * 64 + 8 * j) =
-              __floats2bfloat162_rn(dq[p][4 * j + 2 * h] * sh.scale,
-                                    dq[p][4 * j + 2 * h + 1] * sh.scale);
+          store2(dst + p * 64 + 8 * j, dq[p][4 * j + 2 * h] * sh.scale,
+                 dq[p][4 * j + 2 * h + 1] * sh.scale);
   }
 }
 
@@ -490,7 +483,7 @@ enum Pass : int { PASS_DV = 1, PASS_DK = 2, PASS_DKV = 3 };
 // BIG rows; tq, tdo: q, dout as (D, Sq, B Hq) in boxes of SMALL rows.  Block
 // (x, y) computes keys [BIG y, BIG y + BIG) of kv head (x / G) % Hkv of
 // batch x / (G Hkv), over head group x % G of its query heads.
-template <int D> struct DkvBlock {
+template <typename T, int D> struct DkvBlock {
   using C = Cfg<D>;
   static constexpr int PANELS = C::PANELS;
   static constexpr int STAGES = C::STAGES;
@@ -499,8 +492,8 @@ template <int D> struct DkvBlock {
   const CUtensorMap* tdo;
   const float* __restrict__ LSE;
   const float* __restrict__ DELTA;
-  __nv_bfloat16* __restrict__ DK;
-  __nv_bfloat16* __restrict__ DV;
+  T* __restrict__ DK;
+  T* __restrict__ DV;
   float* __restrict__ PART;    // null (G = 1), or the (2, B, G, Hkv, Skv, D)
   Shape sh;
   Smem<D> sm;
@@ -510,7 +503,7 @@ template <int D> struct DkvBlock {
   __device__ __forceinline__ DkvBlock(const CUtensorMap* tq_,
                                       const CUtensorMap* tdo_,
                                       const float* lse, const float* delta,
-                                      __nv_bfloat16* dk, __nv_bfloat16* dv,
+                                      T* dk, T* dv,
                                       float* part, const Shape& shape,
                                       unsigned char* smem)
       : tq(tq_), tdo(tdo_), LSE(lse), DELTA(delta), DK(dk), DV(dv),
@@ -567,15 +560,14 @@ template <int D> struct DkvBlock {
       if (key >= sh.skv) continue;
       const int64_t at = ((b * sh.hkv + hk) * sh.skv + key) * D + col_l;
       if (PART == nullptr) {
-        __nv_bfloat16* dst = (which == 0 ? DK : DV) + at;
+        T* dst = (which == 0 ? DK : DV) + at;
 #pragma unroll
         for (int p = 0; p < PANELS; ++p)
 #pragma unroll
           for (int j = 0; j < 8; ++j)
             if (real_cols(D, p, j))
-              *reinterpret_cast<__nv_bfloat162*>(dst + p * 64 + 8 * j) =
-                  __floats2bfloat162_rn(acc[p][4 * j + 2 * h] * mul,
-                                        acc[p][4 * j + 2 * h + 1] * mul);
+              store2(dst + p * 64 + 8 * j, acc[p][4 * j + 2 * h] * mul,
+                     acc[p][4 * j + 2 * h + 1] * mul);
       } else {
         const int64_t per = sh.hkv * sh.skv * D;    // a (b, g) slice
         const int64_t batch = gridDim.x / (sh.groups * sh.hkv);
@@ -646,8 +638,8 @@ template <int D> struct DkvBlock {
         const uint32_t do_addr = smem_addr(sm.ring1 + s * C::SMALL_BYTES);
         float st[32], dpt[32];
         wg_fence();
-        issue_qk<D, SMALL>(st, k_addr, q_addr);
-        if constexpr (WANT_DK) issue_qk<D, SMALL>(dpt, v_addr, do_addr);
+        issue_qk<T, D, SMALL>(st, k_addr, q_addr);
+        if constexpr (WANT_DK) issue_qk<T, D, SMALL>(dpt, v_addr, do_addr);
         wg_commit();
         wg_wait_all();
         pin(st);
@@ -670,16 +662,16 @@ template <int D> struct DkvBlock {
               p[e] = 0.0f;
             if constexpr (WANT_DK) ds[e] = p[e] * (dpt[2 * i + e] - dl_s[c]);
           }
-          if constexpr (WANT_DV) pa[i] = pack_bf16(p[0], p[1]);
-          if constexpr (WANT_DK) da[i] = pack_bf16(ds[0], ds[1]);
+          if constexpr (WANT_DV) pa[i] = Elem<T>::pack(p[0], p[1]);
+          if constexpr (WANT_DK) da[i] = Elem<T>::pack(ds[0], ds[1]);
         }
         if constexpr (WANT_DV) pin_acc<D>(dv);
         if constexpr (WANT_DK) pin_acc<D>(dk);
         if constexpr (WANT_DV) pin(pa);
         if constexpr (WANT_DK) pin(da);
         wg_fence();
-        if constexpr (WANT_DV) issue_pv<D, SMALL>(dv, pa, do_addr);
-        if constexpr (WANT_DK) issue_pv<D, SMALL>(dk, da, q_addr);
+        if constexpr (WANT_DV) issue_pv<T, D, SMALL>(dv, pa, do_addr);
+        if constexpr (WANT_DK) issue_pv<T, D, SMALL>(dk, da, q_addr);
         wg_commit();
         wg_wait_all();
         if constexpr (WANT_DV) pin_acc<D>(dv);
@@ -714,16 +706,16 @@ template <int D> struct DkvBlock {
 
 // ---- (iv) the head groups' sum ------------------------------------------------
 
-// dk, dv = bf16(sum over g of PART[which, b, g]) in order g = 0, 1, ...;
+// dk, dv = T(sum over g of PART[which, b, g]) in order g = 0, 1, ...;
 // per = Hkv Skv D elements of a (b, g) slice; blockIdx.y: 0 dk, 1 dv
+template <typename T>
 __global__ void __launch_bounds__(256)
 attention_bwd_dkv_sum_kernel(const float* __restrict__ PART,
-                             __nv_bfloat16* __restrict__ DK,
-                             __nv_bfloat16* __restrict__ DV, int64_t batch,
-                             int64_t groups, int64_t per) {
+                             T* __restrict__ DK, T* __restrict__ DV,
+                             int64_t batch, int64_t groups, int64_t per) {
   const int which = blockIdx.y;
   const float* part = PART + which * batch * groups * per;
-  __nv_bfloat16* dst = which == 0 ? DK : DV;
+  T* dst = which == 0 ? DK : DV;
   const int64_t pairs = batch * per / 2;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
@@ -737,14 +729,14 @@ attention_bwd_dkv_sum_kernel(const float* __restrict__ PART,
       acc.x += x.x;
       acc.y += x.y;
     }
-    *reinterpret_cast<__nv_bfloat162*>(dst + 2 * i) =
-        __floats2bfloat162_rn(acc.x, acc.y);
+    store2(dst + 2 * i, acc.x, acc.y);
   }
 }
 
 // ---- kernels and the launcher ---------------------------------------------------
 
-template <int D>
+// T: __nv_bfloat16 (bf16_wgmma) or __half (f16_wgmma)
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tdo,
@@ -752,13 +744,12 @@ attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tv,
                               const float* __restrict__ LSE,
                               const float* __restrict__ DELTA,
-                              __nv_bfloat16* __restrict__ DQ,
-                              const Shape sh) {
+                              T* __restrict__ DQ, const Shape sh) {
   extern __shared__ __align__(1024) unsigned char bwd_wg_smem[];
-  dq_block<D>(&tq, &tdo, &tk, &tv, LSE, DELTA, DQ, sh, bwd_wg_smem);
+  dq_block<T, D>(&tq, &tdo, &tk, &tv, LSE, DELTA, DQ, sh, bwd_wg_smem);
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 attention_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
                                const __grid_constant__ CUtensorMap tv,
@@ -766,24 +757,29 @@ attention_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
                                const __grid_constant__ CUtensorMap tdo,
                                const float* __restrict__ LSE,
                                const float* __restrict__ DELTA,
-                               __nv_bfloat16* __restrict__ DK,
-                               __nv_bfloat16* __restrict__ DV,
+                               T* __restrict__ DK, T* __restrict__ DV,
                                float* __restrict__ PART, const Shape sh) {
   extern __shared__ __align__(1024) unsigned char bwd_wg_smem[];
-  const DkvBlock<D> block(&tq, &tdo, LSE, DELTA, DK, DV, PART, sh,
-                          bwd_wg_smem);
+  const DkvBlock<T, D> block(&tq, &tdo, LSE, DELTA, DK, DV, PART, sh,
+                             bwd_wg_smem);
   block.run(&tk, &tv);
 }
 
-// Enqueues (i)-(iv).  delta: a (B, Hq, Sq) float32 scratch; part: null when
-// sh.groups == 1, else the (2, B, G, Hkv, Skv, D) float32 scratch.
-template <int D>
+// Enqueues (i)-(iv) for elements of type T.  delta: a (B, Hq, Sq) float32
+// scratch; part: null when sh.groups == 1, else the (2, B, G, Hkv, Skv, D)
+// float32 scratch.
+template <typename T, int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* o, const void* dout, void* dq, void* dk,
                      void* dv, const float* lse, float* delta, float* part,
                      int64_t batch, const Shape& sh, cudaStream_t stream) {
   using C = Cfg<D>;
-  using bind_gemm::make_map;
+  constexpr CUtensorMapDataType type = Elem<T>::TMA;
+  const auto make_map = [](CUtensorMap* map, const void* base, int64_t rows,
+                           int64_t levels, int box_rows) {
+    return bind_gemm::make_map(map, type, base, rows, D, levels, 0,
+                               box_rows);
+  };
   const int64_t q_tiles = (sh.sq + BIG - 1) / BIG;
   const int64_t k_blocks = (sh.skv + BIG - 1) / BIG;
   // TMA coordinates are 32-bit; tiles and key blocks are the grids' y
@@ -795,19 +791,17 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
   CUtensorMap tk_big, tv_big, tq_small, tdo_small;
   const int64_t zq = batch * sh.hq, zk = batch * sh.hkv;
   cudaError_t err;
-  if ((err = make_map(&tq_big, q, sh.sq, D, zq, 0, BIG)) != cudaSuccess ||
-      (err = make_map(&tdo_big, dout, sh.sq, D, zq, 0, BIG)) != cudaSuccess ||
-      (err = make_map(&tq_small, q, sh.sq, D, zq, 0, SMALL)) != cudaSuccess ||
-      (err = make_map(&tdo_small, dout, sh.sq, D, zq, 0, SMALL)) !=
-          cudaSuccess ||
-      (err = make_map(&tk_big, k, sh.skv, D, zk, 0, BIG)) != cudaSuccess ||
-      (err = make_map(&tv_big, v, sh.skv, D, zk, 0, BIG)) != cudaSuccess ||
-      (err = make_map(&tk_small, k, sh.skv, D, zk, 0, SMALL)) !=
-          cudaSuccess ||
-      (err = make_map(&tv_small, v, sh.skv, D, zk, 0, SMALL)) != cudaSuccess)
+  if ((err = make_map(&tq_big, q, sh.sq, zq, BIG)) != cudaSuccess ||
+      (err = make_map(&tdo_big, dout, sh.sq, zq, BIG)) != cudaSuccess ||
+      (err = make_map(&tq_small, q, sh.sq, zq, SMALL)) != cudaSuccess ||
+      (err = make_map(&tdo_small, dout, sh.sq, zq, SMALL)) != cudaSuccess ||
+      (err = make_map(&tk_big, k, sh.skv, zk, BIG)) != cudaSuccess ||
+      (err = make_map(&tv_big, v, sh.skv, zk, BIG)) != cudaSuccess ||
+      (err = make_map(&tk_small, k, sh.skv, zk, SMALL)) != cudaSuccess ||
+      (err = make_map(&tv_small, v, sh.skv, zk, SMALL)) != cudaSuccess)
     return err;
-  auto kdq = attention_bwd_dq_wgmma_kernel<D>;
-  auto kdkv = attention_bwd_dkv_wgmma_kernel<D>;
+  auto kdq = attention_bwd_dq_wgmma_kernel<D, T>;
+  auto kdkv = attention_bwd_dkv_wgmma_kernel<D, T>;
   if ((err = cudaFuncSetAttribute(kdq,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   static_cast<int>(C::SMEM))) != cudaSuccess ||
@@ -815,52 +809,51 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   static_cast<int>(C::SMEM))) != cudaSuccess)
     return err;
-  const auto* O = static_cast<const __nv_bfloat16*>(o);
-  const auto* dO = static_cast<const __nv_bfloat16*>(dout);
+  const auto* O = static_cast<const T*>(o);
+  const auto* dO = static_cast<const T*>(dout);
   const int64_t rows = zq * sh.sq;
-  attention_bwd_delta_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256,
-                               0, stream>>>(O, dO, delta, rows, D);
+  attention_bwd_delta_kernel<T><<<static_cast<unsigned>((rows + 7) / 8),
+                                  256, 0, stream>>>(O, dO, delta, rows, D);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   kdq<<<dim3(static_cast<unsigned>(zq), static_cast<unsigned>(q_tiles)),
         THREADS, C::SMEM, stream>>>(tq_big, tdo_big, tk_small, tv_small, lse,
-                                    delta, static_cast<__nv_bfloat16*>(dq),
-                                    sh);
+                                    delta, static_cast<T*>(dq), sh);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   kdkv<<<dim3(static_cast<unsigned>(zk * sh.groups),
               static_cast<unsigned>(k_blocks)),
          THREADS, C::SMEM, stream>>>(
-      tk_big, tv_big, tq_small, tdo_small, lse, delta,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-      sh.groups > 1 ? part : nullptr, sh);
+      tk_big, tv_big, tq_small, tdo_small, lse, delta, static_cast<T*>(dk),
+      static_cast<T*>(dv), sh.groups > 1 ? part : nullptr, sh);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (sh.groups > 1) {
     const int64_t per = sh.hkv * sh.skv * D;
     const int64_t blocks = (batch * per / 2 + 255) / 256;
-    attention_bwd_dkv_sum_kernel<<<
+    attention_bwd_dkv_sum_kernel<T><<<
         dim3(static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 2), 256, 0,
-        stream>>>(part, static_cast<__nv_bfloat16*>(dk),
-                  static_cast<__nv_bfloat16*>(dv), batch, sh.groups, per);
+        stream>>>(part, static_cast<T*>(dk), static_cast<T*>(dv), batch,
+                  sh.groups, per);
   }
   return cudaGetLastError();
 }
 
+template <typename T>
 inline cudaError_t launch(const void* q, const void* k, const void* v,
                           const void* o, const void* dout, void* dq, void* dk,
                           void* dv, const float* lse, float* delta,
                           float* part, int64_t batch, const Shape& sh,
                           int64_t d, cudaStream_t stream) {
   switch (d) {
-    case 64: return launch_d<64>(q, k, v, o, dout, dq, dk, dv, lse, delta,
+    case 64: return launch_d<T, 64>(q, k, v, o, dout, dq, dk, dv, lse, delta,
                                  part, batch, sh, stream);
-    case 80: return launch_d<80>(q, k, v, o, dout, dq, dk, dv, lse, delta,
+    case 80: return launch_d<T, 80>(q, k, v, o, dout, dq, dk, dv, lse, delta,
                                  part, batch, sh, stream);
-    case 96: return launch_d<96>(q, k, v, o, dout, dq, dk, dv, lse, delta,
+    case 96: return launch_d<T, 96>(q, k, v, o, dout, dq, dk, dv, lse, delta,
                                  part, batch, sh, stream);
-    case 128: return launch_d<128>(q, k, v, o, dout, dq, dk, dv, lse, delta,
+    case 128: return launch_d<T, 128>(q, k, v, o, dout, dq, dk, dv, lse, delta,
                                    part, batch, sh, stream);
-    case 192: return launch_d<192>(q, k, v, o, dout, dq, dk, dv, lse, delta,
+    case 192: return launch_d<T, 192>(q, k, v, o, dout, dq, dk, dv, lse, delta,
                                    part, batch, sh, stream);
-    case 256: return launch_d<256>(q, k, v, o, dout, dq, dk, dv, lse, delta,
+    case 256: return launch_d<T, 256>(q, k, v, o, dout, dq, dk, dv, lse, delta,
                                    part, batch, sh, stream);
     default: return cudaErrorInvalidValue;
   }

@@ -1,7 +1,14 @@
-// The bfloat16 route of flash attention on the tensor cores (bf16_wgmma):
-// wgmma fed by TMA, in the shape of FlashAttention-3, built from the pieces
-// of the GEMM's tensor-core route (gemm/csrc/gemm_wgmma.cuh: the mbarrier
-// helpers, TMA tensor maps, wgmma descriptors, the transposed-B form).
+// The 16-bit routes of flash attention on the tensor cores, bfloat16
+// (bf16_wgmma) and float16 (f16_wgmma): wgmma fed by TMA, in the shape of
+// FlashAttention-3, built from the pieces of the GEMM's tensor-core route
+// (gemm/csrc/gemm_wgmma.cuh: the mbarrier helpers, TMA tensor maps, wgmma
+// descriptors, the transposed-B form).  One set of kernels serves both,
+// the element type T a template parameter; Elem<T> (below) holds all that
+// differs: wgmma's operand type (.bf16 / .f16), the packing of two fp32
+// values into one register (P, dS, the outputs) and TMA's data type.  The
+// layouts, swizzles, descriptors and fragments are those of any 16-bit
+// type: both instantiations run the same instructions on their own
+// operand type.
 //
 // What bounds it on an H100: operations.  Causal prefill at S = 8192 does
 // 4 d Hq visible-pairs FLOP (687 GFLOP at Qwen3-14B width) against a few
@@ -39,13 +46,13 @@
 //     (corr == 1 is exact).  A masked key gets -inf, so exactly p = 0; m
 //     starts at -1e30 (finite), so a row that has seen no key keeps corr =
 //     1 and l = 0, and a row that sees none gives zeros;
-//   * O += P V with P in registers: the S accumulator, paired into bf16x2,
-//     is the A-operand register layout of a k16 step (registers 8 kk .. 8 kk
-//     + 7 of S are step kk's four A registers), so P never goes through
-//     shared memory.  V is keys x d, N-major: the transposed-B form, one
-//     m64n64k16 per 64-column panel of d (the last at N = d % 64 where d
-//     is no multiple of 64, below).  At the end O / l is rounded once to
-//     bf16 and stored from registers;
+//   * O += P V with P in registers: the S accumulator, paired into bf16x2
+//     (f16x2), is the A-operand register layout of a k16 step (registers
+//     8 kk .. 8 kk + 7 of S are step kk's four A registers), so P never
+//     goes through shared memory.  V is keys x d, N-major: the transposed-B
+//     form, one m64n64k16 per 64-column panel of d (the last at N = d % 64
+//     where d is no multiple of 64, below).  At the end O / l is rounded
+//     once to bf16 (f16) and stored from registers;
 //   * masks from the kernel's own tiles: the block loads only the key tiles
 //     the mask leaves for its 128 rows (the causal t1 and windowed t0 of
 //     flash_attention.cu); a consumer masks per element only a tile that
@@ -63,7 +70,13 @@
 // output element moves by at most 2^-9 max|v| (relative to the row's
 // weights, which sum to one); l is summed from the unrounded p.  That is
 // about 2e-3 for unit-variance v, well inside the reference's bf16
-// tolerance of 3e-2, which also covers rounding the output to bf16.
+// tolerance of 3e-2, which also covers rounding the output to bf16.  In
+// float16 each p moves by at most 2^-11 relative (f16's unit roundoff)
+// where it is normal (2^-14 and up), and by at most 2^-25 absolute below
+// (f16's subnormals), so an output element by at most (2^-11 + Skv 2^-25)
+// max|v|: 1.5 x 2^-11 max|v| at Skv 8192; l and O are fp32 as in bf16,
+// and the output is rounded once to f16.  chip_smoke.py holds each type
+// to limits derived from its unit roundoff.
 //
 // The log-sum-exp, on request: given a (B, Hq, Sq) float32 buffer, the
 // block also stores each row's log-sum-exp of its scaled, masked scores in
@@ -90,10 +103,10 @@
 // third less P V work than at N = 64.  No store writes a column past d.
 //
 // TMA needs 16-byte-aligned bases and rows of whole 16-byte units (d 80 /
-// 96: 160 / 192 bytes): the route (flash_attention.cu) takes bf16 with d
-// one of wgmma_head_dim's (64, 80, 96, 128, 192, 256) and q, k, v, out
-// 16-byte aligned, and sends any other bf16 call to the CUDA-core loop
-// (attn_tile.cuh).
+// 96: 160 / 192 bytes): the routes (flash_attention.cu) take bf16 or f16
+// with d one of wgmma_head_dim's (64, 80, 96, 128, 192, 256) and q, k, v,
+// out 16-byte aligned, and send any other bf16 or f16 call to the
+// CUDA-core loop (attn_tile.cuh).
 
 #pragma once
 
@@ -101,6 +114,7 @@
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "../../gemm/csrc/gemm_wgmma.cuh"
@@ -155,6 +169,50 @@ template <int D> struct Cfg {
                                  2 * STAGES * sizeof(unsigned int);
 };
 
+// What the two element types differ in.  F16: wgmma's operands are .f16
+// (else .bf16); pack: two fp32 values rounded to a register of two
+// elements, the A operand of a k16 step (P, dS); pair: the same for two
+// neighbouring elements of an output; TMA: the tensor maps' data type.
+template <typename T> struct Elem;
+
+template <> struct Elem<__nv_bfloat16> {
+  using Pair = __nv_bfloat162;
+  static constexpr bool F16 = false;
+  static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ Pair pair(float lo, float hi) {
+    return __floats2bfloat162_rn(lo, hi);
+  }
+  static __device__ __forceinline__ float2 unpair(Pair v) {
+    return __bfloat1622float2(v);
+  }
+};
+
+template <> struct Elem<__half> {
+  using Pair = __half2;
+  static constexpr bool F16 = true;
+  static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ Pair pair(float lo, float hi) {
+    return __floats2half2_rn(lo, hi);
+  }
+  static __device__ __forceinline__ float2 unpair(Pair v) {
+    return __half22float2(v);
+  }
+};
+
+// two neighbouring output elements at dst, each rounded once
+template <typename T>
+__device__ __forceinline__ void store2(T* dst, float lo, float hi) {
+  *reinterpret_cast<typename Elem<T>::Pair*>(dst) = Elem<T>::pair(lo, hi);
+}
+
 // the problem of one launch; q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D)
 struct Shape {
   int64_t hq, hkv, sq, skv;
@@ -183,76 +241,101 @@ template <int N> __device__ __forceinline__ void pin(uint32_t (&d)[N]) {
 #define BIND_AW_D8(o)                                                     \
   "+f"(d[o + 0]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),          \
       "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+// the instruction of shape `shape` on operands of type `ty` ("bf16" or
+// "f16", each A and B element), fp32 accumulators
+#define BIND_AW_OP(shape, ty)                                             \
+  "wgmma.mma_async.sync.aligned." shape ".f32." ty "." ty " "
 
 // d (64 x 64, fp32) = [d +] A (64 x 16, K-major, shared) B (16 x 64,
-// K-major, shared); accumulate: 0 overwrites d
+// K-major, shared), A and B of type T; accumulate: 0 overwrites d
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : BIND_AW_D8(0), BIND_AW_D8(8), BIND_AW_D8(16), BIND_AW_D8(24)
-      : "l"(da), "l"(db), "r"(accumulate));
+#define BIND_AW_SS64(ty)                                                   \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                          \
+      BIND_AW_OP("m64n64k16", ty)                                          \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"                  \
+      : BIND_AW_D8(0), BIND_AW_D8(8), BIND_AW_D8(16), BIND_AW_D8(24)       \
+      : "l"(da), "l"(db), "r"(accumulate))
+  if constexpr (Elem<T>::F16) BIND_AW_SS64("f16"); else BIND_AW_SS64("bf16");
+#undef BIND_AW_SS64
 }
 
 // the same with 128 columns of B
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
                                          uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, "
-      "0, 0;\n}\n"
-      : BIND_AW_D8(0), BIND_AW_D8(8), BIND_AW_D8(16), BIND_AW_D8(24),
-        BIND_AW_D8(32), BIND_AW_D8(40), BIND_AW_D8(48), BIND_AW_D8(56)
-      : "l"(da), "l"(db), "r"(accumulate));
+#define BIND_AW_SS128(ty)                                                  \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                          \
+      BIND_AW_OP("m64n128k16", ty)                                         \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "  \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "  \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, " \
+      "1, 0, 0;\n}\n"                                                       \
+      : BIND_AW_D8(0), BIND_AW_D8(8), BIND_AW_D8(16), BIND_AW_D8(24),      \
+        BIND_AW_D8(32), BIND_AW_D8(40), BIND_AW_D8(48), BIND_AW_D8(56)     \
+      : "l"(da), "l"(db), "r"(accumulate))
+  if constexpr (Elem<T>::F16) BIND_AW_SS128("f16"); else BIND_AW_SS128("bf16");
+#undef BIND_AW_SS128
 }
 
-// d (64 x 64, fp32) += A (64 x 16, bf16 pairs in registers) B (16 x 64,
+// d (64 x 64, fp32) += A (64 x 16, pairs of T in registers) B (16 x 64,
 // N-major, shared: the transposed-B form)
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : BIND_AW_D8(0), BIND_AW_D8(8), BIND_AW_D8(16), BIND_AW_D8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define BIND_AW_RS64(ty)                                                   \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                          \
+      BIND_AW_OP("m64n64k16", ty)                                          \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"    \
+      : BIND_AW_D8(0), BIND_AW_D8(8), BIND_AW_D8(16), BIND_AW_D8(24)       \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  if constexpr (Elem<T>::F16) BIND_AW_RS64("f16"); else BIND_AW_RS64("bf16");
+#undef BIND_AW_RS64
 }
 
 // the same with 32 columns of B (the first half of a 64-column panel)
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t* a,
                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : BIND_AW_D8(0), BIND_AW_D8(8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define BIND_AW_RS32(ty)                                                   \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                          \
+      BIND_AW_OP("m64n32k16", ty)                                          \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                   \
+      : BIND_AW_D8(0), BIND_AW_D8(8)                                       \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  if constexpr (Elem<T>::F16) BIND_AW_RS32("f16"); else BIND_AW_RS32("bf16");
+#undef BIND_AW_RS32
 }
 
 // the same with 16 columns of B (the first quarter of a panel)
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t* a,
                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
-      "1;\n}\n"
-      : BIND_AW_D8(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define BIND_AW_RS16(ty)                                                   \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"                          \
+      BIND_AW_OP("m64n16k16", ty)                                          \
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, "   \
+      "1, 1;\n}\n"                                                          \
+      : BIND_AW_D8(0)                                                      \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  if constexpr (Elem<T>::F16) BIND_AW_RS16("f16"); else BIND_AW_RS16("bf16");
+#undef BIND_AW_RS16
 }
 
+#undef BIND_AW_OP
 #undef BIND_AW_D8
 
 // the first N / 2 registers of a panel's accumulator fragment: its first N
@@ -274,24 +357,19 @@ __device__ __forceinline__ void pin_acc(float (&acc)[panels(D)][32]) {
 }
 
 // 2^x on the MUFU unit, subnormals flushed to zero (a weight below 2^-126
-// of the row's largest is 0 either way in bf16 P)
+// of the row's largest is 0 either way in bf16 or f16 P)
 __device__ __forceinline__ float exp2_fast(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // ---- the three steps of a key tile, for one warpgroup ---------------------
 
 // S (64 x BKV, fp32) = Q (the warpgroup's 64 rows at q_addr) K^T (the tile
-// at k_addr); Q and K are K-major in 64-column panels, 8-row groups 1024
-// bytes apart, a k16 step 32 bytes along the swizzled row
-template <int D, int BKV>
+// at k_addr), both of type T; Q and K are K-major in 64-column panels,
+// 8-row groups 1024 bytes apart, a k16 step 32 bytes along the swizzled row
+template <typename T, int D, int BKV>
 __device__ __forceinline__ void issue_qk(float (&sc)[BKV / 2],
                                          uint32_t q_addr, uint32_t k_addr) {
 #pragma unroll
@@ -300,14 +378,15 @@ __device__ __forceinline__ void issue_qk(float (&sc)[BKV / 2],
         wg_desc(q_addr + (kk / 4) * (BQ * 128) + (kk % 4) * 32, 16, 1024);
     const uint64_t db =
         wg_desc(k_addr + (kk / 4) * (BKV * 128) + (kk % 4) * 32, 16, 1024);
-    wgmma_ss(sc, da, db, kk > 0);
+    wgmma_ss<T>(sc, da, db, kk > 0);
   }
 }
 
 // O (64 x D) += P (registers) V (the tile at v_addr: keys x D, N-major in
 // 64-column panels, 8-key groups 1024 bytes apart, a k16 step 2048 bytes);
-// the last panel of d 80 / 96 at N = 16 / 32, its real columns only
-template <int D, int BKV>
+// the last panel of d 80 / 96 at N = 16 / 32, its real columns only; P
+// and V of type T
+template <typename T, int D, int BKV>
 __device__ __forceinline__ void issue_pv(float (&o)[panels(D)][32],
                                          const uint32_t (&pa)[BKV / 4],
                                          uint32_t v_addr) {
@@ -315,11 +394,11 @@ __device__ __forceinline__ void issue_pv(float (&o)[panels(D)][32],
   for (int kk = 0; kk < BKV / 16; ++kk) {
 #pragma unroll
     for (int p = 0; p < D / 64; ++p)
-      wgmma_rs(o[p], &pa[4 * kk],
+      wgmma_rs<T>(o[p], &pa[4 * kk],
                wg_desc(v_addr + p * (BKV * 128) + kk * 2048, BKV * 128,
                        1024));
     if constexpr (D % 64 != 0)
-      wgmma_rs(first<D % 64>(o[D / 64]), &pa[4 * kk],
+      wgmma_rs<T>(first<D % 64>(o[D / 64]), &pa[4 * kk],
                wg_desc(v_addr + (D / 64) * (BKV * 128) + kk * 2048,
                        BKV * 128, 1024));
   }
@@ -327,8 +406,8 @@ __device__ __forceinline__ void issue_pv(float (&o)[panels(D)][32],
 
 // The online softmax of a tile's scores sc: sc[4 j + e] is row row_a + 8
 // (e / 2), key k0 + 8 j + col_l + e % 2.  Updates m and the partial sums
-// l, rescales O by the correction, and leaves P in pa.
-template <int BKV, int PANELS>
+// l, rescales O by the correction, and leaves P in pa as pairs of T.
+template <typename T, int BKV, int PANELS>
 __device__ __forceinline__ void softmax(float (&sc)[BKV / 2],
                                         uint32_t (&pa)[BKV / 4],
                                         float (&o)[PANELS][32], float (&m)[2],
@@ -369,7 +448,7 @@ __device__ __forceinline__ void softmax(float (&sc)[BKV / 2],
     const float p0 = exp2_fast(sc[2 * i] - m[h]);
     const float p1 = exp2_fast(sc[2 * i + 1] - m[h]);
     sum[h] += p0 + p1;
-    pa[i] = pack_bf16(p0, p1);
+    pa[i] = Elem<T>::pack(p0, p1);
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) l[h] = corr[h] * l[h] + sum[h];
@@ -389,11 +468,11 @@ __device__ __forceinline__ void softmax(float (&sc)[BKV / 2],
 // tensor maps read in boxes of 64 columns by BQ (q) or BKV (k, v) rows.
 // Block (x, y) computes q head x % Hq of batch x / Hq for query tile
 // gridDim.y - 1 - y.  LSE: null, or the (B, Hq, Sq) log-sum-exp buffer.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void attention_block(const CUtensorMap* tq,
                                                 const CUtensorMap* tk,
                                                 const CUtensorMap* tv,
-                                                __nv_bfloat16* __restrict__ O,
+                                                T* __restrict__ O,
                                                 float* __restrict__ LSE,
                                                 const Shape& sh,
                                                 unsigned char* smem) {
@@ -503,7 +582,7 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* tq,
     return k0 + BKV > sh.skv || (mask.causal && k0 + BKV - 1 > r0) ||
            (mask.windowed && r0 + 63 - k0 >= mask.window);
   };
-  uint32_t pa[BKV / 4];       // P as bf16 pairs: step kk is pa[4 kk ..]
+  uint32_t pa[BKV / 4];       // P as pairs of T: step kk is pa[4 kk ..]
 
   for (int it = 0; it < n; ++it) {
     const int s = it % STAGES;
@@ -514,20 +593,20 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* tq,
     mbar_wait(&k_full[s], ph);
     if (!skip) {
       wg_fence();
-      issue_qk<D, BKV>(sc, q_addr, smem_addr(ks + s * C::KV_BYTES));
+      issue_qk<T, D, BKV>(sc, q_addr, smem_addr(ks + s * C::KV_BYTES));
       wg_commit();
       wg_wait_all();
       pin(sc);
     }
     release(wg, tid, it, false);
     if (!skip) {
-      softmax<BKV, PANELS>(sc, pa, o, m, l, sh, mask, k0, row_a, col_l,
-                           masks(k0));
+      softmax<T, BKV, PANELS>(sc, pa, o, m, l, sh, mask, k0, row_a, col_l,
+                              masks(k0));
       mbar_wait(&v_full[s], ph);
       pin_acc<D>(o);
       pin(pa);
       wg_fence();
-      issue_pv<D, BKV>(o, pa, smem_addr(vs + s * C::KV_BYTES));
+      issue_pv<T, D, BKV>(o, pa, smem_addr(vs + s * C::KV_BYTES));
       wg_commit();
       wg_wait_all();
       pin_acc<D>(o);
@@ -549,35 +628,38 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* tq,
           l[h] == 0.0f ? INFINITY
                        : (m[h] + log2f(l[h])) * 0.6931471805599453f;
     const float inv = 1.0f / (l[h] == 0.0f ? 1.0f : l[h]);
-    __nv_bfloat16* dst = O + (bh * sh.sq + row) * D + col_l;
+    T* dst = O + (bh * sh.sq + row) * D + col_l;
 #pragma unroll
     for (int p = 0; p < PANELS; ++p)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         if (real_cols(D, p, j))
-          *reinterpret_cast<__nv_bfloat162*>(dst + p * 64 + 8 * j) =
-              __floats2bfloat162_rn(o[p][4 * j + 2 * h] * inv,
-                                    o[p][4 * j + 2 * h + 1] * inv);
+          store2(dst + p * 64 + 8 * j, o[p][4 * j + 2 * h] * inv,
+                 o[p][4 * j + 2 * h + 1] * inv);
   }
 }
 
-// the tensor maps of one launch: q as (D, Sq, B Hq) in boxes of BQ rows,
-// k and v as (D, Skv, B Hkv) in boxes of Cfg<D>::BKV rows
-template <int D>
+// the tensor maps of one launch, of element type T: q as (D, Sq, B Hq) in
+// boxes of BQ rows, k and v as (D, Skv, B Hkv) in boxes of Cfg<D>::BKV rows
+template <typename T, int D>
 inline cudaError_t make_maps(CUtensorMap* tq, CUtensorMap* tk,
                              CUtensorMap* tv, const void* q, const void* k,
                              const void* v, int64_t batch, int64_t hq,
                              int64_t hkv, int64_t sq, int64_t skv) {
-  cudaError_t err = bind_gemm::make_map(tq, q, sq, D, batch * hq, 0, BQ);
+  constexpr CUtensorMapDataType type = Elem<T>::TMA;
+  cudaError_t err =
+      bind_gemm::make_map(tq, type, q, sq, D, batch * hq, 0, BQ);
   if (err != cudaSuccess) return err;
   if (skv == 0) {             // no key tile is ever loaded
     *tk = *tq;
     *tv = *tq;
     return cudaSuccess;
   }
-  err = bind_gemm::make_map(tk, k, skv, D, batch * hkv, 0, Cfg<D>::BKV);
+  err = bind_gemm::make_map(tk, type, k, skv, D, batch * hkv, 0,
+                            Cfg<D>::BKV);
   if (err != cudaSuccess) return err;
-  return bind_gemm::make_map(tv, v, skv, D, batch * hkv, 0, Cfg<D>::BKV);
+  return bind_gemm::make_map(tv, type, v, skv, D, batch * hkv, 0,
+                             Cfg<D>::BKV);
 }
 
 }  // namespace bind_attn_wg

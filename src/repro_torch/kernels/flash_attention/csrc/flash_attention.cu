@@ -8,7 +8,7 @@
 // blocks of a grid run in parallel in no order, so the sequential kv axis
 // becomes a loop inside the block, and the state lives in registers.
 //
-// Each call takes one of five routes, a pure function of the dtype, the
+// Each call takes one of six routes, a pure function of the dtype, the
 // head dim and the operands' alignment (route_of below; kernels/flash_
 // attention/ops.py route() is the same rule in Python, and
 // bind_flash_attention_route answers it for any operands):
@@ -25,7 +25,11 @@
 //               (attn_wgmma.cuh);
 //   BF16_SIMT   any other bfloat16 (other head dims, views at an odd
 //               offset): the CUDA-core loop, fp32 inside;
-//   F16_SIMT    float16: the CUDA-core loop, fp32 inside, as bf16_simt.
+//   F16_WGMMA   float16 where BF16_WGMMA takes bfloat16: the same
+//               tensor-core loop instantiated for f16 (attn_wgmma.cuh's
+//               Elem<__half>);
+//   F16_SIMT    any other float16: the CUDA-core loop, fp32 inside, as
+//               bf16_simt.
 //
 // The CUDA-core loop (flash_attention_kernel):
 //   * one block of 256 threads per (query tile of 64 rows, q head, batch);
@@ -64,26 +68,28 @@
 // warpgroup owning half of O's columns, S split over d between them and
 // summed once through shared memory.
 //
-// The tensor-core loop (flash_attention_wgmma_kernel, attn_wgmma.cuh): two
+// The tensor-core loop (flash_attention_wgmma_kernel, attn_wgmma.cuh, for
+// bf16 and f16 alike): two
 // warpgroups of 64 query rows each, sharing K and V tiles that TMA brings
 // into a ring of shared memory, S = Q K^T and O += P V on wgmma, the
 // online softmax on the accumulator registers, P kept in registers as
-// wgmma's A operand.  Bound: the bf16 tensor cores (989 TFLOP/s) and, next
-// to them, the exp2 of every score; the header says how the design splits
-// the two, and why rounding P to bf16 stays within the reference's bf16
-// tolerance of 3e-2.  The same causal and windowed tile bounds, from its
-// own 128-row query tiles and 128-key (64 at d > 128) key tiles.
+// wgmma's A operand.  Bound: the 16-bit tensor cores (989 TFLOP/s in bf16
+// and f16) and, next to them, the exp2 of every score; the header says how
+// the design splits the two, and why rounding P to bf16 stays within the
+// reference's bf16 tolerance of 3e-2 (to f16 within 2^-11 of each p).  The
+// same causal and windowed tile bounds, from its own 128-row query tiles
+// and 128-key (64 at d > 128) key tiles.
 //
 // C interface (bound with ctypes): device pointers, sizes and a cudaStream_t;
 // each entry point launches on that stream without synchronising and returns
 // cudaGetLastError() (0 on success).  bind_flash_attention_route says which
-// route a call takes.  bind_flash_attention_bf16_lse and
-// bind_flash_attention_f32_lse are the entry points that also hand the
-// backward each row's log-sum-exp (attn_wgmma.cuh, attn_tf32.cuh): the
-// training forward calls them, and only on the BF16_WGMMA and F32_3XTF32
-// routes.
+// route a call takes.  bind_flash_attention_{bf16,f16,f32}_lse are the
+// entry points that also hand the backward each row's log-sum-exp
+// (attn_wgmma.cuh, attn_tf32.cuh): the training forward calls them, and
+// only on the BF16_WGMMA, F16_WGMMA and F32_3XTF32 routes.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -98,7 +104,8 @@ namespace {
 using namespace bind_attn;
 
 enum Route : int {
-  F32_SIMT = 0, BF16_SIMT = 1, BF16_WGMMA = 2, F32_3XTF32 = 3, F16_SIMT = 4
+  F32_SIMT = 0, BF16_SIMT = 1, BF16_WGMMA = 2, F32_3XTF32 = 3, F16_SIMT = 4,
+  F16_WGMMA = 5
 };
 // the element types, numbered as kernel.py DTYPE_CODES numbers them
 enum DType : int { F32 = 0, BF16 = 1, F16 = 2 };
@@ -123,7 +130,9 @@ inline Route route_of(DType dtype, int64_t d, const void* q, const void* k,
     case BF16:
       return bind_attn_wg::wgmma_head_dim(d) && aligned ? BF16_WGMMA
                                                         : BF16_SIMT;
-    default: return F16_SIMT;
+    default:
+      return bind_attn_wg::wgmma_head_dim(d) && aligned ? F16_WGMMA
+                                                        : F16_SIMT;
   }
 }
 
@@ -209,19 +218,19 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v,
   }
 }
 
-template <int D>
+// T: __nv_bfloat16 (BF16_WGMMA) or __half (F16_WGMMA)
+template <int D, typename T>
 __global__ void __launch_bounds__(bind_attn_wg::THREADS, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
-                             __nv_bfloat16* __restrict__ O,
-                             float* __restrict__ LSE,
+                             T* __restrict__ O, float* __restrict__ LSE,
                              const bind_attn_wg::Shape sh) {
   extern __shared__ __align__(1024) unsigned char wg_smem[];
-  bind_attn_wg::attention_block<D>(&tq, &tk, &tv, O, LSE, sh, wg_smem);
+  bind_attn_wg::attention_block<T, D>(&tq, &tk, &tv, O, LSE, sh, wg_smem);
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch_wgmma_d(const void* q, const void* k, const void* v,
                            void* out, float* lse, int64_t batch, int64_t hq,
                            int64_t hkv, int64_t sq, int64_t skv, float scale,
@@ -233,10 +242,10 @@ cudaError_t launch_wgmma_d(const void* q, const void* k, const void* v,
       skv > 0x7fffffff)
     return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = bind_attn_wg::make_maps<D>(&tq, &tk, &tv, q, k, v, batch,
-                                               hq, hkv, sq, skv);
+  cudaError_t err = bind_attn_wg::make_maps<T, D>(&tq, &tk, &tv, q, k, v,
+                                                  batch, hq, hkv, sq, skv);
   if (err != cudaSuccess) return err;
-  auto kern = flash_attention_wgmma_kernel<D>;
+  auto kern = flash_attention_wgmma_kernel<D, T>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(C::SMEM));
   if (err != cudaSuccess) return err;
@@ -245,27 +254,31 @@ cudaError_t launch_wgmma_d(const void* q, const void* k, const void* v,
   const dim3 grid(static_cast<unsigned>(batch * hq),
                   static_cast<unsigned>(tiles));
   kern<<<grid, bind_attn_wg::THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, sh);
+      tq, tk, tv, static_cast<T*>(out), lse, sh);
   return cudaGetLastError();
 }
 
+template <typename T>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* out, float* lse, int64_t batch, int64_t hq,
                          int64_t hkv, int64_t sq, int64_t skv, int d,
                          float scale, Mask mask, cudaStream_t stream) {
   switch (d) {
-    case 64: return launch_wgmma_d<64>(q, k, v, out, lse, batch, hq, hkv, sq,
-                                       skv, scale, mask, stream);
-    case 80: return launch_wgmma_d<80>(q, k, v, out, lse, batch, hq, hkv, sq,
-                                       skv, scale, mask, stream);
-    case 96: return launch_wgmma_d<96>(q, k, v, out, lse, batch, hq, hkv, sq,
-                                       skv, scale, mask, stream);
-    case 128: return launch_wgmma_d<128>(q, k, v, out, lse, batch, hq, hkv,
-                                         sq, skv, scale, mask, stream);
-    case 192: return launch_wgmma_d<192>(q, k, v, out, lse, batch, hq, hkv,
-                                         sq, skv, scale, mask, stream);
-    case 256: return launch_wgmma_d<256>(q, k, v, out, lse, batch, hq, hkv,
-                                         sq, skv, scale, mask, stream);
+    case 64: return launch_wgmma_d<T, 64>(q, k, v, out, lse, batch, hq, hkv,
+                                          sq, skv, scale, mask, stream);
+    case 80: return launch_wgmma_d<T, 80>(q, k, v, out, lse, batch, hq, hkv,
+                                          sq, skv, scale, mask, stream);
+    case 96: return launch_wgmma_d<T, 96>(q, k, v, out, lse, batch, hq, hkv,
+                                          sq, skv, scale, mask, stream);
+    case 128: return launch_wgmma_d<T, 128>(q, k, v, out, lse, batch, hq,
+                                            hkv, sq, skv, scale, mask,
+                                            stream);
+    case 192: return launch_wgmma_d<T, 192>(q, k, v, out, lse, batch, hq,
+                                            hkv, sq, skv, scale, mask,
+                                            stream);
+    case 256: return launch_wgmma_d<T, 256>(q, k, v, out, lse, batch, hq,
+                                            hkv, sq, skv, scale, mask,
+                                            stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -347,8 +360,8 @@ cudaError_t launch_nj(const void* q, const void* k, const void* v, void* out,
 }
 
 // lse: null, or a (B, Hq, Sq) float32 buffer for each row's log-sum-exp,
-// which only the BF16_WGMMA and F32_3XTF32 routes write (any other route
-// refuses one)
+// which only the BF16_WGMMA, F16_WGMMA and F32_3XTF32 routes write (any
+// other route refuses one)
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int64_t batch, int64_t hq, int64_t hkv, int64_t sq,
@@ -364,11 +377,14 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const int dd = static_cast<int>(d);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Route route = route_of(dtype_of<T>(), d, q, k, v, out);
-  if (lse != nullptr && route != BF16_WGMMA && route != F32_3XTF32)
+  if (lse != nullptr && route != BF16_WGMMA && route != F16_WGMMA &&
+      route != F32_3XTF32)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (route == BF16_WGMMA)
-    return static_cast<int>(launch_wgmma(q, k, v, out, lse, batch, hq, hkv,
-                                         sq, skv, dd, s, mask, st));
+  if constexpr (!std::is_same_v<T, float>) {
+    if (route == BF16_WGMMA || route == F16_WGMMA)
+      return static_cast<int>(launch_wgmma<T>(q, k, v, out, lse, batch, hq,
+                                              hkv, sq, skv, dd, s, mask, st));
+  }
   if (route == F32_3XTF32)
     return static_cast<int>(launch_tf32(q, k, v, out, lse, batch, hq, hkv,
                                         sq, skv, dd, s, mask, st));
@@ -438,6 +454,21 @@ int bind_flash_attention_f16(const void* q, const void* k, const void* v,
                              int64_t window, void* stream) {
   return launch<__half>(q, k, v, out, nullptr, batch, hq, hkv, sq, skv, d,
                         scale, causal, windowed, window, stream);
+}
+
+// bind_flash_attention_f16 that also stores each row's log-sum-exp into
+// lse, a (B, Hq, Sq) float32 buffer: only on the F16_WGMMA route (any
+// other operands give cudaErrorInvalidValue and launch nothing)
+int bind_flash_attention_f16_lse(const void* q, const void* k,
+                                 const void* v, void* out, void* lse,
+                                 int64_t batch, int64_t hq, int64_t hkv,
+                                 int64_t sq, int64_t skv, int64_t d,
+                                 double scale, int causal, int windowed,
+                                 int64_t window, void* stream) {
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<__half>(q, k, v, out, static_cast<float*>(lse), batch, hq,
+                        hkv, sq, skv, d, scale, causal, windowed, window,
+                        stream);
 }
 
 // The route (enum Route) a call of element type dtype (F32 0, BF16 1, F16

@@ -57,17 +57,19 @@
 // pair the gradient needs about 10 d FLOP (s, dp, dq, dk, dv: five products
 // of 2 d); the CUDA-core kernels above do 16 d (they recompute s in both
 // kernels and dp in both), in f32, at one block of 8 warps an SM, against
-// the card's 67 TFLOP/s outside the tensor cores (989 in bf16 on them).
-// They are the f32_simt, bf16_simt and f16_simt routes.  The bf16_wgmma
-// route is on the tensor cores: wgmma fed by TMA, with the log-sum-exp the
-// forward saved (attn_bwd_wgmma.cuh, whose header gives its design, its
-// bound and its tolerance); so is the f32_3xtf32 route, each product three
-// TF32 wgmma (attn_bwd_tf32.cuh, the same).
+// the card's 67 TFLOP/s outside the tensor cores (989 in bf16 and f16 on
+// them).  They are the f32_simt, bf16_simt and f16_simt routes.  The
+// bf16_wgmma and f16_wgmma routes are on the tensor cores: wgmma fed by
+// TMA, with the log-sum-exp the forward saved (attn_bwd_wgmma.cuh, one set
+// of kernels for both types, whose header gives its design, its bound and
+// its tolerance); so is the f32_3xtf32 route, each product three TF32
+// wgmma (attn_bwd_tf32.cuh, the same).
 //
 // Routes (route_of below; kernels/flash_attention/ops.py bwd_route is the
 // same rule in Python, and bind_flash_attention_bwd_route answers it for
-// any operands): BF16_WGMMA for bfloat16 with d in {64, 80, 96, 128, 192,
-// 256} (bind_attn_wg::wgmma_head_dim, the forward's set), F32_3XTF32 for
+// any operands): BF16_WGMMA for bfloat16 and F16_WGMMA for float16 with d
+// in {64, 80, 96, 128, 192, 256} (bind_attn_wg::wgmma_head_dim, the
+// forward's set), F32_3XTF32 for
 // float32 with d in {32, 64, 80, 96, 128, 256} (bind_attn_tf::
 // tf32_head_dim, the forward's set; d 256 on the blocks of
 // attn_bwd_tf32_wide.cuh), each with q, k, v, out, dout and the saved
@@ -80,7 +82,8 @@
 // synchronising and returns cudaGetLastError() (0 on success).
 // bind_flash_attention_bwd_{f32,bf16,f16} run the CUDA-core routes, with
 // lse a scratch they write; bind_flash_attention_bwd_bf16_lse runs the
-// BF16_WGMMA route, with lse the forward's and a head-group count, and
+// BF16_WGMMA route and bind_flash_attention_bwd_f16_lse the F16_WGMMA
+// route, each with lse the forward's and a head-group count, and
 // bind_flash_attention_bwd_f32_lse the F32_3XTF32 route, with lse the
 // forward's.
 
@@ -103,7 +106,8 @@ constexpr int MAX_HEAD_DIM = 256;
 
 // the routes, in the order of kernels/flash_attention/ops.py BWD_ROUTES
 enum Route : int {
-  F32_SIMT = 0, BF16_SIMT = 1, F16_SIMT = 2, BF16_WGMMA = 3, F32_3XTF32 = 4
+  F32_SIMT = 0, BF16_SIMT = 1, F16_SIMT = 2, BF16_WGMMA = 3, F32_3XTF32 = 4,
+  F16_WGMMA = 5
 };
 // the element types, numbered as kernel.py DTYPE_CODES numbers them
 enum DType : int { F32 = 0, BF16 = 1, F16 = 2 };
@@ -124,6 +128,8 @@ inline int route_of(int dtype, int64_t d, const void* q, const void* k,
                             aligned16(dout) && aligned16(lse);
   if (dtype == BF16 && bind_attn_wg::wgmma_head_dim(d) && tensor_cores)
     return BF16_WGMMA;
+  if (dtype == F16 && bind_attn_wg::wgmma_head_dim(d) && tensor_cores)
+    return F16_WGMMA;
   if (dtype == F32 && bind_attn_tf::tf32_head_dim(d) && tensor_cores)
     return F32_3XTF32;
   return dtype == F32 ? F32_SIMT : dtype == BF16 ? BF16_SIMT : F16_SIMT;
@@ -588,6 +594,30 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(err);
 }
 
+// The 16-bit backward on the tensor cores of element type T (BF16_WGMMA,
+// F16_WGMMA: route), with the checks both entry points make
+template <typename T>
+int launch_wgmma(DType dtype, Route route, const void* q, const void* k,
+                 const void* v, const void* o, const void* dout, void* dq,
+                 void* dk, void* dv, const void* lse, void* delta, void* part,
+                 int64_t batch, int64_t hq, int64_t hkv, int64_t sq,
+                 int64_t skv, int64_t d, double scale, int causal,
+                 int windowed, int64_t window, int64_t groups, void* stream) {
+  if (route_of(dtype, d, q, k, v, o, dout, lse) != route || batch <= 0 ||
+      hq <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 || skv <= 0 ||
+      groups <= 0 || (hq / hkv) % groups != 0 ||
+      (groups > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float s = static_cast<float>(scale);
+  const bind_attn_bwd::Shape sh{
+      hq, hkv, sq, skv, s, s * bind_attn_bwd::LOG2E,
+      bind_attn::Mask{causal != 0, windowed != 0, window}, groups};
+  return static_cast<int>(bind_attn_bwd::launch<T>(
+      q, k, v, o, dout, dq, dk, dv, static_cast<const float*>(lse),
+      static_cast<float*>(delta), static_cast<float*>(part), batch, sh, d,
+      static_cast<cudaStream_t>(stream)));
+}
+
 }  // namespace
 
 extern "C" {
@@ -634,19 +664,23 @@ int bind_flash_attention_bwd_bf16_lse(
     void* delta, void* part, int64_t batch, int64_t hq, int64_t hkv,
     int64_t sq, int64_t skv, int64_t d, double scale, int causal,
     int windowed, int64_t window, int64_t groups, void* stream) {
-  if (route_of(BF16, d, q, k, v, o, dout, lse) != BF16_WGMMA ||
-      batch <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 ||
-      skv <= 0 || groups <= 0 || (hq / hkv) % groups != 0 ||
-      (groups > 1 && part == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const float s = static_cast<float>(scale);
-  const bind_attn_bwd::Shape sh{
-      hq, hkv, sq, skv, s, s * bind_attn_bwd::LOG2E,
-      bind_attn::Mask{causal != 0, windowed != 0, window}, groups};
-  return static_cast<int>(bind_attn_bwd::launch(
-      q, k, v, o, dout, dq, dk, dv, static_cast<const float*>(lse),
-      static_cast<float*>(delta), static_cast<float*>(part), batch, sh, d,
-      static_cast<cudaStream_t>(stream)));
+  return launch_wgmma<__nv_bfloat16>(
+      BF16, BF16_WGMMA, q, k, v, o, dout, dq, dk, dv, lse, delta, part,
+      batch, hq, hkv, sq, skv, d, scale, causal, windowed, window, groups,
+      stream);
+}
+
+// The f16 backward on the tensor cores (F16_WGMMA): the arguments and
+// checks of bind_flash_attention_bwd_bf16_lse, on float16 operands.
+int bind_flash_attention_bwd_f16_lse(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, void* dq, void* dk, void* dv, const void* lse,
+    void* delta, void* part, int64_t batch, int64_t hq, int64_t hkv,
+    int64_t sq, int64_t skv, int64_t d, double scale, int causal,
+    int windowed, int64_t window, int64_t groups, void* stream) {
+  return launch_wgmma<__half>(
+      F16, F16_WGMMA, q, k, v, o, dout, dq, dk, dv, lse, delta, part, batch,
+      hq, hkv, sq, skv, d, scale, causal, windowed, window, groups, stream);
 }
 
 // The f32 backward on the tensor cores in 3xTF32 (F32_3XTF32): lse is the

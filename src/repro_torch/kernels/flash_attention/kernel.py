@@ -1,16 +1,17 @@
 """Build and bind the flash-attention kernel (``csrc/flash_attention.cu``)
 and its backward (``csrc/flash_attention_bwd.cu``, a library of its own so
 that the forward's build and bits stay as they were, with its tensor-core
-routes in ``csrc/attn_bwd_wgmma.cuh`` (bf16) and ``csrc/attn_bwd_tf32.cuh``
-(float32 in 3xTF32)).
+routes in ``csrc/attn_bwd_wgmma.cuh`` (bf16 and f16) and
+``csrc/attn_bwd_tf32.cuh`` (float32 in 3xTF32), and the masks they share in
+``csrc/attn_mask.cuh``).
 
 Built at first use through the shared :mod:`repro_torch.kernels._build`
 helper, with the CUDA-core tile loop it shares with the chain kernel
-(``csrc/attn_tile.cuh``), the tensor-core loops of the ``bf16_wgmma`` route
-(``csrc/attn_wgmma.cuh``) and of the ``f32_3xtf32`` route
-(``csrc/attn_tf32.cuh``), and the GEMM headers they draw on (conversions,
-the TMA and ``wgmma`` helpers, the TF32 rounding).  Nothing here runs at
-import time.
+(``csrc/attn_tile.cuh``), the tensor-core loops of the ``bf16_wgmma`` and
+``f16_wgmma`` routes (``csrc/attn_wgmma.cuh``, one loop templated on the
+element type) and of the ``f32_3xtf32`` route (``csrc/attn_tf32.cuh``), and
+the GEMM headers they draw on (conversions, the TMA and ``wgmma`` helpers,
+the TF32 rounding).  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -48,11 +49,13 @@ _ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _D, _I, _I,
 ROUTE_SYMBOL = "bind_flash_attention_route"
 _ROUTE_ARGS = (_I, _P, _P, _P, _P, _I64)
 
-# the bf16 and f32 forwards that also store each row's log-sum-exp: (q, k,
-# v, out, lse, batch, ...) as _ARGS
+# the bf16, f16 and f32 forwards that also store each row's log-sum-exp:
+# (q, k, v, out, lse, batch, ...) as _ARGS
 LSE_SYMBOL = "bind_flash_attention_bf16_lse"
+F16_LSE_SYMBOL = "bind_flash_attention_f16_lse"
 F32_LSE_SYMBOL = "bind_flash_attention_f32_lse"
-LSE_SYMBOLS = {torch.bfloat16: LSE_SYMBOL, torch.float32: F32_LSE_SYMBOL}
+LSE_SYMBOLS = {torch.bfloat16: LSE_SYMBOL, torch.float16: F16_LSE_SYMBOL,
+               torch.float32: F32_LSE_SYMBOL}
 _LSE_ARGS = _ARGS[:4] + (_P,) + _ARGS[4:]
 
 LIBRARY = CudaLibrary("bind_flash_attention", SOURCES, HEADERS,
@@ -67,6 +70,7 @@ LIBRARY = CudaLibrary("bind_flash_attention", SOURCES, HEADERS,
 # stream), lse and delta scratch
 BWD_SOURCES = (_HERE / "csrc" / "flash_attention_bwd.cu",)
 BWD_HEADERS = (_HERE / "csrc" / "attn_bwd_wgmma.cuh",
+               _HERE / "csrc" / "attn_mask.cuh",
                _HERE / "csrc" / "attn_bwd_tf32.cuh",
                _HERE / "csrc" / "attn_bwd_tf32_wide.cuh",
                _HERE / "csrc" / "attn_tf32.cuh",
@@ -77,15 +81,18 @@ BWD_HEADERS = (_HERE / "csrc" / "attn_bwd_wgmma.cuh",
                _HERE.parent / "gemm" / "csrc" / "gemm_wgmma.cuh",
                _HERE.parent / "gemm" / "csrc" / "tf32.cuh")
 _BWD_ARGS = (_P,) * 10 + (_I64,) * 6 + (_D, _I, _I, _I64, _P)
-# its tensor-core route: (q, k, v, out, dout, dq, dk, dv, lse, delta, part,
-# batch, hq, hkv, sq, skv, d, scale, causal, windowed, window, groups,
-# stream), lse the forward's, delta and part scratch
+# its tensor-core routes: (q, k, v, out, dout, dq, dk, dv, lse, delta,
+# part, batch, hq, hkv, sq, skv, d, scale, causal, windowed, window, groups,
+# stream), lse the forward's, delta and part scratch; bf16 and f16 (the
+# same kernels of another element type)
 BWD_LSE_SYMBOL = "bind_flash_attention_bwd_bf16_lse"
+BWD_F16_LSE_SYMBOL = "bind_flash_attention_bwd_f16_lse"
 _BWD_LSE_ARGS = (_P,) * 11 + (_I64,) * 6 + (_D, _I, _I, _I64, _I64, _P)
 # the float32 tensor-core route (3xTF32): _BWD_LSE_ARGS, lse the forward's,
 # part and groups the head groups of d 256 (one, and no scratch, below)
 BWD_F32_LSE_SYMBOL = "bind_flash_attention_bwd_f32_lse"
 BWD_LSE_SYMBOLS = {torch.bfloat16: BWD_LSE_SYMBOL,
+                   torch.float16: BWD_F16_LSE_SYMBOL,
                    torch.float32: BWD_F32_LSE_SYMBOL}
 # which route (an index of ops.BWD_ROUTES) a backward takes: (element-type
 # code, d, q, k, v, out, dout, lse)
@@ -95,8 +102,8 @@ BWD_LIBRARY = CudaLibrary("bind_flash_attention_bwd", BWD_SOURCES,
                           BWD_HEADERS,
                           {**{f"bind_flash_attention_bwd_{s}": _BWD_ARGS
                               for s in SUFFIX.values()},
-                           BWD_LSE_SYMBOL: _BWD_LSE_ARGS,
-                           BWD_F32_LSE_SYMBOL: _BWD_LSE_ARGS,
+                           **{sym: _BWD_LSE_ARGS
+                              for sym in BWD_LSE_SYMBOLS.values()},
                            BWD_ROUTE_SYMBOL: _BWD_ROUTE_ARGS})
 # keys of a block of the tensor-core routes' dk/dv kernels
 # (attn_bwd_wgmma.cuh BIG; attn_bwd_tf32_wide.cuh OWN, d 256)
@@ -115,8 +122,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Enqueue attention of ``q`` (B, Hq, Sq, D) over ``k``, ``v`` (B, Hkv,
     Skv, D) into ``out`` on the current stream; given ``lse``, a (B, Hq,
     Sq) float32 buffer, also each row's log-sum-exp there (the tensor-core
-    routes only, ``bf16_wgmma`` and ``f32_3xtf32``: the library refuses it
-    on any other).
+    routes only, ``bf16_wgmma``, ``f16_wgmma`` and ``f32_3xtf32``: the
+    library refuses it on any other).
 
     The caller (:mod:`.ops`) has checked every operand.  Does not
     synchronise; raises when the launch is refused.
@@ -167,8 +174,8 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Without ``lse``, the CUDA-core route of the dtype: two kernel launches,
     with the (B, Hq, Sq) float32 log-sum-exp and delta scratch allocated
     here.  With ``lse``, the forward's (B, Hq, Sq) log-sum-exp, the
-    tensor-core route of the dtype: bf16 three launches (four with head
-    groups, :func:`dkv_groups`), float32 (3xTF32) four (delta, dq, dv, dk;
+    tensor-core route of the dtype: bf16 and f16 three launches (four with
+    head groups, :func:`dkv_groups`), float32 (3xTF32) four (delta, dq, dv, dk;
     five with head groups, at d 256 only), each with the delta scratch and
     the head groups' float32 partials allocated here.
 

@@ -27,8 +27,9 @@ backward kernel (``csrc/flash_attention_bwd.cu``, routes :data:`BWD_ROUTES`,
 counted in ``flash_attention_bwd.launches`` / ``routes``) on the card and
 its plain versions on the CPU.  A call that records a gradient asks the
 forward for each row's log-sum-exp, which the tensor-core routes
-(``bf16_wgmma``, ``f32_3xtf32``; on the CPU :func:`.ref.attention_lse`)
-hand back; the backward's tensor-core routes of the same names
+(``bf16_wgmma``, ``f16_wgmma``, ``f32_3xtf32``; on the CPU
+:func:`.ref.attention_lse`) hand back; the backward's tensor-core routes of
+the same names
 (:func:`bwd_route`) read it.  The reference has no backward kernel: it
 differentiates its oracle with XLA.
 
@@ -43,10 +44,13 @@ else on the CUDA cores (``f32_simt``); bfloat16 on the tensor cores (``bf16_wgmm
 fed by TMA) when the head dim is one of :data:`WGMMA_HEAD_DIMS` (64, 80,
 96, 128, 192, 256: whole 64-column panels, or a last panel of 16 / 32
 real columns over TMA's zero fill) and the operands are 16-byte aligned,
-else on the CUDA cores (``bf16_simt``); float16 on the CUDA cores
-(``f16_simt``).  Qwen3-14B (d 128), h2o-danube (d 80) and Phi-3-vision
-(d 96) take ``f32_3xtf32`` and ``bf16_wgmma``; so do RecurrentGemma-9B and
-Gemma-7B (d 256).
+else on the CUDA cores (``bf16_simt``); float16 by the same rule on the
+same tensor-core loop instantiated for it (``f16_wgmma``), else on the
+CUDA cores (``f16_simt``).  Qwen3-14B (d 128), h2o-danube (d 80) and
+Phi-3-vision (d 96) take ``f32_3xtf32``, ``bf16_wgmma`` and ``f16_wgmma``;
+so do RecurrentGemma-9B and Gemma-7B (d 256).  No model runs float16 (its
+configurations give bf16 or f32); every entry point takes it, as the
+reference's do.
 
 ``attn_step(o, q, k, v)`` is the executor-callable block accumulation ``o ←
 o + softmax(q kᵀ / √d) v``, tagged ``"dot"`` so a fused chain of it runs as
@@ -81,20 +85,24 @@ BACKENDS = ("cuda", "plain")
 # tensors (a dry run) get their shapes and operations counted
 DEVICES = ("cpu", "cuda", "meta")
 # the routes, in the order of the Route enum of csrc/flash_attention.cu
-ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f32_3xtf32", "f16_simt")
+ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f32_3xtf32", "f16_simt",
+          "f16_wgmma")
 # the backward's routes, in the order of the Route enum of
 # csrc/flash_attention_bwd.cu
 BWD_ROUTES = ("f32_simt", "bf16_simt", "f16_simt", "bf16_wgmma",
-              "f32_3xtf32")
-# the head dims of both bf16 tensor-core routes (wgmma_head_dim of
-# csrc/attn_wgmma.cuh)
+              "f32_3xtf32", "f16_wgmma")
+# the head dims of the bf16 and f16 tensor-core routes, forward and
+# backward (wgmma_head_dim of csrc/attn_wgmma.cuh)
 WGMMA_HEAD_DIMS = (64, 80, 96, 128, 192, 256)
 # the head dims of both float32 tensor-core routes (tf32_head_dim of
 # csrc/attn_tf32.cuh)
 TF32_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 # the routes whose forward hands back a log-sum-exp and whose backward
 # reads it
-LSE_ROUTES = ("bf16_wgmma", "f32_3xtf32")
+LSE_ROUTES = ("bf16_wgmma", "f32_3xtf32", "f16_wgmma")
+# the 16-bit dtypes' tensor-core and CUDA-core routes
+WGMMA_ROUTES = {torch.bfloat16: ("bf16_wgmma", "bf16_simt"),
+                torch.float16: ("f16_wgmma", "f16_simt")}
 
 
 def route(dtype: torch.dtype, d: int, addresses=()) -> str:
@@ -102,19 +110,17 @@ def route(dtype: torch.dtype, d: int, addresses=()) -> str:
     whose q, k, v and out start at ``addresses`` (device byte addresses):
     float32 goes to the tensor cores in 3xTF32 when d is one of
     :data:`TF32_HEAD_DIMS` and every address is 16-byte aligned, bfloat16
-    when d is one of :data:`WGMMA_HEAD_DIMS` and TMA can read every
-    operand (each address 16-byte aligned); float16 stays on the CUDA
-    cores."""
+    and float16 when d is one of :data:`WGMMA_HEAD_DIMS` and TMA can read
+    every operand (each address 16-byte aligned); every other call stays
+    on the CUDA cores of its dtype."""
     aligned = all(int(x) % 16 == 0 for x in addresses)
     if dtype == torch.float32:
         tf32 = d in TF32_HEAD_DIMS and aligned
         return "f32_3xtf32" if tf32 else "f32_simt"
-    if dtype == torch.float16:
-        return "f16_simt"
-    if dtype != torch.bfloat16:
+    if dtype not in WGMMA_ROUTES:
         raise TypeError(f"no attention route for dtype {dtype}")
-    tma = d in WGMMA_HEAD_DIMS and aligned
-    return "bf16_wgmma" if tma else "bf16_simt"
+    wgmma, simt = WGMMA_ROUTES[dtype]
+    return wgmma if d in WGMMA_HEAD_DIMS and aligned else simt
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -294,12 +300,13 @@ def bwd_route(dtype: torch.dtype, d: int, addresses=()) -> str:
     ``dtype`` whose q, k, v, out, dout and saved log-sum-exp start at
     ``addresses`` (device byte addresses; the log-sum-exp's 0 or None
     where the forward saved none; empty: all aligned, a log-sum-exp
-    saved): bfloat16 goes to the tensor cores (``bf16_wgmma``) when d is
-    one of :data:`WGMMA_HEAD_DIMS`, float32 (``f32_3xtf32``) when d is one
-    of :data:`TF32_HEAD_DIMS`, each when every address is 16-byte aligned
-    and the forward saved its log-sum-exp; every other call takes the
-    CUDA cores of its dtype (``csrc/flash_attention_bwd.cu`` ``route_of``
-    is the same rule in C)."""
+    saved): bfloat16 and float16 go to the tensor cores (``bf16_wgmma``,
+    ``f16_wgmma``) when d is one of :data:`WGMMA_HEAD_DIMS`, float32
+    (``f32_3xtf32``) when d is one of :data:`TF32_HEAD_DIMS`, each when
+    every address is 16-byte aligned and the forward saved its
+    log-sum-exp; every other call takes the CUDA cores of its dtype
+    (``csrc/flash_attention_bwd.cu`` ``route_of`` is the same rule in
+    C)."""
     if dtype not in DTYPES:
         raise TypeError(f"no attention backward route for dtype {dtype}")
     if not 0 < d <= kernel.MAX_HEAD_DIM:
@@ -308,8 +315,8 @@ def bwd_route(dtype: torch.dtype, d: int, addresses=()) -> str:
     saved = not addresses or (len(addresses) == 6 and bool(addresses[5]))
     aligned = all(int(x or 0) % 16 == 0 for x in addresses)
     if saved and aligned:
-        if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
-            return "bf16_wgmma"
+        if dtype in WGMMA_ROUTES and d in WGMMA_HEAD_DIMS:
+            return WGMMA_ROUTES[dtype][0]
         if dtype == torch.float32 and d in TF32_HEAD_DIMS:
             return "f32_3xtf32"
     return BWD_ROUTES[kernel.DTYPE_CODES[dtype]]
@@ -351,8 +358,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On CUDA tensors the backward kernel of :func:`bwd_route` (counted as
     one call in ``flash_attention_bwd.launches`` and by route in
     ``flash_attention_bwd.routes``: the built library's route, held
-    against :func:`bwd_route`): ``bf16_wgmma`` and ``f32_3xtf32`` read
-    ``lse``, the CUDA-core routes sweep the keys for it.  On CPU tensors
+    against :func:`bwd_route`): ``bf16_wgmma``, ``f16_wgmma`` and
+    ``f32_3xtf32`` read ``lse``, the CUDA-core routes sweep the keys for
+    it.  On CPU tensors
     the plain version of the route the same call takes on the card, and
     only there: :func:`.ref.attention_grad_lse` for :data:`LSE_ROUTES`,
     :func:`.ref.attention_grad` for the others.

@@ -109,11 +109,12 @@ cudaError_t launch(const Problem<T, O>& p, cudaStream_t stream, SimtK simt,
     if constexpr (std::is_same_v<T, __nv_bfloat16>) {
       if (route_of(p) == BF16_WGMMA) {
         CUtensorMap ta, tb;
-        cudaError_t err = make_map(&ta, p.A, p.M, p.K,
+        constexpr CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+        cudaError_t err = make_map(&ta, bf16, p.A, p.M, p.K,
                                    p.a_stride != 0 ? p.L : 1, p.a_stride);
         if (err == cudaSuccess)
-          err = make_map(&tb, p.B, p.K, p.N, p.b_stride != 0 ? p.L : 1,
-                         p.b_stride);
+          err = make_map(&tb, bf16, p.B, p.K, p.N,
+                         p.b_stride != 0 ? p.L : 1, p.b_stride);
         if (err != cudaSuccess) return err;
         return start(wgmma, dim3(blocks(p.N, WG_BN), blocks(p.M, WG_BM)),
                      WG_THREADS, WG_SMEM, stream, ta, tb, p);

@@ -252,12 +252,14 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a (levels, rows, cols) row-major bf16 array read in boxes of 64 columns
-// by box_rows rows with the 128-byte swizzle; level_stride in elements (0:
-// the levels lie back to back)
-inline cudaError_t make_map(CUtensorMap* map, const void* base, int64_t rows,
-                            int64_t cols, int64_t levels,
-                            int64_t level_stride, int box_rows = 64) {
+// a (levels, rows, cols) row-major array of 16-bit elements of TMA type
+// `type` (the GEMM's bf16; attention's bf16 or f16) read in boxes of 64
+// columns by box_rows rows with the 128-byte swizzle; level_stride in
+// elements (0: the levels lie back to back)
+inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type,
+                            const void* base, int64_t rows, int64_t cols,
+                            int64_t levels, int64_t level_stride,
+                            int box_rows = 64) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t row_bytes = static_cast<cuuint64_t>(cols) * 2;
@@ -271,7 +273,7 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int64_t rows,
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+      map, type, 3, const_cast<void*>(base),
       dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -12,7 +12,10 @@ are pinned.
 """
 
 import ctypes
+import functools
+import importlib.util
 import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -229,13 +232,16 @@ def test_library_is_named_by_its_sources_and_headers():
     assert set(kernel.SUFFIX) == set(ops.DTYPES)
     assert set(kernel.LIBRARY.symbols) == {
         f"bind_flash_attention_{s}" for s in kernel.SUFFIX.values()} | {
-        kernel.ROUTE_SYMBOL, kernel.LSE_SYMBOL, kernel.F32_LSE_SYMBOL}
+        kernel.ROUTE_SYMBOL, kernel.LSE_SYMBOL, kernel.F16_LSE_SYMBOL,
+        kernel.F32_LSE_SYMBOL}
     assert kernel.ROUTE_SYMBOL == "bind_flash_attention_route"
-    # the log-sum-exp entry points are the bf16 and f32 ones with one more
-    # pointer
+    # the log-sum-exp entry points are the bf16, f16 and f32 ones with one
+    # more pointer
     assert kernel.LSE_SYMBOL == "bind_flash_attention_bf16_lse"
+    assert kernel.F16_LSE_SYMBOL == "bind_flash_attention_f16_lse"
     assert kernel.F32_LSE_SYMBOL == "bind_flash_attention_f32_lse"
     assert kernel.LSE_SYMBOLS == {torch.bfloat16: kernel.LSE_SYMBOL,
+                                  torch.float16: kernel.F16_LSE_SYMBOL,
                                   torch.float32: kernel.F32_LSE_SYMBOL}
     for dtype, sym in kernel.LSE_SYMBOLS.items():
         plain = kernel.LIBRARY.symbols[
@@ -259,8 +265,9 @@ def test_every_bound_symbol_is_an_extern_c_entry_point_with_its_arity():
 def test_wgmma_head_dims_are_one_rule_in_python_and_both_c_routes():
     """Static: ``ops.WGMMA_HEAD_DIMS`` is the set ``wgmma_head_dim`` of
     ``csrc/attn_wgmma.cuh`` admits, both C ``route_of``s (forward and
-    backward) ask that one function, and each tensor-core launcher
-    instantiates exactly those head dims (no nvcc needed)."""
+    backward) ask that one function for bfloat16 and for float16 alike,
+    and each tensor-core launcher instantiates exactly those head dims (no
+    nvcc needed)."""
     csrc = kernel.SOURCES[0].parent
     rule = re.search(r"bool wgmma_head_dim\(int64_t d\) \{(.*?)\}",
                      (csrc / "attn_wgmma.cuh").read_text(), re.S).group(1)
@@ -273,6 +280,13 @@ def test_wgmma_head_dims_are_one_rule_in_python_and_both_c_routes():
                          re.S).group(0)
         assert "bind_attn_wg::wgmma_head_dim(d)" in body
         assert "% 64" not in body
+        # each 16-bit tensor-core route is chosen by that one rule: the
+        # statement that returns it asks wgmma_head_dim
+        for route in ("BF16_WGMMA", "F16_WGMMA"):
+            chosen = [s for s in body.split(";")
+                      if re.search(rf"\b{route}\b", s)]
+            assert len(chosen) == 1, route
+            assert "bind_attn_wg::wgmma_head_dim(d)" in chosen[0], route
     switches = (
         re.search(r"cudaError_t launch_wgmma\(.*?\n\}", forward, re.S),
         re.search(r"inline cudaError_t launch\(.*?\n\}",
@@ -378,15 +392,42 @@ def test_float32_route_takes_the_tensor_cores_where_panels_fit(d, addresses,
 
 
 def test_float16_route_and_route_order():
-    """float16 stays on the CUDA-core loop at any head dim and alignment;
-    the names are in the C enum's order (Route of flash_attention.cu)."""
+    """float16 takes bfloat16's rule: the tensor cores (``f16_wgmma``, the
+    same loop instantiated for f16) at :data:`ops.WGMMA_HEAD_DIMS` with q,
+    k, v and out 16-byte aligned, the CUDA-core loop (``f16_simt``) at any
+    other head dim or alignment; the names are in the C enum's order
+    (Route of flash_attention.cu, ``f16_wgmma`` appended)."""
     for d in (16, 64, 128, 256):
         assert ops.route(torch.float16, d, (2, 6, 10, 14)) == "f16_simt"
-        assert ops.route(torch.float16, d, (0, 16, 32, 48)) == "f16_simt"
+        assert ops.route(torch.float16, d, (0, 16, 32, 48)) == (
+            "f16_wgmma" if d in ops.WGMMA_HEAD_DIMS else "f16_simt")
     assert ops.ROUTES == ("f32_simt", "bf16_simt", "bf16_wgmma",
-                          "f32_3xtf32", "f16_simt")
+                          "f32_3xtf32", "f16_simt", "f16_wgmma")
+    source = kernel.SOURCES[0].read_text()
+    enum = re.search(r"enum Route : int \{([^}]*)\}", source).group(1)
+    names = [n.split("=")[0].strip().lower() for n in enum.split(",")]
+    assert tuple(names) == ops.ROUTES
     assert kernel.DTYPE_CODES == {torch.float32: 0, torch.bfloat16: 1,
                                   torch.float16: 2}
+
+
+@pytest.mark.parametrize("d, addresses, want", [
+    # the head dims of the 64-column panels, whole or with a last panel of
+    # 16 / 32 real columns, as bfloat16's
+    *[(d, (0, 16, 32, 48),
+       "f16_wgmma" if d in (64, 80, 96, 128, 192, 256) else "f16_simt")
+      for d in (0, 16, 48, 64, 80, 96, 112, 128, 160, 192, 256, 320)],
+    (128, (), "f16_wgmma"),
+    (80, (), "f16_wgmma"),
+    # TMA must read each of q, k, v and out: one 2-byte element off 16
+    *[(d, (0, 16, 32, 48)[:i] + ((0, 16, 32, 48)[i] + 2,)
+       + (0, 16, 32, 48)[i + 1:], "f16_simt")
+      for d in (80, 96, 128, 256) for i in range(4)],
+])
+def test_float16_route_mirrors_bfloat16s(d, addresses, want):
+    assert ops.route(torch.float16, d, addresses) == want
+    bf16 = ops.route(torch.bfloat16, d, addresses)
+    assert want == bf16.replace("bf16", "f16")
 
 
 def test_odd_offset_float32_views_take_the_cuda_cores():
@@ -598,9 +639,9 @@ def test_backward_entry_point_on_the_cpu_is_the_plain_version(rng,
 def test_backward_route_is_the_cuda_cores_for_every_dtype():
     """Without a saved log-sum-exp every dtype takes its CUDA-core route
     (the tensor-core routes read the forward's); the names are in the C
-    enum's order, the tensor-core routes appended."""
+    enum's order, the tensor-core routes appended (``f16_wgmma`` last)."""
     assert ops.BWD_ROUTES == ("f32_simt", "bf16_simt", "f16_simt",
-                              "bf16_wgmma", "f32_3xtf32")
+                              "bf16_wgmma", "f32_3xtf32", "f16_wgmma")
     for dtype, want in zip(ops.DTYPES, ops.BWD_ROUTES):
         assert ops.bwd_route(dtype, 256, (0, 16, 32, 48, 64, None)) == want
         assert ops.bwd_route(dtype, 256, (0, 16, 32, 48, 64)) == want
@@ -654,8 +695,23 @@ _ALIGNED6 = (0, 16, 32, 48, 64, 80)
     (torch.float32, 80, _ALIGNED6[:5] + (None,), "f32_simt"),
     (torch.float32, 128, _ALIGNED6[:5] + (0,), "f32_simt"),
     (torch.float32, 64, _ALIGNED6[:5], "f32_simt"),
-    # float16 stays on the CUDA cores, saved log-sum-exp or not
-    (torch.float16, 128, _ALIGNED6, "f16_simt"),
+    # float16 with a saved log-sum-exp: bfloat16's rule, on the same
+    # kernels instantiated for f16
+    (torch.float16, 128, _ALIGNED6, "f16_wgmma"),
+    *[(torch.float16, d, _ALIGNED6,
+       "f16_wgmma" if d in (64, 80, 96, 128, 192, 256) else "f16_simt")
+      for d in (16, 48, 64, 80, 96, 112, 160, 192, 256)],
+    (torch.float16, 128, (), "f16_wgmma"),
+    (torch.float16, 80, (), "f16_wgmma"),
+    # and TMA must read each of the six operands
+    *[(torch.float16, 128, _ALIGNED6[:i] + (_ALIGNED6[i] + 2,)
+       + _ALIGNED6[i + 1:], "f16_simt") for i in range(6)],
+    *[(torch.float16, 80, _ALIGNED6[:i] + (_ALIGNED6[i] + 2,)
+       + _ALIGNED6[i + 1:], "f16_simt") for i in range(6)],
+    # no log-sum-exp saved: the CUDA cores
+    (torch.float16, 256, _ALIGNED6[:5] + (None,), "f16_simt"),
+    (torch.float16, 96, _ALIGNED6[:5] + (0,), "f16_simt"),
+    (torch.float16, 128, _ALIGNED6[:5], "f16_simt"),
 ])
 def test_backward_route_by_dtype_head_dim_alignment_and_lse(dtype, d,
                                                            addresses, want):
@@ -790,15 +846,25 @@ def test_backward_library_is_its_own_with_every_symbol_bound():
     headers = {h.resolve() for h in kernel.BWD_LIBRARY.headers}
     assert _includes(kernel.BWD_SOURCES[0]) == headers
     assert {h.name for h in headers} == {
-        "attn_bwd_wgmma.cuh", "attn_bwd_tf32.cuh", "attn_bwd_tf32_wide.cuh",
-        "attn_tf32.cuh", "attn_tf32_wide.cuh", "attn_wgmma.cuh",
-        "attn_tile.cuh", "gemm_tile.cuh", "gemm_wgmma.cuh", "tf32.cuh"}
+        "attn_bwd_wgmma.cuh", "attn_mask.cuh", "attn_bwd_tf32.cuh",
+        "attn_bwd_tf32_wide.cuh", "attn_tf32.cuh", "attn_tf32_wide.cuh",
+        "attn_wgmma.cuh", "attn_tile.cuh", "gemm_tile.cuh",
+        "gemm_wgmma.cuh", "tf32.cuh"}
     assert set(kernel.BWD_LIBRARY.symbols) == extern_c_symbols(
         kernel.BWD_SOURCES[0])
     assert set(kernel.BWD_LIBRARY.symbols) == {
         f"bind_flash_attention_bwd_{s}" for s in kernel.SUFFIX.values()} | {
         kernel.BWD_ROUTE_SYMBOL, kernel.BWD_LSE_SYMBOL,
-        kernel.BWD_F32_LSE_SYMBOL}
+        kernel.BWD_F16_LSE_SYMBOL, kernel.BWD_F32_LSE_SYMBOL}
+    # the f16 tensor-core route is the bf16 one's kernels of another
+    # element type, with its arguments
+    assert kernel.BWD_F16_LSE_SYMBOL == "bind_flash_attention_bwd_f16_lse"
+    assert kernel.BWD_LSE_SYMBOLS == {
+        torch.bfloat16: kernel.BWD_LSE_SYMBOL,
+        torch.float16: kernel.BWD_F16_LSE_SYMBOL,
+        torch.float32: kernel.BWD_F32_LSE_SYMBOL}
+    assert (kernel.BWD_LIBRARY.symbols[kernel.BWD_F16_LSE_SYMBOL]
+            == kernel.BWD_LIBRARY.symbols[kernel.BWD_LSE_SYMBOL])
     # the float32 tensor-core route takes the bf16 one's arguments: lse
     # the forward's, and the head groups' partials and count (d 256's
     # dk / dv blocks split a kv head's query heads as bf16_wgmma's do)
@@ -941,15 +1007,18 @@ def test_gradient_from_the_lse_in_bf16_is_close_to_float32(rng):
         torch.testing.assert_close(g.float(), e, rtol=3e-2, atol=3e-2)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_function_on_the_cpu_saves_an_lse_and_matches_jax(dtype, rng,
                                                           monkeypatch):
     """The autograd Function asks the CPU's plain forward for the
     log-sum-exp when the call records a gradient, saves it, and its
     backward takes the plain version of the route the same call takes on
-    the card: ``attention_grad_lse`` for bf16 (``bf16_wgmma``) and float32
-    (``f32_3xtf32``) at d 64; both match ``jax.value_and_grad`` of the
-    oracle."""
+    the card: ``attention_grad_lse`` for bf16 (``bf16_wgmma``), f16
+    (``f16_wgmma``) and float32 (``f32_3xtf32``) at d 64; each matches
+    ``jax.value_and_grad`` of the oracle (bf16 within the reference's
+    3e-2, f16 within the 1e-2 ``chip_smoke.py`` holds f16 attention to on
+    the card)."""
     b, hq, hkv, s, d = 1, 4, 2, 64, 64
     qkv = _qkv(rng, b, hq, hkv, s, s, d)
     dout = rng.normal(size=(b, hq, s, d)).astype(np.float32)
@@ -973,14 +1042,14 @@ def test_function_on_the_cpu_saves_an_lse_and_matches_jax(dtype, rng,
     _, _, _, _, lse = node.saved_tensors
     assert saved and lse is saved[0] and lse.shape == (b, hq, s)
     out.backward(torch.from_numpy(dout).to(dtype))
-    bf16 = dtype == torch.bfloat16
+    half = {torch.bfloat16: 3e-2, torch.float16: 1e-2}.get(dtype)
     assert calls == {"lse": 1, "grad": 0, "grad_lse": 1}
     got = [t.grad.float().numpy() for t in (q, k, v)]
-    if bf16:
+    if half:
         want = _ref_grads([t.detach().float().numpy() for t in (q, k, v)],
                           torch.from_numpy(dout).to(dtype).float().numpy(),
                           causal=True, window=24)
-        _close_grads(got, want, tol=3e-2)
+        _close_grads(got, want, tol=half)
     else:
         _close_grads(got, _ref_grads(qkv, dout, causal=True, window=24))
     # without a gradient to record, the forward asks for no log-sum-exp
@@ -1098,3 +1167,130 @@ def test_float32_at_d_80_saves_an_lse_and_matches_jax_value_and_grad(
                                rtol=0, atol=2e-5)
     _close_grads([t.grad.numpy() for t in (q, k, v)],
                  [np.asarray(g) for g in want], tol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# f16_wgmma's roundings, emulated: the float16 tensor-core route rounds P
+# (forward and backward) and dS (backward) to f16 before their products
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _chip_smoke():
+    """``chip_smoke.py`` (it imports nothing but the standard library at
+    module level), for the limits it holds the card's f16 outputs to."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke_limits", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _emulate_f16_wgmma(q, k, v, dout, *, causal, window, through=None):
+    """``f16_wgmma``'s arithmetic on float16 ``q``, ``k``, ``v``, ``dout``
+    (B, H, S, D), in float32 on the CPU: the scores and every sum in
+    float32, the weights p (and, in the backward, dS = p (dp - delta))
+    rounded to float16 before their products, each output rounded once
+    to float16, delta from the rounded output.  ``through``: a dtype P and
+    dS are rounded through first (bfloat16: the planted fault).  Returns
+    ``(out, (dq, dk, dv))``."""
+    group = q.shape[1] // k.shape[1]
+    scale = q.shape[3] ** -0.5
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, dout))
+    kk, vv = (t.repeat_interleave(group, dim=1) for t in (kf, vf))
+    seen = ref.mask(q.shape[2], k.shape[2], causal=causal, window=window,
+                    device="cpu")
+    s = torch.where(seen, (qf @ kk.transpose(-1, -2)) * scale,
+                    float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+    l = p.sum(-1, keepdim=True)
+    l = torch.where(l > 0, l, 1.0)
+
+    def rounded(x):
+        if through is not None:
+            x = x.to(through).float()
+        return x.half().float()
+
+    out = ((rounded(p) @ vv) / l).half()
+    pn = p / l
+    dp = gf @ vv.transpose(-1, -2)
+    delta = (gf * out.float()).sum(-1, keepdim=True)
+    ds = rounded(pn * (dp - delta))
+    pr = rounded(pn)
+
+    def per_kv_head(x):
+        return x.unflatten(1, (k.shape[1], group)).sum(2)
+
+    dq = (scale * (ds @ kk)).half()
+    dk = per_kv_head(scale * (ds.transpose(-1, -2) @ qf)).half()
+    dv = per_kv_head(pr.transpose(-1, -2) @ gf).half()
+    return out, (dq, dk, dv)
+
+
+def test_f16_wgmma_emulation_holds_the_f16_limits_and_sees_bf16_rounding(
+        rng):
+    """The route's roundings, emulated, stay within ``chip_smoke.py``'s
+    float16 limits of the reference's oracle on the same float16 values
+    (the forward: ``half_attention_error``'s per-element, slice and row
+    limits; each gradient: ``F16_SLICE_NRMS`` rms per head slice of
+    ``jax.grad`` of the oracle); P and dS rounded through bfloat16 first
+    (3 bits fewer: the fault ``tools/attn_faults.py`` plants) fall outside
+    them, so the card's f16 checks tell that fault apart."""
+    cs = _chip_smoke()
+    b, hq, hkv, s, d, window = 1, 4, 2, 256, 64, None
+    qkv = [t.astype(np.float16) for t in _qkv(rng, b, hq, hkv, s, s, d)]
+    dout = rng.normal(size=(b, hq, s, d)).astype(np.float16)
+    q, k, v, g = (torch.from_numpy(t) for t in (*qkv, dout))
+    f32 = [t.astype(np.float32) for t in qkv]
+    exp = torch.from_numpy(np.array(ref_oracle.attention(
+        *(jnp.asarray(t) for t in f32), causal=True, window=window)))
+    exp_g = [torch.from_numpy(x) for x in _ref_grads(
+        f32, dout.astype(np.float32), causal=True, window=window)]
+    stats = {}
+    for through in (None, torch.bfloat16):
+        out, grads = _emulate_f16_wgmma(q, k, v, g, causal=True,
+                                        window=window, through=through)
+        fwd = cs.half_attention_error(out, exp, v)
+        bwd = max(cs.slice_nrms(x, e) for x, e in zip(grads, exp_g))
+        stats[through] = (fwd, bwd)
+    (fwd, bwd), (bad_fwd, bad_bwd) = stats[None], stats[torch.bfloat16]
+    assert cs.half_within(fwd, "float16"), fwd
+    assert bwd <= cs.F16_SLICE_NRMS, bwd
+    # f16's unit roundoff is 2^-11, eight times below bf16's: the f16
+    # limits are the bf16 ones' multiples of it, never looser
+    assert cs.F16_SLICE_NRMS == cs.BF16_SLICE_NRMS / 8
+    assert cs.F16_ROW_NRMS == cs.BF16_ROW_NRMS / 8
+    assert cs.F16_ELEMENT == cs.BF16_ELEMENT / 8
+    assert not cs.half_within(bad_fwd, "float16"), bad_fwd
+    assert bad_fwd["slice"] > 2 * fwd["slice"]
+    assert bad_bwd > cs.F16_SLICE_NRMS and bad_bwd > 2 * bwd, (bad_bwd, bwd)
+
+
+def test_f16_wgmma_emulation_overflows_where_ds_passes_the_f16_range(rng):
+    """A pinned divergence (ROADMAP Queue 3): ``f16_wgmma`` rounds dS =
+    p (dp - delta) to float16 before dQ += dS K and dK += dS^T Q, so where
+    |dS| passes 65504 those gradients are inf or NaN, where the CUDA-core
+    route and the plain version, float32 inside, round only the (finite)
+    gradients.  Scores near zero (q, k ~ 0.003) spread p over the 256
+    keys; |dout| ~ 1e4 and |v| ~ 1e3 put |dp - delta| near 1e8 and most
+    |dS| past 65504, while every gradient stays below 1e4."""
+    b, h, s, d = 1, 2, 256, 64
+    q, k = (torch.from_numpy(3e-3 * rng.normal(size=(b, h, s, d))).half()
+            for _ in range(2))
+    v = torch.from_numpy(1e3 * rng.normal(size=(b, h, s, d))).half()
+    g = torch.from_numpy(1e4 * rng.normal(size=(b, h, s, d))).half()
+    plain = ref.attention_grad(q, k, v, g, causal=False, window=None)
+    assert all(bool(torch.isfinite(x).all()) for x in plain)
+    _, (dq, dk, dv) = _emulate_f16_wgmma(q, k, v, g, causal=False,
+                                         window=None)
+    assert not torch.isfinite(dq).all() and not torch.isfinite(dk).all()
+    assert torch.isfinite(dv).all()
+    # where dS stays in range the emulation is the plain version's to f16
+    small = _emulate_f16_wgmma(q, k, v / 64, g / 64, causal=False,
+                               window=None)[1]
+    want = ref.attention_grad(q, k, v / 64, g / 64, causal=False,
+                              window=None)
+    cs = _chip_smoke()
+    for x, w in zip(small, want):
+        assert torch.isfinite(x).all()
+        assert cs.slice_nrms(x, w) <= cs.F16_SLICE_NRMS

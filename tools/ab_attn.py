@@ -35,7 +35,7 @@ C entry points on the same inputs:
   192, 256), at h2o-danube's d 80 and at full width: each side within the
   reference's bf16 tolerance (3e-2) of the oracle on the padded inputs
   and within ``chip_smoke.py``'s limits scaled to each value against the
-  float32 oracle (``bf16_attention_error``), and a row that sees no key
+  float32 oracle (``half_attention_error``), and a row that sees no key
   exactly zero; where both sides take ``bf16_wgmma``, this side's output
   bit for bit the other's; the route each side takes is printed (a side
   without ``bind_flash_attention_route`` has one loop);
@@ -47,6 +47,16 @@ C entry points on the same inputs:
   the same inputs; +inf on exactly the rows that see no key) and, where
   the other side has the entry point and takes ``bf16_wgmma`` too, bit for
   bit the other side's;
+* flash attention in float16 (since the ``f16_wgmma`` route: the
+  bfloat16 loop instantiated for f16) at the reference's cases at d 64
+  and 128, at ``MID_ATTN`` at every head dim of ``MID_HEAD_DIMS``, at
+  h2o-danube's d 80 and at ``FULL_ATTN_F16``'s full widths: each side
+  within ``ATTN_TOL["float16"]`` (1e-2) of the oracle and within
+  ``chip_smoke.py``'s float16 limits (``HALF_LIMITS``), where both sides
+  take one route (``f16_simt``, or ``f16_wgmma`` on both) bit for bit the
+  other's, and ``bind_flash_attention_f16_lse`` held as the bf16 one is;
+  this side's ``f16_wgmma`` against an older side's ``f16_simt`` on the
+  same values;
 * the attention backward (``.../flash_attention/csrc/
   flash_attention_bwd.cu``, where the other side has one) in float32 and
   bfloat16 at the reference's cases at d 64 and 128, at ``MID_ATTN``
@@ -67,7 +77,11 @@ C entry points on the same inputs:
   (``ref.attention_grad`` in float32) and, where the other side takes
   ``bf16_wgmma`` too, dq, dk and dv bit for bit the other side's on the
   same inputs and log-sum-exp (where it does not, as the parent of the
-  d 80 / 96 routes does not, held to the plain version only);
+  d 80 / 96 routes does not, held to the plain version only); float16
+  the same way, on ``f16_simt`` (bit for bit the other side's) and on
+  ``f16_wgmma`` (within ``F16_SLICE_NRMS``, 2^-10), at the reference's
+  cases at d 64 and 128, ``MID_ATTN`` at ``MID_HEAD_DIMS`` and
+  ``BWD_SHAPES``' float16 shapes;
 * ``chain_attn`` in float32, bfloat16 and float64 at ``chip_smoke.py``'s
   two shapes (a 512-row Qwen3-14B tile x 16 levels of 512 keys, and a
   ragged (100, 70, d 40, dv 24) x 3) in its three layouts: bit for bit
@@ -95,24 +109,26 @@ import sys
 from pathlib import Path
 
 from _ab import KERNELS, ROOT, ab, build_all, start
-from chip_smoke import (ATTN_CASES, ATTN_TOL, BF16_SLICE_NRMS, BWD_SHAPES,
-                        BWD_F32_NRMS, FAMILY_ATTN, FAMILY_F32_ATTN,
-                        FULL_ATTN, MID_ATTN, MID_HEAD_DIMS, ODD_ATTN,
-                        TF32_VS_SIMT, attention64, attention_grad64,
-                        bf16_attention_error, bf16_within, slice_nrms,
-                        tf32_vs_simt)
+from chip_smoke import (ATTN_CASES, ATTN_TOL, BWD_SHAPES, BWD_F32_NRMS,
+                        FAMILY_ATTN, FAMILY_F32_ATTN, FULL_ATTN,
+                        FULL_ATTN_F16, HALF_LIMITS, MID_ATTN,
+                        MID_HEAD_DIMS, ODD_ATTN, TF32_VS_SIMT, attention64,
+                        attention_grad64, half_attention_error, half_within,
+                        slice_nrms, tf32_vs_simt)
 
 # the routes in the order of flash_attention.cu's Route enum; a side whose
 # bind_flash_attention_route takes the element size has the first three
-ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f32_3xtf32", "f16_simt")
+ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f32_3xtf32", "f16_simt",
+          "f16_wgmma")
 DTYPE_CODES = {"float32": 0, "bfloat16": 1, "float16": 2}
 F32_TOL = ATTN_TOL["float32"]
-TOL = ATTN_TOL["bfloat16"]      # the reference's, rtol = atol
+# the 16-bit dtypes' tensor-core routes, forward and backward
+WGMMA = {"bfloat16": "bf16_wgmma", "float16": "f16_wgmma"}
 CHAIN_SHAPES = ((512, 512, 128, 128, 16), (100, 70, 40, 24, 3))
 CHAIN_LAYOUTS = (("single", "single", "xs", "xs"),
                  ("single", "xs", "xs", "xs"),
                  ("single", "single", "single", "single"))
-FA_SUFFIX = {"float32": "f32", "bfloat16": "bf16"}
+FA_SUFFIX = {"float32": "f32", "bfloat16": "bf16", "float16": "f16"}
 CHAIN_SUFFIX = {"float32": "f32", "bfloat16": "bf16", "float64": "f64"}
 _P, _I, _I64, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_double)
@@ -121,10 +137,14 @@ FA_ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _D, _I, _I,
 FA_ROUTE_ARGS = (_I, _P, _P, _P, _P, _I64)
 LSE_SYMBOL = "bind_flash_attention_bf16_lse"
 F32_LSE_SYMBOL = "bind_flash_attention_f32_lse"
-LSE_SYMBOLS = {"bfloat16": LSE_SYMBOL, "float32": F32_LSE_SYMBOL}
+LSE_SYMBOLS = {"bfloat16": LSE_SYMBOL, "float32": F32_LSE_SYMBOL,
+               "float16": "bind_flash_attention_f16_lse"}
 FA_LSE_ARGS = FA_ARGS[:4] + (_P,) + FA_ARGS[4:]
 BWD_ARGS = (_P,) * 10 + (_I64,) * 6 + (_D, _I, _I, _I64, _P)
 BWD_LSE_SYMBOL = "bind_flash_attention_bwd_bf16_lse"
+BWD_F16_LSE_SYMBOL = "bind_flash_attention_bwd_f16_lse"
+BWD_HALF_SYMBOLS = {"bfloat16": BWD_LSE_SYMBOL,
+                    "float16": BWD_F16_LSE_SYMBOL}
 BWD_LSE_ARGS = (_P,) * 11 + (_I64,) * 6 + (_D, _I, _I, _I64, _I64, _P)
 BWD_F32_LSE_SYMBOL = "bind_flash_attention_bwd_f32_lse"
 # the backward's route: (element-type code, d, q, k, v, out, dout, lse),
@@ -132,7 +152,7 @@ BWD_F32_LSE_SYMBOL = "bind_flash_attention_bwd_f32_lse"
 BWD_ROUTE_SYMBOL = "bind_flash_attention_bwd_route"
 BWD_ROUTE_ARGS = (_I, _I64) + (_P,) * 6
 BWD_ROUTES = ("f32_simt", "bf16_simt", "f16_simt", "bf16_wgmma",
-              "f32_3xtf32")
+              "f32_3xtf32", "f16_wgmma")
 # the log-sum-exp against the plain version's in float32 on the same bf16
 # inputs: the same f32 scores summed in another order, one MUFU ex2 a key
 # (a few float32 ulps of values up to ~10)
@@ -164,8 +184,9 @@ def libraries(CudaLibrary, side: str, root: Path):
     if bwd_cu.is_file():
         bwd_syms = {f"bind_flash_attention_bwd_{s}": BWD_ARGS
                     for s in FA_SUFFIX.values()}
-        if BWD_LSE_SYMBOL in bwd_cu.read_text():
-            bwd_syms[BWD_LSE_SYMBOL] = BWD_LSE_ARGS
+        for sym in BWD_HALF_SYMBOLS.values():
+            if sym in bwd_cu.read_text():
+                bwd_syms[sym] = BWD_LSE_ARGS
         f32_groups = False
         if BWD_F32_LSE_SYMBOL in bwd_cu.read_text():
             # an entry point that takes d 256's head groups and partials
@@ -257,12 +278,14 @@ def main(argv: list[str]) -> int:
         seen = fa_ref.mask(q.shape[2], k.shape[2], causal=causal,
                            window=window, device=dev)
         blind = ~seen.any(dim=-1)
-        both_wgmma = routes["this"] == routes["other"] == "bf16_wgmma"
+        both_wgmma = (routes["this"] == routes["other"]
+                      and routes["this"] in WGMMA.values())
         lse_ok, lse_what = True, ""
         if both_wgmma:
             lse_ok = torch.equal(outs["this"], outs["other"])
-            lse_what = "; both bf16_wgmma: out bit for bit the other's"
-        if (routes["this"] in ("bf16_wgmma", "f32_3xtf32")
+            lse_what = (f"; both {routes['this']}: out bit for bit the "
+                        f"other's")
+        if (routes["this"] in ("bf16_wgmma", "f16_wgmma", "f32_3xtf32")
                 and LSE_SYMBOLS[dname] in libs["this"][0].symbols):
             out, lse = lse_call("this", q, k, v, causal, window)
             _, want = fa_ref.attention_lse(q.float(), k.float(), v.float(),
@@ -312,20 +335,27 @@ def main(argv: list[str]) -> int:
                     f"float64 error at most {worst:.2f} x the other's "
                     f"(limit {TF32_VS_SIMT})")
         else:
+            tol = ATTN_TOL[dname]      # the reference's, rtol = atol
             exp32 = fa_ref.attention(q.float(), k.float(), v.float(),
                                      causal=causal, window=window)
-            stats = {s: bf16_attention_error(outs[s], exp32, v)
+            stats = {s: half_attention_error(outs[s], exp32, v)
                      for s in libs}
             ok = all(torch.allclose(outs[s].float(), exp.float(),
-                                    rtol=TOL, atol=TOL)
-                     and bf16_within(stats[s]) for s in libs)
+                                    rtol=tol, atol=tol)
+                     and half_within(stats[s], dname) for s in libs)
             ok = ok and not outs["this"][:, :, blind].any().item()
-            what = (f"both sides within {TOL} of the oracle and within "
-                    f"the bf16 limits (this: element "
+            what = (f"both sides within {tol} of the oracle and within "
+                    f"the {dname} limits (this: element "
                     f"{stats['this']['element']:.3f}, slice "
                     f"{stats['this']['slice']:.2e}, row "
-                    f"{stats['this']['row']:.2e}), {int(blind.sum())} blind "
-                    f"rows zero")
+                    f"{stats['this']['row']:.2e}; other: slice "
+                    f"{stats['other']['slice']:.2e}), {int(blind.sum())} "
+                    f"blind rows zero")
+            if routes["this"] == routes["other"]:
+                same = torch.equal(outs["this"], outs["other"])
+                ok = ok and same
+                what += (f"; both {routes['this']}: this vs other bitwise "
+                         f"equal: {same}")
         err = (outs["this"].double() - exp.double()).abs().max().item()
         ok = ok and lse_ok
         print(f"[check] {name}: {what}{lse_what}: {'ok' if ok else 'FAILED'}"
@@ -362,7 +392,7 @@ def main(argv: list[str]) -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def bwd_wgmma_call(side, q, k, v, out, dout, lse, causal, window):
-        """The side's bf16 backward on the tensor cores."""
+        """The side's bf16 or f16 backward on the tensor cores."""
         b, hq, sq, d = q.shape
         hkv, skv = k.shape[1], k.shape[2]
         grads = tuple(torch.empty_like(t) for t in (q, k, v))
@@ -371,7 +401,7 @@ def main(argv: list[str]) -> int:
         part = (torch.empty((2, b, groups, hkv, skv, d), dtype=torch.float32,
                             device=dev) if groups > 1 else None)
         libs[side][3].call(
-            BWD_LSE_SYMBOL,
+            BWD_HALF_SYMBOLS[str(q.dtype)[6:]],
             *(t.data_ptr() for t in (q, k, v, out, dout, *grads, lse,
                                      delta)),
             None if part is None else part.data_ptr(), b, hq, hkv, sq, skv,
@@ -392,13 +422,15 @@ def main(argv: list[str]) -> int:
         return BWD_ROUTES[r]
 
     def wgmma_bwd(side, q, k, v, out, dout):
-        """Whether the side's backward takes bf16_wgmma on these operands
-        with the forward's log-sum-exp."""
-        if (str(q.dtype) != "torch.bfloat16"
-                or BWD_LSE_SYMBOL not in libs[side][3].symbols):
+        """Whether the side's backward takes its 16-bit tensor-core route
+        (bf16_wgmma, f16_wgmma) on these operands with the forward's
+        log-sum-exp."""
+        dname = str(q.dtype)[6:]
+        if (dname not in WGMMA
+                or BWD_HALF_SYMBOLS[dname] not in libs[side][3].symbols):
             return False
         lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
-        return bwd_route(side, q, k, v, out, dout, lse) == "bf16_wgmma"
+        return bwd_route(side, q, k, v, out, dout, lse) == WGMMA[dname]
 
     def tf32_bwd(side, q, k, v, out, dout):
         """Whether the side's backward takes f32_3xtf32 on these operands
@@ -450,8 +482,7 @@ def main(argv: list[str]) -> int:
         torch.cuda.synchronize()
         ok = all(torch.equal(a, c) for a, c in zip(got["this"],
                                                    got["other"]))
-        what = (f"{'f32' if dname == 'float32' else 'bf16'}_simt this vs "
-                f"other bitwise equal")
+        what = f"{FA_SUFFIX[dname]}_simt this vs other bitwise equal"
         simt = got["this"]
         del got
         if tf32_bwd("this", q, k, v, out, dout):
@@ -493,9 +524,10 @@ def main(argv: list[str]) -> int:
                                         dout.float(), causal=causal,
                                         window=window)
             nrms = max(slice_nrms(g, e) for g, e in zip(grads, exp))
-            ok = ok and nrms <= BF16_SLICE_NRMS
-            what += (f"; bf16_wgmma within {nrms:.2e} rms per head slice of "
-                     f"the plain version (<= {BF16_SLICE_NRMS:.2e})")
+            limit = HALF_LIMITS[dname][2]
+            ok = ok and nrms <= limit
+            what += (f"; {WGMMA[dname]} within {nrms:.2e} rms per head "
+                     f"slice of the plain version (<= {limit:.2e})")
             if wgmma_bwd("other", q, k, v, out, dout):
                 other = bwd_wgmma_call("other", q, k, v, out, dout, lse,
                                        causal, window)
@@ -503,10 +535,11 @@ def main(argv: list[str]) -> int:
                 same = all(torch.equal(a, c) for a, c in zip(grads, other))
                 ok = ok and same
                 what += (f", dq, dk, dv bit for bit the other side's "
-                         f"bf16_wgmma: {same}")
+                         f"{WGMMA[dname]}: {same}")
                 del other
             else:
-                what += " (the other side's bf16 route is the CUDA cores)"
+                what += (f" (the other side's {dname} route is the CUDA "
+                         f"cores)")
         print(f"[check] flash_attention_bwd {label}{(b, hq, hkv, sq, skv, d)}"
               f" causal {causal} window {window} {dname}: {what}: "
               f"{'ok' if ok else 'FAILED'}")
@@ -514,7 +547,7 @@ def main(argv: list[str]) -> int:
 
     cases = [("", case, "float32", 16) for case in ATTN_CASES]
     for d in (64, 128):
-        for dname in ("float32", "bfloat16"):
+        for dname in ("float32", "bfloat16", "float16"):
             cases += [("", case[:5] + (d,) + case[6:], dname, 16)
                       for case in ATTN_CASES]
             # Sq > Skv under causal + window: rows past Skv + window see no
@@ -532,11 +565,15 @@ def main(argv: list[str]) -> int:
                   for b, hq, hkv, sq, skv, causal, window, blk in MID_ATTN]
     for d in MID_HEAD_DIMS:
         cases += [("mid ", (b, hq, hkv, sq, skv, d, causal, window),
-                   "bfloat16", blk)
-                  for b, hq, hkv, sq, skv, causal, window, blk in MID_ATTN]
-    for dname in ("float32", "bfloat16"):
+                   dname, blk)
+                  for b, hq, hkv, sq, skv, causal, window, blk in MID_ATTN
+                  for dname in ("bfloat16", "float16")]
+    for dname in ("float32", "bfloat16", "float16"):
         for model, (b, hq, hkv, s, d, window) in (ODD_ATTN,
                                                   *FULL_ATTN.items()):
+            if dname == "float16" and model not in (ODD_ATTN[0],
+                                                    *FULL_ATTN_F16):
+                continue
             cases.append((f"{model} ", (b, hq, hkv, s, s, d, True, window),
                           dname, 512))
     for label, shape, dname, blk in cases:
@@ -550,7 +587,7 @@ def main(argv: list[str]) -> int:
                       for b, hq, hkv, sq, skv, causal, window, blk
                       in MID_ATTN]
         for d in (64, 128):
-            for dname in ("float32", "bfloat16"):
+            for dname in ("float32", "bfloat16", "float16"):
                 bwd_cases += [("", case[:5] + (d,) + case[6:], dname, 16)
                               for case in ATTN_CASES]
                 bwd_cases.append(("", (1, 2, 2, 64, 32, d, True, 8), dname,
@@ -561,9 +598,9 @@ def main(argv: list[str]) -> int:
                           in MID_ATTN]
         for d in MID_HEAD_DIMS:
             bwd_cases += [("mid ", (b, hq, hkv, sq, skv, d, causal, window),
-                           "bfloat16", blk)
+                           dname, blk)
                           for b, hq, hkv, sq, skv, causal, window, blk
-                          in MID_ATTN]
+                          in MID_ATTN for dname in ("bfloat16", "float16")]
         for model, (b, hq, hkv, s, d, window, dnames) in BWD_SHAPES.items():
             bwd_cases += [(f"{model} ", (b, hq, hkv, s, s, d, True, window),
                            dname, 512) for dname in dnames]
@@ -621,7 +658,8 @@ def main(argv: list[str]) -> int:
     # (B, Hq, Hkv, S, D, window, dtypes) of the timed forwards and
     # backwards: the full widths, and the families' shapes whose last
     # 64-column panel is partly real
-    timed = {**{model: (b, hq, hkv, s, d, window, ("float32", "bfloat16"))
+    timed = {**{model: (b, hq, hkv, s, d, window, ("float32", "bfloat16")
+                        + (("float16",) if model in FULL_ATTN_F16 else ()))
                 for model, (b, hq, hkv, s, d, window) in FULL_ATTN.items()},
              **{model: (b, hq, hkv, sq, d, None, ("bfloat16",))
                 for model, (b, hq, hkv, sq, skv, d, causal)
@@ -673,7 +711,7 @@ def main(argv: list[str]) -> int:
                 # each side on the route its library takes with the
                 # forward's log-sum-exp
                 tc = {side: None if lse is None
-                      else "bf16_wgmma" if wgmma_bwd(side, q, k, v, out, dout)
+                      else WGMMA[dname] if wgmma_bwd(side, q, k, v, out, dout)
                       else "f32_3xtf32" if tf32_bwd(side, q, k, v, out, dout)
                       else None for side in libs}
                 label = ", ".join(f"{side} {tc[side] or 'CUDA cores'}"
@@ -681,7 +719,7 @@ def main(argv: list[str]) -> int:
 
                 def run(side, q=q, k=k, v=v, out=out, dout=dout, lse=lse,
                         window=window, tc=tc):
-                    if tc[side] == "bf16_wgmma":
+                    if tc[side] in WGMMA.values():
                         return bwd_wgmma_call(side, q, k, v, out, dout, lse,
                                               True, window)
                     if tc[side] == "f32_3xtf32":

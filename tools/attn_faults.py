@@ -18,7 +18,7 @@ through its bfloat16 C entry point, the cases of ``chip_smoke.py``'s
 each output checked as ``chip_smoke.py`` checks it: within the
 reference's tolerance (3e-2) of the oracle on the padded inputs, within
 the limits scaled to each value against the float32 oracle
-(``bf16_attention_error``), and zero where a row sees no key.  A float32
+(``half_attention_error``), and zero where a row sees no key.  A float32
 fault's library (the ``f32_3xtf32`` route) runs ``MID_ATTN`` at d 64,
 128 and 256, the reference's cases at d 64, 128 and 256 and two long
 causal cases (``LONG_F32``: eight heads over two, S 8192 at Qwen3-14B's
@@ -39,7 +39,15 @@ heads, no farther from a float64 gradient than ``TF32_VS_SIMT`` times
 ``f32_simt``'s on the same inputs.  The faults named ``d 256`` are
 planted in the blocks of head dim 256 alone (``attn_tf32_wide.cuh``,
 ``attn_bwd_tf32_wide.cuh``), so only its cases can catch them.  The
-control runs all three sets.  A
+float16 faults (P, and in the backward dS, rounded through bfloat16 on
+the ``f16_wgmma`` route: attn_wgmma.cuh's f16 packing) run the float16
+forward at ``chip_smoke.py``'s full widths in ``FULL_ATTN_F16`` (within
+``ATTN_TOL["float16"]`` of the plain version and within the float16
+limits of ``HALF_LIMITS`` against the float32 oracle) and the float16
+backward at ``BWD_SHAPES``' float16 shapes from this checkout's forward
+and its log-sum-exp (within ``F16_SLICE_NRMS`` rms per head slice of the
+plain version in float32), each printed as a ratio to its limit beside
+the control's.  The control runs all five sets.  A
 fault is caught when some case fails a check; how many cases each check
 fails is printed.
 
@@ -55,11 +63,18 @@ import shutil
 import sys
 
 from _ab import KERNELS, ROOT, build_all, start
-from chip_smoke import (ATTN_CASES, ATTN_TOL, BWD_F32_NRMS, MID_ATTN,
-                        MID_HEAD_DIMS, TF32_VS_SIMT, attention64,
-                        attention_grad64, bf16_attention_error, bf16_within,
-                        odd_offset, slice_nrms, tf32_vs_simt)
+from chip_smoke import (ATTN_CASES, ATTN_TOL, BWD_F32_NRMS, BWD_SHAPES,
+                        F16_SLICE_NRMS, FULL_ATTN, FULL_ATTN_F16,
+                        HALF_LIMITS, MID_ATTN, MID_HEAD_DIMS, TF32_VS_SIMT,
+                        attention64, attention_grad64, half_attention_error,
+                        half_within, odd_offset, slice_nrms, tf32_vs_simt)
 
+# the f16 packing of P and dS into A registers (attn_wgmma.cuh
+# Elem<__half>::pack), and the same through bfloat16 first
+F16_PACK = "    const __half2 v = __floats2half2_rn(lo, hi);"
+F16_PACK_BF16 = ("    const __half2 v = __floats2half2_rn(\n"
+                 "        __bfloat162float(__float2bfloat16_rn(lo)),\n"
+                 "        __bfloat162float(__float2bfloat16_rn(hi)));")
 # (name, dtype, file, line, replacement, whether the checks must catch it);
 # line and replacement may be tuples of lines, each replaced in turn
 FAULTS = (
@@ -67,8 +82,8 @@ FAULTS = (
      "if (!__all_sync(0xffffffffu, corr[0] == 1.0f && corr[1] == 1.0f)) {",
      "if (false) {", True),
     ("P of the previous tile", "bfloat16", "attn_wgmma.cuh",
-     "pa[i] = pack_bf16(p0, p1);",
-     "if (k0 == 0) pa[i] = pack_bf16(p0, p1);", True),
+     "pa[i] = Elem<T>::pack(p0, p1);",
+     "if (k0 == 0) pa[i] = Elem<T>::pack(p0, p1);", True),
     ("scale without log2(e)", "bfloat16", "flash_attention.cu",
      "scale * 1.4426950408889634f, mask};", "scale, mask};", True),
     ("ragged keys unmasked", "bfloat16", "attn_wgmma.cuh",
@@ -84,8 +99,8 @@ FAULTS = (
      "  for (int kk = 0; kk < D / 16; ++kk) {",
      "  for (int kk = 0; kk < D / 64 * 4; ++kk) {", True),
     ("last panel left out of P V", "bfloat16", "attn_wgmma.cuh",
-     "    if constexpr (D % 64 != 0)\n      wgmma_rs(first<D % 64>",
-     "    if constexpr (false)\n      wgmma_rs(first<D % 64>", True),
+     "    if constexpr (D % 64 != 0)\n      wgmma_rs<T>(first<D % 64>",
+     "    if constexpr (false)\n      wgmma_rs<T>(first<D % 64>", True),
     ("l rounded to bf16 every tile", "bfloat16", "attn_wgmma.cuh",
      "l[h] = corr[h] * l[h] + sum[h];",
      "l[h] = __bfloat162float(__float2bfloat16(corr[h] * l[h] + sum[h]));",
@@ -185,6 +200,13 @@ FAULTS = (
       "    for (int i = 0; i < C::AR; ++i) { st[i] = tf32_rna(st[i]); "
       "stl[i] = 0.0f; }",
       "          st[i] = tf32_rna(st[i]); stl[i] = 0.0f;"), True),
+    # float16 (f16_wgmma): P, and in the backward dS, rounded through
+    # bfloat16 before f16 (3 bits fewer), in the f16 packing of the
+    # A registers that both directions share
+    ("P rounded through bf16", "float16", "attn_wgmma.cuh",
+     F16_PACK, F16_PACK_BF16, True),
+    ("P and dS rounded through bf16", "float16 backward", "attn_wgmma.cuh",
+     F16_PACK, F16_PACK_BF16, True),
 )
 # the float32 backward's cases: (B, Hq, Hkv, S, d, window), causal;
 # h2o-danube-1.8b's FSDP step shape, and one long enough (512 key tiles a
@@ -203,18 +225,19 @@ BWD_F32 = ((8, 32, 8, 1024, 80, 4096), (1, 8, 2, 8192, 128, None),
 LONG_F32 = ((1, 8, 2, 8192, 128), (1, 8, 2, 16384, 256))
 _P, _I, _I64, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_double)
-# bind_flash_attention_bwd_f32_lse: ten tensors, d 256's head-group
+# bind_flash_attention_bwd_{f32,f16}_lse: ten tensors, the head groups'
 # partials, sizes, scale, mask, head groups, stream
 BWD_ARGS = (_P,) * 11 + (_I64,) * 6 + (_D, _I, _I, _I64, _I64, _P)
 FA_ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _D, _I, _I,
            _I64, _P)
 ROUTE_ARGS = (_I, _P, _P, _P, _P, _I64)
 # flash_attention.cu's Route enum and its element-type codes
-ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f32_3xtf32", "f16_simt")
-DTYPE_CODES = {"float32": 0, "bfloat16": 1}
-SUFFIX = {"float32": "f32", "bfloat16": "bf16"}
-WANT = {"float32": "f32_3xtf32", "bfloat16": "bf16_wgmma"}
-TOL = ATTN_TOL["bfloat16"]      # the reference's, rtol = atol
+ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f32_3xtf32", "f16_simt",
+          "f16_wgmma")
+DTYPE_CODES = {"float32": 0, "bfloat16": 1, "float16": 2}
+SUFFIX = {"float32": "f32", "bfloat16": "bf16", "float16": "f16"}
+WANT = {"float32": "f32_3xtf32", "bfloat16": "bf16_wgmma",
+        "float16": "f16_wgmma"}
 
 
 def planted(CudaLibrary, index, fault, backward: bool = False):
@@ -243,16 +266,17 @@ def planted(CudaLibrary, index, fault, backward: bool = False):
     headers = tuple(sorted((copy / "gemm" / "csrc").glob("*.cuh"))
                     + sorted((copy / "flash_attention" / "csrc")
                              .glob("*.cuh")))
-    if backward or (fault is not None and fault[1] == "float32 backward"):
+    if backward or (fault is not None and fault[1].endswith("backward")):
         return CudaLibrary(f"attn_fault_bwd_{index}",
                            (copy / "flash_attention" / "csrc" /
                             "flash_attention_bwd.cu",), headers,
-                           {"bind_flash_attention_bwd_f32_lse": BWD_ARGS})
+                           {"bind_flash_attention_bwd_f32_lse": BWD_ARGS,
+                            "bind_flash_attention_bwd_f16_lse": BWD_ARGS})
     return CudaLibrary(f"attn_fault_{index}",
                        (copy / "flash_attention" / "csrc" /
                         "flash_attention.cu",), headers,
-                       {"bind_flash_attention_bf16": FA_ARGS,
-                        "bind_flash_attention_f32": FA_ARGS,
+                       {**{f"bind_flash_attention_{s}": FA_ARGS
+                           for s in SUFFIX.values()},
                         "bind_flash_attention_route": ROUTE_ARGS})
 
 
@@ -356,6 +380,41 @@ def main(argv: list[str]) -> int:
                           window, exp, exp64, simt))
     cases["float32 backward"] = bwd_cases
 
+    # float16 on f16_wgmma at the full widths both ways: the forward held
+    # as the bf16 cases are, to f16's limits; the backward from this
+    # checkout's forward and its log-sum-exp, against the plain version in
+    # float32
+    cases["float16"], cases["float16 backward"] = [], []
+    for model in FULL_ATTN_F16:
+        b, hq, hkv, s, d, window = FULL_ATTN[model]
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev)
+                   .half() for h in (hq, hkv, hkv))
+        exp = fa_ref.attention(q, k, v, causal=True, window=window)
+        exp32 = fa_ref.attention(q.float(), k.float(), v.float(),
+                                 causal=True, window=window)
+        seen = fa_ref.mask(s, s, causal=True, window=window, device=dev)
+        cases["float16"].append((
+            f"{model} ({b}, {hq}, {hkv}, {s}, {s}, {d}) causal True window "
+            f"{window}", q, k, v, True, window, exp, exp32,
+            ~seen.any(dim=-1)))
+    for model, (b, hq, hkv, s, d, window, dnames) in BWD_SHAPES.items():
+        if "float16" not in dnames:
+            continue
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev)
+                   .half() for h in (hq, hkv, hkv))
+        kw = dict(causal=True, window=window, scale=d ** -0.5)
+        out, lse = fa_ops._attend(q, k, v, lse=True, **kw)
+        dout = torch.randn(q.shape, generator=gen, device=dev).half()
+        if fa_ops.bwd_route(torch.float16, d, fa_ops._bwd_addresses(
+                q, k, v, out, dout, lse)) != "f16_wgmma":
+            raise RuntimeError(f"{model}: the f16 backward does not take "
+                               f"f16_wgmma")
+        exp = fa_ref.attention_grad(q.float(), k.float(), v.float(),
+                                    dout.float(), **kw)
+        cases["float16 backward"].append((
+            f"{model} ({b}, {hq}, {hkv}, {s}, {s}, {d}) causal True window "
+            f"{window}", q, k, v, out, dout, lse, window, exp))
+
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def run_bwd(lib, q, k, v, out, dout, lse, window):
@@ -363,13 +422,17 @@ def main(argv: list[str]) -> int:
         delta = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
         b, hq, s, d = q.shape
         hkv = k.shape[1]
-        # d 256's head groups, as the port's launch_bwd picks them
-        groups = (fa_kernel.dkv_groups(hq, hkv, b, s, sms,
-                                       fa_kernel.BWD_TF32_KEY_BLOCK)
-                  if d > 128 else 1)
+        # the head groups, as the port's launch_bwd picks them (float32:
+        # at d 256 only)
+        if q.dtype == torch.float16:
+            groups = fa_kernel.dkv_groups(hq, hkv, b, s, sms)
+        else:
+            groups = (fa_kernel.dkv_groups(hq, hkv, b, s, sms,
+                                           fa_kernel.BWD_TF32_KEY_BLOCK)
+                      if d > 128 else 1)
         part = (torch.empty((2, b, groups, hkv, s, d), dtype=torch.float32,
                             device=dev) if groups > 1 else None)
-        lib.call("bind_flash_attention_bwd_f32_lse",
+        lib.call(f"bind_flash_attention_bwd_{SUFFIX[str(q.dtype)[6:]]}_lse",
                  *(t.data_ptr() for t in (q, k, v, out, dout, *grads, lse,
                                           delta)),
                  None if part is None else part.data_ptr(),
@@ -397,12 +460,37 @@ def main(argv: list[str]) -> int:
         return out
 
     failed = False
+    # the control's worst ratio to the limit in each float16 set
+    control_ratio = {}
     for fault, lib in zip(faults, libs):
-        dnames = (("bfloat16", "float32", "float32 backward")
-                  if fault is None else (fault[1],))
+        dnames = (("bfloat16", "float32", "float32 backward", "float16",
+                   "float16 backward") if fault is None else (fault[1],))
         for dname in dnames:
             name = "control (no fault)" if fault is None else fault[0]
             name = f"{name} [{dname}]"
+            if dname == "float16 backward":
+                lib_b = control_bwd if fault is None else lib
+                caught, ratios = 0, []
+                for (label, q, k, v, out, dout, lse, window,
+                     exp) in cases[dname]:
+                    got = run_bwd(lib_b, q, k, v, out, dout, lse, window)
+                    nrms = max(slice_nrms(g, e) for g, e in zip(got, exp))
+                    finite = all(bool(torch.isfinite(g).all()) for g in got)
+                    ratio = nrms / F16_SLICE_NRMS if finite else float("inf")
+                    ratios.append(f"{label}: {ratio:.2f}")
+                    caught += not ratio <= 1.0
+                    control_ratio.setdefault((dname, label), ratio)
+                print(f"[fault] {name}: caught by {caught} of "
+                      f"{len(cases[dname])} cases; rms error per head slice "
+                      f"over its limit {F16_SLICE_NRMS:.3e} (control's in "
+                      f"parentheses): " + "; ".join(
+                          f"{r} ({control_ratio[(dname, r.split(': ')[0])]:.2f})"
+                          for r in ratios))
+                if fault is None:
+                    failed |= caught > 0
+                elif fault[5] and not caught:
+                    failed = True
+                continue
             if dname == "float32 backward":
                 lib_b = control_bwd if fault is None else lib
                 caught, by_nrms, by_limits, first = 0, 0, 0, None
@@ -463,15 +551,26 @@ def main(argv: list[str]) -> int:
                     by_limits += not limits
                     ok = tolerance and limits
                 else:
-                    stats = bf16_attention_error(out, exp32, v)
+                    stats = half_attention_error(out, exp32, v)
                     stats["max_abs"] = max_abs
                     # the reference's tolerance alone, and the limits
                     # scaled to each value
+                    tol = ATTN_TOL[dname]
                     tolerance = (bool(torch.isfinite(out).all())
                                  and torch.allclose(out.float(), exp.float(),
-                                                    rtol=TOL, atol=TOL)
+                                                    rtol=tol, atol=tol)
                                  and not out[:, :, blind].any().item())
-                    limits = bf16_within(stats)
+                    if dname == "float16":
+                        slice_lim = HALF_LIMITS[dname][2]
+                        control_ratio.setdefault((dname, label),
+                                                 stats["slice"] / slice_lim)
+                        print(f"[fault]   {name} {label}: slice rms "
+                              f"{stats['slice'] / slice_lim:.2f} x its "
+                              f"limit {slice_lim:.3e} (control "
+                              f"{control_ratio[(dname, label)]:.2f} x), "
+                              f"row rms {stats['row']:.3e}, element "
+                              f"{stats['element']:.3f}")
+                    limits = half_within(stats, dname)
                     by_tolerance += not tolerance
                     by_limits += not limits
                     ok = tolerance and limits
@@ -495,14 +594,14 @@ def main(argv: list[str]) -> int:
                       f"f32_simt's (limit {TF32_VS_SIMT})")
             else:
                 what = (f"caught by {caught} of {n} cases (first: {first};"
-                        f" by the scaled limits {by_limits}, by the 3e-2 "
-                        f"tolerance {by_tolerance})"
+                        f" by the scaled limits {by_limits}, by the "
+                        f"{ATTN_TOL[dname]} tolerance {by_tolerance})"
                         if caught else f"passes all {n} cases")
                 print(f"[fault] {name}: {what}; worst element "
                       f"{worst['element']:.3f} of its limit, slice rms "
                       f"{worst['slice']:.3e}, row rms {worst['row']:.3e}, "
-                      f"max_abs_err {worst['max_abs']:.3e} against the bf16 "
-                      f"oracle")
+                      f"max_abs_err {worst['max_abs']:.3e} against the "
+                      f"{dname} oracle")
             if fault is None:
                 failed |= caught > 0
             elif fault[5] and not caught:
