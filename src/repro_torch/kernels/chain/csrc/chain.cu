@@ -18,12 +18,13 @@
 //     level), a "const" scalar, or an "xs_const" per-level scalar array.
 //     Bitwise equality with per-level serial replay is the contract.  Eager
 //     PyTorch runs a*y + x as two launches, each rounded to the carry type
-//     in the operator's math type (float for f32 and bf16, double for f64),
-//     with a Python scalar converted straight to that math type.  So the
-//     kernel multiplies with __fmul_rn / __dmul_rn and adds with __fadd_rn
-//     / __dadd_rn (never contracted into an FMA, whatever --fmad says),
-//     rounds to bf16 after each of the two for bf16, and takes constants
-//     as doubles converted to the math type.
+//     in the operator's math type (float for f32, bf16 and f16, double for
+//     f64), with a Python scalar converted straight to that math type.  So
+//     the kernel multiplies with __fmul_rn / __dmul_rn and adds with
+//     __fadd_rn / __dadd_rn (never contracted into an FMA, whatever --fmad
+//     says), rounds to bf16 / f16 after each of the two for bf16 / f16
+//     (round_to), and takes constants as doubles converted to the math
+//     type.
 //     Bound on an H100: bytes.  It does 2 operations per element and
 //     level; at 1024^2 f32 over 64 levels it moves 12.6 MB with a single x
 //     (3.8 us at 3.35 TB/s) and 276.8 MB with a per-level x (82.6 us).
@@ -49,12 +50,12 @@
 //     hand-written GEMM with a level loop outside its K loop.  It takes the
 //     GEMM's route for the dtype and alignment (gemm_routes.cuh: f32 on the
 //     TF32 tensor cores in 3xTF32 when 16-byte loads can read the operands
-//     and on the CUDA cores otherwise, bf16 on the tensor cores with wgmma
-//     and TMA or, when TMA cannot read the operands, on the CUDA cores, f64
-//     on the f64 tensor cores) and runs its tile loop with the levels as
-//     one stream of K panels.  Each block owns an output tile for the
-//     whole chain; per level it sums that level's A and B ("single" or
-//     "xs") over K from 0,
+//     and on the CUDA cores otherwise, bf16 and f16 on the tensor cores with
+//     wgmma and TMA or, when TMA cannot read the operands, on the CUDA
+//     cores, f64 on the f64 tensor cores) and runs its tile loop with the
+//     levels as one stream of K panels.  Each block owns an output tile
+//     for the whole chain; per level it sums that level's A and B
+//     ("single" or "xs") over K from 0,
 //     adds the carry in the accumulator type and rounds to the carry's
 //     type, as per-level matmul_accumulate does.  The carry stays in
 //     registers on the CUDA-core route; on the tensor-core routes, whose
@@ -91,8 +92,8 @@
 //     ceil(m / 64) = 8 blocks on 132 SMs.  Level-parallel, that tile is 128
 //     blocks (one wave: two of 83 KB fit on an SM), each one level's 16.8
 //     MFLOP; the ordered sum reads 4 MB of workspace once.  The tile loop
-//     stays on the CUDA cores in every dtype (fp32 FMA for f32 and bf16,
-//     fp64 for f64), so replay and the chain keep their bits.
+//     stays on the CUDA cores in every dtype (fp32 FMA for f32, bf16 and
+//     f16, fp64 for f64), so replay and the chain keep their bits.
 //     The workspace grows with the chain: M x dv accumulators a level
 //     (256 KB for that f32 tile, 8 MB for an 8192 x 128 f64 carry).  The
 //     wrapper bounds it (kernels/chain/kernel.py WORKSPACE_BYTES, 64 MiB):
@@ -111,6 +112,7 @@
 
 #include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <type_traits>
 
@@ -142,8 +144,8 @@ constexpr int C_XS_CONST = 3;
 constexpr int EWISE_THREADS = 256;
 constexpr int EWISE_UNROLL = 8;      // levels whose xs loads go out together
 
-// the math type of one eager operator: float for f32 and bf16, double for
-// f64 (the GEMM's accumulator type)
+// the math type of one eager operator: float for f32, bf16 and f16,
+// double for f64 (the GEMM's accumulator type)
 template <typename T> using Math = typename AccType<T>::type;
 
 __device__ __forceinline__ float mul_rn(float a, float b) {
@@ -167,6 +169,9 @@ template <typename T> __device__ __forceinline__ Math<T> round_to(Math<T> v) {
 template <>
 __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+template <> __device__ __forceinline__ float round_to<__half>(float v) {
+  return __half2float(__float2half_rn(v));
 }
 
 // a Python scalar (passed as a double) in the math type
@@ -451,10 +456,11 @@ chain_dot_simt_kernel(const Problem<T> p) {
   simt_tile<T>(p, simt_smem);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(WG_THREADS)
 chain_dot_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
                        const __grid_constant__ CUtensorMap tb,
-                       const Problem<__nv_bfloat16> p) {
+                       const Problem<T> p) {
   extern __shared__ __align__(1024) unsigned char wg_smem[];
   wgmma_tile(&ta, &tb, p, wg_smem);
 }
@@ -480,15 +486,17 @@ int launch_dot(const void* c, const void* a, int64_t a_stride, const void* b,
                      static_cast<const T*>(c), static_cast<T*>(out),
                      M, N, K, n_levels};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // each dtype's kernels only, as the GEMM's run (gemm.cu)
   if constexpr (std::is_same_v<T, double>)   // no CUDA-core route for f64
-    return static_cast<int>(launch(p, st, nullptr, chain_dot_wgmma_kernel,
-                                   chain_dot_dmma_kernel,
-                                   chain_dot_tf32_kernel));
+    return static_cast<int>(launch(p, st, nullptr, nullptr,
+                                   chain_dot_dmma_kernel, nullptr));
+  else if constexpr (std::is_same_v<T, float>)
+    return static_cast<int>(launch(p, st, chain_dot_simt_kernel<T>, nullptr,
+                                   nullptr, chain_dot_tf32_kernel));
   else
     return static_cast<int>(launch(p, st, chain_dot_simt_kernel<T>,
-                                   chain_dot_wgmma_kernel,
-                                   chain_dot_dmma_kernel,
-                                   chain_dot_tf32_kernel));
+                                   chain_dot_wgmma_kernel<T>, nullptr,
+                                   nullptr));
 }
 
 // ----------------------------------------------------------------- attn --
@@ -665,6 +673,7 @@ extern "C" {
 BIND_CHAIN_ENTRY_POINTS(f32, float)
 BIND_CHAIN_ENTRY_POINTS(bf16, __nv_bfloat16)
 BIND_CHAIN_ENTRY_POINTS(f64, double)
+BIND_CHAIN_ENTRY_POINTS(f16, __half)
 
 #undef BIND_CHAIN_ENTRY_POINTS
 

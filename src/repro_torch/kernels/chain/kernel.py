@@ -38,7 +38,7 @@ HEADERS = GEMM_HEADERS + (
     _HERE.parent / "flash_attention" / "csrc" / "attn_tile.cuh",)
 
 SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
-          torch.float64: "f64"}
+          torch.float64: "f64", torch.float16: "f16"}
 # operand kinds of chain_ewise (the numbering of csrc/chain.cu)
 KINDS = {"carry": 0, "single": 1, "xs": 2, "const": 3, "xs_const": 4}
 
@@ -49,7 +49,8 @@ _DOT_ARGS = (_P, _P, _I64, _P, _I64, _P, _I64, _I64, _I64, _I64, _P)
 _ATTN_ARGS = (_P, _P, _I64, _P, _I64, _P, _I64, _P, _P, _P, _I64, _I64,
               _I64, _I64, _I64, _D, _P)
 # rows of a chain_attn row tile in the smallest instantiation (float64's;
-# 64 for float32 and bfloat16): the counters cover m / ROW_TILE tiles
+# 64 for float32, bfloat16 and float16): the counters cover m / ROW_TILE
+# tiles
 ROW_TILE = 32
 # the most workspace one chain_attn launch takes; 4 MiB at chip_smoke.py's
 # 512 x 128 float32 tile of 16 levels, which stays one launch up to 256

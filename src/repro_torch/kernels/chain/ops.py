@@ -13,8 +13,9 @@ They return the final carry, a new tensor.
 
 * :func:`chain_ewise` — ``linear_scan.ops.scan_step`` (``y ← a·y + x``):
   every tensor has the carry's shape (``xs``: one more leading axis), the
-  carry's dtype (float32, bfloat16 or float64) and device; ``y`` and ``a``
-  are not both constants (their product would be a Python number).
+  carry's dtype (float32, bfloat16, float16 or float64; every wrapper
+  takes these four) and device; ``y`` and ``a`` are not both constants
+  (their product would be a Python number).
 * :func:`chain_dot` — ``gemm.ops.gemm_tile`` (``c ← c + a @ b``): the carry
   is ``c`` (position 0, ``(m, n)``); ``a`` is ``(m, k)`` and ``b`` ``(k, n)``,
   each ``"single"`` or ``"xs"``; one dtype and device.

@@ -31,8 +31,10 @@
 //   * float64 on the f64 tensor cores (gemm_dmma.cuh): DMMA m16n8k16.
 //     Bound: operations, 67 TFLOP/s; shared-memory reads of the DMMA
 //     operands come close to it first;
-//   * float16 on the CUDA-core loop, converted to fp32 on the way in and
-//     accumulated in fp32, rounded once to fp16.
+//   * float16 on the tensor cores by bfloat16's rule and tile loop
+//     (gemm_wgmma.cuh, f16 operands; same bound), and on the CUDA-core
+//     loop where TMA cannot read the operands: converted to fp32 on the
+//     way in and accumulated in fp32, rounded once to fp16.
 // Every route masks the ragged edge itself (zero fill), so no padding copy
 // is made for any (M, N, K), and adds an optional C once in the
 // accumulator type before one rounding: matmul_accumulate (c + a@b) is one
@@ -70,13 +72,13 @@ gemm_simt_kernel(const Problem<T, O> p) {
   simt_tile<T, O>(p, simt_smem);
 }
 
-template <typename O>
+template <typename T, typename O>
 __global__ void __launch_bounds__(WG_THREADS)
 gemm_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
                   const __grid_constant__ CUtensorMap tb,
-                  const Problem<__nv_bfloat16, O> p) {
+                  const Problem<T, O> p) {
   extern __shared__ __align__(1024) unsigned char wg_smem[];
-  wgmma_tile<O>(&ta, &tb, p, wg_smem);
+  wgmma_tile<T, O>(&ta, &tb, p, wg_smem);
 }
 
 template <typename O>
@@ -93,7 +95,8 @@ gemm_tf32_kernel(const Problem<float, O> p) {
   tf32_tile<O>(p, tf_smem);
 }
 
-// float64 has no CUDA-core route: no simt kernel is instantiated for it
+// each input type's kernels only: float64 has no CUDA-core route, float32
+// no wgmma one, the 16-bit types neither DMMA nor 3xTF32
 template <typename T, typename O>
 int run(const void* a, const void* b, const void* c, void* out, int64_t M,
         int64_t N, int64_t K, void* stream) {
@@ -103,14 +106,15 @@ int run(const void* a, const void* b, const void* c, void* out, int64_t M,
                         M, N, K, 1};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if constexpr (std::is_same_v<T, double>)
-    return static_cast<int>(launch(p, st, nullptr, gemm_wgmma_kernel<O>,
-                                   gemm_dmma_kernel<O>,
-                                   gemm_tf32_kernel<O>));
+    return static_cast<int>(launch(p, st, nullptr, nullptr,
+                                   gemm_dmma_kernel<O>, nullptr));
+  else if constexpr (std::is_same_v<T, float>)
+    return static_cast<int>(launch(p, st, gemm_simt_kernel<T, O>, nullptr,
+                                   nullptr, gemm_tf32_kernel<O>));
   else
     return static_cast<int>(launch(p, st, gemm_simt_kernel<T, O>,
-                                   gemm_wgmma_kernel<O>,
-                                   gemm_dmma_kernel<O>,
-                                   gemm_tf32_kernel<O>));
+                                   gemm_wgmma_kernel<T, O>, nullptr,
+                                   nullptr));
 }
 
 // run<T, O> for the output-type code out_dtype (the element-type codes of

@@ -18,8 +18,10 @@
 //               16 bytes), K > 0, level strides multiples of 16 bytes;
 //   BF16_SIMT   any other bfloat16: the CUDA-core loop, fp32 accumulator;
 //   F64_DMMA    float64: the f64 tensor cores (gemm_dmma.cuh), any shape;
-//   F16_SIMT    float16: the CUDA-core loop, fp32 accumulator, as
-//               bf16_simt.
+//   F16_SIMT    any other float16: the CUDA-core loop, fp32 accumulator,
+//               as bf16_simt;
+//   F16_WGMMA   float16 under bfloat16's TMA rule: the same tile loop
+//               (gemm_wgmma.cuh) with f16 operands.
 //
 // Each .cu file defines its own __global__ kernels around the shared tile
 // loops (so a profile tells the GEMM's launches from the chain kernel's)
@@ -42,7 +44,7 @@ namespace bind_gemm {
 
 enum Route : int {
   F32_SIMT = 0, BF16_SIMT = 1, BF16_WGMMA = 2, F64_DMMA = 3, F16_SIMT = 4,
-  F32_3XTF32 = 5
+  F32_3XTF32 = 5, F16_WGMMA = 6
 };
 
 inline bool aligned16(const void* p) {
@@ -58,13 +60,14 @@ inline Route route_of(const Problem<T, O>& p) {
     return tc ? F32_3XTF32 : F32_SIMT;
   } else if constexpr (std::is_same_v<T, double>) {
     return F64_DMMA;
-  } else if constexpr (std::is_same_v<T, __half>) {
-    return F16_SIMT;
   } else {
     const bool tma = aligned16(p.A) && aligned16(p.B) && p.K > 0 &&
                      p.K % 8 == 0 && p.N % 8 == 0 && p.a_stride % 8 == 0 &&
                      p.b_stride % 8 == 0;
-    return tma ? BF16_WGMMA : BF16_SIMT;
+    if constexpr (std::is_same_v<T, __half>)
+      return tma ? F16_WGMMA : F16_SIMT;
+    else
+      return tma ? BF16_WGMMA : BF16_SIMT;
   }
 }
 
@@ -88,10 +91,12 @@ cudaError_t start(Kernel kernel, dim3 grid, int threads, size_t smem,
 }
 
 // Launch problem p on its route: simt(Problem<T, O>) for F32_SIMT /
-// BF16_SIMT / F16_SIMT, wgmma(map A, map B, Problem<bf16, O>) for
-// BF16_WGMMA, dmma(Problem<double, O>) for F64_DMMA, tf32(Problem<float,
-// O>) for F32_3XTF32.  The output type O does not choose the route.
-// Returns the launch's error (cudaSuccess when it went).
+// BF16_SIMT / F16_SIMT, wgmma(map A, map B, Problem<T, O>) for
+// BF16_WGMMA / F16_WGMMA, dmma(Problem<double, O>) for F64_DMMA,
+// tf32(Problem<float, O>) for F32_3XTF32.  The output type O does not
+// choose the route.  A kernel the element type never takes may be nullptr
+// (its branch is not compiled).  Returns the launch's error (cudaSuccess
+// when it went).
 template <typename T, typename O, typename SimtK, typename WgmmaK,
           typename DmmaK, typename Tf32K>
 cudaError_t launch(const Problem<T, O>& p, cudaStream_t stream, SimtK simt,
@@ -106,14 +111,16 @@ cudaError_t launch(const Problem<T, O>& p, cudaStream_t stream, SimtK simt,
         return start(tf32, dim3(blocks(p.N, TF_BN), blocks(p.M, TF_BM)),
                      TF_THREADS, TF_SMEM, stream, p);
     }
-    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-      if (route_of(p) == BF16_WGMMA) {
+    if constexpr (std::is_same_v<T, __nv_bfloat16> ||
+                  std::is_same_v<T, __half>) {
+      const Route r = route_of(p);
+      if (r == BF16_WGMMA || r == F16_WGMMA) {
         CUtensorMap ta, tb;
-        constexpr CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-        cudaError_t err = make_map(&ta, bf16, p.A, p.M, p.K,
+        constexpr CUtensorMapDataType type = WgElem<T>::TMA;
+        cudaError_t err = make_map(&ta, type, p.A, p.M, p.K,
                                    p.a_stride != 0 ? p.L : 1, p.a_stride);
         if (err == cudaSuccess)
-          err = make_map(&tb, bf16, p.B, p.K, p.N,
+          err = make_map(&tb, type, p.B, p.K, p.N,
                          p.b_stride != 0 ? p.L : 1, p.b_stride);
         if (err != cudaSuccess) return err;
         return start(wgmma, dim3(blocks(p.N, WG_BN), blocks(p.M, WG_BM)),

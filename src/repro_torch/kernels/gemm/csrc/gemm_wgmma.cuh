@@ -1,8 +1,11 @@
-// The bfloat16 route of the hand-written GEMM on the tensor cores: wgmma
-// fed by TMA, shared by csrc/gemm.cu and the chain kernel through
-// gemm_routes.cuh.
+// The 16-bit routes of the hand-written GEMM on the tensor cores
+// (bf16_wgmma and f16_wgmma): wgmma fed by TMA, shared by csrc/gemm.cu and
+// the chain kernel through gemm_routes.cuh.  One tile loop for both element
+// types: WgElem<T> below holds what they differ in (wgmma's operand type,
+// TMA's data type); everything else, the tiles, the ring, the swizzle and
+// the epilogue, is the same code, since both types are 2 bytes wide.
 //
-// What bounds it on an H100: the bf16 tensor cores (989 TFLOP/s) are so
+// What bounds it on an H100: the 16-bit tensor cores (989 TFLOP/s) are so
 // fast that a 1024^3 product (2.1 GFLOP, 2.2 us at peak) is bounded in
 // practice by how quickly tiles reach shared memory and by the latency of
 // each K step, not by arithmetic.  So the design keeps the loads out of
@@ -15,11 +18,11 @@
 // a 64x64 panel of A (K-major, as it lies) and two 64x64 panels of B (B
 // is K x N row-major, so N-major: wgmma's transposed-B form), each written
 // by TMA in the 128-byte swizzle that wgmma reads.  Per stage the
-// warpgroup issues 4 k16 steps of two m64n64k16 instructions (bf16
+// warpgroup issues 4 k16 steps of two m64n64k16 instructions (bf16 or f16
 // operands from shared memory, fp32 accumulators in registers), waits for
 // them, and the stage goes back to the loader.  The ragged edge is TMA's
-// zero fill.  The epilogue adds C in fp32 and rounds once to bf16, or to
-// the output type the GEMM's caller asked for (gemm_tile.cuh
+// zero fill.  The epilogue adds C in fp32 and rounds once to the input
+// type, or to the output type the GEMM's caller asked for (gemm_tile.cuh
 // store_level).
 //
 // TMA needs a 16-byte-aligned base and row strides that are multiples of
@@ -32,11 +35,24 @@
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "gemm_tile.cuh"
 
 namespace bind_gemm {
+
+// What the two element types of the tile loop differ in.  F16: wgmma's
+// operands are .f16 (else .bf16); TMA: the tensor maps' data type.
+template <typename T> struct WgElem;
+template <> struct WgElem<__nv_bfloat16> {
+  static constexpr bool F16 = false;
+  static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <> struct WgElem<__half> {
+  static constexpr bool F16 = true;
+  static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
 
 constexpr int WG_BM = 64;
 constexpr int WG_BN = 128;
@@ -119,17 +135,22 @@ __device__ __forceinline__ void wg_pin(float (&d)[32]) {
   "+f"(d[o + 0]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),          \
       "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
 
-// d (64x64, fp32) += A (64x16, K-major) @ B (16x64, N-major)
+// d (64x64, fp32) += A (64x16, K-major) @ B (16x64, N-major), A and B of
+// type T ("bf16" or "f16" in the instruction, the operand list the same)
+template <typename T>
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
                                           uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
-      : BIND_WG_D8(0), BIND_WG_D8(8), BIND_WG_D8(16), BIND_WG_D8(24)
-      : "l"(da), "l"(db), "r"(1));
+#define BIND_WG_N64(ty)                                                   \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." ty "." ty " "         \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"                 \
+      : BIND_WG_D8(0), BIND_WG_D8(8), BIND_WG_D8(16), BIND_WG_D8(24)      \
+      : "l"(da), "l"(db), "r"(1))
+  if constexpr (WgElem<T>::F16) BIND_WG_N64("f16"); else BIND_WG_N64("bf16");
+#undef BIND_WG_N64
 }
 
 #undef BIND_WG_D8
@@ -137,11 +158,12 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
 // ---- the tile loop ------------------------------------------------------------
 
 // All WG_THREADS threads call it, with WG_SMEM bytes of dynamic shared
-// memory at ``smem``.  ta: A as (K, M, levels), tb: B as (N, K, levels).
-template <typename O = __nv_bfloat16>
+// memory at ``smem``.  ta: A as (K, M, levels), tb: B as (N, K, levels);
+// T is __nv_bfloat16 or __half.
+template <typename T, typename O = T>
 __device__ __forceinline__ void wgmma_tile(
-    const CUtensorMap* ta, const CUtensorMap* tb,
-    const Problem<__nv_bfloat16, O>& p, unsigned char* smem) {
+    const CUtensorMap* ta, const CUtensorMap* tb, const Problem<T, O>& p,
+    unsigned char* smem) {
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + WG_STAGES * WG_STAGE);
@@ -198,8 +220,8 @@ __device__ __forceinline__ void wgmma_tile(
           wg_desc(a_addr + WG_PANEL + kk * 2048, WG_PANEL, 1024);
       const uint64_t db1 =
           wg_desc(a_addr + 2 * WG_PANEL + kk * 2048, WG_PANEL, 1024);
-      wgmma_n64(acc[0], da, db0);
-      wgmma_n64(acc[1], da, db1);
+      wgmma_n64<T>(acc[0], da, db0);
+      wgmma_n64<T>(acc[1], da, db1);
     }
     wg_commit();
     wg_wait_all();
@@ -253,7 +275,7 @@ inline EncodeTiled encode_tiled() {
 }
 
 // a (levels, rows, cols) row-major array of 16-bit elements of TMA type
-// `type` (the GEMM's bf16; attention's bf16 or f16) read in boxes of 64
+// `type` (WgElem<T>::TMA for the GEMM, bf16 or f16) read in boxes of 64
 // columns by box_rows rows with the 128-byte swizzle; level_stride in
 // elements (0: the levels lie back to back)
 inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type,

@@ -27,10 +27,12 @@ three TF32 products of hi and lo halves, each K panel summed apart and
 added with IEEE adds) when 16-byte loads can read both operands (every
 address 16-byte aligned, ``k`` and ``n`` multiples of 4, ``k > 0``), and
 on the CUDA cores (``f32_simt``, one IEEE FMA chain an element) otherwise,
-so a ragged ``k`` or ``n`` or an odd offset takes ``f32_simt``; bfloat16 on
-the tensor cores (``wgmma`` fed by TMA) when TMA can read both operands
-and on the CUDA cores otherwise, float64 on the f64 tensor cores, float16
-on the CUDA cores with an fp32 accumulator.  The chain kernel's
+so a ragged ``k`` or ``n`` or an odd offset takes ``f32_simt``; bfloat16
+and float16 on the tensor cores (``bf16_wgmma`` / ``f16_wgmma``: one
+``wgmma`` tile loop fed by TMA, its operand type the inputs') when TMA
+can read both operands and on the CUDA cores with an fp32 accumulator
+otherwise (``bf16_simt`` / ``f16_simt``), float64 on the f64 tensor
+cores.  The chain kernel's
 ``chain_dot`` takes the same route for its chain as per-level replay takes
 at every level.
 
@@ -69,7 +71,7 @@ DTYPES = tuple(kernel.SYMBOLS)
 DEVICES = ("cpu", "cuda", "meta")
 # the routes, in the order of bind_gemm::Route (csrc/gemm_routes.cuh)
 ROUTES = ("f32_simt", "bf16_simt", "bf16_wgmma", "f64_dmma", "f16_simt",
-          "f32_3xtf32")
+          "f32_3xtf32", "f16_wgmma")
 
 
 def route(dtype: torch.dtype, m: int, n: int, k: int,
@@ -79,19 +81,19 @@ def route(dtype: torch.dtype, m: int, n: int, k: int,
     for a chain, every level's).  float32 goes to the tensor cores when
     16-byte loads can read its operands: every address 16-byte aligned,
     ``k > 0`` and row strides (``4k``, ``4n`` bytes) multiples of 16
-    bytes; bfloat16 when TMA can: the same with ``2k``, ``2n`` bytes."""
+    bytes; bfloat16 and float16 when TMA can: the same with ``2k``, ``2n``
+    bytes."""
     aligned = all(int(x) % 16 == 0 for x in addresses)
     if dtype == torch.float32:
         tc = k > 0 and k % 4 == 0 and n % 4 == 0 and aligned
         return "f32_3xtf32" if tc else "f32_simt"
     if dtype == torch.float64:
         return "f64_dmma"
-    if dtype == torch.float16:
-        return "f16_simt"
-    if dtype != torch.bfloat16:
+    if dtype not in (torch.bfloat16, torch.float16):
         raise TypeError(f"no GEMM route for dtype {dtype}")
     tma = k > 0 and k % 8 == 0 and n % 8 == 0 and aligned
-    return "bf16_wgmma" if tma else "bf16_simt"
+    kind = "bf16" if dtype == torch.bfloat16 else "f16"
+    return f"{kind}_wgmma" if tma else f"{kind}_simt"
 
 
 def _problem(*tensors) -> Optional[tuple[type, str]]:

@@ -147,6 +147,84 @@ def test_attn_step_chain_matches_reference(lq, lk, lv):
                                            port_args))
 
 
+# float16 chains: the reference's Pallas chain kernel computes each body
+# in float16 as XLA does (which may keep a*y + x in float32 and round once,
+# or round a @ b and softmax's output to float16 before the next operator),
+# the port's plain version rounds where eager PyTorch does (scan_step after
+# each operator, gemm_tile and attn_step once from the float32 sum): they
+# differ by at most 1.34e-3 of the output's largest magnitude (one or two
+# float16 ulps of it) at N_LEVELS levels, where the same chain computed in
+# bfloat16 is 2.1e-3 to 9.5e-3 away: F16_TOL lies between
+F16_TOL = 2e-3
+
+
+def _f16(values):
+    return [v.astype(np.float16) if isinstance(v, np.ndarray) else v
+            for v in values]
+
+
+F16_CASES = (
+    [("scan_step", ("single", la, lx)) for la, lx in
+     (("single", "xs"), ("const", "xs"), ("xs", "const"),
+      ("xs_const", "single"))]
+    + [("gemm_tile", ("single", la, lb)) for la, lb in DOT_LAYOUTS]
+    + [("attn_step", ("single",) + lay) for lay in
+       (("single", "xs", "xs"), ("xs", "xs", "xs"),
+        ("single", "single", "single"))])
+
+
+@pytest.mark.parametrize("body, layout", F16_CASES,
+                         ids=[f"{b}-{'-'.join(lay[1:])}"
+                              for b, lay in F16_CASES])
+def test_float16_chains_match_reference(body, layout):
+    """A float16 chain of each body is one chain-kernel dispatch (its plain
+    version on the CPU), within F16_TOL of the output's largest magnitude
+    of the reference's ``lookup_chain_pallas(interpret=True)`` on the same
+    float16 inputs, where the chain computed in bfloat16 is not, and bit
+    for bit the port's per-level replay of the body."""
+    rng = np.random.default_rng(23)
+    if body == "scan_step":
+        shape = (6, 5)
+        values = [rng.normal(size=shape).astype(np.float32),
+                  _operand(rng, layout[1], shape, 0.75),
+                  _operand(rng, layout[2], shape, -0.25)]
+        fns = (ref_scan_step, scan_step)
+    elif body == "gemm_tile":
+        m, k, n = 8, 6, 7
+        values = [rng.normal(size=(m, n)).astype(np.float32),
+                  _operand(rng, layout[1], (m, k), None),
+                  _operand(rng, layout[2], (k, n), None)]
+        fns = (ref_gemm_tile, gemm_tile)
+    else:
+        m, n, d, dv = 6, 9, 4, 5
+        values = [rng.normal(size=(m, dv)).astype(np.float32),
+                  _operand(rng, layout[1], (m, d), None),
+                  _operand(rng, layout[2], (n, d), None),
+                  _operand(rng, layout[3], (n, dv), None)]
+        fns = (ref_attn_step, attn_step)
+    ref_args, port_args = _both(layout, _f16(values))
+    exp = ref_bind.ExecutableCache().lookup_chain_pallas(
+        fns[0], layout, N_LEVELS, 0, ref_args, interpret=True)(*ref_args)
+    assert ops.problem(fns[1], layout, 0, N_LEVELS, port_args) is None
+    got = port_bind.ExecutableCache().lookup_chain_pallas(
+        fns[1], layout, N_LEVELS, 0, port_args)(*port_args)
+    assert got.dtype == torch.float16 and np.asarray(exp).dtype == np.float16
+    assert tuple(got.shape) == np.asarray(exp).shape
+    exp = np.asarray(exp, np.float64)
+    scale = np.abs(exp).max()
+    err = np.abs(got.double().numpy() - exp).max()
+    assert err <= F16_TOL * scale, (err, scale)
+    replay = ref.run_levels(fns[1], layout, 0, N_LEVELS, port_args)
+    assert torch.equal(got.view(torch.int16), replay.view(torch.int16))
+    # the same chain computed in bfloat16 falls outside F16_TOL: it tells
+    # float16 from the next lower precision
+    in_bf16 = ref.run_levels(fns[1], layout, 0, N_LEVELS,
+                             [a.bfloat16() if isinstance(a, torch.Tensor)
+                              else a for a in port_args])
+    assert np.abs(in_bf16.half().double().numpy() - exp).max() > \
+        F16_TOL * scale
+
+
 def test_bodies_map_to_their_kernels():
     assert ops.chain_for(scan_step) is ops.chain_ewise
     assert ops.chain_for(gemm_tile) is ops.chain_dot
@@ -162,7 +240,7 @@ def _scan_args():
 
 
 @pytest.mark.parametrize("edit, reason", [
-    (lambda a, l: ([a[0].half()] + a[1:], l), "dtype"),
+    (lambda a, l: ([a[0].to(torch.complex64)] + a[1:], l), "dtype"),
     (lambda a, l: ([a[0].int()] + a[1:], l), "dtype"),
     (lambda a, l: ([a[0].t()] + a[1:], l), "not contiguous"),
     (lambda a, l: (a[:2] + [torch.ones(N_LEVELS, 4, 3).double()], l),
@@ -208,7 +286,7 @@ def _attn_args(levels=N_LEVELS):
     (lambda a, l: (a, ("single", "single", "xs_const", "xs")), "layout"),
     (lambda a, l: (a[:3], l), "expected 4 operands"),
     (lambda a, l: ([a[0][0]] + a[1:], l), "not a matrix"),
-    (lambda a, l: ([a[0].half()] + a[1:], l), "dtype"),
+    (lambda a, l: ([a[0].to(torch.complex64)] + a[1:], l), "dtype"),
     (lambda a, l: (a[:1] + [a[1].double()] + a[2:], l), "float64"),
     (lambda a, l: (a[:1] + [torch.ones(4, 3)] + a[2:], l), "shape"),
     (lambda a, l: (a[:3] + [torch.ones(N_LEVELS, 5, 4)], l), "shape"),
@@ -378,7 +456,8 @@ def _level_parallel(layout, n_levels, o, q, k, v):
     return carry
 
 
-@pytest.mark.parametrize("dname", ["float32", "bfloat16", "float64"])
+@pytest.mark.parametrize("dname", ["float32", "bfloat16", "float64",
+                                   "float16"])
 @pytest.mark.parametrize("lq, lk, lv", ATTN_LAYOUTS,
                          ids=["-".join(lay) for lay in ATTN_LAYOUTS])
 def test_levels_are_independent_of_the_carry(lq, lk, lv, dname):
@@ -407,7 +486,8 @@ def _levels(store, offset, lead, shape):
     return store[offset:offset + n].view(lead + shape)
 
 
-@pytest.mark.parametrize("dname", ["float32", "bfloat16", "float64"])
+@pytest.mark.parametrize("dname", ["float32", "bfloat16", "float64",
+                                   "float16"])
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "odd-offset"])
 @pytest.mark.parametrize("m, k, n", [(64, 64, 64), (130, 72, 264),
                                      (130, 70, 260), (1, 128, 1)])
@@ -437,7 +517,8 @@ def test_chain_route_is_the_route_of_every_replayed_level(la, lb, m, k, n,
     assert replay == {chain}
 
 
-@pytest.mark.parametrize("dname", ["float32", "bfloat16", "float64"])
+@pytest.mark.parametrize("dname", ["float32", "bfloat16", "float64",
+                                   "float16"])
 @pytest.mark.parametrize("m, dv, n_levels", [(512, 128, 16), (512, 128, 300),
                                              (8192, 128, 1024), (1, 1, 70000),
                                              (7, 5, 1)])
@@ -510,7 +591,8 @@ def test_launches_hand_the_carry_on(monkeypatch, per_launch, n_levels, lq,
     assert carry == out.data_ptr()
 
 
-@pytest.mark.parametrize("dname", ["float32", "bfloat16", "float64"])
+@pytest.mark.parametrize("dname", ["float32", "bfloat16", "float64",
+                                   "float16"])
 def test_runs_of_levels_equal_one_chain(dname):
     """The carry a launch hands on is the carry in its own dtype, which the
     kernel rounds to after every level anyway: a chain cut into runs of
@@ -628,7 +710,7 @@ def test_ewise_instantiations_cover_every_layout_ops_takes():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
-                                   torch.float64])
+                                   torch.float64, torch.float16])
 def test_ewise_carry_at_1_is_carry_at_0_with_y_and_a_swapped(dtype):
     """What the launcher's swap rests on, on the plain version: a chain
     whose carry is ``a`` gives the bits of the chain with ``y`` and ``a``

@@ -12,8 +12,9 @@ differ from it:
    even when a card is present: a NumPy workflow stays on the host;
 2. the tensor bodies ``gemm_tile``, ``_t_gemm_acc`` and ``attn_step`` on
    operands their kernels do not take (batched, integer, mixed dtypes,
-   float16, 3-D): they compute the reference's body expression instead of
-   raising, decided by the kernel's own acceptance rule before any launch;
+   a float16 head dim past the chain kernel's, 3-D): they compute the
+   reference's body expression instead of raising, decided by the
+   kernel's own acceptance rule before any launch;
 3. float16 at the kernels' entry points (``matmul``, ``matmul_accumulate``,
    ``linear_scan``, ``flash_attention``), against the reference's wrappers
    in Pallas interpret mode;
@@ -184,8 +185,10 @@ def test_gemm_bodies_compute_what_the_kernel_does_not_take(bodies, case):
 def _attn_case(name):
     rng = np.random.default_rng(12)
     if name == "float16":
+        # the chain kernel takes float16 tiles with d and dv in [1, 256]:
+        # this one's dv is past it
         return [rng.normal(size=s).astype(np.float16)
-                for s in ((8, 6), (8, 4), (7, 4), (7, 6))]
+                for s in ((8, 260), (8, 4), (7, 4), (7, 260))]
     return [rng.normal(size=s).astype(np.float32)
             for s in ((2, 8, 6), (2, 8, 4), (7, 4), (7, 6))]
 

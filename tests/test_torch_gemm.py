@@ -214,6 +214,17 @@ KB = 1 << 10
     (torch.bfloat16, 1024, 1024, 1024, (2, 2 * KB), "bf16_simt"),  # a odd
     (torch.bfloat16, 1024, 1024, 1024, (0, 8), "bf16_simt"),  # b at 8 bytes
     (torch.bfloat16, 1024, 1024, 1024, (0, 16, 34), "bf16_simt"),  # a level
+    # float16 under bfloat16's TMA rule, on the same tile loop
+    (torch.float16, 1024, 1024, 1024, (0, 2 * KB), "f16_wgmma"),
+    (torch.float16, 130, 264, 72, (16, 32), "f16_wgmma"),  # ragged M
+    (torch.float16, 1, 8, 8, (0, 16), "f16_wgmma"),
+    (torch.float16, 130, 260, 70, (0, 16), "f16_simt"),    # K % 8
+    (torch.float16, 128, 260, 64, (0, 16), "f16_simt"),    # N % 8
+    (torch.float16, 1, 1, 128, (0, 16), "f16_simt"),       # (1, 128, 1)
+    (torch.float16, 64, 64, 0, (0, 16), "f16_simt"),       # K = 0
+    (torch.float16, 1024, 1024, 1024, (2, 2 * KB), "f16_simt"),  # a odd
+    (torch.float16, 1024, 1024, 1024, (0, 8), "f16_simt"),  # b at 8 bytes
+    (torch.float16, 1024, 1024, 1024, (0, 16, 34), "f16_simt"),  # a level
 ])
 def test_route_by_dtype_shape_and_alignment(dtype, m, n, k, addresses,
                                             want):
@@ -246,6 +257,10 @@ def test_route_enum_matches_the_c_source():
     assert ops.ROUTES == tuple(n.lower() for n, i in sorted(
         pairs, key=lambda p: int(p[1])))
     assert [int(i) for _, i in pairs] == list(range(len(pairs)))
+    # routes are appended, so no earlier index moves: f16_wgmma came last
+    assert ops.ROUTES[:6] == ("f32_simt", "bf16_simt", "bf16_wgmma",
+                              "f64_dmma", "f16_simt", "f32_3xtf32")
+    assert ops.ROUTES.index("f16_wgmma") == 6
 
 
 def test_route_rejects_dtypes_without_a_kernel():
@@ -255,8 +270,9 @@ def test_route_rejects_dtypes_without_a_kernel():
 
 @pytest.mark.parametrize("m, n, k", [(8, 8, 8), (130, 70, 260), (1, 1, 1)])
 def test_float16_takes_the_cuda_core_route(m, n, k):
-    """float16 runs on the CUDA-core loop, fp32 inside, at any shape and
-    alignment (its index in ROUTES is the C enum's, F16_SIMT = 4)."""
+    """Unaligned float16 operands (bases TMA cannot read) run on the
+    CUDA-core loop, fp32 inside, at any shape (its index in ROUTES is the
+    C enum's, F16_SIMT = 4)."""
     assert ops.route(torch.float16, m, n, k, (2, 6)) == "f16_simt"
     assert ops.ROUTES.index("f16_simt") == 4
     assert kernel.DTYPE_CODES[torch.float16] == 3

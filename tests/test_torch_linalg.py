@@ -4,7 +4,8 @@ At n=64, ib=16 (a 4x4 tile grid) classical tiled GEMM, Strassen and
 Listing 1 run through both packages: with float64 NumPy matrices (the same
 NumPy tile bodies on both sides, so values are identical) and with float32
 CPU tensors in the port against float32 NumPy in the reference (PyTorch's
-and NumPy's products sum in different orders: float32 tolerance).  The
+and NumPy's products sum in different orders: float32 tolerance); Listing
+1 also with float16 (float16 tolerance).  The
 executors' accounting must be identical in both cases, and the topology
 cost model must price the two transfer streams the same.
 """
@@ -40,6 +41,14 @@ def _inputs(kind):
     A, B = rng.normal(size=(N, N)), rng.normal(size=(N, N))
     if kind == "float64-numpy":
         return A, B, A.copy(), B.copy(), None
+    if kind == "float16-tensor":
+        # each tile product is a float32 sum rounded once to float16 on
+        # both sides (bit for bit at this size), but NumPy and the port's
+        # GEMM need not sum in one order: one float16 ulp of C's largest
+        # values (2^-5 at |x| < 64) is allowed, an eighth of bfloat16's
+        A16, B16 = A.astype(np.float16), B.astype(np.float16)
+        return (A16, B16, torch.from_numpy(A16), torch.from_numpy(B16),
+                (0.0, 2.0 ** -5))
     A32, B32 = A.astype(np.float32), B.astype(np.float32)
     return A32, B32, torch.from_numpy(A32), torch.from_numpy(B32), (1e-5, 1e-4)
 
@@ -105,7 +114,8 @@ def test_tiled_products_match_reference(algo, leaves, kind):
 
 
 @pytest.mark.parametrize("collective_mode", ["tree", "naive"])
-@pytest.mark.parametrize("kind", ["float64-numpy", "float32-tensor"])
+@pytest.mark.parametrize("kind", ["float64-numpy", "float32-tensor",
+                                  "float16-tensor"])
 def test_listing1_matches_reference(kind, collective_mode):
     rA, rB, pA, pB, tol = _inputs(kind)
     r_out, r_stats, r_est = ref_run(
