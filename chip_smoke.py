@@ -73,13 +73,22 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    ``f16_wgmma`` chain also beside ``f16_simt``'s on the same values one
    element in, which it must beat, and both against float64), every GEMM
    route run; ``chain_attn`` (``attn_step``) at
-   a Qwen3-14B query tile (o, q 512 x 128, k, v 16 levels of 512 x 128)
-   and a ragged (100, 70, d 40, dv 24) x 3, q/k/v shared or per level,
-   bit for bit against per-level ``attn_step`` replay and within tolerance
-   of its plain version (a per-level PyTorch softmax), f32/bf16/f64/f16,
-   timed in f32 and f16, and
-   chains longer than one launch's workspace (f32, f64: two and three
-   launches) bit for bit against replay;
+   a Qwen3-14B query tile (o, q 512 x 128, k, v 16 levels of 512 x 128;
+   ``f32_3xtf32``, ``bf16_wgmma``, ``f16_wgmma``, ``f64_simt``) and a
+   ragged (100, 70, d 40, dv 24) x 3 (the CUDA-core routes), q/k/v shared
+   or per level, the route ``chain_ops.attn_route`` gives checked against
+   the library's launcher, bit for bit against per-level ``attn_step``
+   replay and within tolerance of its plain version (a per-level PyTorch
+   softmax), f32/bf16/f64/f16; each tensor-core route at the 16-level
+   tile and at one served level (from a zero carry) against float64, at
+   most ``TF32_VS_SIMT`` (f32) or ``CHAIN_HALF_VS_SIMT`` (bf16, f16) times
+   the CUDA-core route's error on odd-offset copies of the same values,
+   and timed (CUDA graphs) beside that route, which it must beat, its
+   bound and the plain version; chains longer than one launch's workspace
+   (levels per launch from ``kernel.levels_per_launch``; f32, bf16 and f16
+   on the tensor cores, f32 at an odd offset and f64 on the CUDA cores:
+   two and three launches) bit for bit against replay; every route
+   launched, no counter left non-zero;
 4b. flash attention (``flash_attention``) against its plain version (the
    oracle on the padded inputs) at the reference's cases
    (``tests/test_kernels.py``) in f32, again in f32, bf16 and f16 at head
@@ -219,7 +228,8 @@ Phases, each on its own lines; any failure raises and exits non-zero:
    shape), each one init request and 6 step requests on CUDA tensors: a
    ``gemm_tile`` on its 1024^2 f32 C tile (A and B shared: the GEMM), an
    ``attn_step`` on its 512 x 128 carry with fresh 512-key k and v made
-   by the client thread (``chain_attn``, one level) and the decode step
+   by the client thread (``chain_attn``, one level, on ``f32_3xtf32``:
+   its 512 keys in 4 chunks, 16 blocks) and the decode step
    ``x * 0.99 + 0.5`` on a 1024^2 state; every session's C, carry and
    state bitwise what the same steps give recorded into one workflow on
    a ``serial`` executor, 48 GEMM and 48 ``chain_attn`` launches and no
@@ -457,7 +467,7 @@ SEED = 0
 # step one GEMM (a Listing 1 tile), one chain_attn level and a decode step
 SERVE_SESSIONS, SERVE_STEPS = 8, 6
 SERVE_KERNELS = {"gemm_tf32_kernel": SERVE_SESSIONS * SERVE_STEPS,
-                 "chain_attn_kernel": SERVE_SESSIONS * SERVE_STEPS}
+                 "chain_attn_tf32_kernel": SERVE_SESSIONS * SERVE_STEPS}
 # the MapReduce phase: 2^26 uniform 31-bit int64 (512 MiB) on the card, the
 # example's 2,000,000 on the host
 SORT_N = 1 << 26
@@ -483,8 +493,24 @@ TF32_HGMMA = "HGMMA.64x64x8.F32.TF32"
 # the mangled element type of the 16-bit tensor-core kernels'
 # instantiations (flash_attention_wgmma_kernel<D, T>,
 # attention_bwd_*_wgmma_kernel<D, T>, gemm_wgmma_kernel<T, O>,
-# chain_dot_wgmma_kernel<T>)
+# chain_dot_wgmma_kernel<T>, chain_attn_wgmma_kernel<T, D>)
 HALF_MANGLED = {"bf16": "13__nv_bfloat16", "f16": "6__half"}
+# chain_attn's route at ATTN_TILE (aligned, d = dv = 128) by dtype, and
+# its CUDA-core route (taken by odd-offset copies of the same values)
+CHAIN_ATTN_ROUTES = {"float32": ("f32_3xtf32", "f32_simt"),
+                     "bfloat16": ("bf16_wgmma", "bf16_simt"),
+                     "float16": ("f16_wgmma", "f16_simt"),
+                     "float64": ("f64_simt", "f64_simt")}
+# chain_attn's 16-bit tensor-core routes: their largest error against a
+# float64 computation at most this many times the CUDA-core loop's on the
+# same values.  P is rounded to bf16 / f16 before P V, which moves a level
+# by at most u max|v| (u the type's unit roundoff), the same size as the
+# output's own rounding to the type that both routes make and independent
+# of it: about sqrt(2) in rms, 1.5x at the largest, where the carry starts
+# at 0, and 1x where a carry of unit size dominates
+# (kernels/chain/csrc/chain_attn_tc.cuh).  P rounded through bf16 on f16
+# (4u) falls outside it (tools/attn_faults.py)
+CHAIN_HALF_VS_SIMT = 2.0
 
 # flash attention: the reference's cases (tests/test_kernels.py:75-82,
 # padded with bq = bkv = 16) as (B, Hq, Hkv, Sq, Skv, D, causal, window)
@@ -776,6 +802,19 @@ def attention_grad64(torch, fa_ref, q, k, v, dout, causal, window):
             dk[bi, h // group] += ds.T @ qq
             dv[bi, h // group] += p.T @ g
     return dq, dk, dv
+
+
+def chain_attn64(torch, layout, n_levels, o, q, k, v):
+    """A chain of ``attn_step`` levels in float64, no rounding between
+    levels: what ``chain_attn``'s routes are held to (each ``"xs"``
+    operand's level sliced, the others shared)."""
+    acc = o.double()
+    scale = 1.0 / q.shape[-1] ** 0.5
+    for lv in range(n_levels):
+        qq, kk, vv = ((t[lv] if lay == "xs" else t).double()
+                      for lay, t in zip(layout[1:], (q, k, v)))
+        acc = acc + torch.softmax(qq @ kk.T * scale, -1) @ vv
+    return acc
 
 
 def tf32_vs_simt(got, simt, exact, heads: int = 8) -> float:
@@ -5218,8 +5257,10 @@ def main() -> int:
             if "error" in line.lower():
                 print(f"[build]   {line.strip()}")
             # ptxas serialised the wgmma of an attention tensor-core kernel
-            # for registers (C7511) or around a call (C7514)
-            if ("C7511" in line or "C7514" in line) and "attention" in line:
+            # (chain_attn's among them) for registers (C7511) or around a
+            # call (C7514)
+            if ("C7511" in line or "C7514" in line) and (
+                    "attention" in line or "chain_attn_" in line):
                 print(f"[build]   {line.strip()[:240]}")
                 check(False, f"wgmma serialised: {line.strip()[:240]}")
             if "Function properties for" in line:
@@ -5233,8 +5274,8 @@ def main() -> int:
                 # accumulators in registers, and must not spill them (the
                 # backward's of every dtype, the 16-bit forward of bf16
                 # and f16, and the 3xTF32 forward)
-                # (and the GEMM's and chain_dot's: 3xTF32, and wgmma in
-                # bf16 and f16)
+                # (and the GEMM's, chain_dot's and chain_attn's: 3xTF32,
+                # and wgmma in bf16 and f16)
                 check(not (("attention_bwd" in kernel_name
                             and ("wgmma" in kernel_name
                                  or "tf32" in kernel_name))
@@ -5243,7 +5284,9 @@ def main() -> int:
                            or "gemm_tf32_kernel" in kernel_name
                            or "chain_dot_tf32_kernel" in kernel_name
                            or "gemm_wgmma_kernel" in kernel_name
-                           or "chain_dot_wgmma_kernel" in kernel_name)
+                           or "chain_dot_wgmma_kernel" in kernel_name
+                           or "chain_attn_wgmma_kernel" in kernel_name
+                           or "chain_attn_tf32_kernel" in kernel_name)
                       or spill.startswith("0 bytes stack frame, 0 bytes "
                                           "spill stores"),
                       f"{kernel_name}: spills ({spill})")
@@ -5288,7 +5331,10 @@ def main() -> int:
                             (built[1][0], {"chain_dot_wgmma_kernel": "HGMMA",
                                            "chain_dot_dmma_kernel": "DMMA",
                                            "chain_dot_tf32_kernel":
-                                           TF32_HGMMA}),
+                                           TF32_HGMMA,
+                                           "chain_attn_wgmma_kernel": "HGMMA",
+                                           "chain_attn_tf32_kernel":
+                                           "HGMMA"}),
                             (built[2][0], {"flash_attention_wgmma_kernel":
                                            "HGMMA",
                                            "flash_attention_tf32_kernel":
@@ -5311,10 +5357,36 @@ def main() -> int:
             count = body.count(op)
             print(f"[build] {name}: {count} {op} instructions in its SASS")
             check(count > 0, f"{name}: no {op} instruction in its SASS")
-            if name in ("gemm_wgmma_kernel", "chain_dot_wgmma_kernel"):
-                # the 16-bit GEMM loop's bf16 and f16 instantiations (the
-                # input type, its first template argument)
+            if name in ("gemm_wgmma_kernel", "chain_dot_wgmma_kernel",
+                        "chain_attn_wgmma_kernel"):
+                # the 16-bit GEMM loop's and chain_attn's bf16 and f16
+                # instantiations (the element type, the first template
+                # argument)
                 half_forms(name, functions, f"{name}I")
+            if name.startswith("chain_attn_"):
+                # each head dim's instantiation: HGMMA on its operand type
+                # (.F32.TF32 in 3xTF32, .F32.BF16 / .F32 in bf16 / f16)
+                if "tf32" in name:
+                    tags = {f"{d}": (f"{name}ILi{d}E", ".F32.TF32")
+                            for d in chain_ops.TF32_HEAD_DIMS}
+                else:
+                    tags = {f"{d} {key}": (f"{name}I{mangled}Li{d}E",
+                                           ".F32.BF16" if key == "bf16"
+                                           else ".F32")
+                            for d in fa_ops.WGMMA_HEAD_DIMS
+                            for key, mangled in HALF_MANGLED.items()}
+                per_d = {}
+                for tag, (mangled, form) in tags.items():
+                    forms = [line.split("HGMMA")[1].split()[0]
+                             for f in functions
+                             if mangled in f.split("\n", 1)[0]
+                             for line in f.splitlines() if "HGMMA" in line]
+                    per_d[tag] = len(forms)
+                    check(bool(forms) and all(x.endswith(form)
+                                              for x in forms),
+                          f"{name} {tag}: HGMMA forms {sorted(set(forms))},"
+                          f" each expected to end in {form}")
+                print(f"[build]   HGMMA by instantiation: {per_d}")
             if "attention" not in name or op != "HGMMA":
                 continue
             # each head dim's instantiation of the attention tensor-core
@@ -6078,6 +6150,21 @@ def main() -> int:
         return tuple(rand(((L,) if lay == "xs" else ()) + shape, dt)
                      for lay, shape in zip(layout, shapes))
 
+    def attn_route_of(name, layout, L, args):
+        """The route ``chain_attn.attn_route`` gives these operands,
+        checked against the one the built library's launcher takes."""
+        o, q, k, v = args
+        strides = [t[0].numel() if lay == "xs" else 0
+                   for lay, t in zip(layout[1:], (q, k, v))]
+        want = chain_ops.attn_route(layout, L, *args)
+        got = chain_kernel.launcher_route(
+            o.dtype, q.data_ptr(), strides[0], k.data_ptr(), strides[1],
+            v.data_ptr(), strides[2], k.shape[-2], k.shape[-1], o.shape[1],
+            L)
+        check(got == want, f"{name}: the launcher takes {got}, attn_route "
+              f"says {want}")
+        return want
+
     attn_layouts = (("single", "single", "xs", "xs"),
                     ("single", "xs", "xs", "xs"),
                     ("single", "single", "single", "single"))
@@ -6086,8 +6173,12 @@ def main() -> int:
                                (100, 70, 40, 24, 3)):
             for layout in attn_layouts:
                 args = attn_operands(layout, m, n, d, dv, L, dt)
+                path = attn_route_of("chain_attn", layout, L, args)
+                want = CHAIN_ATTN_ROUTES[dname][(m, n, d, dv) != ATTN_TILE]
+                check(path == want, f"chain_attn ({m},{n},{d},{dv}) "
+                      f"{dname}: route {path}, expected {want}")
                 name = (f"chain_attn ({m},{n},{d},{dv}) x {L} {dname} "
-                        f"{layout[1:]}")
+                        f"{layout[1:]} [{path}]")
                 got = chain_ops.chain_attn(layout, 0, L, *args)
                 same_bits(f"{name} vs attn_step replay", got,
                           chain_ref.run_levels(attn_step, layout, 0, L, args))
@@ -6099,57 +6190,166 @@ def main() -> int:
                 print(f"[chain] {name}: bitwise equal to per-level attn_step "
                       f"replay; max_abs_err {err:.3e} against the plain "
                       f"version (rtol {rtol}, atol {atol} x {L} levels)")
-    m, n, d, dv = ATTN_TILE
-    L = ATTN_LEVELS
-    layout = attn_layouts[0]
-    for dname in ("float32", "float16"):
+
+    # ragged shapes on each tensor-core route, one head dim per block
+    # configuration (the 3xTF32 block's 64- and 32-key tiles, the wgmma
+    # block's 128- and 64-key ones): M not a multiple of the 128-row tile
+    # (70 rows: a tile of fewer than 128), N not one of the key tile, so a
+    # level of several chunks ends in a partial key tile; in every layout,
+    # one level and three
+    for dname, m_, n_, d_ in (("float32", 70, 333, 64),
+                              ("float32", 200, 333, 80),
+                              ("bfloat16", 200, 333, 80),
+                              ("bfloat16", 129, 333, 256),
+                              ("float16", 200, 333, 80),
+                              ("float16", 129, 333, 256)):
         dt = every[dname]
-        args = attn_operands(layout, m, n, d, dv, L, dt)
-        got = chain_ops.chain_attn(layout, 0, L, *args)
-        exp = chain_ref.chain_attn(layout, 0, L, *args)
-        err = (got.double() - exp.double()).abs().max().item()
-        ms = time_ms(torch, lambda: chain_ops.chain_attn(layout, 0, L, *args))
-        plain = time_ms(torch, lambda: chain_ref.chain_attn(layout, 0, L,
-                                                            *args))
-        replay = time_ms(torch, lambda: chain_ref.run_levels(
-            attn_step, layout, 0, L, args))
-        flops = L * (2 * m * n * d + 2 * m * n * dv)
-        nbytes = (2 * m * dv + m * d + L * n * (d + dv)) * dt.itemsize
-        # the products at the card's peak for the data's type (989 TFLOP/s
-        # in float16), not at the rate of the kernel's float32 CUDA-core loop
-        bnd, by = bound_ms(nbytes, flops, dname)
-        print(f"[chain] chain_attn ({m},{n},{d},{dv}) x {L} levels {dname}, "
-              f"k and v per level: kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.2f} TFLOP/s), plain (per-level PyTorch) "
-              f"{plain:.4f} ms, max_abs_err {err:.3e}, per-level attn_step "
-              f"replay ({L} chain_attn launches) {replay:.4f} ms, no "
-              f"single-call library counterpart, bound {bnd:.4f} ms ({by})")
-        chain_times["attn" if dname == "float32" else ("attn", dname)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-            bound_by=by, library_ms=None)
-        del got, exp, args
+        tc_route = CHAIN_ATTN_ROUTES[dname][0]
+        chunks = chain_kernel.attn_chunks(tc_route, m_, n_, d_)
+        tile = chain_kernel.key_tile(tc_route, d_)
+        check(chunks >= 2 and n_ % tile and m_ % chain_kernel.TC_ROWS,
+              f"chain_attn ({m_},{n_},{d_}) {dname}: {chunks} chunks of "
+              f"{tile}-key tiles, not a ragged case of several chunks")
+        for L in (1, 3):
+            for layout in attn_layouts:
+                args = attn_operands(layout, m_, n_, d_, d_, L, dt)
+                path = attn_route_of("chain_attn ragged", layout, L, args)
+                name = (f"chain_attn ({m_},{n_},{d_},{d_}) x {L} {dname} "
+                        f"{layout[1:]} [{path}, {chunks} chunks of {tile} "
+                        f"keys]")
+                check(path == tc_route, f"{name}: not on {tc_route}")
+                got = chain_ops.chain_attn(layout, 0, L, *args)
+                same_bits(f"{name} vs attn_step replay", got,
+                          chain_ref.run_levels(attn_step, layout, 0, L, args))
+                rtol, atol = TOL[dname]
+                exp = chain_ref.chain_attn(layout, 0, L, *args)
+                torch.testing.assert_close(got, exp, rtol=rtol, atol=atol * L,
+                                           msg=lambda msg: f"{name}: {msg}")
+                err = (got.double() - exp.double()).abs().max().item()
+                print(f"[chain] {name}: bitwise equal to per-level attn_step "
+                      f"replay; max_abs_err {err:.3e} against the plain "
+                      f"version (rtol {rtol}, atol {atol} x {L} levels)")
+                del got, exp, args
+
+    # each tensor-core route at the main path's shapes: the 16-level tile
+    # and one served level (from a zero carry), against float64 beside the
+    # CUDA-core loop on odd-offset copies of the same values, and timed
+    # beside it (CUDA graphs: the wrapper's host work is above a level's
+    # device time; each side the better of two)
+    m, n, d, dv = ATTN_TILE
+    layout = attn_layouts[0]
+    for dname in ("float32", "bfloat16", "float16"):
+        dt = every[dname]
+        tc_route, simt_route = CHAIN_ATTN_ROUTES[dname]
+        limit = TF32_VS_SIMT if dname == "float32" else CHAIN_HALF_VS_SIMT
+        for what, L in (("16 levels", ATTN_LEVELS), ("one served level", 1)):
+            args = attn_operands(layout, m, n, d, dv, L, dt)
+            if L == 1:
+                args = (torch.zeros_like(args[0]),) + args[1:]
+            odd = (args[0],) + tuple(odd_offset(t) for t in args[1:])
+            label = f"chain_attn ({m},{n},{d},{dv}) {what} {dname}"
+            check(attn_route_of(label, layout, L, args) == tc_route
+                  and attn_route_of(label, layout, L, odd) == simt_route,
+                  f"{label}: routes {chain_ops.attn_route(layout, L, *args)}"
+                  f" / {chain_ops.attn_route(layout, L, *odd)}")
+            got = chain_ops.chain_attn(layout, 0, L, *args)
+            simt = chain_ops.chain_attn(layout, 0, L, *odd)
+            exp = chain_ref.chain_attn(layout, 0, L, *args)
+            exact = chain_attn64(torch, layout, L, *args)
+            err = (got.double() - exp.double()).abs().max().item()
+            rtol, atol = TOL[dname]
+            torch.testing.assert_close(got, exp, rtol=rtol, atol=atol * L,
+                                       msg=lambda msg: f"{label}: {msg}")
+            err64 = (got.double() - exact).abs().max().item()
+            simt64 = (simt.double() - exact).abs().max().item()
+            ratio = err64 / max(simt64, 1e-30)
+            check(ratio <= limit, f"{label}: {tc_route}'s float64 error "
+                  f"{err64:.3e} is {ratio:.2f}x {simt_route}'s {simt64:.3e}"
+                  f", above {limit}")
+            ms = min(graph_ms(torch, lambda: chain_ops.chain_attn(
+                layout, 0, L, *args)) for _ in range(2))
+            simt_ms = min(graph_ms(torch, lambda: chain_ops.chain_attn(
+                layout, 0, L, *odd)) for _ in range(2))
+            check(ms < simt_ms, f"{label}: {tc_route} {ms:.4f} ms is not "
+                  f"below {simt_route}'s {simt_ms:.4f} on the same values")
+            plain = time_ms(torch, lambda: chain_ref.chain_attn(
+                layout, 0, L, *args))
+            replay = time_ms(torch, lambda: chain_ref.run_levels(
+                attn_step, layout, 0, L, args))
+            flops = L * (2 * m * n * d + 2 * m * n * dv)
+            nbytes = (2 * m * dv + m * d + L * n * (d + dv)) * dt.itemsize
+            # the products at the card's peak for the route's arithmetic:
+            # three TF32 products in float32, the 16-bit tensor cores
+            # otherwise; the CUDA-core loop's at 67 TFLOP/s
+            bnd, by = (bound_ms(nbytes, TF32_PRODUCTS * flops, "tf32")
+                       if dname == "float32"
+                       else bound_ms(nbytes, flops, dname))
+            simt_bnd, _ = bound_ms(nbytes, flops, "float32")
+            chunks = chain_kernel.attn_chunks(tc_route, m, n, d)
+            print(f"[chain] {label} [{tc_route}, {chunks} chunks a level, "
+                  f"{-(-m // chain_kernel.TC_ROWS) * chunks * L} blocks]: "
+                  f"kernel {ms:.4f} ms device time ({flops / ms / 1e9:.2f} "
+                  f"TFLOP/s), bound {bnd:.4f} ms ({by}; {bnd / ms:.3f} of "
+                  f"it); {simt_route} on the same values {simt_ms:.4f} ms "
+                  f"({simt_ms / ms:.2f}x slower, bound {simt_bnd:.4f} ms at "
+                  f"67 TFLOP/s); float64 error {err64:.3e} = {ratio:.2f}x "
+                  f"{simt_route}'s {simt64:.3e} (limit {limit}); plain "
+                  f"(per-level PyTorch) {plain:.4f} ms, max_abs_err "
+                  f"{err:.3e}; per-level attn_step replay ({L} chain_attn "
+                  f"launches) {replay:.4f} ms; no single-call library "
+                  f"counterpart")
+            numbers = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                           bound_ms=bnd, bound_by=by, library_ms=None,
+                           chain_route=tc_route, chunks=chunks,
+                           simt_ms=simt_ms, simt_bound_ms=simt_bnd,
+                           err64=err64, simt_err64=simt64, vs_simt=ratio)
+            key = ("attn", dname) if L > 1 else ("attn", dname, "served")
+            chain_times[key] = numbers
+            del got, simt, exp, exact, args, odd
+    chain_times["attn"] = chain_times.pop(("attn", "float32"))
     # chains whose workspace passes one launch's (WORKSPACE_BYTES): several
     # launches, the carry handed on in its own type, still bit for bit
-    # per-level replay
+    # per-level replay; on every tensor-core route, the CUDA-core loop
+    # (float32 at an odd offset) and float64
     n = 64
-    for dname, full_runs in (("float32", 1), ("float64", 2)):
-        dt = dtypes[dname]
-        per_launch = chain_kernel.WORKSPACE_BYTES // (
-            m * dv * (8 if dname == "float64" else 4))
+    for dname, full_runs, at_odd in (("float32", 1, False),
+                                     ("bfloat16", 1, False),
+                                     ("float16", 1, False),
+                                     ("float32", 1, True),
+                                     ("float64", 2, False)):
+        dt = every[dname]
+        path = CHAIN_ATTN_ROUTES[dname][at_odd]
+        per_launch = chain_kernel.levels_per_launch(path, m, n, d, dv, dt)
         L = full_runs * per_launch + per_launch // 4 + 1
-        runs = chain_kernel.level_runs(m, dv, dt, L)
         args = attn_operands(layout, m, n, d, dv, L, dt)
+        if at_odd:
+            args = (args[0],) + tuple(odd_offset(t) for t in args[1:])
+        check(attn_route_of("chain_attn multi-launch", layout, L, args)
+              == path, f"chain_attn x {L} {dname}: not on {path}")
+        chunks = (chain_kernel.attn_chunks(path, m, n, d)
+                  if path in chain_kernel.TC_ROUTES else None)
+        runs = chain_kernel.level_runs(m, dv, dt, L, chunks)
+        check(runs[0][1] == per_launch, f"chain_attn x {L} {dname}: runs of "
+              f"{runs[0][1]} levels, levels_per_launch says {per_launch}")
         before = chain_ops.chain_attn.launches
         got = chain_ops.chain_attn(layout, 0, L, *args)
         launched = chain_ops.chain_attn.launches - before
         check(launched == len(runs) > 1, f"chain_attn x {L} {dname}: "
               f"{launched} launches, expected {len(runs)} (> 1)")
-        name = (f"chain_attn ({m},{n},{d},{dv}) x {L} {dname} in "
+        name = (f"chain_attn ({m},{n},{d},{dv}) x {L} {dname} [{path}] in "
                 f"{launched} launches of at most {runs[0][1]} levels")
         same_bits(f"{name} vs attn_step replay", got,
                   chain_ref.run_levels(attn_step, layout, 0, L, args))
         print(f"[chain] {name}: bitwise equal to per-level attn_step replay")
         del got, args
+    print(f"[chain] chain_attn launches by route: "
+          f"{dict(chain_ops.chain_attn.routes)}")
+    # every route: the three tensor-core routes and the four CUDA-core ones
+    check(set(chain_ops.chain_attn.routes) == set(chain_ops.ATTN_ROUTES),
+          f"chain_attn: routes run {sorted(chain_ops.chain_attn.routes)}, "
+          f"expected every one of {sorted(chain_ops.ATTN_ROUTES)}")
+    check(not any(buf.any().item() for buf in chain_kernel._COUNTERS.values()),
+          "chain_attn: a counter left non-zero")
 
     def device_mallocs():
         # segments the caching allocator has taken with cudaMalloc so far
@@ -6951,7 +7151,8 @@ def main() -> int:
             out = wf.fetch(o)
         return out, ex.backend
 
-    # label -> (run, wrapper, levels, kernel, chain_dot's route)
+    # label -> (run, wrapper, levels, kernel, chain_dot's or chain_attn's
+    # route)
     chains = {
         "scan chain, x single": (lambda b: scan_chain(b, False),
                                  "chain.ewise", L, "chain_ewise_kernel",
@@ -6962,7 +7163,7 @@ def main() -> int:
         "gemm_tile chain": (gemm_chain, "chain.dot", DOT_LEVELS,
                             "chain_dot_tf32_kernel", F32_ROUTE),
         "attn_step chain": (attn_chain, "chain.attn", ATTN_LEVELS,
-                            "chain_attn_kernel", None),
+                            "chain_attn_tf32_kernel", "f32_3xtf32"),
         "scan chain f16, x single": (lambda b: scan_chain(b, False, H),
                                      "chain.ewise", L, "chain_ewise_kernel",
                                      None),
@@ -6973,7 +7174,8 @@ def main() -> int:
                                 DOT_LEVELS, "chain_dot_wgmma_kernel",
                                 "f16_wgmma"),
         "attn_step chain f16": (lambda b: attn_chain(b, H), "chain.attn",
-                                ATTN_LEVELS, "chain_attn_kernel", None),
+                                ATTN_LEVELS, "chain_attn_wgmma_kernel",
+                                "f16_wgmma"),
     }
     for label, (run, wrapper, levels, kernel_name, dot_path) in \
             chains.items():
@@ -7005,10 +7207,10 @@ def main() -> int:
                   f"{label}: {mb.pallas_chains_dispatched} chain dispatches, "
                   f"{mb.ops_pallas} ops, expected 1 and {levels}")
             only(label, got, wrapper, 1)
-            if wrapper == "chain.dot":
-                check(chain_ops.chain_dot.routes == {dot_path: 1},
-                      f"{label}: chain_dot by route "
-                      f"{chain_ops.chain_dot.routes}, expected {dot_path}")
+            if wrapper in ("chain.dot", "chain.attn"):
+                routes = wrappers[wrapper].routes
+                check(routes == {dot_path: 1}, f"{label}: {wrapper} by "
+                      f"route {routes}, expected {dot_path}")
 
         def mesh_run(run=run):
             return run(bind.MeshBackend(pallas=True))
@@ -7016,7 +7218,11 @@ def main() -> int:
         _kept, got, walls = measured(label, mesh_run, describe)
         del want
         path_counts[label] = got
-        expect = {kernel_name: 1, **{name: 0 for name in GEMM_KERNELS}}
+        # a chain_attn launch of several levels is its chain kernel and the
+        # kernel that folds the levels into the carry after it
+        expect = {kernel_name: 1, **{name: 0 for name in GEMM_KERNELS},
+                  **({"chain_attn_fold_kernel": 1}
+                     if wrapper == "chain.attn" else {})}
         busy = device_profile(torch, label, mesh_run, walls["warm"], expect)
         print(f"[chains] {label}: serial replay launched {serial_counts}, "
               f"walls cold {serial_walls[0] * 1e3:.3f} ms warm "
@@ -7261,20 +7467,37 @@ def main() -> int:
     # float16 tiles the chain kernel takes: one chain_attn launch (one
     # level), no body expression, within TOL["float16"] of the plain
     # version (float32 inside, one rounding); the body expression, which
-    # rounds to float16 after each operator, printed beside it
-    zero_counts()
-    got = attn_step(*half)
-    torch.cuda.synchronize()
-    launched = {k: v for k, v in counts().items() if v}
-    check(launched == {"chain.attn": 1}, f"attn_step float16: counted "
-          f"{launched}, expected one chain.attn launch")
-    err = close("bodies", "attn_step float16 [chain.attn]", got,
-                fa_ref.attn_step(*half), *TOL["float16"])
-    body_err = (got.double() - step_expr(*half).double()).abs().max().item()
-    print(f"[bodies] attn_step float16 on the card: one chain.attn launch, "
-          f"no body expression; max_abs_err {err:.3e} against the plain "
-          f"version, {body_err:.3e} against the reference's body expression "
-          f"in float16")
+    # rounds to float16 after each operator, printed beside it.  At d 16
+    # the CUDA-core loop takes them, at d = dv = 64 (and in bfloat16 there)
+    # the tensor cores
+    o64, q64 = rand((64, 64), torch.float32), rand((64, 64), torch.float32)
+    k64, v64 = rand((48, 64), torch.float32), rand((48, 64), torch.float32)
+    taken = (("float16", half, "f16_simt"),
+             ("float16 d 64", tuple(t.half() for t in (o64, q64, k64, v64)),
+              "f16_wgmma"),
+             ("bfloat16 d 64",
+              tuple(t.bfloat16() for t in (o64, q64, k64, v64)),
+              "bf16_wgmma"))
+    for label, args, route in taken:
+        zero_counts()
+        got = attn_step(*args)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in counts().items() if v}
+        check(launched == {"chain.attn": 1}, f"attn_step {label}: counted "
+              f"{launched}, expected one chain.attn launch")
+        check(chain_ops.chain_attn.routes == {route: 1}, f"attn_step "
+              f"{label}: routes {chain_ops.chain_attn.routes}, expected "
+              f"{route}")
+        dname = str(args[0].dtype).removeprefix("torch.")
+        err = close("bodies", f"attn_step {label} [chain.attn, {route}]", got,
+                    fa_ref.attn_step(*args), *TOL[dname])
+        body_err = (got.double() - step_expr(*args).double()).abs().max(
+            ).item()
+        print(f"[bodies] attn_step {label} on the card: one chain.attn "
+              f"launch on {route}, no body expression; max_abs_err "
+              f"{err:.3e} against the plain version, {body_err:.3e} against "
+              f"the reference's body expression in {dname}")
+    del o64, q64, k64, v64, taken, args
     del gi, exact, mixed, mixed_exp, o3, q3, k2, v2, half, wide, got
     print(f"[memory] peak allocated "
           f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB")
@@ -7416,6 +7639,12 @@ def main() -> int:
                 routes = dict(ops.matmul_accumulate.routes)
                 check(routes == {F32_ROUTE: n_kernel_steps}, f"{label}: "
                       f"GEMM launches by route {routes}, expected "
+                      f"{n_kernel_steps} on {F32_ROUTE}")
+                # each served attn_step one chain_attn launch of one level
+                # on the 3xTF32 route, its keys in chunks
+                routes = dict(chain_ops.chain_attn.routes)
+                check(routes == {F32_ROUTE: n_kernel_steps}, f"{label}: "
+                      f"chain_attn launches by route {routes}, expected "
                       f"{n_kernel_steps} on {F32_ROUTE}")
                 check(m.requests_completed == n_requests
                       and m.requests_failed == 0,
@@ -7650,6 +7879,7 @@ def main() -> int:
     # -- 9. result lines --------------------------------------------------------------
     gemm_source = "src/repro_torch/kernels/gemm/csrc/gemm.cu"
     chain_source = "src/repro_torch/kernels/chain/csrc/chain.cu"
+    chain_attn_source = "src/repro_torch/kernels/chain/csrc/chain_attn_tc.cuh"
     gemm_replaces = "src/repro/kernels/gemm/kernel.py:47"
     chain_replaces = "src/repro/core/executable_cache.py:242"
     attn_label = "flash_attention RecurrentGemma-9B float32"
@@ -7673,8 +7903,16 @@ def main() -> int:
          dict(chain_times[("dot", "float32")],
               bfloat16=chain_times[("dot", "bfloat16")],
               float64=chain_times[("dot", "float64")])),
-        ("chain.attn", chain_source, chain_replaces,
-         path_counts["attn_step chain"]["chain.attn"], chain_times["attn"]),
+        # on the tensor cores (3xTF32 here; f32_simt's times on the same
+        # values inside), bfloat16's numbers and one served level's beside
+        # them
+        ("chain.attn", chain_attn_source, chain_replaces,
+         path_counts["attn_step chain"]["chain.attn"],
+         dict(chain_times["attn"],
+              bfloat16=dict(chain_times[("attn", "bfloat16")],
+                            served_level=chain_times[("attn", "bfloat16",
+                                                      "served")]),
+              served_level=chain_times[("attn", "float32", "served")])),
         # float16 on the tensor cores (f16_wgmma, gemm_wgmma.cuh's loop
         # instantiated for f16): its launches are Listing 1's in float16
         # on serial, its numbers the 1024^3 leaf's (f16_simt's on the same
@@ -7692,9 +7930,10 @@ def main() -> int:
         ("chain.dot.f16", chain_source, chain_replaces,
          path_counts["gemm_tile chain f16"]["chain.dot"],
          chain_times[("dot", "float16")]),
-        ("chain.attn.f16", chain_source, chain_replaces,
+        ("chain.attn.f16", chain_attn_source, chain_replaces,
          path_counts["attn_step chain f16"]["chain.attn"],
-         chain_times[("attn", "float16")]),
+         dict(chain_times[("attn", "float16")],
+              served_level=chain_times[("attn", "float16", "served")])),
         # the CUDA-core loop: its launches in [attn]'s reference cases (d
         # 16 and the views no tensor-core route reads), its numbers at
         # RecurrentGemma-9B's float32 shape on the same values as the

@@ -2,7 +2,8 @@
 
 Every kernel package keeps its CUDA sources under ``csrc/`` and binds them
 the same way: ``nvcc`` compiles them for ``sm_90a`` into a shared library
-with a plain C interface, and :mod:`ctypes` loads it — no PyTorch headers,
+with a plain C interface (each source compiled to an object at once, in
+parallel, then linked), and :mod:`ctypes` loads it — no PyTorch headers,
 so a build takes seconds.  It happens at first use, from the package's own
 sources, into ``build/`` at the root of the checkout.  The library's name
 carries a hash of its sources, the headers they include and the flags, so
@@ -23,6 +24,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 # src/repro_torch/kernels/_build.py -> the checkout root
@@ -93,18 +95,38 @@ class CudaLibrary:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             try:
-                proc = subprocess.run(
-                    [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, self.sources)],
-                    capture_output=True, text=True)
-                log = proc.stdout + proc.stderr
-                if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc failed ({proc.returncode}) "
-                                       f"building {out.name}:\n{log}")
+                rc, log = self._compile(tmp)
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}) building "
+                                       f"{out.name}:\n{log}")
                 os.replace(tmp, out)    # atomic: readers never see a partial file
             finally:
                 if os.path.exists(tmp):
                     os.unlink(tmp)
         return out, log
+
+    def _compile(self, dst: str) -> tuple[int, str]:
+        """Build the library into ``dst``: each source compiled to an object
+        file at once, in parallel (one ``nvcc`` a translation unit: ptxas
+        takes a file's kernels one after another), then linked.  Returns
+        (exit code, compiler output)."""
+        flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objs:
+            paths = [str(Path(objs) / f"{i}.o")
+                     for i in range(len(self.sources))]
+            with ThreadPoolExecutor(len(self.sources)) as pool:
+                procs = list(pool.map(
+                    lambda src, obj: subprocess.run(
+                        [nvcc(), *flags, "-c", "-o", obj, str(src)],
+                        capture_output=True, text=True),
+                    self.sources, paths))
+            log = "".join(p.stdout + p.stderr for p in procs)
+            for p in procs:
+                if p.returncode != 0:
+                    return p.returncode, log
+            link = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", dst, *paths],
+                                  capture_output=True, text=True)
+            return link.returncode, log + link.stdout + link.stderr
 
     def load(self) -> ctypes.CDLL:
         """The built library with every entry point's C signature declared."""

@@ -69,7 +69,24 @@
 //     takes).
 //
 //   * chain_attn, for kernels/flash_attention/ops.py attn_step (o <- o +
-//     softmax(q k^T / sqrt(d)) v): the flash-attention tile loop
+//     softmax(q k^T / sqrt(d)) v), one of seven routes, a pure function of
+//     the dtype, d, dv, N and the alignment of every level's q, k and v
+//     (attn_route below; kernels/chain/ops.py attn_route is the same rule
+//     in Python, and bind_chain_route_attn answers it for any operands):
+//
+//       F32_3XTF32  float32 with d == dv in {32, 64, 80, 96, 128}, N >= 1
+//                   and every level's q, k, v 16-byte aligned: flash
+//                   attention's 3xTF32 block (chain_attn_tc.cuh);
+//       BF16_WGMMA  bfloat16 with d == dv in {64, 80, 96, 128, 192, 256},
+//                   N >= 1 and every level's q, k, v 16-byte aligned (TMA
+//                   reads them): flash attention's wgmma block;
+//       F16_WGMMA   float16 where BF16_WGMMA takes bfloat16;
+//       F32_SIMT, BF16_SIMT, F16_SIMT, F64_SIMT  everything else: the
+//                   CUDA-core loop below, unchanged.
+//
+//     chain_attn_tc.cuh says how the tensor-core routes split each level's
+//     keys into chunks and merge them; this note is the CUDA-core loop's.
+//     It is the flash-attention tile loop
 //     (flash_attention/csrc/attn_tile.cuh, shared with flash_attention.cu),
 //     level-parallel.  A level's acc / l depends only on that level's q, k
 //     and v (the softmax state is reset at every level), never on the
@@ -91,21 +108,23 @@
 //     TFLOP/s.  What held the loop back was parallelism, not arithmetic:
 //     ceil(m / 64) = 8 blocks on 132 SMs.  Level-parallel, that tile is 128
 //     blocks (one wave: two of 83 KB fit on an SM), each one level's 16.8
-//     MFLOP; the ordered sum reads 4 MB of workspace once.  The tile loop
-//     stays on the CUDA cores in every dtype (fp32 FMA for f32, bf16 and
-//     f16, fp64 for f64), so replay and the chain keep their bits.
+//     MFLOP; the ordered sum reads 4 MB of workspace once.  This loop stays
+//     on the CUDA cores in every dtype (fp32 FMA for f32, bf16 and f16,
+//     fp64 for f64), so replay and the chain keep their bits.
 //     The workspace grows with the chain: M x dv accumulators a level
-//     (256 KB for that f32 tile, 8 MB for an 8192 x 128 f64 carry).  The
-//     wrapper bounds it (kernels/chain/kernel.py WORKSPACE_BYTES, 64 MiB):
-//     a longer chain is several launches of as many levels as fit, each
-//     starting from the carry the last one wrote, which is the carry this
-//     kernel holds anyway (rounded to T at every level), so the bits do
-//     not change.  Levels cannot be folded into partial sums instead: the
-//     carry is rounded after every level.  Every block loads its row
+//     (256 KB for that f32 tile, 8 MB for an 8192 x 128 f64 carry; on the
+//     tensor-core routes S x M x (dv + 2) floats).  The wrapper bounds it
+//     (kernels/chain/kernel.py WORKSPACE_BYTES, 64 MiB): a longer chain is
+//     several launches of as many levels as fit, each starting from the
+//     carry the last one wrote, which is the carry this kernel holds
+//     anyway (rounded to T at every level), so the bits do not change.
+//     Levels cannot be folded into partial sums instead: the carry is
+//     rounded after every level.  Every block of this loop loads its row
 //     tile's carry (32 KB of f32 from L2 at that tile, against the 1 MB of
 //     k and v it reads), though only the last uses it, so that the sweep
-//     runs under the same register pressure as in the loop over levels.
-//
+//     runs under the same register pressure as in the loop over levels
+//     (and keeps the bits ptxas's contractions give it).
+
 // C interface (bound with ctypes): device pointers, sizes and a
 // cudaStream_t; each entry point launches on that stream without
 // synchronising and returns cudaGetLastError() (0 on success).
@@ -118,6 +137,18 @@
 
 #include "../../flash_attention/csrc/attn_tile.cuh"
 #include "../../gemm/csrc/gemm_routes.cuh"
+#include "chain_attn_tc.cuh"
+
+// chain_attn's tensor-core kernels are instantiated in chain_attn_tf32.cu
+// and chain_attn_wgmma.cu, translation units of this library's own that
+// kernels/_build.py compiles beside this one, in parallel: here they took
+// the library's build from ~57 to ~82 s, the longest of the five
+extern template cudaError_t bind_chain_tc::launch<float>(
+    bind_chain_tc::Problem<float>, int, cudaStream_t);
+extern template cudaError_t bind_chain_tc::launch<__nv_bfloat16>(
+    bind_chain_tc::Problem<__nv_bfloat16>, int, cudaStream_t);
+extern template cudaError_t bind_chain_tc::launch<__half>(
+    bind_chain_tc::Problem<__half>, int, cudaStream_t);
 
 namespace {
 
@@ -619,17 +650,81 @@ cudaError_t launch_attn_nj(const void* o, const void* q, int64_t q_stride,
   return cudaGetLastError();
 }
 
+// chain_attn's routes, in the order of kernels/chain/ops.py ATTN_ROUTES
+enum class AttnRoute : int {
+  F32_SIMT = 0, BF16_SIMT = 1, F16_SIMT = 2, F64_SIMT = 3, F32_3XTF32 = 4,
+  BF16_WGMMA = 5, F16_WGMMA = 6
+};
+
+// whether every level of an operand at p, stride elements of T apart from
+// one level to the next, is 16-byte aligned
+template <typename T>
+inline bool levels_aligned(const void* p, int64_t stride, int64_t n_levels) {
+  return aligned16(p) &&
+         (n_levels <= 1 || (stride * static_cast<int64_t>(sizeof(T))) % 16 ==
+                               0);
+}
+
+// the route of a chain of n_levels levels of element type T (see the note
+// at the top)
+template <typename T>
+AttnRoute attn_route(const void* q, int64_t q_stride, const void* k,
+                     int64_t k_stride, const void* v, int64_t v_stride,
+                     int64_t n, int64_t d, int64_t dv, int64_t n_levels) {
+  const bool aligned = levels_aligned<T>(q, q_stride, n_levels) &&
+                       levels_aligned<T>(k, k_stride, n_levels) &&
+                       levels_aligned<T>(v, v_stride, n_levels);
+  const bool ok = aligned && d == dv && n >= 1;
+  using R = AttnRoute;
+  if constexpr (std::is_same_v<T, double>)
+    return R::F64_SIMT;
+  else if constexpr (std::is_same_v<T, float>)
+    return ok && bind_chain_tc::chain_tf32_head_dim(d) ? R::F32_3XTF32
+                                                       : R::F32_SIMT;
+  else if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    return ok && bind_attn_wg::wgmma_head_dim(d) ? R::BF16_WGMMA
+                                                 : R::BF16_SIMT;
+  else
+    return ok && bind_attn_wg::wgmma_head_dim(d) ? R::F16_WGMMA : R::F16_SIMT;
+}
+
+// chunks: the tensor-core routes' chunks of a level's keys (the wrapper's
+// attn_chunks; 1 on the CUDA-core routes, which take no chunks); work and
+// done sized for the route (kernel.py attn_workspace)
 template <typename T>
 int launch_attn(const void* o, const void* q, int64_t q_stride, const void* k,
                 int64_t k_stride, const void* v, int64_t v_stride, void* out,
                 void* work, void* done, int64_t M, int64_t N, int64_t d,
-                int64_t dv, int64_t n_levels, double scale, void* stream) {
+                int64_t dv, int64_t n_levels, int64_t chunks, double scale,
+                void* stream) {
   if (M <= 0 || dv <= 0) return static_cast<int>(cudaGetLastError());
   if (d <= 0 || d > bind_attn::MAX_HEAD_DIM || n_levels <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int di = static_cast<int>(d);
   const int dvi = static_cast<int>(dv);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const AttnRoute route = attn_route<T>(q, q_stride, k, k_stride, v, v_stride,
+                                        N, d, dv, n_levels);
+  if constexpr (!std::is_same_v<T, double>) {
+    if (route == AttnRoute::F32_3XTF32 || route == AttnRoute::BF16_WGMMA ||
+        route == AttnRoute::F16_WGMMA) {
+      const bind_chain_tc::Problem<T> p{
+          static_cast<const T*>(o),    static_cast<T*>(out),
+          static_cast<const T*>(q),    q_stride,
+          static_cast<const T*>(k),    k_stride,
+          static_cast<const T*>(v),    v_stride,
+          static_cast<float*>(work),   static_cast<unsigned int*>(done),
+          M,                           N,
+          n_levels,                    static_cast<int>(chunks),
+          0,                           static_cast<float>(scale) *
+                                           1.4426950408889634f,
+          bind_attn::Mask{false, false, 0}};
+      if (chunks < 1 || chunks > bind_chain_tc::MAX_CHUNKS)
+        return static_cast<int>(cudaErrorInvalidValue);
+      return static_cast<int>(bind_chain_tc::launch(p, di, st));
+    }
+  }
+  if (chunks != 1) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(bind_attn::with_value_blocks(dvi, [&](auto nj) {
     return launch_attn_nj<T, decltype(nj)::value>(
         o, q, q_stride, k, k_stride, v, v_stride, out, work, done, M, N, di,
@@ -663,10 +758,11 @@ extern "C" {
                                int64_t k_stride, const void* v,             \
                                int64_t v_stride, void* out, void* work,     \
                                void* done, int64_t M, int64_t N, int64_t d, \
-                               int64_t dv, int64_t n_levels, double scale,  \
+                               int64_t dv, int64_t n_levels,                \
+                               int64_t chunks, double scale,                \
                                void* stream) {                              \
     return launch_attn<T>(o, q, q_stride, k, k_stride, v, v_stride, out,    \
-                          work, done, M, N, d, dv, n_levels, scale,         \
+                          work, done, M, N, d, dv, n_levels, chunks, scale, \
                           stream);                                          \
   }
 
@@ -676,5 +772,28 @@ BIND_CHAIN_ENTRY_POINTS(f64, double)
 BIND_CHAIN_ENTRY_POINTS(f16, __half)
 
 #undef BIND_CHAIN_ENTRY_POINTS
+
+// The route (enum AttnRoute) a chain_attn launch of element type dtype
+// (the GEMM's codes: f32 0, bf16 1, f64 2, f16 3) on these operands takes;
+// -1 for another code.
+int bind_chain_route_attn(int dtype, const void* q, int64_t q_stride,
+                          const void* k, int64_t k_stride, const void* v,
+                          int64_t v_stride, int64_t n, int64_t d, int64_t dv,
+                          int64_t n_levels) {
+  AttnRoute r;
+  switch (dtype) {
+    case 0: r = attn_route<float>(q, q_stride, k, k_stride, v, v_stride, n,
+                                  d, dv, n_levels); break;
+    case 1: r = attn_route<__nv_bfloat16>(q, q_stride, k, k_stride, v,
+                                          v_stride, n, d, dv, n_levels);
+            break;
+    case 2: r = attn_route<double>(q, q_stride, k, k_stride, v, v_stride, n,
+                                   d, dv, n_levels); break;
+    case 3: r = attn_route<__half>(q, q_stride, k, k_stride, v, v_stride, n,
+                                   d, dv, n_levels); break;
+    default: return -1;
+  }
+  return static_cast<int>(r);
+}
 
 }  // extern "C"

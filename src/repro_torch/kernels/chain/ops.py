@@ -31,7 +31,13 @@ first never sees a wrapper raise for its operands.  On a CUDA tensor a
 wrapper launches its kernel or raises; on a CPU tensor, and only there, it
 computes the plain version.  Each wrapper counts its launches in
 ``launches``; :func:`chain_dot` also counts the GEMM route it took
-(:func:`dot_route`) in ``routes``.
+(:func:`dot_route`) in ``routes``, and :func:`chain_attn` its route
+(:func:`attn_route`: float32 in 3xTF32, ``f32_3xtf32``, with d == dv one
+of :data:`TF32_HEAD_DIMS`; bfloat16 and float16 on ``wgmma``,
+``bf16_wgmma`` / ``f16_wgmma``, with d == dv one of
+:data:`WGMMA_HEAD_DIMS`; each with at least one key and every level's q, k
+and v 16-byte aligned; else the CUDA-core loop of its dtype,
+``f32_simt``, ``bf16_simt``, ``f16_simt``, ``f64_simt``).
 """
 
 from __future__ import annotations
@@ -44,10 +50,19 @@ from torch._C._functorch import is_batchedtensor
 
 from .. import count_launch
 from ..flash_attention.kernel import MAX_HEAD_DIM
+from ..flash_attention.ops import WGMMA_HEAD_DIMS
 from ..gemm.ops import route as gemm_route
 from . import kernel, ref
 
 DTYPES = tuple(kernel.SUFFIX)
+ATTN_ROUTES = kernel.ATTN_ROUTES
+# the head dims of chain_attn's f32_3xtf32 route (chain_tf32_head_dim of
+# csrc/chain_attn_tc.cuh): attn_tf32.cuh's block, flash attention's
+# TF32_HEAD_DIMS without d 256, whose block is another
+TF32_HEAD_DIMS = (32, 64, 80, 96, 128)
+_TC_ATTN = {torch.float32: ("f32_3xtf32", "f32_simt", TF32_HEAD_DIMS),
+            torch.bfloat16: ("bf16_wgmma", "bf16_simt", WGMMA_HEAD_DIMS),
+            torch.float16: ("f16_wgmma", "f16_simt", WGMMA_HEAD_DIMS)}
 _MAX_EXACT_INT = 2 ** 53        # a Python int the kernel takes as a double
 
 
@@ -255,14 +270,62 @@ def chain_attn(layout: tuple, carry_pos: int, n_levels: int,
     if out.numel():
         strides = [t[0].numel() if lay == "xs" else 0
                    for lay, t in zip(layout[1:], (q, k, v))]
+        path = _attn_route_taken(layout, n_levels, strides, o, q, k, v)
         launches = kernel.launch_attn(out, o, q, strides[0], k, strides[1],
-                                      v, strides[2], n_levels)
+                                      v, strides[2], n_levels, path)
         for _ in range(launches):
-            count_launch(chain_attn)
+            count_launch(chain_attn, path)
     return out
 
 
 chain_attn.launches = 0
+chain_attn.routes = {}
+
+
+def attn_level_addresses(layout: tuple, n_levels: int, q: torch.Tensor,
+                         k: torch.Tensor, v: torch.Tensor) -> list[int]:
+    """Where each level's ``q``, ``k`` and ``v`` start (bytes): what
+    per-level replay of ``attn_step`` hands the kernel at every level."""
+    out = []
+    for lay, t in zip(layout[1:], (q, k, v)):
+        if lay == "xs":
+            step = t[0].numel() * t.element_size()
+            out += [t.data_ptr() + level * step for level in range(n_levels)]
+        else:
+            out.append(t.data_ptr())
+    return out
+
+
+def attn_route(layout: tuple, n_levels: int, o: torch.Tensor,
+               q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The route of a ``chain_attn`` of these operands (``csrc/chain.cu``
+    ``attn_route`` is the same rule in C): a tensor-core route when d ==
+    dv is one of its head dims, there is a key and every level's q, k and
+    v is 16-byte aligned (:func:`attn_level_addresses`), which is then the
+    route of every level's replay too; else the CUDA-core loop of the
+    dtype."""
+    if o.dtype == torch.float64:
+        return "f64_simt"
+    tc, simt, dims = _TC_ATTN[o.dtype]
+    n, d = k.shape[-2:]
+    aligned = all(x % 16 == 0 for x in attn_level_addresses(
+        layout, n_levels, q, k, v))
+    return (tc if aligned and d == o.shape[1] and d in dims and n >= 1
+            else simt)
+
+
+def _attn_route_taken(layout, n_levels, strides, o, q, k, v) -> str:
+    """The route the built library's launcher takes for these operands,
+    which must be :func:`attn_route`'s."""
+    n, d = k.shape[-2:]
+    taken = kernel.launcher_route(o.dtype, q.data_ptr(), strides[0],
+                                  k.data_ptr(), strides[1], v.data_ptr(),
+                                  strides[2], n, d, o.shape[1], n_levels)
+    want = attn_route(layout, n_levels, o, q, k, v)
+    if taken != want:
+        raise RuntimeError(f"chain_attn: the launcher takes {taken} where "
+                           f"attn_route says {want}")
+    return taken
 
 
 @functools.lru_cache(maxsize=None)

@@ -530,14 +530,23 @@ __device__ __forceinline__ void softmax(float (&s)[Cfg<D>::SR],
 
 // ---- the block -----------------------------------------------------------
 
-// All THREADS threads of a block call it, with Cfg<D>::SMEM bytes of
-// dynamic shared memory at smem.  Block (x, y) computes q head x % Hq of
-// batch x / Hq for query tile gridDim.y - 1 - y; with LSE, also each of
-// its rows' log-sum-exp into the (B, Hq, Sq) buffer lse.
-template <int D, bool LSE>
-__device__ __forceinline__ void attention_block(const Shape& sh,
-                                                unsigned char* smem,
-                                                float* __restrict__ lse) {
+// The sweep of one block over key tiles [t0, t1): all THREADS threads of
+// a block call it, with Cfg<D>::SMEM bytes of dynamic shared memory at
+// smem.  qb: the block's BQ query rows (q_rows of them real, zeros past
+// them), row q0 of their sequence; kb, vb: the sequence's keys and values
+// (sh.skv of each).  Each row is masked by its position (sh.mask, the keys
+// past sh.skv).  At the end each thread calls epilogue(o, m, l, row_a,
+// col_l, lane) with its rows' unnormalised O, their max m (in the scaled
+// log2 units of the sweep) and its partial sums l (not yet summed over the
+// quad): flash attention stores O / l, chain_attn (kernels/chain) the
+// partials of a chunk of keys.
+template <int D, typename Epilogue>
+__device__ __forceinline__ void sweep_block(const Shape& sh,
+                                            const float* qb, int64_t q_rows,
+                                            const float* kb, const float* vb,
+                                            int64_t q0, int64_t t0,
+                                            int64_t t1, unsigned char* smem,
+                                            Epilogue&& epilogue) {
   using C = Cfg<D>;
   constexpr int BKV = C::BKV;
   unsigned char* q_hi = reinterpret_cast<unsigned char*>(
@@ -547,33 +556,14 @@ __device__ __forceinline__ void attention_block(const Shape& sh,
   unsigned char* k_lo = k_hi + C::K_BYTES;
   unsigned char* v_hi = k_lo + C::K_BYTES;
   unsigned char* v_lo = v_hi + C::V_BYTES;
-
-  const int64_t bh = blockIdx.x;
-  const int64_t b = bh / sh.hq;
-  const int64_t kvh = b * sh.hkv + (bh % sh.hq) / (sh.hq / sh.hkv);
-  const int64_t q0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * BQ;
   const Mask mask = sh.mask;
-  const float* kb = sh.k + kvh * sh.skv * D;
-  const float* vb = sh.v + kvh * sh.skv * D;
-
-  // the key tiles the mask leaves for rows [q0, q0 + BQ)
-  int64_t t0 = 0;
-  int64_t t1 = (sh.skv + BKV - 1) / BKV;
-  if (mask.causal) {
-    const int64_t last = (q0 + BQ - 1) / BKV + 1;
-    t1 = last < t1 ? last : t1;
-  }
-  if (mask.windowed) {
-    const int64_t oldest = q0 - mask.window + 1;
-    if (oldest > 0) t0 = oldest / BKV;
-  }
   const int n = t1 > t0 ? static_cast<int>(t1 - t0) : 0;
 
   TileRegs<D> next;
   if (n > 0) next.load(kb + t0 * BKV * D, vb + t0 * BKV * D, sh.skv - t0 * BKV);
   zero_pad<D>(q_hi, q_lo, BQ, C::Q_PANEL);
   zero_pad<D>(k_hi, k_lo, BKV, C::K_PANEL);
-  stage_q<D>(sh.q + (bh * sh.sq + q0) * D, sh.sq - q0, q_hi, q_lo);
+  stage_q<D>(qb, q_rows, q_hi, q_lo);
   if (n > 0) next.store_k(k_hi, k_lo);
   fence_async_shared();
 
@@ -653,27 +643,66 @@ __device__ __forceinline__ void attention_block(const Shape& sh,
     }
   }
 
-  // out = O / l; a row that saw no key has l = 0, O = 0
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    const int64_t row = row_a + 8 * h;
-    if (row >= sh.sq) continue;
-    if constexpr (LSE) {
-      if ((lane & 3) == 0)
-        lse[bh * sh.sq + row] =
-            l[h] == 0.0f ? INFINITY
-                         : (m[h] + log2f(l[h])) * 0.6931471805599453f;
-    }
-    const float safe = l[h] == 0.0f ? 1.0f : l[h];
-    float* dst = sh.out + (bh * sh.sq + row) * D + col_l;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(dst + 8 * j) =
-          make_float2(__fdiv_rn(o[4 * j + 2 * h], safe),
-                      __fdiv_rn(o[4 * j + 2 * h + 1], safe));
+  epilogue(o, m, l, row_a, col_l, lane);
+}
+
+// Flash attention's block: all THREADS threads of a block call it, with
+// Cfg<D>::SMEM bytes of dynamic shared memory at smem.  Block (x, y)
+// computes q head x % Hq of batch x / Hq for query tile gridDim.y - 1 - y;
+// with LSE, also each of its rows' log-sum-exp into the (B, Hq, Sq) buffer
+// lse.
+template <int D, bool LSE>
+__device__ __forceinline__ void attention_block(const Shape& sh,
+                                                unsigned char* smem,
+                                                float* __restrict__ lse) {
+  using C = Cfg<D>;
+  constexpr int BKV = C::BKV;
+  const int64_t bh = blockIdx.x;
+  const int64_t b = bh / sh.hq;
+  const int64_t kvh = b * sh.hkv + (bh % sh.hq) / (sh.hq / sh.hkv);
+  const int64_t q0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * BQ;
+  const Mask mask = sh.mask;
+  const float* kb = sh.k + kvh * sh.skv * D;
+  const float* vb = sh.v + kvh * sh.skv * D;
+
+  // the key tiles the mask leaves for rows [q0, q0 + BQ)
+  int64_t t0 = 0;
+  int64_t t1 = (sh.skv + BKV - 1) / BKV;
+  if (mask.causal) {
+    const int64_t last = (q0 + BQ - 1) / BKV + 1;
+    t1 = last < t1 ? last : t1;
   }
+  if (mask.windowed) {
+    const int64_t oldest = q0 - mask.window + 1;
+    if (oldest > 0) t0 = oldest / BKV;
+  }
+
+  sweep_block<D>(
+      sh, sh.q + (bh * sh.sq + q0) * D, sh.sq - q0, kb, vb, q0, t0, t1, smem,
+      [&](float (&o)[C::OR], float (&m)[2], float (&l)[2], int64_t row_a,
+          int col_l, int lane) {
+      // out = O / l; a row that saw no key has l = 0, O = 0
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        const int64_t row = row_a + 8 * h;
+        if (row >= sh.sq) continue;
+        if constexpr (LSE) {
+          if ((lane & 3) == 0)
+            lse[bh * sh.sq + row] =
+                l[h] == 0.0f ? INFINITY
+                             : (m[h] + log2f(l[h])) * 0.6931471805599453f;
+        }
+        const float safe = l[h] == 0.0f ? 1.0f : l[h];
+        float* dst = sh.out + (bh * sh.sq + row) * D + col_l;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<float2*>(dst + 8 * j) =
+              make_float2(__fdiv_rn(o[4 * j + 2 * h], safe),
+                          __fdiv_rn(o[4 * j + 2 * h + 1], safe));
+      }
+      });
 }
 
 }  // namespace bind_attn_tf

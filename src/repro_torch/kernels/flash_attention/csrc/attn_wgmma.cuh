@@ -463,19 +463,26 @@ __device__ __forceinline__ void softmax(float (&sc)[BKV / 2],
 
 // ---- the block -----------------------------------------------------------
 
-// All THREADS threads of a block call it, with Cfg<D>::SMEM bytes of
-// dynamic shared memory at smem.  tq, tk, tv: q, k, v as (D, S, heads)
-// tensor maps read in boxes of 64 columns by BQ (q) or BKV (k, v) rows.
-// Block (x, y) computes q head x % Hq of batch x / Hq for query tile
-// gridDim.y - 1 - y.  LSE: null, or the (B, Hq, Sq) log-sum-exp buffer.
-template <typename T, int D>
-__device__ __forceinline__ void attention_block(const CUtensorMap* tq,
-                                                const CUtensorMap* tk,
-                                                const CUtensorMap* tv,
-                                                T* __restrict__ O,
-                                                float* __restrict__ LSE,
-                                                const Shape& sh,
-                                                unsigned char* smem) {
+// The sweep of one block over key tiles [t0, t1): all THREADS threads of
+// a block call it, with Cfg<D>::SMEM bytes of dynamic shared memory at
+// smem.  tq, tk, tv: q, k, v as (D, S, planes) tensor maps read in boxes
+// of 64 columns by BQ (q) or BKV (k, v) rows; the block's BQ query rows
+// start at row q0 of q's plane qz, its keys and values lie in plane kz of
+// k and vz of v.  Each row is masked by its position (sh.mask, the keys
+// past sh.skv).  At the end each thread calls epilogue(o, m, l, row_a,
+// col_l, lane) with its rows' unnormalised O, their max m (in the scaled
+// log2 units of the sweep) and its partial sums l (not yet summed over the
+// quad): flash attention stores O / l, chain_attn (kernels/chain) the
+// partials of a chunk of keys.
+template <typename T, int D, typename Epilogue>
+__device__ __forceinline__ void sweep_block(const CUtensorMap* tq,
+                                            const CUtensorMap* tk,
+                                            const CUtensorMap* tv,
+                                            const Shape& sh, int64_t q0,
+                                            int qz, int kz, int vz,
+                                            int64_t t0, int64_t t1,
+                                            unsigned char* smem,
+                                            Epilogue&& epilogue) {
   using C = Cfg<D>;
   constexpr int BKV = C::BKV;
   constexpr int PANELS = C::PANELS;
@@ -489,28 +496,10 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* tq,
   // how many warpgroups were done with each K / V stage, all told
   unsigned int* k_done = reinterpret_cast<unsigned int*>(v_full + STAGES);
   unsigned int* v_done = k_done + STAGES;
-
-  const int64_t bh = blockIdx.x;
-  const int64_t b = bh / sh.hq;
-  const int64_t kvh = b * sh.hkv + (bh % sh.hq) / (sh.hq / sh.hkv);
-  const int64_t q0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * BQ;
   const Mask mask = sh.mask;
-
-  // the key tiles the mask leaves for rows [q0, q0 + BQ)
-  int64_t t0 = 0;
-  int64_t t1 = (sh.skv + BKV - 1) / BKV;
-  if (mask.causal) {
-    const int64_t last = (q0 + BQ - 1) / BKV + 1;
-    t1 = last < t1 ? last : t1;
-  }
-  if (mask.windowed) {
-    const int64_t oldest = q0 - mask.window + 1;
-    if (oldest > 0) t0 = oldest / BKV;
-  }
   const int n = t1 > t0 ? static_cast<int>(t1 - t0) : 0;
 
   // tile it of the sweep into its stage, K or V; by one thread
-  const int kz = static_cast<int>(kvh);
   auto issue = [&](int it, bool values) {
     const int s = it % STAGES;
     const int row = static_cast<int>((t0 + it) * BKV);
@@ -519,7 +508,8 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* tq,
     mbar_expect(bar, C::KV_BYTES);
 #pragma unroll
     for (int p = 0; p < PANELS; ++p)
-      tma_load(dst + p * C::KV_PANEL, values ? tv : tk, bar, p * 64, row, kz);
+      tma_load(dst + p * C::KV_PANEL, values ? tv : tk, bar, p * 64, row,
+               values ? vz : kz);
   };
   // a warpgroup is done with stage it % STAGES of K or V; the second of
   // the two refills it with tile it + STAGES
@@ -545,7 +535,7 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* tq,
 #pragma unroll
     for (int p = 0; p < PANELS; ++p)
       tma_load(qs + p * C::Q_PANEL, tq, q_full, p * 64, static_cast<int>(q0),
-               static_cast<int>(bh));
+               qz);
     for (int it = 0; it < STAGES && it < n; ++it) {
       issue(it, false);
       issue(it, true);
@@ -616,27 +606,70 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* tq,
     release(wg, tid, it, true);
   }
 
-  // out = O / l, rounded once; a row that saw no key has l = 0, O = 0
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    const int64_t row = row_a + 8 * h;
-    if (row >= sh.sq) continue;
-    if (LSE != nullptr && (lane & 3) == 0)
-      LSE[bh * sh.sq + row] =
-          l[h] == 0.0f ? INFINITY
-                       : (m[h] + log2f(l[h])) * 0.6931471805599453f;
-    const float inv = 1.0f / (l[h] == 0.0f ? 1.0f : l[h]);
-    T* dst = O + (bh * sh.sq + row) * D + col_l;
-#pragma unroll
-    for (int p = 0; p < PANELS; ++p)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        if (real_cols(D, p, j))
-          store2(dst + p * 64 + 8 * j, o[p][4 * j + 2 * h] * inv,
-                 o[p][4 * j + 2 * h + 1] * inv);
+  epilogue(o, m, l, row_a, col_l, lane);
+}
+
+// Flash attention's block: all THREADS threads of a block call it, with
+// Cfg<D>::SMEM bytes of dynamic shared memory at smem.  tq, tk, tv: q, k,
+// v as (D, S, heads) tensor maps.  Block (x, y) computes q head x % Hq of
+// batch x / Hq for query tile gridDim.y - 1 - y.  LSE: null, or the (B,
+// Hq, Sq) log-sum-exp buffer.
+template <typename T, int D>
+__device__ __forceinline__ void attention_block(const CUtensorMap* tq,
+                                                const CUtensorMap* tk,
+                                                const CUtensorMap* tv,
+                                                T* __restrict__ O,
+                                                float* __restrict__ LSE,
+                                                const Shape& sh,
+                                                unsigned char* smem) {
+  using C = Cfg<D>;
+  constexpr int BKV = C::BKV;
+  constexpr int PANELS = C::PANELS;
+  const int64_t bh = blockIdx.x;
+  const int64_t b = bh / sh.hq;
+  const int64_t kvh = b * sh.hkv + (bh % sh.hq) / (sh.hq / sh.hkv);
+  const int64_t q0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * BQ;
+  const Mask mask = sh.mask;
+
+  // the key tiles the mask leaves for rows [q0, q0 + BQ)
+  int64_t t0 = 0;
+  int64_t t1 = (sh.skv + BKV - 1) / BKV;
+  if (mask.causal) {
+    const int64_t last = (q0 + BQ - 1) / BKV + 1;
+    t1 = last < t1 ? last : t1;
   }
+  if (mask.windowed) {
+    const int64_t oldest = q0 - mask.window + 1;
+    if (oldest > 0) t0 = oldest / BKV;
+  }
+
+  const int kz = static_cast<int>(kvh);
+  sweep_block<T, D>(
+      tq, tk, tv, sh, q0, static_cast<int>(bh), kz, kz, t0, t1, smem,
+      [&](float (&o)[PANELS][32], float (&m)[2], float (&l)[2],
+          int64_t row_a, int col_l, int lane) {
+      // out = O / l, rounded once; a row that saw no key has l = 0, O = 0
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        const int64_t row = row_a + 8 * h;
+        if (row >= sh.sq) continue;
+        if (LSE != nullptr && (lane & 3) == 0)
+          LSE[bh * sh.sq + row] =
+              l[h] == 0.0f ? INFINITY
+                           : (m[h] + log2f(l[h])) * 0.6931471805599453f;
+        const float inv = 1.0f / (l[h] == 0.0f ? 1.0f : l[h]);
+        T* dst = O + (bh * sh.sq + row) * D + col_l;
+#pragma unroll
+        for (int p = 0; p < PANELS; ++p)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (real_cols(D, p, j))
+              store2(dst + p * 64 + 8 * j, o[p][4 * j + 2 * h] * inv,
+                     o[p][4 * j + 2 * h + 1] * inv);
+      }
+      });
 }
 
 // the tensor maps of one launch, of element type T: q as (D, Sq, B Hq) in

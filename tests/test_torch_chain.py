@@ -542,24 +542,33 @@ def test_level_runs_bound_the_workspace(m, dv, n_levels, dname):
         assert runs == [(0, n_levels)]
 
 
+@pytest.mark.parametrize("route", ["f32_simt", "f32_3xtf32"])
 @pytest.mark.parametrize("per_launch, n_levels", [(16, 16), (6, 16), (5, 15),
                                                   (1, 3)])
 @pytest.mark.parametrize("lq, lk, lv", [("single", "xs", "xs"),
                                         ("xs", "xs", "single")])
 def test_launches_hand_the_carry_on(monkeypatch, per_launch, n_levels, lq,
-                                    lk, lv):
+                                    lk, lv, route):
     """Static (no nvcc): a chain longer than one launch's workspace is
     launches of at most that many levels, each reading the carry the last
     one wrote and writing the other buffer, the last writing ``out``; each
-    launch's q, k and v start at its first level."""
-    m, n, d, dv = 4, 3, 2, 5
-    monkeypatch.setattr(kernel, "WORKSPACE_BYTES", per_launch * m * dv * 4)
+    launch's q, k and v start at its first level.  On a tensor-core route
+    every launch takes the same chunks (the level's, whatever its run) and
+    counters for its row tiles and levels."""
+    m, n, d, dv = 4, 100, 32, 32
+    chunks = kernel.attn_chunks(route, m, n, d)
+    assert (chunks > 1) == (route in kernel.TC_ROUTES)
+    per_level = kernel.level_bytes(
+        m, dv, torch.float32, chunks if route in kernel.TC_ROUTES else None)
+    monkeypatch.setattr(kernel, "WORKSPACE_BYTES", per_launch * per_level)
     monkeypatch.setattr(kernel, "on_device",
                         lambda device: contextlib.nullcontext())
     monkeypatch.setattr(kernel, "_stream", lambda t: 0)
+    counters = []
     monkeypatch.setattr(kernel, "row_tile_counters",
                         lambda device, stream, tiles:
-                        torch.zeros(tiles, dtype=torch.int32))
+                        counters.append(tiles)
+                        or torch.zeros(tiles, dtype=torch.int32))
     calls = []
     monkeypatch.setattr(kernel.LIBRARY, "call",
                         lambda sym, *args: calls.append((sym, args)))
@@ -571,14 +580,19 @@ def test_launches_hand_the_carry_on(monkeypatch, per_launch, n_levels, lq,
         t = torch.zeros(lead + shape)
         operands[name] = (t, t[0].numel() if lay == "xs" else 0)
     (q, qs), (k, ks), (v, vs) = operands.values()
-    launches = kernel.launch_attn(out, o, q, qs, k, ks, v, vs, n_levels)
-    runs = kernel.level_runs(m, dv, torch.float32, n_levels)
+    launches = kernel.launch_attn(out, o, q, qs, k, ks, v, vs, n_levels,
+                                  route)
+    runs = kernel.level_runs(
+        m, dv, torch.float32, n_levels,
+        chunks if route in kernel.TC_ROUTES else None)
     assert launches == len(calls) == len(runs) == -(-n_levels // per_launch)
+    assert counters == [kernel.attn_counters(route, m, runs[0][1])]
     carry = o.data_ptr()
     work = None
     for (sym, args), (first, levels) in zip(calls, runs):
         (o_ptr, q_ptr, q_stride, k_ptr, k_stride, v_ptr, v_stride, dst,
-         work_ptr, _done, mm, nn, dd, ddv, lv_count, _scale, _st) = args
+         work_ptr, _done, mm, nn, dd, ddv, lv_count, got_chunks, _scale,
+         _st) = args
         assert sym == "bind_chain_attn_f32"
         assert o_ptr == carry and dst != o_ptr
         assert (q_ptr, k_ptr, v_ptr) == (q.data_ptr() + first * qs * 4,
@@ -586,6 +600,7 @@ def test_launches_hand_the_carry_on(monkeypatch, per_launch, n_levels, lq,
                                          v.data_ptr() + first * vs * 4)
         assert (q_stride, k_stride, v_stride) == (qs, ks, vs)
         assert (mm, nn, dd, ddv, lv_count) == (m, n, d, dv, levels)
+        assert got_chunks == chunks
         assert work in (None, work_ptr)
         work, carry = work_ptr, dst
     assert carry == out.data_ptr()
@@ -753,3 +768,478 @@ def test_ewise_classes_are_the_kernels_numbering():
     for picker in ("ewise_pick_a", "ewise_pick_b"):
         assert table["pickers"][picker] == {c["HELD"], c["XS"],
                                             c["XS_CONST"]}, picker
+
+
+# ---------------------------------------------------------------------------
+# chain_attn's tensor-core routes (csrc/chain_attn_tc.cuh): the route rule,
+# the chunks of a level's keys, and their arithmetic emulated
+# ---------------------------------------------------------------------------
+
+def _attn_operands(dtype, layout, m, n, d, dv, levels, offsets=(0, 0, 0)):
+    """o, q, k, v of ``dtype``; q, k and v each a contiguous view
+    ``offsets`` elements into a storage of its own."""
+    out = [torch.zeros((m, dv), dtype=dtype)]
+    for lay, shape, off in zip(layout[1:], ((m, d), (n, d), (n, dv)),
+                               offsets):
+        lead = (levels,) if lay == "xs" else ()
+        count = int(np.prod(lead + shape))
+        store = torch.zeros(count + 16, dtype=dtype)
+        out.append(store[off:off + count].view(lead + shape))
+    return out
+
+
+ROUTE_CASES = [
+    # dtype, d, dv, n, offsets (elements), want
+    (torch.float32, 128, 128, 512, (0, 0, 0), "f32_3xtf32"),
+    (torch.float32, 80, 80, 7, (0, 0, 0), "f32_3xtf32"),
+    (torch.float32, 32, 32, 1, (0, 0, 0), "f32_3xtf32"),
+    (torch.float32, 256, 256, 64, (0, 0, 0), "f32_simt"),   # d 256's block
+    (torch.float32, 192, 192, 64, (0, 0, 0), "f32_simt"),
+    (torch.float32, 128, 64, 64, (0, 0, 0), "f32_simt"),    # d != dv
+    (torch.float32, 40, 40, 64, (0, 0, 0), "f32_simt"),
+    (torch.float32, 128, 128, 64, (1, 0, 0), "f32_simt"),   # q misaligned
+    (torch.float32, 128, 128, 64, (0, 0, 2), "f32_simt"),   # v misaligned
+    (torch.float32, 128, 128, 64, (4, 4, 4), "f32_3xtf32"),  # 16 bytes in
+    (torch.float32, 128, 128, 0, (0, 0, 0), "f32_simt"),    # no key
+    (torch.bfloat16, 128, 128, 512, (0, 0, 0), "bf16_wgmma"),
+    (torch.bfloat16, 96, 96, 3, (0, 0, 0), "bf16_wgmma"),
+    (torch.bfloat16, 256, 256, 64, (0, 0, 0), "bf16_wgmma"),
+    (torch.bfloat16, 32, 32, 64, (0, 0, 0), "bf16_simt"),
+    (torch.bfloat16, 100, 100, 64, (0, 0, 0), "bf16_simt"),
+    (torch.bfloat16, 128, 128, 64, (0, 1, 0), "bf16_simt"),
+    (torch.bfloat16, 128, 128, 64, (8, 8, 8), "bf16_wgmma"),
+    (torch.float16, 64, 64, 64, (0, 0, 0), "f16_wgmma"),
+    (torch.float16, 80, 80, 64, (0, 0, 0), "f16_wgmma"),
+    (torch.float16, 128, 64, 64, (0, 0, 0), "f16_simt"),
+    (torch.float16, 128, 128, 64, (0, 0, 3), "f16_simt"),
+    (torch.float64, 128, 128, 64, (0, 0, 0), "f64_simt"),
+]
+
+
+@pytest.mark.parametrize("dtype, d, dv, n, offsets, want", ROUTE_CASES)
+@pytest.mark.parametrize("layout", [("single", "single", "xs", "xs"),
+                                    ("single", "xs", "xs", "xs"),
+                                    ("single",) * 4],
+                         ids=["q-single", "all-xs", "all-single"])
+def test_attn_route_by_dtype_head_dim_and_alignment(dtype, d, dv, n,
+                                                    offsets, want, layout):
+    """``chain_attn``'s route: a tensor-core route for its dtype when d ==
+    dv is one of the route's head dims, there is a key, and every level's
+    q, k and v starts 16-byte aligned; the CUDA-core loop of the dtype
+    otherwise.  The route of the whole chain is the one per-level replay
+    takes at every level, and the one every launch's first level (a run
+    of levels, offset into the stacks) takes."""
+    levels = 3
+    o, q, k, v = _attn_operands(dtype, layout, 5, n, d, dv, levels, offsets)
+    if any(t.data_ptr() % 16 != (offsets[i] * t.element_size()) % 16
+           for i, t in enumerate((q, k, v))):
+        pytest.skip("the allocator's storage is not 16-byte aligned")
+    assert ops.attn_route(layout, levels, o, q, k, v) == want
+    assert want in ops.ATTN_ROUTES
+    replay = set()
+    for level in range(levels):
+        step = [t[level] if lay == "xs" else t
+                for lay, t in zip(layout[1:], (q, k, v))]
+        replay.add(ops.attn_route(("single",) * 4, 1, o, *step))
+        tail = [t[level:] if lay == "xs" else t
+                for lay, t in zip(layout[1:], (q, k, v))]
+        replay.add(ops.attn_route(layout, levels - level, o, *tail))
+    assert replay == {want}
+
+
+def test_attn_route_sees_every_level_of_a_stack():
+    """A level stride that is no multiple of 16 bytes (m d elements of a
+    float32 stack at d 1) leaves some levels misaligned: the chain takes
+    the CUDA-core loop, as replay of those levels would."""
+    o = torch.zeros((5, 1))
+    q = torch.zeros((3, 5, 1))
+    k, v = torch.zeros((4, 1)), torch.zeros((4, 1))
+    addrs = ops.attn_level_addresses(("single", "xs", "single", "single"),
+                                     3, q, k, v)
+    assert addrs == [q.data_ptr(), q.data_ptr() + 20, q.data_ptr() + 40,
+                     k.data_ptr(), v.data_ptr()]
+    assert ops.attn_route(("single", "xs", "single", "single"), 3, o, q, k,
+                          v) == "f32_simt"
+
+
+def test_attn_routes_and_head_dims_are_the_c_sources():
+    """``ATTN_ROUTES`` lists ``AttnRoute``'s names in its order (the
+    launcher's answer indexes it); ``TF32_HEAD_DIMS`` is
+    ``chain_tf32_head_dim``'s set; the key tiles, ``MAX_CHUNKS`` and the
+    block's rows are those of the C source."""
+    cu = kernel.SOURCES[0].read_text()
+    enum = re.search(r"enum class AttnRoute : int \{(.*?)\};", cu,
+                     re.S).group(1)
+    pairs = re.findall(r"(\w+) = (\d+)", enum)
+    assert ops.ATTN_ROUTES == tuple(name.lower() for name, i in sorted(
+        pairs, key=lambda p: int(p[1])))
+    assert set(kernel.TC_ROUTES) == {"f32_3xtf32", "bf16_wgmma",
+                                     "f16_wgmma"}
+    tc = (kernel.SOURCES[0].parent / "chain_attn_tc.cuh").read_text()
+    body = re.search(r"constexpr bool chain_tf32_head_dim\(int64_t d\) "
+                     r"\{(.*?)\}", tc, re.S).group(1)
+    assert tuple(int(x) for x in re.findall(r"d == (\d+)", body)) == \
+        ops.TF32_HEAD_DIMS
+    assert f"constexpr int MAX_CHUNKS = {kernel.MAX_CHUNKS};" in tc
+    assert f"constexpr int ROWS = {kernel.TC_ROWS};" in tc
+    assert "return d <= 64 ? 64 : 32;" in tc
+    assert "return d <= 128 ? 128 : 64;" in tc
+    for d in ops.TF32_HEAD_DIMS:
+        assert kernel.key_tile("f32_3xtf32", d) == (64 if d <= 64 else 32)
+    for d in ops.WGMMA_HEAD_DIMS:
+        for route in ("bf16_wgmma", "f16_wgmma"):
+            assert kernel.key_tile(route, d) == (128 if d <= 128 else 64)
+
+
+def test_route_symbol_arity_is_the_entry_points():
+    """Static: ctypes passes as many arguments as
+    ``bind_chain_route_attn`` takes."""
+    params = re.search(r"int bind_chain_route_attn\((.*?)\)",
+                       kernel.SOURCES[0].read_text(), re.S).group(1)
+    assert params.count(",") + 1 == len(
+        kernel.LIBRARY.symbols[kernel.ATTN_ROUTE_SYMBOL])
+
+
+CHUNK_SHAPES = [(512, 512, 128), (512, 64, 128), (8192, 512, 128),
+                (1, 1, 64), (100, 10000, 64), (640, 3000, 96),
+                (128, 333, 256)]
+
+
+@pytest.mark.parametrize("route, m, n, d", [
+    (route, m, n, d) for route in ("f32_3xtf32", "bf16_wgmma", "f16_wgmma")
+    for m, n, d in CHUNK_SHAPES
+    if route != "f32_3xtf32" or d in ops.TF32_HEAD_DIMS])
+def test_attn_chunks_split_the_keys_by_the_level_alone(route, m, n, d):
+    """The chunks of a level's keys: a whole number of key tiles each
+    (every chunk holds at least one), at most MAX_CHUNKS, enough that the
+    level runs as CHUNK_BLOCKS blocks where it has the tiles; a function of
+    the level's shape and route alone (it takes no level count)."""
+    import inspect
+    assert list(inspect.signature(kernel.attn_chunks).parameters) == [
+        "route", "m", "n", "d"]
+    chunks = kernel.attn_chunks(route, m, n, d)
+    tiles = -(-n // kernel.key_tile(route, d))
+    per = -(-tiles // chunks)
+    assert 1 <= chunks <= min(tiles, kernel.MAX_CHUNKS)
+    assert -(-tiles // per) == chunks          # no chunk is empty
+    rows = -(-m // kernel.TC_ROWS)
+    assert rows * chunks >= min(kernel.CHUNK_BLOCKS, rows * tiles)
+    assert kernel.attn_chunks("f32_simt", m, n, d) == 1
+
+
+def test_the_served_level_runs_as_16_blocks():
+    """The served ``attn_step`` (a 512-row Qwen3-14B query tile over 512
+    fresh keys) runs as at least 16 blocks on each tensor-core route, not
+    the 4 row tiles alone."""
+    for route in kernel.TC_ROUTES:
+        chunks = kernel.attn_chunks(route, 512, 512, 128)
+        assert -(-512 // kernel.TC_ROWS) * chunks >= 16
+
+
+@pytest.mark.parametrize("route", ["f32_simt", "f32_3xtf32", "bf16_wgmma"])
+@pytest.mark.parametrize("m, n, d, n_levels", [(512, 512, 128, 16),
+                                               (512, 64, 128, 300),
+                                               (8192, 512, 128, 64),
+                                               (64, 100, 64, 70000)])
+def test_level_runs_bound_the_tensor_core_workspace(route, m, n, d,
+                                                    n_levels):
+    """On the tensor-core routes a level's workspace is chunks x m x (dv +
+    2) floats and the grid's y levels x chunks: the runs cover the chain
+    in order within both bounds, and the counters a launch takes are one
+    per row tile and level (its chunks' merge)."""
+    dtype = torch.bfloat16 if route == "bf16_wgmma" else torch.float32
+    tc = route in kernel.TC_ROUTES
+    chunks = kernel.attn_chunks(route, m, n, d) if tc else None
+    runs = kernel.level_runs(m, d, dtype, n_levels, chunks)
+    assert sum(c for _, c in runs) == n_levels
+    assert [f for f, _ in runs] == list(
+        itertools.accumulate([0] + [c for _, c in runs[:-1]]))
+    per_level = kernel.level_bytes(m, d, dtype, chunks)
+    for _, count in runs:
+        assert count == 1 or count * per_level <= kernel.WORKSPACE_BYTES
+        assert count * (chunks or 1) <= kernel.MAX_LEVELS_PER_LAUNCH
+    assert runs[0][1] == min(n_levels, kernel.levels_per_launch(
+        route, m, n, d, d, dtype))
+    if tc:
+        assert per_level == chunks * m * (d + 2) * 4
+        assert kernel.attn_counters(route, m, runs[0][1]) == \
+            -(-m // kernel.TC_ROWS) * runs[0][1]
+    else:
+        assert kernel.attn_counters(route, m, runs[0][1]) == \
+            -(-m // kernel.ROW_TILE)
+
+
+LOG2E = 1.4426950408889634
+
+
+def _tf32_split(x):
+    """hi and lo halves of float32 ``x`` as the 3xTF32 staging makes them:
+    hi = tf32_rna(x), lo = tf32_rna(x - hi)."""
+    from test_torch_gemm import _tf32
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _products(route, a, b):
+    """``a @ b`` as the route's tensor cores form it, float32: 3xTF32
+    (hi.hi in one accumulator, the lo products in another, added once) or
+    one product of 16-bit operands (exact products, a float32 sum)."""
+    if route != "f32_3xtf32":
+        return (a.double() @ b.double()).float()
+    (ah, al), (bh, bl) = _tf32_split(a), _tf32_split(b)
+    hh = (ah.double() @ bh.double()).float()
+    lo = (al.double() @ bh.double() + ah.double() @ bl.double()).float()
+    return hh + lo
+
+
+def _emulate_chain_attn(route, layout, n_levels, o, q, k, v, *,
+                        chunks=None, p_through=None, rescale=True):
+    """The tensor-core routes' arithmetic (csrc/chain_attn_tc.cuh and the
+    flash-attention blocks it sweeps with), in float32 on the CPU: each
+    level's keys in ``kernel.attn_chunks`` chunks of key tiles (or
+    ``chunks(n_levels)``: the fault of a count taken from the chain's
+    length); per chunk the online softmax over its tiles (scores scaled by
+    scale log2(e), m from -1e30, p = 2^(s - m), l = corr l + sum p, O
+    rescaled by corr, then O += P V: on 3xTF32 P split into hi / lo and
+    the tile's product summed apart and added, on wgmma P rounded to the
+    element type; ``p_through``: P rounded through that type first, the
+    planted fault);
+    chunks merged in chunk order (m* = max m_c, w_c = 2^(m_c - m*), the
+    level's value (sum w_c O_c) (1 / sum w_c l_c); ``rescale=False``: the
+    fault of chunks merged without their weights), or O (1 / l) for one
+    chunk; the carry rounded to its type after every level."""
+    dt = o.dtype
+    m, dv = o.shape
+    n, d = k.shape[-2:]
+    count = (kernel.attn_chunks(route, m, n, d) if chunks is None
+             else chunks(n_levels))
+    bkv = kernel.key_tile(route, d)
+    tiles = -(-n // bkv)
+    per = -(-tiles // count)
+    scale_log2 = torch.tensor(1.0 / d ** 0.5, dtype=torch.float32) * \
+        torch.tensor(LOG2E, dtype=torch.float32)
+    carry = o.float()
+    for level in range(n_levels):
+        qq, kk, vv = ((t[level] if lay == "xs" else t).float()
+                      for lay, t in zip(layout[1:], (q, k, v)))
+        parts = []
+        for c in range(-(-tiles // per)):
+            acc = torch.zeros((m, dv))
+            mx = torch.full((m,), -1e30)
+            lsum = torch.zeros(m)
+            for t in range(c * per, min((c + 1) * per, tiles)):
+                keys = slice(t * bkv, min((t + 1) * bkv, n))
+                s = _products(route, qq, kk[keys].T) * scale_log2
+                new = torch.maximum(mx, s.amax(-1))
+                corr = torch.exp2(mx - new)
+                p = torch.exp2(s - new[:, None])
+                lsum = corr * lsum + p.sum(-1)
+                acc = acc * corr[:, None]
+                if p_through is not None:
+                    p = p.to(p_through).float()
+                if route == "f32_3xtf32":
+                    ph, pl = _tf32_split(p)
+                    vh, vl = _tf32_split(vv[keys])
+                    tile = (ph.double() @ vh.double()
+                            + pl.double() @ vh.double()
+                            + ph.double() @ vl.double()).float()
+                else:
+                    tile = (p.to(dt).double() @ vv[keys].double()).float()
+                acc = acc + tile
+                mx = new
+            parts.append((acc, mx, lsum))
+        if len(parts) == 1:
+            value = parts[0][0] * torch.reciprocal(parts[0][2])[:, None]
+        else:
+            top = torch.stack([pm for _, pm, _ in parts]).amax(0)
+            total = torch.zeros(m)
+            value = torch.zeros((m, dv))
+            for pa, pm, pls in parts:
+                w = torch.exp2(pm - top) if rescale else torch.ones(m)
+                total = total + w * pls
+                value = value + w[:, None] * pa
+            value = value * torch.reciprocal(total)[:, None]
+        carry = (carry + value).to(dt).float()
+    return carry.to(dt)
+
+
+def _emulate_replay(route, layout, n_levels, o, q, k, v, **kw):
+    """The emulated route run level by level, as per-level ``attn_step``
+    replay launches it: one level each, from the last one's carry."""
+    carry = o
+    for level in range(n_levels):
+        step = [t[level] if lay == "xs" else t
+                for lay, t in zip(layout[1:], (q, k, v))]
+        carry = _emulate_chain_attn(route, ("single",) * 4, 1, carry, *step,
+                                    **kw)
+    return carry
+
+
+_EMU = {"f32_3xtf32": (torch.float32, 32), "bf16_wgmma": (torch.bfloat16, 64),
+        "f16_wgmma": (torch.float16, 64)}
+
+
+def _emu_operands(route, layout, n_levels, zero_carry=False, seed=41):
+    dt, d = _EMU[route]
+    m, n = 48, 300
+    rng = np.random.default_rng(seed)
+    shapes = ((m, d), (m, d), (n, d), (n, d))
+    out = []
+    for lay, shape in zip(layout, shapes):
+        lead = (n_levels,) if lay == "xs" else ()
+        out.append(torch.from_numpy(rng.normal(size=lead + shape)
+                                    .astype(np.float32)).to(dt))
+    if zero_carry:
+        out[0] = torch.zeros_like(out[0])
+    return out
+
+
+def _jax_chain(layout, n_levels, o, q, k, v):
+    """The reference's ``attn_step`` (jax on the CPU) run level by level on
+    the same values in float32, the carry rounded to the element type after
+    each level as the port's plain version rounds it."""
+    import jax
+    from repro.kernels.flash_attention.ops import attn_step as jax_attn_step
+
+    carry = o
+    for level in range(n_levels):
+        step = [(t[level] if lay == "xs" else t).float().numpy()
+                for lay, t in zip(layout[1:], (q, k, v))]
+        with jax.default_device(jax.devices("cpu")[0]):
+            out = jax_attn_step(jnp.asarray(carry.float().numpy()),
+                                *(jnp.asarray(x) for x in step))
+        carry = torch.from_numpy(np.array(out)).to(o.dtype)
+    return carry
+
+
+# How far the emulated routes may lie from the reference, in units of the
+# element type's eps times the reference carry's size: (largest |gap| over
+# max |ref|, rms gap over rms ref).  The gap is the carry's rounding to T
+# landing on the other side now and then (P's rounding on wgmma, 3xTF32's
+# on f32, moving a level's value by less than a carry ulp).  Measured over
+# seeds 41 and 1-4, both layouts, 1, 3 and 16 levels, from a carry of unit
+# size and from zero: f32 at most 7.2 / 3.8, bf16 1.12 / 0.59, f16 1.37 /
+# 0.59; the limits are about twice that.  A level dropped lies at least
+# 10x the limit away (bf16; f16 80x), and P rounded through bfloat16
+# from a zero carry 1.4x (f16, rms) and 1200x (f32).
+EMU_VS_REF = {"f32_3xtf32": (16.0, 8.0), "bf16_wgmma": (3.0, 1.0),
+              "f16_wgmma": (3.0, 1.0)}
+
+
+def _within_ref(got, want):
+    """Whether ``got`` lies within ``EMU_VS_REF`` of the reference carry
+    ``want`` (for ``got``'s element type): both measures, as booleans."""
+    route = {torch.float32: "f32_3xtf32", torch.bfloat16: "bf16_wgmma",
+             torch.float16: "f16_wgmma"}[want.dtype]
+    eps = torch.finfo(want.dtype).eps
+    gap = got.double() - want.double()
+    top, rms = EMU_VS_REF[route]
+    return (gap.abs().max() <= top * eps * want.double().abs().max(),
+            gap.pow(2).mean().sqrt() <= rms * eps *
+            want.double().pow(2).mean().sqrt())
+
+
+@pytest.mark.parametrize("route", ["f32_3xtf32", "bf16_wgmma", "f16_wgmma"])
+@pytest.mark.parametrize("n_levels", [1, 3, 16])
+@pytest.mark.parametrize("layout", [("single", "single", "xs", "xs"),
+                                    ("single", "xs", "xs", "xs")],
+                         ids=["q-single", "all-xs"])
+def test_emulated_route_is_its_own_replay_and_the_reference(route,
+                                                            n_levels,
+                                                            layout):
+    """The tensor-core routes' arithmetic, emulated: bit for bit its own
+    per-level replay (the chunks depend on the level alone, each level is
+    computed apart from the carry, and the carry is rounded after every
+    level), and within ``EMU_VS_REF`` of the reference's ``attn_step``
+    chain on the same values, which the chain with its last level dropped
+    is not."""
+    args = _emu_operands(route, layout, n_levels)
+    assert kernel.attn_chunks(route, 48, 300, args[1].shape[-1]) > 1
+    got = _emulate_chain_attn(route, layout, n_levels, *args)
+    replay = _emulate_replay(route, layout, n_levels, *args)
+    assert torch.equal(got.view(torch.uint8), replay.view(torch.uint8))
+    want = _jax_chain(layout, n_levels, *args)
+    assert all(_within_ref(got, want)), _within_ref(got, want)
+    dropped = _emulate_chain_attn(route, layout, n_levels - 1, *args)
+    assert not any(_within_ref(dropped, want))
+
+
+@pytest.mark.parametrize("route", ["f32_3xtf32", "f16_wgmma"])
+@pytest.mark.parametrize("n_levels", [1, 3, 16])
+def test_emulated_p_of_the_wrong_type_misses_the_reference(route, n_levels):
+    """From a zero carry, where no carry's rounding hides a level's: the
+    emulated route lies within ``EMU_VS_REF`` of the reference, and with P
+    rounded through bfloat16 first (wider than P's own rounding on f16,
+    far wider on f32's 3xTF32) it does not.  bfloat16 P has no coarser
+    16-bit type to be rounded through."""
+    layout = ("single", "single", "xs", "xs")
+    args = _emu_operands(route, layout, n_levels, zero_carry=True)
+    want = _jax_chain(layout, n_levels, *args)
+    got = _emulate_chain_attn(route, layout, n_levels, *args)
+    assert all(_within_ref(got, want)), _within_ref(got, want)
+    bad = _emulate_chain_attn(route, layout, n_levels, *args,
+                              p_through=torch.bfloat16)
+    assert not all(_within_ref(bad, want))
+
+
+def test_chunks_from_the_chain_length_break_replay():
+    """The fault of a chunk count taken from ``n_levels`` (here one chunk
+    for a chain, the level's own count for one level): a level's merge
+    then rounds differently in a chain than in its replay, and the bits
+    part."""
+    route = "f32_3xtf32"
+    layout = ("single", "single", "xs", "xs")
+    args = _emu_operands(route, layout, 3)
+    S = kernel.attn_chunks(route, 48, 300, 32)
+    assert S > 1
+
+    def from_length(n_levels):
+        return S if n_levels == 1 else 1
+    got = _emulate_chain_attn(route, layout, 3, *args, chunks=from_length)
+    replay = _emulate_replay(route, layout, 3, *args, chunks=from_length)
+    assert not torch.equal(got.view(torch.uint8), replay.view(torch.uint8))
+    # the right rule keeps them equal on the same values
+    assert torch.equal(
+        _emulate_chain_attn(route, layout, 3, *args).view(torch.uint8),
+        _emulate_replay(route, layout, 3, *args).view(torch.uint8))
+
+
+def _f64_error(got, o, q, k, v):
+    """The largest |got - exact| of one level from carry ``o`` in
+    float64."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    exact = o.double() + torch.softmax(
+        (q.double() @ k.double().T) * scale, -1) @ v.double()
+    return (got.double() - exact).abs().max().item()
+
+
+@pytest.mark.parametrize("route, limit", [("f32_3xtf32", 4.0),
+                                          ("bf16_wgmma", 2.0),
+                                          ("f16_wgmma", 2.0)])
+def test_emulated_error_against_float64_and_the_faults_it_sees(route,
+                                                               limit):
+    """One level from a zero carry, where no carry's rounding hides a
+    level's: the emulated route's float64 error is at most ``limit``
+    times the CUDA-core loop's (the plain version: float32 inside, P kept
+    in float32, one rounding), the limit ``chip_smoke.py`` holds the card
+    to; chunks merged without their weights, and on f16 P rounded through
+    bfloat16 first, fall outside it."""
+    layout = ("single",) * 4
+    errs = []
+    for seed in range(3):
+        o, q, k, v = _emu_operands(route, layout, 1, zero_carry=True,
+                                   seed=seed)
+        simt = _f64_error(ref.chain_attn(layout, 0, 1, o, q, k, v), o, q, k,
+                          v)
+        tc = _f64_error(_emulate_chain_attn(route, layout, 1, o, q, k, v),
+                        o, q, k, v)
+        no_w = _f64_error(_emulate_chain_attn(route, layout, 1, o, q, k, v,
+                                              rescale=False), o, q, k, v)
+        errs.append((tc / simt, no_w / simt))
+        if route == "f16_wgmma":
+            bad = _f64_error(_emulate_chain_attn(
+                route, layout, 1, o, q, k, v, p_through=torch.bfloat16),
+                o, q, k, v)
+            assert bad > limit * simt, (bad, simt)
+    assert all(r <= limit for r, _ in errs), errs
+    assert all(bad > limit for _, bad in errs), errs

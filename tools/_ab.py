@@ -16,7 +16,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 KERNELS = Path("src/repro_torch/kernels")
 sys.path.insert(0, str(ROOT))
-from chip_smoke import gpu_name_and_power, time_ms  # noqa: E402
+from chip_smoke import gpu_name_and_power, graph_ms, time_ms  # noqa: E402
 
 SIDES = ("other", "this", "this", "other")
 
@@ -52,12 +52,19 @@ def build_all(libraries, words=("registers", "spill", "error")) -> list:
     return [path for path, _log in built]
 
 
-def ab(torch, name: str, fn, iters: int, warmup: int) -> None:
+def ab(torch, name: str, fn, iters: int, warmup: int,
+       graph: bool = False) -> None:
     """Time ``fn(side)`` with CUDA events in the order other, this, this,
-    other and print the four times and each side's mean."""
-    times = [(side, time_ms(torch, lambda side=side: fn(side), iters,
-                            warmup))
-             for side in SIDES]
+    other and print the four times and each side's mean; with ``graph``,
+    ``iters`` calls captured in a CUDA graph (``chip_smoke.graph_ms``: the
+    device time of kernels shorter than their host work)."""
+    if graph:
+        times = [(side, graph_ms(torch, lambda side=side: fn(side), iters))
+                 for side in SIDES]
+    else:
+        times = [(side, time_ms(torch, lambda side=side: fn(side), iters,
+                                warmup))
+                 for side in SIDES]
     mean = {s: sum(t for x, t in times if x == s) / 2 for s in SIDES[:2]}
     order = ", ".join(f"{s} {t:.4f}" for s, t in times)
     print(f"[ab] {name}: ms in order {order}; mean other "

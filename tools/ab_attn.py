@@ -82,11 +82,22 @@ C entry points on the same inputs:
   ``f16_wgmma`` (within ``F16_SLICE_NRMS``, 2^-10), at the reference's
   cases at d 64 and 128, ``MID_ATTN`` at ``MID_HEAD_DIMS`` and
   ``BWD_SHAPES``' float16 shapes;
-* ``chain_attn`` in float32, bfloat16 and float64 at ``chip_smoke.py``'s
-  two shapes (a 512-row Qwen3-14B tile x 16 levels of 512 keys, and a
-  ragged (100, 70, d 40, dv 24) x 3) in its three layouts: bit for bit
-  equal on the two sides (a side whose entry point takes a workspace and
-  row-tile counters gets them);
+* ``chain_attn`` in float32, bfloat16, float64 and float16 (where the
+  other side has it) at ``chip_smoke.py``'s two shapes (a 512-row
+  Qwen3-14B tile x 16 levels of 512 keys, and a ragged (100, 70, d 40, dv
+  24) x 3) in its three layouts, each side called with what its entry
+  point takes (a workspace and row-tile counters; since the tensor-core
+  routes also the chunks of a level's keys, from this checkout's
+  ``kernel.attn_chunks``, and a workspace and counters sized by its
+  rules), each side's route printed (``bind_chain_route_attn``; a side
+  without it has the CUDA-core loop alone): where both sides take one
+  route, bit for bit equal; where this side takes a tensor-core route and
+  the other the CUDA-core loop, this side within ``chip_smoke.py``'s TOL
+  times the levels of the plain version and its largest error against a
+  float64 computation at most ``TF32_VS_SIMT`` (float32) or
+  ``CHAIN_HALF_VS_SIMT`` (bfloat16, float16) times the other side's; and
+  on copies of the same values one element into their storage, which
+  every side's CUDA-core loop takes, bit for bit equal;
 * the kernels are timed with CUDA events in the order other, this, this,
   other: flash attention at both full widths in both dtypes and at
   ``FAMILY_ATTN``'s shapes whose head dim is no multiple of 64
@@ -95,7 +106,11 @@ C entry points on the same inputs:
   (h2o-danube-1.8b's FSDP step shape); the backward at ``BWD_SHAPES`` and
   those two shapes (each side's tensor-core route where it takes one with
   the forward's log-sum-exp, else its CUDA-core entry point); and
-  ``chain_attn`` at the 512-row tile in float32.
+  ``chain_attn`` at the 512-row tile x 16 levels in float32, bfloat16 and
+  float16 and one float32 level (each side on the route it takes, and on
+  the odd-offset copies on the CUDA-core loop), device time from CUDA
+  graphs (a level's kernel takes less time than the wrapper's host
+  work).
 
 The card's name and power limit come first.  Exits non-zero on the first
 disagreement.
@@ -110,11 +125,12 @@ from pathlib import Path
 
 from _ab import KERNELS, ROOT, ab, build_all, start
 from chip_smoke import (ATTN_CASES, ATTN_TOL, BWD_SHAPES, BWD_F32_NRMS,
-                        FAMILY_ATTN, FAMILY_F32_ATTN, FULL_ATTN,
-                        FULL_ATTN_F16, HALF_LIMITS, MID_ATTN,
-                        MID_HEAD_DIMS, ODD_ATTN, TF32_VS_SIMT, attention64,
-                        attention_grad64, half_attention_error, half_within,
-                        slice_nrms, tf32_vs_simt)
+                        CHAIN_HALF_VS_SIMT, FAMILY_ATTN, FAMILY_F32_ATTN,
+                        chain_attn64,
+                        FULL_ATTN, FULL_ATTN_F16, HALF_LIMITS, MID_ATTN,
+                        MID_HEAD_DIMS, ODD_ATTN, TF32_VS_SIMT, TOL,
+                        attention64, attention_grad64, half_attention_error,
+                        half_within, odd_offset, slice_nrms, tf32_vs_simt)
 
 # the routes in the order of flash_attention.cu's Route enum; a side whose
 # bind_flash_attention_route takes the element size has the first three
@@ -129,7 +145,8 @@ CHAIN_LAYOUTS = (("single", "single", "xs", "xs"),
                  ("single", "xs", "xs", "xs"),
                  ("single", "single", "single", "single"))
 FA_SUFFIX = {"float32": "f32", "bfloat16": "bf16", "float16": "f16"}
-CHAIN_SUFFIX = {"float32": "f32", "bfloat16": "bf16", "float64": "f64"}
+CHAIN_SUFFIX = {"float32": "f32", "bfloat16": "bf16", "float64": "f64",
+                "float16": "f16"}
 _P, _I, _I64, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_double)
 FA_ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _D, _I, _I,
@@ -157,11 +174,21 @@ BWD_ROUTES = ("f32_simt", "bf16_simt", "f16_simt", "bf16_wgmma",
 # inputs: the same f32 scores summed in another order, one MUFU ex2 a key
 # (a few float32 ulps of values up to ~10)
 LSE_TOL = 1e-5
-# bind_chain_attn_*: with (work, done) after out, or without
-CHAIN_ARGS = {True: (_P, _P, _I64, _P, _I64, _P, _I64, _P, _P, _P, _I64,
-                     _I64, _I64, _I64, _I64, _D, _P),
-              False: (_P, _P, _I64, _P, _I64, _P, _I64, _P, _I64, _I64,
-                      _I64, _I64, _I64, _D, _P)}
+# bind_chain_attn_*: with (work, done) after out and the chunks after the
+# levels (the tensor-core routes), with (work, done) alone, or without
+CHAIN_ARGS = {"chunks": (_P, _P, _I64, _P, _I64, _P, _I64, _P, _P, _P, _I64,
+                         _I64, _I64, _I64, _I64, _I64, _D, _P),
+              "work": (_P, _P, _I64, _P, _I64, _P, _I64, _P, _P, _P, _I64,
+                       _I64, _I64, _I64, _I64, _D, _P),
+              "plain": (_P, _P, _I64, _P, _I64, _P, _I64, _P, _I64, _I64,
+                        _I64, _I64, _I64, _D, _P)}
+# chain_attn's route: (element-type code, q, q_stride, k, k_stride, v,
+# v_stride, N, d, dv, n_levels), an index of this checkout's ATTN_ROUTES
+CHAIN_ROUTE_SYMBOL = "bind_chain_route_attn"
+CHAIN_ROUTE_ARGS = (_I, _P, _I64, _P, _I64, _P, _I64, _I64, _I64, _I64,
+                    _I64)
+CHAIN_DTYPE_CODES = {"float32": 0, "bfloat16": 1, "float64": 2,
+                     "float16": 3}
 
 
 def libraries(CudaLibrary, side: str, root: Path):
@@ -204,15 +231,27 @@ def libraries(CudaLibrary, side: str, root: Path):
     # how its route entry point names the element type
     fa.route_by_size = "int elem_bytes" in source
     chain_cu = root / KERNELS / "chain" / "csrc" / "chain.cu"
-    # the level-parallel kernel's entry point names its workspace
-    entry = re.search(r"int bind_chain_attn_##SUFFIX\((.*?)\)",
-                      chain_cu.read_text(), re.S).group(1)
-    with_work = "work" in entry
+    chain_src = chain_cu.read_text()
+    # what the entry point takes: the level-parallel kernel's names its
+    # workspace, the tensor-core routes' also the chunks
+    entry = re.search(r"int bind_chain_attn_##SUFFIX\((.*?)\)", chain_src,
+                      re.S).group(1)
+    kind = ("chunks" if "chunks" in entry else
+            "work" if "work" in entry else "plain")
+    has_f16 = "BIND_CHAIN_ENTRY_POINTS(f16" in chain_src
+    chain_syms = {f"bind_chain_attn_{s}": CHAIN_ARGS[kind]
+                  for d, s in CHAIN_SUFFIX.items()
+                  if d != "float16" or has_f16}
+    if CHAIN_ROUTE_SYMBOL in chain_src:
+        chain_syms[CHAIN_ROUTE_SYMBOL] = CHAIN_ROUTE_ARGS
+    # chain.cu and, where the side has them, the translation units of
+    # chain_attn's tensor-core kernels
     chain = CudaLibrary(
-        f"ab_chain_{side}", (chain_cu,), headers,
-        {f"bind_chain_attn_{s}": CHAIN_ARGS[with_work]
-         for s in CHAIN_SUFFIX.values()})
-    return fa, chain, with_work, bwd
+        f"ab_chain_{side}",
+        (chain_cu,) + tuple(sorted(set(chain_cu.parent.glob("*.cu"))
+                                   - {chain_cu})),
+        headers + tuple(sorted(chain_cu.parent.glob("*.cuh"))), chain_syms)
+    return fa, chain, kind, bwd
 
 
 def main(argv: list[str]) -> int:
@@ -608,50 +647,117 @@ def main(argv: list[str]) -> int:
             if not bwd_case(label, shape, dname, blk):
                 return 1
 
-    def chain_call(side, dname, o, q, qs, k, ks, v, vs, L, out):
+    from repro_torch.kernels.chain import kernel as chain_kernel
+    from repro_torch.kernels.chain import ops as chain_ops
+
+    def chain_route(side, dname, q, qs, k, ks, v, vs, L):
+        """The route the side's library takes (``f32_simt`` and the like
+        for a side without the route entry point: its one loop)."""
+        lib = libs[side][1]
+        if CHAIN_ROUTE_SYMBOL not in lib.symbols:
+            return f"{CHAIN_SUFFIX[dname]}_simt"
+        n, d = k.shape[-2:]
+        r = getattr(lib.load(), CHAIN_ROUTE_SYMBOL)(
+            CHAIN_DTYPE_CODES[dname], q.data_ptr(), qs, k.data_ptr(), ks,
+            v.data_ptr(), vs, n, d, v.shape[-1], L)
+        return chain_ops.ATTN_ROUTES[r]
+
+    def chain_call(side, dname, layout, L, o, q, k, v, out):
+        """One launch of the side's chain_attn entry point into ``out``,
+        with the workspace, counters and chunks its entry point takes."""
         m, dv = o.shape
         n, d = k.shape[-2:]
+        qs, ks, vs = (t[0].numel() if lay == "xs" else 0
+                      for lay, t in zip(layout[1:], (q, k, v)))
+        kind = libs[side][2]
         args = [o.data_ptr(), q.data_ptr(), qs, k.data_ptr(), ks,
                 v.data_ptr(), vs, out.data_ptr()]
-        if libs[side][2]:
+        tail = []
+        if kind == "chunks":
+            route = chain_route(side, dname, q, qs, k, ks, v, vs, L)
+            tc = route in chain_kernel.TC_ROUTES
+            chunks = chain_kernel.attn_chunks(route, m, n, d)
+            acc = 4 if tc or dname != "float64" else 8
+            work = torch.empty(chain_kernel.level_bytes(
+                m, dv, o.dtype, chunks if tc else None) * L // acc,
+                dtype=torch.float32 if acc == 4 else torch.float64,
+                device=dev)
+            args += [work.data_ptr(), done[side].data_ptr()]
+            tail = [chunks]
+        elif kind == "work":
             acc = torch.float64 if dname == "float64" else torch.float32
             work = torch.empty((L, m, dv), dtype=acc, device=dev)
             args += [work.data_ptr(), done[side].data_ptr()]
+        # the stream current at the call (a CUDA graph's capture stream
+        # when timed)
         libs[side][1].call(f"bind_chain_attn_{CHAIN_SUFFIX[dname]}", *args,
-                           m, n, d, dv, L, 1.0 / float(d) ** 0.5, stream)
+                           m, n, d, dv, L, *tail, 1.0 / float(d) ** 0.5,
+                           torch.cuda.current_stream(dev).cuda_stream)
 
-    done = {s: torch.zeros(1024, dtype=torch.int32, device=dev)
+    done = {s: torch.zeros(1 << 16, dtype=torch.int32, device=dev)
             for s in libs}
 
     def chain_operands(layout, m, n, d, dv, L, dt):
         shapes = ((m, dv), (m, d), (n, d), (n, dv))
-        ops = tuple(rand(((L,) if lay == "xs" else ()) + shape, dt)
-                    for lay, shape in zip(layout, shapes))
-        strides = [t[0].numel() if lay == "xs" else 0
-                   for lay, t in zip(layout[1:], ops[1:])]
-        return ops, strides
+        return tuple(rand(((L,) if lay == "xs" else ()) + shape, dt)
+                     for lay, shape in zip(layout, shapes))
 
-    for dname in CHAIN_SUFFIX:
+    chain_dtypes = [d for d in CHAIN_SUFFIX
+                    if all(f"bind_chain_attn_{CHAIN_SUFFIX[d]}"
+                           in libs[s][1].symbols for s in libs)]
+    for dname in chain_dtypes:
         dt = getattr(torch, dname)
         for m, n, d, dv, L in CHAIN_SHAPES:
             for layout in CHAIN_LAYOUTS:
-                (o, q, k, v), (qs, ks, vs) = chain_operands(layout, m, n, d,
-                                                            dv, L, dt)
-                outs = {s: torch.empty_like(o) for s in libs}
-                for side in libs:
-                    chain_call(side, dname, o, q, qs, k, ks, v, vs, L,
-                               outs[side])
-                torch.cuda.synchronize()
-                ok = torch.equal(outs["this"].view(torch.uint8),
-                                 outs["other"].view(torch.uint8))
-                exp = chain_ref.chain_attn(layout, 0, L, o, q, k, v)
-                err = (outs["this"].double() - exp.double()).abs().max().item()
-                print(f"[check] chain_attn ({m},{n},{d},{dv}) x {L} {dname} "
-                      f"{layout[1:]}: this vs other bitwise equal: "
-                      f"{'ok' if ok else 'FAILED'}; this vs plain "
-                      f"max_abs_err {err:.3e}")
-                if not ok:
-                    return 1
+                args = chain_operands(layout, m, n, d, dv, L, dt)
+                odd = (args[0],) + tuple(odd_offset(t) for t in args[1:])
+                exp = chain_ref.chain_attn(layout, 0, L, *args)
+                for label, ops_ in (("", args), (" one element in", odd)):
+                    routes = {}
+                    outs = {}
+                    for side in libs:
+                        o, q, k, v = ops_
+                        qs, ks, vs = (t[0].numel() if lay == "xs" else 0
+                                      for lay, t in zip(layout[1:],
+                                                        (q, k, v)))
+                        routes[side] = chain_route(side, dname, q, qs, k,
+                                                   ks, v, vs, L)
+                        outs[side] = torch.empty_like(o)
+                        chain_call(side, dname, layout, L, *ops_,
+                                   outs[side])
+                    torch.cuda.synchronize()
+                    err = (outs["this"].double() - exp.double()).abs().max(
+                        ).item()
+                    name = (f"chain_attn ({m},{n},{d},{dv}) x {L} {dname} "
+                            f"{layout[1:]}{label} (routes: this "
+                            f"{routes['this']}, other {routes['other']})")
+                    if routes["this"] == routes["other"]:
+                        ok = torch.equal(outs["this"].view(torch.uint8),
+                                         outs["other"].view(torch.uint8))
+                        print(f"[check] {name}: this vs other bitwise "
+                              f"equal: {'ok' if ok else 'FAILED'}; this vs "
+                              f"plain max_abs_err {err:.3e}")
+                    else:
+                        rtol, atol = TOL[dname]
+                        exact = chain_attn64(torch, layout, L, *ops_)
+                        e_this = (outs["this"].double() - exact).abs().max(
+                            ).item()
+                        e_other = (outs["other"].double() - exact).abs(
+                            ).max().item()
+                        limit = (TF32_VS_SIMT if dname == "float32"
+                                 else CHAIN_HALF_VS_SIMT)
+                        ratio = e_this / max(e_other, 1e-30)
+                        close = torch.allclose(outs["this"], exp, rtol=rtol,
+                                               atol=atol * L)
+                        ok = close and ratio <= limit
+                        print(f"[check] {name}: this within rtol {rtol} "
+                              f"atol {atol} x {L} of the plain version "
+                              f"(max_abs_err {err:.3e}): {close}; float64 "
+                              f"error {e_this:.3e} = {ratio:.2f}x the "
+                              f"other's {e_other:.3e} (limit {limit}): "
+                              f"{'ok' if ok else 'FAILED'}")
+                    if not ok:
+                        return 1
     print(f"[check] row-tile counters left at zero: "
           f"{all(not t.any().item() for t in done.values())}")
 
@@ -729,14 +835,30 @@ def main(argv: list[str]) -> int:
                 ab(torch, f"flash_attention_bwd {model} {dname} ({label})",
                    run, 5, 1)
                 del q, k, v, out, dout, lse
-    m, n, d, dv, L = CHAIN_SHAPES[0]
-    (o, q, k, v), (qs, ks, vs) = chain_operands(CHAIN_LAYOUTS[0], m, n, d,
-                                                dv, L, torch.float32)
-    out = torch.empty_like(o)
-    ab(torch, f"chain_attn ({m},{n},{d},{dv}) x {L} float32, k and v per "
-       f"level",
-       lambda side: chain_call(side, "float32", o, q, qs, k, ks, v, vs, L,
-                               out), 20, 3)
+    # chain_attn at the 512-row tile: each side on the route it takes, and
+    # on copies one element in (every side's CUDA-core loop); device time
+    # from CUDA graphs
+    m, n, d, dv, _L = CHAIN_SHAPES[0]
+    layout = CHAIN_LAYOUTS[0]
+    for dname, L in (("float32", 16), ("bfloat16", 16), ("float16", 16),
+                     ("float32", 1)):
+        if dname not in chain_dtypes:
+            continue
+        args = chain_operands(layout, m, n, d, dv, L, getattr(torch, dname))
+        odd = (args[0],) + tuple(odd_offset(t) for t in args[1:])
+        out = torch.empty_like(args[0])
+        for label, ops_ in (("", args), (", one element in", odd)):
+            o, q, k, v = ops_
+            qs, ks, vs = (t[0].numel() if lay == "xs" else 0
+                          for lay, t in zip(layout[1:], (q, k, v)))
+            routes = {side: chain_route(side, dname, q, qs, k, ks, v, vs, L)
+                      for side in libs}
+            ab(torch, f"chain_attn ({m},{n},{d},{dv}) x {L} {dname}, k and "
+               f"v per level{label} (routes: this {routes['this']}, other "
+               f"{routes['other']})",
+               lambda side, ops_=ops_, L=L, dname=dname: chain_call(
+                   side, dname, layout, L, *ops_, out), 20, 3, graph=True)
+    return 0
     return 0
 
 

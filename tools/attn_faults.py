@@ -5,7 +5,8 @@ checks catch them.
 
 Usage, from the root of a checkout, on a machine with one CUDA card::
 
-    python3 tools/attn_faults.py
+    python3 tools/attn_faults.py          # every fault
+    python3 tools/attn_faults.py chain    # chain_attn's alone
 
 For each fault in ``FAULTS`` the flash-attention sources
 (``src/repro_torch/kernels/flash_attention/csrc`` and the GEMM headers
@@ -51,6 +52,24 @@ the control's.  The control runs all five sets.  A
 fault is caught when some case fails a check; how many cases each check
 fails is printed.
 
+``chain_attn``'s tensor-core routes (``kernels/chain/csrc/
+chain_attn_tc.cuh``) have faults of their own, ``CHAIN_FAULTS``, run by
+``chain_faults`` (alone with ``python3 tools/attn_faults.py chain``):
+chunks merged without their weights 2^(m_c - m*) (planted in a copy of
+``chain_attn_tc.cuh``), P rounded through bfloat16 on ``f16_wgmma`` (the
+same line of a copy of ``attn_wgmma.cuh``, which the chain library
+includes) and the chunk count taken from the chain's length (the wrapper's
+``kernel.attn_chunks`` patched for the run: one chunk for a chain of more
+than one level, the level's own count for one).  Each copy's chain library
+stands in for the built one under ``chain_ops.chain_attn`` and runs
+``chip_smoke.py``'s chain checks: the 512-row Qwen3-14B tile x 16 levels
+in float32, bfloat16 and float16, in the three layouts, bit for bit its
+per-level ``attn_step`` replay and within ``TOL`` times the levels of the
+plain version; and the 16 levels and one served level from a zero carry
+against float64, at most ``TF32_VS_SIMT`` (float32) or
+``CHAIN_HALF_VS_SIMT`` times the CUDA-core loop's error on odd-offset
+copies of the same values.
+
 Prints, per fault, how many cases caught it and the worst statistics over
 the cases.  Exits non-zero when the control fails a check or a fault
 marked as one the checks must catch is not caught.
@@ -63,11 +82,14 @@ import shutil
 import sys
 
 from _ab import KERNELS, ROOT, build_all, start
-from chip_smoke import (ATTN_CASES, ATTN_TOL, BWD_F32_NRMS, BWD_SHAPES,
-                        F16_SLICE_NRMS, FULL_ATTN, FULL_ATTN_F16,
-                        HALF_LIMITS, MID_ATTN, MID_HEAD_DIMS, TF32_VS_SIMT,
-                        attention64, attention_grad64, half_attention_error,
-                        half_within, odd_offset, slice_nrms, tf32_vs_simt)
+from chip_smoke import (ATTN_CASES, ATTN_TILE, ATTN_LEVELS, ATTN_TOL,
+                        BWD_F32_NRMS, BWD_SHAPES, CHAIN_ATTN_ROUTES,
+                        CHAIN_HALF_VS_SIMT, F16_SLICE_NRMS, FULL_ATTN,
+                        FULL_ATTN_F16, HALF_LIMITS, MID_ATTN, MID_HEAD_DIMS,
+                        TF32_VS_SIMT, TOL, attention64, attention_grad64,
+                        chain_attn64,
+                        half_attention_error, half_within, odd_offset,
+                        slice_nrms, tf32_vs_simt)
 
 # the f16 packing of P and dS into A registers (attn_wgmma.cuh
 # Elem<__half>::pack), and the same through bfloat16 first
@@ -208,6 +230,16 @@ FAULTS = (
     ("P and dS rounded through bf16", "float16 backward", "attn_wgmma.cuh",
      F16_PACK, F16_PACK_BF16, True),
 )
+# chain_attn's faults: (name, file of the copy or None for a fault of the
+# wrapper, line, replacement); every one must be caught
+CHAIN_FAULTS = (
+    ("chunks merged without the rescale", "chain_attn_tc.cuh",
+     "      const float wc = exp2f(__fsub_rn(w[c * ROWS + r], mx));",
+     "      const float wc = 1.0f;"),
+    ("P rounded through bf16 on f16_wgmma", "attn_wgmma.cuh", F16_PACK,
+     F16_PACK_BF16),
+    ("chunks from the chain's length", None, None, None),
+)
 # the float32 backward's cases: (B, Hq, Hkv, S, d, window), causal;
 # h2o-danube-1.8b's FSDP step shape, and one long enough (512 key tiles a
 # row block, 2048 query tiles a key block) for the tensor cores'
@@ -280,14 +312,144 @@ def planted(CudaLibrary, index, fault, backward: bool = False):
                         "bind_flash_attention_route": ROUTE_ARGS})
 
 
+def chain_planted(CudaLibrary, index, fault, symbols):
+    """The chain library of a copy of the chain, flash-attention and GEMM
+    sources with ``fault`` (one of CHAIN_FAULTS; None or a wrapper's fault:
+    the sources as they are) planted."""
+    copy = ROOT / "build" / "attn_faults" / f"chain{index}"
+    if copy.exists():
+        shutil.rmtree(copy)
+    for part in ("chain", "flash_attention", "gemm"):
+        shutil.copytree(ROOT / KERNELS / part / "csrc", copy / part / "csrc")
+    if fault is not None and fault[1] is not None:
+        _name, file, line, replacement = fault
+        part = "chain" if file.startswith("chain") else "flash_attention"
+        path = copy / part / "csrc" / file
+        text = path.read_text()
+        if text.count(line) != 1:
+            raise RuntimeError(f"{file}: {line!r} occurs {text.count(line)} "
+                               f"times, expected once")
+        path.write_text(text.replace(line, replacement))
+    headers = tuple(sorted(copy.glob("*/csrc/*.cuh")))
+    chain_cu = copy / "chain" / "csrc" / "chain.cu"
+    return CudaLibrary(f"attn_fault_chain_{index}",
+                       (chain_cu,) + tuple(sorted(
+                           set(chain_cu.parent.glob("*.cu")) - {chain_cu})),
+                       headers, symbols)
+
+
+def chain_faults(torch, libs) -> bool:
+    """Run chip_smoke.py's chain_attn checks through each library of
+    ``libs`` (the control's first, then CHAIN_FAULTS' in order); returns
+    whether the control passed and every fault was caught."""
+    from repro_torch.kernels.chain import kernel as chain_kernel
+    from repro_torch.kernels.chain import ops as chain_ops
+    from repro_torch.kernels.chain import ref as chain_ref
+    from repro_torch.kernels.flash_attention.ops import attn_step
+
+    dev = torch.device("cuda", 0)
+    m, n, d, dv = ATTN_TILE
+    layouts = (("single", "single", "xs", "xs"), ("single", "xs", "xs", "xs"),
+               ("single", "single", "single", "single"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def operands(layout, L, dt, zero=False):
+        shapes = ((m, dv), (m, d), (n, d), (n, dv))
+        out = [torch.randn(((L,) if lay == "xs" else ()) + shape,
+                           generator=gen, device=dev).to(dt)
+               for lay, shape in zip(layout, shapes)]
+        if zero:
+            out[0] = torch.zeros_like(out[0])
+        return out
+
+    cases = []
+    for dname in ("float32", "bfloat16", "float16"):
+        dt = getattr(torch, dname)
+        for layout in layouts:
+            cases.append((f"{dname} x {ATTN_LEVELS} {layout[1:]}", dname,
+                          layout, ATTN_LEVELS,
+                          operands(layout, ATTN_LEVELS, dt)))
+        cases.append((f"{dname} one served level", dname, layouts[0], 1,
+                      operands(layouts[0], 1, dt, zero=True)))
+    real_lib, real_launch = chain_kernel.LIBRARY, chain_kernel.launch_attn
+    real_chunks = chain_kernel.attn_chunks
+    levels_now = {}
+
+    def launch_noting_levels(out, o, q, qs, k, ks, v, vs, n_levels, route):
+        levels_now["n"] = n_levels
+        return real_launch(out, o, q, qs, k, ks, v, vs, n_levels, route)
+
+    def chunks_from_length(route, m_, n_, d_):
+        own = real_chunks(route, m_, n_, d_)
+        return own if levels_now.get("n", 1) == 1 else 1
+
+    ok = True
+    for lib, fault in zip(libs, (None,) + CHAIN_FAULTS):
+        name = "control" if fault is None else fault[0]
+        chain_kernel.LIBRARY = lib
+        if fault is not None and fault[1] is None:
+            chain_kernel.launch_attn = launch_noting_levels
+            chain_kernel.attn_chunks = chunks_from_length
+        caught = {"replay": 0, "tolerance": 0, "float64": 0}
+        worst = 0.0
+        try:
+            for label, dname, layout, L, args in cases:
+                tc, simt = CHAIN_ATTN_ROUTES[dname]
+                got = chain_ops.chain_attn(layout, 0, L, *args)
+                replay = chain_ref.run_levels(attn_step, layout, 0, L, args)
+                odd = (args[0],) + tuple(odd_offset(t) for t in args[1:])
+                base = chain_ops.chain_attn(layout, 0, L, *odd)
+                torch.cuda.synchronize()
+                exp = chain_ref.chain_attn(layout, 0, L, *args)
+                exact = chain_attn64(torch, layout, L, *args)
+                rtol, atol = TOL[dname]
+                limit = (TF32_VS_SIMT if dname == "float32"
+                         else CHAIN_HALF_VS_SIMT)
+                ratio = ((got.double() - exact).abs().max().item()
+                         / max((base.double() - exact).abs().max().item(),
+                               1e-30))
+                worst = max(worst, ratio) if ratio == ratio else float("inf")
+                bad = {"replay": not torch.equal(got.view(torch.uint8),
+                                                 replay.view(torch.uint8)),
+                       "tolerance": not torch.allclose(
+                           got, exp, rtol=rtol, atol=atol * L),
+                       "float64": not ratio <= limit}
+                for key, b in bad.items():
+                    caught[key] += b
+                if fault is None and any(bad.values()):
+                    print(f"[fault] chain control {label}: fails {bad} "
+                          f"(float64 {ratio:.2f}x)")
+        finally:
+            chain_kernel.LIBRARY = real_lib
+            chain_kernel.launch_attn = real_launch
+            chain_kernel.attn_chunks = real_chunks
+        total = sum(caught.values())
+        print(f"[fault] chain_attn {name}: cases failing each check "
+              f"{caught} of {len(cases)}; float64 error at most "
+              f"{worst:.2f} x the CUDA-core loop's")
+        ok &= (total == 0) if fault is None else (total > 0)
+    return ok
+
+
 def main(argv: list[str]) -> int:
-    if argv:
+    if argv not in ([], ["chain"]):
         print(__doc__, file=sys.stderr)
         return 2
     torch = start("attn_faults")
     if torch is None:
         return 1
     from repro_torch.kernels._build import CudaLibrary
+    from repro_torch.kernels.chain import kernel as chain_kernel
+    chain_libs = [chain_planted(CudaLibrary, i, f,
+                                chain_kernel.LIBRARY.symbols)
+                  for i, f in enumerate((None,) + CHAIN_FAULTS)]
+    if argv == ["chain"]:
+        build_all(chain_libs, ("error",))
+        ok = chain_faults(torch, chain_libs)
+        print(f"[fault] {'ok' if ok else 'FAILED'}: chain_attn's control "
+              f"passes and every fault is caught")
+        return 0 if ok else 1
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -295,8 +457,9 @@ def main(argv: list[str]) -> int:
     faults = (None,) + FAULTS
     libs = [planted(CudaLibrary, i, f) for i, f in enumerate(faults)]
     control_bwd = planted(CudaLibrary, "control_bwd", None, backward=True)
-    build_all(libs + [control_bwd, fa_kernel.LIBRARY, fa_kernel.BWD_LIBRARY],
-              ("error",))
+    build_all(libs + [control_bwd, fa_kernel.LIBRARY, fa_kernel.BWD_LIBRARY]
+              + chain_libs, ("error",))
+    chain_ok = chain_faults(torch, chain_libs)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
@@ -606,6 +769,7 @@ def main(argv: list[str]) -> int:
                 failed |= caught > 0
             elif fault[5] and not caught:
                 failed = True
+    failed |= not chain_ok
     print(f"[fault] {'FAILED' if failed else 'ok'}: the control passes and "
           f"every fault the checks must catch is caught")
     return 1 if failed else 0
